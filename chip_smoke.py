@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (sphexa_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line:
+
+1. card: the card's name and power limit (nvidia-smi), torch and CUDA versions;
+2. build: compile the hand-written CUDA kernels from sphexa_torch/csrc;
+3. kernels vs plain: every pair-engine kernel against its plain PyTorch
+   version on the card, on the sorted Sedov state at side 24 with
+   cell_target=16 (per-run shift path) and side 12 (min-image fold path),
+   the lattice jittered from a seed so that every term of each pair body
+   is non-zero, and three whole steps on the card against the same steps on the CPU;
+4. main path: Sedov 100^3 (10^6 particles) through Simulation(prop="std")
+   on the card, one warm-up step and ten timed steps, with the launch
+   counters reset just before and read just after; then one step with
+   torch's CUDA sync debug mode on, to count the host syncs per step and
+   where they come from, and two more steps under torch.profiler for the
+   device time per step (kernels, copies and fills in the trace) and the
+   device busy share (that device time over the unprofiled step time);
+5. kernels vs plain again at the main path's shapes (the evolved side-100
+   state), with each kernel's time, its plain version's time, the
+   sort/prologue times and each kernel's least possible time (bound);
+
+then the {"kernels": [...]} line, the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}. Any failed check raises, so the
+script exits non-zero and prints no result; without a CUDA device, or
+without the rest of the repository beside it, it fails the same way.
+"""
+
+import collections
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import warnings
+
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+# FP32 operations per candidate pair for the mask (3 shift adds, 3
+# subtractions, 3 multiplies, 2 adds, the 2h compare, the self compare;
+# the symmetric cutoff adds a multiply and a compare) and per neighbour
+# pair for the op's body (an FMA counts 2; the kernel polynomial is 13
+# FMAs + 4 for its argument, clamp and floor = 30)
+MASK_OPS = 12
+SYM_OPS = 2
+BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96}
+# distinct float32 per-particle arrays each op reads and writes (each read
+# or written once), besides the run tables (5 x NG x W3 + NG words)
+IO_ARRAYS = {"density": (6, 2), "iad": (6, 6), "momentum_energy_std": (21, 5)}
+TPU_KERNEL = {
+    "density": "sphexa_tpu/sph/pallas_pairs.py:1121",
+    "iad": "sphexa_tpu/sph/pallas_pairs.py:1185",
+    "momentum_energy_std": "sphexa_tpu/sph/pallas_pairs.py:1275",
+}
+SOURCE = "sphexa_torch/csrc/pair_engine.cu"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median over ``reps`` runs of fn's device time, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def sorted_case(side: int, cell_target=None, state=None, cfg=None):
+    """Sorted Sedov state, its config and candidate runs on the card;
+    without ``state``, the side^3 lattice jittered from the seed ``side``."""
+    from sphexa_torch.convert import state_from_numpy, state_to_numpy
+    from sphexa_torch.init import init_sedov, jitter_sedov
+    from sphexa_torch.propagator import _force_stage_prologue
+    from sphexa_torch.simulation import make_propagator_config
+    from sphexa_torch.sph import pair_engine as pe
+
+    if state is None:
+        fields, box, const = state_to_numpy(*init_sedov(side, device="cpu"))
+        state, box, const = state_from_numpy(jitter_sedov(fields, side, seed=side),
+                                             box, const, device="cuda")
+    else:
+        state, box, const = state
+    if cfg is None:
+        cfg = make_propagator_config(state, box, const, cell_target=cell_target)
+    ss, box, keys = _force_stage_prologue(state, box, cfg)
+    ranges = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr)
+    return ss, box, const, cfg, keys, ranges
+
+
+def compare_ops(name, ss, box, const, cfg, keys, ranges, timing=False):
+    """Run each kernel and its plain version on the same inputs and hold
+    them to the JAX package's tolerances (tests/test_pallas_interpret.py).
+    Returns per-op results; with ``timing`` also device times."""
+    import torch
+
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.sph.hydro_std import compute_eos_std
+
+    nbr = cfg.nbr
+    res = {}
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+
+    def dens_k():
+        return pe.pallas_density(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
+
+    def dens_p():
+        return pe.density_plain(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
+
+    rho_k, nc_k, _ = dens_k()
+    rho_p, nc_p, _ = dens_p()
+    if not torch.equal(nc_k, nc_p):
+        raise AssertionError(f"{name}: density nc differs at "
+                             f"{int((nc_k != nc_p).sum())} targets")
+    torch.testing.assert_close(rho_k, rho_p, rtol=1e-5, atol=0.0)
+    res["density"] = {"max_abs_err": float((rho_k - rho_p).abs().max()),
+                      "nc_equal": True, "nb_pairs": int(nc_p.sum())}
+
+    rho = rho_k
+    p, c = compute_eos_std(ss.temp, rho, const)
+    vol = m / rho
+
+    def iad_k():
+        return pe.pallas_iad(x, y, z, h, vol, keys, box, const, nbr, ranges=ranges)
+
+    def iad_p():
+        return pe.iad_plain(x, y, z, h, vol, keys, box, const, nbr, ranges=ranges)
+
+    cs_k, _ = iad_k()
+    cs_p, _ = iad_p()
+    scale = float(cs_p[0].abs().max())
+    err = 0.0
+    for a, b in zip(cs_k, cs_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale)
+        err = max(err, float((a - b).abs().max()))
+    res["iad"] = {"max_abs_err": err}
+
+    margs = (x, y, z, ss.vx, ss.vy, ss.vz, h, m, rho, p, c, *cs_k, keys, box,
+             const, nbr)
+
+    def mom_k():
+        return pe.pallas_momentum_energy_std(*margs, ranges=ranges)
+
+    def mom_p():
+        return pe.momentum_energy_std_plain(*margs, ranges=ranges)
+
+    out_k = mom_k()
+    out_p = mom_p()
+    err = 0.0
+    for nm, a, b in zip(("ax", "ay", "az", "du"), out_k[:4], out_p[:4]):
+        s = float(b.abs().max()) + 1e-12
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * s, msg=f"{name}: {nm}")
+        err = max(err, float((a - b).abs().max()))
+    dk, dp = float(out_k[4]), float(out_p[4])
+    if abs(dk - dp) > 1e-5 * abs(dp):
+        raise AssertionError(f"{name}: min dt {dk} vs plain {dp}")
+    res["momentum_energy_std"] = {"max_abs_err": err, "min_dt_rel_err": abs(dk - dp) / abs(dp)}
+
+    if timing:
+        # the engine alone (kernel vs plain) on the op's precombined fields
+        fields = {
+            "density": pe.density_fields(x, y, z, h, m),
+            "iad": pe.iad_fields(x, y, z, h, vol),
+            "momentum_energy_std": pe.momentum_fields(*margs[:17]),
+        }
+        specs = {"density": pe.DENSITY, "iad": pe.IAD,
+                 "momentum_energy_std": pe.momentum_spec(const)}
+        fold = pe.engine_fold(box, nbr)
+        consts = pe.op_consts(const)
+        for op, spec in specs.items():
+            i_f, j_f = fields[op]
+            res[op]["ms"] = cuda_time_ms(lambda: pe.engine_kernel(
+                spec, ranges, i_f, j_f, fold, nbr.group, consts), reps=7)
+            res[op]["plain_ms"] = cuda_time_ms(lambda: pe.engine_plain(
+                spec, ranges, i_f, j_f, fold, nbr.group, consts), reps=2)
+    return res
+
+
+def bounds(ranges, n: int, group: int, nb_pairs: int):
+    """Least device time of each op from this run's candidate and
+    neighbour pair counts (operations) and its input/output bytes."""
+    import torch
+
+    cand_pairs = int(ranges.lens.to(torch.int64).sum()) * group
+    ng, w3 = ranges.starts.shape
+    table_bytes = 4 * (5 * ng * w3 + ng)
+    out = {}
+    for op, body in BODY_OPS.items():
+        ops = cand_pairs * (MASK_OPS + (SYM_OPS if op == "momentum_energy_std" else 0)) \
+            + nb_pairs * body
+        n_in, n_out = IO_ARRAYS[op]
+        nbytes = 4 * n * (n_in + n_out) + table_bytes
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+        out[op] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "cand_pairs": cand_pairs, "ops": ops, "bytes": nbytes}
+    return out
+
+
+def slice_vs_cpu(side: int, cell_target, steps: int) -> dict:
+    """Simulation steps on the card against the same steps on the CPU (the
+    pair ops' plain versions there), every step from the same input; the
+    accelerations' tolerance (rtol 1e-4, atol 5e-6 max|.|) carried through
+    the integrator, neighbour counts exact."""
+    import torch
+
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.simulation import Simulation
+
+    gpu = Simulation(*init_sedov(side, device="cuda"), device="cuda", cell_target=cell_target)
+    cpu = Simulation(*init_sedov(side, device="cpu"), device="cpu", cell_target=cell_target)
+    worst = 0.0
+    for it in range(steps):
+        cpu.state, cpu.box = gpu.state.to("cpu"), gpu.box.to("cpu")
+        dg, dc = gpu.step(), cpu.step()
+        for k in ("nc_mean", "nc_max", "occupancy"):
+            if dg[k] != dc[k]:
+                raise AssertionError(f"side {side} step {it}: {k} {dg[k]} vs cpu {dc[k]}")
+        for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "du"):
+            a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * scale,
+                                       msg=f"side {side} step {it}: {f}")
+            worst = max(worst, float((a - b).abs().max()) / (scale or 1.0))
+    return {"phase": "slice_vs_cpu", "side": side, "cell_target": cell_target,
+            "steps": steps, "max_abs_err_over_scale": worst,
+            "energy_drift_gpu": gpu.energy_drift, "energy_drift_cpu": cpu.energy_drift}
+
+
+def count_syncs(sim) -> dict:
+    """Host syncs of one main-path step, by torch's CUDA sync debug mode:
+    each synchronizing call (a device-to-host read, a stream or device
+    synchronize) raises one warning, counted by the line that made it."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return {"phase": "host_syncs", "per_step": sum(sites.values()),
+            "sites": dict(sites.most_common())}
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_steps(sim, steps: int, step_ms_unprofiled: float) -> dict:
+    """Device time per main-path step from a torch.profiler trace of
+    ``steps`` steps: the union of the device-side events (kernels, copies,
+    fills; the host-side aten ops are left out, as their kernels already
+    stand for them). The busy share divides it by the unprofiled step
+    time, since the profiler's own host cost stretches the profiled one.
+    Also the host's time blocked in synchronizing CUDA runtime calls.
+    Reports null where the trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy_ms = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev]) / 1e3 / steps
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e["name"]][0] += e["dur"] / 1e3 / steps
+        by_name[e["name"]][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    # host time spent waiting on the device inside synchronizing runtime calls
+    waits = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+             and ("Synchronize" in e["name"] or e["name"] == "cudaMemcpy")]
+    return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": 1e3 * wall / steps,
+            "device_events_per_step": len(dev) / steps,
+            "device_ms_per_step": busy_ms if dev else None,
+            "step_ms_unprofiled": step_ms_unprofiled,
+            "device_busy_share": busy_ms / step_ms_unprofiled if dev else None,
+            "host_wait_ms_per_step": sum(e["dur"] for e in waits) / 1e3 / steps,
+            "host_waits_per_step": len(waits) / steps,
+            "top_device_ms_per_step": [[k[:60], v[0], v[1] / steps] for k, v in top]}
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from sphexa_torch.kernels import build as kbuild
+    from sphexa_torch.propagator import _force_stage_prologue
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.sph import pair_engine as pe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "card", "nvidia_smi": smi, "kind": kind,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    # 2. build
+    t0 = time.perf_counter()
+    path = kbuild.build()
+    kbuild.load_library()
+    ptxas = [ln.strip() for ln in kbuild.build_log().splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(path, here), "ptxas": ptxas})
+
+    # 3. kernels vs plain at the two small cases (both periodic-image paths)
+    for side, ct, expect_fold in ((24, 16, False), (12, None, True)):
+        ss, box, const, cfg, keys, ranges = sorted_case(side, ct)
+        fold = pe.engine_fold(box, cfg.nbr)
+        if fold != expect_fold:
+            raise AssertionError(f"side {side}: engine_fold {fold}, expected {expect_fold}")
+        res = compare_ops(f"side {side}", ss, box, const, cfg, keys, ranges)
+        emit({"phase": "kernels_vs_plain", "side": side, "cell_target": ct,
+              "fold": fold, "nbr": dataclasses.asdict(cfg.nbr), "results": res})
+
+    # the whole step on the card against the CPU (plain versions) on small
+    # inputs: both periodic-image paths, three steps from the same state
+    for side, ct in ((24, 16), (12, None)):
+        emit(slice_vs_cpu(side, ct, steps=3))
+
+    # 4. the main path: Sedov 100^3 std on the card
+    side, steps = 100, 10
+    state, box, const = init_sedov(side, device="cuda")
+    sim = Simulation(state, box, const, prop="std", device="cuda")
+    d0 = sim.step()  # warm-up
+    replays0 = sim.replays
+    torch.cuda.synchronize()
+    pe.reset_launches()
+    t0 = time.perf_counter()
+    diags, step_ms = [], []
+    for _ in range(steps):
+        diags.append(sim.step())
+        step_ms.append(1e3 * sim.last_step_seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pe.LAUNCHES)
+    attempts = steps + sim.replays - replays0
+    for op, cnt in launches.items():
+        if cnt != attempts:
+            raise AssertionError(f"{op}: {cnt} kernel launches in {attempts} step attempts")
+    drift = sim.energy_drift
+    if drift is None or not drift == drift or abs(drift) >= 1e-3:
+        raise AssertionError(f"energy drift {drift}")
+    last = diags[-1]
+    for k in ("dt", "nc_mean", "rho_max", "h_max", "etot"):
+        if not abs(last[k]) < float("inf"):
+            raise AssertionError(f"non-finite {k}: {last[k]}")
+    n = state.n
+    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp"):
+        a = getattr(sim.state, f)
+        if a.shape != (n,) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"state field {f} is not finite of shape ({n},)")
+    emit({"phase": "main_path", "side": side, "n": n, "steps": steps,
+          "wall_s": wall, "particle_updates_per_s": n * steps / wall,
+          "step_ms": step_ms, "energy_drift": drift,
+          "nc_mean": last["nc_mean"], "nc_max": last["nc_max"],
+          "occupancy": last["occupancy"], "cap": sim.cfg.nbr.cap,
+          "nbr": dataclasses.asdict(sim.cfg.nbr), "reconfigures": sim.reconfigures,
+          "replays": sim.replays, "launches": launches,
+          "step_attempts": attempts, "dt": [d["dt"] for d in diags],
+          "warmup_dt": d0["dt"]})
+
+    emit(count_syncs(sim))
+    emit(profile_steps(sim, 2, 1e3 * wall / steps))
+
+    # 5. kernels vs plain and phase times at the main path's shapes
+    st = (sim.state, sim.box, const)
+    ss, box2, const, cfg, keys, ranges = sorted_case(side, state=st, cfg=sim.cfg)
+    res = compare_ops("side 100", ss, box2, const, cfg, keys, ranges, timing=True)
+    sort_ms = cuda_time_ms(lambda: _force_stage_prologue(sim.state, sim.box, cfg), reps=5)
+    prologue_ms = cuda_time_ms(
+        lambda: pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box2, cfg.nbr), reps=5)
+    start, lens, keep, shifts, _, _ = pe.window_cells_culled(
+        ss.x, ss.y, ss.z, ss.h, keys, box2, cfg.nbr)
+    merge_ms = cuda_time_ms(lambda: pe._merge_runs(
+        start, lens, keep, shifts, cfg.nbr.run_cap, cfg.nbr.gap), reps=5)
+    bnd = bounds(ranges, n, cfg.nbr.group, res["density"]["nb_pairs"])
+    emit({"phase": "kernels_vs_plain", "side": side, "fold": pe.engine_fold(box2, cfg.nbr),
+          "results": res, "bounds": bnd, "sort_ms": sort_ms,
+          "prologue_ms": prologue_ms, "merge_runs_ms": merge_ms,
+          "nbr": dataclasses.asdict(cfg.nbr)})
+
+    kernels = []
+    for op in ("density", "iad", "momentum_energy_std"):
+        kernels.append({
+            "name": op, "route": "cuda", "source": SOURCE,
+            "replaces": TPU_KERNEL[op], "launches": launches[op],
+            "max_abs_err": res[op]["max_abs_err"], "ms": res[op]["ms"],
+            "plain_ms": res[op]["plain_ms"], "bound_ms": bnd[op]["bound_ms"],
+            "bound_by": bnd[op]["bound_by"], "library_ms": None,
+        })
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    print(f"# chip_smoke total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

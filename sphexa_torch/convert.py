@@ -1,0 +1,45 @@
+"""State carried across packages as numpy arrays and plain values.
+
+``state_from_numpy`` builds the port's (ParticleState, Box, SimConstants)
+from the fields of the JAX package's counterparts handed over as numpy
+arrays and plain values; ``state_to_numpy`` goes back. Neither imports
+the JAX package: the caller flattens its objects into dicts.
+"""
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from sphexa_torch.sfc.box import BoundaryType, Box
+from sphexa_torch.sph.particles import (
+    PARTICLE_FIELDS, SCALAR_FIELDS, ParticleState, SimConstants,
+)
+
+
+def state_from_numpy(fields: Dict, box: Dict, const: Dict, device
+                     ) -> Tuple[ParticleState, Box, SimConstants]:
+    """``fields``: every ParticleState field name -> numpy array (1-D for
+    per-particle fields, 0-d for ttot/min_dt/min_dt_m1); ``box``: lo, hi
+    (3 values each) and boundaries (3 ints); ``const``: SimConstants field
+    name -> value (unknown names are ignored)."""
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32).copy(), device=device)
+
+    state = ParticleState(**{f: f32(fields[f]) for f in PARTICLE_FIELDS + SCALAR_FIELDS})
+    b = Box(lo=f32(box["lo"]), hi=f32(box["hi"]),
+            boundaries=tuple(BoundaryType(int(v)) for v in box["boundaries"]))
+    names = {f.name for f in dataclasses.fields(SimConstants)}
+    c = SimConstants(**{k: v for k, v in const.items() if k in names}).normalized()
+    return state, b, c
+
+
+def state_to_numpy(state: ParticleState, box: Box, const: SimConstants
+                   ) -> Tuple[Dict, Dict, Dict]:
+    """Inverse of state_from_numpy."""
+    fields = {f: getattr(state, f).detach().cpu().numpy()
+              for f in PARTICLE_FIELDS + SCALAR_FIELDS}
+    b = {"lo": box.lo.cpu().numpy(), "hi": box.hi.cpu().numpy(),
+         "boundaries": [int(v) for v in box.boundaries]}
+    return fields, b, dataclasses.asdict(const)

@@ -1,0 +1,109 @@
+"""Build the CUDA kernels of sphexa_torch/csrc at first use and load them.
+
+nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), under
+``sphexa_torch/_build/``, named by a hash of the sources and flags: an
+unchanged tree reuses its library, a changed one builds anew. The library
+is loaded with ctypes; the wrappers pass ``data_ptr()`` values and the
+current stream.
+
+    python -m sphexa_torch.kernels.build   # build now, print ptxas's report
+"""
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: C entry points of the library and their argument types
+_ENTRY_POINTS = {
+    "launch_density": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_iad": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_momentum_energy_std": [ctypes.c_void_p, ctypes.c_void_p],
+}
+
+#: layout version of EngineArgs, checked against the library's
+ABI_VERSION = 2
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libsphexa_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless a library for these sources exists;
+    returns its path. ptxas's register/spill report goes to a .log beside it."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in _sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def build_log() -> str:
+    """nvcc/ptxas output of the current library's build, if it was kept."""
+    path = library_path()[:-3] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pair_engine_error_string.argtypes = [ctypes.c_int]
+        lib.pair_engine_error_string.restype = ctypes.c_char_p
+        lib.pair_engine_abi_version.restype = ctypes.c_int
+        if lib.pair_engine_abi_version() != ABI_VERSION:
+            raise RuntimeError("kernel library ABI mismatch")
+        _lib = lib
+    return _lib
+
+
+if __name__ == "__main__":
+    path = build()
+    print(path)
+    print(build_log())

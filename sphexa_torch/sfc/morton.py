@@ -1,0 +1,19 @@
+"""3D Morton key codec on int64 tensors (sphexa_tpu/sfc/morton.py)."""
+
+import torch
+
+
+def _spread_bits_3d(v: torch.Tensor) -> torch.Tensor:
+    """Insert two zero bits between each of the low 10 bits of ``v``."""
+    v = v.to(torch.int64) & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_encode(ix, iy, iz, bits: int = 10) -> torch.Tensor:
+    """Interleave grid coordinates into 30-bit Morton keys, x most significant."""
+    del bits
+    return (_spread_bits_3d(ix) << 2) | (_spread_bits_3d(iy) << 1) | _spread_bits_3d(iz)

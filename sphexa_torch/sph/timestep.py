@@ -1,0 +1,14 @@
+"""Global time-step selection (sphexa_tpu/sph/timestep.py, std subset)."""
+
+import torch
+
+from sphexa_torch.sph.particles import SimConstants
+
+
+def compute_timestep(min_dt_prev: torch.Tensor, min_dt_courant: torch.Tensor,
+                     *extra_dts, const: SimConstants) -> torch.Tensor:
+    """min(Courant dt, 1.1 x previous dt, extra candidates); 0-d float32."""
+    dt = torch.minimum(min_dt_courant, const.max_dt_increase * min_dt_prev)
+    for e in extra_dts:
+        dt = torch.minimum(dt, e)
+    return dt

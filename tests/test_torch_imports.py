@@ -1,0 +1,45 @@
+"""The port stands alone: no module of sphexa_torch, and not chip_smoke.py,
+imports JAX or the JAX package (an AST scan: a sys.modules check would be
+fooled by interpreters that import jax at start-up)."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "sphexa_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _dirs, files in os.walk(os.path.join(ROOT, "sphexa_torch")):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.lineno, node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__" \
+                and node.args and isinstance(node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_sources_found():
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert "chip_smoke.py" in names
+    assert os.path.join("sphexa_torch", "sph", "pair_engine.py") in names
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = [(line, mod) for line, mod in _imported_modules(path)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
