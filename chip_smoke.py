@@ -11,17 +11,28 @@ Phases, each printed as one JSON line:
    version on the card, on the sorted Sedov state at side 24 with
    cell_target=16 (per-run shift path) and side 12 (min-image fold path),
    the lattice jittered from a seed so that every term of each pair body
-   is non-zero, and three whole steps on the card against the same steps on the CPU;
-4. main path: Sedov 100^3 (10^6 particles) through Simulation(prop="std")
-   on the card, one warm-up step and ten timed steps, with the launch
-   counters reset just before and read just after; then one step with
-   torch's CUDA sync debug mode on, to count the host syncs per step and
-   where they come from, and two more steps under torch.profiler for the
-   device time per step (kernels, copies and fills in the trace) and the
-   device busy share (that device time over the unprofiled step time);
-5. kernels vs plain again at the main path's shapes (the evolved side-100
-   state), with each kernel's time, its plain version's time, the
-   sort/prologue times and each kernel's least possible time (bound);
+   is non-zero; whole steps on the card against the same steps on the
+   CPU, streaming and in list mode;
+4. lists vs plain: the mark pass and the list walk against their plain
+   versions, and list mode against the streaming kernels with fresh runs,
+   on the jittered Sedov side 30 and Noh 16 (open box) states;
+5. main path: Sedov 100^3 (10^6 particles) through Simulation(prop="std")
+   on the card, which runs persistent neighbour lists: one warm-up step
+   (the first list build) and ten timed steps, with the launch counters
+   reset just before the Simulation is made and read just after; then one
+   step with torch's CUDA sync debug mode on, to count the host syncs per
+   step and where they come from, two more steps under torch.profiler for
+   the device time per step and the device busy share, and the time of
+   one list rebuild;
+6. the streaming path: the same through Simulation(use_lists=False), one
+   warm-up and five timed steps, counters reset just before and read just
+   after, its host syncs and profile;
+7. kernels vs plain again at the main path's shapes (the evolved side-100
+   states of phases 5 and 6), with each kernel's time, its plain version's
+   time, the sort/prologue times and each kernel's least possible time
+   (bound);
+8. the main path's Simulation on to step 100: list rebuilds, replays and
+   the mean and median step time, the rebuilds included;
 
 then the {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -52,6 +63,9 @@ PEAK_HBM_BYTES = 3.35e12
 MASK_OPS = 12
 SYM_OPS = 2
 BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96}
+# FP32 operations per lane of the mark pass (2 run-bound compares, 3 shift
+# adds, 6 bbox compares)
+MARK_OPS = 11
 # distinct float32 per-particle arrays each op reads and writes (each read
 # or written once), besides the run tables (5 x NG x W3 + NG words)
 IO_ARRAYS = {"density": (6, 2), "iad": (6, 6), "momentum_energy_std": (21, 5)}
@@ -59,8 +73,14 @@ TPU_KERNEL = {
     "density": "sphexa_tpu/sph/pallas_pairs.py:1121",
     "iad": "sphexa_tpu/sph/pallas_pairs.py:1185",
     "momentum_energy_std": "sphexa_tpu/sph/pallas_pairs.py:1275",
+    "momentum_energy_std_lists": "sphexa_tpu/sph/pallas_pairs.py:1080",
+    "mark": "sphexa_tpu/sph/pair_lists.py:231",
 }
-SOURCE = "sphexa_torch/csrc/pair_engine.cu"
+SOURCE = {"density": "sphexa_torch/csrc/pair_engine.cu",
+          "iad": "sphexa_torch/csrc/pair_engine.cu",
+          "momentum_energy_std": "sphexa_torch/csrc/pair_engine.cu",
+          "momentum_energy_std_lists": "sphexa_torch/csrc/pair_lists.cu",
+          "mark": "sphexa_torch/csrc/pair_lists.cu"}
 
 
 def emit(obj) -> None:
@@ -102,7 +122,7 @@ def sorted_case(side: int, cell_target=None, state=None, cfg=None):
         state, box, const = state
     if cfg is None:
         cfg = make_propagator_config(state, box, const, cell_target=cell_target)
-    ss, box, keys = _force_stage_prologue(state, box, cfg)
+    ss, box, keys, _ = _force_stage_prologue(state, box, cfg)
     ranges = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr)
     return ss, box, const, cfg, keys, ranges
 
@@ -216,23 +236,192 @@ def bounds(ranges, n: int, group: int, nb_pairs: int):
     return out
 
 
-def slice_vs_cpu(side: int, cell_target, steps: int) -> dict:
+def list_case(init, side: int, jitter: bool, state=None, cfg=None):
+    """A list-mode state on the card: the frozen sorted state, its config
+    and lists (the mark kernel builds them), the keys of the frozen order
+    and the build-time (unpruned) runs. Without ``state``, the case's
+    initial state, jittered from the seed ``side`` if asked."""
+    from sphexa_torch.convert import state_from_numpy, state_to_numpy
+    from sphexa_torch.init import jitter_sedov
+    from sphexa_torch.propagator import rebuild_pair_lists
+    from sphexa_torch.sfc.keys import compute_sfc_keys
+    from sphexa_torch.simulation import make_propagator_config
+    from sphexa_torch.sph import pair_engine as pe
+
+    if state is None:
+        st, box, const = init(side, device="cpu")
+        if jitter:
+            fields, b, c = state_to_numpy(st, box, const)
+            st, box, const = state_from_numpy(jitter_sedov(fields, side, seed=side), b, c,
+                                              device="cpu")
+        st, box = st.to("cuda"), box.to("cuda")
+    else:
+        st, box, const = state
+    if cfg is None:
+        cfg = make_propagator_config(st, box, const, use_lists=True)
+    if cfg.list_slot_cap <= 0:
+        raise AssertionError(f"side {side}: no lists (slot cap 0)")
+    st, box, lists = rebuild_pair_lists(st, box, cfg)
+    if int(lists.overflow):
+        raise AssertionError(f"side {side}: slot cap overflow")
+    keys = compute_sfc_keys(st.x, st.y, st.z, box, curve=cfg.curve)
+    runs = pe.group_cell_ranges(st.x, st.y, st.z, st.h, keys, box, cfg.nbr,
+                                radius_pad=lists.skin)
+    return st, box, const, cfg, keys, lists, runs
+
+
+def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
+    """K5 and K6 against their plain versions, and list mode (K1 on the
+    pruned runs, K6) against the streaming kernels with fresh runs on the
+    same frozen-order state, with the JAX package's list-vs-streaming
+    tolerances (tests/test_pair_lists.py:82-119). Returns per-kernel
+    results; with ``timing`` also device times."""
+    import torch
+
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.sph import pair_lists as pl
+    from sphexa_torch.sph.hydro_std import compute_eos_std
+
+    nbr, scap = cfg.nbr, cfg.list_slot_cap
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+    res = {}
+
+    # K5: bits, counts, chunk totals and the pruned runs, kernel vs plain
+    margs = (runs, x, y, z, h, lists.skin, scap, nbr.group)
+    mk, mp = pl.mark_kernel(*margs), pl.mark_plain(*margs)
+    for nm, a, b in zip(("bits", "cnt", "total"), mk, mp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: mark {nm} differs at {int((a != b).sum())} entries")
+    pk = pl._prune_empty_chunks(runs, mk[1], scap)[0]
+    pp = pl._prune_empty_chunks(runs, mp[1], scap)[0]
+    for f in ("starts", "lens", "shift_x", "shift_y", "shift_z", "ncells"):
+        if not (torch.equal(getattr(pk, f), getattr(pp, f))
+                and torch.equal(getattr(pk, f), getattr(lists.ranges, f))):
+            raise AssertionError(f"{name}: pruned runs differ in {f}")
+    res["mark"] = {"max_abs_err": 0.0, "bits_equal": True,
+                   "lanes_visited": int(torch.clamp(mk[2], max=scap).to(torch.int64).sum()) * 128}
+
+    # list mode: kernels vs plain, and against the streaming kernels
+    ranges = pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
+    rho_s, nc_s, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
+    rho_k, nc_k, _ = pe.pallas_density(x, y, z, h, m, None, box, const, nbr, lists=lists)
+    rho_p, nc_p, _ = pe.density_plain(x, y, z, h, m, None, box, const, nbr, lists=lists)
+    if not (torch.equal(nc_k, nc_p) and torch.equal(nc_k, nc_s)):
+        raise AssertionError(f"{name}: list-mode density nc differs")
+    torch.testing.assert_close(rho_k, rho_p, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(rho_k, rho_s, rtol=2e-6, atol=0.0)
+    res["density"] = {"max_abs_err": float((rho_k - rho_p).abs().max()),
+                      "vs_streaming_max_abs_err": float((rho_k - rho_s).abs().max()),
+                      "nb_pairs": int(nc_k.to(torch.int64).sum())}
+
+    p, c = compute_eos_std(ss.temp, rho_s, const)
+    vol = m / rho_s
+    cs_s, _ = pe.pallas_iad(x, y, z, h, vol, keys, box, const, nbr, ranges=ranges)
+    cs_k, _ = pe.pallas_iad(x, y, z, h, vol, None, box, const, nbr, lists=lists)
+    cs_p, _ = pe.iad_plain(x, y, z, h, vol, None, box, const, nbr, lists=lists)
+    csc = max(float(a.abs().max()) for a in cs_s)
+    err = 0.0
+    for a, b, s_ in zip(cs_k, cs_p, cs_s):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * csc)
+        torch.testing.assert_close(a, s_, rtol=2e-5, atol=1e-6 * csc)
+        err = max(err, float((a - b).abs().max()))
+    res["iad"] = {"max_abs_err": err}
+
+    margs = (x, y, z, ss.vx, ss.vy, ss.vz, h, m, rho_s, p, c, *cs_s, keys, box, const, nbr)
+    out_s = pe.pallas_momentum_energy_std(*margs, ranges=ranges)
+    out_k = pe.pallas_momentum_energy_std(*margs, lists=lists)
+    out_p = pe.momentum_energy_std_plain(*margs, lists=lists)
+    scale = float(out_s[0].abs().max())
+    dus = float(out_s[3].abs().max())
+    err = 0.0
+    for nm, a, b, s_ in zip(("ax", "ay", "az", "du"), out_k[:4], out_p[:4], out_s[:4]):
+        sc = float(b.abs().max()) + 1e-12
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * sc, msg=f"{name}: {nm}")
+        atol = 1e-6 * dus if nm == "du" else 1e-5 * scale
+        torch.testing.assert_close(a, s_, rtol=1e-4, atol=atol, msg=f"{name}: {nm} vs streaming")
+        err = max(err, float((a - b).abs().max()))
+    for ref in (out_p, out_s):
+        if abs(float(out_k[4]) - float(ref[4])) > 1e-5 * abs(float(ref[4])):
+            raise AssertionError(f"{name}: list-mode min dt {float(out_k[4])} vs {float(ref[4])}")
+    res["momentum_energy_std_lists"] = {"max_abs_err": err}
+
+    if timing:
+        i_f, j_f = pe.momentum_fields(*margs[:17])
+        consts = pe.op_consts(const)
+        spec = pe.momentum_spec(const)
+        dfields, ifields = pe.density_fields(x, y, z, h, m), pe.iad_fields(x, y, z, h, vol)
+        runs_k = {
+            "density": (lambda: pe.engine_kernel(pe.DENSITY, lists.ranges, *dfields, False,
+                                                 nbr.group, consts),
+                        lambda: pe.engine_plain(pe.DENSITY, lists.ranges, *dfields, False,
+                                                nbr.group, consts)),
+            "iad": (lambda: pe.engine_kernel(pe.IAD, lists.ranges, *ifields, False,
+                                             nbr.group, consts),
+                    lambda: pe.engine_plain(pe.IAD, lists.ranges, *ifields, False,
+                                            nbr.group, consts)),
+            "momentum_energy_std_lists": (
+                lambda: pe.engine_lists_kernel(spec, lists, i_f, j_f, nbr.group, consts),
+                lambda: pe.engine_lists_plain(spec, lists, i_f, j_f, nbr.group, consts)),
+            "mark": (lambda: pl.mark_kernel(runs, x, y, z, h, lists.skin, scap, nbr.group),
+                     lambda: pl.mark_plain(runs, x, y, z, h, lists.skin, scap, nbr.group)),
+        }
+        for op, (kern, plain) in runs_k.items():
+            res[op]["ms"] = cuda_time_ms(kern, reps=7)
+            res[op]["plain_ms"] = cuda_time_ms(plain, reps=2)
+    return res
+
+
+def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited: int, runs):
+    """Least device time of the list-mode kernels from this run's counts:
+    K1 on the pruned runs (``bounds``), the list walk over the marked
+    lanes (each candidate shifted once, then the mask and the symmetric
+    cutoff per candidate pair, the body per neighbour pair), and the mark
+    pass over the lanes of the chunks it visits."""
+    import torch
+
+    out = bounds(lists.ranges, n, group, nb_pairs)
+    del out["momentum_energy_std"]
+    ng, scap = lists.cnt.shape
+    lanes = int(lists.cnt.to(torch.int64).sum())
+    pruned_tables = 4 * (5 * ng * scap + ng)
+    n_in, n_out = IO_ARRAYS["momentum_energy_std"]
+    walk_ops = (lanes * group * (MASK_OPS - 3 + SYM_OPS) + lanes * 3
+                + nb_pairs * BODY_OPS["momentum_energy_std"])
+    walk_bytes = 4 * n * (n_in + n_out) + pruned_tables + 16 * ng * scap
+    w3 = runs.starts.shape[1]
+    mark_ops = lanes_visited * MARK_OPS
+    mark_bytes = 4 * 4 * n + 4 * (5 * ng * w3 + ng) + 4 + 20 * ng * scap + 4 * ng
+    for op, ops, nbytes in (("momentum_energy_std_lists", walk_ops, walk_bytes),
+                            ("mark", mark_ops, mark_bytes)):
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+        out[op] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "ops": ops, "bytes": nbytes}
+    out["momentum_energy_std_lists"]["cand_pairs"] = lanes * group
+    out["mark"]["lanes"] = lanes_visited
+    return out
+
+
+def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool) -> dict:
     """Simulation steps on the card against the same steps on the CPU (the
     pair ops' plain versions there), every step from the same input; the
     accelerations' tolerance (rtol 1e-4, atol 5e-6 max|.|) carried through
-    the integrator, neighbour counts exact."""
+    the integrator, neighbour counts exact. In list mode each side builds
+    its own lists on the first step (equal bit for bit: the same sorted
+    state) and both freeze the same order."""
     import torch
 
     from sphexa_torch.init import init_sedov
     from sphexa_torch.simulation import Simulation
 
-    gpu = Simulation(*init_sedov(side, device="cuda"), device="cuda", cell_target=cell_target)
-    cpu = Simulation(*init_sedov(side, device="cpu"), device="cpu", cell_target=cell_target)
+    kw = {"cell_target": cell_target, "use_lists": use_lists}
+    gpu = Simulation(*init_sedov(side, device="cuda"), device="cuda", **kw)
+    cpu = Simulation(*init_sedov(side, device="cpu"), device="cpu", **kw)
     worst = 0.0
     for it in range(steps):
         cpu.state, cpu.box = gpu.state.to("cpu"), gpu.box.to("cpu")
         dg, dc = gpu.step(), cpu.step()
-        for k in ("nc_mean", "nc_max", "occupancy"):
+        for k in ("nc_mean", "nc_max", "occupancy", "use_lists"):
             if dg[k] != dc[k]:
                 raise AssertionError(f"side {side} step {it}: {k} {dg[k]} vs cpu {dc[k]}")
         for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "du"):
@@ -241,7 +430,10 @@ def slice_vs_cpu(side: int, cell_target, steps: int) -> dict:
             torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * scale,
                                        msg=f"side {side} step {it}: {f}")
             worst = max(worst, float((a - b).abs().max()) / (scale or 1.0))
+    if use_lists and (gpu.lists is None or dg["use_lists"] != 1.0):
+        raise AssertionError(f"side {side}: the list-mode run streamed")
     return {"phase": "slice_vs_cpu", "side": side, "cell_target": cell_target,
+            "use_lists": use_lists, "rebuilds": [gpu.rebuilds, cpu.rebuilds],
             "steps": steps, "max_abs_err_over_scale": worst,
             "energy_drift_gpu": gpu.energy_drift, "energy_drift_cpu": cpu.energy_drift}
 
@@ -321,6 +513,61 @@ def profile_steps(sim, steps: int, step_ms_unprofiled: float) -> dict:
             "top_device_ms_per_step": [[k[:60], v[0], v[1] / steps] for k, v in top]}
 
 
+def drive(make_sim, steps: int, label: str) -> dict:
+    """Drive one path of the port through its entry points: the launch
+    counts are set to 0 just before the Simulation is made, then one
+    warm-up step (on the list path: the first list build) and ``steps``
+    timed steps, and the counts are read just after. Checks that the run
+    conserves energy (drift < 1e-3) and stays finite."""
+    import torch
+
+    from sphexa_torch.sph import pair_engine as pe
+
+    torch.cuda.synchronize()
+    pe.reset_launches()
+    sim = make_sim()
+    t0 = time.perf_counter()
+    d0 = sim.step()  # warm-up
+    first_s = time.perf_counter() - t0
+    replays0 = sim.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diags, step_ms = [], []
+    for _ in range(steps):
+        diags.append(sim.step())
+        step_ms.append(1e3 * sim.last_step_seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pe.LAUNCHES)
+    attempts = 1 + steps + sim.replays
+    drift = sim.energy_drift
+    if drift is None or not drift == drift or abs(drift) >= 1e-3:
+        raise AssertionError(f"{label}: energy drift {drift}")
+    last = diags[-1]
+    for k in ("dt", "nc_mean", "rho_max", "h_max", "etot"):
+        if not abs(last[k]) < float("inf"):
+            raise AssertionError(f"{label}: non-finite {k}: {last[k]}")
+    n = sim.state.n
+    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp"):
+        a = getattr(sim.state, f)
+        if a.shape != (n,) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: state field {f} is not finite of shape ({n},)")
+    report = {
+        "phase": label, "n": n, "steps": steps,
+        "wall_s": wall, "particle_updates_per_s": n * steps / wall,
+        "step_ms": step_ms, "energy_drift": drift,
+        "nc_mean": last["nc_mean"], "nc_max": last["nc_max"],
+        "occupancy": last["occupancy"], "cap": sim.cfg.nbr.cap,
+        "nbr": dataclasses.asdict(sim.cfg.nbr), "reconfigures": sim.reconfigures,
+        "replays": sim.replays, "replays_timed": sim.replays - replays0,
+        "launches": launches, "step_attempts": attempts,
+        "dt": [d["dt"] for d in diags], "warmup_dt": d0["dt"],
+        "warmup_s": first_s, "use_lists": [d["use_lists"] for d in diags]}
+    return {"sim": sim, "report": report, "launches": launches, "attempts": attempts,
+            "rebuilds": sim.rebuilds, "diags": diags, "first_build_s": first_s,
+            "step_ms_median": 1e3 * wall / steps}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -329,10 +576,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from sphexa_torch.init import init_noh, init_sedov
     from sphexa_torch.kernels import build as kbuild
-    from sphexa_torch.propagator import _force_stage_prologue
+    from sphexa_torch.propagator import _force_stage_prologue, rebuild_pair_lists
+    from sphexa_torch.sfc.keys import compute_sfc_keys
     from sphexa_torch.simulation import Simulation
-    from sphexa_torch.init import init_sedov
     from sphexa_torch.sph import pair_engine as pe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -369,60 +617,76 @@ def main() -> int:
               "fold": fold, "nbr": dataclasses.asdict(cfg.nbr), "results": res})
 
     # the whole step on the card against the CPU (plain versions) on small
-    # inputs: both periodic-image paths, three steps from the same state
-    for side, ct in ((24, 16), (12, None)):
-        emit(slice_vs_cpu(side, ct, steps=3))
+    # inputs: both periodic-image paths streaming, and list mode
+    for side, ct, use_lists in ((24, 16, True), (24, 16, False), (12, None, False)):
+        emit(slice_vs_cpu(side, ct, steps=3, use_lists=use_lists))
 
-    # 4. the main path: Sedov 100^3 std on the card
-    side, steps = 100, 10
+    # 4. the list kernels vs plain, and list mode vs streaming
+    for name, init, side, jitter in (("sedov", init_sedov, 30, True),
+                                     ("noh", init_noh, 16, False)):
+        ss, box, const, cfg, keys, lists, runs = list_case(init, side, jitter)
+        res = compare_lists(f"{name} {side}", ss, box, const, cfg, keys, lists, runs)
+        emit({"phase": "lists_vs_plain", "case": name, "side": side, "jitter": jitter,
+              "n": ss.n, "nbr": dataclasses.asdict(cfg.nbr),
+              "slot_cap": cfg.list_slot_cap, "results": res})
+
+    # 5. the main path: Sedov 100^3 std on the card, in list mode
+    side = 100
     state, box, const = init_sedov(side, device="cuda")
-    sim = Simulation(state, box, const, prop="std", device="cuda")
-    d0 = sim.step()  # warm-up
-    replays0 = sim.replays
-    torch.cuda.synchronize()
-    pe.reset_launches()
-    t0 = time.perf_counter()
-    diags, step_ms = [], []
-    for _ in range(steps):
-        diags.append(sim.step())
-        step_ms.append(1e3 * sim.last_step_seconds)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(pe.LAUNCHES)
-    attempts = steps + sim.replays - replays0
-    for op, cnt in launches.items():
-        if cnt != attempts:
-            raise AssertionError(f"{op}: {cnt} kernel launches in {attempts} step attempts")
-    drift = sim.energy_drift
-    if drift is None or not drift == drift or abs(drift) >= 1e-3:
-        raise AssertionError(f"energy drift {drift}")
-    last = diags[-1]
-    for k in ("dt", "nc_mean", "rho_max", "h_max", "etot"):
-        if not abs(last[k]) < float("inf"):
-            raise AssertionError(f"non-finite {k}: {last[k]}")
     n = state.n
-    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp"):
-        a = getattr(sim.state, f)
-        if a.shape != (n,) or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"state field {f} is not finite of shape ({n},)")
-    emit({"phase": "main_path", "side": side, "n": n, "steps": steps,
-          "wall_s": wall, "particle_updates_per_s": n * steps / wall,
-          "step_ms": step_ms, "energy_drift": drift,
-          "nc_mean": last["nc_mean"], "nc_max": last["nc_max"],
-          "occupancy": last["occupancy"], "cap": sim.cfg.nbr.cap,
-          "nbr": dataclasses.asdict(sim.cfg.nbr), "reconfigures": sim.reconfigures,
-          "replays": sim.replays, "launches": launches,
-          "step_attempts": attempts, "dt": [d["dt"] for d in diags],
-          "warmup_dt": d0["dt"]})
+    lst = drive(lambda: Simulation(state, box, const, prop="std", device="cuda"),
+                steps=10, label="main_path")
+    sim = lst["sim"]
+    if sim.lists is None:
+        raise AssertionError("the main path streamed: no persistent lists")
+    la = lst["launches"]
+    if not (la["density"] == la["iad"] == la["momentum_energy_std_lists"] == lst["attempts"]
+            and la["momentum_energy_std"] == 0 and la["mark"] == lst["rebuilds"] >= 1):
+        raise AssertionError(f"list-mode launches {la} in {lst['attempts']} step "
+                             f"attempts with {lst['rebuilds']} list builds")
+    ranges_now = pe.group_cell_ranges(
+        sim.state.x, sim.state.y, sim.state.z, sim.state.h,
+        compute_sfc_keys(sim.state.x, sim.state.y, sim.state.z, sim.box, curve=sim.cfg.curve),
+        sim.box, sim.cfg.nbr)  # the state is in its frozen order: its keys are sorted
+    lst["report"].update({
+        "list_slot_cap": sim.cfg.list_slot_cap, "rebuilds": sim.rebuilds,
+        "list_slack": [d["list_slack"] for d in lst["diags"]],
+        "lanes_total": float(sim.lists.lanes_total),
+        "pruned_run_candidates": int(sim.lists.ranges.lens.to(torch.int64).sum()),
+        "streamed_candidates": int(ranges_now.lens.to(torch.int64).sum())})
+    emit(lst["report"])
+    emit({**count_syncs(sim), "path": "lists"})
+    emit({**profile_steps(sim, 2, lst["step_ms_median"]), "path": "lists"})
+    rebuild_ms = cuda_time_ms(lambda: rebuild_pair_lists(sim.state, sim.box, sim.cfg), reps=3)
+    emit({"phase": "rebuild", "ms": rebuild_ms, "first_build_s": lst["first_build_s"]})
 
-    emit(count_syncs(sim))
-    emit(profile_steps(sim, 2, 1e3 * wall / steps))
+    # 6. the streaming path, driven the same way with fewer timed steps
+    state, box, const = init_sedov(side, device="cuda")
+    stm = drive(lambda: Simulation(state, box, const, prop="std", device="cuda",
+                                   use_lists=False), steps=5, label="streaming_path")
+    ssim = stm["sim"]
+    sa = stm["launches"]
+    if not (sa["density"] == sa["iad"] == sa["momentum_energy_std"] == stm["attempts"]
+            and sa["momentum_energy_std_lists"] == sa["mark"] == 0):
+        raise AssertionError(f"streaming launches {sa} in {stm['attempts']} step attempts")
+    emit(stm["report"])
+    emit({**count_syncs(ssim), "path": "streaming"})
+    emit({**profile_steps(ssim, 2, stm["step_ms_median"]), "path": "streaming"})
 
-    # 5. kernels vs plain and phase times at the main path's shapes
-    st = (sim.state, sim.box, const)
-    ss, box2, const, cfg, keys, ranges = sorted_case(side, state=st, cfg=sim.cfg)
+    # 7. kernels vs plain and phase times at the main path's shapes
+    ss, lbox, const, lcfg, lkeys, lists, runs = list_case(
+        None, side, False, state=(sim.state, sim.box, const), cfg=sim.cfg)
+    lres = compare_lists("side 100", ss, lbox, const, lcfg, lkeys, lists, runs, timing=True)
+    lbnd = list_bounds(lists, n, lcfg.nbr.group, lres["density"]["nb_pairs"],
+                       lres["mark"]["lanes_visited"], runs)
+    emit({"phase": "lists_vs_plain", "case": "sedov", "side": side, "results": lres,
+          "bounds": lbnd, "slot_cap": lcfg.list_slot_cap,
+          "lanes_total": float(lists.lanes_total), "nbr": dataclasses.asdict(lcfg.nbr)})
+
+    st = (ssim.state, ssim.box, const)
+    ss, box2, const, cfg, keys, ranges = sorted_case(side, state=st, cfg=ssim.cfg)
     res = compare_ops("side 100", ss, box2, const, cfg, keys, ranges, timing=True)
-    sort_ms = cuda_time_ms(lambda: _force_stage_prologue(sim.state, sim.box, cfg), reps=5)
+    sort_ms = cuda_time_ms(lambda: _force_stage_prologue(ssim.state, ssim.box, cfg), reps=5)
     prologue_ms = cuda_time_ms(
         lambda: pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box2, cfg.nbr), reps=5)
     start, lens, keep, shifts, _, _ = pe.window_cells_culled(
@@ -430,19 +694,38 @@ def main() -> int:
     merge_ms = cuda_time_ms(lambda: pe._merge_runs(
         start, lens, keep, shifts, cfg.nbr.run_cap, cfg.nbr.gap), reps=5)
     bnd = bounds(ranges, n, cfg.nbr.group, res["density"]["nb_pairs"])
-    emit({"phase": "kernels_vs_plain", "side": side, "fold": pe.engine_fold(box2, cfg.nbr),
-          "results": res, "bounds": bnd, "sort_ms": sort_ms,
-          "prologue_ms": prologue_ms, "merge_runs_ms": merge_ms,
+    emit({"phase": "kernels_vs_plain", "side": side, "path": "streaming",
+          "fold": pe.engine_fold(box2, cfg.nbr), "results": res, "bounds": bnd,
+          "sort_ms": sort_ms, "prologue_ms": prologue_ms, "merge_runs_ms": merge_ms,
           "nbr": dataclasses.asdict(cfg.nbr)})
 
+    # 8. the rebuild cadence: the main path's Simulation on to step 100
+    b0, r0, it0 = sim.rebuilds, sim.replays, sim.iteration
+    ms = []
+    for _ in range(100 - sim.iteration):
+        sim.step()
+        ms.append(1e3 * sim.last_step_seconds)
+    drift = sim.energy_drift
+    if drift is None or not abs(drift) < 1e-3:
+        raise AssertionError(f"long run: energy drift {drift}")
+    emit({"phase": "long_run", "from_step": it0, "to_step": sim.iteration,
+          "rebuilds": sim.rebuilds - b0, "replays": sim.replays - r0,
+          "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
+          "step_ms_max": max(ms), "energy_drift": drift,
+          "list_slot_cap": sim.cfg.list_slot_cap, "reconfigures": sim.reconfigures})
+
+    # density and IAD: the main path runs them on the lists' pruned runs;
+    # the streaming momentum kernel runs on the streaming path only
     kernels = []
-    for op in ("density", "iad", "momentum_energy_std"):
+    for op in ("density", "iad", "momentum_energy_std", "momentum_energy_std_lists", "mark"):
+        main = op != "momentum_energy_std"
+        r, b = (lres[op], lbnd[op]) if main else (res[op], bnd[op])
         kernels.append({
-            "name": op, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNEL[op], "launches": launches[op],
-            "max_abs_err": res[op]["max_abs_err"], "ms": res[op]["ms"],
-            "plain_ms": res[op]["plain_ms"], "bound_ms": bnd[op]["bound_ms"],
-            "bound_by": bnd[op]["bound_by"], "library_ms": None,
+            "name": op, "route": "cuda", "source": SOURCE[op],
+            "replaces": TPU_KERNEL[op], "launches": (la if main else sa)[op],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

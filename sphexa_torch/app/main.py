@@ -1,29 +1,32 @@
-"""Command-line front end of the port, restricted to its first slice:
+"""Command-line front end of the port, restricted to its ported slices:
 
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 [--device cpu]
+    python -m sphexa_torch.app.main --init noh -n 50 -s 20
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time.
-Other --init / --prop values raise "not ported yet". Runs on the CUDA
-device unless ``--device cpu`` is given, and raises without one.
+Other --init / --prop values raise "not ported yet". Steps run on
+persistent neighbour lists wherever the grid allows them, as in the JAX
+CLI, which has no flag for it. Runs on the CUDA device unless
+``--device cpu`` is given, and raises without one.
 """
 
 import argparse
 import sys
 from typing import List, Optional
 
-from sphexa_torch.init import init_sedov
+from sphexa_torch.init import init_noh, init_sedov
 from sphexa_torch.simulation import Simulation
 
-_INITS = {"sedov": init_sedov}
+_INITS = {"sedov": init_sedov, "noh": init_noh}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sphexa-torch",
-        description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std-SPH Sedov)",
+        description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std-SPH Sedov and Noh)",
     )
-    p.add_argument("--init", default="sedov", help="test case name (sedov)")
+    p.add_argument("--init", default="sedov", help="test case name (sedov, noh)")
     p.add_argument("-n", type=int, default=50, dest="side",
                    help="particles per cube side (N = n^3)")
     p.add_argument("-s", type=float, default=10, dest="stop",
@@ -59,7 +62,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             _report(sim.iteration, d)
     if not args.quiet:
         print(f"# {sim.iteration} steps on {sim.device}, {state.n} particles, "
-              f"reconfigures {sim.reconfigures}, energy drift {sim.energy_drift}")
+              f"lists {'on' if sim.lists is not None else 'off'} "
+              f"({sim.rebuilds} builds), reconfigures {sim.reconfigures}, "
+              f"energy drift {sim.energy_drift}")
     return 0
 
 

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of sphexa_torch/csrc at first use and load them.
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), under
+nvcc compiles every ``csrc/*.cu`` into an object, one process per source,
+all started together, and links them into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), under
 ``sphexa_torch/_build/``, named by a hash of the sources and flags: an
 unchanged tree reuses its library, a changed one builds anew. The library
 is loaded with ctypes; the wrappers pass ``data_ptr()`` values and the
@@ -22,17 +23,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: C entry points of the library and their argument types
 _ENTRY_POINTS = {
     "launch_density": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_iad": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_std": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_momentum_energy_std_lists": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_mark": [ctypes.c_void_p, ctypes.c_void_p],
 }
 
 #: layout version of EngineArgs, checked against the library's
-ABI_VERSION = 2
+ABI_VERSION = 3
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -65,14 +68,31 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{out[:-3]}.{os.getpid()}"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(s)[:-3]}.o" for s in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, lg) for c, p, lg in zip(cmds, procs, logs) if p.returncode]
+    link = [nvcc, "-shared", "-o", f"{tag}.tmp", *objs]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode:
+            failed.append((link, proc.returncode, proc.stdout))
     with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        for c, lg in zip(cmds, logs):
+            f.write(" ".join(c) + "\n" + lg)
+        f.write(" ".join(link) + "\n")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        c, rc, lg = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{lg}")
+    os.replace(f"{tag}.tmp", out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

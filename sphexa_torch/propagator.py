@@ -1,20 +1,26 @@
-"""The std-SPH step (sphexa_tpu/propagator.py, the streaming pallas path).
+"""The std-SPH step (sphexa_tpu/propagator.py, the pallas paths).
 
-One step: box regrow -> SFC keys -> stable sort -> candidate-run prologue
--> density -> EOS -> IAD -> momentum/energy -> timestep -> positions and
-h update. PyTorch runs it eagerly; the three pair ops launch the CUDA
-kernels on the card and their plain versions on the CPU.
+Streaming step: box regrow -> SFC keys -> stable sort -> candidate-run
+prologue -> density -> EOS -> IAD -> momentum/energy -> timestep ->
+positions and h update. With persistent lists (``lists=``) a steady step
+runs in the order frozen at the last ``rebuild_pair_lists``: no regrow, no
+sort, no prologue; it reports the lists' remaining skin (``list_slack``)
+and whether they still cover its input (``list_ok``). PyTorch runs it
+eagerly; the pair ops launch the CUDA kernels on the card and their plain
+versions on the CPU.
 """
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.sfc.box import Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import pair_engine as pe
+from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
 from sphexa_torch.sph.hydro_std import compute_eos_std
 from sphexa_torch.sph.kernels import update_h
 from sphexa_torch.sph.particles import PARTICLE_FIELDS, ParticleState, SimConstants
@@ -34,6 +40,10 @@ class PropagatorConfig:
     const: SimConstants
     nbr: NeighborConfig
     curve: str = "hilbert"
+    # persistent-list mode: > 0 enables it with this per-group slot budget
+    list_slot_cap: int = 0
+    # Verlet skin as a fraction of the 2 h_max search radius
+    list_skin_rel: float = 0.2
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -62,21 +72,45 @@ def _sort_by_keys(state: ParticleState, box: Box, curve: str):
     return new, keys[order], order
 
 
-def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig):
-    """Box regrow + global sort. Returns (state, box, sorted_keys)."""
+def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig):
+    """Persistent-list rebuild: box regrow + global sort + list build. The
+    returned state is the frozen sorted order every steady step runs in
+    until the next rebuild. The skin follows the current h_max, computed
+    in float32 in the JAX package's order: (f32(list_skin_rel) * 2) * max h.
+    Returns (state, box, lists)."""
     box = make_global_box(state.x, state.y, state.z, box)
     state, keys, _ = _sort_by_keys(state, box, cfg.curve)
-    return state, box, keys
+    skin = torch.max(state.h) * float(np.float32(cfg.list_skin_rel) * np.float32(2.0))
+    lists = build_pair_lists(state.x, state.y, state.z, state.h, keys, box, cfg.nbr,
+                             skin, cfg.list_slot_cap)
+    return state, box, lists
 
 
-def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig):
-    """The std-SPH force stage: sort -> prologue -> density -> EOS -> IAD ->
-    momentum/energy. Returns (state, box, ax, ay, az, du, dt_courant, nc,
-    occ, rho, c)."""
+def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                          lists: Optional[PairLists] = None):
+    """Head of the force stage. Streaming: box regrow + global sort. List
+    mode: nothing moves; the lists' validity for this step's input.
+    Returns (state, box, sorted_keys or None, list diagnostics or None)."""
+    if lists is not None:
+        slack = list_slack(state.x, state.y, state.z, state.h, lists)
+        return state, box, None, {"list_slack": slack,
+                                  "list_ok": (slack >= 0.0).to(torch.int32)}
+    box = make_global_box(state.x, state.y, state.z, box)
+    state, keys, _ = _sort_by_keys(state, box, cfg.curve)
+    return state, box, keys, None
+
+
+def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                lists: Optional[PairLists] = None):
+    """The std-SPH force stage: [sort -> prologue ->] density -> EOS -> IAD
+    -> momentum/energy; with ``lists`` the runs are the lists' and the
+    momentum op walks their marked lanes. Returns (state, box, ax, ay, az,
+    du, dt_courant, nc, occ, rho, c, list diagnostics or None)."""
     const = cfg.const
-    state, box, keys = _force_stage_prologue(state, box, cfg)
+    state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
-    ranges = pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
+    ranges = lists.ranges if lists is not None else \
+        pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
     rho, nc, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, cfg.nbr,
                                    ranges=ranges)
     p, c = compute_eos_std(state.temp, rho, const)
@@ -84,13 +118,15 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig):
         x, y, z, h, m / rho, keys, box, const, cfg.nbr, ranges=ranges)
     ax, ay, az, du, dt_courant, _ = pe.pallas_momentum_energy_std(
         x, y, z, state.vx, state.vy, state.vz, h, m, rho, p, c,
-        c11, c12, c13, c22, c23, c33, keys, box, const, cfg.nbr, ranges=ranges)
+        c11, c12, c13, c22, c23, c33, keys, box, const, cfg.nbr, ranges=ranges,
+        lists=lists)
     return (state, box, ax, ay, az, du, dt_courant, nc, ranges.occupancy,
-            rho, c)
+            rho, c, ldiag)
 
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
-                          ax, ay, az, du, dt, nc, occ, rho, dt_limiter=None
+                          ax, ay, az, du, dt, nc, occ, rho, dt_limiter=None,
+                          extra_diag=None
                           ) -> Tuple[ParticleState, Box, Dict[str, torch.Tensor]]:
     """Drift/kick + PBC wrap, smoothing-length nudge, diagnostics."""
     const = cfg.const
@@ -116,16 +152,20 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
     }
     if dt_limiter is not None:
         diagnostics["dt_limiter"] = dt_limiter
+    if extra_diag:
+        diagnostics.update(extra_diag)
     return new_state, box, diagnostics
 
 
-def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig):
-    """One standard-SPH time step (std_hydro.hpp:123-175 sequence).
-    Returns (new_state, new_box, diagnostics)."""
+def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                    lists: Optional[PairLists] = None):
+    """One standard-SPH time step (std_hydro.hpp:123-175 sequence); with
+    ``lists`` a steady list-mode step. Returns (new_state, new_box,
+    diagnostics)."""
     (state, box, ax, ay, az, du, dt_courant, nc, occ, rho,
-     _c) = _std_forces(state, box, cfg)
+     _c, ldiag) = _std_forces(state, box, cfg, lists)
     dt = compute_timestep(state.min_dt, dt_courant, const=cfg.const)
     limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ,
-                                 rho, dt_limiter=limiter)
+                                 rho, dt_limiter=limiter, extra_diag=ldiag)
 

@@ -1,6 +1,6 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std subset):
 static neighbour-config sizing, the step loop with the overflow contract,
-and the energy-drift diagnostic."""
+the persistent-list lifecycle, and the energy-drift diagnostic."""
 
 import time
 from typing import Dict, Optional
@@ -14,13 +14,16 @@ from sphexa_torch.neighbors.cell_list import (
     NeighborConfig, choose_grid_level, pad_cap, window_cells,
 )
 from sphexa_torch.observables.conserved import conserved_quantities
-from sphexa_torch.propagator import PropagatorConfig, _step_hydro_std
+from sphexa_torch.propagator import PropagatorConfig, _step_hydro_std, rebuild_pair_lists
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sfc.keys import compute_sfc_keys
+from sphexa_torch.sph.pair_engine import engine_fold
+from sphexa_torch.sph.pair_lists import estimate_slot_cap
 from sphexa_torch.sph.particles import ParticleState, SimConstants
 
 #: engine defaults of make_propagator_config (simulation.py:142-143)
-_DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64}
+_DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
+             "list_skin_rel": 0.2}
 
 
 def _max_cell_occupancy(sorted_keys: np.ndarray, level: int) -> int:
@@ -54,17 +57,28 @@ def make_propagator_config(
     cell_target: Optional[int] = None,
     run_cap: Optional[int] = None, gap: Optional[int] = None,
     group: Optional[int] = None,
+    use_lists: bool = False,
+    list_skin_rel: Optional[float] = None,
+    list_slot_margin: float = 1.3,
 ) -> PropagatorConfig:
     """Size the static neighbour config from the current particles, as the
-    JAX function does for its streaming pallas backend (``use_lists=False``;
-    the other backends are not ported): grid level from h_max and the mean
-    cell occupancy, cap from the densest cell, window from the widest SFC
-    group. The host sizing pass (native C++ in the JAX package) is numpy
-    here: keys, a stable argsort, the densest cell and the group extents."""
+    JAX function does for its pallas backend (the other backends are not
+    ported): grid level from h_max and the mean cell occupancy, cap from
+    the densest cell, window from the widest SFC group. The host sizing
+    pass (native C++ in the JAX package) is numpy here: keys, a stable
+    argsort, the densest cell and the group extents.
+
+    ``use_lists``: size the persistent lists too. The window then also
+    covers the skin, (4 h_max + skin) * 1.1; the slot budget comes from
+    the sizing pass's own sorted keys. Where the grid is in fold mode
+    (before or after the wider window) lists are unavailable: the
+    un-inflated window stays and ``list_slot_cap`` stays 0."""
     cell_target = cell_target or _DEFAULTS["cell_target"]
     run_cap = _DEFAULTS["run_cap"] if run_cap is None else run_cap
     gap = _DEFAULTS["gap"] if gap is None else gap
     group = group or _DEFAULTS["group"]
+    if list_skin_rel is None:
+        list_skin_rel = _DEFAULTS["list_skin_rel"]
 
     lengths = box.lengths.cpu().numpy()
     h_max = float(state.h.max().item())
@@ -78,18 +92,35 @@ def make_propagator_config(
     if min_cap > 0:
         cap = max(cap, pad_cap(min_cap))
     ncell = 1 << level
-    ext = _group_extents(state.x.cpu().numpy(), state.y.cpu().numpy(),
-                         state.z.cpu().numpy(), order, group)
+    xa, ya, za = (a.cpu().numpy() for a in (state.x, state.y, state.z))
+    ext = _group_extents(xa, ya, za, order, group)
+
+    def make_nbr(radius):
+        window = 1
+        for e, edge in zip(ext, lengths / ncell):
+            window = max(window, window_cells(e, radius, float(edge), ncell,
+                                              margin_cells=0))
+        return NeighborConfig(level=level, cap=cap, curve=curve, group=group,
+                              window=window, run_cap=run_cap, gap=gap)
 
     # 10% radius slack absorbs drift between reconfigurations
-    radius = 4.0 * h_max * 1.1
-    window = 1
-    for e, edge in zip(ext, lengths / ncell):
-        window = max(window, window_cells(e, radius, float(edge), ncell,
-                                          margin_cells=0))
-    nbr = NeighborConfig(level=level, cap=cap, curve=curve, group=group,
-                         window=window, run_cap=run_cap, gap=gap)
-    return PropagatorConfig(const=const, nbr=nbr, curve=curve)
+    nbr = make_nbr(4.0 * h_max * 1.1)
+    slot_cap = 0
+    skin = list_skin_rel * 2.0 * h_max
+    if use_lists and not engine_fold(box, nbr):
+        # in list mode the window must also cover the skin
+        nbr = make_nbr((4.0 * h_max + skin) * 1.1)
+        if engine_fold(box, nbr):
+            nbr = make_nbr(4.0 * h_max * 1.1)
+        else:
+            # the sizing pass's sorted arrays, back on the state's device
+            dev = state.x.device
+            sx, sy, sz, sh, skeys = (torch.as_tensor(a[order], device=dev) for a in
+                                     (xa, ya, za, state.h.cpu().numpy(), keys))
+            slot_cap = estimate_slot_cap(sx, sy, sz, sh, skeys, box, nbr, skin,
+                                         margin=list_slot_margin)
+    return PropagatorConfig(const=const, nbr=nbr, curve=curve,
+                            list_slot_cap=slot_cap, list_skin_rel=list_skin_rel)
 
 
 class Simulation:
@@ -97,12 +128,25 @@ class Simulation:
     step reports a cell-cap or window overflow (and replays that step from
     its input) or when the grid no longer covers the 2h radius.
 
+    ``use_lists`` (the default, as in the JAX package): steady steps run
+    on persistent neighbour lists, built on the first step and rebuilt
+    when their skin runs low (proactively, below ``_LIST_SLACK_REBUILD``)
+    or has run out (the step is then discarded and replayed on fresh
+    lists). Where lists are unavailable (a grid in fold mode leaves
+    ``list_slot_cap`` at 0) the steps stream, as with ``use_lists=False``;
+    each step's ``use_lists`` diagnostic says which ran.
+
     ``device=None`` runs on the CUDA device and raises without one;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels."""
 
+    # rebuild proactively below this remaining-skin fraction: the next
+    # step would likely expire and be discarded
+    _LIST_SLACK_REBUILD = 0.25
+
     def __init__(self, state: ParticleState, box: Box, const: SimConstants,
                  prop: str = "std", device=None, curve: str = "hilbert",
-                 cell_target: Optional[int] = None):
+                 cell_target: Optional[int] = None, use_lists: bool = True,
+                 list_skin_rel: Optional[float] = None):
         if prop != "std":
             raise NotImplementedError(f"--prop {prop!r}: not ported yet")
         self.device = resolve_device(device)
@@ -113,39 +157,85 @@ class Simulation:
         self.cell_target = cell_target
         self.iteration = 0
         self.reconfigures = 0  # re-sizes after the initial one
-        self.replays = 0  # steps discarded for an overflow and run again
+        self.replays = 0  # steps discarded (overflow or stale lists) and run again
+        self.rebuilds = 0  # list builds (mark passes), the first one included
         self.energy_drift: Optional[float] = None
         self._etot0: Optional[float] = None
         self.last_step_seconds = 0.0
+        self._want_lists = use_lists
+        self._list_skin_rel = list_skin_rel
+        self._slot_margin = 1.3
+        self._lists = None
         self._configure()
 
     @property
     def cfg(self) -> PropagatorConfig:
         return self._cfg
 
+    @property
+    def lists(self):
+        """The current persistent lists (None while streaming or before
+        the first build)."""
+        return self._lists
+
     def _configure(self, min_cap: int = 0) -> None:
+        self._lists = None  # any re-size invalidates the lists
         self._cfg = make_propagator_config(
             self.state, self.box, self.const, curve=self.curve,
-            min_cap=min_cap, cell_target=self.cell_target)
+            min_cap=min_cap, cell_target=self.cell_target,
+            use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
+            list_slot_margin=self._slot_margin)
+
+    @property
+    def _use_lists(self) -> bool:
+        return self._want_lists and self._cfg.list_slot_cap > 0
+
+    def _rebuild_lists(self) -> None:
+        """(Re)build the lists: regrow, sort, mark. One host read (the
+        overflow sentinel); a slot overflow grows the slot margin 1.5x and
+        re-sizes, at most three times."""
+        for _ in range(3):
+            if not self._use_lists:
+                return  # a re-size left the grid without lists: stream
+            state, box, lists = rebuild_pair_lists(self.state, self.box, self._cfg)
+            self.rebuilds += 1
+            if not int(lists.overflow):
+                self.state, self.box, self._lists = state, box, lists
+                return
+            self._slot_margin *= 1.5
+            self._configure()
+            self.reconfigures += 1
+        raise RuntimeError("pair-list slot cap failed to converge")
 
     def _config_still_valid(self, h_max: float, min_length: float) -> bool:
         return 2.0 * h_max <= min_length / (1 << self._cfg.nbr.level)
 
     def step(self) -> Dict[str, float]:
-        """Advance one step; a step whose occupancy exceeds the cap (a
+        """Advance one step. A step whose occupancy exceeds the cap (a
         truncated cell, or ``cap + 1`` for a blown window) is discarded,
-        the config re-sized, and the step replayed from its saved input.
-        The host reads the device once per attempt, after its last kernel:
-        the diagnostics, the conserved sums and the box edge in one copy."""
+        the config re-sized, and the step replayed from its saved input;
+        a list-mode step whose lists no longer cover its input
+        (``list_ok`` 0) is discarded and replayed on rebuilt lists. The
+        host reads the device once per attempt, after its last kernel: the
+        diagnostics, the conserved sums and the box edge in one copy."""
         t0 = time.perf_counter()
         for _attempt in range(4):
-            new_state, new_box, diag = _step_hydro_std(self.state, self.box, self._cfg)
+            if self._use_lists and self._lists is None:
+                self._rebuild_lists()
+            lists = self._lists if self._use_lists else None
+            new_state, new_box, diag = _step_hydro_std(self.state, self.box, self._cfg,
+                                                       lists=lists)
             cq = conserved_quantities(new_state, self.const)
             named = {**diag, **cq, "min_length": new_box.lengths.min()}
             host = dict(zip(named, torch.stack(
                 [v.to(torch.float64) for v in named.values()]).tolist()))
             occ = int(host["occupancy"])
             cap = self._cfg.nbr.cap
+            if lists is not None and not int(host["list_ok"]):
+                # stale lists: rebuild them (no re-size) and replay
+                self._rebuild_lists()
+                self.replays += 1
+                continue
             if occ <= cap:
                 break
             # cap + 1 is the window sentinel, not a real occupancy: a plain
@@ -157,7 +247,6 @@ class Simulation:
             raise RuntimeError("neighbour caps failed to converge in 4 attempts")
         self.state, self.box = new_state, new_box
         self.iteration += 1
-        self.last_step_seconds = time.perf_counter() - t0
 
         min_length = host.pop("min_length")
         result = host
@@ -166,11 +255,17 @@ class Simulation:
         if self._etot0 is not None:
             self.energy_drift = abs(result["etot"] - self._etot0) / (abs(self._etot0) or 1.0)
         result["energy_drift"] = self.energy_drift
+        result["use_lists"] = float(lists is not None)
         result["reconfigured"] = 0.0
+        # the config check first: a re-size drops the lists, so a
+        # proactive rebuild before it would be wasted
         if not self._config_still_valid(result["h_max"], min_length):
             self._configure()
             self.reconfigures += 1
             result["reconfigured"] = 1.0
+        elif lists is not None and result["list_slack"] < self._LIST_SLACK_REBUILD:
+            self._rebuild_lists()
+        self.last_step_seconds = time.perf_counter() - t0
         return result
 
     def run(self, num_steps: int, printer=None):

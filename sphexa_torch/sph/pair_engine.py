@@ -2,8 +2,7 @@
 prologue (torch) and the three std-SPH pair ops, each a hand-written CUDA
 kernel with a plain PyTorch version beside it.
 
-Counterpart of sphexa_tpu/sph/pallas_pairs.py (streaming form, no
-persistent lists). Targets are groups of ``cfg.group`` SFC-consecutive
+Counterpart of sphexa_tpu/sph/pallas_pairs.py. Targets are groups of ``cfg.group`` SFC-consecutive
 particles; ``group_cell_ranges`` finds each group's candidate cells,
 culls them against the group's bbox inflated by 2 max h, and merges
 SFC-adjacent survivors into contiguous runs of the sorted arrays. Each op
@@ -11,6 +10,11 @@ then walks its group's runs, applying a per-run periodic shift (or the
 per-pair minimum-image fold when the window spans the whole periodic grid,
 ``engine_fold``), masks pairs to ``d^2 < 4 h_i^2`` (and ``d^2 < 4 h_j^2``
 for the symmetric momentum cutoff) minus the self pair, and accumulates.
+
+With persistent lists (sph/pair_lists.py) the ops take ``lists=``:
+density and IAD run the same engine on the lists' pruned runs, and the
+momentum op runs the list walk, which does the pair math only on the
+lanes the mark pass kept (``engine_lists_kernel``/``engine_lists_plain``).
 
 Dispatch of every op wrapper (``pallas_density``, ``pallas_iad``,
 ``pallas_momentum_energy_std``, named as in the JAX package):
@@ -39,11 +43,15 @@ from sphexa_torch.sph.kernels import kernel_poly_coeffs, sinc_poly_eval
 
 #: kernel launches per op since the last ``reset_launches()``; only the
 #: wrappers' CUDA branch adds to it
-LAUNCHES: Dict[str, int] = {"density": 0, "iad": 0, "momentum_energy_std": 0}
+LAUNCHES: Dict[str, int] = {"density": 0, "iad": 0, "momentum_energy_std": 0,
+                            "momentum_energy_std_lists": 0, "mark": 0}
 
 #: pair elements per tile of the plain version (bounds its transient
 #: memory: the momentum op keeps ~50 float32 temporaries of a tile)
 PLAIN_TILE_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 25}
+
+#: lanes of a chunk: one 128-aligned row of the sorted arrays
+LANES = 128
 
 
 def reset_launches() -> None:
@@ -88,14 +96,17 @@ def _pad_groups(a: torch.Tensor, group: int) -> torch.Tensor:
 
 
 def group_cell_ranges(x, y, z, h, sorted_keys, box: Box,
-                      cfg: NeighborConfig) -> GroupRanges:
+                      cfg: NeighborConfig, radius_pad=0.0) -> GroupRanges:
     """Candidate runs of every group, culled, merged and compacted
     (pallas_pairs.group_cell_ranges). ``occupancy`` is the densest kept
     cell, or ``cap + 1`` when some group's search extent outgrew the
     window block; either above ``cap`` means the config must be re-sized
-    and the step replayed."""
+    and the step replayed. ``radius_pad`` (a float32 0-d tensor: the
+    list-build skin) widens each group's search radius to
+    2 max h + radius_pad, so that the runs stay valid while particles
+    drift between list rebuilds."""
     start, lens, keep, shifts, raw_len, window_ok = window_cells_culled(
-        x, y, z, h, sorted_keys, box, cfg)
+        x, y, z, h, sorted_keys, box, cfg, radius_pad)
     starts_c, lens_c, sh, ncells = _merge_runs(
         start, lens, keep, shifts, cfg.run_cap, cfg.gap)
     occupancy = torch.where(window_ok, torch.where(keep, raw_len, 0).max(), cfg.cap + 1)
@@ -109,12 +120,13 @@ def group_cell_ranges(x, y, z, h, sorted_keys, box: Box,
     )
 
 
-def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig):
+def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
+                        radius_pad=0.0):
     """Every group's window^3 block of grid cells with its sorted-array
     range and the cull verdict: a cell is kept when it exists (periodic
     images de-aliased, open-boundary cells inside the grid), is non-empty
     and, off the fold path, its AABB at its image position meets the
-    group's bbox inflated by 2 max h. Returns (start, lens, keep, shifts,
+    group's bbox inflated by 2 max h + radius_pad. Returns (start, lens, keep, shifts,
     raw_len, window_ok), shaped (NG, W3[, 3])."""
     n = x.shape[0]
     dev = x.device
@@ -129,7 +141,7 @@ def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig):
     xg, yg, zg, hg = (_pad_groups(a, cfg.group) for a in (x, y, z, h))
     lo = torch.stack([xg.amin(1), yg.amin(1), zg.amin(1)], dim=1)  # (NG, 3)
     hi = torch.stack([xg.amax(1), yg.amax(1), zg.amax(1)], dim=1)
-    radius = 2.0 * hg.amax(1)  # (NG,)
+    radius = 2.0 * hg.amax(1) + radius_pad  # (NG,) float32
     box_lo = box.lo
     base = torch.floor((lo - radius[:, None] - box_lo) / edge).to(torch.int32)
     need = torch.floor((hi + radius[:, None] - box_lo) / edge).to(torch.int32)
@@ -394,18 +406,105 @@ def engine_plain(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     get the kernel's shift or fold and masks; the op's pair math then runs
     on the masked pairs and is reduced per target. Returns (outs (n,) x
     num_out, nc (n,) int32)."""
-    n = i_fields[0].shape[0]
-    dev = i_fields[0].device
-    tile_elems = PLAIN_TILE_ELEMS[dev.type]
-    I_all = [_pad_groups(a, group) for a in i_fields]  # (NG, G) each
-    ng = I_all[0].shape[0]
     lens = ranges.lens.to(torch.int64)
     starts = ranges.starts.to(torch.int64)
     cum = torch.cumsum(lens, dim=1)
     first = cum - lens  # candidate offset of each run inside its group
     total = cum[:, -1]
     shifts = (ranges.shift_x, ranges.shift_y, ranges.shift_z)
-    lx, ly, lz = (ranges.boxl[d] for d in range(3))
+
+    def candidates(sl: slice, cmax: int):
+        kk = torch.arange(cmax, device=lens.device).expand(sl.stop - sl.start, cmax)
+        run = torch.searchsorted(cum[sl], kk.contiguous(), right=True)
+        run = run.clamp(max=lens.shape[1] - 1)
+        cand = starts[sl].gather(1, run) + (kk - first[sl].gather(1, run))
+        valid = kk < total[sl, None]
+        sh = None if fold else [a[sl].gather(1, run) for a in shifts]
+        return torch.where(valid, cand, 0), valid, sh
+
+    return _engine_plain_core(spec, i_fields, j_fields, group, consts, total,
+                              candidates, ranges.boxl)
+
+
+def chunk_slots(ranges: GroupRanges, slot_cap: int):
+    """Slot -> (run, chunk) map of every group's runs: a slot is one
+    128-aligned row of the sorted arrays that a run touches, numbered in
+    run order (pair_lists._prune_empty_chunks). Returns (w_of_s, c_of_s,
+    total) with (NG, slot_cap) int64 run index and chunk-in-run of each
+    slot and the (NG,) int64 chunk count of each group; slots at or past
+    the count map to the last live run."""
+    starts, lens = ranges.starts.to(torch.int64), ranges.lens.to(torch.int64)
+    ng, w3 = starts.shape
+    off = starts % LANES
+    nch = torch.where(lens > 0, (off + lens + LANES - 1) // LANES, 0)
+    cum = torch.cumsum(nch, dim=1) - nch  # first slot of each run
+    # live runs lead each row (the runs are compacted), so their first
+    # slots ascend; a dead run sorts last
+    live_cum = torch.where(nch > 0, cum, 2**62)
+    s_idx = torch.arange(slot_cap, device=starts.device)
+    w_of_s = torch.searchsorted(live_cum, s_idx.expand(ng, slot_cap).contiguous(),
+                                right=True) - 1
+    w_of_s = w_of_s.clamp(0, w3 - 1)
+    c_of_s = s_idx[None, :] - cum.gather(1, w_of_s)
+    return w_of_s, c_of_s, nch.sum(dim=1)
+
+
+def lane_mask(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 4) int32 mask words -> (..., 128) bool: lane l is bit l % 32
+    of word l // 32."""
+    lane = torch.arange(LANES, device=bits.device)
+    return ((bits[..., lane // 32] >> (lane % 32)) & 1).bool()
+
+
+def engine_lists_plain(spec: OpSpec, lists, i_fields: Sequence,
+                       j_fields: Sequence, group: int, consts: dict):
+    """The list walk's contract in plain PyTorch: each group's candidates
+    are the lanes its mark bits keep, in slot order, each with its run's
+    shift; the pair math and reduction are ``engine_plain``'s. Returns
+    (outs (n,) x num_out, nc (n,) int32)."""
+    ranges = lists.ranges
+    # slots past a group's pruned chunks hold no marked lane
+    w_of_s, c_of_s, _ = chunk_slots(ranges, lists.slot_cap)
+    row = ranges.starts.to(torch.int64).gather(1, w_of_s) // LANES + c_of_s
+    shifts = [a.gather(1, w_of_s) for a in (ranges.shift_x, ranges.shift_y, ranges.shift_z)]
+    lane = torch.arange(LANES, device=row.device)
+    total = lists.cnt.to(torch.int64).sum(dim=1)
+
+    def candidates(sl: slice, cmax: int):
+        gc = sl.stop - sl.start
+        marked = lane_mask(lists.bits[sl]).reshape(gc, -1)
+        gi, fi = marked.nonzero(as_tuple=True)  # row-major: slot, then lane order
+        pos = (torch.cumsum(marked, dim=1) - 1)[gi, fi]
+        si = fi // LANES
+        cand = torch.zeros(gc, cmax, dtype=torch.int64, device=row.device)
+        valid = torch.zeros(gc, cmax, dtype=torch.bool, device=row.device)
+        cand[gi, pos] = row[sl][gi, si] * LANES + lane[fi % LANES]
+        valid[gi, pos] = True
+        sh = []
+        for a in shifts:
+            t = torch.zeros(gc, cmax, dtype=a.dtype, device=row.device)
+            t[gi, pos] = a[sl][gi, si]
+            sh.append(t)
+        return cand, valid, sh
+
+    return _engine_plain_core(spec, i_fields, j_fields, group, consts, total,
+                              candidates, ranges.boxl)
+
+
+def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
+                       group: int, consts: dict, total: torch.Tensor,
+                       candidates: Callable, boxl: torch.Tensor):
+    """Masked pair math over each group's candidates, in chunks of groups
+    whose padded (groups, G, C) tiles fit the budget. ``total`` holds each
+    group's candidate count; ``candidates(groups, C)`` returns the padded
+    (groups, C) candidate indices, their validity and their per-candidate
+    shifts (None: fold every pair with the periods ``boxl``)."""
+    n = i_fields[0].shape[0]
+    dev = i_fields[0].device
+    tile_elems = PLAIN_TILE_ELEMS[dev.type]
+    I_all = [_pad_groups(a, group) for a in i_fields]  # (NG, G) each
+    ng = I_all[0].shape[0]
+    lx, ly, lz = (boxl[d] for d in range(3))
     tgt_all = torch.arange(ng * group, device=dev).reshape(ng, group)
 
     outs = [torch.empty(ng, group, device=dev) for _ in range(spec.num_out)]
@@ -419,17 +518,12 @@ def engine_plain(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
             cmax = max(cmax, total_host[g1])
             g1 += 1
         sl = slice(g0, g1)
-        kk = torch.arange(cmax, device=dev).expand(g1 - g0, cmax)
-        run = torch.searchsorted(cum[sl], kk.contiguous(), right=True)
-        run = run.clamp(max=lens.shape[1] - 1)
-        cand = starts[sl].gather(1, run) + (kk - first[sl].gather(1, run))
-        valid = kk < total[sl, None]
-        cand = torch.where(valid, cand, 0)
+        cand, valid, sh = candidates(sl, cmax)
         J = [a[cand][:, None, :] for a in j_fields[:3]]  # (gc, 1, C)
         if spec.sym_j is not None:
             J.append(j_fields[spec.sym_j][cand][:, None, :])
         xi, yi, zi, hi = (a[sl][:, :, None] for a in I_all[:4])  # (gc, G, 1)
-        if fold:
+        if sh is None:
             rx = xi - J[0]
             ry = yi - J[1]
             rz = zi - J[2]
@@ -437,7 +531,7 @@ def engine_plain(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
             ry = ry - ly * torch.round(ry / ly)
             rz = rz - lz * torch.round(rz / lz)
         else:
-            sx, sy, sz = (s[sl].gather(1, run)[:, None, :] for s in shifts)
+            sx, sy, sz = (a[:, None, :] for a in sh)
             rx = xi - (J[0] + sx)
             ry = yi - (J[1] + sy)
             rz = zi - (J[2] + sz)
@@ -482,7 +576,7 @@ _NCOEF = 14
 
 
 class EngineArgs(ctypes.Structure):
-    """Mirror of ``EngineArgs`` in csrc/pair_engine.cu (same field order)."""
+    """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order)."""
 
     _fields_ = [
         ("starts", ctypes.c_void_p),
@@ -506,10 +600,12 @@ class EngineArgs(ctypes.Structure):
         ("mhalf_K", ctypes.c_float),
         ("k_cour", ctypes.c_float),
         ("coeffs", ctypes.c_float * _NCOEF),
+        ("bits", ctypes.c_void_p),
+        ("slot_cap", ctypes.c_int32),
     ]
 
 
-def _check_cuda_f32(name: str, a: torch.Tensor, n: int, dev) -> None:
+def check_cuda_f32(name: str, a: torch.Tensor, n: int, dev) -> None:
     if a.device != dev or a.dtype != torch.float32 or a.shape != (n,) \
             or not a.is_contiguous():
         raise ValueError(
@@ -517,24 +613,29 @@ def _check_cuda_f32(name: str, a: torch.Tensor, n: int, dev) -> None:
             f"{a.dtype} {tuple(a.shape)} on {a.device}")
 
 
-def engine_kernel(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
-                  j_fields: Sequence, fold: bool, group: int, consts: dict):
-    """Launch the op's CUDA kernel on the current stream (no sync).
-    Returns (outs (n,) x num_out, nc (n,) int32 or None)."""
-    from sphexa_torch.kernels.build import load_library
+def check_table(name: str, a: torch.Tensor, dtype, shape, dev) -> None:
+    if a.device != dev or a.dtype != dtype or tuple(a.shape) != tuple(shape) \
+            or not a.is_contiguous():
+        raise ValueError(f"{name}: need contiguous {dtype} {tuple(shape)} on {dev}, got "
+                         f"{a.dtype} {tuple(a.shape)} on {a.device}")
 
+
+def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
+                 j_fields: Sequence, fold: bool, group: int, consts: dict):
+    """Check the inputs of a CUDA launch and fill its EngineArgs; returns
+    (args, outs, nc), the outputs allocated on the inputs' device."""
     x = i_fields[0]
     dev, n = x.device, x.shape[0]
     if dev.type != "cuda":
-        raise ValueError(f"engine_kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"{spec.name}: the kernel needs CUDA tensors, got {dev}")
     if not 0 < group <= 256 or group % 32:
         raise ValueError(f"group must be a multiple of 32 in (0, 256], got {group}")
     if len(i_fields) != spec.num_i or len(j_fields) != spec.num_j:
         raise ValueError(f"{spec.name}: field count mismatch")
     for k, a in enumerate(i_fields):
-        _check_cuda_f32(f"{spec.name} i-field {k}", a, n, dev)
+        check_cuda_f32(f"{spec.name} i-field {k}", a, n, dev)
     for k, a in enumerate(j_fields):
-        _check_cuda_f32(f"{spec.name} j-field {k}", a, n, dev)
+        check_cuda_f32(f"{spec.name} j-field {k}", a, n, dev)
     ng, w3 = ranges.starts.shape
     if ng != -(-n // group):
         raise ValueError(f"ranges hold {ng} groups, {n} targets need {-(-n // group)}")
@@ -543,15 +644,9 @@ def engine_kernel(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
                       ("shift_x", ranges.shift_x, torch.float32),
                       ("shift_y", ranges.shift_y, torch.float32),
                       ("shift_z", ranges.shift_z, torch.float32)):
-        if a.device != dev or a.dtype != dt or a.shape != (ng, w3) \
-                or not a.is_contiguous():
-            raise ValueError(f"ranges.{nm}: need contiguous {dt} ({ng}, {w3}) on {dev}")
-    if ranges.ncells.dtype != torch.int32 or ranges.ncells.shape != (ng,) \
-            or ranges.ncells.device != dev:
-        raise ValueError("ranges.ncells: need int32 (NG,) on the device")
-    if ranges.boxl.dtype != torch.float32 or ranges.boxl.shape != (3,) \
-            or ranges.boxl.device != dev or not ranges.boxl.is_contiguous():
-        raise ValueError("ranges.boxl: need contiguous float32 (3,) on the device")
+        check_table(f"ranges.{nm}", a, dt, (ng, w3), dev)
+    check_table("ranges.ncells", ranges.ncells, torch.int32, (ng,), dev)
+    check_table("ranges.boxl", ranges.boxl, torch.float32, (3,), dev)
 
     outs = [torch.empty(n, dtype=torch.float32, device=dev)
             for _ in range(spec.num_out)]
@@ -584,33 +679,67 @@ def engine_kernel(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         raise ValueError(f"the kernel takes {_NCOEF} polynomial coefficients")
     for k, v in enumerate(coeffs):
         args.coeffs[k] = v
+    return args, outs, nc
+
+
+def launch(entry: str, args: ctypes.Structure, dev: torch.device) -> None:
+    """Call a kernel library entry point on ``dev``'s current stream (no
+    sync); raises on a refused launch and counts it in LAUNCHES."""
+    from sphexa_torch.kernels.build import load_library
 
     lib = load_library()
-    fn = getattr(lib, f"launch_{spec.name}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(ctypes.addressof(args), stream)
+        err = getattr(lib, f"launch_{entry}")(ctypes.addressof(args), stream)
     if err != 0:
-        raise RuntimeError(f"launch_{spec.name} failed: CUDA error {err} "
+        raise RuntimeError(f"launch_{entry} failed: CUDA error {err} "
                            f"({lib.pair_engine_error_string(err).decode()})")
-    LAUNCHES[spec.name] += 1
+    LAUNCHES[entry] += 1
+
+
+def engine_kernel(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
+                  j_fields: Sequence, fold: bool, group: int, consts: dict):
+    """Launch the op's CUDA kernel on the current stream (no sync).
+    Returns (outs (n,) x num_out, nc (n,) int32 or None)."""
+    args, outs, nc = _engine_args(spec, ranges, i_fields, j_fields, fold, group, consts)
+    launch(spec.name, args, i_fields[0].device)
     return outs, nc
 
 
-def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const):
-    """Dispatch by device: CUDA launches the kernel, CPU runs the plain
-    version; anything else raises."""
-    fold = engine_fold(box, cfg)
-    consts = op_consts(const)
+def engine_lists_kernel(spec: OpSpec, lists, i_fields: Sequence,
+                        j_fields: Sequence, group: int, consts: dict):
+    """Launch the op's list-walk kernel (csrc/pair_lists.cu) on the
+    current stream (no sync). Returns (outs (n,) x num_out, nc or None)."""
+    args, outs, nc = _engine_args(spec, lists.ranges, i_fields, j_fields, False,
+                                  group, consts)
+    dev = i_fields[0].device
+    ng, scap = lists.ranges.num_groups, lists.slot_cap
+    check_table("lists.bits", lists.bits, torch.int32, (ng, scap, LANES // 32), dev)
+    args.bits = lists.bits.data_ptr()
+    args.slot_cap = scap
+    launch(f"{spec.name}_lists", args, dev)
+    return outs, nc
+
+
+def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None):
+    """Dispatch by device: CUDA launches the kernel (the list walk when
+    ``lists`` is given), CPU runs the plain version; anything else raises."""
     dev = i_fields[0].device
     if dev.type == "cuda":
-        return engine_kernel(spec, ranges, i_fields, j_fields, fold, cfg.group, consts)
+        consts = op_consts(const)
+        if lists is not None:
+            return engine_lists_kernel(spec, lists, i_fields, j_fields, cfg.group, consts)
+        return engine_kernel(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
+                             cfg.group, consts)
     if dev.type == "cpu":
-        return engine_plain(spec, ranges, i_fields, j_fields, fold, cfg.group, consts)
+        return _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists)
     raise ValueError(f"unsupported device {dev}")
 
 
-def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const):
+def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None):
+    if lists is not None:
+        return engine_lists_plain(spec, lists, i_fields, j_fields, cfg.group,
+                                  op_consts(const))
     return engine_plain(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
                         cfg.group, op_consts(const))
 
@@ -619,6 +748,9 @@ def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const):
 # The three std-SPH ops (pallas_pairs.pallas_density / pallas_iad /
 # pallas_momentum_energy_std). Each builds its precombined i/j fields,
 # runs the engine and applies the post-processing of the JAX wrapper.
+# With ``lists`` (persistent PairLists) the candidate runs are the lists'
+# pruned ones, ``sorted_keys`` and ``ranges`` are unused, and the momentum
+# op takes the list walk.
 # ---------------------------------------------------------------------------
 
 
@@ -642,78 +774,86 @@ def momentum_fields(x, y, z, vx, vy, vz, h, m, rho, p, c,
     return i_f, j_f
 
 
-def _with_ranges(ranges, x, y, z, h, sorted_keys, box, cfg):
+def _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg):
+    if lists is not None:
+        return lists.ranges
     return ranges if ranges is not None else \
         group_cell_ranges(x, y, z, h, sorted_keys, box, cfg)
 
 
-def _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges):
-    ranges = _with_ranges(ranges, x, y, z, h, sorted_keys, box, cfg)
+def _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     (rho,), nc = run(DENSITY, ranges, *density_fields(x, y, z, h, m), box, cfg, const)
     return rho, nc, ranges.occupancy
 
 
-def _iad(run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges):
-    ranges = _with_ranges(ranges, x, y, z, h, sorted_keys, box, cfg)
+def _iad(run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     cs, _ = run(IAD, ranges, *iad_fields(x, y, z, h, vol), box, cfg, const)
     return tuple(cs), ranges.occupancy
 
 
 def _momentum_energy_std(run, x, y, z, vx, vy, vz, h, m, rho, p, c,
                          c11, c12, c13, c22, c23, c33, sorted_keys, box, const,
-                         cfg, ranges):
-    ranges = _with_ranges(ranges, x, y, z, h, sorted_keys, box, cfg)
+                         cfg, ranges, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = momentum_fields(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33)
     (ax, ay, az, du, dt_i), _ = run(momentum_spec(const), ranges, i_f, j_f, box,
-                                    cfg, const)
+                                    cfg, const, lists)
     return ax, ay, az, du, torch.min(dt_i), ranges.occupancy
 
 
 def pallas_density(x, y, z, h, m, sorted_keys, box: Box, const,
-                   cfg: NeighborConfig, ranges: Optional[GroupRanges] = None):
+                   cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+                   lists=None):
     """rho_i = K h_i^-3 (m_i + sum_j m_j W(d^2/h_i^2)) and neighbour counts.
     Returns (rho, nc, occupancy)."""
-    return _density(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges)
+    return _density(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists)
 
 
 def density_plain(x, y, z, h, m, sorted_keys, box: Box, const,
-                  cfg: NeighborConfig, ranges: Optional[GroupRanges] = None):
+                  cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+                  lists=None):
     """Plain PyTorch version of ``pallas_density`` on any device."""
-    return _density(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges)
+    return _density(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges,
+                    lists)
 
 
 def pallas_iad(x, y, z, h, vol, sorted_keys, box: Box, const,
-               cfg: NeighborConfig, ranges: Optional[GroupRanges] = None):
+               cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+               lists=None):
     """IAD tensor components; ``vol`` is m/rho. Returns ((c11..c33), occupancy)."""
-    return _iad(_run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges)
+    return _iad(_run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists)
 
 
 def iad_plain(x, y, z, h, vol, sorted_keys, box: Box, const,
-              cfg: NeighborConfig, ranges: Optional[GroupRanges] = None):
+              cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+              lists=None):
     """Plain PyTorch version of ``pallas_iad`` on any device."""
-    return _iad(_run_plain, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges)
+    return _iad(_run_plain, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges,
+                lists)
 
 
 def pallas_momentum_energy_std(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33, sorted_keys,
                                box: Box, const, cfg: NeighborConfig,
-                               ranges: Optional[GroupRanges] = None):
+                               ranges: Optional[GroupRanges] = None, lists=None):
     """Pressure-gradient accelerations, energy rate and the Courant dt.
     Returns (ax, ay, az, du, min_dt, occupancy)."""
     return _momentum_energy_std(_run, x, y, z, vx, vy, vz, h, m, rho, p, c,
                                 c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                                const, cfg, ranges)
+                                const, cfg, ranges, lists)
 
 
 def momentum_energy_std_plain(x, y, z, vx, vy, vz, h, m, rho, p, c,
                               c11, c12, c13, c22, c23, c33, sorted_keys,
                               box: Box, const, cfg: NeighborConfig,
-                              ranges: Optional[GroupRanges] = None):
+                              ranges: Optional[GroupRanges] = None, lists=None):
     """Plain PyTorch version of ``pallas_momentum_energy_std`` on any device."""
     return _momentum_energy_std(_run_plain, x, y, z, vx, vy, vz, h, m, rho, p, c,
                                 c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                                const, cfg, ranges)
+                                const, cfg, ranges, lists)
 
 
 def momentum_spec(const) -> OpSpec:

@@ -1,22 +1,27 @@
-"""Kernel-vs-plain checks of the port's CUDA pair engine. They need an
+"""Kernel-vs-plain checks of the port's CUDA kernels. They need an
 NVIDIA card (marker ``gpu``) and skip without one; on the card run
 
-    python -m pytest tests/test_torch_gpu.py -q
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-Each kernel and its plain PyTorch version get the same sorted Sedov state
-on the card, on the fold case (side 12) and the shift case (side 24,
-cell_target=16), with the JAX package's tolerances. The lattice is
-jittered from a seed (``jitter_sedov``) so that every term of each pair
-body, the viscosity and the IAD off-diagonals included, is non-zero."""
+Each kernel and its plain PyTorch version get the same sorted state on
+the card, with the JAX package's tolerances. The pair engine: Sedov on
+the fold case (side 12) and the shift case (side 24, cell_target=16).
+The persistent lists (mark pass, list walk, list mode against streaming):
+Sedov side 30 and Noh 16 (open box); jittered side 24 has no lists (its
+list window spans the grid, fold mode). Every Sedov lattice is jittered
+from a seed (``jitter_sedov``) so that every term of each pair body, the
+viscosity and the IAD off-diagonals included, is non-zero."""
 
 import pytest
 import torch
 
 from sphexa_torch.convert import state_from_numpy, state_to_numpy
-from sphexa_torch.init import init_sedov, jitter_sedov
-from sphexa_torch.propagator import _force_stage_prologue
+from sphexa_torch.init import init_noh, init_sedov, jitter_sedov
+from sphexa_torch.propagator import _force_stage_prologue, rebuild_pair_lists
+from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.simulation import make_propagator_config
 from sphexa_torch.sph import pair_engine as pe
+from sphexa_torch.sph import pair_lists as pl
 from sphexa_torch.sph.hydro_std import compute_eos_std
 
 pytestmark = pytest.mark.gpu
@@ -34,7 +39,7 @@ def case(request):
                                          const, device="cuda")
     cfg = make_propagator_config(state, box, const, cell_target=ct)
     assert pe.engine_fold(box, cfg.nbr) == (request.param == "fold")
-    ss, box, keys = _force_stage_prologue(state, box, cfg)
+    ss, box, keys, _ = _force_stage_prologue(state, box, cfg)
     ranges = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr)
     return ss, box, const, cfg.nbr, keys, ranges
 
@@ -62,7 +67,8 @@ def test_kernels_match_plain(case):
     for a, b in zip(out_k[:4], out_p[:4]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * float(b.abs().max()) + 1e-12)
     assert float(out_k[4]) == pytest.approx(float(out_p[4]), rel=1e-5)
-    assert pe.LAUNCHES == {"density": 1, "iad": 1, "momentum_energy_std": 1}
+    assert pe.LAUNCHES == {"density": 1, "iad": 1, "momentum_energy_std": 1,
+                           "momentum_energy_std_lists": 0, "mark": 0}
 
 
 def test_wrapper_rejects_bad_input(case):
@@ -70,3 +76,91 @@ def test_wrapper_rejects_bad_input(case):
     with pytest.raises(ValueError):
         pe.pallas_density(ss.x, ss.y, ss.z, ss.h, ss.m.double(), keys, box, const,
                           nbr, ranges=ranges)
+
+
+LIST_CASES = {"sedov": (init_sedov, 30), "noh": (init_noh, 16)}
+
+
+@pytest.fixture(scope="module", params=list(LIST_CASES))
+def list_case(request):
+    """A list-mode config, the frozen sorted state and its lists (built by
+    the mark kernel), and the streaming runs of the same state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    init, side = LIST_CASES[request.param]
+    state, box, const = init(side, device="cpu")
+    if request.param == "sedov":
+        fields, b, c = state_to_numpy(state, box, const)
+        state, box, const = state_from_numpy(jitter_sedov(fields, side, seed=side), b, c,
+                                             device="cpu")
+    state, box = state.to("cuda"), box.to("cuda")
+    cfg = make_propagator_config(state, box, const, use_lists=True)
+    assert cfg.list_slot_cap > 0
+    ss, box, lists = rebuild_pair_lists(state, box, cfg)
+    assert int(lists.overflow) == 0
+    keys = compute_sfc_keys(ss.x, ss.y, ss.z, box, curve=cfg.curve)  # sorted: frozen order
+    ranges = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr)
+    return ss, box, const, cfg, keys, lists, ranges
+
+
+def test_mark_kernel_matches_plain(list_case):
+    """K5: the bits, counts and chunk totals of the mark kernel equal the
+    plain version's bit for bit, on the build-time (unpruned) runs."""
+    ss, box, const, cfg, keys, lists, _ = list_case
+    runs = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr,
+                                radius_pad=lists.skin)
+    args = (runs, ss.x, ss.y, ss.z, ss.h, lists.skin, cfg.list_slot_cap, cfg.nbr.group)
+    pe.reset_launches()
+    got = pl.mark_kernel(*args)
+    want = pl.mark_plain(*args)
+    assert pe.LAUNCHES["mark"] == 1
+    for name, a, b in zip(("bits", "cnt", "total"), got, want):
+        assert torch.equal(a, b), name
+    assert torch.equal(got[1], pe.lane_mask(got[0]).sum(-1).to(torch.int32))
+
+
+def test_list_walk_matches_plain(list_case):
+    """K6: the list walk's momentum/energy against its plain version."""
+    ss, box, const, cfg, keys, lists, _ = list_case
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+    rho, _, _ = pe.pallas_density(x, y, z, h, m, None, box, const, cfg.nbr, lists=lists)
+    p, c = compute_eos_std(ss.temp, rho, const)
+    cs, _ = pe.pallas_iad(x, y, z, h, m / rho, None, box, const, cfg.nbr, lists=lists)
+    args = (x, y, z, ss.vx, ss.vy, ss.vz, h, m, rho, p, c, *cs, None, box, const, cfg.nbr)
+    pe.reset_launches()
+    out_k = pe.pallas_momentum_energy_std(*args, lists=lists)
+    out_p = pe.momentum_energy_std_plain(*args, lists=lists)
+    assert pe.LAUNCHES["momentum_energy_std_lists"] == 1
+    assert pe.LAUNCHES["momentum_energy_std"] == 0
+    for a, b in zip(out_k[:4], out_p[:4]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * float(b.abs().max()) + 1e-12)
+    assert float(out_k[4]) == pytest.approx(float(out_p[4]), rel=1e-5)
+
+
+def test_lists_match_streaming(list_case):
+    """List mode (K1 on the pruned runs, K6) against the streaming kernels
+    with fresh runs on the same frozen-order state: nc exact, the rest
+    within the JAX package's list-vs-streaming tolerances
+    (tests/test_pair_lists.py)."""
+    ss, box, const, cfg, keys, lists, ranges = list_case
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+    nbr = cfg.nbr
+    rho0, nc0, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
+    rho1, nc1, _ = pe.pallas_density(x, y, z, h, m, None, box, const, nbr, lists=lists)
+    assert torch.equal(nc0, nc1)
+    torch.testing.assert_close(rho1, rho0, rtol=2e-6, atol=0.0)
+    p, c = compute_eos_std(ss.temp, rho0, const)
+    cs0, _ = pe.pallas_iad(x, y, z, h, m / rho0, keys, box, const, nbr, ranges=ranges)
+    cs1, _ = pe.pallas_iad(x, y, z, h, m / rho0, None, box, const, nbr, lists=lists)
+    csc = max(float(a.abs().max()) for a in cs0)
+    for a, b in zip(cs1, cs0):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6 * csc)
+    args = (x, y, z, ss.vx, ss.vy, ss.vz, h, m, rho0, p, c, *cs0, keys, box, const, nbr)
+    out0 = pe.pallas_momentum_energy_std(*args, ranges=ranges)
+    out1 = pe.pallas_momentum_energy_std(*args, lists=lists)
+    scale = float(out0[0].abs().max())
+    for a, b in zip(out1[:3], out0[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(out1[3], out0[3], rtol=1e-4,
+                               atol=1e-6 * float(out0[3].abs().max()))
+    assert float(out1[4]) == pytest.approx(float(out0[4]), rel=1e-5)

@@ -35,7 +35,9 @@ def _imported_modules(path):
 def test_port_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("sphexa_torch", "sph", "pair_engine.py") in names
+    for mod in (("sph", "pair_engine.py"), ("sph", "pair_lists.py"),
+                ("init", "noh.py"), ("init", "glass.py")):
+        assert os.path.join("sphexa_torch", *mod) in names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -136,4 +136,4 @@ def test_wrappers_count_only_kernel_launches(case):
     pe.reset_launches()
     pe.pallas_density(s.x, s.y, s.z, s.h, s.m, c["tkeys"], c["tb"], c["tc"],
                       c["tnbr"], ranges=c["ranges"])
-    assert pe.LAUNCHES == {"density": 0, "iad": 0, "momentum_energy_std": 0}
+    assert set(pe.LAUNCHES.values()) == {0}

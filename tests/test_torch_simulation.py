@@ -99,6 +99,9 @@ def test_cli_runs_on_cpu(capsys):
     assert app.main(["--init", "sedov", "-n", "6", "-s", "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "etot=" in out and "nc~" in out
-    for argv in (["--init", "noh", "--device", "cpu"], ["--prop", "ve", "--device", "cpu"]):
+    assert app.main(["--init", "noh", "-n", "8", "-s", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "it     2" in out and "lists on" in out
+    for argv in (["--init", "evrard", "--device", "cpu"], ["--prop", "ve", "--device", "cpu"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             app.main(argv)

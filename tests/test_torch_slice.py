@@ -1,6 +1,7 @@
 """The slice end to end: three std-SPH steps of the JAX package
 (step_hydro_std, backend="pallas", Pallas in interpret mode) against the
-port's Simulation(device="cpu"), every step from the same input state
+port's streaming Simulation(device="cpu", use_lists=False; the list mode
+is tests/test_torch_list_slice.py), every step from the same input state
 handed over through sphexa_torch.convert. Per step: SFC keys and sort
 order bitwise, diagnostics, then every field.
 
@@ -55,7 +56,7 @@ def test_three_steps_match_jax(case):
     js, jb, jc = jax_init_sedov(side)
     jcfg = jax_config(js, jb, jc, backend="pallas", **kw)
     sim = Simulation(*state_from_numpy(*_flat(js, jb, jc), device="cpu"),
-                     device="cpu", **kw)
+                     device="cpu", use_lists=False, **kw)
     # every field the port reads equals the JAX package's
     assert dataclasses.asdict(sim.cfg.nbr) == {
         k: getattr(jcfg.nbr, k) for k in dataclasses.asdict(sim.cfg.nbr)}
