@@ -7,32 +7,40 @@ Phases, each printed as one JSON line:
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile the hand-written CUDA kernels from sphexa_torch/csrc;
-3. kernels vs plain: every pair-engine kernel against its plain PyTorch
-   version on the card, on the sorted Sedov state at side 24 with
-   cell_target=16 (per-run shift path) and side 12 (min-image fold path),
-   the lattice jittered from a seed so that every term of each pair body
-   is non-zero; whole steps on the card against the same steps on the
-   CPU, streaming and in list mode;
+3. kernels vs plain: every pair-engine kernel, std and VE (both forms of
+   divv/curlv and of VE momentum), against its plain PyTorch version on
+   the card, on the sorted Sedov state at side 24 with cell_target=16
+   (per-run shift path) and side 12 (min-image fold path), the lattice
+   jittered from a seed so that every term of each pair body is non-zero;
+   whole steps on the card against the same steps on the CPU, std and VE,
+   streaming and in list mode, and VE Gresho-Chan side 30 (a fold-mode
+   grid: it streams);
 4. lists vs plain: the mark pass and the list walk against their plain
-   versions, and list mode against the streaming kernels with fresh runs,
-   on the jittered Sedov side 30 and Noh 16 (open box) states;
-5. main path: Sedov 100^3 (10^6 particles) through Simulation(prop="std")
-   on the card, which runs persistent neighbour lists: one warm-up step
-   (the first list build) and ten timed steps, with the launch counters
-   reset just before the Simulation is made and read just after; then one
-   step with torch's CUDA sync debug mode on, to count the host syncs per
-   step and where they come from, two more steps under torch.profiler for
-   the device time per step and the device busy share, and the time of
-   one list rebuild;
-6. the streaming path: the same through Simulation(use_lists=False), one
-   warm-up and five timed steps, counters reset just before and read just
-   after, its host syncs and profile;
-7. kernels vs plain again at the main path's shapes (the evolved side-100
-   states of phases 5 and 6), with each kernel's time, its plain version's
+   versions, list mode against the streaming kernels with fresh runs, and
+   the VE ops' list forms against their plain versions, on the jittered
+   Sedov side 30 and Noh 16 (open box) states;
+5. std main path: Sedov 100^3 (10^6 particles) through
+   Simulation(prop="std") on the card, which runs persistent neighbour
+   lists: one warm-up step (the first list build) and ten timed steps,
+   with the launch counters reset just before the Simulation is made and
+   read just after; then one step with torch's CUDA sync debug mode on,
+   to count the host syncs per step and where they come from, two more
+   steps under torch.profiler for the device time per step and the device
+   busy share, and the time of one list rebuild;
+6. the std streaming path: the same through Simulation(use_lists=False),
+   one warm-up and five timed steps, counters reset just before and read
+   just after, its host syncs and profile;
+7. the VE path: Sedov 100^3 through Simulation(prop="ve") in list mode,
+   one warm-up and ten timed steps, launches, host syncs and profile;
+   then two short VE paths that launch the VE entry points the list mode
+   leaves out: streaming (use_lists=False) and av_clean in list mode, one
+   warm-up and three timed steps each;
+8. kernels vs plain again at the paths' shapes (the evolved side-100
+   states of phases 5-7), with each kernel's time, its plain version's
    time, the sort/prologue times and each kernel's least possible time
    (bound);
-8. the main path's Simulation on to step 100: list rebuilds, replays and
-   the mean and median step time, the rebuilds included;
+9. the std main path's Simulation on to step 100: list rebuilds, replays
+   and the mean and median step time, the rebuilds included;
 
 then the {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -62,25 +70,64 @@ PEAK_HBM_BYTES = 3.35e12
 # FMAs + 4 for its argument, clamp and floor = 30)
 MASK_OPS = 12
 SYM_OPS = 2
-BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96}
+# The VE bodies, counted the same way from csrc/pair_ops.cuh (an rsqrt,
+# sqrt or expf counts 1; the dterh polynomial 29, as W's without its
+# floor; each IAD projection (C r) w is 18), the operations every pair
+# under the mask runs:
+# - ve_def_gradh: u 1 + W 30 + dterh 29 + 3 FMA sums 6 = 66;
+# - iad_divv_curlv: -W 32 + projection 18 + 3 velocity differences +
+#   divergence 7 + three curl components 15 = 75; with gradv the nine
+#   sums xm v_a tA_b 27 instead of 22 = 80;
+# - av_switches: w 33 + 3 differences + r.v 5 + rsqrt 1 + signal
+#   velocity 6 + projection 18 + factor 2 + 3 FMA sums 6 = 74;
+# - momentum_energy_ve: u_i, u_j 2 + w_i, w_j 64 + 3 differences + r.v 5
+#   + rsqrt 1 + w_ij, c_ij 2 + v_sig 5 + visc 2 + max 3 + two projections
+#   36 + Atwood number 4 and its two compares 2 + viscous weights 4 + av
+#   terms 12 + viscous energy 6 + energy 8 + pressure weights 4 + three
+#   momentum sums 15 = 178; av_clean adds 45 (two r.G r 28, eta_ab 3 and
+#   its compare 1, A and phi 10, the r.v update 3) = 223.
+BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96,
+            "ve_def_gradh": 66, "iad_divv_curlv": 75, "iad_divv_curlv_gradv": 80,
+            "av_switches": 74, "momentum_energy_ve": 178, "momentum_energy_ve_clean": 223}
+# operations only the pairs that take a branch run (counted per pair by
+# ``momentum_pair_counts``): the Atwood ramp (sigma 2, dl 1, the exponent
+# and its negation 2, two expf 2, two products 2), the crossed volume
+# element (1 product), the av_clean limiter (eta_diff 2, its square 1,
+# negation 1, expf 1)
+BRANCH_OPS = {"ramp": 9, "crossed": 1, "limiter": 5}
+# ops with the symmetric cutoff d^2 < 4 h_j^2 in their mask
+SYM_BODIES = ("momentum_energy_std", "momentum_energy_ve", "momentum_energy_ve_clean")
+# an entry point's body where it is not the entry point's own name
+BODY_OF = {"momentum_energy_std_lists": "momentum_energy_std",
+           "av_switches_lists": "av_switches",
+           "momentum_energy_ve_lists": "momentum_energy_ve",
+           "iad_divv_curlv_lists": "iad_divv_curlv_gradv"}
 # FP32 operations per lane of the mark pass (2 run-bound compares, 3 shift
 # adds, 6 bbox compares)
 MARK_OPS = 11
 # distinct float32 per-particle arrays each op reads and writes (each read
-# or written once), besides the run tables (5 x NG x W3 + NG words)
-IO_ARRAYS = {"density": (6, 2), "iad": (6, 6), "momentum_energy_std": (21, 5)}
+# or written once), besides the run tables (5 x NG x W3 + NG words): the
+# precombined i-fields, the j-fields the i-side lacks, and the outputs
+IO_ARRAYS = {"density": (6, 2), "iad": (6, 6), "momentum_energy_std": (21, 5),
+             "ve_def_gradh": (7, 2), "iad_divv_curlv": (16, 2),
+             "iad_divv_curlv_gradv": (16, 8), "av_switches": (19, 1),
+             "momentum_energy_ve": (24, 5), "momentum_energy_ve_clean": (31, 5)}
 TPU_KERNEL = {
     "density": "sphexa_tpu/sph/pallas_pairs.py:1121",
     "iad": "sphexa_tpu/sph/pallas_pairs.py:1185",
     "momentum_energy_std": "sphexa_tpu/sph/pallas_pairs.py:1275",
     "momentum_energy_std_lists": "sphexa_tpu/sph/pallas_pairs.py:1080",
     "mark": "sphexa_tpu/sph/pair_lists.py:231",
+    "ve_def_gradh": "sphexa_tpu/sph/pallas_pairs.py:1435",
+    "iad_divv_curlv": "sphexa_tpu/sph/pallas_pairs.py:1507",
+    "iad_divv_curlv_lists": "sphexa_tpu/sph/pallas_pairs.py:1602",
+    "av_switches": "sphexa_tpu/sph/pallas_pairs.py:1632",
+    "av_switches_lists": "sphexa_tpu/sph/pallas_pairs.py:1720",
+    "momentum_energy_ve": "sphexa_tpu/sph/pallas_pairs.py:1747",
+    "momentum_energy_ve_lists": "sphexa_tpu/sph/pallas_pairs.py:1924",
 }
-SOURCE = {"density": "sphexa_torch/csrc/pair_engine.cu",
-          "iad": "sphexa_torch/csrc/pair_engine.cu",
-          "momentum_energy_std": "sphexa_torch/csrc/pair_engine.cu",
-          "momentum_energy_std_lists": "sphexa_torch/csrc/pair_lists.cu",
-          "mark": "sphexa_torch/csrc/pair_lists.cu"}
+SOURCE = {op: "sphexa_torch/csrc/pair_lists.cu" if op == "mark" or op.endswith("_lists")
+          else "sphexa_torch/csrc/pair_engine.cu" for op in TPU_KERNEL}
 
 
 def emit(obj) -> None:
@@ -212,27 +259,141 @@ def compare_ops(name, ss, box, const, cfg, keys, ranges, timing=False):
                 spec, ranges, i_f, j_f, fold, nbr.group, consts), reps=7)
             res[op]["plain_ms"] = cuda_time_ms(lambda: pe.engine_plain(
                 spec, ranges, i_f, j_f, fold, nbr.group, consts), reps=2)
+        res["momentum_energy_std"]["pairs"] = momentum_pair_counts(
+            specs["momentum_energy_std"], fields["momentum_energy_std"], consts, nbr.group,
+            runs=ranges, fold=fold)
     return res
 
 
-def bounds(ranges, n: int, group: int, nb_pairs: int):
-    """Least device time of each op from this run's candidate and
-    neighbour pair counts (operations) and its input/output bytes."""
+def compare_ve(name, ss, box, const, nbr, av_clean, keys=None, ranges=None, lists=None,
+               timing=False):
+    """The VE ops' kernels against their plain versions on the kernel
+    chain's inputs (``sphexa_torch.kernels.checks.ve_chain_vs_plain``, the
+    JAX package's streaming tolerances); with ``lists`` the list-mode forms
+    the JAX dispatch picks. Returns per-entry-point results (keys as in
+    LAUNCHES, "xmass" for the density kernel's VE use); with ``timing``
+    also each engine call's device time and its plain version's, and the
+    momentum op's pair counts (``momentum_pair_counts``)."""
+    from sphexa_torch.kernels.checks import ve_chain_vs_plain
+    from sphexa_torch.sph import pair_engine as pe
+
+    res, ch = ve_chain_vs_plain(name, ss, box, const, nbr, av_clean, keys=keys,
+                                ranges=ranges, lists=lists)
+    if timing:
+        # each engine call alone (kernel vs plain) on the op's precombined fields
+        x, y, z, h, m, vel = ss.x, ss.y, ss.z, ss.h, ss.m, (ss.vx, ss.vy, ss.vz)
+        walk = lists is not None
+        consts, group = pe.op_consts(const), nbr.group
+        runs = lists.ranges if walk else ranges
+        fold = not walk and pe.engine_fold(box, nbr)
+
+        def engine(spec, fields, on_lists, cst=consts):
+            if on_lists:
+                return (lambda: pe.engine_lists_kernel(spec, lists, *fields, group, cst),
+                        lambda: pe.engine_lists_plain(spec, lists, *fields, group, cst))
+            return (lambda: pe.engine_kernel(spec, runs, *fields, fold, group, cst),
+                    lambda: pe.engine_plain(spec, runs, *fields, fold, group, cst))
+
+        dkey = "iad_divv_curlv_lists" if walk and av_clean else "iad_divv_curlv"
+        akey = "av_switches_lists" if walk else "av_switches"
+        mkey = "momentum_energy_ve_lists" if walk else "momentum_energy_ve"
+        mspec = pe.momentum_ve_spec(const, av_clean)
+        mfields = pe.momentum_ve_fields(x, y, z, *vel, h, m, ch.prho, ch.c, ch.kx, ch.xm,
+                                        ch.alpha, *ch.cs, nc=ch.nc, gradv=ch.gradv)
+        calls = {
+            "ve_def_gradh": engine(pe.VE_DEF_GRADH, pe.ve_def_gradh_fields(x, y, z, h, m, ch.xm),
+                                   False),
+            dkey: engine(pe.IAD_DIVV_CURLV_GRADV if av_clean else pe.IAD_DIVV_CURLV,
+                         pe.divv_curlv_fields(x, y, z, *vel, h, ch.kx, ch.xm, *ch.cs, const),
+                         walk and av_clean),
+            akey: engine(pe.AV_SWITCHES, pe.av_switches_fields(
+                x, y, z, *vel, h, ch.c, ch.kx, ch.xm, ch.dv[0], ss.alpha, *ch.cs, const),
+                walk, {**consts, "dt": ss.min_dt}),
+            mkey: engine(mspec, mfields, walk),
+        }
+        for op, (kern, plain) in calls.items():
+            res[op]["ms"] = cuda_time_ms(kern, reps=7)
+            res[op]["plain_ms"] = cuda_time_ms(plain, reps=2)
+        res[mkey]["pairs"] = momentum_pair_counts(mspec, mfields, consts, group, runs=runs,
+                                                  fold=fold, lists=lists)
+    return res
+
+
+def momentum_pair_counts(spec, fields, consts, group, runs=None, fold=False, lists=None):
+    """The pairs a momentum op's body runs on (its mask: d^2 < 4 h_i^2 and,
+    with the symmetric cutoff, d^2 < 4 h_j^2) and, for the VE op, those of
+    them that take each branch with operations of its own (BRANCH_OPS):
+    the Atwood ramp, the crossed volume element, the av_clean limiter.
+    Counted by the plain engine on the op's own fields, the branch tests
+    copied from the body (csrc/pair_ops.cuh MomentumEnergyVeOp)."""
+    import torch
+
+    from sphexa_torch.sph import pair_engine as pe
+
+    ve = spec.name == "momentum_energy_ve"
+    names = ("pairs",) + (("ramp", "crossed") if ve else ()) + (
+        ("limiter",) if ve and spec.variant else ())
+
+    def count(g, I, J, c):
+        terms = [torch.ones_like(g.d2)]
+        if ve:
+            atwood = torch.abs(I[14] - J[14]) / (I[14] + J[14])
+            terms += [(atwood >= c["at_min"]) & (atwood <= c["at_max"]), atwood > c["at_max"]]
+            if spec.variant:
+                eta_ab = torch.minimum(torch.sqrt(g.d2 * I[4]), torch.sqrt(g.d2 * J[3]))
+                terms.append(eta_ab < I[23])
+        return tuple(t.to(torch.float32) for t in terms)
+
+    cspec = dataclasses.replace(spec, num_out=len(names), pair=count,
+                                reduce=("sum",) * len(names),
+                                finalize=lambda I, accs, nc, c: accs)
+    if lists is not None:
+        outs, _ = pe.engine_lists_plain(cspec, lists, *fields, group, consts)
+    else:
+        outs, _ = pe.engine_plain(cspec, runs, *fields, fold, group, consts)
+    # per-target counts are small integers, exact in float32
+    return {k: int(o.to(torch.int64).sum()) for k, o in zip(names, outs)}
+
+
+def _bound(ops, nbytes) -> dict:
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def body_ops(op: str, body: str, nb_pairs: int, pairs=None) -> int:
+    """Operations of an op's body in this run: BODY_OPS per pair it runs
+    on, plus BRANCH_OPS per pair that takes a branch. A body without the
+    symmetric cutoff runs on the ``nb_pairs`` neighbour pairs (d^2 <
+    4 h_i^2); a momentum op on its own counted pairs (``pairs``, from
+    ``momentum_pair_counts``)."""
+    if body not in SYM_BODIES:
+        return nb_pairs * BODY_OPS[body]
+    if pairs is None:
+        raise AssertionError(f"{op}: no pair counts under its symmetric cutoff")
+    return pairs["pairs"] * BODY_OPS[body] + sum(
+        BRANCH_OPS[k] * v for k, v in pairs.items() if k in BRANCH_OPS)
+
+
+def bounds(ranges, n: int, group: int, nb_pairs: int,
+           ops=("density", "iad", "momentum_energy_std"), pairs=None):
+    """Least device time of each streaming-engine op from this run's
+    candidate and neighbour pair counts (operations; ``pairs``: each
+    momentum op's counts, by op) and its input/output bytes."""
     import torch
 
     cand_pairs = int(ranges.lens.to(torch.int64).sum()) * group
     ng, w3 = ranges.starts.shape
     table_bytes = 4 * (5 * ng * w3 + ng)
     out = {}
-    for op, body in BODY_OPS.items():
-        ops = cand_pairs * (MASK_OPS + (SYM_OPS if op == "momentum_energy_std" else 0)) \
-            + nb_pairs * body
-        n_in, n_out = IO_ARRAYS[op]
-        nbytes = 4 * n * (n_in + n_out) + table_bytes
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-        out[op] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "cand_pairs": cand_pairs, "ops": ops, "bytes": nbytes}
+    for op in ops:
+        body = BODY_OF.get(op, op)
+        mask = MASK_OPS + (SYM_OPS if body in SYM_BODIES else 0)
+        n_in, n_out = IO_ARRAYS[body]
+        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op))
+        out[op] = {**_bound(cand_pairs * mask + work, 4 * n * (n_in + n_out) + table_bytes),
+                   "cand_pairs": cand_pairs, "body_ops": work}
     return out
 
 
@@ -368,72 +529,85 @@ def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
         for op, (kern, plain) in runs_k.items():
             res[op]["ms"] = cuda_time_ms(kern, reps=7)
             res[op]["plain_ms"] = cuda_time_ms(plain, reps=2)
+        res["momentum_energy_std_lists"]["pairs"] = momentum_pair_counts(
+            spec, (i_f, j_f), consts, nbr.group, lists=lists)
     return res
 
 
-def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited: int, runs):
+def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited=None, runs=None,
+                k1_ops=("density", "iad"), walk_ops=("momentum_energy_std_lists",),
+                av_clean=False, pairs=None):
     """Least device time of the list-mode kernels from this run's counts:
     K1 on the pruned runs (``bounds``), the list walk over the marked
-    lanes (each candidate shifted once, then the mask and the symmetric
-    cutoff per candidate pair, the body per neighbour pair), and the mark
-    pass over the lanes of the chunks it visits."""
+    lanes (each candidate shifted once, then the mask [and the symmetric
+    cutoff] per candidate pair, the body per neighbour pair), and, given
+    the build-time ``runs``, the mark pass over the lanes of the chunks it
+    visits. ``av_clean``: the VE momentum walk runs its av_clean body;
+    ``pairs``: each momentum op's counts, by op."""
     import torch
 
-    out = bounds(lists.ranges, n, group, nb_pairs)
-    del out["momentum_energy_std"]
+    out = bounds(lists.ranges, n, group, nb_pairs, ops=k1_ops)
     ng, scap = lists.cnt.shape
     lanes = int(lists.cnt.to(torch.int64).sum())
     pruned_tables = 4 * (5 * ng * scap + ng)
-    n_in, n_out = IO_ARRAYS["momentum_energy_std"]
-    walk_ops = (lanes * group * (MASK_OPS - 3 + SYM_OPS) + lanes * 3
-                + nb_pairs * BODY_OPS["momentum_energy_std"])
-    walk_bytes = 4 * n * (n_in + n_out) + pruned_tables + 16 * ng * scap
-    w3 = runs.starts.shape[1]
-    mark_ops = lanes_visited * MARK_OPS
-    mark_bytes = 4 * 4 * n + 4 * (5 * ng * w3 + ng) + 4 + 20 * ng * scap + 4 * ng
-    for op, ops, nbytes in (("momentum_energy_std_lists", walk_ops, walk_bytes),
-                            ("mark", mark_ops, mark_bytes)):
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-        out[op] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "ops": ops, "bytes": nbytes}
-    out["momentum_energy_std_lists"]["cand_pairs"] = lanes * group
-    out["mark"]["lanes"] = lanes_visited
+    for op in walk_ops:
+        body = BODY_OF[op]
+        if av_clean and body == "momentum_energy_ve":
+            body = "momentum_energy_ve_clean"
+        sym = SYM_OPS if body in SYM_BODIES else 0
+        n_in, n_out = IO_ARRAYS[body]
+        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op))
+        out[op] = {**_bound(lanes * group * (MASK_OPS - 3 + sym) + lanes * 3 + work,
+                            4 * n * (n_in + n_out) + pruned_tables + 16 * ng * scap),
+                   "cand_pairs": lanes * group, "body_ops": work}
+    if runs is not None:
+        w3 = runs.starts.shape[1]
+        out["mark"] = {**_bound(lanes_visited * MARK_OPS,
+                                4 * 4 * n + 4 * (5 * ng * w3 + ng) + 4 + 20 * ng * scap
+                                + 4 * ng),
+                       "lanes": lanes_visited}
     return out
 
 
-def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool) -> dict:
+def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str = "std",
+                 case: str = "sedov") -> dict:
     """Simulation steps on the card against the same steps on the CPU (the
     pair ops' plain versions there), every step from the same input; the
-    accelerations' tolerance (rtol 1e-4, atol 5e-6 max|.|) carried through
-    the integrator, neighbour counts exact. In list mode each side builds
-    its own lists on the first step (equal bit for bit: the same sorted
-    state) and both freeze the same order."""
+    accelerations' tolerance (rtol 1e-4, the VE ops' 2e-4; atol 5e-6
+    max|.|) carried through the integrator, neighbour counts (the max and
+    the exact total) equal. In
+    list mode each side builds its own lists on the first step (equal bit
+    for bit: the same sorted state) and both freeze the same order."""
     import torch
 
-    from sphexa_torch.init import init_sedov
+    from sphexa_torch.init import init_gresho_chan, init_sedov
     from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph.pair_engine import engine_fold
 
-    kw = {"cell_target": cell_target, "use_lists": use_lists}
-    gpu = Simulation(*init_sedov(side, device="cuda"), device="cuda", **kw)
-    cpu = Simulation(*init_sedov(side, device="cpu"), device="cpu", **kw)
+    init = {"sedov": init_sedov, "gresho-chan": init_gresho_chan}[case]
+    rtol = 1e-4 if prop == "std" else 2e-4
+    kw = {"cell_target": cell_target, "use_lists": use_lists, "prop": prop}
+    gpu = Simulation(*init(side, device="cuda"), device="cuda", **kw)
+    cpu = Simulation(*init(side, device="cpu"), device="cpu", **kw)
     worst = 0.0
     for it in range(steps):
         cpu.state, cpu.box = gpu.state.to("cpu"), gpu.box.to("cpu")
         dg, dc = gpu.step(), cpu.step()
-        for k in ("nc_mean", "nc_max", "occupancy", "use_lists"):
+        for k in ("nc_max", "nc_sum", "occupancy", "use_lists"):
             if dg[k] != dc[k]:
                 raise AssertionError(f"side {side} step {it}: {k} {dg[k]} vs cpu {dc[k]}")
-        for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "du"):
+        for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "du", "alpha"):
             a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
             scale = float(b.abs().max())
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * scale,
-                                       msg=f"side {side} step {it}: {f}")
+            torch.testing.assert_close(a, b, rtol=rtol, atol=5e-6 * scale,
+                                       msg=f"{prop} {case} {side} step {it}: {f}")
             worst = max(worst, float((a - b).abs().max()) / (scale or 1.0))
-    if use_lists and (gpu.lists is None or dg["use_lists"] != 1.0):
+    fold = engine_fold(gpu.box, gpu.cfg.nbr)
+    if use_lists and not fold and (gpu.lists is None or dg["use_lists"] != 1.0):
         raise AssertionError(f"side {side}: the list-mode run streamed")
-    return {"phase": "slice_vs_cpu", "side": side, "cell_target": cell_target,
-            "use_lists": use_lists, "rebuilds": [gpu.rebuilds, cpu.rebuilds],
+    return {"phase": "slice_vs_cpu", "prop": prop, "case": case, "side": side,
+            "n": gpu.state.n, "cell_target": cell_target, "use_lists": use_lists,
+            "fold": fold, "rebuilds": [gpu.rebuilds, cpu.rebuilds],
             "steps": steps, "max_abs_err_over_scale": worst,
             "energy_drift_gpu": gpu.energy_drift, "energy_drift_cpu": cpu.energy_drift}
 
@@ -548,7 +722,7 @@ def drive(make_sim, steps: int, label: str) -> dict:
         if not abs(last[k]) < float("inf"):
             raise AssertionError(f"{label}: non-finite {k}: {last[k]}")
     n = sim.state.n
-    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp"):
+    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "alpha"):
         a = getattr(sim.state, f)
         if a.shape != (n,) or not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{label}: state field {f} is not finite of shape ({n},)")
@@ -601,8 +775,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path = kbuild.build()
     kbuild.load_library()
+    # ptxas's report per kernel: its entry function, registers and spills
     ptxas = [ln.strip() for ln in kbuild.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(path, here), "ptxas": ptxas})
 
@@ -615,11 +790,22 @@ def main() -> int:
         res = compare_ops(f"side {side}", ss, box, const, cfg, keys, ranges)
         emit({"phase": "kernels_vs_plain", "side": side, "cell_target": ct,
               "fold": fold, "nbr": dataclasses.asdict(cfg.nbr), "results": res})
+        for av_clean in (False, True):
+            res = compare_ve(f"VE side {side} av_clean {av_clean}", ss, box, const, cfg.nbr,
+                             av_clean, keys=keys, ranges=ranges)
+            emit({"phase": "ve_kernels_vs_plain", "side": side, "cell_target": ct,
+                  "fold": fold, "av_clean": av_clean, "results": res})
 
     # the whole step on the card against the CPU (plain versions) on small
-    # inputs: both periodic-image paths streaming, and list mode
-    for side, ct, use_lists in ((24, 16, True), (24, 16, False), (12, None, False)):
-        emit(slice_vs_cpu(side, ct, steps=3, use_lists=use_lists))
+    # inputs: both periodic-image paths streaming, and list mode; std and
+    # VE; and VE Gresho-Chan, whose thin slab puts the grid in fold mode
+    for prop in ("std", "ve"):
+        for side, ct, use_lists in ((24, 16, True), (24, 16, False), (12, None, False)):
+            emit(slice_vs_cpu(side, ct, steps=3, use_lists=use_lists, prop=prop))
+    gc = slice_vs_cpu(30, None, steps=2, use_lists=True, prop="ve", case="gresho-chan")
+    if not gc["fold"]:
+        raise AssertionError("Gresho-Chan 30: expected a fold-mode grid")
+    emit(gc)
 
     # 4. the list kernels vs plain, and list mode vs streaming
     for name, init, side, jitter in (("sedov", init_sedov, 30, True),
@@ -629,6 +815,11 @@ def main() -> int:
         emit({"phase": "lists_vs_plain", "case": name, "side": side, "jitter": jitter,
               "n": ss.n, "nbr": dataclasses.asdict(cfg.nbr),
               "slot_cap": cfg.list_slot_cap, "results": res})
+        for av_clean in (False, True):
+            res = compare_ve(f"VE lists {name} {side} av_clean {av_clean}", ss, box, const,
+                             cfg.nbr, av_clean, lists=lists)
+            emit({"phase": "ve_lists_vs_plain", "case": name, "side": side,
+                  "av_clean": av_clean, "results": res})
 
     # 5. the main path: Sedov 100^3 std on the card, in list mode
     side = 100
@@ -673,12 +864,65 @@ def main() -> int:
     emit({**count_syncs(ssim), "path": "streaming"})
     emit({**profile_steps(ssim, 2, stm["step_ms_median"]), "path": "streaming"})
 
-    # 7. kernels vs plain and phase times at the main path's shapes
+    # 7. the VE path: Sedov 100^3 VE on the card, in list mode
+    state, box, const = init_sedov(side, device="cuda")
+    ve = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda"),
+               steps=10, label="ve_path")
+    vsim, va = ve["sim"], ve["launches"]
+    if vsim.lists is None:
+        raise AssertionError("the VE path streamed: no persistent lists")
+    on_path = ("density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches_lists",
+               "momentum_energy_ve_lists")
+    off_path = ("iad_divv_curlv_lists", "av_switches", "momentum_energy_ve",
+                "momentum_energy_std", "momentum_energy_std_lists")
+    if not (all(va[k] == ve["attempts"] for k in on_path) and all(va[k] == 0 for k in off_path)
+            and va["mark"] == ve["rebuilds"] >= 1):
+        raise AssertionError(f"VE list-mode launches {va} in {ve['attempts']} step "
+                             f"attempts with {ve['rebuilds']} list builds")
+    ve["report"].update({
+        "list_slot_cap": vsim.cfg.list_slot_cap, "rebuilds": vsim.rebuilds,
+        "list_slack": [d["list_slack"] for d in ve["diags"]],
+        "dt_limiter": [d["dt_limiter"] for d in ve["diags"]],
+        "lanes_total": float(vsim.lists.lanes_total)})
+    emit(ve["report"])
+    syncs = count_syncs(vsim)
+    if syncs["per_step"] != 1:
+        raise AssertionError(f"VE path: {syncs['per_step']} host syncs per step")
+    emit({**syncs, "path": "ve_lists"})
+    emit({**profile_steps(vsim, 2, ve["step_ms_median"]), "path": "ve_lists"})
+
+    # the VE entry points the list mode leaves out: streaming (K1 forms of
+    # the AV switches and momentum) and av_clean (the list walk of
+    # divv/curlv with gradv), each a short path of its own
+    state, box, const = init_sedov(side, device="cuda")
+    vst = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
+                                   use_lists=False), steps=3, label="ve_streaming_path")
+    vsa = vst["launches"]
+    if not (all(vsa[k] == vst["attempts"] for k in (
+            "density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
+            "momentum_energy_ve")) and all(vsa[k] == 0 for k in (
+            "iad_divv_curlv_lists", "av_switches_lists", "momentum_energy_ve_lists",
+            "momentum_energy_std", "momentum_energy_std_lists", "mark"))):
+        raise AssertionError(f"VE streaming launches {vsa} in {vst['attempts']} attempts")
+    emit(vst["report"])
+    state, box, const = init_sedov(side, device="cuda")
+    vac = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
+                                   av_clean=True), steps=3, label="ve_avclean_path")
+    vaa = vac["launches"]
+    if not (all(vaa[k] == vac["attempts"] for k in (
+            "density", "ve_def_gradh", "iad", "iad_divv_curlv_lists", "av_switches_lists",
+            "momentum_energy_ve_lists")) and vaa["iad_divv_curlv"] == 0
+            and vaa["mark"] == vac["rebuilds"] >= 1):
+        raise AssertionError(f"VE av_clean launches {vaa} in {vac['attempts']} attempts")
+    emit(vac["report"])
+
+    # 8. kernels vs plain and phase times at the paths' shapes
     ss, lbox, const, lcfg, lkeys, lists, runs = list_case(
         None, side, False, state=(sim.state, sim.box, const), cfg=sim.cfg)
     lres = compare_lists("side 100", ss, lbox, const, lcfg, lkeys, lists, runs, timing=True)
     lbnd = list_bounds(lists, n, lcfg.nbr.group, lres["density"]["nb_pairs"],
-                       lres["mark"]["lanes_visited"], runs)
+                       lres["mark"]["lanes_visited"], runs,
+                       pairs={op: r["pairs"] for op, r in lres.items() if "pairs" in r})
     emit({"phase": "lists_vs_plain", "case": "sedov", "side": side, "results": lres,
           "bounds": lbnd, "slot_cap": lcfg.list_slot_cap,
           "lanes_total": float(lists.lanes_total), "nbr": dataclasses.asdict(lcfg.nbr)})
@@ -693,13 +937,46 @@ def main() -> int:
         ss.x, ss.y, ss.z, ss.h, keys, box2, cfg.nbr)
     merge_ms = cuda_time_ms(lambda: pe._merge_runs(
         start, lens, keep, shifts, cfg.nbr.run_cap, cfg.nbr.gap), reps=5)
-    bnd = bounds(ranges, n, cfg.nbr.group, res["density"]["nb_pairs"])
+    bnd = bounds(ranges, n, cfg.nbr.group, res["density"]["nb_pairs"],
+                 pairs={op: r["pairs"] for op, r in res.items() if "pairs" in r})
     emit({"phase": "kernels_vs_plain", "side": side, "path": "streaming",
           "fold": pe.engine_fold(box2, cfg.nbr), "results": res, "bounds": bnd,
           "sort_ms": sort_ms, "prologue_ms": prologue_ms, "merge_runs_ms": merge_ms,
           "nbr": dataclasses.asdict(cfg.nbr)})
 
-    # 8. the rebuild cadence: the main path's Simulation on to step 100
+    # the VE kernels at the VE paths' evolved side-100 states: list mode
+    # (the main VE path), streaming, and the av_clean list walk
+    vt = {}
+    for label, vs, walk, av_clean in (("ve_lists", vsim, True, False),
+                                      ("ve_streaming", vst["sim"], False, False),
+                                      ("ve_avclean", vac["sim"], True, True)):
+        if walk:
+            ss, vbox, const, vcfg, vkeys, vlists, _ = list_case(
+                None, side, False, state=(vs.state, vs.box, const), cfg=vs.cfg)
+            vres = compare_ve(f"{label} side 100", ss, vbox, const, vcfg.nbr, av_clean,
+                              lists=vlists, timing=True)
+            k1 = ("ve_def_gradh",) + (() if av_clean else ("iad_divv_curlv",))
+            walks = (("iad_divv_curlv_lists",) if av_clean else ()) + (
+                "av_switches_lists", "momentum_energy_ve_lists")
+            vbnd = list_bounds(vlists, n, vcfg.nbr.group, vres["xmass"]["nb_pairs"],
+                               k1_ops=k1, walk_ops=walks, av_clean=av_clean,
+                               pairs={op: r["pairs"] for op, r in vres.items() if "pairs" in r})
+            extra = {"lanes_total": float(vlists.lanes_total)}
+        else:
+            ss, vbox, const, vcfg, vkeys, vranges = sorted_case(
+                side, state=(vs.state, vs.box, const), cfg=vs.cfg)
+            vres = compare_ve(f"{label} side 100", ss, vbox, const, vcfg.nbr, av_clean,
+                              keys=vkeys, ranges=vranges, timing=True)
+            vbnd = bounds(vranges, n, vcfg.nbr.group, vres["xmass"]["nb_pairs"],
+                          ops=("ve_def_gradh", "iad_divv_curlv", "av_switches",
+                               "momentum_energy_ve"),
+                          pairs={op: r["pairs"] for op, r in vres.items() if "pairs" in r})
+            extra = {"fold": pe.engine_fold(vbox, vcfg.nbr)}
+        emit({"phase": "ve_kernels_vs_plain", "side": side, "path": label,
+              "av_clean": av_clean, "results": vres, "bounds": vbnd, **extra})
+        vt[label] = (vres, vbnd)
+
+    # 9. the rebuild cadence: the main path's Simulation on to step 100
     b0, r0, it0 = sim.rebuilds, sim.replays, sim.iteration
     ms = []
     for _ in range(100 - sim.iteration):
@@ -714,18 +991,29 @@ def main() -> int:
           "step_ms_max": max(ms), "energy_drift": drift,
           "list_slot_cap": sim.cfg.list_slot_cap, "reconfigures": sim.reconfigures})
 
-    # density and IAD: the main path runs them on the lists' pruned runs;
-    # the streaming momentum kernel runs on the streaming path only
+    # each entry point with the launches of the path that runs it and its
+    # numbers at that path's side-100 state: std density, IAD, the list
+    # walk and the mark pass on the std main path (list mode), the
+    # streaming momentum kernel on the std streaming path; the VE ops on
+    # the VE path (list mode), their streaming forms on the VE streaming
+    # path, the gradv list walk on the av_clean path
+    where = {"density": (lres, lbnd, la), "iad": (lres, lbnd, la),
+             "momentum_energy_std": (res, bnd, sa),
+             "momentum_energy_std_lists": (lres, lbnd, la), "mark": (lres, lbnd, la),
+             "ve_def_gradh": (*vt["ve_lists"], va), "iad_divv_curlv": (*vt["ve_lists"], va),
+             "iad_divv_curlv_lists": (*vt["ve_avclean"], vaa),
+             "av_switches": (*vt["ve_streaming"], vsa),
+             "av_switches_lists": (*vt["ve_lists"], va),
+             "momentum_energy_ve": (*vt["ve_streaming"], vsa),
+             "momentum_energy_ve_lists": (*vt["ve_lists"], va)}
     kernels = []
-    for op in ("density", "iad", "momentum_energy_std", "momentum_energy_std_lists", "mark"):
-        main = op != "momentum_energy_std"
-        r, b = (lres[op], lbnd[op]) if main else (res[op], bnd[op])
+    for op, (r, b, launches) in where.items():
         kernels.append({
             "name": op, "route": "cuda", "source": SOURCE[op],
-            "replaces": TPU_KERNEL[op], "launches": (la if main else sa)[op],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": None,
+            "replaces": TPU_KERNEL[op], "launches": launches[op],
+            "max_abs_err": r[op]["max_abs_err"], "ms": r[op]["ms"],
+            "plain_ms": r[op]["plain_ms"], "bound_ms": b[op]["bound_ms"],
+            "bound_by": b[op]["bound_by"], "library_ms": None,
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -2,36 +2,40 @@
 
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 [--device cpu]
     python -m sphexa_torch.app.main --init noh -n 50 -s 20
+    python -m sphexa_torch.app.main --init gresho-chan -n 50 -s 20 --prop ve [--avclean]
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time.
-Other --init / --prop values raise "not ported yet". Steps run on
-persistent neighbour lists wherever the grid allows them, as in the JAX
-CLI, which has no flag for it. Runs on the CUDA device unless
-``--device cpu`` is given, and raises without one.
+``--prop`` is std or ve; other --init / --prop values raise "not ported
+yet". Steps run on persistent neighbour lists wherever the grid allows
+them, as in the JAX CLI, which has no flag for it. Runs on the CUDA
+device unless ``--device cpu`` is given, and raises without one.
 """
 
 import argparse
 import sys
 from typing import List, Optional
 
-from sphexa_torch.init import init_noh, init_sedov
+from sphexa_torch.init import init_gresho_chan, init_noh, init_sedov
 from sphexa_torch.simulation import Simulation
 
-_INITS = {"sedov": init_sedov, "noh": init_noh}
+_INITS = {"sedov": init_sedov, "noh": init_noh, "gresho-chan": init_gresho_chan}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sphexa-torch",
-        description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std-SPH Sedov and Noh)",
+        description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std and VE SPH)",
     )
-    p.add_argument("--init", default="sedov", help="test case name (sedov, noh)")
+    p.add_argument("--init", default="sedov",
+                   help="test case name (sedov, noh, gresho-chan)")
     p.add_argument("-n", type=int, default=50, dest="side",
                    help="particles per cube side (N = n^3)")
     p.add_argument("-s", type=float, default=10, dest="stop",
                    help="integer: number of iterations; float: simulated time")
-    p.add_argument("--prop", default="std", help="propagator (std)")
+    p.add_argument("--prop", default="std", help="propagator (std, ve)")
+    p.add_argument("--avclean", action="store_true",
+                   help="VE: the velocity-gradient correction of the viscosity")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' (plain PyTorch versions)")
     p.add_argument("--quiet", action="store_true")
@@ -49,10 +53,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.init not in _INITS:
         raise NotImplementedError(f"--init {args.init!r}: not ported yet")
-    if args.prop != "std":
-        raise NotImplementedError(f"--prop {args.prop!r}: not ported yet")
     state, box, const = _INITS[args.init](args.side, device=args.device)
-    sim = Simulation(state, box, const, prop=args.prop, device=args.device)
+    sim = Simulation(state, box, const, prop=args.prop, device=args.device,
+                     av_clean=args.avclean)
     by_steps = float(args.stop).is_integer()
     while (sim.iteration < int(args.stop)) if by_steps else \
             (float(sim.state.ttot) < args.stop):

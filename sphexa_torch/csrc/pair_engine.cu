@@ -1,11 +1,15 @@
 // Fused neighbour search + SPH pair op for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel group_pair_engine (sphexa_tpu/sph/pallas_pairs.py,
-// its pallas_call in the streaming form) in the three std-SPH
-// instantiations pallas_density, pallas_iad and pallas_momentum_energy_std.
-// In list mode density and IAD run this kernel on the persistent lists'
-// pruned runs (the TPU kernel's skip_slots form, whose per-chunk gate
-// every pruned chunk passes); momentum runs the list walk (pair_lists.cu).
+// its pallas_call in the streaming form) in its std-SPH instantiations
+// pallas_density, pallas_iad and pallas_momentum_energy_std and its VE
+// instantiations pallas_ve_def_gradh, pallas_iad_divv_curlv,
+// pallas_av_switches and pallas_momentum_energy_ve (pallas_xmass is
+// m / rho0 over pallas_density). In list mode density, IAD, grad-h and the
+// plain divv/curlv run this kernel on the persistent lists' pruned runs
+// (the TPU kernel's skip_slots form, whose per-chunk gate every pruned
+// chunk passes); the momentum ops, the AV switches and divv/curlv with
+// gradv run the list walk (pair_lists.cu), as the JAX dispatch does.
 // The contract is the TPU kernel's; its blocking is not: the 128-lane tiles,
 // the (rows, nf_pad, 128) j-field packing, the VMEM double buffer and the
 // scalar-prefetch tables exist because of the TPU and are dropped.
@@ -41,8 +45,11 @@
 // only under the mask, so the d2 = 0 self pair's rsqrt(0) = inf never
 // reaches an accumulator. The body's other arithmetic may contract.
 //
-// The launch arguments and the three ops' bodies are in pair_ops.cuh,
-// shared with the list walk (pair_lists.cu).
+// The launch arguments and the ops' bodies are in pair_ops.cuh, shared
+// with the list walk (pair_lists.cu). The VE bodies are heavier (VE
+// momentum: 23 i-fields, 30 with av_clean, two expf and an rsqrt per
+// pair), which raises the register count per thread; ptxas's report of
+// each instantiation is kept in the build log.
 //
 // Build: sphexa_torch/kernels/build.py (nvcc for sm_90a, one object per
 // source, linked into one library with plain C entry points, loaded with
@@ -152,10 +159,28 @@ int launch_momentum_energy_std(const EngineArgs* a, void* stream) {
     return launch<MomentumEnergyStdOp>(a, stream);
 }
 
+int launch_ve_def_gradh(const EngineArgs* a, void* stream) {
+    return launch<VeDefGradhOp>(a, stream);
+}
+
+int launch_iad_divv_curlv(const EngineArgs* a, void* stream) {
+    return a->variant ? launch<DivvCurlvOp<true>>(a, stream)
+                      : launch<DivvCurlvOp<false>>(a, stream);
+}
+
+int launch_av_switches(const EngineArgs* a, void* stream) {
+    return launch<AvSwitchesOp>(a, stream);
+}
+
+int launch_momentum_energy_ve(const EngineArgs* a, void* stream) {
+    return a->variant ? launch<MomentumEnergyVeOp<true>>(a, stream)
+                      : launch<MomentumEnergyVeOp<false>>(a, stream);
+}
+
 const char* pair_engine_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int pair_engine_abi_version() { return 3; }
+int pair_engine_abi_version() { return 4; }
 
 }  // extern "C"

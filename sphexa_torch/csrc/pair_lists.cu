@@ -5,8 +5,10 @@
 // - the mark pass _mark_kernel_builder (sphexa_tpu/sph/pair_lists.py, its
 //   pallas_call), here mark_kernel;
 // - the list-walk engine group_pair_engine_lists (sphexa_tpu/sph/
-//   pallas_pairs.py, its pallas_call) in its momentum/energy instantiation,
-//   here list_walk<MomentumEnergyStdOp>.
+//   pallas_pairs.py, its pallas_call) in the instantiations the JAX
+//   dispatch sends there: std momentum/energy (list_walk<
+//   MomentumEnergyStdOp>), VE momentum/energy (MomentumEnergyVeOp), the AV
+//   switches (AvSwitchesOp) and divv/curlv with gradv (DivvCurlvOp<true>).
 //
 // A slot is one (run, chunk) pair of a group's candidate runs, in run
 // order; a chunk is one 128-aligned row of the sorted arrays
@@ -42,6 +44,9 @@
 // (< 128) runs after the last chunk. The mask is K1's: d^2 < 4 h_i^2, the
 // symmetric cutoff d^2 < 4 h_j^2, and not the self pair, with the same
 // _rn intrinsics.
+//
+// The shared ring holds sj[NJ][256] floats: 29 KB for the av_clean VE
+// momentum op's 29 j-fields, under the 48 KB of static shared memory.
 //
 // What bounds the list walk: the FP32 operations of the pair loop, as in
 // K1, but over the marked lanes only (the candidates inside the group's
@@ -271,6 +276,13 @@ __global__ void __launch_bounds__(256) list_walk(const EngineArgs p) {
     }
 }
 
+template <class Op>
+int launch_walk(const EngineArgs* a, void* stream) {
+    if (a->num_groups <= 0) return 0;
+    list_walk<Op><<<a->num_groups, a->group, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -282,10 +294,23 @@ int launch_mark(const MarkArgs* a, void* stream) {
 }
 
 int launch_momentum_energy_std_lists(const EngineArgs* a, void* stream) {
-    if (a->num_groups <= 0) return 0;
-    list_walk<MomentumEnergyStdOp>
-        <<<a->num_groups, a->group, 0, static_cast<cudaStream_t>(stream)>>>(*a);
-    return static_cast<int>(cudaGetLastError());
+    return launch_walk<MomentumEnergyStdOp>(a, stream);
+}
+
+// divv/curlv takes the list walk only with gradv (the JAX dispatch streams
+// the plain form over the pruned runs)
+int launch_iad_divv_curlv_lists(const EngineArgs* a, void* stream) {
+    if (!a->variant) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_walk<DivvCurlvOp<true>>(a, stream);
+}
+
+int launch_av_switches_lists(const EngineArgs* a, void* stream) {
+    return launch_walk<AvSwitchesOp>(a, stream);
+}
+
+int launch_momentum_energy_ve_lists(const EngineArgs* a, void* stream) {
+    return a->variant ? launch_walk<MomentumEnergyVeOp<true>>(a, stream)
+                      : launch_walk<MomentumEnergyVeOp<false>>(a, stream);
 }
 
 }  // extern "C"

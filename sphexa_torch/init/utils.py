@@ -49,3 +49,8 @@ def build_state(x, y, z, vx, vy, vz, h, m, temp, min_dt: float, alpha,
 def sphere_h_init(ng0: float, volume: float, n: int) -> float:
     """h giving ~ng0 neighbours for n particles spread uniformly over volume."""
     return float(np.cbrt(3.0 / (4 * np.pi) * ng0 * volume / n) * 0.5)
+
+
+def h_from_density(ng0: float, m_part: float, rho: float) -> float:
+    """h for ~ng0 neighbours at mass density rho (0.5 cbrt(3 ng0 m/(4 pi rho)))."""
+    return float(0.5 * np.cbrt(3.0 * ng0 * m_part / (4.0 * np.pi * rho)))

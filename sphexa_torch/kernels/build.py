@@ -22,6 +22,8 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# no --use_fast_math and no -ftz=true: the AV switches' 1e-40 floor of the
+# signal velocity is a float32 denormal, and expf must stay the accurate one
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,10 +34,17 @@ _ENTRY_POINTS = {
     "launch_momentum_energy_std": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_std_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_mark": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_ve_def_gradh": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_iad_divv_curlv": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_iad_divv_curlv_lists": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_av_switches": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_av_switches_lists": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_momentum_energy_ve": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_momentum_energy_ve_lists": [ctypes.c_void_p, ctypes.c_void_p],
 }
 
 #: layout version of EngineArgs, checked against the library's
-ABI_VERSION = 3
+ABI_VERSION = 4
 
 _lib: Optional[ctypes.CDLL] = None
 

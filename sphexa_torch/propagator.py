@@ -1,13 +1,17 @@
-"""The std-SPH step (sphexa_tpu/propagator.py, the pallas paths).
+"""The std-SPH and VE steps (sphexa_tpu/propagator.py, the pallas paths).
 
 Streaming step: box regrow -> SFC keys -> stable sort -> candidate-run
-prologue -> density -> EOS -> IAD -> momentum/energy -> timestep ->
-positions and h update. With persistent lists (``lists=``) a steady step
-runs in the order frozen at the last ``rebuild_pair_lists``: no regrow, no
-sort, no prologue; it reports the lists' remaining skin (``list_slack``)
-and whether they still cover its input (``list_ok``). PyTorch runs it
-eagerly; the pair ops launch the CUDA kernels on the card and their plain
-versions on the CPU.
+prologue -> the force stage -> timestep -> positions and h update. The
+std force stage is density -> EOS -> IAD -> momentum/energy; the VE one
+(the reference's flagship, ve_hydro.hpp:131-208) is xmass -> grad-h ->
+EOS -> IAD -> divv/curlv -> AV switches -> momentum/energy, all six ops
+on one set of runs. With persistent lists (``lists=``) a steady step
+runs in the order frozen at the last ``rebuild_pair_lists``: no regrow,
+no sort, no prologue; it reports the lists' remaining skin
+(``list_slack``) and whether they still cover its input (``list_ok``).
+PyTorch runs it eagerly; the pair ops launch the CUDA kernels on the card
+and their plain versions on the CPU. Gravity, turbulence stirring and
+block time steps are not ported.
 """
 
 import dataclasses
@@ -22,10 +26,11 @@ from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
 from sphexa_torch.sph.hydro_std import compute_eos_std
+from sphexa_torch.sph.hydro_ve import compute_eos_ve
 from sphexa_torch.sph.kernels import update_h
 from sphexa_torch.sph.particles import PARTICLE_FIELDS, ParticleState, SimConstants
 from sphexa_torch.sph.positions import compute_positions
-from sphexa_torch.sph.timestep import compute_timestep
+from sphexa_torch.sph.timestep import compute_timestep, rho_timestep
 
 #: ``diagnostics["dt_limiter"]`` indexes this tuple
 DT_LIMITERS = ("growth", "courant", "rho", "cool", "accel")
@@ -44,6 +49,8 @@ class PropagatorConfig:
     list_slot_cap: int = 0
     # Verlet skin as a fraction of the 2 h_max search radius
     list_skin_rel: float = 0.2
+    # VE: the av_clean velocity-gradient correction of the viscosity
+    av_clean: bool = False
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -126,9 +133,10 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
                           ax, ay, az, du, dt, nc, occ, rho, dt_limiter=None,
-                          extra_diag=None
+                          extra_diag=None, extra=None
                           ) -> Tuple[ParticleState, Box, Dict[str, torch.Tensor]]:
-    """Drift/kick + PBC wrap, smoothing-length nudge, diagnostics."""
+    """Drift/kick + PBC wrap, smoothing-length nudge, diagnostics.
+    ``extra``: further fields of the new state (the VE step's alpha)."""
     const = cfg.const
     fields = (state.x, state.y, state.z, state.x_m1, state.y_m1, state.z_m1,
               state.vx, state.vy, state.vz, state.h, state.temp, state.temp_lo,
@@ -141,10 +149,14 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
         vx=vx, vy=vy, vz=vz, h=new_h, temp=temp, temp_lo=temp_lo,
         du=du, du_m1=du_m1,
         ttot=state.ttot + dt, min_dt=dt, min_dt_m1=state.min_dt,
+        **(extra or {}),
     )
     diagnostics = {
         "dt": dt,
         "nc_mean": torch.mean(nc.to(torch.float32)) + 1.0,
+        # the exact neighbour total: the float32 mean may round its
+        # division differently on two devices
+        "nc_sum": torch.sum(nc, dtype=torch.int64),
         "nc_max": torch.max(nc) + 1,
         "occupancy": occ,
         "rho_max": torch.max(rho),
@@ -169,3 +181,59 @@ def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ,
                                  rho, dt_limiter=limiter, extra_diag=ldiag)
 
+
+def _split_dvout(dvout, av_clean: bool):
+    """Unpack the divv/curlv op's outputs: (divv, curlv, gradv or None)."""
+    if av_clean:
+        divv, curlv, *gradv = dvout
+        return divv, curlv, tuple(gradv)
+    divv, curlv = dvout
+    return divv, curlv, None
+
+
+def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
+               lists: Optional[PairLists] = None):
+    """The VE force stage (HydroVeProp::computeForces, ve_hydro.hpp:131-208):
+    [sort -> prologue ->] xmass -> grad-h -> EOS -> IAD -> divv/curlv -> AV
+    switches -> momentum/energy, one set of runs (or the lists') for all
+    six ops, then the time step: min of Courant, Krho/|max divv| and 1.1x
+    the previous dt. Returns (state, box, ax, ay, az, du, dt, alpha, nc,
+    occ, rho, diagnostics)."""
+    const, nbr = cfg.const, cfg.nbr
+    state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists)
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    vx, vy, vz = state.vx, state.vy, state.vz
+    ranges = None if lists is not None else pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
+    kw = {"ranges": ranges, "lists": lists}
+
+    xm, nc, occ = pe.pallas_xmass(x, y, z, h, m, keys, box, const, nbr, **kw)
+    (kx, gradh), _ = pe.pallas_ve_def_gradh(x, y, z, h, m, xm, keys, box, const, nbr, **kw)
+    prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    cs, _ = pe.pallas_iad(x, y, z, h, xm / kx, keys, box, const, nbr, **kw)
+    dvout, _ = pe.pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, *cs, keys, box,
+                                        const, nbr, with_gradv=cfg.av_clean, **kw)
+    divv, _curlv, gradv = _split_dvout(dvout, cfg.av_clean)
+    dt_rho = rho_timestep(divv, const)
+    alpha, _ = pe.pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, state.alpha,
+                                     *cs, keys, box, state.min_dt, const, nbr, **kw)
+    ax, ay, az, du, dt_courant, _ = pe.pallas_momentum_energy_ve(
+        x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, keys, box, const, nbr,
+        nc=nc, gradv=gradv, **kw)
+
+    dt = compute_timestep(state.min_dt, dt_courant, dt_rho, const=const)
+    diag = {**(ldiag or {}),
+            "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho)}
+    return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, diag
+
+
+def _step_hydro_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                   lists: Optional[PairLists] = None):
+    """One generalised-volume-element SPH time step (HydroVeProp::step,
+    ve_hydro.hpp:210-223): the VE force stage, then positions and the
+    smoothing-length update; the new state carries the AV switches'
+    alpha. With ``lists`` a steady list-mode step. Returns (new_state,
+    new_box, diagnostics)."""
+    (state, box, ax, ay, az, du, dt, alpha, nc, occ, rho,
+     diag) = _ve_forces(state, box, cfg, lists)
+    return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ, rho,
+                                 extra_diag=diag, extra={"alpha": alpha})

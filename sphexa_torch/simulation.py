@@ -1,7 +1,9 @@
-"""Host-side driver of the port (sphexa_tpu/simulation.py, the std subset):
-static neighbour-config sizing, the step loop with the overflow contract,
-the persistent-list lifecycle, and the energy-drift diagnostic."""
+"""Host-side driver of the port (sphexa_tpu/simulation.py, the std and VE
+propagators on one card): static neighbour-config sizing, the step loop
+with the overflow contract, the persistent-list lifecycle, and the
+energy-drift diagnostic."""
 
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -14,7 +16,9 @@ from sphexa_torch.neighbors.cell_list import (
     NeighborConfig, choose_grid_level, pad_cap, window_cells,
 )
 from sphexa_torch.observables.conserved import conserved_quantities
-from sphexa_torch.propagator import PropagatorConfig, _step_hydro_std, rebuild_pair_lists
+from sphexa_torch.propagator import (
+    PropagatorConfig, _step_hydro_std, _step_hydro_ve, rebuild_pair_lists,
+)
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph.pair_engine import engine_fold
@@ -24,6 +28,9 @@ from sphexa_torch.sph.particles import ParticleState, SimConstants
 #: engine defaults of make_propagator_config (simulation.py:142-143)
 _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
              "list_skin_rel": 0.2}
+
+#: the ported propagators' step functions
+_STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve}
 
 
 def _max_cell_occupancy(sorted_keys: np.ndarray, level: int) -> int:
@@ -136,8 +143,11 @@ class Simulation:
     ``list_slot_cap`` at 0) the steps stream, as with ``use_lists=False``;
     each step's ``use_lists`` diagnostic says which ran.
 
-    ``device=None`` runs on the CUDA device and raises without one;
-    ``device="cpu"`` runs the plain PyTorch versions of the kernels."""
+    ``prop``: "std" or "ve" (``av_clean`` adds the VE viscosity's
+    velocity-gradient correction); the list lifecycle and the overflow
+    contract are the same for both. ``device=None`` runs on the CUDA
+    device and raises without one; ``device="cpu"`` runs the plain
+    PyTorch versions of the kernels."""
 
     # rebuild proactively below this remaining-skin fraction: the next
     # step would likely expire and be discarded
@@ -146,9 +156,11 @@ class Simulation:
     def __init__(self, state: ParticleState, box: Box, const: SimConstants,
                  prop: str = "std", device=None, curve: str = "hilbert",
                  cell_target: Optional[int] = None, use_lists: bool = True,
-                 list_skin_rel: Optional[float] = None):
-        if prop != "std":
+                 list_skin_rel: Optional[float] = None, av_clean: bool = False):
+        if prop not in _STEPS:
             raise NotImplementedError(f"--prop {prop!r}: not ported yet")
+        self.av_clean = av_clean
+        self._step_fn = _STEPS[prop]
         self.device = resolve_device(device)
         self.state = state.to(self.device)
         self.box = box.to(self.device)
@@ -180,11 +192,12 @@ class Simulation:
 
     def _configure(self, min_cap: int = 0) -> None:
         self._lists = None  # any re-size invalidates the lists
-        self._cfg = make_propagator_config(
+        cfg = make_propagator_config(
             self.state, self.box, self.const, curve=self.curve,
             min_cap=min_cap, cell_target=self.cell_target,
             use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
             list_slot_margin=self._slot_margin)
+        self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean)
 
     @property
     def _use_lists(self) -> bool:
@@ -223,8 +236,8 @@ class Simulation:
             if self._use_lists and self._lists is None:
                 self._rebuild_lists()
             lists = self._lists if self._use_lists else None
-            new_state, new_box, diag = _step_hydro_std(self.state, self.box, self._cfg,
-                                                       lists=lists)
+            new_state, new_box, diag = self._step_fn(self.state, self.box, self._cfg,
+                                                     lists=lists)
             cq = conserved_quantities(new_state, self.const)
             named = {**diag, **cq, "min_length": new_box.lengths.min()}
             host = dict(zip(named, torch.stack(

@@ -1,8 +1,9 @@
 """Smoothing kernel fit and the smoothing-length update
-(sphexa_tpu/sph/kernels.py, the parts the std pipeline reads).
+(sphexa_tpu/sph/kernels.py, the parts the std and VE pipelines read).
 
 W is a degree-13 polynomial in s = v^2/2 - 1 fitted with the same numpy
-Chebyshev fit as the JAX package, so the 14 coefficients are identical.
+Chebyshev fit as the JAX package, so the 14 coefficients are identical;
+the VE grad-h term's dterh = -(3 W + v dW/dv) is derived from them.
 """
 
 import functools
@@ -56,6 +57,32 @@ def sinc_poly_eval(u: torch.Tensor, coeffs) -> torch.Tensor:
     for c in coeffs[-2::-1]:
         acc = acc * s + c
     return torch.clamp_min(acc, 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_dterh_coeffs(n: float, kind: str = "sinc", degree: int = 0) -> tuple:
+    """Coefficients of dterh(v) = -(3 W + v dW/dv) in s = v^2/2 - 1,
+    derived from the W fit: with W = p(s), v dW/dv = 2 (s + 1) p'(s), so
+    dterh = -(3 p + 2 (s + 1) p')."""
+    c = kernel_poly_coeffs(n, kind, degree)
+    d = []
+    for k in range(len(c)):
+        v = (3.0 + 2.0 * k) * c[k]
+        if k + 1 < len(c):
+            v += 2.0 * (k + 1) * c[k + 1]
+        d.append(-v)
+    return tuple(d)
+
+
+def dterh_poly_eval(u: torch.Tensor, coeffs) -> torch.Tensor:
+    """Horner evaluation of dterh from u = (d/h)^2, clamped to the support
+    like ``sinc_poly_eval`` but with no zero floor (dterh is negative
+    inside the support)."""
+    s = torch.clamp(u * 0.5 - 1.0, -1.0, 1.0)
+    acc = torch.full_like(s, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        acc = acc * s + c
+    return acc
 
 
 def kernel_norm_3d(n: float = 6.0, kind: str = "sinc",

@@ -1,5 +1,5 @@
 """SPH pair ops with the neighbour search fused in: the candidate-run
-prologue (torch) and the three std-SPH pair ops, each a hand-written CUDA
+prologue (torch) and the std-SPH and VE pair ops, each a hand-written CUDA
 kernel with a plain PyTorch version beside it.
 
 Counterpart of sphexa_tpu/sph/pallas_pairs.py. Targets are groups of ``cfg.group`` SFC-consecutive
@@ -12,24 +12,33 @@ per-pair minimum-image fold when the window spans the whole periodic grid,
 for the symmetric momentum cutoff) minus the self pair, and accumulates.
 
 With persistent lists (sph/pair_lists.py) the ops take ``lists=``:
-density and IAD run the same engine on the lists' pruned runs, and the
-momentum op runs the list walk, which does the pair math only on the
-lanes the mark pass kept (``engine_lists_kernel``/``engine_lists_plain``).
+density, IAD, the VE grad-h op and divv/curlv stream the lists' pruned
+runs through the same engine; the momentum ops, the AV switches and the
+gradv (av_clean) form of divv/curlv run the list walk, which does the
+pair math only on the lanes the mark pass kept
+(``engine_lists_kernel``/``engine_lists_plain``), as the JAX dispatch
+picks its engines.
 
-Dispatch of every op wrapper (``pallas_density``, ``pallas_iad``,
-``pallas_momentum_energy_std``, named as in the JAX package):
+Op wrappers, named as in the JAX package: std ``pallas_density``,
+``pallas_iad``, ``pallas_momentum_energy_std``; VE ``pallas_xmass``
+(m / rho0 over the density op), ``pallas_ve_def_gradh``,
+``pallas_iad_divv_curlv``, ``pallas_av_switches``,
+``pallas_momentum_energy_ve``. Dispatch of every wrapper:
 
-- CUDA tensors launch the kernel in csrc/pair_engine.cu, or raise;
+- CUDA tensors launch the kernel in csrc/pair_engine.cu or
+  csrc/pair_lists.cu, or raise;
 - CPU tensors run the plain PyTorch version (``*_plain``), which the
   tests compare with the JAX package and chip_smoke.py compares with the
   kernel on the card.
 
-Each wrapper counts its kernel launches in ``LAUNCHES``.
+Each wrapper counts its kernel launches in ``LAUNCHES``, one key per
+library entry point.
 """
 
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -39,12 +48,17 @@ from sphexa_torch.neighbors.cell_list import NeighborConfig, _window_offsets
 from sphexa_torch.sfc.box import BoundaryType, Box
 from sphexa_torch.sfc.hilbert import hilbert_encode
 from sphexa_torch.sfc.morton import morton_encode
-from sphexa_torch.sph.kernels import kernel_poly_coeffs, sinc_poly_eval
+from sphexa_torch.sph.kernels import (
+    dterh_poly_eval, kernel_dterh_coeffs, kernel_poly_coeffs, sinc_poly_eval,
+)
 
 #: kernel launches per op since the last ``reset_launches()``; only the
 #: wrappers' CUDA branch adds to it
-LAUNCHES: Dict[str, int] = {"density": 0, "iad": 0, "momentum_energy_std": 0,
-                            "momentum_energy_std_lists": 0, "mark": 0}
+LAUNCHES: Dict[str, int] = {
+    "density": 0, "iad": 0, "momentum_energy_std": 0, "momentum_energy_std_lists": 0,
+    "mark": 0, "ve_def_gradh": 0, "iad_divv_curlv": 0, "iad_divv_curlv_lists": 0,
+    "av_switches": 0, "av_switches_lists": 0, "momentum_energy_ve": 0,
+    "momentum_energy_ve_lists": 0}
 
 #: pair elements per tile of the plain version (bounds its transient
 #: memory: the momentum op keeps ~50 float32 temporaries of a tile)
@@ -260,7 +274,7 @@ def _merge_runs(start, lens, keep, shifts, run_cap: int, gap: int):
 
 # ---------------------------------------------------------------------------
 # Op definitions shared by the plain version (torch) and, field for field,
-# by the CUDA kernel's Op structs (csrc/pair_engine.cu).
+# by the CUDA kernels' Op structs (csrc/pair_ops.cuh).
 # ---------------------------------------------------------------------------
 
 
@@ -285,6 +299,8 @@ class OpSpec:
     finalize: Callable
     want_nc: bool
     sym_j: Optional[int] = None  # j-field index of 1/h_j^2 (min-h cutoff)
+    # the kernel's template form behind the entry point (gradv, av_clean)
+    variant: int = 0
 
 
 def _density_pair(g, I, J, c):
@@ -389,9 +405,191 @@ MOMENTUM_ENERGY_STD = OpSpec(
     sym_j=3)
 
 
+def _iad_project(g, F, k, w):
+    """(C r) w with the symmetric IAD tensor (c11 c12 c13 c22 c23 c33) at
+    fields F[k:k+6]."""
+    c11, c12, c13, c22, c23, c33 = F[k:k + 6]
+    return ((c11 * g.rx + c12 * g.ry + c13 * g.rz) * w,
+            (c12 * g.rx + c22 * g.ry + c23 * g.rz) * w,
+            (c13 * g.rx + c23 * g.ry + c33 * g.rz) * w)
+
+
+def _gradh_pair(g, I, J, c):
+    u = g.d2 * I[4]
+    w = sinc_poly_eval(u, c["coeffs"])
+    dterh = dterh_poly_eval(u, c["dcoeffs"])
+    mj, xmj = J[3], J[4]
+    return (xmj * w, xmj * dterh, mj * dterh)
+
+
+def _gradh_finalize(I, accs, nc, c):
+    hi, mi, xmi = I[3], I[5], I[6]
+    K = c["K"]
+    h3inv = 1.0 / (hi * hi * hi)
+    kx = (xmi + accs[0]) * K * h3inv
+    whomega = (-3.0 * xmi + accs[1]) * K * h3inv / hi
+    wrho0 = (-3.0 * mi + accs[2]) * K * h3inv / hi
+    whomega = whomega * mi / xmi + (kx - K * xmi * h3inv) * wrho0
+    rho = kx * mi / xmi
+    dhdrho = -hi / (rho * 3.0)
+    return (kx, 1.0 - dhdrho * whomega)
+
+
+def _divv_pair(gradv: bool):
+    def pair(g, I, J, c):
+        # negated projection: the VE kernels use tA = -(C r) W
+        w = -sinc_poly_eval(g.d2 * I[4], c["coeffs"])
+        tA1, tA2, tA3 = _iad_project(g, I, 5, w)
+        vx_ji, vy_ji, vz_ji = J[4] - I[12], J[5] - I[13], J[6] - I[14]
+        mw = J[3]
+        if gradv:
+            return tuple(mw * v * t for v in (vx_ji, vy_ji, vz_ji) for t in (tA1, tA2, tA3))
+        return (mw * (vx_ji * tA1 + vy_ji * tA2 + vz_ji * tA3),
+                mw * (vz_ji * tA2 - vy_ji * tA3),
+                mw * (vx_ji * tA3 - vz_ji * tA1),
+                mw * (vy_ji * tA1 - vx_ji * tA2))
+    return pair
+
+
+def _divv_finalize(gradv: bool):
+    def finalize(I, accs, nc, c):
+        knorm = I[11]
+        if gradv:
+            dvx1, dvx2, dvx3, dvy1, dvy2, dvy3, dvz1, dvz2, dvz3 = accs
+            cx, cy, cz = dvz2 - dvy3, dvx3 - dvz1, dvy1 - dvx2
+            return (knorm * (dvx1 + dvy2 + dvz3),
+                    knorm * torch.sqrt(cx * cx + cy * cy + cz * cz),
+                    knorm * dvx1, knorm * (dvx2 + dvy1), knorm * (dvx3 + dvz1),
+                    knorm * dvy2, knorm * (dvy3 + dvz2), knorm * dvz3)
+        adiv, acx, acy, acz = accs
+        return (knorm * adiv, knorm * torch.sqrt(acx * acx + acy * acy + acz * acz))
+    return finalize
+
+
+def _av_pair(g, I, J, c):
+    w = -sinc_poly_eval(g.d2 * I[4], c["coeffs"]) * I[5]
+    vx_ij, vy_ij, vz_ij = I[14] - J[4], I[15] - J[5], I[16] - J[6]
+    rv = g.rx * vx_ij + g.ry * vy_ij + g.rz * vz_ij
+    inv_dist = torch.rsqrt(g.d2)
+    vsig = torch.where(rv < 0.0, I[6] + J[3] - 3.0 * rv * inv_dist, 0.0)
+    tA1, tA2, tA3 = _iad_project(g, I, 8, w)
+    factor = J[7] * (I[7] - J[8])
+    return (vsig, factor * tA1, factor * tA2, factor * tA3)
+
+
+def _av_finalize(I, accs, nc, c):
+    hi, ci, divvi, alpha_i = I[3], I[6], I[7], I[17]
+    vs, gdx, gdy, gdz = accs
+    # 1e-40 is a float32 denormal: an isolated particle's decay stays finite
+    vijsignal = torch.maximum(vs, 1e-40 * ci)
+    graddivv = torch.sqrt(gdx * gdx + gdy * gdy + gdz * gdz)
+    a_const = hi * hi * graddivv
+    alphaloc = torch.where(
+        divvi < 0.0,
+        c["alphamax"] * a_const / (a_const + hi * torch.abs(divvi) + 0.05 * ci), 0.0)
+    decay = hi / (c["decay_c"] * vijsignal)
+    target = torch.clamp_min(alphaloc, c["alphamin"])
+    alphadot = (target - alpha_i) / decay
+    alpha_decayed = alpha_i + alphadot * c["dt"]
+    return (torch.where(alphaloc >= alpha_i, alphaloc, alpha_decayed),)
+
+
+def _momentum_ve_pair(av_clean: bool):
+    def pair(g, I, J, c):
+        (_xi, _yi, _zi, _hi, inv_h2i, inv_h3i, vxi, vyi, vzi, ci, ali,
+         xmi, xm2i, lxi, rhoi, irhoi, prhoi) = I[:17]
+        (_xj, _yj, _zj, inv_h2j, inv_h3j, vxj, vyj, vzj, cj, alj,
+         mj, xmj, xm2j, lxj, rhoj, irhoj, prhoj) = J[:17]
+        u_i = g.d2 * inv_h2i
+        u_j = g.d2 * inv_h2j
+        # the negative normalisation bakes the projection sign into w
+        w_i = -sinc_poly_eval(u_i, c["coeffs"]) * inv_h3i
+        w_j = -sinc_poly_eval(u_j, c["coeffs"]) * inv_h3j
+        vx_ij, vy_ij, vz_ij = vxi - vxj, vyi - vyj, vzi - vzj
+        rv = g.rx * vx_ij + g.ry * vy_ij + g.rz * vz_ij
+        inv_dist = torch.rsqrt(g.d2)
+        if av_clean:
+            def sym(gv):
+                return (g.rx * (gv[0] * g.rx + gv[1] * g.ry + gv[2] * g.rz)
+                        + g.ry * (gv[3] * g.ry + gv[4] * g.rz) + g.rz * (gv[5] * g.rz))
+            eta_crit = I[23]
+            d1, d2_ = sym(I[24:30]), sym(J[23:29])
+            eta_ab = torch.minimum(torch.sqrt(u_i), torch.sqrt(u_j))
+            eta_diff = 5.0 * (eta_ab - eta_crit)
+            d3 = torch.where(eta_ab < eta_crit, torch.exp(-(eta_diff * eta_diff)), 1.0)
+            A = torch.where(d2_ != 0.0, d1 / d2_, 0.0)
+            Ap1 = 1.0 + A
+            phi = 0.5 * d3 * torch.clamp(4.0 * A / (Ap1 * Ap1), 0.0, 1.0)
+            rv = rv - phi * (d1 + d2_)
+        w_ij = rv * inv_dist
+        # per-particle-alpha Monaghan AV (kernels.hpp:60-84)
+        cij = ci + cj
+        v_sig = 0.25 * (ali + alj) * cij - 2.0 * w_ij
+        visc = torch.where(w_ij < 0.0, -v_sig * w_ij, 0.0)
+        tA1_i, tA2_i, tA3_i = _iad_project(g, I, 17, w_i)
+        tA1_j, tA2_j, tA3_j = _iad_project(g, J, 17, w_j)
+        # Atwood ramp between uncrossed (xm_i^2, xm_j^2) and crossed
+        # (xm_i xm_j) volume elements
+        at_min, at_max = c["at_min"], c["at_max"]
+        atwood = torch.abs(rhoi - rhoj) / (rhoi + rhoj)
+        sigma = c["ramp"] * (atwood - at_min)
+        dl = lxj - lxi
+        a_ramp = xm2i * torch.exp(sigma * dl)
+        b_ramp = xm2j * torch.exp(-sigma * dl)
+        crossed = xmi * xmj
+        a_mom = torch.where(atwood < at_min, xm2i,
+                            torch.where(atwood > at_max, crossed, a_ramp))
+        b_mom = torch.where(atwood < at_min, xm2j,
+                            torch.where(atwood > at_max, crossed, b_ramp))
+        a_visc = mj * irhoi * visc
+        b_visc = mj * irhoj * visc
+        avx = 0.5 * (a_visc * tA1_i + b_visc * tA1_j)
+        avy = 0.5 * (a_visc * tA2_i + b_visc * tA2_j)
+        avz = 0.5 * (a_visc * tA3_i + b_visc * tA3_j)
+        mom_i = mj * prhoi * a_mom
+        mom_j = mj * prhoj * b_mom
+        return (mom_i * tA1_i + mom_j * tA1_j + avx,
+                mom_i * tA2_i + mom_j * tA2_j + avy,
+                mom_i * tA3_i + mom_j * tA3_j + avz,
+                mj * a_mom * (vx_ij * tA1_i + vy_ij * tA2_i + vz_ij * tA3_i),
+                avx * vx_ij + avy * vy_ij + avz * vz_ij,
+                0.5 * cij - 2.0 * w_ij)
+    return pair
+
+
+def _momentum_ve_finalize(I, accs, nc, c):
+    hi, ci, prhoi = I[3], I[9], I[16]
+    momx, momy, momz, energy, avisc_e, mv = accs
+    K = c["K"]
+    du = K * (prhoi * energy + 0.5 * torch.clamp_min(avisc_e, 0.0))
+    v = torch.where(mv > 0.0, mv, ci)
+    dt_i = c["k_cour"] * hi / v
+    return (-K * momx, -K * momy, -K * momz, du, dt_i)
+
+
+VE_DEF_GRADH = OpSpec("ve_def_gradh", 7, 5, 2, _gradh_pair, ("sum",) * 3,
+                      _gradh_finalize, want_nc=False)
+IAD_DIVV_CURLV = OpSpec("iad_divv_curlv", 15, 7, 2, _divv_pair(False), ("sum",) * 4,
+                        _divv_finalize(False), want_nc=False)
+IAD_DIVV_CURLV_GRADV = OpSpec("iad_divv_curlv", 15, 7, 8, _divv_pair(True), ("sum",) * 9,
+                              _divv_finalize(True), want_nc=False, variant=1)
+AV_SWITCHES = OpSpec("av_switches", 18, 9, 1, _av_pair, ("max", "sum", "sum", "sum"),
+                     _av_finalize, want_nc=False)
+MOMENTUM_ENERGY_VE = OpSpec(
+    "momentum_energy_ve", 23, 23, 5, _momentum_ve_pair(False), ("sum",) * 5 + ("max",),
+    _momentum_ve_finalize, want_nc=False, sym_j=3)
+MOMENTUM_ENERGY_VE_CLEAN = OpSpec(
+    "momentum_energy_ve", 30, 29, 5, _momentum_ve_pair(True), ("sum",) * 5 + ("max",),
+    _momentum_ve_finalize, want_nc=False, sym_j=3, variant=1)
+
+
 def op_consts(const) -> dict:
-    return {"coeffs": kernel_poly_coeffs(float(const.sinc_index), const.kernel_choice),
-            "K": float(const.K), "k_cour": float(const.k_cour)}
+    n, kind = float(const.sinc_index), const.kernel_choice
+    return {"coeffs": kernel_poly_coeffs(n, kind), "dcoeffs": kernel_dterh_coeffs(n, kind),
+            "K": float(const.K), "k_cour": float(const.k_cour),
+            "alphamin": float(const.alphamin), "alphamax": float(const.alphamax),
+            "decay_c": float(const.decay_constant), "at_min": float(const.at_min),
+            "at_max": float(const.at_max), "ramp": float(const.ramp)}
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +768,7 @@ def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
 
-_MAX_F = 24
+_MAX_F = 32
 _MAX_OUT = 8
 _NCOEF = 14
 
@@ -602,6 +800,15 @@ class EngineArgs(ctypes.Structure):
         ("coeffs", ctypes.c_float * _NCOEF),
         ("bits", ctypes.c_void_p),
         ("slot_cap", ctypes.c_int32),
+        ("dcoeffs", ctypes.c_float * _NCOEF),
+        ("alphamin", ctypes.c_float),
+        ("alphamax", ctypes.c_float),
+        ("decay_c", ctypes.c_float),
+        ("at_min", ctypes.c_float),
+        ("at_max", ctypes.c_float),
+        ("ramp", ctypes.c_float),
+        ("dt", ctypes.c_void_p),
+        ("variant", ctypes.c_int32),
     ]
 
 
@@ -674,11 +881,18 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     args.K = consts["K"]
     args.mhalf_K = -consts["K"] * 0.5
     args.k_cour = consts["k_cour"]
-    coeffs = consts["coeffs"]
-    if len(coeffs) != _NCOEF:
-        raise ValueError(f"the kernel takes {_NCOEF} polynomial coefficients")
-    for k, v in enumerate(coeffs):
-        args.coeffs[k] = v
+    for key, dst in (("coeffs", args.coeffs), ("dcoeffs", args.dcoeffs)):
+        if len(consts[key]) != _NCOEF:
+            raise ValueError(f"the kernel takes {_NCOEF} polynomial coefficients")
+        for k, v in enumerate(consts[key]):
+            dst[k] = v
+    for key in ("alphamin", "alphamax", "decay_c", "at_min", "at_max", "ramp"):
+        setattr(args, key, consts[key])
+    if "dt" in consts:
+        # a device pointer, as for boxl: float() of the step's dt would sync
+        check_table("dt", consts["dt"], torch.float32, (), dev)
+        args.dt = consts["dt"].data_ptr()
+    args.variant = spec.variant
     return args, outs, nc
 
 
@@ -721,31 +935,40 @@ def engine_lists_kernel(spec: OpSpec, lists, i_fields: Sequence,
     return outs, nc
 
 
-def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None):
+def _consts(const, dt) -> dict:
+    consts = op_consts(const)
+    if dt is not None:
+        consts["dt"] = dt
+    return consts
+
+
+def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None, dt=None):
     """Dispatch by device: CUDA launches the kernel (the list walk when
-    ``lists`` is given), CPU runs the plain version; anything else raises."""
+    ``lists`` is given), CPU runs the plain version; anything else raises.
+    ``dt``: the 0-d device tensor of the AV switches' time step."""
     dev = i_fields[0].device
     if dev.type == "cuda":
-        consts = op_consts(const)
+        consts = _consts(const, dt)
         if lists is not None:
             return engine_lists_kernel(spec, lists, i_fields, j_fields, cfg.group, consts)
         return engine_kernel(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
                              cfg.group, consts)
     if dev.type == "cpu":
-        return _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists)
+        return _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists, dt)
     raise ValueError(f"unsupported device {dev}")
 
 
-def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None):
+def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None,
+               dt=None):
+    consts = _consts(const, dt)
     if lists is not None:
-        return engine_lists_plain(spec, lists, i_fields, j_fields, cfg.group,
-                                  op_consts(const))
+        return engine_lists_plain(spec, lists, i_fields, j_fields, cfg.group, consts)
     return engine_plain(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
-                        cfg.group, op_consts(const))
+                        cfg.group, consts)
 
 
 # ---------------------------------------------------------------------------
-# The three std-SPH ops (pallas_pairs.pallas_density / pallas_iad /
+# The std-SPH ops (pallas_pairs.pallas_density / pallas_iad /
 # pallas_momentum_energy_std). Each builds its precombined i/j fields,
 # runs the engine and applies the post-processing of the JAX wrapper.
 # With ``lists`` (persistent PairLists) the candidate runs are the lists'
@@ -860,3 +1083,210 @@ def momentum_spec(const) -> OpSpec:
     if getattr(const, "sym_pairs", True):
         return MOMENTUM_ENERGY_STD
     return dataclasses.replace(MOMENTUM_ENERGY_STD, sym_j=None)
+
+
+# ---------------------------------------------------------------------------
+# The VE ops (pallas_pairs.pallas_xmass ... pallas_momentum_energy_ve), with
+# the JAX wrappers' precombined per-particle ratios. With ``lists``,
+# grad-h and the plain divv/curlv stream the pruned runs; the gradv form of
+# divv/curlv, the AV switches and the momentum op take the list walk.
+# ---------------------------------------------------------------------------
+
+
+def ve_def_gradh_fields(x, y, z, h, m, xm):
+    return [x, y, z, h, 1.0 / (h * h), m, xm], [x, y, z, m, xm]
+
+
+def divv_curlv_fields(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
+                      const):
+    knorm = float(const.K) / (h * h * h * kx)
+    return ([x, y, z, h, 1.0 / (h * h), c11, c12, c13, c22, c23, c33, knorm, vx, vy, vz],
+            [x, y, z, xm, vx, vy, vz])
+
+
+def av_switches_fields(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                       c11, c12, c13, c22, c23, c33, const):
+    i_f = [x, y, z, h, 1.0 / (h * h), float(const.K) / (h * h * h), c, divv,
+           c11, c12, c13, c22, c23, c33, vx, vy, vz, alpha]
+    return i_f, [x, y, z, c, vx, vy, vz, xm / kx, divv]
+
+
+#: 1/3 rounded to float32, the exponent of XLA's cbrt
+_THIRD_F32 = float(torch.tensor(1.0 / 3.0, dtype=torch.float32))
+
+
+def momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
+                       c11, c12, c13, c22, c23, c33, nc=None, gradv=None):
+    """The Atwood ramp's powers xm_i^(2-sigma) xm_j^sigma become
+    xm_i^2 exp(sigma (ln xm_j - ln xm_i)) with the logs per particle; with
+    ``gradv`` (av_clean) the i-side adds eta_crit = cbrt(32 pi/3/(nc+1))
+    and both sides the six gradv components."""
+    inv_h2 = 1.0 / (h * h)
+    inv_h3 = inv_h2 / h
+    rho = kx * m / xm
+    inv_rho = 1.0 / rho
+    lx = torch.log(xm)
+    cs = [c11, c12, c13, c22, c23, c33]
+    i_f = [x, y, z, h, inv_h2, inv_h3, vx, vy, vz, c, alpha, xm, xm * xm, lx,
+           rho, inv_rho, prho, *cs]
+    j_f = [x, y, z, inv_h2, inv_h3, vx, vy, vz, c, alpha, m, xm, xm * xm, lx,
+           rho, inv_rho, prho, *cs]
+    if gradv is not None:
+        # jnp.cbrt as XLA computes it: the float32 quotient (a true
+        # division, not scalar / tensor's reciprocal product) to the power
+        # float32(1/3), rounded from float64, so both devices agree
+        q = torch.div(torch.tensor(32.0 * math.pi / 3.0, device=nc.device),
+                      nc.to(torch.float32) + 1.0)
+        eta_crit = torch.pow(q.to(torch.float64), _THIRD_F32).to(torch.float32)
+        i_f += [eta_crit, *gradv]
+        j_f += list(gradv)
+    return i_f, j_f
+
+
+def momentum_ve_spec(const, av_clean: bool) -> OpSpec:
+    spec = MOMENTUM_ENERGY_VE_CLEAN if av_clean else MOMENTUM_ENERGY_VE
+    if getattr(const, "sym_pairs", True):
+        return spec
+    return dataclasses.replace(spec, sym_j=None)
+
+
+def _xmass(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists):
+    rho0, nc, occ = _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges,
+                             lists)
+    return m / rho0, nc, occ
+
+
+def _ve_def_gradh(run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
+    (kx, gradh), _ = run(VE_DEF_GRADH, ranges, *ve_def_gradh_fields(x, y, z, h, m, xm),
+                         box, cfg, const)
+    return (kx, gradh), ranges.occupancy
+
+
+def _iad_divv_curlv(run, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
+                    sorted_keys, box, const, cfg, ranges, with_gradv, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
+    i_f, j_f = divv_curlv_fields(x, y, z, vx, vy, vz, h, kx, xm,
+                                 c11, c12, c13, c22, c23, c33, const)
+    spec = IAD_DIVV_CURLV_GRADV if with_gradv else IAD_DIVV_CURLV
+    outs, _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists if with_gradv else None)
+    return tuple(outs), ranges.occupancy
+
+
+def _av_switches(run, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                 c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
+                 ranges, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
+    i_f, j_f = av_switches_fields(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                                  c11, c12, c13, c22, c23, c33, const)
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=x.device)
+    (alpha_new,), _ = run(AV_SWITCHES, ranges, i_f, j_f, box, cfg, const, lists, dt=dt)
+    return alpha_new, ranges.occupancy
+
+
+def _momentum_energy_ve(run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
+                        c11, c12, c13, c22, c23, c33, sorted_keys, box, const, cfg,
+                        nc, gradv, ranges, lists):
+    ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
+    i_f, j_f = momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
+                                  c11, c12, c13, c22, c23, c33, nc=nc, gradv=gradv)
+    spec = momentum_ve_spec(const, gradv is not None)
+    (ax, ay, az, du, dt_i), _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists)
+    return ax, ay, az, du, torch.min(dt_i), ranges.occupancy
+
+
+def pallas_xmass(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
+                 ranges: Optional[GroupRanges] = None, lists=None):
+    """VE volume element xm = m / rho0 over the density op (K2), and the
+    neighbour counts. Returns (xm, nc, occupancy)."""
+    return _xmass(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists)
+
+
+def xmass_plain(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
+                ranges: Optional[GroupRanges] = None, lists=None):
+    """Plain PyTorch version of ``pallas_xmass`` on any device."""
+    return _xmass(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists)
+
+
+def pallas_ve_def_gradh(x, y, z, h, m, xm, sorted_keys, box: Box, const,
+                        cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+                        lists=None):
+    """VE normalisation kx and the grad-h correction
+    (ve_def_gradh_kern.hpp:43-90). Returns ((kx, gradh), occupancy)."""
+    return _ve_def_gradh(_run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges,
+                         lists)
+
+
+def ve_def_gradh_plain(x, y, z, h, m, xm, sorted_keys, box: Box, const,
+                       cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+                       lists=None):
+    """Plain PyTorch version of ``pallas_ve_def_gradh`` on any device."""
+    return _ve_def_gradh(_run_plain, x, y, z, h, m, xm, sorted_keys, box, const, cfg,
+                         ranges, lists)
+
+
+def pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
+                          sorted_keys, box: Box, const, cfg: NeighborConfig,
+                          ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
+                          lists=None):
+    """Velocity divergence and curl through the IAD gradient
+    (divv_curlv_kern.hpp:43-120), with ``with_gradv`` also the symmetrised
+    velocity-gradient tensor of av_clean. Returns ((divv, curlv[, dv11,
+    dv12, dv13, dv22, dv23, dv33]), occupancy)."""
+    return _iad_divv_curlv(_run, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23,
+                           c33, sorted_keys, box, const, cfg, ranges, with_gradv, lists)
+
+
+def iad_divv_curlv_plain(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
+                         sorted_keys, box: Box, const, cfg: NeighborConfig,
+                         ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
+                         lists=None):
+    """Plain PyTorch version of ``pallas_iad_divv_curlv`` on any device."""
+    return _iad_divv_curlv(_run_plain, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13,
+                           c22, c23, c33, sorted_keys, box, const, cfg, ranges,
+                           with_gradv, lists)
+
+
+def pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                       c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
+                       cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+                       lists=None):
+    """Per-particle viscosity switch (av_switches_kern.hpp:43-137) over
+    ``dt``, a 0-d float32 tensor on the particles' device (the kernel
+    reads it there). Returns (alpha_new, occupancy)."""
+    return _av_switches(_run, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                        c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
+                        ranges, lists)
+
+
+def av_switches_plain(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                      c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
+                      cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
+                      lists=None):
+    """Plain PyTorch version of ``pallas_av_switches`` on any device."""
+    return _av_switches(_run_plain, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
+                        c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
+                        ranges, lists)
+
+
+def pallas_momentum_energy_ve(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
+                              c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
+                              cfg: NeighborConfig, nc=None, gradv=None,
+                              ranges: Optional[GroupRanges] = None, lists=None):
+    """VE momentum and energy (momentum_energy_kern.hpp:65-222): the
+    Atwood-ramped volume elements, per-particle alpha viscosity and, with
+    ``gradv`` (and ``nc``), the av_clean correction. Returns (ax, ay, az,
+    du, min_dt, occupancy)."""
+    return _momentum_energy_ve(_run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
+                               c11, c12, c13, c22, c23, c33, sorted_keys, box, const,
+                               cfg, nc, gradv, ranges, lists)
+
+
+def momentum_energy_ve_plain(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
+                             c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
+                             cfg: NeighborConfig, nc=None, gradv=None,
+                             ranges: Optional[GroupRanges] = None, lists=None):
+    """Plain PyTorch version of ``pallas_momentum_energy_ve`` on any device."""
+    return _momentum_energy_ve(_run_plain, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm,
+                               alpha, c11, c12, c13, c22, c23, c33, sorted_keys, box,
+                               const, cfg, nc, gradv, ranges, lists)

@@ -88,6 +88,11 @@ class SimConstants:
     kernel_norm: Optional[float] = None
 
     @property
+    def ramp(self) -> float:
+        """Slope of the VE momentum op's Atwood ramp between at_min and at_max."""
+        return 1.0 / (self.at_max - self.at_min)
+
+    @property
     def cv(self) -> float:
         return ideal_gas_cv(self.mui, self.gamma)
 

@@ -1,8 +1,15 @@
-"""Global time-step selection (sphexa_tpu/sph/timestep.py, std subset)."""
+"""Global time-step selection (sphexa_tpu/sph/timestep.py, without the
+acceleration condition of gravity)."""
 
 import torch
 
 from sphexa_torch.sph.particles import SimConstants
+
+
+def rho_timestep(divv: torch.Tensor, const: SimConstants) -> torch.Tensor:
+    """Krho / |max divv| (timestep.hpp:71-94): max, then abs, as in the
+    reference, so the limiter bounds the fastest expansion."""
+    return const.k_rho / torch.abs(torch.max(divv))
 
 
 def compute_timestep(min_dt_prev: torch.Tensor, min_dt_courant: torch.Tensor,

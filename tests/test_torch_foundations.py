@@ -1,6 +1,7 @@
 """The port's foundations against the JAX package on the CPU: SFC keys and
-sort order (bitwise), Sedov initial conditions (equal), the kernel fit,
-h update, EOS and the position/energy update (float32 tolerances)."""
+sort order (bitwise), Sedov and Gresho-Chan initial conditions (equal),
+the kernel fit, h update, EOS, the density time step and the
+position/energy update (float32 tolerances)."""
 
 import dataclasses
 
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sphexa_tpu.init import init_gresho_chan as jax_init_gresho_chan
 from sphexa_tpu.init import init_sedov as jax_init_sedov
 from sphexa_tpu.propagator import _sort_by_keys as jax_sort_by_keys
 from sphexa_tpu.sfc.box import BoundaryType as JBT
@@ -19,8 +21,9 @@ from sphexa_tpu.sph import kernels as jk
 from sphexa_tpu.sph.hydro_std import compute_eos_std as jax_eos
 from sphexa_tpu.sph.particles import SimConstants as JConst
 from sphexa_tpu.sph.positions import compute_positions as jax_positions
+from sphexa_tpu.sph.timestep import rho_timestep as jax_rho_timestep
 
-from sphexa_torch.init import init_sedov
+from sphexa_torch.init import init_gresho_chan, init_sedov
 from sphexa_torch.propagator import _sort_by_keys
 from sphexa_torch.sfc.box import BoundaryType, Box, apply_pbc_xyz
 from sphexa_torch.sfc.keys import compute_sfc_keys
@@ -28,6 +31,7 @@ from sphexa_torch.sph import kernels as tk
 from sphexa_torch.sph.hydro_std import compute_eos_std
 from sphexa_torch.sph.particles import SimConstants
 from sphexa_torch.sph.positions import compute_positions
+from sphexa_torch.sph.timestep import rho_timestep
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,6 +105,33 @@ def test_sedov_init_and_sort_equal(side):
     np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys).astype(np.int64))
     for f in ("x", "y", "z", "h", "temp"):
         np.testing.assert_array_equal(getattr(tss, f).numpy(), np.asarray(getattr(jss, f)))
+
+
+@pytest.mark.parametrize("side", [10, 20])
+def test_gresho_chan_init_equal(side):
+    """The thin periodic slab (jittered lattice, seed 42) and its vortex
+    fields equal the JAX package's."""
+    js, jb, jc = jax_init_gresho_chan(side)
+    ts, tb, tc = init_gresho_chan(side, device="cpu")
+    for f in dataclasses.fields(js):
+        np.testing.assert_array_equal(getattr(ts, f.name).numpy(),
+                                      np.asarray(getattr(js, f.name)), err_msg=f.name)
+    np.testing.assert_array_equal(tb.lo.numpy(), np.asarray(jb.lo))
+    np.testing.assert_array_equal(tb.hi.numpy(), np.asarray(jb.hi))
+    assert tuple(int(b) for b in tb.boundaries) == tuple(int(b) for b in jb.boundaries)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert float(ts.vx.abs().max()) > 0.5
+
+
+def test_rho_timestep():
+    """Krho / |max divv|: max, then abs (a contracting flow's divv < 0 does
+    not bind it)."""
+    const_j, const_t = JConst().normalized(), SimConstants().normalized()
+    rng = np.random.default_rng(6)
+    for lo, hi in ((-3.0, 2.0), (-5.0, -1.0)):
+        divv = rng.uniform(lo, hi, 3000).astype(np.float32)
+        assert float(rho_timestep(T(divv), const_t)) == \
+            float(jax_rho_timestep(J(divv), const_j))
 
 
 def test_kernel_fit_and_norm():

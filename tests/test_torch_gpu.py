@@ -4,22 +4,26 @@ NVIDIA card (marker ``gpu``) and skip without one; on the card run
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Each kernel and its plain PyTorch version get the same sorted state on
-the card, with the JAX package's tolerances. The pair engine: Sedov on
-the fold case (side 12) and the shift case (side 24, cell_target=16).
+the card, with the JAX package's tolerances. The pair engine, std and VE
+ops: Sedov on the fold case (side 12) and the shift case (side 24,
+cell_target=16).
 The persistent lists (mark pass, list walk, list mode against streaming):
 Sedov side 30 and Noh 16 (open box); jittered side 24 has no lists (its
 list window spans the grid, fold mode). Every Sedov lattice is jittered
 from a seed (``jitter_sedov``) so that every term of each pair body, the
-viscosity and the IAD off-diagonals included, is non-zero."""
+viscosity and the IAD off-diagonals included, is non-zero. A VE
+list-mode Simulation step on the card is compared with the same step on
+the CPU."""
 
 import pytest
 import torch
 
 from sphexa_torch.convert import state_from_numpy, state_to_numpy
 from sphexa_torch.init import init_noh, init_sedov, jitter_sedov
+from sphexa_torch.kernels.checks import ve_chain_vs_plain
 from sphexa_torch.propagator import _force_stage_prologue, rebuild_pair_lists
 from sphexa_torch.sfc.keys import compute_sfc_keys
-from sphexa_torch.simulation import make_propagator_config
+from sphexa_torch.simulation import Simulation, make_propagator_config
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph import pair_lists as pl
 from sphexa_torch.sph.hydro_std import compute_eos_std
@@ -67,8 +71,8 @@ def test_kernels_match_plain(case):
     for a, b in zip(out_k[:4], out_p[:4]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * float(b.abs().max()) + 1e-12)
     assert float(out_k[4]) == pytest.approx(float(out_p[4]), rel=1e-5)
-    assert pe.LAUNCHES == {"density": 1, "iad": 1, "momentum_energy_std": 1,
-                           "momentum_energy_std_lists": 0, "mark": 0}
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "density": 1, "iad": 1,
+                           "momentum_energy_std": 1}
 
 
 def test_wrapper_rejects_bad_input(case):
@@ -164,3 +168,51 @@ def test_lists_match_streaming(list_case):
     torch.testing.assert_close(out1[3], out0[3], rtol=1e-4,
                                atol=1e-6 * float(out0[3].abs().max()))
     assert float(out1[4]) == pytest.approx(float(out0[4]), rel=1e-5)
+
+
+def _ve_kernels_vs_plain(ss, box, const, nbr, av_clean, **kw):
+    """The VE chain's kernels against their plain versions
+    (``ve_chain_vs_plain``). Returns the launch counts."""
+    pe.reset_launches()
+    ve_chain_vs_plain("VE", ss, box, const, nbr, av_clean, **kw)
+    return dict(pe.LAUNCHES)
+
+
+@pytest.mark.parametrize("av_clean", [False, True], ids=["plain", "avclean"])
+def test_ve_kernels_match_plain(case, av_clean):
+    """K2 (xmass) and K8-K11 on the streaming engine."""
+    ss, box, const, nbr, keys, ranges = case
+    la = _ve_kernels_vs_plain(ss, box, const, nbr, av_clean, keys=keys, ranges=ranges)
+    assert la == {**dict.fromkeys(la, 0), "density": 1, "iad": 1, "ve_def_gradh": 1,
+                  "iad_divv_curlv": 1, "av_switches": 1, "momentum_energy_ve": 1}
+
+
+@pytest.mark.parametrize("av_clean", [False, True], ids=["plain", "avclean"])
+def test_ve_list_kernels_match_plain(list_case, av_clean):
+    """The VE ops in list mode: K1 on the pruned runs for xmass, grad-h,
+    IAD and divv/curlv; the list walk for divv/curlv with gradv, the AV
+    switches and momentum/energy."""
+    ss, box, const, cfg, keys, lists, _ = list_case
+    la = _ve_kernels_vs_plain(ss, box, const, cfg.nbr, av_clean, keys=None, lists=lists)
+    divv = "iad_divv_curlv_lists" if av_clean else "iad_divv_curlv"
+    assert la == {**dict.fromkeys(la, 0), "density": 1, "iad": 1, "ve_def_gradh": 1,
+                  divv: 1, "av_switches_lists": 1, "momentum_energy_ve_lists": 1}
+
+
+def test_ve_simulation_step_matches_cpu():
+    """One list-mode VE Simulation step on the card against the same step
+    on the CPU (jittered Sedov 30: periodic, per-run shifts), from the same
+    input; the accelerations' tolerance carried through the integrator."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    fields, box, const = state_to_numpy(*init_sedov(30, device="cpu"))
+    args = state_from_numpy(jitter_sedov(fields, 30, seed=30), box, const, device="cpu")
+    cpu = Simulation(*args, prop="ve", device="cpu")
+    gpu = Simulation(*args, prop="ve", device="cuda")
+    dc, dg = cpu.step(), gpu.step()
+    assert gpu.lists is not None and dg["use_lists"] == dc["use_lists"] == 1.0
+    for k in ("nc_max", "nc_sum", "occupancy"):
+        assert dg[k] == dc[k], k
+    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "alpha"):
+        a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-6 * float(b.abs().max()))

@@ -36,7 +36,8 @@ def test_port_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert "chip_smoke.py" in names
     for mod in (("sph", "pair_engine.py"), ("sph", "pair_lists.py"),
-                ("init", "noh.py"), ("init", "glass.py")):
+                ("sph", "hydro_ve.py"), ("init", "noh.py"), ("init", "glass.py"),
+                ("init", "gresho_chan.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

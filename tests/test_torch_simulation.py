@@ -1,6 +1,7 @@
 """The port's driver on the CPU: a 5-step Sedov run against the JAX
 package's conserved quantities, the overflow contract (re-size and replay
-from the step's input), the card-by-default device rule, and the CLI."""
+from the step's input), the card-by-default device rule, and the CLI (std
+Sedov and Noh, VE Gresho-Chan)."""
 
 import dataclasses
 
@@ -92,7 +93,7 @@ def test_card_by_default():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.main(["--init", "sedov", "-n", "4", "-s", "1"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        Simulation(*init_sedov(4, device="cpu"), prop="ve", device="cpu")
+        Simulation(*init_sedov(4, device="cpu"), prop="turb-ve", device="cpu")
 
 
 def test_cli_runs_on_cpu(capsys):
@@ -102,6 +103,11 @@ def test_cli_runs_on_cpu(capsys):
     assert app.main(["--init", "noh", "-n", "8", "-s", "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "lists on" in out
-    for argv in (["--init", "evrard", "--device", "cpu"], ["--prop", "ve", "--device", "cpu"]):
+    assert app.main(["--init", "gresho-chan", "-n", "20", "-s", "3", "--prop", "ve",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "it     3" in out and "drift=" in out
+    for argv in (["--init", "evrard", "--device", "cpu"],
+                 ["--prop", "turb-ve", "--device", "cpu"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             app.main(argv)
