@@ -41,6 +41,22 @@ Phases, each printed as one JSON line:
    (bound);
 9. the std main path's Simulation on to step 100: list rebuilds, replays
    and the mean and median step time, the rebuilds included;
+10. gravity vs plain: the list compaction (K13) on the JAX package's
+   random cases, exactly; the near field (K12) on Evrard 20, every group;
+   whole gravity solves on the card against the CPU on Evrard 30, in the
+   sort and the bitmask-with-superblocks compactions; std and VE Evrard
+   20 steps with gravity on the card against the CPU;
+11. the Evrard path: VE Evrard side 125 (1,022,790 particles) through
+   Simulation(prop="ve"), self-gravity on: one warm-up and three timed
+   steps, counters reset just before and read just after (K12 once and
+   K13 twice per step attempt, the six VE kernels once each), its host
+   syncs and profile, the tree build at configure and the gravity phases
+   by CUDA events (multipoles, MAC with K13, M2P, the near-field run
+   prologue, K12), the tree's forces against direct summation on 4,096
+   sampled targets, K12 against its plain version on 256 target groups
+   and K13 on the solve's own packed arrays, each kernel's time, its
+   plain version's, its bound and (K13) the time of torch.sort of the
+   same rows;
 
 then the {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -128,6 +144,23 @@ TPU_KERNEL = {
 }
 SOURCE = {op: "sphexa_torch/csrc/pair_lists.cu" if op == "mark" or op.endswith("_lists")
           else "sphexa_torch/csrc/pair_engine.cu" for op in TPU_KERNEL}
+# the gravity kernels
+TPU_KERNEL.update({"gravity_p2p": "sphexa_tpu/gravity/traversal.py:454",
+                   "compact_class_lists": "sphexa_tpu/gravity/pallas_compact.py:155"})
+SOURCE.update({"gravity_p2p": "sphexa_torch/csrc/pair_engine.cu",
+               "compact_class_lists": "sphexa_torch/csrc/gravity_compact.cu"})
+# K12 (the near-field function, traversal.py pair_body), per candidate
+# pair: the mask without a cutoff (3 subtractions, d^2 5, the self
+# compare) = 9; the body: h_i + h_j, its square, two max, rsqrt, w 3, four
+# products 4, four float32 accumulations 4 = 16. The engine's 3 adds of a
+# run shift, zero on an open box, are the port's, not the function's.
+GRAV_MASK_OPS = 9
+GRAV_BODY_OPS = 16
+# K13 per packed slot: the class shift, two compares, two ballots, the
+# rank (and, popc, two adds), the cap compare and the value mask = 10
+# integer operations, at the INT32 rate (half the FP32 rate)
+COMPACT_OPS = 10
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
 
 
 def emit(obj) -> None:
@@ -580,11 +613,11 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
     for bit: the same sorted state) and both freeze the same order."""
     import torch
 
-    from sphexa_torch.init import init_gresho_chan, init_sedov
+    from sphexa_torch.init import init_evrard, init_gresho_chan, init_sedov
     from sphexa_torch.simulation import Simulation
     from sphexa_torch.sph.pair_engine import engine_fold
 
-    init = {"sedov": init_sedov, "gresho-chan": init_gresho_chan}[case]
+    init = {"sedov": init_sedov, "gresho-chan": init_gresho_chan, "evrard": init_evrard}[case]
     rtol = 1e-4 if prop == "std" else 2e-4
     kw = {"cell_target": cell_target, "use_lists": use_lists, "prop": prop}
     gpu = Simulation(*init(side, device="cuda"), device="cuda", **kw)
@@ -596,6 +629,10 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
         for k in ("nc_max", "nc_sum", "occupancy", "use_lists"):
             if dg[k] != dc[k]:
                 raise AssertionError(f"side {side} step {it}: {k} {dg[k]} vs cpu {dc[k]}")
+        # with gravity, egrav within the near field's relative tolerance
+        if gpu.gravity_on and abs(dg["egrav"] - dc["egrav"]) > 1e-4 * abs(dc["egrav"]):
+            raise AssertionError(f"side {side} step {it}: egrav {dg['egrav']} vs cpu "
+                                 f"{dc['egrav']}")
         for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "du", "alpha"):
             a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
             scale = float(b.abs().max())
@@ -609,7 +646,111 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
             "n": gpu.state.n, "cell_target": cell_target, "use_lists": use_lists,
             "fold": fold, "rebuilds": [gpu.rebuilds, cpu.rebuilds],
             "steps": steps, "max_abs_err_over_scale": worst,
-            "energy_drift_gpu": gpu.energy_drift, "energy_drift_cpu": cpu.energy_drift}
+            "energy_drift_gpu": gpu.energy_drift, "energy_drift_cpu": cpu.energy_drift,
+            **({"m2p_max": [dg["m2p_max"], dc["m2p_max"]],
+                "p2p_max": [dg["p2p_max"], dc["p2p_max"]]} if gpu.gravity_on else {})}
+
+
+def gravity_checks() -> dict:
+    """K13 and K12 against their plain versions and whole gravity solves
+    on the card against the CPU (sphexa_torch/kernels/checks.py, shared
+    with tests/test_torch_gpu.py)."""
+    from sphexa_torch.kernels import checks
+
+    out = {"phase": "gravity_vs_plain", "compact": checks.compact_random_cases("cuda")}
+    sim, ss, box, keys = checks.gravity_case(20, "cuda")
+    g, meta = sim.cfg.gravity, sim.cfg.grav_meta
+    runs, _ = checks.near_field_runs(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree, meta, g)
+    out["p2p_evrard20"] = checks.p2p_vs_plain("Evrard 20", ss.x, ss.y, ss.z, ss.m, ss.h, g,
+                                              runs)
+    sim, ss, box, keys = checks.gravity_case(30, "cuda")
+    g, meta = sim.cfg.gravity, sim.cfg.grav_meta
+    if g.compaction != "sort":
+        raise AssertionError(f"Evrard 30: expected the sort compaction, got {g.compaction}")
+    out["solves_evrard30"] = {
+        mode: checks.gravity_vs_cpu(f"Evrard 30 {mode}", ss.x, ss.y, ss.z, ss.m, ss.h, keys,
+                                    box, sim.gtree, meta, cfg)
+        for mode, cfg in (("sort", g),
+                          ("bitmask_sf8", dataclasses.replace(
+                              g, compaction="bitmask", super_factor=8,
+                              super_cap=meta.num_nodes)))}
+    return out
+
+
+def gravity_bounds(runs, n: int, group: int, packed) -> dict:
+    """Least device time of K12 (this solve's candidate pairs x the mask
+    and body operations; each i-field, j-field and output once, the run
+    tables) and of K13's two launches in one solve (the packed words read
+    once, the lists and counts written once; integer operations)."""
+    import torch
+
+    cand = int(runs.lens.to(torch.int64).sum()) * group
+    ng, w3 = runs.starts.shape
+    k12 = {**_bound(cand * (GRAV_MASK_OPS + GRAV_BODY_OPS),
+                    4 * n * (4 + 5 + 4) + 4 * (5 * ng * w3 + ng)),
+           "cand_pairs": cand}
+    slots = sum(int(p.numel()) for p, _, _ in packed)
+    nbytes = 4 * slots + sum(4 * p.shape[0] * (c0 + c1 + 2) for p, c0, c1 in packed)
+    t_ops, t_bytes = slots * COMPACT_OPS / PEAK_INT32_OPS, nbytes / PEAK_HBM_BYTES
+    k13 = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ops": slots * COMPACT_OPS, "bytes": nbytes, "slots": slots,
+           "shapes": [list(p.shape) + [c0, c1] for p, c0, c1 in packed]}
+    return {"gravity_p2p": k12, "compact_class_lists": k13}
+
+
+def gravity_phase_times(sim, reps: int = 3) -> dict:
+    """One gravity solve on the path's current sorted state, its phases
+    timed by CUDA events (median of ``reps`` solves): multipoles, MAC with
+    the K13 compactions, M2P, the near-field run prologue, K12."""
+    import torch
+
+    from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.propagator import _force_stage_prologue
+
+    ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    cfg = dataclasses.replace(sim.cfg.gravity, G=sim.const.g)
+    runs, out = [], None
+    for _ in range(reps):
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        mark("start")
+        out = gt.compute_gravity(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree,
+                                 sim.cfg.grav_meta, cfg, timer=mark)
+        torch.cuda.synchronize()
+        runs.append({marks[i][0]: marks[i - 1][1].elapsed_time(marks[i][1])
+                     for i in range(1, len(marks))})
+    ms = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    return {"ms": ms, "solve_ms": sum(ms.values())}, (ss, box, keys, cfg, out)
+
+
+def gravity_accuracy(ss, cfg, out, samples: int = 4096) -> dict:
+    """The tree's accelerations against direct summation over all sources
+    for ``samples`` targets drawn from a seeded generator, held to
+    tests/test_gravity.py's theta-0.5 bounds: rms relative error < 0.01,
+    99th percentile < 0.05."""
+    import torch
+
+    from sphexa_torch.gravity.direct import direct_gravity
+
+    n = ss.x.shape[0]
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(125))[:samples]
+    idx = idx.to(ss.x.device)
+    dax, day, daz, _ = direct_gravity(ss.x, ss.y, ss.z, ss.m, ss.h, G=cfg.G, targets=idx)
+    ax, ay, az = (a[idx] for a in out[:3])
+    err = torch.sqrt((ax - dax) ** 2 + (ay - day) ** 2 + (az - daz) ** 2)
+    rel = err / torch.clamp_min(torch.sqrt(dax * dax + day * day + daz * daz), 1e-6)
+    rms = float(torch.sqrt(torch.mean(rel * rel)))
+    p99 = float(torch.quantile(rel, 0.99))
+    if not (rms < 0.01 and p99 < 0.05):
+        raise AssertionError(f"tree vs direct: rms {rms}, 99th percentile {p99}")
+    return {"samples": samples, "rms_rel_err": rms, "p99_rel_err": p99,
+            "max_rel_err": float(rel.max())}
 
 
 def count_syncs(sim) -> dict:
@@ -991,6 +1132,85 @@ def main() -> int:
           "step_ms_max": max(ms), "energy_drift": drift,
           "list_slot_cap": sim.cfg.list_slot_cap, "reconfigures": sim.reconfigures})
 
+    # 10. gravity: K13 and K12 vs plain, solves and steps card vs CPU
+    emit(gravity_checks())
+    for prop in ("std", "ve"):
+        emit(slice_vs_cpu(20, None, steps=2, use_lists=False, prop=prop, case="evrard"))
+
+    # 11. the Evrard path: VE Evrard side 125 with self-gravity
+    from sphexa_torch.gravity import pallas_compact as pcmp
+    from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.init import init_evrard
+    from sphexa_torch.kernels import checks
+
+    state, box, const = init_evrard(125, device="cuda")
+    evr = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda"), steps=3,
+                label="evrard_path")
+    esim, ea = evr["sim"], evr["launches"]
+    on_path = ("density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
+               "momentum_energy_ve", "gravity_p2p")
+    off_path = ("iad_divv_curlv_lists", "av_switches_lists", "momentum_energy_ve_lists",
+                "momentum_energy_std", "momentum_energy_std_lists", "mark")
+    if not (all(ea[k] == evr["attempts"] for k in on_path)
+            and ea["compact_class_lists"] == 2 * evr["attempts"]
+            and all(ea[k] == 0 for k in off_path) and esim.lists is None):
+        raise AssertionError(f"Evrard launches {ea} in {evr['attempts']} step attempts")
+    gkeys = ("m2p_max", "p2p_max", "leaf_occ", "c_max", "compact_width", "mac_work_ratio",
+             "egrav")
+    evr["report"].update({
+        "gravity": dataclasses.asdict(esim.cfg.gravity),
+        "tree": {"leaves": esim.cfg.grav_meta.num_leaves,
+                 "nodes": esim.cfg.grav_meta.num_nodes},
+        "tree_build_configure_s": esim.grav_configure_seconds,
+        "gravity_diags": [{k: d[k] for k in gkeys} for d in evr["diags"]],
+        "dt_limiter": [d["dt_limiter"] for d in evr["diags"]],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit(evr["report"])
+    syncs = count_syncs(esim)
+    if syncs["per_step"] != 1:
+        raise AssertionError(f"Evrard path: {syncs['per_step']} host syncs per step")
+    emit({**syncs, "path": "evrard"})
+    emit({**profile_steps(esim, 2, evr["step_ms_median"]), "path": "evrard"})
+    gphases, (ess, ebox, ekeys, egcfg, eout) = gravity_phase_times(esim)
+    emit({"phase": "gravity_phases", **gphases,
+          "tree_build_configure_s": esim.grav_configure_seconds})
+    emit({"phase": "gravity_accuracy", **gravity_accuracy(ess, egcfg, eout)})
+
+    # K12 and K13 at the path's shapes: vs plain, times, bounds
+    eruns, ecls = checks.near_field_runs(ess.x, ess.y, ess.z, ess.m, ekeys, ebox, esim.gtree,
+                                         esim.cfg.grav_meta, egcfg, keep_packed=True)
+    packed = ecls["packed"]
+    if len(packed) != 2:
+        raise AssertionError(f"Evrard 125: {len(packed)} compactions, expected 2")
+    groups = torch.linspace(0, eruns.num_groups - 1, 256, device="cuda").round().long()
+    gres = {
+        "gravity_p2p": checks.p2p_vs_plain("Evrard 125", ess.x, ess.y, ess.z, ess.m, ess.h,
+                                           egcfg, eruns, groups=groups),
+        "compact_class_lists": {"checks": [
+            checks.compact_vs_plain(f"Evrard 125 compaction {i}", *pk)
+            for i, pk in enumerate(packed)]}}
+    z3 = torch.zeros(3, device="cuda")
+    p2p_args = (ess.x, ess.y, ess.z, ess.m, ess.h, z3, False, egcfg, eruns)
+    gres["gravity_p2p"]["ms"] = cuda_time_ms(lambda: gt._pallas_p2p(*p2p_args), reps=7)
+    gres["gravity_p2p"]["plain_ms"] = cuda_time_ms(lambda: gt._pallas_p2p_plain(*p2p_args),
+                                                   reps=1)
+    gres["gravity_p2p"]["library_ms"] = None
+    cres = gres["compact_class_lists"]
+    cres["max_abs_err"] = max(c["max_abs_err"] for c in cres["checks"])
+    cres["ms"] = cuda_time_ms(lambda: [pcmp.compact_class_lists(*pk) for pk in packed],
+                              reps=7)
+    cres["plain_ms"] = cuda_time_ms(
+        lambda: [pcmp.compact_class_lists_plain(*pk) for pk in packed], reps=2)
+    # the one PyTorch call that computes the same lists: the packed rows
+    # sorted (candidate order is ascending node index), sliced at the caps
+    cres["library_ms"] = cuda_time_ms(lambda: [torch.sort(pk[0], dim=1) for pk in packed],
+                                      reps=7)
+    gbnd = gravity_bounds(eruns, ess.x.shape[0], egcfg.target_block, packed)
+    emit({"phase": "gravity_kernels", "side": 125, "n": ess.x.shape[0], "results": gres,
+          "bounds": gbnd, "runs_per_group_mean": float(eruns.ncells.float().mean()),
+          "p2p_n_mean": float(ecls["p2p_n"].float().mean()),
+          "m2p_n_mean": float(ecls["m2p_n"].float().mean())})
+
     # each entry point with the launches of the path that runs it and its
     # numbers at that path's side-100 state: std density, IAD, the list
     # walk and the mark pass on the std main path (list mode), the
@@ -1014,6 +1234,16 @@ def main() -> int:
             "max_abs_err": r[op]["max_abs_err"], "ms": r[op]["ms"],
             "plain_ms": r[op]["plain_ms"], "bound_ms": b[op]["bound_ms"],
             "bound_by": b[op]["bound_by"], "library_ms": None,
+        })
+    # the gravity kernels on the Evrard path: K12's times per launch, K13's
+    # per solve (its two launches, pre-pass and blocks)
+    for op in ("gravity_p2p", "compact_class_lists"):
+        kernels.append({
+            "name": op, "route": "cuda", "source": SOURCE[op], "replaces": TPU_KERNEL[op],
+            "launches": ea[op], "max_abs_err": gres[op]["max_abs_err"],
+            "ms": gres[op]["ms"], "plain_ms": gres[op]["plain_ms"],
+            "bound_ms": gbnd[op]["bound_ms"], "bound_by": gbnd[op]["bound_by"],
+            "library_ms": gres[op]["library_ms"],
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

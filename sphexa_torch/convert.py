@@ -2,8 +2,10 @@
 
 ``state_from_numpy`` builds the port's (ParticleState, Box, SimConstants)
 from the fields of the JAX package's counterparts handed over as numpy
-arrays and plain values; ``state_to_numpy`` goes back. Neither imports
-the JAX package: the caller flattens its objects into dicts.
+arrays and plain values; ``state_to_numpy`` goes back; ``tree_from_numpy``
+builds the port's gravity tree from the JAX package's GravityTree arrays,
+so that both packages can solve on one tree. None imports the JAX
+package: the caller flattens its objects into dicts.
 """
 
 import dataclasses
@@ -12,6 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.sfc.box import BoundaryType, Box
 from sphexa_torch.sph.particles import (
     PARTICLE_FIELDS, SCALAR_FIELDS, ParticleState, SimConstants,
@@ -43,3 +46,19 @@ def state_to_numpy(state: ParticleState, box: Box, const: SimConstants
     b = {"lo": box.lo.cpu().numpy(), "hi": box.hi.cpu().numpy(),
          "boundaries": [int(v) for v in box.boundaries]}
     return fields, b, dataclasses.asdict(const)
+
+
+def tree_from_numpy(arrays: Dict, meta: Dict, device) -> Tuple[GravityTree, GravityTreeMeta]:
+    """``arrays``: every GravityTree field name -> numpy array (the index
+    fields of any integer type, widened to int64); ``meta``: num_leaves,
+    num_nodes and level_ranges."""
+    def to(name):
+        a = np.asarray(arrays[name])
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int64)
+        return torch.as_tensor(a.copy(), device=device)
+
+    tree = GravityTree(**{f.name: to(f.name) for f in dataclasses.fields(GravityTree)})
+    m = GravityTreeMeta(num_leaves=int(meta["num_leaves"]), num_nodes=int(meta["num_nodes"]),
+                        level_ranges=tuple((int(a), int(b)) for a, b in meta["level_ranges"]))
+    return tree, m

@@ -2,10 +2,13 @@
 //
 // Replaces the TPU kernel group_pair_engine (sphexa_tpu/sph/pallas_pairs.py,
 // its pallas_call in the streaming form) in its std-SPH instantiations
-// pallas_density, pallas_iad and pallas_momentum_energy_std and its VE
+// pallas_density, pallas_iad and pallas_momentum_energy_std, its VE
 // instantiations pallas_ve_def_gradh, pallas_iad_divv_curlv,
 // pallas_av_switches and pallas_momentum_energy_ve (pallas_xmass is
-// m / rho0 over pallas_density). In list mode density, IAD, grad-h and the
+// m / rho0 over pallas_density), and the gravity near field
+// (sphexa_tpu/gravity/traversal.py _pallas_p2p: no distance cutoff, groups
+// of target_block targets over their block's near-leaf runs). In list
+// mode density, IAD, grad-h and the
 // plain divv/curlv run this kernel on the persistent lists' pruned runs
 // (the TPU kernel's skip_slots form, whose per-chunk gate every pruned
 // chunk passes); the momentum ops, the AV switches and divv/curlv with
@@ -36,6 +39,10 @@
 // all accumulators in registers; the chunk-AABB skip of the TPU kernel's
 // momentum op (_op_aabb / chunk_skip) is left out, since it changes no
 // result (a culled chunk holds no pair within 2h).
+//
+// The gravity near field (GravityP2POp, CUTOFF false) is the exception to
+// the mask-bound picture: its body runs on every candidate of its runs, so
+// the body and the j-field staging are its cost.
 //
 // Exactness. Neighbour counts must match the plain version bit for bit, so
 // the separation and d^2 of the mask use __fadd_rn/__fsub_rn/__fmul_rn
@@ -77,6 +84,7 @@ __global__ void __launch_bounds__(256) pair_engine(const EngineArgs p) {
     const float ly = FOLD ? p.boxl[1] : 0.0f;
     const float lz = FOLD ? p.boxl[2] : 0.0f;
     const int sym = p.sym_j;
+    const bool self_ok = !Op::CUTOFF && p.allow_self != 0;
 
     float acc[Op::NACC];
 #pragma unroll
@@ -113,8 +121,13 @@ __global__ void __launch_bounds__(256) pair_engine(const EngineArgs p) {
                 }
                 const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
                                            __fmul_rn(rz, rz));
-                bool mask = d2 < h4 && s + base + k != tgt;
-                if (sym >= 0) mask = mask && __fmul_rn(d2, sj[sym][k]) < 4.0f;
+                bool mask;
+                if constexpr (Op::CUTOFF) {
+                    mask = d2 < h4 && s + base + k != tgt;
+                    if (sym >= 0) mask = mask && __fmul_rn(d2, sj[sym][k]) < 4.0f;
+                } else {
+                    mask = self_ok || s + base + k != tgt;
+                }
                 if (mask) {
                     Op::template pair<TILE>(I, sj, k, rx, ry, rz, d2, acc, p);
                     ++nc;
@@ -177,10 +190,14 @@ int launch_momentum_energy_ve(const EngineArgs* a, void* stream) {
                       : launch<MomentumEnergyVeOp<false>>(a, stream);
 }
 
+int launch_gravity_p2p(const EngineArgs* a, void* stream) {
+    return launch<GravityP2POp>(a, stream);
+}
+
 const char* pair_engine_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int pair_engine_abi_version() { return 4; }
+int pair_engine_abi_version() { return ABI_VERSION; }
 
 }  // extern "C"

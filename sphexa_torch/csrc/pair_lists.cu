@@ -201,6 +201,7 @@ __device__ __forceinline__ void consume(const float (*sj)[RING], const int* sidx
 
 template <class Op>
 __global__ void __launch_bounds__(256) list_walk(const EngineArgs p) {
+    static_assert(Op::CUTOFF, "the list walk runs the SPH ops, which all cut off at 2 h_i");
     __shared__ float sj[Op::NJ][RING];
     __shared__ int sidx[RING];
     const int g = blockIdx.x;

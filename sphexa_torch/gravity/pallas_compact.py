@@ -1,0 +1,75 @@
+"""The list compaction of the gravity MAC classification
+(sphexa_tpu/gravity/pallas_compact.py): per row of a packed int32 array
+``(cls << IDX_BITS) | value``, the class-0 and class-1 values in candidate
+order, truncated at fixed caps, with the unclipped true counts.
+
+``compact_class_lists`` launches the CUDA kernel of
+csrc/gravity_compact.cu for a CUDA tensor (one block per row, warp ballots
+and popcounts rank the lanes) and runs ``compact_class_lists_plain`` for
+a CPU tensor; the plain version ranks each class by a cumulative sum."""
+
+import torch
+
+from sphexa_torch.sph.pair_engine import LAUNCHES
+
+IDX_BITS = 24
+IDX_MASK = (1 << IDX_BITS) - 1
+# padding slots: class 2 = pruned/dead, value 0
+DEAD = 2 << IDX_BITS
+
+
+def _check(packed: torch.Tensor, cap0: int, cap1: int) -> None:
+    if packed.dtype != torch.int32 or packed.dim() != 2 or not packed.is_contiguous():
+        raise ValueError(f"packed: need a contiguous 2-D int32 tensor, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if cap0 < 1 or cap1 < 1:
+        raise ValueError(f"caps must be positive, got {cap0}, {cap1}")
+
+
+def compact_class_lists(packed: torch.Tensor, cap0: int, cap1: int):
+    """Compact each row's class-0 and class-1 slots into fixed-cap lists.
+    Returns ``(list0 (B, cap0), n0 (B,), list1 (B, cap1), n1 (B,))``, all
+    int32: values in candidate order, slots past a count 0, counts
+    unclipped (a list whose count passes its cap keeps its first entries)."""
+    _check(packed, cap0, cap1)
+    dev = packed.device
+    if dev.type == "cpu":
+        return compact_class_lists_plain(packed, cap0, cap1)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from sphexa_torch.kernels.build import load_library
+
+    B, C = packed.shape
+    list0 = torch.empty(B, cap0, dtype=torch.int32, device=dev)
+    list1 = torch.empty(B, cap1, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, 2, dtype=torch.int32, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.launch_compact_class_lists(
+            packed.data_ptr(), B, C, cap0, cap1, list0.data_ptr(), list1.data_ptr(),
+            counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"launch_compact_class_lists failed: CUDA error {err} "
+                           f"({lib.pair_engine_error_string(err).decode()})")
+    LAUNCHES["compact_class_lists"] += 1
+    return list0, counts[:, 0], list1, counts[:, 1]
+
+
+def compact_class_lists_plain(packed: torch.Tensor, cap0: int, cap1: int):
+    """Plain PyTorch version on any device: a value's slot is its rank in
+    its class, the cumulative count of that class before it."""
+    _check(packed, cap0, cap1)
+    cls = packed >> IDX_BITS
+    val = packed & IDX_MASK
+    out = []
+    for k, cap in ((0, cap0), (1, cap1)):
+        hit = cls == k
+        rank = torch.cumsum(hit, dim=1) - 1
+        keep = hit & (rank < cap)
+        # every slot that is not kept lands in column ``cap``, cut off below
+        pos = torch.where(keep, rank, cap)
+        lst = torch.zeros(packed.shape[0], cap + 1, dtype=torch.int32, device=packed.device)
+        lst.scatter_(1, pos, torch.where(keep, val, 0))
+        out += [lst[:, :cap].contiguous(), hit.sum(dim=1, dtype=torch.int32)]
+    return tuple(out)

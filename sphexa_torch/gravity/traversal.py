@@ -1,0 +1,638 @@
+"""Traversal-free Barnes-Hut gravity (sphexa_tpu/gravity/traversal.py):
+every target block evaluates a monotone vector MAC against the tree's
+nodes at once and classifies each node; the M2P set (accepted, parent not
+accepted) and the P2P set (leaves not accepted) are compacted into
+fixed-cap lists.
+
+Two compactions, as in the JAX package: "sort" (each block's packed
+3-class key sorted over all nodes; below 500k particles) and "bitmask"
+(the class of every candidate packed with its node index and compacted by
+``pallas_compact.compact_class_lists``, the K13 kernel), optionally
+two-level: a superblock of ``super_factor`` blocks keeps its open set and
+accepted cut (the pre-pass, itself a compaction), and its blocks classify
+against that list only.
+
+The far field is plain PyTorch (``multipole.m2p``, chunked over blocks so
+its temporaries stay a few GB); the near field streams each block's
+near-leaf rows through the pair engine with the gravity body and no
+distance cutoff (``_pallas_p2p``, the K12 kernel on the card). Every shape
+follows from the caps, so a solve reads nothing back to the host; the
+diagnostics report the high-water marks that the caller checks against
+the caps (an overflow re-sizes and replays the step).
+
+Not ported: spherical multipoles (multipole_order > 0), the sort
+compaction with superblocks, the LET essential set and sharded solves,
+and Ewald replicas.
+"""
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sphexa_torch.gravity import multipole as mp
+from sphexa_torch.gravity import pallas_compact as pcmp
+from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
+from sphexa_torch.sfc.box import Box
+from sphexa_torch.sph import pair_engine as pe
+
+#: elements of one (blocks, targets or candidates, nodes) temporary per
+#: chunk of the classification and the M2P evaluation
+CHUNK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 25}
+
+#: opening angle of the MAC (the JAX package's default)
+THETA = 0.5
+#: leaf capacity target of the tree build (the JAX package's bucket_size)
+GRAV_BUCKET = 64
+#: margin of the sampled m2p cap (M2P cost is linear in it)
+M2P_CAP_MARGIN = 1.3
+
+
+@dataclasses.dataclass(frozen=True)
+class GravityConfig:
+    """Static gravity-solver configuration (the JAX GravityConfig's fields
+    that the port reads; the near field always runs on the pair engine)."""
+
+    target_block: int = 64  # particles per MAC target group
+    m2p_cap: int = 512  # max accepted multipoles per target block
+    p2p_cap: int = 48  # max near-field leaves per target block
+    leaf_cap: int = 128  # max particles per near-field leaf
+    G: float = 1.0
+    # blocks per superblock of the two-level classification (0 = one level)
+    super_factor: int = 0
+    super_cap: int = 1024  # max candidates of a superblock's list
+    # "sort" (packed 3-class sort) or "bitmask" (the compaction kernel)
+    compaction: str = "sort"
+
+
+def gravity_tuning(n: int) -> dict:
+    """Scale-dependent solver shape, as the JAX package's gravity_tuning
+    with its engine near field: coarser blocks and the two-level bitmask
+    compaction from 500k particles."""
+    big = n >= 500_000
+    return {"target_block": 256 if big else 64,
+            "super_factor": 8 if big else 0,
+            "compaction": "bitmask" if big else "sort"}
+
+
+def _block_bboxes(x, y, z, blk: int):
+    """Per-target-block bounding boxes, (nb, 3) min and (nb, 3) max; the
+    tail block is padded with the last row."""
+    idx = _block_rows(x.shape[0], blk)
+    xs, ys, zs = x[idx], y[idx], z[idx]
+    bmin = torch.stack([xs.amin(1), ys.amin(1), zs.amin(1)], dim=1)
+    bmax = torch.stack([xs.amax(1), ys.amax(1), zs.amax(1)], dim=1)
+    return bmin, bmax
+
+
+def _block_rows(n: int, blk: int, nb: Optional[int] = None, device=None) -> torch.Tensor:
+    """(nb, blk) particle rows of the target blocks; rows past the last
+    particle repeat it (min(idx, n - 1))."""
+    nb = -(-n // blk) if nb is None else nb
+    idx = torch.arange(nb * blk, device=device)
+    return torch.clamp(idx, max=n - 1).reshape(nb, blk)
+
+
+def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
+                          meta: GravityTreeMeta, cfg: GravityConfig,
+                          sample_blocks: int = 256, margin: float = 1.5,
+                          quantum: int = 32, multipoles=None) -> GravityConfig:
+    """Size the interaction-list caps from the current distribution: the
+    MAC classification of a sample of target blocks (numpy generator
+    seed 0, as the JAX package samples) in host numpy, padded maxima.
+    Only O(tree) and O(N / target_block) arrays reach the host. The
+    overflow diagnostics of ``compute_gravity`` stay the guard.
+    ``multipoles``: a precomputed ``compute_multipoles`` result."""
+    if multipoles is None:
+        multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta)
+    node_mass, node_com, _, edges = multipoles
+    n = x.shape[0]
+    blk = cfg.target_block
+    nb = -(-n // blk)
+    bmin, bmax = (a.cpu().numpy() for a in _block_bboxes(x, y, z, blk))
+    nm, com, edges, parent, is_leaf, lengths, lo, center_frac, halfsize_frac = (
+        a.cpu().numpy() for a in (node_mass, node_com, edges, tree.parent, tree.is_leaf,
+                                  box.lengths, box.lo, tree.center_frac,
+                                  tree.halfsize_frac))
+    valid = nm > 0.0
+    counts = np.diff(edges)
+
+    lo = np.asarray(lo, dtype=np.float64)
+    geo_center = lo[None, :] + np.asarray(center_frac) * lengths[None, :]
+    geo_size = np.asarray(halfsize_frac)[:, None] * lengths[None, :]
+    l_node = 2.0 * geo_size.max(axis=1)
+    s_off = np.linalg.norm(com - geo_center, axis=1)
+    # the monotone MAC radius and subtree com box of compute_gravity
+    smax = np.where(valid, s_off, 0.0)
+    BIG = 1e15
+    com_lo = np.where(valid[:, None], com, BIG)
+    com_hi = np.where(valid[:, None], com, -BIG)
+    for s, e in reversed(meta.level_ranges[1:]):
+        np.maximum.at(smax, parent[s:e], smax[s:e])
+        np.minimum.at(com_lo, parent[s:e], com_lo[s:e])
+        np.maximum.at(com_hi, parent[s:e], com_hi[s:e])
+    ccenter = np.where(valid[:, None], 0.5 * (com_lo + com_hi), BIG)
+    chalf = np.where(valid[:, None], np.maximum(0.5 * (com_hi - com_lo), 0.0), 0.0)
+    mac2 = (l_node / THETA + smax) ** 2
+    self_parent = parent == np.arange(meta.num_nodes)
+
+    rng = np.random.default_rng(0)
+    blocks = (np.arange(nb) if nb <= sample_blocks else
+              np.unique(np.concatenate([[0, nb - 1], rng.integers(0, nb, sample_blocks)])))
+
+    def classify(b0, b1):
+        pmin = bmin[b0:b1].min(axis=0)
+        pmax = bmax[b0:b1].max(axis=0)
+        bc, bs = (pmax + pmin) / 2, (pmax - pmin) / 2
+        d = np.maximum(np.abs(bc[None, :] - ccenter) - bs[None, :] - chalf, 0.0)
+        accept = valid & ~((d * d).sum(axis=1) < mac2)
+        anc = np.where(self_parent, False, accept[parent])
+        return accept, anc
+
+    m2p_max, p2p_max = 1, 1
+    for b in blocks:
+        accept, anc = classify(b, b + 1)
+        m2p_max = max(m2p_max, int((accept & ~anc).sum()))
+        p2p_max = max(p2p_max, int((is_leaf & valid & ~accept).sum()))
+
+    # superblock candidate-list high water: ~anc of the super's bbox
+    c_cap_max = 1
+    if cfg.super_factor > 0:
+        nsb = -(-n // (cfg.super_factor * blk))
+        supers = (np.arange(nsb) if nsb <= sample_blocks else
+                  np.unique(np.concatenate([[0, nsb - 1],
+                                            rng.integers(0, nsb, sample_blocks)])))
+        for b in supers:
+            _, anc = classify(b * cfg.super_factor, min((b + 1) * cfg.super_factor, nb))
+            c_cap_max = max(c_cap_max, int((~anc).sum()))
+
+    def pad(v, mg=margin):
+        return int(np.ceil(v * mg / quantum) * quantum)
+
+    leaf_cap = pad(int(counts.max()) if len(counts) else 1)
+    # the m2p cap's own margin, scaled so that Simulation's overflow
+    # margin growth still reaches any true high water
+    m2p_margin = M2P_CAP_MARGIN * margin / 1.5
+    return dataclasses.replace(
+        cfg,
+        m2p_cap=min(pad(m2p_max, m2p_margin), meta.num_nodes),
+        p2p_cap=min(pad(p2p_max), meta.num_leaves),
+        leaf_cap=leaf_cap,
+        super_cap=(min(pad(c_cap_max), meta.num_nodes) if cfg.super_factor > 0
+                   else cfg.super_cap))
+
+
+def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: GravityTreeMeta):
+    """Masses, centres of mass and quadrupoles of every node
+    (computeLeafMultipoles + upsweepMultipoles): leaf sums over the
+    contiguous leaf rows, then a level-by-level upsweep, deepest first,
+    each level's rows added into their parents (``index_add_``) with the
+    M2M shift for the quadrupoles. Returns (node_mass (N,), node_com (N,
+    3), node_q (N, 7), edges (L+1,) int64 leaf row boundaries)."""
+    n = x.shape[0]
+    edges = torch.searchsorted(sorted_keys, tree.leaf_keys)
+    pleaf = _pleaf_from_edges(edges, n)
+    w = torch.stack([m, m * x, m * y, m * z], dim=1)
+    leaf_w = mp.edge_segment_sum(w, edges)  # (L, 4)
+    node_mass, node_com = _upsweep_mass_com(leaf_w, tree, meta)
+    leaf_com = node_com[tree.node_of_leaf]
+    leaf_q = mp.p2m_leaf(x, y, z, m, pleaf, leaf_com, edges)
+    node_q = _upsweep_quadrupoles(leaf_q, node_mass, node_com, tree, meta)
+    return node_mass, node_com, node_q, edges
+
+
+def _pleaf_from_edges(edges: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) particle -> leaf map from the sorted leaf start rows: the
+    cumulative count of starts (an empty leaf advances it twice)."""
+    mark = torch.zeros(n + 1, dtype=torch.int64, device=edges.device)
+    mark.index_add_(0, edges, torch.ones_like(edges))
+    return torch.cumsum(mark, 0)[:n] - 1
+
+
+def _upsweep_mass_com(leaf_w, tree: GravityTree, meta: GravityTreeMeta):
+    node_w = torch.zeros(meta.num_nodes, 4, dtype=leaf_w.dtype, device=leaf_w.device)
+    node_w[tree.node_of_leaf] = leaf_w
+    for s, e in reversed(meta.level_ranges[1:]):
+        # the level's rows are read before their parents are written
+        node_w.index_add_(0, tree.parent[s:e], node_w[s:e].clone())
+    node_mass = node_w[:, 0]
+    node_com = node_w[:, 1:4] / torch.clamp_min(node_mass, 1e-30)[:, None]
+    return node_mass, node_com
+
+
+def _upsweep_quadrupoles(leaf_q, node_mass, node_com, tree: GravityTree,
+                         meta: GravityTreeMeta):
+    node_q = torch.zeros(meta.num_nodes, 7, dtype=leaf_q.dtype, device=leaf_q.device)
+    node_q[tree.node_of_leaf] = leaf_q
+    for s, e in reversed(meta.level_ranges[1:]):
+        par = tree.parent[s:e]
+        d = node_com[par] - node_com[s:e]
+        node_q.index_add_(0, par, mp.m2m_shift(node_q[s:e], node_mass[s:e], d))
+    return node_q
+
+
+def _monotone_mac_geometry(box: Box, tree: GravityTree, meta: GravityTreeMeta,
+                           node_com, valid):
+    """Monotone vector-MAC geometry: the acceptance radius l / THETA plus
+    the subtree max of |com - geometric centre|, measured from a target
+    bbox to the node's subtree-com box. Child boxes nest and the radius
+    does not grow down the tree, so accept(parent) implies accept(child)
+    and the first accepted ancestor is the parent. Returns (ccenter (N,
+    3), chalf (N, 3), mac2 (N,)); the sums of squares are written out in
+    the JAX package's order, so that no node flips at the boundary."""
+    lengths = box.lengths
+    geo_center = box.lo[None, :] + tree.center_frac * lengths[None, :]
+    geo_size = tree.halfsize_frac[:, None] * lengths[None, :]
+    l_node = 2.0 * geo_size.amax(dim=1)
+    d = node_com - geo_center
+    s_off = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+    # an empty node's com is (0, 0, 0): its s_off must not grow any radius
+    smax = torch.where(valid, s_off, 0.0)
+    BIG = 1e15  # "infinitely far"; its square stays finite in float32
+    com_lo = torch.where(valid[:, None], node_com, BIG)
+    com_hi = torch.where(valid[:, None], node_com, -BIG)
+    for s, e in reversed(meta.level_ranges[1:]):
+        par = tree.parent[s:e]
+        par3 = par[:, None].expand(-1, 3)
+        smax.scatter_reduce_(0, par, smax[s:e].clone(), "amax")
+        com_lo.scatter_reduce_(0, par3, com_lo[s:e].clone(), "amin")
+        com_hi.scatter_reduce_(0, par3, com_hi[s:e].clone(), "amax")
+    ccenter = torch.where(valid[:, None], 0.5 * (com_lo + com_hi), BIG)
+    chalf = torch.where(valid[:, None], torch.clamp_min(0.5 * (com_hi - com_lo), 0.0), 0.0)
+    a = l_node / THETA + smax
+    return ccenter, chalf, a * a
+
+
+def _bbox(tx, ty, tz):
+    """Centre and half size (..., 3) of each row's targets (..., blk)."""
+    mx = [a.amax(-1) for a in (tx, ty, tz)]
+    mn = [a.amin(-1) for a in (tx, ty, tz)]
+    bc = torch.stack([(a + b) * 0.5 for a, b in zip(mx, mn)], dim=-1)
+    bs = torch.stack([(a - b) * 0.5 for a, b in zip(mx, mn)], dim=-1)
+    return bc, bs
+
+
+def _accept(bc, bs, gc, gs, m2):
+    """Box-to-box distance against the monotone MAC radius, broadcast over
+    the leading dimensions; (d0 d0 + d1 d1) + d2 d2 in the JAX order."""
+    d = [torch.clamp_min(torch.abs(bc[..., k] - gc[..., k]) - bs[..., k] - gs[..., k], 0.0)
+         for k in range(3)]
+    return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2] >= m2
+
+
+class _Geo:
+    """Per-candidate MAC arrays of one node list: its own subtree-com box
+    and radius, its parent's, and the masks (parent may have accepted,
+    leaf, valid, listed) with the node index."""
+
+    FIELDS = ("cc", "ch", "m2", "pc", "ph", "pm2", "aok", "lfk", "vld", "ok", "idx")
+
+    def __init__(self, **kw):
+        for k in self.FIELDS:
+            setattr(self, k, kw[k])
+
+    def gather(self, cidx, ok) -> "_Geo":
+        """The arrays of the nodes ``cidx`` (a candidate list, past its
+        count masked by ``ok``), gathered once per list."""
+        ci = torch.clamp(cidx, max=self.idx.shape[0] - 1).to(torch.int64)
+        return _Geo(cc=self.cc[ci], ch=self.ch[ci], m2=self.m2[ci], pc=self.pc[ci],
+                    ph=self.ph[ci], pm2=self.pm2[ci], aok=self.aok[ci] & ok,
+                    lfk=self.lfk[ci] & ok, vld=self.vld[ci] & ok, ok=ok,
+                    idx=ci.to(torch.int32))
+
+    def unsqueeze(self, dim: int) -> "_Geo":
+        return _Geo(**{k: getattr(self, k).unsqueeze(dim) for k in self.FIELDS})
+
+
+def _packed_cls(bc, bs, g: _Geo):
+    """Each candidate's class (0 M2P, 1 P2P, 2 pruned) packed over its
+    node index for the compaction; ``anc`` re-evaluates the MAC on the
+    parent's own arrays (accept(parent), the first accepted ancestor)."""
+    acc = g.vld & _accept(bc, bs, g.cc, g.ch, g.m2)
+    anc = g.aok & _accept(bc, bs, g.pc, g.ph, g.pm2)
+    cls = torch.where(acc & ~anc, 0, torch.where(g.lfk & ~acc, 1, 2)).to(torch.int32)
+    return (cls << pcmp.IDX_BITS) | g.idx
+
+
+def _packed_cand(bc, bs, g: _Geo):
+    """Superblock pre-pass class: 0 where the parent is not accepted (the
+    open set and the accepted cut, ancestor-closed), else 2."""
+    anc = g.aok & _accept(bc, bs, g.pc, g.ph, g.pm2)
+    cls = torch.where(g.ok & ~anc, 0, 2).to(torch.int32)
+    return (cls << pcmp.IDX_BITS) | g.idx
+
+
+def _chunks(total: int, per_item: int, dev: torch.device):
+    """(start, stop) ranges of items whose per_item-element temporaries
+    fit the chunk budget of the device."""
+    step = max(1, CHUNK_ELEMS[dev.type] // max(per_item, 1))
+    return [(a, min(a + step, total)) for a in range(0, total, step)]
+
+
+def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
+                      packed_out: Optional[list] = None):
+    """Both lists of every block through the compaction kernel; with
+    ``super_factor`` > 0 the superblock pre-pass first (one compaction),
+    then each block against its superblock's list (one compaction).
+    Returns (m2p list, m2p count, p2p list, p2p count, c_max); each
+    compaction's (packed array, cap0, cap1) is appended to ``packed_out``."""
+    keep = packed_out.append if packed_out is not None else (lambda _item: None)
+    dev = x.device
+    num_n = meta.num_nodes
+    blk, sf = cfg.target_block, cfg.super_factor
+    nb = bc.shape[0]
+    if sf == 0:
+        packed = torch.empty(nb, num_n, dtype=torch.int32, device=dev)
+        for b0, b1 in _chunks(nb, num_n, dev):
+            packed[b0:b1] = _packed_cls(bc[b0:b1, None], bs[b0:b1, None], geo)
+        keep((packed, cfg.m2p_cap, cfg.p2p_cap))
+        om, mn, op, pn = pcmp.compact_class_lists(packed, cfg.m2p_cap, cfg.p2p_cap)
+        return om, mn, op, pn, None
+
+    scap = min(cfg.super_cap, num_n)
+    sblk = sf * blk
+    num_super = -(-n // sblk)
+    sidx = _block_rows(n, sblk, device=dev)
+    sbc, sbs = _bbox(x[sidx], y[sidx], z[sidx])
+    pre = torch.empty(num_super, num_n, dtype=torch.int32, device=dev)
+    for s0, s1 in _chunks(num_super, num_n, dev):
+        pre[s0:s1] = _packed_cand(sbc[s0:s1, None], sbs[s0:s1, None], geo)
+    keep((pre, scap, 128))
+    scand, scand_n, _, _ = pcmp.compact_class_lists(pre, scap, 128)
+    c_max = scand_n.max()
+
+    # blocks of the last superblock past the particles are points at the
+    # last particle (min(idx, n - 1)); only the real blocks are classified
+    bidx = _block_rows(n, blk, nb=num_super * sf, device=dev)
+    bbc, bbs = _bbox(x[bidx], y[bidx], z[bidx])
+    bbc, bbs = bbc.reshape(num_super, sf, 3), bbs.reshape(num_super, sf, 3)
+    packed = torch.empty(nb, scap, dtype=torch.int32, device=dev)
+    lane = torch.arange(scap, device=dev)
+    for s0, s1 in _chunks(num_super, sf * scap, dev):
+        ok = lane[None, :] < torch.clamp(scand_n[s0:s1], max=scap)[:, None]
+        g = geo.gather(scand[s0:s1], ok).unsqueeze(1)  # (S, 1, scap[, 3])
+        rows = _packed_cls(bbc[s0:s1, :, None], bbs[s0:s1, :, None], g).reshape(-1, scap)
+        b0 = s0 * sf
+        b1 = min(s1 * sf, nb)
+        if b1 > b0:
+            packed[b0:b1] = rows[: b1 - b0]
+    keep((packed, cfg.m2p_cap, cfg.p2p_cap))
+    om, mn, op, pn = pcmp.compact_class_lists(packed, cfg.m2p_cap, cfg.p2p_cap)
+    return om, mn, op, pn, c_max
+
+
+def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_parent):
+    """The 3-class sort compaction of every block against all nodes:
+    accept, the parent's accept as the first accepted ancestor, and one
+    sort of the packed (class, node) keys; the P2P list starts at the M2P
+    count. Returns (m2p list, m2p ok, p2p list, p2p ok, m2p count, p2p
+    count)."""
+    dev = bc.device
+    num_n = meta.num_nodes
+    nb = bc.shape[0]
+    nbits = max(1, int(np.ceil(np.log2(max(num_n, 2)))))
+    iota = torch.arange(num_n, device=dev)
+    padn = max(cfg.m2p_cap, cfg.p2p_cap)
+    width = num_n + padn
+    slot = torch.arange(cfg.p2p_cap, device=dev)
+    leafv = tree.is_leaf & valid
+    outs = [[] for _ in range(6)]
+    for b0, b1 in _chunks(nb, num_n, dev):
+        accept = valid & _accept(bc[b0:b1, None], bs[b0:b1, None], ccenter, chalf, mac2)
+        anc = accept[:, tree.parent] & ~self_parent
+        m2p_mask = accept & ~anc
+        p2p_mask = leafv & ~accept
+        m2p_n = m2p_mask.sum(dim=1)
+        cls = torch.where(m2p_mask, 0, torch.where(p2p_mask, 1, 2))
+        ks = torch.sort((cls << nbits) | iota, dim=1).values
+        order_all = ks & ((1 << nbits) - 1)
+        cls_sorted = ks >> nbits
+        # sentinel pad, so the fixed-cap slices stay in range
+        rows = b1 - b0
+        order_all = torch.cat([order_all, torch.full((rows, padn), num_n - 1, device=dev,
+                                                     dtype=order_all.dtype)], dim=1)
+        cls_sorted = torch.cat([cls_sorted, torch.full((rows, padn), 2, device=dev,
+                                                       dtype=cls_sorted.dtype)], dim=1)
+        # the P2P slice starts at the M2P count (clamped into the array)
+        p_at = torch.clamp(m2p_n, max=width - cfg.p2p_cap)[:, None] + slot[None, :]
+        outs[0].append(torch.clamp(order_all[:, : cfg.m2p_cap], max=num_n - 1))
+        outs[1].append(cls_sorted[:, : cfg.m2p_cap] == 0)
+        outs[2].append(order_all.gather(1, p_at))
+        outs[3].append(cls_sorted.gather(1, p_at) == 1)
+        outs[4].append(m2p_n)
+        outs[5].append(p2p_mask.sum(dim=1))
+    return tuple(torch.cat(o) for o in outs)
+
+
+def _m2p_eval(tx, ty, tz, order_m, m2p_ok, node_packed):
+    """Far field of every block: its M2P list's nodes (one row gather of
+    the packed com, quadrupole and mass) on its targets, in chunks of
+    blocks. Returns (ax, ay, az, phi), each (nb, blk)."""
+    dev = tx.device
+    nb, blk = tx.shape
+    cap = order_m.shape[1]
+    num_n = node_packed.shape[0]
+    outs = [torch.empty(nb, blk, device=dev) for _ in range(4)]
+    for b0, b1 in _chunks(nb, blk * cap, dev):
+        nd = node_packed[torch.clamp(order_m[b0:b1], max=num_n - 1).to(torch.int64)]
+        res = mp.m2p(tx[b0:b1], ty[b0:b1], tz[b0:b1], nd[..., 0:3], nd[..., 3:10],
+                     nd[..., 10], m2p_ok[b0:b1])
+        for o, r in zip(outs, res):
+            o[b0:b1] = r
+    return outs
+
+
+def _p2p_leaf_ranges(order_p, p2p_ok, tree: GravityTree, edges, num_n: int):
+    """Sorted-array row ranges (start, length) of each block's near-field
+    leaves; slots past the list are empty."""
+    lidx = tree.leaf_of_node[torch.clamp(order_p, max=num_n - 1).to(torch.int64)]
+    start = torch.where(p2p_ok, edges[lidx], 0)
+    length = torch.where(p2p_ok, edges[lidx + 1] - edges[lidx], 0)
+    return start, length
+
+
+def p2p_runs(starts, lens, cfg: GravityConfig) -> pe.GroupRanges:
+    """The near-field leaf ranges merged into runs (the port's
+    ``_merge_runs``, the JAX wrapper's call): with gap 0 only, since a
+    bridged gap would stream particles whose mass already arrives by M2P
+    (no distance cutoff masks them), and runs of at most max(leaf_cap,
+    1024) rows."""
+    zero3 = torch.zeros(starts.shape + (3,), dtype=torch.float32, device=starts.device)
+    rs, rl, sh, nruns = pe._merge_runs(starts, lens, lens > 0, zero3,
+                                       max(cfg.leaf_cap, 1024), 0)
+    i32 = torch.int32
+    return pe.GroupRanges(
+        starts=rs.to(i32).contiguous(), lens=rl.to(i32).contiguous(),
+        shift_x=sh[0].contiguous(), shift_y=sh[1].contiguous(), shift_z=sh[2].contiguous(),
+        ncells=nruns.to(i32).contiguous(),
+        occupancy=torch.zeros((), dtype=torch.int64, device=starts.device),
+        boxl=torch.full((3,), 1e30, dtype=torch.float32, device=starts.device))
+
+
+def _gravity_pair(g, I, J, c):
+    """The near-field body (traversal.py pair_body): the distance clamped
+    to h_i + h_j; rx = x_i - x_j, so the acceleration is -sum r w."""
+    h_ij = I[3] + J[4]
+    r2_eff = torch.maximum(g.d2, h_ij * h_ij)
+    inv_r = torch.rsqrt(torch.clamp_min(r2_eff, 1e-30))
+    w = J[3] * inv_r * inv_r * inv_r
+    return -(g.rx * w), -(g.ry * w), -(g.rz * w), -(w * g.d2)
+
+
+#: the near field as a pair-engine op (csrc/pair_ops.cuh GravityP2POp):
+#: i-fields x+sx, y+sy, z+sz, h; j-fields x, y, z, m, h; no distance cutoff
+GRAVITY_P2P = pe.OpSpec("gravity_p2p", 4, 5, 4, _gravity_pair, ("sum",) * 4,
+                        lambda I, accs, nc, c: tuple(accs), want_nc=False, cutoff=False)
+
+#: the engine constants the gravity body leaves unread
+_P2P_CONSTS = {"coeffs": [0.0] * 14, "dcoeffs": [0.0] * 14, "K": 0.0, "k_cour": 0.0,
+               "alphamin": 0.0, "alphamax": 0.0, "decay_c": 0.0, "at_min": 0.0,
+               "at_max": 0.0, "ramp": 0.0}
+
+
+def p2p_fields(x, y, z, m, h, shift):
+    """The near field's i-fields (targets shifted) and j-fields."""
+    return [x + shift[0], y + shift[1], z + shift[2], h], [x, y, z, m, h]
+
+
+def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, ranges):
+    """Near-field P2P of every target over its block's near-leaf runs:
+    the K12 kernel (the pair engine with GravityP2POp) for CUDA tensors,
+    the plain version for CPU tensors. Returns (ax, ay, az, phi), each
+    (n,)."""
+    dev = x.device
+    if dev.type == "cuda":
+        i_f, j_f = p2p_fields(x, y, z, m, h, shift)
+        outs, _ = pe.engine_kernel(GRAVITY_P2P, ranges, i_f, j_f, False, cfg.target_block,
+                                   {**_P2P_CONSTS, "allow_self": allow_self})
+        return tuple(outs)
+    if dev.type == "cpu":
+        return _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, ranges)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, ranges):
+    """Plain PyTorch version of ``_pallas_p2p`` (``engine_plain``) on any
+    device."""
+    i_f, j_f = p2p_fields(x, y, z, m, h, shift)
+    outs, _ = pe.engine_plain(GRAVITY_P2P, ranges, i_f, j_f, False, cfg.target_block,
+                              {**_P2P_CONSTS, "allow_self": allow_self})
+    return tuple(outs)
+
+
+def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
+             cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False):
+    """The MAC classification of every target block from the given
+    multipoles. Returns a dict: ``m2p`` (nb, m2p_cap) node indices with
+    ``m2p_ok``, ``p2p`` (nb, p2p_cap) with ``p2p_ok``, the unclipped
+    counts ``m2p_n`` and ``p2p_n`` (nb,), ``c_max`` (the superblock
+    lists' high water, or None), and the target coordinates ``tx``,
+    ``ty``, ``tz`` (nb, blk); with ``keep_packed`` (bitmask compaction)
+    also ``packed``, the (packed array, cap0, cap1) of each compaction."""
+    n = x.shape[0]
+    dev = x.device
+    num_n = meta.num_nodes
+    if cfg.compaction not in ("sort", "bitmask"):
+        raise ValueError(f"unknown compaction mode {cfg.compaction!r}")
+    if cfg.compaction == "sort" and cfg.super_factor > 0:
+        raise NotImplementedError("the sort compaction with superblocks is not ported")
+    if cfg.compaction == "bitmask" and num_n > (1 << pcmp.IDX_BITS):
+        raise ValueError(f"bitmask compaction packs node indices in {pcmp.IDX_BITS} bits; "
+                         f"{num_n} nodes needs compaction='sort'")
+    valid = node_mass > 0.0
+    ccenter, chalf, mac2 = _monotone_mac_geometry(box, tree, meta, node_com, valid)
+    self_parent = tree.parent == torch.arange(num_n, device=dev)
+    bidx = _block_rows(n, cfg.target_block, device=dev)
+    tx, ty, tz = x[bidx], y[bidx], z[bidx]
+    bc, bs = _bbox(tx, ty, tz)
+    out = {"tx": tx, "ty": ty, "tz": tz}
+    if cfg.compaction == "bitmask":
+        par = tree.parent
+        geo = _Geo(cc=ccenter, ch=chalf, m2=mac2, pc=ccenter[par], ph=chalf[par],
+                   pm2=mac2[par], aok=~self_parent & valid[par], lfk=tree.is_leaf & valid,
+                   vld=valid, ok=torch.ones(num_n, dtype=torch.bool, device=dev),
+                   idx=torch.arange(num_n, dtype=torch.int32, device=dev))
+        packed = [] if keep_packed else None
+        om, mn, op, pn, c_max = _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo,
+                                                  packed)
+        if keep_packed:
+            out["packed"] = packed
+        out.update(m2p=om, m2p_ok=torch.arange(cfg.m2p_cap, device=dev)[None, :] < mn[:, None],
+                   p2p=op, p2p_ok=torch.arange(cfg.p2p_cap, device=dev)[None, :] < pn[:, None],
+                   m2p_n=mn, p2p_n=pn, c_max=c_max)
+    else:
+        om, mok, op, pok, mn, pn = _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf,
+                                                  mac2, valid, self_parent)
+        out.update(m2p=om, m2p_ok=mok, p2p=op, p2p_ok=pok, m2p_n=mn, p2p_n=pn, c_max=None)
+    return out
+
+
+def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
+                    meta: GravityTreeMeta, cfg: GravityConfig, multipoles=None,
+                    timer: Optional[Callable[[str], None]] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                               Dict[str, torch.Tensor]]:
+    """Gravitational acceleration of every (SFC-sorted) particle and the
+    potential energy. Returns (ax, ay, az, egrav, diagnostics): egrav =
+    0.5 G sum m phi (a 0-d tensor); the diagnostics (0-d tensors) are the
+    high-water marks ``m2p_max``, ``p2p_max``, ``leaf_occ`` and ``c_max``
+    (0 on the one-level paths) that the caller holds against the caps,
+    ``compact_width`` (the candidates each block's compaction scans) and
+    ``mac_work_ratio`` (interaction-list entries over MAC evaluations).
+
+    ``multipoles``: a precomputed ``compute_multipoles`` result;
+    ``timer(phase)``: called after each phase ("multipoles", "mac", "m2p",
+    "p2p_prologue", "p2p")."""
+    mark = timer or (lambda _name: None)
+    n = x.shape[0]
+    dev = x.device
+    num_n = meta.num_nodes
+    if multipoles is None:
+        multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta)
+    node_mass, node_com, node_q, edges = multipoles
+    mark("multipoles")
+
+    lists = classify(x, y, z, box, tree, meta, cfg, node_mass, node_com)
+    mark("mac")
+    node_packed = torch.cat([node_com, node_q, node_mass[:, None],
+                             torch.zeros(num_n, 1, dtype=node_com.dtype, device=dev)], dim=1)
+    ax, ay, az, phi = _m2p_eval(lists["tx"], lists["ty"], lists["tz"], lists["m2p"],
+                                lists["m2p_ok"], node_packed)
+    mark("m2p")
+    start, length = _p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, edges, num_n)
+    ranges = p2p_runs(start, length, cfg)
+    mark("p2p_prologue")
+    # an open box: no replica shift, no self pair (Ewald would pass both)
+    pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, torch.zeros(3, dtype=x.dtype, device=dev),
+                                      False, cfg, ranges)
+    mark("p2p")
+
+    def total(far, near):
+        return (far.reshape(-1)[:n] + near) * cfg.G
+
+    ax, ay, az, phi = total(ax, pax), total(ay, pay), total(az, paz), total(phi, pphi)
+    m2p_n, p2p_n = lists["m2p_n"], lists["p2p_n"]
+    nb = m2p_n.shape[0]
+    sf = cfg.super_factor if cfg.compaction == "bitmask" else 0
+    scap = min(cfg.super_cap, num_n)
+    if sf > 0:
+        evals = -(-n // (sf * cfg.target_block)) * num_n + nb * scap
+    else:
+        evals = nb * num_n
+    i32 = torch.int32
+    diagnostics = {
+        "m2p_max": m2p_n.max().to(i32),
+        "p2p_max": p2p_n.max().to(i32),
+        "leaf_occ": (edges[1:] - edges[:-1]).max().to(i32),
+        "c_max": (lists["c_max"].to(i32) if lists["c_max"] is not None
+                  else torch.zeros((), dtype=i32, device=dev)),
+        # a fill, not a copy from the host: a copy would sync the stream
+        "compact_width": torch.full((), scap if sf > 0 else num_n, dtype=i32, device=dev),
+        # XLA folds the division by a constant into a product with its
+        # float32 reciprocal; so does this, to give the JAX package's value
+        "mac_work_ratio": ((m2p_n.sum() + p2p_n.sum()).to(torch.float32)
+                           * float(np.float32(1.0) / np.float32(evals))),
+    }
+    egrav = 0.5 * torch.sum(m * phi)
+    return ax, ay, az, egrav, diagnostics

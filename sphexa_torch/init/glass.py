@@ -1,7 +1,8 @@
 """Particle-lattice helpers for initial conditions (sphexa_tpu/init/
 glass.py, the procedural parts): a lattice with seeded sub-spacing jitter,
-which breaks the grid axes' alignment as a relaxed glass would, and the
-sphere cut. The glass-template tiling of the JAX package is not ported."""
+which breaks the grid axes' alignment as a relaxed glass would, the
+sphere cut and the rho ~ 1/r contraction. The glass-template tiling of
+the JAX package is not ported."""
 
 from typing import Tuple
 
@@ -33,3 +34,10 @@ def cut_sphere(r: float, x, y, z, center=None):
         center = (0.0, 0.0, 0.0)
     keep = (x - center[0]) ** 2 + (y - center[1]) ** 2 + (z - center[2]) ** 2 <= r * r
     return x[keep], y[keep], z[keep]
+
+
+def contract_rho_profile(x, y, z):
+    """Multiply coordinates by sqrt(r): uniform sphere -> rho ~ 1/r
+    profile (evrard_init.hpp contractRhoProfile)."""
+    c = np.sqrt(np.sqrt(x * x + y * y + z * z))
+    return x * c, y * c, z * c

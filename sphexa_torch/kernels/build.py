@@ -41,10 +41,15 @@ _ENTRY_POINTS = {
     "launch_av_switches_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_ve": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_ve_lists": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_gravity_p2p": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_compact_class_lists": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p],
 }
 
-#: layout version of EngineArgs, checked against the library's
-ABI_VERSION = 4
+#: layout version of EngineArgs (csrc/pair_ops.cuh ABI_VERSION), checked
+#: against the library's
+ABI_VERSION = 5
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -5,14 +5,30 @@ share: one contract, stated once, with the JAX package's tolerances.
 kernel, grad-h, EOS, IAD, divv/curlv, AV switches, momentum/energy) on a
 sorted state on the card, each op's wrapper against its plain version on
 the kernel chain's inputs; with ``lists`` the list-mode forms the JAX
-dispatch picks. Any disagreement raises."""
+dispatch picks. ``compact_vs_plain`` and ``compact_random_cases`` hold
+the gravity list compaction (K13) to its plain version exactly,
+``p2p_vs_plain`` the gravity near field (K12) within its summation-order
+tolerance, and ``gravity_vs_cpu`` a whole gravity solve on the card to the
+same solve on the CPU. Any disagreement raises."""
 
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
+from sphexa_torch.gravity import pallas_compact as pcmp
+from sphexa_torch.gravity import traversal as gt
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.hydro_ve import compute_eos_ve
+
+
+#: K12's tolerance, atol over max|.| (rtol 1e-4, the JAX package's): the
+#: near field sums thousands of cancelling float32 terms per target, and
+#: two summation orders (the kernel's sequential loop, the plain version's
+#: atomic adds on the card) differ by up to 6.5e-6 of max|.| (Evrard 125 on
+#: an H100; 3.5e-6 at Evrard 20): three times that, while a wrong body
+#: term moves the sums by far more
+P2P_ATOL = 2e-5
 
 
 def _close(name: str, what: str, a, b, rtol: float, atol: float) -> float:
@@ -79,3 +95,140 @@ def ve_chain_vs_plain(name: str, ss, box, const, nbr, av_clean: bool, keys=None,
     chain = SimpleNamespace(xm=xm, nc=nc, kx=kx, gradh=gradh, prho=prho, c=c, cs=cs,
                             dv=dv, alpha=alpha, gradv=gradv)
     return res, chain
+
+
+def compact_vs_plain(name: str, packed, cap0: int, cap1: int) -> dict:
+    """K13 against its plain version on one packed array: lists and counts
+    equal, element for element."""
+    out = pcmp.compact_class_lists(packed, cap0, cap1)
+    ref = pcmp.compact_class_lists_plain(packed, cap0, cap1)
+    for nm, a, b in zip(("list0", "n0", "list1", "n1"), out, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: compaction {nm} differs at "
+                                 f"{int((a != b).sum())} entries")
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(out, ref))
+    return {"max_abs_err": float(err), "rows": packed.shape[0], "width": packed.shape[1],
+            "caps": [cap0, cap1]}
+
+
+def compact_random_cases(device) -> list:
+    """K13 on the JAX package's random cases (tests/test_pallas_interpret.py
+    test_gravity_compact_kernel_interpret: caps and widths off the multiples
+    of 128, truncation, a row shorter than a tile), against its plain
+    version and the numpy expectation."""
+    rng = np.random.default_rng(7)
+    out = []
+    for B, C, cap0, cap1 in ((4, 1000, 192, 64), (1, 90, 8, 8), (3, 513, 256, 48)):
+        cls = rng.integers(0, 3, size=(B, C))
+        vals = rng.integers(0, 1 << 20, size=(B, C))
+        packed = torch.as_tensor((cls << pcmp.IDX_BITS) | vals, dtype=torch.int32,
+                                 device=device)
+        res = compact_vs_plain(f"compact ({B}, {C})", packed, cap0, cap1)
+        l0, n0, l1, n1 = (a.cpu().numpy() for a in
+                          pcmp.compact_class_lists(packed, cap0, cap1))
+        for b in range(B):
+            for lst, cnt, cap, k in ((l0, n0, cap0, 0), (l1, n1, cap1, 1)):
+                exp = vals[b][cls[b] == k]
+                kept = min(len(exp), cap)
+                if (int(cnt[b]) != len(exp) or not np.array_equal(lst[b][:kept], exp[:kept])
+                        or np.any(lst[b][kept:] != 0)):
+                    raise AssertionError(f"compact ({B}, {C}) row {b} class {k}: "
+                                         "not the expected list")
+        out.append(res)
+    return out
+
+
+def gravity_case(side: int, device):
+    """VE Evrard ``side`` on ``device``: its Simulation (the tree built
+    and the caps sized at construction) and the SFC-sorted state the
+    step's force stage sees. Returns (sim, sorted state, box, sorted
+    keys)."""
+    from sphexa_torch.init import init_evrard
+    from sphexa_torch.propagator import _force_stage_prologue
+    from sphexa_torch.simulation import Simulation
+
+    sim = Simulation(*init_evrard(side, device=device), prop="ve", device=device)
+    ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    return sim, ss, box, keys
+
+
+def near_field_runs(x, y, z, m, keys, box, tree, meta, cfg, keep_packed: bool = False):
+    """The near-field runs of one solve (multipoles, classification, leaf
+    ranges merged), as compute_gravity builds them for K12. Returns
+    (runs, classification); ``keep_packed``: as ``classify``'s."""
+    mps = gt.compute_multipoles(x, y, z, m, keys, tree, meta)
+    lists = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1],
+                        keep_packed=keep_packed)
+    start, length = gt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, mps[3],
+                                        meta.num_nodes)
+    return gt.p2p_runs(start, length, cfg), lists
+
+
+def p2p_vs_plain(name: str, x, y, z, m, h, cfg, ranges, groups=None) -> dict:
+    """K12 against its plain version at rtol 1e-4 and atol ``P2P_ATOL``
+    max|.|; returns the worst error and its ratio to max|.|. ``groups``: compare only these target groups (the plain version runs
+    with the other groups' runs emptied). The open-box solve's call: no
+    target shift, no self pair."""
+    shift = torch.zeros(3, dtype=x.dtype, device=x.device)
+    out = gt._pallas_p2p(x, y, z, m, h, shift, False, cfg, ranges)
+    pranges = ranges
+    rows = torch.arange(x.shape[0], device=x.device)
+    if groups is not None:
+        sel = torch.zeros(ranges.num_groups, dtype=torch.bool, device=x.device)
+        sel[groups] = True
+        pranges = ranges._replace(lens=torch.where(sel[:, None], ranges.lens, 0),
+                                  ncells=torch.where(sel, ranges.ncells, 0))
+        rows = rows[sel[rows // cfg.target_block]]
+    ref = gt._pallas_p2p_plain(x, y, z, m, h, shift, False, cfg, pranges)
+    err, rel = 0.0, 0.0
+    for nm, a, b in zip(("ax", "ay", "az", "phi"), out, ref):
+        a, b = a[rows], b[rows]
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=P2P_ATOL * scale,
+                                   msg=f"{name}: near-field {nm}")
+        err = max(err, float((a - b).abs().max()))
+        rel = max(rel, float((a - b).abs().max()) / scale)
+    return {"max_abs_err": err, "max_abs_err_over_scale": rel, "targets": int(rows.shape[0]),
+            "cand_pairs": int(pranges.lens.to(torch.int64).sum()) * cfg.target_block}
+
+
+def gravity_vs_cpu(name: str, x, y, z, m, h, keys, box, tree, meta, cfg) -> dict:
+    """One gravity solve on the card against the same solve on the CPU
+    (the kernels' plain versions), both from the card's multipoles (the
+    upsweep's scatter-adds sum children in another order on the card):
+    the M2P and P2P lists and their counts equal, the forces within the
+    near field's tolerance (rtol 1e-4, atol ``P2P_ATOL`` max|.|), egrav
+    within rel 1e-4, the integer diagnostics equal."""
+    mps = gt.compute_multipoles(x, y, z, m, keys, tree, meta)
+    cpu = [a.cpu() for a in (x, y, z, m, h, keys)]
+    cbox, ctree = box.to("cpu"), tree.to("cpu")
+    cmps = tuple(a.cpu() for a in mps)
+    lg = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1])
+    lc = gt.classify(*cpu[:3], cbox, ctree, meta, cfg, cmps[0], cmps[1])
+    for k in ("m2p_n", "p2p_n"):
+        if not torch.equal(lg[k].cpu().to(torch.int64), lc[k].to(torch.int64)):
+            raise AssertionError(f"{name}: {k} differs card vs cpu")
+    for k, ok in (("m2p", "m2p_ok"), ("p2p", "p2p_ok")):
+        a = torch.where(lg[ok], lg[k].to(torch.int64), -1).cpu()
+        b = torch.where(lc[ok], lc[k].to(torch.int64), -1)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {k} lists differ card vs cpu at "
+                                 f"{int((a != b).sum())} slots")
+    og = gt.compute_gravity(x, y, z, m, h, keys, box, tree, meta, cfg, multipoles=mps)
+    oc = gt.compute_gravity(*cpu, cbox, ctree, meta, cfg, multipoles=cmps)
+    err = 0.0
+    for nm, a, b in zip(("ax", "ay", "az"), og[:3], oc[:3]):
+        a = a.cpu()
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=P2P_ATOL * scale,
+                                   msg=f"{name}: gravity {nm} card vs cpu")
+        err = max(err, float((a - b).abs().max()) / scale)
+    eg, ec = float(og[3]), float(oc[3])
+    if abs(eg - ec) > 1e-4 * abs(ec):
+        raise AssertionError(f"{name}: egrav {eg} vs cpu {ec}")
+    for k in ("m2p_max", "p2p_max", "leaf_occ", "c_max", "compact_width"):
+        if int(og[4][k]) != int(oc[4][k]):
+            raise AssertionError(f"{name}: {k} {int(og[4][k])} vs cpu {int(oc[4][k])}")
+    return {"max_abs_err_over_scale": err, "egrav_rel_err": abs(eg - ec) / abs(ec),
+            "m2p_max": int(og[4]["m2p_max"]), "p2p_max": int(og[4]["p2p_max"]),
+            "compaction": cfg.compaction, "super_factor": cfg.super_factor}

@@ -1,9 +1,10 @@
 """Conserved quantities (sphexa_tpu/observables/conserved.py): energies
 and linear/angular momentum. Per-particle products are float32 as in the
 JAX package; the sums accumulate in float64 on the device, as the
-reference does with x64 enabled."""
+reference does with x64 enabled. The gravitational energy is the force
+stage's device tensor (0-d), so that adding it reads nothing back."""
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -11,9 +12,11 @@ from sphexa_torch.sph.particles import ParticleState, SimConstants
 
 
 def conserved_quantities(state: ParticleState, const: SimConstants,
-                         egrav: float = 0.0) -> Dict[str, torch.Tensor]:
+                         egrav: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     m = state.m
     f64 = torch.float64
+    egrav = (torch.zeros((), dtype=f64, device=m.device) if egrav is None
+             else egrav.to(f64))
 
     def total(a):
         return torch.sum(a, dtype=f64)
@@ -32,7 +35,7 @@ def conserved_quantities(state: ParticleState, const: SimConstants,
     return {
         "ecin": ekin,
         "eint": eint,
-        "egrav": torch.full((), egrav, dtype=f64, device=m.device),
+        "egrav": egrav,
         "etot": etot,
         "linmom": torch.sqrt(lin[0] ** 2 + lin[1] ** 2 + lin[2] ** 2),
         "angmom": torch.sqrt(ang[0] ** 2 + ang[1] ** 2 + ang[2] ** 2),

@@ -5,13 +5,16 @@ prologue -> the force stage -> timestep -> positions and h update. The
 std force stage is density -> EOS -> IAD -> momentum/energy; the VE one
 (the reference's flagship, ve_hydro.hpp:131-208) is xmass -> grad-h ->
 EOS -> IAD -> divv/curlv -> AV switches -> momentum/energy, all six ops
-on one set of runs. With persistent lists (``lists=``) a steady step
-runs in the order frozen at the last ``rebuild_pair_lists``: no regrow,
-no sort, no prologue; it reports the lists' remaining skin
-(``list_slack``) and whether they still cover its input (``list_ok``).
-PyTorch runs it eagerly; the pair ops launch the CUDA kernels on the card
-and their plain versions on the CPU. Gravity, turbulence stirring and
-block time steps are not ported.
+on one set of runs. With self-gravity (``cfg.gravity``, open boxes) the
+Barnes-Hut accelerations of the sorted particles are added to the hydro
+ones (``_add_gravity``), the acceleration condition joins the time step
+candidates and egrav the diagnostics. With persistent lists (``lists=``,
+not under gravity) a steady step runs in the order frozen at the last
+``rebuild_pair_lists``: no regrow, no sort, no prologue; it reports the
+lists' remaining skin (``list_slack``) and whether they still cover its
+input (``list_ok``). PyTorch runs it eagerly; the pair ops launch the
+CUDA kernels on the card and their plain versions on the CPU.
+Turbulence stirring and block time steps are not ported.
 """
 
 import dataclasses
@@ -20,8 +23,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sphexa_torch.gravity.traversal import GravityConfig, compute_gravity
+from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.neighbors.cell_list import NeighborConfig
-from sphexa_torch.sfc.box import Box, make_global_box
+from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
@@ -30,7 +35,7 @@ from sphexa_torch.sph.hydro_ve import compute_eos_ve
 from sphexa_torch.sph.kernels import update_h
 from sphexa_torch.sph.particles import PARTICLE_FIELDS, ParticleState, SimConstants
 from sphexa_torch.sph.positions import compute_positions
-from sphexa_torch.sph.timestep import compute_timestep, rho_timestep
+from sphexa_torch.sph.timestep import acceleration_timestep, compute_timestep, rho_timestep
 
 #: ``diagnostics["dt_limiter"]`` indexes this tuple
 DT_LIMITERS = ("growth", "courant", "rho", "cool", "accel")
@@ -51,6 +56,10 @@ class PropagatorConfig:
     list_skin_rel: float = 0.2
     # VE: the av_clean velocity-gradient correction of the viscosity
     av_clean: bool = False
+    # self-gravity (const.g != 0): the solver's caps and the tree's static
+    # structure; the tree itself is the steps' ``gtree`` argument
+    gravity: Optional[GravityConfig] = None
+    grav_meta: Optional[GravityTreeMeta] = None
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -99,6 +108,9 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
     mode: nothing moves; the lists' validity for this step's input.
     Returns (state, box, sorted_keys or None, list diagnostics or None)."""
     if lists is not None:
+        if cfg.gravity is not None:
+            raise NotImplementedError("persistent lists compose with gravity-off steps; "
+                                      "gravity runs sort every step")
         slack = list_slack(state.x, state.y, state.z, state.h, lists)
         return state, box, None, {"list_slack": slack,
                                   "list_ok": (slack >= 0.0).to(torch.int32)}
@@ -107,14 +119,40 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
     return state, box, keys, None
 
 
+def _add_gravity(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
+                 gtree: GravityTree, ax, ay, az):
+    """Self-gravity coupling (gravity_wrapper.hpp:97-123): the Barnes-Hut
+    accelerations of the sorted particles added to the hydro ones, on an
+    open box. Returns (ax, ay, az, egrav, dt_acc, gravity diagnostics)."""
+    if any(b == BoundaryType.periodic for b in box.boundaries):
+        raise NotImplementedError("Ewald gravity not ported: self-gravity needs an open box")
+    gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
+    gx, gy, gz, egrav, gdiag = compute_gravity(
+        state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
+    ax, ay, az = ax + gx, ay + gy, az + gz
+    return ax, ay, az, egrav, acceleration_timestep(ax, ay, az, cfg.const), gdiag
+
+
+def _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az, diag):
+    """The force stages' gravity tail: with ``cfg.gravity``, the gravity
+    accelerations added, the acceleration dt candidate and egrav plus the
+    solver diagnostics merged into ``diag``. Returns (ax, ay, az,
+    extra_dts, diag)."""
+    if cfg.gravity is None:
+        return ax, ay, az, (), diag
+    ax, ay, az, egrav, dt_acc, gdiag = _add_gravity(state, box, keys, cfg, gtree, ax, ay, az)
+    return ax, ay, az, (dt_acc,), {**(diag or {}), **gdiag, "egrav": egrav}
+
+
 def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
-                lists: Optional[PairLists] = None):
+                gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
     """The std-SPH force stage: [sort -> prologue ->] density -> EOS -> IAD
-    -> momentum/energy; with ``lists`` the runs are the lists' and the
-    momentum op walks their marked lanes. Returns (state, box, ax, ay, az,
-    du, dt_courant, nc, occ, rho, c, list diagnostics or None)."""
+    -> momentum/energy [-> gravity]; with ``lists`` the runs are the
+    lists' and the momentum op walks their marked lanes. Returns (state,
+    box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c,
+    diagnostics or None)."""
     const = cfg.const
-    state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists)
+    state, box, keys, diag = _force_stage_prologue(state, box, cfg, lists)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
         pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
@@ -127,8 +165,10 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
         x, y, z, state.vx, state.vy, state.vz, h, m, rho, p, c,
         c11, c12, c13, c22, c23, c33, keys, box, const, cfg.nbr, ranges=ranges,
         lists=lists)
-    return (state, box, ax, ay, az, du, dt_courant, nc, ranges.occupancy,
-            rho, c, ldiag)
+    ax, ay, az, extra_dts, diag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
+                                                diag)
+    return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, ranges.occupancy,
+            rho, c, diag)
 
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -170,16 +210,18 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
 
 
 def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                    gtree: Optional[GravityTree] = None,
                     lists: Optional[PairLists] = None):
     """One standard-SPH time step (std_hydro.hpp:123-175 sequence); with
-    ``lists`` a steady list-mode step. Returns (new_state, new_box,
-    diagnostics)."""
-    (state, box, ax, ay, az, du, dt_courant, nc, occ, rho,
-     _c, ldiag) = _std_forces(state, box, cfg, lists)
-    dt = compute_timestep(state.min_dt, dt_courant, const=cfg.const)
-    limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant)
+    ``lists`` a steady list-mode step; ``gtree``: the gravity tree when
+    ``cfg.gravity`` is set. Returns (new_state, new_box, diagnostics)."""
+    (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho,
+     _c, diag) = _std_forces(state, box, cfg, gtree, lists)
+    dt = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=cfg.const)
+    limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant,
+                          accel=extra_dts[0] if extra_dts else None)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ,
-                                 rho, dt_limiter=limiter, extra_diag=ldiag)
+                                 rho, dt_limiter=limiter, extra_diag=diag)
 
 
 def _split_dvout(dvout, av_clean: bool):
@@ -192,13 +234,14 @@ def _split_dvout(dvout, av_clean: bool):
 
 
 def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
-               lists: Optional[PairLists] = None):
+               gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
     """The VE force stage (HydroVeProp::computeForces, ve_hydro.hpp:131-208):
     [sort -> prologue ->] xmass -> grad-h -> EOS -> IAD -> divv/curlv -> AV
-    switches -> momentum/energy, one set of runs (or the lists') for all
-    six ops, then the time step: min of Courant, Krho/|max divv| and 1.1x
-    the previous dt. Returns (state, box, ax, ay, az, du, dt, alpha, nc,
-    occ, rho, diagnostics)."""
+    switches -> momentum/energy [-> gravity], one set of runs (or the
+    lists') for all six ops, then the time step: min of Courant,
+    Krho/|max divv|, 1.1x the previous dt [and the acceleration
+    condition]. Returns (state, box, ax, ay, az, du, dt, alpha, nc, occ,
+    rho, diagnostics)."""
     const, nbr = cfg.const, cfg.nbr
     state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
@@ -220,20 +263,25 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
         x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, keys, box, const, nbr,
         nc=nc, gradv=gradv, **kw)
 
-    dt = compute_timestep(state.min_dt, dt_courant, dt_rho, const=const)
+    ax, ay, az, extra_dts, ldiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
+                                                 ldiag)
+    dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
     diag = {**(ldiag or {}),
-            "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho)}
+            "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
+                                      accel=extra_dts[0] if extra_dts else None)}
     return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, diag
 
 
 def _step_hydro_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                   gtree: Optional[GravityTree] = None,
                    lists: Optional[PairLists] = None):
     """One generalised-volume-element SPH time step (HydroVeProp::step,
     ve_hydro.hpp:210-223): the VE force stage, then positions and the
     smoothing-length update; the new state carries the AV switches'
-    alpha. With ``lists`` a steady list-mode step. Returns (new_state,
-    new_box, diagnostics)."""
+    alpha. With ``lists`` a steady list-mode step; ``gtree``: the gravity
+    tree when ``cfg.gravity`` is set. Returns (new_state, new_box,
+    diagnostics)."""
     (state, box, ax, ay, az, du, dt, alpha, nc, occ, rho,
-     diag) = _ve_forces(state, box, cfg, lists)
+     diag) = _ve_forces(state, box, cfg, gtree, lists)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ, rho,
                                  extra_diag=diag, extra={"alpha": alpha})

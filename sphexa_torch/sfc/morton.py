@@ -17,3 +17,20 @@ def morton_encode(ix, iy, iz, bits: int = 10) -> torch.Tensor:
     """Interleave grid coordinates into 30-bit Morton keys, x most significant."""
     del bits
     return (_spread_bits_3d(ix) << 2) | (_spread_bits_3d(iy) << 1) | _spread_bits_3d(iz)
+
+
+def _compact_bits_3d(v: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_spread_bits_3d`: extract every third bit."""
+    v = v.to(torch.int64) & 0x09249249
+    v = (v | (v >> 2)) & 0x030C30C3
+    v = (v | (v >> 4)) & 0x0300F00F
+    v = (v | (v >> 8)) & 0x030000FF
+    v = (v | (v >> 16)) & 0x000003FF
+    return v
+
+
+def morton_decode(key: torch.Tensor, bits: int = 10):
+    """Recover (ix, iy, iz) grid coordinates from Morton keys."""
+    del bits
+    key = key.to(torch.int64)
+    return _compact_bits_3d(key >> 2), _compact_bits_3d(key >> 1), _compact_bits_3d(key)

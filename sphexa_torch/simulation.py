@@ -1,7 +1,7 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std and VE
-propagators on one card): static neighbour-config sizing, the step loop
-with the overflow contract, the persistent-list lifecycle, and the
-energy-drift diagnostic."""
+propagators on one card): static neighbour-config sizing, the gravity
+tree and its caps, the step loop with the overflow contract, the
+persistent-list lifecycle, and the energy-drift diagnostic."""
 
 import dataclasses
 import time
@@ -12,6 +12,10 @@ import torch
 
 from sphexa_torch.device import resolve_device
 from sphexa_torch.dtypes import KEY_BITS
+from sphexa_torch.gravity.traversal import (
+    GRAV_BUCKET, GravityConfig, estimate_gravity_caps, gravity_tuning,
+)
+from sphexa_torch.gravity.tree import linkage_from_leaves
 from sphexa_torch.neighbors.cell_list import (
     NeighborConfig, choose_grid_level, pad_cap, window_cells,
 )
@@ -19,7 +23,8 @@ from sphexa_torch.observables.conserved import conserved_quantities
 from sphexa_torch.propagator import (
     PropagatorConfig, _step_hydro_std, _step_hydro_ve, rebuild_pair_lists,
 )
-from sphexa_torch.sfc.box import Box
+from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
+from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph.pair_engine import engine_fold
 from sphexa_torch.sph.pair_lists import estimate_slot_cap
@@ -67,6 +72,7 @@ def make_propagator_config(
     use_lists: bool = False,
     list_skin_rel: Optional[float] = None,
     list_slot_margin: float = 1.3,
+    sizing_cache=None,
 ) -> PropagatorConfig:
     """Size the static neighbour config from the current particles, as the
     JAX function does for its pallas backend (the other backends are not
@@ -93,8 +99,11 @@ def make_propagator_config(
     level_occ = max(1, round(np.log2(max(state.n / float(cell_target), 1.0)) / 3.0))
     level = min(level, level_occ)
 
-    keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve).cpu().numpy()
-    order = np.argsort(keys, kind="stable")
+    if sizing_cache is None:
+        keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve).cpu().numpy()
+        order = np.argsort(keys, kind="stable")
+    else:
+        keys, order = (a.cpu().numpy() for a in sizing_cache)
     cap = pad_cap(_max_cell_occupancy(keys[order], level))
     if min_cap > 0:
         cap = max(cap, pad_cap(min_cap))
@@ -147,7 +156,15 @@ class Simulation:
     velocity-gradient correction); the list lifecycle and the overflow
     contract are the same for both. ``device=None`` runs on the CUDA
     device and raises without one; ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels."""
+    PyTorch versions of the kernels.
+
+    Self-gravity is on when ``const.g != 0`` (open boxes only: a periodic
+    box would need Ewald gravity, which is not ported). Each
+    (re)configuration then builds the gravity tree from the particles'
+    keys and sizes its caps, with the JAX package's default opening
+    angle, bucket and cap margin; the steps sort every time (no lists). A step
+    whose interaction lists or leaves outgrow their caps is discarded, the
+    caps re-sized with a 1.5x larger margin, and the step replayed."""
 
     # rebuild proactively below this remaining-skin fraction: the next
     # step would likely expire and be discarded
@@ -159,6 +176,12 @@ class Simulation:
                  list_skin_rel: Optional[float] = None, av_clean: bool = False):
         if prop not in _STEPS:
             raise NotImplementedError(f"--prop {prop!r}: not ported yet")
+        self.gravity_on = const.g != 0.0
+        if self.gravity_on and any(b == BoundaryType.periodic for b in box.boundaries):
+            raise NotImplementedError(
+                "Ewald gravity not ported: self-gravity needs an open box")
+        self._gtree = None
+        self.grav_configure_seconds = 0.0  # the last tree build and cap sizing
         self.av_clean = av_clean
         self._step_fn = _STEPS[prop]
         self.device = resolve_device(device)
@@ -174,7 +197,8 @@ class Simulation:
         self.energy_drift: Optional[float] = None
         self._etot0: Optional[float] = None
         self.last_step_seconds = 0.0
-        self._want_lists = use_lists
+        # the gravity tree is built from fresh keys: gravity steps sort
+        self._want_lists = use_lists and not self.gravity_on
         self._list_skin_rel = list_skin_rel
         self._slot_margin = 1.3
         self._lists = None
@@ -190,14 +214,59 @@ class Simulation:
         the first build)."""
         return self._lists
 
-    def _configure(self, min_cap: int = 0) -> None:
+    def _configure(self, min_cap: int = 0, grav_margin: float = 1.5) -> None:
         self._lists = None  # any re-size invalidates the lists
+        sizing_cache = None
+        if self.gravity_on:
+            # one keygen + stable argsort, shared by the grid sizing and
+            # the tree build; keys against the regrown box (equal to the
+            # box until particles leave it)
+            s = self.state
+            gbox = make_global_box(s.x, s.y, s.z, self.box)
+            keys = compute_sfc_keys(s.x, s.y, s.z, gbox, curve=self.curve)
+            sizing_cache = (keys, torch.argsort(keys, stable=True))
         cfg = make_propagator_config(
             self.state, self.box, self.const, curve=self.curve,
             min_cap=min_cap, cell_target=self.cell_target,
             use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
-            list_slot_margin=self._slot_margin)
+            list_slot_margin=self._slot_margin, sizing_cache=sizing_cache)
         self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean)
+        if self.gravity_on:
+            self._configure_gravity(grav_margin, sizing_cache)
+
+    def _configure_gravity(self, margin: float, keys_cache) -> None:
+        """(Re)build the gravity tree from the particles' keys and size
+        the interaction-list caps (simulation.py _configure_gravity): the
+        leaf array from device histograms (only O(8^level) counts reach
+        the host), the linkage on the host, the caps from a sampled
+        classification; the multipoles of every step follow the tree."""
+        t0 = time.perf_counter()
+        s = self.state
+        keys, order = keys_cache
+        leaf_tree = leaf_array_from_device_keys(keys, bucket_size=GRAV_BUCKET)
+        gtree, meta = linkage_from_leaves(leaf_tree, curve=self.curve, device=self.device)
+        xs, ys, zs, ms = s.x[order], s.y[order], s.z[order], s.m[order]
+        gcfg = estimate_gravity_caps(
+            xs, ys, zs, ms, keys[order], self.box, gtree, meta,
+            GravityConfig(G=self.const.g, **gravity_tuning(s.n)),
+            margin=margin)
+        self._gtree = gtree
+        self._cfg = dataclasses.replace(self._cfg, gravity=gcfg, grav_meta=meta)
+        self.grav_configure_seconds = time.perf_counter() - t0
+
+    @property
+    def gtree(self):
+        """The gravity tree of the current configuration (None without
+        gravity)."""
+        return self._gtree
+
+    def _gravity_overflowed(self, host: Dict[str, float]) -> bool:
+        """An interaction list, a leaf or a superblock list outgrew its cap."""
+        if not self.gravity_on:
+            return False
+        g = self._cfg.gravity
+        return (host["m2p_max"] > g.m2p_cap or host["p2p_max"] > g.p2p_cap
+                or host["leaf_occ"] > g.leaf_cap or host["c_max"] > g.super_cap)
 
     @property
     def _use_lists(self) -> bool:
@@ -230,15 +299,18 @@ class Simulation:
         a list-mode step whose lists no longer cover its input
         (``list_ok`` 0) is discarded and replayed on rebuilt lists. The
         host reads the device once per attempt, after its last kernel: the
-        diagnostics, the conserved sums and the box edge in one copy."""
+        diagnostics, the conserved sums and the box edge in one copy. With
+        gravity a step whose lists or leaves outgrow the caps is discarded
+        too, and the caps re-sized with a 1.5x larger margin."""
         t0 = time.perf_counter()
+        grav_margin = 1.5
         for _attempt in range(4):
             if self._use_lists and self._lists is None:
                 self._rebuild_lists()
             lists = self._lists if self._use_lists else None
             new_state, new_box, diag = self._step_fn(self.state, self.box, self._cfg,
-                                                     lists=lists)
-            cq = conserved_quantities(new_state, self.const)
+                                                     self._gtree, lists=lists)
+            cq = conserved_quantities(new_state, self.const, egrav=diag.get("egrav"))
             named = {**diag, **cq, "min_length": new_box.lengths.min()}
             host = dict(zip(named, torch.stack(
                 [v.to(torch.float64) for v in named.values()]).tolist()))
@@ -249,15 +321,19 @@ class Simulation:
                 self._rebuild_lists()
                 self.replays += 1
                 continue
-            if occ <= cap:
+            grav_over = self._gravity_overflowed(host)
+            if occ <= cap and not grav_over:
                 break
+            if grav_over:
+                grav_margin *= 1.5
             # cap + 1 is the window sentinel, not a real occupancy: a plain
             # re-size grows the window instead of ratcheting the cap
-            self._configure(min_cap=0 if occ == cap + 1 else occ)
+            self._configure(min_cap=0 if occ == cap + 1 or occ <= cap else occ,
+                            grav_margin=grav_margin)
             self.reconfigures += 1
             self.replays += 1
         else:
-            raise RuntimeError("neighbour caps failed to converge in 4 attempts")
+            raise RuntimeError("neighbour/gravity caps failed to converge in 4 attempts")
         self.state, self.box = new_state, new_box
         self.iteration += 1
 

@@ -58,7 +58,7 @@ LAUNCHES: Dict[str, int] = {
     "density": 0, "iad": 0, "momentum_energy_std": 0, "momentum_energy_std_lists": 0,
     "mark": 0, "ve_def_gradh": 0, "iad_divv_curlv": 0, "iad_divv_curlv_lists": 0,
     "av_switches": 0, "av_switches_lists": 0, "momentum_energy_ve": 0,
-    "momentum_energy_ve_lists": 0}
+    "momentum_energy_ve_lists": 0, "gravity_p2p": 0, "compact_class_lists": 0}
 
 #: pair elements per tile of the plain version (bounds its transient
 #: memory: the momentum op keeps ~50 float32 temporaries of a tile)
@@ -301,6 +301,9 @@ class OpSpec:
     sym_j: Optional[int] = None  # j-field index of 1/h_j^2 (min-h cutoff)
     # the kernel's template form behind the entry point (gradv, av_clean)
     variant: int = 0
+    # the SPH support test d^2 < 4 h_i^2 in the mask; without it every
+    # candidate pairs, and the self pair only with consts["allow_self"]
+    cutoff: bool = True
 
 
 def _density_pair(g, I, J, c):
@@ -734,10 +737,13 @@ def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
             ry = yi - (J[1] + sy)
             rz = zi - (J[2] + sz)
         d2 = rx * rx + ry * ry + rz * rz
-        mask = valid[:, None, :] & (d2 < 4.0 * hi * hi)
-        if spec.sym_j is not None:
-            mask = mask & (d2 * J[3] < 4.0)
-        mask = mask & (cand[:, None, :] != tgt_all[sl][:, :, None])
+        not_self = cand[:, None, :] != tgt_all[sl][:, :, None]
+        if spec.cutoff:
+            mask = valid[:, None, :] & (d2 < 4.0 * hi * hi) & not_self
+            if spec.sym_j is not None:
+                mask = mask & (d2 * J[3] < 4.0)
+        else:
+            mask = valid[:, None, :] & (not_self | bool(consts.get("allow_self", False)))
         # the pair math runs on the masked pairs only, in candidate order,
         # and each target's terms are summed (or maxed, from 0) in turn
         gi, ti, ci = mask.nonzero(as_tuple=True)
@@ -774,7 +780,8 @@ _NCOEF = 14
 
 
 class EngineArgs(ctypes.Structure):
-    """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order)."""
+    """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order;
+    its layout version, ABI 5, is kernels.build.ABI_VERSION)."""
 
     _fields_ = [
         ("starts", ctypes.c_void_p),
@@ -809,6 +816,7 @@ class EngineArgs(ctypes.Structure):
         ("ramp", ctypes.c_float),
         ("dt", ctypes.c_void_p),
         ("variant", ctypes.c_int32),
+        ("allow_self", ctypes.c_int32),
     ]
 
 
@@ -893,6 +901,7 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         check_table("dt", consts["dt"], torch.float32, (), dev)
         args.dt = consts["dt"].data_ptr()
     args.variant = spec.variant
+    args.allow_self = int(bool(consts.get("allow_self", False)))
     return args, outs, nc
 
 

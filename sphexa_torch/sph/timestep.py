@@ -1,9 +1,14 @@
-"""Global time-step selection (sphexa_tpu/sph/timestep.py, without the
-acceleration condition of gravity)."""
+"""Global time-step selection (sphexa_tpu/sph/timestep.py)."""
 
 import torch
 
 from sphexa_torch.sph.particles import SimConstants
+
+
+def acceleration_timestep(ax, ay, az, const: SimConstants) -> torch.Tensor:
+    """eta sqrt(eps / |a|_max) (timestep.hpp:46-68), used with gravity."""
+    max_acc = torch.sqrt(torch.max(ax * ax + ay * ay + az * az))
+    return const.eta_acc * torch.sqrt(const.eps / max_acc)
 
 
 def rho_timestep(divv: torch.Tensor, const: SimConstants) -> torch.Tensor:

@@ -13,13 +13,19 @@ list window spans the grid, fold mode). Every Sedov lattice is jittered
 from a seed (``jitter_sedov``) so that every term of each pair body, the
 viscosity and the IAD off-diagonals included, is non-zero. A VE
 list-mode Simulation step on the card is compared with the same step on
-the CPU."""
+the CPU. Gravity: the list compaction (K13) exactly and the near field
+(K12) against their plain versions (sphexa_torch/kernels/checks.py,
+shared with chip_smoke.py), a whole solve on the card against the CPU in
+both compactions (Evrard 30), and a VE Evrard Simulation step."""
+
+import dataclasses
 
 import pytest
 import torch
 
 from sphexa_torch.convert import state_from_numpy, state_to_numpy
 from sphexa_torch.init import init_noh, init_sedov, jitter_sedov
+from sphexa_torch.kernels import checks
 from sphexa_torch.kernels.checks import ve_chain_vs_plain
 from sphexa_torch.propagator import _force_stage_prologue, rebuild_pair_lists
 from sphexa_torch.sfc.keys import compute_sfc_keys
@@ -213,6 +219,59 @@ def test_ve_simulation_step_matches_cpu():
     assert gpu.lists is not None and dg["use_lists"] == dc["use_lists"] == 1.0
     for k in ("nc_max", "nc_sum", "occupancy"):
         assert dg[k] == dc[k], k
+    for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "alpha"):
+        a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-6 * float(b.abs().max()))
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def test_gravity_compact_matches_plain():
+    _need_card()
+    pe.reset_launches()
+    checks.compact_random_cases("cuda")
+    assert pe.LAUNCHES["compact_class_lists"] == 6
+
+
+def test_gravity_near_field_matches_plain():
+    _need_card()
+    sim, ss, box, keys = checks.gravity_case(20, "cuda")
+    runs, _ = checks.near_field_runs(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                     sim.cfg.grav_meta, sim.cfg.gravity)
+    pe.reset_launches()
+    checks.p2p_vs_plain("Evrard 20", ss.x, ss.y, ss.z, ss.m, ss.h, sim.cfg.gravity, runs)
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "gravity_p2p": 1}
+
+
+@pytest.mark.parametrize("compaction", ["sort", "bitmask_sf8"])
+def test_gravity_solve_matches_cpu(compaction):
+    _need_card()
+    sim, ss, box, keys = checks.gravity_case(30, "cuda")
+    cfg = sim.cfg.gravity
+    if compaction == "bitmask_sf8":
+        cfg = dataclasses.replace(cfg, compaction="bitmask", super_factor=8,
+                                  super_cap=sim.cfg.grav_meta.num_nodes)
+    checks.gravity_vs_cpu(f"Evrard 30 {compaction}", ss.x, ss.y, ss.z, ss.m, ss.h, keys, box,
+                          sim.gtree, sim.cfg.grav_meta, cfg)
+
+
+def test_ve_evrard_step_matches_cpu():
+    """One VE Evrard 20 Simulation step with gravity on the card against
+    the same step on the CPU, from the same input."""
+    _need_card()
+    from sphexa_torch.init import init_evrard
+
+    cpu = Simulation(*init_evrard(20, device="cpu"), prop="ve", device="cpu")
+    gpu = Simulation(*init_evrard(20, device="cpu"), prop="ve", device="cuda")
+    pe.reset_launches()
+    dc, dg = cpu.step(), gpu.step()
+    for k in ("nc_max", "nc_sum", "occupancy"):
+        assert dg[k] == dc[k], k
+    assert dg["egrav"] == pytest.approx(dc["egrav"], rel=1e-4)
+    assert pe.LAUNCHES["gravity_p2p"] == 1
     for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "alpha"):
         a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
         torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-6 * float(b.abs().max()))

@@ -37,7 +37,10 @@ def test_port_sources_found():
     assert "chip_smoke.py" in names
     for mod in (("sph", "pair_engine.py"), ("sph", "pair_lists.py"),
                 ("sph", "hydro_ve.py"), ("init", "noh.py"), ("init", "glass.py"),
-                ("init", "gresho_chan.py")):
+                ("init", "gresho_chan.py"), ("init", "evrard.py"),
+                ("gravity", "traversal.py"), ("gravity", "pallas_compact.py"),
+                ("gravity", "multipole.py"), ("gravity", "tree.py"), ("gravity", "direct.py"),
+                ("parallel", "sizing.py"), ("tree", "csarray.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

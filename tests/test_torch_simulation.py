@@ -107,7 +107,11 @@ def test_cli_runs_on_cpu(capsys):
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "it     3" in out and "drift=" in out
-    for argv in (["--init", "evrard", "--device", "cpu"],
+    assert app.main(["--init", "evrard", "-n", "12", "-s", "2", "--prop", "ve",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "it     2" in out and "egrav=-" in out and "lists off" in out
+    for argv in (["--init", "plummer", "--device", "cpu"],
                  ["--prop", "turb-ve", "--device", "cpu"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             app.main(argv)
