@@ -15,15 +15,18 @@ Phases, each printed as one JSON line:
    whole steps on the card against the same steps on the CPU, std and VE,
    streaming and in list mode, and VE Gresho-Chan side 30 (a fold-mode
    grid: it streams);
-4. lists vs plain: the mark pass and the list walk against their plain
-   versions, list mode against the streaming kernels with fresh runs, and
-   the VE ops' list forms against their plain versions, on the jittered
-   Sedov side 30 and Noh 16 (open box) states;
+4. lists vs plain: the mark pass and the list walk of every SPH op
+   (density, IAD, grad-h, both forms of divv/curlv, the AV switches, both
+   momentum ops) against their plain versions, and list mode against the
+   streaming kernels with fresh runs, on the jittered Sedov side 30 and
+   Noh 16 (open box) states;
 5. std main path: Sedov 100^3 (10^6 particles) through
    Simulation(prop="std") on the card, which runs persistent neighbour
    lists: one warm-up step (the first list build) and ten timed steps,
    with the launch counters reset just before the Simulation is made and
-   read just after; then one step with torch's CUDA sync debug mode on,
+   read just after (in list mode every SPH op launches the list walk once
+   per step attempt and the streaming engine never); then one step with
+   torch's CUDA sync debug mode on,
    to count the host syncs per step and where they come from, two more
    steps under torch.profiler for the device time per step and the device
    busy share, and the time of one list rebuild;
@@ -36,9 +39,12 @@ Phases, each printed as one JSON line:
    leaves out: streaming (use_lists=False) and av_clean in list mode, one
    warm-up and three timed steps each;
 8. kernels vs plain again at the paths' shapes (the evolved side-100
-   states of phases 5-7), with each kernel's time, its plain version's
-   time, the sort/prologue times and each kernel's least possible time
-   (bound);
+   states of phases 5-7), with each kernel's time (the list walk in the
+   mask mode its path runs it in, and running its own mask), its plain
+   version's time, the sort/prologue times and each kernel's least
+   possible time (bound; for the list walk also the bound of the
+   streaming engine over the lists' pruned runs, list mode's form before
+   the walk carried every op);
 9. the std main path's Simulation on to step 100: list rebuilds, replays
    and the mean and median step time, the rebuilds included;
 10. gravity vs plain: the list compaction (K13) on the JAX package's
@@ -58,8 +64,12 @@ Phases, each printed as one JSON line:
    plain version's, its bound and (K13) the time of torch.sort of the
    same rows;
 
-then the {"kernels": [...]} line, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Any failed check raises, so the
+then the engines line (every instantiation of the streaming engine K1 and
+the list walk K6: registers, spills, shared memory, resident warps per
+SM, and on the side-100 states its times and the body-pass efficiency of
+the union rule against per-lane windows), the
+{"kernels": [...]} line, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
 without the rest of the repository beside it, it fails the same way.
 """
@@ -81,11 +91,18 @@ PEAK_HBM_BYTES = 3.35e12
 
 # FP32 operations per candidate pair for the mask (3 shift adds, 3
 # subtractions, 3 multiplies, 2 adds, the 2h compare, the self compare;
-# the symmetric cutoff adds a multiply and a compare) and per neighbour
+# the symmetric cutoff, tested on the pairs the mask kept, a multiply and
+# a compare per neighbour pair) and per neighbour
 # pair for the op's body (an FMA counts 2; the kernel polynomial is 13
-# FMAs + 4 for its argument, clamp and floor = 30)
+# FMAs + 4 for its argument, clamp and floor = 30). The list walk adds
+# each candidate's shift once, where it stages it (SHIFT_OPS per marked
+# lane), and a walk that reads a kept mask computes the separation and
+# d^2 only of the pairs the mask kept (GEOM_OPS: 3 subtractions, 3
+# multiplies, 2 adds)
 MASK_OPS = 12
 SYM_OPS = 2
+SHIFT_OPS = 3
+GEOM_OPS = 8
 # The VE bodies, counted the same way from csrc/pair_ops.cuh (an rsqrt,
 # sqrt or expf counts 1; the dterh polynomial 29, as W's without its
 # floor; each IAD projection (C r) w is 18), the operations every pair
@@ -113,11 +130,16 @@ BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96,
 BRANCH_OPS = {"ramp": 9, "crossed": 1, "limiter": 5}
 # ops with the symmetric cutoff d^2 < 4 h_j^2 in their mask
 SYM_BODIES = ("momentum_energy_std", "momentum_energy_ve", "momentum_energy_ve_clean")
-# an entry point's body where it is not the entry point's own name
-BODY_OF = {"momentum_energy_std_lists": "momentum_energy_std",
-           "av_switches_lists": "av_switches",
-           "momentum_energy_ve_lists": "momentum_energy_ve",
-           "iad_divv_curlv_lists": "iad_divv_curlv_gradv"}
+# an entry point's body: its name without the list walk's suffix, and the
+# av_clean forms of divv/curlv and VE momentum where the path runs them
+AV_CLEAN_BODY = {"iad_divv_curlv": "iad_divv_curlv_gradv",
+                 "momentum_energy_ve": "momentum_energy_ve_clean"}
+
+
+def body_of(op: str, av_clean: bool = False) -> str:
+    body = op[:-len("_lists")] if op.endswith("_lists") else op
+    return AV_CLEAN_BODY.get(body, body) if av_clean else body
+
 # FP32 operations per lane of the mark pass (2 run-bound compares, 3 shift
 # adds, 6 bbox compares)
 MARK_OPS = 11
@@ -128,13 +150,20 @@ IO_ARRAYS = {"density": (6, 2), "iad": (6, 6), "momentum_energy_std": (21, 5),
              "ve_def_gradh": (7, 2), "iad_divv_curlv": (16, 2),
              "iad_divv_curlv_gradv": (16, 8), "av_switches": (19, 1),
              "momentum_energy_ve": (24, 5), "momentum_energy_ve_clean": (31, 5)}
+# the TPU kernel each entry point replaces: the op's wrapper (whose
+# pallas_call runs K1, sph/pallas_pairs.py:816, or in list mode the list
+# walk K6, :1080, or for density, IAD, grad-h and plain divv/curlv K1's
+# skip_slots form over the pruned runs)
 TPU_KERNEL = {
     "density": "sphexa_tpu/sph/pallas_pairs.py:1121",
+    "density_lists": "sphexa_tpu/sph/pallas_pairs.py:1121",
     "iad": "sphexa_tpu/sph/pallas_pairs.py:1185",
+    "iad_lists": "sphexa_tpu/sph/pallas_pairs.py:1185",
     "momentum_energy_std": "sphexa_tpu/sph/pallas_pairs.py:1275",
     "momentum_energy_std_lists": "sphexa_tpu/sph/pallas_pairs.py:1080",
     "mark": "sphexa_tpu/sph/pair_lists.py:231",
     "ve_def_gradh": "sphexa_tpu/sph/pallas_pairs.py:1435",
+    "ve_def_gradh_lists": "sphexa_tpu/sph/pallas_pairs.py:1435",
     "iad_divv_curlv": "sphexa_tpu/sph/pallas_pairs.py:1507",
     "iad_divv_curlv_lists": "sphexa_tpu/sph/pallas_pairs.py:1602",
     "av_switches": "sphexa_tpu/sph/pallas_pairs.py:1632",
@@ -144,6 +173,10 @@ TPU_KERNEL = {
 }
 SOURCE = {op: "sphexa_torch/csrc/pair_lists.cu" if op == "mark" or op.endswith("_lists")
           else "sphexa_torch/csrc/pair_engine.cu" for op in TPU_KERNEL}
+# windows (candidates) at which the body-pass counter compares per-lane
+# windows with the union rule; the engines are built for one
+# (csrc/engine_window.cuh WINDOW, 256)
+PASS_WINDOWS = (128, 256, 512)
 # the gravity kernels
 TPU_KERNEL.update({"gravity_p2p": "sphexa_tpu/gravity/traversal.py:454",
                    "compact_class_lists": "sphexa_tpu/gravity/pallas_compact.py:155"})
@@ -183,6 +216,25 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_time_batched_ms(fn, n: int = 20) -> float:
+    """Mean device time of fn over ``n`` calls back to back between two
+    CUDA events (after one warm-up call): the host's per-call work overlaps
+    the previous call's kernels, so this is the kernel's own time where the
+    single-call median of ``cuda_time_ms`` also counts the wrapper's
+    host-side argument building."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def sorted_case(side: int, cell_target=None, state=None, cfg=None):
@@ -287,11 +339,7 @@ def compare_ops(name, ss, box, const, cfg, keys, ranges, timing=False):
         fold = pe.engine_fold(box, nbr)
         consts = pe.op_consts(const)
         for op, spec in specs.items():
-            i_f, j_f = fields[op]
-            res[op]["ms"] = cuda_time_ms(lambda: pe.engine_kernel(
-                spec, ranges, i_f, j_f, fold, nbr.group, consts), reps=7)
-            res[op]["plain_ms"] = cuda_time_ms(lambda: pe.engine_plain(
-                spec, ranges, i_f, j_f, fold, nbr.group, consts), reps=2)
+            res[op].update(time_k1(spec, ranges, *fields[op], fold, nbr.group, consts))
         res["momentum_energy_std"]["pairs"] = momentum_pair_counts(
             specs["momentum_energy_std"], fields["momentum_energy_std"], consts, nbr.group,
             runs=ranges, fold=fold)
@@ -302,8 +350,8 @@ def compare_ve(name, ss, box, const, nbr, av_clean, keys=None, ranges=None, list
                timing=False):
     """The VE ops' kernels against their plain versions on the kernel
     chain's inputs (``sphexa_torch.kernels.checks.ve_chain_vs_plain``, the
-    JAX package's streaming tolerances); with ``lists`` the list-mode forms
-    the JAX dispatch picks. Returns per-entry-point results (keys as in
+    JAX package's streaming tolerances); with ``lists`` the list walk for
+    every op. Returns per-entry-point results (keys as in
     LAUNCHES, "xmass" for the density kernel's VE use); with ``timing``
     also each engine call's device time and its plain version's, and the
     momentum op's pair counts (``momentum_pair_counts``)."""
@@ -317,36 +365,32 @@ def compare_ve(name, ss, box, const, nbr, av_clean, keys=None, ranges=None, list
         x, y, z, h, m, vel = ss.x, ss.y, ss.z, ss.h, ss.m, (ss.vx, ss.vy, ss.vz)
         walk = lists is not None
         consts, group = pe.op_consts(const), nbr.group
-        runs = lists.ranges if walk else ranges
+        runs = None if walk else ranges
         fold = not walk and pe.engine_fold(box, nbr)
 
-        def engine(spec, fields, on_lists, cst=consts):
-            if on_lists:
-                return (lambda: pe.engine_lists_kernel(spec, lists, *fields, group, cst),
-                        lambda: pe.engine_lists_plain(spec, lists, *fields, group, cst))
-            return (lambda: pe.engine_kernel(spec, runs, *fields, fold, group, cst),
-                    lambda: pe.engine_plain(spec, runs, *fields, fold, group, cst))
+        def engine(spec, fields, cst=consts):
+            if walk:
+                return lambda: time_walk(spec, lists, *fields, group, cst)
+            return lambda: time_k1(spec, runs, *fields, fold, group, cst)
 
-        dkey = "iad_divv_curlv_lists" if walk and av_clean else "iad_divv_curlv"
-        akey = "av_switches_lists" if walk else "av_switches"
-        mkey = "momentum_energy_ve_lists" if walk else "momentum_energy_ve"
+        sfx = "_lists" if walk else ""
+        mkey = "momentum_energy_ve" + sfx
         mspec = pe.momentum_ve_spec(const, av_clean)
         mfields = pe.momentum_ve_fields(x, y, z, *vel, h, m, ch.prho, ch.c, ch.kx, ch.xm,
                                         ch.alpha, *ch.cs, nc=ch.nc, gradv=ch.gradv)
         calls = {
-            "ve_def_gradh": engine(pe.VE_DEF_GRADH, pe.ve_def_gradh_fields(x, y, z, h, m, ch.xm),
-                                   False),
-            dkey: engine(pe.IAD_DIVV_CURLV_GRADV if av_clean else pe.IAD_DIVV_CURLV,
-                         pe.divv_curlv_fields(x, y, z, *vel, h, ch.kx, ch.xm, *ch.cs, const),
-                         walk and av_clean),
-            akey: engine(pe.AV_SWITCHES, pe.av_switches_fields(
+            "ve_def_gradh" + sfx: engine(pe.VE_DEF_GRADH,
+                                         pe.ve_def_gradh_fields(x, y, z, h, m, ch.xm)),
+            "iad_divv_curlv" + sfx: engine(
+                pe.IAD_DIVV_CURLV_GRADV if av_clean else pe.IAD_DIVV_CURLV,
+                pe.divv_curlv_fields(x, y, z, *vel, h, ch.kx, ch.xm, *ch.cs, const)),
+            "av_switches" + sfx: engine(pe.AV_SWITCHES, pe.av_switches_fields(
                 x, y, z, *vel, h, ch.c, ch.kx, ch.xm, ch.dv[0], ss.alpha, *ch.cs, const),
-                walk, {**consts, "dt": ss.min_dt}),
-            mkey: engine(mspec, mfields, walk),
+                {**consts, "dt": ss.min_dt}),
+            mkey: engine(mspec, mfields),
         }
-        for op, (kern, plain) in calls.items():
-            res[op]["ms"] = cuda_time_ms(kern, reps=7)
-            res[op]["plain_ms"] = cuda_time_ms(plain, reps=2)
+        for op, timed in calls.items():
+            res[op].update(timed())
         res[mkey]["pairs"] = momentum_pair_counts(mspec, mfields, consts, group, runs=runs,
                                                   fold=fold, lists=lists)
     return res
@@ -412,8 +456,11 @@ def body_ops(op: str, body: str, nb_pairs: int, pairs=None) -> int:
 def bounds(ranges, n: int, group: int, nb_pairs: int,
            ops=("density", "iad", "momentum_energy_std"), pairs=None):
     """Least device time of each streaming-engine op from this run's
-    candidate and neighbour pair counts (operations; ``pairs``: each
-    momentum op's counts, by op) and its input/output bytes."""
+    candidate and neighbour pair counts (operations: the mask per candidate
+    pair, the symmetric cutoff per neighbour pair where the op has one, the
+    body; ``pairs``: each momentum op's counts, by op) and its input/output
+    bytes. Given the lists' pruned runs, the bound of K1 over them (list
+    mode's form before the walk carried every op)."""
     import torch
 
     cand_pairs = int(ranges.lens.to(torch.int64).sum()) * group
@@ -421,11 +468,12 @@ def bounds(ranges, n: int, group: int, nb_pairs: int,
     table_bytes = 4 * (5 * ng * w3 + ng)
     out = {}
     for op in ops:
-        body = BODY_OF.get(op, op)
-        mask = MASK_OPS + (SYM_OPS if body in SYM_BODIES else 0)
+        body = body_of(op)
+        sym = SYM_OPS * nb_pairs if body in SYM_BODIES else 0
         n_in, n_out = IO_ARRAYS[body]
         work = body_ops(op, body, nb_pairs, (pairs or {}).get(op))
-        out[op] = {**_bound(cand_pairs * mask + work, 4 * n * (n_in + n_out) + table_bytes),
+        out[op] = {**_bound(cand_pairs * MASK_OPS + sym + work,
+                            4 * n * (n_in + n_out) + table_bytes),
                    "cand_pairs": cand_pairs, "body_ops": work}
     return out
 
@@ -465,11 +513,13 @@ def list_case(init, side: int, jitter: bool, state=None, cfg=None):
 
 
 def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
-    """K5 and K6 against their plain versions, and list mode (K1 on the
-    pruned runs, K6) against the streaming kernels with fresh runs on the
-    same frozen-order state, with the JAX package's list-vs-streaming
-    tolerances (tests/test_pair_lists.py:82-119). Returns per-kernel
-    results; with ``timing`` also device times."""
+    """K5 and K6 against their plain versions, and list mode (the walk for
+    density, IAD and momentum) against the streaming kernels with fresh
+    runs on the same frozen-order state, with the JAX package's
+    list-vs-streaming tolerances (tests/test_pair_lists.py:82-119). Returns
+    per-kernel results; with ``timing`` also device times (the walk's, and
+    K1's over the lists' pruned runs for density and IAD, the form of list
+    mode before the walk carried every op)."""
     import torch
 
     from sphexa_torch.sph import pair_engine as pe
@@ -498,20 +548,23 @@ def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
     # list mode: kernels vs plain, and against the streaming kernels
     ranges = pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
     rho_s, nc_s, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
-    rho_k, nc_k, _ = pe.pallas_density(x, y, z, h, m, None, box, const, nbr, lists=lists)
+    # as the force stage runs them: density keeps its mask, the walks after
+    # it read it
+    rho_k, nc_k, _ = pe.pallas_density(x, y, z, h, m, None, box, const, nbr, lists=lists,
+                                       mask="write")
     rho_p, nc_p, _ = pe.density_plain(x, y, z, h, m, None, box, const, nbr, lists=lists)
     if not (torch.equal(nc_k, nc_p) and torch.equal(nc_k, nc_s)):
         raise AssertionError(f"{name}: list-mode density nc differs")
     torch.testing.assert_close(rho_k, rho_p, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(rho_k, rho_s, rtol=2e-6, atol=0.0)
-    res["density"] = {"max_abs_err": float((rho_k - rho_p).abs().max()),
-                      "vs_streaming_max_abs_err": float((rho_k - rho_s).abs().max()),
-                      "nb_pairs": int(nc_k.to(torch.int64).sum())}
+    res["density_lists"] = {"max_abs_err": float((rho_k - rho_p).abs().max()),
+                            "vs_streaming_max_abs_err": float((rho_k - rho_s).abs().max()),
+                            "nc_equal": True, "nb_pairs": int(nc_k.to(torch.int64).sum())}
 
     p, c = compute_eos_std(ss.temp, rho_s, const)
     vol = m / rho_s
     cs_s, _ = pe.pallas_iad(x, y, z, h, vol, keys, box, const, nbr, ranges=ranges)
-    cs_k, _ = pe.pallas_iad(x, y, z, h, vol, None, box, const, nbr, lists=lists)
+    cs_k, _ = pe.pallas_iad(x, y, z, h, vol, None, box, const, nbr, lists=lists, mask="read")
     cs_p, _ = pe.iad_plain(x, y, z, h, vol, None, box, const, nbr, lists=lists)
     csc = max(float(a.abs().max()) for a in cs_s)
     err = 0.0
@@ -519,11 +572,11 @@ def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * csc)
         torch.testing.assert_close(a, s_, rtol=2e-5, atol=1e-6 * csc)
         err = max(err, float((a - b).abs().max()))
-    res["iad"] = {"max_abs_err": err}
+    res["iad_lists"] = {"max_abs_err": err}
 
     margs = (x, y, z, ss.vx, ss.vy, ss.vz, h, m, rho_s, p, c, *cs_s, keys, box, const, nbr)
     out_s = pe.pallas_momentum_energy_std(*margs, ranges=ranges)
-    out_k = pe.pallas_momentum_energy_std(*margs, lists=lists)
+    out_k = pe.pallas_momentum_energy_std(*margs, lists=lists, mask="read")
     out_p = pe.momentum_energy_std_plain(*margs, lists=lists)
     scale = float(out_s[0].abs().max())
     dus = float(out_s[3].abs().max())
@@ -540,59 +593,111 @@ def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
     res["momentum_energy_std_lists"] = {"max_abs_err": err}
 
     if timing:
-        i_f, j_f = pe.momentum_fields(*margs[:17])
         consts = pe.op_consts(const)
-        spec = pe.momentum_spec(const)
-        dfields, ifields = pe.density_fields(x, y, z, h, m), pe.iad_fields(x, y, z, h, vol)
-        runs_k = {
-            "density": (lambda: pe.engine_kernel(pe.DENSITY, lists.ranges, *dfields, False,
-                                                 nbr.group, consts),
-                        lambda: pe.engine_plain(pe.DENSITY, lists.ranges, *dfields, False,
-                                                nbr.group, consts)),
-            "iad": (lambda: pe.engine_kernel(pe.IAD, lists.ranges, *ifields, False,
-                                             nbr.group, consts),
-                    lambda: pe.engine_plain(pe.IAD, lists.ranges, *ifields, False,
-                                            nbr.group, consts)),
-            "momentum_energy_std_lists": (
-                lambda: pe.engine_lists_kernel(spec, lists, i_f, j_f, nbr.group, consts),
-                lambda: pe.engine_lists_plain(spec, lists, i_f, j_f, nbr.group, consts)),
-            "mark": (lambda: pl.mark_kernel(runs, x, y, z, h, lists.skin, scap, nbr.group),
-                     lambda: pl.mark_plain(runs, x, y, z, h, lists.skin, scap, nbr.group)),
-        }
-        for op, (kern, plain) in runs_k.items():
-            res[op]["ms"] = cuda_time_ms(kern, reps=7)
-            res[op]["plain_ms"] = cuda_time_ms(plain, reps=2)
+        group = nbr.group
+        walk = {"density_lists": (pe.DENSITY, pe.density_fields(x, y, z, h, m)),
+                "iad_lists": (pe.IAD, pe.iad_fields(x, y, z, h, vol)),
+                "momentum_energy_std_lists": (pe.momentum_spec(const),
+                                              pe.momentum_fields(*margs[:17]))}
+        for op, (spec, (i_f, j_f)) in walk.items():
+            res[op].update(time_walk(spec, lists, i_f, j_f, group, consts))
+        for op in ("density_lists", "iad_lists"):
+            spec, (i_f, j_f) = walk[op]
+            res[op]["k1_pruned_ms"] = cuda_time_ms(lambda: pe.engine_kernel(
+                spec, lists.ranges, i_f, j_f, False, group, consts), reps=7)
+        res["mark"]["ms"] = cuda_time_ms(
+            lambda: pl.mark_kernel(runs, x, y, z, h, lists.skin, scap, group), reps=7)
+        res["mark"]["plain_ms"] = cuda_time_ms(
+            lambda: pl.mark_plain(runs, x, y, z, h, lists.skin, scap, group), reps=2)
+        spec, fields = walk["momentum_energy_std_lists"]
         res["momentum_energy_std_lists"]["pairs"] = momentum_pair_counts(
-            spec, (i_f, j_f), consts, nbr.group, lists=lists)
+            spec, fields, consts, group, lists=lists)
     return res
 
 
+def walk_mask(spec) -> str:
+    """The mask mode a force stage runs a list-walk op in: density keeps
+    its mask ("write"), every later walk reads it."""
+    return "write" if spec.want_nc else "read"
+
+
+def time_walk(spec, lists, i_f, j_f, group, consts) -> dict:
+    """A list-walk entry point's device time in the mask mode of its path
+    (``walk_mask``; a "read" walk reads the words that a density walk on
+    the same positions kept before): ``ms``, one call at a time;
+    ``batched_ms``, calls back to back; ``mask_ms``, one call that runs
+    its own mask phase; and its plain version's."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    def kern(mask=walk_mask(spec)):
+        return pe.engine_lists_kernel(spec, lists, i_f, j_f, group, consts, mask=mask)
+
+    out = {"ms": cuda_time_ms(kern, reps=7), "batched_ms": cuda_time_batched_ms(kern),
+           "mask_ms": cuda_time_ms(lambda: kern("own"), reps=7)}
+    out["plain_ms"] = cuda_time_ms(lambda: pe.engine_lists_plain(
+        spec, lists, i_f, j_f, group, consts), reps=2)
+    return out
+
+
+def time_k1(spec, runs, i_f, j_f, fold, group, consts) -> dict:
+    """A streaming-engine entry point's device time (``ms``, one call at a
+    time; ``batched_ms``, calls back to back) and its plain version's."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    def kern():
+        return pe.engine_kernel(spec, runs, i_f, j_f, fold, group, consts)
+
+    out = {"ms": cuda_time_ms(kern, reps=7), "batched_ms": cuda_time_batched_ms(kern)}
+    out["plain_ms"] = cuda_time_ms(lambda: pe.engine_plain(
+        spec, runs, i_f, j_f, fold, group, consts), reps=2)
+    return out
+
+
 def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited=None, runs=None,
-                k1_ops=("density", "iad"), walk_ops=("momentum_energy_std_lists",),
+                walk_ops=("density_lists", "iad_lists", "momentum_energy_std_lists"),
                 av_clean=False, pairs=None):
-    """Least device time of the list-mode kernels from this run's counts:
-    K1 on the pruned runs (``bounds``), the list walk over the marked
-    lanes (each candidate shifted once, then the mask [and the symmetric
-    cutoff] per candidate pair, the body per neighbour pair), and, given
-    the build-time ``runs``, the mark pass over the lanes of the chunks it
-    visits. ``av_clean``: the VE momentum walk runs its av_clean body;
-    ``pairs``: each momentum op's counts, by op."""
+    """Least device time of the list-mode kernels from this run's counts,
+    for the work each walk does in its path's mask mode (``walk_mask``):
+    every walk shifts each marked lane once (SHIFT_OPS) and reads its
+    fields, the run tables and the mark bits; density runs the mask on
+    every candidate pair (MASK_OPS less the shift) and writes the kept
+    words; a walk after it reads the words, computes the geometry of the
+    pairs they keep (GEOM_OPS), the symmetric cutoff on those pairs if it
+    has one (SYM_OPS) and its body on the pairs it keeps. Beside it, for a
+    walk that reads, the bound of the same walk running its own mask
+    (``own_mask_bound_ms``) and each op's pruned-run bound (``bounds``
+    over the lists' runs: K1's form of list mode before the walk carried
+    every op) and, given the build-time ``runs``, the mark pass over the
+    lanes of the chunks it visits. ``av_clean``: the path runs the
+    av_clean forms; ``pairs``: each momentum op's counts, by op."""
     import torch
 
-    out = bounds(lists.ranges, n, group, nb_pairs, ops=k1_ops)
     ng, scap = lists.cnt.shape
     lanes = int(lists.cnt.to(torch.int64).sum())
-    pruned_tables = 4 * (5 * ng * scap + ng)
+    word_bytes = 4 * int(lists.word_off[-1]) * group
+    walk_tables = 4 * (5 * ng * scap + ng) + 16 * ng * scap  # run tables, mark bits
+    pruned = bounds(lists.ranges, n, group, nb_pairs,
+                    ops=[body_of(op, av_clean) for op in walk_ops],
+                    pairs={body_of(op, av_clean): v for op, v in (pairs or {}).items()})
+    cand_pairs = lanes * group
+    mask_ops = cand_pairs * (MASK_OPS - SHIFT_OPS)
+    out = {}
     for op in walk_ops:
-        body = BODY_OF[op]
-        if av_clean and body == "momentum_energy_ve":
-            body = "momentum_energy_ve_clean"
-        sym = SYM_OPS if body in SYM_BODIES else 0
+        body = body_of(op, av_clean)
         n_in, n_out = IO_ARRAYS[body]
         work = body_ops(op, body, nb_pairs, (pairs or {}).get(op))
-        out[op] = {**_bound(lanes * group * (MASK_OPS - 3 + sym) + lanes * 3 + work,
-                            4 * n * (n_in + n_out) + pruned_tables + 16 * ng * scap),
-                   "cand_pairs": lanes * group, "body_ops": work}
+        io = 4 * n * (n_in + n_out) + walk_tables
+        sym = SYM_OPS * nb_pairs if body in SYM_BODIES else 0
+        staged = lanes * SHIFT_OPS + work + sym
+        if body == "density":  # "write": the mask, its words written
+            entry = _bound(staged + mask_ops, io + word_bytes)
+        else:  # "read": the kept words for the mask
+            entry = {**_bound(staged + nb_pairs * GEOM_OPS, io + word_bytes),
+                     "own_mask_bound_ms": _bound(staged + mask_ops, io)["bound_ms"]}
+        out[op] = {**entry, "mask_mode": "write" if body == "density" else "read",
+                   "cand_pairs": cand_pairs, "body_ops": work, "word_bytes": word_bytes,
+                   "pruned_run_bound_ms": pruned[body]["bound_ms"],
+                   "pruned_run_cand_pairs": pruned[body]["cand_pairs"]}
     if runs is not None:
         w3 = runs.starts.shape[1]
         out["mark"] = {**_bound(lanes_visited * MARK_OPS,
@@ -883,6 +988,116 @@ def drive(make_sim, steps: int, label: str) -> dict:
             "step_ms_median": 1e3 * wall / steps}
 
 
+def pass_counts(ss, group: int, consts: dict, lists=None, ranges=None, fold=False) -> dict:
+    """Body-pass counts of the engines' candidates on one state
+    (``pair_engine.body_pass_counts``), for the mask of the ops without the
+    symmetric cutoff ("nonsym": density, IAD, grad-h, divv/curlv, the AV
+    switches) and with it ("sym": the momentum ops)."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    i_f = [ss.x, ss.y, ss.z, ss.h]
+    j_f = [ss.x, ss.y, ss.z, 1.0 / (ss.h * ss.h)]
+    return {key: pe.body_pass_counts(spec, i_f, j_f, group, consts, PASS_WINDOWS, ranges=ranges,
+                                     fold=fold, lists=lists)
+            for key, spec in (("nonsym", pe.DENSITY),
+                              ("sym", dataclasses.replace(pe.DENSITY, sym_j=3)))}
+
+
+# the C++ op struct behind each OpSpec name (its template form by variant)
+OP_STRUCT = {"density": "DensityOp", "iad": "IadOp", "momentum_energy_std": "MomentumEnergyStdOp",
+             "ve_def_gradh": "VeDefGradhOp", "iad_divv_curlv": "DivvCurlvOp",
+             "av_switches": "AvSwitchesOp", "momentum_energy_ve": "MomentumEnergyVeOp",
+             "gravity_p2p": "GravityP2POp"}
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's -v report per kernel entry (mangled name): registers, stack
+    frame and spill bytes."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_of(report: dict, spec, walk: bool, fold: bool):
+    """ptxas's entry for one engine instantiation, found by its mangled
+    name (pair_engine<Op, FOLD, SYM> or list_walk<Op, SYM>), or None."""
+    cls = OP_STRUCT[spec.name]
+    op = f"{len(cls)}{cls}" + (f"ILb{int(spec.variant)}EE"
+                               if spec.name in ("iad_divv_curlv", "momentum_energy_ve") else "")
+    sym = int(spec.sym_j is not None)
+    key = (f"9list_walkI{op}Lb{sym}EE" if walk
+           else f"11pair_engineI{op}Lb{int(fold)}ELb{sym}EE")
+    hits = [v for k, v in report.items() if key in k]
+    return hits[0] if len(hits) == 1 else None
+
+
+def engine_entries(specs: dict, at: dict, passes: dict, report: dict, engine: str,
+                   group: int, folds=(False,)) -> list:
+    """The engines line's entries of one engine ("K1" streaming, "K6" list
+    walk): for each instantiation its static facts (``kernel_info``:
+    registers, local bytes, shared bytes, resident blocks and warps per SM,
+    the window), ptxas's spill report, and where a side-100 path ran it,
+    its times and the body-pass efficiency of the old union rule and of
+    the per-lane windows on that path's state."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    walk = engine == "K6"
+    out = []
+    for key, spec in specs.items():
+        for fold in folds:
+            info = pe.kernel_info(spec, group, walk, fold=fold)
+            entry = {"engine": engine, "instantiation": key, "fold": fold, **info,
+                     "ptxas": ptxas_of(report, spec, walk, fold)}
+            if key in at and not fold:
+                res, state, rkey = at[key]
+                entry.update(state=state, ms=res[rkey]["ms"],
+                             batched_ms=res[rkey].get("batched_ms"),
+                             mask_ms=res[rkey].get("mask_ms"))
+                if state in passes:
+                    c = passes[state]["sym" if spec.sym_j is not None else "nonsym"]
+                    entry.update(
+                        pairs=c["pairs"], lane_passes_union=c["union"],
+                        lane_passes_windows=c["windows"],
+                        efficiency_union=c["pairs"] / max(c["union"], 1),
+                        efficiency_windows={w: c["pairs"] / max(v, 1)
+                                            for w, v in c["windows"].items()})
+            out.append(entry)
+    return out
+
+
+def check_launches(label: str, launches: dict, attempts: int, on_path, rebuilds: int = 0,
+                   compactions: int = 0) -> None:
+    """The launch contract of a driven path: each pair-engine entry point
+    of ``on_path`` once per step attempt and every other one never (in
+    list mode every SPH op runs the list walk, K1 not at all), the mark
+    pass once per list build, the gravity compaction ``compactions`` times
+    per attempt."""
+    want = {k: 0 for k in launches}
+    want.update({k: attempts for k in on_path})
+    want["mark"] = rebuilds
+    want["compact_class_lists"] = compactions * attempts
+    if launches != want or (rebuilds == 0 and any(k.endswith("_lists") for k in on_path)):
+        raise AssertionError(f"{label}: launches {launches} in {attempts} step attempts with "
+                             f"{rebuilds} list builds; expected {want}")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -972,10 +1187,8 @@ def main() -> int:
     if sim.lists is None:
         raise AssertionError("the main path streamed: no persistent lists")
     la = lst["launches"]
-    if not (la["density"] == la["iad"] == la["momentum_energy_std_lists"] == lst["attempts"]
-            and la["momentum_energy_std"] == 0 and la["mark"] == lst["rebuilds"] >= 1):
-        raise AssertionError(f"list-mode launches {la} in {lst['attempts']} step "
-                             f"attempts with {lst['rebuilds']} list builds")
+    check_launches("std list mode", la, lst["attempts"],
+                   ("density_lists", "iad_lists", "momentum_energy_std_lists"), lst["rebuilds"])
     ranges_now = pe.group_cell_ranges(
         sim.state.x, sim.state.y, sim.state.z, sim.state.h,
         compute_sfc_keys(sim.state.x, sim.state.y, sim.state.z, sim.box, curve=sim.cfg.curve),
@@ -998,9 +1211,8 @@ def main() -> int:
                                    use_lists=False), steps=5, label="streaming_path")
     ssim = stm["sim"]
     sa = stm["launches"]
-    if not (sa["density"] == sa["iad"] == sa["momentum_energy_std"] == stm["attempts"]
-            and sa["momentum_energy_std_lists"] == sa["mark"] == 0):
-        raise AssertionError(f"streaming launches {sa} in {stm['attempts']} step attempts")
+    check_launches("std streaming", sa, stm["attempts"],
+                   ("density", "iad", "momentum_energy_std"))
     emit(stm["report"])
     emit({**count_syncs(ssim), "path": "streaming"})
     emit({**profile_steps(ssim, 2, stm["step_ms_median"]), "path": "streaming"})
@@ -1012,14 +1224,9 @@ def main() -> int:
     vsim, va = ve["sim"], ve["launches"]
     if vsim.lists is None:
         raise AssertionError("the VE path streamed: no persistent lists")
-    on_path = ("density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches_lists",
-               "momentum_energy_ve_lists")
-    off_path = ("iad_divv_curlv_lists", "av_switches", "momentum_energy_ve",
-                "momentum_energy_std", "momentum_energy_std_lists")
-    if not (all(va[k] == ve["attempts"] for k in on_path) and all(va[k] == 0 for k in off_path)
-            and va["mark"] == ve["rebuilds"] >= 1):
-        raise AssertionError(f"VE list-mode launches {va} in {ve['attempts']} step "
-                             f"attempts with {ve['rebuilds']} list builds")
+    ve_walk = ("density_lists", "ve_def_gradh_lists", "iad_lists", "iad_divv_curlv_lists",
+               "av_switches_lists", "momentum_energy_ve_lists")
+    check_launches("VE list mode", va, ve["attempts"], ve_walk, ve["rebuilds"])
     ve["report"].update({
         "list_slot_cap": vsim.cfg.list_slot_cap, "rebuilds": vsim.rebuilds,
         "list_slack": [d["list_slack"] for d in ve["diags"]],
@@ -1039,31 +1246,26 @@ def main() -> int:
     vst = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
                                    use_lists=False), steps=3, label="ve_streaming_path")
     vsa = vst["launches"]
-    if not (all(vsa[k] == vst["attempts"] for k in (
-            "density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
-            "momentum_energy_ve")) and all(vsa[k] == 0 for k in (
-            "iad_divv_curlv_lists", "av_switches_lists", "momentum_energy_ve_lists",
-            "momentum_energy_std", "momentum_energy_std_lists", "mark"))):
-        raise AssertionError(f"VE streaming launches {vsa} in {vst['attempts']} attempts")
+    check_launches("VE streaming", vsa, vst["attempts"], (
+        "density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
+        "momentum_energy_ve"))
     emit(vst["report"])
     state, box, const = init_sedov(side, device="cuda")
     vac = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
                                    av_clean=True), steps=3, label="ve_avclean_path")
     vaa = vac["launches"]
-    if not (all(vaa[k] == vac["attempts"] for k in (
-            "density", "ve_def_gradh", "iad", "iad_divv_curlv_lists", "av_switches_lists",
-            "momentum_energy_ve_lists")) and vaa["iad_divv_curlv"] == 0
-            and vaa["mark"] == vac["rebuilds"] >= 1):
-        raise AssertionError(f"VE av_clean launches {vaa} in {vac['attempts']} attempts")
+    check_launches("VE av_clean", vaa, vac["attempts"], ve_walk, vac["rebuilds"])
     emit(vac["report"])
 
     # 8. kernels vs plain and phase times at the paths' shapes
     ss, lbox, const, lcfg, lkeys, lists, runs = list_case(
         None, side, False, state=(sim.state, sim.box, const), cfg=sim.cfg)
     lres = compare_lists("side 100", ss, lbox, const, lcfg, lkeys, lists, runs, timing=True)
-    lbnd = list_bounds(lists, n, lcfg.nbr.group, lres["density"]["nb_pairs"],
+    lbnd = list_bounds(lists, n, lcfg.nbr.group, lres["density_lists"]["nb_pairs"],
                        lres["mark"]["lanes_visited"], runs,
                        pairs={op: r["pairs"] for op, r in lres.items() if "pairs" in r})
+    consts100 = pe.op_consts(const)
+    passes = {"std_lists": pass_counts(ss, lcfg.nbr.group, consts100, lists=lists)}
     emit({"phase": "lists_vs_plain", "case": "sedov", "side": side, "results": lres,
           "bounds": lbnd, "slot_cap": lcfg.list_slot_cap,
           "lanes_total": float(lists.lanes_total), "nbr": dataclasses.asdict(lcfg.nbr)})
@@ -1080,6 +1282,8 @@ def main() -> int:
         start, lens, keep, shifts, cfg.nbr.run_cap, cfg.nbr.gap), reps=5)
     bnd = bounds(ranges, n, cfg.nbr.group, res["density"]["nb_pairs"],
                  pairs={op: r["pairs"] for op, r in res.items() if "pairs" in r})
+    passes["std_streaming"] = pass_counts(ss, cfg.nbr.group, consts100, ranges=ranges,
+                                          fold=pe.engine_fold(box2, cfg.nbr))
     emit({"phase": "kernels_vs_plain", "side": side, "path": "streaming",
           "fold": pe.engine_fold(box2, cfg.nbr), "results": res, "bounds": bnd,
           "sort_ms": sort_ms, "prologue_ms": prologue_ms, "merge_runs_ms": merge_ms,
@@ -1096,13 +1300,13 @@ def main() -> int:
                 None, side, False, state=(vs.state, vs.box, const), cfg=vs.cfg)
             vres = compare_ve(f"{label} side 100", ss, vbox, const, vcfg.nbr, av_clean,
                               lists=vlists, timing=True)
-            k1 = ("ve_def_gradh",) + (() if av_clean else ("iad_divv_curlv",))
-            walks = (("iad_divv_curlv_lists",) if av_clean else ()) + (
-                "av_switches_lists", "momentum_energy_ve_lists")
+            walks = ("ve_def_gradh_lists", "iad_divv_curlv_lists", "av_switches_lists",
+                     "momentum_energy_ve_lists")
             vbnd = list_bounds(vlists, n, vcfg.nbr.group, vres["xmass"]["nb_pairs"],
-                               k1_ops=k1, walk_ops=walks, av_clean=av_clean,
+                               walk_ops=walks, av_clean=av_clean,
                                pairs={op: r["pairs"] for op, r in vres.items() if "pairs" in r})
             extra = {"lanes_total": float(vlists.lanes_total)}
+            passes[label] = pass_counts(ss, vcfg.nbr.group, consts100, lists=vlists)
         else:
             ss, vbox, const, vcfg, vkeys, vranges = sorted_case(
                 side, state=(vs.state, vs.box, const), cfg=vs.cfg)
@@ -1113,6 +1317,8 @@ def main() -> int:
                                "momentum_energy_ve"),
                           pairs={op: r["pairs"] for op, r in vres.items() if "pairs" in r})
             extra = {"fold": pe.engine_fold(vbox, vcfg.nbr)}
+            passes[label] = pass_counts(ss, vcfg.nbr.group, consts100, ranges=vranges,
+                                        fold=extra["fold"])
         emit({"phase": "ve_kernels_vs_plain", "side": side, "path": label,
               "av_clean": av_clean, "results": vres, "bounds": vbnd, **extra})
         vt[label] = (vres, vbnd)
@@ -1147,14 +1353,11 @@ def main() -> int:
     evr = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda"), steps=3,
                 label="evrard_path")
     esim, ea = evr["sim"], evr["launches"]
-    on_path = ("density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
-               "momentum_energy_ve", "gravity_p2p")
-    off_path = ("iad_divv_curlv_lists", "av_switches_lists", "momentum_energy_ve_lists",
-                "momentum_energy_std", "momentum_energy_std_lists", "mark")
-    if not (all(ea[k] == evr["attempts"] for k in on_path)
-            and ea["compact_class_lists"] == 2 * evr["attempts"]
-            and all(ea[k] == 0 for k in off_path) and esim.lists is None):
-        raise AssertionError(f"Evrard launches {ea} in {evr['attempts']} step attempts")
+    check_launches("Evrard", ea, evr["attempts"], (
+        "density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
+        "momentum_energy_ve", "gravity_p2p"), compactions=2)
+    if esim.lists is not None:
+        raise AssertionError("Evrard: lists on under self-gravity")
     gkeys = ("m2p_max", "p2p_max", "leaf_occ", "c_max", "compact_width", "mac_work_ratio",
              "egrav")
     evr["report"].update({
@@ -1211,25 +1414,65 @@ def main() -> int:
           "p2p_n_mean": float(ecls["p2p_n"].float().mean()),
           "m2p_n_mean": float(ecls["m2p_n"].float().mean())})
 
+    # the engines' evidence: every instantiation of K1 and K6
+    from sphexa_torch.gravity.traversal import GRAVITY_P2P
+
+    specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
+             "ve_def_gradh": pe.VE_DEF_GRADH, "iad_divv_curlv": pe.IAD_DIVV_CURLV,
+             "iad_divv_curlv:gradv": pe.IAD_DIVV_CURLV_GRADV, "av_switches": pe.AV_SWITCHES,
+             "momentum_energy_ve": pe.MOMENTUM_ENERGY_VE,
+             "momentum_energy_ve:av_clean": pe.MOMENTUM_ENERGY_VE_CLEAN}
+    vl, vs_, va_ = vt["ve_lists"][0], vt["ve_streaming"][0], vt["ve_avclean"][0]
+    walk_at = {"density": (lres, "std_lists", "density_lists"),
+               "iad": (lres, "std_lists", "iad_lists"),
+               "momentum_energy_std": (lres, "std_lists", "momentum_energy_std_lists"),
+               "ve_def_gradh": (vl, "ve_lists", "ve_def_gradh_lists"),
+               "iad_divv_curlv": (vl, "ve_lists", "iad_divv_curlv_lists"),
+               "iad_divv_curlv:gradv": (va_, "ve_avclean", "iad_divv_curlv_lists"),
+               "av_switches": (vl, "ve_lists", "av_switches_lists"),
+               "momentum_energy_ve": (vl, "ve_lists", "momentum_energy_ve_lists"),
+               "momentum_energy_ve:av_clean": (va_, "ve_avclean", "momentum_energy_ve_lists")}
+    k1_at = {"density": (res, "std_streaming", "density"),
+             "iad": (res, "std_streaming", "iad"),
+             "momentum_energy_std": (res, "std_streaming", "momentum_energy_std"),
+             **{op: (vs_, "ve_streaming", op) for op in (
+                 "ve_def_gradh", "iad_divv_curlv", "av_switches", "momentum_energy_ve")}}
+    report = ptxas_report(kbuild.build_log())
+    group = lcfg.nbr.group
+    engines = (engine_entries(specs, walk_at, passes, report, "K6", group)
+               + engine_entries(specs, k1_at, passes, report, "K1", group, folds=(False, True))
+               + engine_entries({"gravity_p2p": GRAVITY_P2P},
+                                {"gravity_p2p": (gres, "evrard_125", "gravity_p2p")}, passes,
+                                report, "K1", egcfg.target_block))
+    emit({"phase": "engines", "card": smi, "pass_windows": list(PASS_WINDOWS),
+          "engines": engines})
+    short = [f"{e['engine']} {e['instantiation']} fold={e['fold']}: {e['warps_per_sm']}"
+             for e in engines if e["warps_per_sm"] < 16 and e["instantiation"] != "gravity_p2p"]
+    if short:
+        print("# engines below 16 resident warps per SM: " + "; ".join(short), file=sys.stderr)
+
     # each entry point with the launches of the path that runs it and its
-    # numbers at that path's side-100 state: std density, IAD, the list
-    # walk and the mark pass on the std main path (list mode), the
-    # streaming momentum kernel on the std streaming path; the VE ops on
-    # the VE path (list mode), their streaming forms on the VE streaming
-    # path, the gradv list walk on the av_clean path
-    where = {"density": (lres, lbnd, la), "iad": (lres, lbnd, la),
-             "momentum_energy_std": (res, bnd, sa),
-             "momentum_energy_std_lists": (lres, lbnd, la), "mark": (lres, lbnd, la),
-             "ve_def_gradh": (*vt["ve_lists"], va), "iad_divv_curlv": (*vt["ve_lists"], va),
-             "iad_divv_curlv_lists": (*vt["ve_avclean"], vaa),
-             "av_switches": (*vt["ve_streaming"], vsa),
-             "av_switches_lists": (*vt["ve_lists"], va),
-             "momentum_energy_ve": (*vt["ve_streaming"], vsa),
-             "momentum_energy_ve_lists": (*vt["ve_lists"], va)}
+    # numbers at that path's side-100 state: the list walk of every std op
+    # and the mark pass on the std main path (list mode), the streaming
+    # kernels on the std streaming path; the VE ops' walk on the VE path
+    # (list mode), with the gradv divv/curlv and the av_clean momentum on
+    # the av_clean path, their streaming forms on the VE streaming path
+    where = {"density": (res, bnd, sa, "density"), "iad": (res, bnd, sa, "iad"),
+             "momentum_energy_std": (res, bnd, sa, "momentum_energy_std"),
+             "density_lists": (lres, lbnd, la, "density_lists"),
+             "iad_lists": (lres, lbnd, la, "iad_lists"),
+             "momentum_energy_std_lists": (lres, lbnd, la, "momentum_energy_std_lists"),
+             "mark": (lres, lbnd, la, "mark")}
+    for op in ("ve_def_gradh", "iad_divv_curlv", "av_switches", "momentum_energy_ve"):
+        where[op] = (*vt["ve_streaming"], vsa, op)
+        where[f"{op}_lists"] = (*vt["ve_lists"], va, f"{op}_lists")
+    where["iad_divv_curlv_lists:gradv"] = (*vt["ve_avclean"], vaa, "iad_divv_curlv_lists")
+    where["momentum_energy_ve_lists:av_clean"] = (*vt["ve_avclean"], vaa,
+                                                  "momentum_energy_ve_lists")
     kernels = []
-    for op, (r, b, launches) in where.items():
+    for name, (r, b, launches, op) in where.items():
         kernels.append({
-            "name": op, "route": "cuda", "source": SOURCE[op],
+            "name": name, "route": "cuda", "source": SOURCE[op],
             "replaces": TPU_KERNEL[op], "launches": launches[op],
             "max_abs_err": r[op]["max_abs_err"], "ms": r[op]["ms"],
             "plain_ms": r[op]["plain_ms"], "bound_ms": b[op]["bound_ms"],

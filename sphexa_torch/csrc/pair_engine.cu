@@ -1,4 +1,5 @@
-// Fused neighbour search + SPH pair op for NVIDIA Hopper (sm_90a).
+// Fused neighbour search + SPH pair op for NVIDIA Hopper (sm_90a): the
+// streaming engine K1.
 //
 // Replaces the TPU kernel group_pair_engine (sphexa_tpu/sph/pallas_pairs.py,
 // its pallas_call in the streaming form) in its std-SPH instantiations
@@ -7,68 +8,85 @@
 // pallas_av_switches and pallas_momentum_energy_ve (pallas_xmass is
 // m / rho0 over pallas_density), and the gravity near field
 // (sphexa_tpu/gravity/traversal.py _pallas_p2p: no distance cutoff, groups
-// of target_block targets over their block's near-leaf runs). In list
-// mode density, IAD, grad-h and the
-// plain divv/curlv run this kernel on the persistent lists' pruned runs
-// (the TPU kernel's skip_slots form, whose per-chunk gate every pruned
-// chunk passes); the momentum ops, the AV switches and divv/curlv with
-// gradv run the list walk (pair_lists.cu), as the JAX dispatch does.
-// The contract is the TPU kernel's; its blocking is not: the 128-lane tiles,
+// of target_block targets over their block's near-leaf runs). It serves the
+// streaming steps (use_lists=False, fold-mode grids, steps under
+// self-gravity) and the near field; in list mode every SPH op runs the list
+// walk (pair_lists.cu), which tests only the lanes the mark pass kept. The
+// contract is the TPU kernel's; its blocking is not: the 128-lane tiles,
 // the (rows, nf_pad, 128) j-field packing, the VMEM double buffer and the
 // scalar-prefetch tables exist because of the TPU and are dropped.
 //
 // Design. One CUDA block per target group of G SFC-consecutive particles
 // (blockDim = G, one thread per target, target index g*G + t). The block
-// walks the group's ncells[g] candidate runs [start, start + len) of the
-// sorted arrays; for each run it stages TILE candidates' j-fields in shared
-// memory (structure of arrays, coalesced loads), syncs, and every thread
-// loops over the tile: periodic shift (or min-image fold), pair mask
-// d^2 < 4 h_i^2 [and d^2 < 4 h_j^2] and not self, then Op::pair into
-// register accumulators. Op::finalize writes each target's outputs; threads
-// whose target index is >= n write nothing. No atomics, no cross-block
-// reduction (min(dt_i) stays a torch reduction, as in the JAX package).
+// cuts the concatenation of the group's ncells[g] candidate runs
+// [start, start + len) of the sorted arrays into windows of W consecutive
+// candidates and runs them through engine_window.cuh's pipeline: each
+// window's positions (a float4 per candidate: x, y, z, index) and j-field
+// rows staged by cp.async while the previous window computes, a mask
+// phase (every thread tests every candidate: periodic shift, or the
+// min-image fold, and d^2 < 4 h_i^2, not self), a body phase (each thread
+// runs the op's pair body over its own accepted candidates, ascending;
+// the momentum ops add the symmetric cutoff d^2 < 4 h_j^2 there). Op::
+// finalize writes each target's outputs; threads whose target index is
+// >= n write nothing. No atomics, no cross-block reduction (min(dt_i)
+// stays a torch reduction, as in the JAX package).
 //
-// What bounds it on this card: the FP32 operations of the candidate loop.
-// Every thread tests every candidate of its group's runs (about 12
-// operations for the mask), and only ~2% of candidates pass the mask at
-// Sedov resolution, so the mask test, not the pair body, is most of the
-// work; device-memory traffic is small (each j-field is read once per
-// group that lists it, and the runs of neighbouring groups overlap in L2).
-// The design keeps all candidate data in shared memory (broadcast reads,
-// no bank conflicts: every thread of a warp reads the same candidate) and
-// all accumulators in registers; the chunk-AABB skip of the TPU kernel's
-// momentum op (_op_aabb / chunk_skip) is left out, since it changes no
-// result (a culled chunk holds no pair within 2h).
+// What bounds it on this card. The mask test of every run lane by every
+// target (about 12 FP32 operations each) is most of the work: only a few
+// percent of the streamed candidates are neighbours. A body run inline,
+// for the whole warp, on every candidate any of its 32 lanes accepts
+// would hold a pair in a quarter of its lane-passes (0.24 at Sedov 100),
+// so the momentum bodies (156-223 operations) would cost four times their
+// share. The body phase instead passes as often as the warp's
+// busiest lane has pairs in the window (at W = 256, 0.37 of the
+// lane-passes hold a pair over K1's runs, 0.45 over the list walk's
+// marked lanes); its reads are gathers (each lane at its own candidate),
+// which cost shared-memory bank conflicts, and those, not the arithmetic,
+// bound the momentum bodies. The mask phase reads one broadcast float4
+// per candidate. Measured on the H100 at Sedov 100^3 (PERF.md,
+// chip_smoke.py phase 8): density 3.45 ms against a bound of 0.77 ms,
+// std momentum 5.11 against 0.94.
+// Registers are capped (__launch_bounds__ minimum blocks) at 64 a thread
+// for the light ops and 128 for the rest, and the window W = 256
+// (engine_window.cuh says why) leaves 8 or more blocks of 64 threads (16
+// warps) per SM for every SPH op but VE momentum (14 warps; 12 with
+// av_clean: 23-29 j-fields of staged rows); chip_smoke.py's engines line
+// reports each instantiation's registers, shared bytes, resident warps
+// and times, and PERF.md the measured numbers.
 //
-// The gravity near field (GravityP2POp, CUTOFF false) is the exception to
-// the mask-bound picture: its body runs on every candidate of its runs, so
-// the body and the j-field staging are its cost.
+// The gravity near field (GravityP2POp, CUTOFF false) pairs every
+// candidate of its runs (the self pair only with allow_self), so it has
+// no mask phase and no per-lane divergence: every lane runs every
+// candidate's body, its j-fields read as broadcasts.
 //
 // Exactness. Neighbour counts must match the plain version bit for bit, so
 // the separation and d^2 of the mask use __fadd_rn/__fsub_rn/__fmul_rn
 // (no FMA contraction can flip a pair at the d^2 < 4 h^2 boundary), in the
-// plain version's order: rx = xi - (xj + shx), d2 = (rx*rx + ry*ry) + rz*rz.
-// The fold rounds half to even (rintf) like jnp.round. The pair body runs
-// only under the mask, so the d2 = 0 self pair's rsqrt(0) = inf never
-// reaches an accumulator. The body's other arithmetic may contract.
+// plain version's order: rx = xi - (xj + shx), d2 = (rx*rx + ry*ry) + rz*rz;
+// the body phase recomputes them the same way. The fold rounds half to
+// even (rintf) like jnp.round. The pair body runs only under the mask, so
+// the d2 = 0 self pair's rsqrt(0) = inf never reaches an accumulator. The
+// body's other arithmetic may contract.
 //
 // The launch arguments and the ops' bodies are in pair_ops.cuh, shared
-// with the list walk (pair_lists.cu). The VE bodies are heavier (VE
-// momentum: 23 i-fields, 30 with av_clean, two expf and an rsqrt per
-// pair), which raises the register count per thread; ptxas's report of
-// each instantiation is kept in the build log.
+// with the list walk (pair_lists.cu); the window machinery in
+// engine_window.cuh. ptxas's report of each instantiation is kept in the
+// build log.
 //
 // Build: sphexa_torch/kernels/build.py (nvcc for sm_90a, one object per
 // source, linked into one library with plain C entry points, loaded with
 // ctypes).
 
-#include "pair_ops.cuh"
+#include <cstring>
+
+#include "engine_window.cuh"
 
 namespace {
 
-template <class Op, bool FOLD>
-__global__ void __launch_bounds__(256) pair_engine(const EngineArgs p) {
-    __shared__ float sj[Op::NJ][TILE];
+template <class Op, bool FOLD, bool SYM>
+__global__ void __launch_bounds__(MAX_BLOCK, min_blocks<Op>())
+    pair_engine(const __grid_constant__ EngineArgs p) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const int g = blockIdx.x;
     const int t = threadIdx.x;
     const int G = blockDim.x;
@@ -78,13 +96,9 @@ __global__ void __launch_bounds__(256) pair_engine(const EngineArgs p) {
     float I[Op::NI];
 #pragma unroll
     for (int f = 0; f < Op::NI; ++f) I[f] = p.ifields[f][ii];
-    const float xi = I[0], yi = I[1], zi = I[2], hi = I[3];
-    const float h4 = __fmul_rn(__fmul_rn(4.0f, hi), hi);
     const float lx = FOLD ? p.boxl[0] : 0.0f;
     const float ly = FOLD ? p.boxl[1] : 0.0f;
     const float lz = FOLD ? p.boxl[2] : 0.0f;
-    const int sym = p.sym_j;
-    const bool self_ok = !Op::CUTOFF && p.allow_self != 0;
 
     float acc[Op::NACC];
 #pragma unroll
@@ -92,49 +106,29 @@ __global__ void __launch_bounds__(256) pair_engine(const EngineArgs p) {
     int nc = 0;
 
     const int nrun = p.ncells[g];
-    for (int w = 0; w < nrun; ++w) {
-        const int slot = g * p.w3 + w;
-        const int s = p.starts[slot];
-        const int len = p.lens[slot];
-        const float shx = p.shift_x[slot], shy = p.shift_y[slot], shz = p.shift_z[slot];
-        for (int base = 0; base < len; base += TILE) {
-            const int cnt = min(TILE, len - base);
-            __syncthreads();  // the previous tile is consumed
-            for (int k = t; k < cnt; k += G) {
-#pragma unroll
-                for (int f = 0; f < Op::NJ; ++f) sj[f][k] = p.jfields[f][s + base + k];
-            }
-            __syncthreads();
-            for (int k = 0; k < cnt; ++k) {
-                float rx, ry, rz;
-                if (FOLD) {
-                    rx = __fsub_rn(xi, sj[0][k]);
-                    ry = __fsub_rn(yi, sj[1][k]);
-                    rz = __fsub_rn(zi, sj[2][k]);
-                    rx = __fsub_rn(rx, __fmul_rn(lx, rintf(__fdiv_rn(rx, lx))));
-                    ry = __fsub_rn(ry, __fmul_rn(ly, rintf(__fdiv_rn(ry, ly))));
-                    rz = __fsub_rn(rz, __fmul_rn(lz, rintf(__fdiv_rn(rz, lz))));
-                } else {
-                    rx = __fsub_rn(xi, __fadd_rn(sj[0][k], shx));
-                    ry = __fsub_rn(yi, __fadd_rn(sj[1][k], shy));
-                    rz = __fsub_rn(zi, __fadd_rn(sj[2][k], shz));
-                }
-                const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
-                                           __fmul_rn(rz, rz));
-                bool mask;
-                if constexpr (Op::CUTOFF) {
-                    mask = d2 < h4 && s + base + k != tgt;
-                    if (sym >= 0) mask = mask && __fmul_rn(d2, sj[sym][k]) < 4.0f;
-                } else {
-                    mask = self_ok || s + base + k != tgt;
-                }
-                if (mask) {
-                    Op::template pair<TILE>(I, sj, k, rx, ry, rz, d2, acc, p);
-                    ++nc;
-                }
+    const int64_t row = static_cast<int64_t>(g) * p.w3;
+    // staging cursor (block-uniform): the next run and the offset in it
+    int cw = 0, coff = 0;
+    auto stage = [&](int b) {
+        const WindowView v = window_view<Op::NJ>(smem, b);
+        int fill = 0;
+        while (fill < WINDOW && cw < nrun) {
+            const int s = p.starts[row + cw], len = p.lens[row + cw];
+            const int take = min(WINDOW - fill, len - coff);
+            for (int pos = first_own(fill, t, G); pos < fill + take; pos += G)
+                stage_position(v, pos, s + coff + (pos - fill), cw, p);
+            fill += take;
+            coff += take;
+            if (coff >= len) {
+                ++cw;
+                coff = 0;
             }
         }
-    }
+        return fill;
+    };
+    window_pipeline<Op, FOLD, SYM>(smem, stage, I, tgt, p.shift_x + row, p.shift_y + row,
+                                      p.shift_z + row, lx, ly, lz, acc, nc, p);
+
     if (tgt < p.n) {
         float out[Op::NOUT];
         Op::finalize(I, acc, out, p);
@@ -144,16 +138,58 @@ __global__ void __launch_bounds__(256) pair_engine(const EngineArgs p) {
     }
 }
 
-template <class Op>
-int launch(const EngineArgs* a, void* stream) {
-    if (a->num_groups <= 0) return 0;
-    const dim3 grid(a->num_groups), block(a->group);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (a->fold)
-        pair_engine<Op, true><<<grid, block, 0, st>>>(*a);
-    else
-        pair_engine<Op, false><<<grid, block, 0, st>>>(*a);
+template <class Op, bool FOLD, bool SYM>
+int launch_k(const EngineArgs* a, cudaStream_t st, int32_t* info) {
+    auto kern = pair_engine<Op, FOLD, SYM>;
+    using L = WindowLayout<Op::NJ>;
+    if (info) {
+        const cudaError_t attr = set_window_attrs(kern, L::bytes(MAX_BLOCK));
+        if (attr != cudaSuccess) return static_cast<int>(attr);
+        return kernel_info(kern, L::bytes(a->group), a->group, info);
+    }
+    static const cudaError_t attr = set_window_attrs(kern, L::bytes(MAX_BLOCK));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kern<<<a->num_groups, a->group, L::bytes(a->group), st>>>(*a);
     return static_cast<int>(cudaGetLastError());
+}
+
+// the symmetric cutoff (compiled in only for the ops that may take it)
+template <class Op, bool FOLD>
+int launch_sym(const EngineArgs* a, cudaStream_t st, int32_t* info) {
+    if constexpr (Op::SYM) {
+        if (a->sym_j >= 0) return launch_k<Op, FOLD, true>(a, st, info);
+    } else if (a->sym_j >= 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_k<Op, FOLD, false>(a, st, info);
+}
+
+// one launch, or with `info` the instantiation's static facts instead
+template <class Op>
+int launch(const EngineArgs* a, void* stream, int32_t* info = nullptr) {
+    if (!info && a->num_groups <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return a->fold ? launch_sym<Op, true>(a, st, info) : launch_sym<Op, false>(a, st, info);
+}
+
+// every entry point of this engine, by name: plain C dispatch shared by
+// the launches and pair_engine_info
+int dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
+    const bool v = a->variant != 0;
+    if (!std::strcmp(name, "density")) return launch<DensityOp>(a, stream, info);
+    if (!std::strcmp(name, "iad")) return launch<IadOp>(a, stream, info);
+    if (!std::strcmp(name, "momentum_energy_std"))
+        return launch<MomentumEnergyStdOp>(a, stream, info);
+    if (!std::strcmp(name, "ve_def_gradh")) return launch<VeDefGradhOp>(a, stream, info);
+    if (!std::strcmp(name, "iad_divv_curlv"))
+        return v ? launch<DivvCurlvOp<true>>(a, stream, info)
+                 : launch<DivvCurlvOp<false>>(a, stream, info);
+    if (!std::strcmp(name, "av_switches")) return launch<AvSwitchesOp>(a, stream, info);
+    if (!std::strcmp(name, "momentum_energy_ve"))
+        return v ? launch<MomentumEnergyVeOp<true>>(a, stream, info)
+                 : launch<MomentumEnergyVeOp<false>>(a, stream, info);
+    if (!std::strcmp(name, "gravity_p2p")) return launch<GravityP2POp>(a, stream, info);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -161,37 +197,40 @@ int launch(const EngineArgs* a, void* stream) {
 extern "C" {
 
 int launch_density(const EngineArgs* a, void* stream) {
-    return launch<DensityOp>(a, stream);
+    return dispatch("density", a, stream, nullptr);
 }
 
-int launch_iad(const EngineArgs* a, void* stream) {
-    return launch<IadOp>(a, stream);
-}
+int launch_iad(const EngineArgs* a, void* stream) { return dispatch("iad", a, stream, nullptr); }
 
 int launch_momentum_energy_std(const EngineArgs* a, void* stream) {
-    return launch<MomentumEnergyStdOp>(a, stream);
+    return dispatch("momentum_energy_std", a, stream, nullptr);
 }
 
 int launch_ve_def_gradh(const EngineArgs* a, void* stream) {
-    return launch<VeDefGradhOp>(a, stream);
+    return dispatch("ve_def_gradh", a, stream, nullptr);
 }
 
 int launch_iad_divv_curlv(const EngineArgs* a, void* stream) {
-    return a->variant ? launch<DivvCurlvOp<true>>(a, stream)
-                      : launch<DivvCurlvOp<false>>(a, stream);
+    return dispatch("iad_divv_curlv", a, stream, nullptr);
 }
 
 int launch_av_switches(const EngineArgs* a, void* stream) {
-    return launch<AvSwitchesOp>(a, stream);
+    return dispatch("av_switches", a, stream, nullptr);
 }
 
 int launch_momentum_energy_ve(const EngineArgs* a, void* stream) {
-    return a->variant ? launch<MomentumEnergyVeOp<true>>(a, stream)
-                      : launch<MomentumEnergyVeOp<false>>(a, stream);
+    return dispatch("momentum_energy_ve", a, stream, nullptr);
 }
 
 int launch_gravity_p2p(const EngineArgs* a, void* stream) {
-    return launch<GravityP2POp>(a, stream);
+    return dispatch("gravity_p2p", a, stream, nullptr);
+}
+
+// the static facts (kernel_info in engine_window.cuh) of the instantiation
+// that launch_<name> would run with these arguments (variant, fold,
+// group)
+int pair_engine_info(const char* name, const EngineArgs* a, int32_t* out) {
+    return dispatch(name, a, nullptr, out);
 }
 
 const char* pair_engine_error_string(int err) {

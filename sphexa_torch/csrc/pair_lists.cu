@@ -5,10 +5,14 @@
 // - the mark pass _mark_kernel_builder (sphexa_tpu/sph/pair_lists.py, its
 //   pallas_call), here mark_kernel;
 // - the list-walk engine group_pair_engine_lists (sphexa_tpu/sph/
-//   pallas_pairs.py, its pallas_call) in the instantiations the JAX
-//   dispatch sends there: std momentum/energy (list_walk<
-//   MomentumEnergyStdOp>), VE momentum/energy (MomentumEnergyVeOp), the AV
-//   switches (AvSwitchesOp) and divv/curlv with gradv (DivvCurlvOp<true>).
+//   pallas_pairs.py, its pallas_call), here list_walk<Op, SYM>, in
+//   every SPH op of list mode: density (and xmass over it), IAD, grad-h,
+//   both forms of divv/curlv, the AV switches, std and VE momentum/energy.
+//   The JAX dispatch sends density, IAD, grad-h and plain divv/curlv to
+//   the streaming engine over the pruned runs (its skip_slots form)
+//   because the TPU favours dense 128-lane chunks; here the marks cost
+//   nothing to use, and the pairs and their order are the same (every
+//   pair within 2 h is among the marked lanes while the lists are valid).
 //
 // A slot is one (run, chunk) pair of a group's candidate runs, in run
 // order; a chunk is one 128-aligned row of the sorted arrays
@@ -33,30 +37,45 @@
 // L2) and does a dozen operations per lane; it runs once per list rebuild.
 //
 // List walk. One block per target group (blockDim = G, one thread per
-// target, as in pair_engine.cu) walks the pruned runs' chunks in slot
-// order. Per chunk every thread reads the slot's four mask words, takes the
-// count with __popc, and compacts the marked lanes it owns (lanes t, t + G,
-// ...) into a 256-entry shared-memory ring: a lane's rank is the __popc of
-// the marked lanes below it. A staged entry holds the candidate's j-fields,
-// its x/y/z with the run's shift added (__fadd_rn, K1's order) and its
-// index for the self test. Whenever 128 staged candidates are waiting the
-// block syncs and every thread runs the op's pair body over them; the tail
-// (< 128) runs after the last chunk. The mask is K1's: d^2 < 4 h_i^2, the
-// symmetric cutoff d^2 < 4 h_j^2, and not the self pair, with the same
-// _rn intrinsics.
+// target). The block walks the pruned runs' chunks in slot order and cuts
+// their marked lanes into windows of W candidates, which go through
+// engine_window.cuh's pipeline as K1's windows do (pair_engine.cu: cp.async
+// staging of positions and j-field rows, the mask phase, the per-lane
+// body phase). Staging a window: every thread reads the slot's four mask
+// words and counts them with __popc (block-uniform: the cursor of run,
+// chunk, slot and lanes already taken advances the same in every thread,
+// and a chunk may straddle two windows); window position pos is staged by
+// thread pos % G, which finds the lane of rank pos - fill + r0 among the
+// slot's marked lanes (select_bit) and issues its 4-byte cp.async copies.
+// The run's shift is added on the consumer side, once the copies landed,
+// with __fadd_rn in K1's order. The mask is K1's: d^2 < 4 h_i^2 and not
+// the self pair, with the same _rn intrinsics; the momentum ops' symmetric
+// cutoff is tested in the body phase. The mask depends on the positions
+// and smoothing lengths only, so within a step the first walk (density,
+// which counts neighbours) writes every thread's accepted-candidate words
+// (EngineArgs.mask_mode 1: EngineArgs.mask_words, 4 bytes per target per
+// 32 marked lanes, 160 MB at Sedov 100^3) and the later walks of the step
+// read them (mode 2) instead of running the mask phase; the force stage
+// names each walk's mode (pair_engine.py, mask=).
 //
-// The shared ring holds sj[NJ][256] floats: 29 KB for the av_clean VE
-// momentum op's 29 j-fields, under the 48 KB of static shared memory.
-//
-// What bounds the list walk: the FP32 operations of the pair loop, as in
-// K1, but over the marked lanes only (the candidates inside the group's
-// skin-inflated bbox, a fraction of the streamed lanes). The ring keeps
-// every math pass at a full tile of 128 candidates whatever each chunk's
-// count, so the block syncs twice per 128 marked candidates, not per chunk.
+// What bounds the list walk: the same as K1 (the mask test, and the
+// gathers of the body phase), over the marked lanes only: about a third
+// of the pruned runs' lanes at Sedov resolution (1,332 of 3,735 per group
+// at side 40). Staging costs a few dozen integer operations per marked
+// lane (the rank select and the copies), which the mask phase's 64
+// targets per candidate amortise. Measured on the H100 at Sedov 100^3
+// (PERF.md, chip_smoke.py phase 8): density's walk 1.74 ms against a bound
+// of 0.23 ms (the mask over 1.28e9 candidate pairs); IAD 1.88 ms running
+// its own mask and 1.22 ms reading density's words, std momentum 3.24 and
+// 2.56 ms: a walk that reads the words pays the staging, the word reads
+// and its body, 8-11x their bound, the body phase's gathers (each lane at
+// its own candidate's rows, bank conflicts) most of it.
 
 #include <math_constants.h>
 
-#include "pair_ops.cuh"
+#include <cstring>
+
+#include "engine_window.cuh"
 
 // Mirror of sphexa_torch.sph.pair_lists.MarkArgs (same field order).
 struct MarkArgs {
@@ -84,7 +103,6 @@ struct MarkArgs {
 namespace {
 
 constexpr int WORDS = TILE / 32;  // 32-bit mask words per chunk
-constexpr int RING = 2 * TILE;    // staged candidates of the list walk
 
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
@@ -178,32 +196,25 @@ __global__ void __launch_bounds__(TILE) mark_kernel(const MarkArgs p) {
     if (t == 0) p.total[g] = slot_base;
 }
 
-// Pair math of one thread's target over `count` staged candidates from ring
-// position `base` (0 or TILE; base + count <= RING). The mask is K1's.
-template <class Op>
-__device__ __forceinline__ void consume(const float (*sj)[RING], const int* sidx, int base,
-                                        int count, const float* I, float h4, int tgt,
-                                        float* acc, int& nc, const EngineArgs& p) {
-    for (int k = base; k < base + count; ++k) {
-        const float rx = __fsub_rn(I[0], sj[0][k]);
-        const float ry = __fsub_rn(I[1], sj[1][k]);
-        const float rz = __fsub_rn(I[2], sj[2][k]);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
-                                   __fmul_rn(rz, rz));
-        bool mask = d2 < h4 && sidx[k] != tgt;
-        if (p.sym_j >= 0) mask = mask && __fmul_rn(d2, sj[p.sym_j][k]) < 4.0f;
-        if (mask) {
-            Op::template pair<RING>(I, sj, k, rx, ry, rz, d2, acc, p);
-            ++nc;
-        }
-    }
+// Rank-select: the position of the r-th (from 0) set bit of w.
+__device__ __forceinline__ int select_bit(unsigned w, int r) {
+    int pos = 0;
+    int c = __popc(w & 0xFFFFu);
+    if (r >= c) { r -= c; w >>= 16; pos += 16; }
+    c = __popc(w & 0xFFu);
+    if (r >= c) { r -= c; w >>= 8; pos += 8; }
+    c = __popc(w & 0xFu);
+    if (r >= c) { r -= c; w >>= 4; pos += 4; }
+    c = __popc(w & 0x3u);
+    if (r >= c) { r -= c; w >>= 2; pos += 2; }
+    return pos + (r >= static_cast<int>(w & 1u) ? 1 : 0);
 }
 
-template <class Op>
-__global__ void __launch_bounds__(256) list_walk(const EngineArgs p) {
+template <class Op, bool SYM>
+__global__ void __launch_bounds__(MAX_BLOCK, min_blocks<Op>())
+    list_walk(const __grid_constant__ EngineArgs p) {
     static_assert(Op::CUTOFF, "the list walk runs the SPH ops, which all cut off at 2 h_i");
-    __shared__ float sj[Op::NJ][RING];
-    __shared__ int sidx[RING];
+    extern __shared__ __align__(16) unsigned char smem[];
     const int g = blockIdx.x;
     const int t = threadIdx.x;
     const int G = blockDim.x;
@@ -213,7 +224,6 @@ __global__ void __launch_bounds__(256) list_walk(const EngineArgs p) {
     float I[Op::NI];
 #pragma unroll
     for (int f = 0; f < Op::NI; ++f) I[f] = p.ifields[f][ii];
-    const float h4 = __fmul_rn(__fmul_rn(4.0f, I[3]), I[3]);
 
     float acc[Op::NACC];
 #pragma unroll
@@ -223,51 +233,68 @@ __global__ void __launch_bounds__(256) list_walk(const EngineArgs p) {
     const int S = p.slot_cap;
     const int4* gbits = reinterpret_cast<const int4*>(p.bits) + static_cast<int64_t>(g) * S;
     const int nrun = p.ncells[g];
-    int slot = 0;     // slot of the current chunk
-    int staged = 0;   // candidates staged so far (block-uniform)
-    int done = 0;     // candidates consumed so far, a multiple of TILE
-    for (int w = 0; w < nrun; ++w) {
-        const int run = g * p.w3 + w;
-        const int s = p.starts[run];
-        const int len = p.lens[run];
-        const float shx = p.shift_x[run], shy = p.shift_y[run], shz = p.shift_z[run];
-        const int row0 = s / TILE;
-        const int nch = (s - row0 * TILE + len + TILE - 1) / TILE;
-        for (int c = 0; c < nch && slot < S; ++c, ++slot) {
-            const int4 q = gbits[slot];
-            const unsigned w0 = q.x, w1 = q.y, w2 = q.z, w3 = q.w;
-            const int c0 = __popc(w0), c1 = __popc(w1), c2 = __popc(w2);
-            const int cnt = c0 + c1 + c2 + __popc(w3);
-            if (cnt == 0) continue;
-            for (int l = t; l < TILE; l += G) {
-                const int wi = l >> 5;
-                const unsigned word = wi == 0 ? w0 : wi == 1 ? w1 : wi == 2 ? w2 : w3;
-                const unsigned bit = 1u << (l & 31);
-                if (!(word & bit)) continue;
-                const int rank = __popc(word & (bit - 1u)) + (wi > 0 ? c0 : 0) +
-                                 (wi > 1 ? c1 : 0) + (wi > 2 ? c2 : 0);
-                const int pos = (staged + rank) & (RING - 1);
-                const int cand = (row0 + c) * TILE + l;
-                sj[0][pos] = __fadd_rn(p.jfields[0][cand], shx);
-                sj[1][pos] = __fadd_rn(p.jfields[1][cand], shy);
-                sj[2][pos] = __fadd_rn(p.jfields[2][cand], shz);
-#pragma unroll
-                for (int f = 3; f < Op::NJ; ++f) sj[f][pos] = p.jfields[f][cand];
-                sidx[pos] = cand;
+    const int64_t row = static_cast<int64_t>(g) * p.w3;
+    // staging cursor (block-uniform): run, chunk in the run, slot, and the
+    // marked lanes of the slot already staged; the current run's start,
+    // first row and chunk count, and the current slot's mask words (the
+    // next slot's load is issued one slot ahead)
+    int cw = 0, cc = 0, slot = 0, r0 = 0;
+    int s = 0, row0 = 0, nch = 0;
+    auto load_run = [&]() {
+        if (cw < nrun) {
+            s = p.starts[row + cw];
+            const int len = p.lens[row + cw];
+            row0 = s / TILE;
+            nch = len > 0 ? (s - row0 * TILE + len + TILE - 1) / TILE : 0;
+        }
+    };
+    load_run();
+    int4 q = slot < S ? gbits[slot] : make_int4(0, 0, 0, 0);
+    auto stage = [&](int b) {
+        const WindowView v = window_view<Op::NJ>(smem, b);
+        int fill = 0;
+        while (fill < WINDOW && cw < nrun && slot < S) {
+            if (cc >= nch) {  // an empty run holds no slot
+                cc = 0;
+                ++cw;
+                load_run();
+                continue;
             }
-            staged += cnt;
-            if (staged - done >= TILE) {
-                __syncthreads();  // the tile is staged
-                consume<Op>(sj, sidx, done & (RING - 1), TILE, I, h4, tgt, acc, nc, p);
-                done += TILE;
-                __syncthreads();  // the tile is consumed before its half is restaged
+            const int4 qn = slot + 1 < S ? gbits[slot + 1] : q;
+            const unsigned w0 = q.x, w1 = q.y, w2 = q.z, w3 = q.w;
+            const int c0 = __popc(w0), c01 = c0 + __popc(w1), c012 = c01 + __popc(w2);
+            const int cnt = c012 + __popc(w3);
+            const int take = min(WINDOW - fill, cnt - r0);
+            for (int pos = first_own(fill, t, G); pos < fill + take; pos += G) {
+                const int r = r0 + pos - fill;  // rank among the slot's marked lanes
+                const int lane = r < c0     ? select_bit(w0, r)
+                                 : r < c01  ? 32 + select_bit(w1, r - c0)
+                                 : r < c012 ? 64 + select_bit(w2, r - c01)
+                                            : 96 + select_bit(w3, r - c012);
+                stage_position(v, pos, (row0 + cc) * TILE + lane, cw, p);
+            }
+            fill += take;
+            r0 += take;
+            if (r0 >= cnt) {  // the slot is staged: on to the next chunk
+                r0 = 0;
+                ++slot;
+                q = qn;
+                if (++cc >= nch) {
+                    cc = 0;
+                    ++cw;
+                    load_run();
+                }
             }
         }
-    }
-    if (staged > done) {
-        __syncthreads();
-        consume<Op>(sj, sidx, done & (RING - 1), staged - done, I, h4, tgt, acc, nc, p);
-    }
+        return fill;
+    };
+    unsigned* gw = p.mask_words && p.mask_mode
+                       ? p.mask_words + static_cast<int64_t>(p.word_off[g]) * G + t
+                       : nullptr;
+    window_pipeline<Op, false, SYM>(smem, stage, I, tgt, p.shift_x + row, p.shift_y + row,
+                                       p.shift_z + row, 0.0f, 0.0f, 0.0f, acc, nc, p, gw,
+                                       gw ? p.mask_mode : 0);
+
     if (tgt < p.n) {
         float out[Op::NOUT];
         Op::finalize(I, acc, out, p);
@@ -277,11 +304,51 @@ __global__ void __launch_bounds__(256) list_walk(const EngineArgs p) {
     }
 }
 
-template <class Op>
-int launch_walk(const EngineArgs* a, void* stream) {
-    if (a->num_groups <= 0) return 0;
-    list_walk<Op><<<a->num_groups, a->group, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+template <class Op, bool SYM>
+int walk_k(const EngineArgs* a, cudaStream_t st, int32_t* info) {
+    auto kern = list_walk<Op, SYM>;
+    using L = WindowLayout<Op::NJ>;
+    if (info) {
+        const cudaError_t attr = set_window_attrs(kern, L::bytes(MAX_BLOCK));
+        if (attr != cudaSuccess) return static_cast<int>(attr);
+        return kernel_info(kern, L::bytes(a->group), a->group, info);
+    }
+    static const cudaError_t attr = set_window_attrs(kern, L::bytes(MAX_BLOCK));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kern<<<a->num_groups, a->group, L::bytes(a->group), st>>>(*a);
     return static_cast<int>(cudaGetLastError());
+}
+
+// one launch, or with `info` the instantiation's static facts instead;
+// the symmetric cutoff is compiled in only for the ops that may take it
+template <class Op>
+int launch_walk(const EngineArgs* a, void* stream, int32_t* info = nullptr) {
+    if (!info && a->num_groups <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (Op::SYM) {
+        if (a->sym_j >= 0) return walk_k<Op, true>(a, st, info);
+    } else if (a->sym_j >= 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return walk_k<Op, false>(a, st, info);
+}
+
+// every list-walk entry point, by name (without the _lists suffix)
+int walk_dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
+    const bool v = a->variant != 0;
+    if (!std::strcmp(name, "density")) return launch_walk<DensityOp>(a, stream, info);
+    if (!std::strcmp(name, "iad")) return launch_walk<IadOp>(a, stream, info);
+    if (!std::strcmp(name, "momentum_energy_std"))
+        return launch_walk<MomentumEnergyStdOp>(a, stream, info);
+    if (!std::strcmp(name, "ve_def_gradh")) return launch_walk<VeDefGradhOp>(a, stream, info);
+    if (!std::strcmp(name, "iad_divv_curlv"))
+        return v ? launch_walk<DivvCurlvOp<true>>(a, stream, info)
+                 : launch_walk<DivvCurlvOp<false>>(a, stream, info);
+    if (!std::strcmp(name, "av_switches")) return launch_walk<AvSwitchesOp>(a, stream, info);
+    if (!std::strcmp(name, "momentum_energy_ve"))
+        return v ? launch_walk<MomentumEnergyVeOp<true>>(a, stream, info)
+                 : launch_walk<MomentumEnergyVeOp<false>>(a, stream, info);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -294,24 +361,38 @@ int launch_mark(const MarkArgs* a, void* stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-int launch_momentum_energy_std_lists(const EngineArgs* a, void* stream) {
-    return launch_walk<MomentumEnergyStdOp>(a, stream);
+int launch_density_lists(const EngineArgs* a, void* stream) {
+    return walk_dispatch("density", a, stream, nullptr);
 }
 
-// divv/curlv takes the list walk only with gradv (the JAX dispatch streams
-// the plain form over the pruned runs)
+int launch_iad_lists(const EngineArgs* a, void* stream) {
+    return walk_dispatch("iad", a, stream, nullptr);
+}
+
+int launch_momentum_energy_std_lists(const EngineArgs* a, void* stream) {
+    return walk_dispatch("momentum_energy_std", a, stream, nullptr);
+}
+
+int launch_ve_def_gradh_lists(const EngineArgs* a, void* stream) {
+    return walk_dispatch("ve_def_gradh", a, stream, nullptr);
+}
+
 int launch_iad_divv_curlv_lists(const EngineArgs* a, void* stream) {
-    if (!a->variant) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_walk<DivvCurlvOp<true>>(a, stream);
+    return walk_dispatch("iad_divv_curlv", a, stream, nullptr);
 }
 
 int launch_av_switches_lists(const EngineArgs* a, void* stream) {
-    return launch_walk<AvSwitchesOp>(a, stream);
+    return walk_dispatch("av_switches", a, stream, nullptr);
 }
 
 int launch_momentum_energy_ve_lists(const EngineArgs* a, void* stream) {
-    return a->variant ? launch_walk<MomentumEnergyVeOp<true>>(a, stream)
-                      : launch_walk<MomentumEnergyVeOp<false>>(a, stream);
+    return walk_dispatch("momentum_energy_ve", a, stream, nullptr);
+}
+
+// the static facts (kernel_info in engine_window.cuh) of the list-walk
+// instantiation that launch_<name>_lists would run with these arguments
+int list_walk_info(const char* name, const EngineArgs* a, int32_t* out) {
+    return walk_dispatch(name, a, nullptr, out);
 }
 
 }  // extern "C"

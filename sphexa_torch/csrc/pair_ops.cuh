@@ -5,26 +5,29 @@
 // op (sphexa_tpu/sph/pallas_pairs.py) with its field order and signs.
 //
 // Each op's pair body reads candidate k's j-fields from a shared-memory
-// tile J[field][W]; W is the tile's row width (the streaming engine's 128,
-// the list walk's 256-entry ring), so one body serves both engines.
+// window J[field][W]; W is the window's row width (engine_window.cuh),
+// so one body serves both engines.
 //
 // An op's CUTOFF says whether its mask holds the SPH support test
 // d^2 < 4 h_i^2 (every SPH op) or takes every candidate of its runs (the
 // gravity near field, which only the streaming engine runs); only an op
-// without the cutoff reads the run-time allow_self flag.
+// without the cutoff reads the run-time allow_self flag. SYM says whether
+// its mask may add the symmetric cutoff d^2 < 4 h_j^2 (the momentum ops,
+// when the launch names a sym_j field): the engines compile the mask with
+// and without it.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-constexpr int TILE = 128;   // candidates per shared-memory tile = lanes of a chunk
+constexpr int TILE = 128;   // lanes of a chunk: one 128-aligned row of the sorted arrays
 constexpr int MAX_F = 32;   // field pointers an op may pass per side
 constexpr int MAX_OUT = 8;
 constexpr int NCOEF = 14;   // degree-13 kernel polynomial
 // layout version of EngineArgs, mirrored in sphexa_torch/kernels/build.py
 // and sphexa_torch/sph/pair_engine.py
-constexpr int ABI_VERSION = 5;
+constexpr int ABI_VERSION = 6;
 
 // Mirror of sphexa_torch.sph.pair_engine.EngineArgs (same field order).
 struct EngineArgs {
@@ -61,6 +64,13 @@ struct EngineArgs {
     const float* dt;         // AV switches: () device scalar, the step's dt
     int32_t variant;         // template form: divv/curlv gradv, momentum av_clean
     int32_t allow_self;      // ops without the cutoff: the target's own pair counts
+    // list walk: the mask phase's accepted-candidate words of every group,
+    // (word_off[g] + j) * group + t for word j of target t (words of 32
+    // candidates of the group's marked-lane sequence), or null; mode 1
+    // writes them, mode 2 reads them instead of running the mask phase
+    uint32_t* mask_words;
+    const int32_t* word_off;
+    int32_t mask_mode;
 };
 
 // W from u = d^2/h^2: Horner in s = clamp(u/2 - 1, -1, 1), floored at 0.
@@ -95,6 +105,7 @@ struct DensityOp {
     static constexpr int NI = 6, NJ = 4, NACC = 1, NOUT = 1;
     static constexpr bool WANT_NC = true;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float, float, float, float d2, float* acc,
@@ -114,6 +125,7 @@ struct IadOp {
     static constexpr int NI = 5, NJ = 4, NACC = 6, NOUT = 6;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
@@ -156,6 +168,7 @@ struct MomentumEnergyStdOp {
     static constexpr int NI = 18, NJ = 17, NACC = 5, NOUT = 5;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = true;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
@@ -218,6 +231,7 @@ struct VeDefGradhOp {
     static constexpr int NI = 7, NJ = 5, NACC = 3, NOUT = 2;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float, float, float, float d2, float* acc,
@@ -253,6 +267,7 @@ struct DivvCurlvOp {
     static constexpr int NI = 15, NJ = 7, NACC = GRADV ? 9 : 4, NOUT = GRADV ? 8 : 2;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
@@ -302,6 +317,7 @@ struct AvSwitchesOp {
     static constexpr int NI = 18, NJ = 9, NACC = 4, NOUT = 1;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
@@ -349,6 +365,7 @@ struct MomentumEnergyVeOp {
     static constexpr int NI = AVCLEAN ? 30 : 23, NJ = AVCLEAN ? 29 : 23, NACC = 6, NOUT = 5;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = true;
+    static constexpr bool SYM = true;
     // r . G r with the symmetric velocity gradient G = (g11 g12 g13 g22 g23 g33)
     __device__ __forceinline__ static float sym_gv(float g11, float g12, float g13, float g22,
                                                    float g23, float g33, float rx, float ry,
@@ -451,6 +468,7 @@ struct GravityP2POp {
     static constexpr int NI = 4, NJ = 5, NACC = 4, NOUT = 4;
     static constexpr bool WANT_NC = false;
     static constexpr bool CUTOFF = false;
+    static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,

@@ -30,11 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: C entry points of the library and their argument types
 _ENTRY_POINTS = {
     "launch_density": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_density_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_iad": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_iad_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_std": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_std_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_mark": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_ve_def_gradh": [ctypes.c_void_p, ctypes.c_void_p],
+    "launch_ve_def_gradh_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_iad_divv_curlv": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_iad_divv_curlv_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_av_switches": [ctypes.c_void_p, ctypes.c_void_p],
@@ -45,11 +48,15 @@ _ENTRY_POINTS = {
     "launch_compact_class_lists": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p],
+    # (op name, EngineArgs*, int32 out[7]): an instantiation's registers,
+    # spills, shared memory and occupancy
+    "pair_engine_info": [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p],
+    "list_walk_info": [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p],
 }
 
 #: layout version of EngineArgs (csrc/pair_ops.cuh ABI_VERSION), checked
 #: against the library's
-ABI_VERSION = 5
+ABI_VERSION = 6
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -45,16 +45,20 @@ def ve_chain_vs_plain(name: str, ss, box, const, nbr, av_clean: bool, keys=None,
     1e-6; a and du rtol 2e-4 / atol 1e-5 max|.|; min dt rel 1e-4.
 
     Returns (results, chain): per-entry-point results keyed as in
-    ``pe.LAUNCHES`` ("xmass" for the density kernel's VE use) with each
-    max abs error, and the kernel chain's tensors (xm, nc, kx, gradh, prho,
-    c, cs, dv, alpha, gradv) for callers that time or count the ops."""
-    kw = {"ranges": ranges, "lists": lists}
-    walk = lists is not None
+    ``pe.LAUNCHES`` (the ``_lists`` entry points with ``lists``; "xmass"
+    for the density kernel's VE use) with each max abs error, and the
+    kernel chain's tensors (xm, nc, kx, gradh, prho, c, cs, dv, alpha,
+    gradv) for callers that time or count the ops. In list mode the ops run
+    as the VE force stage runs them: the xmass walk keeps its mask and the
+    walks after it read it (``pe.engine_lists_kernel``'s mask modes)."""
+    kw = {"ranges": ranges, "lists": lists, "mask": "read"}
+    sfx = "_lists" if lists is not None else ""
     x, y, z, h, m, vel = ss.x, ss.y, ss.z, ss.h, ss.m, (ss.vx, ss.vy, ss.vz)
 
     res = {}
-    xm, nc, _ = pe.pallas_xmass(x, y, z, h, m, keys, box, const, nbr, **kw)
-    xm_p, nc_p, _ = pe.xmass_plain(x, y, z, h, m, keys, box, const, nbr, **kw)
+    wr = {**kw, "mask": "write"}
+    xm, nc, _ = pe.pallas_xmass(x, y, z, h, m, keys, box, const, nbr, **wr)
+    xm_p, nc_p, _ = pe.xmass_plain(x, y, z, h, m, keys, box, const, nbr, **wr)
     if not torch.equal(nc, nc_p):
         raise AssertionError(f"{name}: xmass nc differs at {int((nc != nc_p).sum())} targets")
     res["xmass"] = {"max_abs_err": _close(name, "xm", xm, xm_p, 1e-5, 0.0),
@@ -62,7 +66,7 @@ def ve_chain_vs_plain(name: str, ss, box, const, nbr, av_clean: bool, keys=None,
     (kx, gradh), _ = pe.pallas_ve_def_gradh(x, y, z, h, m, xm, keys, box, const, nbr, **kw)
     (kx_p, gradh_p), _ = pe.ve_def_gradh_plain(x, y, z, h, m, xm, keys, box, const, nbr,
                                                **kw)
-    res["ve_def_gradh"] = {"max_abs_err": max(
+    res["ve_def_gradh" + sfx] = {"max_abs_err": max(
         _close(name, "kx", kx, kx_p, 1e-5, 0.0),
         _close(name, "gradh", gradh, gradh_p, 5e-4, 1e-5))}
     prho, c, _, _ = compute_eos_ve(ss.temp, m, kx, xm, gradh, const)
@@ -71,15 +75,13 @@ def ve_chain_vs_plain(name: str, ss, box, const, nbr, av_clean: bool, keys=None,
     dv, _ = pe.pallas_iad_divv_curlv(*dargs, with_gradv=av_clean, **kw)
     dv_p, _ = pe.iad_divv_curlv_plain(*dargs, with_gradv=av_clean, **kw)
     scale = float(dv_p[0].abs().max())
-    dkey = "iad_divv_curlv_lists" if walk and av_clean else "iad_divv_curlv"
-    res[dkey] = {"max_abs_err": max(
+    res["iad_divv_curlv" + sfx] = {"max_abs_err": max(
         _close(name, f"divv/curlv output {k}", a, b, 1e-4, 1e-5 * scale)
         for k, (a, b) in enumerate(zip(dv, dv_p)))}
     aargs = (x, y, z, *vel, h, c, kx, xm, dv[0], ss.alpha, *cs, keys, box, ss.min_dt,
              const, nbr)
     alpha, _ = pe.pallas_av_switches(*aargs, **kw)
-    akey = "av_switches_lists" if walk else "av_switches"
-    res[akey] = {"max_abs_err": _close(name, "alpha", alpha,
+    res["av_switches" + sfx] = {"max_abs_err": _close(name, "alpha", alpha,
                                        pe.av_switches_plain(*aargs, **kw)[0], 1e-4, 1e-6)}
     margs = (x, y, z, *vel, h, m, prho, c, kx, xm, alpha, *cs, keys, box, const, nbr)
     gradv = tuple(dv[2:]) if av_clean else None
@@ -90,8 +92,7 @@ def ve_chain_vs_plain(name: str, ss, box, const, nbr, av_clean: bool, keys=None,
     dk, dp = float(out[4]), float(out_p[4])
     if abs(dk - dp) > 1e-4 * abs(dp):
         raise AssertionError(f"{name}: VE min dt {dk} vs plain {dp}")
-    mkey = "momentum_energy_ve_lists" if walk else "momentum_energy_ve"
-    res[mkey] = {"max_abs_err": err, "min_dt_rel_err": abs(dk - dp) / abs(dp)}
+    res["momentum_energy_ve" + sfx] = {"max_abs_err": err, "min_dt_rel_err": abs(dk - dp) / abs(dp)}
     chain = SimpleNamespace(xm=xm, nc=nc, kx=kx, gradh=gradh, prho=prho, c=c, cs=cs,
                             dv=dv, alpha=alpha, gradv=gradv)
     return res, chain

@@ -147,24 +147,27 @@ def _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az, diag):
 def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
                 gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
     """The std-SPH force stage: [sort -> prologue ->] density -> EOS -> IAD
-    -> momentum/energy [-> gravity]; with ``lists`` the runs are the
-    lists' and the momentum op walks their marked lanes. Returns (state,
-    box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c,
-    diagnostics or None)."""
+    -> momentum/energy [-> gravity]; with ``lists`` every pair op walks
+    the lists' marked lanes, and the density walk keeps its mask for the
+    later walks (``pair_engine.engine_lists_kernel``'s mask modes: the
+    positions and smoothing lengths are the same). Returns (state, box,
+    ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diagnostics or
+    None)."""
     const = cfg.const
     state, box, keys, diag = _force_stage_prologue(state, box, cfg, lists)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
         pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
     rho, nc, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, cfg.nbr,
-                                   ranges=ranges)
+                                   ranges=ranges, lists=lists, mask="write")
     p, c = compute_eos_std(state.temp, rho, const)
     (c11, c12, c13, c22, c23, c33), _ = pe.pallas_iad(
-        x, y, z, h, m / rho, keys, box, const, cfg.nbr, ranges=ranges)
+        x, y, z, h, m / rho, keys, box, const, cfg.nbr, ranges=ranges, lists=lists,
+        mask="read")
     ax, ay, az, du, dt_courant, _ = pe.pallas_momentum_energy_std(
         x, y, z, state.vx, state.vy, state.vz, h, m, rho, p, c,
         c11, c12, c13, c22, c23, c33, keys, box, const, cfg.nbr, ranges=ranges,
-        lists=lists)
+        lists=lists, mask="read")
     ax, ay, az, extra_dts, diag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                 diag)
     return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, ranges.occupancy,
@@ -238,7 +241,8 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     """The VE force stage (HydroVeProp::computeForces, ve_hydro.hpp:131-208):
     [sort -> prologue ->] xmass -> grad-h -> EOS -> IAD -> divv/curlv -> AV
     switches -> momentum/energy [-> gravity], one set of runs (or the
-    lists') for all six ops, then the time step: min of Courant,
+    lists', the xmass walk keeping its mask for the five after it) for all
+    six ops, then the time step: min of Courant,
     Krho/|max divv|, 1.1x the previous dt [and the acceleration
     condition]. Returns (state, box, ax, ay, az, du, dt, alpha, nc, occ,
     rho, diagnostics)."""
@@ -248,20 +252,21 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     vx, vy, vz = state.vx, state.vy, state.vz
     ranges = None if lists is not None else pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
     kw = {"ranges": ranges, "lists": lists}
+    rd = {**kw, "mask": "read"}  # the walks after xmass read its mask
 
-    xm, nc, occ = pe.pallas_xmass(x, y, z, h, m, keys, box, const, nbr, **kw)
-    (kx, gradh), _ = pe.pallas_ve_def_gradh(x, y, z, h, m, xm, keys, box, const, nbr, **kw)
+    xm, nc, occ = pe.pallas_xmass(x, y, z, h, m, keys, box, const, nbr, mask="write", **kw)
+    (kx, gradh), _ = pe.pallas_ve_def_gradh(x, y, z, h, m, xm, keys, box, const, nbr, **rd)
     prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
-    cs, _ = pe.pallas_iad(x, y, z, h, xm / kx, keys, box, const, nbr, **kw)
+    cs, _ = pe.pallas_iad(x, y, z, h, xm / kx, keys, box, const, nbr, **rd)
     dvout, _ = pe.pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, *cs, keys, box,
-                                        const, nbr, with_gradv=cfg.av_clean, **kw)
+                                        const, nbr, with_gradv=cfg.av_clean, **rd)
     divv, _curlv, gradv = _split_dvout(dvout, cfg.av_clean)
     dt_rho = rho_timestep(divv, const)
     alpha, _ = pe.pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, state.alpha,
-                                     *cs, keys, box, state.min_dt, const, nbr, **kw)
+                                     *cs, keys, box, state.min_dt, const, nbr, **rd)
     ax, ay, az, du, dt_courant, _ = pe.pallas_momentum_energy_ve(
         x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, keys, box, const, nbr,
-        nc=nc, gradv=gradv, **kw)
+        nc=nc, gradv=gradv, **rd)
 
     ax, ay, az, extra_dts, ldiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                  ldiag)

@@ -273,8 +273,9 @@ class Simulation:
         return self._want_lists and self._cfg.list_slot_cap > 0
 
     def _rebuild_lists(self) -> None:
-        """(Re)build the lists: regrow, sort, mark. One host read (the
-        overflow sentinel); a slot overflow grows the slot margin 1.5x and
+        """(Re)build the lists: regrow, sort, mark. Host reads: the
+        overflow sentinel, and on the card the size of the list walk's
+        mask-word buffer; a slot overflow grows the slot margin 1.5x and
         re-sizes, at most three times."""
         for _ in range(3):
             if not self._use_lists:

@@ -11,13 +11,23 @@ per-pair minimum-image fold when the window spans the whole periodic grid,
 ``engine_fold``), masks pairs to ``d^2 < 4 h_i^2`` (and ``d^2 < 4 h_j^2``
 for the symmetric momentum cutoff) minus the self pair, and accumulates.
 
-With persistent lists (sph/pair_lists.py) the ops take ``lists=``:
-density, IAD, the VE grad-h op and divv/curlv stream the lists' pruned
-runs through the same engine; the momentum ops, the AV switches and the
-gradv (av_clean) form of divv/curlv run the list walk, which does the
-pair math only on the lanes the mark pass kept
-(``engine_lists_kernel``/``engine_lists_plain``), as the JAX dispatch
-picks its engines.
+With persistent lists (sph/pair_lists.py) the ops take ``lists=``, and
+every SPH op then runs the list walk (csrc/pair_lists.cu,
+``engine_lists_kernel``/``engine_lists_plain``), which does the pair
+math only on the lanes the mark pass kept. The JAX dispatch sends
+density, IAD, grad-h and the plain divv/curlv to the streaming engine
+over the lists' pruned runs (the TPU kernel's ``skip_slots`` form),
+because the TPU favours dense 128-lane chunks; on the card the marks
+cost nothing to use, and the pairs and their order are the same: every
+pair within 2 h of a target is among the marked lanes while the lists
+are valid (a geometric test, independent of any op's output), and both
+engines take a target's candidates in ascending slot and lane order.
+The streaming engine (csrc/pair_engine.cu) serves the streaming steps
+(``use_lists=False``, fold-mode grids, steps under self-gravity) and the
+gravity near field. The ops of a list-mode step share one mask (the same
+positions and smoothing lengths), so the force stage runs it once: the
+density walk keeps its words (``mask="write"``) and the walks after it
+read them (``mask="read"``; ``engine_lists_kernel``).
 
 Op wrappers, named as in the JAX package: std ``pallas_density``,
 ``pallas_iad``, ``pallas_momentum_energy_std``; VE ``pallas_xmass``
@@ -55,10 +65,12 @@ from sphexa_torch.sph.kernels import (
 #: kernel launches per op since the last ``reset_launches()``; only the
 #: wrappers' CUDA branch adds to it
 LAUNCHES: Dict[str, int] = {
-    "density": 0, "iad": 0, "momentum_energy_std": 0, "momentum_energy_std_lists": 0,
-    "mark": 0, "ve_def_gradh": 0, "iad_divv_curlv": 0, "iad_divv_curlv_lists": 0,
-    "av_switches": 0, "av_switches_lists": 0, "momentum_energy_ve": 0,
-    "momentum_energy_ve_lists": 0, "gravity_p2p": 0, "compact_class_lists": 0}
+    "density": 0, "density_lists": 0, "iad": 0, "iad_lists": 0,
+    "momentum_energy_std": 0, "momentum_energy_std_lists": 0, "mark": 0,
+    "ve_def_gradh": 0, "ve_def_gradh_lists": 0, "iad_divv_curlv": 0,
+    "iad_divv_curlv_lists": 0, "av_switches": 0, "av_switches_lists": 0,
+    "momentum_energy_ve": 0, "momentum_energy_ve_lists": 0, "gravity_p2p": 0,
+    "compact_class_lists": 0}
 
 #: pair elements per tile of the plain version (bounds its transient
 #: memory: the momentum op keeps ~50 float32 temporaries of a tile)
@@ -607,6 +619,13 @@ def engine_plain(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     get the kernel's shift or fold and masks; the op's pair math then runs
     on the masked pairs and is reduced per target. Returns (outs (n,) x
     num_out, nc (n,) int32)."""
+    return _engine_plain_core(spec, i_fields, j_fields, group, consts,
+                              *_run_candidates(ranges, fold))
+
+
+def _run_candidates(ranges: GroupRanges, fold: bool):
+    """(total, candidates, boxl) of the streaming engine: each group's runs
+    in order, with their shifts (None on the fold path)."""
     lens = ranges.lens.to(torch.int64)
     starts = ranges.starts.to(torch.int64)
     cum = torch.cumsum(lens, dim=1)
@@ -623,8 +642,7 @@ def engine_plain(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         sh = None if fold else [a[sl].gather(1, run) for a in shifts]
         return torch.where(valid, cand, 0), valid, sh
 
-    return _engine_plain_core(spec, i_fields, j_fields, group, consts, total,
-                              candidates, ranges.boxl)
+    return total, candidates, ranges.boxl
 
 
 def chunk_slots(ranges: GroupRanges, slot_cap: int):
@@ -663,6 +681,13 @@ def engine_lists_plain(spec: OpSpec, lists, i_fields: Sequence,
     are the lanes its mark bits keep, in slot order, each with its run's
     shift; the pair math and reduction are ``engine_plain``'s. Returns
     (outs (n,) x num_out, nc (n,) int32)."""
+    return _engine_plain_core(spec, i_fields, j_fields, group, consts,
+                              *_list_candidates(lists))
+
+
+def _list_candidates(lists):
+    """(total, candidates, boxl) of the list walk: each group's marked
+    lanes in slot order, with their runs' shifts."""
     ranges = lists.ranges
     # slots past a group's pruned chunks hold no marked lane
     w_of_s, c_of_s, _ = chunk_slots(ranges, lists.slot_cap)
@@ -688,28 +713,25 @@ def engine_lists_plain(spec: OpSpec, lists, i_fields: Sequence,
             sh.append(t)
         return cand, valid, sh
 
-    return _engine_plain_core(spec, i_fields, j_fields, group, consts, total,
-                              candidates, ranges.boxl)
+    return total, candidates, ranges.boxl
 
 
-def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
-                       group: int, consts: dict, total: torch.Tensor,
-                       candidates: Callable, boxl: torch.Tensor):
-    """Masked pair math over each group's candidates, in chunks of groups
+def _masked_tiles(spec: OpSpec, i_fields: Sequence, j_fields: Sequence, group: int,
+                  consts: dict, total: torch.Tensor, candidates: Callable,
+                  boxl: torch.Tensor):
+    """The engines' mask over each group's candidates, in chunks of groups
     whose padded (groups, G, C) tiles fit the budget. ``total`` holds each
     group's candidate count; ``candidates(groups, C)`` returns the padded
     (groups, C) candidate indices, their validity and their per-candidate
-    shifts (None: fold every pair with the periods ``boxl``)."""
-    n = i_fields[0].shape[0]
+    shifts (None: fold every pair with the periods ``boxl``). Yields
+    (groups slice, candidates, mask, rx, ry, rz, d2), the geometry and
+    mask (groups, G, C) each."""
     dev = i_fields[0].device
     tile_elems = PLAIN_TILE_ELEMS[dev.type]
-    I_all = [_pad_groups(a, group) for a in i_fields]  # (NG, G) each
-    ng = I_all[0].shape[0]
+    I4 = [_pad_groups(a, group) for a in i_fields[:4]]  # (NG, G) each
+    ng = I4[0].shape[0]
     lx, ly, lz = (boxl[d] for d in range(3))
     tgt_all = torch.arange(ng * group, device=dev).reshape(ng, group)
-
-    outs = [torch.empty(ng, group, device=dev) for _ in range(spec.num_out)]
-    nc_out = torch.empty(ng, group, dtype=torch.int32, device=dev)
     g0 = 0
     total_host = total.tolist()
     while g0 < ng:
@@ -723,7 +745,7 @@ def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
         J = [a[cand][:, None, :] for a in j_fields[:3]]  # (gc, 1, C)
         if spec.sym_j is not None:
             J.append(j_fields[spec.sym_j][cand][:, None, :])
-        xi, yi, zi, hi = (a[sl][:, :, None] for a in I_all[:4])  # (gc, G, 1)
+        xi, yi, zi, hi = (a[sl][:, :, None] for a in I4)  # (gc, G, 1)
         if sh is None:
             rx = xi - J[0]
             ry = yi - J[1]
@@ -744,11 +766,28 @@ def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
                 mask = mask & (d2 * J[3] < 4.0)
         else:
             mask = valid[:, None, :] & (not_self | bool(consts.get("allow_self", False)))
-        # the pair math runs on the masked pairs only, in candidate order,
-        # and each target's terms are summed (or maxed, from 0) in turn
+        yield sl, cand, mask, rx, ry, rz, d2
+        g0 = g1
+
+
+def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
+                       group: int, consts: dict, total: torch.Tensor,
+                       candidates: Callable, boxl: torch.Tensor):
+    """Masked pair math over each group's candidates (``_masked_tiles``):
+    the op's pair terms on the masked pairs only, in candidate order, each
+    target's terms summed (or maxed, from 0) in turn, then its finalize."""
+    n = i_fields[0].shape[0]
+    dev = i_fields[0].device
+    I_all = [_pad_groups(a, group) for a in i_fields]  # (NG, G) each
+    ng = I_all[0].shape[0]
+    outs = [torch.empty(ng, group, device=dev) for _ in range(spec.num_out)]
+    nc_out = torch.empty(ng, group, dtype=torch.int32, device=dev)
+    for sl, cand, mask, rx, ry, rz, d2 in _masked_tiles(
+            spec, i_fields, j_fields, group, consts, total, candidates, boxl):
+        gc = sl.stop - sl.start
         gi, ti, ci = mask.nonzero(as_tuple=True)
         flat = gi * group + ti
-        width = (g1 - g0) * group
+        width = gc * group
         geom = PairGeom(rx[gi, ti, ci], ry[gi, ti, ci], rz[gi, ti, ci], d2[gi, ti, ci])
         jc = cand[gi, ci]
         terms = spec.pair(geom, [a[sl][gi, ti] for a in I_all],
@@ -760,14 +799,51 @@ def _engine_plain_core(spec: OpSpec, i_fields: Sequence, j_fields: Sequence,
                 acc.index_add_(0, flat, t)
             else:
                 acc.scatter_reduce_(0, flat, t, "amax", include_self=True)
-            accs.append(acc.reshape(g1 - g0, group))
-        nc = torch.bincount(flat, minlength=width).reshape(g1 - g0, group).to(torch.int32)
+            accs.append(acc.reshape(gc, group))
+        nc = torch.bincount(flat, minlength=width).reshape(gc, group).to(torch.int32)
         res = spec.finalize([a[sl] for a in I_all], accs, nc, consts)
         for o, r in zip(outs, res):
             o[sl] = r
         nc_out[sl] = nc
-        g0 = g1
     return [o.reshape(-1)[:n] for o in outs], nc_out.reshape(-1)[:n]
+
+
+def body_pass_counts(spec: OpSpec, i_fields: Sequence, j_fields: Sequence, group: int,
+                     consts: dict, windows: Sequence[int], ranges: Optional[GroupRanges] = None,
+                     fold: bool = False, lists=None) -> dict:
+    """How much of an engine's pair-body work holds a pair, counted in
+    lane-passes (one warp lane running the body once), on the engine's own
+    candidates: each group's runs (``ranges``, ``fold``) or, with
+    ``lists``, its marked lanes, and the op's mask. Under the union rule a
+    warp of 32 targets runs the body on every candidate any of its lanes
+    accepts; with per-lane windows of W consecutive candidates it runs, per
+    window, as many passes as its busiest lane has pairs there (the tail
+    group's padding lanes, which re-read the last particle, run passes but
+    hold no pair). Returns
+    {"pairs": neighbour pairs, "union": lane-passes, "windows": {W:
+    lane-passes}}; a pair count over lane-passes is that rule's efficiency.
+    ``group`` must be a multiple of 32."""
+    if group % 32:
+        raise ValueError(f"group must be a multiple of 32, got {group}")
+    if lists is not None:
+        total, candidates, boxl = _list_candidates(lists)
+    else:
+        total, candidates, boxl = _run_candidates(ranges, fold)
+    n = i_fields[0].shape[0]
+    pairs, union, per = 0, 0, {w: 0 for w in windows}
+    for sl, _, mask, *_ in _masked_tiles(spec, i_fields, j_fields, group, consts, total,
+                                         candidates, boxl):
+        gc, _, c = mask.shape
+        warps = mask.reshape(gc, group // 32, 32, c)
+        # the tail group's padding lanes run the body too, but hold no pair
+        real = torch.arange(sl.start * group, sl.stop * group, device=mask.device) < n
+        pairs += int((mask & real.reshape(gc, group, 1)).sum())
+        union += 32 * int(warps.any(dim=2).sum())
+        for w in windows:
+            padded = torch.cat([warps, warps.new_zeros(gc, group // 32, 32, (-c) % w)], dim=-1)
+            busiest = padded.reshape(gc, group // 32, 32, -1, w).sum(dim=-1).amax(dim=2)
+            per[w] += 32 * int(busiest.sum())
+    return {"pairs": pairs, "union": union, "windows": per}
 
 
 # ---------------------------------------------------------------------------
@@ -781,7 +857,7 @@ _NCOEF = 14
 
 class EngineArgs(ctypes.Structure):
     """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order;
-    its layout version, ABI 5, is kernels.build.ABI_VERSION)."""
+    its layout version, ABI 6, is kernels.build.ABI_VERSION)."""
 
     _fields_ = [
         ("starts", ctypes.c_void_p),
@@ -817,6 +893,9 @@ class EngineArgs(ctypes.Structure):
         ("dt", ctypes.c_void_p),
         ("variant", ctypes.c_int32),
         ("allow_self", ctypes.c_int32),
+        ("mask_words", ctypes.c_void_p),
+        ("word_off", ctypes.c_void_p),
+        ("mask_mode", ctypes.c_int32),
     ]
 
 
@@ -835,6 +914,14 @@ def check_table(name: str, a: torch.Tensor, dtype, shape, dev) -> None:
                          f"{a.dtype} {tuple(a.shape)} on {a.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _coeff_array(coeffs: tuple):
+    """A kernel polynomial's coefficients as the EngineArgs array."""
+    if len(coeffs) != _NCOEF:
+        raise ValueError(f"the kernel takes {_NCOEF} polynomial coefficients")
+    return (ctypes.c_float * _NCOEF)(*coeffs)
+
+
 def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
                  j_fields: Sequence, fold: bool, group: int, consts: dict):
     """Check the inputs of a CUDA launch and fill its EngineArgs; returns
@@ -847,10 +934,12 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         raise ValueError(f"group must be a multiple of 32 in (0, 256], got {group}")
     if len(i_fields) != spec.num_i or len(j_fields) != spec.num_j:
         raise ValueError(f"{spec.name}: field count mismatch")
-    for k, a in enumerate(i_fields):
-        check_cuda_f32(f"{spec.name} i-field {k}", a, n, dev)
-    for k, a in enumerate(j_fields):
-        check_cuda_f32(f"{spec.name} j-field {k}", a, n, dev)
+    f32 = torch.float32
+    for side, fields in (("i", i_fields), ("j", j_fields)):
+        for k, a in enumerate(fields):
+            if a.dtype is not f32 or a.shape != (n,) or a.device != dev \
+                    or not a.is_contiguous():
+                check_cuda_f32(f"{spec.name} {side}-field {k}", a, n, dev)
     ng, w3 = ranges.starts.shape
     if ng != -(-n // group):
         raise ValueError(f"ranges hold {ng} groups, {n} targets need {-(-n // group)}")
@@ -863,8 +952,8 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     check_table("ranges.ncells", ranges.ncells, torch.int32, (ng,), dev)
     check_table("ranges.boxl", ranges.boxl, torch.float32, (3,), dev)
 
-    outs = [torch.empty(n, dtype=torch.float32, device=dev)
-            for _ in range(spec.num_out)]
+    # one allocation for all outputs, a row each
+    outs = list(torch.empty(spec.num_out, n, dtype=torch.float32, device=dev).unbind(0))
     nc = torch.empty(n, dtype=torch.int32, device=dev) if spec.want_nc else None
 
     args = EngineArgs()
@@ -874,12 +963,9 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     args.shift_y = ranges.shift_y.data_ptr()
     args.shift_z = ranges.shift_z.data_ptr()
     args.ncells = ranges.ncells.data_ptr()
-    for k, a in enumerate(i_fields):
-        args.ifields[k] = a.data_ptr()
-    for k, a in enumerate(j_fields):
-        args.jfields[k] = a.data_ptr()
-    for k, a in enumerate(outs):
-        args.outs[k] = a.data_ptr()
+    args.ifields[:len(i_fields)] = [a.data_ptr() for a in i_fields]
+    args.jfields[:len(j_fields)] = [a.data_ptr() for a in j_fields]
+    args.outs[:len(outs)] = [a.data_ptr() for a in outs]
     args.nc = nc.data_ptr() if nc is not None else None
     args.n, args.num_groups, args.w3, args.group = n, ng, w3, group
     args.fold = int(fold)
@@ -889,11 +975,8 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     args.K = consts["K"]
     args.mhalf_K = -consts["K"] * 0.5
     args.k_cour = consts["k_cour"]
-    for key, dst in (("coeffs", args.coeffs), ("dcoeffs", args.dcoeffs)):
-        if len(consts[key]) != _NCOEF:
-            raise ValueError(f"the kernel takes {_NCOEF} polynomial coefficients")
-        for k, v in enumerate(consts[key]):
-            dst[k] = v
+    args.coeffs = _coeff_array(tuple(consts["coeffs"]))
+    args.dcoeffs = _coeff_array(tuple(consts["dcoeffs"]))
     for key in ("alphamin", "alphamax", "decay_c", "at_min", "at_max", "ramp"):
         setattr(args, key, consts[key])
     if "dt" in consts:
@@ -929,10 +1012,26 @@ def engine_kernel(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     return outs, nc
 
 
+#: the list walk's mask modes (``mask=``): run the mask phase ("own"), run
+#: it and keep its words in ``lists.mask_words`` ("write"), or read the
+#: words a "write" walk kept instead of running it ("read")
+MASK_MODES = {"own": 0, "write": 1, "read": 2}
+
+
 def engine_lists_kernel(spec: OpSpec, lists, i_fields: Sequence,
-                        j_fields: Sequence, group: int, consts: dict):
+                        j_fields: Sequence, group: int, consts: dict, mask: str = "own"):
     """Launch the op's list-walk kernel (csrc/pair_lists.cu) on the
-    current stream (no sync). Returns (outs (n,) x num_out, nc or None)."""
+    current stream (no sync). Returns (outs (n,) x num_out, nc or None).
+
+    The ops of one step share their mask (d^2 < 4 h_i^2, not self, on the
+    same positions and smoothing lengths), so the caller may run it once:
+    ``mask="write"`` keeps each target's accepted-candidate words in
+    ``lists.mask_words``, and a later walk of the step with ``mask="read"``
+    reads them instead of running its mask phase. A "read" walk is right
+    only on the positions and smoothing lengths of the "write" walk before
+    it, and it counts no neighbours, so an op that counts them (density)
+    cannot read."""
+    mode = mask_mode(spec, mask)
     args, outs, nc = _engine_args(spec, lists.ranges, i_fields, j_fields, False,
                                   group, consts)
     dev = i_fields[0].device
@@ -940,8 +1039,66 @@ def engine_lists_kernel(spec: OpSpec, lists, i_fields: Sequence,
     check_table("lists.bits", lists.bits, torch.int32, (ng, scap, LANES // 32), dev)
     args.bits = lists.bits.data_ptr()
     args.slot_cap = scap
+    if mode:
+        words = lists.mask_words
+        if words is None or words.device != dev:
+            raise ValueError(f"{spec.name}: mask={mask!r} needs the lists' mask-word "
+                             f"buffer on {dev}")
+        check_table("lists.word_off", lists.word_off, torch.int32, (ng + 1,), dev)
+        args.mask_words, args.word_off = words.data_ptr(), lists.word_off.data_ptr()
+        args.mask_mode = mode
     launch(f"{spec.name}_lists", args, dev)
     return outs, nc
+
+
+def mask_mode(spec: OpSpec, mask: str) -> int:
+    """The kernel's code of a ``mask=`` mode (``MASK_MODES``), checked."""
+    if mask not in MASK_MODES:
+        raise ValueError(f"mask must be one of {tuple(MASK_MODES)}, got {mask!r}")
+    if mask == "read" and spec.want_nc:
+        raise ValueError(f"{spec.name} counts neighbours: it runs its mask, it cannot "
+                         "read one")
+    return MASK_MODES[mask]
+
+
+def mask_word_offsets(cnt: torch.Tensor) -> torch.Tensor:
+    """Where each group's words start in the list walk's mask-word buffer:
+    (NG + 1,) int32 ``off``, word j of target t of group g at
+    (off[g] + j) * group + t, one word per 32 of the group's marked lanes
+    (``cnt``: (NG, S_cap) marked lanes per slot). The buffer holds
+    off[NG] * group words."""
+    per_group = (cnt.to(torch.int64).sum(dim=1) + 31) // 32
+    off = torch.zeros(per_group.shape[0] + 1, dtype=torch.int64, device=cnt.device)
+    off[1:] = torch.cumsum(per_group, dim=0)
+    return off.to(torch.int32)
+
+
+#: kernel_info's keys, in the order of the library's int32 output
+KERNEL_INFO_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+                    "blocks_per_sm", "window", "warps_per_sm")
+
+
+def kernel_info(spec: OpSpec, group: int, walk: bool, fold: bool = False) -> dict:
+    """Static facts of the kernel instantiation that a launch of ``spec``
+    would run (the list walk with ``walk``, else the streaming engine's
+    ``fold`` form) at blocks of ``group`` threads: registers and local
+    (spill) bytes a thread, static and dynamic shared bytes a block,
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    the window it was built for (csrc/engine_window.cuh WINDOW) and
+    resident warps per SM. Needs a CUDA device; launches nothing."""
+    from sphexa_torch.kernels.build import load_library
+
+    lib = load_library()
+    args = EngineArgs()
+    args.variant, args.fold, args.group = spec.variant, int(fold), group
+    args.sym_j = -1 if spec.sym_j is None else spec.sym_j
+    out = (ctypes.c_int32 * len(KERNEL_INFO_KEYS))()
+    fn = lib.list_walk_info if walk else lib.pair_engine_info
+    err = fn(spec.name.encode(), ctypes.addressof(args), out)
+    if err != 0:
+        raise RuntimeError(f"{spec.name} kernel info failed: CUDA error {err} "
+                           f"({lib.pair_engine_error_string(err).decode()})")
+    return dict(zip(KERNEL_INFO_KEYS, out))
 
 
 def _consts(const, dt) -> dict:
@@ -951,24 +1108,29 @@ def _consts(const, dt) -> dict:
     return consts
 
 
-def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None, dt=None):
+def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None, dt=None,
+         mask="own"):
     """Dispatch by device: CUDA launches the kernel (the list walk when
-    ``lists`` is given), CPU runs the plain version; anything else raises.
-    ``dt``: the 0-d device tensor of the AV switches' time step."""
+    ``lists`` is given, in the ``mask`` mode of ``engine_lists_kernel``),
+    CPU runs the plain version; anything else raises. ``dt``: the 0-d
+    device tensor of the AV switches' time step."""
     dev = i_fields[0].device
     if dev.type == "cuda":
         consts = _consts(const, dt)
         if lists is not None:
-            return engine_lists_kernel(spec, lists, i_fields, j_fields, cfg.group, consts)
+            return engine_lists_kernel(spec, lists, i_fields, j_fields, cfg.group, consts,
+                                       mask)
+        mask_mode(spec, mask)
         return engine_kernel(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
                              cfg.group, consts)
     if dev.type == "cpu":
-        return _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists, dt)
+        return _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists, dt, mask)
     raise ValueError(f"unsupported device {dev}")
 
 
 def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None,
-               dt=None):
+               dt=None, mask="own"):
+    mask_mode(spec, mask)  # every plain pass computes its own mask
     consts = _consts(const, dt)
     if lists is not None:
         return engine_lists_plain(spec, lists, i_fields, j_fields, cfg.group, consts)
@@ -980,9 +1142,10 @@ def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=
 # The std-SPH ops (pallas_pairs.pallas_density / pallas_iad /
 # pallas_momentum_energy_std). Each builds its precombined i/j fields,
 # runs the engine and applies the post-processing of the JAX wrapper.
-# With ``lists`` (persistent PairLists) the candidate runs are the lists'
-# pruned ones, ``sorted_keys`` and ``ranges`` are unused, and the momentum
-# op takes the list walk.
+# With ``lists`` (persistent PairLists) every op takes the list walk and
+# ``sorted_keys`` and ``ranges`` are unused; ``mask`` is the walk's mask
+# mode (``engine_lists_kernel``: "own", "write" or "read"), which the
+# streaming engine and the plain versions, running every mask, ignore.
 # ---------------------------------------------------------------------------
 
 
@@ -1013,79 +1176,81 @@ def _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg):
         group_cell_ranges(x, y, z, h, sorted_keys, box, cfg)
 
 
-def _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists):
+def _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
-    (rho,), nc = run(DENSITY, ranges, *density_fields(x, y, z, h, m), box, cfg, const)
+    (rho,), nc = run(DENSITY, ranges, *density_fields(x, y, z, h, m), box, cfg, const,
+                     lists, mask=mask)
     return rho, nc, ranges.occupancy
 
 
-def _iad(run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists):
+def _iad(run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists, mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
-    cs, _ = run(IAD, ranges, *iad_fields(x, y, z, h, vol), box, cfg, const)
+    cs, _ = run(IAD, ranges, *iad_fields(x, y, z, h, vol), box, cfg, const, lists,
+                mask=mask)
     return tuple(cs), ranges.occupancy
 
 
 def _momentum_energy_std(run, x, y, z, vx, vy, vz, h, m, rho, p, c,
                          c11, c12, c13, c22, c23, c33, sorted_keys, box, const,
-                         cfg, ranges, lists):
+                         cfg, ranges, lists, mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = momentum_fields(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33)
     (ax, ay, az, du, dt_i), _ = run(momentum_spec(const), ranges, i_f, j_f, box,
-                                    cfg, const, lists)
+                                    cfg, const, lists, mask=mask)
     return ax, ay, az, du, torch.min(dt_i), ranges.occupancy
 
 
 def pallas_density(x, y, z, h, m, sorted_keys, box: Box, const,
                    cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                   lists=None):
+                   lists=None, mask: str = "own"):
     """rho_i = K h_i^-3 (m_i + sum_j m_j W(d^2/h_i^2)) and neighbour counts.
     Returns (rho, nc, occupancy)."""
-    return _density(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists)
+    return _density(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask)
 
 
 def density_plain(x, y, z, h, m, sorted_keys, box: Box, const,
                   cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                  lists=None):
+                  lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_density`` on any device."""
     return _density(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges,
-                    lists)
+                    lists, mask)
 
 
 def pallas_iad(x, y, z, h, vol, sorted_keys, box: Box, const,
                cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-               lists=None):
+               lists=None, mask: str = "own"):
     """IAD tensor components; ``vol`` is m/rho. Returns ((c11..c33), occupancy)."""
-    return _iad(_run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists)
+    return _iad(_run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists, mask)
 
 
 def iad_plain(x, y, z, h, vol, sorted_keys, box: Box, const,
               cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-              lists=None):
+              lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_iad`` on any device."""
     return _iad(_run_plain, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges,
-                lists)
+                lists, mask)
 
 
 def pallas_momentum_energy_std(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33, sorted_keys,
                                box: Box, const, cfg: NeighborConfig,
-                               ranges: Optional[GroupRanges] = None, lists=None):
+                               ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
     """Pressure-gradient accelerations, energy rate and the Courant dt.
     Returns (ax, ay, az, du, min_dt, occupancy)."""
     return _momentum_energy_std(_run, x, y, z, vx, vy, vz, h, m, rho, p, c,
                                 c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                                const, cfg, ranges, lists)
+                                const, cfg, ranges, lists, mask)
 
 
 def momentum_energy_std_plain(x, y, z, vx, vy, vz, h, m, rho, p, c,
                               c11, c12, c13, c22, c23, c33, sorted_keys,
                               box: Box, const, cfg: NeighborConfig,
-                              ranges: Optional[GroupRanges] = None, lists=None):
+                              ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_momentum_energy_std`` on any device."""
     return _momentum_energy_std(_run_plain, x, y, z, vx, vy, vz, h, m, rho, p, c,
                                 c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                                const, cfg, ranges, lists)
+                                const, cfg, ranges, lists, mask)
 
 
 def momentum_spec(const) -> OpSpec:
@@ -1096,9 +1261,8 @@ def momentum_spec(const) -> OpSpec:
 
 # ---------------------------------------------------------------------------
 # The VE ops (pallas_pairs.pallas_xmass ... pallas_momentum_energy_ve), with
-# the JAX wrappers' precombined per-particle ratios. With ``lists``,
-# grad-h and the plain divv/curlv stream the pruned runs; the gradv form of
-# divv/curlv, the AV switches and the momentum op take the list walk.
+# the JAX wrappers' precombined per-particle ratios. With ``lists`` every
+# op takes the list walk.
 # ---------------------------------------------------------------------------
 
 
@@ -1159,143 +1323,146 @@ def momentum_ve_spec(const, av_clean: bool) -> OpSpec:
     return dataclasses.replace(spec, sym_j=None)
 
 
-def _xmass(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists):
+def _xmass(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask):
     rho0, nc, occ = _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges,
-                             lists)
+                             lists, mask)
     return m / rho0, nc, occ
 
 
-def _ve_def_gradh(run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges, lists):
+def _ve_def_gradh(run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges, lists,
+                  mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     (kx, gradh), _ = run(VE_DEF_GRADH, ranges, *ve_def_gradh_fields(x, y, z, h, m, xm),
-                         box, cfg, const)
+                         box, cfg, const, lists, mask=mask)
     return (kx, gradh), ranges.occupancy
 
 
 def _iad_divv_curlv(run, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
-                    sorted_keys, box, const, cfg, ranges, with_gradv, lists):
+                    sorted_keys, box, const, cfg, ranges, with_gradv, lists, mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = divv_curlv_fields(x, y, z, vx, vy, vz, h, kx, xm,
                                  c11, c12, c13, c22, c23, c33, const)
     spec = IAD_DIVV_CURLV_GRADV if with_gradv else IAD_DIVV_CURLV
-    outs, _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists if with_gradv else None)
+    outs, _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists, mask=mask)
     return tuple(outs), ranges.occupancy
 
 
 def _av_switches(run, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                  c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
-                 ranges, lists):
+                 ranges, lists, mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = av_switches_fields(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                                   c11, c12, c13, c22, c23, c33, const)
     dt = torch.as_tensor(dt, dtype=torch.float32, device=x.device)
-    (alpha_new,), _ = run(AV_SWITCHES, ranges, i_f, j_f, box, cfg, const, lists, dt=dt)
+    (alpha_new,), _ = run(AV_SWITCHES, ranges, i_f, j_f, box, cfg, const, lists, dt=dt,
+                          mask=mask)
     return alpha_new, ranges.occupancy
 
 
 def _momentum_energy_ve(run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                         c11, c12, c13, c22, c23, c33, sorted_keys, box, const, cfg,
-                        nc, gradv, ranges, lists):
+                        nc, gradv, ranges, lists, mask):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                                   c11, c12, c13, c22, c23, c33, nc=nc, gradv=gradv)
     spec = momentum_ve_spec(const, gradv is not None)
-    (ax, ay, az, du, dt_i), _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists)
+    (ax, ay, az, du, dt_i), _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists,
+                                    mask=mask)
     return ax, ay, az, du, torch.min(dt_i), ranges.occupancy
 
 
 def pallas_xmass(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
-                 ranges: Optional[GroupRanges] = None, lists=None):
+                 ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
     """VE volume element xm = m / rho0 over the density op (K2), and the
     neighbour counts. Returns (xm, nc, occupancy)."""
-    return _xmass(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists)
+    return _xmass(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask)
 
 
 def xmass_plain(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
-                ranges: Optional[GroupRanges] = None, lists=None):
+                ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_xmass`` on any device."""
-    return _xmass(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists)
+    return _xmass(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask)
 
 
 def pallas_ve_def_gradh(x, y, z, h, m, xm, sorted_keys, box: Box, const,
                         cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                        lists=None):
+                        lists=None, mask: str = "own"):
     """VE normalisation kx and the grad-h correction
     (ve_def_gradh_kern.hpp:43-90). Returns ((kx, gradh), occupancy)."""
     return _ve_def_gradh(_run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges,
-                         lists)
+                         lists, mask)
 
 
 def ve_def_gradh_plain(x, y, z, h, m, xm, sorted_keys, box: Box, const,
                        cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                       lists=None):
+                       lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_ve_def_gradh`` on any device."""
     return _ve_def_gradh(_run_plain, x, y, z, h, m, xm, sorted_keys, box, const, cfg,
-                         ranges, lists)
+                         ranges, lists, mask)
 
 
 def pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
                           sorted_keys, box: Box, const, cfg: NeighborConfig,
                           ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
-                          lists=None):
+                          lists=None, mask: str = "own"):
     """Velocity divergence and curl through the IAD gradient
     (divv_curlv_kern.hpp:43-120), with ``with_gradv`` also the symmetrised
     velocity-gradient tensor of av_clean. Returns ((divv, curlv[, dv11,
     dv12, dv13, dv22, dv23, dv33]), occupancy)."""
     return _iad_divv_curlv(_run, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23,
-                           c33, sorted_keys, box, const, cfg, ranges, with_gradv, lists)
+                           c33, sorted_keys, box, const, cfg, ranges, with_gradv, lists, mask)
 
 
 def iad_divv_curlv_plain(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
                          sorted_keys, box: Box, const, cfg: NeighborConfig,
                          ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
-                         lists=None):
+                         lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_iad_divv_curlv`` on any device."""
     return _iad_divv_curlv(_run_plain, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13,
                            c22, c23, c33, sorted_keys, box, const, cfg, ranges,
-                           with_gradv, lists)
+                           with_gradv, lists, mask)
 
 
 def pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                        c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
                        cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                       lists=None):
+                       lists=None, mask: str = "own"):
     """Per-particle viscosity switch (av_switches_kern.hpp:43-137) over
     ``dt``, a 0-d float32 tensor on the particles' device (the kernel
     reads it there). Returns (alpha_new, occupancy)."""
     return _av_switches(_run, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                         c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
-                        ranges, lists)
+                        ranges, lists, mask)
 
 
 def av_switches_plain(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                       c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
                       cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                      lists=None):
+                      lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_av_switches`` on any device."""
     return _av_switches(_run_plain, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                         c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
-                        ranges, lists)
+                        ranges, lists, mask)
 
 
 def pallas_momentum_energy_ve(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                               c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
                               cfg: NeighborConfig, nc=None, gradv=None,
-                              ranges: Optional[GroupRanges] = None, lists=None):
+                              ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
     """VE momentum and energy (momentum_energy_kern.hpp:65-222): the
     Atwood-ramped volume elements, per-particle alpha viscosity and, with
     ``gradv`` (and ``nc``), the av_clean correction. Returns (ax, ay, az,
     du, min_dt, occupancy)."""
     return _momentum_energy_ve(_run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                                c11, c12, c13, c22, c23, c33, sorted_keys, box, const,
-                               cfg, nc, gradv, ranges, lists)
+                               cfg, nc, gradv, ranges, lists, mask)
 
 
 def momentum_energy_ve_plain(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                              c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
                              cfg: NeighborConfig, nc=None, gradv=None,
-                             ranges: Optional[GroupRanges] = None, lists=None):
+                             ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
     """Plain PyTorch version of ``pallas_momentum_energy_ve`` on any device."""
     return _momentum_energy_ve(_run_plain, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm,
                                alpha, c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                               const, cfg, nc, gradv, ranges, lists)
+                               const, cfg, nc, gradv, ranges, lists, mask)

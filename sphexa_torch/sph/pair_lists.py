@@ -7,9 +7,9 @@ runs, it records which of the chunk's 128 lanes lie inside the group's
 bbox inflated by 2 max h + skin, as a 128-bit mask. Chunks with no marked
 lane are then pruned from the runs. Between rebuilds the sorted order is
 frozen: a steady step skips the box regrow, the sort and the run
-prologue; density and IAD stream the pruned runs, and the momentum op
-walks only the marked lanes. The lists stay valid while
-2 (max h growth + max drift) <= skin (``list_slack``).
+prologue, and every pair op walks only the marked lanes (the list walk).
+The lists stay valid while 2 (max h growth + max drift) <= skin
+(``list_slack``).
 
 ``mark_chunks`` launches the mark kernel (csrc/pair_lists.cu) on CUDA
 tensors and runs ``mark_plain`` on CPU tensors. The JAX package's staging
@@ -19,7 +19,7 @@ ranks the marked lanes from the bits itself.
 """
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,6 +45,11 @@ class PairLists(NamedTuple):
     zb: torch.Tensor
     hb: torch.Tensor
     skin: torch.Tensor        # () float32 coverage slack baked into ranges
+    word_off: torch.Tensor    # (NG + 1,) int32 first mask word of each group
+    # the list walk's accepted-candidate words (pair_engine.engine_lists_kernel
+    # mask="write" fills it, mask="read" reads it): int32, word_off[NG] x
+    # group words on the card; None on the CPU, whose plain walk keeps none
+    mask_words: Optional[torch.Tensor]
 
     @property
     def slot_cap(self) -> int:
@@ -237,7 +242,8 @@ def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
                      skin: torch.Tensor, slot_cap: int) -> PairLists:
     """Build the persistent lists from SFC-sorted arrays: runs widened by
     ``skin`` (a float32 0-d tensor), the mark pass, the pruned runs and the
-    overflow sentinel. No host sync."""
+    overflow sentinel, and on the card the walk's mask-word buffer. No host
+    sync on the CPU; on the card one (the buffer's size)."""
     if pe.engine_fold(box, cfg):
         raise ValueError(
             "persistent lists need per-cell image shifts; a grid in fold mode "
@@ -247,11 +253,15 @@ def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
     ranges, perm = _prune_empty_chunks(ranges, cnt, slot_cap)
     cnt = cnt.gather(1, perm).contiguous()
     bits = bits.gather(1, perm[:, :, None].expand(-1, -1, WORDS)).contiguous()
+    word_off = pe.mask_word_offsets(cnt)
+    words = None
+    if x.device.type == "cuda":
+        words = torch.empty(int(word_off[-1]) * cfg.group, dtype=torch.int32, device=x.device)
     return PairLists(
         ranges=ranges, bits=bits, cnt=cnt,
         overflow=(total.max() > slot_cap).to(torch.int32),
         lanes_total=cnt.sum(dim=1).to(torch.float32).sum(),
-        xb=x, yb=y, zb=z, hb=h, skin=skin,
+        xb=x, yb=y, zb=z, hb=h, skin=skin, word_off=word_off, mask_words=words,
     )
 
 

@@ -33,6 +33,7 @@ from sphexa_torch.simulation import Simulation, make_propagator_config
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph import pair_lists as pl
 from sphexa_torch.sph.hydro_std import compute_eos_std
+from sphexa_torch.sph.hydro_ve import compute_eos_ve
 
 pytestmark = pytest.mark.gpu
 
@@ -130,7 +131,8 @@ def test_mark_kernel_matches_plain(list_case):
 
 
 def test_list_walk_matches_plain(list_case):
-    """K6: the list walk's momentum/energy against its plain version."""
+    """K6: the list walk's momentum/energy against its plain version; in
+    list mode density and IAD take the walk too, and K1 is not launched."""
     ss, box, const, cfg, keys, lists, _ = list_case
     x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
     rho, _, _ = pe.pallas_density(x, y, z, h, m, None, box, const, cfg.nbr, lists=lists)
@@ -140,15 +142,14 @@ def test_list_walk_matches_plain(list_case):
     pe.reset_launches()
     out_k = pe.pallas_momentum_energy_std(*args, lists=lists)
     out_p = pe.momentum_energy_std_plain(*args, lists=lists)
-    assert pe.LAUNCHES["momentum_energy_std_lists"] == 1
-    assert pe.LAUNCHES["momentum_energy_std"] == 0
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "momentum_energy_std_lists": 1}
     for a, b in zip(out_k[:4], out_p[:4]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-6 * float(b.abs().max()) + 1e-12)
     assert float(out_k[4]) == pytest.approx(float(out_p[4]), rel=1e-5)
 
 
 def test_lists_match_streaming(list_case):
-    """List mode (K1 on the pruned runs, K6) against the streaming kernels
+    """List mode (the list walk K6) against the streaming kernels (K1)
     with fresh runs on the same frozen-order state: nc exact, the rest
     within the JAX package's list-vs-streaming tolerances
     (tests/test_pair_lists.py)."""
@@ -195,14 +196,119 @@ def test_ve_kernels_match_plain(case, av_clean):
 
 @pytest.mark.parametrize("av_clean", [False, True], ids=["plain", "avclean"])
 def test_ve_list_kernels_match_plain(list_case, av_clean):
-    """The VE ops in list mode: K1 on the pruned runs for xmass, grad-h,
-    IAD and divv/curlv; the list walk for divv/curlv with gradv, the AV
-    switches and momentum/energy."""
+    """The VE ops in list mode: every op, xmass over the density op and
+    both forms of divv/curlv, takes the list walk; K1 is not launched."""
     ss, box, const, cfg, keys, lists, _ = list_case
     la = _ve_kernels_vs_plain(ss, box, const, cfg.nbr, av_clean, keys=None, lists=lists)
-    divv = "iad_divv_curlv_lists" if av_clean else "iad_divv_curlv"
-    assert la == {**dict.fromkeys(la, 0), "density": 1, "iad": 1, "ve_def_gradh": 1,
-                  divv: 1, "av_switches_lists": 1, "momentum_energy_ve_lists": 1}
+    assert la == {**dict.fromkeys(la, 0), "density_lists": 1, "iad_lists": 1,
+                  "ve_def_gradh_lists": 1, "iad_divv_curlv_lists": 1, "av_switches_lists": 1,
+                  "momentum_energy_ve_lists": 1}
+
+
+def _walk_fields(ss, const, lists, group, forces=False):
+    """Every SPH op the streaming engine ran in list mode before, with its
+    precombined fields on the state's plain list-mode chain (density,
+    grad-h, IAD); with ``forces`` also the ops that took the walk already
+    (std momentum; the AV switches and VE momentum, both forms)."""
+    x, y, z, h, m, vel = ss.x, ss.y, ss.z, ss.h, ss.m, (ss.vx, ss.vy, ss.vz)
+    consts = pe.op_consts(const)
+    (rho,), nc = pe.engine_lists_plain(pe.DENSITY, lists, *pe.density_fields(x, y, z, h, m),
+                                       group, consts)
+    xm = m / rho
+    (kx, gradh), _ = pe.engine_lists_plain(
+        pe.VE_DEF_GRADH, lists, *pe.ve_def_gradh_fields(x, y, z, h, m, xm), group, consts)
+    cs, _ = pe.engine_lists_plain(pe.IAD, lists, *pe.iad_fields(x, y, z, h, xm / kx), group,
+                                  consts)
+    divv = pe.divv_curlv_fields(x, y, z, *vel, h, kx, xm, *cs, const)
+    out = {
+        "density": (pe.DENSITY, pe.density_fields(x, y, z, h, m)),
+        "iad": (pe.IAD, pe.iad_fields(x, y, z, h, xm / kx)),
+        "ve_def_gradh": (pe.VE_DEF_GRADH, pe.ve_def_gradh_fields(x, y, z, h, m, xm)),
+        "iad_divv_curlv": (pe.IAD_DIVV_CURLV, divv),
+        "iad_divv_curlv_gradv": (pe.IAD_DIVV_CURLV_GRADV, divv),
+    }
+    if forces:
+        p, c = compute_eos_std(ss.temp, rho, const)
+        cs_std, _ = pe.engine_lists_plain(pe.IAD, lists, *pe.iad_fields(x, y, z, h, m / rho),
+                                          group, consts)
+        out["momentum_energy_std"] = (pe.momentum_spec(const), pe.momentum_fields(
+            x, y, z, *vel, h, m, rho, p, c, *cs_std))
+        prho, cv, _, _ = compute_eos_ve(ss.temp, m, kx, xm, gradh, const)
+        dv, _ = pe.engine_lists_plain(pe.IAD_DIVV_CURLV_GRADV, lists, *divv, group, consts)
+        out["av_switches"] = (pe.AV_SWITCHES, pe.av_switches_fields(
+            x, y, z, *vel, h, cv, kx, xm, dv[0], ss.alpha, *cs, const))
+        for key, gradv in (("momentum_energy_ve", None),
+                           ("momentum_energy_ve_clean", tuple(dv[2:]))):
+            out[key] = (pe.momentum_ve_spec(const, gradv is not None), pe.momentum_ve_fields(
+                x, y, z, *vel, h, m, prho, cv, kx, xm, ss.alpha, *cs, nc=nc, gradv=gradv))
+    return out
+
+
+WALK_OPS = ["density", "iad", "ve_def_gradh", "iad_divv_curlv", "iad_divv_curlv_gradv"]
+
+
+@pytest.mark.parametrize("op", WALK_OPS)
+def test_list_walk_entry_matches_plain(list_case, op):
+    """The list walk's entry points of the ops the streaming engine ran in
+    list mode before (``launch_{density,iad,ve_def_gradh}_lists`` and
+    both forms of ``launch_iad_divv_curlv_lists``) against the plain list
+    walk on the same fields: nc exact, the outputs within the JAX
+    package's tolerances (rtol 1e-5 density, 1e-4 the rest, atol 1e-5
+    max|.|)."""
+    ss, box, const, cfg, keys, lists, _ = list_case
+    spec, (i_f, j_f) = _walk_fields(ss, const, lists, cfg.nbr.group)[op]
+    consts = pe.op_consts(const)
+    pe.reset_launches()
+    out_k, nc_k = pe.engine_lists_kernel(spec, lists, i_f, j_f, cfg.nbr.group, consts)
+    out_p, nc_p = pe.engine_lists_plain(spec, lists, i_f, j_f, cfg.nbr.group, consts)
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), f"{spec.name}_lists": 1}
+    if spec.want_nc:
+        assert torch.equal(nc_k, nc_p)
+    rtol = 1e-5 if op == "density" else 1e-4
+    for a, b in zip(out_k, out_p):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("op", WALK_OPS + ["momentum_energy_std", "av_switches",
+                                           "momentum_energy_ve", "momentum_energy_ve_clean"])
+def test_list_walk_mask_modes_agree(list_case, op):
+    """Each list-walk op with its own mask phase (mask="own") and reading
+    the words a density walk kept at the same positions (mask="read";
+    density itself: "own" against "write") gives the same outputs bit for
+    bit: the same pairs in the same order."""
+    ss, box, const, cfg, keys, lists, _ = list_case
+    g = cfg.nbr.group
+    ops = _walk_fields(ss, const, lists, g, forces=True)
+    dt = torch.as_tensor(ss.min_dt, dtype=torch.float32, device=ss.x.device)
+    consts = {**pe.op_consts(const), "dt": dt}
+    spec, (i_f, j_f) = ops[op]
+    own, nc_own = pe.engine_lists_kernel(spec, lists, i_f, j_f, g, consts, mask="own")
+    d_spec, (d_i, d_j) = ops["density"]
+    _, nc_w = pe.engine_lists_kernel(d_spec, lists, d_i, d_j, g, consts, mask="write")
+    if spec.want_nc:
+        kept, nc_kept = pe.engine_lists_kernel(spec, lists, i_f, j_f, g, consts, mask="write")
+        assert torch.equal(nc_kept, nc_own) and torch.equal(nc_w, nc_own)
+    else:
+        kept, _ = pe.engine_lists_kernel(spec, lists, i_f, j_f, g, consts, mask="read")
+    for a, b in zip(kept, own):
+        assert torch.equal(a, b), op
+
+
+def test_kernel_info_reports_occupancy():
+    """The engines' static facts: every SPH instantiation has registers, the
+    window of 256 candidates and at least one resident block of 64
+    threads per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    specs = (pe.DENSITY, pe.IAD, pe.MOMENTUM_ENERGY_STD, pe.VE_DEF_GRADH, pe.IAD_DIVV_CURLV,
+             pe.IAD_DIVV_CURLV_GRADV, pe.AV_SWITCHES, pe.MOMENTUM_ENERGY_VE,
+             pe.MOMENTUM_ENERGY_VE_CLEAN)
+    for spec in specs:
+        for walk in (True, False):
+            info = pe.kernel_info(spec, 64, walk)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (spec.name, info)
+            assert info["window"] == 256
+            assert info["warps_per_sm"] == 2 * info["blocks_per_sm"]
 
 
 def test_ve_simulation_step_matches_cpu():
