@@ -48,7 +48,9 @@ Phases, each printed as one JSON line:
 9. the std main path's Simulation on to step 100: list rebuilds, replays
    and the mean and median step time, the rebuilds included;
 10. gravity vs plain: the list compaction (K13) on the JAX package's
-   random cases, exactly; the near field (K12) on Evrard 20, every group;
+   random cases and the widths its tiles cut, exactly; the near field
+   (K12) on Evrard 20's leaf ranges, every block, in the open-box form and
+   in an image's (a target shift), with the self pair kept and dropped;
    whole gravity solves on the card against the CPU on Evrard 30, in the
    sort and the bitmask-with-superblocks compactions; std and VE Evrard
    20 steps with gravity on the card against the CPU;
@@ -57,18 +59,22 @@ Phases, each printed as one JSON line:
    steps, counters reset just before and read just after (K12 once and
    K13 twice per step attempt, the six VE kernels once each), its host
    syncs and profile, the tree build at configure and the gravity phases
-   by CUDA events (multipoles, MAC with K13, M2P, the near-field run
-   prologue, K12), the tree's forces against direct summation on 4,096
-   sampled targets, K12 against its plain version on 256 target groups
-   and K13 on the solve's own packed arrays, each kernel's time, its
-   plain version's, its bound and (K13) the time of torch.sort of the
-   same rows;
+   by CUDA events (multipoles, MAC with K13, M2P, the near-field
+   prologue (the leaf ranges), K12), the tree's forces against
+   direct summation on 4,096 sampled targets, K12 against its plain
+   version on 256 target blocks and K13 on the solve's own packed arrays,
+   each kernel's time (K13's also per launch; for both also the kernels'
+   own device time, its entry point launched back to back with the
+   arguments built once, and for K12 the SM clock that nvidia-smi reads
+   under that load), its plain version's, its bound and (K13) the time of
+   torch.sort of the same rows; the near field's candidates per block
+   (mean, 99th percentile, max) and K13's shapes;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
 SM, and on the side-100 states its times and the body-pass efficiency of
-the union rule against per-lane windows), the
-{"kernels": [...]} line, the nvidia-smi line, and as the last line
+the union rule against per-lane windows; K12's the same at Evrard 125),
+the {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
 without the rest of the repository beside it, it fails the same way.
@@ -180,18 +186,18 @@ PASS_WINDOWS = (128, 256, 512)
 # the gravity kernels
 TPU_KERNEL.update({"gravity_p2p": "sphexa_tpu/gravity/traversal.py:454",
                    "compact_class_lists": "sphexa_tpu/gravity/pallas_compact.py:155"})
-SOURCE.update({"gravity_p2p": "sphexa_torch/csrc/pair_engine.cu",
+SOURCE.update({"gravity_p2p": "sphexa_torch/csrc/gravity_p2p.cu",
                "compact_class_lists": "sphexa_torch/csrc/gravity_compact.cu"})
 # K12 (the near-field function, traversal.py pair_body), per candidate
-# pair: the mask without a cutoff (3 subtractions, d^2 5, the self
+# pair: the geometry and self test (3 subtractions, d^2 5, the self
 # compare) = 9; the body: h_i + h_j, its square, two max, rsqrt, w 3, four
-# products 4, four float32 accumulations 4 = 16. The engine's 3 adds of a
-# run shift, zero on an open box, are the port's, not the function's.
+# products 4, four float32 accumulations 4 = 16.
 GRAV_MASK_OPS = 9
 GRAV_BODY_OPS = 16
-# K13 per packed slot: the class shift, two compares, two ballots, the
-# rank (and, popc, two adds), the cap compare and the value mask = 10
-# integer operations, at the INT32 rate (half the FP32 rate)
+# K13 per packed slot: the class shift, two class compares, its rank in
+# its class (a running count: about four integer operations a slot), the
+# cap compare, the value mask and the store index = 10 integer
+# operations, at the INT32 rate (half the FP32 rate)
 COMPACT_OPS = 10
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
 
@@ -765,9 +771,16 @@ def gravity_checks() -> dict:
     out = {"phase": "gravity_vs_plain", "compact": checks.compact_random_cases("cuda")}
     sim, ss, box, keys = checks.gravity_case(20, "cuda")
     g, meta = sim.cfg.gravity, sim.cfg.grav_meta
-    runs, _ = checks.near_field_runs(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree, meta, g)
-    out["p2p_evrard20"] = checks.p2p_vs_plain("Evrard 20", ss.x, ss.y, ss.z, ss.m, ss.h, g,
-                                              runs)
+    starts, lens, _ = checks.near_field_ranges(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                               meta, g)
+    p2p = (ss.x, ss.y, ss.z, ss.m, ss.h, g, starts, lens)
+    out["p2p_evrard20"] = checks.p2p_vs_plain("Evrard 20", *p2p)
+    out["p2p_evrard20_image_self"] = checks.p2p_vs_plain(
+        "Evrard 20 image", *p2p, shift=checks.IMAGE_SHIFT, allow_self=True)
+    # the self pair is a real pair at a shift: the kernel's self test drops it
+    out["p2p_evrard20_image_noself"] = checks.p2p_vs_plain(
+        "Evrard 20 image without the self pair", *p2p, shift=checks.IMAGE_SHIFT,
+        allow_self=False)
     sim, ss, box, keys = checks.gravity_case(30, "cuda")
     g, meta = sim.cfg.gravity, sim.cfg.grav_meta
     if g.compaction != "sort":
@@ -782,32 +795,59 @@ def gravity_checks() -> dict:
     return out
 
 
-def gravity_bounds(runs, n: int, group: int, packed) -> dict:
-    """Least device time of K12 (this solve's candidate pairs x the mask
-    and body operations; each i-field, j-field and output once, the run
-    tables) and of K13's two launches in one solve (the packed words read
-    once, the lists and counts written once; integer operations)."""
+def near_field_load(lens, group: int) -> dict:
+    """How the near field's work spreads over the target blocks: each
+    block's candidates (the sum of its leaf lengths; x ``group`` targets
+    for its pairs), their mean, 99th percentile and max, and max / mean."""
     import torch
 
-    cand = int(runs.lens.to(torch.int64).sum()) * group
-    ng, w3 = runs.starts.shape
+    per = lens.to(torch.int64).sum(dim=1).to(torch.float64)
+    mean = float(per.mean())
+    return {"blocks": int(per.shape[0]), "target_block": group,
+            "cand_per_block_mean": mean, "cand_per_block_p50": float(per.median()),
+            "cand_per_block_p99": float(torch.quantile(per, 0.99)),
+            "cand_per_block_max": float(per.max()), "cand_per_block_min": float(per.min()),
+            "max_over_mean": float(per.max()) / max(mean, 1.0),
+            "live_slots_mean": float((lens > 0).sum(dim=1).double().mean()),
+            "slots": int(lens.shape[1])}
+
+
+def gravity_bounds(lens, n: int, group: int, packed, runs=None) -> dict:
+    """Least device time of K12 (this solve's candidate pairs, the sum of
+    the leaf lengths x the block's targets, x the geometry and body
+    operations; x, y, z, m, h and the four outputs once, the leaf range
+    tables) and of K13's two launches in one solve, together and each (the
+    packed words read once, the lists and counts written once; integer
+    operations). Given the leaf ranges merged into runs (``runs``, the
+    plain version's form), asserts that they hold the same candidates."""
+    import torch
+
+    cand = int(lens.to(torch.int64).sum()) * group
+    if runs is not None and int(runs.lens.to(torch.int64).sum()) * group != cand:
+        raise AssertionError(f"K12: {cand} candidate pairs over the leaf ranges, "
+                             f"{int(runs.lens.to(torch.int64).sum()) * group} over the runs")
     k12 = {**_bound(cand * (GRAV_MASK_OPS + GRAV_BODY_OPS),
-                    4 * n * (4 + 5 + 4) + 4 * (5 * ng * w3 + ng)),
+                    4 * n * (5 + 4) + 2 * 4 * lens.numel() + 4 * lens.shape[0]),
            "cand_pairs": cand}
-    slots = sum(int(p.numel()) for p, _, _ in packed)
-    nbytes = 4 * slots + sum(4 * p.shape[0] * (c0 + c1 + 2) for p, c0, c1 in packed)
-    t_ops, t_bytes = slots * COMPACT_OPS / PEAK_INT32_OPS, nbytes / PEAK_HBM_BYTES
-    k13 = {"bound_ms": 1e3 * max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "ops": slots * COMPACT_OPS, "bytes": nbytes, "slots": slots,
-           "shapes": [list(p.shape) + [c0, c1] for p, c0, c1 in packed]}
+
+    def k13_bound(parts):
+        slots = sum(int(p.numel()) for p, _, _ in parts)
+        nbytes = 4 * slots + sum(4 * p.shape[0] * (c0 + c1 + 2) for p, c0, c1 in parts)
+        t_ops, t_bytes = slots * COMPACT_OPS / PEAK_INT32_OPS, nbytes / PEAK_HBM_BYTES
+        return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "ops": slots * COMPACT_OPS, "bytes": nbytes, "slots": slots}
+
+    k13 = {**k13_bound(packed), "shapes": [list(p.shape) + [c0, c1] for p, c0, c1 in packed],
+           "per_launch": [k13_bound([pk]) for pk in packed]}
     return {"gravity_p2p": k12, "compact_class_lists": k13}
 
 
 def gravity_phase_times(sim, reps: int = 3) -> dict:
     """One gravity solve on the path's current sorted state, its phases
     timed by CUDA events (median of ``reps`` solves): multipoles, MAC with
-    the K13 compactions, M2P, the near-field run prologue, K12."""
+    the K13 compactions, M2P, the near-field prologue (the leaf ranges),
+    K12."""
     import torch
 
     from sphexa_torch.gravity import traversal as gt
@@ -887,6 +927,64 @@ def _union_us(intervals) -> float:
             total += b - max(a, end)
             end = b
     return total
+
+
+def launch_loop_ms(launch, n: int) -> float:
+    """A kernel's own device time: the mean over ``n`` launches back to
+    back between two CUDA events, after one warm-up. ``launch`` is its
+    entry point with the arguments built once (a ``*_launcher``), so each
+    launch costs the host one ctypes call and the wrapper's argument
+    building, which a CUDA-event time around one short call also counts,
+    stays out of the loop."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        launch()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def sm_clocks() -> dict:
+    """nvidia-smi's reading, now, of the SM clock, its maximum and the
+    power draw."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    sm, sm_max, power = (float(v) for v in out.strip().splitlines()[0].split(","))
+    return {"sm_mhz": sm, "max_sm_mhz": sm_max, "power_w": power}
+
+
+def clocks_under_load(launch, ms_each: float) -> dict:
+    """``sm_clocks`` read while launches of a kernel of about ``ms_each``
+    keep the card busy: enough of them are queued to last three times as
+    long as one idle reading took. Raises if the card ran dry before the
+    reading came back."""
+    import torch
+
+    t0 = time.perf_counter()
+    idle = sm_clocks()
+    latency_s = time.perf_counter() - t0
+    n = max(20, int(3e3 * latency_s / ms_each) + 1)
+    torch.cuda.synchronize()
+    for _ in range(n):
+        launch()
+    drained = torch.cuda.Event()
+    drained.record()
+    busy = sm_clocks()
+    if drained.query():
+        raise AssertionError(f"the card ran dry before nvidia-smi read its clock "
+                             f"({n} launches of {ms_each:.3f} ms, one reading "
+                             f"{latency_s:.3f} s)")
+    drained.synchronize()
+    return {**busy, "launches": n, "idle_sm_mhz": idle["sm_mhz"],
+            "reading_s": latency_s}
 
 
 def profile_steps(sim, steps: int, step_ms_unprofiled: float) -> dict:
@@ -1006,8 +1104,7 @@ def pass_counts(ss, group: int, consts: dict, lists=None, ranges=None, fold=Fals
 # the C++ op struct behind each OpSpec name (its template form by variant)
 OP_STRUCT = {"density": "DensityOp", "iad": "IadOp", "momentum_energy_std": "MomentumEnergyStdOp",
              "ve_def_gradh": "VeDefGradhOp", "iad_divv_curlv": "DivvCurlvOp",
-             "av_switches": "AvSwitchesOp", "momentum_energy_ve": "MomentumEnergyVeOp",
-             "gravity_p2p": "GravityP2POp"}
+             "av_switches": "AvSwitchesOp", "momentum_energy_ve": "MomentumEnergyVeOp"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -1046,6 +1143,23 @@ def ptxas_of(report: dict, spec, walk: bool, fold: bool):
            else f"11pair_engineI{op}Lb{int(fold)}ELb{sym}EE")
     hits = [v for k, v in report.items() if key in k]
     return hits[0] if len(hits) == 1 else None
+
+
+def p2p_entry(report: dict, blk: int, res: dict) -> dict:
+    """The engines line's entry of K12 (csrc/gravity_p2p.cu) at blocks of
+    ``blk`` targets: its static facts (``traversal.p2p_kernel_info``:
+    registers, local bytes, shared bytes, resident blocks and warps per
+    SM, the staged tile, the targets a thread), ptxas's report and its
+    times at Evrard 125."""
+    from sphexa_torch.gravity import traversal as gt
+
+    info = gt.p2p_kernel_info(blk)
+    key = f"18gravity_p2p_kernelILi{info['targets_per_thread']}EE"
+    hits = [v for k, v in report.items() if key in k]
+    return {"engine": "K12", "instantiation": "gravity_p2p", "source": SOURCE["gravity_p2p"],
+            "fold": False, **info,
+            "ptxas": hits[0] if len(hits) == 1 else None, "state": "evrard_125",
+            "ms": res["ms"], "batched_ms": res["batched_ms"]}
 
 
 def engine_entries(specs: dict, at: dict, passes: dict, report: dict, engine: str,
@@ -1380,21 +1494,27 @@ def main() -> int:
     emit({"phase": "gravity_accuracy", **gravity_accuracy(ess, egcfg, eout)})
 
     # K12 and K13 at the path's shapes: vs plain, times, bounds
-    eruns, ecls = checks.near_field_runs(ess.x, ess.y, ess.z, ess.m, ekeys, ebox, esim.gtree,
-                                         esim.cfg.grav_meta, egcfg, keep_packed=True)
+    estarts, elens, ecls = checks.near_field_ranges(ess.x, ess.y, ess.z, ess.m, ekeys, ebox,
+                                                    esim.gtree, esim.cfg.grav_meta, egcfg,
+                                                    keep_packed=True)
     packed = ecls["packed"]
     if len(packed) != 2:
         raise AssertionError(f"Evrard 125: {len(packed)} compactions, expected 2")
-    groups = torch.linspace(0, eruns.num_groups - 1, 256, device="cuda").round().long()
+    groups = torch.linspace(0, elens.shape[0] - 1, 256, device="cuda").round().long()
     gres = {
         "gravity_p2p": checks.p2p_vs_plain("Evrard 125", ess.x, ess.y, ess.z, ess.m, ess.h,
-                                           egcfg, eruns, groups=groups),
+                                           egcfg, estarts, elens, groups=groups),
         "compact_class_lists": {"checks": [
             checks.compact_vs_plain(f"Evrard 125 compaction {i}", *pk)
             for i, pk in enumerate(packed)]}}
     z3 = torch.zeros(3, device="cuda")
-    p2p_args = (ess.x, ess.y, ess.z, ess.m, ess.h, z3, False, egcfg, eruns)
+    p2p_args = (ess.x, ess.y, ess.z, ess.m, ess.h, z3, False, egcfg, estarts, elens)
     gres["gravity_p2p"]["ms"] = cuda_time_ms(lambda: gt._pallas_p2p(*p2p_args), reps=7)
+    gres["gravity_p2p"]["batched_ms"] = cuda_time_batched_ms(lambda: gt._pallas_p2p(*p2p_args))
+    p2p_launch, _ = gt.p2p_launcher(*p2p_args)
+    gres["gravity_p2p"]["kernel_ms"] = launch_loop_ms(p2p_launch, 20)
+    gres["gravity_p2p"]["clocks"] = clocks_under_load(p2p_launch,
+                                                      gres["gravity_p2p"]["kernel_ms"])
     gres["gravity_p2p"]["plain_ms"] = cuda_time_ms(lambda: gt._pallas_p2p_plain(*p2p_args),
                                                    reps=1)
     gres["gravity_p2p"]["library_ms"] = None
@@ -1402,21 +1522,24 @@ def main() -> int:
     cres["max_abs_err"] = max(c["max_abs_err"] for c in cres["checks"])
     cres["ms"] = cuda_time_ms(lambda: [pcmp.compact_class_lists(*pk) for pk in packed],
                               reps=7)
+    cres["per_launch_ms"] = [cuda_time_ms(lambda pk=pk: pcmp.compact_class_lists(*pk), reps=7)
+                             for pk in packed]
+    cres["kernel_ms"] = [launch_loop_ms(pcmp.compact_launcher(*pk)[0], 200) for pk in packed]
     cres["plain_ms"] = cuda_time_ms(
         lambda: [pcmp.compact_class_lists_plain(*pk) for pk in packed], reps=2)
     # the one PyTorch call that computes the same lists: the packed rows
     # sorted (candidate order is ascending node index), sliced at the caps
     cres["library_ms"] = cuda_time_ms(lambda: [torch.sort(pk[0], dim=1) for pk in packed],
                                       reps=7)
-    gbnd = gravity_bounds(eruns, ess.x.shape[0], egcfg.target_block, packed)
+    eruns = gt.p2p_runs(estarts, elens, egcfg)  # the plain version's form, for the count
+    gbnd = gravity_bounds(elens, ess.x.shape[0], egcfg.target_block, packed, runs=eruns)
     emit({"phase": "gravity_kernels", "side": 125, "n": ess.x.shape[0], "results": gres,
-          "bounds": gbnd, "runs_per_group_mean": float(eruns.ncells.float().mean()),
+          "bounds": gbnd, "near_field_load": near_field_load(elens, egcfg.target_block),
+          "runs_per_block_mean": float(eruns.ncells.float().mean()),
           "p2p_n_mean": float(ecls["p2p_n"].float().mean()),
           "m2p_n_mean": float(ecls["m2p_n"].float().mean())})
 
-    # the engines' evidence: every instantiation of K1 and K6
-    from sphexa_torch.gravity.traversal import GRAVITY_P2P
-
+    # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
              "ve_def_gradh": pe.VE_DEF_GRADH, "iad_divv_curlv": pe.IAD_DIVV_CURLV,
              "iad_divv_curlv:gradv": pe.IAD_DIVV_CURLV_GRADV, "av_switches": pe.AV_SWITCHES,
@@ -1441,9 +1564,7 @@ def main() -> int:
     group = lcfg.nbr.group
     engines = (engine_entries(specs, walk_at, passes, report, "K6", group)
                + engine_entries(specs, k1_at, passes, report, "K1", group, folds=(False, True))
-               + engine_entries({"gravity_p2p": GRAVITY_P2P},
-                                {"gravity_p2p": (gres, "evrard_125", "gravity_p2p")}, passes,
-                                report, "K1", egcfg.target_block))
+               + [p2p_entry(report, egcfg.target_block, gres["gravity_p2p"])])
     emit({"phase": "engines", "card": smi, "pass_windows": list(PASS_WINDOWS),
           "engines": engines})
     short = [f"{e['engine']} {e['instantiation']} fold={e['fold']}: {e['warps_per_sm']}"

@@ -42,15 +42,13 @@
 // writes each thread's words to global memory, one in mode 2 reads them
 // there instead of running the mask phase (pair_lists.cu; the caller
 // names the mode, pair_engine.py's mask argument).
-//
-// An op without the SPH cutoff (the gravity near field) pairs every
-// candidate: it keeps the plain loop, every lane on every candidate.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "pair_ops.cuh"
 
 // Candidates per window. 256: on the evolved Sedov 100^3 states a warp's
@@ -110,21 +108,6 @@ __device__ __forceinline__ WindowView window_view(unsigned char* smem, int b) {
 // (rows 0-2 are never read: the engine passes the separation instead).
 __device__ __forceinline__ const float (*j_rows(const WindowView& v))[WINDOW] {
     return reinterpret_cast<const float (*)[WINDOW]>(v.rows) - 3;
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every group but the most recent N has landed (this thread's copies)
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage the position of candidate `cand` of run ordinal `run` at window
@@ -275,30 +258,16 @@ __device__ __forceinline__ void window_pipeline(unsigned char* smem, Stage&& sta
         const WindowView v = window_view<Op::NJ>(smem, b);
         if (!FOLD) fixup_shifts(v, cnt, t, G, shx, shy, shz);
         __syncthreads();  // the positions are published
-        if constexpr (Op::CUTOFF) {
-            if (mode == 2) {
-                for (int q = 0; q < (cnt + 31) >> 5; ++q) mbits[q * G + t] = gw[q * G];
-            } else {
-                nc += mask_phase<FOLD>(v.xyz, cnt, I[0], I[1], I[2], lx, ly, lz, h4, tgt, mbits,
-                                       t, G, mode == 1 ? gw : nullptr);
-            }
-            if (gw) gw += ((cnt + 31) >> 5) * G;
-            cp_async_wait<1>();  // this window's rows
-            __syncthreads();
-            body_phase<Op, FOLD, SYM>(v, cnt, I, lx, ly, lz, mbits, t, G, acc, p);
+        if (mode == 2) {
+            for (int q = 0; q < (cnt + 31) >> 5; ++q) mbits[q * G + t] = gw[q * G];
         } else {
-            cp_async_wait<1>();
-            __syncthreads();
-            const float (*J)[WINDOW] = j_rows(v);
-            const bool self_ok = p.allow_self != 0;
-            for (int k = 0; k < cnt; ++k) {
-                const float4 c = v.xyz[k];
-                float rx, ry, rz;
-                const float d2 = pair_geom<FOLD>(c, I[0], I[1], I[2], lx, ly, lz, rx, ry, rz);
-                if (self_ok || __float_as_int(c.w) != tgt)
-                    Op::template pair<WINDOW>(I, J, k, rx, ry, rz, d2, acc, p);
-            }
+            nc += mask_phase<FOLD>(v.xyz, cnt, I[0], I[1], I[2], lx, ly, lz, h4, tgt, mbits, t,
+                                   G, mode == 1 ? gw : nullptr);
         }
+        if (gw) gw += ((cnt + 31) >> 5) * G;
+        cp_async_wait<1>();  // this window's rows
+        __syncthreads();
+        body_phase<Op, FOLD, SYM>(v, cnt, I, lx, ly, lz, mbits, t, G, acc, p);
         __syncthreads();  // the window is consumed: its buffers may be restaged
         stage_rows<Op::NJ>(window_view<Op::NJ>(smem, b ^ 1), next, t, G, p);
         cp_async_commit();
@@ -338,11 +307,4 @@ int kernel_info(K kernel, size_t dyn_bytes, int group, int32_t* out) {
     out[5] = WINDOW;
     out[6] = blocks * ((group + 31) / 32);
     return 0;
-}
-
-// first window position >= fill that thread t stages (pos % G == t)
-__device__ __forceinline__ int first_own(int fill, int t, int G) {
-    int off = (t - fill) % G;
-    if (off < 0) off += G;
-    return fill + off;
 }

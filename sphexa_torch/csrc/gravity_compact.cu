@@ -7,79 +7,137 @@
 // caps, the tails zeroed, and the unclipped counts. The TPU kernel ranks
 // lanes with MXU products and stages through a 256-lane window only
 // because Mosaic has no lane shuffle; here a warp ranks its lanes with
-// __ballot_sync and __popc, which is the contract without that blocking.
+// shuffles, which is the contract without that blocking.
 //
 // Design. One CUDA block of CT threads per row. The row streams through in
-// tiles of CT candidates, one per thread (coalesced loads). Per tile and
-// class each warp takes the ballot of its lanes in that class; a lane's
-// rank is the popcount of the ballot's lower bits, its warp's offset the
-// sum of the lower warps' popcounts (CT/32 words in shared memory). A
-// value goes to list_k[row, done_k + offset + rank] while that index is
-// below cap_k, then done_k advances by the tile's count. After the last
+// tiles of 4 CT candidates: each thread loads its four consecutive
+// candidates as one 16-byte word, and the next DEPTH = 4 tiles' words are
+// in flight while the current tile ranks (a ring of words in registers).
+// Ranking: each
+// thread counts its candidates of each class (the two counts packed in one
+// int, 16 bits each: a tile holds at most 4 CT of either), a warp
+// inclusive scan (__shfl_up_sync) gives each thread the candidates of the
+// lanes below it, and the warps' totals, exchanged through shared memory,
+// give each warp its offset: one barrier per tile, the totals
+// double-buffered by tile parity (a warp writes tile i + 2's totals only
+// after the barrier of tile i + 1, which every thread passes after reading
+// tile i's). A value goes to list_k[row, done_k + offset] while that index
+// is below cap_k, then done_k advances by the tile's count. After the last
 // tile the block zeroes list_k past min(done_k, cap_k) and writes the
 // unclipped counts. No atomics: the order is the candidate order, so the
 // lists are bit-equal to the stable sort of the plain version.
 //
+// Rows whose start is not 16-byte aligned (C % 4 != 0): each row is read
+// as the aligned 16-byte words that cover it, and the candidates of those
+// words outside the row (the previous row's tail, the next row's head) are
+// masked as dead. An aligned 16-byte word that holds a byte of the array
+// lies in the array's allocation (the CUDA and PyTorch allocators hand out
+// blocks aligned to, and sized in multiples of, far more than 16 bytes),
+// so the read stays in bounds.
+//
 // What bounds it on this card: device memory. Each packed word is read
-// once and each list word written once (about 280 MB per Evrard 10^6
-// solve); the per-tile work is two ballots, a few popcounts and two
-// barriers.
+// once and each list word written once; per tile a thread issues one
+// 16-byte load, ranks with 5 shuffles and 8 shared reads, and writes its
+// values. One block a row: the superblock pre-pass has only 500 rows at
+// Evrard 125 (fewer than the card's 1,056 resident blocks) and reaches a
+// lower share of its bound than the blocks' 3,996 rows (PERF.md), but
+// splitting its rows over clusters would save about 0.02 ms a solve.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int CT = 256;           // threads per block = candidates per tile
+constexpr int CT = 256;   // threads per block
+constexpr int DEPTH = 4;  // tiles in flight a thread
 constexpr int WARPS = CT / 32;
 constexpr int IDX_BITS = 24;
 constexpr int32_t IDX_MASK = (1 << IDX_BITS) - 1;
 constexpr int32_t DEAD = 2 << IDX_BITS;
 
+// the 16-byte word w of a row, dead past the words that cover it
+__device__ __forceinline__ int4 word(const int4* row, int w, int nw) {
+    return w < nw ? __ldg(row + w) : make_int4(DEAD, DEAD, DEAD, DEAD);
+}
+
+// One tile of a row: this thread's word `cur` (candidates e0 .. e0 + 3 of
+// the row) ranked and written; done0/done1 advance by the tile's counts.
+__device__ __forceinline__ void rank_tile(int4 cur, int e0, int C, int cap0, int cap1,
+                                          int32_t* out0, int32_t* out1, int (*wsum)[WARPS],
+                                          int par, int lane, int warp, int& done0,
+                                          int& done1) {
+    int32_t v[4] = {cur.x, cur.y, cur.z, cur.w};
+    int mine = 0;  // this thread's class-0 count | class-1 count << 16
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int e = e0 + j;
+        if (e < 0 || e >= C) v[j] = DEAD;
+        const int cls = v[j] >> IDX_BITS;
+        mine += (cls == 0) | ((cls == 1) << 16);
+    }
+    int inc = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += y;
+    }
+    if (lane == 31) wsum[par][warp] = inc;
+    __syncthreads();
+    int below = inc - mine, tot = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        const int s = wsum[par][w];
+        tot += s;
+        if (w < warp) below += s;
+    }
+    int p0 = done0 + (below & 0xffff), p1 = done1 + (below >> 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int cls = v[j] >> IDX_BITS;
+        if (cls == 0) {
+            if (p0 < cap0) out0[p0] = v[j] & IDX_MASK;
+            ++p0;
+        } else if (cls == 1) {
+            if (p1 < cap1) out1[p1] = v[j] & IDX_MASK;
+            ++p1;
+        }
+    }
+    done0 += tot & 0xffff;
+    done1 += tot >> 16;
+}
+
+// DEPTH tiles' words in flight a thread: word i of the ring is tile
+// base + i's, reloaded with tile base + i + DEPTH's once ranked.
 __global__ void __launch_bounds__(CT)
 compact_class_lists_kernel(const int32_t* __restrict__ packed, int C, int cap0, int cap1,
                            int32_t* __restrict__ list0, int32_t* __restrict__ list1,
                            int32_t* __restrict__ counts) {
-    __shared__ int wcnt[2][WARPS];
+    __shared__ __align__(16) int wsum[2][WARPS];
     const int row = blockIdx.x;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const int32_t* in = packed + static_cast<size_t>(row) * C;
     int32_t* out0 = list0 + static_cast<size_t>(row) * cap0;
     int32_t* out1 = list1 + static_cast<size_t>(row) * cap1;
-    const unsigned below = (1u << lane) - 1u;  // the lanes under this one
+    // the row's candidates before its first aligned word, and its words
+    const int head = static_cast<int>((reinterpret_cast<uintptr_t>(in) >> 2) & 3);
+    const int4* words = reinterpret_cast<const int4*>(in - head);
+    const int nw = (head + C + 3) >> 2;
     int done0 = 0, done1 = 0;
-    for (int base = 0; base < C; base += CT) {
-        const int i = base + t;
-        const int32_t v = i < C ? __ldg(in + i) : DEAD;
-        const int cls = v >> IDX_BITS;
-        const unsigned b0 = __ballot_sync(0xffffffffu, cls == 0);
-        const unsigned b1 = __ballot_sync(0xffffffffu, cls == 1);
-        if (lane == 0) {
-            wcnt[0][warp] = __popc(b0);
-            wcnt[1][warp] = __popc(b1);
-        }
-        __syncthreads();
-        int off0 = 0, off1 = 0, tot0 = 0, tot1 = 0;
+    int4 ring[DEPTH];
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-            const int c0 = wcnt[0][w], c1 = wcnt[1][w];
-            if (w < warp) {
-                off0 += c0;
-                off1 += c1;
-            }
-            tot0 += c0;
-            tot1 += c1;
+    for (int i = 0; i < DEPTH; ++i) ring[i] = word(words, i * CT + t, nw);
+    int par = 0;
+    for (int base = 0; base < nw; base += DEPTH * CT) {
+#pragma unroll
+        for (int i = 0; i < DEPTH; ++i) {
+            const int w = base + i * CT;  // the tile's first word (block-uniform)
+            if (w >= nw) break;
+            const int4 cur = ring[i];
+            ring[i] = word(words, w + DEPTH * CT + t, nw);
+            rank_tile(cur, 4 * (w + t) - head, C, cap0, cap1, out0, out1, wsum, par, lane,
+                      warp, done0, done1);
+            par ^= 1;
         }
-        if (cls == 0) {
-            const int pos = done0 + off0 + __popc(b0 & below);
-            if (pos < cap0) out0[pos] = v & IDX_MASK;
-        } else if (cls == 1) {
-            const int pos = done1 + off1 + __popc(b1 & below);
-            if (pos < cap1) out1[pos] = v & IDX_MASK;
-        }
-        done0 += tot0;
-        done1 += tot1;
-        __syncthreads();  // the next tile rewrites wcnt
     }
     for (int k = min(done0, cap0) + t; k < cap0; k += CT) out0[k] = 0;
     for (int k = min(done1, cap1) + t; k < cap1; k += CT) out1[k] = 0;

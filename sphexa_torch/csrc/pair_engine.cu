@@ -6,12 +6,11 @@
 // pallas_density, pallas_iad and pallas_momentum_energy_std, its VE
 // instantiations pallas_ve_def_gradh, pallas_iad_divv_curlv,
 // pallas_av_switches and pallas_momentum_energy_ve (pallas_xmass is
-// m / rho0 over pallas_density), and the gravity near field
-// (sphexa_tpu/gravity/traversal.py _pallas_p2p: no distance cutoff, groups
-// of target_block targets over their block's near-leaf runs). It serves the
-// streaming steps (use_lists=False, fold-mode grids, steps under
-// self-gravity) and the near field; in list mode every SPH op runs the list
-// walk (pair_lists.cu), which tests only the lanes the mark pass kept. The
+// m / rho0 over pallas_density). It serves the streaming steps
+// (use_lists=False, fold-mode grids, steps under self-gravity); in list
+// mode every SPH op runs the list walk (pair_lists.cu), which tests only
+// the lanes the mark pass kept, and the gravity near field, which has no
+// cutoff, is a kernel of its own (gravity_p2p.cu). The
 // contract is the TPU kernel's; its blocking is not: the 128-lane tiles,
 // the (rows, nf_pad, 128) j-field packing, the VMEM double buffer and the
 // scalar-prefetch tables exist because of the TPU and are dropped.
@@ -53,11 +52,6 @@
 // av_clean: 23-29 j-fields of staged rows); chip_smoke.py's engines line
 // reports each instantiation's registers, shared bytes, resident warps
 // and times, and PERF.md the measured numbers.
-//
-// The gravity near field (GravityP2POp, CUTOFF false) pairs every
-// candidate of its runs (the self pair only with allow_self), so it has
-// no mask phase and no per-lane divergence: every lane runs every
-// candidate's body, its j-fields read as broadcasts.
 //
 // Exactness. Neighbour counts must match the plain version bit for bit, so
 // the separation and d^2 of the mask use __fadd_rn/__fsub_rn/__fmul_rn
@@ -188,7 +182,6 @@ int dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info)
     if (!std::strcmp(name, "momentum_energy_ve"))
         return v ? launch<MomentumEnergyVeOp<true>>(a, stream, info)
                  : launch<MomentumEnergyVeOp<false>>(a, stream, info);
-    if (!std::strcmp(name, "gravity_p2p")) return launch<GravityP2POp>(a, stream, info);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -220,10 +213,6 @@ int launch_av_switches(const EngineArgs* a, void* stream) {
 
 int launch_momentum_energy_ve(const EngineArgs* a, void* stream) {
     return dispatch("momentum_energy_ve", a, stream, nullptr);
-}
-
-int launch_gravity_p2p(const EngineArgs* a, void* stream) {
-    return dispatch("gravity_p2p", a, stream, nullptr);
 }
 
 // the static facts (kernel_info in engine_window.cuh) of the instantiation

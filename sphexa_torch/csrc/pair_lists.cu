@@ -213,7 +213,6 @@ __device__ __forceinline__ int select_bit(unsigned w, int r) {
 template <class Op, bool SYM>
 __global__ void __launch_bounds__(MAX_BLOCK, min_blocks<Op>())
     list_walk(const __grid_constant__ EngineArgs p) {
-    static_assert(Op::CUTOFF, "the list walk runs the SPH ops, which all cut off at 2 h_i");
     extern __shared__ __align__(16) unsigned char smem[];
     const int g = blockIdx.x;
     const int t = threadIdx.x;

@@ -8,13 +8,11 @@
 // window J[field][W]; W is the window's row width (engine_window.cuh),
 // so one body serves both engines.
 //
-// An op's CUTOFF says whether its mask holds the SPH support test
-// d^2 < 4 h_i^2 (every SPH op) or takes every candidate of its runs (the
-// gravity near field, which only the streaming engine runs); only an op
-// without the cutoff reads the run-time allow_self flag. SYM says whether
-// its mask may add the symmetric cutoff d^2 < 4 h_j^2 (the momentum ops,
-// when the launch names a sym_j field): the engines compile the mask with
-// and without it.
+// Every op's mask is the SPH support test d^2 < 4 h_i^2 (the gravity near
+// field, which has no cutoff, is a kernel of its own: gravity_p2p.cu). SYM
+// says whether its mask may add the symmetric cutoff d^2 < 4 h_j^2 (the
+// momentum ops, when the launch names a sym_j field): the engines compile
+// the mask with and without it.
 
 #pragma once
 
@@ -27,7 +25,7 @@ constexpr int MAX_OUT = 8;
 constexpr int NCOEF = 14;   // degree-13 kernel polynomial
 // layout version of EngineArgs, mirrored in sphexa_torch/kernels/build.py
 // and sphexa_torch/sph/pair_engine.py
-constexpr int ABI_VERSION = 6;
+constexpr int ABI_VERSION = 7;
 
 // Mirror of sphexa_torch.sph.pair_engine.EngineArgs (same field order).
 struct EngineArgs {
@@ -63,7 +61,6 @@ struct EngineArgs {
     float ramp;
     const float* dt;         // AV switches: () device scalar, the step's dt
     int32_t variant;         // template form: divv/curlv gradv, momentum av_clean
-    int32_t allow_self;      // ops without the cutoff: the target's own pair counts
     // list walk: the mask phase's accepted-candidate words of every group,
     // (word_off[g] + j) * group + t for word j of target t (words of 32
     // candidates of the group's marked-lane sequence), or null; mode 1
@@ -104,7 +101,6 @@ __device__ __forceinline__ void iad_project(float c11, float c12, float c13, flo
 struct DensityOp {
     static constexpr int NI = 6, NJ = 4, NACC = 1, NOUT = 1;
     static constexpr bool WANT_NC = true;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
@@ -124,7 +120,6 @@ struct DensityOp {
 struct IadOp {
     static constexpr int NI = 5, NJ = 4, NACC = 6, NOUT = 6;
     static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
@@ -167,7 +162,6 @@ struct IadOp {
 struct MomentumEnergyStdOp {
     static constexpr int NI = 18, NJ = 17, NACC = 5, NOUT = 5;
     static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = true;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
@@ -230,7 +224,6 @@ struct MomentumEnergyStdOp {
 struct VeDefGradhOp {
     static constexpr int NI = 7, NJ = 5, NACC = 3, NOUT = 2;
     static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
@@ -266,7 +259,6 @@ template <bool GRADV>
 struct DivvCurlvOp {
     static constexpr int NI = 15, NJ = 7, NACC = GRADV ? 9 : 4, NOUT = GRADV ? 8 : 2;
     static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
@@ -316,7 +308,6 @@ struct DivvCurlvOp {
 struct AvSwitchesOp {
     static constexpr int NI = 18, NJ = 9, NACC = 4, NOUT = 1;
     static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = false;
     template <int W>
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
@@ -364,7 +355,6 @@ template <bool AVCLEAN>
 struct MomentumEnergyVeOp {
     static constexpr int NI = AVCLEAN ? 30 : 23, NJ = AVCLEAN ? 29 : 23, NACC = 6, NOUT = 5;
     static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = true;
     static constexpr bool SYM = true;
     // r . G r with the symmetric velocity gradient G = (g11 g12 g13 g22 g23 g33)
     __device__ __forceinline__ static float sym_gv(float g11, float g12, float g13, float g22,
@@ -448,43 +438,5 @@ struct MomentumEnergyVeOp {
         out[2] = -p.K * acc[2];
         out[3] = p.K * (prhoi * acc[3] + 0.5f * fmaxf(acc[4], 0.0f));
         out[4] = p.k_cour * hi / v;
-    }
-};
-
-// ---------------------------------------------------------------------------
-// Gravity near field (sphexa_tpu/gravity/traversal.py _pallas_p2p, its
-// pair_body :489-501): every candidate of the block's near-leaf runs, no
-// distance cutoff, the self pair only with allow_self.
-// ---------------------------------------------------------------------------
-
-// i-fields: x+sx y+sy z+sz h (the target shift added by the wrapper)
-// j-fields: x y z m h
-// Sums: the acceleration (x, y, z) and the potential. The distance is
-// clamped to h_i + h_j (kernel.hpp:515); rx = x_i - x_j, so a = -sum r w.
-// The sums are float32, as the TPU kernel's: a target's near field sums
-// thousands of terms that cancel, so another summation order (the plain
-// version's) moves them by a few 1e-6 of the force scale.
-struct GravityP2POp {
-    static constexpr int NI = 4, NJ = 5, NACC = 4, NOUT = 4;
-    static constexpr bool WANT_NC = false;
-    static constexpr bool CUTOFF = false;
-    static constexpr bool SYM = false;
-    template <int W>
-    __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
-                                                float rx, float ry, float rz, float d2,
-                                                float* acc, const EngineArgs&) {
-        const float h_ij = I[3] + J[4][k];
-        const float r2_eff = fmaxf(d2, h_ij * h_ij);
-        const float inv_r = rsqrtf(fmaxf(r2_eff, 1e-30f));
-        const float w = J[3][k] * inv_r * inv_r * inv_r;
-        acc[0] -= rx * w;
-        acc[1] -= ry * w;
-        acc[2] -= rz * w;
-        acc[3] -= w * d2;
-    }
-    __device__ __forceinline__ static void finalize(const float*, const float* acc,
-                                                    float* out, const EngineArgs&) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) out[a] = acc[a];
     }
 };

@@ -4,9 +4,10 @@
 order, truncated at fixed caps, with the unclipped true counts.
 
 ``compact_class_lists`` launches the CUDA kernel of
-csrc/gravity_compact.cu for a CUDA tensor (one block per row, warp ballots
-and popcounts rank the lanes) and runs ``compact_class_lists_plain`` for
-a CPU tensor; the plain version ranks each class by a cumulative sum."""
+csrc/gravity_compact.cu for a CUDA tensor (one block per row, tiles of
+1,024 candidates read as 16-byte words, ranked by warp scans with one
+barrier per tile) and runs ``compact_class_lists_plain`` for a CPU
+tensor; the plain version ranks each class by a cumulative sum."""
 
 import torch
 
@@ -37,23 +38,39 @@ def compact_class_lists(packed: torch.Tensor, cap0: int, cap1: int):
         return compact_class_lists_plain(packed, cap0, cap1)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    launch, out = compact_launcher(packed, cap0, cap1)
+    launch()
+    LAUNCHES["compact_class_lists"] += 1
+    return out
+
+
+def compact_launcher(packed: torch.Tensor, cap0: int, cap1: int):
+    """The kernel's arguments checked and built once for a CUDA tensor.
+    Returns (launch, (list0, n0, list1, n1)): each ``launch()`` runs the
+    kernel on the current stream (no sync) into those outputs and raises
+    on a launch error. ``compact_class_lists`` launches it once; a timing
+    loop may launch it again without the argument building."""
     from sphexa_torch.kernels.build import load_library
 
+    _check(packed, cap0, cap1)
+    dev = packed.device
     B, C = packed.shape
     list0 = torch.empty(B, cap0, dtype=torch.int32, device=dev)
     list1 = torch.empty(B, cap1, dtype=torch.int32, device=dev)
     counts = torch.empty(B, 2, dtype=torch.int32, device=dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.launch_compact_class_lists(
-            packed.data_ptr(), B, C, cap0, cap1, list0.data_ptr(), list1.data_ptr(),
-            counts.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"launch_compact_class_lists failed: CUDA error {err} "
-                           f"({lib.pair_engine_error_string(err).decode()})")
-    LAUNCHES["compact_class_lists"] += 1
-    return list0, counts[:, 0], list1, counts[:, 1]
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.launch_compact_class_lists(
+                packed.data_ptr(), B, C, cap0, cap1, list0.data_ptr(), list1.data_ptr(),
+                counts.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"launch_compact_class_lists failed: CUDA error {err} "
+                               f"({lib.pair_engine_error_string(err).decode()})")
+
+    return launch, (list0, counts[:, 0], list1, counts[:, 1])
 
 
 def compact_class_lists_plain(packed: torch.Tensor, cap0: int, cap1: int):

@@ -13,9 +13,11 @@ accepted cut (the pre-pass, itself a compaction), and its blocks classify
 against that list only.
 
 The far field is plain PyTorch (``multipole.m2p``, chunked over blocks so
-its temporaries stay a few GB); the near field streams each block's
-near-leaf rows through the pair engine with the gravity body and no
-distance cutoff (``_pallas_p2p``, the K12 kernel on the card). Every shape
+its temporaries stay a few GB); the near field pairs every target with
+every particle of its block's near-field leaves (``_pallas_p2p``: on the
+card the K12 kernel of csrc/gravity_p2p.cu, which reads the leaf ranges as
+they come; its plain version merges them into runs and streams them
+through the plain pair engine with no distance cutoff). Every shape
 follows from the caps, so a solve reads nothing back to the host; the
 diagnostics report the high-water marks that the caller checks against
 the caps (an overflow re-sizes and replays the step).
@@ -52,7 +54,8 @@ M2P_CAP_MARGIN = 1.3
 @dataclasses.dataclass(frozen=True)
 class GravityConfig:
     """Static gravity-solver configuration (the JAX GravityConfig's fields
-    that the port reads; the near field always runs on the pair engine)."""
+    that the port reads; the near field always runs the kernel path, the
+    JAX package's use_pallas=True)."""
 
     target_block: int = 64  # particles per MAC target group
     m2p_cap: int = 512  # max accepted multipoles per target block
@@ -444,20 +447,20 @@ def _m2p_eval(tx, ty, tz, order_m, m2p_ok, node_packed):
 
 
 def _p2p_leaf_ranges(order_p, p2p_ok, tree: GravityTree, edges, num_n: int):
-    """Sorted-array row ranges (start, length) of each block's near-field
-    leaves; slots past the list are empty."""
+    """Sorted-array row ranges (start, length), (NB, p2p_cap) int32 each,
+    of each block's near-field leaves; slots past the list are empty."""
     lidx = tree.leaf_of_node[torch.clamp(order_p, max=num_n - 1).to(torch.int64)]
     start = torch.where(p2p_ok, edges[lidx], 0)
     length = torch.where(p2p_ok, edges[lidx + 1] - edges[lidx], 0)
-    return start, length
+    return start.to(torch.int32), length.to(torch.int32)
 
 
 def p2p_runs(starts, lens, cfg: GravityConfig) -> pe.GroupRanges:
     """The near-field leaf ranges merged into runs (the port's
-    ``_merge_runs``, the JAX wrapper's call): with gap 0 only, since a
-    bridged gap would stream particles whose mass already arrives by M2P
-    (no distance cutoff masks them), and runs of at most max(leaf_cap,
-    1024) rows."""
+    ``_merge_runs``, the JAX wrapper's call), for the plain version: with
+    gap 0 only, since a bridged gap would stream particles whose mass
+    already arrives by M2P (no distance cutoff masks them), and runs of at
+    most max(leaf_cap, 1024) rows."""
     zero3 = torch.zeros(starts.shape + (3,), dtype=torch.float32, device=starts.device)
     rs, rl, sh, nruns = pe._merge_runs(starts, lens, lens > 0, zero3,
                                        max(cfg.leaf_cap, 1024), 0)
@@ -480,8 +483,8 @@ def _gravity_pair(g, I, J, c):
     return -(g.rx * w), -(g.ry * w), -(g.rz * w), -(w * g.d2)
 
 
-#: the near field as a pair-engine op (csrc/pair_ops.cuh GravityP2POp):
-#: i-fields x+sx, y+sy, z+sz, h; j-fields x, y, z, m, h; no distance cutoff
+#: the near field as an op of the plain pair engine: i-fields x+sx, y+sy,
+#: z+sz, h; j-fields x, y, z, m, h; no distance cutoff
 GRAVITY_P2P = pe.OpSpec("gravity_p2p", 4, 5, 4, _gravity_pair, ("sum",) * 4,
                         lambda I, accs, nc, c: tuple(accs), want_nc=False, cutoff=False)
 
@@ -496,28 +499,109 @@ def p2p_fields(x, y, z, m, h, shift):
     return [x + shift[0], y + shift[1], z + shift[2], h], [x, y, z, m, h]
 
 
-def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, ranges):
-    """Near-field P2P of every target over its block's near-leaf runs:
-    the K12 kernel (the pair engine with GravityP2POp) for CUDA tensors,
-    the plain version for CPU tensors. Returns (ax, ay, az, phi), each
-    (n,)."""
+#: targets each thread of the near-field kernel keeps in registers
+#: (csrc/gravity_p2p.cu), 2 where a block has too few targets for a whole
+#: number of warps of 4
+P2P_TARGETS = 4
+
+
+def p2p_targets_per_thread(blk: int) -> int:
+    """K12's targets a thread for blocks of ``blk`` targets: P2P_TARGETS
+    where blk / 4 threads are a whole number of warps, else 2 (the
+    kernel's two forms, for the solver's blocks of 256 and 64)."""
+    if blk % 64 or not 0 < blk <= 256:
+        raise ValueError(f"the near-field kernel takes target blocks of a multiple of 64 "
+                         f"up to 256 targets, got {blk}")
+    return P2P_TARGETS if blk % (32 * P2P_TARGETS) == 0 else 2
+
+
+def p2p_block_order(lens: torch.Tensor) -> torch.Tensor:
+    """(NB,) int32 blocks by descending near-field candidate count (the sum
+    of their leaf lengths), ties by block index: K12 starts the heaviest
+    blocks first, so that the light ones fill the tail."""
+    return torch.argsort(lens.sum(dim=1), descending=True, stable=True).to(torch.int32)
+
+
+def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens):
+    """Near-field P2P of every target over its block's near-leaf ranges:
+    ``starts``/``lens`` are the (NB, p2p_cap) int32 row ranges of
+    ``_p2p_leaf_ranges`` (slots past a block's list have length 0),
+    ``shift`` ((3,)) is added to the targets, and the pair with a target's
+    own row counts only with ``allow_self``. The K12 kernel
+    (csrc/gravity_p2p.cu) for CUDA tensors, the plain version for CPU
+    tensors. Returns (ax, ay, az, phi), each (n,)."""
     dev = x.device
     if dev.type == "cuda":
-        i_f, j_f = p2p_fields(x, y, z, m, h, shift)
-        outs, _ = pe.engine_kernel(GRAVITY_P2P, ranges, i_f, j_f, False, cfg.target_block,
-                                   {**_P2P_CONSTS, "allow_self": allow_self})
-        return tuple(outs)
+        launch, out = p2p_launcher(x, y, z, m, h, shift, allow_self, cfg, starts, lens)
+        launch()
+        pe.LAUNCHES["gravity_p2p"] += 1
+        return out
     if dev.type == "cpu":
-        return _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, ranges)
+        return _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, lens)
     raise ValueError(f"unsupported device {dev}")
 
 
-def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, ranges):
-    """Plain PyTorch version of ``_pallas_p2p`` (``engine_plain``) on any
-    device."""
+def p2p_launcher(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens):
+    """K12's arguments checked and built once (the blocks heaviest first,
+    ``p2p_block_order``; ``p2p_targets_per_thread`` targets a thread).
+    Returns (launch, (ax, ay, az, phi)): each ``launch()`` runs the kernel
+    on the current stream (no sync) into those outputs and raises on a
+    launch error. ``_pallas_p2p`` launches it once; a timing loop may
+    launch it again without the argument building."""
+    from sphexa_torch.kernels.build import load_library
+
+    dev, n, blk = x.device, x.shape[0], cfg.target_block
+    nb = -(-n // blk)
+    r = p2p_targets_per_thread(blk)
+    for name, a in zip(("x", "y", "z", "m", "h"), (x, y, z, m, h)):
+        pe.check_cuda_f32(name, a, n, dev)
+    pe.check_table("shift", shift, torch.float32, (3,), dev)
+    pe.check_table("starts", starts, torch.int32, (nb, cfg.p2p_cap), dev)
+    pe.check_table("lens", lens, torch.int32, (nb, cfg.p2p_cap), dev)
+    order = p2p_block_order(lens)
+    out = torch.empty(4, n, dtype=torch.float32, device=dev).unbind(0)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.launch_gravity_p2p(
+                x.data_ptr(), y.data_ptr(), z.data_ptr(), m.data_ptr(), h.data_ptr(),
+                shift.data_ptr(), int(bool(allow_self)), starts.data_ptr(), lens.data_ptr(),
+                order.data_ptr(), n, nb, cfg.p2p_cap, blk, r, *(a.data_ptr() for a in out),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"launch_gravity_p2p failed: CUDA error {err} "
+                               f"({lib.pair_engine_error_string(err).decode()})")
+
+    return launch, out
+
+
+def p2p_kernel_info(blk: int) -> dict:
+    """Static facts of the K12 instantiation that blocks of ``blk`` targets
+    run (``pair_engine.KERNEL_INFO_KEYS``; "window" is its staged tile).
+    Needs a CUDA device; launches nothing."""
+    import ctypes
+
+    from sphexa_torch.kernels.build import load_library
+
+    lib = load_library()
+    out = (ctypes.c_int32 * len(pe.KERNEL_INFO_KEYS))()
+    err = lib.gravity_p2p_info(blk, p2p_targets_per_thread(blk), out)
+    if err != 0:
+        raise RuntimeError(f"gravity_p2p kernel info failed: CUDA error {err} "
+                           f"({lib.pair_engine_error_string(err).decode()})")
+    return {**dict(zip(pe.KERNEL_INFO_KEYS, out)),
+            "targets_per_thread": p2p_targets_per_thread(blk)}
+
+
+def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts,
+                      lens):
+    """Plain PyTorch version of ``_pallas_p2p`` on any device: the leaf
+    ranges merged into runs (``p2p_runs``) through ``engine_plain``."""
     i_f, j_f = p2p_fields(x, y, z, m, h, shift)
-    outs, _ = pe.engine_plain(GRAVITY_P2P, ranges, i_f, j_f, False, cfg.target_block,
-                              {**_P2P_CONSTS, "allow_self": allow_self})
+    outs, _ = pe.engine_plain(GRAVITY_P2P, p2p_runs(starts, lens, cfg), i_f, j_f, False,
+                              cfg.target_block, {**_P2P_CONSTS, "allow_self": allow_self})
     return tuple(outs)
 
 
@@ -601,11 +685,10 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                                 lists["m2p_ok"], node_packed)
     mark("m2p")
     start, length = _p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, edges, num_n)
-    ranges = p2p_runs(start, length, cfg)
     mark("p2p_prologue")
     # an open box: no replica shift, no self pair (Ewald would pass both)
     pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, torch.zeros(3, dtype=x.dtype, device=dev),
-                                      False, cfg, ranges)
+                                      False, cfg, start, length)
     mark("p2p")
 
     def total(far, near):

@@ -44,7 +44,10 @@ _ENTRY_POINTS = {
     "launch_av_switches_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_ve": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_ve_lists": [ctypes.c_void_p, ctypes.c_void_p],
-    "launch_gravity_p2p": [ctypes.c_void_p, ctypes.c_void_p],
+    # x y z m h shift, allow_self, starts lens order, n nb P blk r, ax ay az phi,
+    # stream
+    "launch_gravity_p2p": [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5,
     "launch_compact_class_lists": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p],
@@ -52,11 +55,13 @@ _ENTRY_POINTS = {
     # spills, shared memory and occupancy
     "pair_engine_info": [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p],
     "list_walk_info": [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p],
+    # (target_block, targets a thread, int32 out[7]): K12's static facts
+    "gravity_p2p_info": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 #: layout version of EngineArgs (csrc/pair_ops.cuh ABI_VERSION), checked
 #: against the library's
-ABI_VERSION = 6
+ABI_VERSION = 7
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -7,9 +7,10 @@ sorted state on the card, each op's wrapper against its plain version on
 the kernel chain's inputs; with ``lists`` the list-mode forms the JAX
 dispatch picks. ``compact_vs_plain`` and ``compact_random_cases`` hold
 the gravity list compaction (K13) to its plain version exactly,
-``p2p_vs_plain`` the gravity near field (K12) within its summation-order
-tolerance, and ``gravity_vs_cpu`` a whole gravity solve on the card to the
-same solve on the CPU. Any disagreement raises."""
+``p2p_vs_plain`` the gravity near field (K12) on a solve's leaf ranges
+(``near_field_ranges``) within its summation-order tolerance, and
+``gravity_vs_cpu`` a whole gravity solve on the card to the same solve on
+the CPU. Any disagreement raises."""
 
 from types import SimpleNamespace
 
@@ -112,14 +113,24 @@ def compact_vs_plain(name: str, packed, cap0: int, cap1: int) -> dict:
             "caps": [cap0, cap1]}
 
 
+#: K13's random cases, (rows, width, cap0, cap1): the JAX package's
+#: (tests/test_pallas_interpret.py test_gravity_compact_kernel_interpret:
+#: caps and widths off the multiples of 128, truncation, a row shorter
+#: than a tile), then the widths the kernel's tiles of 1,024 candidates
+#: read as 16-byte words cut: rows narrower than a word, widths off the
+#: multiples of 4 (rows that start inside a word), caps that cut inside a
+#: tile, a row longer than four tiles
+COMPACT_CASES = ((4, 1000, 192, 64), (1, 90, 8, 8), (3, 513, 256, 48),
+                 (3, 3, 2, 2), (2, 5, 1, 4), (5, 1001, 200, 300), (2, 4500, 1100, 2000),
+                 (7, 2050, 1500, 5))
+
+
 def compact_random_cases(device) -> list:
-    """K13 on the JAX package's random cases (tests/test_pallas_interpret.py
-    test_gravity_compact_kernel_interpret: caps and widths off the multiples
-    of 128, truncation, a row shorter than a tile), against its plain
-    version and the numpy expectation."""
+    """K13 on ``COMPACT_CASES`` against its plain version and the numpy
+    expectation."""
     rng = np.random.default_rng(7)
     out = []
-    for B, C, cap0, cap1 in ((4, 1000, 192, 64), (1, 90, 8, 8), (3, 513, 256, 48)):
+    for B, C, cap0, cap1 in COMPACT_CASES:
         cls = rng.integers(0, 3, size=(B, C))
         vals = rng.integers(0, 1 << 20, size=(B, C))
         packed = torch.as_tensor((cls << pcmp.IDX_BITS) | vals, dtype=torch.int32,
@@ -153,34 +164,43 @@ def gravity_case(side: int, device):
     return sim, ss, box, keys
 
 
-def near_field_runs(x, y, z, m, keys, box, tree, meta, cfg, keep_packed: bool = False):
-    """The near-field runs of one solve (multipoles, classification, leaf
-    ranges merged), as compute_gravity builds them for K12. Returns
-    (runs, classification); ``keep_packed``: as ``classify``'s."""
+def near_field_ranges(x, y, z, m, keys, box, tree, meta, cfg, keep_packed: bool = False):
+    """The near-field leaf ranges of one solve (multipoles, classification,
+    ``_p2p_leaf_ranges``), as compute_gravity hands them to K12. Returns
+    (starts, lens, classification); ``keep_packed``: as ``classify``'s."""
     mps = gt.compute_multipoles(x, y, z, m, keys, tree, meta)
     lists = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1],
                         keep_packed=keep_packed)
     start, length = gt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, mps[3],
                                         meta.num_nodes)
-    return gt.p2p_runs(start, length, cfg), lists
+    return start, length, lists
 
 
-def p2p_vs_plain(name: str, x, y, z, m, h, cfg, ranges, groups=None) -> dict:
+#: a target shift for the allow_self case (an image offset, as Ewald's
+#: replicas pass): about half the radius of the unit Evrard sphere, so the
+#: shifted targets overlap their sources and the self pair is a real one
+IMAGE_SHIFT = (0.5, -0.25, 0.125)
+
+
+def p2p_vs_plain(name: str, x, y, z, m, h, cfg, starts, lens, groups=None,
+                 shift=None, allow_self: bool = False) -> dict:
     """K12 against its plain version at rtol 1e-4 and atol ``P2P_ATOL``
-    max|.|; returns the worst error and its ratio to max|.|. ``groups``: compare only these target groups (the plain version runs
-    with the other groups' runs emptied). The open-box solve's call: no
-    target shift, no self pair."""
-    shift = torch.zeros(3, dtype=x.dtype, device=x.device)
-    out = gt._pallas_p2p(x, y, z, m, h, shift, False, cfg, ranges)
-    pranges = ranges
+    max|.|; returns the worst error and its ratio to max|.|. ``groups``:
+    compare only these target blocks (the plain version runs with the
+    other blocks' leaf lengths zeroed). Without ``shift`` and
+    ``allow_self``, the open-box solve's call: no target shift, no self
+    pair; an image call passes a shift ((3,) values) and keeps the self
+    pair."""
+    shift = torch.tensor(shift or (0.0, 0.0, 0.0), dtype=x.dtype, device=x.device)
+    out = gt._pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, starts, lens)
+    plens = lens
     rows = torch.arange(x.shape[0], device=x.device)
     if groups is not None:
-        sel = torch.zeros(ranges.num_groups, dtype=torch.bool, device=x.device)
+        sel = torch.zeros(lens.shape[0], dtype=torch.bool, device=x.device)
         sel[groups] = True
-        pranges = ranges._replace(lens=torch.where(sel[:, None], ranges.lens, 0),
-                                  ncells=torch.where(sel, ranges.ncells, 0))
+        plens = torch.where(sel[:, None], lens, 0)
         rows = rows[sel[rows // cfg.target_block]]
-    ref = gt._pallas_p2p_plain(x, y, z, m, h, shift, False, cfg, pranges)
+    ref = gt._pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, plens)
     err, rel = 0.0, 0.0
     for nm, a, b in zip(("ax", "ay", "az", "phi"), out, ref):
         a, b = a[rows], b[rows]
@@ -190,7 +210,8 @@ def p2p_vs_plain(name: str, x, y, z, m, h, cfg, ranges, groups=None) -> dict:
         err = max(err, float((a - b).abs().max()))
         rel = max(rel, float((a - b).abs().max()) / scale)
     return {"max_abs_err": err, "max_abs_err_over_scale": rel, "targets": int(rows.shape[0]),
-            "cand_pairs": int(pranges.lens.to(torch.int64).sum()) * cfg.target_block}
+            "cand_pairs": int(plens.to(torch.int64).sum()) * cfg.target_block,
+            "allow_self": allow_self, "shift": shift.tolist()}
 
 
 def gravity_vs_cpu(name: str, x, y, z, m, h, keys, box, tree, meta, cfg) -> dict:

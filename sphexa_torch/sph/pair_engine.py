@@ -23,8 +23,10 @@ pair within 2 h of a target is among the marked lanes while the lists
 are valid (a geometric test, independent of any op's output), and both
 engines take a target's candidates in ascending slot and lane order.
 The streaming engine (csrc/pair_engine.cu) serves the streaming steps
-(``use_lists=False``, fold-mode grids, steps under self-gravity) and the
-gravity near field. The ops of a list-mode step share one mask (the same
+(``use_lists=False``, fold-mode grids, steps under self-gravity); the
+gravity near field, which has no cutoff, runs a kernel of its own
+(gravity/traversal.py ``_pallas_p2p``) and only the plain engine here
+(``OpSpec.cutoff``). The ops of a list-mode step share one mask (the same
 positions and smoothing lengths), so the force stage runs it once: the
 density walk keeps its words (``mask="write"``) and the walks after it
 read them (``mask="read"``; ``engine_lists_kernel``).
@@ -857,7 +859,7 @@ _NCOEF = 14
 
 class EngineArgs(ctypes.Structure):
     """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order;
-    its layout version, ABI 6, is kernels.build.ABI_VERSION)."""
+    its layout version, ABI 7, is kernels.build.ABI_VERSION)."""
 
     _fields_ = [
         ("starts", ctypes.c_void_p),
@@ -892,7 +894,6 @@ class EngineArgs(ctypes.Structure):
         ("ramp", ctypes.c_float),
         ("dt", ctypes.c_void_p),
         ("variant", ctypes.c_int32),
-        ("allow_self", ctypes.c_int32),
         ("mask_words", ctypes.c_void_p),
         ("word_off", ctypes.c_void_p),
         ("mask_mode", ctypes.c_int32),
@@ -934,6 +935,8 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         raise ValueError(f"group must be a multiple of 32 in (0, 256], got {group}")
     if len(i_fields) != spec.num_i or len(j_fields) != spec.num_j:
         raise ValueError(f"{spec.name}: field count mismatch")
+    if not spec.cutoff:
+        raise ValueError(f"{spec.name}: the engines' kernels run only ops with the SPH cutoff")
     f32 = torch.float32
     for side, fields in (("i", i_fields), ("j", j_fields)):
         for k, a in enumerate(fields):
@@ -984,7 +987,6 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         check_table("dt", consts["dt"], torch.float32, (), dev)
         args.dt = consts["dt"].data_ptr()
     args.variant = spec.variant
-    args.allow_self = int(bool(consts.get("allow_self", False)))
     return args, outs, nc
 
 

@@ -14,7 +14,8 @@ from a seed (``jitter_sedov``) so that every term of each pair body, the
 viscosity and the IAD off-diagonals included, is non-zero. A VE
 list-mode Simulation step on the card is compared with the same step on
 the CPU. Gravity: the list compaction (K13) exactly and the near field
-(K12) against their plain versions (sphexa_torch/kernels/checks.py,
+(K12, on a solve's leaf ranges; also with a target shift and the self
+pair) against their plain versions (sphexa_torch/kernels/checks.py,
 shared with chip_smoke.py), a whole solve on the card against the CPU in
 both compactions (Evrard 30), and a VE Evrard Simulation step."""
 
@@ -339,17 +340,104 @@ def test_gravity_compact_matches_plain():
     _need_card()
     pe.reset_launches()
     checks.compact_random_cases("cuda")
-    assert pe.LAUNCHES["compact_class_lists"] == 6
+    assert pe.LAUNCHES["compact_class_lists"] == 2 * len(checks.COMPACT_CASES)
 
 
-def test_gravity_near_field_matches_plain():
+@pytest.mark.parametrize("form", ["open_box", "image_self", "image_noself"])
+def test_gravity_near_field_matches_plain(form):
+    """K12 on Evrard 20's leaf ranges against its plain version, every
+    block: the open-box call, and an image's (a shift) with the self pair
+    kept and dropped (at a shift the self pair is a real pair, so the
+    kernel's self test shows)."""
+    _need_card()
+    from sphexa_torch.gravity import traversal as gt
+
+    sim, ss, box, keys = checks.gravity_case(20, "cuda")
+    starts, lens, _ = checks.near_field_ranges(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                               sim.cfg.grav_meta, sim.cfg.gravity)
+    image = form != "open_box"
+    pe.reset_launches()
+    checks.p2p_vs_plain("Evrard 20", ss.x, ss.y, ss.z, ss.m, ss.h, sim.cfg.gravity, starts,
+                        lens, shift=checks.IMAGE_SHIFT if image else None,
+                        allow_self=form == "image_self")
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "gravity_p2p": 1}
+
+
+def test_gravity_near_field_subset_matches_plain():
+    """K12 against its plain version on a subset of Evrard 20's blocks
+    (the plain version with the other blocks' leaf lengths zeroed), as the
+    Evrard 125 check compares 256 of its blocks."""
     _need_card()
     sim, ss, box, keys = checks.gravity_case(20, "cuda")
-    runs, _ = checks.near_field_runs(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
-                                     sim.cfg.grav_meta, sim.cfg.gravity)
+    starts, lens, _ = checks.near_field_ranges(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                               sim.cfg.grav_meta, sim.cfg.gravity)
+    groups = torch.arange(0, lens.shape[0], 3, device="cuda")
+    res = checks.p2p_vs_plain("Evrard 20 subset", ss.x, ss.y, ss.z, ss.m, ss.h,
+                              sim.cfg.gravity, starts, lens, groups=groups)
+    assert 0 < res["targets"] < ss.x.shape[0]
+
+
+def test_gravity_launchers_repeat_the_wrappers():
+    """The launchers that time K12 and K13 alone (``traversal.p2p_launcher``,
+    ``pallas_compact.compact_launcher``) launch the same kernels on the
+    same arguments as the wrappers: bit-equal outputs, and no count."""
+    _need_card()
+    from sphexa_torch.gravity import pallas_compact as pcmp
+    from sphexa_torch.gravity import traversal as gt
+
+    sim, ss, box, keys = checks.gravity_case(20, "cuda")
+    starts, lens, _ = checks.near_field_ranges(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                               sim.cfg.grav_meta, sim.cfg.gravity)
+    args = (ss.x, ss.y, ss.z, ss.m, ss.h, torch.zeros(3, device="cuda"), False,
+            sim.cfg.gravity, starts, lens)
+    packed = torch.randint(0, 3 << pcmp.IDX_BITS, (37, 2053), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(7)).cuda()
     pe.reset_launches()
-    checks.p2p_vs_plain("Evrard 20", ss.x, ss.y, ss.z, ss.m, ss.h, sim.cfg.gravity, runs)
-    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "gravity_p2p": 1}
+    want = gt._pallas_p2p(*args), pcmp.compact_class_lists(packed, 100, 300)
+    launch_p2p, got_p2p = gt.p2p_launcher(*args)
+    launch_cmp, got_cmp = pcmp.compact_launcher(packed, 100, 300)
+    for _ in range(2):
+        launch_p2p()
+        launch_cmp()
+    for a, b in zip(want[0] + want[1], got_p2p + got_cmp):
+        assert torch.equal(a, b)
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "gravity_p2p": 1,
+                           "compact_class_lists": 1}
+
+
+def test_gravity_solve_skips_the_run_merge(monkeypatch):
+    """On the card a solve hands K12 the leaf ranges as they are: neither
+    the near-field run merge nor the engines' run merge runs."""
+    _need_card()
+    from sphexa_torch.gravity import traversal as gt
+
+    sim, ss, box, keys = checks.gravity_case(20, "cuda")
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("the run merge ran on the card's path")
+
+    monkeypatch.setattr(gt, "p2p_runs", refuse)
+    monkeypatch.setattr(pe, "_merge_runs", refuse)
+    pe.reset_launches()
+    out = gt.compute_gravity(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree,
+                             sim.cfg.grav_meta, sim.cfg.gravity)
+    assert pe.LAUNCHES["gravity_p2p"] == 1
+    assert all(bool(torch.isfinite(a).all()) for a in out[:3])
+
+
+def test_gravity_near_field_kernel_info():
+    """K12's static facts at the two target blocks the solver uses (64
+    below 500k particles, 256 above): registers without spills, the tile,
+    resident warps."""
+    _need_card()
+    from sphexa_torch.gravity import traversal as gt
+
+    for blk in (64, 256):
+        info = gt.p2p_kernel_info(blk)
+        assert info["registers"] > 0 and info["local_bytes"] == 0, info
+        assert info["blocks_per_sm"] >= 1 and info["window"] == 256, info
+        assert info["warps_per_sm"] == info["blocks_per_sm"] * blk // (
+            32 * info["targets_per_thread"])
 
 
 @pytest.mark.parametrize("compaction", ["sort", "bitmask_sf8"])

@@ -47,6 +47,7 @@ from sphexa_torch.gravity import pallas_compact as pc
 from sphexa_torch.gravity import traversal as tt
 from sphexa_torch.gravity.direct import direct_gravity
 from sphexa_torch.gravity.tree import linkage_from_leaves
+from sphexa_torch.kernels.checks import IMAGE_SHIFT
 from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sfc.hilbert import hilbert_decode
@@ -175,10 +176,15 @@ def test_linkage_matches_jax(evrard, curve):
 
 
 @pytest.mark.parametrize("B,C,cap0,cap1", [(4, 1000, 192, 64), (1, 90, 8, 8),
-                                           (3, 513, 256, 48)])
+                                           (3, 513, 256, 48), (3, 3, 2, 2), (2, 5, 1, 4),
+                                           (5, 1001, 200, 300), (2, 4500, 1100, 2000),
+                                           (7, 2050, 1500, 5)])
 def test_compact_plain_matches_jax_kernel(B, C, cap0, cap1):
     """K13's plain version against the JAX kernel in interpret mode, on
-    test_pallas_interpret.py's random cases."""
+    test_pallas_interpret.py's random cases and on the widths the card
+    kernel's tiles (1,024 candidates read as 16-byte words) cut: rows
+    narrower than a word, widths off the multiples of 4, caps that cut
+    inside a tile, a row longer than four tiles."""
     rng = np.random.default_rng(7)
     cls = rng.integers(0, 3, size=(B, C))
     vals = rng.integers(0, 1 << 20, size=(B, C))
@@ -252,9 +258,14 @@ def test_multipoles_match_jax(evrard):
     np.testing.assert_allclose(q.numpy(), jq, atol=2e-3 * float(np.abs(jq).max()))
 
 
-def test_near_field_plain_matches_jax_kernel(evrard):
+@pytest.mark.parametrize("allow_self,shift",
+                         [(False, None), (True, IMAGE_SHIFT), (False, IMAGE_SHIFT)],
+                         ids=["open_box", "image_self", "image_noself"])
+def test_near_field_plain_matches_jax_kernel(evrard, allow_self, shift):
     """K12's plain version against the JAX near field (_pallas_p2p in
-    interpret mode) on the same leaf ranges."""
+    interpret mode) on the same leaf ranges: the open-box solve's call (no
+    shift, no self pair) and an image's (the targets shifted), with the
+    self pair kept, as Ewald's replicas call it, and dropped."""
     p = evrard["port"]
     cfg = _port_cfg(evrard["jcfg"])
     x, y, z, m, h = p["xyzmh"]
@@ -262,17 +273,148 @@ def test_near_field_plain_matches_jax_kernel(evrard):
                         p["mps"][1])
     start, length = tt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], p["tree"],
                                         p["mps"][3], p["meta"].num_nodes)
-    z3 = torch.zeros(3)
-    out = tt._pallas_p2p(x, y, z, m, h, z3, False, cfg, tt.p2p_runs(start, length, cfg))
+    assert start.dtype == length.dtype == torch.int32
+    assert start.shape == length.shape == (lists["p2p"].shape[0], cfg.p2p_cap)
+    sh = np.asarray(shift or (0.0, 0.0, 0.0), np.float32)
+    out = tt._pallas_p2p(x, y, z, m, h, torch.as_tensor(sh), allow_self, cfg, start, length)
     ss = evrard["ss"]
-    ref = jax_pallas_p2p(ss.x, ss.y, ss.z, ss.m, ss.h, jnp.zeros(3), jnp.asarray(False),
-                         evrard["jcfg"], jnp.asarray(start.numpy(), jnp.int32),
-                         jnp.asarray(length.numpy(), jnp.int32))
+    ref = jax_pallas_p2p(ss.x, ss.y, ss.z, ss.m, ss.h, jnp.asarray(sh),
+                         jnp.asarray(allow_self), evrard["jcfg"],
+                         jnp.asarray(start.numpy()), jnp.asarray(length.numpy()))
     n = x.shape[0]
     for name, a, b in zip(("ax", "ay", "az", "phi"), out, ref):
         b = np.asarray(b)[:n]
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-6 * np.abs(b).max(),
                                    err_msg=name)
+
+
+def test_near_field_self_pair_counts_only_when_allowed(evrard):
+    """With a shift the self pair is a real pair: dropping it (allow_self
+    False) moves every target's sums by its own term, which the plain
+    version adds back exactly where allow_self is True."""
+    p = evrard["port"]
+    cfg = _port_cfg(evrard["jcfg"])
+    x, y, z, m, h = p["xyzmh"]
+    lists = tt.classify(x, y, z, p["box"], p["tree"], p["meta"], cfg, p["mps"][0],
+                        p["mps"][1])
+    start, length = tt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], p["tree"],
+                                        p["mps"][3], p["meta"].num_nodes)
+    sh = torch.tensor(IMAGE_SHIFT)
+    keep = tt._pallas_p2p(x, y, z, m, h, sh, True, cfg, start, length)
+    drop = tt._pallas_p2p(x, y, z, m, h, sh, False, cfg, start, length)
+    # the target's own term: r = shift, d^2 = |shift|^2, softened at 2 h
+    d2 = float((sh * sh).sum())
+    w = m / torch.clamp_min(torch.maximum(torch.tensor(d2), (2 * h) ** 2), 1e-30) ** 1.5
+    own = [-sh[0] * w, -sh[1] * w, -sh[2] * w, -w * d2]
+    for name, a, b, o in zip(("ax", "ay", "az", "phi"), keep, drop, own):
+        scale = float(a.abs().max())
+        assert float((a - b).abs().min()) > 0.0, name
+        np.testing.assert_allclose((a - b).numpy(), o.numpy(), rtol=1e-3,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+def test_compute_gravity_hands_leaf_ranges_to_the_near_field(evrard, monkeypatch):
+    """compute_gravity passes the near field the (NB, p2p_cap) int32 leaf
+    ranges themselves, unmerged (the card kernel reads them as they come),
+    with no shift and no self pair."""
+    p = evrard["port"]
+    cfg = _port_cfg(evrard["jcfg"])
+    seen = []
+    real = tt._pallas_p2p
+
+    def spy(x, y, z, m, h, shift, allow_self, cfg_, starts, lens):
+        seen.append((shift.clone(), allow_self, starts, lens))
+        return real(x, y, z, m, h, shift, allow_self, cfg_, starts, lens)
+
+    monkeypatch.setattr(tt, "_pallas_p2p", spy)
+    tt.compute_gravity(*p["xyzmh"], p["keys"], p["box"], p["tree"], p["meta"], cfg,
+                       multipoles=p["mps"])
+    (shift, allow_self, starts, lens), = seen
+    nb = -(-p["xyzmh"][0].shape[0] // cfg.target_block)
+    assert not allow_self and not bool(shift.any())
+    assert starts.dtype == lens.dtype == torch.int32
+    assert starts.shape == lens.shape == (nb, cfg.p2p_cap)
+    lists = tt.classify(*p["xyzmh"][:3], p["box"], p["tree"], p["meta"], cfg, p["mps"][0],
+                        p["mps"][1])
+    ref = tt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], p["tree"], p["mps"][3],
+                              p["meta"].num_nodes)
+    assert torch.equal(starts, ref[0]) and torch.equal(lens, ref[1])
+
+
+@pytest.mark.parametrize("blk,r", [(64, 2), (128, 4), (192, 2), (256, 4)])
+def test_p2p_targets_per_thread(blk, r):
+    """K12's targets a thread: P2P_TARGETS where blk / r threads make whole
+    warps, 2 where they would not."""
+    assert tt.P2P_TARGETS == 4
+    assert tt.p2p_targets_per_thread(blk) == r
+
+
+@pytest.mark.parametrize("blk", [0, 32, 48, 96, 512])
+def test_p2p_targets_per_thread_refuses(blk):
+    with pytest.raises(ValueError):
+        tt.p2p_targets_per_thread(blk)
+
+
+def test_p2p_block_order_heaviest_first():
+    """Blocks by descending candidate count, ties in block order."""
+    lens = torch.tensor([[3, 0, 0], [5, 4, 0], [1, 1, 0], [2, 2, 1], [9, 0, 0]],
+                        dtype=torch.int32)
+    order = tt.p2p_block_order(lens)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 4, 3, 0, 2]
+
+
+def _evrard_leaf_ranges(evrard, **extra):
+    p = evrard["port"]
+    if extra.get("super_factor"):
+        extra["super_cap"] = p["meta"].num_nodes
+    cfg = _port_cfg(evrard["jcfg"], **extra)
+    lists = tt.classify(*p["xyzmh"][:3], p["box"], p["tree"], p["meta"], cfg, p["mps"][0],
+                        p["mps"][1], keep_packed=bool(extra))
+    start, length = tt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], p["tree"],
+                                        p["mps"][3], p["meta"].num_nodes)
+    return cfg, lists, start, length
+
+
+def test_chip_smoke_gravity_bounds_count_the_leaf_ranges(evrard):
+    """chip_smoke's K12 bound counts the candidate pairs of the leaf ranges
+    (the sum of their lengths x the block's targets), the same as the runs
+    the plain version merges them into, and refuses runs that hold other
+    candidates; K13's bound covers both compactions and each launch."""
+    import chip_smoke
+
+    cfg, lists, start, length = _evrard_leaf_ranges(evrard, compaction="bitmask",
+                                                    super_factor=8)
+    runs = tt.p2p_runs(start, length, cfg)
+    n = evrard["port"]["xyzmh"][0].shape[0]
+    out = chip_smoke.gravity_bounds(length, n, cfg.target_block, lists["packed"], runs=runs)
+    cand = int(length.sum()) * cfg.target_block
+    assert out["gravity_p2p"]["cand_pairs"] == cand > 0
+    assert out["gravity_p2p"]["ops"] == cand * (chip_smoke.GRAV_MASK_OPS
+                                                + chip_smoke.GRAV_BODY_OPS)
+    k13 = out["compact_class_lists"]
+    assert len(lists["packed"]) == len(k13["per_launch"]) == len(k13["shapes"]) == 2
+    assert k13["bytes"] == sum(e["bytes"] for e in k13["per_launch"])
+    assert k13["slots"] == sum(int(p.numel()) for p, _, _ in lists["packed"])
+    short = runs._replace(lens=torch.where(runs.lens > 0, runs.lens - 1, 0))
+    with pytest.raises(AssertionError):
+        chip_smoke.gravity_bounds(length, n, cfg.target_block, lists["packed"], runs=short)
+
+
+def test_chip_smoke_near_field_load(evrard):
+    """chip_smoke's per-block near-field candidates: mean, median, 99th
+    percentile, max and min of the leaf lengths' row sums."""
+    import chip_smoke
+
+    cfg, _, _, length = _evrard_leaf_ranges(evrard)
+    out = chip_smoke.near_field_load(length, cfg.target_block)
+    per = length.numpy().astype(np.int64).sum(axis=1)
+    assert out["blocks"] == per.shape[0] and out["slots"] == cfg.p2p_cap
+    assert out["cand_per_block_mean"] == pytest.approx(per.mean())
+    assert out["cand_per_block_max"] == per.max() and out["cand_per_block_min"] == per.min()
+    assert out["cand_per_block_p99"] == pytest.approx(np.quantile(per, 0.99))
+    assert out["max_over_mean"] == pytest.approx(per.max() / per.mean())
+    assert out["live_slots_mean"] == pytest.approx((length.numpy() > 0).sum(axis=1).mean())
 
 
 @pytest.mark.parametrize("mode", list(MODES))
