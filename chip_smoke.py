@@ -15,11 +15,15 @@ Phases, each printed as one JSON line:
    whole steps on the card against the same steps on the CPU, std and VE,
    streaming and in list mode, and VE Gresho-Chan side 30 (a fold-mode
    grid: it streams);
-4. lists vs plain: the mark pass and the list walk of every SPH op
-   (density, IAD, grad-h, both forms of divv/curlv, the AV switches, both
-   momentum ops) against their plain versions, and list mode against the
-   streaming kernels with fresh runs, on the jittered Sedov side 30 and
-   Noh 16 (open box) states;
+4. lists vs plain: the list build (K5: merge, mark and prune in one
+   kernel, bit for bit, also at a slot budget of 2 that overflows) and the
+   list walk of every SPH op (density, IAD, grad-h, both forms of
+   divv/curlv, the AV switches, both momentum ops) against their plain
+   versions, and list mode against the streaming kernels with fresh runs,
+   on the jittered Sedov side 30, Noh 16 (open box) and mixed-box
+   (Sedov 24 stretched in z, periodic x, open y and z) states; K5 also on
+   synthetic cells that hold every edge of the run merge
+   (``checks.synthetic_cull``);
 5. std main path: Sedov 100^3 (10^6 particles) through
    Simulation(prop="std") on the card, which runs persistent neighbour
    lists: one warm-up step (the first list build) and ten timed steps,
@@ -29,7 +33,9 @@ Phases, each printed as one JSON line:
    torch's CUDA sync debug mode on,
    to count the host syncs per step and where they come from, two more
    steps under torch.profiler for the device time per step and the device
-   busy share, and the time of one list rebuild;
+   busy share, and one list rebuild split into its parts by CUDA events
+   (sort, cull, K5, word offsets and buffer; the whole; the plain
+   composition of the build);
 6. the std streaming path: the same through Simulation(use_lists=False),
    one warm-up and five timed steps, counters reset just before and read
    just after, its host syncs and profile;
@@ -44,7 +50,8 @@ Phases, each printed as one JSON line:
    version's time, the sort/prologue times and each kernel's least
    possible time (bound; for the list walk also the bound of the
    streaming engine over the lists' pruned runs, list mode's form before
-   the walk carried every op);
+   the walk carried every op; K5 also alone, its entry point launched
+   back to back);
 9. the std main path's Simulation on to step 100: list rebuilds, replays
    and the mean and median step time, the rebuilds included;
 10. gravity vs plain: the list compaction (K13) on the JAX package's
@@ -73,7 +80,8 @@ Phases, each printed as one JSON line:
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
 SM, and on the side-100 states its times and the body-pass efficiency of
-the union rule against per-lane windows; K12's the same at Evrard 125),
+the union rule against per-lane windows; K12's the same at Evrard 125,
+K5's at side 100),
 the {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
@@ -149,6 +157,16 @@ def body_of(op: str, av_clean: bool = False) -> str:
 # FP32 operations per lane of the mark pass (2 run-bound compares, 3 shift
 # adds, 6 bbox compares)
 MARK_OPS = 11
+# integer operations of the list build's merge and prune (K5): per window
+# cell, log2(W3) compares of a comparison sort (the counting rank the
+# kernel runs does W3) and 8 for the merge (the link's shift and gap
+# tests, the run_cap test, the run end); per slot of a group's chunks, 8
+# for the prune (kept, head, the two scans' adds, the pruned bounds)
+MERGE_CELL_OPS = 8
+PRUNE_SLOT_OPS = 8
+# bytes of one window cell in the cull tables K5 reads: int64 start and
+# length, the bool verdict, three float32 shifts
+CULL_CELL_BYTES = 8 + 8 + 1 + 12
 # distinct float32 per-particle arrays each op reads and writes (each read
 # or written once), besides the run tables (5 x NG x W3 + NG words): the
 # precombined i-fields, the j-fields the i-side lacks, and the outputs
@@ -484,11 +502,13 @@ def bounds(ranges, n: int, group: int, nb_pairs: int,
     return out
 
 
-def list_case(init, side: int, jitter: bool, state=None, cfg=None):
+def list_case(init, side: int, jitter: bool, state=None, cfg=None, **sizing):
     """A list-mode state on the card: the frozen sorted state, its config
-    and lists (the mark kernel builds them), the keys of the frozen order
-    and the build-time (unpruned) runs. Without ``state``, the case's
-    initial state, jittered from the seed ``side`` if asked."""
+    (``sizing``: make_propagator_config's keywords) and lists (the
+    list-build kernel builds them), the keys of the frozen order and the
+    list build's input, the culled window cells at the skin (start, lens,
+    keep, shifts). Without ``state``, the case's initial state, jittered
+    from the seed ``side`` if asked."""
     from sphexa_torch.convert import state_from_numpy, state_to_numpy
     from sphexa_torch.init import jitter_sedov
     from sphexa_torch.propagator import rebuild_pair_lists
@@ -506,28 +526,32 @@ def list_case(init, side: int, jitter: bool, state=None, cfg=None):
     else:
         st, box, const = state
     if cfg is None:
-        cfg = make_propagator_config(st, box, const, use_lists=True)
-    if cfg.list_slot_cap <= 0:
-        raise AssertionError(f"side {side}: no lists (slot cap 0)")
+        cfg = make_propagator_config(st, box, const, use_lists=True, **sizing)
+    if cfg.list_slot_cap <= 0 or pe.engine_fold(box, cfg.nbr):
+        raise AssertionError(f"side {side}: no lists (slot cap {cfg.list_slot_cap})")
     st, box, lists = rebuild_pair_lists(st, box, cfg)
     if int(lists.overflow):
         raise AssertionError(f"side {side}: slot cap overflow")
     keys = compute_sfc_keys(st.x, st.y, st.z, box, curve=cfg.curve)
-    runs = pe.group_cell_ranges(st.x, st.y, st.z, st.h, keys, box, cfg.nbr,
-                                radius_pad=lists.skin)
-    return st, box, const, cfg, keys, lists, runs
+    cull = pe.window_cells_culled(st.x, st.y, st.z, st.h, keys, box, cfg.nbr,
+                                  radius_pad=lists.skin)[:4]
+    return st, box, const, cfg, keys, lists, cull
 
 
-def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
+def compare_lists(name, ss, box, const, cfg, keys, lists, cull, timing=False):
     """K5 and K6 against their plain versions, and list mode (the walk for
     density, IAD and momentum) against the streaming kernels with fresh
     runs on the same frozen-order state, with the JAX package's
-    list-vs-streaming tolerances (tests/test_pair_lists.py:82-119). Returns
-    per-kernel results; with ``timing`` also device times (the walk's, and
-    K1's over the lists' pruned runs for density and IAD, the form of list
-    mode before the walk carried every op)."""
+    list-vs-streaming tolerances (tests/test_pair_lists.py:82-119). K5 (the
+    list build, on the culled cells ``cull``) is held bit for bit to its
+    plain version and to the lists the rebuild made. Returns per-kernel
+    results; with ``timing`` also device times (the walk's, and K1's over
+    the lists' pruned runs for density and IAD, the form of list mode
+    before the walk carried every op; K5's one call, its entry point
+    launched back to back, ``kernel_ms``, and the plain composition's)."""
     import torch
 
+    from sphexa_torch.kernels import checks
     from sphexa_torch.sph import pair_engine as pe
     from sphexa_torch.sph import pair_lists as pl
     from sphexa_torch.sph.hydro_std import compute_eos_std
@@ -536,20 +560,20 @@ def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
     x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
     res = {}
 
-    # K5: bits, counts, chunk totals and the pruned runs, kernel vs plain
-    margs = (runs, x, y, z, h, lists.skin, scap, nbr.group)
-    mk, mp = pl.mark_kernel(*margs), pl.mark_plain(*margs)
-    for nm, a, b in zip(("bits", "cnt", "total"), mk, mp):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: mark {nm} differs at {int((a != b).sum())} entries")
-    pk = pl._prune_empty_chunks(runs, mk[1], scap)[0]
-    pp = pl._prune_empty_chunks(runs, mp[1], scap)[0]
-    for f in ("starts", "lens", "shift_x", "shift_y", "shift_z", "ncells"):
-        if not (torch.equal(getattr(pk, f), getattr(pp, f))
-                and torch.equal(getattr(pk, f), getattr(lists.ranges, f))):
-            raise AssertionError(f"{name}: pruned runs differ in {f}")
-    res["mark"] = {"max_abs_err": 0.0, "bits_equal": True,
-                   "lanes_visited": int(torch.clamp(mk[2], max=scap).to(torch.int64).sum()) * 128}
+    # K5: the pruned run tables, words, counts and chunk totals, kernel vs
+    # plain, and the lists the rebuild made
+    bargs = (cull, x, y, z, h, lists.skin, scap, nbr)
+    mark = checks.list_build_vs_plain(name, *bargs)
+    tables, bits, cnt, total = mark.pop("outputs")
+    for f, a in zip(pl.RUN_TABLES, tables):
+        if not torch.equal(a, getattr(lists.ranges, f)):
+            raise AssertionError(f"{name}: the list build's {f} differs from the rebuild's")
+    if not (torch.equal(bits, lists.bits) and torch.equal(cnt, lists.cnt)):
+        raise AssertionError(f"{name}: the list build's words differ from the rebuild's")
+    ovf = checks.list_build_vs_plain(f"{name}, 2 slots", *bargs[:6], 2, nbr)["outputs"][3]
+    mark.update(overflow_checked=int(ovf.max()) > 2, w3=int(cull[0].shape[1]),
+                max_total=int(total.max()))
+    res["mark"] = mark
 
     # list mode: kernels vs plain, and against the streaming kernels
     ranges = pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
@@ -611,14 +635,54 @@ def compare_lists(name, ss, box, const, cfg, keys, lists, runs, timing=False):
             spec, (i_f, j_f) = walk[op]
             res[op]["k1_pruned_ms"] = cuda_time_ms(lambda: pe.engine_kernel(
                 spec, lists.ranges, i_f, j_f, False, group, consts), reps=7)
-        res["mark"]["ms"] = cuda_time_ms(
-            lambda: pl.mark_kernel(runs, x, y, z, h, lists.skin, scap, group), reps=7)
-        res["mark"]["plain_ms"] = cuda_time_ms(
-            lambda: pl.mark_plain(runs, x, y, z, h, lists.skin, scap, group), reps=2)
+        res["mark"]["ms"] = cuda_time_ms(lambda: pl.build_lists_kernel(*bargs), reps=7)
+        res["mark"]["kernel_ms"] = launch_loop_ms(pl.build_lists_launcher(*bargs)[0], 50)
+        res["mark"]["plain_ms"] = cuda_time_ms(lambda: pl.build_lists_plain(*bargs), reps=2)
         spec, fields = walk["momentum_energy_std_lists"]
         res["momentum_energy_std_lists"]["pairs"] = momentum_pair_counts(
             spec, fields, consts, group, lists=lists)
     return res
+
+
+def rebuild_split(sim, reps: int = 5) -> dict:
+    """A list rebuild of ``sim``'s state in its parts, by CUDA events
+    (median of ``reps``, after a warm-up): the box regrow with the keys,
+    argsort and row gather (``sort``), the culled window cells (``cull``),
+    K5 (``build``, one call), the word offsets with the mask-word buffer
+    and its host sync (``words``), their sum and the whole
+    ``rebuild_pair_lists``; and the plain composition of the build
+    (``plain``: merge, mark, prune, gathers) on the same card tensors, the
+    list build before K5 carried it."""
+    import torch
+
+    from sphexa_torch.propagator import _sort_by_keys, rebuild_pair_lists
+    from sphexa_torch.sfc.box import make_global_box
+    from sphexa_torch.sfc.keys import compute_sfc_keys
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.sph import pair_lists as pl
+
+    cfg = sim.cfg
+    nbr, scap = cfg.nbr, cfg.list_slot_cap
+    st, box, lists = rebuild_pair_lists(sim.state, sim.box, cfg)
+    x, y, z, h, skin = st.x, st.y, st.z, st.h, lists.skin
+    keys = compute_sfc_keys(x, y, z, box, curve=cfg.curve)  # sorted: the rebuild's order
+    cull = pe.window_cells_culled(x, y, z, h, keys, box, nbr, radius_pad=skin)[:4]
+    bargs = (cull, x, y, z, h, skin, scap, nbr)
+
+    def words():
+        off = pe.mask_word_offsets(lists.cnt)
+        return torch.empty(int(off[-1]) * nbr.group, dtype=torch.int32, device=x.device)
+
+    out = {"sort": cuda_time_ms(lambda: _sort_by_keys(st, make_global_box(x, y, z, box),
+                                                      cfg.curve), reps),
+           "cull": cuda_time_ms(lambda: pe.window_cells_culled(x, y, z, h, keys, box, nbr,
+                                                               radius_pad=skin), reps),
+           "build": cuda_time_ms(lambda: pl.build_lists_kernel(*bargs), reps),
+           "words": cuda_time_ms(words, reps)}
+    out["parts_sum"] = sum(out.values())
+    out["whole"] = cuda_time_ms(lambda: rebuild_pair_lists(st, box, cfg), reps)
+    out["plain"] = cuda_time_ms(lambda: pl.build_lists_plain(*bargs), 2)
+    return out
 
 
 def walk_mask(spec) -> str:
@@ -659,7 +723,7 @@ def time_k1(spec, runs, i_f, j_f, fold, group, consts) -> dict:
     return out
 
 
-def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited=None, runs=None,
+def list_bounds(lists, n: int, group: int, nb_pairs: int, mark=None,
                 walk_ops=("density_lists", "iad_lists", "momentum_energy_std_lists"),
                 av_clean=False, pairs=None):
     """Least device time of the list-mode kernels from this run's counts,
@@ -673,9 +737,10 @@ def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited=None, ru
     walk that reads, the bound of the same walk running its own mask
     (``own_mask_bound_ms``) and each op's pruned-run bound (``bounds``
     over the lists' runs: K1's form of list mode before the walk carried
-    every op) and, given the build-time ``runs``, the mark pass over the
-    lanes of the chunks it visits. ``av_clean``: the path runs the
-    av_clean forms; ``pairs``: each momentum op's counts, by op."""
+    every op) and, given K5's results on the same state (``mark``: its
+    window of W3 cells and the lanes of the chunks it marked), the list
+    build's (``mark_bound``). ``av_clean``: the path runs the av_clean
+    forms; ``pairs``: each momentum op's counts, by op."""
     import torch
 
     ng, scap = lists.cnt.shape
@@ -704,13 +769,32 @@ def list_bounds(lists, n: int, group: int, nb_pairs: int, lanes_visited=None, ru
                    "cand_pairs": cand_pairs, "body_ops": work, "word_bytes": word_bytes,
                    "pruned_run_bound_ms": pruned[body]["bound_ms"],
                    "pruned_run_cand_pairs": pruned[body]["cand_pairs"]}
-    if runs is not None:
-        w3 = runs.starts.shape[1]
-        out["mark"] = {**_bound(lanes_visited * MARK_OPS,
-                                4 * 4 * n + 4 * (5 * ng * w3 + ng) + 4 + 20 * ng * scap
-                                + 4 * ng),
-                       "lanes": lanes_visited}
+    if mark is not None:
+        out["mark"] = mark_bound(n, ng, mark["w3"], scap, mark["lanes_visited"])
     return out
+
+
+def mark_bound(n: int, ng: int, w3: int, scap: int, lanes: int) -> dict:
+    """Least device time of the list build (K5) at these sizes: it reads
+    the cull tables once (CULL_CELL_BYTES a cell), x, y, z and h once
+    (each candidate row's reuse by the neighbouring groups that visit it
+    assumed: from L2 or better) and the skin, and writes the five pruned
+    run tables, the words and counts ((NG, S_cap) each; the words 16 bytes
+    a slot) and the run counts and chunk totals; it runs MARK_OPS FP32
+    operations on each of the ``lanes`` of the chunks it marks, and the
+    merge and prune's integer operations at the INT32 rate. Beside it, the
+    bound without that reuse (every visited lane's x, y, z from memory)."""
+    import math
+
+    from sphexa_torch.sph.pair_engine import LANES
+
+    table_bytes = CULL_CELL_BYTES * ng * w3 + 4 * 4 * n + 4 + (20 + 16 + 4) * ng * scap + 8 * ng
+    int_ops = ng * w3 * (math.log2(w3) + MERGE_CELL_OPS) + lanes // LANES * PRUNE_SLOT_OPS
+    ops = lanes * MARK_OPS + int_ops * PEAK_FP32_FLOPS / PEAK_INT32_OPS
+    no_reuse = table_bytes - 3 * 4 * n + 3 * 4 * lanes
+    return {**_bound(ops, table_bytes), "lanes": lanes, "int_ops": int_ops,
+            "no_reuse_bytes": no_reuse, "no_reuse_bound_ms": 1e3 * max(
+                ops / PEAK_FP32_FLOPS, no_reuse / PEAK_HBM_BYTES)}
 
 
 def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str = "std",
@@ -1162,6 +1246,21 @@ def p2p_entry(report: dict, blk: int, res: dict) -> dict:
             "ms": res["ms"], "batched_ms": res["batched_ms"]}
 
 
+def mark_entry(report: dict, res: dict, slot_cap: int) -> dict:
+    """The engines line's entry of K5 (csrc/pair_lists.cu list_build_kernel)
+    at the std main path's sizes: its static facts
+    (``pair_lists.list_build_info``: registers, local bytes, shared bytes,
+    resident blocks and warps per SM; "window" is the chunk's lanes),
+    ptxas's report and its times at side 100."""
+    from sphexa_torch.sph import pair_lists as pl
+
+    hits = [v for k, v in report.items() if "17list_build_kernel" in k]
+    return {"engine": "K5", "instantiation": "list_build", "source": SOURCE["mark"],
+            "fold": False, **pl.list_build_info(res["w3"], slot_cap),
+            "ptxas": hits[0] if len(hits) == 1 else None, "state": "std_lists",
+            "ms": res["ms"], "kernel_ms": res["kernel_ms"]}
+
+
 def engine_entries(specs: dict, at: dict, passes: dict, report: dict, engine: str,
                    group: int, folds=(False,)) -> list:
     """The engines line's entries of one engine ("K1" streaming, "K6" list
@@ -1222,7 +1321,8 @@ def main() -> int:
         return 2
     from sphexa_torch.init import init_noh, init_sedov
     from sphexa_torch.kernels import build as kbuild
-    from sphexa_torch.propagator import _force_stage_prologue, rebuild_pair_lists
+    from sphexa_torch.kernels import checks
+    from sphexa_torch.propagator import _force_stage_prologue
     from sphexa_torch.sfc.keys import compute_sfc_keys
     from sphexa_torch.simulation import Simulation
     from sphexa_torch.sph import pair_engine as pe
@@ -1277,19 +1377,32 @@ def main() -> int:
         raise AssertionError("Gresho-Chan 30: expected a fold-mode grid")
     emit(gc)
 
-    # 4. the list kernels vs plain, and list mode vs streaming
-    for name, init, side, jitter in (("sedov", init_sedov, 30, True),
-                                     ("noh", init_noh, 16, False)):
-        ss, box, const, cfg, keys, lists, runs = list_case(init, side, jitter)
-        res = compare_lists(f"{name} {side}", ss, box, const, cfg, keys, lists, runs)
+    # 4. the list kernels vs plain, and list mode vs streaming; K5 also on
+    # the synthetic cells that hold every edge of the run merge
+    (mstate, mbox, mconst), msizing = checks.mixed_box_case("cpu")
+    for name, init, side, jitter, sizing in (
+            ("sedov", init_sedov, 30, True, {}), ("noh", init_noh, 16, False, {}),
+            ("mixed_box", lambda side, device: (mstate, mbox, mconst), 24, False, msizing)):
+        ss, box, const, cfg, keys, lists, cull = list_case(init, side, jitter, **sizing)
+        res = compare_lists(f"{name} {side}", ss, box, const, cfg, keys, lists, cull)
         emit({"phase": "lists_vs_plain", "case": name, "side": side, "jitter": jitter,
-              "n": ss.n, "nbr": dataclasses.asdict(cfg.nbr),
+              "n": ss.n, "nbr": dataclasses.asdict(cfg.nbr), "boundaries": [
+                  int(b) for b in box.boundaries],
               "slot_cap": cfg.list_slot_cap, "results": res})
         for av_clean in (False, True):
             res = compare_ve(f"VE lists {name} {side} av_clean {av_clean}", ss, box, const,
                              cfg.nbr, av_clean, lists=lists)
             emit({"phase": "ve_lists_vs_plain", "case": name, "side": side,
                   "av_clean": av_clean, "results": res})
+    synth = {}
+    for seed in (7, 11):
+        cull, x, y, z, h, skin, scap, scfg = checks.synthetic_cull(seed, "cuda")
+        for cap in (scap, 3):
+            r = checks.list_build_vs_plain(f"synthetic {seed} slots {cap}", cull, x, y, z, h,
+                                           skin, cap, scfg)
+            synth[f"seed {seed} slots {cap}"] = {"bits_equal": True, "max_total": int(
+                r["outputs"][3].max())}
+    emit({"phase": "list_build_synthetic", "results": synth})
 
     # 5. the main path: Sedov 100^3 std on the card, in list mode
     side = 100
@@ -1316,8 +1429,8 @@ def main() -> int:
     emit(lst["report"])
     emit({**count_syncs(sim), "path": "lists"})
     emit({**profile_steps(sim, 2, lst["step_ms_median"]), "path": "lists"})
-    rebuild_ms = cuda_time_ms(lambda: rebuild_pair_lists(sim.state, sim.box, sim.cfg), reps=3)
-    emit({"phase": "rebuild", "ms": rebuild_ms, "first_build_s": lst["first_build_s"]})
+    emit({"phase": "rebuild", "card": smi, "ms": rebuild_split(sim),
+          "first_build_s": lst["first_build_s"]})
 
     # 6. the streaming path, driven the same way with fewer timed steps
     state, box, const = init_sedov(side, device="cuda")
@@ -1372,11 +1485,11 @@ def main() -> int:
     emit(vac["report"])
 
     # 8. kernels vs plain and phase times at the paths' shapes
-    ss, lbox, const, lcfg, lkeys, lists, runs = list_case(
+    ss, lbox, const, lcfg, lkeys, lists, lcull = list_case(
         None, side, False, state=(sim.state, sim.box, const), cfg=sim.cfg)
-    lres = compare_lists("side 100", ss, lbox, const, lcfg, lkeys, lists, runs, timing=True)
+    lres = compare_lists("side 100", ss, lbox, const, lcfg, lkeys, lists, lcull, timing=True)
     lbnd = list_bounds(lists, n, lcfg.nbr.group, lres["density_lists"]["nb_pairs"],
-                       lres["mark"]["lanes_visited"], runs,
+                       mark=lres["mark"],
                        pairs={op: r["pairs"] for op, r in lres.items() if "pairs" in r})
     consts100 = pe.op_consts(const)
     passes = {"std_lists": pass_counts(ss, lcfg.nbr.group, consts100, lists=lists)}
@@ -1461,7 +1574,6 @@ def main() -> int:
     from sphexa_torch.gravity import pallas_compact as pcmp
     from sphexa_torch.gravity import traversal as gt
     from sphexa_torch.init import init_evrard
-    from sphexa_torch.kernels import checks
 
     state, box, const = init_evrard(125, device="cuda")
     evr = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda"), steps=3,
@@ -1564,11 +1676,12 @@ def main() -> int:
     group = lcfg.nbr.group
     engines = (engine_entries(specs, walk_at, passes, report, "K6", group)
                + engine_entries(specs, k1_at, passes, report, "K1", group, folds=(False, True))
-               + [p2p_entry(report, egcfg.target_block, gres["gravity_p2p"])])
+               + [p2p_entry(report, egcfg.target_block, gres["gravity_p2p"]),
+                  mark_entry(report, lres["mark"], lcfg.list_slot_cap)])
     emit({"phase": "engines", "card": smi, "pass_windows": list(PASS_WINDOWS),
           "engines": engines})
     short = [f"{e['engine']} {e['instantiation']} fold={e['fold']}: {e['warps_per_sm']}"
-             for e in engines if e["warps_per_sm"] < 16 and e["instantiation"] != "gravity_p2p"]
+             for e in engines if e["warps_per_sm"] < 16 and e["engine"] in ("K1", "K6")]
     if short:
         print("# engines below 16 resident warps per SM: " + "; ".join(short), file=sys.stderr)
 

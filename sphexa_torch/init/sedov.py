@@ -79,3 +79,19 @@ def jitter_sedov(fields: Dict[str, np.ndarray], side: int, seed: int
     for f in ("vx", "vy", "vz"):
         out[f] = rng.normal(0.0, 0.3, n).astype(np.float32)
     return out
+
+
+def stretch_box(fields: Dict[str, np.ndarray], box: Dict, z_scale: float,
+                boundaries) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """A case stretched along z, with other boundaries (numpy fields and
+    box as ``convert.state_to_numpy`` gives them): z and the box's z bounds
+    times ``z_scale`` in float32, the boundary types replaced by
+    ``boundaries`` (three ints of ``BoundaryType``). A mixed-box case for
+    the per-cell image shifts: Sedov 24 stretched 1.3x, periodic in x and
+    open in y and z, keeps persistent lists at cell_target 16."""
+    s = np.float32(z_scale)
+    out = dict(fields)
+    out["z"] = (out["z"] * s).astype(np.float32)
+    lo, hi = (np.array(box[k], np.float32) for k in ("lo", "hi"))
+    lo[2], hi[2] = lo[2] * s, hi[2] * s
+    return out, {"lo": lo, "hi": hi, "boundaries": [int(b) for b in boundaries]}

@@ -57,6 +57,8 @@ _ENTRY_POINTS = {
     "list_walk_info": [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p],
     # (target_block, targets a thread, int32 out[7]): K12's static facts
     "gravity_p2p_info": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    # (w3, slot_cap, int32 out[7]): the list build's static facts
+    "list_build_info": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 #: layout version of EngineArgs (csrc/pair_ops.cuh ABI_VERSION), checked

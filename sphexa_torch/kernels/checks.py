@@ -10,16 +10,24 @@ the gravity list compaction (K13) to its plain version exactly,
 ``p2p_vs_plain`` the gravity near field (K12) on a solve's leaf ranges
 (``near_field_ranges``) within its summation-order tolerance, and
 ``gravity_vs_cpu`` a whole gravity solve on the card to the same solve on
-the CPU. Any disagreement raises."""
+the CPU. ``list_build_vs_plain`` holds the list build (K5) to its plain
+version bit for bit, on a list state's culled cells or on
+``synthetic_cull``'s cells, which exercise each edge of the run merge.
+Any disagreement raises."""
 
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from sphexa_torch.convert import state_from_numpy, state_to_numpy
 from sphexa_torch.gravity import pallas_compact as pcmp
 from sphexa_torch.gravity import traversal as gt
+from sphexa_torch.init import init_sedov, stretch_box
+from sphexa_torch.neighbors.cell_list import NeighborConfig
+from sphexa_torch.sfc.box import BoundaryType
 from sphexa_torch.sph import pair_engine as pe
+from sphexa_torch.sph import pair_lists as pl
 from sphexa_torch.sph.hydro_ve import compute_eos_ve
 
 
@@ -254,3 +262,102 @@ def gravity_vs_cpu(name: str, x, y, z, m, h, keys, box, tree, meta, cfg) -> dict
     return {"max_abs_err_over_scale": err, "egrav_rel_err": abs(eg - ec) / abs(ec),
             "m2p_max": int(og[4]["m2p_max"]), "p2p_max": int(og[4]["p2p_max"]),
             "compaction": cfg.compaction, "super_factor": cfg.super_factor}
+
+
+def list_build_vs_plain(name: str, cull, x, y, z, h, skin, slot_cap: int, cfg) -> dict:
+    """The list build's kernel against ``pair_lists.build_lists_plain`` on
+    the same card tensors, bit for bit: the pruned run tables, the words
+    and counts in pruned order, the chunk totals. Returns the build's
+    outputs and the lanes of the chunks it marked."""
+    got = pl.build_lists_kernel(cull, x, y, z, h, skin, slot_cap, cfg)
+    want = pl.build_lists_plain(cull, x, y, z, h, skin, slot_cap, cfg)
+    names = (*pl.RUN_TABLES, "bits", "cnt", "total")
+    for nm, a, b in zip(names, (*got[0], *got[1:]), (*want[0], *want[1:])):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{name}: list build {nm} differs from the plain version "
+                                 f"({a.dtype} vs {b.dtype}, "
+                                 f"{int((a != b).sum()) if a.shape == b.shape else a.shape})")
+    lanes = int(torch.clamp(got[3], max=slot_cap).to(torch.int64).sum()) * pe.LANES
+    return {"max_abs_err": 0.0, "bits_equal": True, "lanes_visited": lanes, "outputs": got}
+
+
+#: the mixed-box list case: Sedov side 24 stretched along z, periodic x,
+#: open y and z, sized with cell_target 16 (it keeps lists on)
+MIXED_BOX = {"side": 24, "z_scale": 1.3, "cell_target": 16,
+             "boundaries": (BoundaryType.periodic, BoundaryType.open, BoundaryType.open)}
+
+
+def mixed_box_case(device):
+    """The mixed-box list case's initial (state, box, const) on ``device``
+    and the ``make_propagator_config`` keywords that size it."""
+    fields, box, const = state_to_numpy(*init_sedov(MIXED_BOX["side"], device="cpu"))
+    fields, box = stretch_box(fields, box, MIXED_BOX["z_scale"], MIXED_BOX["boundaries"])
+    return (state_from_numpy(fields, box, const, device=device),
+            {"cell_target": MIXED_BOX["cell_target"]})
+
+
+#: the synthetic cull's merge limits: a run of at most SYNTH_RUN_CAP rows,
+#: cells joined across at most SYNTH_GAP rows
+SYNTH_RUN_CAP, SYNTH_GAP = 512, 32
+
+
+def synthetic_cull(seed: int, device, groups: int = 64, w3: int = 27):
+    """Culled window cells made from a seed that exercise each edge of the
+    run merge in every group, in this (start) order: a head, a cell
+    exactly SYNTH_GAP rows after it (joins), one SYNTH_GAP + 1 rows after
+    that (a new run), a cell that brings that run to exactly SYNTH_RUN_CAP
+    rows (joins), a one-row cell right after it (a new run: one row over),
+    a cell of another image shift (a new run), an empty cell, a dropped
+    cell and a kept one after it (joins across the dropped one); then
+    random cells (gaps, lengths, shifts, empty and dropped cells). The
+    columns are shuffled, so the build has to rank them. Positions run
+    along x in sorted order, repeating every 320 rows (y, z random in a
+    thin slab), with h of a few rows' spacing, so that a group marks the
+    chunks near its own rows and 320 rows away, and the rest are pruned,
+    some in the middle of a run; the last group is partial. Returns (cull,
+    x, y, z, h, skin, slot_cap, cfg) on ``device``: cull as
+    ``window_cells_culled`` gives it, slot_cap the largest chunk total."""
+    rng = np.random.default_rng(seed)
+    group = 64
+    n = groups * group - 17
+    period = 320  # rows i and i + 320 lie at the same x
+    x = ((np.arange(n) % period + rng.uniform(0.0, 1.0, n)) / period - 0.5).astype(np.float32)
+    y, z = (rng.uniform(-0.05, 0.05, n).astype(np.float32) for _ in range(2))
+    h = (rng.uniform(4.0, 8.0, n) / period).astype(np.float32)
+    skin = np.float32(4.0 / period)
+    start = np.zeros((groups, w3), np.int64)
+    lens = np.zeros((groups, w3), np.int64)
+    keep = np.zeros((groups, w3), bool)
+    shifts = np.zeros((groups, w3, 3), np.float32)
+    for g in range(groups):
+        cells = []  # (start, len, keep, shift) in start order
+
+        def add(s, ln, kp=True, sh=(0.0, 0.0, 0.0)):
+            cells.append((s, ln, kp, sh))
+            return s + ln
+
+        s0 = int(np.clip(g * group - 250, 0, n - 1600))
+        e = add(s0, int(rng.integers(20, 60)))
+        e = add(e + SYNTH_GAP, int(rng.integers(20, 60)))
+        c = e + SYNTH_GAP + 1
+        e = add(c, int(rng.integers(20, 60)))
+        e = add(e + 5, SYNTH_RUN_CAP - (e + 5 - c))
+        e = add(e, 1)
+        e = add(e + 3, int(rng.integers(20, 60)), sh=(1.0, 0.0, 0.0))
+        add(e, 0, kp=False)
+        e = add(e, int(rng.integers(5, 20)), kp=False)
+        e = add(e, int(rng.integers(20, 60)), sh=(1.0, 0.0, 0.0))
+        while len(cells) < w3:
+            ln = int(rng.integers(0, 40)) if e < n - 40 else 0
+            kp = ln > 0 and rng.uniform() < 0.8
+            sh = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0))[int(rng.integers(0, 3))]
+            e = add(min(e + int(rng.choice([0, 0, 3, SYNTH_GAP, 80])), n - ln), ln, kp, sh)
+        cols = rng.permutation(w3)
+        for col, (s, ln, kp, sh) in zip(cols, cells):
+            start[g, col], lens[g, col], keep[g, col], shifts[g, col] = s, ln, kp, sh
+    cfg = NeighborConfig(level=4, cap=SYNTH_RUN_CAP, curve="hilbert", group=group, window=3,
+                         run_cap=SYNTH_RUN_CAP, gap=SYNTH_GAP)
+    t = [torch.as_tensor(a, device=device) for a in (start, lens, keep, shifts, x, y, z, h, skin)]
+    cull, (xt, yt, zt, ht, skin_t) = tuple(t[:4]), t[4:]
+    total = pl.build_lists_plain(cull, xt, yt, zt, ht, skin_t, 1, cfg)[3]
+    return cull, xt, yt, zt, ht, skin_t, int(total.max()), cfg

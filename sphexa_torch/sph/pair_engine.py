@@ -137,15 +137,23 @@ def group_cell_ranges(x, y, z, h, sorted_keys, box: Box,
         x, y, z, h, sorted_keys, box, cfg, radius_pad)
     starts_c, lens_c, sh, ncells = _merge_runs(
         start, lens, keep, shifts, cfg.run_cap, cfg.gap)
-    occupancy = torch.where(window_ok, torch.where(keep, raw_len, 0).max(), cfg.cap + 1)
-    boxl = torch.where(box.periodic_mask, box.lengths, 1e30)
+    occupancy, boxl = occupancy_and_boxl(keep, raw_len, window_ok, box, cfg)
     i32 = torch.int32
     return GroupRanges(
         starts=starts_c.to(i32).contiguous(), lens=lens_c.to(i32).contiguous(),
         shift_x=sh[0].contiguous(), shift_y=sh[1].contiguous(),
         shift_z=sh[2].contiguous(), ncells=ncells.to(i32).contiguous(),
-        occupancy=occupancy, boxl=boxl.to(torch.float32),
+        occupancy=occupancy, boxl=boxl,
     )
+
+
+def occupancy_and_boxl(keep, raw_len, window_ok, box: Box, cfg: NeighborConfig):
+    """``GroupRanges``' occupancy (the densest kept cell, or cap + 1 where
+    a group's search extent outgrew the window) and fold periods (1e30 on
+    open dims) from ``window_cells_culled``'s outputs."""
+    occupancy = torch.where(window_ok, torch.where(keep, raw_len, 0).max(), cfg.cap + 1)
+    boxl = torch.where(box.periodic_mask, box.lengths, 1e30)
+    return occupancy, boxl.to(torch.float32)
 
 
 def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,

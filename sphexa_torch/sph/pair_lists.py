@@ -1,21 +1,24 @@
 """Persistent neighbour lists (sphexa_tpu/sph/pair_lists.py).
 
-A list build takes the sorted arrays and each group's candidate runs,
-widened by a skin (``group_cell_ranges(radius_pad=skin)``), and runs the
-mark pass: for every slot, one (run, 128-aligned chunk) pair of a group's
-runs, it records which of the chunk's 128 lanes lie inside the group's
-bbox inflated by 2 max h + skin, as a 128-bit mask. Chunks with no marked
-lane are then pruned from the runs. Between rebuilds the sorted order is
-frozen: a steady step skips the box regrow, the sort and the run
-prologue, and every pair op walks only the marked lanes (the list walk).
-The lists stay valid while 2 (max h growth + max drift) <= skin
-(``list_slack``).
+A list build takes the sorted arrays and each group's window cells,
+culled against its bbox widened by a skin
+(``window_cells_culled(radius_pad=skin)``). It merges the kept cells
+into candidate runs and runs the mark pass: for every slot, one (run,
+128-aligned chunk) pair of a group's runs, it records which of the
+chunk's 128 lanes lie inside the group's bbox inflated by 2 max h +
+skin, as a 128-bit mask. Chunks with no marked lane are then pruned from
+the runs. Between rebuilds the sorted order is frozen: a steady step
+skips the box regrow, the sort and the run prologue, and every pair op
+walks only the marked lanes (the list walk). The lists stay valid while
+2 (max h growth + max drift) <= skin (``list_slack``).
 
-``mark_chunks`` launches the mark kernel (csrc/pair_lists.cu) on CUDA
-tensors and runs ``mark_plain`` on CPU tensors. The JAX package's staging
-bookkeeping (fill, emit, tail, pre-rotated gather indices) served the
-TPU's 256-lane staging window and has no counterpart here: the list walk
-ranks the marked lanes from the bits itself.
+``build_lists`` launches the list build (csrc/pair_lists.cu: merge, mark
+and prune in one kernel) on CUDA tensors and runs ``build_lists_plain``,
+the composition ``_merge_runs`` -> ``mark_plain`` ->
+``_prune_empty_chunks`` -> gathers, on CPU tensors. The JAX package's
+staging bookkeeping (fill, emit, tail, pre-rotated gather indices)
+served the TPU's 256-lane staging window and has no counterpart here:
+the list walk ranks the marked lanes from the bits itself.
 """
 
 import ctypes
@@ -77,74 +80,108 @@ def lists_valid(x, y, z, h, lists: PairLists) -> torch.Tensor:
     return list_slack(x, y, z, h, lists) >= 0.0
 
 
-class MarkArgs(ctypes.Structure):
-    """Mirror of ``MarkArgs`` in csrc/pair_lists.cu (same field order)."""
+class BuildArgs(ctypes.Structure):
+    """Mirror of ``BuildArgs`` in csrc/pair_lists.cu (same field order)."""
 
-    _fields_ = [
-        ("starts", ctypes.c_void_p),
-        ("lens", ctypes.c_void_p),
-        ("shift_x", ctypes.c_void_p),
-        ("shift_y", ctypes.c_void_p),
-        ("shift_z", ctypes.c_void_p),
-        ("ncells", ctypes.c_void_p),
-        ("x", ctypes.c_void_p),
-        ("y", ctypes.c_void_p),
-        ("z", ctypes.c_void_p),
-        ("h", ctypes.c_void_p),
-        ("skin", ctypes.c_void_p),
-        ("bits", ctypes.c_void_p),
-        ("cnt", ctypes.c_void_p),
-        ("total", ctypes.c_void_p),
-        ("n", ctypes.c_int32),
-        ("num_groups", ctypes.c_int32),
-        ("w3", ctypes.c_int32),
-        ("group", ctypes.c_int32),
-        ("slot_cap", ctypes.c_int32),
-    ]
+    _fields_ = [(nm, ctypes.c_void_p) for nm in (
+        "cell_start", "cell_len", "cell_keep", "cell_shift", "x", "y", "z", "h", "skin",
+        "starts", "lens", "shift_x", "shift_y", "shift_z", "ncells", "bits", "cnt", "total")] + [
+        (nm, ctypes.c_int32) for nm in (
+            "n", "num_groups", "w3", "group", "slot_cap", "run_cap", "gap")]
 
 
-def mark_kernel(ranges: GroupRanges, x, y, z, h, skin, slot_cap: int, group: int):
-    """Launch the mark pass (csrc/pair_lists.cu) on the current stream (no
-    sync). Returns (bits (NG, S_cap, 4) int32, cnt (NG, S_cap) int32,
-    total (NG,) int32 chunks of each group's runs)."""
+#: the run tables of a ``GroupRanges`` that a list build writes (the rest,
+#: occupancy and boxl, come from the cull)
+RUN_TABLES = GroupRanges._fields[:6]
+
+
+def build_lists_launcher(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
+    """The list build's arguments checked and built once. ``cull`` is
+    (start, lens, keep, shifts) as ``pair_engine.window_cells_culled``
+    gives them: (NG, W3) int64, int64, bool and (NG, W3, 3) float32.
+    Returns (launch, (tables, bits, cnt, total)): each ``launch()`` runs
+    csrc/pair_lists.cu's list build on the current stream (no sync) into
+    those outputs and raises on a launch error; ``tables`` are the pruned
+    ``RUN_TABLES``. ``build_lists_kernel`` launches it once; a timing
+    loop may launch it again without the argument building."""
+    from sphexa_torch.kernels.build import load_library
+
     dev, n = x.device, x.shape[0]
     if dev.type != "cuda":
-        raise ValueError(f"mark_kernel needs CUDA tensors, got {dev}")
-    if slot_cap <= 0:
-        raise ValueError(f"slot_cap must be positive, got {slot_cap}")
-    ng, w3 = ranges.starts.shape
-    if ng != -(-n // group):
-        raise ValueError(f"ranges hold {ng} groups, {n} targets need {-(-n // group)}")
+        raise ValueError(f"the list build needs CUDA tensors, got {dev}")
+    if not 0 < slot_cap < 1 << 16:
+        raise ValueError(f"slot_cap must lie in [1, 65535], got {slot_cap}")
+    if n >= 1 << 30:
+        raise ValueError(f"the list build takes fewer than 2^30 particles, got {n}")
+    start, lens, keep, shifts = cull
+    ng, w3 = start.shape
+    if ng != -(-n // cfg.group):
+        raise ValueError(f"the cull holds {ng} groups, {n} targets need {-(-n // cfg.group)}")
     for nm, a in (("x", x), ("y", y), ("z", z), ("h", h)):
         pe.check_cuda_f32(nm, a, n, dev)
-    for nm, a, dt in (("starts", ranges.starts, torch.int32),
-                      ("lens", ranges.lens, torch.int32),
-                      ("shift_x", ranges.shift_x, torch.float32),
-                      ("shift_y", ranges.shift_y, torch.float32),
-                      ("shift_z", ranges.shift_z, torch.float32)):
-        pe.check_table(f"ranges.{nm}", a, dt, (ng, w3), dev)
-    pe.check_table("ranges.ncells", ranges.ncells, torch.int32, (ng,), dev)
+    pe.check_table("start", start, torch.int64, (ng, w3), dev)
+    pe.check_table("lens", lens, torch.int64, (ng, w3), dev)
+    pe.check_table("keep", keep, torch.bool, (ng, w3), dev)
+    pe.check_table("shifts", shifts, torch.float32, (ng, w3, 3), dev)
     pe.check_table("skin", skin, torch.float32, (), dev)
 
-    bits = torch.empty(ng, slot_cap, WORDS, dtype=torch.int32, device=dev)
-    cnt = torch.empty(ng, slot_cap, dtype=torch.int32, device=dev)
-    total = torch.empty(ng, dtype=torch.int32, device=dev)
-    args = MarkArgs()
-    for nm in ("starts", "lens", "shift_x", "shift_y", "shift_z", "ncells"):
-        setattr(args, nm, getattr(ranges, nm).data_ptr())
-    for nm, a in (("x", x), ("y", y), ("z", z), ("h", h), ("skin", skin),
-                  ("bits", bits), ("cnt", cnt), ("total", total)):
+    i32, f32 = torch.int32, torch.float32
+    tables = (*(torch.empty(ng, slot_cap, dtype=t, device=dev) for t in (i32, i32, f32, f32, f32)),
+              torch.empty(ng, dtype=i32, device=dev))
+    bits = torch.empty(ng, slot_cap, WORDS, dtype=i32, device=dev)
+    cnt = torch.empty(ng, slot_cap, dtype=i32, device=dev)
+    total = torch.empty(ng, dtype=i32, device=dev)
+    args = BuildArgs()
+    for nm, a in zip(("cell_start", "cell_len", "cell_keep", "cell_shift", "x", "y", "z", "h",
+                      "skin", *RUN_TABLES, "bits", "cnt", "total"),
+                     (*cull, x, y, z, h, skin, *tables, bits, cnt, total)):
         setattr(args, nm, a.data_ptr())
-    args.n, args.num_groups, args.w3, args.group = n, ng, w3, group
-    args.slot_cap = slot_cap
-    pe.launch("mark", args, dev)
-    return bits, cnt, total
+    args.n, args.num_groups, args.w3, args.group = n, ng, w3, cfg.group
+    args.slot_cap, args.run_cap, args.gap = slot_cap, cfg.run_cap, cfg.gap
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.launch_mark(ctypes.addressof(args), stream)
+        if err != 0:
+            raise RuntimeError(f"launch_mark failed: CUDA error {err} "
+                               f"({lib.pair_engine_error_string(err).decode()})")
+
+    return launch, (tables, bits, cnt, total)
+
+
+def build_lists_kernel(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
+    """Launch the list build (csrc/pair_lists.cu) once on the current
+    stream (no sync), counted as "mark" in ``LAUNCHES``. Returns (tables,
+    bits, cnt, total), ``build_lists_plain``'s outputs bit for bit."""
+    launch, out = build_lists_launcher(cull, x, y, z, h, skin, slot_cap, cfg)
+    launch()
+    pe.LAUNCHES["mark"] += 1
+    return out
+
+
+def list_build_info(w3: int, slot_cap: int) -> dict:
+    """Static facts of the list build at a window of ``w3`` cells and
+    ``slot_cap`` slots (``pair_engine.KERNEL_INFO_KEYS``; "window" is the
+    chunk's lanes). Needs a CUDA device; launches nothing."""
+    from sphexa_torch.kernels.build import load_library
+
+    lib = load_library()
+    out = (ctypes.c_int32 * len(pe.KERNEL_INFO_KEYS))()
+    err = lib.list_build_info(w3, slot_cap, out)
+    if err != 0:
+        raise RuntimeError(f"list build info failed: CUDA error {err} "
+                           f"({lib.pair_engine_error_string(err).decode()})")
+    return dict(zip(pe.KERNEL_INFO_KEYS, out))
 
 
 def mark_plain(ranges: GroupRanges, x, y, z, h, skin, slot_cap: int, group: int):
-    """Plain PyTorch version of ``mark_kernel`` on any device: every
-    group's slots expanded into (groups, slots, 128) lane tiles, tested,
-    and packed into bits, in chunks of groups that fit the tile budget."""
+    """The mark pass of ``build_lists_plain`` over merged runs, on any
+    device: every group's slots expanded into (groups, slots, 128) lane
+    tiles, tested, and packed into bits, in chunks of groups that fit the
+    tile budget. Returns (bits (NG, S_cap, 4) int32, cnt (NG, S_cap) int32,
+    total (NG,) int32 chunks of each group's runs)."""
     dev = x.device
     xg, yg, zg, hg = (pe._pad_groups(a, group) for a in (x, y, z, h))
     r = 2.0 * hg.amax(1) + skin  # (NG,) float32
@@ -176,16 +213,6 @@ def mark_plain(ranges: GroupRanges, x, y, z, h, skin, slot_cap: int, group: int)
         bits[sl] = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
         cnt[sl] = m.sum(-1).to(torch.int32)
     return bits, cnt, total.to(torch.int32)
-
-
-def mark_chunks(ranges: GroupRanges, x, y, z, h, skin, slot_cap: int, group: int):
-    """Dispatch by device: CUDA launches the mark kernel, CPU runs
-    ``mark_plain``; anything else raises."""
-    if x.device.type == "cuda":
-        return mark_kernel(ranges, x, y, z, h, skin, slot_cap, group)
-    if x.device.type == "cpu":
-        return mark_plain(ranges, x, y, z, h, skin, slot_cap, group)
-    raise ValueError(f"unsupported device {x.device}")
 
 
 def _prune_empty_chunks(ranges: GroupRanges, cnt, slot_cap: int):
@@ -238,21 +265,52 @@ def _prune_empty_chunks(ranges: GroupRanges, cnt, slot_cap: int):
     return new, perm
 
 
+def build_lists_plain(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
+    """Plain PyTorch version of the list build on any device: the culled
+    cells merged into runs (``pair_engine._merge_runs``), the mark pass
+    (``mark_plain``), the empty chunks pruned (``_prune_empty_chunks``) and
+    the words and counts gathered into pruned order. Returns (tables, bits,
+    cnt, total): the pruned ``RUN_TABLES`` ((NG, S_cap) tables, zero past
+    each group's runs, and the (NG,) run counts), bits (NG, S_cap, 4) and
+    cnt (NG, S_cap) int32 zero past the kept slots, and the (NG,) int32
+    chunk count of each group's merged runs, unclipped."""
+    starts, lens, sh, nruns = pe._merge_runs(*cull, cfg.run_cap, cfg.gap)
+    i32 = torch.int32
+    runs = GroupRanges(starts.to(i32), lens.to(i32), *sh, nruns.to(i32),
+                       occupancy=None, boxl=None)
+    bits, cnt, total = mark_plain(runs, x, y, z, h, skin, slot_cap, cfg.group)
+    pruned, perm = _prune_empty_chunks(runs, cnt, slot_cap)
+    cnt = cnt.gather(1, perm).contiguous()
+    bits = bits.gather(1, perm[:, :, None].expand(-1, -1, WORDS)).contiguous()
+    return tuple(pruned)[:len(RUN_TABLES)], bits, cnt, total
+
+
+def build_lists(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
+    """Dispatch by device: CUDA launches the list build, CPU runs
+    ``build_lists_plain``; anything else raises."""
+    if x.device.type == "cuda":
+        return build_lists_kernel(cull, x, y, z, h, skin, slot_cap, cfg)
+    if x.device.type == "cpu":
+        return build_lists_plain(cull, x, y, z, h, skin, slot_cap, cfg)
+    raise ValueError(f"unsupported device {x.device}")
+
+
 def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
                      skin: torch.Tensor, slot_cap: int) -> PairLists:
-    """Build the persistent lists from SFC-sorted arrays: runs widened by
-    ``skin`` (a float32 0-d tensor), the mark pass, the pruned runs and the
-    overflow sentinel, and on the card the walk's mask-word buffer. No host
-    sync on the CPU; on the card one (the buffer's size)."""
+    """Build the persistent lists from SFC-sorted arrays: each group's
+    window cells culled against its bbox widened by ``skin`` (a float32
+    0-d tensor), then the list build (runs, mark, prune; one kernel on the
+    card), the overflow sentinel, and on the card the walk's mask-word
+    buffer. No host sync on the CPU; on the card one (the buffer's size)."""
     if pe.engine_fold(box, cfg):
         raise ValueError(
             "persistent lists need per-cell image shifts; a grid in fold mode "
             "streams instead")
-    ranges = pe.group_cell_ranges(x, y, z, h, sorted_keys, box, cfg, radius_pad=skin)
-    bits, cnt, total = mark_chunks(ranges, x, y, z, h, skin, slot_cap, cfg.group)
-    ranges, perm = _prune_empty_chunks(ranges, cnt, slot_cap)
-    cnt = cnt.gather(1, perm).contiguous()
-    bits = bits.gather(1, perm[:, :, None].expand(-1, -1, WORDS)).contiguous()
+    start, lens, keep, shifts, raw_len, window_ok = pe.window_cells_culled(
+        x, y, z, h, sorted_keys, box, cfg, radius_pad=skin)
+    tables, bits, cnt, total = build_lists((start, lens, keep, shifts), x, y, z, h, skin,
+                                           slot_cap, cfg)
+    ranges = GroupRanges(*tables, *pe.occupancy_and_boxl(keep, raw_len, window_ok, box, cfg))
     word_off = pe.mask_word_offsets(cnt)
     words = None
     if x.device.type == "cuda":

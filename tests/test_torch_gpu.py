@@ -7,9 +7,12 @@ Each kernel and its plain PyTorch version get the same sorted state on
 the card, with the JAX package's tolerances. The pair engine, std and VE
 ops: Sedov on the fold case (side 12) and the shift case (side 24,
 cell_target=16).
-The persistent lists (mark pass, list walk, list mode against streaming):
+The persistent lists (the list walk, list mode against streaming):
 Sedov side 30 and Noh 16 (open box); jittered side 24 has no lists (its
-list window spans the grid, fold mode). Every Sedov lattice is jittered
+list window spans the grid, fold mode). The list build (K5) bit for bit
+against its plain version on those two, the mixed box (Sedov 24
+stretched in z, periodic x, open y and z) and synthetic cells that hold
+every edge of the run merge. Every Sedov lattice is jittered
 from a seed (``jitter_sedov``) so that every term of each pair body, the
 viscosity and the IAD off-diagonals included, is non-zero. A VE
 list-mode Simulation step on the card is compared with the same step on
@@ -93,21 +96,26 @@ def test_wrapper_rejects_bad_input(case):
 LIST_CASES = {"sedov": (init_sedov, 30), "noh": (init_noh, 16)}
 
 
-@pytest.fixture(scope="module", params=list(LIST_CASES))
-def list_case(request):
+def _list_case(name):
     """A list-mode config, the frozen sorted state and its lists (built by
-    the mark kernel), and the streaming runs of the same state."""
+    the list-build kernel), and the streaming runs of the same state. The
+    mixed box (``checks.mixed_box_case``) is not jittered: jittered, its
+    window would span the grid."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    init, side = LIST_CASES[request.param]
-    state, box, const = init(side, device="cpu")
-    if request.param == "sedov":
+    kw = {}
+    if name == "mixed":
+        (state, box, const), kw = checks.mixed_box_case("cpu")
+    else:
+        init, side = LIST_CASES[name]
+        state, box, const = init(side, device="cpu")
+    if name == "sedov":
         fields, b, c = state_to_numpy(state, box, const)
         state, box, const = state_from_numpy(jitter_sedov(fields, side, seed=side), b, c,
                                              device="cpu")
     state, box = state.to("cuda"), box.to("cuda")
-    cfg = make_propagator_config(state, box, const, use_lists=True)
-    assert cfg.list_slot_cap > 0
+    cfg = make_propagator_config(state, box, const, use_lists=True, **kw)
+    assert cfg.list_slot_cap > 0 and not pe.engine_fold(box, cfg.nbr)
     ss, box, lists = rebuild_pair_lists(state, box, cfg)
     assert int(lists.overflow) == 0
     keys = compute_sfc_keys(ss.x, ss.y, ss.z, box, curve=cfg.curve)  # sorted: frozen order
@@ -115,20 +123,105 @@ def list_case(request):
     return ss, box, const, cfg, keys, lists, ranges
 
 
-def test_mark_kernel_matches_plain(list_case):
-    """K5: the bits, counts and chunk totals of the mark kernel equal the
-    plain version's bit for bit, on the build-time (unpruned) runs."""
-    ss, box, const, cfg, keys, lists, _ = list_case
-    runs = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr,
-                                radius_pad=lists.skin)
-    args = (runs, ss.x, ss.y, ss.z, ss.h, lists.skin, cfg.list_slot_cap, cfg.nbr.group)
+@pytest.fixture(scope="module", params=list(LIST_CASES))
+def list_case(request):
+    return _list_case(request.param)
+
+
+@pytest.fixture(scope="module", params=[*LIST_CASES, "mixed"])
+def build_case(request):
+    """The list cases and the mixed box, for K5. The walk tests above hold
+    each output to its own max|.|; on the mixed box the x-mirror symmetry
+    makes IAD's off-diagonal x components vanish, rounding noise whose
+    summation order differs, so they take the list cases only; chip_smoke
+    runs the walk there against the global scale."""
+    return _list_case(request.param)
+
+
+def _cull(ss, box, cfg, keys, skin):
+    """The list build's input: the culled window cells at the skin."""
+    return pe.window_cells_culled(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr,
+                                  radius_pad=skin)[:4]
+
+
+def test_list_build_matches_plain(build_case):
+    """K5: the list build equals its plain version (merge, mark, prune,
+    gathers) bit for bit on the list cases' culled cells, in one launch,
+    and its outputs are the lists the rebuild made."""
+    ss, box, const, cfg, keys, lists, _ = build_case
+    cull = _cull(ss, box, cfg, keys, lists.skin)
     pe.reset_launches()
-    got = pl.mark_kernel(*args)
-    want = pl.mark_plain(*args)
+    res = checks.list_build_vs_plain("list case", cull, ss.x, ss.y, ss.z, ss.h, lists.skin,
+                                     cfg.list_slot_cap, cfg.nbr)
+    assert pe.LAUNCHES == {**dict.fromkeys(pe.LAUNCHES, 0), "mark": 1}
+    tables, bits, cnt, _ = res["outputs"]
+    for nm, a in zip(pl.RUN_TABLES, tables):
+        assert torch.equal(a, getattr(lists.ranges, nm)), nm
+    assert torch.equal(bits, lists.bits) and torch.equal(cnt, lists.cnt)
+    assert torch.equal(cnt, pe.lane_mask(bits).sum(-1).to(torch.int32))
+
+
+def test_list_build_overflow_matches_plain(build_case):
+    """A slot budget of 2 overflows: the chunk totals (unclipped) and
+    everything else still equal the plain version's, and the lists carry
+    the overflow sentinel."""
+    ss, box, const, cfg, keys, lists, _ = build_case
+    cull = _cull(ss, box, cfg, keys, lists.skin)
+    res = checks.list_build_vs_plain("list case, 2 slots", cull, ss.x, ss.y, ss.z, ss.h,
+                                     lists.skin, 2, cfg.nbr)
+    assert int(res["outputs"][3].max()) > 2
+    small = pl.build_pair_lists(ss.x, ss.y, ss.z, ss.h, keys, box, cfg.nbr, lists.skin, 2)
+    assert int(small.overflow) == 1
+
+
+@pytest.mark.parametrize("slots", ["fit", "overflow"])
+def test_list_build_synthetic_matches_plain(slots):
+    """K5 on ``checks.synthetic_cull``'s cells, which hold every edge of
+    the run merge (a gap of exactly ``gap``, a run of exactly ``run_cap``,
+    a shift change between adjacent cells, empty and dropped cells between
+    kept ones, shuffled columns) and prune chunks in the middle of runs."""
+    _need_card()
+    cull, x, y, z, h, skin, scap, cfg = checks.synthetic_cull(7, "cuda")
+    checks.list_build_vs_plain(f"synthetic {slots}", cull, x, y, z, h, skin,
+                               scap if slots == "fit" else 3, cfg)
+
+
+def test_list_build_refuses_oversized_shared_memory():
+    """Shared memory is sized from W3 and slot_cap; past the card's limit
+    the launch is refused and the wrapper raises. The refusal does not
+    leak into the next launch's error check."""
+    _need_card()
+    cull, x, y, z, h, skin, scap, cfg = checks.synthetic_cull(7, "cuda")
+    with pytest.raises(RuntimeError, match="launch_mark"):
+        pl.build_lists_kernel(cull, x, y, z, h, skin, 60000, cfg)
+    checks.list_build_vs_plain("synthetic after a refusal", cull, x, y, z, h, skin, scap, cfg)
+
+
+def test_rebuild_skips_the_composition(build_case, monkeypatch):
+    """On the card a list rebuild is one K5 launch: neither the run merge,
+    the plain mark pass nor the prune runs."""
+    ss, box, const, cfg, keys, lists, _ = build_case
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("the plain list build's composition ran on the card")
+
+    for mod, name in ((pe, "_merge_runs"), (pl, "_prune_empty_chunks"), (pl, "mark_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    pe.reset_launches()
+    _, _, again = rebuild_pair_lists(ss, box, cfg)
     assert pe.LAUNCHES["mark"] == 1
-    for name, a, b in zip(("bits", "cnt", "total"), got, want):
-        assert torch.equal(a, b), name
-    assert torch.equal(got[1], pe.lane_mask(got[0]).sum(-1).to(torch.int32))
+    assert torch.equal(again.bits, lists.bits) and torch.equal(again.cnt, lists.cnt)
+
+
+def test_list_build_info():
+    """The list build's static facts at the std main path's sizes (W3 125,
+    slot_cap 112): registers without spills, shared bytes from the sizes,
+    four warps a block."""
+    _need_card()
+    info = pl.list_build_info(125, 112)
+    assert info["registers"] > 0 and info["local_bytes"] == 0, info
+    assert info["dynamic_smem"] == 4 * (11 * 125 + 1 + 9 * 112), info
+    assert info["blocks_per_sm"] >= 1 and info["warps_per_sm"] == 4 * info["blocks_per_sm"]
 
 
 def test_list_walk_matches_plain(list_case):

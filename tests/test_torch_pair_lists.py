@@ -1,7 +1,9 @@
 """The port's persistent neighbour lists (sphexa_torch/sph/pair_lists.py,
-the mark pass in its plain version as CPU tensors run it) against the JAX
-package's ``build_pair_lists`` (Pallas in interpret mode), on Sedov 24^3
-with cell_target=16 (periodic, per-run shifts) and Noh 16 (open box).
+the list build in its plain version as CPU tensors run it) against the
+JAX package's ``build_pair_lists`` (Pallas in interpret mode), on Sedov
+24^3 with cell_target=16 (periodic, per-run shifts), Noh 16 (open box)
+and a mixed box (Sedov 24^3 stretched 1.3x in z, periodic in x and open
+in y and z, cell_target=16).
 Both sides start from the same numpy state and go through their own
 config sizing and ``rebuild_pair_lists`` (regrow, sort, skin, build).
 The Sedov lattice is not jittered here: jittered, its list-inflated
@@ -24,6 +26,8 @@ import torch
 from sphexa_tpu.init import init_noh as jax_init_noh
 from sphexa_tpu.init import init_sedov as jax_init_sedov
 from sphexa_tpu.propagator import rebuild_pair_lists as jax_rebuild
+from sphexa_tpu.sfc.box import BoundaryType as JaxBoundary
+from sphexa_tpu.sfc.box import Box as JaxBox
 from sphexa_tpu.sfc.keys import compute_sfc_keys as jax_keys
 from sphexa_tpu.simulation import make_propagator_config as jax_config
 from sphexa_tpu.sph.pair_lists import build_pair_lists as jax_build
@@ -31,11 +35,13 @@ from sphexa_tpu.sph.pair_lists import list_slack as jax_slack
 from sphexa_tpu.sph.pair_lists import lists_valid as jax_valid
 
 from sphexa_torch.convert import state_from_numpy
-from sphexa_torch.init import init_noh, jitter_sedov
+from sphexa_torch.init import init_noh, jitter_sedov, stretch_box
+from sphexa_torch.kernels import checks
 from sphexa_torch.propagator import rebuild_pair_lists
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.simulation import make_propagator_config
 from sphexa_torch.sph import pair_engine as pe
+from sphexa_torch.sph import pair_lists as pl
 from sphexa_torch.sph.pair_lists import build_pair_lists, list_slack, lists_valid
 
 
@@ -56,12 +62,23 @@ def _flat(state, box, const):
     return fields, b, dataclasses.asdict(const)
 
 
+#: the mixed box: periodic x, open y and z
+MIXED_BOUNDARIES = (JaxBoundary.periodic, JaxBoundary.open, JaxBoundary.open)
+
+
 def jax_case(name):
     """The JAX package's state of a case and the make_propagator_config
     keywords both packages size it with."""
     if name == "noh":
         return jax_init_noh(16), {}
-    return jax_init_sedov(24), {"cell_target": 16}
+    js, jb, jc = jax_init_sedov(24)
+    if name == "mixed":
+        fields, b = stretch_box(_flat(js, jb, jc)[0], _flat(js, jb, jc)[1], 1.3,
+                                MIXED_BOUNDARIES)
+        js = dataclasses.replace(js, z=jnp.asarray(fields["z"]))
+        jb = JaxBox.create(*np.stack([b["lo"], b["hi"]], axis=1).ravel().tolist(),
+                           boundary=MIXED_BOUNDARIES)
+    return (js, jb, jc), {"cell_target": 16}
 
 
 def jax_marked_lanes(jl):
@@ -76,7 +93,7 @@ def jax_marked_lanes(jl):
     return out
 
 
-@pytest.fixture(scope="module", params=["noh", "sedov"])
+@pytest.fixture(scope="module", params=["noh", "sedov", "mixed"])
 def case(request):
     (js, jb, jc), kw = jax_case(request.param)
     jcfg = jax_config(js, jb, jc, backend="pallas", use_lists=True, **kw)
@@ -206,3 +223,50 @@ def test_init_noh_arrays_equal():
     assert [int(b) for b in tb.boundaries] == [int(b) for b in jb.boundaries]
     assert dataclasses.asdict(tc) == {k: v for k, v in dataclasses.asdict(jc).items()
                                       if k in dataclasses.asdict(tc)}
+
+
+@pytest.mark.parametrize("seed", [7, 11])
+def test_synthetic_cull_exercises_merge_edges(seed):
+    """The synthetic cells that the card's list-build check runs hold, in
+    every group, each edge of the run merge (kept cells in start order:
+    A, B, C, D, E, F, then an empty and a dropped cell, then G): a gap of
+    exactly ``gap`` rows joins (A, B), one more row does not (C); a run of
+    exactly ``run_cap`` rows joins (C, D), one more row does not (E); a new
+    image shift starts a run (F) and the kept cell after a dropped one
+    joins it (G). The columns are shuffled, and the prune drops chunks."""
+    cull, x, y, z, h, skin, scap, cfg = checks.synthetic_cull(seed, "cpu")
+    start, lens, keep, _ = (a.numpy() for a in cull)
+    s, ln, sh, _ = (a for a in pe._merge_runs(*cull, cfg.run_cap, cfg.gap))
+    s, ln, shx = s.numpy(), ln.numpy(), sh[0].numpy()
+    w3 = start.shape[1]
+    shuffled = 0
+    for g in range(start.shape[0]):
+        order = np.lexsort((np.arange(w3), np.where(keep[g], start[g], 2**30)))
+        k = order[keep[g][order]]
+        shuffled += int(not np.array_equal(k[:7], np.sort(k[:7])))
+        cs, ce = start[g][k], start[g][k] + lens[g][k]
+        assert cs[1] - ce[0] == cfg.gap and (s[g, 0], s[g, 0] + ln[g, 0]) == (cs[0], ce[1])
+        assert cs[2] - ce[1] == cfg.gap + 1 and s[g, 1] == cs[2]
+        assert ce[3] - cs[2] == cfg.run_cap and ln[g, 1] == cfg.run_cap
+        assert (s[g, 2], ln[g, 2]) == (cs[4], 1) and ce[4] - cs[2] == cfg.run_cap + 1
+        assert s[g, 3] == cs[5] and s[g, 3] + ln[g, 3] >= ce[6]
+        assert tuple(shx[g, :4]) == (0.0, 0.0, 0.0, 1.0)
+        between = (start[g] >= ce[5]) & (start[g] < cs[6]) | (start[g] == ce[5])
+        assert (~keep[g][between]).sum() == 2 and (lens[g][between] == 0).any()
+    assert shuffled > 0
+    tables, bits, cnt, total = pl.build_lists_plain(cull, x, y, z, h, skin, scap, cfg)
+    kept_slots = (cnt > 0).sum(dim=1)
+    assert int(total.max()) == scap and bool((kept_slots < total).any())
+    assert bool((kept_slots > 0).all())
+
+
+def test_list_build_kernel_refuses_cpu_tensors():
+    """On CPU tensors the list build's launcher raises: the wrapper
+    (``build_lists``) runs the plain version there and never reaches it."""
+    cull, x, y, z, h, skin, scap, cfg = checks.synthetic_cull(7, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        pl.build_lists_launcher(cull, x, y, z, h, skin, scap, cfg)
+    got = pl.build_lists(cull, x, y, z, h, skin, scap, cfg)
+    want = pl.build_lists_plain(cull, x, y, z, h, skin, scap, cfg)
+    for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert torch.equal(a, b)
