@@ -53,7 +53,22 @@ Phases, each printed as one JSON line:
    the walk carried every op; K5 also alone, its entry point launched
    back to back);
 9. the std main path's Simulation on to step 100: list rebuilds, replays
-   and the mean and median step time, the rebuilds included;
+   and the mean and median step time, the rebuilds included; then the
+   deferred path, std Sedov 100^3 in list mode as bench.py drives the JAX
+   package's (``check_every=8``, the science ledger in the step, its
+   events to a MemorySink), from step 0 to 100, and the same with
+   ``check_every`` 4 and 1 (the rollback cadence): windows, rollbacks by
+   reason, replays, rebuilds, the per-step wall over steps 14-100 (a
+   window's calls over its steps), 100 science rows, the drift and the
+   launch contract; a second check_every-8 run from step 0 to 100 whose
+   windows are counted for host syncs (one in a window without a rollback,
+   plus two per list build; asserted) or, until one without a build or a
+   rollback is found, profiled (its device busy share); then the deferred
+   windows' checks
+   (``kernels/deferred_checks.py``): the cap forced to 8 (Sedov 30) and h
+   x 4 before a window (Sedov 32) roll back and replay to a clean run, a
+   deferred streaming run equals the checked one bit for bit (Sedov 30),
+   and a VE list-mode window on stale lists replays (Sedov 30);
 10. gravity vs plain: the list compaction (K13) on the JAX package's
    random cases and the widths its tiles cut, exactly; the near field
    (K12) on Evrard 20's leaf ranges, every block, in the open-box form and
@@ -97,7 +112,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -809,12 +823,14 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
     import torch
 
     from sphexa_torch.init import init_evrard, init_gresho_chan, init_sedov
+    from sphexa_torch.observables import ObservableSpec
     from sphexa_torch.simulation import Simulation
     from sphexa_torch.sph.pair_engine import engine_fold
 
     init = {"sedov": init_sedov, "gresho-chan": init_gresho_chan, "evrard": init_evrard}[case]
     rtol = 1e-4 if prop == "std" else 2e-4
-    kw = {"cell_target": cell_target, "use_lists": use_lists, "prop": prop}
+    kw = {"cell_target": cell_target, "use_lists": use_lists, "prop": prop,
+          "obs_spec": ObservableSpec()}
     gpu = Simulation(*init(side, device="cuda"), device="cuda", **kw)
     cpu = Simulation(*init(side, device="cpu"), device="cpu", **kw)
     worst = 0.0
@@ -983,22 +999,11 @@ def gravity_accuracy(ss, cfg, out, samples: int = 4096) -> dict:
 
 
 def count_syncs(sim) -> dict:
-    """Host syncs of one main-path step, by torch's CUDA sync debug mode:
-    each synchronizing call (a device-to-host read, a stream or device
-    synchronize) raises one warning, counted by the line that made it."""
-    import torch
+    """Host syncs of one main-path step, by the line that made each
+    (``deferred_checks.sync_sites``)."""
+    from sphexa_torch.kernels.deferred_checks import sync_sites
 
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            sim.step()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    here = os.path.dirname(os.path.abspath(__file__))
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
+    sites = sync_sites(sim.step)
     return {"phase": "host_syncs", "per_step": sum(sites.values()),
             "sites": dict(sites.most_common())}
 
@@ -1146,7 +1151,7 @@ def drive(make_sim, steps: int, label: str) -> dict:
     if drift is None or not drift == drift or abs(drift) >= 1e-3:
         raise AssertionError(f"{label}: energy drift {drift}")
     last = diags[-1]
-    for k in ("dt", "nc_mean", "rho_max", "h_max", "etot"):
+    for k in ("dt", "nc_mean", "rho_max", "h_max", "obs_etot"):
         if not abs(last[k]) < float("inf"):
             raise AssertionError(f"{label}: non-finite {k}: {last[k]}")
     n = sim.state.n
@@ -1168,6 +1173,85 @@ def drive(make_sim, steps: int, label: str) -> dict:
     return {"sim": sim, "report": report, "launches": launches, "attempts": attempts,
             "rebuilds": sim.rebuilds, "diags": diags, "first_build_s": first_s,
             "step_ms_median": 1e3 * wall / steps}
+
+
+def deferred_run(make_sim, to_step: int, from_step: int = 14) -> dict:
+    """Drive a Simulation to ``to_step`` (its last window flushed), each
+    ``step()`` call timed on the host: a window's per-step wall is the sum
+    of its calls' walls (the launches, the flush's read, and a rebuild or
+    a rollback's replay made at the flush) over its steps, and each step
+    of the window gets it (with ``check_every`` 1 each step its own call).
+    The launch counts are set to 0 just before the Simulation is made and
+    read at ``to_step``. Reports windows, rollbacks by reason, replays,
+    rebuilds, the per-step wall over steps ``from_step``..``to_step``
+    (mean and median), the science rows and the drift."""
+    import torch
+
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.telemetry import MemorySink, Telemetry
+
+    torch.cuda.synchronize()
+    pe.reset_launches()
+    sink = MemorySink()
+    sim = make_sim(Telemetry(sinks=[sink]))
+    per_step, acc, it0 = {}, 0.0, 0
+    while sim.iteration < to_step or sim._pending:
+        t0 = time.perf_counter()
+        sim.step() if sim.iteration < to_step else sim.flush()
+        acc += time.perf_counter() - t0
+        if not sim._pending:  # a window (or a checked step) ended
+            for it in range(it0 + 1, sim.iteration + 1):
+                per_step[it] = 1e3 * acc / (sim.iteration - it0)
+            acc, it0 = 0.0, sim.iteration
+    launches = dict(pe.LAUNCHES)
+    rows = sim.drain_science()
+    if [r["it"] for r in rows] != list(range(1, to_step + 1)):
+        raise AssertionError(f"check_every {sim.check_every}: science rows of "
+                             f"{[r['it'] for r in rows][:5]}..., expected 1..{to_step}")
+    drift = sim.energy_drift
+    if drift is None or not abs(drift) < 1e-3:
+        raise AssertionError(f"check_every {sim.check_every}: energy drift {drift}")
+    ms = [per_step[it] for it in range(from_step, to_step + 1)]
+    report = {
+        "check_every": sim.check_every, "to_step": sim.iteration,
+        "windows": len(sink.of_kind("window")), "checked_steps": len(sink.of_kind("step")),
+        "rollbacks": dict(collections.Counter(e["reason"] for e in sink.of_kind("rollback"))),
+        "replays": sim.replays, "rebuilds": sim.rebuilds, "reconfigures": sim.reconfigures,
+        "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
+        "step_ms_max": max(ms), "science_rows": len(rows), "energy_drift": drift,
+        "window_per_step_ms_median": statistics.median(
+            [1e3 * e["per_step_s"] for e in sink.of_kind("window")]) if sink.of_kind("window")
+        else None}
+    return {"sim": sim, "sink": sink, "report": report, "launches": launches,
+            "attempts": sim.iteration + sim.replays, "per_step": per_step}
+
+
+def deferred_windows(sim, happy_ms: float, to_step: int = 100) -> dict:
+    """Whole deferred windows of ``sim`` (made at step 0) up to ``to_step``,
+    each either counted (``deferred_checks.window_syncs``: host syncs by
+    site, list builds, rollbacks) or, every other window until one without
+    a list build or a rollback is found, profiled (``profile_steps`` over
+    the window's steps against ``happy_ms``, the unprofiled per-step wall
+    of the timed run's happy windows). Asserts that every counted window
+    without a rollback makes one host sync plus two per list build (its
+    overflow flag and its word total) and that one such window has no
+    build."""
+    from sphexa_torch.kernels import deferred_checks
+
+    counted, profiled, k = [], None, 0
+    while sim.iteration < to_step:
+        b0, r0 = sim.rebuilds, sim.rollbacks
+        if profiled is None and k % 2 == 1:
+            prof = profile_steps(sim, sim.check_every, happy_ms)
+            if sim.rebuilds == b0 and sim.rollbacks == r0:
+                profiled = {**prof, "window_end": sim.iteration}
+        else:
+            counted.append({**deferred_checks.window_syncs(sim), "window_end": sim.iteration})
+        k += 1
+    bad = [w for w in counted if not w["rollbacks"] and w["syncs"] != 1 + 2 * w["rebuilds"]]
+    if bad or not any(not w["rollbacks"] and not w["rebuilds"] for w in counted):
+        raise AssertionError(f"deferred windows: host syncs {counted}")
+    return {"window_syncs": counted, "happy_window_profile": profiled}
 
 
 def pass_counts(ss, group: int, consts: dict, lists=None, ranges=None, fold=False) -> dict:
@@ -1322,11 +1406,14 @@ def main() -> int:
     from sphexa_torch.init import init_noh, init_sedov
     from sphexa_torch.kernels import build as kbuild
     from sphexa_torch.kernels import checks
+    from sphexa_torch.kernels import deferred_checks
+    from sphexa_torch.observables import ObservableSpec
     from sphexa_torch.propagator import _force_stage_prologue
     from sphexa_torch.sfc.keys import compute_sfc_keys
     from sphexa_torch.simulation import Simulation
     from sphexa_torch.sph import pair_engine as pe
 
+    spec = ObservableSpec()  # the science ledger in every driven path's steps
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1408,7 +1495,8 @@ def main() -> int:
     side = 100
     state, box, const = init_sedov(side, device="cuda")
     n = state.n
-    lst = drive(lambda: Simulation(state, box, const, prop="std", device="cuda"),
+    lst = drive(lambda: Simulation(state, box, const, prop="std", device="cuda",
+                                   obs_spec=spec),
                 steps=10, label="main_path")
     sim = lst["sim"]
     if sim.lists is None:
@@ -1435,7 +1523,8 @@ def main() -> int:
     # 6. the streaming path, driven the same way with fewer timed steps
     state, box, const = init_sedov(side, device="cuda")
     stm = drive(lambda: Simulation(state, box, const, prop="std", device="cuda",
-                                   use_lists=False), steps=5, label="streaming_path")
+                                   use_lists=False, obs_spec=spec), steps=5,
+                label="streaming_path")
     ssim = stm["sim"]
     sa = stm["launches"]
     check_launches("std streaming", sa, stm["attempts"],
@@ -1446,7 +1535,8 @@ def main() -> int:
 
     # 7. the VE path: Sedov 100^3 VE on the card, in list mode
     state, box, const = init_sedov(side, device="cuda")
-    ve = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda"),
+    ve = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
+                                   obs_spec=spec),
                steps=10, label="ve_path")
     vsim, va = ve["sim"], ve["launches"]
     if vsim.lists is None:
@@ -1471,7 +1561,8 @@ def main() -> int:
     # divv/curlv with gradv), each a short path of its own
     state, box, const = init_sedov(side, device="cuda")
     vst = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
-                                   use_lists=False), steps=3, label="ve_streaming_path")
+                                   use_lists=False, obs_spec=spec), steps=3,
+                label="ve_streaming_path")
     vsa = vst["launches"]
     check_launches("VE streaming", vsa, vst["attempts"], (
         "density", "ve_def_gradh", "iad", "iad_divv_curlv", "av_switches",
@@ -1479,7 +1570,8 @@ def main() -> int:
     emit(vst["report"])
     state, box, const = init_sedov(side, device="cuda")
     vac = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
-                                   av_clean=True), steps=3, label="ve_avclean_path")
+                                   av_clean=True, obs_spec=spec), steps=3,
+                label="ve_avclean_path")
     vaa = vac["launches"]
     check_launches("VE av_clean", vaa, vac["attempts"], ve_walk, vac["rebuilds"])
     emit(vac["report"])
@@ -1556,14 +1648,57 @@ def main() -> int:
     for _ in range(100 - sim.iteration):
         sim.step()
         ms.append(1e3 * sim.last_step_seconds)
-    drift = sim.energy_drift
-    if drift is None or not abs(drift) < 1e-3:
-        raise AssertionError(f"long run: energy drift {drift}")
+    long_drift = sim.energy_drift
+    if long_drift is None or not abs(long_drift) < 1e-3:
+        raise AssertionError(f"long run: energy drift {long_drift}")
+    long_mean, long_median = statistics.mean(ms), statistics.median(ms)
     emit({"phase": "long_run", "from_step": it0, "to_step": sim.iteration,
           "rebuilds": sim.rebuilds - b0, "replays": sim.replays - r0,
-          "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
-          "step_ms_max": max(ms), "energy_drift": drift,
+          "step_ms_mean": long_mean, "step_ms_median": long_median,
+          "step_ms_max": max(ms), "energy_drift": long_drift,
           "list_slot_cap": sim.cfg.list_slot_cap, "reconfigures": sim.reconfigures})
+
+    # 9b. the deferred path: the main path as bench.py drives the JAX one
+    # (check_every 8, the ledger in the step, telemetry to a MemorySink),
+    # to step 100; then check_every 1 and 4 the same way (the rollback
+    # cadence); the host syncs of whole windows and the busy share of one.
+    # Each of these phases reports its own wall (``seconds``, set-up included)
+    walk = ("density_lists", "iad_lists", "momentum_energy_std_lists")
+    cadence = {}
+    for ce in (8, 4, 1):
+        t0 = time.perf_counter()
+        state, box, const = init_sedov(side, device="cuda")
+        run = deferred_run(lambda tel: Simulation(
+            state, box, const, prop="std", device="cuda", check_every=ce, obs_spec=spec,
+            telemetry=tel, science_rows=True), to_step=100)
+        check_launches(f"std deferred check_every {ce}", run["launches"], run["attempts"],
+                       walk, run["report"]["rebuilds"])
+        cadence[ce] = run
+        emit({"phase": "deferred_cadence", **run["report"],
+              "seconds": time.perf_counter() - t0})
+    if cadence[8]["sim"].lists is None:
+        raise AssertionError("the deferred path streamed: no persistent lists")
+    t0 = time.perf_counter()
+    state, box, const = init_sedov(side, device="cuda")
+    windows = deferred_windows(Simulation(state, box, const, prop="std", device="cuda",
+                                          check_every=8, obs_spec=spec),
+                               cadence[8]["report"]["window_per_step_ms_median"])
+    emit({"phase": "deferred_path", "card": smi, **cadence[8]["report"],
+          "launches": cadence[8]["launches"], "step_attempts": cadence[8]["attempts"],
+          **windows, "long_run": {"check_every": 1, "step_ms_mean": long_mean,
+                                  "step_ms_median": long_median, "energy_drift": long_drift},
+          "seconds": time.perf_counter() - t0})
+
+    # 9c. the deferred windows' sabotage cases on the card: the cap forced
+    # to 8 and h x 4 mid-window roll back and replay to a clean run; a
+    # deferred streaming run equals the checked one bit for bit; a VE
+    # list-mode window on stale lists rolls back and replays
+    t0 = time.perf_counter()
+    dchecks = {"cap_rollback": deferred_checks.cap_rollback(30, "cuda"),
+               "h_growth": deferred_checks.h_growth_rollback(32, "cuda", window=4),
+               "matches_sync": deferred_checks.matches_sync(30, "cuda"),
+               "ve_list_expiry": deferred_checks.list_expiry_replay(30, "cuda", prop="ve")}
+    emit({"phase": "deferred_checks", **dchecks, "seconds": time.perf_counter() - t0})
 
     # 10. gravity: K13 and K12 vs plain, solves and steps card vs CPU
     emit(gravity_checks())
@@ -1576,7 +1711,8 @@ def main() -> int:
     from sphexa_torch.init import init_evrard
 
     state, box, const = init_evrard(125, device="cuda")
-    evr = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda"), steps=3,
+    evr = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
+                                   obs_spec=spec), steps=3,
                 label="evrard_path")
     esim, ea = evr["sim"], evr["launches"]
     check_launches("Evrard", ea, evr["attempts"], (

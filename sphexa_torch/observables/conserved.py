@@ -13,30 +13,36 @@ from sphexa_torch.sph.particles import ParticleState, SimConstants
 
 def conserved_quantities(state: ParticleState, const: SimConstants,
                          egrav: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    m = state.m
+    """The energies and the norms of the linear and angular momentum, as
+    0-d float64 device tensors. One (9, N) float32 stack of products is
+    summed in float64: the kinetic and internal energy rows, the two-sum
+    carry ``temp_lo`` in a row of its own (added per element it would
+    round away again), and the momentum components. The step's ledger
+    (``ledger.ledger_diagnostics``) takes its energies from here."""
     f64 = torch.float64
-    egrav = (torch.zeros((), dtype=f64, device=m.device) if egrav is None
-             else egrav.to(f64))
-
-    def total(a):
-        return torch.sum(a, dtype=f64)
-
-    ekin = 0.5 * total(m * (state.vx**2 + state.vy**2 + state.vz**2))
-    # the two-sum carry is summed separately: added per element it would
-    # round away again
-    eint = total(const.cv * state.temp * m) + total(const.cv * state.temp_lo * m)
-    etot = ekin + eint + egrav
-    lin = [total(m * v) for v in (state.vx, state.vy, state.vz)]
-    ang = [
-        total(m * (state.y * state.vz - state.z * state.vy)),
-        total(m * (state.z * state.vx - state.x * state.vz)),
-        total(m * (state.x * state.vy - state.y * state.vx)),
-    ]
+    m = state.m
+    mv3 = m * torch.stack([state.vx, state.vy, state.vz])
+    rows = torch.cat([
+        (m * (state.vx**2 + state.vy**2 + state.vz**2))[None],
+        (const.cv * state.temp * m)[None],
+        (const.cv * state.temp_lo * m)[None],
+        mv3,
+        torch.linalg.cross(torch.stack([state.x, state.y, state.z]), mv3, dim=0),
+    ])
+    s = torch.sum(rows, dim=1, dtype=f64)
+    ekin = 0.5 * s[0]
+    eint = s[1] + s[2]
+    if egrav is None:
+        egrav, etot = torch.zeros((), dtype=f64, device=m.device), ekin + eint
+    else:
+        egrav = egrav.to(f64)
+        etot = ekin + eint + egrav
+    mom = torch.linalg.vector_norm(s[3:].view(2, 3), dim=1)
     return {
         "ecin": ekin,
         "eint": eint,
         "egrav": egrav,
         "etot": etot,
-        "linmom": torch.sqrt(lin[0] ** 2 + lin[1] ** 2 + lin[2] ** 2),
-        "angmom": torch.sqrt(ang[0] ** 2 + ang[1] ** 2 + ang[2] ** 2),
+        "linmom": mom[0],
+        "angmom": mom[1],
     }

@@ -1,0 +1,96 @@
+"""Observable selection and constants.txt output
+(sphexa_tpu/observables/factory.py; the reference's
+``observables/factory.hpp:46-70`` and ``iobservables.hpp``). The base row
+is iteration, time, minDt, etot, ecin, eint, egrav; case observables
+append their own columns. The observables here name the columns (and
+hold the wind bubble's thresholds): the values come from the science
+ledger computed in the step (observables/ledger.py)."""
+
+import math
+import os
+from typing import Dict, List, Optional
+
+from sphexa_torch.sph.particles import ideal_gas_cv
+
+BASE_COLUMNS = ["iteration", "time", "minDt", "etot", "ecin", "eint", "egrav"]
+
+
+def wind_shock_constants() -> Dict[str, float]:
+    """Wind-shock test-case settings (wind_shock_init.hpp
+    WindShockConstants; the JAX package's init/wind_shock.py, whose init
+    is not ported)."""
+    return {
+        "r": 0.125, "rSphere": 0.025, "rhoInt": 10.0, "rhoExt": 1.0,
+        "uExt": 1.5, "vxExt": 2.7, "vyExt": 0.0, "vzExt": 0.0,
+        "dim": 3, "gamma": 5.0 / 3.0, "minDt": 1e-10, "minDt_m1": 1e-10,
+        "Kcour": 0.4, "epsilon": 0.0, "mui": 10.0, "gravConstant": 0.0,
+        "ng0": 100, "ngmax": 150, "wind-shock": 1.0,
+    }
+
+
+class TimeAndEnergy:
+    """Default observable: energies only (time_energies.hpp)."""
+
+    extra_columns: List[str] = []
+
+
+class TimeEnergyGrowth:
+    """KH growth-rate column (time_energy_growth.hpp)."""
+
+    extra_columns = ["khGrowthRate"]
+
+
+class TurbulenceMachRMS:
+    """RMS Mach number column (turbulence_mach_rms.hpp)."""
+
+    extra_columns = ["machRMS"]
+
+
+class WindBubble:
+    """Surviving cloud-mass fraction column (wind_bubble_fraction.hpp) and
+    its thresholds."""
+
+    extra_columns = ["survivorFraction"]
+
+    def __init__(self, settings: Dict[str, float]):
+        cv = ideal_gas_cv(settings["mui"], settings["gamma"])
+        self.rho_bubble = settings["rhoInt"]
+        self.temp_wind = settings["uExt"] / cv
+        self.initial_mass = 4.0 / 3.0 * math.pi * settings["rSphere"] ** 3 * settings["rhoInt"]
+
+
+def make_observable(case: str, overrides: Optional[Dict[str, float]] = None):
+    """Observable for a test case, keyed like the reference factory
+    (factory.hpp:46-70: 'kelvin-helmholtz', 'wind-shock', 'turbulence').
+    ``overrides`` are the case's settings overrides, so threshold-bearing
+    observables match the actual setup."""
+    if case == "kelvin-helmholtz":
+        return TimeEnergyGrowth()
+    if case == "wind-shock":
+        return WindBubble(dict(wind_shock_constants(), **(overrides or {})))
+    if case == "turbulence":
+        return TurbulenceMachRMS()
+    return TimeAndEnergy()
+
+
+class ConstantsWriter:
+    """Append one observable row per iteration to constants.txt
+    (iobservables.hpp / fileutils::writeColumns), byte for byte the JAX
+    package's format. The rows are the ledger's, read by the Simulation
+    at its check or flush boundaries (``drain_science``); restart, which
+    appends to an older file, is not ported."""
+
+    def __init__(self, path: str, observable=None):
+        self.path = path
+        self.observable = observable or TimeAndEnergy()
+        self._wrote_header = os.path.exists(path) and os.path.getsize(path) > 0
+
+    def write_row(self, values) -> List[float]:
+        """Append one row (no device read here)."""
+        row = [float(v) for v in values]
+        with open(self.path, "a") as f:
+            if not self._wrote_header:
+                f.write("# " + " ".join(BASE_COLUMNS + self.observable.extra_columns) + "\n")
+                self._wrote_header = True
+            f.write(" ".join(f"{v:.10g}" for v in row) + "\n")
+        return row

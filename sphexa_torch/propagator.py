@@ -12,9 +12,11 @@ candidates and egrav the diagnostics. With persistent lists (``lists=``,
 not under gravity) a steady step runs in the order frozen at the last
 ``rebuild_pair_lists``: no regrow, no sort, no prologue; it reports the
 lists' remaining skin (``list_slack``) and whether they still cover its
-input (``list_ok``). PyTorch runs it eagerly; the pair ops launch the
-CUDA kernels on the card and their plain versions on the CPU.
-Turbulence stirring and block time steps are not ported.
+input (``list_ok``). With ``cfg.obs`` set the step tail also computes
+the science ledger (observables/ledger.py) over the post-integration
+state. PyTorch runs it eagerly; the pair ops launch the CUDA kernels on
+the card and their plain versions on the CPU. Turbulence stirring and
+block time steps are not ported.
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ import torch
 from sphexa_torch.gravity.traversal import GravityConfig, compute_gravity
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.neighbors.cell_list import NeighborConfig
+from sphexa_torch.observables.ledger import ObservableSpec, ledger_diagnostics
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import pair_engine as pe
@@ -36,6 +39,11 @@ from sphexa_torch.sph.kernels import update_h
 from sphexa_torch.sph.particles import PARTICLE_FIELDS, ParticleState, SimConstants
 from sphexa_torch.sph.positions import compute_positions
 from sphexa_torch.sph.timestep import acceleration_timestep, compute_timestep, rho_timestep
+
+#: the scalar diagnostics every step emits (``_integrate_and_finish`` is
+#: their one producer); the others (egrav, list_slack, the ledger's
+#: OBS_DIAG_KEYS / NUM_DIAG_KEYS, ...) ride along, and consumers .get() them
+STEP_DIAG_KEYS = ("dt", "nc_mean", "nc_max", "occupancy", "rho_max", "h_max")
 
 #: ``diagnostics["dt_limiter"]`` indexes this tuple
 DT_LIMITERS = ("growth", "courant", "rho", "cool", "accel")
@@ -60,6 +68,8 @@ class PropagatorConfig:
     # structure; the tree itself is the steps' ``gtree`` argument
     gravity: Optional[GravityConfig] = None
     grav_meta: Optional[GravityTreeMeta] = None
+    # the science ledger (observables/ledger.py); None = no ledger
+    obs: Optional[ObservableSpec] = None
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -176,9 +186,11 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
                           ax, ay, az, du, dt, nc, occ, rho, dt_limiter=None,
-                          extra_diag=None, extra=None
+                          extra_diag=None, extra=None, c=None
                           ) -> Tuple[ParticleState, Box, Dict[str, torch.Tensor]]:
-    """Drift/kick + PBC wrap, smoothing-length nudge, diagnostics.
+    """Drift/kick + PBC wrap, smoothing-length nudge, diagnostics: the
+    STEP_DIAG_KEYS scalars and, with ``cfg.obs``, the science ledger over
+    the post-integration state with the force stage's rho, c and egrav.
     ``extra``: further fields of the new state (the VE step's alpha)."""
     const = cfg.const
     fields = (state.x, state.y, state.z, state.x_m1, state.y_m1, state.z_m1,
@@ -205,6 +217,10 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
         "rho_max": torch.max(rho),
         "h_max": torch.max(new_h),
     }
+    if cfg.obs is not None:
+        diagnostics.update(ledger_diagnostics(
+            new_state, rho, nc, const, const.ngmax, spec=cfg.obs,
+            egrav=(extra_diag or {}).get("egrav"), box=box, c=c))
     if dt_limiter is not None:
         diagnostics["dt_limiter"] = dt_limiter
     if extra_diag:
@@ -219,12 +235,12 @@ def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
     ``lists`` a steady list-mode step; ``gtree``: the gravity tree when
     ``cfg.gravity`` is set. Returns (new_state, new_box, diagnostics)."""
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho,
-     _c, diag) = _std_forces(state, box, cfg, gtree, lists)
+     c, diag) = _std_forces(state, box, cfg, gtree, lists)
     dt = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=cfg.const)
     limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant,
                           accel=extra_dts[0] if extra_dts else None)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ,
-                                 rho, dt_limiter=limiter, extra_diag=diag)
+                                 rho, dt_limiter=limiter, extra_diag=diag, c=c)
 
 
 def _split_dvout(dvout, av_clean: bool):
@@ -245,7 +261,7 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     six ops, then the time step: min of Courant,
     Krho/|max divv|, 1.1x the previous dt [and the acceleration
     condition]. Returns (state, box, ax, ay, az, du, dt, alpha, nc, occ,
-    rho, diagnostics)."""
+    rho, c, diagnostics)."""
     const, nbr = cfg.const, cfg.nbr
     state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
@@ -274,7 +290,7 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     diag = {**(ldiag or {}),
             "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
                                       accel=extra_dts[0] if extra_dts else None)}
-    return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, diag
+    return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c, diag
 
 
 def _step_hydro_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -286,7 +302,7 @@ def _step_hydro_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
     alpha. With ``lists`` a steady list-mode step; ``gtree``: the gravity
     tree when ``cfg.gravity`` is set. Returns (new_state, new_box,
     diagnostics)."""
-    (state, box, ax, ay, az, du, dt, alpha, nc, occ, rho,
+    (state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c,
      diag) = _ve_forces(state, box, cfg, gtree, lists)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ, rho,
-                                 extra_diag=diag, extra={"alpha": alpha})
+                                 extra_diag=diag, extra={"alpha": alpha}, c=c)

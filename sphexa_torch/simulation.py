@@ -1,11 +1,13 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std and VE
 propagators on one card): static neighbour-config sizing, the gravity
-tree and its caps, the step loop with the overflow contract, the
-persistent-list lifecycle, and the energy-drift diagnostic."""
+tree and its caps, the step loop with the overflow contract, deferred
+check windows with rollback and replay, the persistent-list lifecycle,
+the science ledger's rows and watchdogs, and the driver's telemetry
+events."""
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -19,9 +21,8 @@ from sphexa_torch.gravity.tree import linkage_from_leaves
 from sphexa_torch.neighbors.cell_list import (
     NeighborConfig, choose_grid_level, pad_cap, window_cells,
 )
-from sphexa_torch.observables.conserved import conserved_quantities
 from sphexa_torch.propagator import (
-    PropagatorConfig, _step_hydro_std, _step_hydro_ve, rebuild_pair_lists,
+    DT_LIMITERS, PropagatorConfig, _step_hydro_std, _step_hydro_ve, rebuild_pair_lists,
 )
 from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
@@ -29,6 +30,8 @@ from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph.pair_engine import engine_fold
 from sphexa_torch.sph.pair_lists import estimate_slot_cap
 from sphexa_torch.sph.particles import ParticleState, SimConstants
+from sphexa_torch.state import SimState
+from sphexa_torch.telemetry import Telemetry
 
 #: engine defaults of make_propagator_config (simulation.py:142-143)
 _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
@@ -139,18 +142,29 @@ def make_propagator_config(
                             list_slot_cap=slot_cap, list_skin_rel=list_skin_rel)
 
 
+
+
 class Simulation:
-    """Owns the state and the static config; re-sizes the config when a
+    """Owns the carry and the static config; re-sizes the config when a
     step reports a cell-cap or window overflow (and replays that step from
     its input) or when the grid no longer covers the 2h radius.
 
     ``use_lists`` (the default, as in the JAX package): steady steps run
     on persistent neighbour lists, built on the first step and rebuilt
-    when their skin runs low (proactively, below ``_LIST_SLACK_REBUILD``)
-    or has run out (the step is then discarded and replayed on fresh
-    lists). Where lists are unavailable (a grid in fold mode leaves
-    ``list_slot_cap`` at 0) the steps stream, as with ``use_lists=False``;
-    each step's ``use_lists`` diagnostic says which ran.
+    when their skin runs low (proactively, below ``_LIST_SLACK_REBUILD``,
+    at a check boundary) or has run out (the step is then discarded and
+    replayed on fresh lists). Where lists are unavailable (a grid in fold
+    mode leaves ``list_slot_cap`` at 0) the steps stream, as with
+    ``use_lists=False``; each step's ``use_lists`` diagnostic says which
+    ran.
+
+    ``check_every`` > 1: deferred check windows (``step``, ``flush``).
+    ``obs_spec``: the science ledger inside the step (energies, momenta,
+    numerics health); without it the diagnostics carry no energies and
+    ``energy_drift`` stays None. ``science_rows``: keep one row per
+    verified step for ``drain_science``. ``drift_budget``: the
+    conservation-drift watchdog's limit (None: report only).
+    ``telemetry``: the registry that receives the driver's events.
 
     ``prop``: "std" or "ve" (``av_clean`` adds the VE viscosity's
     velocity-gradient correction); the list lifecycle and the overflow
@@ -173,13 +187,20 @@ class Simulation:
     def __init__(self, state: ParticleState, box: Box, const: SimConstants,
                  prop: str = "std", device=None, curve: str = "hilbert",
                  cell_target: Optional[int] = None, use_lists: bool = True,
-                 list_skin_rel: Optional[float] = None, av_clean: bool = False):
+                 list_skin_rel: Optional[float] = None, av_clean: bool = False,
+                 check_every: int = 1, obs_spec=None,
+                 telemetry: Optional[Telemetry] = None, science_rows: bool = False,
+                 drift_budget: Optional[float] = None):
         if prop not in _STEPS:
             raise NotImplementedError(f"--prop {prop!r}: not ported yet")
         self.gravity_on = const.g != 0.0
         if self.gravity_on and any(b == BoundaryType.periodic for b in box.boundaries):
             raise NotImplementedError(
                 "Ewald gravity not ported: self-gravity needs an open box")
+        # every control-flow event (reconfigure, rollback, replay, list
+        # rebuild) and step timing reports here; the instrumentation is
+        # host-only and adds no read of the card to a deferred window
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._gtree = None
         self.grav_configure_seconds = 0.0  # the last tree build and cap sizing
         self.av_clean = av_clean
@@ -192,17 +213,37 @@ class Simulation:
         self.cell_target = cell_target
         self.iteration = 0
         self.reconfigures = 0  # re-sizes after the initial one
-        self.replays = 0  # steps discarded (overflow or stale lists) and run again
+        self.replays = 0  # step launches discarded (overflow or stale lists) and run again
         self.rebuilds = 0  # list builds (mark passes), the first one included
-        self.energy_drift: Optional[float] = None
+        self.rollbacks = 0  # deferred windows rolled back to their first step
+        self.last_step_seconds = 0.0  # the last checked step, its rebuild included
+        # the science ledger: conservation and numerics-health scalars of
+        # every step, read with the other scalars at check and flush
+        # boundaries; the drift and field-health watchdogs read them there
+        self._obs_spec = obs_spec
+        self._drift_budget = None if drift_budget is None else float(drift_budget)
         self._etot0: Optional[float] = None
-        self.last_step_seconds = 0.0
+        #: |etot - etot0| / |etot0| at the last verified step
+        self.energy_drift: Optional[float] = None
+        self._collect_science = bool(science_rows)
+        self._science: list = []
         # the gravity tree is built from fresh keys: gravity steps sort
         self._want_lists = use_lists and not self.gravity_on
         self._list_skin_rel = list_skin_rel
         self._slot_margin = 1.3
         self._lists = None
-        self._configure()
+        # deferred checking (check_every > 1): the happy path launches
+        # steps with no read of the card; the scalars of the window's
+        # steps stay on the card, one packed tensor a step, and the flush
+        # reads them in one copy. The steps are functional (each builds a
+        # new state; nothing writes a state tensor in place), so the
+        # rollback point is the window's first carry, held by reference.
+        self.check_every = max(1, int(check_every))
+        self._pending: list = []  # (names, packed scalars, used lists) per launch
+        self._window_prior = None  # (SimState, iteration) at the window's start
+        self._window_t0 = None  # host stamp of the window's first launch
+        self._last_diag: Dict[str, float] = {"reconfigured": 0.0}
+        self._configure(reason="initial")
 
     @property
     def cfg(self) -> PropagatorConfig:
@@ -214,7 +255,29 @@ class Simulation:
         the first build)."""
         return self._lists
 
-    def _configure(self, min_cap: int = 0, grav_margin: float = 1.5) -> None:
+    @property
+    def sim_state(self) -> SimState:
+        """The driver's state as the carry every launch consumes and
+        returns (no aux slot is ported yet)."""
+        return SimState(particles=self.state, box=self.box)
+
+    def _set_sim_state(self, sim: SimState) -> None:
+        """Write a carry back onto the driver: the one commit point for
+        step outputs and window rollbacks."""
+        self.state = sim.particles
+        self.box = sim.box
+
+    def _configure(self, min_cap: int = 0, grav_margin: float = 1.5,
+                   reason: str = "reconfigure") -> None:
+        with self.telemetry.annotate("sphexa:reconfigure"):
+            self._configure_impl(min_cap, grav_margin)
+        # the construction-time sizing stays out of the counters
+        if reason != "initial":
+            self.reconfigures += 1
+            self.telemetry.count("reconfigures")
+        self.telemetry.event("reconfigure", it=self.iteration, reason=reason)
+
+    def _configure_impl(self, min_cap: int = 0, grav_margin: float = 1.5) -> None:
         self._lists = None  # any re-size invalidates the lists
         sizing_cache = None
         if self.gravity_on:
@@ -230,7 +293,7 @@ class Simulation:
             min_cap=min_cap, cell_target=self.cell_target,
             use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
             list_slot_margin=self._slot_margin, sizing_cache=sizing_cache)
-        self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean)
+        self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec)
         if self.gravity_on:
             self._configure_gravity(grav_margin, sizing_cache)
 
@@ -260,109 +323,357 @@ class Simulation:
         gravity)."""
         return self._gtree
 
-    def _gravity_overflowed(self, host: Dict[str, float]) -> bool:
+    def _gravity_overflowed(self, d: Dict[str, float]) -> bool:
         """An interaction list, a leaf or a superblock list outgrew its cap."""
         if not self.gravity_on:
             return False
         g = self._cfg.gravity
-        return (host["m2p_max"] > g.m2p_cap or host["p2p_max"] > g.p2p_cap
-                or host["leaf_occ"] > g.leaf_cap or host["c_max"] > g.super_cap)
+        return (d["m2p_max"] > g.m2p_cap or d["p2p_max"] > g.p2p_cap
+                or d["leaf_occ"] > g.leaf_cap or d["c_max"] > g.super_cap)
+
+    def _config_still_valid(self, d: Dict[str, float]) -> bool:
+        """The step's occupancy within the cap and the cell edge still
+        covering 2 h_max (the box edge rides the step's scalars)."""
+        nbr = self._cfg.nbr
+        if int(d["occupancy"]) > nbr.cap:
+            return False
+        return 2.0 * d["h_max"] <= d["min_length"] / (1 << nbr.level)
 
     @property
     def _use_lists(self) -> bool:
         return self._want_lists and self._cfg.list_slot_cap > 0
+
+    def _maybe_rebuild_lists(self, d: Dict[str, float]) -> None:
+        if self._use_lists and d.get("list_slack", 1.0) < self._LIST_SLACK_REBUILD:
+            self._rebuild_lists()
 
     def _rebuild_lists(self) -> None:
         """(Re)build the lists: regrow, sort, mark. Host reads: the
         overflow sentinel, and on the card the size of the list walk's
         mask-word buffer; a slot overflow grows the slot margin 1.5x and
         re-sizes, at most three times."""
+        self.telemetry.event("rebuild_lists", it=self.iteration)
         for _ in range(3):
             if not self._use_lists:
                 return  # a re-size left the grid without lists: stream
-            state, box, lists = rebuild_pair_lists(self.state, self.box, self._cfg)
-            self.rebuilds += 1
-            if not int(lists.overflow):
+            with self.telemetry.annotate("sphexa:rebuild-lists"):
+                state, box, lists = rebuild_pair_lists(self.state, self.box, self._cfg)
+                self.rebuilds += 1
+                overflow = int(lists.overflow)
+            if not overflow:
                 self.state, self.box, self._lists = state, box, lists
                 return
             self._slot_margin *= 1.5
-            self._configure()
-            self.reconfigures += 1
+            self._configure(reason="list-slot")
         raise RuntimeError("pair-list slot cap failed to converge")
 
-    def _config_still_valid(self, h_max: float, min_length: float) -> bool:
-        return 2.0 * h_max <= min_length / (1 << self._cfg.nbr.level)
-
-    def step(self) -> Dict[str, float]:
-        """Advance one step. A step whose occupancy exceeds the cap (a
-        truncated cell, or ``cap + 1`` for a blown window) is discarded,
-        the config re-sized, and the step replayed from its saved input;
-        a list-mode step whose lists no longer cover its input
-        (``list_ok`` 0) is discarded and replayed on rebuilt lists. The
-        host reads the device once per attempt, after its last kernel: the
-        diagnostics, the conserved sums and the box edge in one copy. With
-        gravity a step whose lists or leaves outgrow the caps is discarded
-        too, and the caps re-sized with a 1.5x larger margin."""
-        t0 = time.perf_counter()
-        grav_margin = 1.5
-        for _attempt in range(4):
+    # -- main loop ----------------------------------------------------------
+    def _launch(self):
+        """Run one step on the current carry, reading nothing from the
+        card (a missing list build reads its own two scalars). Returns
+        (new SimState, scalar names, the scalars packed into one (K,)
+        float64 device tensor, whether the step ran on lists)."""
+        with self.telemetry.annotate("sphexa:launch"):
             if self._use_lists and self._lists is None:
                 self._rebuild_lists()
             lists = self._lists if self._use_lists else None
             new_state, new_box, diag = self._step_fn(self.state, self.box, self._cfg,
                                                      self._gtree, lists=lists)
-            cq = conserved_quantities(new_state, self.const, egrav=diag.get("egrav"))
-            named = {**diag, **cq, "min_length": new_box.lengths.min()}
-            host = dict(zip(named, torch.stack(
-                [v.to(torch.float64) for v in named.values()]).tolist()))
-            occ = int(host["occupancy"])
-            cap = self._cfg.nbr.cap
-            if lists is not None and not int(host["list_ok"]):
+            named = {**diag, "min_length": new_box.lengths.min()}
+            # packed a dtype at a time: a stack and a conversion each,
+            # where one per scalar would add some twenty launches a step
+            by_dtype: Dict[torch.dtype, list] = {}
+            for k, v in named.items():
+                by_dtype.setdefault(v.dtype, []).append(k)
+            names = tuple(k for ks in by_dtype.values() for k in ks)
+            packed = torch.cat([torch.stack([named[k] for k in ks]).to(torch.float64)
+                                for ks in by_dtype.values()])
+        return SimState(particles=new_state, box=new_box), names, packed, lists is not None
+
+    def _fetch_scalars(self, entries) -> List[Dict[str, float]]:
+        """One device-to-host read of the scalars of every step in
+        ``entries`` ((names, packed) pairs): the packed tensors
+        concatenated and copied by one ``tolist``."""
+        flat = torch.cat([p for _, p in entries]).tolist()
+        out, i = [], 0
+        for names, _ in entries:
+            out.append(dict(zip(names, flat[i:i + len(names)])))
+            i += len(names)
+        return out
+
+    @staticmethod
+    def _lists_fresh(d: Dict[str, float]) -> bool:
+        """False when the step ran on expired lists (drift or growth ate
+        the skin before it ran): its sums may have missed neighbours, so
+        it is discarded and replayed on fresh lists, a rebuild and no
+        re-size."""
+        return int(d.get("list_ok", 1)) != 0
+
+    def _overflowed(self, d: Dict[str, float]) -> bool:
+        return (int(d["occupancy"]) > self._cfg.nbr.cap or self._gravity_overflowed(d)
+                or not self._lists_fresh(d))
+
+    def _reconfigure_after_overflow(self, d: Dict[str, float], grav_margin: float) -> None:
+        # cap + 1 is the window sentinel, not a real occupancy: a plain
+        # re-size grows the window instead of ratcheting the cap
+        occ = int(d["occupancy"])
+        cap = self._cfg.nbr.cap
+        self._configure(min_cap=0 if occ == cap + 1 or occ <= cap else occ,
+                        grav_margin=grav_margin, reason="overflow")
+
+    @staticmethod
+    def _result(d: Dict[str, float], used_lists: bool) -> Dict[str, float]:
+        result = {k: v for k, v in d.items() if k != "min_length"}
+        result["use_lists"] = float(used_lists)
+        return result
+
+    def _step_checked(self) -> Dict[str, float]:
+        """Advance one step synchronously. A step whose occupancy exceeds
+        the cap (a truncated cell, or ``cap + 1`` for a blown window) is
+        discarded, the config re-sized, and the step replayed from its
+        input; a list-mode step whose lists no longer cover its input
+        (``list_ok`` 0) is discarded and replayed on rebuilt lists; with
+        gravity a step whose lists or leaves outgrow the caps is discarded
+        too, and the caps re-sized with a 1.5x larger margin. One read of
+        the card per attempt, after its last kernel."""
+        t0 = time.perf_counter()
+        reconfigured = False
+        grav_margin = 1.5
+        for _attempt in range(4):
+            sim, names, packed, used_lists = self._launch()
+            (d,) = self._fetch_scalars([(names, packed)])
+            if not self._overflowed(d):
+                break
+            self.replays += 1
+            if not self._lists_fresh(d):
                 # stale lists: rebuild them (no re-size) and replay
                 self._rebuild_lists()
-                self.replays += 1
                 continue
-            grav_over = self._gravity_overflowed(host)
-            if occ <= cap and not grav_over:
-                break
-            if grav_over:
+            if self._gravity_overflowed(d):
                 grav_margin *= 1.5
-            # cap + 1 is the window sentinel, not a real occupancy: a plain
-            # re-size grows the window instead of ratcheting the cap
-            self._configure(min_cap=0 if occ == cap + 1 or occ <= cap else occ,
-                            grav_margin=grav_margin)
-            self.reconfigures += 1
-            self.replays += 1
+            self._reconfigure_after_overflow(d, grav_margin)
+            reconfigured = True
         else:
             raise RuntimeError("neighbour/gravity caps failed to converge in 4 attempts")
-        self.state, self.box = new_state, new_box
+        # launch to the read is the step's device span; retries count here
+        wall = time.perf_counter() - t0
+        self._set_sim_state(sim)
         self.iteration += 1
-
-        min_length = host.pop("min_length")
-        result = host
-        if self._etot0 is None and np.isfinite(result["etot"]):
-            self._etot0 = result["etot"]
-        if self._etot0 is not None:
-            self.energy_drift = abs(result["etot"] - self._etot0) / (abs(self._etot0) or 1.0)
-        result["energy_drift"] = self.energy_drift
-        result["use_lists"] = float(lists is not None)
-        result["reconfigured"] = 0.0
         # the config check first: a re-size drops the lists, so a
         # proactive rebuild before it would be wasted
-        if not self._config_still_valid(result["h_max"], min_length):
-            self._configure()
-            self.reconfigures += 1
-            result["reconfigured"] = 1.0
-        elif lists is not None and result["list_slack"] < self._LIST_SLACK_REBUILD:
-            self._rebuild_lists()
+        if not self._config_still_valid(d):
+            self._configure(reason="stale-grid")
+            reconfigured = True
+        else:
+            self._maybe_rebuild_lists(d)
+        result = self._result(d, used_lists)
+        result["reconfigured"] = float(reconfigured)
+        self.telemetry.timing("step", wall)
+        self.telemetry.event("step", it=self.iteration, wall_s=round(wall, 6),
+                             dt=result.get("dt"), reconfigured=reconfigured)
+        self._emit_science([d], [self.iteration])
+        self._last_diag = result
         self.last_step_seconds = time.perf_counter() - t0
         return result
 
-    def run(self, num_steps: int, printer=None):
-        """Advance ``num_steps`` steps; returns the last step's diagnostics."""
-        d = {}
+    def step(self) -> Dict[str, float]:
+        """Advance one step.
+
+        With ``check_every == 1`` (the default) the step is checked
+        synchronously. With ``check_every > 1`` steps launch with no read
+        of the card; every ``check_every`` steps the window's scalars are
+        read in one copy and, if a step overflowed, the simulation rolls
+        back to the window's first state and replays the window through
+        the checked path. Between check boundaries the diagnostics
+        returned are the last verified ones, marked ``{"deferred": 1.0}``.
+        """
+        if self.check_every <= 1:
+            return self._step_checked()
+        if not self._pending:
+            # the window's first launch: the flush charges the window's
+            # device time against this stamp, and only this carry is
+            # pinned for a rollback
+            self._window_t0 = time.perf_counter()
+            self._window_prior = (self.sim_state, self.iteration)
+        sim, names, packed, used_lists = self._launch()
+        self._set_sim_state(sim)
+        self.iteration += 1
+        # the happy path's telemetry is host-side only
+        self.telemetry.event("launch", it=self.iteration)
+        self._pending.append((names, packed, used_lists))
+        if len(self._pending) >= self.check_every:
+            return self.flush()
+        return {**self._last_diag, "deferred": 1.0}
+
+    def flush(self) -> Dict[str, float]:
+        """Drain the deferred window: one read of every pending step's
+        scalars; if a step overflowed or ran on expired lists, roll back to
+        the window's first state and replay the whole window through the
+        checked path (expired lists only: fresh lists and no re-size)."""
+        if not self._pending:
+            return self._last_diag
+        pending, self._pending = self._pending, []
+        prior, self._window_prior = self._window_prior, None
+        t0, self._window_t0 = self._window_t0, None
+        with self.telemetry.annotate("sphexa:flush"):
+            fetched = self._fetch_scalars([(names, packed) for names, packed, _ in pending])
+        # the read drains every launched step: this host span is the
+        # window's device time, and its mean the per-step time
+        window_wall = time.perf_counter() - t0
+        bad = next((i for i, d in enumerate(fetched) if self._overflowed(d)), None)
+        if bad is None:
+            self.telemetry.timing("step", window_wall)
+            self.telemetry.event("window", it=self.iteration, steps=len(pending),
+                                 wall_s=round(window_wall, 6),
+                                 per_step_s=round(window_wall / len(pending), 6))
+            # the ledger rides the same read: a science row for every step
+            win_its = list(range(self.iteration - len(pending) + 1, self.iteration + 1))
+            self._emit_science(fetched, win_its)
+            result = self._result(fetched[-1], pending[-1][2])
+            result["reconfigured"] = 0.0
+            self._last_diag = result
+            if not self._config_still_valid(fetched[-1]):
+                self._configure(reason="stale-grid")
+                result["reconfigured"] = 1.0
+            else:
+                self._maybe_rebuild_lists(fetched[-1])
+            return result
+        d_bad = fetched[bad]
+        expiry_only = (not self._lists_fresh(d_bad)
+                       and int(d_bad["occupancy"]) <= self._cfg.nbr.cap
+                       and not self._gravity_overflowed(d_bad))
+        self.rollbacks += 1
+        self.replays += len(pending)
+        self.telemetry.count("rollbacks")
+        self.telemetry.event("rollback", it=self.iteration, to_it=prior[1],
+                             steps=len(pending), bad_index=bad,
+                             reason="list-expiry" if expiry_only else "overflow")
+        self._set_sim_state(prior[0])
+        self.iteration = prior[1]
+        if expiry_only:
+            self._rebuild_lists()
+        else:
+            self._reconfigure_after_overflow(
+                d_bad, 1.5 * 1.5 if self._gravity_overflowed(d_bad) else 1.5)
+        for _ in range(len(pending)):
+            result = self._step_checked()
+        self.telemetry.event("replay", it=self.iteration, steps=len(pending))
+        result["reconfigured"] = 1.0
+        self._last_diag = result
+        return result
+
+    def drain_science(self) -> list:
+        """Per-step science rows (constants.txt material: it, t, dt,
+        energies, momenta, the case extra) since the last drain, one per
+        verified step in iteration order, from scalars already read.
+        Under deferral a window's rows land at its flush; a rolled-back
+        window leaves none (its replay does). Needs
+        ``Simulation(science_rows=True)``."""
+        rows, self._science = self._science, []
+        return rows
+
+    def _emit_science(self, fetched, its) -> None:
+        """At a check or flush boundary: one ``physics`` and one
+        ``numerics`` event per checked step or clean window (per-step
+        lists), the science rows, and the drift and field-health
+        watchdogs; host arithmetic on scalars already read."""
+        steps = [(it, d) for it, d in zip(its, fetched) if "obs_etot" in d]
+        if not steps:
+            return
+        tel = self.telemetry
+        rows = []
+        for it, d in steps:
+            row = {"it": int(it), "t": float(d["obs_ttot"]), "dt": float(d["dt"]),
+                   "etot": float(d["obs_etot"]), "ecin": float(d["obs_ecin"]),
+                   "eint": float(d["obs_eint"]), "egrav": float(d["obs_egrav"]),
+                   "linmom": float(d["obs_linmom"]), "angmom": float(d["obs_angmom"])}
+            if "obs_extra" in d:
+                row["extra"] = float(d["obs_extra"])
+            rows.append(row)
+        if self._collect_science:
+            self._science.extend(rows)
+        if self._etot0 is None and np.isfinite(rows[0]["etot"]):
+            self._etot0 = rows[0]["etot"]
+        payload = {k: [r[k] for r in rows]
+                   for k in ("dt", "etot", "ecin", "eint", "egrav", "linmom", "angmom")}
+        # simulated time travels as t_sim: the envelope owns "t"
+        payload["t_sim"] = [r["t"] for r in rows]
+        if all("extra" in r for r in rows):
+            payload["extra"] = [r["extra"] for r in rows]
+        tel.event("physics", it=rows[-1]["it"], steps=len(rows),
+                  its=[r["it"] for r in rows], **payload)
+
+        # numerics: limiter histogram and window-aggregate health scalars
+        lim: Dict[str, int] = {}
+        bad = {"rho": 0, "h": 0, "du": 0}
+        first_bad = None
+        for it, d in steps:
+            if "dt_limiter" in d:
+                name = DT_LIMITERS[int(d["dt_limiter"])]
+                lim[name] = lim.get(name, 0) + 1
+            step_bad = {f: int(d.get(f"n_bad_{f}", 0)) for f in bad}
+            for f in bad:
+                bad[f] = max(bad[f], step_bad[f])
+            if first_bad is None and sum(step_bad.values()) > 0:
+                first_bad = (it, step_bad)
+        ds = [d for _, d in steps]
+
+        def ext(key, fn):
+            # over the window's finite samples only: Python min/max of a
+            # NaN depends on the order; the counts report the corruption
+            arr = np.asarray([float(d.get(key, np.nan)) for d in ds])
+            finite = arr[np.isfinite(arr)]
+            return float(fn(finite)) if finite.size else float("nan")
+
+        agg = {
+            "nc_clip": max(int(d.get("n_nc_clip", 0)) for d in ds),
+            "h_sat": max(int(d.get("n_h_sat", 0)) for d in ds),
+            "rho_min": ext("rho_min", np.min),
+            "rho_max": ext("rho_max", np.max),
+            "h_min": ext("h_min", np.min),
+            "h_max": ext("h_max", np.max),
+            "du_max": ext("du_max", np.max),
+        }
+        tel.event("numerics", it=rows[-1]["it"], steps=len(rows), limiter=lim,
+                  nonfinite=bad, **agg)
+
+        # conservation-drift watchdog over every step of the window (a
+        # mid-window excursion that relaxes by the flush still fires);
+        # energy_drift is the latest verified value
+        if self._etot0 is not None:
+            denom = abs(self._etot0) or 1.0
+            drifts = [abs(r["etot"] - self._etot0) / denom for r in rows]
+            self.energy_drift = drifts[-1]
+            worst = max(range(len(rows)),
+                        key=lambda i: drifts[i] if np.isfinite(drifts[i]) else -1.0)
+            if self._drift_budget is not None and drifts[worst] > self._drift_budget:
+                tel.count("drifts")
+                tel.event("drift", it=rows[worst]["it"], drift=drifts[worst],
+                          budget=self._drift_budget, etot0=self._etot0,
+                          etot=rows[worst]["etot"])
+        # field-health watchdog: nonfinite rho/h/du, naming the first bad step
+        if first_bad is not None:
+            it_bad, step_bad = first_bad
+            tel.count("field_health")
+            tel.event("field_health", it=it_bad, nonfinite=sum(step_bad.values()),
+                      fields=step_bad,
+                      hint="re-run with the JAX package's --debug-checks to localize")
+
+    def run(self, num_steps: int, log_every: int = 0, printer=print):
+        """Advance ``num_steps`` steps, then flush the last window: the
+        state is verified before it is handed back. Every ``log_every``
+        iterations a report line goes through the telemetry's console sink
+        (else ``printer``). Returns the state."""
+        emit = self.telemetry.console_printer(printer)
+        nan = float("nan")
         for _ in range(num_steps):
             d = self.step()
-            if printer is not None:
-                printer(self.iteration, d)
-        return d
+            if log_every and self.iteration % log_every == 0:
+                if d.get("deferred"):
+                    emit(f"it {self.iteration:5d}  (deferred check)")
+                else:
+                    emit(f"it {self.iteration:5d}  t={float(self.state.ttot):.6g}  "
+                         f"dt={d.get('dt', nan):.4g}  nc~{d.get('nc_mean', nan):.1f}  "
+                         f"rho_max={d.get('rho_max', nan):.4g}")
+        self.flush()
+        return self.state

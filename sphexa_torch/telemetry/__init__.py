@@ -1,0 +1,31 @@
+"""Telemetry of the port (sphexa_tpu/telemetry, the registry and sinks):
+one registry (``Telemetry``) with pluggable sinks.
+
+- ``JsonlSink``  — ``events.jsonl`` per run, in the JAX package's event
+  schema (version 8), readable by its ``sphexa-telemetry`` CLI;
+- ``MemorySink`` — in-memory event list for tests and chip_smoke.py;
+- ``ConsoleSink``— human-readable notable-event lines.
+
+On a deferred check window (``Simulation(check_every > 1)``) the happy
+path reads nothing from the card: telemetry only stamps launches on the
+host and counts events, and the device time is attributed per window at
+``flush()``, whose one batched read already exists.
+"""
+
+from sphexa_torch.telemetry.registry import (
+    EVENT_KINDS,
+    SCHEMA_VERSION,
+    Telemetry,
+    validate_event,
+)
+from sphexa_torch.telemetry.sinks import ConsoleSink, JsonlSink, MemorySink
+
+__all__ = [
+    "Telemetry",
+    "JsonlSink",
+    "MemorySink",
+    "ConsoleSink",
+    "SCHEMA_VERSION",
+    "EVENT_KINDS",
+    "validate_event",
+]

@@ -1,0 +1,86 @@
+"""Telemetry sinks: where the event stream lands (sphexa_tpu/telemetry/sinks.py).
+
+All sinks implement ``emit(event: dict)`` and ``close()``. Events arrive
+fully materialized (plain-Python payloads — the registry coerces numpy
+scalars), so a sink never touches device arrays.
+"""
+
+import json
+import os
+from typing import Callable, List, Optional
+
+
+class MemorySink:
+    """In-memory event list (tests, bench introspection)."""
+
+    def __init__(self):
+        self.events: List[dict] = []
+
+    def emit(self, event: dict) -> None:
+        self.events.append(event)
+
+    def close(self) -> None:
+        pass
+
+    def of_kind(self, kind: str) -> List[dict]:
+        return [e for e in self.events if e.get("kind") == kind]
+
+
+class JsonlSink:
+    """JSONL event log — the persisted per-run record the
+    ``sphexa-telemetry`` CLI consumes. One event per line, flushed per
+    line so a killed run still leaves a readable prefix. The file is
+    TRUNCATED on this sink's first emit: one sink = one run, matching
+    the manifest overwrite — re-running into the same --telemetry-dir
+    must not merge two runs' samples under one manifest."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = None
+
+    def emit(self, event: dict) -> None:
+        if self._f is None:
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self._f = open(self.path, "w")
+        self._f.write(json.dumps(event, separators=(",", ":")) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+
+#: event kinds worth a human line (the exceptional-control-flow ones a
+#: console reader actually wants to see; per-step launch/phases spam is
+#: left to the JSONL record)
+_NOTABLE = ("reconfigure", "rollback", "replay", "retrace", "trace",
+            "imbalance", "drift", "field_health", "tuning")
+
+
+class ConsoleSink:
+    """Human console: renders notable events as ``# telemetry ...`` lines
+    and exposes ``write_line`` for the driver's per-iteration report
+    (Simulation.run routes through it via console_printer)."""
+
+    def __init__(self, printer: Callable = print,
+                 kinds: Optional[tuple] = _NOTABLE):
+        self._print = printer
+        self._kinds = kinds
+
+    def write_line(self, line: str) -> None:
+        self._print(line)
+
+    def emit(self, event: dict) -> None:
+        if self._kinds is not None and event.get("kind") not in self._kinds:
+            return
+        body = " ".join(
+            f"{k}={v}" for k, v in event.items()
+            if k not in ("v", "seq", "t", "kind")
+        )
+        self._print(f"# telemetry {event.get('kind')}: {body}")
+
+    def close(self) -> None:
+        pass

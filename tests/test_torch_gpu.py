@@ -562,3 +562,60 @@ def test_ve_evrard_step_matches_cpu():
     for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "alpha"):
         a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
         torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-6 * float(b.abs().max()))
+
+
+# -- deferred check windows on the card (kernels/deferred_checks.py, shared
+# with chip_smoke.py's deferred_checks phase, here at small sizes) ----------
+
+
+def test_deferred_cap_rollback_on_card():
+    """The cap forced to 8 in a window of 5 (Sedov 12): rollback, re-size
+    and replay to a clean run's state within rel 1e-6."""
+    _need_card()
+    from sphexa_torch.kernels import deferred_checks
+
+    deferred_checks.cap_rollback(12, "cuda")
+
+
+def test_deferred_h_growth_on_card():
+    """h x 4 before a window of 4 (Sedov 32, the JAX test's case): the
+    windows' kernels run on a too-small search window without a fault,
+    and the replay matches a run sized for the grown h."""
+    _need_card()
+    from sphexa_torch.kernels import deferred_checks
+
+    deferred_checks.h_growth_rollback(32, "cuda", window=4)
+
+
+def test_deferred_matches_checked_on_card():
+    """Streaming Sedov 12, check_every 4 against 1: bit for bit."""
+    _need_card()
+    from sphexa_torch.kernels import deferred_checks
+
+    deferred_checks.matches_sync(12, "cuda")
+
+
+def test_deferred_ve_list_window_replays_on_card():
+    """VE list mode (Sedov 30): a window on stale lists rolls back on
+    list-expiry and replays."""
+    _need_card()
+    from sphexa_torch.kernels import deferred_checks
+
+    deferred_checks.list_expiry_replay(30, "cuda", prop="ve")
+
+
+def test_deferred_happy_window_syncs_once_on_card():
+    """Std list mode (Sedov 30, check_every 4): a window without a list
+    build or a rollback reads the card exactly once (its flush), and its
+    launches before the flush run under the "error" sync debug mode."""
+    _need_card()
+    from sphexa_torch.kernels import deferred_checks
+    from sphexa_torch.observables import ObservableSpec
+
+    sim = Simulation(*init_sedov(30, device="cuda"), device="cuda", check_every=4,
+                     obs_spec=ObservableSpec())
+    for _ in range(4):
+        sim.step()
+    windows = [deferred_checks.window_syncs(sim) for _ in range(3)]
+    happy = [w for w in windows if not w["rebuilds"] and not w["rollbacks"]]
+    assert happy and all(w["syncs"] == 1 for w in happy), windows

@@ -26,6 +26,7 @@ from sphexa_tpu.simulation import Simulation as JaxSimulation
 from sphexa_torch.convert import state_from_numpy, state_to_numpy, tree_from_numpy
 from sphexa_torch.gravity.traversal import GravityConfig
 from sphexa_torch.init import init_evrard, init_sedov
+from sphexa_torch.observables import ObservableSpec
 from sphexa_torch.propagator import _step_hydro_std, _step_hydro_ve
 from sphexa_torch.simulation import Simulation, make_propagator_config
 
@@ -113,7 +114,8 @@ def test_simulation_ve_gravity_matches_jax():
     js, jb, jc = jax_init_evrard(14)
     jsim = JaxSimulation(js, jb, jc, prop="ve", backend="pallas", check_every=1)
     jd = [jsim.step() for _ in range(2)]
-    sim = Simulation(*init_evrard(14, device="cpu"), prop="ve", device="cpu")
+    sim = Simulation(*init_evrard(14, device="cpu"), prop="ve", device="cpu",
+                     obs_spec=ObservableSpec())
     td = [sim.step() for _ in range(2)]
     assert sim.gravity_on and sim.lists is None
     for k in ("m2p_cap", "p2p_cap", "leaf_cap", "target_block", "super_factor"):

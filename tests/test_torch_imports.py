@@ -40,7 +40,10 @@ def test_port_sources_found():
                 ("init", "gresho_chan.py"), ("init", "evrard.py"),
                 ("gravity", "traversal.py"), ("gravity", "pallas_compact.py"),
                 ("gravity", "multipole.py"), ("gravity", "tree.py"), ("gravity", "direct.py"),
-                ("parallel", "sizing.py"), ("tree", "csarray.py")):
+                ("parallel", "sizing.py"), ("tree", "csarray.py"), ("state.py",),
+                ("telemetry", "registry.py"), ("telemetry", "sinks.py"),
+                ("observables", "ledger.py"), ("observables", "extras.py"),
+                ("observables", "factory.py"), ("kernels", "deferred_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

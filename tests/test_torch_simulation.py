@@ -17,6 +17,7 @@ from sphexa_tpu.simulation import make_propagator_config as jax_config
 
 from sphexa_torch.app import main as app
 from sphexa_torch.init import init_sedov
+from sphexa_torch.observables import ObservableSpec
 from sphexa_torch.observables.conserved import conserved_quantities
 from sphexa_torch.simulation import Simulation
 
@@ -42,7 +43,7 @@ def test_five_steps_conserved_quantities():
         js, jb, _ = jax_step(js, jb, jcfg)
     cj = {k: float(v) for k, v in jax_conserved(js, jc).items()}
 
-    sim = Simulation(*init_sedov(12, device="cpu"), device="cpu")
+    sim = Simulation(*init_sedov(12, device="cpu"), device="cpu", obs_spec=ObservableSpec())
     sim.run(5)
     ct = {k: float(v) for k, v in conserved_quantities(sim.state, sim.const).items()}
     assert ct["etot"] == pytest.approx(cj["etot"], rel=1e-6)
@@ -60,10 +61,12 @@ def test_overflow_resizes_and_replays(broken):
     cap + 1 window sentinel (a window of one cell) is discarded, the
     config re-sized, and the step replayed from its saved input: the
     result equals a clean run's step exactly."""
-    ref = Simulation(*init_sedov(12, device="cpu"), device="cpu", cell_target=16)
+    ref = Simulation(*init_sedov(12, device="cpu"), device="cpu", cell_target=16,
+                     obs_spec=ObservableSpec())
     want = ref.step()
 
-    sim = Simulation(*init_sedov(12, device="cpu"), device="cpu", cell_target=16)
+    sim = Simulation(*init_sedov(12, device="cpu"), device="cpu", cell_target=16,
+                     obs_spec=ObservableSpec())
     good = sim.cfg
     field = {"cap": 8} if broken == "cap" else {"window": 1}
     sim._cfg = dataclasses.replace(good, nbr=dataclasses.replace(good.nbr, **field))
@@ -71,7 +74,7 @@ def test_overflow_resizes_and_replays(broken):
     assert sim.replays == 1 and sim.reconfigures == 1
     assert dataclasses.asdict(sim.cfg.nbr) == dataclasses.asdict(good.nbr)
     assert got["occupancy"] <= sim.cfg.nbr.cap
-    for k in ("dt", "nc_mean", "etot", "rho_max"):
+    for k in ("dt", "nc_mean", "obs_etot", "rho_max"):
         assert got[k] == want[k], k
     torch.testing.assert_close(sim.state.x, ref.state.x, rtol=0, atol=0)
     torch.testing.assert_close(sim.state.temp, ref.state.temp, rtol=0, atol=0)
@@ -96,19 +99,20 @@ def test_card_by_default():
         Simulation(*init_sedov(4, device="cpu"), prop="turb-ve", device="cpu")
 
 
-def test_cli_runs_on_cpu(capsys):
-    assert app.main(["--init", "sedov", "-n", "6", "-s", "2", "--device", "cpu"]) == 0
+def test_cli_runs_on_cpu(capsys, tmp_path):
+    out_dir = ["-o", str(tmp_path)]
+    assert app.main(["--init", "sedov", "-n", "6", "-s", "2", "--device", "cpu", *out_dir]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "etot=" in out and "nc~" in out
-    assert app.main(["--init", "noh", "-n", "8", "-s", "2", "--device", "cpu"]) == 0
+    assert app.main(["--init", "noh", "-n", "8", "-s", "2", "--device", "cpu", *out_dir]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "lists on" in out
     assert app.main(["--init", "gresho-chan", "-n", "20", "-s", "3", "--prop", "ve",
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", *out_dir]) == 0
     out = capsys.readouterr().out
     assert "it     3" in out and "drift=" in out
     assert app.main(["--init", "evrard", "-n", "12", "-s", "2", "--prop", "ve",
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", *out_dir]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "egrav=-" in out and "lists off" in out
     for argv in (["--init", "plummer", "--device", "cpu"],

@@ -28,6 +28,7 @@ from sphexa_tpu.simulation import make_propagator_config as jax_config
 
 from sphexa_torch.convert import state_from_numpy, state_to_numpy
 from sphexa_torch.init import init_noh
+from sphexa_torch.observables import ObservableSpec
 from sphexa_torch.propagator import _step_hydro_ve, rebuild_pair_lists
 from sphexa_torch.simulation import Simulation, make_propagator_config
 
@@ -139,7 +140,8 @@ def test_simulation_ve_list_mode_matches_jax():
     for _ in range(4):
         jsim.step()
     jsim.flush()
-    sim = Simulation(*init_noh(14, device="cpu"), prop="ve", device="cpu")
+    sim = Simulation(*init_noh(14, device="cpu"), prop="ve", device="cpu",
+                     obs_spec=ObservableSpec())
     diags = [sim.step() for _ in range(4)]
     assert sim.lists is not None and jsim._lists is not None
     assert sim.cfg.list_slot_cap == jsim._cfg.list_slot_cap > 0
