@@ -68,7 +68,18 @@ Phases, each printed as one JSON line:
    (``kernels/deferred_checks.py``): the cap forced to 8 (Sedov 30) and h
    x 4 before a window (Sedov 32) roll back and replay to a clean run, a
    deferred streaming run equals the checked one bit for bit (Sedov 30),
-   and a VE list-mode window on stale lists replays (Sedov 30);
+   and a VE list-mode window on stale lists replays (Sedov 30); then
+   ``io_restart``: std Sedov 100^3 in list mode to step 20, dumped (.npz
+   with the output fields, K1's density op) and read back bit for bit,
+   restarted beside the unbroken run to step 40 (its first step within
+   dt rel 1e-6 and x 1e-7, every field at step 40 within
+   ``io_checks.RESTART_BOUND`` of its scale; launch counts reset just
+   before and read just after), the output fields against their plain
+   versions (std; VE: xmass and grad-h) with one call's time, the
+   reference CI's configurations (std and VE Sedov, Noh; side 50, 200
+   steps) inside tests/test_l1_reference.py's L1 windows, and the CLI
+   restarted from the dump in a process of its own (constants.txt rows,
+   manifest, events, memory events, no blackbox);
 10. gravity vs plain: the list compaction (K13) on the JAX package's
    random cases and the widths its tiles cut, exactly; the near field
    (K12) on Evrard 20's leaf ranges, every block, in the open-box form and
@@ -1053,27 +1064,30 @@ def sm_clocks() -> dict:
 def clocks_under_load(launch, ms_each: float) -> dict:
     """``sm_clocks`` read while launches of a kernel of about ``ms_each``
     keep the card busy: enough of them are queued to last three times as
-    long as one idle reading took. Raises if the card ran dry before the
-    reading came back."""
+    long as one idle reading took, and four times as many again whenever
+    the card ran dry before the reading came back (a reading under load
+    can take longer than an idle one). Raises if it ran dry three times."""
     import torch
 
     t0 = time.perf_counter()
     idle = sm_clocks()
     latency_s = time.perf_counter() - t0
     n = max(20, int(3e3 * latency_s / ms_each) + 1)
-    torch.cuda.synchronize()
-    for _ in range(n):
-        launch()
-    drained = torch.cuda.Event()
-    drained.record()
-    busy = sm_clocks()
-    if drained.query():
-        raise AssertionError(f"the card ran dry before nvidia-smi read its clock "
-                             f"({n} launches of {ms_each:.3f} ms, one reading "
-                             f"{latency_s:.3f} s)")
-    drained.synchronize()
-    return {**busy, "launches": n, "idle_sm_mhz": idle["sm_mhz"],
-            "reading_s": latency_s}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        for _ in range(n):
+            launch()
+        drained = torch.cuda.Event()
+        drained.record()
+        busy = sm_clocks()
+        if not drained.query():
+            drained.synchronize()
+            return {**busy, "launches": n, "idle_sm_mhz": idle["sm_mhz"],
+                    "reading_s": latency_s}
+        n *= 4
+    raise AssertionError(f"the card ran dry before nvidia-smi read its clock "
+                         f"({n // 4} launches of {ms_each:.3f} ms, one idle reading "
+                         f"{latency_s:.3f} s)")
 
 
 def profile_steps(sim, steps: int, step_ms_unprofiled: float) -> dict:
@@ -1395,6 +1409,80 @@ def check_launches(label: str, launches: dict, attempts: int, on_path, rebuilds:
                              f"{rebuilds} list builds; expected {want}")
 
 
+def io_restart(spec) -> dict:
+    """Phase ``io_restart`` (``kernels/io_checks.py``): std Sedov 100^3 in
+    list mode, checked every step, to step 20, dumped (.npz, the output
+    fields through K1's density op) and read back bit for bit; restarted
+    beside the unbroken run to step 40 (and beside a run made from the
+    unbroken state in memory, which splits the difference between the
+    list rebuild and the reset two-sum carry). The launch counts are set
+    to 0 just before and read just after: K1's density op once (the
+    output fields), K5 at each list build, the three std walks of K6 at
+    every step, no other K1 op. Then the output fields against their
+    plain versions at the step-20 state (std; VE: xmass and grad-h) with
+    one call's time; the reference CI's three configurations (side 50,
+    200 steps, check_every 10) with their L1 windows, counted the same
+    way; the CLI restarted from the dump to step 30 in a process of its
+    own. Returns the report; raises on a failed check, an L1 miss after
+    the report is printed."""
+    import shutil
+
+    import torch
+
+    from sphexa_torch.analysis import output_fields
+    from sphexa_torch.kernels import io_checks
+    from sphexa_torch.sph import pair_engine as pe
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="io_restart_")
+    try:
+        torch.cuda.synchronize()
+        pe.reset_launches()
+        r = io_checks.restart_vs_unbroken("sedov", 100, "cuda", tmp, spec=spec)
+        launches = dict(pe.LAUNCHES)
+        walk = ("density_lists", "iad_lists", "momentum_energy_std_lists")
+        streaming = [k for k in launches if not k.endswith("_lists") and k not in (
+            "density", "mark")]
+        if (launches["density"] != 1 or launches["mark"] < 3
+                or any(launches[k] < 3 * (r["to_step"] - r["dump_at"]) for k in walk)
+                or any(launches[k] for k in streaming)):
+            raise AssertionError(f"io_restart: launches {launches}")
+        state, box, cfg = r.pop("restored")
+        fields = {}
+        for pipeline in ("std", "ve"):
+            fields[pipeline] = {
+                "max_abs_err": io_checks.output_fields_vs_plain(
+                    "Sedov 100 step 20", state, box, cfg, pipeline),
+                "ms": cuda_time_ms(lambda: output_fields(state, box, cfg, pipeline), reps=5),
+                "plain_ms": cuda_time_ms(
+                    lambda: output_fields(state, box, cfg, pipeline, ops="plain"), reps=1)}
+        torch.cuda.synchronize()
+        pe.reset_launches()
+        l1 = [io_checks.l1_reference(case, prop, 50, 200, "cuda")
+              for case, prop in (("sedov", "std"), ("sedov", "ve"), ("noh", "std"))]
+        l1_launches = dict(pe.LAUNCHES)
+        # the output fields: K1's density op in each run (twice in the VE
+        # run: the std estimator and xmass), grad-h once
+        if l1_launches["density"] < 4 or l1_launches["ve_def_gradh"] < 1:
+            raise AssertionError(f"io_restart L1 runs: launches {l1_launches}")
+        cli = io_checks.cli_restart(r["path"], os.path.join(tmp, "cli"), to_step=30,
+                                    device="cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for res in l1:
+        res["misses"] = io_checks.l1_misses(res)
+    r.pop("path")
+    report = {"phase": "io_restart", **r, "launches": launches,
+              "output_fields": fields, "l1_reference": l1, "l1_launches": l1_launches,
+              "cli": cli, "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    misses = [(x["case"], x["prop"], x["misses"]) for x in l1 if x["misses"]]
+    if misses:
+        raise AssertionError(f"io_restart: reference configurations outside their L1 "
+                             f"windows: {misses}")
+    return report
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1699,6 +1787,9 @@ def main() -> int:
                "matches_sync": deferred_checks.matches_sync(30, "cuda"),
                "ve_list_expiry": deferred_checks.list_expiry_replay(30, "cuda", prop="ve")}
     emit({"phase": "deferred_checks", **dchecks, "seconds": time.perf_counter() - t0})
+
+    # 9d. snapshots, restart and the analytic comparison (io_restart)
+    io_restart(spec)
 
     # 10. gravity: K13 and K12 vs plain, solves and steps card vs CPU
     emit(gravity_checks())

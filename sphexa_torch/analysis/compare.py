@@ -1,0 +1,81 @@
+"""Output fields and the L1 comparison against an analytic solution
+(sphexa_tpu/analysis/compare.py, its Pallas branch).
+
+``compute_output_fields`` is the saveFields recompute pass
+(ve_hydro.hpp:225-286): rho, p and c derived from the conserved fields
+through the pair engine in streaming mode, K1 on the card (std: the
+density op; VE: xmass, then grad-h), and u, |v| and r. ``l1_error`` is
+the reference's metric, sum |sol - sim| / N at every particle's radius
+(compare_solutions.py, compare_noh.py)."""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from sphexa_torch.propagator import PropagatorConfig, _sort_by_keys
+from sphexa_torch.sfc.box import Box
+from sphexa_torch.sph import pair_engine as pe
+from sphexa_torch.sph.hydro_std import compute_eos_std
+from sphexa_torch.sph.hydro_ve import compute_eos_ve
+from sphexa_torch.sph.particles import ParticleState
+
+#: the pair ops of the pass: the kernel wrappers (K1 on the card, the plain
+#: versions on the CPU) or the plain versions on any device
+OPS = {"kernel": (pe.pallas_density, pe.pallas_xmass, pe.pallas_ve_def_gradh),
+       "plain": (pe.density_plain, pe.xmass_plain, pe.ve_def_gradh_plain)}
+
+
+def output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                  pipeline: str = "std", ops: str = "kernel") -> Dict[str, torch.Tensor]:
+    """The output fields as tensors on the state's device, in the state's
+    particle order (the pair ops run in key order; their results are
+    scattered back, so they line up with the conserved fields a snapshot
+    writes). ``cfg``: the run's config; its neighbour config is used as
+    it is unless the state has outgrown it (a cell past the cap or a
+    group past the window), when a config is sized for this state as the
+    Simulation sizes one. ``pipeline``: the density estimator of the
+    propagator that evolved the state, "std" or "ve"."""
+    density, xmass, ve_def_gradh = OPS[ops]
+    const = cfg.const
+    ss, keys, order = _sort_by_keys(state, box, cfg.curve)
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+    nbr = cfg.nbr
+    ranges = pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
+    if int(ranges.occupancy) > nbr.cap:
+        from sphexa_torch.simulation import make_propagator_config
+
+        nbr = make_propagator_config(state, box, const, curve=cfg.curve).nbr
+        ranges = pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
+    if pipeline == "ve":
+        xm, _, _ = xmass(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
+        (kx, gradh), _ = ve_def_gradh(x, y, z, h, m, xm, keys, box, const, nbr, ranges=ranges)
+        _, c, rho, p = compute_eos_ve(ss.temp, m, kx, xm, gradh, const)
+    else:
+        rho, _, _ = density(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
+        p, c = compute_eos_std(ss.temp, rho, const)
+
+    def unsort(a):
+        out = torch.empty_like(a)
+        out[order] = a
+        return out
+
+    return {"r": torch.sqrt(state.x**2 + state.y**2 + state.z**2), "rho": unsort(rho),
+            "p": unsort(p), "u": const.cv * state.temp,
+            "vel": torch.sqrt(state.vx**2 + state.vy**2 + state.vz**2), "c": unsort(c)}
+
+
+def compute_output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                          pipeline: str = "std") -> Dict[str, np.ndarray]:
+    """The dependent output fields (rho, p, u, |v|, c) and the radii of a
+    conserved-field state, as numpy arrays in the state's particle order
+    (``output_fields``)."""
+    out = output_fields(state, box, cfg, "ve" if pipeline == "ve" else "std")
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def l1_error(sim: np.ndarray, sol: np.ndarray) -> float:
+    """Reference L1 metric: mean absolute deviation (compare_noh.py:146)."""
+    sim = np.asarray(sim, np.float64)
+    sol = np.asarray(sol, np.float64)
+    return float(np.abs(sol - sim).sum() / sim.shape[0])

@@ -6,6 +6,8 @@
     python -m sphexa_torch.app.main --init evrard -n 125 -s 5 --prop ve
     python -m sphexa_torch.app.main --init sedov -n 100 -s 100 --check-every 8 \\
         -o out --telemetry-dir out/tel
+    python -m sphexa_torch.app.main --init sedov -n 12 -s 4 -w 2 -o out
+    python -m sphexa_torch.app.main --init out/dump_sedov.h5:0 -s 6 -o out
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
@@ -14,28 +16,53 @@ a simulated time only at check boundaries (reading the time would read
 the card mid-window). ``--prop`` is std or ve; other --init / --prop
 values raise "not ported yet". Steps run on persistent neighbour lists
 wherever the grid allows them, as in the JAX CLI, which has no flag for
-it. A case with a gravitational constant (Evrard) runs self-gravity,
-whose steps sort every time. Every step's science ledger lands in
-``<outDir>/constants.txt`` (one row per step, also under deferral);
-``--telemetry-dir`` writes the driver's events to ``events.jsonl``
-there, which the JAX package's ``sphexa-telemetry summary --strict``
-reads. Runs on the CUDA device unless ``--device cpu`` is given, and
-raises without one.
+it. A case with a gravitational constant (Evrard, or ``--G``) runs
+self-gravity, whose steps sort every time. Every step's science ledger
+lands in ``<outDir>/constants.txt`` (one row per step, also under
+deferral).
+
+Dumps: ``-w`` (an integer: every N iterations; a float: every simulated
+time interval) and ``--wextra`` (one-shot iterations or times) append a
+restartable ``Step#n`` to ``<outDir>/dump_<case>.h5`` (h5py needed, as in
+the JAX CLI), with the output fields (rho, p, u, vel, c, r; ``-f`` picks
+some) recomputed by the pair engine; ``--ascii`` writes text columns
+instead (not restartable). ``--duration`` ends the run after that many
+wall seconds, with a final dump when dumps are on. ``--init
+<dump>[:step]`` restarts from a dump (the JAX package's too, ``.h5`` or
+``.npz``): the iteration count continues (an integer ``-s`` is the end
+iteration), the case and its settings come from the dump, dumps append
+to the case's file and ``constants.txt`` loses its rows past the
+restart point. ``--init <dump>,N`` up-samples a dump N-fold, ``--init
+case:settings.json`` overrides a case's settings.
+
+``--telemetry-dir`` writes the run directory the JAX package's
+``sphexa-telemetry`` reads: ``manifest.json``, ``events.jsonl`` (the
+driver's events and the memory events), and on an abnormal end
+``blackbox.json`` (the flight recorder). Runs on the CUDA device unless
+``--device cpu`` is given, and raises without one.
 """
 
 import argparse
+import dataclasses
+import glob
+import json
 import os
 import sys
 import time
 from typing import List, Optional
 
-from sphexa_torch.init import init_evrard, init_gresho_chan, init_noh, init_sedov
-from sphexa_torch.observables import ConstantsWriter, make_observable, make_observable_spec
-from sphexa_torch.simulation import Simulation
-from sphexa_torch.telemetry import JsonlSink, Telemetry
+import numpy as np
 
-_INITS = {"sedov": init_sedov, "noh": init_noh, "gresho-chan": init_gresho_chan,
-          "evrard": init_evrard}
+from sphexa_torch.analysis import compute_output_fields
+from sphexa_torch.init import CASES, make_initializer, split_case_spec
+from sphexa_torch.init.file_init import looks_like_file, parse_file_spec
+from sphexa_torch.io import read_snapshot_full, write_ascii, write_snapshot
+from sphexa_torch.io.snapshot import CONSERVED_FIELDS, _find_parts
+from sphexa_torch.observables import ConstantsWriter, make_observable, make_observable_spec
+from sphexa_torch.simulation import _STEPS, Simulation
+from sphexa_torch.telemetry import (
+    FlightRecorder, JsonlSink, Telemetry, emit_memory_event, write_manifest,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,16 +71,38 @@ def build_parser() -> argparse.ArgumentParser:
         description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std and VE SPH, self-gravity)",
     )
     p.add_argument("--init", default="sedov",
-                   help="test case name (sedov, noh, gresho-chan, evrard)")
+                   help="test case name (sedov, noh, gresho-chan, evrard), "
+                        "case:settings.json, a dump to restart from (path[:step]) "
+                        "or path,N to up-sample one")
     p.add_argument("-n", type=int, default=50, dest="side",
                    help="particles per cube side (N = n^3)")
     p.add_argument("-s", type=float, default=10, dest="stop",
-                   help="integer: number of iterations; float: simulated time")
+                   help="integer: number of iterations (on restart: the end "
+                        "iteration); float: simulated time")
+    p.add_argument("-w", type=float, default=-1, dest="write_every",
+                   help="integer: dump every N iterations; float: every t interval")
+    p.add_argument("-f", default="", dest="out_fields",
+                   help="output fields to dump besides the conserved ones "
+                        "(comma-separated; default all)")
     p.add_argument("-o", "--outDir", default=".", dest="out_dir",
-                   help="output directory (constants.txt)")
+                   help="output directory (constants.txt, dumps)")
     p.add_argument("--prop", default="std", help="propagator (std, ve)")
     p.add_argument("--avclean", action="store_true",
                    help="VE: the velocity-gradient correction of the viscosity")
+    p.add_argument("--G", type=float, default=None, dest="grav_constant",
+                   help="gravitational constant override (enables gravity)")
+    p.add_argument("--sym-pairs", default=None, choices=("on", "off"), dest="sym_pairs",
+                   help="momentum/energy pair-cutoff convention: on = min-h symmetric "
+                        "(default), off = the reference's one-sided; overrides the "
+                        "snapshot's symPairs attribute")
+    p.add_argument("--wextra", default="",
+                   help="comma-separated extra output triggers: integers = "
+                        "iterations, floats = simulation times")
+    p.add_argument("--ascii", action="store_true",
+                   help="dump ASCII columns instead of HDF5 (not restartable)")
+    p.add_argument("--duration", type=float, default=None,
+                   help="maximum wall-clock run time in seconds; dumps a final "
+                        "snapshot before exiting if dumps are on")
     p.add_argument("--check-every", type=int, default=1, dest="check_every",
                    help="deferred check window: launch N steps with no read of the "
                         "card, check their diagnostics in one read at the window's "
@@ -64,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "|etot-etot0|/|etot0| (telemetry 'drift' events; default: "
                         "report only)")
     p.add_argument("--telemetry-dir", default=None, dest="telemetry_dir",
-                   help="write the run's telemetry events to <dir>/events.jsonl")
+                   help="write the run directory (manifest.json, events.jsonl, and "
+                        "blackbox.json on an abnormal end) to this directory")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' (plain PyTorch versions)")
     p.add_argument("--quiet", action="store_true")
@@ -73,34 +123,141 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.init not in _INITS:
-        raise NotImplementedError(f"--init {args.init!r}: not ported yet")
+    if args.prop not in _STEPS:
+        raise NotImplementedError(f"--prop {args.prop!r}: not ported yet")
     nan = float("nan")
 
     def log(line: str) -> None:
         if not args.quiet:
             print(line, flush=True)
 
-    state, box, const = _INITS[args.init](args.side, device=args.device)
+    # 'case:settings.json' selects the case with overrides; observables key
+    # on the bare case name, with the overrides applied to their thresholds
+    case_name, settings_path = split_case_spec(args.init)
+    case_overrides = None
+    if settings_path is not None:
+        try:
+            with open(settings_path) as f:
+                case_overrides = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"cannot read settings file {settings_path}: {e}", file=sys.stderr)
+            return 2
+        if not isinstance(case_overrides, dict):
+            print(f"{settings_path} must hold a JSON object", file=sys.stderr)
+            return 2
+    # built-in case names take precedence over same-named files, as in
+    # make_initializer; a restart reads the snapshot once
+    is_restart = args.init not in CASES and looks_like_file(args.init)
+    restart_iteration = 0
+    if is_restart:
+        state, box, const, _extra, attrs = read_snapshot_full(
+            *parse_file_spec(args.init), device=args.device)
+        restart_iteration = int(attrs.get("iteration", 0))
+        case_name = np.asarray(attrs["initCase"]).item().decode() if "initCase" in attrs else ""
+        if case_overrides is None and "caseSettings" in attrs:
+            # threshold-bearing observables see the original run's overrides
+            case_overrides = json.loads(np.asarray(attrs["caseSettings"]).item().decode())
+    else:
+        try:
+            initializer = make_initializer(args.init)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 2
+        state, box, const = initializer(args.side, device=args.device)
+    if args.grav_constant is not None:
+        const = dataclasses.replace(const, g=args.grav_constant)
+    if args.sym_pairs is not None:
+        const = dataclasses.replace(const, sym_pairs=(args.sym_pairs == "on"))
+
     # the observable names the constants.txt columns; the values come
     # from the step's ledger (the matching ObservableSpec)
-    observable = make_observable(args.init)
-    sinks = []
+    observable = make_observable(case_name, overrides=case_overrides)
+    sinks, recorder = [], None
     if args.telemetry_dir:
         sinks.append(JsonlSink(os.path.join(args.telemetry_dir, "events.jsonl")))
     telemetry = Telemetry(sinks=sinks)
-    sim = Simulation(state, box, const, prop=args.prop, device=args.device,
-                     av_clean=args.avclean, check_every=args.check_every,
-                     obs_spec=make_observable_spec(args.init), telemetry=telemetry,
-                     science_rows=True, drift_budget=args.drift_budget)
+    if args.telemetry_dir:
+        # the flight recorder explains a run whose events end early
+        recorder = FlightRecorder(args.telemetry_dir, telemetry=telemetry)
+        telemetry.sinks.append(recorder.sink)
+        recorder.install()
+    try:
+        sim = Simulation(state, box, const, prop=args.prop, device=args.device,
+                         av_clean=args.avclean, check_every=args.check_every,
+                         obs_spec=make_observable_spec(case_name, overrides=case_overrides),
+                         telemetry=telemetry, science_rows=True,
+                         drift_budget=args.drift_budget)
+    except (NotImplementedError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        if recorder is not None:
+            # a run that cannot even start ends abnormally: a blackbox names the cause
+            recorder.dump(reason=f"simulation construction failed: {e}")
+            recorder.close()
+        return 2
+    if args.telemetry_dir:
+        recorder.manifest = write_manifest(
+            args.telemetry_dir,
+            config={k: v for k, v in vars(args).items()
+                    if isinstance(v, (str, int, float, bool, type(None)))},
+            particles=state.n, device=sim.device,
+            extra={"case": case_name or args.init, "prop": args.prop})
+        # the baseline the post-compile and flush snapshots are read against
+        emit_memory_event(telemetry, "manifest", devices=[sim.device])
+        log(f"# telemetry -> {args.telemetry_dir}")
+    if is_restart:
+        # the iteration numbering continues; an integer -s is the end iteration
+        sim.iteration = restart_iteration
+        log(f"# restart from iteration {sim.iteration}, t={float(state.ttot):.6g}"
+            + (f" (case {case_name})" if case_name else ""))
     num_steps = int(args.stop) if float(args.stop).is_integer() else None
     target_time = None if num_steps is not None else float(args.stop)
 
     os.makedirs(args.out_dir, exist_ok=True)
+    dump_path = None
+    w = args.write_every
+    w_steps = int(w) if w > 0 and float(w).is_integer() else None
+    w_time = w if w > 0 and w_steps is None else None
+    next_dump_time = [float(state.ttot) + w_time] if w_time else None
+    if w > 0 or args.wextra:
+        # a restart keeps dumping under the original case's name (Step#n
+        # groups appended to the restarted file)
+        tag_src = case_name if (is_restart and case_name) else args.init
+        case_tag = "".join(c if c.isalnum() else "_" for c in tag_src)
+        dump_path = f"{args.out_dir}/dump_{case_tag}.{'txt' if args.ascii else 'h5'}"
+        # a previous run's leftovers would interleave their steps with ours
+        if args.ascii:
+            stale = glob.glob(f"{args.out_dir}/dump_{case_tag}_it*.txt")
+        elif not is_restart:
+            stale = ([dump_path] if os.path.exists(dump_path) else []) + _find_parts(dump_path)
+        else:
+            stale = []
+        for f in stale:
+            print(f"# removing stale {f}", file=sys.stderr)
+            os.remove(f)
+    want_fields = [f for f in args.out_fields.split(",") if f]
+
+    # --wextra: one-shot triggers, integers = iterations, floats = times
+    wextra_steps, wextra_times = set(), []
+    for tok in (t for t in args.wextra.split(",") if t):
+        try:
+            val = float(tok)
+        except ValueError:
+            print(f"--wextra: cannot parse {tok!r} (expected comma-separated "
+                  "integers or floats)", file=sys.stderr)
+            if recorder is not None:
+                recorder.close()  # a usage error, not a crash: no blackbox
+            return 2
+        if val.is_integer() and "." not in tok:
+            wextra_steps.add(int(val))
+        else:
+            wextra_times.append(val)
+    wextra_times.sort()
+
     constants_path = os.path.join(args.out_dir, "constants.txt")
-    if os.path.exists(constants_path):
+    if not is_restart and os.path.exists(constants_path):
         os.remove(constants_path)
-    constants = ConstantsWriter(constants_path, observable)
+    constants = ConstantsWriter(constants_path, observable,
+                                restart_iteration=restart_iteration if is_restart else None)
 
     def write_science_rows():
         """The verified ledger rows into constants.txt, one per step (a
@@ -111,18 +268,74 @@ def main(argv: Optional[List[str]] = None) -> int:
                                  r["egrav"]] + ([r["extra"]] if "extra" in r else []))
         return rows
 
+    last_dump_iteration = [None]
+
+    def dump_now(it):
+        """One output: a restartable snapshot, or text columns with
+        --ascii; the derived fields recomputed by the propagator's own
+        density estimator."""
+        last_dump_iteration[0] = it
+        extra = compute_output_fields(sim.state, sim.box, sim.cfg,
+                                      pipeline="ve" if args.prop == "ve" else "std")
+        if want_fields:
+            unknown = [f for f in want_fields if f not in extra]
+            if unknown:
+                print(f"# -f fields not available, skipped: {unknown}", file=sys.stderr)
+            extra = {k: v for k, v in extra.items() if k in want_fields}
+        if args.ascii:
+            cols = {f: getattr(sim.state, f) for f in CONSERVED_FIELDS}
+            cols.update(extra)
+            path = dump_path.replace(".txt", f"_it{it}.txt")
+            write_ascii(path, cols)
+            log(f"# wrote ASCII dump -> {path} (not restartable)")
+            return
+        step = write_snapshot(dump_path, sim.state, sim.box, sim.const, iteration=it,
+                              extra_fields=extra, case=case_name,
+                              case_settings=case_overrides)
+        log(f"# wrote Step#{step} -> {dump_path}")
+
+    def maybe_dump(it):
+        """The -w schedule and the --wextra triggers."""
+        if dump_path is None:
+            return
+        t_now = float(sim.state.ttot)
+        due = (w_steps is not None and it % w_steps == 0) or (
+            next_dump_time is not None and t_now >= next_dump_time[0])
+        if it in wextra_steps:
+            due = True
+        while wextra_times and t_now >= wextra_times[0]:
+            wextra_times.pop(0)
+            due = True
+        if not due:
+            return
+        if next_dump_time is not None:
+            # one dump for a step that crosses several intervals
+            while t_now >= next_dump_time[0]:
+                next_dump_time[0] += w_time
+        dump_now(it)
+
     t0 = time.time()
+    it0 = sim.iteration
     while True:
         d = sim.step()
         it = sim.iteration
         if d.get("deferred"):
             # mid-window: nothing may read the card here, so only the
-            # iteration count ends the run before the window's flush
+            # iteration count and the wall clock end the run before the
+            # window's flush
             log(f"it {it:5d}  (deferred check)")
             if num_steps is not None and it >= num_steps:
                 break
+            if args.duration is not None and time.time() - t0 >= args.duration:
+                log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
+                sim.flush()  # verify the window and land its rows
+                write_science_rows()
+                if dump_path is not None and last_dump_iteration[0] != it:
+                    dump_now(it)
+                break
             continue
         rows = write_science_rows()
+        maybe_dump(it)
         r = rows[-1] if rows else {}
         drift = sim.energy_drift if sim.energy_drift is not None else nan
         log(f"it {it:5d}  t={r.get('t', nan):.6g}  dt={d.get('dt', nan):.4g}  "
@@ -134,13 +347,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             break
         if target_time is not None and float(sim.state.ttot) >= target_time:
             break
+        if args.duration is not None and time.time() - t0 >= args.duration:
+            # the wall-clock cutoff leaves a final restartable dump
+            log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
+            if dump_path is not None and last_dump_iteration[0] != it:
+                dump_now(it)
+            break
     # the last open window is verified, and its rows land, before the report
     sim.flush()
     write_science_rows()
     wall = time.time() - t0
-    telemetry.event("run_end", iterations=sim.iteration, wall_s=round(wall, 3))
+    n_done = sim.iteration - it0
+    telemetry.event("run_end", iterations=n_done, wall_s=round(wall, 3))
     telemetry.close()
-    log(f"# {sim.iteration} steps on {sim.device}, {state.n} particles, "
+    if recorder is not None:
+        recorder.close()  # a clean exit: the hooks disarmed, no blackbox
+    log(f"# {n_done} steps on {sim.device}, {state.n} particles, "
         f"lists {'on' if sim.lists is not None else 'off'} "
         f"({sim.rebuilds} builds), reconfigures {sim.reconfigures}, "
         f"rollbacks {sim.rollbacks}, energy drift {sim.energy_drift}")

@@ -77,13 +77,28 @@ class ConstantsWriter:
     """Append one observable row per iteration to constants.txt
     (iobservables.hpp / fileutils::writeColumns), byte for byte the JAX
     package's format. The rows are the ledger's, read by the Simulation
-    at its check or flush boundaries (``drain_science``); restart, which
-    appends to an older file, is not ported."""
+    at its check or flush boundaries (``drain_science``).
+    ``restart_iteration``: a restarted run appends to the file it finds,
+    after dropping the rows past that iteration."""
 
-    def __init__(self, path: str, observable=None):
+    def __init__(self, path: str, observable=None, restart_iteration: Optional[int] = None):
         self.path = path
         self.observable = observable or TimeAndEnergy()
+        # appending to an existing file (restart) writes no second header
         self._wrote_header = os.path.exists(path) and os.path.getsize(path) > 0
+        if restart_iteration is not None and self._wrote_header:
+            self._truncate_after(restart_iteration)
+
+    def _truncate_after(self, iteration: int) -> None:
+        """Drop the rows with iteration > the restart point, so that a run
+        resumed from an older dump leaves a monotonic series."""
+        with open(self.path) as f:
+            lines = f.readlines()
+        kept = [ln for ln in lines
+                if ln.startswith("#") or not ln.strip() or float(ln.split()[0]) <= iteration]
+        if len(kept) != len(lines):
+            with open(self.path, "w") as f:
+                f.writelines(kept)
 
     def write_row(self, values) -> List[float]:
         """Append one row (no device read here)."""

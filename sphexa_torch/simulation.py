@@ -31,7 +31,7 @@ from sphexa_torch.sph.pair_engine import engine_fold
 from sphexa_torch.sph.pair_lists import estimate_slot_cap
 from sphexa_torch.sph.particles import ParticleState, SimConstants
 from sphexa_torch.state import SimState
-from sphexa_torch.telemetry import Telemetry
+from sphexa_torch.telemetry import Telemetry, emit_memory_event
 
 #: engine defaults of make_propagator_config (simulation.py:142-143)
 _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
@@ -243,6 +243,7 @@ class Simulation:
         self._window_prior = None  # (SimState, iteration) at the window's start
         self._window_t0 = None  # host stamp of the window's first launch
         self._last_diag: Dict[str, float] = {"reconfigured": 0.0}
+        self._mem_post_compile = False  # the "post-compile" memory event went out
         self._configure(reason="initial")
 
     @property
@@ -472,6 +473,7 @@ class Simulation:
         self.telemetry.event("step", it=self.iteration, wall_s=round(wall, 6),
                              dt=result.get("dt"), reconfigured=reconfigured)
         self._emit_science([d], [self.iteration])
+        self._emit_memory("post-compile")
         self._last_diag = result
         self.last_step_seconds = time.perf_counter() - t0
         return result
@@ -529,6 +531,8 @@ class Simulation:
             # the ledger rides the same read: a science row for every step
             win_its = list(range(self.iteration - len(pending) + 1, self.iteration + 1))
             self._emit_science(fetched, win_its)
+            self._emit_memory("post-compile")
+            self._emit_memory("flush")
             result = self._result(fetched[-1], pending[-1][2])
             result["reconfigured"] = 0.0
             self._last_diag = result
@@ -561,6 +565,16 @@ class Simulation:
         result["reconfigured"] = 1.0
         self._last_diag = result
         return result
+
+    def _emit_memory(self, point: str) -> None:
+        """A ``memory`` event (telemetry/memory.py: the allocator's host
+        counters, no read of the card): "post-compile" once, after the
+        first verified step or window; "flush" at every clean flush."""
+        if point == "post-compile":
+            if self._mem_post_compile:
+                return
+            self._mem_post_compile = True
+        emit_memory_event(self.telemetry, point, devices=[self.device], it=self.iteration)
 
     def drain_science(self) -> list:
         """Per-step science rows (constants.txt material: it, t, dt,

@@ -43,7 +43,13 @@ def test_port_sources_found():
                 ("parallel", "sizing.py"), ("tree", "csarray.py"), ("state.py",),
                 ("telemetry", "registry.py"), ("telemetry", "sinks.py"),
                 ("observables", "ledger.py"), ("observables", "extras.py"),
-                ("observables", "factory.py"), ("kernels", "deferred_checks.py")):
+                ("observables", "factory.py"), ("kernels", "deferred_checks.py"),
+                ("io", "snapshot.py"), ("io", "__init__.py"), ("init", "file_init.py"),
+                ("init", "__init__.py"), ("analysis", "compare.py"), ("analysis", "sedov.py"),
+                ("analysis", "noh.py"), ("analysis", "gresho_chan.py"),
+                ("analysis", "evrard.py"), ("analysis", "__init__.py"),
+                ("telemetry", "manifest.py"), ("telemetry", "flightrec.py"),
+                ("telemetry", "memory.py"), ("app", "main.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
