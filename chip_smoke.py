@@ -103,12 +103,30 @@ Phases, each printed as one JSON line:
    torch.sort of the same rows; the near field's candidates per block
    (mean, 99th percentile, max) and K13's shapes;
 
+12. spherical multipoles: open-box solves at the Evrard path's state with
+   the cartesian quadrupole and orders 4 and 6, each timed and held
+   against direct summation (order 4 closer than the quadrupole);
+13. the N-body path: Simulation(prop="nbody") on the 10^6-particle
+   Plummer sphere and on Evrard 125, one warm-up and three timed steps
+   each (counts reset just before, read just after: K12 once and K13
+   twice per step attempt), host syncs, gravity phases, forces against
+   direct summation, K12 and K13 against their plain versions at the
+   state; the CLI's ``--init evrard -n 125 --prop nbody``;
+14. Ewald periodic gravity: std Sedov 100^3 with G = 0.5, one warm-up and
+   two timed steps (the SPH ops once, K12 27 times and K13 54 times per
+   step attempt), the solve's split (the 27 replica passes, the real-space
+   and k-space corrections) and the corrections' peak memory, K12 with a
+   shift and the self pair against its plain version, Sedov 16 with G =
+   0.5 stepped on the card against the CPU, and one periodic solve card
+   vs CPU on 4,096 random particles (``checks.ewald_vs_cpu``);
+
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
 SM, and on the side-100 states its times and the body-pass efficiency of
 the union rule against per-lane windows; K12's the same at Evrard 125,
 K5's at side 100),
-the {"kernels": [...]} line, the nvidia-smi line, and as the last line
+the {"kernels": [...]} line (K12's and K13's launches on every gravity
+path beside the Evrard path's), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
 without the rest of the repository beside it, it fails the same way.
@@ -823,7 +841,7 @@ def mark_bound(n: int, ng: int, w3: int, scap: int, lanes: int) -> dict:
 
 
 def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str = "std",
-                 case: str = "sedov") -> dict:
+                 case: str = "sedov", overrides=None) -> dict:
     """Simulation steps on the card against the same steps on the CPU (the
     pair ops' plain versions there), every step from the same input; the
     accelerations' tolerance (rtol 1e-4, the VE ops' 2e-4; atol 5e-6
@@ -842,8 +860,8 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
     rtol = 1e-4 if prop == "std" else 2e-4
     kw = {"cell_target": cell_target, "use_lists": use_lists, "prop": prop,
           "obs_spec": ObservableSpec()}
-    gpu = Simulation(*init(side, device="cuda"), device="cuda", **kw)
-    cpu = Simulation(*init(side, device="cpu"), device="cpu", **kw)
+    gpu = Simulation(*init(side, overrides=overrides, device="cuda"), device="cuda", **kw)
+    cpu = Simulation(*init(side, overrides=overrides, device="cpu"), device="cpu", **kw)
     worst = 0.0
     for it in range(steps):
         cpu.state, cpu.box = gpu.state.to("cpu"), gpu.box.to("cpu")
@@ -869,6 +887,7 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
             "fold": fold, "rebuilds": [gpu.rebuilds, cpu.rebuilds],
             "steps": steps, "max_abs_err_over_scale": worst,
             "energy_drift_gpu": gpu.energy_drift, "energy_drift_cpu": cpu.energy_drift,
+            "ewald": gpu.ewald_on, "overrides": overrides,
             **({"m2p_max": [dg["m2p_max"], dc["m2p_max"]],
                 "p2p_max": [dg["p2p_max"], dc["p2p_max"]]} if gpu.gravity_on else {})}
 
@@ -958,14 +977,17 @@ def gravity_phase_times(sim, reps: int = 3) -> dict:
     """One gravity solve on the path's current sorted state, its phases
     timed by CUDA events (median of ``reps`` solves): multipoles, MAC with
     the K13 compactions, M2P, the near-field prologue (the leaf ranges),
-    K12."""
+    K12; an Ewald solve's phases summed over its replica passes, then its
+    real-space and k-space corrections."""
     import torch
 
     from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.gravity.ewald import compute_gravity_ewald
     from sphexa_torch.propagator import _force_stage_prologue
 
     ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
     cfg = dataclasses.replace(sim.cfg.gravity, G=sim.const.g)
+    args = (ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree, sim.cfg.grav_meta, cfg)
     runs, out = [], None
     for _ in range(reps):
         marks = []
@@ -976,11 +998,15 @@ def gravity_phase_times(sim, reps: int = 3) -> dict:
             marks.append((name, e))
 
         mark("start")
-        out = gt.compute_gravity(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree,
-                                 sim.cfg.grav_meta, cfg, timer=mark)
+        if sim.cfg.ewald is not None:
+            out = compute_gravity_ewald(*args, sim.cfg.ewald, timer=mark)
+        else:
+            out = gt.compute_gravity(*args, timer=mark)
         torch.cuda.synchronize()
-        runs.append({marks[i][0]: marks[i - 1][1].elapsed_time(marks[i][1])
-                     for i in range(1, len(marks))})
+        run = collections.defaultdict(float)
+        for i in range(1, len(marks)):
+            run[marks[i][0]] += marks[i - 1][1].elapsed_time(marks[i][1])
+        runs.append(run)
     ms = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     return {"ms": ms, "solve_ms": sum(ms.values())}, (ss, box, keys, cfg, out)
 
@@ -1134,12 +1160,13 @@ def profile_steps(sim, steps: int, step_ms_unprofiled: float) -> dict:
             "top_device_ms_per_step": [[k[:60], v[0], v[1] / steps] for k, v in top]}
 
 
-def drive(make_sim, steps: int, label: str) -> dict:
+def drive(make_sim, steps: int, label: str, drift_bound=1e-3) -> dict:
     """Drive one path of the port through its entry points: the launch
     counts are set to 0 just before the Simulation is made, then one
     warm-up step (on the list path: the first list build) and ``steps``
     timed steps, and the counts are read just after. Checks that the run
-    conserves energy (drift < 1e-3) and stays finite."""
+    conserves energy (drift < ``drift_bound``; None: a finite drift) and
+    stays finite."""
     import torch
 
     from sphexa_torch.sph import pair_engine as pe
@@ -1162,7 +1189,8 @@ def drive(make_sim, steps: int, label: str) -> dict:
     launches = dict(pe.LAUNCHES)
     attempts = 1 + steps + sim.replays
     drift = sim.energy_drift
-    if drift is None or not drift == drift or abs(drift) >= 1e-3:
+    if drift is None or not drift == drift or (drift_bound is not None
+                                                 and abs(drift) >= drift_bound):
         raise AssertionError(f"{label}: energy drift {drift}")
     last = diags[-1]
     for k in ("dt", "nc_mean", "rho_max", "h_max", "obs_etot"):
@@ -1394,16 +1422,19 @@ def engine_entries(specs: dict, at: dict, passes: dict, report: dict, engine: st
 
 
 def check_launches(label: str, launches: dict, attempts: int, on_path, rebuilds: int = 0,
-                   compactions: int = 0) -> None:
+                   compactions: int = 0, passes: int = 1) -> None:
     """The launch contract of a driven path: each pair-engine entry point
     of ``on_path`` once per step attempt and every other one never (in
     list mode every SPH op runs the list walk, K1 not at all), the mark
-    pass once per list build, the gravity compaction ``compactions`` times
-    per attempt."""
+    pass once per list build; the gravity near field K12 once per solve
+    pass (``passes`` per attempt: an Ewald solve's replicas) and the
+    compaction ``compactions`` times per pass."""
     want = {k: 0 for k in launches}
     want.update({k: attempts for k in on_path})
+    if "gravity_p2p" in on_path:
+        want["gravity_p2p"] = passes * attempts
     want["mark"] = rebuilds
-    want["compact_class_lists"] = compactions * attempts
+    want["compact_class_lists"] = compactions * passes * attempts
     if launches != want or (rebuilds == 0 and any(k.endswith("_lists") for k in on_path)):
         raise AssertionError(f"{label}: launches {launches} in {attempts} step attempts with "
                              f"{rebuilds} list builds; expected {want}")
@@ -1481,6 +1512,245 @@ def io_restart(spec) -> dict:
         raise AssertionError(f"io_restart: reference configurations outside their L1 "
                              f"windows: {misses}")
     return report
+
+
+def path_gravity_kernels(label: str, ss, keys, box, sim, cfg, shift=None,
+                         allow_self: bool = False) -> dict:
+    """K12 and K13 at a gravity path's sorted state (one solve pass; with
+    ``shift`` a replica pass of Ewald's, its targets shifted and the self
+    pair as ``allow_self``), each against its plain version: K12 on 256
+    target blocks spread over those with near-field work, K13 on both of
+    the pass's packed arrays, exactly; each kernel's one-call time and its
+    own time launched back to back (the launches made here count in no
+    path)."""
+    import torch
+
+    from sphexa_torch.gravity import pallas_compact as pcmp
+    from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.kernels import checks
+
+    meta = sim.cfg.grav_meta
+    starts, lens, cls = checks.near_field_ranges(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                                 meta, cfg, keep_packed=True, shift=shift)
+    busy = torch.nonzero(lens.sum(dim=1) > 0).flatten()
+    if busy.numel() == 0:
+        raise AssertionError(f"{label}: no target block has near-field work")
+    pick = torch.linspace(0, busy.numel() - 1, min(256, busy.numel()), device=busy.device)
+    groups = busy[pick.round().long()]
+    sh = None if shift is None else tuple(float(v) for v in shift)
+    p2p = checks.p2p_vs_plain(label, ss.x, ss.y, ss.z, ss.m, ss.h, cfg, starts, lens,
+                              groups=groups, shift=sh, allow_self=allow_self)
+    z3 = shift if shift is not None else torch.zeros(3, device="cuda")
+    args = (ss.x, ss.y, ss.z, ss.m, ss.h, z3, allow_self, cfg, starts, lens)
+    p2p["ms"] = cuda_time_ms(lambda: gt._pallas_p2p(*args), reps=5)
+    p2p["kernel_ms"] = launch_loop_ms(gt.p2p_launcher(*args)[0], 10)
+    p2p["busy_blocks"] = int(busy.numel())
+    packed = cls["packed"]
+    comp = {"checks": [checks.compact_vs_plain(f"{label} compaction {i}", *pk)
+                       for i, pk in enumerate(packed)],
+            "shapes": [list(pk[0].shape) + [pk[1], pk[2]] for pk in packed]}
+    comp["max_abs_err"] = max(c["max_abs_err"] for c in comp["checks"])
+    comp["ms"] = cuda_time_ms(lambda: [pcmp.compact_class_lists(*pk) for pk in packed], reps=5)
+    comp["kernel_ms"] = [launch_loop_ms(pcmp.compact_launcher(*pk)[0], 50) for pk in packed]
+    return {"gravity_p2p": p2p, "compact_class_lists": comp,
+            "near_field_load": near_field_load(lens, cfg.target_block),
+            "m2p_n_mean": float(cls["m2p_n"].float().mean())}
+
+
+def gravity_report(run, sim) -> dict:
+    """A driven gravity path's report: its solver config and tree, the
+    tree build, each timed step's gravity diagnostics and dt limiter, the
+    launches per step attempt and the peak memory."""
+    import torch
+
+    gkeys = ("m2p_max", "p2p_max", "leaf_occ", "c_max", "compact_width", "egrav")
+    return {**run["report"], "gravity": dataclasses.asdict(sim.cfg.gravity),
+            "ewald": None if sim.cfg.ewald is None else dataclasses.asdict(sim.cfg.ewald),
+            "tree": {"leaves": sim.cfg.grav_meta.num_leaves,
+                     "nodes": sim.cfg.grav_meta.num_nodes},
+            "tree_build_configure_s": sim.grav_configure_seconds,
+            "gravity_diags": [{k: d[k] for k in gkeys if k in d} for d in run["diags"]],
+            "dt_limiter": [d["dt_limiter"] for d in run["diags"]],
+            "launches_per_attempt": {k: v / run["attempts"] for k, v in run["launches"].items()
+                                     if v},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def nbody_path(spec, smi) -> dict:
+    """The N-body propagator at full width: Simulation(prop="nbody") on
+    the 10^6-particle Plummer sphere of the JAX package's gravity
+    benchmark and on Evrard 125 (1,022,790 particles), each one warm-up
+    and three timed steps with the counts reset just before and read just
+    after (K12 once and K13 twice per step attempt, nothing else), its
+    host syncs, gravity phases, forces against direct summation on 4,096
+    targets (rms < 0.01, p99 < 0.05) and K12 / K13 against their plain
+    versions at its state; then the CLI ``--init evrard -n 125 --prop
+    nbody`` for three steps (constants.txt rows, launches). Returns each
+    driven run's launches."""
+    import torch
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.init import init_evrard
+    from sphexa_torch.init.plummer import plummer_state
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+
+    launches = {}
+    for label, make in (("plummer", lambda: plummer_state(1_000_000, device="cuda")),
+                        ("evrard", lambda: init_evrard(125, device="cuda"))):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        state, box, const = make()
+        run = drive(lambda: Simulation(state, box, const, prop="nbody", device="cuda",
+                                       obs_spec=spec), steps=3, label=f"nbody_{label}")
+        sim = run["sim"]
+        check_launches(f"nbody {label}", run["launches"], run["attempts"], ("gravity_p2p",),
+                       compactions=2)
+        syncs = count_syncs(sim)
+        if syncs["per_step"] != 1:
+            raise AssertionError(f"nbody {label}: {syncs['per_step']} host syncs per step")
+        gphases, (ss, gbox, keys, gcfg, gout) = gravity_phase_times(sim)
+        emit({**gravity_report(run, sim), "phase": "nbody_path", "case": label, "card": smi,
+              "host_syncs_per_step": syncs["per_step"], "gravity_phases": gphases,
+              "gravity_accuracy": gravity_accuracy(ss, gcfg, gout),
+              "kernels": path_gravity_kernels(f"nbody {label}", ss, keys, gbox, sim, gcfg),
+              "seconds": time.perf_counter() - t0})
+        launches[f"nbody_{label}"] = run["launches"]
+        del run, sim, ss, gout
+    # the CLI's N-body run, counted from just before it to just after
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        pe.reset_launches()
+        rc = app.main(["--init", "evrard", "-n", "125", "-s", "3", "--prop", "nbody",
+                       "-o", out, "--quiet"])
+        cli_launches = dict(pe.LAUNCHES)
+        rows = [ln.split() for ln in open(os.path.join(out, "constants.txt"))
+                if not ln.startswith("#")]
+    if rc != 0 or len(rows) != 3:
+        raise AssertionError(f"nbody CLI: exit {rc}, {len(rows)} constants.txt rows")
+    vals = [[float(v) for v in r] for r in rows]
+    if not all(v == v and abs(v) < float("inf") for r in vals for v in r) or \
+            not all(r[6] < 0.0 for r in vals):
+        raise AssertionError(f"nbody CLI: constants.txt rows {vals}")
+    if cli_launches.get("gravity_p2p", 0) < 3 or set(
+            k for k, v in cli_launches.items() if v) - {"gravity_p2p", "compact_class_lists"}:
+        raise AssertionError(f"nbody CLI: launches {cli_launches}")
+    emit({"phase": "nbody_cli", "argv": "--init evrard -n 125 -s 3 --prop nbody",
+          "rows": vals, "launches": cli_launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def ewald_path(spec, smi) -> dict:
+    """Periodic self-gravity: std Sedov 100^3 with G = 0.5 (the JAX
+    README's ``--init sedov --G 0.5``) through Simulation(prop="std"),
+    Ewald on: one warm-up and two timed steps with the counts reset just
+    before and read just after (the three streaming SPH ops once, K12 27
+    times and K13 54 times per step attempt); the solve's parts by CUDA
+    events (the replica passes' phases summed, the real-space and k-space
+    corrections), each correction's peak memory; K12 against its plain
+    version in a shifted replica pass with the self pair, and K13, at the
+    path's state; then Sedov 16 with G = 0.5, one step on the card against
+    the same step on the CPU, and one solve card vs CPU on 4,096 particles
+    uniform in a periodic box (``checks.ewald_vs_cpu``). The energy drift
+    is reported, not bounded: the periodic egrav follows the softening's
+    h and its constant is a convention (tests/test_ewald.py:181-185); the
+    card-vs-CPU step and solve and the finite fields are the checks.
+    Returns the run's launches."""
+    import torch
+
+    from sphexa_torch.gravity import ewald as ew
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.kernels import checks
+    from sphexa_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state, box, const = init_sedov(100, overrides={"gravConstant": 0.5}, device="cuda")
+    run = drive(lambda: Simulation(state, box, const, prop="std", device="cuda",
+                                   obs_spec=spec), steps=2, label="ewald_path",
+                drift_bound=None)
+    sim = run["sim"]
+    if not sim.ewald_on:
+        raise AssertionError("Ewald path: the periodic box did not take the Ewald solve")
+    passes = len(ew.replica_shells(sim.cfg.ewald))
+    check_launches("Ewald", run["launches"], run["attempts"],
+                   ("density", "iad", "momentum_energy_std", "gravity_p2p"),
+                   compactions=2, passes=passes)
+    report = gravity_report(run, sim)
+    gphases, (ss, gbox, keys, gcfg, gout) = gravity_phase_times(sim, reps=1)
+    ms = gphases["ms"]
+    split = {"replica_passes_ms": sum(v for k, v in ms.items()
+                                      if k not in ("real_space", "k_space")),
+             "real_space_ms": ms["real_space"], "k_space_ms": ms["k_space"],
+             "m2p_ms": ms["m2p"], "mac_ms": ms["mac"], "p2p_ms": ms["p2p"]}
+    # the corrections alone: their peak memory above what is allocated
+    node_mass, node_com, node_q, _ = ew.compute_multipoles(ss.x, ss.y, ss.z, ss.m, keys,
+                                                           sim.gtree, sim.cfg.grav_meta)
+    dr = torch.stack([ss.x, ss.y, ss.z], dim=1) - node_com[0][None, :]
+    peaks = {}
+    for name, fn in (("real_space", ew._real_space_correction),
+                     ("k_space", ew._k_space_correction)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(dr, node_mass[0], node_q[0], gbox.lengths[0], sim.cfg.ewald)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # K12 in a replica pass: targets shifted one box length along x, the
+    # self pair kept (as 26 of the 27 passes run it)
+    shift = torch.tensor([1.0, 0.0, 0.0], device="cuda") * gbox.lengths[0]
+    kern = path_gravity_kernels("Ewald replica (1, 0, 0)", ss, keys, gbox, sim, gcfg,
+                                shift=shift, allow_self=True)
+    base_kern = path_gravity_kernels("Ewald base pass", ss, keys, gbox, sim, gcfg)
+    emit({"phase": "ewald_path", "card": smi, **report, "passes": passes,
+          "egrav": [d["egrav"] for d in run["diags"]], "solve_split_ms": split,
+          "gravity_phases": gphases, "corrections_peak_memory_gb": peaks,
+          "kernels_replica": kern, "kernels_base": base_kern,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    small = slice_vs_cpu(16, None, steps=1, use_lists=False, prop="std", case="sedov",
+                         overrides={"gravConstant": 0.5})
+    if not small["ewald"]:
+        raise AssertionError("Sedov 16 with G: expected the Ewald solve")
+    # Sedov's lattice cancels its periodic forces to about 1e-3 of the
+    # near field's terms, and its first dt (1e-6) hardly moves the state:
+    # the solve itself is held card vs CPU where the forces do not cancel
+    small["solve_random_4096"] = checks.ewald_vs_cpu("periodic random 4096")
+    emit({**small, "seconds": time.perf_counter() - t0})
+    return run["launches"]
+
+
+def spherical_solves(sim, ss, box, keys, cfg) -> dict:
+    """Open-box solves at the Evrard path's sorted state with the
+    cartesian quadrupole and spherical multipoles of order 4 and 6 (their
+    own upsweep included), each timed by CUDA events (one call) and held
+    against direct summation on 4,096 targets; order 4 must come closer
+    than the quadrupole (tests/test_spherical.py's knob)."""
+    import torch
+
+    from sphexa_torch.gravity import traversal as gt
+
+    out = {}
+    for order in (0, 4, 6):
+        c = dataclasses.replace(cfg, multipole_order=order)
+        res = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = cuda_time_ms(lambda: res.append(gt.compute_gravity(
+            ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree, sim.cfg.grav_meta, c)),
+            reps=1, warmup=0)
+        wall = time.perf_counter() - t0
+        acc = gravity_accuracy(ss, c, res[-1])
+        out[f"order_{order}"] = {"solve_ms": ms, "wall_s": wall, **acc,
+                                 "egrav": float(res[-1][3]),
+                                 "m2p_max": int(res[-1][4]["m2p_max"])}
+        del res
+    if not out["order_4"]["rms_rel_err"] < out["order_0"]["rms_rel_err"]:
+        raise AssertionError(f"spherical order 4 rms {out['order_4']['rms_rel_err']} not "
+                             f"below the quadrupole's {out['order_0']['rms_rel_err']}")
+    return {"phase": "spherical", "side": 125, "n": ss.x.shape[0], "theta": cfg.theta,
+            "results": out}
 
 
 def main() -> int:
@@ -1878,6 +2148,16 @@ def main() -> int:
           "p2p_n_mean": float(ecls["p2p_n"].float().mean()),
           "m2p_n_mean": float(ecls["m2p_n"].float().mean())})
 
+    # 12. spherical multipoles: open-box solves at the Evrard path's state
+    t0 = time.perf_counter()
+    emit({**spherical_solves(esim, ess, ebox, ekeys, egcfg), "seconds": time.perf_counter() - t0})
+    del eout
+
+    # 13. the N-body path: Plummer 10^6 and Evrard 125, and the CLI
+    path_launches = {"evrard_ve": ea, **nbody_path(spec, smi)}
+    # 14. Ewald periodic gravity: std Sedov 100^3 with G = 0.5
+    path_launches["ewald_sedov"] = ewald_path(spec, smi)
+
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
              "ve_def_gradh": pe.VE_DEF_GRADH, "iad_divv_curlv": pe.IAD_DIVV_CURLV,
@@ -1940,14 +2220,18 @@ def main() -> int:
             "bound_by": b[op]["bound_by"], "library_ms": None,
         })
     # the gravity kernels on the Evrard path: K12's times per launch, K13's
-    # per solve (its two launches, pre-pass and blocks)
+    # per solve (its two launches, pre-pass and blocks); their launches on
+    # every gravity path beside (each path's counts reset just before it)
     for op in ("gravity_p2p", "compact_class_lists"):
+        by_path = {p: la.get(op, 0) for p, la in path_launches.items()}
+        if not all(by_path.values()):
+            raise AssertionError(f"{op}: not launched on every gravity path: {by_path}")
         kernels.append({
             "name": op, "route": "cuda", "source": SOURCE[op], "replaces": TPU_KERNEL[op],
             "launches": ea[op], "max_abs_err": gres[op]["max_abs_err"],
             "ms": gres[op]["ms"], "plain_ms": gres[op]["plain_ms"],
             "bound_ms": gbnd[op]["bound_ms"], "bound_by": gbnd[op]["bound_by"],
-            "library_ms": gres[op]["library_ms"],
+            "library_ms": gres[op]["library_ms"], "launches_by_path": by_path,
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -4,6 +4,8 @@
     python -m sphexa_torch.app.main --init noh -n 50 -s 20
     python -m sphexa_torch.app.main --init gresho-chan -n 50 -s 20 --prop ve [--avclean]
     python -m sphexa_torch.app.main --init evrard -n 125 -s 5 --prop ve
+    python -m sphexa_torch.app.main --init evrard -n 125 -s 5 --prop nbody
+    python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --G 0.5
     python -m sphexa_torch.app.main --init sedov -n 100 -s 100 --check-every 8 \\
         -o out --telemetry-dir out/tel
     python -m sphexa_torch.app.main --init sedov -n 12 -s 4 -w 2 -o out
@@ -13,11 +15,16 @@ Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
 under ``--check-every N`` the iteration count applies at every step and
 a simulated time only at check boundaries (reading the time would read
-the card mid-window). ``--prop`` is std or ve; other --init / --prop
-values raise "not ported yet". Steps run on persistent neighbour lists
-wherever the grid allows them, as in the JAX CLI, which has no flag for
-it. A case with a gravitational constant (Evrard, or ``--G``) runs
-self-gravity, whose steps sort every time. Every step's science ledger
+the card mid-window). ``--prop`` is std, ve or nbody (gravity alone:
+the case needs a gravitational constant); turb-ve and std-cooling raise
+"not ported yet", as do the JAX package's cases the port lacks, and a
+name that is no case raises "unknown test case". Steps run on persistent
+neighbour lists wherever the grid allows them, as in the JAX CLI, which
+has no flag for it. A case with a gravitational constant (Evrard, or
+``--G``) runs self-gravity, whose steps sort every time: open boxes
+Barnes-Hut, fully periodic cubic boxes (Sedov with ``--G``) Ewald;
+``--theta`` sets the opening angle and ``--m2p-cap-margin`` the margin
+of the sampled M2P list cap. Every step's science ledger
 lands in ``<outDir>/constants.txt`` (one row per step, also under
 deferral).
 
@@ -68,7 +75,8 @@ from sphexa_torch.telemetry import (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sphexa-torch",
-        description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std and VE SPH, self-gravity)",
+        description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std and VE SPH, "
+                    "self-gravity, N-body)",
     )
     p.add_argument("--init", default="sedov",
                    help="test case name (sedov, noh, gresho-chan, evrard), "
@@ -86,11 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(comma-separated; default all)")
     p.add_argument("-o", "--outDir", default=".", dest="out_dir",
                    help="output directory (constants.txt, dumps)")
-    p.add_argument("--prop", default="std", help="propagator (std, ve)")
+    p.add_argument("--prop", default="std", help="propagator (std, ve, nbody)")
     p.add_argument("--avclean", action="store_true",
                    help="VE: the velocity-gradient correction of the viscosity")
+    p.add_argument("--theta", type=float, default=0.5,
+                   help="gravity MAC accuracy parameter [0.5]")
     p.add_argument("--G", type=float, default=None, dest="grav_constant",
                    help="gravitational constant override (enables gravity)")
+    p.add_argument("--m2p-cap-margin", type=float, default=None, dest="m2p_cap_margin",
+                   help="gravity M2P interaction-list cap margin [1.3]; the M2P cost is "
+                        "linear in the cap, an overflow is caught and re-sized")
     p.add_argument("--sym-pairs", default=None, choices=("on", "off"), dest="sym_pairs",
                    help="momentum/energy pair-cutoff convention: on = min-h symmetric "
                         "(default), off = the reference's one-sided; overrides the "
@@ -186,7 +199,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          av_clean=args.avclean, check_every=args.check_every,
                          obs_spec=make_observable_spec(case_name, overrides=case_overrides),
                          telemetry=telemetry, science_rows=True,
-                         drift_budget=args.drift_budget)
+                         drift_budget=args.drift_budget, theta=args.theta,
+                         m2p_cap_margin=args.m2p_cap_margin)
     except (NotImplementedError, ValueError) as e:
         print(str(e), file=sys.stderr)
         if recorder is not None:

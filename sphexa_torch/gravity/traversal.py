@@ -5,26 +5,31 @@ accepted) and the P2P set (leaves not accepted) are compacted into
 fixed-cap lists.
 
 Two compactions, as in the JAX package: "sort" (each block's packed
-3-class key sorted over all nodes; below 500k particles) and "bitmask"
-(the class of every candidate packed with its node index and compacted by
-``pallas_compact.compact_class_lists``, the K13 kernel), optionally
-two-level: a superblock of ``super_factor`` blocks keeps its open set and
-accepted cut (the pre-pass, itself a compaction), and its blocks classify
-against that list only.
+3-class key sorted over its candidates; below 500k particles) and
+"bitmask" (the class of every candidate packed with its node index and
+compacted by ``pallas_compact.compact_class_lists``, the K13 kernel). Both
+can be two-level: a superblock of ``super_factor`` blocks keeps its open
+set and accepted cut (the pre-pass: a stable argsort in the sort mode, a
+compaction in the bitmask mode), and its blocks classify against that
+list only.
 
-The far field is plain PyTorch (``multipole.m2p``, chunked over blocks so
-its temporaries stay a few GB); the near field pairs every target with
+The far field is plain PyTorch, chunked over blocks so that its
+temporaries stay a few GB: the cartesian quadrupole (``multipole.m2p``)
+or, with ``multipole_order`` P > 0, spherical multipoles of order P
+(``spherical.m2p``, open boxes only). The near field pairs every target with
 every particle of its block's near-field leaves (``_pallas_p2p``: on the
 card the K12 kernel of csrc/gravity_p2p.cu, which reads the leaf ranges as
 they come; its plain version merges them into runs and streams them
 through the plain pair engine with no distance cutoff). Every shape
 follows from the caps, so a solve reads nothing back to the host; the
 diagnostics report the high-water marks that the caller checks against
-the caps (an overflow re-sizes and replays the step).
+the caps (an overflow re-sizes and replays the step). A solve may shift
+its targets (the replica passes of Ewald gravity, ``gravity/ewald.py``):
+the classification, M2P and the near field then see the targets at
+``x + shift``, and the near field pairs a target with its own image only
+with ``allow_self``.
 
-Not ported: spherical multipoles (multipole_order > 0), the sort
-compaction with superblocks, the LET essential set and sharded solves,
-and Ewald replicas.
+Not ported: the LET essential set and sharded solves.
 """
 
 import dataclasses
@@ -35,6 +40,7 @@ import torch
 
 from sphexa_torch.gravity import multipole as mp
 from sphexa_torch.gravity import pallas_compact as pcmp
+from sphexa_torch.gravity import spherical as sp
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sph import pair_engine as pe
@@ -43,12 +49,16 @@ from sphexa_torch.sph import pair_engine as pe
 #: chunk of the classification and the M2P evaluation
 CHUNK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 25}
 
-#: opening angle of the MAC (the JAX package's default)
+#: default opening angle of the MAC (the JAX package's)
 THETA = 0.5
 #: leaf capacity target of the tree build (the JAX package's bucket_size)
 GRAV_BUCKET = 64
-#: margin of the sampled m2p cap (M2P cost is linear in it)
+#: default margin of the sampled m2p cap (M2P cost is linear in it)
 M2P_CAP_MARGIN = 1.3
+#: the spherical M2P's autograd graph holds about 16 float32 words per
+#: pair and coefficient at its peak (the cartesian form about 30 per
+#: pair): its chunks hold ncoef / SPHERICAL_CHUNK_DIVISOR times fewer pairs
+SPHERICAL_CHUNK_DIVISOR = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +67,7 @@ class GravityConfig:
     that the port reads; the near field always runs the kernel path, the
     JAX package's use_pallas=True)."""
 
+    theta: float = THETA  # opening angle of the MAC
     target_block: int = 64  # particles per MAC target group
     m2p_cap: int = 512  # max accepted multipoles per target block
     p2p_cap: int = 48  # max near-field leaves per target block
@@ -67,6 +78,11 @@ class GravityConfig:
     super_cap: int = 1024  # max candidates of a superblock's list
     # "sort" (packed 3-class sort) or "bitmask" (the compaction kernel)
     compaction: str = "sort"
+    # 0: the cartesian quadrupole; P >= 2: spherical multipoles keeping P
+    # orders (gravity/spherical.py; open boxes only)
+    multipole_order: int = 0
+    # the sampled m2p cap's own margin (estimate_gravity_caps)
+    m2p_cap_margin: float = M2P_CAP_MARGIN
 
 
 def gravity_tuning(n: int) -> dict:
@@ -137,7 +153,7 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
         np.maximum.at(com_hi, parent[s:e], com_hi[s:e])
     ccenter = np.where(valid[:, None], 0.5 * (com_lo + com_hi), BIG)
     chalf = np.where(valid[:, None], np.maximum(0.5 * (com_hi - com_lo), 0.0), 0.0)
-    mac2 = (l_node / THETA + smax) ** 2
+    mac2 = (l_node / cfg.theta + smax) ** 2
     self_parent = parent == np.arange(meta.num_nodes)
 
     rng = np.random.default_rng(0)
@@ -176,7 +192,7 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
     leaf_cap = pad(int(counts.max()) if len(counts) else 1)
     # the m2p cap's own margin, scaled so that Simulation's overflow
     # margin growth still reaches any true high water
-    m2p_margin = M2P_CAP_MARGIN * margin / 1.5
+    m2p_margin = cfg.m2p_cap_margin * margin / 1.5
     return dataclasses.replace(
         cfg,
         m2p_cap=min(pad(m2p_max, m2p_margin), meta.num_nodes),
@@ -186,13 +202,16 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
                    else cfg.super_cap))
 
 
-def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: GravityTreeMeta):
-    """Masses, centres of mass and quadrupoles of every node
+def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: GravityTreeMeta,
+                       order: int = 0):
+    """Masses, centres of mass and multipoles of every node
     (computeLeafMultipoles + upsweepMultipoles): leaf sums over the
     contiguous leaf rows, then a level-by-level upsweep, deepest first,
     each level's rows added into their parents (``index_add_``) with the
-    M2M shift for the quadrupoles. Returns (node_mass (N,), node_com (N,
-    3), node_q (N, 7), edges (L+1,) int64 leaf row boundaries)."""
+    M2M shift. Returns (node_mass (N,), node_com (N, 3), node_q, edges
+    (L+1,) int64 leaf row boundaries): node_q the (N, 7) cartesian
+    quadrupoles at ``order`` 0, else the (N, ncoef(order)) complex
+    spherical coefficients."""
     n = x.shape[0]
     edges = torch.searchsorted(sorted_keys, tree.leaf_keys)
     pleaf = _pleaf_from_edges(edges, n)
@@ -200,6 +219,9 @@ def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: Gravity
     leaf_w = mp.edge_segment_sum(w, edges)  # (L, 4)
     node_mass, node_com = _upsweep_mass_com(leaf_w, tree, meta)
     leaf_com = node_com[tree.node_of_leaf]
+    if order > 0:
+        leaf_c = sp.p2m(x, y, z, m, leaf_com, edges, order, pleaf=pleaf)
+        return node_mass, node_com, sp.upsweep(leaf_c, node_com, tree, meta, order), edges
     leaf_q = mp.p2m_leaf(x, y, z, m, pleaf, leaf_com, edges)
     node_q = _upsweep_quadrupoles(leaf_q, node_mass, node_com, tree, meta)
     return node_mass, node_com, node_q, edges
@@ -236,8 +258,8 @@ def _upsweep_quadrupoles(leaf_q, node_mass, node_com, tree: GravityTree,
 
 
 def _monotone_mac_geometry(box: Box, tree: GravityTree, meta: GravityTreeMeta,
-                           node_com, valid):
-    """Monotone vector-MAC geometry: the acceptance radius l / THETA plus
+                           node_com, valid, theta: float):
+    """Monotone vector-MAC geometry: the acceptance radius l / theta plus
     the subtree max of |com - geometric centre|, measured from a target
     bbox to the node's subtree-com box. Child boxes nest and the radius
     does not grow down the tree, so accept(parent) implies accept(child)
@@ -263,7 +285,7 @@ def _monotone_mac_geometry(box: Box, tree: GravityTree, meta: GravityTreeMeta,
         com_hi.scatter_reduce_(0, par3, com_hi[s:e].clone(), "amax")
     ccenter = torch.where(valid[:, None], 0.5 * (com_lo + com_hi), BIG)
     chalf = torch.where(valid[:, None], torch.clamp_min(0.5 * (com_hi - com_lo), 0.0), 0.0)
-    a = l_node / THETA + smax
+    a = l_node / theta + smax
     return ccenter, chalf, a * a
 
 
@@ -385,65 +407,135 @@ def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
     return om, mn, op, pn, c_max
 
 
-def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_parent):
-    """The 3-class sort compaction of every block against all nodes:
-    accept, the parent's accept as the first accepted ancestor, and one
-    sort of the packed (class, node) keys; the P2P list starts at the M2P
-    count. Returns (m2p list, m2p ok, p2p list, p2p ok, m2p count, p2p
+def _sort_lists(m2p_mask, p2p_mask, cfg, num_n: int, cidx=None):
+    """One 3-class sort of a chunk of blocks' candidates: the packed
+    (class, candidate) keys sorted, M2P first, P2P after, the P2P slice
+    starting at the M2P count (clamped into the array, as the JAX
+    dynamic_slice clamps). ``cidx``: each candidate's node (a superblock's
+    list), else the candidates are the nodes. Returns (m2p list, m2p ok,
+    p2p list, p2p ok, m2p count, p2p count)."""
+    dev = m2p_mask.device
+    rows, width = m2p_mask.shape
+    nbits = max(1, int(np.ceil(np.log2(max(width, 2)))))
+    iota = torch.arange(width, device=dev)
+    padn = max(cfg.m2p_cap, cfg.p2p_cap)
+    m2p_n = m2p_mask.sum(dim=1)
+    cls = torch.where(m2p_mask, 0, torch.where(p2p_mask, 1, 2))
+    ks = torch.sort((cls << nbits) | iota, dim=1).values
+    order_all = ks & ((1 << nbits) - 1)
+    cls_sorted = ks >> nbits
+    if cidx is not None:
+        order_all = cidx.gather(1, order_all)
+    # sentinel pad, so the fixed-cap slices stay in range
+    order_all = torch.cat([order_all, torch.full((rows, padn), num_n - 1, device=dev,
+                                                 dtype=order_all.dtype)], dim=1)
+    cls_sorted = torch.cat([cls_sorted, torch.full((rows, padn), 2, device=dev,
+                                                   dtype=cls_sorted.dtype)], dim=1)
+    slot = torch.arange(cfg.p2p_cap, device=dev)
+    p_at = torch.clamp(m2p_n, max=width + padn - cfg.p2p_cap)[:, None] + slot[None, :]
+    return (torch.clamp(order_all[:, : cfg.m2p_cap], max=num_n - 1),
+            cls_sorted[:, : cfg.m2p_cap] == 0, order_all.gather(1, p_at),
+            cls_sorted.gather(1, p_at) == 1, m2p_n, p2p_mask.sum(dim=1))
+
+
+def _sort_superblocks(x, y, z, n, tree, meta, cfg, ccenter, chalf, mac2, valid, self_parent):
+    """The sort mode's superblock pre-pass: each superblock of
+    ``super_factor`` blocks against all nodes, its candidates the nodes
+    whose parent it does not accept (the open set and the accepted cut,
+    ancestor-closed), kept in node order by a stable argsort and cut at
+    the cap. Returns (candidates (S, cap), with num_nodes on dead slots,
+    live mask, each candidate's parent position in its list, unclipped
+    counts)."""
+    dev = x.device
+    num_n = meta.num_nodes
+    scap = min(cfg.super_cap, num_n)
+    sidx = _block_rows(n, cfg.super_factor * cfg.target_block, device=dev)
+    sbc, sbs = _bbox(x[sidx], y[sidx], z[sidx])
+    outs = [[] for _ in range(4)]
+    for s0, s1 in _chunks(sidx.shape[0], num_n, dev):
+        accept = valid & _accept(sbc[s0:s1, None], sbs[s0:s1, None], ccenter, chalf, mac2)
+        cand = ~(accept[:, tree.parent] & ~self_parent)
+        ordc = torch.argsort((~cand).to(torch.uint8), dim=1, stable=True)[:, :scap]
+        cok = cand.gather(1, ordc)
+        cidx = torch.where(cok, ordc, num_n)
+        ppos = torch.searchsorted(cidx, tree.parent[torch.clamp(cidx, max=num_n - 1)])
+        for o, v in zip(outs, (cidx, cok, torch.clamp(ppos, max=scap - 1), cand.sum(dim=1))):
+            o.append(v)
+    return tuple(torch.cat(o) for o in outs)
+
+
+def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_parent,
+                   supers=None):
+    """The 3-class sort compaction of every block: accept, the parent's
+    accept as the first accepted ancestor, and one sort of the packed
+    keys (``_sort_lists``). The candidates are all nodes, or with
+    ``supers`` (``_sort_superblocks``) the list of the block's
+    superblock, where the parent's accept is read at its position in the
+    list. Returns (m2p list, m2p ok, p2p list, p2p ok, m2p count, p2p
     count)."""
     dev = bc.device
     num_n = meta.num_nodes
     nb = bc.shape[0]
-    nbits = max(1, int(np.ceil(np.log2(max(num_n, 2)))))
-    iota = torch.arange(num_n, device=dev)
-    padn = max(cfg.m2p_cap, cfg.p2p_cap)
-    width = num_n + padn
-    slot = torch.arange(cfg.p2p_cap, device=dev)
     leafv = tree.is_leaf & valid
     outs = [[] for _ in range(6)]
-    for b0, b1 in _chunks(nb, num_n, dev):
-        accept = valid & _accept(bc[b0:b1, None], bs[b0:b1, None], ccenter, chalf, mac2)
-        anc = accept[:, tree.parent] & ~self_parent
-        m2p_mask = accept & ~anc
-        p2p_mask = leafv & ~accept
-        m2p_n = m2p_mask.sum(dim=1)
-        cls = torch.where(m2p_mask, 0, torch.where(p2p_mask, 1, 2))
-        ks = torch.sort((cls << nbits) | iota, dim=1).values
-        order_all = ks & ((1 << nbits) - 1)
-        cls_sorted = ks >> nbits
-        # sentinel pad, so the fixed-cap slices stay in range
-        rows = b1 - b0
-        order_all = torch.cat([order_all, torch.full((rows, padn), num_n - 1, device=dev,
-                                                     dtype=order_all.dtype)], dim=1)
-        cls_sorted = torch.cat([cls_sorted, torch.full((rows, padn), 2, device=dev,
-                                                       dtype=cls_sorted.dtype)], dim=1)
-        # the P2P slice starts at the M2P count (clamped into the array)
-        p_at = torch.clamp(m2p_n, max=width - cfg.p2p_cap)[:, None] + slot[None, :]
-        outs[0].append(torch.clamp(order_all[:, : cfg.m2p_cap], max=num_n - 1))
-        outs[1].append(cls_sorted[:, : cfg.m2p_cap] == 0)
-        outs[2].append(order_all.gather(1, p_at))
-        outs[3].append(cls_sorted.gather(1, p_at) == 1)
-        outs[4].append(m2p_n)
-        outs[5].append(p2p_mask.sum(dim=1))
+    width = num_n if supers is None else supers[0].shape[1]
+    for b0, b1 in _chunks(nb, width, dev):
+        bcc, bss = bc[b0:b1, None], bs[b0:b1, None]
+        if supers is None:
+            accept = valid & _accept(bcc, bss, ccenter, chalf, mac2)
+            anc = accept[:, tree.parent] & ~self_parent
+            m2p_mask, p2p_mask, cidx = accept & ~anc, leafv & ~accept, None
+        else:
+            sid = torch.arange(b0, b1, device=dev) // cfg.super_factor
+            cidx = torch.clamp(supers[0][sid], max=num_n - 1)
+            cok, ppos = supers[1][sid], supers[2][sid]
+            accept = cok & valid[cidx] & _accept(bcc, bss, ccenter[cidx], chalf[cidx],
+                                                 mac2[cidx])
+            # the root is its own parent: an accepted root must not count
+            # as its own accepted ancestor
+            anc = accept.gather(1, ppos) & (cidx.gather(1, ppos) != cidx)
+            m2p_mask, p2p_mask = accept & ~anc, cok & leafv[cidx] & ~accept
+        for o, v in zip(outs, _sort_lists(m2p_mask, p2p_mask, cfg, num_n, cidx)):
+            o.append(v)
     return tuple(torch.cat(o) for o in outs)
 
 
-def _m2p_eval(tx, ty, tz, order_m, m2p_ok, node_packed):
+def _m2p_eval(tx, ty, tz, order_m, m2p_ok, node_packed, order: int = 0):
     """Far field of every block: its M2P list's nodes (one row gather of
-    the packed com, quadrupole and mass) on its targets, in chunks of
-    blocks. Returns (ax, ay, az, phi), each (nb, blk)."""
+    the packed com, multipole and mass) on its targets, in chunks of
+    blocks; the spherical expansion of ``order`` > 0 in smaller chunks (its
+    autograd graph lives for one chunk). Returns (ax, ay, az, phi), each
+    (nb, blk)."""
     dev = tx.device
     nb, blk = tx.shape
     cap = order_m.shape[1]
     num_n = node_packed.shape[0]
+    per_block = blk * cap * (max(1, sp.ncoef(order) // SPHERICAL_CHUNK_DIVISOR)
+                             if order > 0 else 1)
     outs = [torch.empty(nb, blk, device=dev) for _ in range(4)]
-    for b0, b1 in _chunks(nb, blk * cap, dev):
+    for b0, b1 in _chunks(nb, per_block, dev):
         nd = node_packed[torch.clamp(order_m[b0:b1], max=num_n - 1).to(torch.int64)]
-        res = mp.m2p(tx[b0:b1], ty[b0:b1], tz[b0:b1], nd[..., 0:3], nd[..., 3:10],
-                     nd[..., 10], m2p_ok[b0:b1])
+        if order > 0:
+            nc = sp.ncoef(order)
+            coeffs = torch.complex(nd[..., 4:4 + nc], nd[..., 4 + nc:])
+            res = sp.m2p(tx[b0:b1], ty[b0:b1], tz[b0:b1], nd[..., 0:3], coeffs,
+                         m2p_ok[b0:b1], order)
+        else:
+            res = mp.m2p(tx[b0:b1], ty[b0:b1], tz[b0:b1], nd[..., 0:3], nd[..., 3:10],
+                         nd[..., 10], m2p_ok[b0:b1])
         for o, r in zip(outs, res):
             o[b0:b1] = r
     return outs
+
+
+def _node_packed(node_mass, node_com, node_q, order: int):
+    """The per-node payload M2P gathers in one row: com, quadrupole, mass
+    and a pad (cartesian), or com, mass and the spherical coefficients'
+    real then imaginary parts."""
+    if order > 0:
+        return torch.cat([node_com, node_mass[:, None], node_q.real, node_q.imag], dim=1)
+    return torch.cat([node_com, node_q, node_mass[:, None], torch.zeros_like(node_mass)[:, None]],
+                     dim=1)
 
 
 def _p2p_leaf_ranges(order_p, p2p_ok, tree: GravityTree, edges, num_n: int):
@@ -606,26 +698,29 @@ def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig
 
 
 def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
-             cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False):
+             cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False,
+             shift=None):
     """The MAC classification of every target block from the given
-    multipoles. Returns a dict: ``m2p`` (nb, m2p_cap) node indices with
-    ``m2p_ok``, ``p2p`` (nb, p2p_cap) with ``p2p_ok``, the unclipped
-    counts ``m2p_n`` and ``p2p_n`` (nb,), ``c_max`` (the superblock
-    lists' high water, or None), and the target coordinates ``tx``,
-    ``ty``, ``tz`` (nb, blk); with ``keep_packed`` (bitmask compaction)
-    also ``packed``, the (packed array, cap0, cap1) of each compaction."""
+    multipoles; ``shift`` ((3,)) moves the targets (a replica pass).
+    Returns a dict: ``m2p`` (nb, m2p_cap) node indices with ``m2p_ok``,
+    ``p2p`` (nb, p2p_cap) with ``p2p_ok``, the unclipped counts ``m2p_n``
+    and ``p2p_n`` (nb,), ``c_max`` (the superblock lists' high water, or
+    None), and the (shifted) target coordinates ``tx``, ``ty``, ``tz``
+    (nb, blk); with ``keep_packed`` (bitmask compaction) also ``packed``,
+    the (packed array, cap0, cap1) of each compaction."""
     n = x.shape[0]
     dev = x.device
     num_n = meta.num_nodes
     if cfg.compaction not in ("sort", "bitmask"):
         raise ValueError(f"unknown compaction mode {cfg.compaction!r}")
-    if cfg.compaction == "sort" and cfg.super_factor > 0:
-        raise NotImplementedError("the sort compaction with superblocks is not ported")
     if cfg.compaction == "bitmask" and num_n > (1 << pcmp.IDX_BITS):
         raise ValueError(f"bitmask compaction packs node indices in {pcmp.IDX_BITS} bits; "
                          f"{num_n} nodes needs compaction='sort'")
+    if shift is not None:
+        # x[i] + s, as the JAX package shifts each gathered target
+        x, y, z = x + shift[0], y + shift[1], z + shift[2]
     valid = node_mass > 0.0
-    ccenter, chalf, mac2 = _monotone_mac_geometry(box, tree, meta, node_com, valid)
+    ccenter, chalf, mac2 = _monotone_mac_geometry(box, tree, meta, node_com, valid, cfg.theta)
     self_parent = tree.parent == torch.arange(num_n, device=dev)
     bidx = _block_rows(n, cfg.target_block, device=dev)
     tx, ty, tz = x[bidx], y[bidx], z[bidx]
@@ -646,49 +741,59 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
                    p2p=op, p2p_ok=torch.arange(cfg.p2p_cap, device=dev)[None, :] < pn[:, None],
                    m2p_n=mn, p2p_n=pn, c_max=c_max)
     else:
+        supers = (_sort_superblocks(x, y, z, n, tree, meta, cfg, ccenter, chalf, mac2, valid,
+                                    self_parent) if cfg.super_factor > 0 else None)
         om, mok, op, pok, mn, pn = _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf,
-                                                  mac2, valid, self_parent)
-        out.update(m2p=om, m2p_ok=mok, p2p=op, p2p_ok=pok, m2p_n=mn, p2p_n=pn, c_max=None)
+                                                  mac2, valid, self_parent, supers)
+        out.update(m2p=om, m2p_ok=mok, p2p=op, p2p_ok=pok, m2p_n=mn, p2p_n=pn,
+                   c_max=None if supers is None else supers[3].max())
     return out
 
 
 def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                     meta: GravityTreeMeta, cfg: GravityConfig, multipoles=None,
-                    timer: Optional[Callable[[str], None]] = None,
+                    timer: Optional[Callable[[str], None]] = None, shift=None,
+                    allow_self: bool = False, with_phi: bool = False,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """Gravitational acceleration of every (SFC-sorted) particle and the
     potential energy. Returns (ax, ay, az, egrav, diagnostics): egrav =
-    0.5 G sum m phi (a 0-d tensor); the diagnostics (0-d tensors) are the
-    high-water marks ``m2p_max``, ``p2p_max``, ``leaf_occ`` and ``c_max``
-    (0 on the one-level paths) that the caller holds against the caps,
+    0.5 G sum m phi (a 0-d tensor); with ``with_phi`` the (n,) potential
+    phi in its place. The diagnostics (0-d tensors) are the high-water
+    marks ``m2p_max``, ``p2p_max``, ``leaf_occ`` and ``c_max`` (0 on the
+    one-level paths) that the caller holds against the caps,
     ``compact_width`` (the candidates each block's compaction scans) and
     ``mac_work_ratio`` (interaction-list entries over MAC evaluations).
 
-    ``multipoles``: a precomputed ``compute_multipoles`` result;
-    ``timer(phase)``: called after each phase ("multipoles", "mac", "m2p",
-    "p2p_prologue", "p2p")."""
+    ``shift``: a (3,) offset added to the targets (the replica passes of
+    Ewald gravity: targets against the tree of the base box);
+    ``allow_self``: a target pairs with its own image in the near field
+    (true for a nonzero shift). ``multipoles``: a precomputed
+    ``compute_multipoles`` result of the config's order; ``timer(phase)``:
+    called after each phase ("multipoles", "mac", "m2p", "p2p_prologue",
+    "p2p")."""
     mark = timer or (lambda _name: None)
     n = x.shape[0]
     dev = x.device
     num_n = meta.num_nodes
+    order = cfg.multipole_order
     if multipoles is None:
-        multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta)
+        multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta, order=order)
     node_mass, node_com, node_q, edges = multipoles
     mark("multipoles")
 
-    lists = classify(x, y, z, box, tree, meta, cfg, node_mass, node_com)
+    lists = classify(x, y, z, box, tree, meta, cfg, node_mass, node_com, shift=shift)
     mark("mac")
-    node_packed = torch.cat([node_com, node_q, node_mass[:, None],
-                             torch.zeros(num_n, 1, dtype=node_com.dtype, device=dev)], dim=1)
     ax, ay, az, phi = _m2p_eval(lists["tx"], lists["ty"], lists["tz"], lists["m2p"],
-                                lists["m2p_ok"], node_packed)
+                                lists["m2p_ok"], _node_packed(node_mass, node_com, node_q,
+                                                              order), order)
     mark("m2p")
     start, length = _p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, edges, num_n)
     mark("p2p_prologue")
-    # an open box: no replica shift, no self pair (Ewald would pass both)
-    pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, torch.zeros(3, dtype=x.dtype, device=dev),
-                                      False, cfg, start, length)
+    if shift is None:
+        # an open box: no replica shift (and no self pair unless asked)
+        shift = torch.zeros(3, dtype=x.dtype, device=dev)
+    pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, start, length)
     mark("p2p")
 
     def total(far, near):
@@ -697,7 +802,7 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     ax, ay, az, phi = total(ax, pax), total(ay, pay), total(az, paz), total(phi, pphi)
     m2p_n, p2p_n = lists["m2p_n"], lists["p2p_n"]
     nb = m2p_n.shape[0]
-    sf = cfg.super_factor if cfg.compaction == "bitmask" else 0
+    sf = cfg.super_factor
     scap = min(cfg.super_cap, num_n)
     if sf > 0:
         evals = -(-n // (sf * cfg.target_block)) * num_n + nb * scap
@@ -717,5 +822,7 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
         "mac_work_ratio": ((m2p_n.sum() + p2p_n.sum()).to(torch.float32)
                            * float(np.float32(1.0) / np.float32(evals))),
     }
+    if with_phi:
+        return ax, ay, az, phi, diagnostics
     egrav = 0.5 * torch.sum(m * phi)
     return ax, ay, az, egrav, diagnostics

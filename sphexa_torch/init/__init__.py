@@ -19,6 +19,11 @@ CASES: Dict[str, Callable] = {
     "gresho-chan": init_gresho_chan,
 }
 
+#: every case name of the JAX package (the reference's --init choices,
+#: factory.hpp:59-100), the ported ones included
+JAX_CASE_NAMES = ("sedov", "noh", "evrard", "gresho-chan", "isobaric-cube",
+                  "kelvin-helmholtz", "wind-shock", "turbulence", "evrard-cooling")
+
 
 def split_case_spec(name: str):
     """'case:settings.json' -> (case, settings_path); otherwise (name, None).
@@ -35,8 +40,9 @@ def make_initializer(name: str) -> Callable:
     """The initializer for a case name, 'case:settings.json' (the JSON
     object's keys override the case's settings), 'path,N' (a snapshot
     up-sampled N-fold) or 'path[:step]' (restart from a snapshot). Each
-    returned callable takes (side, device=...). Any other name raises
-    "not ported yet"."""
+    returned callable takes (side, device=...). A case of the JAX package
+    that is not ported raises NotImplementedError; any other name raises
+    ValueError, as the JAX package's does."""
     if name in CASES:
         return CASES[name]
 
@@ -62,9 +68,14 @@ def make_initializer(name: str) -> Callable:
         return functools.partial(init_file_split, split[0], split[1])
     if looks_like_file(name):
         return functools.partial(init_from_file, name)
-    raise NotImplementedError(
-        f"--init {name!r}: not ported yet (the ported cases are {sorted(CASES)}, "
-        "'case:settings.json', 'file,N' splitting and an existing snapshot file)")
+    if name in JAX_CASE_NAMES:
+        raise NotImplementedError(
+            f"--init {name!r}: not ported yet (the ported cases are {sorted(CASES)}, "
+            "'case:settings.json', 'file,N' splitting and an existing snapshot file)")
+    raise ValueError(
+        f"unknown test case '{name}' (not a case name in {sorted(JAX_CASE_NAMES)}, "
+        "not 'case:settings.json', not 'file,N' splitting, and not an existing "
+        "snapshot file)")
 
 
 __all__ = ["CASES", "make_initializer", "split_case_spec", "init_evrard", "init_gresho_chan",

@@ -10,11 +10,13 @@ the gravity list compaction (K13) to its plain version exactly,
 ``p2p_vs_plain`` the gravity near field (K12) on a solve's leaf ranges
 (``near_field_ranges``) within its summation-order tolerance, and
 ``gravity_vs_cpu`` a whole gravity solve on the card to the same solve on
-the CPU. ``list_build_vs_plain`` holds the list build (K5) to its plain
+the CPU, ``ewald_vs_cpu`` a periodic (Ewald) one on
+``periodic_random_case``. ``list_build_vs_plain`` holds the list build (K5) to its plain
 version bit for bit, on a list state's culled cells or on
 ``synthetic_cull``'s cells, which exercise each edge of the run merge.
 Any disagreement raises."""
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -172,13 +174,16 @@ def gravity_case(side: int, device):
     return sim, ss, box, keys
 
 
-def near_field_ranges(x, y, z, m, keys, box, tree, meta, cfg, keep_packed: bool = False):
+def near_field_ranges(x, y, z, m, keys, box, tree, meta, cfg, keep_packed: bool = False,
+                      shift=None):
     """The near-field leaf ranges of one solve (multipoles, classification,
-    ``_p2p_leaf_ranges``), as compute_gravity hands them to K12. Returns
-    (starts, lens, classification); ``keep_packed``: as ``classify``'s."""
+    ``_p2p_leaf_ranges``), as compute_gravity hands them to K12; ``shift``
+    ((3,) tensor): those of a replica pass with the targets shifted.
+    Returns (starts, lens, classification); ``keep_packed``: as
+    ``classify``'s."""
     mps = gt.compute_multipoles(x, y, z, m, keys, tree, meta)
     lists = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1],
-                        keep_packed=keep_packed)
+                        keep_packed=keep_packed, shift=shift)
     start, length = gt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, mps[3],
                                         meta.num_nodes)
     return start, length, lists
@@ -262,6 +267,64 @@ def gravity_vs_cpu(name: str, x, y, z, m, h, keys, box, tree, meta, cfg) -> dict
     return {"max_abs_err_over_scale": err, "egrav_rel_err": abs(eg - ec) / abs(ec),
             "m2p_max": int(og[4]["m2p_max"]), "p2p_max": int(og[4]["p2p_max"]),
             "compaction": cfg.compaction, "super_factor": cfg.super_factor}
+
+
+def periodic_random_case(n: int, seed: int, device):
+    """``n`` particles uniform in the periodic unit cube from a seeded
+    generator, equal masses, h 0.02, G 0.5: a periodic configuration
+    whose forces do not cancel (a lattice's, Sedov's, cancel to about
+    1e-3 of the near field's terms, below the float32 rounding of those
+    terms). Returns (state, box, const)."""
+    from sphexa_torch.init.utils import build_state
+    from sphexa_torch.sfc.box import Box
+    from sphexa_torch.sph.particles import SimConstants
+
+    x, y, z = np.random.default_rng(seed).uniform(-0.5, 0.5, (3, n)).astype(np.float32)
+    const = SimConstants(g=0.5).normalized()
+    state = build_state(x, y, z, 0.0, 0.0, 0.0, 0.02, 1.0 / n, 1.0, 1e-4, const.alphamin,
+                        device=device)
+    return state, Box.create(-0.5, 0.5, boundary=BoundaryType.periodic, device=device), const
+
+
+def ewald_vs_cpu(name: str, n: int = 4096, seed: int = 3) -> dict:
+    """One Ewald solve on the card against the same solve on the CPU (the
+    kernels' plain versions) on ``periodic_random_case``, both from the
+    card's multipoles: 27 K12 launches on the card, the forces within the
+    near field's tolerance (rtol 1e-4, atol ``P2P_ATOL`` max|.|), egrav
+    within rel 1e-4, the folded diagnostics equal."""
+    from sphexa_torch.gravity.ewald import compute_gravity_ewald
+    from sphexa_torch.propagator import _force_stage_prologue
+    from sphexa_torch.simulation import Simulation
+
+    sim = Simulation(*periodic_random_case(n, seed, "cuda"), prop="nbody", device="cuda")
+    if not sim.ewald_on:
+        raise AssertionError(f"{name}: the periodic box did not take the Ewald solve")
+    ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    cfg = dataclasses.replace(sim.cfg.gravity, G=sim.const.g)
+    meta = sim.cfg.grav_meta
+    mps = gt.compute_multipoles(ss.x, ss.y, ss.z, ss.m, keys, sim.gtree, meta)
+    before = pe.LAUNCHES["gravity_p2p"]
+    og = compute_gravity_ewald(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree, meta, cfg,
+                               sim.cfg.ewald, multipoles=mps)
+    launches = pe.LAUNCHES["gravity_p2p"] - before
+    cpu = [a.cpu() for a in (ss.x, ss.y, ss.z, ss.m, ss.h, keys)]
+    oc = compute_gravity_ewald(*cpu, box.to("cpu"), sim.gtree.to("cpu"), meta, cfg,
+                               sim.cfg.ewald, multipoles=tuple(a.cpu() for a in mps))
+    err = 0.0
+    for nm, a, b in zip(("ax", "ay", "az"), og[:3], oc[:3]):
+        a = a.cpu()
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=P2P_ATOL * scale,
+                                   msg=f"{name}: Ewald {nm} card vs cpu")
+        err = max(err, float((a - b).abs().max()) / scale)
+    eg, ec = float(og[3]), float(oc[3])
+    if abs(eg - ec) > 1e-4 * abs(ec):
+        raise AssertionError(f"{name}: egrav {eg} vs cpu {ec}")
+    for k in og[4]:
+        if int(og[4][k]) != int(oc[4][k]):
+            raise AssertionError(f"{name}: {k} {int(og[4][k])} vs cpu {int(oc[4][k])}")
+    return {"n": n, "max_abs_err_over_scale": err, "egrav_rel_err": abs(eg - ec) / abs(ec),
+            "k12_launches": launches, "m2p_max": int(og[4]["m2p_max"])}
 
 
 def list_build_vs_plain(name: str, cull, x, y, z, h, skin, slot_cap: int, cfg) -> dict:

@@ -83,7 +83,7 @@ def make_observable_spec(case: str, overrides: Optional[Dict] = None) -> Observa
 
 def ledger_diagnostics(state, rho, nc, const, ngmax: int,
                        spec: Optional[ObservableSpec] = None, egrav=None,
-                       box=None, c=None) -> Dict[str, torch.Tensor]:
+                       box=None, c=None, smoothing: bool = True) -> Dict[str, torch.Tensor]:
     """The per-step science scalars (``OBS_DIAG_KEYS`` and the
     ``NUM_DIAG_KEYS`` this function owns) as 0-d device tensors.
 
@@ -92,7 +92,9 @@ def ledger_diagnostics(state, rho, nc, const, ngmax: int,
     stage returns it (the counts use nc + 1, like the reference).
     ``egrav``: the force stage's 0-d
     gravitational energy, or None. The energies and momenta are
-    ``conserved.conserved_quantities``'s."""
+    ``conserved.conserved_quantities``'s. ``smoothing`` False (a step that
+    never iterates h: N-body) reports zero cap-clip and h-saturation
+    counts."""
     cq = conserved_quantities(state, const, egrav=egrav)
     out = {"obs_ttot": state.ttot, **{f"obs_{k}": cq[k] for k in (
         "etot", "ecin", "eint", "egrav", "linmom", "angmom")}}
@@ -102,10 +104,10 @@ def ledger_diagnostics(state, rho, nc, const, ngmax: int,
     # from its fixed point) and the nonfinite counts of rho, h, du
     nc1 = nc + 1
     fields = torch.stack([rho, state.h, state.du])
-    irows = torch.cat([
-        torch.stack([nc1 >= ngmax, torch.abs(nc1 - const.ng0) > 0.5 * const.ng0]),
-        ~torch.isfinite(fields),
-    ])
+    counts = torch.stack([nc1 >= ngmax, torch.abs(nc1 - const.ng0) > 0.5 * const.ng0])
+    if not smoothing:
+        counts = torch.zeros_like(counts)
+    irows = torch.cat([counts, ~torch.isfinite(fields)])
     isum = torch.sum(irows, dim=1)
     for k, name in enumerate(("n_nc_clip", "n_h_sat", "n_bad_rho", "n_bad_h", "n_bad_du")):
         out[name] = isum[k]

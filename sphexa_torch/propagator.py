@@ -8,15 +8,18 @@ EOS -> IAD -> divv/curlv -> AV switches -> momentum/energy, all six ops
 on one set of runs. With self-gravity (``cfg.gravity``, open boxes) the
 Barnes-Hut accelerations of the sorted particles are added to the hydro
 ones (``_add_gravity``), the acceleration condition joins the time step
-candidates and egrav the diagnostics. With persistent lists (``lists=``,
+candidates and egrav the diagnostics; in a fully periodic box
+(``cfg.ewald``) the solve is Ewald's (gravity/ewald.py). The N-body step
+(``_step_nbody``) runs the gravity alone: sort, solve, the acceleration
+time step and the drift, no SPH. With persistent lists (``lists=``,
 not under gravity) a steady step runs in the order frozen at the last
 ``rebuild_pair_lists``: no regrow, no sort, no prologue; it reports the
 lists' remaining skin (``list_slack``) and whether they still cover its
 input (``list_ok``). With ``cfg.obs`` set the step tail also computes
 the science ledger (observables/ledger.py) over the post-integration
 state. PyTorch runs it eagerly; the pair ops launch the CUDA kernels on
-the card and their plain versions on the CPU. Turbulence stirring and
-block time steps are not ported.
+the card and their plain versions on the CPU. Turbulence stirring,
+cooling and block time steps are not ported.
 """
 
 import dataclasses
@@ -25,11 +28,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sphexa_torch.gravity.ewald import EwaldConfig, compute_gravity_ewald
 from sphexa_torch.gravity.traversal import GravityConfig, compute_gravity
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.observables.ledger import ObservableSpec, ledger_diagnostics
-from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
+from sphexa_torch.sfc.box import Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
@@ -70,6 +74,8 @@ class PropagatorConfig:
     grav_meta: Optional[GravityTreeMeta] = None
     # the science ledger (observables/ledger.py); None = no ledger
     obs: Optional[ObservableSpec] = None
+    # periodic self-gravity: the Ewald solve's parameters (None: open box)
+    ewald: Optional[EwaldConfig] = None
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -132,13 +138,15 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
 def _add_gravity(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
                  gtree: GravityTree, ax, ay, az):
     """Self-gravity coupling (gravity_wrapper.hpp:97-123): the Barnes-Hut
-    accelerations of the sorted particles added to the hydro ones, on an
-    open box. Returns (ax, ay, az, egrav, dt_acc, gravity diagnostics)."""
-    if any(b == BoundaryType.periodic for b in box.boundaries):
-        raise NotImplementedError("Ewald gravity not ported: self-gravity needs an open box")
+    accelerations of the sorted particles added to the hydro ones, by the
+    Ewald solve with ``cfg.ewald`` (a periodic box), else the open-box
+    one. Returns (ax, ay, az, egrav, dt_acc, gravity diagnostics)."""
     gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
-    gx, gy, gz, egrav, gdiag = compute_gravity(
-        state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
+    args = (state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
+    if cfg.ewald is not None:
+        gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald)
+    else:
+        gx, gy, gz, egrav, gdiag = compute_gravity(*args)
     ax, ay, az = ax + gx, ay + gy, az + gz
     return ax, ay, az, egrav, acceleration_timestep(ax, ay, az, cfg.const), gdiag
 
@@ -186,19 +194,20 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
                           ax, ay, az, du, dt, nc, occ, rho, dt_limiter=None,
-                          extra_diag=None, extra=None, c=None
+                          extra_diag=None, extra=None, c=None, update_smoothing: bool = True
                           ) -> Tuple[ParticleState, Box, Dict[str, torch.Tensor]]:
     """Drift/kick + PBC wrap, smoothing-length nudge, diagnostics: the
     STEP_DIAG_KEYS scalars and, with ``cfg.obs``, the science ledger over
     the post-integration state with the force stage's rho, c and egrav.
-    ``extra``: further fields of the new state (the VE step's alpha)."""
+    ``extra``: further fields of the new state (the VE step's alpha);
+    ``update_smoothing`` False (the N-body step) keeps h as it is."""
     const = cfg.const
     fields = (state.x, state.y, state.z, state.x_m1, state.y_m1, state.z_m1,
               state.vx, state.vy, state.vz, state.h, state.temp, state.temp_lo,
               du, state.du_m1)
     (nx, ny, nz, dxm, dym, dzm, vx, vy, vz, h, temp, temp_lo, du,
      du_m1) = compute_positions(fields, ax, ay, az, dt, state.min_dt, box, const)
-    new_h = update_h(const.ng0, nc + 1, h)
+    new_h = update_h(const.ng0, nc + 1, h) if update_smoothing else h
     new_state = dataclasses.replace(
         state, x=nx, y=ny, z=nz, x_m1=dxm, y_m1=dym, z_m1=dzm,
         vx=vx, vy=vy, vz=vz, h=new_h, temp=temp, temp_lo=temp_lo,
@@ -220,7 +229,8 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if cfg.obs is not None:
         diagnostics.update(ledger_diagnostics(
             new_state, rho, nc, const, const.ngmax, spec=cfg.obs,
-            egrav=(extra_diag or {}).get("egrav"), box=box, c=c))
+            egrav=(extra_diag or {}).get("egrav"), box=box, c=c,
+            smoothing=update_smoothing))
     if dt_limiter is not None:
         diagnostics["dt_limiter"] = dt_limiter
     if extra_diag:
@@ -306,3 +316,29 @@ def _step_hydro_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
      diag) = _ve_forces(state, box, cfg, gtree, lists)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ, rho,
                                  extra_diag=diag, extra={"alpha": alpha}, c=c)
+
+
+def _step_nbody(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
+    """One gravity-only N-body step (main/src/propagator/nbody.hpp:51-156):
+    box regrow and sort -> multipole upsweep -> Barnes-Hut solve (Ewald's
+    in a periodic box) -> the acceleration time step -> positions. No
+    hydro field moves (du = 0) and h stays; the neighbour counts, the
+    occupancy and rho are zeros, as in the JAX package. ``lists`` is
+    refused: the step sorts every time. Returns (new_state, new_box,
+    diagnostics)."""
+    if lists is not None:
+        raise ValueError("the N-body step takes no neighbour lists")
+    const = cfg.const
+    box = make_global_box(state.x, state.y, state.z, box)
+    state, keys, _ = _sort_by_keys(state, box, cfg.curve)
+    zero = torch.zeros_like(state.x)
+    ax, ay, az, egrav, dt_acc, gdiag = _add_gravity(state, box, keys, cfg, gtree,
+                                                    zero, zero, zero)
+    dt = compute_timestep(state.min_dt, dt_acc, const=const)
+    limiter = _dt_limiter(state.min_dt, const, accel=dt_acc)
+    nc = torch.zeros_like(state.x, dtype=torch.int32)
+    occ = torch.zeros((), dtype=torch.int32, device=state.x.device)
+    return _integrate_and_finish(state, box, cfg, ax, ay, az, zero, dt, nc, occ, zero,
+                                 dt_limiter=limiter, extra_diag={**gdiag, "egrav": egrav},
+                                 update_smoothing=False)

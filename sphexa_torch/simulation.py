@@ -1,9 +1,9 @@
-"""Host-side driver of the port (sphexa_tpu/simulation.py, the std and VE
-propagators on one card): static neighbour-config sizing, the gravity
-tree and its caps, the step loop with the overflow contract, deferred
-check windows with rollback and replay, the persistent-list lifecycle,
-the science ledger's rows and watchdogs, and the driver's telemetry
-events."""
+"""Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE and
+N-body propagators on one card): static neighbour-config sizing, the
+gravity tree and its caps (open-box or Ewald periodic gravity), the step
+loop with the overflow contract, deferred check windows with rollback
+and replay, the persistent-list lifecycle, the science ledger's rows and
+watchdogs, and the driver's telemetry events."""
 
 import dataclasses
 import time
@@ -14,15 +14,17 @@ import torch
 
 from sphexa_torch.device import resolve_device
 from sphexa_torch.dtypes import KEY_BITS
+from sphexa_torch.gravity.ewald import EwaldConfig
 from sphexa_torch.gravity.traversal import (
-    GRAV_BUCKET, GravityConfig, estimate_gravity_caps, gravity_tuning,
+    GRAV_BUCKET, M2P_CAP_MARGIN, THETA, GravityConfig, estimate_gravity_caps, gravity_tuning,
 )
 from sphexa_torch.gravity.tree import linkage_from_leaves
 from sphexa_torch.neighbors.cell_list import (
     NeighborConfig, choose_grid_level, pad_cap, window_cells,
 )
 from sphexa_torch.propagator import (
-    DT_LIMITERS, PropagatorConfig, _step_hydro_std, _step_hydro_ve, rebuild_pair_lists,
+    DT_LIMITERS, PropagatorConfig, _step_hydro_std, _step_hydro_ve, _step_nbody,
+    rebuild_pair_lists,
 )
 from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
@@ -38,7 +40,7 @@ _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
              "list_skin_rel": 0.2}
 
 #: the ported propagators' step functions
-_STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve}
+_STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve, "nbody": _step_nbody}
 
 
 def _max_cell_occupancy(sorted_keys: np.ndarray, level: int) -> int:
@@ -167,18 +169,22 @@ class Simulation:
     ``telemetry``: the registry that receives the driver's events.
 
     ``prop``: "std" or "ve" (``av_clean`` adds the VE viscosity's
-    velocity-gradient correction); the list lifecycle and the overflow
-    contract are the same for both. ``device=None`` runs on the CUDA
-    device and raises without one; ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels.
+    velocity-gradient correction), with the same list lifecycle and
+    overflow contract, or "nbody" (gravity alone; it needs ``const.g`` and
+    skips the SPH sizing, the lists and the h check). ``device=None``
+    runs on the CUDA device and raises without one; ``device="cpu"`` runs
+    the plain PyTorch versions of the kernels.
 
-    Self-gravity is on when ``const.g != 0`` (open boxes only: a periodic
-    box would need Ewald gravity, which is not ported). Each
+    Self-gravity is on when ``const.g != 0``: in an open box, or in a
+    fully periodic cubic one through Ewald summation (``ewald_on``; mixed
+    boundaries and non-cubic periodic boxes are refused). Each
     (re)configuration then builds the gravity tree from the particles'
-    keys and sizes its caps, with the JAX package's default opening
-    angle, bucket and cap margin; the steps sort every time (no lists). A step
-    whose interaction lists or leaves outgrow their caps is discarded, the
-    caps re-sized with a 1.5x larger margin, and the step replayed."""
+    keys and sizes its caps (on the base box), with the opening angle
+    ``theta``, the JAX package's bucket and the m2p cap margin
+    ``m2p_cap_margin`` (None: its default); the steps sort every time (no
+    lists). A step whose interaction lists or leaves outgrow their caps
+    (an Ewald solve's worst replica pass) is discarded, the caps re-sized
+    with a 1.5x larger margin, and the step replayed."""
 
     # rebuild proactively below this remaining-skin fraction: the next
     # step would likely expire and be discarded
@@ -190,13 +196,29 @@ class Simulation:
                  list_skin_rel: Optional[float] = None, av_clean: bool = False,
                  check_every: int = 1, obs_spec=None,
                  telemetry: Optional[Telemetry] = None, science_rows: bool = False,
-                 drift_budget: Optional[float] = None):
+                 drift_budget: Optional[float] = None, theta: float = THETA,
+                 m2p_cap_margin: Optional[float] = None):
         if prop not in _STEPS:
             raise NotImplementedError(f"--prop {prop!r}: not ported yet")
+        if prop == "nbody" and const.g == 0.0:
+            raise ValueError(
+                "prop='nbody' needs a gravitational constant: set SimConstants(g=...)")
+        self.prop_name = prop
         self.gravity_on = const.g != 0.0
-        if self.gravity_on and any(b == BoundaryType.periodic for b in box.boundaries):
+        any_periodic = any(b == BoundaryType.periodic for b in box.boundaries)
+        all_periodic = all(b == BoundaryType.periodic for b in box.boundaries)
+        self.ewald_on = self.gravity_on and all_periodic
+        if self.gravity_on and any_periodic and not all_periodic:
             raise NotImplementedError(
-                "Ewald gravity not ported: self-gravity needs an open box")
+                "self-gravity supports fully periodic (Ewald) or fully open boundaries, "
+                "not mixed ones (same restriction as the reference's computeGravityEwald)")
+        if self.ewald_on:
+            lx = box.lengths.cpu().numpy()
+            if not np.allclose(lx, lx[0]):
+                raise ValueError(
+                    "Ewald gravity requires a cubic periodic box (traversal_ewald_cpu.hpp:366)")
+        self.theta = theta
+        self.m2p_cap_margin = M2P_CAP_MARGIN if m2p_cap_margin is None else m2p_cap_margin
         # every control-flow event (reconfigure, rollback, replay, list
         # rebuild) and step timing reports here; the instrumentation is
         # host-only and adds no read of the card to a deferred window
@@ -289,11 +311,17 @@ class Simulation:
             gbox = make_global_box(s.x, s.y, s.z, self.box)
             keys = compute_sfc_keys(s.x, s.y, s.z, gbox, curve=self.curve)
             sizing_cache = (keys, torch.argsort(keys, stable=True))
-        cfg = make_propagator_config(
-            self.state, self.box, self.const, curve=self.curve,
-            min_cap=min_cap, cell_target=self.cell_target,
-            use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
-            list_slot_margin=self._slot_margin, sizing_cache=sizing_cache)
+        if self.prop_name == "nbody":
+            # no SPH: the neighbour config is a placeholder the step never
+            # reads (its occupancy is 0)
+            cfg = PropagatorConfig(const=self.const, curve=self.curve,
+                                   nbr=NeighborConfig(level=1, cap=1, curve=self.curve))
+        else:
+            cfg = make_propagator_config(
+                self.state, self.box, self.const, curve=self.curve,
+                min_cap=min_cap, cell_target=self.cell_target,
+                use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
+                list_slot_margin=self._slot_margin, sizing_cache=sizing_cache)
         self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec)
         if self.gravity_on:
             self._configure_gravity(grav_margin, sizing_cache)
@@ -303,7 +331,9 @@ class Simulation:
         the interaction-list caps (simulation.py _configure_gravity): the
         leaf array from device histograms (only O(8^level) counts reach
         the host), the linkage on the host, the caps from a sampled
-        classification; the multipoles of every step follow the tree."""
+        classification of the base box (an Ewald solve's shifted passes
+        are guarded by the overflow diagnostics); the multipoles of every
+        step follow the tree."""
         t0 = time.perf_counter()
         s = self.state
         keys, order = keys_cache
@@ -312,10 +342,12 @@ class Simulation:
         xs, ys, zs, ms = s.x[order], s.y[order], s.z[order], s.m[order]
         gcfg = estimate_gravity_caps(
             xs, ys, zs, ms, keys[order], self.box, gtree, meta,
-            GravityConfig(G=self.const.g, **gravity_tuning(s.n)),
+            GravityConfig(theta=self.theta, G=self.const.g,
+                          m2p_cap_margin=self.m2p_cap_margin, **gravity_tuning(s.n)),
             margin=margin)
         self._gtree = gtree
-        self._cfg = dataclasses.replace(self._cfg, gravity=gcfg, grav_meta=meta)
+        self._cfg = dataclasses.replace(self._cfg, gravity=gcfg, grav_meta=meta,
+                                        ewald=EwaldConfig() if self.ewald_on else None)
         self.grav_configure_seconds = time.perf_counter() - t0
 
     @property
@@ -334,10 +366,13 @@ class Simulation:
 
     def _config_still_valid(self, d: Dict[str, float]) -> bool:
         """The step's occupancy within the cap and the cell edge still
-        covering 2 h_max (the box edge rides the step's scalars)."""
+        covering 2 h_max (the box edge rides the step's scalars); the
+        N-body step has no cells to cover."""
         nbr = self._cfg.nbr
         if int(d["occupancy"]) > nbr.cap:
             return False
+        if self.prop_name == "nbody":
+            return True
         return 2.0 * d["h_max"] <= d["min_length"] / (1 << nbr.level)
 
     @property

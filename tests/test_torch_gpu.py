@@ -20,7 +20,9 @@ the CPU. Gravity: the list compaction (K13) exactly and the near field
 (K12, on a solve's leaf ranges; also with a target shift and the self
 pair) against their plain versions (sphexa_torch/kernels/checks.py,
 shared with chip_smoke.py), a whole solve on the card against the CPU in
-both compactions (Evrard 30), and a VE Evrard Simulation step."""
+both compactions (Evrard 30), and a VE Evrard Simulation step; N-body
+steps (Evrard 20, a Plummer sphere), an Ewald solve (Sedov 16) and
+spherical order-4 and order-6 solves on the card against the CPU."""
 
 import dataclasses
 
@@ -666,3 +668,61 @@ def test_sedov_l1_side_30_on_card():
     r = io_checks.l1_reference("sedov", "std", 30, steps=200, device="cuda")
     assert r["drift"] < 1e-3
     assert r["l1_rho"] == pytest.approx(SEDOV_30_L1_RHO, rel=1e-3), r
+
+
+# -- the rest of gravity on the card: N-body, Ewald, spherical ---------------
+
+
+@pytest.mark.parametrize("case", ["evrard", "plummer"])
+def test_nbody_step_matches_cpu(case):
+    """One N-body Simulation step on the card against the same step on the
+    CPU (Evrard 20; a 20,000-particle Plummer sphere): K12 once and K13
+    never (the sort compaction below 500k), the fields within the near
+    field's tolerance carried through the integrator."""
+    _need_card()
+    from sphexa_torch.init import init_evrard
+    from sphexa_torch.init.plummer import plummer_state
+
+    make = {"evrard": lambda d: init_evrard(20, device=d),
+            "plummer": lambda d: plummer_state(20_000, device=d)}[case]
+    cpu = Simulation(*make("cpu"), prop="nbody", device="cpu")
+    gpu = Simulation(*make("cpu"), prop="nbody", device="cuda")
+    pe.reset_launches()
+    dc, dg = cpu.step(), gpu.step()
+    assert pe.LAUNCHES["gravity_p2p"] == 1 and pe.LAUNCHES["compact_class_lists"] == 0
+    assert dg["egrav"] == pytest.approx(dc["egrav"], rel=1e-4)
+    assert dg["dt"] == pytest.approx(dc["dt"], rel=1e-4)
+    for f in ("x", "y", "z", "vx", "vy", "vz"):
+        a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-6 * float(b.abs().max()))
+
+
+def test_ewald_solve_matches_cpu():
+    """A periodic solve (4,096 particles uniform in the unit cube, G 0.5)
+    on the card against the CPU from the card's multipoles
+    (``checks.ewald_vs_cpu``): 27 K12 launches, forces at the near field's
+    tolerance, egrav rel 1e-4, the folded diagnostics equal."""
+    _need_card()
+    r = checks.ewald_vs_cpu("random 4096")
+    assert r["k12_launches"] == 27
+
+
+@pytest.mark.parametrize("order", [4, 6])
+def test_spherical_solve_matches_cpu(order):
+    """An order-P solve (Evrard 20) on the card against the CPU from the
+    card's multipoles: the autograd M2P forces at rtol 1e-4."""
+    _need_card()
+    from sphexa_torch.gravity import traversal as gt
+
+    sim, ss, box, keys = checks.gravity_case(20, "cuda")
+    cfg = dataclasses.replace(sim.cfg.gravity, multipole_order=order)
+    mps = gt.compute_multipoles(ss.x, ss.y, ss.z, ss.m, keys, sim.gtree, sim.cfg.grav_meta,
+                                order=order)
+    og = gt.compute_gravity(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree,
+                            sim.cfg.grav_meta, cfg, multipoles=mps)
+    cpu = [a.cpu() for a in (ss.x, ss.y, ss.z, ss.m, ss.h, keys)]
+    oc = gt.compute_gravity(*cpu, box.to("cpu"), sim.gtree.to("cpu"), sim.cfg.grav_meta, cfg,
+                            multipoles=tuple(a.cpu() for a in mps))
+    for a, b in zip(og[:3], oc[:3]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=checks.P2P_ATOL * float(
+            b.abs().max()))

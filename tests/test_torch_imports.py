@@ -49,7 +49,8 @@ def test_port_sources_found():
                 ("analysis", "noh.py"), ("analysis", "gresho_chan.py"),
                 ("analysis", "evrard.py"), ("analysis", "__init__.py"),
                 ("telemetry", "manifest.py"), ("telemetry", "flightrec.py"),
-                ("telemetry", "memory.py"), ("app", "main.py")):
+                ("telemetry", "memory.py"), ("app", "main.py"), ("init", "plummer.py"),
+                ("gravity", "ewald.py"), ("gravity", "spherical.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

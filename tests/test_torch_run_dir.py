@@ -131,10 +131,10 @@ def test_cli_run_dir_passes_the_jax_summary_strict(tmp_path):
 def test_cli_construction_failure_leaves_a_blackbox(tmp_path, capsys):
     tel = tmp_path / "tel"
     hook = sys.excepthook
-    # self-gravity on Sedov's periodic box needs Ewald gravity: not ported
-    assert app.main(["--init", "sedov", "-n", "6", "--G", "1.0", "--device", "cpu",
+    # Ewald gravity needs a cubic periodic box: Gresho-Chan's slab is not
+    assert app.main(["--init", "gresho-chan", "-n", "8", "--G", "1.0", "--device", "cpu",
                      "-o", str(tmp_path), "--telemetry-dir", str(tel), "--quiet"]) == 2
-    assert "Ewald" in capsys.readouterr().err
+    assert "Ewald gravity requires a cubic periodic box" in capsys.readouterr().err
     assert sys.excepthook == hook
     box = read_blackbox(str(tel))
-    assert box["reason"].startswith("simulation construction failed: Ewald")
+    assert box["reason"].startswith("simulation construction failed: Ewald gravity requires")

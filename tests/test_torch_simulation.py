@@ -115,7 +115,10 @@ def test_cli_runs_on_cpu(capsys, tmp_path):
                      "--device", "cpu", *out_dir]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "egrav=-" in out and "lists off" in out
-    for argv in (["--init", "plummer", "--device", "cpu"],
+    for argv in (["--init", "turbulence", "--device", "cpu"],
                  ["--prop", "turb-ve", "--device", "cpu"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             app.main(argv)
+    # a name that is no case of the JAX package is a usage error
+    assert app.main(["--init", "plummer", "--device", "cpu", *out_dir]) == 2
+    assert "unknown test case 'plummer'" in capsys.readouterr().err
