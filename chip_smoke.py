@@ -119,6 +119,28 @@ Phases, each printed as one JSON line:
    shift and the self pair against its plain version, Sedov 16 with G =
    0.5 stepped on the card against the CPU, and one periodic solve card
    vs CPU on 4,096 random particles (``checks.ewald_vs_cpu``);
+15. the turb-ve path: the turbulence case at side 100 (10^6 particles,
+   112 stirring modes) through Simulation(prop="turb-ve") in list mode,
+   one warm-up and ten timed steps (counts reset just before, read just
+   after: the six VE walks once per step attempt, K5 per build), machRMS
+   over the steps, host syncs (no more than the VE path's) and kernel
+   events a step beside the VE path's, the stirring's parts by CUDA
+   events, the host draw's time, TF32 off, the OU draw that reached the
+   card and the run's key bit for bit the host's key chain;
+16. the std-cooling path: evrard-cooling at side 125 (1,022,790
+   particles, self-gravity) through Simulation(prop="std-cooling"), CIE,
+   one warm-up and two timed steps, then one step with the evolved
+   primordial network, each counted (K1's three std ops and K12 once, K13
+   twice per step attempt), dt_cool and whether it set the step, the
+   cooling stage CIE and evolved by CUDA events, host syncs;
+17. ``turb_cooling_vs_cpu`` (``kernels/aux_checks.py``): three steps card
+   vs CPU of turb-ve (turbulence 20, list mode) and std-cooling
+   (evrard-cooling 16, CIE and evolved); ``turb_cli``: the CLI's
+   ``--init turbulence -n 30 -s 4 --prop turb-ve`` against the library's
+   run, and the restart from its step-2 dump (the library's ``.npz``:
+   the card machine has no h5py), the first restarted step to the
+   restart contract and the stirring key bit for bit, the CLI restarted
+   in a process of its own;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -126,7 +148,8 @@ SM, and on the side-100 states its times and the body-pass efficiency of
 the union rule against per-lane windows; K12's the same at Evrard 125,
 K5's at side 100),
 the {"kernels": [...]} line (K12's and K13's launches on every gravity
-path beside the Evrard path's), the nvidia-smi line, and as the last line
+path beside the Evrard path's; every entry's launches on the turb-ve and
+std-cooling paths), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
 without the rest of the repository beside it, it fails the same way.
@@ -244,6 +267,9 @@ SOURCE = {op: "sphexa_torch/csrc/pair_lists.cu" if op == "mark" or op.endswith("
 # windows with the union rule; the engines are built for one
 # (csrc/engine_window.cuh WINDOW, 256)
 PASS_WINDOWS = (128, 256, 512)
+# the VE ops' list walks: every VE list-mode step attempt launches each once
+VE_WALK = ("density_lists", "ve_def_gradh_lists", "iad_lists", "iad_divv_curlv_lists",
+           "av_switches_lists", "momentum_energy_ve_lists")
 # the gravity kernels
 TPU_KERNEL.update({"gravity_p2p": "sphexa_tpu/gravity/traversal.py:454",
                    "compact_class_lists": "sphexa_tpu/gravity/pallas_compact.py:155"})
@@ -1753,6 +1779,205 @@ def spherical_solves(sim, ss, box, keys, cfg) -> dict:
             "results": out}
 
 
+def turb_path(smi, ve_syncs: int, ve_events: float) -> dict:
+    """The turb-ve propagator at full width: Simulation(prop="turb-ve") on
+    the turbulence case at side 100 (10^6 particles, 112 stirring modes,
+    periodic box, gamma 1.001, ng0 100) in list mode, one warm-up and ten
+    timed steps with the counts reset just before and read just after
+    (the six VE walks of K6 once per step attempt, K5 at each list build,
+    K1 never); machRMS (the case's observable, in the step's ledger) over
+    the steps; its host syncs and kernel events a step against the VE
+    path's (``ve_syncs``, ``ve_events``: no more syncs); the stirring's
+    parts by CUDA events at the path's state (the OU update with the
+    host draw and its one copy, the projection, the (N, M) @ (M, 3)
+    accelerations) and the host draw's own time; TF32 off (the flag read
+    back); the OU draw that reached the card bit for bit the host's, and
+    the run's key the key chain replayed on the host. Returns the run's
+    launches."""
+    import numpy as np
+    import torch
+
+    from sphexa_torch.init import init_turbulence
+    from sphexa_torch.observables import make_observable_spec
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import hydro_turb as ht
+    from sphexa_torch.sph import threefry
+
+    t0 = time.perf_counter()
+    state, box, const = init_turbulence(100, device="cuda")
+    run = drive(lambda: Simulation(state, box, const, prop="turb-ve", device="cuda",
+                                   obs_spec=make_observable_spec("turbulence")),
+                steps=10, label="turb_path")
+    sim = run["sim"]
+    if sim.lists is None:
+        raise AssertionError("turb_path: the run streamed: no persistent lists")
+    check_launches("turb-ve list mode", run["launches"], run["attempts"], VE_WALK,
+                   run["rebuilds"])
+    syncs = count_syncs(sim)
+    if syncs["per_step"] > ve_syncs:
+        raise AssertionError(f"turb_path: {syncs['per_step']} host syncs a step, the VE "
+                             f"path {ve_syncs}")
+    prof = profile_steps(sim, 2, run["step_ms_median"])
+    # the stirring at the path's state, its parts by CUDA events
+    s, turb, cfg = sim.state, sim.turb_state, sim.turb_cfg
+    dt = s.min_dt
+    zero = torch.zeros_like(s.x)
+    parts = {
+        "update_noise": cuda_time_ms(lambda: ht.update_noise(turb, dt, cfg), reps=7),
+        "compute_phases": cuda_time_ms(lambda: ht.compute_phases(turb, cfg), reps=7),
+        "st_calc_accel": cuda_time_ms(lambda: ht.st_calc_accel(
+            s.x, s.y, s.z, turb, cfg, *ht.compute_phases(turb, cfg)), reps=7),
+        "drive_turbulence": cuda_time_ms(lambda: ht.drive_turbulence(
+            s.x, s.y, s.z, zero, zero, zero, dt, turb, cfg), reps=7)}
+    key, sub = threefry.split(turb.key)
+    t1 = time.perf_counter()
+    z_host = threefry.normal(sub, tuple(turb.phases.shape))
+    draw_ms = 1e3 * (time.perf_counter() - t1)
+    z_card = ht._to_device(z_host, s.x.device).cpu().numpy()
+    if z_card.view(np.uint32).tolist() != z_host.view(np.uint32).tolist():
+        raise AssertionError("turb_path: the OU draw on the card differs from the host's")
+    chain = ht.create_stirring_modes(1.0, device="cpu")[1].key
+    for _ in range(sim.iteration):
+        chain = threefry.split(chain)[0]
+    if not np.array_equal(chain, turb.key):
+        raise AssertionError(f"turb_path: key {turb.key} after {sim.iteration} steps, the "
+                             f"host chain {chain}")
+    mach = [d["obs_extra"] for d in run["diags"]]
+    if not all(0.0 < m < 1.0 for m in mach) or mach[-1] <= mach[0]:
+        raise AssertionError(f"turb_path: machRMS {mach}")
+    emit({**run["report"], "card": smi, "modes": cfg.num_modes, "mach_rms": mach,
+          "rebuilds": sim.rebuilds, "list_slot_cap": sim.cfg.list_slot_cap,
+          "host_syncs_per_step": syncs["per_step"], "ve_host_syncs_per_step": ve_syncs,
+          "device_events_per_step": prof["device_events_per_step"],
+          "ve_device_events_per_step": ve_events, "profile": prof,
+          "stirring_ms": parts, "host_draw_ms": draw_ms, "draw_bitwise": True,
+          "key_chain_bitwise": True, "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    return run["launches"]
+
+
+def cooling_path(smi) -> dict:
+    """The std-cooling propagator at full width: Simulation(prop=
+    "std-cooling") on evrard-cooling at side 125 (1,022,790 particles,
+    self-gravity: streaming; the reference case's units), CIE: one
+    warm-up and two timed steps with the counts reset just before and read
+    just after (the three std ops of K1 and K12 once, K13 twice per step
+    attempt); then one step with the evolved network
+    (``CoolingConfig(evolve_species=True)``) counted the same way; each
+    step's dt_cool and whether it set the step (``dt_limiter`` 3); the
+    cooling stage (its time step and source, CIE and evolved) by CUDA
+    events at the path's state; host syncs a step. The drift is reported,
+    not bounded: cooling takes energy out. Returns the runs' launches."""
+    import torch
+
+    from sphexa_torch.analysis import output_fields
+    from sphexa_torch.init import init_evrard_cooling
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.physics.cooling import CoolingConfig, cool_step, cool_timestep
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+
+    t0 = time.perf_counter()
+    state, box, const = init_evrard_cooling(125, device="cuda")
+    run = drive(lambda: Simulation(state, box, const, prop="std-cooling", device="cuda",
+                                   obs_spec=ObservableSpec()),
+                steps=2, label="cooling_path", drift_bound=None)
+    sim = run["sim"]
+    std_k1 = ("density", "iad", "momentum_energy_std", "gravity_p2p")
+    check_launches("std-cooling Evrard", run["launches"], run["attempts"], std_k1,
+                   compactions=2)
+    if sim.lists is not None:
+        raise AssertionError("cooling_path: lists on under self-gravity")
+    syncs = count_syncs(sim)
+    if syncs["per_step"] != 1:
+        raise AssertionError(f"cooling_path: {syncs['per_step']} host syncs a step")
+    evolved = CoolingConfig(gamma=const.gamma, evolve_species=True)
+    sim.cooling_cfg = evolved
+    torch.cuda.synchronize()
+    pe.reset_launches()
+    replays0 = sim.replays
+    d_ev = sim.step()
+    ev_launches = dict(pe.LAUNCHES)
+    check_launches("std-cooling Evrard evolved", ev_launches, 1 + sim.replays - replays0,
+                   std_k1, compactions=2)
+    for k in ("dt", "dt_cool", "du_cool_min", "obs_etot"):
+        if not abs(d_ev[k]) < float("inf"):
+            raise AssertionError(f"cooling_path evolved: non-finite {k}")
+    # the cooling stage at the path's state: rho from the density op
+    s = sim.state
+    rho = output_fields(s, sim.box, sim.cfg)["rho"]
+    u = const.cv * s.temp
+    stage = {}
+    for name, ccfg in (("cie", CoolingConfig(gamma=const.gamma)), ("evolved", evolved)):
+        stage[name] = {
+            "timestep_ms": cuda_time_ms(lambda: cool_timestep(rho, u, sim.chem, ccfg), reps=5),
+            "source_ms": cuda_time_ms(lambda: cool_step(s.min_dt, rho, u, sim.chem, ccfg),
+                                      reps=5)}
+    diags = run["diags"] + [d_ev]
+    emit({**run["report"], "card": smi, "host_syncs_per_step": syncs["per_step"],
+          "dt_cool": [d["dt_cool"] for d in diags],
+          "du_cool_min": [d["du_cool_min"] for d in diags],
+          "cool_set_dt": [d["dt_limiter"] == 3.0 for d in diags],
+          "dt_limiter": [d["dt_limiter"] for d in diags],
+          "egrav": [d["egrav"] for d in diags],
+          "evolved_step_ms": 1e3 * sim.last_step_seconds, "evolved_launches": ev_launches,
+          "cooling_stage_ms": stage,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    return {"cie": run["launches"], "evolved": ev_launches}
+
+
+def turb_cooling_checks(smi) -> None:
+    """Phase ``turb_cooling_vs_cpu`` (``kernels/aux_checks.py``): three
+    steps card against CPU for turb-ve (turbulence side 20, ng0 20 and
+    cell_target 16: list mode) and for std-cooling (evrard-cooling 16,
+    self-gravity, CIE and evolved); then phase ``turb_cli``: the CLI's
+    ``--init turbulence -n 30 -s 4 --prop turb-ve`` against the library's
+    run, and the restart from its step-2 dump (``aux_checks.turb_restart``:
+    the dump read back bit for bit, the first restarted step to the
+    restart contract, the stirring key bit for bit; the CLI restarted in
+    a process of its own). The card machine has no h5py, so the CLI's own
+    ``-w`` dump cannot run there: the dump is the library's ``.npz`` of
+    the fields the CLI writes."""
+    import shutil
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.kernels import aux_checks
+
+    t0 = time.perf_counter()
+    emit({**aux_checks.aux_slice_vs_cpu("turb-ve", "turbulence", 20, 3, device="cuda",
+                                        overrides={"ng0": 20, "ngmax": 70}, cell_target=16),
+          "seconds": time.perf_counter() - t0})
+    for evolve in (False, True):
+        t0 = time.perf_counter()
+        emit({**aux_checks.aux_slice_vs_cpu("std-cooling", "evrard-cooling", 16, 3,
+                                            device="cuda", evolve=evolve),
+              "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="turb_cli_")
+    try:
+        r = aux_checks.turb_restart(30, "cuda", tmp, dump_at=2, to_step=4)
+        out = os.path.join(tmp, "fresh")
+        rc = app.main(["--init", "turbulence", "-n", "30", "-s", "4", "--prop", "turb-ve",
+                       "-o", out, "--quiet"])
+        with open(os.path.join(out, "constants.txt")) as f:
+            f.readline()
+            rows = [[float(v) for v in ln.split()] for ln in f]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = r.pop("rows")
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for row, w in zip(rows, want)
+                for a, b in zip(row, [w["it"], w["t"], w["dt"], w["etot"], w["ecin"],
+                                      w["eint"], w["egrav"], w["extra"]]) if abs(b) > 1e-12)
+    if rc != 0 or len(rows) != 4 or worst > 1e-6:
+        raise AssertionError(f"turb CLI: exit {rc}, {len(rows)} rows, rel {worst} off the "
+                             "library's run")
+    emit({"phase": "turb_cli", "card": smi, "argv": "--init turbulence -n 30 -s 4 --prop turb-ve",
+          "rows": rows, "rows_rel_err_vs_library": worst, "restart": r,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1899,8 +2124,7 @@ def main() -> int:
     vsim, va = ve["sim"], ve["launches"]
     if vsim.lists is None:
         raise AssertionError("the VE path streamed: no persistent lists")
-    ve_walk = ("density_lists", "ve_def_gradh_lists", "iad_lists", "iad_divv_curlv_lists",
-               "av_switches_lists", "momentum_energy_ve_lists")
+    ve_walk = VE_WALK
     check_launches("VE list mode", va, ve["attempts"], ve_walk, ve["rebuilds"])
     ve["report"].update({
         "list_slot_cap": vsim.cfg.list_slot_cap, "rebuilds": vsim.rebuilds,
@@ -1908,11 +2132,12 @@ def main() -> int:
         "dt_limiter": [d["dt_limiter"] for d in ve["diags"]],
         "lanes_total": float(vsim.lists.lanes_total)})
     emit(ve["report"])
-    syncs = count_syncs(vsim)
-    if syncs["per_step"] != 1:
-        raise AssertionError(f"VE path: {syncs['per_step']} host syncs per step")
-    emit({**syncs, "path": "ve_lists"})
-    emit({**profile_steps(vsim, 2, ve["step_ms_median"]), "path": "ve_lists"})
+    ve_syncs = count_syncs(vsim)
+    if ve_syncs["per_step"] != 1:
+        raise AssertionError(f"VE path: {ve_syncs['per_step']} host syncs per step")
+    emit({**ve_syncs, "path": "ve_lists"})
+    ve_prof = profile_steps(vsim, 2, ve["step_ms_median"])
+    emit({**ve_prof, "path": "ve_lists"})
 
     # the VE entry points the list mode leaves out: streaming (K1 forms of
     # the AV switches and momentum) and av_clean (the list walk of
@@ -2158,6 +2383,14 @@ def main() -> int:
     # 14. Ewald periodic gravity: std Sedov 100^3 with G = 0.5
     path_launches["ewald_sedov"] = ewald_path(spec, smi)
 
+    # 15. the turb-ve path (turbulence 10^6, list mode) and 16. the
+    # std-cooling path (evrard-cooling 125, CIE and evolved); 17. their
+    # steps card vs CPU, the CLI and its restart
+    turb_launches = turb_path(smi, ve_syncs["per_step"], ve_prof["device_events_per_step"])
+    cool_launches = cooling_path(smi)
+    path_launches["cooling_evrard"] = cool_launches["cie"]
+    turb_cooling_checks(smi)
+
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
              "ve_def_gradh": pe.VE_DEF_GRADH, "iad_divv_curlv": pe.IAD_DIVV_CURLV,
@@ -2210,6 +2443,11 @@ def main() -> int:
     where["iad_divv_curlv_lists:gradv"] = (*vt["ve_avclean"], vaa, "iad_divv_curlv_lists")
     where["momentum_energy_ve_lists:av_clean"] = (*vt["ve_avclean"], vaa,
                                                   "momentum_energy_ve_lists")
+    # and beside them the launches of the turb-ve path (the six VE walks,
+    # K5) and of the std-cooling path (K1's std ops, CIE and evolved);
+    # neither runs an av_clean form (a "name:form" entry)
+    new_paths = {"turb_ve": turb_launches, "std_cooling_cie": cool_launches["cie"],
+                 "std_cooling_evolved": cool_launches["evolved"]}
     kernels = []
     for name, (r, b, launches, op) in where.items():
         kernels.append({
@@ -2218,6 +2456,8 @@ def main() -> int:
             "max_abs_err": r[op]["max_abs_err"], "ms": r[op]["ms"],
             "plain_ms": r[op]["plain_ms"], "bound_ms": b[op]["bound_ms"],
             "bound_by": b[op]["bound_by"], "library_ms": None,
+            "launches_by_path": {p: 0 if ":" in name else la.get(op, 0)
+                                 for p, la in new_paths.items()},
         })
     # the gravity kernels on the Evrard path: K12's times per launch, K13's
     # per solve (its two launches, pre-pass and blocks); their launches on
@@ -2231,7 +2471,8 @@ def main() -> int:
             "launches": ea[op], "max_abs_err": gres[op]["max_abs_err"],
             "ms": gres[op]["ms"], "plain_ms": gres[op]["plain_ms"],
             "bound_ms": gbnd[op]["bound_ms"], "bound_by": gbnd[op]["bound_by"],
-            "library_ms": gres[op]["library_ms"], "launches_by_path": by_path,
+            "library_ms": gres[op]["library_ms"],
+            "launches_by_path": {**by_path, "std_cooling_evolved": cool_launches["evolved"][op]},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

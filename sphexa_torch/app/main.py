@@ -5,6 +5,9 @@
     python -m sphexa_torch.app.main --init gresho-chan -n 50 -s 20 --prop ve [--avclean]
     python -m sphexa_torch.app.main --init evrard -n 125 -s 5 --prop ve
     python -m sphexa_torch.app.main --init evrard -n 125 -s 5 --prop nbody
+    python -m sphexa_torch.app.main --init turbulence -n 100 -s 10 --prop turb-ve [--avclean]
+    python -m sphexa_torch.app.main --init evrard-cooling -n 125 -s 5 --prop std-cooling \\
+        [--evolve-chem]
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --G 0.5
     python -m sphexa_torch.app.main --init sedov -n 100 -s 100 --check-every 8 \\
         -o out --telemetry-dir out/tel
@@ -15,10 +18,13 @@ Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
 under ``--check-every N`` the iteration count applies at every step and
 a simulated time only at check boundaries (reading the time would read
-the card mid-window). ``--prop`` is std, ve or nbody (gravity alone:
-the case needs a gravitational constant); turb-ve and std-cooling raise
-"not ported yet", as do the JAX package's cases the port lacks, and a
-name that is no case raises "unknown test case". Steps run on persistent
+the card mid-window). ``--prop`` is std, ve, turb-ve (VE with the OU
+turbulence stirring; ``--avclean`` applies to it and to ve only), std-cooling
+(std with radiative cooling; ``--evolve-chem`` evolves the primordial
+network in place of the CIE table) or nbody (gravity alone: the case
+needs a gravitational constant); another name is a usage error. The JAX
+package's cases the port lacks raise "not ported yet", and a name that
+is no case raises "unknown test case". Steps run on persistent
 neighbour lists wherever the grid allows them, as in the JAX CLI, which
 has no flag for it. A case with a gravitational constant (Evrard, or
 ``--G``) runs self-gravity, whose steps sort every time: open boxes
@@ -32,11 +38,14 @@ Dumps: ``-w`` (an integer: every N iterations; a float: every simulated
 time interval) and ``--wextra`` (one-shot iterations or times) append a
 restartable ``Step#n`` to ``<outDir>/dump_<case>.h5`` (h5py needed, as in
 the JAX CLI), with the output fields (rho, p, u, vel, c, r; ``-f`` picks
-some) recomputed by the pair engine; ``--ascii`` writes text columns
+some) recomputed by the pair engine, and the turb-ve stirring state
+(``turb_*``) or the std-cooling chemistry (``chem_*``) in the JAX
+package's names and dtypes; ``--ascii`` writes text columns
 instead (not restartable). ``--duration`` ends the run after that many
 wall seconds, with a final dump when dumps are on. ``--init
 <dump>[:step]`` restarts from a dump (the JAX package's too, ``.h5`` or
-``.npz``): the iteration count continues (an integer ``-s`` is the end
+``.npz``; a dump's stirring state or chemistry resumes with its
+propagator): the iteration count continues (an integer ``-s`` is the end
 iteration), the case and its settings come from the dump, dumps append
 to the case's file and ``constants.txt`` loses its rows past the
 restart point. ``--init <dump>,N`` up-samples a dump N-fold, ``--init
@@ -66,7 +75,13 @@ from sphexa_torch.init.file_init import looks_like_file, parse_file_spec
 from sphexa_torch.io import read_snapshot_full, write_ascii, write_snapshot
 from sphexa_torch.io.snapshot import CONSERVED_FIELDS, _find_parts
 from sphexa_torch.observables import ConstantsWriter, make_observable, make_observable_spec
+from sphexa_torch.physics.cooling import (
+    CoolingConfig, chemistry_from_fields, chemistry_to_fields,
+)
 from sphexa_torch.simulation import _STEPS, Simulation
+from sphexa_torch.sph.hydro_turb import (
+    turbulence_state_from_fields, turbulence_state_to_fields,
+)
 from sphexa_torch.telemetry import (
     FlightRecorder, JsonlSink, Telemetry, emit_memory_event, write_manifest,
 )
@@ -76,10 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sphexa-torch",
         description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std and VE SPH, "
-                    "self-gravity, N-body)",
+                    "turbulence stirring, radiative cooling, self-gravity, N-body)",
     )
     p.add_argument("--init", default="sedov",
-                   help="test case name (sedov, noh, gresho-chan, evrard), "
+                   help="test case name (sedov, noh, gresho-chan, evrard, turbulence, "
+                        "evrard-cooling), "
                         "case:settings.json, a dump to restart from (path[:step]) "
                         "or path,N to up-sample one")
     p.add_argument("-n", type=int, default=50, dest="side",
@@ -94,9 +110,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(comma-separated; default all)")
     p.add_argument("-o", "--outDir", default=".", dest="out_dir",
                    help="output directory (constants.txt, dumps)")
-    p.add_argument("--prop", default="std", help="propagator (std, ve, nbody)")
+    p.add_argument("--prop", default="std",
+                   help="propagator: std | ve | turb-ve | std-cooling | nbody")
     p.add_argument("--avclean", action="store_true",
-                   help="VE: the velocity-gradient correction of the viscosity")
+                   help="ve, turb-ve: the velocity-gradient correction of the viscosity")
+    p.add_argument("--evolve-chem", action="store_true", dest="evolve_chem",
+                   help="std-cooling: evolve the 6-species primordial network (species "
+                        "ODEs and composition-resolved cooling) in place of the CIE table")
     p.add_argument("--theta", type=float, default=0.5,
                    help="gravity MAC accuracy parameter [0.5]")
     p.add_argument("--G", type=float, default=None, dest="grav_constant",
@@ -137,7 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.prop not in _STEPS:
-        raise NotImplementedError(f"--prop {args.prop!r}: not ported yet")
+        print(f"unknown --prop {args.prop!r}; available: {sorted(_STEPS)}", file=sys.stderr)
+        return 2
+    if args.avclean and args.prop not in ("ve", "turb-ve"):
+        print("--avclean only applies to --prop ve | turb-ve; ignoring", file=sys.stderr)
     nan = float("nan")
 
     def log(line: str) -> None:
@@ -162,14 +185,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     # make_initializer; a restart reads the snapshot once
     is_restart = args.init not in CASES and looks_like_file(args.init)
     restart_iteration = 0
+    turb_state, turb_cfg, chem = None, None, None
     if is_restart:
-        state, box, const, _extra, attrs = read_snapshot_full(
+        state, box, const, extra, attrs = read_snapshot_full(
             *parse_file_spec(args.init), device=args.device)
         restart_iteration = int(attrs.get("iteration", 0))
         case_name = np.asarray(attrs["initCase"]).item().decode() if "initCase" in attrs else ""
         if case_overrides is None and "caseSettings" in attrs:
             # threshold-bearing observables see the original run's overrides
             case_overrides = json.loads(np.asarray(attrs["caseSettings"]).item().decode())
+        # the propagator's aux state resumes: the chemistry, or the OU
+        # stirring's phases, key and config (turb_ve.hpp:88-97)
+        if args.prop == "std-cooling" and "chem_hi" in extra:
+            chem = chemistry_from_fields(extra, device=state.x.device)
+        if args.prop == "turb-ve" and "turb_phases" in extra:
+            turb_state, turb_cfg = turbulence_state_from_fields(extra, device=state.x.device)
     else:
         try:
             initializer = make_initializer(args.init)
@@ -181,6 +211,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         const = dataclasses.replace(const, g=args.grav_constant)
     if args.sym_pairs is not None:
         const = dataclasses.replace(const, sym_pairs=(args.sym_pairs == "on"))
+    cooling_cfg = None
+    if args.prop == "std-cooling" and args.evolve_chem:
+        cooling_cfg = CoolingConfig(gamma=const.gamma, evolve_species=True)
 
     # the observable names the constants.txt columns; the values come
     # from the step's ledger (the matching ObservableSpec)
@@ -196,7 +229,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         recorder.install()
     try:
         sim = Simulation(state, box, const, prop=args.prop, device=args.device,
-                         av_clean=args.avclean, check_every=args.check_every,
+                         av_clean=args.avclean and args.prop in ("ve", "turb-ve"),
+                         turb_state=turb_state, turb_cfg=turb_cfg, chem=chem,
+                         cooling_cfg=cooling_cfg, check_every=args.check_every,
                          obs_spec=make_observable_spec(case_name, overrides=case_overrides),
                          telemetry=telemetry, science_rows=True,
                          drift_budget=args.drift_budget, theta=args.theta,
@@ -290,7 +325,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         density estimator."""
         last_dump_iteration[0] = it
         extra = compute_output_fields(sim.state, sim.box, sim.cfg,
-                                      pipeline="ve" if args.prop == "ve" else "std")
+                                      pipeline="ve" if args.prop in ("ve", "turb-ve") else "std")
         if want_fields:
             unknown = [f for f in want_fields if f not in extra]
             if unknown:
@@ -303,6 +338,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             write_ascii(path, cols)
             log(f"# wrote ASCII dump -> {path} (not restartable)")
             return
+        if sim.turb_state is not None:
+            extra = {**extra, **turbulence_state_to_fields(sim.turb_state, sim.turb_cfg)}
+        if sim.chem is not None:
+            extra = {**extra, **chemistry_to_fields(sim.chem)}
         step = write_snapshot(dump_path, sim.state, sim.box, sim.const, iteration=it,
                               extra_fields=extra, case=case_name,
                               case_settings=case_overrides)

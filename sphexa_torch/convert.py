@@ -4,8 +4,11 @@
 from the fields of the JAX package's counterparts handed over as numpy
 arrays and plain values; ``state_to_numpy`` goes back; ``tree_from_numpy``
 builds the port's gravity tree from the JAX package's GravityTree arrays,
-so that both packages can solve on one tree. None imports the JAX
-package: the caller flattens its objects into dicts.
+so that both packages can solve on one tree; ``turbulence_from_numpy``
+and ``chemistry_from_numpy`` build the turb-ve and std-cooling steps' aux
+state (TurbulenceState and TurbulenceConfig, ChemistryData) from the
+JAX package's fields. None imports the JAX package: the caller flattens
+its objects into dicts.
 """
 
 import dataclasses
@@ -15,7 +18,9 @@ import numpy as np
 import torch
 
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
+from sphexa_torch.physics.cooling import CHEM_FIELDS, ChemistryData
 from sphexa_torch.sfc.box import BoundaryType, Box
+from sphexa_torch.sph.hydro_turb import TurbulenceConfig, TurbulenceState
 from sphexa_torch.sph.particles import (
     PARTICLE_FIELDS, SCALAR_FIELDS, ParticleState, SimConstants,
 )
@@ -62,3 +67,21 @@ def tree_from_numpy(arrays: Dict, meta: Dict, device) -> Tuple[GravityTree, Grav
     m = GravityTreeMeta(num_leaves=int(meta["num_leaves"]), num_nodes=int(meta["num_nodes"]),
                         level_ranges=tuple((int(a), int(b)) for a, b in meta["level_ranges"]))
     return tree, m
+
+
+def turbulence_from_numpy(state: Dict, cfg: Dict, device
+                          ) -> Tuple[TurbulenceState, TurbulenceConfig]:
+    """``state``: modes (M, 3), amplitudes (M,), phases (M, 3, 2) and the
+    raw key (2,) as numpy arrays (the key as uint32); ``cfg``: every
+    TurbulenceConfig field name -> value."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32).copy(), device=device)
+    turb = TurbulenceState(modes=f32(state["modes"]), amplitudes=f32(state["amplitudes"]),
+                           phases=f32(state["phases"]),
+                           key=np.asarray(state["key"], np.uint32).copy())
+    return turb, TurbulenceConfig(**cfg)
+
+
+def chemistry_from_numpy(fields: Dict, device) -> ChemistryData:
+    """``fields``: every ChemistryData field name -> (n,) numpy array."""
+    return ChemistryData(**{k: torch.as_tensor(np.asarray(fields[k], np.float32).copy(),
+                                               device=device) for k in CHEM_FIELDS})

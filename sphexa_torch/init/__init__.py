@@ -1,15 +1,17 @@
 """Initial conditions of the port (sphexa_tpu/init): the Sedov, Noh,
-Gresho-Chan and Evrard cases, restart from a snapshot file, and the
-case factory ``make_initializer`` keyed by the reference CLI's names."""
+Gresho-Chan, Evrard, turbulence and Evrard-cooling cases, restart from a
+snapshot file, and the case factory ``make_initializer`` keyed by the
+reference CLI's names."""
 
 import functools
 import json
 from typing import Callable, Dict
 
-from sphexa_torch.init.evrard import init_evrard
+from sphexa_torch.init.evrard import init_evrard, init_evrard_cooling
 from sphexa_torch.init.gresho_chan import init_gresho_chan
 from sphexa_torch.init.noh import init_noh
 from sphexa_torch.init.sedov import init_sedov, jitter_sedov, stretch_box
+from sphexa_torch.init.turbulence import init_turbulence
 
 # case name -> init function: the ported cases of the JAX package's CASES
 CASES: Dict[str, Callable] = {
@@ -17,6 +19,8 @@ CASES: Dict[str, Callable] = {
     "noh": init_noh,
     "evrard": init_evrard,
     "gresho-chan": init_gresho_chan,
+    "turbulence": init_turbulence,
+    "evrard-cooling": init_evrard_cooling,
 }
 
 #: every case name of the JAX package (the reference's --init choices,
@@ -78,5 +82,6 @@ def make_initializer(name: str) -> Callable:
         "snapshot file)")
 
 
-__all__ = ["CASES", "make_initializer", "split_case_spec", "init_evrard", "init_gresho_chan",
-           "init_noh", "init_sedov", "jitter_sedov", "stretch_box"]
+__all__ = ["CASES", "make_initializer", "split_case_spec", "init_evrard",
+           "init_evrard_cooling", "init_gresho_chan", "init_noh", "init_sedov",
+           "init_turbulence", "jitter_sedov", "stretch_box"]

@@ -1,7 +1,7 @@
 """Evrard adiabatic collapse (sphexa_tpu/init/evrard.py): a cold,
 self-gravitating gas sphere with rho ~ 1/r in an open box, the standard
 test of hydrodynamics with self-gravity (it collapses, bounces, and a
-shock runs outward). The fields are built in numpy exactly as the JAX
+shock runs outward), and its cooling twin. The fields are built in numpy exactly as the JAX
 package builds them, then moved to the device."""
 
 from typing import Dict, Optional, Tuple
@@ -22,6 +22,16 @@ def evrard_constants() -> Dict[str, float]:
         "u0": 0.05, "minDt": 1e-4, "minDt_m1": 1e-4, "mui": 10.0,
         "ng0": 100, "ngmax": 150,
     }
+
+
+def init_evrard_cooling(side: int, overrides: Optional[Dict[str, float]] = None,
+                        device=None) -> Tuple[ParticleState, Box, SimConstants]:
+    """Evrard collapse with radiative cooling (run with --prop
+    std-cooling): the fields are init_evrard's. The cooling unit system
+    of the reference case (m_code_in_ms 1e16, l_code_in_kpc 46400,
+    evrard_cooling_init.hpp:59-60) is physics.cooling.CoolingConfig's
+    default; Simulation(cooling_cfg=...) takes another."""
+    return init_evrard(side, overrides, device=device)
 
 
 def init_evrard(side: int, overrides: Optional[Dict[str, float]] = None,

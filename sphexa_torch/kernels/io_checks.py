@@ -224,10 +224,10 @@ def l1_misses(r: dict) -> list:
 
 
 def cli_restart(dump: str, out_dir: str, to_step: int, device,
-                check_every: int = 8, timeout: int = 600) -> dict:
+                check_every: int = 8, timeout: int = 600, prop: str = "std") -> dict:
     """``python -m sphexa_torch.app.main --init <dump> -s <to_step> -o
-    <out_dir> --telemetry-dir <out_dir>/tel --check-every N`` in a process
-    of its own, from the repository's root. Checks: ``constants.txt``
+    <out_dir> --telemetry-dir <out_dir>/tel --check-every N --prop <prop>``
+    in a process of its own, from the repository's root. Checks: ``constants.txt``
     holds the rows after the dump's iteration up to ``to_step``; the
     manifest parses and names the run's device (on the card, the card);
     every event line parses and carries the schema version; the memory
@@ -235,7 +235,8 @@ def cli_restart(dump: str, out_dir: str, to_step: int, device,
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     tel = os.path.join(out_dir, "tel")
     cmd = [sys.executable, "-m", "sphexa_torch.app.main", "--init", dump, "-s", str(to_step),
-           "-o", out_dir, "--telemetry-dir", tel, "--check-every", str(check_every)]
+           "-o", out_dir, "--telemetry-dir", tel, "--check-every", str(check_every),
+           "--prop", prop]
     on_card = torch.device(device).type == "cuda"
     if not on_card:
         cmd += ["--device", "cpu"]

@@ -17,9 +17,15 @@ not under gravity) a steady step runs in the order frozen at the last
 lists' remaining skin (``list_slack``) and whether they still cover its
 input (``list_ok``). With ``cfg.obs`` set the step tail also computes
 the science ledger (observables/ledger.py) over the post-integration
-state. PyTorch runs it eagerly; the pair ops launch the CUDA kernels on
-the card and their plain versions on the CPU. Turbulence stirring,
-cooling and block time steps are not ported.
+state. The turb-ve step (``_step_turb_ve``) adds the OU stirring
+(sph/hydro_turb.py) to the VE step's accelerations; the std-cooling step
+(``_step_hydro_std_cooling``) adds the cooling time to the std step's dt
+candidates and the cooling source to du (physics/cooling.py), and its
+per-particle chemistry rides the sort: ``_sort_by_keys``,
+``rebuild_pair_lists`` and the force stages' prologue take it as
+``aux`` and permute it by the same gather as the state. PyTorch runs the
+steps eagerly; the pair ops launch the CUDA kernels on the card and their
+plain versions on the CPU. Block time steps are not ported.
 """
 
 import dataclasses
@@ -33,16 +39,19 @@ from sphexa_torch.gravity.traversal import GravityConfig, compute_gravity
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.observables.ledger import ObservableSpec, ledger_diagnostics
+from sphexa_torch.physics.cooling import CoolingConfig, cool_step, cool_timestep
 from sphexa_torch.sfc.box import Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
 from sphexa_torch.sph.hydro_std import compute_eos_std
+from sphexa_torch.sph.hydro_turb import TurbulenceConfig, drive_turbulence
 from sphexa_torch.sph.hydro_ve import compute_eos_ve
 from sphexa_torch.sph.kernels import update_h
 from sphexa_torch.sph.particles import PARTICLE_FIELDS, ParticleState, SimConstants
 from sphexa_torch.sph.positions import compute_positions
 from sphexa_torch.sph.timestep import acceleration_timestep, compute_timestep, rho_timestep
+from sphexa_torch.state import SimState
 
 #: the scalar diagnostics every step emits (``_integrate_and_finish`` is
 #: their one producer); the others (egrav, list_slack, the ledger's
@@ -91,48 +100,61 @@ def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
     return torch.argmin(stack).to(torch.int32)
 
 
-def _sort_by_keys(state: ParticleState, box: Box, curve: str):
+def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None):
     """Global SFC sort: keys, a stable argsort (jnp.argsort is stable), and
     a row gather of the per-particle fields stacked into one (n, F) matrix
-    (the JAX package's permute_tree). Returns (state, sorted_keys, order)."""
+    (the JAX package's permute_tree). Returns (state, sorted_keys, order);
+    with ``aux`` (a dataclass of (n,) float32 tensors, such as the
+    ChemistryData) its columns join the same gather and the permuted aux
+    comes fourth."""
     keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
     order = torch.argsort(keys, stable=True)
-    mat = torch.stack([getattr(state, f) for f in PARTICLE_FIELDS], dim=1)
-    mat = mat.index_select(0, order)
-    fields = {f: mat[:, k].contiguous() for k, f in enumerate(PARTICLE_FIELDS)}
-    new = dataclasses.replace(state, **fields)
-    return new, keys[order], order
+    aux_names = [] if aux is None else [f.name for f in dataclasses.fields(aux)]
+    cols = [getattr(state, f) for f in PARTICLE_FIELDS] + [getattr(aux, f) for f in aux_names]
+    mat = torch.stack(cols, dim=1).index_select(0, order)
+    nf = len(PARTICLE_FIELDS)
+    new = dataclasses.replace(state, **{f: mat[:, k].contiguous()
+                                        for k, f in enumerate(PARTICLE_FIELDS)})
+    if aux is None:
+        return new, keys[order], order
+    aux = dataclasses.replace(aux, **{f: mat[:, nf + k].contiguous()
+                                      for k, f in enumerate(aux_names)})
+    return new, keys[order], order, aux
 
 
-def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig):
+def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig, aux=None):
     """Persistent-list rebuild: box regrow + global sort + list build. The
     returned state is the frozen sorted order every steady step runs in
     until the next rebuild. The skin follows the current h_max, computed
     in float32 in the JAX package's order: (f32(list_skin_rel) * 2) * max h.
-    Returns (state, box, lists)."""
+    Returns (state, box, lists), and with ``aux`` (permuted as the state,
+    ``_sort_by_keys``) (state, box, lists, aux)."""
     box = make_global_box(state.x, state.y, state.z, box)
-    state, keys, _ = _sort_by_keys(state, box, cfg.curve)
+    state, keys, _, *rest = _sort_by_keys(state, box, cfg.curve, aux=aux)
     skin = torch.max(state.h) * float(np.float32(cfg.list_skin_rel) * np.float32(2.0))
     lists = build_pair_lists(state.x, state.y, state.z, state.h, keys, box, cfg.nbr,
                              skin, cfg.list_slot_cap)
-    return state, box, lists
+    return (state, box, lists, *rest)
 
 
 def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
-                          lists: Optional[PairLists] = None):
+                          lists: Optional[PairLists] = None, aux=None):
     """Head of the force stage. Streaming: box regrow + global sort. List
     mode: nothing moves; the lists' validity for this step's input.
-    Returns (state, box, sorted_keys or None, list diagnostics or None)."""
+    Returns (state, box, sorted_keys or None, list diagnostics or None),
+    and with ``aux`` (sorted with the state, ``_sort_by_keys``; in list
+    mode as it is) the aux fifth."""
+    tail = () if aux is None else (aux,)
     if lists is not None:
         if cfg.gravity is not None:
             raise NotImplementedError("persistent lists compose with gravity-off steps; "
                                       "gravity runs sort every step")
         slack = list_slack(state.x, state.y, state.z, state.h, lists)
-        return state, box, None, {"list_slack": slack,
-                                  "list_ok": (slack >= 0.0).to(torch.int32)}
+        return (state, box, None, {"list_slack": slack,
+                                   "list_ok": (slack >= 0.0).to(torch.int32)}, *tail)
     box = make_global_box(state.x, state.y, state.z, box)
-    state, keys, _ = _sort_by_keys(state, box, cfg.curve)
-    return state, box, keys, None
+    state, keys, _, *tail = _sort_by_keys(state, box, cfg.curve, aux=aux)
+    return (state, box, keys, None, *tail)
 
 
 def _add_gravity(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
@@ -163,16 +185,18 @@ def _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az, diag):
 
 
 def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
-                gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
+                gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None,
+                aux=None):
     """The std-SPH force stage: [sort -> prologue ->] density -> EOS -> IAD
     -> momentum/energy [-> gravity]; with ``lists`` every pair op walks
     the lists' marked lanes, and the density walk keeps its mask for the
     later walks (``pair_engine.engine_lists_kernel``'s mask modes: the
-    positions and smoothing lengths are the same). Returns (state, box,
-    ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diagnostics or
-    None)."""
+    positions and smoothing lengths are the same). ``aux``: per-particle
+    fields sorted with the state (the cooling step's chemistry). Returns
+    (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c,
+    diagnostics or None, aux)."""
     const = cfg.const
-    state, box, keys, diag = _force_stage_prologue(state, box, cfg, lists)
+    state, box, keys, diag, *rest = _force_stage_prologue(state, box, cfg, lists, aux=aux)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
         pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
@@ -189,7 +213,7 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     ax, ay, az, extra_dts, diag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                 diag)
     return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, ranges.occupancy,
-            rho, c, diag)
+            rho, c, diag, *(rest or [None]))
 
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -245,12 +269,39 @@ def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
     ``lists`` a steady list-mode step; ``gtree``: the gravity tree when
     ``cfg.gravity`` is set. Returns (new_state, new_box, diagnostics)."""
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho,
-     c, diag) = _std_forces(state, box, cfg, gtree, lists)
+     c, diag, _) = _std_forces(state, box, cfg, gtree, lists)
     dt = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=cfg.const)
     limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant,
                           accel=extra_dts[0] if extra_dts else None)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ,
                                  rho, dt_limiter=limiter, extra_diag=diag, c=c)
+
+
+def _step_hydro_std_cooling(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                            gtree: Optional[GravityTree], chem, cool_cfg: CoolingConfig,
+                            lists: Optional[PairLists] = None):
+    """One std-SPH step with radiative cooling (HydroGrackleProp::step,
+    std_hydro_grackle.hpp:193-233): the std force stage, with the
+    chemistry sorted along -> the time step with the cooling-time
+    candidate -> the cooling source (the evolved network advances the
+    species too) added to du -> positions and the smoothing-length
+    update; ``dt_cool`` and ``du_cool_min`` join the diagnostics. Returns
+    (new_state, new_box, diagnostics, chemistry)."""
+    const = cfg.const
+    (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diag,
+     chem) = _std_forces(state, box, cfg, gtree, lists, aux=chem)
+    u = const.cv * state.temp
+    dt_cool = cool_timestep(rho, u, chem, cool_cfg)
+    dt = compute_timestep(state.min_dt, dt_courant, dt_cool, *extra_dts, const=const)
+    du_cool, chem = cool_step(dt, rho, u, chem, cool_cfg)
+    du = du + du_cool
+    diag = {**(diag or {}), "dt_cool": dt_cool, "du_cool_min": torch.min(du_cool)}
+    limiter = _dt_limiter(state.min_dt, const, courant=dt_courant, cool=dt_cool,
+                          accel=extra_dts[0] if extra_dts else None)
+    new_state, box, diagnostics = _integrate_and_finish(
+        state, box, cfg, ax, ay, az, du, dt, nc, occ, rho, dt_limiter=limiter,
+        extra_diag=diag, c=c)
+    return new_state, box, diagnostics, chem
 
 
 def _split_dvout(dvout, av_clean: bool):
@@ -318,6 +369,24 @@ def _step_hydro_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
                                  extra_diag=diag, extra={"alpha": alpha}, c=c)
 
 
+def _step_turb_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                  gtree: Optional[GravityTree], turb, turb_cfg: TurbulenceConfig,
+                  lists: Optional[PairLists] = None):
+    """One stirred VE step (TurbVeProp::step, turb_ve.hpp:70-86): the VE
+    force stage and time step -> the OU stirring accelerations (the
+    step's dt damps the phases) -> positions and the smoothing-length
+    update. Returns (new_state, new_box, diagnostics, the advanced
+    TurbulenceState)."""
+    (state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c,
+     diag) = _ve_forces(state, box, cfg, gtree, lists)
+    ax, ay, az, turb = drive_turbulence(state.x, state.y, state.z, ax, ay, az, dt, turb,
+                                        turb_cfg)
+    new_state, box, diagnostics = _integrate_and_finish(
+        state, box, cfg, ax, ay, az, du, dt, nc, occ, rho, extra_diag=diag,
+        extra={"alpha": alpha}, c=c)
+    return new_state, box, diagnostics, turb
+
+
 def _step_nbody(state: ParticleState, box: Box, cfg: PropagatorConfig,
                 gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
     """One gravity-only N-body step (main/src/propagator/nbody.hpp:51-156):
@@ -342,3 +411,23 @@ def _step_nbody(state: ParticleState, box: Box, cfg: PropagatorConfig,
     return _integrate_and_finish(state, box, cfg, ax, ay, az, zero, dt, nc, occ, zero,
                                  dt_limiter=limiter, extra_diag={**gdiag, "egrav": egrav},
                                  update_smoothing=False)
+
+
+#: step function -> the SimState aux slot it consumes and produces (the
+#: JAX package's STEP_AUX_SLOT); such a step also takes its slot's static
+#: config (TurbulenceConfig, CoolingConfig) after the aux
+STEP_AUX_SLOT = {_step_turb_ve: "turb", _step_hydro_std_cooling: "chem"}
+
+
+def step_sim_state(step_fn, sim: SimState, cfg: PropagatorConfig, gtree=None, aux_cfg=None,
+                   lists: Optional[PairLists] = None):
+    """Advance one step on a SimState carry: the carry mapped onto
+    ``step_fn``'s arguments and its outputs folded back, only the slot the
+    step owns replaced. Returns (new SimState, diagnostics)."""
+    slot = STEP_AUX_SLOT.get(step_fn)
+    if slot is None:
+        s, b, diag = step_fn(sim.particles, sim.box, cfg, gtree, lists=lists)
+        return sim.with_slot(None, None, particles=s, box=b), diag
+    s, b, diag, aux = step_fn(sim.particles, sim.box, cfg, gtree, getattr(sim, slot), aux_cfg,
+                              lists=lists)
+    return sim.with_slot(slot, aux, particles=s, box=b), diag

@@ -1,9 +1,11 @@
-"""Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE and
-N-body propagators on one card): static neighbour-config sizing, the
-gravity tree and its caps (open-box or Ewald periodic gravity), the step
-loop with the overflow contract, deferred check windows with rollback
-and replay, the persistent-list lifecycle, the science ledger's rows and
-watchdogs, and the driver's telemetry events."""
+"""Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE,
+turb-ve, std-cooling and N-body propagators on one card): static
+neighbour-config sizing, the gravity tree and its caps (open-box or
+Ewald periodic gravity), the step loop with the overflow contract,
+deferred check windows with rollback and replay of the whole carry (the
+stirring state and the chemistry included), the persistent-list
+lifecycle, the science ledger's rows and watchdogs, and the driver's
+telemetry events."""
 
 import dataclasses
 import time
@@ -19,17 +21,20 @@ from sphexa_torch.gravity.traversal import (
     GRAV_BUCKET, M2P_CAP_MARGIN, THETA, GravityConfig, estimate_gravity_caps, gravity_tuning,
 )
 from sphexa_torch.gravity.tree import linkage_from_leaves
+from sphexa_torch.init.turbulence import turbulence_constants
 from sphexa_torch.neighbors.cell_list import (
     NeighborConfig, choose_grid_level, pad_cap, window_cells,
 )
+from sphexa_torch.physics.cooling import ChemistryData, CoolingConfig
 from sphexa_torch.propagator import (
-    DT_LIMITERS, PropagatorConfig, _step_hydro_std, _step_hydro_ve, _step_nbody,
-    rebuild_pair_lists,
+    DT_LIMITERS, STEP_AUX_SLOT, PropagatorConfig, _step_hydro_std, _step_hydro_std_cooling,
+    _step_hydro_ve, _step_nbody, _step_turb_ve, rebuild_pair_lists, step_sim_state,
 )
 from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph.pair_engine import engine_fold
+from sphexa_torch.sph.hydro_turb import create_stirring_modes
 from sphexa_torch.sph.pair_lists import estimate_slot_cap
 from sphexa_torch.sph.particles import ParticleState, SimConstants
 from sphexa_torch.state import SimState
@@ -39,8 +44,9 @@ from sphexa_torch.telemetry import Telemetry, emit_memory_event
 _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
              "list_skin_rel": 0.2}
 
-#: the ported propagators' step functions
-_STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve, "nbody": _step_nbody}
+#: the propagators' step functions (the JAX package's _PROPAGATORS)
+_STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve, "turb-ve": _step_turb_ve,
+          "std-cooling": _step_hydro_std_cooling, "nbody": _step_nbody}
 
 
 def _max_cell_occupancy(sorted_keys: np.ndarray, level: int) -> int:
@@ -170,8 +176,18 @@ class Simulation:
 
     ``prop``: "std" or "ve" (``av_clean`` adds the VE viscosity's
     velocity-gradient correction), with the same list lifecycle and
-    overflow contract, or "nbody" (gravity alone; it needs ``const.g`` and
-    skips the SPH sizing, the lists and the h check). ``device=None``
+    overflow contract; "turb-ve", the VE step with the OU stirring, whose
+    state (``turb_state`` and ``turb_cfg``, else built from the
+    turbulence case's settings updated by ``turb_settings`` and the box's
+    largest edge) is the carry's ``turb`` slot; "std-cooling", the std
+    step with radiative cooling (``cooling_cfg``, default
+    ``CoolingConfig(gamma=const.gamma)``), whose per-particle chemistry
+    (``chem``, default fully ionized) is the carry's ``chem`` slot and
+    rides every sort and list rebuild; or "nbody" (gravity alone; it
+    needs ``const.g`` and skips the SPH sizing, the lists and the h
+    check). A deferred window pins the whole carry, aux slots included:
+    a rollback restores the stirring's key and phases and the chemistry,
+    and the replay draws the same noise. ``device=None``
     runs on the CUDA device and raises without one; ``device="cpu"`` runs
     the plain PyTorch versions of the kernels.
 
@@ -197,9 +213,12 @@ class Simulation:
                  check_every: int = 1, obs_spec=None,
                  telemetry: Optional[Telemetry] = None, science_rows: bool = False,
                  drift_budget: Optional[float] = None, theta: float = THETA,
-                 m2p_cap_margin: Optional[float] = None):
+                 m2p_cap_margin: Optional[float] = None, turb_cfg=None, turb_state=None,
+                 turb_settings: Optional[Dict] = None,
+                 cooling_cfg: Optional[CoolingConfig] = None,
+                 chem: Optional[ChemistryData] = None):
         if prop not in _STEPS:
-            raise NotImplementedError(f"--prop {prop!r}: not ported yet")
+            raise ValueError(f"unknown propagator {prop!r}; available: {sorted(_STEPS)}")
         if prop == "nbody" and const.g == 0.0:
             raise ValueError(
                 "prop='nbody' needs a gravitational constant: set SimConstants(g=...)")
@@ -231,6 +250,31 @@ class Simulation:
         self.state = state.to(self.device)
         self.box = box.to(self.device)
         self.const = const
+        # the turbulence stirring (turb-ve): built from the case settings
+        # unless a (cfg, state) pair is given, e.g. restored from a dump; a
+        # given state keeps the config derived here when no cfg comes with it
+        self.turb_cfg, self.turb_state = turb_cfg, turb_state
+        if prop == "turb-ve" and self.turb_cfg is None:
+            st = dict(turbulence_constants(), **(turb_settings or {}))
+            self.turb_cfg, fresh = create_stirring_modes(
+                lbox=float(self.box.lengths.max()), st_max_modes=int(st["stMaxModes"]),
+                energy_prefac=st["stEnergyPrefac"], mach_velocity=st["stMachVelocity"],
+                sol_weight=st["solWeight"], spect_form=int(st["stSpectForm"]),
+                seed=int(st["rngSeed"]), power_law_exp=float(st.get("powerLawExp", 5.0 / 3.0)),
+                angles_exp=float(st.get("anglesExp", 2.0)), device=self.device)
+            if self.turb_state is None:
+                self.turb_state = fresh
+        if self.turb_state is not None:
+            self.turb_state = self.turb_state.to(self.device)
+        # radiative cooling (std-cooling): the reduced CIE model
+        self.cooling_cfg, self.chem = cooling_cfg, chem
+        if prop == "std-cooling":
+            if self.cooling_cfg is None:
+                self.cooling_cfg = CoolingConfig(gamma=const.gamma)
+            if self.chem is None:
+                self.chem = ChemistryData.ionized(state.n, device=self.device)
+        if self.chem is not None:
+            self.chem = self.chem.to(self.device)
         self.curve = curve
         self.cell_target = cell_target
         self.iteration = 0
@@ -281,14 +325,23 @@ class Simulation:
     @property
     def sim_state(self) -> SimState:
         """The driver's state as the carry every launch consumes and
-        returns (no aux slot is ported yet)."""
-        return SimState(particles=self.state, box=self.box)
+        returns, the stirring and the chemistry in their slots."""
+        return SimState(particles=self.state, box=self.box, turb=self.turb_state,
+                        chem=self.chem)
 
     def _set_sim_state(self, sim: SimState) -> None:
         """Write a carry back onto the driver: the one commit point for
         step outputs and window rollbacks."""
         self.state = sim.particles
         self.box = sim.box
+        self.turb_state = sim.turb
+        self.chem = sim.chem
+
+    @property
+    def _aux_cfg(self):
+        """The static config of the active propagator's aux slot."""
+        return {"turb": self.turb_cfg, "chem": self.cooling_cfg}.get(
+            STEP_AUX_SLOT.get(self._step_fn))
 
     def _configure(self, min_cap: int = 0, grav_margin: float = 1.5,
                    reason: str = "reconfigure") -> None:
@@ -384,20 +437,23 @@ class Simulation:
             self._rebuild_lists()
 
     def _rebuild_lists(self) -> None:
-        """(Re)build the lists: regrow, sort, mark. Host reads: the
-        overflow sentinel, and on the card the size of the list walk's
-        mask-word buffer; a slot overflow grows the slot margin 1.5x and
-        re-sizes, at most three times."""
+        """(Re)build the lists: regrow, sort (the chemistry permuted with
+        the state), mark. Host reads: the overflow sentinel, and on the
+        card the size of the list walk's mask-word buffer; a slot overflow
+        grows the slot margin 1.5x and re-sizes, at most three times."""
         self.telemetry.event("rebuild_lists", it=self.iteration)
         for _ in range(3):
             if not self._use_lists:
                 return  # a re-size left the grid without lists: stream
             with self.telemetry.annotate("sphexa:rebuild-lists"):
-                state, box, lists = rebuild_pair_lists(self.state, self.box, self._cfg)
+                state, box, lists, *chem = rebuild_pair_lists(self.state, self.box,
+                                                               self._cfg, aux=self.chem)
                 self.rebuilds += 1
                 overflow = int(lists.overflow)
             if not overflow:
                 self.state, self.box, self._lists = state, box, lists
+                if chem:
+                    self.chem = chem[0]
                 return
             self._slot_margin *= 1.5
             self._configure(reason="list-slot")
@@ -413,9 +469,9 @@ class Simulation:
             if self._use_lists and self._lists is None:
                 self._rebuild_lists()
             lists = self._lists if self._use_lists else None
-            new_state, new_box, diag = self._step_fn(self.state, self.box, self._cfg,
-                                                     self._gtree, lists=lists)
-            named = {**diag, "min_length": new_box.lengths.min()}
+            sim, diag = step_sim_state(self._step_fn, self.sim_state, self._cfg, self._gtree,
+                                       self._aux_cfg, lists=lists)
+            named = {**diag, "min_length": sim.box.lengths.min()}
             # packed a dtype at a time: a stack and a conversion each,
             # where one per scalar would add some twenty launches a step
             by_dtype: Dict[torch.dtype, list] = {}
@@ -424,7 +480,7 @@ class Simulation:
             names = tuple(k for ks in by_dtype.values() for k in ks)
             packed = torch.cat([torch.stack([named[k] for k in ks]).to(torch.float64)
                                 for ks in by_dtype.values()])
-        return SimState(particles=new_state, box=new_box), names, packed, lists is not None
+        return sim, names, packed, lists is not None
 
     def _fetch_scalars(self, entries) -> List[Dict[str, float]]:
         """One device-to-host read of the scalars of every step in

@@ -22,7 +22,9 @@ pair) against their plain versions (sphexa_torch/kernels/checks.py,
 shared with chip_smoke.py), a whole solve on the card against the CPU in
 both compactions (Evrard 30), and a VE Evrard Simulation step; N-body
 steps (Evrard 20, a Plummer sphere), an Ewald solve (Sedov 16) and
-spherical order-4 and order-6 solves on the card against the CPU."""
+spherical order-4 and order-6 solves on the card against the CPU.
+turb-ve and std-cooling steps on the card against the CPU, the OU draw's
+copy to the card, and a turb-ve restart (kernels/aux_checks.py)."""
 
 import dataclasses
 
@@ -726,3 +728,58 @@ def test_spherical_solve_matches_cpu(order):
     for a, b in zip(og[:3], oc[:3]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=checks.P2P_ATOL * float(
             b.abs().max()))
+
+
+# -- the turb-ve and std-cooling paths (kernels/aux_checks.py, shared with
+# chip_smoke.py's turb_cooling_vs_cpu and turb_cli phases) -----------------
+
+
+def test_turb_ve_steps_match_cpu():
+    """Two list-mode turb-ve steps (turbulence 16, ng0 20) on the card
+    against the CPU: the fields within the VE tolerance, the stirring key
+    bit for bit, the phases within 5e-5 of their scale."""
+    _need_card()
+    from sphexa_torch.kernels import aux_checks
+
+    r = aux_checks.aux_slice_vs_cpu("turb-ve", "turbulence", 16, 2, device="cuda",
+                                    overrides={"ng0": 20, "ngmax": 70})
+    assert r["use_lists"] == 1.0
+
+
+@pytest.mark.parametrize("evolve", [False, True])
+def test_cooling_steps_match_cpu(evolve):
+    """Two std-cooling steps with self-gravity (evrard-cooling 12) on the
+    card against the CPU, CIE (the chemistry permuted exactly) and the
+    evolved network."""
+    _need_card()
+    from sphexa_torch.kernels import aux_checks
+
+    aux_checks.aux_slice_vs_cpu("std-cooling", "evrard-cooling", 12, 2, device="cuda",
+                                evolve=evolve)
+
+
+def test_turb_draw_reaches_the_card_bit_for_bit():
+    """The OU draw made on the host reaches the card unchanged (one copy
+    from pinned memory), and a turb-ve step's key moves as the host's."""
+    _need_card()
+    import numpy as np
+
+    from sphexa_torch.sph import hydro_turb as ht
+    from sphexa_torch.sph import threefry
+
+    _, sub = threefry.split(threefry.prng_key(251299))
+    z = threefry.normal(sub, (112, 3, 2))
+    card = ht._to_device(z, torch.device("cuda"))
+    assert card.is_cuda and np.array_equal(card.cpu().numpy().view(np.uint32),
+                                           z.view(np.uint32))
+
+
+def test_turb_restart_on_card(tmp_path):
+    """turb-ve (turbulence 12) dumped at step 2 and restarted on the card:
+    the stirring state read back bit for bit, the first restarted step to
+    the restart contract, the CLI restarted with --prop turb-ve."""
+    _need_card()
+    from sphexa_torch.kernels import aux_checks
+
+    r = aux_checks.turb_restart(12, "cuda", str(tmp_path))
+    assert r["cli"]["rows"] == [3, 4]

@@ -50,7 +50,10 @@ def test_port_sources_found():
                 ("analysis", "evrard.py"), ("analysis", "__init__.py"),
                 ("telemetry", "manifest.py"), ("telemetry", "flightrec.py"),
                 ("telemetry", "memory.py"), ("app", "main.py"), ("init", "plummer.py"),
-                ("gravity", "ewald.py"), ("gravity", "spherical.py")):
+                ("gravity", "ewald.py"), ("gravity", "spherical.py"),
+                ("sph", "threefry.py"), ("sph", "hydro_turb.py"), ("sph", "eos.py"),
+                ("init", "turbulence.py"), ("physics", "__init__.py"),
+                ("physics", "cooling.py"), ("physics", "primordial.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

@@ -267,7 +267,7 @@ def test_make_initializer_forms(tmp_path):
     with pytest.raises(ValueError, match="JSON object"):
         make_initializer(f"sedov:{tmp_path / 'bad.json'}")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_initializer("turbulence")
+        make_initializer("kelvin-helmholtz")
     with pytest.raises(ValueError, match="unknown test case 'plummer'"):
         make_initializer("plummer")
 
