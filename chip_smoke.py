@@ -13,8 +13,8 @@ Phases, each printed as one JSON line:
    (per-run shift path) and side 12 (min-image fold path), the lattice
    jittered from a seed so that every term of each pair body is non-zero;
    whole steps on the card against the same steps on the CPU, std and VE,
-   streaming and in list mode, and VE Gresho-Chan side 30 (a fold-mode
-   grid: it streams);
+   streaming and in list mode (two steps each), and one step of VE
+   Gresho-Chan side 30 (a fold-mode grid: it streams);
 4. lists vs plain: the list build (K5: merge, mark and prune in one
    kernel, bit for bit, also at a slot budget of 2 that overflows) and the
    list walk of every SPH op (density, IAD, grad-h, both forms of
@@ -113,7 +113,7 @@ Phases, each printed as one JSON line:
    direct summation, K12 and K13 against their plain versions at the
    state; the CLI's ``--init evrard -n 125 --prop nbody``;
 14. Ewald periodic gravity: std Sedov 100^3 with G = 0.5, one warm-up and
-   two timed steps (the SPH ops once, K12 27 times and K13 54 times per
+   one timed step (the SPH ops once, K12 27 times and K13 54 times per
    step attempt), the solve's split (the 27 replica passes, the real-space
    and k-space corrections) and the corrections' peak memory, K12 with a
    shift and the self pair against its plain version, Sedov 16 with G =
@@ -142,14 +142,43 @@ Phases, each printed as one JSON line:
    restart contract and the stirring key bit for bit, the CLI restarted
    in a process of its own;
 
+18. ``inits_path``: the Kelvin-Helmholtz slab (side 100), the isobaric
+   cube (side 100) and the wind shock (side 64), each about 10^6
+   particles, through Simulation(prop="std"), one warm-up and five timed
+   steps each (the slab one: its steps stream at 7.6 s; counts reset
+   just before, read just after: each std op
+   once per step attempt, streaming or walking lists), steps/s, updates/s,
+   lists, the neighbour counts' extremes, the drift, the case's
+   observable column; then each at a small side card vs CPU;
+19. ``glass``: ``generate_glass_template(side=8, relax_steps=8)`` on the
+   card against the CPU's, tiled into the Sedov box;
+20. ``kernel_family``: every K1 and K6 op with wendland-c6 (the
+   20-coefficient form, timed, with its bounds) and with sinc at index 5
+   against its plain version at the side-100 states of phase 8; the
+   wendland-c6 paths (Sedov 100^3, std and VE, lists and streaming, each
+   op's 20-coefficient form counted); the CLI's ``--kernel wendland-c6``
+   and a wendland-c6 dump restarted by the CLI;
+21. ``blockdt_path``: std and VE Sedov 100^3 at dt_bins 4, 16 substeps
+   (std also at bin_resort_drift 0.01), counts reset just before and read
+   just after (the streaming ops and K13's one-row form once per substep
+   attempt), the substep time, the updates against the global dt's,
+   resorts and keeps; K13's one-row form at the due row against its plain
+   version with its times, bound and torch.argsort's; dt_bins 1 against the
+   global streaming step bit for bit; substeps card vs CPU on Sedov 16 and
+   Evrard 20;
+
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
 SM, and on the side-100 states its times and the body-pass efficiency of
 the union rule against per-lane windows; K12's the same at Evrard 125,
-K5's at side 100),
+K5's at side 100; every K1 and K6 instantiation's wendland-c6 form's
+static facts),
 the {"kernels": [...]} line (K12's and K13's launches on every gravity
-path beside the Evrard path's; every entry's launches on the turb-ve and
-std-cooling paths), the nvidia-smi line, and as the last line
+path beside the Evrard path's; every entry's launches on the turb-ve,
+std-cooling, inits and block-dt paths; the wendland-c6 form of each K1
+and K6 op, ``name:wendland-c6``, with its own count's launches on every
+path; K13's one-row form, ``compact_class_lists:row``), the nvidia-smi
+line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
 without the rest of the repository beside it, it fails the same way.
@@ -199,6 +228,12 @@ GEOM_OPS = 8
 #   terms 12 + viscous energy 6 + energy 8 + pressure weights 4 + three
 #   momentum sums 15 = 178; av_clean adds 45 (two r.G r 28, eta_ab 3 and
 #   its compare 1, A and phi 10, the r.v update 3) = 223.
+# A wendland-c6 form evaluates a degree-19 polynomial (csrc/pair_ops.cuh
+# NCOEF_WENDLAND): 6 more FMAs, 12 operations, per evaluation (POLY_EVALS
+# a pair: W, and grad-h's dterh).
+POLY_EVALS = {"density": 1, "iad": 1, "momentum_energy_std": 2, "ve_def_gradh": 2,
+              "iad_divv_curlv": 1, "iad_divv_curlv_gradv": 1, "av_switches": 1,
+              "momentum_energy_ve": 2, "momentum_energy_ve_clean": 2}
 BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96,
             "ve_def_gradh": 66, "iad_divv_curlv": 75, "iad_divv_curlv_gradv": 80,
             "av_switches": 74, "momentum_energy_ve": 178, "momentum_energy_ve_clean": 223}
@@ -286,6 +321,9 @@ GRAV_BODY_OPS = 16
 # cap compare, the value mask and the store index = 10 integer
 # operations, at the INT32 rate (half the FP32 rate)
 COMPACT_OPS = 10
+# its one-row form per row: the flag's compare, its bit, its share of the
+# popcount rank and its position = 4 integer operations
+COMPACT_ROW_OPS = 4
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
 
 
@@ -532,22 +570,24 @@ def _bound(ops, nbytes) -> dict:
             "ops": ops, "bytes": nbytes}
 
 
-def body_ops(op: str, body: str, nb_pairs: int, pairs=None) -> int:
+def body_ops(op: str, body: str, nb_pairs: int, pairs=None, ncoef: int = 14) -> int:
     """Operations of an op's body in this run: BODY_OPS per pair it runs
-    on, plus BRANCH_OPS per pair that takes a branch. A body without the
-    symmetric cutoff runs on the ``nb_pairs`` neighbour pairs (d^2 <
-    4 h_i^2); a momentum op on its own counted pairs (``pairs``, from
-    ``momentum_pair_counts``)."""
+    on (``ncoef`` polynomial coefficients: 2 (ncoef - 14) more per
+    evaluation), plus BRANCH_OPS per pair that takes a branch. A body
+    without the symmetric cutoff runs on the ``nb_pairs`` neighbour pairs
+    (d^2 < 4 h_i^2); a momentum op on its own counted pairs (``pairs``,
+    from ``momentum_pair_counts``)."""
+    per_pair = BODY_OPS[body] + 2 * (ncoef - 14) * POLY_EVALS[body]
     if body not in SYM_BODIES:
-        return nb_pairs * BODY_OPS[body]
+        return nb_pairs * per_pair
     if pairs is None:
         raise AssertionError(f"{op}: no pair counts under its symmetric cutoff")
-    return pairs["pairs"] * BODY_OPS[body] + sum(
+    return pairs["pairs"] * per_pair + sum(
         BRANCH_OPS[k] * v for k, v in pairs.items() if k in BRANCH_OPS)
 
 
 def bounds(ranges, n: int, group: int, nb_pairs: int,
-           ops=("density", "iad", "momentum_energy_std"), pairs=None):
+           ops=("density", "iad", "momentum_energy_std"), pairs=None, ncoef: int = 14):
     """Least device time of each streaming-engine op from this run's
     candidate and neighbour pair counts (operations: the mask per candidate
     pair, the symmetric cutoff per neighbour pair where the op has one, the
@@ -564,7 +604,7 @@ def bounds(ranges, n: int, group: int, nb_pairs: int,
         body = body_of(op)
         sym = SYM_OPS * nb_pairs if body in SYM_BODIES else 0
         n_in, n_out = IO_ARRAYS[body]
-        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op))
+        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op), ncoef)
         out[op] = {**_bound(cand_pairs * MASK_OPS + sym + work,
                             4 * n * (n_in + n_out) + table_bytes),
                    "cand_pairs": cand_pairs, "body_ops": work}
@@ -760,6 +800,12 @@ def walk_mask(spec) -> str:
     return "write" if spec.want_nc else "read"
 
 
+#: an engine op's plain version timed by one call: the comparison before
+#: it has just run the same plain version at the same sizes, so nothing is
+#: cold
+PLAIN_TIMING = {"reps": 1, "warmup": 0}
+
+
 def time_walk(spec, lists, i_f, j_f, group, consts) -> dict:
     """A list-walk entry point's device time in the mask mode of its path
     (``walk_mask``; a "read" walk reads the words that a density walk on
@@ -774,7 +820,7 @@ def time_walk(spec, lists, i_f, j_f, group, consts) -> dict:
     out = {"ms": cuda_time_ms(kern, reps=7), "batched_ms": cuda_time_batched_ms(kern),
            "mask_ms": cuda_time_ms(lambda: kern("own"), reps=7)}
     out["plain_ms"] = cuda_time_ms(lambda: pe.engine_lists_plain(
-        spec, lists, i_f, j_f, group, consts), reps=2)
+        spec, lists, i_f, j_f, group, consts), **PLAIN_TIMING)
     return out
 
 
@@ -788,13 +834,13 @@ def time_k1(spec, runs, i_f, j_f, fold, group, consts) -> dict:
 
     out = {"ms": cuda_time_ms(kern, reps=7), "batched_ms": cuda_time_batched_ms(kern)}
     out["plain_ms"] = cuda_time_ms(lambda: pe.engine_plain(
-        spec, runs, i_f, j_f, fold, group, consts), reps=2)
+        spec, runs, i_f, j_f, fold, group, consts), **PLAIN_TIMING)
     return out
 
 
 def list_bounds(lists, n: int, group: int, nb_pairs: int, mark=None,
                 walk_ops=("density_lists", "iad_lists", "momentum_energy_std_lists"),
-                av_clean=False, pairs=None):
+                av_clean=False, pairs=None, ncoef: int = 14):
     """Least device time of the list-mode kernels from this run's counts,
     for the work each walk does in its path's mask mode (``walk_mask``):
     every walk shifts each marked lane once (SHIFT_OPS) and reads its
@@ -818,14 +864,15 @@ def list_bounds(lists, n: int, group: int, nb_pairs: int, mark=None,
     walk_tables = 4 * (5 * ng * scap + ng) + 16 * ng * scap  # run tables, mark bits
     pruned = bounds(lists.ranges, n, group, nb_pairs,
                     ops=[body_of(op, av_clean) for op in walk_ops],
-                    pairs={body_of(op, av_clean): v for op, v in (pairs or {}).items()})
+                    pairs={body_of(op, av_clean): v for op, v in (pairs or {}).items()},
+                    ncoef=ncoef)
     cand_pairs = lanes * group
     mask_ops = cand_pairs * (MASK_OPS - SHIFT_OPS)
     out = {}
     for op in walk_ops:
         body = body_of(op, av_clean)
         n_in, n_out = IO_ARRAYS[body]
-        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op))
+        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op), ncoef)
         io = 4 * n * (n_in + n_out) + walk_tables
         sym = SYM_OPS * nb_pairs if body in SYM_BODIES else 0
         staged = lanes * SHIFT_OPS + work + sym
@@ -877,12 +924,12 @@ def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str 
     for bit: the same sorted state) and both freeze the same order."""
     import torch
 
-    from sphexa_torch.init import init_evrard, init_gresho_chan, init_sedov
+    from sphexa_torch.init import CASES
     from sphexa_torch.observables import ObservableSpec
     from sphexa_torch.simulation import Simulation
     from sphexa_torch.sph.pair_engine import engine_fold
 
-    init = {"sedov": init_sedov, "gresho-chan": init_gresho_chan, "evrard": init_evrard}[case]
+    init = CASES[case]
     rtol = 1e-4 if prop == "std" else 2e-4
     kw = {"cell_target": cell_target, "use_lists": use_lists, "prop": prop,
           "obs_spec": ObservableSpec()}
@@ -1368,12 +1415,14 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def ptxas_of(report: dict, spec, walk: bool, fold: bool):
+def ptxas_of(report: dict, spec, walk: bool, fold: bool, ncoef: int = 14):
     """ptxas's entry for one engine instantiation, found by its mangled
-    name (pair_engine<Op, FOLD, SYM> or list_walk<Op, SYM>), or None."""
+    name (pair_engine<Op, FOLD, SYM> or list_walk<Op, SYM>, the op of
+    ``ncoef`` polynomial coefficients), or None."""
     cls = OP_STRUCT[spec.name]
-    op = f"{len(cls)}{cls}" + (f"ILb{int(spec.variant)}EE"
-                               if spec.name in ("iad_divv_curlv", "momentum_energy_ve") else "")
+    variant = (f"Lb{int(spec.variant)}E"
+               if spec.name in ("iad_divv_curlv", "momentum_energy_ve") else "")
+    op = f"{len(cls)}{cls}I{variant}Li{ncoef}EE"
     sym = int(spec.sym_j is not None)
     key = (f"9list_walkI{op}Lb{sym}EE" if walk
            else f"11pair_engineI{op}Lb{int(fold)}ELb{sym}EE")
@@ -1414,7 +1463,7 @@ def mark_entry(report: dict, res: dict, slot_cap: int) -> dict:
 
 
 def engine_entries(specs: dict, at: dict, passes: dict, report: dict, engine: str,
-                   group: int, folds=(False,)) -> list:
+                   group: int, folds=(False,), ncoef: int = 14) -> list:
     """The engines line's entries of one engine ("K1" streaming, "K6" list
     walk): for each instantiation its static facts (``kernel_info``:
     registers, local bytes, shared bytes, resident blocks and warps per SM,
@@ -1427,9 +1476,9 @@ def engine_entries(specs: dict, at: dict, passes: dict, report: dict, engine: st
     out = []
     for key, spec in specs.items():
         for fold in folds:
-            info = pe.kernel_info(spec, group, walk, fold=fold)
+            info = pe.kernel_info(spec, group, walk, fold=fold, ncoef=ncoef)
             entry = {"engine": engine, "instantiation": key, "fold": fold, **info,
-                     "ptxas": ptxas_of(report, spec, walk, fold)}
+                     "ptxas": ptxas_of(report, spec, walk, fold, ncoef)}
             if key in at and not fold:
                 res, state, rkey = at[key]
                 entry.update(state=state, ms=res[rkey]["ms"],
@@ -1461,7 +1510,8 @@ def check_launches(label: str, launches: dict, attempts: int, on_path, rebuilds:
         want["gravity_p2p"] = passes * attempts
     want["mark"] = rebuilds
     want["compact_class_lists"] = compactions * passes * attempts
-    if launches != want or (rebuilds == 0 and any(k.endswith("_lists") for k in on_path)):
+    if launches != want or (rebuilds == 0 and any(k.split(":")[0].endswith("_lists")
+                                                  for k in on_path)):
         raise AssertionError(f"{label}: launches {launches} in {attempts} step attempts with "
                              f"{rebuilds} list builds; expected {want}")
 
@@ -1670,7 +1720,8 @@ def nbody_path(spec, smi) -> dict:
 def ewald_path(spec, smi) -> dict:
     """Periodic self-gravity: std Sedov 100^3 with G = 0.5 (the JAX
     README's ``--init sedov --G 0.5``) through Simulation(prop="std"),
-    Ewald on: one warm-up and two timed steps with the counts reset just
+    Ewald on: one warm-up and one timed step (two until the block-dt and
+    kernel-family phases needed the time) with the counts reset just
     before and read just after (the three streaming SPH ops once, K12 27
     times and K13 54 times per step attempt); the solve's parts by CUDA
     events (the replica passes' phases summed, the real-space and k-space
@@ -1694,7 +1745,7 @@ def ewald_path(spec, smi) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state, box, const = init_sedov(100, overrides={"gravConstant": 0.5}, device="cuda")
     run = drive(lambda: Simulation(state, box, const, prop="std", device="cuda",
-                                   obs_spec=spec), steps=2, label="ewald_path",
+                                   obs_spec=spec), steps=1, label="ewald_path",
                 drift_bound=None)
     sim = run["sim"]
     if not sim.ewald_on:
@@ -1978,6 +2029,337 @@ def turb_cooling_checks(smi) -> None:
           "seconds": time.perf_counter() - t0})
 
 
+#: the new inits' paths at full width: (case, side, timed steps, the
+#: small side it runs card vs CPU at), about 10^6 particles each; the
+#: Kelvin-Helmholtz slab's grid takes its cells from the 0.0625 thickness
+#: (2 h must fit a cell edge), so a cell holds up to 28,352 candidates and
+#: a step streams for 7.6 s: two timed steps there
+INIT_PATHS = (("kelvin-helmholtz", 100, 1, 20), ("isobaric-cube", 100, 5, 20),
+              ("wind-shock", 64, 5, 10))
+STD_OPS = ("density", "iad", "momentum_energy_std")
+
+
+def check_either_launches(label: str, launches: dict, attempts: int, ops,
+                          rebuilds: int, extra=None) -> None:
+    """The launch contract of a path whose steps may stream or walk lists
+    (a re-size can move its grid in or out of fold mode): each op of
+    ``ops`` once per step attempt, as K1 or as the list walk, the mark
+    pass once per list build, ``extra`` (name -> count) as given, every
+    other entry point never."""
+    want_zero = {k for k in launches
+                 if k not in ops and k[:-len("_lists")] not in ops and k != "mark"}
+    bad = [op for op in ops if launches[op] + launches[op + "_lists"] != attempts]
+    bad += [k for k in want_zero if launches[k] != (extra or {}).get(k, 0)]
+    if bad or launches["mark"] != rebuilds:
+        raise AssertionError(f"{label}: launches {launches} in {attempts} step attempts with "
+                             f"{rebuilds} list builds (off: {bad})")
+
+
+def inits_path(smi) -> dict:
+    """Phase ``inits_path``: the Kelvin-Helmholtz slab (side 100: 1 x 1 x
+    0.0625, a 2x density band), the isobaric cube (side 100, 8x centre)
+    and the wind shock (side 64: 8r x 2r x 2r, a 10x cloud), each about
+    10^6 particles, through Simulation(prop="std") on the card: one
+    warm-up and five timed steps (the slab one, ``INIT_PATHS``), the
+    counts reset just before and read
+    just after (each std op once per step attempt, streaming or walking
+    lists); steps/s and updates/s, whether lists ran, the neighbour counts'
+    extremes at the last state, the drift, the case's observable column
+    (the KH growth rate, the wind bubble's surviving fraction); then each
+    case at a small side stepped on the card against the CPU. Returns
+    each path's launches."""
+    import torch
+
+    from sphexa_torch.init import CASES
+    from sphexa_torch.observables import make_observable_spec
+    from sphexa_torch.propagator import _force_stage_prologue
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+
+    out = {}
+    for case, side, steps, _ in INIT_PATHS:
+        t0 = time.perf_counter()
+        state, box, const = CASES[case](side, device="cuda")
+        run = drive(lambda: Simulation(state, box, const, device="cuda",
+                                       obs_spec=make_observable_spec(case)),
+                    steps=steps, label="inits_path")
+        sim = run["sim"]
+        check_either_launches(f"inits_path {case}", run["launches"], run["attempts"],
+                              STD_OPS, run["rebuilds"])
+        # the neighbour counts at the path's last state, by the density kernel
+        ss, sbox, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+        ranges = pe.group_cell_ranges(ss.x, ss.y, ss.z, ss.h, keys, sbox, sim.cfg.nbr)
+        nc = pe.pallas_density(ss.x, ss.y, ss.z, ss.h, ss.m, keys, sbox, sim.cfg.const,
+                               sim.cfg.nbr, ranges=ranges)[1]
+        ms = run["report"]["step_ms"]
+        extra = [d.get("obs_extra") for d in run["diags"]]
+        emit({**run["report"], "case": case, "side": side, "card": smi,
+              "box_lengths": sim.box.lengths.tolist(), "steps_per_s": 1e3 / statistics.median(ms),
+              "use_lists_any": any(run["report"]["use_lists"]), "rebuilds": sim.rebuilds,
+              "nc_min": int(nc.min()) + 1, "nc_max_state": int(nc.max()) + 1,
+              "observable": extra if extra[0] is not None else None,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "seconds": time.perf_counter() - t0})
+        out[case] = run["launches"]
+    for case, _, _, small in INIT_PATHS:
+        emit(slice_vs_cpu(small, None, steps=2, use_lists=True, prop="std", case=case))
+    return out
+
+
+def glass_phase(smi) -> None:
+    """Phase ``glass``: ``generate_glass_template(side=8, relax_steps=8)``
+    on the card against the same relaxation on the CPU (within 1e-5 of the
+    box length), tiled by ``assemble_glass_cuboid`` into the Sedov box at
+    64^3 (the card machine has no h5py: no template file is written)."""
+    import numpy as np
+
+    from sphexa_torch.init import glass
+
+    t0 = time.perf_counter()
+    tpl = glass.generate_glass_template(side=8, relax_steps=8, device="cuda")
+    card_s = time.perf_counter() - t0
+    ref = glass.generate_glass_template(side=8, relax_steps=8, device="cpu")
+    err = 0.0
+    for a, b in zip(tpl, ref):
+        d = np.abs(a - b)
+        err = max(err, float(np.minimum(d, 1.0 - d).max()))
+    if err > 1e-5:
+        raise AssertionError(f"glass: the card's template {err} off the CPU's")
+    x, y, z = glass.assemble_glass_cuboid(tpl, (-0.5,) * 3, (0.5,) * 3, (64, 64, 64))
+    inside = all(bool(((a >= -0.5) & (a < 0.5)).all()) for a in (x, y, z))
+    if x.shape != (512 * 8**3,) or not inside:
+        raise AssertionError(f"glass: tiled {x.shape} particles, inside the box {inside}")
+    emit({"phase": "glass", "card": smi, "template": 512, "relax_steps": 8,
+          "card_seconds": card_s, "max_err_vs_cpu": err, "tiled": int(x.shape[0]),
+          "seconds": time.perf_counter() - t0})
+
+
+#: the kernel families chip_smoke holds (kernel_choice, sinc index, timed)
+FAMILIES = (("wendland-c6", 6.0, True), ("sinc", 5.0, False))
+#: the wendland-c6 paths (label, prop, lists): each K1 and K6 op's 20-
+#: coefficient form launched by a driven Simulation
+WENDLAND_PATHS = (("wendland_std_lists", "std", True), ("wendland_std_streaming", "std", False),
+                  ("wendland_ve_lists", "ve", True), ("wendland_ve_streaming", "ve", False))
+
+
+def kernel_family(std_list, std_stream, ve_cases) -> dict:
+    """Phase ``kernel_family``: every K1 and K6 op with wendland-c6 (the
+    20-coefficient form) and with sinc at index 5 against its plain
+    version at the side-100 states of phases 5-8 (the lists are geometric:
+    the same lists serve every kernel), with today's tolerances and nc
+    exact; wendland-c6's ops timed with their bounds. ``std_list`` and
+    ``std_stream``: phase 8's std list and streaming cases; ``ve_cases``:
+    label -> (sorted state, box, cfg, keys, lists or runs, av_clean).
+    Returns, by family, the results and the bounds."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    t0 = time.perf_counter()
+    out = {}
+    for kind, idx, timing in FAMILIES:
+        ss, lbox, const, lcfg, lkeys, lists, lcull = std_list
+        fc = const.with_kernel(kind, idx)
+        ncoef = len(pe.op_consts(fc)["coeffs"])
+        lres = compare_lists(f"{kind} lists side 100", ss, lbox, fc, lcfg, lkeys, lists, lcull,
+                             timing=timing)
+        ss2, box2, _, cfg2, keys2, ranges2 = std_stream
+        res = compare_ops(f"{kind} side 100", ss2, box2, fc, cfg2, keys2, ranges2,
+                          timing=timing)
+        lbnd = bnd = None
+        if timing:  # the bounds take the momentum ops' pair counts, which timing counts
+            lbnd = list_bounds(lists, ss.n, lcfg.nbr.group, lres["density_lists"]["nb_pairs"],
+                               pairs={op: r["pairs"] for op, r in lres.items() if "pairs" in r},
+                               ncoef=ncoef)
+            bnd = bounds(ranges2, ss2.n, cfg2.nbr.group, res["density"]["nb_pairs"],
+                         pairs={op: r["pairs"] for op, r in res.items() if "pairs" in r},
+                         ncoef=ncoef)
+        ve = {}
+        for label, (vs, vbox, vcfg, vkeys, table, av_clean) in ve_cases.items():
+            walk = label != "ve_streaming"
+            kw = {"lists": table} if walk else {"keys": vkeys, "ranges": table}
+            vres = compare_ve(f"{kind} {label} side 100", vs, vbox, fc, vcfg.nbr, av_clean,
+                              timing=timing, **kw)
+            pairs = {op: r["pairs"] for op, r in vres.items() if "pairs" in r}
+            if not timing:
+                vbnd = None
+            elif walk:
+                vbnd = list_bounds(table, vs.n, vcfg.nbr.group, vres["xmass"]["nb_pairs"],
+                                   walk_ops=("ve_def_gradh_lists", "iad_divv_curlv_lists",
+                                             "av_switches_lists", "momentum_energy_ve_lists"),
+                                   av_clean=av_clean, pairs=pairs, ncoef=ncoef)
+            else:
+                vbnd = bounds(table, vs.n, vcfg.nbr.group, vres["xmass"]["nb_pairs"],
+                              ops=("ve_def_gradh", "iad_divv_curlv", "av_switches",
+                                   "momentum_energy_ve"), pairs=pairs, ncoef=ncoef)
+            ve[label] = (vres, vbnd)
+        out[kind] = {"std_lists": (lres, lbnd), "std_streaming": (res, bnd), **ve,
+                     "ncoef": ncoef}
+        emit({"phase": "kernel_family", "kernel": kind, "sinc_index": idx, "ncoef": ncoef,
+              "std_lists": {"results": lres, "bounds": lbnd},
+              "std_streaming": {"results": res, "bounds": bnd},
+              **{k: {"results": r, "bounds": b} for k, (r, b) in ve.items()}})
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def wendland_paths(spec, smi) -> dict:
+    """The wendland-c6 paths: Sedov 100^3 with ``--kernel wendland-c6``'s
+    constants through Simulation, std and VE, in list mode and streaming,
+    one warm-up and two timed steps each, the counts reset just before and
+    read just after (every op's 20-coefficient form once per step attempt,
+    as its path runs it); then the CLI's ``--init sedov -n 50 -s 3 --kernel
+    wendland-c6`` in this process (only 20-coefficient forms launched) and
+    a wendland-c6 dump (the library's ``.npz`` at step 2,
+    Sedov 50) read back with its kernel and restarted by the CLI (the JAX
+    package's dumps carry ``kernelChoice``). Returns each path's launches."""
+    import torch
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.io import read_snapshot_full, write_snapshot
+    from sphexa_torch.kernels import io_checks
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+
+    out = {}
+    for label, prop, lists in WENDLAND_PATHS:
+        state, box, const = init_sedov(100, device="cuda")
+        const = const.with_kernel("wendland-c6")
+        run = drive(lambda: Simulation(state, box, const, prop=prop, device="cuda",
+                                       use_lists=lists, obs_spec=spec), steps=2, label=label)
+        ops = STD_OPS if prop == "std" else tuple(
+            op[:-len("_lists")] for op in VE_WALK)
+        # the 20-coefficient form counts apart: no sinc launch of an op here
+        on_path = tuple(f"{op}{'_lists' if lists else ''}:wendland-c6" for op in ops)
+        check_launches(label, run["launches"], run["attempts"], on_path,
+                       run["rebuilds"] if lists else 0)
+        emit({**run["report"], "kernel": "wendland-c6", "card": smi})
+        out[label] = run["launches"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the CLI in this process, counted from just before it to just after:
+        # only the 20-coefficient forms of the pair ops (and K5) launch
+        torch.cuda.synchronize()
+        pe.reset_launches()
+        rc = app.main(["--init", "sedov", "-n", "50", "-s", "3", "--kernel", "wendland-c6",
+                       "-o", os.path.join(tmp, "cli"), "--quiet"])
+        cli_launches = {k: v for k, v in pe.LAUNCHES.items() if v}
+        with open(os.path.join(tmp, "cli", "constants.txt")) as f:
+            rows = [ln for ln in f if not ln.startswith("#")]
+        pair = [k for k in cli_launches if k != "mark"]
+        if rc != 0 or len(rows) != 3 or not pair or \
+                not all(k.endswith(":wendland-c6") for k in pair):
+            raise AssertionError(f"--kernel wendland-c6 CLI: exit {rc}, {len(rows)} rows, "
+                                 f"launches {cli_launches}")
+        state, box, const = init_sedov(50, device="cuda")
+        sim = Simulation(state, box, const.with_kernel("wendland-c6"), device="cuda")
+        sim.step()
+        sim.step()
+        dump = os.path.join(tmp, "dump_sedov.npz")
+        write_snapshot(dump, sim.state, sim.box, sim.const, iteration=2, case="sedov")
+        _, _, rconst, _, _ = read_snapshot_full(dump, device="cuda")
+        if (rconst.kernel_choice, rconst.kernel_norm) != ("wendland-c6", sim.const.kernel_norm):
+            raise AssertionError(f"wendland dump: read back {rconst.kernel_choice}")
+        restart = io_checks.cli_restart(dump, os.path.join(tmp, "restart"), 4, "cuda",
+                                        check_every=1)
+    emit({"phase": "kernel_family_cli", "card": smi, "cli_rows": 3,
+          "cli_launches": cli_launches, "restart": restart,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def blockdt_path(spec, smi) -> dict:
+    """Phase ``blockdt_path``: std and VE Sedov 100^3 at dt_bins 4 through
+    Simulation, one warm-up and 15 timed substeps (two cycles), the counts
+    reset just before and read just after (the streaming std or VE ops
+    and K13's one-row form once per substep attempt); the substep time,
+    the updates against the global dt's, the bin populations, resorts and
+    keeps (std also at bin_resort_drift 0.01); K13's one-row form at the
+    std path's due row against its plain version, its time (one call by
+    CUDA events; alone, ``launch_loop_ms``), its bound and torch.argsort's
+    time for the same row; dt_bins 1 against the global streaming step bit
+    for bit (three steps); block substeps card vs CPU on Sedov 16 (std,
+    VE) and Evrard 20 (std, self-gravity) at dt_bins 3. Returns (each
+    path's launches, the K13 one-row entry)."""
+    import torch
+
+    from sphexa_torch.gravity import pallas_compact as pcmp
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.kernels import checks
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import blockdt as bdt
+
+    out, row = {}, None
+    for label, prop, drift in (("blockdt_std", "std", 0.0), ("blockdt_ve", "ve", 0.0),
+                               ("blockdt_std_keep", "std", 0.01)):
+        t0 = time.perf_counter()
+        state, box, const = init_sedov(100, device="cuda")
+        run = drive(lambda: Simulation(state, box, const, prop=prop, device="cuda",
+                                       dt_bins=4, bin_resort_drift=drift, obs_spec=spec),
+                    steps=15, label="blockdt_path")
+        sim = run["sim"]
+        ops = STD_OPS if prop == "std" else ("density", "ve_def_gradh", "iad",
+                                             "iad_divv_curlv", "av_switches",
+                                             "momentum_energy_ve")
+        check_launches(label, run["launches"], run["attempts"], (*ops, "compact_row"))
+        diags = run["diags"]
+        emit({**run["report"], "path": label, "card": smi, "dt_bins": 4,
+              "bin_resort_drift": drift, "substep_ms_median": statistics.median(
+                  run["report"]["step_ms"]),
+              "updates": sim.bdt_updates, "updates_full": sim.bdt_updates_full,
+              "update_factor": sim.bdt_updates_full / max(sim.bdt_updates, 1),
+              "resorts": sim.bdt_resorts, "keeps": sim.bdt_keeps,
+              "active": [d["bdt_active"] for d in diags],
+              "pop_last": [diags[-1][f"bdt_pop[{k}]"] for k in range(4)],
+              "drift_max": max(d["bdt_drift"] for d in diags),
+              "compact_row_per_substep": run["launches"]["compact_row"] / run["attempts"],
+              "seconds": time.perf_counter() - t0})
+        out[label] = run["launches"]
+        if label == "blockdt_std":
+            # K13's one-row form at the path's state: the next substep's due row
+            b = sim.bdt_state
+            due = bdt.due_mask(b.bins, b.substep)
+            n = due.shape[0]
+            chk = checks.compact_row_vs_plain("blockdt_std due row", due)
+            due8 = due.to(torch.uint8)
+            row = {"name": "compact_class_lists:row", "due": chk["due"], "n": n,
+                   "max_abs_err": chk["max_abs_err"],
+                   "ms": cuda_time_ms(lambda: bdt.compact_active(due), reps=7),
+                   "kernel_ms": launch_loop_ms(pcmp.compact_row_launcher(due)[0], 200),
+                   "plain_ms": cuda_time_ms(lambda: pcmp.compact_row_plain(due), reps=3),
+                   # one call: the due rows first in row order, then the others
+                   "library_ms": cuda_time_ms(lambda: torch.argsort(
+                       due8, descending=True, stable=True), reps=7),
+                   # the flags read once, the positions and the count written once
+                   **_bound(COMPACT_ROW_OPS * n * PEAK_FP32_FLOPS / PEAK_INT32_OPS, 5 * n + 4),
+                   "cases": checks.compact_row_cases("cuda")}
+            emit({"phase": "compact_row", "card": smi, **row})
+    t0 = time.perf_counter()
+    pins = {}
+    for prop in ("std", "ve"):
+        state, box, const = init_sedov(100, device="cuda")
+        glob = Simulation(state, box, const, prop=prop, device="cuda", use_lists=False,
+                          obs_spec=spec)
+        one = Simulation(state, box, const, prop=prop, device="cuda", dt_bins=1,
+                         obs_spec=spec)
+        for _ in range(3):
+            dg, d1 = glob.step(), one.step()
+            if dg["dt"] != d1["dt"] or dg["obs_etot"] != d1["obs_etot"]:
+                raise AssertionError(f"dt_bins 1 {prop}: dt {d1['dt']} etot {d1['obs_etot']} "
+                                     f"vs global {dg['dt']} {dg['obs_etot']}")
+        diff = [f for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "temp_lo", "du",
+                            "du_m1", "alpha", "ttot", "min_dt")
+                if not torch.equal(getattr(glob.state, f), getattr(one.state, f))]
+        if diff:
+            raise AssertionError(f"dt_bins 1 {prop}: {diff} differ from the global step's")
+        pins[prop] = {"steps": 3, "bitwise": True}
+    vs_cpu = [checks.blockdt_vs_cpu("sedov", 16, 5, prop="std"),
+              checks.blockdt_vs_cpu("sedov", 16, 5, prop="ve"),
+              checks.blockdt_vs_cpu("evrard", 20, 4, prop="std")]
+    emit({"phase": "blockdt_checks", "card": smi, "dt_bins_1_vs_global": pins,
+          "vs_cpu": vs_cpu, "seconds": time.perf_counter() - t0})
+    return out, row
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2041,8 +2423,8 @@ def main() -> int:
     # VE; and VE Gresho-Chan, whose thin slab puts the grid in fold mode
     for prop in ("std", "ve"):
         for side, ct, use_lists in ((24, 16, True), (24, 16, False), (12, None, False)):
-            emit(slice_vs_cpu(side, ct, steps=3, use_lists=use_lists, prop=prop))
-    gc = slice_vs_cpu(30, None, steps=2, use_lists=True, prop="ve", case="gresho-chan")
+            emit(slice_vs_cpu(side, ct, steps=2, use_lists=use_lists, prop=prop))
+    gc = slice_vs_cpu(30, None, steps=1, use_lists=True, prop="ve", case="gresho-chan")
     if not gc["fold"]:
         raise AssertionError("Gresho-Chan 30: expected a fold-mode grid")
     emit(gc)
@@ -2162,6 +2544,7 @@ def main() -> int:
     # 8. kernels vs plain and phase times at the paths' shapes
     ss, lbox, const, lcfg, lkeys, lists, lcull = list_case(
         None, side, False, state=(sim.state, sim.box, const), cfg=sim.cfg)
+    std_list = (ss, lbox, const, lcfg, lkeys, lists, lcull)
     lres = compare_lists("side 100", ss, lbox, const, lcfg, lkeys, lists, lcull, timing=True)
     lbnd = list_bounds(lists, n, lcfg.nbr.group, lres["density_lists"]["nb_pairs"],
                        mark=lres["mark"],
@@ -2174,6 +2557,7 @@ def main() -> int:
 
     st = (ssim.state, ssim.box, const)
     ss, box2, const, cfg, keys, ranges = sorted_case(side, state=st, cfg=ssim.cfg)
+    std_stream = (ss, box2, const, cfg, keys, ranges)
     res = compare_ops("side 100", ss, box2, const, cfg, keys, ranges, timing=True)
     sort_ms = cuda_time_ms(lambda: _force_stage_prologue(ssim.state, ssim.box, cfg), reps=5)
     prologue_ms = cuda_time_ms(
@@ -2193,7 +2577,7 @@ def main() -> int:
 
     # the VE kernels at the VE paths' evolved side-100 states: list mode
     # (the main VE path), streaming, and the av_clean list walk
-    vt = {}
+    vt, ve_cases = {}, {}
     for label, vs, walk, av_clean in (("ve_lists", vsim, True, False),
                                       ("ve_streaming", vst["sim"], False, False),
                                       ("ve_avclean", vac["sim"], True, True)):
@@ -2224,6 +2608,7 @@ def main() -> int:
         emit({"phase": "ve_kernels_vs_plain", "side": side, "path": label,
               "av_clean": av_clean, "results": vres, "bounds": vbnd, **extra})
         vt[label] = (vres, vbnd)
+        ve_cases[label] = (ss, vbox, vcfg, vkeys, vlists if walk else vranges, av_clean)
 
     # 9. the rebuild cadence: the main path's Simulation on to step 100
     b0, r0, it0 = sim.rebuilds, sim.replays, sim.iteration
@@ -2391,6 +2776,16 @@ def main() -> int:
     path_launches["cooling_evrard"] = cool_launches["cie"]
     turb_cooling_checks(smi)
 
+    # 18. the new inits at full width (inits_path) and 19. the glass
+    # template; 20. the kernel families (kernel_family: every K1 and K6 op
+    # with wendland-c6 and sinc index 5 at the side-100 states, the
+    # wendland-c6 paths and the CLI); 21. block time steps (blockdt_path)
+    init_launches = inits_path(smi)
+    glass_phase(smi)
+    fam = kernel_family(std_list, std_stream, ve_cases)
+    wend_launches = wendland_paths(spec, smi)
+    bdt_launches, row = blockdt_path(spec, smi)
+
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
              "ve_def_gradh": pe.VE_DEF_GRADH, "iad_divv_curlv": pe.IAD_DIVV_CURLV,
@@ -2418,8 +2813,13 @@ def main() -> int:
                + engine_entries(specs, k1_at, passes, report, "K1", group, folds=(False, True))
                + [p2p_entry(report, egcfg.target_block, gres["gravity_p2p"]),
                   mark_entry(report, lres["mark"], lcfg.list_slot_cap)])
+    # and the wendland-c6 form of every instantiation (static facts)
+    wspecs = {f"{k}:wendland-c6": v for k, v in specs.items()}
+    engines += (engine_entries(wspecs, {}, passes, report, "K6", group, ncoef=20)
+                + engine_entries(wspecs, {}, passes, report, "K1", group, folds=(False, True),
+                                 ncoef=20))
     emit({"phase": "engines", "card": smi, "pass_windows": list(PASS_WINDOWS),
-          "engines": engines})
+          "engines": engines, "kernel_family_seconds": fam["seconds"]})
     short = [f"{e['engine']} {e['instantiation']} fold={e['fold']}: {e['warps_per_sm']}"
              for e in engines if e["warps_per_sm"] < 16 and e["engine"] in ("K1", "K6")]
     if short:
@@ -2447,7 +2847,8 @@ def main() -> int:
     # K5) and of the std-cooling path (K1's std ops, CIE and evolved);
     # neither runs an av_clean form (a "name:form" entry)
     new_paths = {"turb_ve": turb_launches, "std_cooling_cie": cool_launches["cie"],
-                 "std_cooling_evolved": cool_launches["evolved"]}
+                 "std_cooling_evolved": cool_launches["evolved"],
+                 **{f"inits_{c}": la for c, la in init_launches.items()}, **bdt_launches}
     kernels = []
     for name, (r, b, launches, op) in where.items():
         kernels.append({
@@ -2457,8 +2858,37 @@ def main() -> int:
             "plain_ms": r[op]["plain_ms"], "bound_ms": b[op]["bound_ms"],
             "bound_by": b[op]["bound_by"], "library_ms": None,
             "launches_by_path": {p: 0 if ":" in name else la.get(op, 0)
-                                 for p, la in new_paths.items()},
+                                 for p, la in {**new_paths, **wend_launches}.items()},
         })
+    # the wendland-c6 form of each std and VE op, K1 and K6: its numbers at
+    # the side-100 states (kernel_family) and its own count's launches on
+    # the wendland paths (and on the others, which run sinc), each op's
+    # entry on the path that runs it
+    wfam = fam["wendland-c6"]
+    for name in [n for n in where if ":" not in n and n != "mark"]:
+        walk = name.endswith("_lists")
+        std = name[:-len("_lists")] if walk else name
+        std = std in STD_OPS
+        at = wfam[("std_" if std else "ve_") + ("lists" if walk else "streaming")]
+        path = f"wendland_{'std' if std else 've'}_{'lists' if walk else 'streaming'}"
+        r, b = at[0][name], at[1][name]
+        wname = f"{name}:wendland-c6"
+        kernels.append({
+            "name": wname, "route": "cuda", "source": SOURCE[name],
+            "replaces": TPU_KERNEL[name], "launches": wend_launches[path][wname],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+            "launches_by_path": {p: la.get(wname, 0)
+                                 for p, la in {**new_paths, **wend_launches}.items()},
+        })
+    # K13's one-row form: the std block-dt path's due row
+    kernels.append({
+        "name": row["name"], "route": "cuda", "source": SOURCE["compact_class_lists"],
+        "replaces": "sphexa_tpu/sph/blockdt.py:172", "launches":
+        bdt_launches["blockdt_std"]["compact_row"], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "launches_by_path": {p: la["compact_row"] for p, la in bdt_launches.items()}})
     # the gravity kernels on the Evrard path: K12's times per launch, K13's
     # per solve (its two launches, pre-pass and blocks); their launches on
     # every gravity path beside (each path's counts reset just before it)

@@ -8,6 +8,11 @@
     python -m sphexa_torch.app.main --init turbulence -n 100 -s 10 --prop turb-ve [--avclean]
     python -m sphexa_torch.app.main --init evrard-cooling -n 125 -s 5 --prop std-cooling \\
         [--evolve-chem]
+    python -m sphexa_torch.app.main --init kelvin-helmholtz -n 100 -s 5 [--glass tpl.h5]
+    python -m sphexa_torch.app.main --init wind-shock -n 64 -s 5
+    python -m sphexa_torch.app.main --init isobaric-cube -n 100 -s 5 [--kernel wendland-c6]
+    python -m sphexa_torch.app.main --init sedov -n 100 -s 16 --dt-bins 4 \\
+        [--bin-sync-every 1] [--bin-resort-drift 0.01]
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --G 0.5
     python -m sphexa_torch.app.main --init sedov -n 100 -s 100 --check-every 8 \\
         -o out --telemetry-dir out/tel
@@ -22,9 +27,17 @@ the card mid-window). ``--prop`` is std, ve, turb-ve (VE with the OU
 turbulence stirring; ``--avclean`` applies to it and to ve only), std-cooling
 (std with radiative cooling; ``--evolve-chem`` evolves the primordial
 network in place of the CIE table) or nbody (gravity alone: the case
-needs a gravitational constant); another name is a usage error. The JAX
-package's cases the port lacks raise "not ported yet", and a name that
-is no case raises "unknown test case". Steps run on persistent
+needs a gravitational constant); another name is a usage error. Every
+case of the JAX package runs (sedov, noh, gresho-chan, evrard,
+isobaric-cube, kelvin-helmholtz, wind-shock, turbulence,
+evrard-cooling); a name that is no case raises "unknown test case".
+``--glass`` tiles a glass template (HDF5, e.g. from
+``scripts/make_glass.py``) into every lattice of the case; ``--kernel``
+(sinc, sinc-n1-n2, wendland-c6) and ``--sincIndex`` choose the SPH
+kernel, its normalization recomputed. ``--dt-bins B`` (std and ve) runs
+hierarchical block time steps with B power-of-two dt bins, each
+iteration a substep; ``--bin-sync-every`` and ``--bin-resort-drift`` set
+the re-bin cadence and the sort's keep threshold. Steps run on persistent
 neighbour lists wherever the grid allows them, as in the JAX CLI, which
 has no flag for it. A case with a gravitational constant (Evrard, or
 ``--G``) runs self-gravity, whose steps sort every time: open boxes
@@ -72,6 +85,7 @@ import numpy as np
 from sphexa_torch.analysis import compute_output_fields
 from sphexa_torch.init import CASES, make_initializer, split_case_spec
 from sphexa_torch.init.file_init import looks_like_file, parse_file_spec
+from sphexa_torch.init.glass import set_glass_template
 from sphexa_torch.io import read_snapshot_full, write_ascii, write_snapshot
 from sphexa_torch.io.snapshot import CONSERVED_FIELDS, _find_parts
 from sphexa_torch.observables import ConstantsWriter, make_observable, make_observable_spec
@@ -82,6 +96,7 @@ from sphexa_torch.simulation import _STEPS, Simulation
 from sphexa_torch.sph.hydro_turb import (
     turbulence_state_from_fields, turbulence_state_to_fields,
 )
+from sphexa_torch.sph.kernels import KERNEL_CHOICES
 from sphexa_torch.telemetry import (
     FlightRecorder, JsonlSink, Telemetry, emit_memory_event, write_manifest,
 )
@@ -91,11 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sphexa-torch",
         description="SPH on an NVIDIA GPU (PyTorch/CUDA port; std and VE SPH, "
-                    "turbulence stirring, radiative cooling, self-gravity, N-body)",
+                    "turbulence stirring, radiative cooling, self-gravity, N-body, "
+                    "block time steps)",
     )
     p.add_argument("--init", default="sedov",
-                   help="test case name (sedov, noh, gresho-chan, evrard, turbulence, "
-                        "evrard-cooling), "
+                   help="test case name (sedov, noh, gresho-chan, evrard, isobaric-cube, "
+                        "kelvin-helmholtz, wind-shock, turbulence, evrard-cooling), "
                         "case:settings.json, a dump to restart from (path[:step]) "
                         "or path,N to up-sample one")
     p.add_argument("-n", type=int, default=50, dest="side",
@@ -128,6 +144,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="momentum/energy pair-cutoff convention: on = min-h symmetric "
                         "(default), off = the reference's one-sided; overrides the "
                         "snapshot's symPairs attribute")
+    p.add_argument("--glass", default=None,
+                   help="glass template HDF5 file, tiled into every lattice-based IC "
+                        "(init/utils.hpp glass blocks); without it a procedural jittered "
+                        "lattice is used")
+    p.add_argument("--kernel", default=None,
+                   help="SPH kernel family: sinc | sinc-n1-n2 | wendland-c6 "
+                        "(sph_kernel_tables.hpp SphKernelType)")
+    p.add_argument("--sincIndex", type=float, default=None, dest="sinc_index",
+                   help="sinc kernel exponent n (default: case setting)")
+    p.add_argument("--dt-bins", type=int, default=None, dest="dt_bins",
+                   help="hierarchical block time steps: number of power-of-two "
+                        "per-particle dt bins (std/ve propagators; unset = the global dt, "
+                        "1 = the global step)")
+    p.add_argument("--bin-sync-every", type=int, default=1, dest="bin_sync_every",
+                   help="cycles between bin reassignments at the sync substep (block-dt "
+                        "mode; default 1)")
+    p.add_argument("--bin-resort-drift", type=float, default=0.0, dest="bin_resort_drift",
+                   help="keep the particle order while folded-key inversions stay under "
+                        "this fraction of n (block-dt mode; default 0 = resort on any "
+                        "inversion)")
     p.add_argument("--wextra", default="",
                    help="comma-separated extra output triggers: integers = "
                         "iterations, floats = simulation times")
@@ -201,16 +237,32 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.prop == "turb-ve" and "turb_phases" in extra:
             turb_state, turb_cfg = turbulence_state_from_fields(extra, device=state.x.device)
     else:
+        if args.glass:
+            # installed for this initializer only, cleared after it
+            try:
+                set_glass_template(args.glass)
+            except (OSError, RuntimeError) as e:
+                print(f"cannot read glass template {args.glass}: {e}", file=sys.stderr)
+                return 2
+            log(f"# tiling glass template {args.glass}")
         try:
             initializer = make_initializer(args.init)
+            state, box, const = initializer(args.side, device=args.device)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 2
-        state, box, const = initializer(args.side, device=args.device)
+        finally:
+            set_glass_template(None)
     if args.grav_constant is not None:
         const = dataclasses.replace(const, g=args.grav_constant)
     if args.sym_pairs is not None:
         const = dataclasses.replace(const, sym_pairs=(args.sym_pairs == "on"))
+    if args.kernel is not None or args.sinc_index is not None:
+        kind = args.kernel or const.kernel_choice
+        if kind not in KERNEL_CHOICES:
+            print(f"unknown --kernel {kind!r}; choices: {KERNEL_CHOICES}", file=sys.stderr)
+            return 2
+        const = const.with_kernel(kind, args.sinc_index)
     cooling_cfg = None
     if args.prop == "std-cooling" and args.evolve_chem:
         cooling_cfg = CoolingConfig(gamma=const.gamma, evolve_species=True)
@@ -235,7 +287,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          obs_spec=make_observable_spec(case_name, overrides=case_overrides),
                          telemetry=telemetry, science_rows=True,
                          drift_budget=args.drift_budget, theta=args.theta,
-                         m2p_cap_margin=args.m2p_cap_margin)
+                         m2p_cap_margin=args.m2p_cap_margin, dt_bins=args.dt_bins,
+                         bin_sync_every=args.bin_sync_every,
+                         bin_resort_drift=args.bin_resort_drift)
     except (NotImplementedError, ValueError) as e:
         print(str(e), file=sys.stderr)
         if recorder is not None:

@@ -7,8 +7,9 @@ builds the port's gravity tree from the JAX package's GravityTree arrays,
 so that both packages can solve on one tree; ``turbulence_from_numpy``
 and ``chemistry_from_numpy`` build the turb-ve and std-cooling steps' aux
 state (TurbulenceState and TurbulenceConfig, ChemistryData) from the
-JAX package's fields. None imports the JAX package: the caller flattens
-its objects into dicts.
+JAX package's fields, ``blockdt_from_numpy`` / ``blockdt_to_numpy`` the
+block time steps' BlockDtState. None imports the JAX package: the caller
+flattens its objects into dicts.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import torch
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.physics.cooling import CHEM_FIELDS, ChemistryData
 from sphexa_torch.sfc.box import BoundaryType, Box
+from sphexa_torch.sph.blockdt import BlockDtState
 from sphexa_torch.sph.hydro_turb import TurbulenceConfig, TurbulenceState
 from sphexa_torch.sph.particles import (
     PARTICLE_FIELDS, SCALAR_FIELDS, ParticleState, SimConstants,
@@ -85,3 +87,20 @@ def chemistry_from_numpy(fields: Dict, device) -> ChemistryData:
     """``fields``: every ChemistryData field name -> (n,) numpy array."""
     return ChemistryData(**{k: torch.as_tensor(np.asarray(fields[k], np.float32).copy(),
                                                device=device) for k in CHEM_FIELDS})
+
+
+#: BlockDtState field -> its numpy dtype (the JAX package's)
+_BLOCKDT_DTYPES = {"bins": np.int32, "dt_prev": np.float32, "substep": np.int32,
+                   "cycle": np.int32, "dt_min": np.float32}
+
+
+def blockdt_from_numpy(fields: Dict, device) -> BlockDtState:
+    """``fields``: every BlockDtState field name -> numpy array (bins and
+    dt_prev (n,), the rest 0-d)."""
+    return BlockDtState(**{k: torch.as_tensor(np.asarray(fields[k], dt).copy(), device=device)
+                           for k, dt in _BLOCKDT_DTYPES.items()})
+
+
+def blockdt_to_numpy(bst: BlockDtState) -> Dict:
+    """Inverse of blockdt_from_numpy."""
+    return {k: getattr(bst, k).detach().cpu().numpy() for k in _BLOCKDT_DTYPES}

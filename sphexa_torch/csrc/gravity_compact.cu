@@ -35,6 +35,23 @@
 // blocks aligned to, and sized in multiples of, far more than 16 bytes),
 // so the read stays in bounds.
 //
+// The one-row form (compact_row_count + compact_row_scatter, entry
+// launch_compact_row) serves the block-time-step compaction of one row of
+// due flags (sphexa_tpu/sph/blockdt.py compact_active, which runs the TPU
+// kernel over one (1, n) packed row with cap0 = n): the positions of the
+// due rows in row order, zeros after, and their count. It reads the (n,)
+// bool mask itself: a position is its tile's and lane's, so nothing is
+// packed and the row has no 2^24 limit. One block of CT threads a tile of
+// RT = 16 CT flags, over every SM, in two launches: the first counts each
+// tile's due flags; the second gives each block its tile's offset (the
+// sum of the counts of the tiles before it, read from the first launch's
+// output) and the total, ranks its threads' 16 flags each by a block scan
+// of their popcounts, writes their positions, zeroes its share of the
+// tail (grid-stride) and, in block 0, writes the count. The positions are
+// the one-block form's list0 over the packed row, bit for bit. Its bound
+// is 5 bytes a row (the flag read, the position written): about 1.5 us at
+// 10^6 on this card, so its two launches' overhead is most of its time.
+//
 // What bounds it on this card: device memory. Each packed word is read
 // once and each list word written once; per tile a thread issues one
 // 16-byte load, ranks with 5 shuffles and 8 shared reads, and writes its
@@ -147,6 +164,89 @@ compact_class_lists_kernel(const int32_t* __restrict__ packed, int C, int cap0, 
     }
 }
 
+// the one-row form: a tile of RT flags a block, 16 consecutive a thread
+constexpr int RT = 16 * CT;
+
+// bit j set where due[e0 + j] is set, for j < 16 and e0 + j < n
+__device__ __forceinline__ unsigned due_bits(const uint8_t* __restrict__ due, int n, int e0) {
+    const uint8_t* p = due + e0;
+    if (e0 + 16 <= n && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+        const unsigned q[4] = {w.x, w.y, w.z, w.w};
+        unsigned bits = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const unsigned m = __vcmpne4(q[k], 0u);  // 0xff in each nonzero byte
+            bits |= (((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) | ((m >> 28) & 8u))
+                    << (4 * k);
+        }
+        return bits;
+    }
+    unsigned bits = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+        if (e0 + j < n && __ldg(p + j)) bits |= 1u << j;
+    return bits;
+}
+
+// the block's sum of one int a thread, in every thread (two barriers)
+__device__ __forceinline__ int block_sum(int v, int* red, int lane, int warp) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+    __syncthreads();
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    int tot = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) tot += red[w];
+    return tot;
+}
+
+// each tile's due flags: tile_counts[tile]
+__global__ void __launch_bounds__(CT)
+compact_row_count(const uint8_t* __restrict__ due, int n, int32_t* __restrict__ tile_counts) {
+    __shared__ int red[WARPS];
+    const int t = threadIdx.x;
+    const int c = __popc(due_bits(due, n, (blockIdx.x * CT + t) * 16));
+    const int tot = block_sum(c, red, t & 31, t >> 5);
+    if (t == 0) tile_counts[blockIdx.x] = tot;
+}
+
+// the tile's due positions written at its offset, the tail zeroed, the count
+__global__ void __launch_bounds__(CT)
+compact_row_scatter(const uint8_t* __restrict__ due, int n,
+                    const int32_t* __restrict__ tile_counts, int32_t* __restrict__ idx,
+                    int32_t* __restrict__ count) {
+    __shared__ int red[WARPS];
+    __shared__ int wsum[WARPS];
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int tiles = gridDim.x, me = blockIdx.x;
+    int before = 0, all = 0;  // the due flags of the tiles before this one, and of all
+    for (int k = t; k < tiles; k += CT) {
+        const int c = tile_counts[k];
+        all += c;
+        if (k < me) before += c;
+    }
+    before = block_sum(before, red, lane, warp);
+    all = block_sum(all, red, lane, warp);
+    const int e0 = (me * CT + t) * 16;
+    const unsigned bits = due_bits(due, n, e0);
+    const int mine = __popc(bits);
+    int inc = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += y;
+    }
+    if (lane == 31) wsum[warp] = inc;
+    __syncthreads();
+    int at = before + inc - mine;
+    for (int w = 0; w < warp; ++w) at += wsum[w];
+    for (unsigned b = bits; b; b &= b - 1) idx[at++] = e0 + __ffs(b) - 1;
+    for (int k = all + me * CT + t; k < n; k += tiles * CT) idx[k] = 0;
+    if (me == 0 && t == 0) *count = all;
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,5 +261,22 @@ int launch_compact_class_lists(const int32_t* packed, int B, int C, int cap0, in
         packed, C, cap0, cap1, list0, list1, counts);
     return static_cast<int>(cudaGetLastError());
 }
+
+// the one-row form: due (n,) bool, idx (n,), count (), tile_counts
+// (ceil(n / compact_row_tile())) scratch; two launches on ``stream``
+int launch_compact_row(const uint8_t* due, int n, int32_t* idx, int32_t* count,
+                       int32_t* tile_counts, void* stream) {
+    if (n <= 0 || n > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = (n + RT - 1) / RT;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    compact_row_count<<<tiles, CT, 0, st>>>(due, n, tile_counts);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    compact_row_scatter<<<tiles, CT, 0, st>>>(due, n, tile_counts, idx, count);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// flags of one tile of the one-row form (the wrapper sizes tile_counts by it)
+int compact_row_tile() { return RT; }
 
 }  // extern "C"

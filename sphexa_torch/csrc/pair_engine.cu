@@ -166,22 +166,47 @@ int launch(const EngineArgs* a, void* stream, int32_t* info = nullptr) {
     return a->fold ? launch_sym<Op, true>(a, st, info) : launch_sym<Op, false>(a, st, info);
 }
 
-// every entry point of this engine, by name: plain C dispatch shared by
-// the launches and pair_engine_info
-int dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
+// every entry point of this engine, by name, in the op form of NC
+// polynomial coefficients: plain C dispatch shared by the launches and
+// pair_engine_info
+template <int NC>
+int dispatch_nc(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
     const bool v = a->variant != 0;
-    if (!std::strcmp(name, "density")) return launch<DensityOp>(a, stream, info);
-    if (!std::strcmp(name, "iad")) return launch<IadOp>(a, stream, info);
+    if (!std::strcmp(name, "density")) return launch<DensityOp<NC>>(a, stream, info);
+    if (!std::strcmp(name, "iad")) return launch<IadOp<NC>>(a, stream, info);
     if (!std::strcmp(name, "momentum_energy_std"))
-        return launch<MomentumEnergyStdOp>(a, stream, info);
-    if (!std::strcmp(name, "ve_def_gradh")) return launch<VeDefGradhOp>(a, stream, info);
+        return launch<MomentumEnergyStdOp<NC>>(a, stream, info);
+    if (!std::strcmp(name, "ve_def_gradh")) return launch<VeDefGradhOp<NC>>(a, stream, info);
     if (!std::strcmp(name, "iad_divv_curlv"))
-        return v ? launch<DivvCurlvOp<true>>(a, stream, info)
-                 : launch<DivvCurlvOp<false>>(a, stream, info);
-    if (!std::strcmp(name, "av_switches")) return launch<AvSwitchesOp>(a, stream, info);
+        return v ? launch<DivvCurlvOp<true, NC>>(a, stream, info)
+                 : launch<DivvCurlvOp<false, NC>>(a, stream, info);
+    if (!std::strcmp(name, "av_switches")) return launch<AvSwitchesOp<NC>>(a, stream, info);
     if (!std::strcmp(name, "momentum_energy_ve"))
-        return v ? launch<MomentumEnergyVeOp<true>>(a, stream, info)
-                 : launch<MomentumEnergyVeOp<false>>(a, stream, info);
+        return v ? launch<MomentumEnergyVeOp<true, NC>>(a, stream, info)
+                 : launch<MomentumEnergyVeOp<false, NC>>(a, stream, info);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+#ifdef PAIR_WENDLAND_TU
+// pair_engine_wendland.cu: the wendland-c6 form's instantiations only
+extern "C" int pair_engine_dispatch_wendland(const char* name, const EngineArgs* a,
+                                             void* stream, int32_t* info) {
+    return dispatch_nc<NCOEF_WENDLAND>(name, a, stream, info);
+}
+#else
+// the wendland-c6 form lives in pair_engine_wendland.cu, built in an nvcc
+// process of its own beside this one (the two forms' instantiations in one
+// file doubled the build's longest compile)
+extern "C" int pair_engine_dispatch_wendland(const char* name, const EngineArgs* a,
+                                             void* stream, int32_t* info);
+
+namespace {
+
+int dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
+    if (a->ncoef == NCOEF_SINC) return dispatch_nc<NCOEF_SINC>(name, a, stream, info);
+    if (a->ncoef == NCOEF_WENDLAND) return pair_engine_dispatch_wendland(name, a, stream, info);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -229,3 +254,4 @@ const char* pair_engine_error_string(int err) {
 int pair_engine_abi_version() { return ABI_VERSION; }
 
 }  // extern "C"
+#endif  // PAIR_WENDLAND_TU

@@ -139,6 +139,7 @@ constexpr int BUILD_WARPS = BUILD_THREADS / 32;
 // flight a warp at fewer blocks.
 constexpr int BUILD_MIN_BLOCKS = 12;
 
+#ifndef PAIR_WENDLAND_TU  // the list build: in this file's own object only
 // The build's shared memory, carved from one dynamic buffer: per window
 // cell (W = w3) its key and, in start order, start, end, shift and link;
 // per merged run its bounds, first slot and head cell; per slot its run,
@@ -436,6 +437,7 @@ cudaError_t allow_build_smem(size_t bytes) {
     if (e != cudaSuccess) cudaGetLastError();
     return e;
 }
+#endif  // PAIR_WENDLAND_TU
 
 // Rank-select: the position of the r-th (from 0) set bit of w.
 __device__ __forceinline__ int select_bit(unsigned w, int r) {
@@ -573,21 +575,47 @@ int launch_walk(const EngineArgs* a, void* stream, int32_t* info = nullptr) {
     return walk_k<Op, false>(a, st, info);
 }
 
-// every list-walk entry point, by name (without the _lists suffix)
-int walk_dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
+// every list-walk entry point, by name (without the _lists suffix), in the
+// op form of NC polynomial coefficients
+template <int NC>
+int walk_dispatch_nc(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
     const bool v = a->variant != 0;
-    if (!std::strcmp(name, "density")) return launch_walk<DensityOp>(a, stream, info);
-    if (!std::strcmp(name, "iad")) return launch_walk<IadOp>(a, stream, info);
+    if (!std::strcmp(name, "density")) return launch_walk<DensityOp<NC>>(a, stream, info);
+    if (!std::strcmp(name, "iad")) return launch_walk<IadOp<NC>>(a, stream, info);
     if (!std::strcmp(name, "momentum_energy_std"))
-        return launch_walk<MomentumEnergyStdOp>(a, stream, info);
-    if (!std::strcmp(name, "ve_def_gradh")) return launch_walk<VeDefGradhOp>(a, stream, info);
+        return launch_walk<MomentumEnergyStdOp<NC>>(a, stream, info);
+    if (!std::strcmp(name, "ve_def_gradh"))
+        return launch_walk<VeDefGradhOp<NC>>(a, stream, info);
     if (!std::strcmp(name, "iad_divv_curlv"))
-        return v ? launch_walk<DivvCurlvOp<true>>(a, stream, info)
-                 : launch_walk<DivvCurlvOp<false>>(a, stream, info);
-    if (!std::strcmp(name, "av_switches")) return launch_walk<AvSwitchesOp>(a, stream, info);
+        return v ? launch_walk<DivvCurlvOp<true, NC>>(a, stream, info)
+                 : launch_walk<DivvCurlvOp<false, NC>>(a, stream, info);
+    if (!std::strcmp(name, "av_switches"))
+        return launch_walk<AvSwitchesOp<NC>>(a, stream, info);
     if (!std::strcmp(name, "momentum_energy_ve"))
-        return v ? launch_walk<MomentumEnergyVeOp<true>>(a, stream, info)
-                 : launch_walk<MomentumEnergyVeOp<false>>(a, stream, info);
+        return v ? launch_walk<MomentumEnergyVeOp<true, NC>>(a, stream, info)
+                 : launch_walk<MomentumEnergyVeOp<false, NC>>(a, stream, info);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+#ifdef PAIR_WENDLAND_TU
+// pair_lists_wendland.cu: the wendland-c6 form's instantiations only
+extern "C" int list_walk_dispatch_wendland(const char* name, const EngineArgs* a, void* stream,
+                                           int32_t* info) {
+    return walk_dispatch_nc<NCOEF_WENDLAND>(name, a, stream, info);
+}
+#else
+// the wendland-c6 form lives in pair_lists_wendland.cu, built in an nvcc
+// process of its own beside this one, as pair_engine.cu's
+extern "C" int list_walk_dispatch_wendland(const char* name, const EngineArgs* a, void* stream,
+                                           int32_t* info);
+
+namespace {
+
+int walk_dispatch(const char* name, const EngineArgs* a, void* stream, int32_t* info) {
+    if (a->ncoef == NCOEF_SINC) return walk_dispatch_nc<NCOEF_SINC>(name, a, stream, info);
+    if (a->ncoef == NCOEF_WENDLAND) return list_walk_dispatch_wendland(name, a, stream, info);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -666,3 +694,4 @@ int list_walk_info(const char* name, const EngineArgs* a, int32_t* out) {
 }
 
 }  // extern "C"
+#endif  // PAIR_WENDLAND_TU

@@ -13,6 +13,12 @@
 // says whether its mask may add the symmetric cutoff d^2 < 4 h_j^2 (the
 // momentum ops, when the launch names a sym_j field): the engines compile
 // the mask with and without it.
+//
+// NC is the kernel polynomial's coefficient count, a template parameter of
+// every op: 14 for the sinc family (degree 13) and 20 for wendland-c6
+// (degree 19, sphexa_tpu/sph/kernels.py). The engines instantiate both and
+// pick one at launch from EngineArgs.ncoef, so the sinc ops' code is the
+// same as with one fixed count, and wendland-c6 pays for its own degree only.
 
 #pragma once
 
@@ -22,10 +28,12 @@
 constexpr int TILE = 128;   // lanes of a chunk: one 128-aligned row of the sorted arrays
 constexpr int MAX_F = 32;   // field pointers an op may pass per side
 constexpr int MAX_OUT = 8;
-constexpr int NCOEF = 14;   // degree-13 kernel polynomial
+constexpr int NCOEF_SINC = 14;      // degree-13 sinc-family polynomial
+constexpr int NCOEF_WENDLAND = 20;  // degree-19 wendland-c6 polynomial
+constexpr int MAX_NCOEF = 20;       // coefficient slots of EngineArgs
 // layout version of EngineArgs, mirrored in sphexa_torch/kernels/build.py
 // and sphexa_torch/sph/pair_engine.py
-constexpr int ABI_VERSION = 7;
+constexpr int ABI_VERSION = 8;
 
 // Mirror of sphexa_torch.sph.pair_engine.EngineArgs (same field order).
 struct EngineArgs {
@@ -49,10 +57,10 @@ struct EngineArgs {
     float K;
     float mhalf_K;           // -K/2 rounded once on the host
     float k_cour;
-    float coeffs[NCOEF];
+    float coeffs[MAX_NCOEF]; // the first ncoef used
     const int32_t* bits;     // list walk: (NG, slot_cap, 4) marked-lane words
     int32_t slot_cap;        // list walk: slots per group
-    float dcoeffs[NCOEF];    // VE grad-h: dterh = -(3 W + v dW/dv) polynomial
+    float dcoeffs[MAX_NCOEF];  // VE grad-h: dterh = -(3 W + v dW/dv) polynomial
     float alphamin;          // AV switches
     float alphamax;
     float decay_c;
@@ -68,24 +76,43 @@ struct EngineArgs {
     uint32_t* mask_words;
     const int32_t* word_off;
     int32_t mask_mode;
+    int32_t ncoef;           // NCOEF_SINC or NCOEF_WENDLAND: the op form launched
 };
 
-// W from u = d^2/h^2: Horner in s = clamp(u/2 - 1, -1, 1), floored at 0.
-__device__ __forceinline__ float wpoly(float u, const float* c) {
-    const float s = fminf(fmaxf(u * 0.5f - 1.0f, -1.0f), 1.0f);
-    float acc = c[NCOEF - 1];
+// The kernel polynomial of NC coefficients by Horner in s. The sinc fits'
+// terms are small (at most 0.22 against W's peak of 1), and their steps
+// may contract into FMAs. wendland-c6's degree-19 terms reach 3 and cancel
+// to W: there an FMA rounds apart from the plain version's product and sum
+// by up to 8e-7 of the peak, and a lattice shell at the support's edge sums
+// that difference coherently (past the momentum ops' tolerance against the
+// plain version at an evolved Sedov 100^3 state). So the 20-coefficient
+// form rounds each
+// product and each sum as the plain version does (__fmul_rn, __fadd_rn),
+// and its W and dterh are the plain version's bit for bit.
+template <int NC>
+__device__ __forceinline__ float horner(float s, const float* c) {
+    float acc = c[NC - 1];
+    if constexpr (NC == NCOEF_WENDLAND) {
 #pragma unroll
-    for (int k = NCOEF - 2; k >= 0; --k) acc = acc * s + c[k];
-    return fmaxf(acc, 0.0f);
+        for (int k = NC - 2; k >= 0; --k) acc = __fadd_rn(__fmul_rn(acc, s), c[k]);
+    } else {
+#pragma unroll
+        for (int k = NC - 2; k >= 0; --k) acc = acc * s + c[k];
+    }
+    return acc;
 }
 
-// dterh from u = d^2/h^2: the same Horner form with no zero floor.
+// W from u = d^2/h^2: the polynomial in s = clamp(u/2 - 1, -1, 1), floored
+// at 0.
+template <int NC>
+__device__ __forceinline__ float wpoly(float u, const float* c) {
+    return fmaxf(horner<NC>(fminf(fmaxf(u * 0.5f - 1.0f, -1.0f), 1.0f), c), 0.0f);
+}
+
+// dterh from u = d^2/h^2: the same polynomial form with no zero floor.
+template <int NC>
 __device__ __forceinline__ float dpoly(float u, const float* c) {
-    const float s = fminf(fmaxf(u * 0.5f - 1.0f, -1.0f), 1.0f);
-    float acc = c[NCOEF - 1];
-#pragma unroll
-    for (int k = NCOEF - 2; k >= 0; --k) acc = acc * s + c[k];
-    return acc;
+    return horner<NC>(fminf(fmaxf(u * 0.5f - 1.0f, -1.0f), 1.0f), c);
 }
 
 // t = (C r) w with the symmetric IAD tensor C = (c11 c12 c13 c22 c23 c33).
@@ -98,6 +125,7 @@ __device__ __forceinline__ void iad_project(float c11, float c12, float c13, flo
 }
 
 // i-fields: x y z h 1/h^2 m; j-fields: x y z m.
+template <int NC>
 struct DensityOp {
     static constexpr int NI = 6, NJ = 4, NACC = 1, NOUT = 1;
     static constexpr bool WANT_NC = true;
@@ -106,7 +134,7 @@ struct DensityOp {
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float, float, float, float d2, float* acc,
                                                 const EngineArgs& p) {
-        acc[0] += J[3][k] * wpoly(d2 * I[4], p.coeffs);
+        acc[0] += J[3][k] * wpoly<NC>(d2 * I[4], p.coeffs);
     }
     __device__ __forceinline__ static void finalize(const float* I, const float* acc, float* out,
                                                     const EngineArgs& p) {
@@ -117,6 +145,7 @@ struct DensityOp {
 
 // i-fields: x y z h 1/h^2; j-fields: x y z m/rho. Six moment sums, then the
 // exponent-renormalised inverse (the power-of-two factor cancels exactly).
+template <int NC>
 struct IadOp {
     static constexpr int NI = 5, NJ = 4, NACC = 6, NOUT = 6;
     static constexpr bool WANT_NC = false;
@@ -125,7 +154,7 @@ struct IadOp {
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
                                                 float* acc, const EngineArgs& p) {
-        const float vw = J[3][k] * wpoly(d2 * I[4], p.coeffs);
+        const float vw = J[3][k] * wpoly<NC>(d2 * I[4], p.coeffs);
         acc[0] += rx * rx * vw;
         acc[1] += rx * ry * vw;
         acc[2] += rx * rz * vw;
@@ -159,6 +188,7 @@ struct IadOp {
 // i-fields: x y z h 1/h^2 1/h^3 vx vy vz c p/rho^2 m/rho c11 c12 c13 c22 c23 c33
 // j-fields: x y z 1/h^2 vx vy vz c m m/(rho h^3) p/rho c11 c12 c13 c22 c23 c33
 // Accumulators: momentum x/y/z, energy (sums) and the signal velocity (max).
+template <int NC>
 struct MomentumEnergyStdOp {
     static constexpr int NI = 18, NJ = 17, NACC = 5, NOUT = 5;
     static constexpr bool WANT_NC = false;
@@ -167,8 +197,8 @@ struct MomentumEnergyStdOp {
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
                                                 float* acc, const EngineArgs& p) {
-        const float w_i = wpoly(d2 * I[4], p.coeffs) * I[5];
-        const float mjw = J[9][k] * wpoly(d2 * J[3][k], p.coeffs);
+        const float w_i = wpoly<NC>(d2 * I[4], p.coeffs) * I[5];
+        const float mjw = J[9][k] * wpoly<NC>(d2 * J[3][k], p.coeffs);
         const float inv_dist = rsqrtf(d2);
         const float vx_ij = I[6] - J[4][k];
         const float vy_ij = I[7] - J[5][k];
@@ -221,6 +251,7 @@ struct MomentumEnergyStdOp {
 
 // i-fields: x y z h 1/h^2 m xm; j-fields: x y z m xm.
 // Sums: kx (xm W), whomega (xm dterh), wrho0 (m dterh).
+template <int NC>
 struct VeDefGradhOp {
     static constexpr int NI = 7, NJ = 5, NACC = 3, NOUT = 2;
     static constexpr bool WANT_NC = false;
@@ -230,8 +261,8 @@ struct VeDefGradhOp {
                                                 float, float, float, float d2, float* acc,
                                                 const EngineArgs& p) {
         const float u = d2 * I[4];
-        const float w = wpoly(u, p.coeffs);
-        const float dterh = dpoly(u, p.dcoeffs);
+        const float w = wpoly<NC>(u, p.coeffs);
+        const float dterh = dpoly<NC>(u, p.dcoeffs);
         acc[0] += J[4][k] * w;
         acc[1] += J[4][k] * dterh;
         acc[2] += J[3][k] * dterh;
@@ -255,7 +286,7 @@ struct VeDefGradhOp {
 // j-fields: x y z xm vx vy vz
 // GRADV: the nine sums xm v_ji,a tA_b -> divv, curlv and the six
 // symmetrised velocity-gradient components; else four sums -> divv, curlv.
-template <bool GRADV>
+template <bool GRADV, int NC>
 struct DivvCurlvOp {
     static constexpr int NI = 15, NJ = 7, NACC = GRADV ? 9 : 4, NOUT = GRADV ? 8 : 2;
     static constexpr bool WANT_NC = false;
@@ -264,7 +295,7 @@ struct DivvCurlvOp {
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
                                                 float* acc, const EngineArgs& p) {
-        const float w = -wpoly(d2 * I[4], p.coeffs);
+        const float w = -wpoly<NC>(d2 * I[4], p.coeffs);
         float t[3];
         iad_project(I[5], I[6], I[7], I[8], I[9], I[10], rx, ry, rz, w, t);
         const float mw = J[3][k];
@@ -305,6 +336,7 @@ struct DivvCurlvOp {
 // j-fields: x y z c vx vy vz xm/kx divv
 // Accumulators: the signal velocity (max from 0) and grad(divv) (sums).
 // The step's dt is read from p.dt on the card.
+template <int NC>
 struct AvSwitchesOp {
     static constexpr int NI = 18, NJ = 9, NACC = 4, NOUT = 1;
     static constexpr bool WANT_NC = false;
@@ -313,7 +345,7 @@ struct AvSwitchesOp {
     __device__ __forceinline__ static void pair(const float* I, const float (*J)[W], int k,
                                                 float rx, float ry, float rz, float d2,
                                                 float* acc, const EngineArgs& p) {
-        const float w = -wpoly(d2 * I[4], p.coeffs) * I[5];
+        const float w = -wpoly<NC>(d2 * I[4], p.coeffs) * I[5];
         const float vx_ij = I[14] - J[4][k], vy_ij = I[15] - J[5][k], vz_ij = I[16] - J[6][k];
         const float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
         const float inv_dist = rsqrtf(d2);
@@ -351,7 +383,7 @@ struct AvSwitchesOp {
 //           p/(kx m^2 gradh) c11 c12 c13 c22 c23 c33 [gv11..gv33]
 // Accumulators: momentum x/y/z, energy, viscous energy (sums), the signal
 // velocity (max from 0).
-template <bool AVCLEAN>
+template <bool AVCLEAN, int NC>
 struct MomentumEnergyVeOp {
     static constexpr int NI = AVCLEAN ? 30 : 23, NJ = AVCLEAN ? 29 : 23, NACC = 6, NOUT = 5;
     static constexpr bool WANT_NC = false;
@@ -369,8 +401,8 @@ struct MomentumEnergyVeOp {
                                                 float* acc, const EngineArgs& p) {
         const float u_i = d2 * I[4];
         const float u_j = d2 * J[3][k];
-        const float w_i = -wpoly(u_i, p.coeffs) * I[5];
-        const float w_j = -wpoly(u_j, p.coeffs) * J[4][k];
+        const float w_i = -wpoly<NC>(u_i, p.coeffs) * I[5];
+        const float w_j = -wpoly<NC>(u_j, p.coeffs) * J[4][k];
         const float vx_ij = I[6] - J[5][k], vy_ij = I[7] - J[6][k], vz_ij = I[8] - J[7][k];
         float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
         const float inv_dist = rsqrtf(d2);

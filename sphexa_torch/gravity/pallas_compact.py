@@ -7,7 +7,15 @@ order, truncated at fixed caps, with the unclipped true counts.
 csrc/gravity_compact.cu for a CUDA tensor (one block per row, tiles of
 1,024 candidates read as 16-byte words, ranked by warp scans with one
 barrier per tile) and runs ``compact_class_lists_plain`` for a CPU
-tensor; the plain version ranks each class by a cumulative sum."""
+tensor; the plain version ranks each class by a cumulative sum.
+
+``compact_row`` is the kernel's one-row form, the block-time-step
+compaction of sph/blockdt.py (the JAX package runs the TPU kernel over
+one (1, n) packed row there): it reads the (n,) due mask itself and
+writes the due positions, tiles of ``compact_row_tile()`` flags spread
+over every SM, a count launch, then each block's offset from the counts
+before its tile and an in-order scatter; ``compact_row_plain`` for a CPU
+tensor."""
 
 import torch
 
@@ -90,3 +98,66 @@ def compact_class_lists_plain(packed: torch.Tensor, cap0: int, cap1: int):
         lst.scatter_(1, pos, torch.where(keep, val, 0))
         out += [lst[:, :cap].contiguous(), hit.sum(dim=1, dtype=torch.int32)]
     return tuple(out)
+
+
+def _check_row(due: torch.Tensor) -> None:
+    if due.dtype != torch.bool or due.dim() != 1 or not due.is_contiguous() \
+            or not 0 < due.shape[0] <= 1 << 30:
+        raise ValueError(f"due: need a contiguous 1-D bool tensor of 1 to 2**30 rows, got "
+                         f"{due.dtype} {tuple(due.shape)}")
+
+
+def compact_row(due: torch.Tensor):
+    """The one-row form: the positions of ``due``'s set rows in row order,
+    zeros after, and their count (the one-block kernel's list0 and n0 over
+    the packed row ``(0 if due else 1) << IDX_BITS | arange(n)`` with cap0
+    = n, without the packing or its 2**IDX_BITS limit). Returns (idx (n,)
+    int32, n_active () int32)."""
+    _check_row(due)
+    dev = due.device
+    if dev.type == "cpu":
+        return compact_row_plain(due)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    launch, out = compact_row_launcher(due)
+    launch()
+    LAUNCHES["compact_row"] += 1
+    return out
+
+
+def compact_row_launcher(due: torch.Tensor):
+    """The one-row kernel's arguments checked and built once for a CUDA
+    tensor, its tile counts' scratch sized by the library's tile. Returns
+    (launch, (idx, n_active)) as ``compact_launcher``."""
+    from sphexa_torch.kernels.build import load_library
+
+    _check_row(due)
+    dev = due.device
+    n = due.shape[0]
+    lib = load_library()
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(-(-n // lib.compact_row_tile()), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    argv = (due.data_ptr(), n, idx.data_ptr(), count.data_ptr(), scratch.data_ptr(), stream)
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.launch_compact_row(*argv)
+        if err != 0:
+            raise RuntimeError(f"launch_compact_row failed: CUDA error {err} "
+                               f"({lib.pair_engine_error_string(err).decode()})")
+
+    return launch, (idx, count)
+
+
+def compact_row_plain(due: torch.Tensor):
+    """Plain PyTorch version of the one-row form on any device: a due
+    row's slot is the count of due rows before it."""
+    _check_row(due)
+    n = due.shape[0]
+    rank = torch.cumsum(due, dim=0) - 1
+    pos = torch.where(due, rank, n)
+    idx = torch.zeros(n + 1, dtype=torch.int32, device=due.device)
+    idx.scatter_(0, pos, torch.arange(n, dtype=torch.int32, device=due.device))
+    return idx[:n].contiguous(), due.sum(dtype=torch.int32)

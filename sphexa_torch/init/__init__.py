@@ -1,5 +1,6 @@
-"""Initial conditions of the port (sphexa_tpu/init): the Sedov, Noh,
-Gresho-Chan, Evrard, turbulence and Evrard-cooling cases, restart from a
+"""Initial conditions of the port (sphexa_tpu/init): every case of the
+JAX package (Sedov, Noh, Gresho-Chan, Evrard, isobaric cube,
+Kelvin-Helmholtz, wind shock, turbulence, Evrard-cooling), restart from a
 snapshot file, and the case factory ``make_initializer`` keyed by the
 reference CLI's names."""
 
@@ -9,24 +10,26 @@ from typing import Callable, Dict
 
 from sphexa_torch.init.evrard import init_evrard, init_evrard_cooling
 from sphexa_torch.init.gresho_chan import init_gresho_chan
+from sphexa_torch.init.isobaric_cube import init_isobaric_cube
+from sphexa_torch.init.kelvin_helmholtz import init_kelvin_helmholtz
 from sphexa_torch.init.noh import init_noh
 from sphexa_torch.init.sedov import init_sedov, jitter_sedov, stretch_box
 from sphexa_torch.init.turbulence import init_turbulence
+from sphexa_torch.init.wind_shock import init_wind_shock
 
-# case name -> init function: the ported cases of the JAX package's CASES
+# case name -> init function: the JAX package's CASES, the reference's
+# --init choices (factory.hpp:59-100)
 CASES: Dict[str, Callable] = {
     "sedov": init_sedov,
     "noh": init_noh,
     "evrard": init_evrard,
     "gresho-chan": init_gresho_chan,
+    "isobaric-cube": init_isobaric_cube,
+    "kelvin-helmholtz": init_kelvin_helmholtz,
+    "wind-shock": init_wind_shock,
     "turbulence": init_turbulence,
     "evrard-cooling": init_evrard_cooling,
 }
-
-#: every case name of the JAX package (the reference's --init choices,
-#: factory.hpp:59-100), the ported ones included
-JAX_CASE_NAMES = ("sedov", "noh", "evrard", "gresho-chan", "isobaric-cube",
-                  "kelvin-helmholtz", "wind-shock", "turbulence", "evrard-cooling")
 
 
 def split_case_spec(name: str):
@@ -44,8 +47,7 @@ def make_initializer(name: str) -> Callable:
     """The initializer for a case name, 'case:settings.json' (the JSON
     object's keys override the case's settings), 'path,N' (a snapshot
     up-sampled N-fold) or 'path[:step]' (restart from a snapshot). Each
-    returned callable takes (side, device=...). A case of the JAX package
-    that is not ported raises NotImplementedError; any other name raises
+    returned callable takes (side, device=...). Any other name raises
     ValueError, as the JAX package's does."""
     if name in CASES:
         return CASES[name]
@@ -72,16 +74,13 @@ def make_initializer(name: str) -> Callable:
         return functools.partial(init_file_split, split[0], split[1])
     if looks_like_file(name):
         return functools.partial(init_from_file, name)
-    if name in JAX_CASE_NAMES:
-        raise NotImplementedError(
-            f"--init {name!r}: not ported yet (the ported cases are {sorted(CASES)}, "
-            "'case:settings.json', 'file,N' splitting and an existing snapshot file)")
     raise ValueError(
-        f"unknown test case '{name}' (not a case name in {sorted(JAX_CASE_NAMES)}, "
+        f"unknown test case '{name}' (not a case name in {sorted(CASES)}, "
         "not 'case:settings.json', not 'file,N' splitting, and not an existing "
         "snapshot file)")
 
 
 __all__ = ["CASES", "make_initializer", "split_case_spec", "init_evrard",
-           "init_evrard_cooling", "init_gresho_chan", "init_noh", "init_sedov",
-           "init_turbulence", "jitter_sedov", "stretch_box"]
+           "init_evrard_cooling", "init_gresho_chan", "init_isobaric_cube",
+           "init_kelvin_helmholtz", "init_noh", "init_sedov", "init_turbulence",
+           "init_wind_shock", "jitter_sedov", "stretch_box"]

@@ -51,6 +51,10 @@ _ENTRY_POINTS = {
     "launch_compact_class_lists": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p],
+    # due n, idx count tile_counts, stream: K13's one-row form
+    "launch_compact_row": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
+    # () -> flags of one tile of the one-row form
+    "compact_row_tile": [],
     # (op name, EngineArgs*, int32 out[7]): an instantiation's registers,
     # spills, shared memory and occupancy
     "pair_engine_info": [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p],
@@ -63,7 +67,7 @@ _ENTRY_POINTS = {
 
 #: layout version of EngineArgs (csrc/pair_ops.cuh ABI_VERSION), checked
 #: against the library's
-ABI_VERSION = 7
+ABI_VERSION = 8
 
 _lib: Optional[ctypes.CDLL] = None
 

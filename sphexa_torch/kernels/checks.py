@@ -14,7 +14,13 @@ the CPU, ``ewald_vs_cpu`` a periodic (Ewald) one on
 ``periodic_random_case``. ``list_build_vs_plain`` holds the list build (K5) to its plain
 version bit for bit, on a list state's culled cells or on
 ``synthetic_cull``'s cells, which exercise each edge of the run merge.
-Any disagreement raises."""
+``std_ops_vs_plain`` holds the std ops (density, IAD, momentum), streaming
+or list walk, to their plain versions, and ``family_vs_plain`` runs it and
+the VE chain with another kernel family (wendland-c6's 20-coefficient
+form, or a sinc index). ``compact_row_cases`` holds K13's one-row form
+(the block time steps' due rows) to its plain version exactly, and
+``blockdt_vs_cpu`` block-time-step substeps on the card to the same
+substeps on the CPU. Any disagreement raises."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -22,7 +28,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from sphexa_torch.convert import state_from_numpy, state_to_numpy
+from sphexa_torch.convert import blockdt_to_numpy, state_from_numpy, state_to_numpy
 from sphexa_torch.gravity import pallas_compact as pcmp
 from sphexa_torch.gravity import traversal as gt
 from sphexa_torch.init import init_sedov, stretch_box
@@ -30,6 +36,8 @@ from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.sfc.box import BoundaryType
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph import pair_lists as pl
+from sphexa_torch.sph import blockdt as bdt
+from sphexa_torch.sph.hydro_std import compute_eos_std
 from sphexa_torch.sph.hydro_ve import compute_eos_ve
 
 
@@ -109,6 +117,61 @@ def ve_chain_vs_plain(name: str, ss, box, const, nbr, av_clean: bool, keys=None,
     return res, chain
 
 
+def std_ops_vs_plain(name: str, ss, box, const, nbr, keys=None, ranges=None,
+                     lists=None) -> dict:
+    """The std ops' wrappers (density, IAD, momentum/energy) against their
+    plain versions on the kernel chain's inputs, with the JAX package's
+    tolerances (tests/test_pallas_interpret.py): nc exact; rho rtol 1e-5;
+    IAD rtol 1e-4 / atol 1e-5 max|c11|; a and du rtol 1e-4 / atol 5e-6
+    max|.|; min dt rel 1e-5. With ``lists`` the list walks, as the force
+    stage runs them (density keeps its mask, the others read it). Returns
+    per-entry-point results keyed as in ``pe.LAUNCHES``."""
+    kw = {"ranges": ranges, "lists": lists}
+    sfx = "_lists" if lists is not None else ""
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+    res = {}
+    rho, nc, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, nbr, mask="write", **kw)
+    rho_p, nc_p, _ = pe.density_plain(x, y, z, h, m, keys, box, const, nbr, **kw)
+    if not torch.equal(nc, nc_p):
+        raise AssertionError(f"{name}: density nc differs at {int((nc != nc_p).sum())} targets")
+    res["density" + sfx] = {"max_abs_err": _close(name, "rho", rho, rho_p, 1e-5, 0.0),
+                            "nb_pairs": int(nc_p.to(torch.int64).sum())}
+    vol = m / rho
+    rd = {**kw, "mask": "read"}
+    cs, _ = pe.pallas_iad(x, y, z, h, vol, keys, box, const, nbr, **rd)
+    cs_p, _ = pe.iad_plain(x, y, z, h, vol, keys, box, const, nbr, **kw)
+    scale = float(cs_p[0].abs().max())
+    res["iad" + sfx] = {"max_abs_err": max(_close(name, f"c{k}", a, b, 1e-4, 1e-5 * scale)
+                                           for k, (a, b) in enumerate(zip(cs, cs_p)))}
+    p, c = compute_eos_std(ss.temp, rho, const)
+    margs = (x, y, z, ss.vx, ss.vy, ss.vz, h, m, rho, p, c, *cs, keys, box, const, nbr)
+    out = pe.pallas_momentum_energy_std(*margs, **rd)
+    out_p = pe.momentum_energy_std_plain(*margs, **kw)
+    err = max(_close(name, nm, a, b, 1e-4, 5e-6 * (float(b.abs().max()) + 1e-12))
+              for nm, a, b in zip(("ax", "ay", "az", "du"), out[:4], out_p[:4]))
+    dk, dp = float(out[4]), float(out_p[4])
+    if abs(dk - dp) > 1e-5 * abs(dp):
+        raise AssertionError(f"{name}: min dt {dk} vs plain {dp}")
+    res["momentum_energy_std" + sfx] = {"max_abs_err": err,
+                                        "min_dt_rel_err": abs(dk - dp) / abs(dp)}
+    return res
+
+
+def family_vs_plain(name: str, ss, box, const, nbr, keys=None, ranges=None,
+                    lists=None) -> dict:
+    """Every std and VE op (both divv/curlv and momentum forms) of the
+    kernel family ``const`` names against its plain version:
+    ``std_ops_vs_plain`` and ``ve_chain_vs_plain``, streaming or, with
+    ``lists``, the list walks. Returns per-entry-point results."""
+    res = std_ops_vs_plain(name, ss, box, const, nbr, keys=keys, ranges=ranges, lists=lists)
+    for av_clean in (False, True):
+        ve, _ = ve_chain_vs_plain(f"{name} av_clean {av_clean}", ss, box, const, nbr,
+                                  av_clean, keys=keys, ranges=ranges, lists=lists)
+        res.update({(k + ":av_clean" if av_clean and k != "xmass" else k): v
+                    for k, v in ve.items()})
+    return res
+
+
 def compact_vs_plain(name: str, packed, cap0: int, cap1: int) -> dict:
     """K13 against its plain version on one packed array: lists and counts
     equal, element for element."""
@@ -158,6 +221,100 @@ def compact_random_cases(device) -> list:
                                          "not the expected list")
         out.append(res)
     return out
+
+
+#: K13's one-row form, (rows, share of due rows, offset of the mask in
+#: its allocation): one tile and one more row, masks that start off the
+#: 16-byte words, no due row, every row due, 10^6 rows
+COMPACT_ROW_CASES = ((4097, 0.5, 0), (100_003, 0.01, 1), (65_536, 0.0, 3), (50_001, 1.0, 2),
+                     (1_000_000, 0.3, 0))
+
+
+def compact_row_vs_plain(name: str, due) -> dict:
+    """``blockdt.compact_active`` on the card (K13's one-row form, counted
+    once) against its plain version and against the plain version of the
+    one-block form over the packed (1, n) row that the JAX package builds:
+    the positions and the count equal, the due rows first in row order,
+    zeros after."""
+    n = due.shape[0]
+    before = pe.LAUNCHES["compact_row"]
+    idx, cnt = bdt.compact_active(due)
+    if pe.LAUNCHES["compact_row"] != before + 1:
+        raise AssertionError(f"{name}: the one-row form was not launched")
+    ref_idx, ref_cnt = pcmp.compact_row_plain(due)
+    cls = torch.where(due, 0, 1).to(torch.int32)
+    packed = ((cls << pcmp.IDX_BITS) | torch.arange(n, dtype=torch.int32,
+                                                    device=due.device))[None, :]
+    l0, n0, _, _ = pcmp.compact_class_lists_plain(packed, n, 1)
+    for nm, a, b in (("idx", idx, ref_idx), ("count", cnt, ref_cnt),
+                     ("idx (packed row)", idx, l0[0]), ("count (packed row)", cnt, n0[0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: one-row {nm} differs at "
+                                 f"{int((a != b).sum())} entries")
+    want = torch.nonzero(due).flatten().to(torch.int32)
+    if int(cnt) != want.numel() or not torch.equal(idx[:want.numel()], want) \
+            or bool((idx[want.numel():] != 0).any()):
+        raise AssertionError(f"{name}: compact_active is not the due rows, then zeros")
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in ((idx, ref_idx), (cnt, ref_cnt)))
+    return {"max_abs_err": float(err), "rows": n, "due": int(cnt)}
+
+
+def compact_row_cases(device) -> list:
+    """K13's one-row form on ``COMPACT_ROW_CASES`` (seeded masks; the
+    offset cases are views into a longer allocation)."""
+    out = []
+    for n, share, off in COMPACT_ROW_CASES:
+        due_np = np.random.default_rng(n).uniform(size=n + off) < share
+        due = torch.as_tensor(due_np, device=device)[off:]
+        res = compact_row_vs_plain(f"compact row ({n}, share {share}, offset {off})", due)
+        out.append({**res, "offset": off, "share": share})
+    return out
+
+
+def blockdt_vs_cpu(case: str, side: int, steps: int, dt_bins: int = 3, prop: str = "std",
+                   resort_drift: float = 0.0) -> dict:
+    """Block-time-step substeps on the card against the same substeps on
+    the CPU, each from the card's input state and carry: the integer block
+    diagnostics and the bins equal, neighbour counts (max and exact total)
+    equal, the fields within the slice's tolerance (rtol 1e-4, VE 2e-4;
+    atol 5e-6 max|.|); with gravity (Evrard) egrav within 1e-4."""
+    from sphexa_torch.init import CASES
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.simulation import Simulation
+
+    kw = {"prop": prop, "dt_bins": dt_bins, "bin_resort_drift": resort_drift,
+          "obs_spec": ObservableSpec()}
+    gpu = Simulation(*CASES[case](side, device="cuda"), device="cuda", **kw)
+    cpu = Simulation(*CASES[case](side, device="cpu"), device="cpu", **kw)
+    rtol = 1e-4 if prop == "std" else 2e-4
+    worst, active = 0.0, []
+    for it in range(steps):
+        cpu.state, cpu.box = gpu.state.to("cpu"), gpu.box.to("cpu")
+        cpu.bdt_state = gpu.bdt_state.to("cpu")
+        dg, dc = gpu.step(), cpu.step()
+        for k in ("nc_max", "nc_sum", "occupancy", "bdt_active", "bdt_resort", "bdt_drift",
+                  *(f"bdt_pop[{b}]" for b in range(dt_bins))):
+            if dg[k] != dc[k]:
+                raise AssertionError(f"{case} {side} substep {it}: {k} {dg[k]} vs cpu {dc[k]}")
+        if gpu.gravity_on and abs(dg["egrav"] - dc["egrav"]) > 1e-4 * abs(dc["egrav"]):
+            raise AssertionError(f"{case} {side} substep {it}: egrav {dg['egrav']} vs cpu "
+                                 f"{dc['egrav']}")
+        got, want = blockdt_to_numpy(gpu.bdt_state), blockdt_to_numpy(cpu.bdt_state)
+        for k in ("bins", "substep", "cycle"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"{case} {side} substep {it}: {k} differs")
+        for f in ("x", "y", "z", "vx", "vy", "vz", "h", "temp", "du", "alpha"):
+            a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=rtol, atol=5e-6 * scale,
+                                       msg=f"{case} {side} substep {it}: {f}")
+            worst = max(worst, float((a - b).abs().max()) / (scale or 1.0))
+        active.append(int(dg["bdt_active"]))
+    return {"case": case, "side": side, "n": gpu.state.n, "prop": prop, "dt_bins": dt_bins,
+            "substeps": steps, "active": active, "max_abs_err_over_scale": worst,
+            "gravity": gpu.gravity_on, "energy_drift_gpu": gpu.energy_drift,
+            "energy_drift_cpu": cpu.energy_drift}
 
 
 def gravity_case(side: int, device):

@@ -10,22 +10,10 @@ import math
 import os
 from typing import Dict, List, Optional
 
+from sphexa_torch.init.wind_shock import wind_shock_constants
 from sphexa_torch.sph.particles import ideal_gas_cv
 
 BASE_COLUMNS = ["iteration", "time", "minDt", "etot", "ecin", "eint", "egrav"]
-
-
-def wind_shock_constants() -> Dict[str, float]:
-    """Wind-shock test-case settings (wind_shock_init.hpp
-    WindShockConstants; the JAX package's init/wind_shock.py, whose init
-    is not ported)."""
-    return {
-        "r": 0.125, "rSphere": 0.025, "rhoInt": 10.0, "rhoExt": 1.0,
-        "uExt": 1.5, "vxExt": 2.7, "vyExt": 0.0, "vzExt": 0.0,
-        "dim": 3, "gamma": 5.0 / 3.0, "minDt": 1e-10, "minDt_m1": 1e-10,
-        "Kcour": 0.4, "epsilon": 0.0, "mui": 10.0, "gravConstant": 0.0,
-        "ng0": 100, "ngmax": 150, "wind-shock": 1.0,
-    }
 
 
 class TimeAndEnergy:

@@ -23,9 +23,13 @@ state. The turb-ve step (``_step_turb_ve``) adds the OU stirring
 candidates and the cooling source to du (physics/cooling.py), and its
 per-particle chemistry rides the sort: ``_sort_by_keys``,
 ``rebuild_pair_lists`` and the force stages' prologue take it as
-``aux`` and permute it by the same gather as the state. PyTorch runs the
-steps eagerly; the pair ops launch the CUDA kernels on the card and their
-plain versions on the CPU. Block time steps are not ported.
+``aux`` and permute it by the same gather as the state. The block time
+step twins (``_step_hydro_std_blockdt``, ``_step_hydro_ve_blockdt``;
+sph/blockdt.py, ``cfg.dt_bins``) sort on the bin-folded key, drift-aware,
+run the full force stage, then kick only the due rows, which K13's
+one-row form lists; their BlockDtState rides the sort as the aux. PyTorch
+runs the steps eagerly; the pair ops launch the CUDA kernels on the card
+and their plain versions on the CPU.
 """
 
 import dataclasses
@@ -40,8 +44,9 @@ from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.observables.ledger import ObservableSpec, ledger_diagnostics
 from sphexa_torch.physics.cooling import CoolingConfig, cool_step, cool_timestep
-from sphexa_torch.sfc.box import Box, make_global_box
+from sphexa_torch.sfc.box import Box, make_global_box, put_in_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
+from sphexa_torch.sph import blockdt as bdt
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
 from sphexa_torch.sph.hydro_std import compute_eos_std
@@ -85,6 +90,13 @@ class PropagatorConfig:
     obs: Optional[ObservableSpec] = None
     # periodic self-gravity: the Ewald solve's parameters (None: open box)
     ewald: Optional[EwaldConfig] = None
+    # block time steps (sph/blockdt.py): the number of power-of-two dt bins
+    # the *_blockdt steps use (None: the global-dt steps, which never read
+    # these three), the re-bin cadence in cycles, and the tolerated share
+    # of folded-key inversions under which the sort keeps the order
+    dt_bins: Optional[int] = None
+    bin_sync_every: int = 1
+    bin_resort_drift: float = 0.0
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -100,25 +112,54 @@ def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
     return torch.argmin(stack).to(torch.int32)
 
 
-def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None):
+def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None, bins=None,
+                  resort_drift: float = 0.0):
     """Global SFC sort: keys, a stable argsort (jnp.argsort is stable), and
     a row gather of the per-particle fields stacked into one (n, F) matrix
     (the JAX package's permute_tree). Returns (state, sorted_keys, order);
-    with ``aux`` (a dataclass of (n,) float32 tensors, such as the
-    ChemistryData) its columns join the same gather and the permuted aux
-    comes fourth."""
+    with ``aux`` (a dataclass of per-particle tensors and scalars, such as
+    the ChemistryData or the BlockDtState) its (n,) float32 fields join the
+    same gather, its other (n,) fields are gathered by the same order, its
+    scalars pass through, and the permuted aux comes fourth.
+
+    ``bins`` (block time steps): the sort key is ``blockdt.fold_bin_key``
+    and drift-aware: the folded keys' inversions are counted, and where
+    they are at most ``int(resort_drift * n)`` the order is kept (the
+    identity permutation, nothing moves). Both outcomes are selected on
+    the card (``torch.where`` on the order): the argsort runs either way,
+    and no host read decides, so a deferred window keeps its one read.
+    Returns (state, keys, order, aux, resorted () int32, inversions ()
+    int32), ``keys`` permuted as the state."""
     keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
-    order = torch.argsort(keys, stable=True)
-    aux_names = [] if aux is None else [f.name for f in dataclasses.fields(aux)]
-    cols = [getattr(state, f) for f in PARTICLE_FIELDS] + [getattr(aux, f) for f in aux_names]
+    n = state.n
+    extra = ()
+    if bins is None:
+        order = torch.argsort(keys, stable=True)
+    else:
+        skey = bdt.fold_bin_key(keys, bins)
+        inv = torch.sum(skey[1:] < skey[:-1], dtype=torch.int32)
+        resort = inv > int(resort_drift * n)
+        order = torch.where(resort, torch.argsort(skey, stable=True),
+                            torch.arange(n, device=keys.device))
+        extra = (resort.to(torch.int32), inv)
+    dtype = state.x.dtype
+    per = [] if aux is None else [f.name for f in dataclasses.fields(aux)
+                                  if getattr(aux, f.name).shape == (n,)]
+    joined = [f for f in per if getattr(aux, f).dtype == dtype]
+    cols = [getattr(state, f) for f in PARTICLE_FIELDS] + [getattr(aux, f) for f in joined]
     mat = torch.stack(cols, dim=1).index_select(0, order)
     nf = len(PARTICLE_FIELDS)
     new = dataclasses.replace(state, **{f: mat[:, k].contiguous()
                                         for k, f in enumerate(PARTICLE_FIELDS)})
+    if aux is not None:
+        moved = {f: mat[:, nf + k].contiguous() for k, f in enumerate(joined)}
+        moved.update({f: getattr(aux, f).index_select(0, order) for f in per
+                      if f not in moved})
+        aux = dataclasses.replace(aux, **moved)
+    if bins is not None:
+        return (new, keys[order], order, aux, *extra)
     if aux is None:
         return new, keys[order], order
-    aux = dataclasses.replace(aux, **{f: mat[:, nf + k].contiguous()
-                                      for k, f in enumerate(aux_names)})
     return new, keys[order], order, aux
 
 
@@ -138,13 +179,17 @@ def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig, au
 
 
 def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
-                          lists: Optional[PairLists] = None, aux=None):
+                          lists: Optional[PairLists] = None, aux=None, keys=None):
     """Head of the force stage. Streaming: box regrow + global sort. List
     mode: nothing moves; the lists' validity for this step's input.
-    Returns (state, box, sorted_keys or None, list diagnostics or None),
-    and with ``aux`` (sorted with the state, ``_sort_by_keys``; in list
-    mode as it is) the aux fifth."""
+    ``keys``: the caller regrew the box and sorted (the block time steps'
+    bin-folded sort): everything passes through. Returns (state, box,
+    sorted_keys or None, list diagnostics or None), and with ``aux``
+    (sorted with the state, ``_sort_by_keys``; in list mode as it is) the
+    aux fifth."""
     tail = () if aux is None else (aux,)
+    if keys is not None:
+        return (state, box, keys, None, *tail)
     if lists is not None:
         if cfg.gravity is not None:
             raise NotImplementedError("persistent lists compose with gravity-off steps; "
@@ -186,17 +231,19 @@ def _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az, diag):
 
 def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
                 gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None,
-                aux=None):
+                aux=None, keys=None):
     """The std-SPH force stage: [sort -> prologue ->] density -> EOS -> IAD
     -> momentum/energy [-> gravity]; with ``lists`` every pair op walks
     the lists' marked lanes, and the density walk keeps its mask for the
     later walks (``pair_engine.engine_lists_kernel``'s mask modes: the
     positions and smoothing lengths are the same). ``aux``: per-particle
-    fields sorted with the state (the cooling step's chemistry). Returns
+    fields sorted with the state (the cooling step's chemistry); ``keys``:
+    the state is sorted already (``_force_stage_prologue``). Returns
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c,
     diagnostics or None, aux)."""
     const = cfg.const
-    state, box, keys, diag, *rest = _force_stage_prologue(state, box, cfg, lists, aux=aux)
+    state, box, keys, diag, *rest = _force_stage_prologue(state, box, cfg, lists, aux=aux,
+                                                          keys=keys)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
         pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
@@ -239,6 +286,16 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
         ttot=state.ttot + dt, min_dt=dt, min_dt_m1=state.min_dt,
         **(extra or {}),
     )
+    return new_state, box, _step_diagnostics(cfg, new_state, box, dt, nc, occ, rho, dt_limiter,
+                                             extra_diag, c, update_smoothing)
+
+
+def _step_diagnostics(cfg: PropagatorConfig, new_state: ParticleState, box: Box, dt, nc, occ,
+                      rho, dt_limiter, extra_diag, c, smoothing: bool) -> Dict[str, torch.Tensor]:
+    """A step's diagnostics: the STEP_DIAG_KEYS scalars, the exact
+    neighbour total, the science ledger with ``cfg.obs``, the limiter and
+    ``extra_diag``."""
+    const = cfg.const
     diagnostics = {
         "dt": dt,
         "nc_mean": torch.mean(nc.to(torch.float32)) + 1.0,
@@ -248,18 +305,18 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
         "nc_max": torch.max(nc) + 1,
         "occupancy": occ,
         "rho_max": torch.max(rho),
-        "h_max": torch.max(new_h),
+        "h_max": torch.max(new_state.h),
     }
     if cfg.obs is not None:
         diagnostics.update(ledger_diagnostics(
             new_state, rho, nc, const, const.ngmax, spec=cfg.obs,
             egrav=(extra_diag or {}).get("egrav"), box=box, c=c,
-            smoothing=update_smoothing))
+            smoothing=smoothing))
     if dt_limiter is not None:
         diagnostics["dt_limiter"] = dt_limiter
     if extra_diag:
         diagnostics.update(extra_diag)
-    return new_state, box, diagnostics
+    return diagnostics
 
 
 def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -314,7 +371,8 @@ def _split_dvout(dvout, av_clean: bool):
 
 
 def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
-               gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None):
+               gtree: Optional[GravityTree] = None, lists: Optional[PairLists] = None,
+               keys=None, raw_dts: bool = False):
     """The VE force stage (HydroVeProp::computeForces, ve_hydro.hpp:131-208):
     [sort -> prologue ->] xmass -> grad-h -> EOS -> IAD -> divv/curlv -> AV
     switches -> momentum/energy [-> gravity], one set of runs (or the
@@ -322,9 +380,11 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     six ops, then the time step: min of Courant,
     Krho/|max divv|, 1.1x the previous dt [and the acceleration
     condition]. Returns (state, box, ax, ay, az, du, dt, alpha, nc, occ,
-    rho, c, diagnostics)."""
+    rho, c, diagnostics); ``raw_dts`` (the block time steps, which combine
+    them at their sync substep): (dt_courant, dt_rho, extra_dts) in dt's
+    place and no limiter. ``keys``: the state is sorted already."""
     const, nbr = cfg.const, cfg.nbr
-    state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists)
+    state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists, keys=keys)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     vx, vy, vz = state.vx, state.vy, state.vz
     ranges = None if lists is not None else pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
@@ -347,6 +407,9 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
 
     ax, ay, az, extra_dts, ldiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                  ldiag)
+    if raw_dts:
+        return (state, box, ax, ay, az, du, (dt_courant, dt_rho, extra_dts), alpha, nc, occ,
+                rho, c, ldiag)
     dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
     diag = {**(ldiag or {}),
             "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
@@ -413,10 +476,156 @@ def _step_nbody(state: ParticleState, box: Box, cfg: PropagatorConfig,
                                  update_smoothing=False)
 
 
+def _integrate_and_finish_blockdt(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                                  ax, ay, az, du, dt_min, dt_prev, due, bins, dt_eff, nc, occ,
+                                  rho, extra=None, extra_diag=None, c=None, dt_limiter=None):
+    """The block-time-step tail: the Press update with per-particle dt
+    (``dt_eff``, ``dt_prev``; compute_positions is elementwise in them)
+    kept on the due rows only, each of which first removes the drift
+    since its last kick (its bin > 0: at bin 0 the term is zero, and
+    ``a - 0.0`` is not bit-exact for a = -0.0); the other rows drift
+    ``x += v dt_min`` (PBC-folded) with every other field kept. The
+    ledger runs over all rows."""
+    const = cfg.const
+    rebase = due & (bins > 0)
+    dr = dt_eff - dt_min
+    bx = torch.where(rebase, state.x - state.vx * dr, state.x)
+    by = torch.where(rebase, state.y - state.vy * dr, state.y)
+    bz = torch.where(rebase, state.z - state.vz * dr, state.z)
+    fields = (bx, by, bz, state.x_m1, state.y_m1, state.z_m1, state.vx, state.vy, state.vz,
+              state.h, state.temp, state.temp_lo, du, state.du_m1)
+    (nx, ny, nz, dxm, dym, dzm, vx, vy, vz, h, temp, temp_lo, ndu,
+     du_m1) = compute_positions(fields, ax, ay, az, dt_eff, dt_prev, box, const)
+    drift = put_in_box(box, torch.stack([state.x + state.vx * dt_min,
+                                         state.y + state.vy * dt_min,
+                                         state.z + state.vz * dt_min], dim=-1))
+
+    def sel(a, b):
+        return torch.where(due, a, b)
+
+    new_state = dataclasses.replace(
+        state, x=sel(nx, drift[:, 0]), y=sel(ny, drift[:, 1]), z=sel(nz, drift[:, 2]),
+        x_m1=sel(dxm, state.x_m1), y_m1=sel(dym, state.y_m1), z_m1=sel(dzm, state.z_m1),
+        vx=sel(vx, state.vx), vy=sel(vy, state.vy), vz=sel(vz, state.vz),
+        h=sel(update_h(const.ng0, nc + 1, h), state.h), temp=sel(temp, state.temp),
+        temp_lo=sel(temp_lo, state.temp_lo), du=sel(ndu, state.du),
+        du_m1=sel(du_m1, state.du_m1),
+        ttot=state.ttot + dt_min, min_dt=dt_min, min_dt_m1=state.min_dt,
+        **(extra or {}),
+    )
+    return new_state, box, _step_diagnostics(cfg, new_state, box, dt_min, nc, occ, rho,
+                                             dt_limiter, extra_diag, c, True)
+
+
+def _blockdt_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig, bst):
+    """Box regrow and the block-time-step sort, the BlockDtState riding it
+    as the aux. ``dt_bins`` 1 takes the plain sort (no fold, no keep), so
+    that the step is the global one. Returns (state, box, keys, bst,
+    resorted, inversions)."""
+    box = make_global_box(state.x, state.y, state.z, box)
+    if cfg.dt_bins == 1:
+        state, keys, _, bst = _sort_by_keys(state, box, cfg.curve, aux=bst)
+        one = torch.ones((), dtype=torch.int32, device=keys.device)
+        return state, box, keys, bst, one, torch.zeros_like(one)
+    state, keys, _, bst, resorted, inv = _sort_by_keys(
+        state, box, cfg.curve, aux=bst, bins=bst.bins, resort_drift=cfg.bin_resort_drift)
+    return state, box, keys, bst, resorted, inv
+
+
+def _blockdt_tail(state: ParticleState, box: Box, cfg: PropagatorConfig, ax, ay, az, du,
+                  dt_sync, bst, resorted, inv, nc, occ, rho, c=None, dt_limiter=None,
+                  gdiag=None, alpha=None):
+    """The bins' bookkeeping and the due rows' update: at the sync substep
+    dt_min refreshed and (every ``bin_sync_every``-th cycle) the bins
+    reassigned; the due mask, the due rows' list and count (K13's one-row
+    form on the card), the bin populations and the due rows' neighbour
+    work, the advanced BlockDtState; then the block-time-step tail.
+    Returns (state, box, diagnostics, bst)."""
+    const = cfg.const
+    B = cfg.dt_bins
+    is_sync = bst.substep == 0
+    dt_min = torch.where(is_sync, dt_sync, bst.dt_min)
+    grav = cfg.gravity is not None
+    cand = bdt.particle_dt_candidates(state.h, c, const, ax=ax if grav else None,
+                                      ay=ay if grav else None, az=az if grav else None)
+    rebin = is_sync & (bst.cycle % cfg.bin_sync_every == 0)
+    bins = torch.where(rebin, bdt.assign_bins(cand, dt_min, B), bst.bins)
+    due = bdt.due_mask(bins, bst.substep)
+    # an exact power of two: the integer shift, then float32
+    dt_eff = dt_min * torch.bitwise_left_shift(torch.ones_like(bins), bins).to(torch.float32)
+    idx_act, n_active = bdt.compact_active(due)
+    lane = torch.arange(state.n, dtype=torch.int32, device=due.device)
+    work = torch.sum(torch.where(lane < n_active, nc[idx_act.long()], 0).to(torch.float32))
+    bdiag = {"bdt_active": n_active, "bdt_pop": bdt.bin_populations(bins, B),
+             "bdt_substep": bst.substep, "bdt_resort": resorted, "bdt_drift": inv,
+             "bdt_work": work}
+    wrap = bst.substep + 1 >= bdt.cycle_length(B)
+    new_bst = bdt.BlockDtState(
+        bins=bins, dt_prev=torch.where(due, dt_eff, bst.dt_prev),
+        substep=torch.where(wrap, torch.zeros_like(bst.substep), bst.substep + 1),
+        cycle=bst.cycle + wrap.to(torch.int32), dt_min=dt_min)
+    extra = None if alpha is None else {"alpha": torch.where(due, alpha, state.alpha)}
+    # dt_bins 1: the scalars the global step feeds compute_positions
+    if B == 1:
+        cp_dt, cp_dtm1 = dt_min, state.min_dt
+    else:
+        cp_dt, cp_dtm1 = dt_eff, bst.dt_prev
+    new_state, box, diag = _integrate_and_finish_blockdt(
+        state, box, cfg, ax, ay, az, du, dt_min, cp_dtm1, due, bins, cp_dt, nc, occ, rho,
+        extra=extra, extra_diag={**(gdiag or {}), **bdiag}, c=c, dt_limiter=dt_limiter)
+    return new_state, box, diag, new_bst
+
+
+def _step_hydro_std_blockdt(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                            gtree: Optional[GravityTree], bst,
+                            lists: Optional[PairLists] = None):
+    """One std-SPH substep under block time steps (the JAX package's
+    _step_hydro_std_blockdt): the bin-folded drift-aware sort -> the full
+    force stage (inactive rows are sources at their drifted positions) ->
+    the sync substep's dt -> the due rows' update. ``lists`` is refused:
+    the step sorts every time. Returns (state, box, diagnostics, bst)."""
+    if lists is not None:
+        raise ValueError("block time steps take no neighbour lists")
+    const = cfg.const
+    state, box, keys, bst, resorted, inv = _blockdt_prologue(state, box, cfg, bst)
+    (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diag,
+     _) = _std_forces(state, box, cfg, gtree, keys=keys)
+    dt_sync = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=const)
+    limiter = _dt_limiter(state.min_dt, const, courant=dt_courant,
+                          accel=extra_dts[0] if extra_dts else None)
+    return _blockdt_tail(state, box, cfg, ax, ay, az, du, dt_sync, bst, resorted, inv, nc,
+                         occ, rho, c=c, dt_limiter=limiter, gdiag=diag)
+
+
+def _step_hydro_ve_blockdt(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                           gtree: Optional[GravityTree], bst,
+                           lists: Optional[PairLists] = None):
+    """One VE substep under block time steps (the JAX package's
+    _step_hydro_ve_blockdt): as the std one over the VE force stage, its
+    raw dt candidates combined at the sync substep; alpha is kept on the
+    inactive rows. Returns (state, box, diagnostics, bst)."""
+    if lists is not None:
+        raise ValueError("block time steps take no neighbour lists")
+    const = cfg.const
+    state, box, keys, bst, resorted, inv = _blockdt_prologue(state, box, cfg, bst)
+    (state, box, ax, ay, az, du, (dt_courant, dt_rho, extra_dts), alpha, nc, occ, rho, c,
+     gdiag) = _ve_forces(state, box, cfg, gtree, keys=keys, raw_dts=True)
+    dt_sync = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
+    limiter = _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
+                          accel=extra_dts[0] if extra_dts else None)
+    return _blockdt_tail(state, box, cfg, ax, ay, az, du, dt_sync, bst, resorted, inv, nc,
+                         occ, rho, c=c, dt_limiter=limiter, gdiag=gdiag, alpha=alpha)
+
+
 #: step function -> the SimState aux slot it consumes and produces (the
-#: JAX package's STEP_AUX_SLOT); such a step also takes its slot's static
-#: config (TurbulenceConfig, CoolingConfig) after the aux
-STEP_AUX_SLOT = {_step_turb_ve: "turb", _step_hydro_std_cooling: "chem"}
+#: JAX package's STEP_AUX_SLOT)
+STEP_AUX_SLOT = {_step_turb_ve: "turb", _step_hydro_std_cooling: "chem",
+                 _step_hydro_std_blockdt: "bdt", _step_hydro_ve_blockdt: "bdt"}
+
+#: the aux steps that also take their slot's static config
+#: (TurbulenceConfig, CoolingConfig) after the aux; the block time steps
+#: take the BlockDtState alone
+STEP_AUX_CFG = (_step_turb_ve, _step_hydro_std_cooling)
 
 
 def step_sim_state(step_fn, sim: SimState, cfg: PropagatorConfig, gtree=None, aux_cfg=None,
@@ -428,6 +637,7 @@ def step_sim_state(step_fn, sim: SimState, cfg: PropagatorConfig, gtree=None, au
     if slot is None:
         s, b, diag = step_fn(sim.particles, sim.box, cfg, gtree, lists=lists)
         return sim.with_slot(None, None, particles=s, box=b), diag
-    s, b, diag, aux = step_fn(sim.particles, sim.box, cfg, gtree, getattr(sim, slot), aux_cfg,
+    cfg_arg = (aux_cfg,) if step_fn in STEP_AUX_CFG else ()
+    s, b, diag, aux = step_fn(sim.particles, sim.box, cfg, gtree, getattr(sim, slot), *cfg_arg,
                               lists=lists)
     return sim.with_slot(slot, aux, particles=s, box=b), diag

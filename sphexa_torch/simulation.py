@@ -1,5 +1,6 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE,
-turb-ve, std-cooling and N-body propagators on one card): static
+turb-ve, std-cooling and N-body propagators and the std and VE block time
+steps on one card): static
 neighbour-config sizing, the gravity tree and its caps (open-box or
 Ewald periodic gravity), the step loop with the overflow contract,
 deferred check windows with rollback and replay of the whole carry (the
@@ -27,12 +28,14 @@ from sphexa_torch.neighbors.cell_list import (
 )
 from sphexa_torch.physics.cooling import ChemistryData, CoolingConfig
 from sphexa_torch.propagator import (
-    DT_LIMITERS, STEP_AUX_SLOT, PropagatorConfig, _step_hydro_std, _step_hydro_std_cooling,
-    _step_hydro_ve, _step_nbody, _step_turb_ve, rebuild_pair_lists, step_sim_state,
+    DT_LIMITERS, STEP_AUX_SLOT, PropagatorConfig, _step_hydro_std, _step_hydro_std_blockdt,
+    _step_hydro_std_cooling, _step_hydro_ve, _step_hydro_ve_blockdt, _step_nbody,
+    _step_turb_ve, rebuild_pair_lists, step_sim_state,
 )
 from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
+from sphexa_torch.sph.blockdt import make_blockdt_state
 from sphexa_torch.sph.pair_engine import engine_fold
 from sphexa_torch.sph.hydro_turb import create_stirring_modes
 from sphexa_torch.sph.pair_lists import estimate_slot_cap
@@ -47,6 +50,9 @@ _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
 #: the propagators' step functions (the JAX package's _PROPAGATORS)
 _STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve, "turb-ve": _step_turb_ve,
           "std-cooling": _step_hydro_std_cooling, "nbody": _step_nbody}
+
+#: their block-time-step twins (``Simulation(dt_bins=...)``): std and VE only
+_STEPS_BLOCKDT = {"std": _step_hydro_std_blockdt, "ve": _step_hydro_ve_blockdt}
 
 
 def _max_cell_occupancy(sorted_keys: np.ndarray, level: int) -> int:
@@ -191,6 +197,18 @@ class Simulation:
     runs on the CUDA device and raises without one; ``device="cpu"`` runs
     the plain PyTorch versions of the kernels.
 
+    ``dt_bins`` (std and VE only; None: the global dt): hierarchical block
+    time steps with that many power-of-two dt bins (sph/blockdt.py); each
+    ``step()`` is a substep. The BlockDtState is the carry's ``bdt`` slot
+    (a rollback restores it), bins are reassigned every
+    ``bin_sync_every``-th cycle, and the sort keeps the order while the
+    folded keys' inversions stay within ``bin_resort_drift`` of n. Lists
+    stay off (the steps sort every time). ``bdt_updates`` /
+    ``bdt_updates_full`` count the particle updates made against the
+    global dt's over the same substeps, ``bdt_resorts`` / ``bdt_keeps``
+    the sort's decisions; a ``dt_bins`` event goes out at every check or
+    flush boundary.
+
     Self-gravity is on when ``const.g != 0``: in an open box, or in a
     fully periodic cubic one through Ewald summation (``ewald_on``; mixed
     boundaries and non-cubic periodic boxes are refused). Each
@@ -216,9 +234,29 @@ class Simulation:
                  m2p_cap_margin: Optional[float] = None, turb_cfg=None, turb_state=None,
                  turb_settings: Optional[Dict] = None,
                  cooling_cfg: Optional[CoolingConfig] = None,
-                 chem: Optional[ChemistryData] = None):
+                 chem: Optional[ChemistryData] = None, dt_bins: Optional[int] = None,
+                 bin_sync_every: int = 1, bin_resort_drift: float = 0.0):
         if prop not in _STEPS:
             raise ValueError(f"unknown propagator {prop!r}; available: {sorted(_STEPS)}")
+        if dt_bins is not None:
+            if prop not in _STEPS_BLOCKDT:
+                raise ValueError(f"dt_bins (hierarchical block time steps) supports the "
+                                 f"std/ve propagators, not prop={prop!r}")
+            dt_bins = int(dt_bins)
+            if dt_bins < 1:
+                raise ValueError(f"dt_bins must be >= 1, got {dt_bins}")
+            if int(bin_sync_every) < 1:
+                raise ValueError(f"bin_sync_every must be >= 1, got {bin_sync_every}")
+            if float(bin_resort_drift) < 0.0:
+                raise ValueError(f"bin_resort_drift must be >= 0, got {bin_resort_drift}")
+        self.dt_bins = dt_bins
+        self.bin_sync_every = int(bin_sync_every)
+        self.bin_resort_drift = float(bin_resort_drift)
+        # the block time steps' host counters, over every verified substep
+        self.bdt_updates = 0
+        self.bdt_updates_full = 0
+        self.bdt_resorts = 0
+        self.bdt_keeps = 0
         if prop == "nbody" and const.g == 0.0:
             raise ValueError(
                 "prop='nbody' needs a gravitational constant: set SimConstants(g=...)")
@@ -245,9 +283,10 @@ class Simulation:
         self._gtree = None
         self.grav_configure_seconds = 0.0  # the last tree build and cap sizing
         self.av_clean = av_clean
-        self._step_fn = _STEPS[prop]
+        self._step_fn = (_STEPS_BLOCKDT if dt_bins is not None else _STEPS)[prop]
         self.device = resolve_device(device)
         self.state = state.to(self.device)
+        self.bdt_state = make_blockdt_state(self.state, dt_bins) if dt_bins is not None else None
         self.box = box.to(self.device)
         self.const = const
         # the turbulence stirring (turb-ve): built from the case settings
@@ -293,8 +332,9 @@ class Simulation:
         self.energy_drift: Optional[float] = None
         self._collect_science = bool(science_rows)
         self._science: list = []
-        # the gravity tree is built from fresh keys: gravity steps sort
-        self._want_lists = use_lists and not self.gravity_on
+        # the gravity tree is built from fresh keys, and the block time
+        # steps sort on the folded key: both sort every step
+        self._want_lists = use_lists and not self.gravity_on and dt_bins is None
         self._list_skin_rel = list_skin_rel
         self._slot_margin = 1.3
         self._lists = None
@@ -325,9 +365,10 @@ class Simulation:
     @property
     def sim_state(self) -> SimState:
         """The driver's state as the carry every launch consumes and
-        returns, the stirring and the chemistry in their slots."""
+        returns, the stirring, the chemistry and the block-dt state in their
+        slots."""
         return SimState(particles=self.state, box=self.box, turb=self.turb_state,
-                        chem=self.chem)
+                        chem=self.chem, bdt=self.bdt_state)
 
     def _set_sim_state(self, sim: SimState) -> None:
         """Write a carry back onto the driver: the one commit point for
@@ -336,6 +377,7 @@ class Simulation:
         self.box = sim.box
         self.turb_state = sim.turb
         self.chem = sim.chem
+        self.bdt_state = sim.bdt
 
     @property
     def _aux_cfg(self):
@@ -375,7 +417,10 @@ class Simulation:
                 min_cap=min_cap, cell_target=self.cell_target,
                 use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
                 list_slot_margin=self._slot_margin, sizing_cache=sizing_cache)
-        self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec)
+        self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec,
+                                        dt_bins=self.dt_bins,
+                                        bin_sync_every=self.bin_sync_every,
+                                        bin_resort_drift=self.bin_resort_drift)
         if self.gravity_on:
             self._configure_gravity(grav_margin, sizing_cache)
 
@@ -472,6 +517,9 @@ class Simulation:
             sim, diag = step_sim_state(self._step_fn, self.sim_state, self._cfg, self._gtree,
                                        self._aux_cfg, lists=lists)
             named = {**diag, "min_length": sim.box.lengths.min()}
+            # a (B,) diagnostic (the bin populations) rides as B scalars "k[i]"
+            for k in [k for k, v in named.items() if v.dim() == 1]:
+                named.update({f"{k}[{i}]": e for i, e in enumerate(named.pop(k).unbind(0))})
             # packed a dtype at a time: a stack and a conversion each,
             # where one per scalar would add some twenty launches a step
             by_dtype: Dict[torch.dtype, list] = {}
@@ -564,6 +612,7 @@ class Simulation:
         self.telemetry.event("step", it=self.iteration, wall_s=round(wall, 6),
                              dt=result.get("dt"), reconfigured=reconfigured)
         self._emit_science([d], [self.iteration])
+        self._emit_blockdt([d], [self.iteration])
         self._emit_memory("post-compile")
         self._last_diag = result
         self.last_step_seconds = time.perf_counter() - t0
@@ -622,6 +671,7 @@ class Simulation:
             # the ledger rides the same read: a science row for every step
             win_its = list(range(self.iteration - len(pending) + 1, self.iteration + 1))
             self._emit_science(fetched, win_its)
+            self._emit_blockdt(fetched, win_its)
             self._emit_memory("post-compile")
             self._emit_memory("flush")
             result = self._result(fetched[-1], pending[-1][2])
@@ -666,6 +716,32 @@ class Simulation:
                 return
             self._mem_post_compile = True
         emit_memory_event(self.telemetry, point, devices=[self.device], it=self.iteration)
+
+    def _emit_blockdt(self, fetched, its) -> None:
+        """At a check or flush boundary: one ``dt_bins`` event over the
+        verified substeps (their bdt_* scalars, already read) and the host
+        counters. Every substep advances the time by dt_min under both
+        schemes, so the global dt's cost of the same span is n updates a
+        substep."""
+        steps = [(it, d) for it, d in zip(its, fetched) if "bdt_active" in d]
+        if not steps:
+            return
+        ds = [d for _, d in steps]
+        updates = sum(int(d["bdt_active"]) for d in ds)
+        full = self.state.n * len(ds)
+        resorts = sum(int(d["bdt_resort"]) for d in ds)
+        self.bdt_updates += updates
+        self.bdt_updates_full += full
+        self.bdt_resorts += resorts
+        self.bdt_keeps += len(ds) - resorts
+        self.telemetry.event(
+            "dt_bins", it=steps[-1][0], steps=len(ds),
+            pop=[int(ds[-1][f"bdt_pop[{k}]"]) for k in range(self.dt_bins)],
+            updates=updates, updates_full=full,
+            saved=round(1.0 - updates / full, 6) if full else 0.0,
+            resorts=resorts, keeps=len(ds) - resorts,
+            drift_max=max(int(d["bdt_drift"]) for d in ds),
+            work=sum(float(d["bdt_work"]) for d in ds))
 
     def drain_science(self) -> list:
         """Per-step science rows (constants.txt material: it, t, dt,

@@ -64,15 +64,20 @@ from sphexa_torch.sph.kernels import (
     dterh_poly_eval, kernel_dterh_coeffs, kernel_poly_coeffs, sinc_poly_eval,
 )
 
+#: the pair ops' entry points of K1 (csrc/pair_engine.cu) and K6
+#: (csrc/pair_lists.cu)
+PAIR_ENTRIES = tuple(f"{op}{walk}" for op in (
+    "density", "iad", "momentum_energy_std", "ve_def_gradh", "iad_divv_curlv",
+    "av_switches", "momentum_energy_ve") for walk in ("", "_lists"))
+
 #: kernel launches per op since the last ``reset_launches()``; only the
-#: wrappers' CUDA branch adds to it
+#: wrappers' CUDA branch adds to it. A pair op's launch with wendland-c6's
+#: 20 polynomial coefficients counts under ``name:wendland-c6``, one with
+#: a sinc fit's 14 under the entry point's own name
 LAUNCHES: Dict[str, int] = {
-    "density": 0, "density_lists": 0, "iad": 0, "iad_lists": 0,
-    "momentum_energy_std": 0, "momentum_energy_std_lists": 0, "mark": 0,
-    "ve_def_gradh": 0, "ve_def_gradh_lists": 0, "iad_divv_curlv": 0,
-    "iad_divv_curlv_lists": 0, "av_switches": 0, "av_switches_lists": 0,
-    "momentum_energy_ve": 0, "momentum_energy_ve_lists": 0, "gravity_p2p": 0,
-    "compact_class_lists": 0}
+    **dict.fromkeys(PAIR_ENTRIES, 0), "mark": 0, "gravity_p2p": 0,
+    "compact_class_lists": 0, "compact_row": 0,
+    **dict.fromkeys((f"{e}:wendland-c6" for e in PAIR_ENTRIES), 0)}
 
 #: pair elements per tile of the plain version (bounds its transient
 #: memory: the momentum op keeps ~50 float32 temporaries of a tile)
@@ -862,12 +867,18 @@ def body_pass_counts(spec: OpSpec, i_fields: Sequence, j_fields: Sequence, group
 
 _MAX_F = 32
 _MAX_OUT = 8
-_NCOEF = 14
+#: the kernel polynomials' coefficient counts the CUDA ops are built for:
+#: the sinc family's degree 13 and wendland-c6's degree 19 (csrc/pair_ops.cuh
+#: NCOEF_SINC, NCOEF_WENDLAND); EngineArgs holds the larger
+KERNEL_NCOEFS = (14, 20)
+#: the op form each coefficient count launches (None: the entry point's own)
+NCOEF_FORM = {14: None, 20: "wendland-c6"}
+_MAX_NCOEF = max(KERNEL_NCOEFS)
 
 
 class EngineArgs(ctypes.Structure):
     """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order;
-    its layout version, ABI 7, is kernels.build.ABI_VERSION)."""
+    its layout version, ABI 8, is kernels.build.ABI_VERSION)."""
 
     _fields_ = [
         ("starts", ctypes.c_void_p),
@@ -890,10 +901,10 @@ class EngineArgs(ctypes.Structure):
         ("K", ctypes.c_float),
         ("mhalf_K", ctypes.c_float),
         ("k_cour", ctypes.c_float),
-        ("coeffs", ctypes.c_float * _NCOEF),
+        ("coeffs", ctypes.c_float * _MAX_NCOEF),
         ("bits", ctypes.c_void_p),
         ("slot_cap", ctypes.c_int32),
-        ("dcoeffs", ctypes.c_float * _NCOEF),
+        ("dcoeffs", ctypes.c_float * _MAX_NCOEF),
         ("alphamin", ctypes.c_float),
         ("alphamax", ctypes.c_float),
         ("decay_c", ctypes.c_float),
@@ -905,6 +916,7 @@ class EngineArgs(ctypes.Structure):
         ("mask_words", ctypes.c_void_p),
         ("word_off", ctypes.c_void_p),
         ("mask_mode", ctypes.c_int32),
+        ("ncoef", ctypes.c_int32),
     ]
 
 
@@ -925,10 +937,13 @@ def check_table(name: str, a: torch.Tensor, dtype, shape, dev) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _coeff_array(coeffs: tuple):
-    """A kernel polynomial's coefficients as the EngineArgs array."""
-    if len(coeffs) != _NCOEF:
-        raise ValueError(f"the kernel takes {_NCOEF} polynomial coefficients")
-    return (ctypes.c_float * _NCOEF)(*coeffs)
+    """A kernel polynomial's coefficients as the EngineArgs array (the
+    slots past its count are never read: the op form launched is the
+    count's, ``EngineArgs.ncoef``)."""
+    if len(coeffs) not in KERNEL_NCOEFS:
+        raise ValueError(f"the kernels take {' or '.join(map(str, KERNEL_NCOEFS))} "
+                         f"polynomial coefficients, got {len(coeffs)}")
+    return (ctypes.c_float * _MAX_NCOEF)(*coeffs)
 
 
 def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
@@ -986,8 +1001,11 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     args.K = consts["K"]
     args.mhalf_K = -consts["K"] * 0.5
     args.k_cour = consts["k_cour"]
+    if len(consts["dcoeffs"]) != len(consts["coeffs"]):
+        raise ValueError("W and dterh polynomials of different degrees")
     args.coeffs = _coeff_array(tuple(consts["coeffs"]))
     args.dcoeffs = _coeff_array(tuple(consts["dcoeffs"]))
+    args.ncoef = len(consts["coeffs"])
     for key in ("alphamin", "alphamax", "decay_c", "at_min", "at_max", "ramp"):
         setattr(args, key, consts[key])
     if "dt" in consts:
@@ -1010,7 +1028,8 @@ def launch(entry: str, args: ctypes.Structure, dev: torch.device) -> None:
     if err != 0:
         raise RuntimeError(f"launch_{entry} failed: CUDA error {err} "
                            f"({lib.pair_engine_error_string(err).decode()})")
-    LAUNCHES[entry] += 1
+    form = NCOEF_FORM[args.ncoef]
+    LAUNCHES[entry if form is None else f"{entry}:{form}"] += 1
 
 
 def engine_kernel(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
@@ -1088,10 +1107,12 @@ KERNEL_INFO_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                     "blocks_per_sm", "window", "warps_per_sm")
 
 
-def kernel_info(spec: OpSpec, group: int, walk: bool, fold: bool = False) -> dict:
+def kernel_info(spec: OpSpec, group: int, walk: bool, fold: bool = False,
+                ncoef: int = KERNEL_NCOEFS[0]) -> dict:
     """Static facts of the kernel instantiation that a launch of ``spec``
     would run (the list walk with ``walk``, else the streaming engine's
-    ``fold`` form) at blocks of ``group`` threads: registers and local
+    ``fold`` form; the op form of ``ncoef`` polynomial coefficients) at
+    blocks of ``group`` threads: registers and local
     (spill) bytes a thread, static and dynamic shared bytes a block,
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     the window it was built for (csrc/engine_window.cuh WINDOW) and
@@ -1102,6 +1123,7 @@ def kernel_info(spec: OpSpec, group: int, walk: bool, fold: bool = False) -> dic
     args = EngineArgs()
     args.variant, args.fold, args.group = spec.variant, int(fold), group
     args.sym_j = -1 if spec.sym_j is None else spec.sym_j
+    args.ncoef = ncoef
     out = (ctypes.c_int32 * len(KERNEL_INFO_KEYS))()
     fn = lib.list_walk_info if walk else lib.pair_engine_info
     err = fn(spec.name.encode(), ctypes.addressof(args), out)

@@ -110,6 +110,14 @@ class SimConstants:
             self, kernel_norm=kernel_norm_3d(self.sinc_index, self.kernel_choice)
         )
 
+    def with_kernel(self, kind: str, sinc_index: Optional[float] = None) -> "SimConstants":
+        """A copy with another SPH kernel (the CLI's --kernel and
+        --sincIndex; None keeps the index): the choice, the index and the
+        normalization recomputed for them."""
+        n = self.sinc_index if sinc_index is None else sinc_index
+        return dataclasses.replace(self, kernel_choice=kind, sinc_index=n,
+                                   kernel_norm=kernel_norm_3d(n, kind))
+
 
 def scalar(v, device) -> torch.Tensor:
     """A 0-d float32 tensor (integrator scalars)."""

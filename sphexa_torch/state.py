@@ -5,8 +5,9 @@ state and box that all propagator families share, plus one optional aux
 slot per family extension: ``turb`` (turb-ve: the stirring's
 TurbulenceState, its phases on the device and its random key on the
 host), ``chem`` (std-cooling: the per-particle ChemistryData) and
-``bdt`` (block time steps, not ported: it stays None). A plain
-dataclass: PyTorch has no pytree registration to port.
+``bdt`` (block time steps: the BlockDtState of sph/blockdt.py, its bins
+riding the step's sort). A plain dataclass: PyTorch has no pytree
+registration to port.
 
 The driver builds it once from its attributes and only ever replaces the
 active slot, as in the JAX package, whose carry's treedef changes when a

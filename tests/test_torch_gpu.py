@@ -24,7 +24,10 @@ both compactions (Evrard 30), and a VE Evrard Simulation step; N-body
 steps (Evrard 20, a Plummer sphere), an Ewald solve (Sedov 16) and
 spherical order-4 and order-6 solves on the card against the CPU.
 turb-ve and std-cooling steps on the card against the CPU, the OU draw's
-copy to the card, and a turb-ve restart (kernels/aux_checks.py)."""
+copy to the card, and a turb-ve restart (kernels/aux_checks.py). Every
+std and VE op of K1 and K6 with wendland-c6 (the 20-coefficient form) and
+with sinc at index 5; K13's one-row form bit for bit; block-time-step
+substeps on the card against the CPU (Sedov std and VE, Evrard)."""
 
 import dataclasses
 
@@ -783,3 +786,49 @@ def test_turb_restart_on_card(tmp_path):
 
     r = aux_checks.turb_restart(12, "cuda", str(tmp_path))
     assert r["cli"]["rows"] == [3, 4]
+
+
+# -- the kernel families, K13's one-row form and the block time steps
+# (kernels/checks.py, shared with chip_smoke.py's kernel_family and
+# blockdt_path phases) ------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,sinc_index", [("wendland-c6", 6.0), ("sinc", 5.0)])
+def test_kernel_family_ops_match_plain(case, kind, sinc_index):
+    """Every std and VE op of the streaming engine K1 with wendland-c6 (its
+    20-coefficient form) and with sinc at index 5, against its plain
+    version (nc exact, the JAX package's tolerances)."""
+    ss, box, const, nbr, keys, ranges = case
+    const = const.with_kernel(kind, sinc_index)
+    res = checks.family_vs_plain(f"{kind} K1", ss, box, const, nbr, keys=keys, ranges=ranges)
+    assert "momentum_energy_ve:av_clean" in res and "density" in res
+
+
+@pytest.mark.parametrize("kind,sinc_index", [("wendland-c6", 6.0), ("sinc", 5.0)])
+def test_kernel_family_walks_match_plain(kind, sinc_index):
+    """The list walk K6 of every op in both forms, on Sedov 30's lists."""
+    _need_card()
+    fields, box, const = state_to_numpy(*init_sedov(30, device="cpu"))
+    state, box, const = state_from_numpy(jitter_sedov(fields, 30, seed=30), box, const,
+                                         device="cuda")
+    cfg = make_propagator_config(state, box, const, use_lists=True)
+    ss, box, lists = rebuild_pair_lists(state, box, cfg)
+    const = const.with_kernel(kind, sinc_index)
+    res = checks.family_vs_plain(f"{kind} K6", ss, box, const, cfg.nbr, lists=lists)
+    assert "momentum_energy_std_lists" in res
+
+
+def test_compact_row_form_matches_plain():
+    """K13's one-row form (the block time steps' due rows) bit for bit its
+    plain version, rows off the 16-byte words included."""
+    _need_card()
+    assert len(checks.compact_row_cases("cuda")) == len(checks.COMPACT_ROW_CASES)
+
+
+@pytest.mark.parametrize("case_name,side,prop", [("sedov", 12, "std"), ("sedov", 12, "ve"),
+                                                 ("evrard", 12, "std")])
+def test_blockdt_substeps_match_cpu(case_name, side, prop):
+    """Block-time-step substeps at dt_bins 3 on the card against the CPU."""
+    _need_card()
+    r = checks.blockdt_vs_cpu(case_name, side, 5, dt_bins=3, prop=prop)
+    assert sum(r["active"]) > 0

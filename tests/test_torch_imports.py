@@ -53,7 +53,9 @@ def test_port_sources_found():
                 ("gravity", "ewald.py"), ("gravity", "spherical.py"),
                 ("sph", "threefry.py"), ("sph", "hydro_turb.py"), ("sph", "eos.py"),
                 ("init", "turbulence.py"), ("physics", "__init__.py"),
-                ("physics", "cooling.py"), ("physics", "primordial.py")):
+                ("physics", "cooling.py"), ("physics", "primordial.py"),
+                ("init", "kelvin_helmholtz.py"), ("init", "wind_shock.py"),
+                ("init", "isobaric_cube.py"), ("sph", "blockdt.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

@@ -266,8 +266,8 @@ def test_make_initializer_forms(tmp_path):
     (tmp_path / "bad.json").write_text("[1]")
     with pytest.raises(ValueError, match="JSON object"):
         make_initializer(f"sedov:{tmp_path / 'bad.json'}")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_initializer("kelvin-helmholtz")
+    s4, b4, _ = make_initializer("kelvin-helmholtz")(12, device="cpu")
+    assert s4.n > 0 and float(b4.hi[2]) == np.float32(0.0625)
     with pytest.raises(ValueError, match="unknown test case 'plummer'"):
         make_initializer("plummer")
 

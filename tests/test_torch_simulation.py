@@ -115,8 +115,10 @@ def test_cli_runs_on_cpu(capsys, tmp_path):
                      "--device", "cpu", *out_dir]) == 0
     out = capsys.readouterr().out
     assert "it     2" in out and "egrav=-" in out and "lists off" in out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        app.main(["--init", "kelvin-helmholtz", "--device", "cpu"])
+    assert app.main(["--init", "kelvin-helmholtz", "-n", "12", "-s", "2", "--device", "cpu",
+                     *out_dir]) == 0
+    out = capsys.readouterr().out
+    assert "it     2" in out and "drift=" in out
     # a propagator the JAX CLI lacks too is a usage error
     assert app.main(["--prop", "blockdt", "--device", "cpu", *out_dir]) == 2
     assert "unknown --prop 'blockdt'" in capsys.readouterr().err
