@@ -167,6 +167,21 @@ Phases, each printed as one JSON line:
    global streaming step bit for bit; substeps card vs CPU on Sedov 16 and
    Evrard 20;
 
+22. ``sharded_path``: the card count (and whether NCCL ran: it needs two
+   cards or more); std and VE Sedov 100^3 over two gloo ranks sharing
+   the card (``Simulation(num_devices=2)``; the collectives copy through
+   pinned host buffers), one warm-up and three timed steps each, counts
+   reset just before and read just after on each rank (K1's ops, jdata
+   form, once per step attempt), the step ms per rank, the halo's caps,
+   rows and bytes a step, the step's collective parts (sort, halo stage,
+   one serve) by the host's clock; the slabs gathered (for the check only) and
+   held to the one-card streaming step from the same state (x rtol 1e-5
+   atol 1e-7, temp rtol 1e-4, dt rtol 1e-5, h and the neighbour total
+   exact); every K1 jdata launch of a force stage against its plain
+   version on each rank, with its one-call time, its plain version's and
+   its bound, one rank at a time on the card; with two cards or more the
+   same over NCCL ranks, one a card;
+
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
 SM, and on the side-100 states its times and the body-pass efficiency of
@@ -177,7 +192,8 @@ the {"kernels": [...]} line (K12's and K13's launches on every gravity
 path beside the Evrard path's; every entry's launches on the turb-ve,
 std-cooling, inits and block-dt paths; the wendland-c6 form of each K1
 and K6 op, ``name:wendland-c6``, with its own count's launches on every
-path; K13's one-row form, ``compact_class_lists:row``), the nvidia-smi
+path; K13's one-row form, ``compact_class_lists:row``; K1's jdata form of
+each std and VE op on the sharded paths, ``name:jdata``), the nvidia-smi
 line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
@@ -2360,6 +2376,204 @@ def blockdt_path(spec, smi) -> dict:
     return out, row
 
 
+#: the K1 entry points a sharded step attempt launches once each (the VE
+#: path's density is its xmass)
+SHARDED_OPS = {"std": STD_OPS, "ve": ("density", "ve_def_gradh", "iad", "iad_divv_curlv",
+                                      "av_switches", "momentum_energy_ve")}
+#: the ranks' steps timed on each sharded path after one warm-up
+SHARDED_STEPS = 3
+
+
+def jdata_bounds(keep: dict, stage: dict, const, group: int) -> dict:
+    """Least device time of each K1 jdata launch of a rank's stage
+    (``bounds``: the mask over its runs' candidates, the bodies on its
+    neighbour pairs, each momentum op's own pairs under the symmetric
+    cutoff), its bytes adding the halo rows' j-fields once each."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    consts = pe.op_consts(const)
+    S, nj = stage["slab_rows"], stage["jbuf_rows"]
+    out = {}
+    for key, (spec, i_f, j_f) in keep["fields"].items():
+        op = "density" if key == "xmass" else key
+        pairs = None
+        if body_of(op) in SYM_BODIES:
+            pairs = {op: momentum_pair_counts(spec, (i_f, j_f), consts, group,
+                                              runs=keep["ranges"], fold=keep["fold"])}
+        b = bounds(keep["ranges"], S, group, stage["nb_pairs"], ops=(op,), pairs=pairs)[op]
+        out[key] = {**b, **_bound(b["ops"], b["bytes"] + 4 * (nj - S) * spec.num_j),
+                    "halo_rows": nj - S}
+    return out
+
+
+def sharded_split(mesh, sim, sync, reps: int = 3) -> dict:
+    """A sharded step's collective parts on this rank, host wall ms (the
+    card synchronised; every rank runs them together, their collectives
+    wait on each other), medians of ``reps``: the box regrow and the
+    distributed sort (the prologue), the halo stage (the global cell
+    table, the runs, their localization and the negotiation), and one
+    serve of the std momentum's 13 fields (the widest)."""
+    from sphexa_torch.propagator import _force_stage_prologue, _halo_stage
+
+    def wall(fn):
+        ts = []
+        for _ in range(reps):
+            sync(mesh.device)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(mesh.device)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts), out
+
+    cfg = sim.cfg
+    sort_ms, (ss, box, keys, _) = wall(lambda: _force_stage_prologue(sim.state, sim.box, cfg))
+    stage_ms, st = wall(lambda: _halo_stage(cfg, ss.n, ss.x, ss.y, ss.z, ss.h, keys, box))
+    serve = st[1]
+    fields = (ss.h, ss.vx, ss.vy, ss.vz, ss.m, ss.temp, ss.alpha) + (ss.x,) * 6
+    serve_ms, _ = wall(lambda: serve(fields))
+    return {"sort": sort_ms, "halo_stage": stage_ms, "serve_13_fields": serve_ms}
+
+
+def sharded_rank(mesh, side: int, steps: int, timed: bool) -> dict:
+    """One rank of the ``sharded_path`` phase (parallel/mesh.py ``spawn``):
+    std, then VE Sedov ``side``^3 through Simulation(num_devices=P) on this
+    rank's card, one warm-up and ``steps`` steps, the launch counts reset
+    just before and read just after; the slabs gathered (for the check
+    only) before the last step and after it, and rank 0 holds the result
+    against the one-card streaming step from the gathered state; then
+    every K1 jdata launch of a force stage at the path's state against its
+    plain version on every rank (``sharded_checks.jdata_vs_plain``) and,
+    with ``timed``, one rank at a time on the card, each one's one-call
+    time, its plain version's and its bound."""
+    import torch
+
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.parallel.mesh import all_gather
+    from sphexa_torch.propagator import _step_hydro_std, _step_hydro_ve
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend, "device": str(dev)}
+
+    def sync(d):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+    state, box, const = init_sedov(side, device=dev)
+    for prop in ("std", "ve"):
+        t_path = time.perf_counter()
+        sim = Simulation(state, box, const, prop=prop, device=dev, num_devices=mesh.size,
+                         obs_spec=ObservableSpec())
+        t_conf = time.perf_counter() - t_path
+        sim.step()  # warm-up
+        pe.reset_launches()
+        replays0 = sim.replays
+        ms, diags = [], []
+        for i in range(steps):
+            if i == steps - 1:
+                prev, prev_box = sc.gather_state(mesh, sim.state), sim.box
+            sync(dev)
+            t0 = time.perf_counter()
+            diags.append(sim.step())
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = dict(pe.LAUNCHES)
+        attempts = steps + sim.replays - replays0
+        new = sc.gather_state(mesh, sim.state)
+        d = diags[-1]
+        P = mesh.size
+        r = {"configure_s": t_conf, "step_ms": ms, "launches": launches, "attempts": attempts,
+             "halo": sim.halo_info, "n": new.n, "slab": sim.state.n,
+             "shard_rows": [int(d[f"shard_rows[{k}]"]) for k in range(P)],
+             "shard_occ": [d[f"shard_occ[{k}]"] for k in range(P)],
+             "shard_work": [d[f"shard_work[{k}]"] for k in range(P)],
+             "dt": d["dt"], "nc_sum": d["nc_sum"], "energy_drift": sim.energy_drift}
+        if mesh.rank == 0:
+            # the one-card streaming step from the same (gathered) state
+            cfg1 = dataclasses.replace(sim.cfg, mesh=None, halo_cells=(), halo_window=0)
+            fn = _step_hydro_std if prop == "std" else _step_hydro_ve
+            s1, _, d1 = fn(prev, prev_box, cfg1)
+            r["vs_one_card"] = {
+                "x_max_abs_err": float((new.x - s1.x).abs().max()),
+                "temp_max_rel_err": float(((new.temp - s1.temp).abs() / s1.temp.abs()).max()),
+                "dt_rel_err": abs(d["dt"] - float(d1["dt"])) / float(d1["dt"]),
+                "h_equal": bool(torch.equal(new.h, s1.h)),
+                "nc_sum": [d["nc_sum"], float(d1["nc_sum"])]}
+            torch.testing.assert_close(new.x, s1.x, rtol=1e-5, atol=1e-7)
+            torch.testing.assert_close(new.temp, s1.temp, rtol=1e-4, atol=0.0)
+            if not (r["vs_one_card"]["h_equal"] and d["nc_sum"] == float(d1["nc_sum"])
+                    and r["vs_one_card"]["dt_rel_err"] <= 1e-5):
+                raise AssertionError(f"sharded {prop}: against the one-card step "
+                                     f"{r['vs_one_card']}")
+            del s1, prev
+        r["split_ms"] = sharded_split(mesh, sim, sync)
+        keep = {}
+        chk = sc.jdata_vs_plain(f"rank {mesh.rank} {prop}", mesh, sim.state, sim.box, sim.cfg,
+                                prop, keep=keep)
+        for turn in range(P):
+            if timed and turn == mesh.rank:
+                for key, (kern, plain) in keep["calls"].items():
+                    chk[key]["ms"] = cuda_time_ms(kern, reps=5)
+                    chk[key]["plain_ms"] = cuda_time_ms(plain, reps=1)
+                chk["bounds"] = jdata_bounds(keep, chk["stage"], const, sim.cfg.nbr.group)
+            all_gather(mesh, torch.zeros(1, device=dev))  # the card to one rank at a time
+        r["jdata"] = chk
+        r["seconds"] = time.perf_counter() - t_path
+        out[prop] = r
+        del sim, keep, new
+    return out
+
+
+def sharded_path(smi) -> tuple:
+    """Phase ``sharded_path``: std and VE Sedov 100^3 over two gloo ranks
+    sharing this card (``sharded_rank``), their launches held to the
+    contract (each K1 op once per step attempt, jdata form); with two
+    cards or more also NCCL ranks, one a card (P = min(4, cards)).
+    Returns (rank 0's results of the gloo run, its launches by path)."""
+    import torch
+
+    from sphexa_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    emit({"phase": "sharded_devices", "count": count,
+          "nccl": (f"P = {min(4, count)}" if count >= 2
+                   else "not run: one card (NCCL needs a card per rank)")})
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    runs = [("gloo", 2, True)] + ([("nccl", min(4, count), False)] if count >= 2 else [])
+    first = None
+    with tempfile.TemporaryDirectory() as wd:
+        for backend, P, timed in runs:
+            t1 = time.perf_counter()
+            res = spawn(sharded_rank, P, args=(100, SHARDED_STEPS, timed), workdir=wd,
+                        backend=backend, timeout=900)
+            for prop in ("std", "ve"):
+                for rk in res:
+                    rr = rk[prop]
+                    check_launches(f"sharded {backend} {prop} rank {rk['rank']}",
+                                   rr["launches"], rr["attempts"], SHARDED_OPS[prop])
+                r0 = res[0][prop]
+                emit({"phase": "sharded_path", "card": smi, "backend": backend, "ranks": P,
+                      "prop": prop, "n": r0["n"], "slab": r0["slab"], "halo": r0["halo"],
+                      "step_ms": {rk["rank"]: rk[prop]["step_ms"] for rk in res},
+                      "configure_s": [rk[prop]["configure_s"] for rk in res],
+                      "exchange_rows": r0["shard_rows"], "exchange_occ": r0["shard_occ"],
+                      "exchange_bytes_per_step": r0["halo"]["bytes_per_step"],
+                      "shard_work": r0["shard_work"], "vs_one_card": r0["vs_one_card"],
+                      "split_ms": {rk["rank"]: rk[prop]["split_ms"] for rk in res},
+                      "jdata": {rk["rank"]: rk[prop]["jdata"] for rk in res},
+                      "launches_per_step": {op: r0["launches"][op] / r0["attempts"]
+                                            for op in SHARDED_OPS[prop]},
+                      "seconds": time.perf_counter() - t1})
+            if first is None:
+                first = res[0]
+    emit({"phase": "sharded_done", "seconds": time.perf_counter() - t0})
+    return first, {f"sharded_{prop}": first[prop]["launches"] for prop in ("std", "ve")}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2785,6 +2999,8 @@ def main() -> int:
     fam = kernel_family(std_list, std_stream, ve_cases)
     wend_launches = wendland_paths(spec, smi)
     bdt_launches, row = blockdt_path(spec, smi)
+    # 22. the std and VE steps over ranks (sharded_path)
+    shard, shard_launches = sharded_path(smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -2904,6 +3120,19 @@ def main() -> int:
             "library_ms": gres[op]["library_ms"],
             "launches_by_path": {**by_path, "std_cooling_evolved": cool_launches["evolved"][op]},
         })
+    # K1's jdata form on the sharded paths (rank 0 of the two gloo ranks on
+    # this card): each op at the path's state, its launches there
+    for prop, ops in (("std", STD_OPS), ("ve", ("ve_def_gradh", "iad_divv_curlv",
+                                               "av_switches", "momentum_energy_ve"))):
+        jd = shard[prop]["jdata"]
+        for op in ops:
+            kernels.append({
+                "name": f"{op}:jdata", "route": "cuda", "source": SOURCE[op],
+                "replaces": TPU_KERNEL[op], "launches": shard[prop]["launches"][op],
+                "max_abs_err": jd[op]["max_abs_err"], "ms": jd[op]["ms"],
+                "plain_ms": jd[op]["plain_ms"], "bound_ms": jd["bounds"][op]["bound_ms"],
+                "bound_by": jd["bounds"][op]["bound_by"], "library_ms": None,
+                "launches_by_path": {p: la.get(op, 0) for p, la in shard_launches.items()}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(f"# chip_smoke total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)

@@ -18,6 +18,8 @@
         -o out --telemetry-dir out/tel
     python -m sphexa_torch.app.main --init sedov -n 12 -s 4 -w 2 -o out
     python -m sphexa_torch.app.main --init out/dump_sedov.h5:0 -s 6 -o out
+    python -m sphexa_torch.app.main --init sedov -n 12 -s 3 --devices 2 --device cpu
+    python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --devices 4 [--halo-mode windowed]
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
@@ -69,6 +71,19 @@ case:settings.json`` overrides a case's settings.
 driver's events and the memory events), and on an abnormal end
 ``blackbox.json`` (the flight recorder). Runs on the CUDA device unless
 ``--device cpu`` is given, and raises without one.
+
+``--devices N`` (std and ve; the others raise) runs N ranks, each a
+process of its own holding one Hilbert-key slab (sphexa_torch/parallel):
+``--device cpu`` runs them on gloo, otherwise NCCL puts rank r on card r
+and refuses fewer cards than ranks. A count that does not divide by N
+loses its trailing rows. ``--halo-mode`` picks the halo exchange (sparse
+per-distance caps, or one window per peer), ``--imbalance-ratio`` the
+threshold of the ``imbalance`` events. Rank 0 alone prints, writes
+``constants.txt`` and the telemetry; ``-w`` writes one part file a rank
+(``dump_<case>.part<k>of<N>.h5``, the JAX package's sharded dumps) with
+the conserved fields (the derived output fields, ``--ascii``,
+``--wextra`` and ``--duration`` stay one-device), which a restart reads
+with any N.
 """
 
 import argparse
@@ -87,7 +102,7 @@ from sphexa_torch.init import CASES, make_initializer, split_case_spec
 from sphexa_torch.init.file_init import looks_like_file, parse_file_spec
 from sphexa_torch.init.glass import set_glass_template
 from sphexa_torch.io import read_snapshot_full, write_ascii, write_snapshot
-from sphexa_torch.io.snapshot import CONSERVED_FIELDS, _find_parts
+from sphexa_torch.io.snapshot import CONSERVED_FIELDS, _find_parts, write_snapshot_sharded
 from sphexa_torch.observables import ConstantsWriter, make_observable, make_observable_spec
 from sphexa_torch.physics.cooling import (
     CoolingConfig, chemistry_from_fields, chemistry_to_fields,
@@ -186,11 +201,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "blackbox.json on an abnormal end) to this directory")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' (plain PyTorch versions)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="run N ranks, one SFC slab each (gloo with --device cpu, else NCCL "
+                        "on N cards; default: one device)")
+    p.add_argument("--halo-mode", default="sparse", choices=("sparse", "windowed"),
+                   dest="halo_mode",
+                   help="the ranks' halo exchange: per-distance cell-granular caps "
+                        "(default) or one contiguous window per peer")
+    p.add_argument("--imbalance-ratio", type=float, default=1.5, dest="imbalance_ratio",
+                   help="imbalance-watchdog threshold on max/mean of the per-rank load "
+                        "and exchange metrics ('imbalance' events) [1.5]")
     p.add_argument("--quiet", action="store_true")
     return p
 
 
+def _rank_main(mesh, argv: List[str]) -> int:
+    """One rank of a ``--devices`` run: the CLI inside the process group."""
+    return main(argv)
+
+
+def _spawn_ranks(args, argv: List[str]) -> int:
+    """Start the ``--devices`` ranks (parallel/mesh.py ``spawn``; the
+    rendezvous in a temporary directory) and return rank 0's exit code."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sphexa_torch.parallel.mesh import spawn
+
+    if args.device is None and torch.cuda.device_count() < args.devices:
+        print(f"--devices {args.devices}: NCCL needs one card per rank, "
+              f"{torch.cuda.device_count()} present (--device cpu runs gloo ranks)",
+              file=sys.stderr)
+        return 2
+    workdir = tempfile.mkdtemp(prefix="sphexa-ranks-")
+    try:
+        # CPU ranks share the cores
+        threads = max(1, (os.cpu_count() or 1) // args.devices) if args.device == "cpu" \
+            else None
+        return spawn(_rank_main, args.devices, args=(argv,), workdir=workdir,
+                     device=args.device, threads=threads, timeout=float("inf"))[0]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if args.prop not in _STEPS:
         print(f"unknown --prop {args.prop!r}; available: {sorted(_STEPS)}", file=sys.stderr)
@@ -198,9 +255,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.avclean and args.prop not in ("ve", "turb-ve"):
         print("--avclean only applies to --prop ve | turb-ve; ignoring", file=sys.stderr)
     nan = float("nan")
+    ranks = args.devices if args.devices and args.devices > 1 else None
+    rank = 0
+    if ranks is not None:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return _spawn_ranks(args, argv)
+        rank = dist.get_rank()
+        if args.ascii or args.wextra or args.duration is not None:
+            # --duration would stop the ranks on their own clocks
+            print("--ascii, --wextra and --duration stay one-device", file=sys.stderr)
+            return 2
 
     def log(line: str) -> None:
-        if not args.quiet:
+        if not args.quiet and rank == 0:
             print(line, flush=True)
 
     # 'case:settings.json' selects the case with overrides; observables key
@@ -253,6 +322,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 2
         finally:
             set_glass_template(None)
+    if ranks is not None and state.n % ranks:
+        # equal slabs: the trailing rows go (cases whose counts are no
+        # lattice, sphere cuts, already end at an arbitrary row)
+        keep = state.n // ranks * ranks
+        if rank == 0:
+            print(f"# trimming {state.n - keep} trailing particles for an even "
+                  f"{ranks}-way slab decomposition", file=sys.stderr)
+        state = dataclasses.replace(state, **{
+            f.name: getattr(state, f.name)[:keep] for f in dataclasses.fields(state)
+            if getattr(state, f.name).dim() >= 1})
     if args.grav_constant is not None:
         const = dataclasses.replace(const, g=args.grav_constant)
     if args.sym_pairs is not None:
@@ -271,10 +350,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     # from the step's ledger (the matching ObservableSpec)
     observable = make_observable(case_name, overrides=case_overrides)
     sinks, recorder = [], None
-    if args.telemetry_dir:
-        sinks.append(JsonlSink(os.path.join(args.telemetry_dir, "events.jsonl")))
+    tel_dir = args.telemetry_dir if rank == 0 else None
+    if tel_dir:
+        sinks.append(JsonlSink(os.path.join(tel_dir, "events.jsonl")))
     telemetry = Telemetry(sinks=sinks)
-    if args.telemetry_dir:
+    if tel_dir:
         # the flight recorder explains a run whose events end early
         recorder = FlightRecorder(args.telemetry_dir, telemetry=telemetry)
         telemetry.sinks.append(recorder.sink)
@@ -289,7 +369,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          drift_budget=args.drift_budget, theta=args.theta,
                          m2p_cap_margin=args.m2p_cap_margin, dt_bins=args.dt_bins,
                          bin_sync_every=args.bin_sync_every,
-                         bin_resort_drift=args.bin_resort_drift)
+                         bin_resort_drift=args.bin_resort_drift, num_devices=ranks,
+                         halo_mode=args.halo_mode, imbalance_ratio=args.imbalance_ratio)
     except (NotImplementedError, ValueError) as e:
         print(str(e), file=sys.stderr)
         if recorder is not None:
@@ -297,7 +378,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             recorder.dump(reason=f"simulation construction failed: {e}")
             recorder.close()
         return 2
-    if args.telemetry_dir:
+    if tel_dir:
         recorder.manifest = write_manifest(
             args.telemetry_dir,
             config={k: v for k, v in vars(args).items()
@@ -334,6 +415,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             stale = ([dump_path] if os.path.exists(dump_path) else []) + _find_parts(dump_path)
         else:
             stale = []
+        if rank != 0:
+            stale = []
         for f in stale:
             print(f"# removing stale {f}", file=sys.stderr)
             os.remove(f)
@@ -357,16 +440,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     wextra_times.sort()
 
     constants_path = os.path.join(args.out_dir, "constants.txt")
-    if not is_restart and os.path.exists(constants_path):
+    if rank == 0 and not is_restart and os.path.exists(constants_path):
         os.remove(constants_path)
     constants = ConstantsWriter(constants_path, observable,
-                                restart_iteration=restart_iteration if is_restart else None)
+                                restart_iteration=restart_iteration if is_restart else None) \
+        if rank == 0 else None
 
     def write_science_rows():
         """The verified ledger rows into constants.txt, one per step (a
-        deferred window's land whole at its flush): host I/O only."""
+        deferred window's land whole at its flush): host I/O only, on
+        rank 0 (every rank holds the same rows)."""
         rows = sim.drain_science()
-        for r in rows:
+        for r in rows if constants is not None else ():
             constants.write_row([r["it"], r["t"], r["dt"], r["etot"], r["ecin"], r["eint"],
                                  r["egrav"]] + ([r["extra"]] if "extra" in r else []))
         return rows
@@ -378,6 +463,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         --ascii; the derived fields recomputed by the propagator's own
         density estimator."""
         last_dump_iteration[0] = it
+        if ranks is not None:
+            # one part file a rank, its slab's conserved fields
+            step = write_snapshot_sharded(dump_path, sim.state, sim.box, sim.const,
+                                          iteration=it, case=case_name,
+                                          case_settings=case_overrides, mesh=sim.mesh)
+            log(f"# wrote Step#{step} -> {ranks} parts of {dump_path}")
+            return
         extra = compute_output_fields(sim.state, sim.box, sim.cfg,
                                       pipeline="ve" if args.prop in ("ve", "turb-ve") else "std")
         if want_fields:

@@ -57,7 +57,14 @@
 // the separation and d^2 of the mask use __fadd_rn/__fsub_rn/__fmul_rn
 // (no FMA contraction can flip a pair at the d^2 < 4 h^2 boundary), in the
 // plain version's order: rx = xi - (xj + shx), d2 = (rx*rx + ry*ry) + rz*rz;
-// the body phase recomputes them the same way. The fold rounds half to
+// the body phase recomputes them the same way. The self test compares a
+// candidate's row with the target's index g*G + t: the candidate's row
+// rides the staged float4 as its int32 bits (__int_as_float, a copy, no
+// arithmetic: exact for every row of an int32 table). Under a mesh the
+// j-fields are the rank's j-buffer [own slab | halo rows] (EngineArgs.nj
+// rows, the JAX package's jdata form): the own slab sits at offset 0, so
+// a target meets itself at its own index (the JAX i_offset is 0), and a
+// halo row, at nj > row >= n, never equals a target. The fold rounds half to
 // even (rintf) like jnp.round. The pair body runs only under the mask, so
 // the d2 = 0 self pair's rsqrt(0) = inf never reaches an accumulator. The
 // body's other arithmetic may contract.

@@ -33,7 +33,7 @@ constexpr int NCOEF_WENDLAND = 20;  // degree-19 wendland-c6 polynomial
 constexpr int MAX_NCOEF = 20;       // coefficient slots of EngineArgs
 // layout version of EngineArgs, mirrored in sphexa_torch/kernels/build.py
 // and sphexa_torch/sph/pair_engine.py
-constexpr int ABI_VERSION = 8;
+constexpr int ABI_VERSION = 9;
 
 // Mirror of sphexa_torch.sph.pair_engine.EngineArgs (same field order).
 struct EngineArgs {
@@ -77,6 +77,10 @@ struct EngineArgs {
     const int32_t* word_off;
     int32_t mask_mode;
     int32_t ncoef;           // NCOEF_SINC or NCOEF_WENDLAND: the op form launched
+    // rows of every j-field: n, or under a mesh the j-buffer [own slab |
+    // halo rows] that the runs index (ABI 9; the wrapper checks the
+    // fields' lengths and the runs stay inside it)
+    int32_t nj;
 };
 
 // The kernel polynomial of NC coefficients by Horner in s. The sinc fits'

@@ -9,7 +9,8 @@ from sphexa_torch.io.snapshot import (
     read_snapshot_full,
     write_ascii,
     write_snapshot,
+    write_snapshot_sharded,
 )
 
-__all__ = ["write_snapshot", "read_snapshot", "read_snapshot_full", "list_steps",
-           "write_ascii"]
+__all__ = ["write_snapshot", "write_snapshot_sharded", "read_snapshot", "read_snapshot_full",
+           "list_steps", "write_ascii"]

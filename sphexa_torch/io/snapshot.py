@@ -71,10 +71,12 @@ def _np(v) -> np.ndarray:
 
 
 def _step_attrs(state: ParticleState, box: Box, const: SimConstants,
-                iteration: int) -> Dict[str, np.ndarray]:
+                iteration: int, num_particles_global: Optional[int] = None
+                ) -> Dict[str, np.ndarray]:
     attrs = {
         "iteration": np.int64(iteration),
-        "numParticlesGlobal": np.int64(state.n),
+        "numParticlesGlobal": np.int64(state.n if num_particles_global is None
+                                       else num_particles_global),
         "time": np.float64(float(state.ttot)),
         "minDt": np.float64(float(state.min_dt)),
         "minDt_m1": np.float64(float(state.min_dt_m1)),
@@ -90,16 +92,19 @@ def _step_attrs(state: ParticleState, box: Box, const: SimConstants,
 
 def write_snapshot(path: str, state: ParticleState, box: Box, const: SimConstants,
                    iteration: int = 0, extra_fields: Optional[Dict] = None,
-                   case: str = "", case_settings: Optional[Dict] = None) -> int:
+                   case: str = "", case_settings: Optional[Dict] = None,
+                   num_particles_global: Optional[int] = None) -> int:
     """Append one restartable snapshot (a ``.h5`` path gains a Step#n
     group; any other path is written as one ``.npz``); returns the step
     index written. ``extra_fields``: derived output datasets (rho, p, ...;
     tensors or arrays); ``case`` and ``case_settings`` are recorded so
-    that a restart re-selects the case's observable with its overrides."""
+    that a restart re-selects the case's observable with its overrides.
+    ``num_particles_global``: the whole run's count, where ``state`` is a
+    part of it (``write_snapshot_sharded``)."""
     fields = {f: _np(getattr(state, f)) for f in CONSERVED_FIELDS}
     if extra_fields:
         fields.update({k: _np(v) for k, v in extra_fields.items()})
-    attrs = _step_attrs(state, box, const, iteration)
+    attrs = _step_attrs(state, box, const, iteration, num_particles_global)
     if case:
         attrs["initCase"] = np.bytes_(case)
     if case_settings:
@@ -126,6 +131,29 @@ def write_snapshot(path: str, state: ParticleState, box: Box, const: SimConstant
 def _part_path(path: str, k: int, P: int) -> str:
     base, ext = os.path.splitext(path)
     return f"{base}.part{k:03d}of{P:03d}{ext}"
+
+
+def write_snapshot_sharded(path: str, state: ParticleState, box: Box, const: SimConstants,
+                           iteration: int = 0, extra_fields: Optional[Dict] = None,
+                           case: str = "", case_settings: Optional[Dict] = None,
+                           mesh=None) -> int:
+    """One part file a rank, with no gather: rank k of P writes its slab
+    ``state`` to ``<base>.part<k>of<P><ext>`` (the JAX package's sharded
+    dumps, file for file: an ordinary snapshot of the slab's rows, the
+    global count in its attributes; per-particle ``extra_fields`` are the
+    slab's, other arrays go to part 0 only). ``read_snapshot`` of the base
+    path reassembles the parts. Without a mesh (or one rank) it is
+    ``write_snapshot``. Returns the step index written."""
+    if mesh is None or mesh.size <= 1:
+        return write_snapshot(path, state, box, const, iteration, extra_fields, case,
+                              case_settings)
+    k, P, rows = mesh.rank, mesh.size, state.n
+    ex = None
+    if extra_fields:
+        ex = {name: v for name, v in extra_fields.items()
+              if k == 0 or (v.ndim >= 1 and v.shape[0] == rows)}
+    return write_snapshot(_part_path(path, k, P), state, box, const, iteration, ex, case,
+                          case_settings, num_particles_global=rows * P)
 
 
 def _find_parts(path: str) -> List[str]:

@@ -67,7 +67,7 @@ _ENTRY_POINTS = {
 
 #: layout version of EngineArgs (csrc/pair_ops.cuh ABI_VERSION), checked
 #: against the library's
-ABI_VERSION = 8
+ABI_VERSION = 9
 
 _lib: Optional[ctypes.CDLL] = None
 

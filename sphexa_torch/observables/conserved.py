@@ -19,7 +19,12 @@ def conserved_quantities(state: ParticleState, const: SimConstants,
     carry ``temp_lo`` in a row of its own (added per element it would
     round away again), and the momentum components. The step's ledger
     (``ledger.ledger_diagnostics``) takes its energies from here."""
-    f64 = torch.float64
+    return conserved_from_sums(conserved_sums(state, const), egrav)
+
+
+def conserved_sums(state: ParticleState, const: SimConstants) -> torch.Tensor:
+    """The (9,) float64 sums ``conserved_quantities`` is made of (under a
+    mesh each rank's, summed over the ranks before ``conserved_from_sums``)."""
     m = state.m
     mv3 = m * torch.stack([state.vx, state.vy, state.vz])
     rows = torch.cat([
@@ -29,11 +34,17 @@ def conserved_quantities(state: ParticleState, const: SimConstants,
         mv3,
         torch.linalg.cross(torch.stack([state.x, state.y, state.z]), mv3, dim=0),
     ])
-    s = torch.sum(rows, dim=1, dtype=f64)
+    return torch.sum(rows, dim=1, dtype=torch.float64)
+
+
+def conserved_from_sums(s: torch.Tensor, egrav: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The energies and momentum norms from ``conserved_sums``' (9,) sums."""
+    f64 = torch.float64
     ekin = 0.5 * s[0]
     eint = s[1] + s[2]
     if egrav is None:
-        egrav, etot = torch.zeros((), dtype=f64, device=m.device), ekin + eint
+        egrav, etot = torch.zeros((), dtype=f64, device=s.device), ekin + eint
     else:
         egrav = egrav.to(f64)
         etot = ekin + eint + egrav

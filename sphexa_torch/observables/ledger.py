@@ -19,7 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
-from sphexa_torch.observables.conserved import conserved_quantities
+from sphexa_torch.observables.conserved import conserved_from_sums, conserved_sums
 from sphexa_torch.observables.extras import kh_growth_rate, mach_rms, wind_bubble_fraction
 from sphexa_torch.observables.factory import make_observable
 
@@ -83,7 +83,8 @@ def make_observable_spec(case: str, overrides: Optional[Dict] = None) -> Observa
 
 def ledger_diagnostics(state, rho, nc, const, ngmax: int,
                        spec: Optional[ObservableSpec] = None, egrav=None,
-                       box=None, c=None, smoothing: bool = True) -> Dict[str, torch.Tensor]:
+                       box=None, c=None, smoothing: bool = True,
+                       mesh=None) -> Dict[str, torch.Tensor]:
     """The per-step science scalars (``OBS_DIAG_KEYS`` and the
     ``NUM_DIAG_KEYS`` this function owns) as 0-d device tensors.
 
@@ -94,10 +95,10 @@ def ledger_diagnostics(state, rho, nc, const, ngmax: int,
     gravitational energy, or None. The energies and momenta are
     ``conserved.conserved_quantities``'s. ``smoothing`` False (a step that
     never iterates h: N-body) reports zero cap-clip and h-saturation
-    counts."""
-    cq = conserved_quantities(state, const, egrav=egrav)
-    out = {"obs_ttot": state.ttot, **{f"obs_{k}": cq[k] for k in (
-        "etot", "ecin", "eint", "egrav", "linmom", "angmom")}}
+    counts. ``mesh``: the state is this rank's slab; the sums, counts and
+    extrema are reduced over the ranks (in one all_gather, sums in rank
+    order), and every rank returns the same scalars."""
+    sums = conserved_sums(state, const)
 
     # one (5, N) int sweep: cap clip, h saturation (a count off the ng0
     # target by more than half of it: the single nudge of update_h is far
@@ -109,23 +110,37 @@ def ledger_diagnostics(state, rho, nc, const, ngmax: int,
         counts = torch.zeros_like(counts)
     irows = torch.cat([counts, ~torch.isfinite(fields)])
     isum = torch.sum(irows, dim=1)
-    for k, name in enumerate(("n_nc_clip", "n_h_sat", "n_bad_rho", "n_bad_h", "n_bad_du")):
-        out[name] = isum[k]
-
     # the field extrema: a (2, N) min and max |du|
     mins = torch.amin(fields[:2], dim=1)
+    du_max = torch.amax(torch.abs(fields[2]))
+    if mesh is not None:
+        from sphexa_torch.parallel.mesh import reduce_scalars
+
+        (sums, isum), (du_max,), (mins,) = reduce_scalars(mesh, sums=[sums, isum],
+                                                          maxes=[du_max], mins=[mins])
+    cq = conserved_from_sums(sums, egrav)
+    out = {"obs_ttot": state.ttot, **{f"obs_{k}": cq[k] for k in (
+        "etot", "ecin", "eint", "egrav", "linmom", "angmom")}}
+    for k, name in enumerate(("n_nc_clip", "n_h_sat", "n_bad_rho", "n_bad_h", "n_bad_du")):
+        out[name] = isum[k]
     out["rho_min"] = mins[0]
     out["h_min"] = mins[1]
-    out["du_max"] = torch.amax(torch.abs(fields[2]))
+    out["du_max"] = du_max
 
     if spec is not None and spec.extra:
+        kw = {}
+        if mesh is not None:
+            from sphexa_torch.parallel.mesh import reduce_scalars
+
+            kw["total"] = lambda t: reduce_scalars(mesh, sums=[t])[0][0]
         if spec.extra == "kh":
-            out["obs_extra"] = kh_growth_rate(state.x, state.y, state.vy, state.m / rho, box)
+            out["obs_extra"] = kh_growth_rate(state.x, state.y, state.vy, state.m / rho, box,
+                                              **kw)
         elif spec.extra == "mach":
             cs = c if c is not None else torch.full_like(rho, float("nan"))
-            out["obs_extra"] = mach_rms(state.vx, state.vy, state.vz, cs)
+            out["obs_extra"] = mach_rms(state.vx, state.vy, state.vz, cs, **kw)
         else:  # wind
             out["obs_extra"] = wind_bubble_fraction(rho, state.temp, state.m,
                                                     spec.rho_bubble, spec.temp_wind,
-                                                    spec.initial_mass)
+                                                    spec.initial_mass, **kw)
     return out

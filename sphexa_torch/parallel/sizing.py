@@ -1,7 +1,20 @@
-"""Gravity-tree build from device keys (sphexa_tpu/parallel/sizing.py,
-``key_histogram``, ``drill_histogram`` and ``leaf_array_from_device_keys``):
-a histogram pyramid plus drill-down rounds over the overfull cells, so
-only O(8^level) counts reach the host, never the keys."""
+"""Sizing from device data (sphexa_tpu/parallel/sizing.py): only scalars
+or O(cells) histograms reach the host, never the particles.
+
+- the gravity tree from device keys (``key_histogram``,
+  ``drill_histogram``, ``leaf_array_from_device_keys``): a histogram
+  pyramid plus drill-down rounds over the overfull cells;
+- the SPH sizing of the sharded steps, over every rank's slab: the
+  densest cell and widest group (``sizing_stats``), the windowed
+  exchange's per-peer window (``device_halo_window``) and the sparse
+  exchange's per-distance row caps (``device_sparse_halo``). Each sorts
+  the slabs as the step will (parallel/sort.py) and sizes from the runs
+  the step's prologue will make; one window, or P - 1 caps, reach the
+  host. The gravity sizing waits for the sharded gravity slice.
+"""
+
+import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -93,3 +106,130 @@ def leaf_array_from_device_keys(keys_dev: torch.Tensor, bucket_size: int,
     starts = np.sort(np.asarray(
         [np.uint64(i) << np.uint64(3 * (KEY_BITS - lv)) for i, lv in leaves], np.uint64))
     return np.concatenate([starts, [np.uint64(1) << np.uint64(3 * KEY_BITS)]])
+
+
+# ---------------------------------------------------------------------------
+# SPH sizing of the sharded steps
+# ---------------------------------------------------------------------------
+
+
+def _sorted_slab(mesh, keys, *fields):
+    """This rank's slab of the global sort of (keys, fields): (keys, fields)."""
+    from sphexa_torch.parallel.sort import distributed_sort
+
+    skeys, mat = distributed_sort(mesh, keys, torch.stack(fields, dim=1))
+    return skeys, mat.unbind(1)
+
+
+def sizing_stats(mesh, x, y, z, box, level: int, group: int, curve: str = "hilbert"):
+    """(densest level-``level`` cell, (3,) widest per-dimension extent of a
+    group of ``group`` SFC-consecutive particles) over every rank's
+    particles, as floats on the host: the inputs of the neighbour config
+    beyond n and h_max. Groups form within each slab, as in the step."""
+    from sphexa_torch.parallel.exchange import global_cell_table
+    from sphexa_torch.parallel.mesh import reduce_scalars
+    from sphexa_torch.sfc.keys import compute_sfc_keys
+    from sphexa_torch.sph.pair_engine import _pad_groups
+
+    keys = compute_sfc_keys(x, y, z, box, curve=curve)
+    skeys, (xs, ys, zs) = _sorted_slab(mesh, keys, x, y, z)
+    occ = torch.diff(global_cell_table(mesh, skeys, level)).max()
+    ext = torch.stack([(g.amax(1) - g.amin(1)).max()
+                       for g in (_pad_groups(a, group) for a in (xs, ys, zs))])
+    _, (occ, ext), _ = reduce_scalars(mesh, maxes=[occ, ext])
+    return int(occ), tuple(float(e) for e in ext.tolist())
+
+
+def _slab_ranges(mesh, x, y, z, h, keys, box, nbr):
+    """The sorted slab's global table and the prologue's global-row runs."""
+    from sphexa_torch.parallel.exchange import global_cell_table
+    from sphexa_torch.sph.pair_engine import group_cell_ranges
+
+    skeys, (xs, ys, zs, hs) = _sorted_slab(mesh, keys, x, y, z, h)
+    table = global_cell_table(mesh, skeys, nbr.level)
+    return table, group_cell_ranges(xs, ys, zs, hs, None, box, nbr, table=table)
+
+
+def _halo_window_spans(mesh, x, y, z, h, keys, box, nbr) -> torch.Tensor:
+    """The largest source-row span any rank's runs need from another rank
+    (runs split at slab boundaries, as the step splits them): () int64,
+    the same on every rank."""
+    from sphexa_torch.parallel.exchange import _split_runs, window_bounds
+    from sphexa_torch.parallel.mesh import reduce_scalars
+
+    S = x.shape[0]
+    _, r = _slab_ranges(mesh, x, y, z, h, keys, box, nbr)
+    starts, lens, *_ = _split_runs(r.starts, r.lens, (r.shift_x, r.shift_y, r.shift_z), S,
+                                   extra=max(8, mesh.size - 1))
+    _, bounds = window_bounds(mesh, starts, lens, S)
+    span = torch.clamp(bounds[..., 1] - torch.minimum(bounds[..., 0], bounds[..., 1]), min=0)
+    return span.max()
+
+
+def device_halo_window(mesh, x, y, z, h, keys, box, nbr, margin: float = 1.4,
+                       quantum: int = 1024) -> int:
+    """The windowed exchange's per-peer window: the widest span padded by
+    ``margin`` up to a multiple of ``quantum``, at most the slab. ``keys``:
+    this slab's keys against ``box`` (the regrown box). One scalar to the
+    host."""
+    from sphexa_torch.parallel.exchange import slab_nbr
+
+    S = x.shape[0]
+    nbr = slab_nbr(nbr, S)
+    wmax = max(int(_halo_window_spans(mesh, x, y, z, h, keys, box, nbr)), 1)
+    return min(int(-(-int(wmax * margin) // quantum) * quantum), S)
+
+
+def sparse_need_matrix(mesh, x, y, z, h, keys, box, nbr) -> torch.Tensor:
+    """(P_dest, P_src) rows rank k's covered cells clip to rank j's slab
+    (the diagonal: its own slab), from the coverage of the runs the step
+    will make (exchange.localize_ranges_sparse): each rank's row, all
+    gathered. The same on every rank."""
+    from sphexa_torch.parallel.exchange import _sparse_layout, coverage_from_runs
+    from sphexa_torch.parallel.mesh import all_gather
+
+    S = x.shape[0]
+    table, r = _slab_ranges(mesh, x, y, z, h, keys, box, nbr)
+    covered = coverage_from_runs(r.starts, r.lens, table)
+    return all_gather(mesh, _sparse_layout(covered, table, S, mesh.size)[2])
+
+
+def _sparse_halo_needs(mesh, x, y, z, h, keys, box, nbr) -> torch.Tensor:
+    """(P - 1,) per-distance needs: entry r - 1 the most rows any rank
+    needs from its distance-r predecessor (round r's buffer)."""
+    need = sparse_need_matrix(mesh, x, y, z, h, keys, box, nbr)
+    P = mesh.size
+    j = torch.arange(P, device=need.device)
+    return torch.stack([need[(j + r) % P, j].max() for r in range(1, P)]) if P > 1 else \
+        need.new_zeros(0)
+
+
+def device_sparse_halo(mesh, x, y, z, h, keys, box, nbr, margin: float = 1.4,
+                       quantum: int = 256) -> Tuple[int, ...]:
+    """The sparse exchange's per-distance row caps, each need padded by
+    ``margin`` up to a multiple of ``quantum``, at most the slab (a cap of
+    S ships the whole slab, where the escape sentinel cannot fire). P - 1
+    scalars to the host."""
+    from sphexa_torch.parallel.exchange import slab_nbr
+
+    S = x.shape[0]
+    nbr = slab_nbr(nbr, S)
+    per_r = _sparse_halo_needs(mesh, x, y, z, h, keys, box, nbr).tolist()
+    return tuple(min(int(-(-int(max(int(v), 1) * margin) // quantum) * quantum), S)
+                 for v in per_r)
+
+
+def halo_sizes(mesh, state, box, nbr, mode: str, margin: float = 1.4,
+               curve: str = "hilbert") -> dict:
+    """The halo exchange's sizes at this state (the box regrown as the step
+    regrows it): {"halo_cells": the sparse caps} for ``mode`` "sparse",
+    else {"halo_window": the window}, ``make_sharded_step``'s keywords."""
+    from sphexa_torch.sfc.box import make_global_box
+    from sphexa_torch.sfc.keys import compute_sfc_keys
+
+    gbox = make_global_box(state.x, state.y, state.z, box, mesh=mesh)
+    keys = compute_sfc_keys(state.x, state.y, state.z, gbox, curve=curve)
+    args = (mesh, state.x, state.y, state.z, state.h, keys, gbox, nbr)
+    if mode == "sparse":
+        return {"halo_cells": device_sparse_halo(*args, margin=margin)}
+    return {"halo_window": device_halo_window(*args, margin=margin)}

@@ -30,6 +30,17 @@ run the full force stage, then kick only the due rows, which K13's
 one-row form lists; their BlockDtState rides the sort as the aux. PyTorch
 runs the steps eagerly; the pair ops launch the CUDA kernels on the card
 and their plain versions on the CPU.
+
+Under a mesh (``cfg.mesh``, parallel/mesh.py ``make_sharded_step``; the
+std and VE steps) the state is this rank's slab: the box regrow reduces
+the extrema over the ranks, the sort is the distributed one
+(parallel/sort.py: rank k ends with rows [k S, (k + 1) S) of the global
+stable sort), and the force stage is ``_std_forces_sharded`` /
+``_ve_forces_sharded``: K1 on the slab against [own slab | halo rows]
+j-buffers (parallel/exchange.py), one serve of halo rows per field set
+the next op reads on its j side; the step's scalars (dt, the occupancy
+with the halo escape sentinel folded in, the diagnostics and the ledger)
+are reduced over the ranks, so that every rank returns the same ones.
 """
 
 import dataclasses
@@ -66,6 +77,11 @@ STEP_DIAG_KEYS = ("dt", "nc_mean", "nc_max", "occupancy", "rho_max", "h_max")
 #: ``diagnostics["dt_limiter"]`` indexes this tuple
 DT_LIMITERS = ("growth", "courant", "rho", "cool", "accel")
 
+#: per-rank (P,) diagnostics of the sharded force stages, the same on every
+#: rank: each rank's true remote halo rows, its fullest halo buffer's
+#: occupancy, its candidate rows a pair op streams, its escape trips
+SHARD_DIAG_KEYS = ("shard_rows", "shard_occ", "shard_work", "shard_trips")
+
 
 @dataclasses.dataclass(frozen=True)
 class PropagatorConfig:
@@ -97,6 +113,13 @@ class PropagatorConfig:
     dt_bins: Optional[int] = None
     bin_sync_every: int = 1
     bin_resort_drift: float = 0.0
+    # this rank's mesh (parallel/mesh.py Mesh; None: one device) and the
+    # halo exchange's static sizes: per-distance row caps of the sparse
+    # exchange (P - 1 of them), else the windowed exchange's per-peer
+    # window (0: whole slabs)
+    mesh: Optional[object] = None
+    halo_window: int = 0
+    halo_cells: Tuple[int, ...] = ()
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -163,6 +186,18 @@ def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None, bins=Non
     return new, keys[order], order, aux
 
 
+def _sort_by_keys_sharded(state: ParticleState, box: Box, curve: str, mesh):
+    """``_sort_by_keys`` across ranks: this rank's slab of the global
+    stable sort (parallel/sort.py). Returns (state, sorted keys)."""
+    from sphexa_torch.parallel.sort import distributed_sort
+
+    keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
+    skeys, mat = distributed_sort(mesh, keys, torch.stack(
+        [getattr(state, f) for f in PARTICLE_FIELDS], dim=1))
+    return dataclasses.replace(state, **{f: mat[:, k].contiguous()
+                                         for k, f in enumerate(PARTICLE_FIELDS)}), skeys
+
+
 def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig, aux=None):
     """Persistent-list rebuild: box regrow + global sort + list build. The
     returned state is the frozen sorted order every steady step runs in
@@ -190,6 +225,12 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
     tail = () if aux is None else (aux,)
     if keys is not None:
         return (state, box, keys, None, *tail)
+    if cfg.mesh is not None:
+        if lists is not None or aux is not None:
+            raise ValueError("the sharded steps stream (no lists) and carry no aux")
+        box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
+        state, keys = _sort_by_keys_sharded(state, box, cfg.curve, cfg.mesh)
+        return (state, box, keys, None)
     if lists is not None:
         if cfg.gravity is not None:
             raise NotImplementedError("persistent lists compose with gravity-off steps; "
@@ -244,6 +285,11 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     const = cfg.const
     state, box, keys, diag, *rest = _force_stage_prologue(state, box, cfg, lists, aux=aux,
                                                           keys=keys)
+    if cfg.mesh is not None:
+        rho, c, nc, occ, ax, ay, az, du, dt_courant, sdiag = _std_forces_sharded(
+            state, box, cfg, keys)
+        return (state, box, ax, ay, az, du, dt_courant, (), nc, occ, rho, c, sdiag,
+                *(rest or [None]))
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
         pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
@@ -261,6 +307,144 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
                                                 diag)
     return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, ranges.occupancy,
             rho, c, diag, *(rest or [None]))
+
+
+def _halo_stage(cfg: PropagatorConfig, S: int, x, y, z, h, keys, box):
+    """The sharded stages' shared prologue (parallel/exchange.py) with the
+    halo exchange the config names: sparse with ``cfg.halo_cells`` (the
+    default the Simulation sizes), else windowed (``cfg.halo_window``; 0
+    serves whole slabs); run_cap clamped to the slab. Returns (ranges,
+    serve, jbuf, escaped, metrics, nbr)."""
+    from sphexa_torch.parallel import exchange as ex
+
+    nbr = ex.slab_nbr(cfg.nbr, S)
+    if cfg.halo_cells:
+        hmax = tuple(min(c, S) for c in cfg.halo_cells)
+        out = ex.shard_halo_stage_sparse(cfg.mesh, x, y, z, h, keys, box, nbr, hmax)
+    else:
+        wmax = min(cfg.halo_window, S) or S
+        out = ex.shard_halo_stage(cfg.mesh, x, y, z, h, keys, box, nbr, wmax)
+    return (*out, nbr)
+
+
+def exchange_fields_per_step(prop: str, av_clean: bool = False) -> int:
+    """float32 fields the sharded force stage serves a step: std 4 (x, y,
+    z, m) + 1 (m/rho) + 13 (h, v, rho, p, c, the six IAD terms); VE 5 (x,
+    y, z, h, m) + 1 (xm) + 6 (kx, prho, c, v) + 1 (divv) + 7 (alpha, the
+    six IAD terms), and with av_clean the six gradv terms too (the JAX
+    package's docstring counts three). The rows a serve ships times this
+    times 4 is the exchange's bytes a step."""
+    base = {"std": 18, "ve": 20}
+    if prop not in base:
+        return 0
+    return base[prop] + (6 if av_clean and prop == "ve" else 0)
+
+
+def _shard_tail(mesh, mins, occ, escaped, cap: int, ranges, metrics):
+    """The sharded stages' closing collective, one all_gather: the dt
+    candidates ``mins`` reduced by min, the occupancy (the escape sentinel
+    folded in) by max, and each rank's exchange metrics (SHARD_DIAG_KEYS,
+    ``shard_work`` the candidate rows a pair op streams). Returns (mins,
+    occ, shard diagnostics)."""
+    from sphexa_torch.parallel.exchange import fold_escape_sentinel
+    from sphexa_torch.parallel.mesh import all_gather
+
+    f64 = torch.float64
+    occ = fold_escape_sentinel(occ, escaped, cap)
+    packed = torch.stack([*(t.to(f64) for t in mins), occ.to(f64),
+                          metrics["halo_rows"].to(f64), metrics["halo_occ"].to(f64),
+                          ranges.lens.to(f64).sum(), escaped.to(f64)])
+    g = all_gather(mesh, packed)  # (P, K)
+    nm = len(mins)
+    out = [g[:, i].min().to(t.dtype) for i, t in enumerate(mins)]
+    sdiag = {"shard_rows": g[:, nm + 1].to(torch.int32),
+             "shard_occ": g[:, nm + 2].to(torch.float32),
+             "shard_work": g[:, nm + 3].to(torch.float32),
+             "shard_trips": g[:, nm + 4].to(torch.int32)}
+    return out, g[:, nm].max().to(occ.dtype), sdiag
+
+
+def _std_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
+    """The std pair stage on this rank's slab (the JAX package's
+    _std_forces_sharded): the shared prologue against the global cell
+    table, then density, EOS, IAD and momentum/energy on K1's jdata form,
+    a serve before each op of the fields it reads on the j side that the
+    last serve did not ship (x y z m; m/rho; h v rho p c and the IAD
+    terms). Returns (rho, c, nc, occ, ax, ay, az, du, dt_courant, shard
+    diagnostics), dt and occ reduced over the ranks."""
+    const = cfg.const
+    S = state.n
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    vx, vy, vz = state.vx, state.vy, state.vz
+    ranges, serve, jbuf, escaped, hmetrics, nbr = _halo_stage(cfg, S, x, y, z, h, keys, box)
+    kw = {"ranges": ranges}
+
+    hx, hy, hz, hm = serve((x, y, z, m))
+    rho, nc, occ = pe.pallas_density(x, y, z, h, m, None, box, const, nbr,
+                                     jdata=jbuf((x, y, z, m), (hx, hy, hz, hm)), **kw)
+    p, c = compute_eos_std(state.temp, rho, const)
+    vol = m / rho
+    (hvol,) = serve((vol,))
+    cs, _ = pe.pallas_iad(x, y, z, h, vol, None, box, const, nbr,
+                          jdata=jbuf((x, y, z, vol), (hx, hy, hz, hvol)), **kw)
+    hh, hvx, hvy, hvz, hrho, hp, hc, *hcs = serve((h, vx, vy, vz, rho, p, c, *cs))
+    ax, ay, az, du, dt_c, _ = pe.pallas_momentum_energy_std(
+        x, y, z, vx, vy, vz, h, m, rho, p, c, *cs, None, box, const, nbr,
+        jdata=jbuf((x, y, z, h, vx, vy, vz, m, rho, p, c, *cs),
+                   (hx, hy, hz, hh, hvx, hvy, hvz, hm, hrho, hp, hc, *hcs)), **kw)
+    (dt_c,), occ, sdiag = _shard_tail(cfg.mesh, [dt_c], occ, escaped, cfg.nbr.cap, ranges,
+                                      hmetrics)
+    return rho, c, nc, occ, ax, ay, az, du, dt_c, sdiag
+
+
+def _ve_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
+    """The VE pair stage on this rank's slab (the JAX package's
+    _ve_forces_sharded), one serve per halo epoch of the reference
+    (ve_hydro.hpp:154-188): x y z h m; xm; kx prho c v; divv; alpha and the
+    IAD terms (and gradv with av_clean). Returns (rho, c, nc, occ, ax, ay,
+    az, du, dt_courant, dt_rho, alpha, shard diagnostics), the dt
+    candidates and occ reduced over the ranks."""
+    const = cfg.const
+    S = state.n
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    vx, vy, vz = state.vx, state.vy, state.vz
+    ranges, serve, jbuf, escaped, hmetrics, nbr = _halo_stage(cfg, S, x, y, z, h, keys, box)
+    kw = {"ranges": ranges}
+
+    hx, hy, hz, hh, hm = serve((x, y, z, h, m))
+    xm, nc, occ = pe.pallas_xmass(x, y, z, h, m, None, box, const, nbr,
+                                  jdata=jbuf((x, y, z, m), (hx, hy, hz, hm)), **kw)
+    (hxm,) = serve((xm,))
+    (kx, gradh), _ = pe.pallas_ve_def_gradh(
+        x, y, z, h, m, xm, None, box, const, nbr,
+        jdata=jbuf((x, y, z, m, xm), (hx, hy, hz, hm, hxm)), **kw)
+    prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    hkx, hprho, hc, hvx, hvy, hvz = serve((kx, prho, c, vx, vy, vz))
+    cs, _ = pe.pallas_iad(x, y, z, h, xm / kx, None, box, const, nbr,
+                          jdata=jbuf((x, y, z, xm / kx), (hx, hy, hz, hxm / hkx)), **kw)
+    dvout, _ = pe.pallas_iad_divv_curlv(
+        x, y, z, vx, vy, vz, h, kx, xm, *cs, None, box, const, nbr,
+        with_gradv=cfg.av_clean,
+        jdata=jbuf((x, y, z, xm, vx, vy, vz), (hx, hy, hz, hxm, hvx, hvy, hvz)), **kw)
+    divv, _curlv, gradv = _split_dvout(dvout, cfg.av_clean)
+    dt_rho = rho_timestep(divv, const)
+    (hdivv,) = serve((divv,))
+    alpha, _ = pe.pallas_av_switches(
+        x, y, z, vx, vy, vz, h, c, kx, xm, divv, state.alpha, *cs, None, box, state.min_dt,
+        const, nbr, jdata=jbuf((x, y, z, c, vx, vy, vz, xm / kx, divv),
+                               (hx, hy, hz, hc, hvx, hvy, hvz, hxm / hkx, hdivv)), **kw)
+    gv = tuple(gradv or ())
+    halpha, *rest = serve((alpha, *cs) + gv)
+    hcs, hgv = rest[:6], tuple(rest[6:])
+    ax, ay, az, du, dt_c, _ = pe.pallas_momentum_energy_ve(
+        x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, None, box, const, nbr,
+        nc=nc, gradv=gradv,
+        jdata=jbuf((x, y, z, h, vx, vy, vz, c, alpha, m, xm, kx, prho, *cs) + gv,
+                   (hx, hy, hz, hh, hvx, hvy, hvz, hc, halpha, hm, hxm, hkx, hprho, *hcs)
+                   + hgv), **kw)
+    (dt_c, dt_rho), occ, sdiag = _shard_tail(cfg.mesh, [dt_c, dt_rho], occ, escaped,
+                                             cfg.nbr.cap, ranges, hmetrics)
+    return rho, c, nc, occ, ax, ay, az, du, dt_c, dt_rho, alpha, sdiag
 
 
 def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -307,11 +491,22 @@ def _step_diagnostics(cfg: PropagatorConfig, new_state: ParticleState, box: Box,
         "rho_max": torch.max(rho),
         "h_max": torch.max(new_state.h),
     }
+    mesh = cfg.mesh
+    if mesh is not None:
+        from sphexa_torch.parallel.mesh import reduce_scalars
+
+        keys = ("nc_max", "rho_max", "h_max")
+        (nc_sum,), maxes, _ = reduce_scalars(mesh, sums=[diagnostics["nc_sum"]],
+                                             maxes=[diagnostics[k] for k in keys])
+        diagnostics.update(zip(keys, maxes))
+        diagnostics["nc_sum"] = nc_sum
+        n_all = float(new_state.n * mesh.size)
+        diagnostics["nc_mean"] = (nc_sum.to(torch.float64) / n_all).to(torch.float32) + 1.0
     if cfg.obs is not None:
         diagnostics.update(ledger_diagnostics(
             new_state, rho, nc, const, const.ngmax, spec=cfg.obs,
             egrav=(extra_diag or {}).get("egrav"), box=box, c=c,
-            smoothing=smoothing))
+            smoothing=smoothing, mesh=mesh))
     if dt_limiter is not None:
         diagnostics["dt_limiter"] = dt_limiter
     if extra_diag:
@@ -385,6 +580,13 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     place and no limiter. ``keys``: the state is sorted already."""
     const, nbr = cfg.const, cfg.nbr
     state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists, keys=keys)
+    if cfg.mesh is not None:
+        (rho, c, nc, occ, ax, ay, az, du, dt_courant, dt_rho, alpha,
+         sdiag) = _ve_forces_sharded(state, box, cfg, keys)
+        dt = compute_timestep(state.min_dt, dt_courant, dt_rho, const=const)
+        diag = {**sdiag, "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant,
+                                                   rho=dt_rho)}
+        return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c, diag
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     vx, vy, vz = state.vx, state.vy, state.vz
     ranges = None if lists is not None else pe.group_cell_ranges(x, y, z, h, keys, box, nbr)

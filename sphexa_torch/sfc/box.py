@@ -92,11 +92,17 @@ def put_in_box(box: Box, xyz: torch.Tensor) -> torch.Tensor:
     return torch.where(box.periodic_mask, folded, xyz)
 
 
-def make_global_box(x, y, z, prev: Box) -> Box:
+def make_global_box(x, y, z, prev: Box, mesh=None) -> Box:
     """Grow open dimensions to the particle extrema; periodic and fixed
-    dimensions keep their limits (cstone makeGlobalBox)."""
+    dimensions keep their limits (cstone makeGlobalBox). ``mesh``: the
+    arrays are this rank's slab, and the extrema are reduced over the
+    ranks (one all_gather, parallel/mesh.py)."""
     lo_fit = torch.stack([x.min(), y.min(), z.min()])
     hi_fit = torch.stack([x.max(), y.max(), z.max()])
+    if mesh is not None:
+        from sphexa_torch.parallel.mesh import reduce_scalars
+
+        _, (hi_fit,), (lo_fit,) = reduce_scalars(mesh, maxes=[hi_fit], mins=[lo_fit])
     keep = _dim_mask(tuple(b != BoundaryType.open for b in prev.boundaries),
                      prev.lo.device)
     lo = torch.where(keep, prev.lo, torch.minimum(prev.lo, lo_fit))

@@ -1,11 +1,12 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE,
 turb-ve, std-cooling and N-body propagators and the std and VE block time
-steps on one card): static
+steps on one card, std and VE across ranks): static
 neighbour-config sizing, the gravity tree and its caps (open-box or
 Ewald periodic gravity), the step loop with the overflow contract,
 deferred check windows with rollback and replay of the whole carry (the
 stirring state and the chemistry included), the persistent-list
-lifecycle, the science ledger's rows and watchdogs, and the driver's
+lifecycle, the science ledger's rows and watchdogs, the halo sizing of
+the sharded steps with the escape sentinel's regrow, and the driver's
 telemetry events."""
 
 import dataclasses
@@ -30,9 +31,10 @@ from sphexa_torch.physics.cooling import ChemistryData, CoolingConfig
 from sphexa_torch.propagator import (
     DT_LIMITERS, STEP_AUX_SLOT, PropagatorConfig, _step_hydro_std, _step_hydro_std_blockdt,
     _step_hydro_std_cooling, _step_hydro_ve, _step_hydro_ve_blockdt, _step_nbody,
-    _step_turb_ve, rebuild_pair_lists, step_sim_state,
+    _step_turb_ve, exchange_fields_per_step, rebuild_pair_lists, step_sim_state,
 )
-from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
+from sphexa_torch.parallel import mesh as pmesh
+from sphexa_torch.parallel.sizing import halo_sizes, leaf_array_from_device_keys, sizing_stats
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph.blockdt import make_blockdt_state
@@ -90,6 +92,7 @@ def make_propagator_config(
     list_skin_rel: Optional[float] = None,
     list_slot_margin: float = 1.3,
     sizing_cache=None,
+    mesh=None,
 ) -> PropagatorConfig:
     """Size the static neighbour config from the current particles, as the
     JAX function does for its pallas backend (the other backends are not
@@ -102,7 +105,12 @@ def make_propagator_config(
     covers the skin, (4 h_max + skin) * 1.1; the slot budget comes from
     the sizing pass's own sorted keys. Where the grid is in fold mode
     (before or after the wider window) lists are unavailable: the
-    un-inflated window stays and ``list_slot_cap`` stays 0."""
+    un-inflated window stays and ``list_slot_cap`` stays 0.
+
+    ``mesh``: the state is this rank's slab; h_max, n, the densest cell
+    and the widest group are taken over every rank (``sizing_stats``:
+    the slabs sorted as the step sorts them, groups within each slab),
+    and the lists stay off."""
     cell_target = cell_target or _DEFAULTS["cell_target"]
     run_cap = _DEFAULTS["run_cap"] if run_cap is None else run_cap
     gap = _DEFAULTS["gap"] if gap is None else gap
@@ -111,22 +119,32 @@ def make_propagator_config(
         list_skin_rel = _DEFAULTS["list_skin_rel"]
 
     lengths = box.lengths.cpu().numpy()
-    h_max = float(state.h.max().item())
+    h_max = state.h.max()
+    n = state.n
+    if mesh is not None:
+        _, (h_max,), _ = pmesh.reduce_scalars(mesh, maxes=[h_max])
+        n *= mesh.size
+        use_lists = False
+    h_max = float(h_max.item())
     level = choose_grid_level(lengths, h_max)
-    level_occ = max(1, round(np.log2(max(state.n / float(cell_target), 1.0)) / 3.0))
+    level_occ = max(1, round(np.log2(max(n / float(cell_target), 1.0)) / 3.0))
     level = min(level, level_occ)
 
-    if sizing_cache is None:
-        keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve).cpu().numpy()
-        order = np.argsort(keys, kind="stable")
+    if mesh is not None:
+        occ, ext = sizing_stats(mesh, state.x, state.y, state.z, box, level, group, curve)
     else:
-        keys, order = (a.cpu().numpy() for a in sizing_cache)
-    cap = pad_cap(_max_cell_occupancy(keys[order], level))
+        if sizing_cache is None:
+            keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve).cpu().numpy()
+            order = np.argsort(keys, kind="stable")
+        else:
+            keys, order = (a.cpu().numpy() for a in sizing_cache)
+        occ = _max_cell_occupancy(keys[order], level)
+        xa, ya, za = (a.cpu().numpy() for a in (state.x, state.y, state.z))
+        ext = _group_extents(xa, ya, za, order, group)
+    cap = pad_cap(occ)
     if min_cap > 0:
         cap = max(cap, pad_cap(min_cap))
     ncell = 1 << level
-    xa, ya, za = (a.cpu().numpy() for a in (state.x, state.y, state.z))
-    ext = _group_extents(xa, ya, za, order, group)
 
     def make_nbr(radius):
         window = 1
@@ -218,7 +236,23 @@ class Simulation:
     ``m2p_cap_margin`` (None: its default); the steps sort every time (no
     lists). A step whose interaction lists or leaves outgrow their caps
     (an Ewald solve's worst replica pass) is discarded, the caps re-sized
-    with a 1.5x larger margin, and the step replayed."""
+    with a 1.5x larger margin, and the step replayed.
+
+    ``num_devices`` P > 1 (std and VE, gravity off, no block time steps;
+    the others raise, naming the slice that brings them): this process is
+    one of P ranks (parallel/mesh.py ``spawn``) and joins their process
+    group; ``state`` is the whole initial state, of which the rank keeps
+    its slab, and ``device`` is the rank's. The steps stream (no lists)
+    over the sharded force stages with the ``halo_mode`` exchange
+    ("sparse", per-distance row caps, or "windowed", one window per
+    peer), sized at every (re)configuration from the current particles
+    with a margin; a step whose runs escape the served halo (the
+    occupancy's cap + 1 sentinel) is discarded, the margin grown 1.5x and
+    the step replayed, deferred windows included. Every rank takes every
+    decision from the replicated scalars. At each check or flush boundary
+    a ``shard_load`` and an ``exchange`` event go out, and an
+    ``imbalance`` event where a per-rank metric's max over its mean
+    reaches ``imbalance_ratio``."""
 
     # rebuild proactively below this remaining-skin fraction: the next
     # step would likely expire and be discarded
@@ -235,7 +269,9 @@ class Simulation:
                  turb_settings: Optional[Dict] = None,
                  cooling_cfg: Optional[CoolingConfig] = None,
                  chem: Optional[ChemistryData] = None, dt_bins: Optional[int] = None,
-                 bin_sync_every: int = 1, bin_resort_drift: float = 0.0):
+                 bin_sync_every: int = 1, bin_resort_drift: float = 0.0,
+                 num_devices: Optional[int] = None, halo_mode: str = "sparse",
+                 imbalance_ratio: float = 1.5):
         if prop not in _STEPS:
             raise ValueError(f"unknown propagator {prop!r}; available: {sorted(_STEPS)}")
         if dt_bins is not None:
@@ -262,6 +298,18 @@ class Simulation:
                 "prop='nbody' needs a gravitational constant: set SimConstants(g=...)")
         self.prop_name = prop
         self.gravity_on = const.g != 0.0
+        if halo_mode not in ("sparse", "windowed"):
+            raise ValueError(f"halo_mode must be 'sparse' or 'windowed', got {halo_mode!r}")
+        self.mesh = None
+        if num_devices is not None and num_devices > 1:
+            if prop not in ("std", "ve") or self.gravity_on or dt_bins is not None:
+                raise ValueError(f"prop={prop!r}, self-gravity or block time steps on a mesh "
+                                 f"come with {pmesh.NEXT_SLICE}; std and VE shard now")
+            self.mesh = pmesh.make_mesh(num_devices, device=device)
+        self._halo_mode = halo_mode
+        self._halo_margin = 1.4  # grown 1.5x by every escape-sentinel trip
+        self._halo_info: Dict = {}
+        self._imbalance_ratio = float(imbalance_ratio)
         any_periodic = any(b == BoundaryType.periodic for b in box.boundaries)
         all_periodic = all(b == BoundaryType.periodic for b in box.boundaries)
         self.ewald_on = self.gravity_on and all_periodic
@@ -284,8 +332,12 @@ class Simulation:
         self.grav_configure_seconds = 0.0  # the last tree build and cap sizing
         self.av_clean = av_clean
         self._step_fn = (_STEPS_BLOCKDT if dt_bins is not None else _STEPS)[prop]
-        self.device = resolve_device(device)
-        self.state = state.to(self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
+            self.state = pmesh.shard_state(state, self.mesh)
+        else:
+            self.device = resolve_device(device)
+            self.state = state.to(self.device)
         self.bdt_state = make_blockdt_state(self.state, dt_bins) if dt_bins is not None else None
         self.box = box.to(self.device)
         self.const = const
@@ -334,7 +386,8 @@ class Simulation:
         self._science: list = []
         # the gravity tree is built from fresh keys, and the block time
         # steps sort on the folded key: both sort every step
-        self._want_lists = use_lists and not self.gravity_on and dt_bins is None
+        self._want_lists = (use_lists and not self.gravity_on and dt_bins is None
+                            and self.mesh is None)
         self._list_skin_rel = list_skin_rel
         self._slot_margin = 1.3
         self._lists = None
@@ -416,13 +469,44 @@ class Simulation:
                 self.state, self.box, self.const, curve=self.curve,
                 min_cap=min_cap, cell_target=self.cell_target,
                 use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
-                list_slot_margin=self._slot_margin, sizing_cache=sizing_cache)
+                list_slot_margin=self._slot_margin, sizing_cache=sizing_cache,
+                mesh=self.mesh)
         self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec,
                                         dt_bins=self.dt_bins,
                                         bin_sync_every=self.bin_sync_every,
                                         bin_resort_drift=self.bin_resort_drift)
         if self.gravity_on:
             self._configure_gravity(grav_margin, sizing_cache)
+        if self.mesh is not None:
+            self._configure_sharded()
+
+    def _configure_sharded(self) -> None:
+        """Size the halo exchange from the current particles (the box
+        regrown and the slabs sorted as the next step will) with the
+        current margin, and bind the mesh and the sizes into the config
+        (parallel/mesh.py ``make_sharded_step``). Only the P - 1 caps, or
+        the window, reach the host."""
+        mesh, S, P = self.mesh, self.state.n, self.mesh.size
+        sizes = halo_sizes(mesh, self.state, self.box, self._cfg.nbr, self._halo_mode,
+                           margin=self._halo_margin, curve=self.curve)
+        stepper = pmesh.make_sharded_step(mesh, self._cfg, self._step_fn, **sizes)
+        if "halo_cells" in sizes:
+            caps = sizes["halo_cells"]
+            self._halo_info = {"mode": "sparse", "caps": caps, "shipped_rows": sum(caps)}
+        else:
+            wmax = sizes["halo_window"]
+            self._halo_info = {"mode": "windowed", "wmax": wmax, "shipped_rows": (P - 1) * wmax}
+        self._halo_info["slab"] = S
+        self._halo_info["bytes_per_step"] = 4 * self._halo_info["shipped_rows"] * \
+            exchange_fields_per_step(self.prop_name, self.av_clean)
+        self._cfg = stepper.cfg
+
+    @property
+    def halo_info(self) -> Dict:
+        """The sharded run's exchange shape at the last sizing: its mode,
+        the caps or the window, the rows a serve ships, the slab and the
+        bytes a step ships ({} on one device)."""
+        return dict(self._halo_info)
 
     def _configure_gravity(self, margin: float, keys_cache) -> None:
         """(Re)build the gravity tree from the particles' keys and size
@@ -558,6 +642,11 @@ class Simulation:
         # re-size grows the window instead of ratcheting the cap
         occ = int(d["occupancy"])
         cap = self._cfg.nbr.cap
+        if self.mesh is not None and occ == cap + 1:
+            # under a mesh the sentinel is also how runs that escaped the
+            # served halo surface: grow the halo sizing's margin
+            self._halo_margin *= 1.5
+            self.telemetry.count("halo_trips")
         self._configure(min_cap=0 if occ == cap + 1 or occ <= cap else occ,
                         grav_margin=grav_margin, reason="overflow")
 
@@ -611,6 +700,7 @@ class Simulation:
         self.telemetry.timing("step", wall)
         self.telemetry.event("step", it=self.iteration, wall_s=round(wall, 6),
                              dt=result.get("dt"), reconfigured=reconfigured)
+        self._emit_distributed(d, 1)
         self._emit_science([d], [self.iteration])
         self._emit_blockdt([d], [self.iteration])
         self._emit_memory("post-compile")
@@ -670,6 +760,7 @@ class Simulation:
                                  per_step_s=round(window_wall / len(pending), 6))
             # the ledger rides the same read: a science row for every step
             win_its = list(range(self.iteration - len(pending) + 1, self.iteration + 1))
+            self._emit_distributed(fetched[-1], len(pending))
             self._emit_science(fetched, win_its)
             self._emit_blockdt(fetched, win_its)
             self._emit_memory("post-compile")
@@ -706,6 +797,41 @@ class Simulation:
         result["reconfigured"] = 1.0
         self._last_diag = result
         return result
+
+    def _emit_distributed(self, d: Dict[str, float], steps: int) -> None:
+        """At a check or flush boundary under a mesh: one ``shard_load`` and
+        one ``exchange`` event from the step's per-rank scalars (already
+        read), and the imbalance watchdog (max over mean of each per-rank
+        metric against ``imbalance_ratio``)."""
+        if self.mesh is None:
+            return
+        tel, P = self.telemetry, self.mesh.size
+
+        def per_rank(key):
+            return [d[f"{key}[{r}]"] for r in range(P)] if f"{key}[0]" in d else None
+
+        work, rows, occ = per_rank("shard_work"), per_rank("shard_rows"), per_rank("shard_occ")
+        tel.event("shard_load", it=self.iteration, steps=steps,
+                  particles=[self.state.n] * P, stage="sph",
+                  **({"work": work} if work is not None else {}))
+        info = self._halo_info
+        if rows is not None:
+            tel.event("exchange", it=self.iteration, steps=steps, mode=info["mode"],
+                      shipped_rows=int(info["shipped_rows"]), rows=[int(r) for r in rows],
+                      occ=[round(float(o), 4) for o in occ],
+                      bytes_per_step=int(info["bytes_per_step"]),
+                      trips=int(tel.counters.get("halo_trips", 0)), stage="sph")
+        for metric, a in (("work", work), ("halo_rows", rows), ("halo_occ", occ)):
+            if not a:
+                continue
+            mean = float(np.mean(a))
+            if mean <= 0.0:
+                continue
+            ratio = float(np.max(a)) / mean
+            if ratio >= self._imbalance_ratio:
+                tel.count("imbalances")
+                tel.event("imbalance", it=self.iteration, metric=metric, ratio=round(ratio, 4),
+                          threshold=self._imbalance_ratio)
 
     def _emit_memory(self, point: str) -> None:
         """A ``memory`` event (telemetry/memory.py: the allocator's host

@@ -129,7 +129,7 @@ def _pad_groups(a: torch.Tensor, group: int) -> torch.Tensor:
 
 
 def group_cell_ranges(x, y, z, h, sorted_keys, box: Box,
-                      cfg: NeighborConfig, radius_pad=0.0) -> GroupRanges:
+                      cfg: NeighborConfig, radius_pad=0.0, table=None) -> GroupRanges:
     """Candidate runs of every group, culled, merged and compacted
     (pallas_pairs.group_cell_ranges). ``occupancy`` is the densest kept
     cell, or ``cap + 1`` when some group's search extent outgrew the
@@ -137,9 +137,12 @@ def group_cell_ranges(x, y, z, h, sorted_keys, box: Box,
     and the step replayed. ``radius_pad`` (a float32 0-d tensor: the
     list-build skin) widens each group's search radius to
     2 max h + radius_pad, so that the runs stay valid while particles
-    drift between list rebuilds."""
+    drift between list rebuilds. ``table``: a cell-starts table of the
+    level grid built elsewhere, in place of ``sorted_keys``: under a mesh
+    the global one (parallel/exchange.py ``global_cell_table``), and the
+    runs then hold global rows."""
     start, lens, keep, shifts, raw_len, window_ok = window_cells_culled(
-        x, y, z, h, sorted_keys, box, cfg, radius_pad)
+        x, y, z, h, sorted_keys, box, cfg, radius_pad, table=table)
     starts_c, lens_c, sh, ncells = _merge_runs(
         start, lens, keep, shifts, cfg.run_cap, cfg.gap)
     occupancy, boxl = occupancy_and_boxl(keep, raw_len, window_ok, box, cfg)
@@ -162,13 +165,14 @@ def occupancy_and_boxl(keep, raw_len, window_ok, box: Box, cfg: NeighborConfig):
 
 
 def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
-                        radius_pad=0.0):
+                        radius_pad=0.0, table=None):
     """Every group's window^3 block of grid cells with its sorted-array
     range and the cull verdict: a cell is kept when it exists (periodic
     images de-aliased, open-boundary cells inside the grid), is non-empty
     and, off the fold path, its AABB at its image position meets the
     group's bbox inflated by 2 max h + radius_pad. Returns (start, lens, keep, shifts,
-    raw_len, window_ok), shaped (NG, W3[, 3])."""
+    raw_len, window_ok), shaped (NG, W3[, 3]). ``table``: the cell-starts
+    table to read the ranges from (``group_cell_ranges``)."""
     n = x.shape[0]
     dev = x.device
     level = cfg.level
@@ -202,11 +206,12 @@ def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
     lookup = torch.where(periodic, wrapped, cells.clamp(0, ncell - 1))
     ckey = encode(lookup[..., 0], lookup[..., 1], lookup[..., 2], bits=level)
 
-    if ncell**3 <= 4 * max(n, 1024):
+    if table is not None or ncell**3 <= 4 * max(n, 1024):
         # one cell-starts table for the whole grid, then gathers
-        cid = sorted_keys >> shift
-        table = torch.searchsorted(
-            cid, torch.arange(ncell**3 + 1, device=dev, dtype=cid.dtype))
+        if table is None:
+            cid = sorted_keys >> shift
+            table = torch.searchsorted(
+                cid, torch.arange(ncell**3 + 1, device=dev, dtype=cid.dtype))
         start = table[ckey]
         end = table[ckey + 1]
     else:
@@ -878,7 +883,7 @@ _MAX_NCOEF = max(KERNEL_NCOEFS)
 
 class EngineArgs(ctypes.Structure):
     """Mirror of ``EngineArgs`` in csrc/pair_ops.cuh (same field order;
-    its layout version, ABI 8, is kernels.build.ABI_VERSION)."""
+    its layout version, ABI 9, is kernels.build.ABI_VERSION)."""
 
     _fields_ = [
         ("starts", ctypes.c_void_p),
@@ -917,6 +922,7 @@ class EngineArgs(ctypes.Structure):
         ("word_off", ctypes.c_void_p),
         ("mask_mode", ctypes.c_int32),
         ("ncoef", ctypes.c_int32),
+        ("nj", ctypes.c_int32),
     ]
 
 
@@ -949,9 +955,14 @@ def _coeff_array(coeffs: tuple):
 def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
                  j_fields: Sequence, fold: bool, group: int, consts: dict):
     """Check the inputs of a CUDA launch and fill its EngineArgs; returns
-    (args, outs, nc), the outputs allocated on the inputs' device."""
+    (args, outs, nc), the outputs allocated on the inputs' device. The
+    i-fields hold the n targets, the j-fields the nj >= n rows of the
+    j-buffer that the runs index: the targets themselves, or under a mesh
+    [own slab | halo rows] (the ``jdata`` form), whose own slab at offset 0
+    keeps each target's row index for the self test."""
     x = i_fields[0]
     dev, n = x.device, x.shape[0]
+    nj = j_fields[0].shape[0] if j_fields else n
     if dev.type != "cuda":
         raise ValueError(f"{spec.name}: the kernel needs CUDA tensors, got {dev}")
     if not 0 < group <= 256 or group % 32:
@@ -960,12 +971,15 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
         raise ValueError(f"{spec.name}: field count mismatch")
     if not spec.cutoff:
         raise ValueError(f"{spec.name}: the engines' kernels run only ops with the SPH cutoff")
+    if nj < n:
+        raise ValueError(f"{spec.name}: the j-buffer holds {nj} rows, fewer than the {n} "
+                         "targets (its own slab comes first)")
     f32 = torch.float32
-    for side, fields in (("i", i_fields), ("j", j_fields)):
+    for side, fields, rows in (("i", i_fields, n), ("j", j_fields, nj)):
         for k, a in enumerate(fields):
-            if a.dtype is not f32 or a.shape != (n,) or a.device != dev \
+            if a.dtype is not f32 or a.shape != (rows,) or a.device != dev \
                     or not a.is_contiguous():
-                check_cuda_f32(f"{spec.name} {side}-field {k}", a, n, dev)
+                check_cuda_f32(f"{spec.name} {side}-field {k}", a, rows, dev)
     ng, w3 = ranges.starts.shape
     if ng != -(-n // group):
         raise ValueError(f"ranges hold {ng} groups, {n} targets need {-(-n // group)}")
@@ -994,6 +1008,7 @@ def _engine_args(spec: OpSpec, ranges: GroupRanges, i_fields: Sequence,
     args.outs[:len(outs)] = [a.data_ptr() for a in outs]
     args.nc = nc.data_ptr() if nc is not None else None
     args.n, args.num_groups, args.w3, args.group = n, ng, w3, group
+    args.nj = nj
     args.fold = int(fold)
     args.sym_j = -1 if spec.sym_j is None else spec.sym_j
     # a device pointer: reading the periods on the host would sync the stream
@@ -1196,9 +1211,17 @@ def momentum_fields(x, y, z, vx, vy, vz, h, m, rho, p, c,
     inv_h3 = inv_h2 / h
     i_f = [x, y, z, h, inv_h2, inv_h3, vx, vy, vz, c, p / (rho * rho), m / rho,
            c11, c12, c13, c22, c23, c33]
-    j_f = [x, y, z, inv_h2, vx, vy, vz, c, m, m / (rho * h * h * h), p / rho,
-           c11, c12, c13, c22, c23, c33]
-    return i_f, j_f
+    return i_f, momentum_j_fields(x, y, z, h, vx, vy, vz, m, rho, p, c,
+                                  c11, c12, c13, c22, c23, c33, inv_h2=inv_h2)
+
+
+def momentum_j_fields(x, y, z, h, vx, vy, vz, m, rho, p, c, c11, c12, c13, c22, c23, c33,
+                      inv_h2=None):
+    """The std momentum op's j-fields from the raw ones, in the order of
+    its ``jdata`` (the JAX package's)."""
+    inv_h2 = 1.0 / (h * h) if inv_h2 is None else inv_h2
+    return [x, y, z, inv_h2, vx, vy, vz, c, m, m / (rho * h * h * h), p / rho,
+            c11, c12, c13, c22, c23, c33]
 
 
 def _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg):
@@ -1208,81 +1231,102 @@ def _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg):
         group_cell_ranges(x, y, z, h, sorted_keys, box, cfg)
 
 
-def _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask):
+def _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask,
+             jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
-    (rho,), nc = run(DENSITY, ranges, *density_fields(x, y, z, h, m), box, cfg, const,
-                     lists, mask=mask)
+    i_f, j_f = density_fields(x, y, z, h, m)
+    (rho,), nc = run(DENSITY, ranges, i_f, _j(j_f, jdata), box, cfg, const, lists, mask=mask)
     return rho, nc, ranges.occupancy
 
 
-def _iad(run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists, mask):
+def _j(j_f, jdata):
+    """An op's j-fields: its own, or the ``jdata`` j-buffers as they are."""
+    return j_f if jdata is None else list(jdata)
+
+
+def _iad(run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists, mask,
+         jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
-    cs, _ = run(IAD, ranges, *iad_fields(x, y, z, h, vol), box, cfg, const, lists,
-                mask=mask)
+    i_f, j_f = iad_fields(x, y, z, h, vol)
+    cs, _ = run(IAD, ranges, i_f, _j(j_f, jdata), box, cfg, const, lists, mask=mask)
     return tuple(cs), ranges.occupancy
 
 
 def _momentum_energy_std(run, x, y, z, vx, vy, vz, h, m, rho, p, c,
                          c11, c12, c13, c22, c23, c33, sorted_keys, box, const,
-                         cfg, ranges, lists, mask):
+                         cfg, ranges, lists, mask, jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = momentum_fields(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33)
+    if jdata is not None:
+        j_f = momentum_j_fields(*jdata)
     (ax, ay, az, du, dt_i), _ = run(momentum_spec(const), ranges, i_f, j_f, box,
                                     cfg, const, lists, mask=mask)
     return ax, ay, az, du, torch.min(dt_i), ranges.occupancy
 
 
+# ``jdata`` (every op): the j-side inputs as j-buffers of their own length,
+# under a mesh [own slab | halo rows] (parallel/exchange.py), which the
+# runs (``ranges``, then required) index; the JAX package's jdata tuples,
+# in its order. The i-side arrays are the targets.
+
+
 def pallas_density(x, y, z, h, m, sorted_keys, box: Box, const,
                    cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                   lists=None, mask: str = "own"):
-    """rho_i = K h_i^-3 (m_i + sum_j m_j W(d^2/h_i^2)) and neighbour counts.
-    Returns (rho, nc, occupancy)."""
-    return _density(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask)
+                   lists=None, mask: str = "own", jdata=None):
+    """rho_i = K h_i^-3 (m_i + sum_j m_j W(d^2/h_i^2)) and neighbour counts;
+    ``jdata`` (x, y, z, m). Returns (rho, nc, occupancy)."""
+    return _density(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask,
+                    jdata)
 
 
 def density_plain(x, y, z, h, m, sorted_keys, box: Box, const,
                   cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                  lists=None, mask: str = "own"):
+                  lists=None, mask: str = "own", jdata=None):
     """Plain PyTorch version of ``pallas_density`` on any device."""
     return _density(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges,
-                    lists, mask)
+                    lists, mask, jdata)
 
 
 def pallas_iad(x, y, z, h, vol, sorted_keys, box: Box, const,
                cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-               lists=None, mask: str = "own"):
-    """IAD tensor components; ``vol`` is m/rho. Returns ((c11..c33), occupancy)."""
-    return _iad(_run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists, mask)
+               lists=None, mask: str = "own", jdata=None):
+    """IAD tensor components; ``vol`` is m/rho; ``jdata`` (x, y, z, vol).
+    Returns ((c11..c33), occupancy)."""
+    return _iad(_run, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges, lists, mask,
+                jdata)
 
 
 def iad_plain(x, y, z, h, vol, sorted_keys, box: Box, const,
               cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-              lists=None, mask: str = "own"):
+              lists=None, mask: str = "own", jdata=None):
     """Plain PyTorch version of ``pallas_iad`` on any device."""
     return _iad(_run_plain, x, y, z, h, vol, sorted_keys, box, const, cfg, ranges,
-                lists, mask)
+                lists, mask, jdata)
 
 
 def pallas_momentum_energy_std(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33, sorted_keys,
                                box: Box, const, cfg: NeighborConfig,
-                               ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
-    """Pressure-gradient accelerations, energy rate and the Courant dt.
-    Returns (ax, ay, az, du, min_dt, occupancy)."""
+                               ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own",
+                               jdata=None):
+    """Pressure-gradient accelerations, energy rate and the Courant dt;
+    ``jdata`` (x, y, z, h, vx, vy, vz, m, rho, p, c, c11..c33). Returns
+    (ax, ay, az, du, min_dt, occupancy)."""
     return _momentum_energy_std(_run, x, y, z, vx, vy, vz, h, m, rho, p, c,
                                 c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                                const, cfg, ranges, lists, mask)
+                                const, cfg, ranges, lists, mask, jdata)
 
 
 def momentum_energy_std_plain(x, y, z, vx, vy, vz, h, m, rho, p, c,
                               c11, c12, c13, c22, c23, c33, sorted_keys,
                               box: Box, const, cfg: NeighborConfig,
-                              ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
+                              ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own",
+                              jdata=None):
     """Plain PyTorch version of ``pallas_momentum_energy_std`` on any device."""
     return _momentum_energy_std(_run_plain, x, y, z, vx, vy, vz, h, m, rho, p, c,
                                 c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                                const, cfg, ranges, lists, mask)
+                                const, cfg, ranges, lists, mask, jdata)
 
 
 def momentum_spec(const) -> OpSpec:
@@ -1348,6 +1392,16 @@ def momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
     return i_f, j_f
 
 
+def momentum_ve_j_fields(x, y, z, h, vx, vy, vz, c, alpha, m, xm, kx, prho,
+                         c11, c12, c13, c22, c23, c33, *gradv):
+    """The VE momentum op's j-fields from the raw ones, in the order of its
+    ``jdata`` (the JAX package's; av_clean appends the six gradv)."""
+    inv_h2 = 1.0 / (h * h)
+    rho = kx * m / xm
+    return [x, y, z, inv_h2, inv_h2 / h, vx, vy, vz, c, alpha, m, xm, xm * xm, torch.log(xm),
+            rho, 1.0 / rho, prho, c11, c12, c13, c22, c23, c33, *gradv]
+
+
 def momentum_ve_spec(const, av_clean: bool) -> OpSpec:
     spec = MOMENTUM_ENERGY_VE_CLEAN if av_clean else MOMENTUM_ENERGY_VE
     if getattr(const, "sym_pairs", True):
@@ -1355,48 +1409,53 @@ def momentum_ve_spec(const, av_clean: bool) -> OpSpec:
     return dataclasses.replace(spec, sym_j=None)
 
 
-def _xmass(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask):
+def _xmass(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask,
+           jdata=None):
     rho0, nc, occ = _density(run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges,
-                             lists, mask)
+                             lists, mask, jdata)
     return m / rho0, nc, occ
 
 
 def _ve_def_gradh(run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges, lists,
-                  mask):
+                  mask, jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
-    (kx, gradh), _ = run(VE_DEF_GRADH, ranges, *ve_def_gradh_fields(x, y, z, h, m, xm),
-                         box, cfg, const, lists, mask=mask)
+    i_f, j_f = ve_def_gradh_fields(x, y, z, h, m, xm)
+    (kx, gradh), _ = run(VE_DEF_GRADH, ranges, i_f, _j(j_f, jdata), box, cfg, const, lists,
+                         mask=mask)
     return (kx, gradh), ranges.occupancy
 
 
 def _iad_divv_curlv(run, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
-                    sorted_keys, box, const, cfg, ranges, with_gradv, lists, mask):
+                    sorted_keys, box, const, cfg, ranges, with_gradv, lists, mask,
+                    jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = divv_curlv_fields(x, y, z, vx, vy, vz, h, kx, xm,
                                  c11, c12, c13, c22, c23, c33, const)
     spec = IAD_DIVV_CURLV_GRADV if with_gradv else IAD_DIVV_CURLV
-    outs, _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists, mask=mask)
+    outs, _ = run(spec, ranges, i_f, _j(j_f, jdata), box, cfg, const, lists, mask=mask)
     return tuple(outs), ranges.occupancy
 
 
 def _av_switches(run, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                  c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
-                 ranges, lists, mask):
+                 ranges, lists, mask, jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = av_switches_fields(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                                   c11, c12, c13, c22, c23, c33, const)
     dt = torch.as_tensor(dt, dtype=torch.float32, device=x.device)
-    (alpha_new,), _ = run(AV_SWITCHES, ranges, i_f, j_f, box, cfg, const, lists, dt=dt,
-                          mask=mask)
+    (alpha_new,), _ = run(AV_SWITCHES, ranges, i_f, _j(j_f, jdata), box, cfg, const, lists,
+                          dt=dt, mask=mask)
     return alpha_new, ranges.occupancy
 
 
 def _momentum_energy_ve(run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                         c11, c12, c13, c22, c23, c33, sorted_keys, box, const, cfg,
-                        nc, gradv, ranges, lists, mask):
+                        nc, gradv, ranges, lists, mask, jdata=None):
     ranges = _with_ranges(ranges, lists, x, y, z, h, sorted_keys, box, cfg)
     i_f, j_f = momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                                   c11, c12, c13, c22, c23, c33, nc=nc, gradv=gradv)
+    if jdata is not None:
+        j_f = momentum_ve_j_fields(*jdata)
     spec = momentum_ve_spec(const, gradv is not None)
     (ax, ay, az, du, dt_i), _ = run(spec, ranges, i_f, j_f, box, cfg, const, lists,
                                     mask=mask)
@@ -1404,97 +1463,102 @@ def _momentum_energy_ve(run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
 
 
 def pallas_xmass(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
-                 ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
+                 ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own", jdata=None):
     """VE volume element xm = m / rho0 over the density op (K2), and the
     neighbour counts. Returns (xm, nc, occupancy)."""
-    return _xmass(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask)
+    return _xmass(_run, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask,
+                  jdata)
 
 
 def xmass_plain(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
-                ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
+                ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own", jdata=None):
     """Plain PyTorch version of ``pallas_xmass`` on any device."""
-    return _xmass(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists, mask)
+    return _xmass(_run_plain, x, y, z, h, m, sorted_keys, box, const, cfg, ranges, lists,
+                  mask, jdata)
 
 
 def pallas_ve_def_gradh(x, y, z, h, m, xm, sorted_keys, box: Box, const,
                         cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                        lists=None, mask: str = "own"):
+                        lists=None, mask: str = "own", jdata=None):
     """VE normalisation kx and the grad-h correction
     (ve_def_gradh_kern.hpp:43-90). Returns ((kx, gradh), occupancy)."""
     return _ve_def_gradh(_run, x, y, z, h, m, xm, sorted_keys, box, const, cfg, ranges,
-                         lists, mask)
+                         lists, mask, jdata)
 
 
 def ve_def_gradh_plain(x, y, z, h, m, xm, sorted_keys, box: Box, const,
                        cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                       lists=None, mask: str = "own"):
+                       lists=None, mask: str = "own", jdata=None):
     """Plain PyTorch version of ``pallas_ve_def_gradh`` on any device."""
     return _ve_def_gradh(_run_plain, x, y, z, h, m, xm, sorted_keys, box, const, cfg,
-                         ranges, lists, mask)
+                         ranges, lists, mask, jdata)
 
 
 def pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
                           sorted_keys, box: Box, const, cfg: NeighborConfig,
                           ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
-                          lists=None, mask: str = "own"):
+                          lists=None, mask: str = "own", jdata=None):
     """Velocity divergence and curl through the IAD gradient
     (divv_curlv_kern.hpp:43-120), with ``with_gradv`` also the symmetrised
     velocity-gradient tensor of av_clean. Returns ((divv, curlv[, dv11,
     dv12, dv13, dv22, dv23, dv33]), occupancy)."""
     return _iad_divv_curlv(_run, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23,
-                           c33, sorted_keys, box, const, cfg, ranges, with_gradv, lists, mask)
+                           c33, sorted_keys, box, const, cfg, ranges, with_gradv, lists, mask,
+                           jdata)
 
 
 def iad_divv_curlv_plain(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
                          sorted_keys, box: Box, const, cfg: NeighborConfig,
                          ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
-                         lists=None, mask: str = "own"):
+                         lists=None, mask: str = "own", jdata=None):
     """Plain PyTorch version of ``pallas_iad_divv_curlv`` on any device."""
     return _iad_divv_curlv(_run_plain, x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13,
                            c22, c23, c33, sorted_keys, box, const, cfg, ranges,
-                           with_gradv, lists, mask)
+                           with_gradv, lists, mask, jdata)
 
 
 def pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                        c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
                        cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                       lists=None, mask: str = "own"):
+                       lists=None, mask: str = "own", jdata=None):
     """Per-particle viscosity switch (av_switches_kern.hpp:43-137) over
     ``dt``, a 0-d float32 tensor on the particles' device (the kernel
     reads it there). Returns (alpha_new, occupancy)."""
     return _av_switches(_run, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                         c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
-                        ranges, lists, mask)
+                        ranges, lists, mask, jdata)
 
 
 def av_switches_plain(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                       c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
                       cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
-                      lists=None, mask: str = "own"):
+                      lists=None, mask: str = "own", jdata=None):
     """Plain PyTorch version of ``pallas_av_switches`` on any device."""
     return _av_switches(_run_plain, x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                         c11, c12, c13, c22, c23, c33, sorted_keys, box, dt, const, cfg,
-                        ranges, lists, mask)
+                        ranges, lists, mask, jdata)
 
 
 def pallas_momentum_energy_ve(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                               c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
                               cfg: NeighborConfig, nc=None, gradv=None,
-                              ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
+                              ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own",
+                              jdata=None):
     """VE momentum and energy (momentum_energy_kern.hpp:65-222): the
     Atwood-ramped volume elements, per-particle alpha viscosity and, with
     ``gradv`` (and ``nc``), the av_clean correction. Returns (ax, ay, az,
     du, min_dt, occupancy)."""
     return _momentum_energy_ve(_run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                                c11, c12, c13, c22, c23, c33, sorted_keys, box, const,
-                               cfg, nc, gradv, ranges, lists, mask)
+                               cfg, nc, gradv, ranges, lists, mask, jdata)
 
 
 def momentum_energy_ve_plain(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                              c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
                              cfg: NeighborConfig, nc=None, gradv=None,
-                             ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own"):
+                             ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own",
+                             jdata=None):
     """Plain PyTorch version of ``pallas_momentum_energy_ve`` on any device."""
     return _momentum_energy_ve(_run_plain, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm,
                                alpha, c11, c12, c13, c22, c23, c33, sorted_keys, box,
-                               const, cfg, nc, gradv, ranges, lists, mask)
+                               const, cfg, nc, gradv, ranges, lists, mask, jdata)

@@ -27,7 +27,10 @@ turb-ve and std-cooling steps on the card against the CPU, the OU draw's
 copy to the card, and a turb-ve restart (kernels/aux_checks.py). Every
 std and VE op of K1 and K6 with wendland-c6 (the 20-coefficient form) and
 with sinc at index 5; K13's one-row form bit for bit; block-time-step
-substeps on the card against the CPU (Sedov std and VE, Evrard)."""
+substeps on the card against the CPU (Sedov std and VE, Evrard). Under
+``-k sharded``: two gloo ranks on the card, K1's jdata form of every std
+and VE op against its plain version and one std and one VE step against
+the one-device step (kernels/sharded_checks.py)."""
 
 import dataclasses
 
@@ -832,3 +835,60 @@ def test_blockdt_substeps_match_cpu(case_name, side, prop):
     _need_card()
     r = checks.blockdt_vs_cpu(case_name, side, 5, dt_bins=3, prop=prop)
     assert sum(r["active"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded steps on the card (-k sharded): two gloo ranks share it
+# ---------------------------------------------------------------------------
+
+
+def _sharded_flat(side=24, seed=24):
+    fields, box, const = state_to_numpy(*init_sedov(side, device="cpu"))
+    return jitter_sedov(fields, side, seed=seed), box, const
+
+
+def test_sharded_jdata_kernels_match_plain(tmp_path):
+    """K1's jdata form (j-fields [own slab | halo rows], runs past the
+    slab) of every std and VE op on two ranks of one card against its
+    plain version, nc exact (kernels/sharded_checks.py)."""
+    _need_card()
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.parallel.mesh import spawn
+
+    cases = [("std", False), ("ve", False), ("ve", True)]
+    out = spawn(sc.rank_jdata, 2, args=(_sharded_flat(), cases, 16), workdir=str(tmp_path),
+                backend="gloo", timeout=600)
+    for res in out:
+        for case in cases:
+            stage = res[case]["stage"]
+            assert stage["jbuf_rows"] > stage["slab_rows"], stage  # halo rows were read
+
+
+def test_sharded_step_two_ranks_on_one_card(tmp_path):
+    """One std and one VE step over two gloo ranks on the card against the
+    one-device step on the card from the same state (tests/test_parallel.py's
+    tolerances, h and the neighbour total exact)."""
+    _need_card()
+    import numpy as np
+
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.parallel.mesh import spawn
+    from sphexa_torch.propagator import _step_hydro_std, _step_hydro_ve
+
+    flat = _sharded_flat()
+    cases = [("std", False, "sparse"), ("ve", False, "windowed")]
+    out = spawn(sc.rank_steps, 2, args=(flat, cases, 16), workdir=str(tmp_path),
+                backend="gloo", timeout=600)
+    state, box, const = state_from_numpy(*flat, device="cuda")
+    cfg = make_propagator_config(state, box, const, cell_target=16)
+    for prop, _, mode in cases:
+        fn = _step_hydro_std if prop == "std" else _step_hydro_ve
+        s, _, d = fn(state, box, cfg)
+        res = [o[(prop, False, mode)] for o in out]
+        x = np.concatenate([r["x"] for r in res])
+        np.testing.assert_allclose(x, s.x.cpu().numpy(), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(np.concatenate([r["temp"] for r in res]),
+                                   s.temp.cpu().numpy(), rtol=1e-4)
+        np.testing.assert_array_equal(np.concatenate([r["h"] for r in res]), s.h.cpu().numpy())
+        assert res[0]["nc_sum"] == float(d["nc_sum"])
+        np.testing.assert_allclose(res[0]["dt"], float(d["dt"]), rtol=1e-5)

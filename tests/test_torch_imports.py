@@ -55,7 +55,9 @@ def test_port_sources_found():
                 ("init", "turbulence.py"), ("physics", "__init__.py"),
                 ("physics", "cooling.py"), ("physics", "primordial.py"),
                 ("init", "kelvin_helmholtz.py"), ("init", "wind_shock.py"),
-                ("init", "isobaric_cube.py"), ("sph", "blockdt.py")):
+                ("init", "isobaric_cube.py"), ("sph", "blockdt.py"),
+                ("parallel", "mesh.py"), ("parallel", "sort.py"), ("parallel", "exchange.py"),
+                ("tree", "decomposition.py"), ("kernels", "sharded_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
