@@ -181,6 +181,20 @@ Phases, each printed as one JSON line:
    version on each rank, with its one-call time, its plain version's and
    its bound, one rank at a time on the card; with two cards or more the
    same over NCCL ranks, one a card;
+23. ``sharded_gravity_path``: VE Evrard 125 (1,022,790 particles, theta
+   0.5) with self-gravity over two gloo ranks sharing the card, the
+   sparse gravity serve, one warm-up and two timed steps, counts reset
+   just before and read just after (K1's VE ops, K12 once and K13 twice
+   per step attempt), the step ms per rank and its split (sort, SPH halo,
+   upsweep, MAC, M2P, near-field prologue, gravity serve, K12), the caps
+   (the essential set's too), the gravity serve's rows and bytes a step;
+   the slabs held to the one-card VE step from the same state (vx rtol
+   1e-2 atol 5e-4, egrav rtol 1e-4); K12's jdata form on each rank's
+   j-buffer against its plain version, timed one rank at a time (one
+   call, back to back, alone) with its bound; ``sharded_ewald``: the
+   sharded Ewald solve on ``checks.periodic_random_case`` against the
+   one-card solve; ``sharded_cooling``: std-cooling on evrard-cooling 125,
+   one warm-up and one step;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -193,7 +207,8 @@ path beside the Evrard path's; every entry's launches on the turb-ve,
 std-cooling, inits and block-dt paths; the wendland-c6 form of each K1
 and K6 op, ``name:wendland-c6``, with its own count's launches on every
 path; K13's one-row form, ``compact_class_lists:row``; K1's jdata form of
-each std and VE op on the sharded paths, ``name:jdata``), the nvidia-smi
+each std and VE op on the sharded paths, ``name:jdata``; K12's jdata form
+on the sharded gravity path, ``gravity_p2p:jdata``), the nvidia-smi
 line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
@@ -2574,6 +2589,280 @@ def sharded_path(smi) -> tuple:
     return first, {f"sharded_{prop}": first[prop]["launches"] for prop in ("std", "ve")}
 
 
+#: the sharded gravity path's timed steps after its warm-up
+SHARDED_GRAV_STEPS = 2
+
+
+def p2p_jdata_bound(lens, n: int, nj: int, group: int) -> dict:
+    """Least device time of one K12 jdata launch: this rank's candidate
+    pairs (the sum of the leaf lengths x the block's targets) x the
+    geometry and body operations; the targets' x, y, z, h (n rows), the
+    j-buffer's five fields (nj rows) and the four outputs once each, the
+    range tables."""
+    import torch
+
+    cand = int(lens.to(torch.int64).sum()) * group
+    nbytes = 4 * n * (4 + 4) + 4 * nj * 5 + 2 * 4 * lens.numel() + 4 * lens.shape[0]
+    return {**_bound(cand * (GRAV_MASK_OPS + GRAV_BODY_OPS), nbytes), "cand_pairs": cand,
+            "j_rows": nj}
+
+
+def sharded_gravity_split(mesh, sim, sync, reps: int = 2) -> dict:
+    """A sharded gravity step's parts on this rank, host wall ms with the
+    card synchronised at each boundary (every rank runs them together;
+    their collectives wait on each other), medians of ``reps``: the box
+    regrow and the distributed sort, the SPH halo stage, the sharded
+    upsweep, and one gravity solve's MAC classification (K13 included),
+    M2P, near-field prologue, gravity serve (localization and the halo's
+    x, y, z, m, h) and K12."""
+    from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.propagator import _force_stage_prologue, _halo_stage
+
+    dev = mesh.device
+
+    def wall(fn):
+        ts, out = [], None
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts), out
+
+    cfg = sim.cfg
+    sort_ms, (ss, box, keys, _) = wall(lambda: _force_stage_prologue(sim.state, sim.box, cfg))
+    halo_ms, _ = wall(lambda: _halo_stage(cfg, ss.n, ss.x, ss.y, ss.z, ss.h, keys, box))
+    meta = cfg.grav_meta
+    up_ms, mps = wall(lambda: gt.compute_multipoles_sharded(mesh, ss.x, ss.y, ss.z, ss.m, keys,
+                                                            sim.gtree, meta))
+    gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
+    win = tuple(min(c, ss.n) for c in cfg.grav_cells) or ss.n
+    names = ("mac", "m2p", "p2p_prologue", "serve", "p2p")
+    per = {k: [] for k in names}
+    for _ in range(reps):
+        stamps = []
+
+        def mark(name):
+            sync(dev)
+            stamps.append((name, time.perf_counter()))
+
+        gt.compute_gravity(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, sim.gtree, meta, gcfg,
+                           multipoles=mps, shard=(mesh, win), timer=mark)
+        for (_, t0), (name, t1) in zip(stamps, stamps[1:]):
+            per[name].append(1e3 * (t1 - t0))
+    split = {k: statistics.median(v) for k, v in per.items()}
+    return {"sort": sort_ms, "sph_halo_stage": halo_ms, "upsweep": up_ms,
+            "mac": split["mac"], "m2p": split["m2p"], "p2p_prologue": split["p2p_prologue"],
+            "gravity_serve": split["serve"], "k12": split["p2p"]}
+
+
+def sharded_gravity_rank(mesh, side: int, steps: int) -> dict:
+    """One rank of the ``sharded_gravity_path`` phase: VE Evrard ``side``
+    with self-gravity through Simulation(num_devices=P) on this rank's
+    card (the sparse gravity serve), one warm-up and ``steps`` steps, the
+    launch counts reset just before and read just after; the slabs
+    gathered (for the check only) before the last step and after it, rank
+    0 holding the result to the one-card VE step from the gathered state;
+    the step's split; K12's jdata form on this rank's j-buffer against its
+    plain version, then timed one rank at a time; the sharded Ewald solve
+    against the one-card one (``checks.periodic_random_case``); std-cooling
+    on evrard-cooling ``side``, one warm-up and one step."""
+    import torch
+
+    from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.init import init_evrard, make_initializer
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.parallel.mesh import all_gather
+    from sphexa_torch.propagator import _force_stage_prologue, _step_hydro_ve
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+
+    dev, P = mesh.device, mesh.size
+    out = {"rank": mesh.rank, "size": P, "backend": mesh.backend, "device": str(dev)}
+
+    def sync(d):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+    def barrier():
+        all_gather(mesh, torch.zeros(1, device=dev))
+
+    def trimmed(state):
+        n = state.n // P * P
+        return dataclasses.replace(state, **{f.name: getattr(state, f.name)[:n]
+                                             for f in dataclasses.fields(state)
+                                             if getattr(state, f.name).dim() == 1})
+
+    t_path = time.perf_counter()
+    state, box, const = init_evrard(side, device=dev)
+    state = trimmed(state)
+    sim = Simulation(state, box, const, prop="ve", device=dev, num_devices=P,
+                     obs_spec=ObservableSpec())
+    r = {"configure_s": time.perf_counter() - t_path, "grav_configure_s":
+         sim.grav_configure_seconds}
+    del state
+    sim.step()  # warm-up
+    pe.reset_launches()
+    replays0 = sim.replays
+    ms, diags = [], []
+    for i in range(steps):
+        if i == steps - 1:
+            prev, prev_box = sc.gather_state(mesh, sim.state), sim.box
+        sync(dev)
+        t0 = time.perf_counter()
+        diags.append(sim.step())
+        sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(pe.LAUNCHES)
+    attempts = steps + sim.replays - replays0
+    new = sc.gather_state(mesh, sim.state)
+    d = diags[-1]
+    gkeys = ("m2p_max", "p2p_max", "leaf_occ", "c_max", "let_max", "compact_width",
+             "mac_work_ratio", "egrav")
+    r.update({"step_ms": ms, "launches": launches, "attempts": attempts,
+              "n": new.n, "slab": sim.state.n, "halo": sim.halo_info,
+              "grav_halo": sim.grav_halo_info,
+              "gravity": dataclasses.asdict(sim.cfg.gravity),
+              "tree": {"leaves": sim.cfg.grav_meta.num_leaves,
+                       "nodes": sim.cfg.grav_meta.num_nodes},
+              "gravity_diags": [{k: dd[k] for k in gkeys} for dd in diags],
+              "gshard_rows": [int(d[f"gshard_rows[{k}]"]) for k in range(P)],
+              "gshard_occ": [d[f"gshard_occ[{k}]"] for k in range(P)],
+              "shard_rows": [int(d[f"shard_rows[{k}]"]) for k in range(P)],
+              "dt": d["dt"], "energy_drift": sim.energy_drift,
+              "replays": sim.replays, "reconfigures": sim.reconfigures})
+    g = sim.cfg.gravity
+    for dd in diags:
+        if dd["m2p_max"] > g.m2p_cap or dd["p2p_max"] > g.p2p_cap or \
+                not 0 < dd["let_max"] <= g.let_cap:
+            raise AssertionError(f"sharded gravity: a high-water mark past its cap {dd}")
+    if mesh.rank == 0:
+        # the one-card VE step from the same (gathered) state
+        cfg1 = dataclasses.replace(sim.cfg, mesh=None, halo_cells=(), halo_window=0,
+                                   grav_cells=())
+        s1, _, d1 = _step_hydro_ve(prev, prev_box, cfg1, sim.gtree)
+        vs = {"vx_max_abs_err": float((new.vx - s1.vx).abs().max()),
+              "vx_scale": float(s1.vx.abs().max()),
+              "egrav_rel_err": abs(d["egrav"] - float(d1["egrav"])) / abs(float(d1["egrav"])),
+              "dt_rel_err": abs(d["dt"] - float(d1["dt"])) / float(d1["dt"]),
+              "x_max_abs_err": float((new.x - s1.x).abs().max()),
+              "nc_sum": [d["nc_sum"], float(d1["nc_sum"])]}
+        r["vs_one_card"] = vs
+        torch.testing.assert_close(new.vx, s1.vx, rtol=1e-2, atol=5e-4)
+        if vs["egrav_rel_err"] > 1e-4:
+            raise AssertionError(f"sharded gravity: against the one-card step {vs}")
+        del s1
+    del prev, new
+    barrier()
+    r["split_ms"] = sharded_gravity_split(mesh, sim, sync)
+
+    # K12's jdata form on this rank's j-buffer at the path's state
+    ss, sbox, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    gcfg = dataclasses.replace(g, G=const.g)
+    xyzmh = (ss.x, ss.y, ss.z, ss.m, ss.h)
+    win = tuple(min(c, ss.n) for c in sim.cfg.grav_cells) or ss.n
+    starts, lens, jd = sc.p2p_jdata_case(mesh, xyzmh, keys, sbox, sim.gtree, sim.cfg.grav_meta,
+                                         gcfg, win)
+    groups = torch.linspace(0, lens.shape[0] - 1, 256, device=dev).round().long()
+    chk = sc.p2p_jdata_vs_plain(f"rank {mesh.rank} K12 jdata", xyzmh, gcfg, starts, lens, jd,
+                                groups=groups)
+    z3 = torch.zeros(3, device=dev)
+    args = (*xyzmh, z3, False, gcfg, starts, lens)
+    for turn in range(P):
+        if turn == mesh.rank:
+            chk["ms"] = cuda_time_ms(lambda: gt._pallas_p2p(*args, jdata=jd), reps=7)
+            chk["batched_ms"] = cuda_time_batched_ms(lambda: gt._pallas_p2p(*args, jdata=jd))
+            chk["kernel_ms"] = launch_loop_ms(gt.p2p_launcher(*args, jdata=jd)[0], 20)
+            chk["plain_ms"] = cuda_time_ms(lambda: gt._pallas_p2p_plain(*args, jdata=jd),
+                                           reps=1)
+            chk["bound"] = p2p_jdata_bound(lens, ss.n, jd[0].shape[0], gcfg.target_block)
+            chk["near_field_load"] = near_field_load(lens, gcfg.target_block)
+        barrier()  # the card to one rank at a time
+    r["k12_jdata"] = chk
+    r["seconds"] = time.perf_counter() - t_path
+    out["ve"] = r
+    del sim, ss, xyzmh, jd, starts, lens, keys, args
+    torch.cuda.empty_cache()
+
+    # Ewald on a mesh
+    t0 = time.perf_counter()
+    out["ewald"] = {**sc.ewald_mesh_vs_one_device(mesh), "seconds": time.perf_counter() - t0}
+
+    # std-cooling on evrard-cooling, self-gravity
+    t0 = time.perf_counter()
+    cstate, cbox, cconst = make_initializer("evrard-cooling")(side, device=dev)
+    csim = Simulation(trimmed(cstate), cbox, cconst, prop="std-cooling", device=dev,
+                      num_devices=P, obs_spec=ObservableSpec())
+    del cstate
+    csim.step()  # warm-up
+    pe.reset_launches()
+    replays0 = csim.replays
+    sync(dev)
+    t1 = time.perf_counter()
+    cd = csim.step()
+    sync(dev)
+    c_ms = 1e3 * (time.perf_counter() - t1)
+    out["cooling"] = {"launches": dict(pe.LAUNCHES), "attempts": 1 + csim.replays - replays0,
+                      "step_ms": c_ms, "dt": cd["dt"], "dt_cool": cd["dt_cool"],
+                      "egrav": cd["egrav"], "n": csim.state.n * P,
+                      "grav_halo": csim.grav_halo_info,
+                      "finite": bool(torch.isfinite(csim.state.temp).all()
+                                     and torch.isfinite(csim.chem.hi).all()),
+                      "seconds": time.perf_counter() - t0}
+    if not out["cooling"]["finite"]:
+        raise AssertionError("sharded std-cooling: non-finite temperature or chemistry")
+    return out
+
+
+def sharded_gravity_path(smi) -> tuple:
+    """Phase ``sharded_gravity_path``: VE Evrard 125 with self-gravity over
+    two gloo ranks sharing this card (``sharded_gravity_rank``), their
+    launches held to the contract (each K1 op once, K12 once and K13
+    twice per step attempt), then the sharded Ewald solve and std-cooling
+    on evrard-cooling 125. Returns (rank 0's results, its launches)."""
+    import torch
+
+    from sphexa_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as wd:
+        res = spawn(sharded_gravity_rank, 2, args=(125, SHARDED_GRAV_STEPS), workdir=wd,
+                    backend="gloo", timeout=900)
+    ve_ops = SHARDED_OPS["ve"] + ("gravity_p2p",)
+    for rk in res:
+        check_launches(f"sharded gravity VE rank {rk['rank']}", rk["ve"]["launches"],
+                       rk["ve"]["attempts"], ve_ops, compactions=2)
+        check_launches(f"sharded std-cooling rank {rk['rank']}", rk["cooling"]["launches"],
+                       rk["cooling"]["attempts"], STD_OPS + ("gravity_p2p",), compactions=2)
+    r0 = res[0]["ve"]
+    emit({"phase": "sharded_gravity_path", "card": smi, "backend": "gloo", "ranks": 2,
+          "prop": "ve", "case": "evrard", "side": 125, "n": r0["n"], "slab": r0["slab"],
+          "step_ms": {rk["rank"]: rk["ve"]["step_ms"] for rk in res},
+          "configure_s": [rk["ve"]["configure_s"] for rk in res],
+          "grav_configure_s": [rk["ve"]["grav_configure_s"] for rk in res],
+          "split_ms": {rk["rank"]: rk["ve"]["split_ms"] for rk in res},
+          "gravity": r0["gravity"], "tree": r0["tree"], "gravity_diags": r0["gravity_diags"],
+          "grav_halo": r0["grav_halo"], "gshard_rows": r0["gshard_rows"],
+          "gshard_occ": r0["gshard_occ"], "halo": r0["halo"], "shard_rows": r0["shard_rows"],
+          "grav_bytes_per_step": r0["grav_halo"]["bytes_per_step"],
+          "sph_bytes_per_step": r0["halo"]["bytes_per_step"],
+          "vs_one_card": r0["vs_one_card"], "replays": r0["replays"],
+          "launches_per_step": {op: r0["launches"][op] / r0["attempts"]
+                                for op in ve_ops + ("compact_class_lists",)},
+          "k12_jdata": {rk["rank"]: rk["ve"]["k12_jdata"] for rk in res},
+          "seconds": [rk["ve"]["seconds"] for rk in res]})
+    emit({"phase": "sharded_ewald", "card": smi, "ranks": 2,
+          "results": {rk["rank"]: rk["ewald"] for rk in res}})
+    emit({"phase": "sharded_cooling", "card": smi, "ranks": 2, "case": "evrard-cooling",
+          "side": 125, "results": {rk["rank"]: rk["cooling"] for rk in res}})
+    emit({"phase": "sharded_gravity_done", "seconds": time.perf_counter() - t0})
+    return res[0], {"sharded_gravity_ve": r0["launches"],
+                    "sharded_std_cooling": res[0]["cooling"]["launches"]}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2999,8 +3288,10 @@ def main() -> int:
     fam = kernel_family(std_list, std_stream, ve_cases)
     wend_launches = wendland_paths(spec, smi)
     bdt_launches, row = blockdt_path(spec, smi)
-    # 22. the std and VE steps over ranks (sharded_path)
+    # 22. the std and VE steps over ranks (sharded_path) and 23. self-gravity
+    # and std-cooling over ranks (sharded_gravity_path)
     shard, shard_launches = sharded_path(smi)
+    gshard, gshard_launches = sharded_gravity_path(smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -3133,6 +3424,17 @@ def main() -> int:
                 "plain_ms": jd[op]["plain_ms"], "bound_ms": jd["bounds"][op]["bound_ms"],
                 "bound_by": jd["bounds"][op]["bound_by"], "library_ms": None,
                 "launches_by_path": {p: la.get(op, 0) for p, la in shard_launches.items()}})
+    # K12's jdata form on the sharded gravity path (rank 0 of the two gloo
+    # ranks on this card): at the path's state, its launches there
+    kj = gshard["ve"]["k12_jdata"]
+    kernels.append({
+        "name": "gravity_p2p:jdata", "route": "cuda", "source": SOURCE["gravity_p2p"],
+        "replaces": TPU_KERNEL["gravity_p2p"],
+        "launches": gshard["ve"]["launches"]["gravity_p2p"],
+        "max_abs_err": kj["max_abs_err"], "ms": kj["ms"], "plain_ms": kj["plain_ms"],
+        "bound_ms": kj["bound"]["bound_ms"], "bound_by": kj["bound"]["bound_by"],
+        "library_ms": None,
+        "launches_by_path": {p: la.get("gravity_p2p", 0) for p, la in gshard_launches.items()}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(f"# chip_smoke total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)

@@ -19,6 +19,7 @@
     python -m sphexa_torch.app.main --init sedov -n 12 -s 4 -w 2 -o out
     python -m sphexa_torch.app.main --init out/dump_sedov.h5:0 -s 6 -o out
     python -m sphexa_torch.app.main --init sedov -n 12 -s 3 --devices 2 --device cpu
+    python -m sphexa_torch.app.main --init evrard -n 16 -s 3 --prop ve --devices 2 --device cpu
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --devices 4 [--halo-mode windowed]
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
@@ -72,8 +73,10 @@ driver's events and the memory events), and on an abnormal end
 ``blackbox.json`` (the flight recorder). Runs on the CUDA device unless
 ``--device cpu`` is given, and raises without one.
 
-``--devices N`` (std and ve; the others raise) runs N ranks, each a
-process of its own holding one Hilbert-key slab (sphexa_torch/parallel):
+``--devices N`` (std, ve and std-cooling, with self-gravity too: the
+evrard inits, ``--G`` on a periodic box; turb-ve, nbody and ``--dt-bins``
+raise) runs N ranks, each a process of its own holding one Hilbert-key
+slab (sphexa_torch/parallel):
 ``--device cpu`` runs them on gloo, otherwise NCCL puts rank r on card r
 and refuses fewer cards than ranks. A count that does not divide by N
 loses its trailing rows. ``--halo-mode`` picks the halo exchange (sparse
@@ -465,9 +468,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         last_dump_iteration[0] = it
         if ranks is not None:
             # one part file a rank, its slab's conserved fields
-            step = write_snapshot_sharded(dump_path, sim.state, sim.box, sim.const,
-                                          iteration=it, case=case_name,
-                                          case_settings=case_overrides, mesh=sim.mesh)
+            step = write_snapshot_sharded(
+                dump_path, sim.state, sim.box, sim.const, iteration=it, case=case_name,
+                case_settings=case_overrides, mesh=sim.mesh,
+                extra_fields=None if sim.chem is None else chemistry_to_fields(sim.chem))
             log(f"# wrote Step#{step} -> {ranks} parts of {dump_path}")
             return
         extra = compute_output_fields(sim.state, sim.box, sim.cfg,

@@ -4,10 +4,14 @@
 // (group_pair_engine with the near-field pair_body and no distance
 // cutoff). Every target of a block of blk SFC-consecutive particles sums
 // the softened gravity of every particle of its block's near-field leaves,
-// given as (NB, P) leaf ranges (start, length) of the sorted arrays; slots
-// past a block's list have length 0. The targets are shifted by `shift`
-// (an image offset, zero for an open box), and the pair with the target's
-// own row counts only with allow_self. Per pair (rx = x_i - x_j): the
+// given as (NB, P) leaf ranges (start, length) of the j-buffer; slots past
+// a block's list have length 0. The j-buffer (xj, yj, zj, mj, hj) holds nj
+// >= n rows: the targets' own n rows on one device, or a rank's [own slab
+// | halo rows] under a mesh (the JAX function's jdata form), the own rows
+// at offset 0 in both, so a target's row is its own candidate's row. The
+// targets are shifted by `shift` (an image offset, zero for an open box),
+// and the pair with the target's own row counts only with allow_self.
+// Per pair (rx = x_i - x_j): the
 // distance clamped to h_i + h_j and floored at 1e-15,
 // w = m_j / max(d^2, (h_i + h_j)^2, 1e-30)^(3/2), a -= r w, phi -= w d^2.
 //
@@ -77,13 +81,14 @@ struct Stage {
 };
 
 struct P2PArgs {
-    const float *x, *y, *z, *m, *h;
+    const float *x, *y, *z, *h;           // (n,) the targets
+    const float *xj, *yj, *zj, *mj, *hj;  // (nj,) the j-buffer the ranges index
     const float* shift;     // (3,) device: added to the targets
-    const int32_t* starts;  // (nb, P) leaf range starts
+    const int32_t* starts;  // (nb, P) leaf range starts (j-buffer rows)
     const int32_t* lens;    // (nb, P) leaf range lengths, 0 past a block's list
     const int32_t* order;   // (nb,) the block each CTA runs
     float *ax, *ay, *az, *phi;
-    int32_t n, nb, P, blk, allow_self;
+    int32_t n, nj, nb, P, blk, allow_self;
 };
 
 // rsqrt without the denormal path: its argument is at least 1e-30, a
@@ -188,11 +193,11 @@ __global__ void __launch_bounds__(MAX_BLK / R, min_ctas<R>())
             const int take = min(TILE - fill, len - coff);
             for (int pos = first_own(fill, t, T); pos < fill + take; pos += T) {
                 const int c = start + coff + (pos - fill);
-                cp_async4(&sg.pm[pos].x, p.x + c);
-                cp_async4(&sg.pm[pos].y, p.y + c);
-                cp_async4(&sg.pm[pos].z, p.z + c);
-                cp_async4(&sg.pm[pos].w, p.m + c);
-                cp_async4(&sg.h[pos], p.h + c);
+                cp_async4(&sg.pm[pos].x, p.xj + c);
+                cp_async4(&sg.pm[pos].y, p.yj + c);
+                cp_async4(&sg.pm[pos].z, p.zj + c);
+                cp_async4(&sg.pm[pos].w, p.mj + c);
+                cp_async4(&sg.h[pos], p.hj + c);
                 sg.idx[pos] = c;
                 own |= static_cast<unsigned>(c - first) < static_cast<unsigned>(p.blk);
             }
@@ -267,24 +272,27 @@ int threads_for(int blk, int r) {
 
 extern "C" {
 
-// x, y, z, m, h (n,) float32; shift (3,) float32; starts, lens (nb, P)
-// int32; order (nb,) int32, a permutation of the blocks; ax, ay, az, phi
-// (n,) float32: all contiguous on the current device; launched on
+// x, y, z, h (n,) float32, the targets; xj, yj, zj, mj, hj (nj,) float32,
+// nj >= n, the j-buffer whose rows the ranges index (the targets' own
+// arrays with nj = n on one device); shift (3,) float32; starts, lens (nb,
+// P) int32; order (nb,) int32, a permutation of the blocks; ax, ay, az,
+// phi (n,) float32: all contiguous on the current device; launched on
 // `stream`. nb = ceil(n / blk) blocks, r targets a thread (2 or 4; blk / r
 // a multiple of 32, at most 256).
-int launch_gravity_p2p(const float* x, const float* y, const float* z, const float* m,
-                       const float* h, const float* shift, int allow_self,
+int launch_gravity_p2p(const float* x, const float* y, const float* z, const float* h,
+                       const float* xj, const float* yj, const float* zj, const float* mj,
+                       const float* hj, int nj, const float* shift, int allow_self,
                        const int32_t* starts, const int32_t* lens, const int32_t* order,
                        int n, int nb, int P, int blk, int r, float* ax, float* ay, float* az,
                        float* phi, void* stream) {
     const Kernel kern = kernel_for(r);
     const int threads = threads_for(blk, r);
-    if (kern == nullptr || threads == 0 || order == nullptr || P <= 0 ||
+    if (kern == nullptr || threads == 0 || order == nullptr || P <= 0 || nj < n ||
         nb != (n + blk - 1) / blk)
         return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0) return 0;
-    const P2PArgs a{x, y, z, m, h, shift, starts, lens, order, ax, ay, az, phi,
-                    n, nb, P, blk, allow_self};
+    const P2PArgs a{x,      y,     z,  h,  xj,  yj, zj, mj, hj, shift, starts, lens,
+                    order,  ax,    ay, az, phi, n,  nj, nb, P,  blk,   allow_self};
     kern<<<nb, threads, RING_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
     return static_cast<int>(cudaGetLastError());
 }

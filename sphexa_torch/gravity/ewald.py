@@ -28,14 +28,14 @@ import numpy as np
 import torch
 
 from sphexa_torch.gravity.traversal import (
-    CHUNK_ELEMS, GravityConfig, compute_gravity, compute_multipoles,
+    CHUNK_ELEMS, GravityConfig, compute_gravity, compute_multipoles, compute_multipoles_sharded,
 )
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.sfc.box import Box
 
 #: the solver diagnostics an Ewald solve folds by max over its replica
 #: passes (the high-water marks the driver holds against the caps)
-EWALD_DIAG_KEYS = ("m2p_max", "p2p_max", "leaf_occ", "c_max", "compact_width")
+EWALD_DIAG_KEYS = ("m2p_max", "p2p_max", "leaf_occ", "c_max", "let_max", "compact_width")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +208,7 @@ def _k_space_correction(dr, mass, q, L, cfg: EwaldConfig):
 def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                           meta: GravityTreeMeta, cfg: GravityConfig, ecfg: EwaldConfig,
                           multipoles=None, timer: Optional[Callable[[str], None]] = None,
+                          shard=None,
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                      Dict[str, torch.Tensor]]:
     """Periodic-box gravity: the replica near field plus the Ewald
@@ -219,7 +220,15 @@ def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTre
     and potentials are summed in the shift table's order, their
     diagnostics (``EWALD_DIAG_KEYS``) folded by max. ``timer(phase)``:
     ``compute_gravity``'s phases of every pass, then "real_space" and
-    "k_space"."""
+    "k_space".
+
+    ``shard`` = (mesh, win) (``compute_gravity``'s): x .. h are this rank's
+    slab, the upsweep is ``compute_multipoles_sharded``, every pass runs
+    its own serve of halo rows (the sparse serve's caps cover the union of
+    the shifted slabs' needs, ``parallel.sizing.device_gravity_halo``),
+    and the corrections are row-local (the root expansion is replicated).
+    The diagnostics then also fold ``halo_rows`` and ``halo_occ`` (sparse)
+    by max over the passes; egrav and the diagnostics are this rank's."""
     if cfg.multipole_order > 0:
         raise NotImplementedError(
             "spherical multipoles are open-boundary only; the Ewald path keeps the "
@@ -229,7 +238,9 @@ def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTre
     n = x.shape[0]
     L = box.lengths[0]
     if multipoles is None:
-        multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta)
+        multipoles = (compute_multipoles(x, y, z, m, sorted_keys, tree, meta) if shard is None
+                      else compute_multipoles_sharded(shard[0], x, y, z, m, sorted_keys, tree,
+                                                      meta))
     node_mass, node_com, node_q, _ = multipoles
     mark("multipoles")
 
@@ -238,12 +249,16 @@ def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTre
     cfg1 = dataclasses.replace(cfg, G=1.0)
     ax, ay, az, phi = (torch.zeros(n, dtype=x.dtype, device=dev) for _ in range(4))
     diag = {k: torch.zeros((), dtype=torch.int32, device=dev) for k in EWALD_DIAG_KEYS}
+    if shard is not None and isinstance(shard[1], tuple):
+        # the sparse serve's exchange metrics, the worst pass's
+        diag["halo_rows"] = torch.zeros((), dtype=torch.int64, device=dev)
+        diag["halo_occ"] = torch.zeros((), dtype=torch.float32, device=dev)
     for shell, shift in zip(shells, shifts):
         dax, day, daz, dphi, d = compute_gravity(
             x, y, z, m, h, sorted_keys, box, tree, meta, cfg1, multipoles=multipoles,
-            timer=timer, shift=shift, allow_self=bool(shell.any()), with_phi=True)
+            timer=timer, shift=shift, allow_self=bool(shell.any()), with_phi=True, shard=shard)
         ax, ay, az, phi = ax + dax, ay + day, az + daz, phi + dphi
-        diag = {k: torch.maximum(diag[k], d[k]) for k in diag}
+        diag = {k: torch.maximum(diag[k], d[k].to(diag[k].dtype)) for k in diag}
 
     dr = torch.stack([x, y, z], dim=1) - node_com[0][None, :]
     u_r, a_r = _real_space_correction(dr, node_mass[0], node_q[0], L, ecfg)

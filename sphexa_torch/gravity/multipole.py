@@ -26,16 +26,17 @@ def edge_segment_sum(w: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return (c[:, edges[1:]] - c[:, edges[:-1]]).t().to(w.dtype)
 
 
-def p2m_leaf(x, y, z, m, pleaf, leaf_com, edges) -> torch.Tensor:
+def p2m_leaf(x, y, z, m, pleaf, leaf_com, edges, segment_sum=None) -> torch.Tensor:
     """Trace-free quadrupole of every leaf about its centre of mass
-    (cartesian_qpole.hpp:89): raw second moments by segment sums, then
-    the trace removal. Returns (L, 7)."""
+    (cartesian_qpole.hpp:89): raw second moments by segment sums
+    (``segment_sum``, default ``edge_segment_sum``), then the trace
+    removal. Returns (L, 7)."""
     dx = x - leaf_com[pleaf, 0]
     dy = y - leaf_com[pleaf, 1]
     dz = z - leaf_com[pleaf, 2]
     raw = torch.stack([m * dx * dx, m * dx * dy, m * dx * dz,
                        m * dy * dy, m * dy * dz, m * dz * dz], dim=1)
-    return _remove_trace(edge_segment_sum(raw, edges))
+    return _remove_trace((segment_sum or edge_segment_sum)(raw, edges))
 
 
 def _remove_trace(q: torch.Tensor) -> torch.Tensor:

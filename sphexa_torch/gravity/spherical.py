@@ -27,6 +27,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from sphexa_torch.gravity import multipole as mp
+from sphexa_torch.gravity.tree import level_add_
 
 
 def ncoef(p: int) -> int:
@@ -82,18 +83,20 @@ def irregular_harmonics(x, y, z, p: int) -> List[torch.Tensor]:
     return _flat(S, p)
 
 
-def _segment_sum_complex(w: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    """``multipole.edge_segment_sum`` of a complex (n, k) tensor, its real
-    and imaginary parts summed side by side."""
+def _segment_sum_complex(w: torch.Tensor, edges: torch.Tensor,
+                         segment_sum=None) -> torch.Tensor:
+    """``multipole.edge_segment_sum`` (or ``segment_sum``) of a complex
+    (n, k) tensor, its real and imaginary parts summed side by side."""
     n, k = w.shape
-    s = mp.edge_segment_sum(torch.view_as_real(w).reshape(n, 2 * k), edges)
+    s = (segment_sum or mp.edge_segment_sum)(torch.view_as_real(w).reshape(n, 2 * k), edges)
     return torch.view_as_complex(s.reshape(-1, k, 2).contiguous())
 
 
-def p2m(x, y, z, m_part, center, edges, p: int, pleaf=None) -> torch.Tensor:
+def p2m(x, y, z, m_part, center, edges, p: int, pleaf=None, segment_sum=None) -> torch.Tensor:
     """Leaf multipoles M_n^m = sum_j m_j R_n^m(x_j - c) over the contiguous
     leaf row ranges ``edges`` (L+1,); ``pleaf`` the particle -> leaf map
-    where the caller has it. Returns (L, ncoef(p)) complex."""
+    where the caller has it; ``segment_sum`` the leaves' sums (default
+    ``multipole.edge_segment_sum``). Returns (L, ncoef(p)) complex."""
     nl = center.shape[0]
     if pleaf is None:
         rows = torch.arange(x.shape[0], dtype=edges.dtype, device=x.device)
@@ -103,7 +106,7 @@ def p2m(x, y, z, m_part, center, edges, p: int, pleaf=None) -> torch.Tensor:
     dz = z - center[pleaf, 2]
     R = regular_harmonics(dx, dy, dz, p)
     w = torch.stack([m_part * Rk for Rk in R], dim=1)  # (n, NC) complex
-    return _segment_sum_complex(w, edges)
+    return _segment_sum_complex(w, edges, segment_sum)
 
 
 def _get(coeffs, idx, n: int, m: int):
@@ -183,8 +186,10 @@ def upsweep(leaf_coeffs, node_com, tree, meta, p: int) -> torch.Tensor:
                          device=leaf_coeffs.device)
     node_c[tree.node_of_leaf] = leaf_coeffs
     acc = torch.view_as_real(node_c)
-    for s, e in reversed(meta.level_ranges[1:]):
+    lr = meta.level_ranges
+    for lv in range(len(lr) - 1, 0, -1):
+        s, e = lr[lv]
         par = tree.parent[s:e]
         d = node_com[s:e] - node_com[par]  # child - parent
-        acc.index_add_(0, par, torch.view_as_real(m2m(node_c[s:e], d, p)))
+        level_add_(acc, par, torch.view_as_real(m2m(node_c[s:e], d, p)), lr[lv - 1])
     return node_c

@@ -29,7 +29,18 @@ the classification, M2P and the near field then see the targets at
 ``x + shift``, and the near field pairs a target with its own image only
 with ``allow_self``.
 
-Not ported: the LET essential set and sharded solves.
+Across ranks (``shard=``, parallel/mesh.py; the JAX package's shard_map
+solve) each rank's targets are its slab of the sorted particles: the
+multipoles come from ``compute_multipoles_sharded`` (each rank's partial
+leaf sums over its slab, summed over the ranks in rank order, the
+upsweep replicated; node arrays bit-identical on every rank), blocks
+classify against the rank's essential set (the LET: the nodes whose
+parent the slab's bbox does not accept, ``GravityConfig.let_cap``), and
+the near field's leaf ranges, global rows, are localized into a j-buffer
+[own slab | halo rows] served by the halo exchanges of
+parallel/exchange.py (``edges`` is the cell table of the MAC-sized
+sparse serve), which K12 reads in its jdata form; runs outside the
+served rows flip the p2p occupancy to the cap + 1 sentinel.
 """
 
 import dataclasses
@@ -41,7 +52,7 @@ import torch
 from sphexa_torch.gravity import multipole as mp
 from sphexa_torch.gravity import pallas_compact as pcmp
 from sphexa_torch.gravity import spherical as sp
-from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
+from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta, level_add_
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sph import pair_engine as pe
 
@@ -83,6 +94,9 @@ class GravityConfig:
     multipole_order: int = 0
     # the sampled m2p cap's own margin (estimate_gravity_caps)
     m2p_cap_margin: float = M2P_CAP_MARGIN
+    # the per-rank essential-set cap of the sharded solves (0: off): blocks
+    # classify against the nodes the slab's bbox does not prune
+    let_cap: int = 0
 
 
 def gravity_tuning(n: int) -> dict:
@@ -113,23 +127,59 @@ def _block_rows(n: int, blk: int, nb: Optional[int] = None, device=None) -> torc
     return torch.clamp(idx, max=n - 1).reshape(nb, blk)
 
 
+def _global_block_bboxes(mesh, x, y, z, blk: int):
+    """``_block_bboxes`` of the global sorted array from every rank's slab
+    (rank k holds rows [k S, (k + 1) S)): each rank's per-block extrema
+    of its own rows (+-inf elsewhere), all_gathered and reduced. The same
+    (nb, 3) pair on every rank; O(N / blk) travels."""
+    from sphexa_torch.parallel.mesh import all_gather
+
+    S = x.shape[0]
+    n = S * mesh.size
+    nb = -(-n // blk)
+    dev = x.device
+    blocks = (mesh.rank * S + torch.arange(S, device=dev)) // blk
+    pos = torch.stack([x, y, z], dim=1)
+    lo = torch.full((nb, 3), float("inf"), dtype=x.dtype, device=dev)
+    hi = torch.full((nb, 3), float("-inf"), dtype=x.dtype, device=dev)
+    idx = blocks[:, None].expand(-1, 3)
+    lo = lo.scatter_reduce(0, idx, pos, "amin")
+    hi = hi.scatter_reduce(0, idx, pos, "amax")
+    g = all_gather(mesh, torch.cat([lo, hi], dim=1))  # (P, nb, 6)
+    return g[..., :3].amin(dim=0), g[..., 3:].amax(dim=0)
+
+
 def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
                           meta: GravityTreeMeta, cfg: GravityConfig,
                           sample_blocks: int = 256, margin: float = 1.5,
-                          quantum: int = 32, multipoles=None) -> GravityConfig:
+                          quantum: int = 32, multipoles=None, let_shards: int = 0,
+                          mesh=None) -> GravityConfig:
     """Size the interaction-list caps from the current distribution: the
     MAC classification of a sample of target blocks (numpy generator
     seed 0, as the JAX package samples) in host numpy, padded maxima.
     Only O(tree) and O(N / target_block) arrays reach the host. The
     overflow diagnostics of ``compute_gravity`` stay the guard.
-    ``multipoles``: a precomputed ``compute_multipoles`` result."""
+    ``multipoles``: a precomputed ``compute_multipoles`` result.
+    ``let_shards`` P > 1: also the essential-set cap ``let_cap`` of P
+    ranks (the most candidates any rank's slab keeps, its slab taken as
+    the blocks [k nb / P, (k + 1) nb / P)). ``mesh``: the inputs are this
+    rank's slab of the sorted particles; the blocks are the global
+    array's (their bboxes gathered) and the multipoles the sharded
+    upsweep's, so every rank sizes the same caps."""
     if multipoles is None:
-        multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta)
+        multipoles = (compute_multipoles(x, y, z, m, sorted_keys, tree, meta) if mesh is None
+                      else compute_multipoles_sharded(mesh, x, y, z, m, sorted_keys, tree,
+                                                      meta))
     node_mass, node_com, _, edges = multipoles
-    n = x.shape[0]
     blk = cfg.target_block
+    if mesh is None:
+        n = x.shape[0]
+        bboxes = _block_bboxes(x, y, z, blk)
+    else:
+        n = x.shape[0] * mesh.size
+        bboxes = _global_block_bboxes(mesh, x, y, z, blk)
     nb = -(-n // blk)
-    bmin, bmax = (a.cpu().numpy() for a in _block_bboxes(x, y, z, blk))
+    bmin, bmax = (a.cpu().numpy() for a in bboxes)
     nm, com, edges, parent, is_leaf, lengths, lo, center_frac, halfsize_frac = (
         a.cpu().numpy() for a in (node_mass, node_com, edges, tree.parent, tree.is_leaf,
                                   box.lengths, box.lo, tree.center_frac,
@@ -186,6 +236,16 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
             _, anc = classify(b * cfg.super_factor, min((b + 1) * cfg.super_factor, nb))
             c_cap_max = max(c_cap_max, int((~anc).sum()))
 
+    # per-rank essential-set high water (the LET cap): ~anc of the slab
+    # bbox, each rank's blocks a contiguous block range
+    let_max = 0
+    if let_shards > 1:
+        for k in range(let_shards):
+            b0 = k * nb // let_shards
+            b1 = max(b0 + 1, (k + 1) * nb // let_shards)
+            _, anc = classify(b0, min(b1, nb))
+            let_max = max(let_max, int((~anc).sum()))
+
     def pad(v, mg=margin):
         return int(np.ceil(v * mg / quantum) * quantum)
 
@@ -199,7 +259,8 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
         p2p_cap=min(pad(p2p_max), meta.num_leaves),
         leaf_cap=leaf_cap,
         super_cap=(min(pad(c_cap_max), meta.num_nodes) if cfg.super_factor > 0
-                   else cfg.super_cap))
+                   else cfg.super_cap),
+        let_cap=min(pad(let_max), meta.num_nodes) if let_shards > 1 else cfg.let_cap)
 
 
 def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: GravityTreeMeta,
@@ -207,22 +268,62 @@ def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: Gravity
     """Masses, centres of mass and multipoles of every node
     (computeLeafMultipoles + upsweepMultipoles): leaf sums over the
     contiguous leaf rows, then a level-by-level upsweep, deepest first,
-    each level's rows added into their parents (``index_add_``) with the
+    each level's rows added into their parents (``level_add_``) with the
     M2M shift. Returns (node_mass (N,), node_com (N, 3), node_q, edges
     (L+1,) int64 leaf row boundaries): node_q the (N, 7) cartesian
     quadrupoles at ``order`` 0, else the (N, ncoef(order)) complex
     spherical coefficients."""
     n = x.shape[0]
     edges = torch.searchsorted(sorted_keys, tree.leaf_keys)
-    pleaf = _pleaf_from_edges(edges, n)
+    return _multipoles_from_edges(x, y, z, m, edges, edges, n, tree, meta, order,
+                                  mp.edge_segment_sum)
+
+
+def compute_multipoles_sharded(mesh, x, y, z, m, local_keys, tree: GravityTree,
+                               meta: GravityTreeMeta, order: int = 0):
+    """``compute_multipoles`` across ranks (the JAX package's
+    compute_multipoles_sharded, global_multipole.hpp's allreduce): the
+    global leaf edges are the ranks' local edge positions summed (an
+    integer all_reduce); each rank takes the partial leaf sums of its slab
+    rows (the edges clipped to its slab) in float64, the (L, k) payloads
+    are all_gathered and summed in rank order, then rounded to float32 as
+    the one-device pass rounds its float64 segment sums, and the upsweep
+    runs replicated. Every rank computes the same sums of the same values
+    in the same order, so the node arrays are bit-identical on every
+    rank. Only O(tree) arrays travel. Returns the same tuple, with the
+    GLOBAL edges."""
+    from sphexa_torch.parallel.mesh import all_gather, all_reduce_sum
+
+    S = x.shape[0]
+    edges = all_reduce_sum(mesh, torch.searchsorted(local_keys, tree.leaf_keys))
+    e_clip = torch.clamp(edges - mesh.rank * S, 0, S)
+
+    def rank_sums(w, e):
+        part = mp.edge_segment_sum(w.to(torch.float64), e)  # (L, k) float64
+        g = all_gather(mesh, part)
+        acc = g[0]
+        for r in range(1, mesh.size):
+            acc = acc + g[r]
+        return acc.to(w.dtype)
+
+    return _multipoles_from_edges(x, y, z, m, edges, e_clip, S, tree, meta, order, rank_sums)
+
+
+def _multipoles_from_edges(x, y, z, m, edges, e_local, n: int, tree: GravityTree,
+                           meta: GravityTreeMeta, order: int, segment_sum):
+    """The multipole pass over the rows ``x``..``m``, ``e_local`` the leaf
+    edges in those rows and ``segment_sum(w, e_local)`` the leaves' (L, k)
+    sums; ``edges`` is returned."""
+    pleaf = _pleaf_from_edges(e_local, n)
     w = torch.stack([m, m * x, m * y, m * z], dim=1)
-    leaf_w = mp.edge_segment_sum(w, edges)  # (L, 4)
+    leaf_w = segment_sum(w, e_local)  # (L, 4)
     node_mass, node_com = _upsweep_mass_com(leaf_w, tree, meta)
     leaf_com = node_com[tree.node_of_leaf]
     if order > 0:
-        leaf_c = sp.p2m(x, y, z, m, leaf_com, edges, order, pleaf=pleaf)
+        leaf_c = sp.p2m(x, y, z, m, leaf_com, e_local, order, pleaf=pleaf,
+                        segment_sum=segment_sum)
         return node_mass, node_com, sp.upsweep(leaf_c, node_com, tree, meta, order), edges
-    leaf_q = mp.p2m_leaf(x, y, z, m, pleaf, leaf_com, edges)
+    leaf_q = mp.p2m_leaf(x, y, z, m, pleaf, leaf_com, e_local, segment_sum=segment_sum)
     node_q = _upsweep_quadrupoles(leaf_q, node_mass, node_com, tree, meta)
     return node_mass, node_com, node_q, edges
 
@@ -238,9 +339,11 @@ def _pleaf_from_edges(edges: torch.Tensor, n: int) -> torch.Tensor:
 def _upsweep_mass_com(leaf_w, tree: GravityTree, meta: GravityTreeMeta):
     node_w = torch.zeros(meta.num_nodes, 4, dtype=leaf_w.dtype, device=leaf_w.device)
     node_w[tree.node_of_leaf] = leaf_w
-    for s, e in reversed(meta.level_ranges[1:]):
+    lr = meta.level_ranges
+    for lv in range(len(lr) - 1, 0, -1):
+        s, e = lr[lv]
         # the level's rows are read before their parents are written
-        node_w.index_add_(0, tree.parent[s:e], node_w[s:e].clone())
+        level_add_(node_w, tree.parent[s:e], node_w[s:e].clone(), lr[lv - 1])
     node_mass = node_w[:, 0]
     node_com = node_w[:, 1:4] / torch.clamp_min(node_mass, 1e-30)[:, None]
     return node_mass, node_com
@@ -250,10 +353,12 @@ def _upsweep_quadrupoles(leaf_q, node_mass, node_com, tree: GravityTree,
                          meta: GravityTreeMeta):
     node_q = torch.zeros(meta.num_nodes, 7, dtype=leaf_q.dtype, device=leaf_q.device)
     node_q[tree.node_of_leaf] = leaf_q
-    for s, e in reversed(meta.level_ranges[1:]):
+    lr = meta.level_ranges
+    for lv in range(len(lr) - 1, 0, -1):
+        s, e = lr[lv]
         par = tree.parent[s:e]
         d = node_com[par] - node_com[s:e]
-        node_q.index_add_(0, par, mp.m2m_shift(node_q[s:e], node_mass[s:e], d))
+        level_add_(node_q, par, mp.m2m_shift(node_q[s:e], node_mass[s:e], d), lr[lv - 1])
     return node_q
 
 
@@ -356,21 +461,26 @@ def _chunks(total: int, per_item: int, dev: torch.device):
 
 
 def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
-                      packed_out: Optional[list] = None):
+                      packed_out: Optional[list] = None, let_geo: Optional[_Geo] = None):
     """Both lists of every block through the compaction kernel; with
     ``super_factor`` > 0 the superblock pre-pass first (one compaction),
     then each block against its superblock's list (one compaction).
-    Returns (m2p list, m2p count, p2p list, p2p count, c_max); each
-    compaction's (packed array, cap0, cap1) is appended to ``packed_out``."""
+    ``let_geo``: the rank's essential set (gathered from ``geo``), which
+    the blocks classify against at super_factor 0 and the superblocks
+    at super_factor > 0. Returns (m2p list, m2p count, p2p list, p2p
+    count, c_max); each compaction's (packed array, cap0, cap1) is
+    appended to ``packed_out``."""
     keep = packed_out.append if packed_out is not None else (lambda _item: None)
     dev = x.device
     num_n = meta.num_nodes
     blk, sf = cfg.target_block, cfg.super_factor
     nb = bc.shape[0]
+    pre = geo if let_geo is None else let_geo
+    width = pre.idx.shape[0]
     if sf == 0:
-        packed = torch.empty(nb, num_n, dtype=torch.int32, device=dev)
-        for b0, b1 in _chunks(nb, num_n, dev):
-            packed[b0:b1] = _packed_cls(bc[b0:b1, None], bs[b0:b1, None], geo)
+        packed = torch.empty(nb, width, dtype=torch.int32, device=dev)
+        for b0, b1 in _chunks(nb, width, dev):
+            packed[b0:b1] = _packed_cls(bc[b0:b1, None], bs[b0:b1, None], pre)
         keep((packed, cfg.m2p_cap, cfg.p2p_cap))
         om, mn, op, pn = pcmp.compact_class_lists(packed, cfg.m2p_cap, cfg.p2p_cap)
         return om, mn, op, pn, None
@@ -380,11 +490,11 @@ def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
     num_super = -(-n // sblk)
     sidx = _block_rows(n, sblk, device=dev)
     sbc, sbs = _bbox(x[sidx], y[sidx], z[sidx])
-    pre = torch.empty(num_super, num_n, dtype=torch.int32, device=dev)
-    for s0, s1 in _chunks(num_super, num_n, dev):
-        pre[s0:s1] = _packed_cand(sbc[s0:s1, None], sbs[s0:s1, None], geo)
-    keep((pre, scap, 128))
-    scand, scand_n, _, _ = pcmp.compact_class_lists(pre, scap, 128)
+    spk = torch.empty(num_super, width, dtype=torch.int32, device=dev)
+    for s0, s1 in _chunks(num_super, width, dev):
+        spk[s0:s1] = _packed_cand(sbc[s0:s1, None], sbs[s0:s1, None], pre)
+    keep((spk, scap, 128))
+    scand, scand_n, _, _ = pcmp.compact_class_lists(spk, scap, 128)
     c_max = scand_n.max()
 
     # blocks of the last superblock past the particles are points at the
@@ -455,13 +565,22 @@ def _sort_superblocks(x, y, z, n, tree, meta, cfg, ccenter, chalf, mac2, valid, 
     for s0, s1 in _chunks(sidx.shape[0], num_n, dev):
         accept = valid & _accept(sbc[s0:s1, None], sbs[s0:s1, None], ccenter, chalf, mac2)
         cand = ~(accept[:, tree.parent] & ~self_parent)
-        ordc = torch.argsort((~cand).to(torch.uint8), dim=1, stable=True)[:, :scap]
-        cok = cand.gather(1, ordc)
-        cidx = torch.where(cok, ordc, num_n)
-        ppos = torch.searchsorted(cidx, tree.parent[torch.clamp(cidx, max=num_n - 1)])
-        for o, v in zip(outs, (cidx, cok, torch.clamp(ppos, max=scap - 1), cand.sum(dim=1))):
+        for o, v in zip(outs, _compact_candidates(cand, scap, tree, num_n)):
             o.append(v)
     return tuple(torch.cat(o) for o in outs)
+
+
+def _compact_candidates(cand, cap: int, tree: GravityTree, num_n: int):
+    """Fixed-cap candidate lists from (rows, N) bool node masks: a stable
+    compaction in node order (the kept prefix stays ancestor-closed where
+    ``cand`` is), num_nodes on the dead slots (the list stays ascending),
+    each candidate's parent position in its list (clamped into it).
+    Returns (candidates, live mask, parent positions, unclipped counts)."""
+    ordc = torch.argsort((~cand).to(torch.uint8), dim=1, stable=True)[:, :cap]
+    cok = cand.gather(1, ordc)
+    cidx = torch.where(cok, ordc, num_n)
+    ppos = torch.searchsorted(cidx, tree.parent[torch.clamp(cidx, max=num_n - 1)])
+    return cidx, cok, torch.clamp(ppos, max=cap - 1), cand.sum(dim=1)
 
 
 def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_parent,
@@ -470,8 +589,9 @@ def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_pa
     accept as the first accepted ancestor, and one sort of the packed
     keys (``_sort_lists``). The candidates are all nodes, or with
     ``supers`` (``_sort_superblocks``) the list of the block's
-    superblock, where the parent's accept is read at its position in the
-    list. Returns (m2p list, m2p ok, p2p list, p2p ok, m2p count, p2p
+    superblock, or at super_factor 0 one list every block shares (the
+    rank's essential set), where the parent's accept is read at its
+    position in the list. Returns (m2p list, m2p ok, p2p list, p2p ok, m2p count, p2p
     count)."""
     dev = bc.device
     num_n = meta.num_nodes
@@ -486,7 +606,10 @@ def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_pa
             anc = accept[:, tree.parent] & ~self_parent
             m2p_mask, p2p_mask, cidx = accept & ~anc, leafv & ~accept, None
         else:
-            sid = torch.arange(b0, b1, device=dev) // cfg.super_factor
+            # one shared list (the LET) or the block's superblock's
+            sid = (torch.zeros(b1 - b0, dtype=torch.int64, device=dev)
+                   if supers[0].shape[0] == 1 and cfg.super_factor == 0
+                   else torch.arange(b0, b1, device=dev) // cfg.super_factor)
             cidx = torch.clamp(supers[0][sid], max=num_n - 1)
             cok, ppos = supers[1][sid], supers[2][sid]
             accept = cok & valid[cidx] & _accept(bcc, bss, ccenter[cidx], chalf[cidx],
@@ -614,32 +737,41 @@ def p2p_block_order(lens: torch.Tensor) -> torch.Tensor:
     return torch.argsort(lens.sum(dim=1), descending=True, stable=True).to(torch.int32)
 
 
-def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens):
+def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens,
+                jdata=None):
     """Near-field P2P of every target over its block's near-leaf ranges:
-    ``starts``/``lens`` are the (NB, p2p_cap) int32 row ranges of
-    ``_p2p_leaf_ranges`` (slots past a block's list have length 0),
-    ``shift`` ((3,)) is added to the targets, and the pair with a target's
-    own row counts only with ``allow_self``. The K12 kernel
-    (csrc/gravity_p2p.cu) for CUDA tensors, the plain version for CPU
-    tensors. Returns (ax, ay, az, phi), each (n,)."""
+    ``starts``/``lens`` are (NB, W) int32 row ranges (``_p2p_leaf_ranges``
+    gives W = p2p_cap; slots past a block's list have length 0), ``shift``
+    ((3,)) is added to the targets, and the pair with a target's own row
+    counts only with ``allow_self``. ``jdata``: the j-buffer (x, y, z, m,
+    h) of its own length nj >= n that the ranges index (a rank's [own
+    slab | halo rows], the own rows at offset 0, so that a target's row
+    is its own candidate's row); None: the targets' own arrays. The K12
+    kernel (csrc/gravity_p2p.cu) for CUDA tensors, the plain version for
+    CPU tensors. Returns (ax, ay, az, phi), each (n,)."""
     dev = x.device
     if dev.type == "cuda":
-        launch, out = p2p_launcher(x, y, z, m, h, shift, allow_self, cfg, starts, lens)
+        launch, out = p2p_launcher(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
+                                   jdata=jdata)
         launch()
         pe.LAUNCHES["gravity_p2p"] += 1
         return out
     if dev.type == "cpu":
-        return _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, lens)
+        return _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
+                                 jdata=jdata)
     raise ValueError(f"unsupported device {dev}")
 
 
-def p2p_launcher(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens):
+def p2p_launcher(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens,
+                 jdata=None):
     """K12's arguments checked and built once (the blocks heaviest first,
-    ``p2p_block_order``; ``p2p_targets_per_thread`` targets a thread).
-    Returns (launch, (ax, ay, az, phi)): each ``launch()`` runs the kernel
-    on the current stream (no sync) into those outputs and raises on a
-    launch error. ``_pallas_p2p`` launches it once; a timing loop may
-    launch it again without the argument building."""
+    ``p2p_block_order``; ``p2p_targets_per_thread`` targets a thread):
+    the target fields against n, the j-buffer's (``jdata``, else the
+    targets' own arrays) against its own length nj >= n. Returns (launch,
+    (ax, ay, az, phi)): each ``launch()`` runs the kernel on the current
+    stream (no sync) into those outputs and raises on a launch error.
+    ``_pallas_p2p`` launches it once; a timing loop may launch it again
+    without the argument building."""
     from sphexa_torch.kernels.build import load_library
 
     dev, n, blk = x.device, x.shape[0], cfg.target_block
@@ -647,9 +779,19 @@ def p2p_launcher(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, sta
     r = p2p_targets_per_thread(blk)
     for name, a in zip(("x", "y", "z", "m", "h"), (x, y, z, m, h)):
         pe.check_cuda_f32(name, a, n, dev)
+    jd = (x, y, z, m, h) if jdata is None else tuple(jdata)
+    nj = jd[0].shape[0]
+    if len(jd) != 5 or nj < n:
+        raise ValueError(f"jdata: need the five j-fields (x, y, z, m, h) of nj >= n = {n} "
+                         f"rows, got {len(jd)} of {nj}")
+    for name, a in zip(("xj", "yj", "zj", "mj", "hj"), jd):
+        pe.check_cuda_f32(name, a, nj, dev)
     pe.check_table("shift", shift, torch.float32, (3,), dev)
-    pe.check_table("starts", starts, torch.int32, (nb, cfg.p2p_cap), dev)
-    pe.check_table("lens", lens, torch.int32, (nb, cfg.p2p_cap), dev)
+    width = starts.shape[1] if starts.dim() == 2 else 0
+    if width < 1:
+        raise ValueError(f"starts: need (nb, W) ranges with W >= 1, got {tuple(starts.shape)}")
+    pe.check_table("starts", starts, torch.int32, (nb, width), dev)
+    pe.check_table("lens", lens, torch.int32, (nb, width), dev)
     order = p2p_block_order(lens)
     out = torch.empty(4, n, dtype=torch.float32, device=dev).unbind(0)
     lib = load_library()
@@ -658,10 +800,10 @@ def p2p_launcher(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, sta
     def launch():
         with torch.cuda.device(dev):
             err = lib.launch_gravity_p2p(
-                x.data_ptr(), y.data_ptr(), z.data_ptr(), m.data_ptr(), h.data_ptr(),
-                shift.data_ptr(), int(bool(allow_self)), starts.data_ptr(), lens.data_ptr(),
-                order.data_ptr(), n, nb, cfg.p2p_cap, blk, r, *(a.data_ptr() for a in out),
-                stream)
+                x.data_ptr(), y.data_ptr(), z.data_ptr(), h.data_ptr(),
+                *(a.data_ptr() for a in jd), nj, shift.data_ptr(), int(bool(allow_self)),
+                starts.data_ptr(), lens.data_ptr(), order.data_ptr(), n, nb, width, blk, r,
+                *(a.data_ptr() for a in out), stream)
         if err != 0:
             raise RuntimeError(f"launch_gravity_p2p failed: CUDA error {err} "
                                f"({lib.pair_engine_error_string(err).decode()})")
@@ -688,10 +830,13 @@ def p2p_kernel_info(blk: int) -> dict:
 
 
 def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts,
-                      lens):
+                      lens, jdata=None):
     """Plain PyTorch version of ``_pallas_p2p`` on any device: the leaf
-    ranges merged into runs (``p2p_runs``) through ``engine_plain``."""
+    ranges merged into runs (``p2p_runs``) through ``engine_plain``, the
+    j-fields ``jdata`` where given."""
     i_f, j_f = p2p_fields(x, y, z, m, h, shift)
+    if jdata is not None:
+        j_f = list(jdata)
     outs, _ = pe.engine_plain(GRAVITY_P2P, p2p_runs(starts, lens, cfg), i_f, j_f, False,
                               cfg.target_block, {**_P2P_CONSTS, "allow_self": allow_self})
     return tuple(outs)
@@ -699,15 +844,22 @@ def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig
 
 def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
              cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False,
-             shift=None):
+             shift=None, let: bool = False):
     """The MAC classification of every target block from the given
     multipoles; ``shift`` ((3,)) moves the targets (a replica pass).
+    ``let`` (a rank's slab, ``cfg.let_cap`` > 0; the sort compaction at
+    super_factor 0, or the bitmask one): the blocks classify against the
+    slab's essential set, the nodes whose parent the slab's bbox does not
+    accept (the open set and the accepted cut, ancestor-closed under the
+    monotone MAC: any node outside it has an accepted ancestor in it for
+    every block, whose bbox lies inside the slab's), compacted at the cap.
     Returns a dict: ``m2p`` (nb, m2p_cap) node indices with ``m2p_ok``,
     ``p2p`` (nb, p2p_cap) with ``p2p_ok``, the unclipped counts ``m2p_n``
     and ``p2p_n`` (nb,), ``c_max`` (the superblock lists' high water, or
-    None), and the (shifted) target coordinates ``tx``, ``ty``, ``tz``
-    (nb, blk); with ``keep_packed`` (bitmask compaction) also ``packed``,
-    the (packed array, cap0, cap1) of each compaction."""
+    None), ``let_n`` (the essential set's size, or None), and the
+    (shifted) target coordinates ``tx``, ``ty``, ``tz`` (nb, blk); with
+    ``keep_packed`` (bitmask compaction) also ``packed``, the (packed
+    array, cap0, cap1) of each compaction."""
     n = x.shape[0]
     dev = x.device
     num_n = meta.num_nodes
@@ -725,16 +877,27 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
     bidx = _block_rows(n, cfg.target_block, device=dev)
     tx, ty, tz = x[bidx], y[bidx], z[bidx]
     bc, bs = _bbox(tx, ty, tz)
-    out = {"tx": tx, "ty": ty, "tz": tz}
-    if cfg.compaction == "bitmask":
+    out = {"tx": tx, "ty": ty, "tz": tz, "let_n": None}
+    bitmask = cfg.compaction == "bitmask"
+    use_let = let and cfg.let_cap > 0 and (cfg.super_factor == 0 or bitmask)
+    lists = None
+    if use_let:
+        # one slab-bbox classification shared by every block of the rank
+        bc_s, bs_s = _bbox(x, y, z)
+        accept_s = valid & _accept(bc_s, bs_s, ccenter, chalf, mac2)
+        cand_s = ~(accept_s[tree.parent] & ~self_parent)
+        lists = _compact_candidates(cand_s[None], min(cfg.let_cap, num_n), tree, num_n)
+        out["let_n"] = lists[3][0]
+    if bitmask:
         par = tree.parent
         geo = _Geo(cc=ccenter, ch=chalf, m2=mac2, pc=ccenter[par], ph=chalf[par],
                    pm2=mac2[par], aok=~self_parent & valid[par], lfk=tree.is_leaf & valid,
                    vld=valid, ok=torch.ones(num_n, dtype=torch.bool, device=dev),
                    idx=torch.arange(num_n, dtype=torch.int32, device=dev))
+        let_geo = None if lists is None else geo.gather(lists[0][0], lists[1][0])
         packed = [] if keep_packed else None
         om, mn, op, pn, c_max = _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo,
-                                                  packed)
+                                                  packed, let_geo=let_geo)
         if keep_packed:
             out["packed"] = packed
         out.update(m2p=om, m2p_ok=torch.arange(cfg.m2p_cap, device=dev)[None, :] < mn[:, None],
@@ -742,28 +905,61 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
                    m2p_n=mn, p2p_n=pn, c_max=c_max)
     else:
         supers = (_sort_superblocks(x, y, z, n, tree, meta, cfg, ccenter, chalf, mac2, valid,
-                                    self_parent) if cfg.super_factor > 0 else None)
+                                    self_parent) if cfg.super_factor > 0 else lists)
         om, mok, op, pok, mn, pn = _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf,
                                                   mac2, valid, self_parent, supers)
         out.update(m2p=om, m2p_ok=mok, p2p=op, p2p_ok=pok, m2p_n=mn, p2p_n=pn,
-                   c_max=None if supers is None else supers[3].max())
+                   c_max=None if cfg.super_factor == 0 else supers[3].max())
     return out
+
+
+def _near_field_halo(shard, x, y, z, m, h, edges, start, length):
+    """A rank's near field across ranks: the (NB, p2p_cap) global-row leaf
+    ranges localized into its j-buffer [own slab | halo rows] and the
+    halo's (x, y, z, m, h) served. ``shard`` = (mesh, win): ``win`` a
+    tuple is the MAC-sized sparse serve's per-distance caps (the leaf
+    ``edges`` its cell table), an int the windowed serve's per-peer window
+    (the slab: whole slabs). Returns (starts, lens, j-buffer, escaped,
+    metrics or None)."""
+    from sphexa_torch.parallel import exchange as ex
+
+    mesh, win = shard
+    S = x.shape[0]
+    zf = torch.zeros(start.shape, dtype=torch.float32, device=x.device)
+    ranges = pe.GroupRanges(
+        starts=start, lens=length, shift_x=zf, shift_y=zf, shift_z=zf,
+        ncells=torch.zeros(start.shape[0], dtype=torch.int32, device=x.device),
+        occupancy=torch.zeros((), dtype=torch.int64, device=x.device),
+        boxl=torch.full((3,), 1e30, dtype=torch.float32, device=x.device))
+    fields = (x, y, z, m, h)
+    metrics = None
+    if isinstance(win, tuple):
+        lr, covered_all, escaped, covered = ex.localize_ranges_sparse(mesh, ranges, edges, S,
+                                                                      win)
+        ridx = ex.sparse_send_rows(mesh, covered_all, edges, S, win)
+        halo = ex.serve_sparse(mesh, fields, ridx)
+        metrics = ex.exchange_metrics_sparse(covered, edges, S, win, mesh.size, mesh.rank)
+    else:
+        lr, bounds, escaped = ex.localize_ranges(mesh, ranges, S, win)
+        halo = ex.serve_windows(mesh, fields, bounds, S, win)
+    return lr.starts, lr.lens, ex.jbuf(fields, halo), escaped, metrics
 
 
 def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                     meta: GravityTreeMeta, cfg: GravityConfig, multipoles=None,
                     timer: Optional[Callable[[str], None]] = None, shift=None,
-                    allow_self: bool = False, with_phi: bool = False,
+                    allow_self: bool = False, with_phi: bool = False, shard=None,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """Gravitational acceleration of every (SFC-sorted) particle and the
     potential energy. Returns (ax, ay, az, egrav, diagnostics): egrav =
     0.5 G sum m phi (a 0-d tensor); with ``with_phi`` the (n,) potential
     phi in its place. The diagnostics (0-d tensors) are the high-water
-    marks ``m2p_max``, ``p2p_max``, ``leaf_occ`` and ``c_max`` (0 on the
-    one-level paths) that the caller holds against the caps,
-    ``compact_width`` (the candidates each block's compaction scans) and
-    ``mac_work_ratio`` (interaction-list entries over MAC evaluations).
+    marks ``m2p_max``, ``p2p_max``, ``leaf_occ``, ``c_max`` (0 on the
+    one-level paths) and ``let_max`` (the essential set's size, 0 off a
+    mesh) that the caller holds against the caps, ``compact_width`` (the
+    candidates each block's compaction scans) and ``mac_work_ratio``
+    (interaction-list entries over MAC evaluations).
 
     ``shift``: a (3,) offset added to the targets (the replica passes of
     Ewald gravity: targets against the tree of the base box);
@@ -771,18 +967,33 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     (true for a nonzero shift). ``multipoles``: a precomputed
     ``compute_multipoles`` result of the config's order; ``timer(phase)``:
     called after each phase ("multipoles", "mac", "m2p", "p2p_prologue",
-    "p2p")."""
+    and on a mesh "serve", then "p2p").
+
+    ``shard`` = (mesh, win): x .. h are this rank's slab and
+    ``multipoles`` must come from ``compute_multipoles_sharded`` (global
+    edges). The blocks classify against the rank's essential set (with
+    ``cfg.let_cap`` > 0), and the near field's leaf ranges are localized
+    into the j-buffer [own slab | halo rows] that the halo exchange
+    serves (``win``: a tuple of P - 1 per-distance row caps selects the
+    MAC-sized sparse serve, which adds ``halo_rows`` and ``halo_occ`` to
+    the diagnostics; an int the windowed serve's window, the slab for
+    whole slabs); K12 runs in its jdata form. Ranges that escape the
+    served rows set ``p2p_max`` to the cap + 1 sentinel. egrav and the
+    diagnostics are this rank's (the caller reduces them)."""
     mark = timer or (lambda _name: None)
     n = x.shape[0]
     dev = x.device
     num_n = meta.num_nodes
     order = cfg.multipole_order
+    if shard is not None and multipoles is None:
+        raise ValueError("a sharded solve needs the multipoles of compute_multipoles_sharded")
     if multipoles is None:
         multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta, order=order)
     node_mass, node_com, node_q, edges = multipoles
     mark("multipoles")
 
-    lists = classify(x, y, z, box, tree, meta, cfg, node_mass, node_com, shift=shift)
+    lists = classify(x, y, z, box, tree, meta, cfg, node_mass, node_com, shift=shift,
+                     let=shard is not None)
     mark("mac")
     ax, ay, az, phi = _m2p_eval(lists["tx"], lists["ty"], lists["tz"], lists["m2p"],
                                 lists["m2p_ok"], _node_packed(node_mass, node_com, node_q,
@@ -793,7 +1004,13 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     if shift is None:
         # an open box: no replica shift (and no self pair unless asked)
         shift = torch.zeros(3, dtype=x.dtype, device=dev)
-    pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, start, length)
+    jd, escaped, hmetrics = None, None, None
+    if shard is not None:
+        start, length, jd, escaped, hmetrics = _near_field_halo(shard, x, y, z, m, h, edges,
+                                                                start, length)
+        mark("serve")
+    pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, start, length,
+                                      **({} if jd is None else {"jdata": jd}))
     mark("p2p")
 
     def total(far, near):
@@ -804,24 +1021,42 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     nb = m2p_n.shape[0]
     sf = cfg.super_factor
     scap = min(cfg.super_cap, num_n)
+    let_n = lists["let_n"]
+    ecap = min(cfg.let_cap, num_n) if let_n is not None else 0
     if sf > 0:
-        evals = -(-n // (sf * cfg.target_block)) * num_n + nb * scap
+        # the superblocks classify against the essential set where there
+        # is one (plus its one slab-bbox sweep), else against every node
+        evals = -(-n // (sf * cfg.target_block)) * (ecap or num_n) + nb * scap
+        if let_n is not None:
+            evals += num_n
+    elif let_n is not None:
+        evals = num_n + nb * ecap
     else:
         evals = nb * num_n
     i32 = torch.int32
+    zero = torch.zeros((), dtype=i32, device=dev)
+    p2p_hw = p2p_n.max().to(i32)
+    if escaped is not None:
+        from sphexa_torch.parallel.exchange import fold_escape_sentinel
+
+        p2p_hw = fold_escape_sentinel(p2p_hw, escaped, cfg.p2p_cap)
     diagnostics = {
         "m2p_max": m2p_n.max().to(i32),
-        "p2p_max": p2p_n.max().to(i32),
+        "p2p_max": p2p_hw,
         "leaf_occ": (edges[1:] - edges[:-1]).max().to(i32),
-        "c_max": (lists["c_max"].to(i32) if lists["c_max"] is not None
-                  else torch.zeros((), dtype=i32, device=dev)),
+        "c_max": lists["c_max"].to(i32) if lists["c_max"] is not None else zero,
+        "let_max": let_n.to(i32) if let_n is not None else zero,
         # a fill, not a copy from the host: a copy would sync the stream
-        "compact_width": torch.full((), scap if sf > 0 else num_n, dtype=i32, device=dev),
+        "compact_width": torch.full((), scap if sf > 0 else (ecap or num_n), dtype=i32,
+                                    device=dev),
         # XLA folds the division by a constant into a product with its
         # float32 reciprocal; so does this, to give the JAX package's value
         "mac_work_ratio": ((m2p_n.sum() + p2p_n.sum()).to(torch.float32)
                            * float(np.float32(1.0) / np.float32(evals))),
     }
+    if hmetrics is not None:
+        diagnostics["halo_rows"] = hmetrics["halo_rows"]
+        diagnostics["halo_occ"] = hmetrics["halo_occ"]
     if with_phi:
         return ax, ay, az, phi, diagnostics
     egrav = 0.5 * torch.sum(m * phi)

@@ -107,3 +107,31 @@ def linkage_from_leaves(leaf_tree, curve: str = "hilbert", device="cpu"
         level_ranges=tuple((int(level_offsets[lv]), int(level_offsets[lv + 1]))
                            for lv in range(max_level + 1)))
     return tree, meta
+
+
+def level_add_(dst: torch.Tensor, par: torch.Tensor, vals: torch.Tensor,
+               parent_range: Tuple[int, int]) -> None:
+    """``dst[par[i]] += vals[i]`` for one level of the tree: its parents
+    lie in the level before it, rows ``parent_range``, and ``par`` does not
+    decrease (a parent's children are contiguous in the level-major
+    layout). Each parent's children are added one at a time in row order,
+    as a sequential ``index_add_`` adds them on the CPU, but
+    deterministically on any device and without a read of the card (its
+    ``index_add_`` adds with atomics in no fixed order, and ranks must
+    agree bit for bit)."""
+    ps, pe = parent_range
+    k = par.shape[0]
+    if k == 0:
+        return
+    dev = par.device
+    slot = torch.arange(k, device=dev) - torch.searchsorted(par, par)
+    loc = par - ps
+    dense = torch.zeros((pe - ps, 8) + tuple(vals.shape[1:]), dtype=vals.dtype, device=dev)
+    dense[loc, slot] = vals  # an octree node has at most 8 children
+    acc = torch.zeros_like(dense[:, 0])
+    for j in range(8):
+        acc = acc + dense[:, j]
+    has = torch.zeros(pe - ps, dtype=torch.int64, device=dev)
+    has.index_add_(0, loc, torch.ones_like(loc))
+    has = (has > 0).reshape((-1,) + (1,) * (vals.dim() - 1))
+    dst[ps:pe] = torch.where(has, dst[ps:pe] + acc, dst[ps:pe])

@@ -44,10 +44,10 @@ _ENTRY_POINTS = {
     "launch_av_switches_lists": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_ve": [ctypes.c_void_p, ctypes.c_void_p],
     "launch_momentum_energy_ve_lists": [ctypes.c_void_p, ctypes.c_void_p],
-    # x y z m h shift, allow_self, starts lens order, n nb P blk r, ax ay az phi,
-    # stream
-    "launch_gravity_p2p": [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5,
+    # x y z h, xj yj zj mj hj, nj, shift, allow_self, starts lens order,
+    # n nb P blk r, ax ay az phi, stream
+    "launch_gravity_p2p": [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5,
     "launch_compact_class_lists": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p],

@@ -353,16 +353,18 @@ IMAGE_SHIFT = (0.5, -0.25, 0.125)
 
 
 def p2p_vs_plain(name: str, x, y, z, m, h, cfg, starts, lens, groups=None,
-                 shift=None, allow_self: bool = False) -> dict:
+                 shift=None, allow_self: bool = False, jdata=None) -> dict:
     """K12 against its plain version at rtol 1e-4 and atol ``P2P_ATOL``
     max|.|; returns the worst error and its ratio to max|.|. ``groups``:
     compare only these target blocks (the plain version runs with the
     other blocks' leaf lengths zeroed). Without ``shift`` and
     ``allow_self``, the open-box solve's call: no target shift, no self
     pair; an image call passes a shift ((3,) values) and keeps the self
-    pair."""
+    pair. ``jdata``: the j-buffer the ranges index (K12's jdata form, a
+    rank's [own slab | halo rows])."""
     shift = torch.tensor(shift or (0.0, 0.0, 0.0), dtype=x.dtype, device=x.device)
-    out = gt._pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, starts, lens)
+    jkw = {} if jdata is None else {"jdata": jdata}
+    out = gt._pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, starts, lens, **jkw)
     plens = lens
     rows = torch.arange(x.shape[0], device=x.device)
     if groups is not None:
@@ -370,7 +372,7 @@ def p2p_vs_plain(name: str, x, y, z, m, h, cfg, starts, lens, groups=None,
         sel[groups] = True
         plens = torch.where(sel[:, None], lens, 0)
         rows = rows[sel[rows // cfg.target_block]]
-    ref = gt._pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, plens)
+    ref = gt._pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, plens, **jkw)
     err, rel = 0.0, 0.0
     for nm, a, b in zip(("ax", "ay", "az", "phi"), out, ref):
         a, b = a[rows], b[rows]
@@ -381,7 +383,8 @@ def p2p_vs_plain(name: str, x, y, z, m, h, cfg, starts, lens, groups=None,
         rel = max(rel, float((a - b).abs().max()) / scale)
     return {"max_abs_err": err, "max_abs_err_over_scale": rel, "targets": int(rows.shape[0]),
             "cand_pairs": int(plens.to(torch.int64).sum()) * cfg.target_block,
-            "allow_self": allow_self, "shift": shift.tolist()}
+            "allow_self": allow_self, "shift": shift.tolist(),
+            "j_rows": x.shape[0] if jdata is None else int(jdata[0].shape[0])}
 
 
 def gravity_vs_cpu(name: str, x, y, z, m, h, keys, box, tree, meta, cfg) -> dict:

@@ -350,3 +350,326 @@ def _stage_counts(ranges, S: int, nj: int, nc) -> dict:
     return {"slab_rows": S, "jbuf_rows": nj, "w3": int(ranges.starts.shape[1]),
             "candidates": int(ranges.lens.to(torch.int64).sum()),
             "nb_pairs": int(nc.to(torch.int64).sum())}
+
+
+# ---------------------------------------------------------------------------
+# self-gravity across ranks
+# ---------------------------------------------------------------------------
+
+#: the slab fields a gravity step's rank returns
+GRAV_SLAB_FIELDS = SLAB_FIELDS + ("vy", "vz", "du")
+
+
+def _box_from(b: dict, device):
+    from sphexa_torch.sfc.box import BoundaryType, Box
+
+    return Box(lo=torch.as_tensor(np.array(b["lo"], np.float32), device=device),
+               hi=torch.as_tensor(np.array(b["hi"], np.float32), device=device),
+               boundaries=tuple(BoundaryType(int(v)) for v in b["boundaries"]))
+
+
+def gravity_slab(mesh: Mesh, setup: dict):
+    """This rank's slab of a sorted gravity setup: ``setup`` holds the
+    whole sorted arrays (x, y, z, m, h float32, keys int64), the box dict
+    and the leaf array (uint64). Returns ((x, y, z, m, h), keys, box, tree,
+    meta) on the rank's device."""
+    from sphexa_torch.gravity.tree import linkage_from_leaves
+
+    dev = mesh.device
+    S = setup["x"].shape[0] // mesh.size
+    sl = slice(mesh.rank * S, (mesh.rank + 1) * S)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a[sl]), device=dev)
+
+    xyzmh = tuple(t(setup[f]) for f in ("x", "y", "z", "m", "h"))
+    tree, meta = linkage_from_leaves(np.asarray(setup["leaf"], np.uint64), device=dev)
+    return xyzmh, t(setup["keys"]), _box_from(setup["box"], dev), tree, meta
+
+
+def _mps_from(mps_np, dev):
+    """Multipoles given as numpy (node_mass, node_com, node_q, edges)."""
+    return tuple(torch.as_tensor(np.asarray(a), device=dev) for a in mps_np[:3]) + \
+        (torch.as_tensor(np.asarray(mps_np[3], np.int64), device=dev),)
+
+
+def rank_gravity_sizing(mesh: Mesh, setup: dict, flat, theta: float, cfg_fields: dict,
+                        given_mps=None, shifts=None) -> dict:
+    """The sharded gravity's replicated pieces on this rank: the tree from
+    its unsorted slab of ``flat``'s keys (the histograms summed over the
+    ranks) and the one-device tree; the sharded upsweep of its sorted slab
+    (``setup``), quadrupole and spherical order 4; and on ``given_mps``
+    (the same multipoles for every rank and the reference) the need
+    matrix, ``device_gravity_halo`` open and over ``shifts``, and
+    ``estimate_gravity_caps(let_shards=P)`` of the GravityConfig fields
+    ``cfg_fields``."""
+    from sphexa_torch.gravity.traversal import (
+        GRAV_BUCKET, GravityConfig, compute_multipoles_sharded, estimate_gravity_caps,
+    )
+
+    (x, y, z, m, h), keys, box, tree, meta = gravity_slab(mesh, setup)
+    dev = mesh.device
+    state, sbox, _ = state_from_numpy(*flat, device=dev)
+    slab = shard_state(state, mesh)
+    gbox = make_global_box(slab.x, slab.y, slab.z, sbox, mesh=mesh)
+    skeys = compute_sfc_keys(slab.x, slab.y, slab.z, gbox)
+    out = {"leaf_mesh": sizing.leaf_array_from_device_keys(skeys, GRAV_BUCKET, mesh=mesh),
+           "leaf_one": sizing.leaf_array_from_device_keys(
+               compute_sfc_keys(state.x, state.y, state.z, gbox), GRAV_BUCKET)}
+    for order in (0, 4):
+        mps = compute_multipoles_sharded(mesh, x, y, z, m, keys, tree, meta, order=order)
+        out[f"upsweep{order}"] = [_np(a) for a in mps]
+    mps = _mps_from(given_mps, dev)
+    out["need"] = _np(sizing.gravity_need_matrix(mesh, x, y, z, m, keys, box, tree, meta,
+                                                 theta, multipoles=mps))
+    out["cells"] = sizing.device_gravity_halo(mesh, x, y, z, m, keys, box, tree, meta, theta,
+                                              multipoles=mps)
+    out["cells_tight"] = sizing.device_gravity_halo(mesh, x, y, z, m, keys, box, tree, meta,
+                                                    theta, margin=1.0, quantum=1,
+                                                    multipoles=mps)
+    if shifts is not None:
+        sh = torch.as_tensor(np.asarray(shifts, np.float32), device=dev)
+        out["cells_ewald"] = sizing.device_gravity_halo(mesh, x, y, z, m, keys, box, tree,
+                                                        meta, theta, shifts=sh,
+                                                        multipoles=mps)
+    caps = estimate_gravity_caps(x, y, z, m, keys, box, tree, meta, GravityConfig(**cfg_fields),
+                                 multipoles=mps, let_shards=mesh.size, mesh=mesh)
+    out["caps"] = dataclasses.asdict(caps)
+    return out
+
+
+def sharded_solve(mesh: Mesh, xyzmh, keys, box, tree, meta, cfg, win, ewald=None):
+    """One sharded gravity solve on this rank's slab (the propagator's
+    stage without its closing reduction): open (any multipole order) or
+    Ewald. Returns (ax, ay, az, egrav summed over the ranks in rank order,
+    the diagnostics reduced by max)."""
+    from sphexa_torch.gravity.ewald import compute_gravity_ewald
+    from sphexa_torch.gravity.traversal import compute_gravity, compute_multipoles_sharded
+    from sphexa_torch.parallel.mesh import reduce_scalars
+
+    x, y, z, m, h = xyzmh
+    if ewald is not None:
+        ax, ay, az, egrav, d = compute_gravity_ewald(x, y, z, m, h, keys, box, tree, meta, cfg,
+                                                     ewald, shard=(mesh, win))
+    else:
+        mps = compute_multipoles_sharded(mesh, x, y, z, m, keys, tree, meta,
+                                         order=cfg.multipole_order)
+        ax, ay, az, egrav, d = compute_gravity(x, y, z, m, h, keys, box, tree, meta, cfg,
+                                               multipoles=mps, shard=(mesh, win))
+    names = sorted(d)
+    (egrav,), maxes, _ = reduce_scalars(mesh, sums=[egrav], maxes=[d[k] for k in names])
+    return ax, ay, az, egrav, dict(zip(names, maxes))
+
+
+def rank_gravity_solves(mesh: Mesh, setup: dict, cfg_fields: dict, cases: Sequence[tuple],
+                        shifts=None) -> dict:
+    """Sharded solves of the sorted ``setup`` per case (name, GravityConfig
+    overrides, "open" or "ewald", "sparse" or "slabs"): the sparse caps
+    from ``device_gravity_halo`` (over ``shifts`` for Ewald), else whole
+    slabs; the overrides may ask for ``let_cap`` "sized"
+    (``estimate_gravity_caps(let_shards=P)``) or "all" (every node).
+    Returns per case the slab's ax, ay, az, egrav and the diagnostics."""
+    from sphexa_torch.gravity.ewald import EwaldConfig
+    from sphexa_torch.gravity.traversal import GravityConfig, estimate_gravity_caps
+
+    xyzmh, keys, box, tree, meta = gravity_slab(mesh, setup)
+    S = xyzmh[0].shape[0]
+    base = GravityConfig(**cfg_fields)
+    out = {}
+    for name, over, kind, mode in cases:
+        over = dict(over)
+        let = over.pop("let_cap", None)
+        cfg = dataclasses.replace(base, **over)
+        if let == "sized":
+            cfg = dataclasses.replace(cfg, let_cap=estimate_gravity_caps(
+                *xyzmh[:4], keys, box, tree, meta, cfg, let_shards=mesh.size, mesh=mesh,
+                margin=2.0).let_cap)
+        elif let == "all":
+            cfg = dataclasses.replace(cfg, let_cap=meta.num_nodes)
+        win = S
+        if mode == "sparse":
+            sh = None
+            if kind == "ewald":
+                sh = torch.as_tensor(np.asarray(shifts, np.float32), device=mesh.device)
+            win = sizing.device_gravity_halo(mesh, *xyzmh[:4], keys, box, tree, meta, cfg.theta,
+                                             shifts=sh)
+        ax, ay, az, egrav, d = sharded_solve(mesh, xyzmh, keys, box, tree, meta, cfg, win,
+                                             ewald=EwaldConfig() if kind == "ewald" else None)
+        out[name] = {"ax": _np(ax), "ay": _np(ay), "az": _np(az), "egrav": float(egrav),
+                     "diag": {k: float(v) for k, v in d.items()}, "win": win,
+                     "cfg": dataclasses.asdict(cfg)}
+    return out
+
+
+def rank_gravity_steps(mesh: Mesh, runs: Sequence[tuple]) -> list:
+    """For each run (flat, Simulation keywords, steps[, chem]): one
+    ``Simulation(num_devices=P)`` from the state ``flat`` (``grav_margin``
+    among the keywords sets the gravity serve's starting margin: far
+    below 1 it undersizes the caps and the first step trips the escape
+    sentinel), ``steps`` checked steps. Returns per run the slab
+    (GRAV_SLAB_FIELDS), the last step's scalars, the driver's counters, the
+    caps and exchange shapes, the chemistry's ``hi`` where there is one,
+    and the telemetry's exchange events."""
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.telemetry import MemorySink, Telemetry
+
+    out = []
+    for flat, kw, steps in runs:
+        kw = dict(kw)
+        margin = kw.pop("grav_margin", None)
+        state, box, const = state_from_numpy(*flat, device=mesh.device)
+        sink = MemorySink()
+        sim = Simulation(state, box, const, device=mesh.device, num_devices=mesh.size,
+                         obs_spec=ObservableSpec(), telemetry=Telemetry(sinks=[sink]), **kw)
+        if margin is not None:
+            sim._grav_halo_margin = margin
+            sim._configure(reason="grav-margin")
+        cells0 = sim.cfg.grav_cells
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            d = sim.step()
+        res = {f: _np(getattr(sim.state, f)) for f in GRAV_SLAB_FIELDS}
+        res.update(diag={k: v for k, v in d.items()}, replays=sim.replays,
+                   reconfigures=sim.reconfigures,
+                   gravity=sim.cfg.gravity and dataclasses.asdict(sim.cfg.gravity),
+                   grav_cells0=cells0, grav_cells=sim.cfg.grav_cells,
+                   grav_halo=sim.grav_halo_info, halo=sim.halo_info,
+                   trips=int(sim.telemetry.counters.get("grav_halo_trips", 0)),
+                   exchanges=[e for e in sink.events if e["kind"] == "exchange"],
+                   seconds=time.perf_counter() - t0)
+        if sim.chem is not None:
+            res["chem_hi"] = _np(sim.chem.hi)
+        out.append(res)
+    return out
+
+
+def rank_gravity_solve_groups(mesh: Mesh, groups: Sequence[tuple]) -> dict:
+    """``rank_gravity_solves`` of each (setup, cfg_fields, cases, shifts)."""
+    out = {}
+    for setup, cfg_fields, cases, shifts in groups:
+        out.update(rank_gravity_solves(mesh, setup, cfg_fields, cases, shifts=shifts))
+    return out
+
+
+def rank_grav_sentinel(mesh: Mesh, flat, caps: Sequence[int], runs=()) -> dict:
+    """One VE step with self-gravity through ``make_sharded_step`` with the
+    gravity serve's caps forced to ``caps`` (undersized: the near field's
+    runs escape and ``p2p_max`` turns the cap + 1 sentinel); then
+    ``rank_gravity_steps`` of ``runs``. Returns {"forced": the step's
+    p2p_max, cap and per-rank rows, "runs": the runs' results}."""
+    from sphexa_torch.propagator import _step_hydro_ve
+    from sphexa_torch.simulation import Simulation
+
+    state, box, const = state_from_numpy(*flat, device=mesh.device)
+    sim = Simulation(state, box, const, prop="ve", device=mesh.device, num_devices=mesh.size)
+    step = make_sharded_step(mesh, dataclasses.replace(sim.cfg, mesh=None), _step_hydro_ve,
+                             halo_cells=sim.cfg.halo_cells, grav_cells=caps)
+    _, _, d = step(sim.state, sim.box, sim.gtree)
+    forced = {"p2p_max": int(d["p2p_max"]), "p2p_cap": sim.cfg.gravity.p2p_cap,
+              "gshard_rows": _np(d["gshard_rows"])}
+    return {"forced": forced, "runs": rank_gravity_steps(mesh, runs)}
+
+
+def p2p_jdata_case(mesh: Mesh, xyzmh, keys, box, tree, meta, cfg, win, shift=None,
+                   allow_self: bool = False):
+    """The near field's inputs of one sharded solve pass on this rank, as
+    ``compute_gravity`` builds them: the classification's leaf ranges
+    localized into the j-buffer the halo serve fills. Returns (starts,
+    lens, j-buffer)."""
+    from sphexa_torch.gravity import traversal as gt
+
+    x, y, z, m, h = xyzmh
+    mps = gt.compute_multipoles_sharded(mesh, x, y, z, m, keys, tree, meta,
+                                        order=cfg.multipole_order)
+    sh = None if shift is None else torch.as_tensor(shift, dtype=x.dtype, device=x.device)
+    lists = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1], shift=sh, let=True)
+    start, length = gt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, mps[3],
+                                        meta.num_nodes)
+    starts, lens, jd, _, _ = gt._near_field_halo((mesh, win), x, y, z, m, h, mps[3], start,
+                                                 length)
+    return starts, lens, jd
+
+
+def p2p_jdata_vs_plain(name: str, xyzmh, cfg, starts, lens, jdata, groups=None, shift=None,
+                       allow_self: bool = False) -> dict:
+    """K12's jdata form on a rank's j-buffer against its plain version on
+    the same inputs (``checks.p2p_vs_plain``: rtol 1e-4, atol P2P_ATOL
+    max|.|)."""
+    from sphexa_torch.kernels.checks import p2p_vs_plain
+
+    return p2p_vs_plain(name, *xyzmh, cfg, starts, lens, groups=groups, shift=shift,
+                        allow_self=allow_self, jdata=jdata)
+
+
+def rank_p2p_jdata(mesh: Mesh, flat, groups: int = 0) -> dict:
+    """K12's jdata form on this rank's j-buffer against its plain version:
+    the VE Simulation's gravity config at the state ``flat`` (the sparse
+    gravity serve), the slab sorted as the step sorts it, the near field's
+    localized ranges and served j-buffer (``p2p_jdata_case``), without
+    and with an image shift and the self pair. ``groups`` > 0: compare
+    that many target blocks, evenly spread (the plain version's cost)."""
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.kernels.checks import IMAGE_SHIFT
+
+    state, box, const = state_from_numpy(*flat, device=mesh.device)
+    sim = Simulation(state, box, const, prop="ve", device=mesh.device, num_devices=mesh.size)
+    ss, sbox, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    cfg = dataclasses.replace(sim.cfg.gravity, G=const.g)
+    xyzmh = (ss.x, ss.y, ss.z, ss.m, ss.h)
+    win = tuple(min(c, ss.n) for c in sim.cfg.grav_cells) or ss.n
+    out = {"win": win}
+    for name, shift, allow_self in (("open", None, False), ("image", IMAGE_SHIFT, True)):
+        starts, lens, jd = p2p_jdata_case(mesh, xyzmh, keys, sbox, sim.gtree, sim.cfg.grav_meta,
+                                          cfg, win, shift=shift, allow_self=allow_self)
+        sel = None
+        if groups:
+            sel = torch.linspace(0, lens.shape[0] - 1, groups, device=lens.device).round().long()
+        out[name] = p2p_jdata_vs_plain(f"rank {mesh.rank} {name}", xyzmh, cfg, starts, lens, jd,
+                                       groups=sel, shift=shift, allow_self=allow_self)
+        out[name]["halo_rows"] = int(jd[0].shape[0] - ss.n)
+    return out
+
+
+def ewald_mesh_vs_one_device(mesh: Mesh, n: int = 4096, seed: int = 3) -> dict:
+    """The sharded Ewald solve (sparse serve over the replica shifts) on
+    ``checks.periodic_random_case`` against the one-device solve of the
+    same sorted particles, tree and config on this rank's device (the
+    forces of a lattice cancel, so Sedov is no check of Ewald): ax within
+    rtol 1e-2 and atol 2e-3 max|a|, egrav within rel 1e-4 (the rank-ordered
+    leaf sums may flip a node at the MAC margin), K12 27 times."""
+    from sphexa_torch.gravity.ewald import compute_gravity_ewald, replica_shells
+    from sphexa_torch.kernels.checks import periodic_random_case
+    from sphexa_torch.simulation import Simulation
+
+    sim = Simulation(*periodic_random_case(n, seed, mesh.device), prop="nbody",
+                     device=mesh.device)
+    ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    cfg = dataclasses.replace(sim.cfg.gravity, G=sim.const.g)
+    tree, meta, ecfg = sim.gtree, sim.cfg.grav_meta, sim.cfg.ewald
+    one = compute_gravity_ewald(ss.x, ss.y, ss.z, ss.m, ss.h, keys, box, tree, meta, cfg, ecfg)
+    S = n // mesh.size
+    sl = slice(mesh.rank * S, (mesh.rank + 1) * S)
+    xyzmh = tuple(a[sl].contiguous() for a in (ss.x, ss.y, ss.z, ss.m, ss.h))
+    skeys = keys[sl].contiguous()
+    shifts = torch.as_tensor(replica_shells(ecfg), device=mesh.device) * box.lengths[0]
+    win = sizing.device_gravity_halo(mesh, *xyzmh[:4], skeys, box, tree, meta, cfg.theta,
+                                     shifts=shifts)
+    before = pe.LAUNCHES["gravity_p2p"]
+    ax, ay, az, egrav, d = sharded_solve(mesh, xyzmh, skeys, box, tree, meta, cfg, win,
+                                         ewald=ecfg)
+    launches = pe.LAUNCHES["gravity_p2p"] - before
+    scale = float(one[0].abs().max())
+    err = 0.0
+    for nm, a, b in zip(("ax", "ay", "az"), (ax, ay, az), one[:3]):
+        torch.testing.assert_close(a, b[sl], rtol=1e-2, atol=2e-3 * scale,
+                                   msg=f"rank {mesh.rank}: sharded Ewald {nm}")
+        err = max(err, float((a - b[sl]).abs().max()) / scale)
+    e1 = float(one[3])
+    if abs(float(egrav) - e1) > 1e-4 * abs(e1):
+        raise AssertionError(f"rank {mesh.rank}: sharded Ewald egrav {float(egrav)} vs {e1}")
+    if mesh.device.type == "cuda" and launches != 27:
+        raise AssertionError(f"rank {mesh.rank}: {launches} K12 launches in an Ewald solve")
+    return {"n": n, "win": win, "max_abs_err_over_scale": err,
+            "egrav_rel_err": abs(float(egrav) - e1) / abs(e1), "k12_launches": launches,
+            "diag": {k: float(v) for k, v in d.items()}}

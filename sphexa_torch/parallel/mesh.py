@@ -86,11 +86,12 @@ def make_mesh(num_devices: Optional[int] = None, device=None, backend: Optional[
                 backend=backend)
 
 
-def shard_state(state, mesh: Mesh):
+def shard_state(state, mesh: Mesh, n: Optional[int] = None):
     """This rank's slab of a whole state: rows [k S, (k + 1) S) of every
     per-particle tensor, scalars as they are; the count must divide by the
-    number of ranks (pad or trim the state first)."""
-    n = state.n
+    number of ranks (pad or trim the state first). ``n``: the particle
+    count, for a dataclass of tensors without one (the chemistry)."""
+    n = state.n if n is None else n
     if n % mesh.size:
         raise ValueError(f"particle count {n} not divisible by mesh size {mesh.size}; "
                          "pad the state first")
@@ -252,38 +253,51 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), workdir: str = ".", devic
 # the sharded step
 # ---------------------------------------------------------------------------
 
-#: what the step functions other than std and VE wait for on a mesh
-NEXT_SLICE = ("the next slice of the port (sharded gravity, turb-ve, std-cooling, block time "
-              "steps and N-body on a mesh)")
+#: what the step functions other than std, VE and std-cooling wait for on a
+#: mesh
+NEXT_SLICE = "the next slice of the port (turb-ve, block time steps and N-body on a mesh)"
 
 
 def make_sharded_step(mesh: Mesh, cfg, step_fn=None, halo_window: int = 0,
-                      halo_cells: Sequence[int] = ()):
+                      halo_cells: Sequence[int] = (), grav_cells: Sequence[int] = (),
+                      aux_cfg=None):
     """The step of this rank's slab (the JAX package's make_sharded_step):
-    ``stepper(state, box)`` -> (state, box, diagnostics) runs ``step_fn``
-    (std, the default, or VE) with ``cfg`` bound to the mesh and the halo
-    exchange's sizes: ``halo_cells`` (P - 1 per-distance row caps) selects
-    the sparse exchange, else ``halo_window`` rows per peer (0: whole
-    slabs). The steps stream (no lists). ``stepper.step_sim(sim)`` advances
-    a SimState carry. Every other step function, and self-gravity, raise."""
+    ``stepper(state, box, gtree=None, aux=None)`` runs ``step_fn`` (std,
+    the default, VE, or std-cooling) with ``cfg`` bound to the mesh and
+    the halo exchange's sizes: ``halo_cells`` (P - 1 per-distance row
+    caps) selects the sparse exchange, else ``halo_window`` rows per peer
+    (0: whole slabs). The steps stream (no lists). With self-gravity
+    (``cfg.gravity``) ``gtree`` is the replicated tree, and ``grav_cells``
+    (P - 1 per-distance caps, ``sizing.device_gravity_halo``) selects the
+    MAC-sized sparse near-field serve, else whole slabs. std-cooling takes
+    its chemistry slab as ``aux`` and its CoolingConfig as ``aux_cfg``,
+    and returns the sorted chemistry fourth. ``stepper.step_sim(sim,
+    gtree=None)`` advances a SimState carry. turb-ve, block time steps and
+    N-body raise."""
     from sphexa_torch import propagator as prop
 
     step_fn = prop._step_hydro_std if step_fn is None else step_fn
-    if step_fn not in (prop._step_hydro_std, prop._step_hydro_ve):
+    if step_fn not in (prop._step_hydro_std, prop._step_hydro_ve,
+                       prop._step_hydro_std_cooling):
         raise ValueError(f"{getattr(step_fn, '__name__', step_fn)} on a mesh comes with "
-                         f"{NEXT_SLICE}; this one shards the std and VE steps")
-    if cfg.gravity is not None or cfg.dt_bins is not None:
-        raise ValueError(f"self-gravity and block time steps on a mesh come with {NEXT_SLICE}")
-    if halo_cells and len(halo_cells) != mesh.size - 1:
-        raise ValueError(f"halo_cells needs P-1={mesh.size - 1} caps, got {len(halo_cells)}")
+                         f"{NEXT_SLICE}; this one shards the std, VE and std-cooling steps")
+    if cfg.dt_bins is not None:
+        raise ValueError(f"block time steps on a mesh come with {NEXT_SLICE}")
+    for name, caps in (("halo_cells", halo_cells), ("grav_cells", grav_cells)):
+        if caps and len(caps) != mesh.size - 1:
+            raise ValueError(f"{name} needs P-1={mesh.size - 1} caps, got {len(caps)}")
     cfg = dataclasses.replace(cfg, mesh=mesh, halo_window=int(halo_window),
-                              halo_cells=tuple(int(c) for c in halo_cells), list_slot_cap=0)
+                              halo_cells=tuple(int(c) for c in halo_cells),
+                              grav_cells=tuple(int(c) for c in grav_cells), list_slot_cap=0)
+    with_cfg = step_fn in prop.STEP_AUX_CFG
 
-    def stepper(state, box):
-        return step_fn(state, box, cfg)
+    def stepper(state, box, gtree=None, aux=None):
+        if with_cfg:
+            return step_fn(state, box, cfg, gtree, aux, aux_cfg)
+        return step_fn(state, box, cfg, gtree)
 
-    def step_sim(sim):
-        return prop.step_sim_state(step_fn, sim, cfg)
+    def step_sim(sim, gtree=None):
+        return prop.step_sim_state(step_fn, sim, cfg, gtree, aux_cfg)
 
     stepper.cfg = cfg
     stepper.step_sim = step_sim

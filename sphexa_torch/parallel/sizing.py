@@ -10,7 +10,11 @@ or O(cells) histograms reach the host, never the particles.
   exchange's per-distance row caps (``device_sparse_halo``). Each sorts
   the slabs as the step will (parallel/sort.py) and sizes from the runs
   the step's prologue will make; one window, or P - 1 caps, reach the
-  host. The gravity sizing waits for the sharded gravity slice.
+  host;
+- the gravity near field's sizing on a mesh (``gravity_need_matrix``,
+  ``device_gravity_halo``): the rows of every slab's leaves that another
+  slab's bbox opens under the monotone MAC (its P2P essential set), the
+  sparse gravity serve's per-distance caps.
 """
 
 import dataclasses
@@ -45,15 +49,27 @@ def drill_histogram(keys: torch.Tensor, cell_ids_sorted: torch.Tensor, level: in
 
 def leaf_array_from_device_keys(keys_dev: torch.Tensor, bucket_size: int,
                                 base_level: int = 5, sub: int = 2,
-                                k_cap: int = 4096) -> np.ndarray:
+                                k_cap: int = 4096, mesh=None) -> np.ndarray:
     """Cornerstone leaf array (sorted start keys + the 2^30 sentinel),
     uint64, built without shipping the keys to the host: a node splits
     while its count exceeds ``bucket_size`` (capped at the key resolution),
     which equals the converged rebalance of compute_octree. Counts come
     from one base-level histogram plus drill rounds over the overfull
-    frontier. Each histogram is one host read."""
+    frontier. Each histogram is one host read. ``mesh``: ``keys_dev`` is
+    this rank's slab of the keys, and every histogram is summed over the
+    ranks (an integer all_reduce, update_mpi.hpp's node-count allreduce),
+    so that every rank builds the tree of the union of the keys, the
+    one-device tree bit for bit."""
+    if mesh is not None:
+        from sphexa_torch.parallel.mesh import all_reduce_sum
+
+        def total(h):
+            return all_reduce_sum(mesh, h)
+    else:
+        def total(h):
+            return h
     base_level = min(base_level, KEY_BITS)
-    hist = key_histogram(keys_dev, base_level).cpu().numpy()
+    hist = total(key_histogram(keys_dev, base_level)).cpu().numpy()
     pyramid = {base_level: hist.astype(np.int64)}
     for lvl in range(base_level - 1, -1, -1):
         pyramid[lvl] = pyramid[lvl + 1].reshape(-1, 8).sum(axis=1)
@@ -84,8 +100,9 @@ def leaf_array_from_device_keys(keys_dev: torch.Tensor, bucket_size: int,
             chunk = np.sort(np.asarray(pending[c0: c0 + k_cap], np.int64))
             ids = np.full(k_cap, 2**30, np.int64)
             ids[: len(chunk)] = chunk
-            counts = drill_histogram(keys_dev, torch.as_tensor(ids, device=keys_dev.device),
-                                     level, step, k_cap).cpu().numpy()
+            counts = total(drill_histogram(keys_dev,
+                                           torch.as_tensor(ids, device=keys_dev.device),
+                                           level, step, k_cap)).cpu().numpy()
             for r, cell in enumerate(chunk):
                 sums = [counts[r].reshape(1 << (3 * d), -1).sum(axis=1)
                         for d in range(step + 1)]
@@ -233,3 +250,70 @@ def halo_sizes(mesh, state, box, nbr, mode: str, margin: float = 1.4,
     if mode == "sparse":
         return {"halo_cells": device_sparse_halo(*args, margin=margin)}
     return {"halo_window": device_halo_window(*args, margin=margin)}
+
+
+# ---------------------------------------------------------------------------
+# the gravity near field's sizing on a mesh
+# ---------------------------------------------------------------------------
+
+
+def gravity_need_matrix(mesh, xs, ys, zs, ms, skeys, box, tree, meta, theta: float,
+                        shifts=None, multipoles=None) -> torch.Tensor:
+    """(P_dest, P_src) rows of gravity near-field need (the JAX package's
+    gravity_need_matrix): entry [k, j] counts the rows of rank j's slab in
+    the leaves that rank k's slab bbox opens under the monotone MAC, rank
+    k's P2P essential set. Whatever the slab's bbox accepts arrives by M2P
+    on the replicated tree; the accept region only grows as the target
+    bbox shrinks, so a leaf that any block, superblock or essential-set
+    classification of the slab opens is opened by the slab too.
+    ``shifts`` ((ns, 3)): the opened set is unioned over the targets
+    shifted by each (the Ewald replica passes). ``xs`` .. ``skeys``: this
+    rank's slab of the sorted particles; ``multipoles``: the sharded
+    upsweep's (computed when None). Each rank's row, all_gathered: the
+    same on every rank."""
+    from sphexa_torch.gravity.traversal import (
+        _accept, _bbox, _monotone_mac_geometry, compute_multipoles_sharded,
+    )
+    from sphexa_torch.parallel.exchange import _sparse_layout
+    from sphexa_torch.parallel.mesh import all_gather
+
+    S = xs.shape[0]
+    if multipoles is None:
+        multipoles = compute_multipoles_sharded(mesh, xs, ys, zs, ms, skeys, tree, meta)
+    node_mass, node_com, _, edges = multipoles
+    valid = node_mass > 0
+    gc, gs, mac2 = _monotone_mac_geometry(box, tree, meta, node_com, valid, theta)
+    bc, bs = _bbox(xs, ys, zs)
+    opened = ~_accept(bc, bs, gc, gs, mac2)
+    if shifts is not None:
+        for sh in shifts:
+            opened = opened | ~_accept(bc + sh, bs, gc, gs, mac2)
+    cov = opened[tree.node_of_leaf]  # (L,): the leaves this slab opens
+    return all_gather(mesh, _sparse_layout(cov, edges, S, mesh.size)[2])
+
+
+def _gravity_halo_needs(mesh, *args, **kw) -> torch.Tensor:
+    """(P - 1,) per-distance gravity needs: entry r - 1 the most rows any
+    rank needs from its distance-r predecessor (the fold of
+    ``gravity_need_matrix`` that ``_sparse_halo_needs`` makes of the SPH
+    one)."""
+    need = gravity_need_matrix(mesh, *args, **kw)
+    P = mesh.size
+    j = torch.arange(P, device=need.device)
+    return torch.stack([need[(j + r) % P, j].max() for r in range(1, P)]) if P > 1 else \
+        need.new_zeros(0)
+
+
+def device_gravity_halo(mesh, xs, ys, zs, ms, skeys, box, tree, meta, theta: float,
+                        shifts=None, margin: float = 1.4, quantum: int = 256,
+                        multipoles=None) -> Tuple[int, ...]:
+    """The sparse gravity serve's per-distance row caps (the JAX package's
+    device_gravity_halo): each need padded by ``margin`` up to a multiple
+    of ``quantum``, at most the slab (a cap of S ships the whole slab, the
+    retry ceiling, where the escape sentinel cannot fire). P - 1 scalars
+    reach the host."""
+    S = xs.shape[0]
+    per_r = _gravity_halo_needs(mesh, xs, ys, zs, ms, skeys, box, tree, meta, theta,
+                                shifts=shifts, multipoles=multipoles).tolist()
+    return tuple(min(int(-(-int(max(int(v), 1) * margin) // quantum) * quantum), S)
+                 for v in per_r)

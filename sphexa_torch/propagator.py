@@ -32,15 +32,18 @@ runs the steps eagerly; the pair ops launch the CUDA kernels on the card
 and their plain versions on the CPU.
 
 Under a mesh (``cfg.mesh``, parallel/mesh.py ``make_sharded_step``; the
-std and VE steps) the state is this rank's slab: the box regrow reduces
-the extrema over the ranks, the sort is the distributed one
-(parallel/sort.py: rank k ends with rows [k S, (k + 1) S) of the global
-stable sort), and the force stage is ``_std_forces_sharded`` /
-``_ve_forces_sharded``: K1 on the slab against [own slab | halo rows]
-j-buffers (parallel/exchange.py), one serve of halo rows per field set
-the next op reads on its j side; the step's scalars (dt, the occupancy
-with the halo escape sentinel folded in, the diagnostics and the ledger)
-are reduced over the ranks, so that every rank returns the same ones.
+std, VE and std-cooling steps) the state is this rank's slab: the box
+regrow reduces the extrema over the ranks, the sort is the distributed
+one (parallel/sort.py: rank k ends with rows [k S, (k + 1) S) of the
+global stable sort; the chemistry rides it as extra columns), and the
+force stage is ``_std_forces_sharded`` / ``_ve_forces_sharded``: K1 on
+the slab against [own slab | halo rows] j-buffers (parallel/exchange.py),
+one serve of halo rows per field set the next op reads on its j side;
+self-gravity is ``_gravity_sharded_stage`` (the sharded upsweep, the
+rank's essential set, the near field on served halo rows, open or
+Ewald). The step's scalars (dt, the occupancy with the halo escape
+sentinel folded in, egrav, the diagnostics and the ledger) are reduced
+over the ranks, so that every rank returns the same ones.
 """
 
 import dataclasses
@@ -82,6 +85,15 @@ DT_LIMITERS = ("growth", "courant", "rho", "cool", "accel")
 #: occupancy, its candidate rows a pair op streams, its escape trips
 SHARD_DIAG_KEYS = ("shard_rows", "shard_occ", "shard_work", "shard_trips")
 
+#: the gravity stage's (P,) diagnostics, with the MAC-sized sparse serve:
+#: each rank's true remote near-field rows and its fullest per-distance
+#: buffer's occupancy
+GRAV_SHARD_DIAG_KEYS = ("gshard_rows", "gshard_occ")
+
+#: step diagnostics reduced by min over the ranks (with the step's other
+#: scalars, no collective of their own)
+_MESH_MIN_KEYS = ("du_cool_min",)
+
 
 @dataclasses.dataclass(frozen=True)
 class PropagatorConfig:
@@ -116,10 +128,12 @@ class PropagatorConfig:
     # this rank's mesh (parallel/mesh.py Mesh; None: one device) and the
     # halo exchange's static sizes: per-distance row caps of the sparse
     # exchange (P - 1 of them), else the windowed exchange's per-peer
-    # window (0: whole slabs)
+    # window (0: whole slabs); the gravity near field's per-distance caps
+    # (empty: whole slabs)
     mesh: Optional[object] = None
     halo_window: int = 0
     halo_cells: Tuple[int, ...] = ()
+    grav_cells: Tuple[int, ...] = ()
 
 
 def _dt_limiter(min_dt_prev, const: SimConstants, courant=None, rho=None,
@@ -186,16 +200,28 @@ def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None, bins=Non
     return new, keys[order], order, aux
 
 
-def _sort_by_keys_sharded(state: ParticleState, box: Box, curve: str, mesh):
+def _sort_by_keys_sharded(state: ParticleState, box: Box, curve: str, mesh, aux=None):
     """``_sort_by_keys`` across ranks: this rank's slab of the global
-    stable sort (parallel/sort.py). Returns (state, sorted keys)."""
+    stable sort (parallel/sort.py). ``aux`` (the chemistry: float32 (S,)
+    fields) rides the sort as extra columns. Returns (state, sorted keys),
+    and the sorted aux third with ``aux``."""
     from sphexa_torch.parallel.sort import distributed_sort
 
     keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
-    skeys, mat = distributed_sort(mesh, keys, torch.stack(
-        [getattr(state, f) for f in PARTICLE_FIELDS], dim=1))
-    return dataclasses.replace(state, **{f: mat[:, k].contiguous()
-                                         for k, f in enumerate(PARTICLE_FIELDS)}), skeys
+    n = state.n
+    per = [] if aux is None else [f.name for f in dataclasses.fields(aux)
+                                  if getattr(aux, f.name).shape == (n,)]
+    if any(getattr(aux, f).dtype != state.x.dtype for f in per):
+        raise ValueError("the distributed sort carries float32 per-particle aux fields only")
+    cols = [getattr(state, f) for f in PARTICLE_FIELDS] + [getattr(aux, f) for f in per]
+    skeys, mat = distributed_sort(mesh, keys, torch.stack(cols, dim=1))
+    nf = len(PARTICLE_FIELDS)
+    new = dataclasses.replace(state, **{f: mat[:, k].contiguous()
+                                        for k, f in enumerate(PARTICLE_FIELDS)})
+    if aux is None:
+        return new, skeys
+    return new, skeys, dataclasses.replace(aux, **{f: mat[:, nf + k].contiguous()
+                                                   for k, f in enumerate(per)})
 
 
 def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig, aux=None):
@@ -226,11 +252,11 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if keys is not None:
         return (state, box, keys, None, *tail)
     if cfg.mesh is not None:
-        if lists is not None or aux is not None:
-            raise ValueError("the sharded steps stream (no lists) and carry no aux")
+        if lists is not None:
+            raise ValueError("the sharded steps stream (no lists)")
         box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
-        state, keys = _sort_by_keys_sharded(state, box, cfg.curve, cfg.mesh)
-        return (state, box, keys, None)
+        state, keys, *tail = _sort_by_keys_sharded(state, box, cfg.curve, cfg.mesh, aux=aux)
+        return (state, box, keys, None, *tail)
     if lists is not None:
         if cfg.gravity is not None:
             raise NotImplementedError("persistent lists compose with gravity-off steps; "
@@ -243,12 +269,66 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
     return (state, box, keys, None, *tail)
 
 
+def _gravity_sharded_stage(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
+                           gtree: GravityTree, ax, ay, az):
+    """Self-gravity on this rank's slab (the JAX package's
+    _gravity_sharded_stage): the sharded multipole upsweep
+    (``compute_multipoles_sharded``, O(tree) traffic), the classification
+    against the rank's essential set on the replicated tree, M2P, and the
+    near field through the halo exchange: the MAC-sized sparse serve with
+    ``cfg.grav_cells`` (each cap at most the slab), else whole slabs (the
+    SPH halo's sizes are never reused here: the near field reaches the
+    MAC radius, far past 2h). The Ewald solve serves once per replica
+    pass. Then one all_gather closes the stage, as the JAX package's
+    _chain_stage_reductions and its gathers: egrav summed in rank order,
+    the acceleration dt candidate (over the hydro and gravity
+    accelerations) a min, the solver diagnostics a max, and with the
+    sparse serve each rank's ``halo_rows`` / ``halo_occ`` as the (P,)
+    GRAV_SHARD_DIAG_KEYS. Returns (ax, ay, az, egrav, dt_acc, gravity
+    diagnostics), the scalars the same on every rank."""
+    from sphexa_torch.gravity.traversal import compute_multipoles_sharded
+    from sphexa_torch.parallel.mesh import all_gather
+
+    mesh, S = cfg.mesh, state.n
+    win = tuple(min(int(c), S) for c in cfg.grav_cells) if cfg.grav_cells else S
+    gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
+    args = (state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
+    if cfg.ewald is not None:
+        gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald, shard=(mesh, win))
+    else:
+        mps = compute_multipoles_sharded(mesh, state.x, state.y, state.z, state.m, keys, gtree,
+                                         cfg.grav_meta, order=gcfg.multipole_order)
+        gx, gy, gz, egrav, gdiag = compute_gravity(*args, multipoles=mps, shard=(mesh, win))
+    ax, ay, az = ax + gx, ay + gy, az + gz
+    dt_acc = acceleration_timestep(ax, ay, az, cfg.const)
+    grows, gocc = gdiag.pop("halo_rows", None), gdiag.pop("halo_occ", None)
+    names = sorted(gdiag)
+    f64 = torch.float64
+    cols = [egrav, dt_acc] + [gdiag[k] for k in names]
+    if grows is not None:
+        cols += [grows, gocc]
+    g = all_gather(mesh, torch.stack([c.to(f64) for c in cols]))  # (P, K)
+    acc = g[0, 0]
+    for r in range(1, mesh.size):
+        acc = acc + g[r, 0]
+    egrav = acc.to(egrav.dtype)
+    dt_acc = g[:, 1].min().to(dt_acc.dtype)
+    diag = {k: g[:, 2 + i].max().to(gdiag[k].dtype) for i, k in enumerate(names)}
+    if grows is not None:
+        diag["gshard_rows"] = g[:, -2].to(torch.int32)
+        diag["gshard_occ"] = g[:, -1].to(torch.float32)
+    return ax, ay, az, egrav, dt_acc, diag
+
+
 def _add_gravity(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
                  gtree: GravityTree, ax, ay, az):
     """Self-gravity coupling (gravity_wrapper.hpp:97-123): the Barnes-Hut
     accelerations of the sorted particles added to the hydro ones, by the
     Ewald solve with ``cfg.ewald`` (a periodic box), else the open-box
-    one. Returns (ax, ay, az, egrav, dt_acc, gravity diagnostics)."""
+    one; on a mesh ``_gravity_sharded_stage``. Returns (ax, ay, az, egrav,
+    dt_acc, gravity diagnostics)."""
+    if cfg.mesh is not None:
+        return _gravity_sharded_stage(state, box, keys, cfg, gtree, ax, ay, az)
     gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
     args = (state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
     if cfg.ewald is not None:
@@ -288,7 +368,9 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if cfg.mesh is not None:
         rho, c, nc, occ, ax, ay, az, du, dt_courant, sdiag = _std_forces_sharded(
             state, box, cfg, keys)
-        return (state, box, ax, ay, az, du, dt_courant, (), nc, occ, rho, c, sdiag,
+        ax, ay, az, extra_dts, sdiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
+                                                     sdiag)
+        return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, sdiag,
                 *(rest or [None]))
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
@@ -496,9 +578,12 @@ def _step_diagnostics(cfg: PropagatorConfig, new_state: ParticleState, box: Box,
         from sphexa_torch.parallel.mesh import reduce_scalars
 
         keys = ("nc_max", "rho_max", "h_max")
-        (nc_sum,), maxes, _ = reduce_scalars(mesh, sums=[diagnostics["nc_sum"]],
-                                             maxes=[diagnostics[k] for k in keys])
+        mkeys = [k for k in _MESH_MIN_KEYS if k in (extra_diag or {})]
+        (nc_sum,), maxes, mins = reduce_scalars(mesh, sums=[diagnostics["nc_sum"]],
+                                                maxes=[diagnostics[k] for k in keys],
+                                                mins=[extra_diag[k] for k in mkeys])
         diagnostics.update(zip(keys, maxes))
+        extra_diag = {**(extra_diag or {}), **dict(zip(mkeys, mins))}
         diagnostics["nc_sum"] = nc_sum
         n_all = float(new_state.n * mesh.size)
         diagnostics["nc_mean"] = (nc_sum.to(torch.float64) / n_all).to(torch.float32) + 1.0
@@ -544,6 +629,11 @@ def _step_hydro_std_cooling(state: ParticleState, box: Box, cfg: PropagatorConfi
      chem) = _std_forces(state, box, cfg, gtree, lists, aux=chem)
     u = const.cv * state.temp
     dt_cool = cool_timestep(rho, u, chem, cool_cfg)
+    if cfg.mesh is not None:
+        from sphexa_torch.parallel.mesh import reduce_scalars
+
+        # a global minimum, as the JAX package's jnp.min over the slabs
+        _, _, (dt_cool,) = reduce_scalars(cfg.mesh, mins=[dt_cool])
     dt = compute_timestep(state.min_dt, dt_courant, dt_cool, *extra_dts, const=const)
     du_cool, chem = cool_step(dt, rho, u, chem, cool_cfg)
     du = du + du_cool
@@ -583,9 +673,12 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if cfg.mesh is not None:
         (rho, c, nc, occ, ax, ay, az, du, dt_courant, dt_rho, alpha,
          sdiag) = _ve_forces_sharded(state, box, cfg, keys)
-        dt = compute_timestep(state.min_dt, dt_courant, dt_rho, const=const)
-        diag = {**sdiag, "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant,
-                                                   rho=dt_rho)}
+        ax, ay, az, extra_dts, sdiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
+                                                     sdiag)
+        dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
+        diag = {**sdiag, "dt_limiter": _dt_limiter(
+            state.min_dt, const, courant=dt_courant, rho=dt_rho,
+            accel=extra_dts[0] if extra_dts else None)}
         return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c, diag
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     vx, vy, vz = state.vx, state.vy, state.vz

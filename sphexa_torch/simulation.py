@@ -1,13 +1,14 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE,
 turb-ve, std-cooling and N-body propagators and the std and VE block time
-steps on one card, std and VE across ranks): static
+steps on one card, std, VE and std-cooling across ranks, with or without
+self-gravity): static
 neighbour-config sizing, the gravity tree and its caps (open-box or
 Ewald periodic gravity), the step loop with the overflow contract,
 deferred check windows with rollback and replay of the whole carry (the
 stirring state and the chemistry included), the persistent-list
 lifecycle, the science ledger's rows and watchdogs, the halo sizing of
-the sharded steps with the escape sentinel's regrow, and the driver's
-telemetry events."""
+the sharded steps and of the gravity near field with the escape
+sentinels' regrow, and the driver's telemetry events."""
 
 import dataclasses
 import time
@@ -18,9 +19,10 @@ import torch
 
 from sphexa_torch.device import resolve_device
 from sphexa_torch.dtypes import KEY_BITS
-from sphexa_torch.gravity.ewald import EwaldConfig
+from sphexa_torch.gravity.ewald import EwaldConfig, replica_shells
 from sphexa_torch.gravity.traversal import (
-    GRAV_BUCKET, M2P_CAP_MARGIN, THETA, GravityConfig, estimate_gravity_caps, gravity_tuning,
+    GRAV_BUCKET, M2P_CAP_MARGIN, THETA, GravityConfig, compute_multipoles_sharded,
+    estimate_gravity_caps, gravity_tuning,
 )
 from sphexa_torch.gravity.tree import linkage_from_leaves
 from sphexa_torch.init.turbulence import turbulence_constants
@@ -34,7 +36,10 @@ from sphexa_torch.propagator import (
     _step_turb_ve, exchange_fields_per_step, rebuild_pair_lists, step_sim_state,
 )
 from sphexa_torch.parallel import mesh as pmesh
-from sphexa_torch.parallel.sizing import halo_sizes, leaf_array_from_device_keys, sizing_stats
+from sphexa_torch.parallel.sizing import (
+    device_gravity_halo, halo_sizes, leaf_array_from_device_keys, sizing_stats,
+)
+from sphexa_torch.parallel.sort import distributed_sort
 from sphexa_torch.sfc.box import BoundaryType, Box, make_global_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph.blockdt import make_blockdt_state
@@ -238,21 +243,30 @@ class Simulation:
     (an Ewald solve's worst replica pass) is discarded, the caps re-sized
     with a 1.5x larger margin, and the step replayed.
 
-    ``num_devices`` P > 1 (std and VE, gravity off, no block time steps;
-    the others raise, naming the slice that brings them): this process is
-    one of P ranks (parallel/mesh.py ``spawn``) and joins their process
-    group; ``state`` is the whole initial state, of which the rank keeps
-    its slab, and ``device`` is the rank's. The steps stream (no lists)
-    over the sharded force stages with the ``halo_mode`` exchange
+    ``num_devices`` P > 1 (std, VE and std-cooling, with or without
+    self-gravity, open or Ewald; turb-ve, N-body and block time steps
+    raise, naming the slice that brings them): this process is one of P
+    ranks (parallel/mesh.py ``spawn``) and joins their process group;
+    ``state`` (and ``chem``) is the whole initial state, of which the rank
+    keeps its slab, and ``device`` is the rank's. The steps stream (no
+    lists) over the sharded force stages with the ``halo_mode`` exchange
     ("sparse", per-distance row caps, or "windowed", one window per
     peer), sized at every (re)configuration from the current particles
     with a margin; a step whose runs escape the served halo (the
     occupancy's cap + 1 sentinel) is discarded, the margin grown 1.5x and
-    the step replayed, deferred windows included. Every rank takes every
-    decision from the replicated scalars. At each check or flush boundary
-    a ``shard_load`` and an ``exchange`` event go out, and an
-    ``imbalance`` event where a per-rank metric's max over its mean
-    reaches ``imbalance_ratio``."""
+    the step replayed, deferred windows included. With self-gravity every
+    rank builds the same tree from the summed key histograms, the caps
+    (the essential set's ``let_cap`` too) come from the sharded upsweep,
+    and the near field's sparse serve is sized by the MAC need
+    (``device_gravity_halo``) padded by ``grav_window_margin`` to
+    multiples of ``grav_window`` rows (0: whole slabs); a step whose near
+    field escapes it (``p2p_max`` at the cap + 1 sentinel) is replayed
+    with the margin grown 1.5x, and at a second trip within one step with
+    whole slabs. Every rank takes every decision from the replicated
+    scalars. At each check or flush boundary a ``shard_load`` and an
+    ``exchange`` event go out (with the sparse gravity serve a second
+    ``exchange``, stage "gravity"), and an ``imbalance`` event where a
+    per-rank metric's max over its mean reaches ``imbalance_ratio``."""
 
     # rebuild proactively below this remaining-skin fraction: the next
     # step would likely expire and be discarded
@@ -271,7 +285,8 @@ class Simulation:
                  chem: Optional[ChemistryData] = None, dt_bins: Optional[int] = None,
                  bin_sync_every: int = 1, bin_resort_drift: float = 0.0,
                  num_devices: Optional[int] = None, halo_mode: str = "sparse",
-                 imbalance_ratio: float = 1.5):
+                 imbalance_ratio: float = 1.5, grav_window: int = 256,
+                 grav_window_margin: float = 1.4):
         if prop not in _STEPS:
             raise ValueError(f"unknown propagator {prop!r}; available: {sorted(_STEPS)}")
         if dt_bins is not None:
@@ -302,13 +317,22 @@ class Simulation:
             raise ValueError(f"halo_mode must be 'sparse' or 'windowed', got {halo_mode!r}")
         self.mesh = None
         if num_devices is not None and num_devices > 1:
-            if prop not in ("std", "ve") or self.gravity_on or dt_bins is not None:
-                raise ValueError(f"prop={prop!r}, self-gravity or block time steps on a mesh "
-                                 f"come with {pmesh.NEXT_SLICE}; std and VE shard now")
+            if prop not in ("std", "ve", "std-cooling") or dt_bins is not None:
+                raise ValueError(f"prop={prop!r} or block time steps on a mesh come with "
+                                 f"{pmesh.NEXT_SLICE}; std, VE and std-cooling shard now")
             self.mesh = pmesh.make_mesh(num_devices, device=device)
         self._halo_mode = halo_mode
         self._halo_margin = 1.4  # grown 1.5x by every escape-sentinel trip
         self._halo_info: Dict = {}
+        # the gravity near field's sparse serve: the caps' quantum in rows
+        # (0: whole slabs) and the MAC need's margin, grown 1.5x by every
+        # escape-sentinel trip
+        self.grav_window = int(grav_window)
+        if self.grav_window < 0:
+            raise ValueError(f"grav_window must be >= 0, got {self.grav_window}")
+        self._grav_halo_margin = float(grav_window_margin)
+        self._grav_cells: tuple = ()
+        self._grav_halo_info: Dict = {}
         self._imbalance_ratio = float(imbalance_ratio)
         any_periodic = any(b == BoundaryType.periodic for b in box.boundaries)
         all_periodic = all(b == BoundaryType.periodic for b in box.boundaries)
@@ -365,6 +389,9 @@ class Simulation:
             if self.chem is None:
                 self.chem = ChemistryData.ionized(state.n, device=self.device)
         if self.chem is not None:
+            if self.mesh is not None and self.chem.hi.shape[0] == state.n:
+                # the chemistry rides the slabs as the state does
+                self.chem = pmesh.shard_state(self.chem, self.mesh, n=state.n)
             self.chem = self.chem.to(self.device)
         self.curve = curve
         self.cell_target = cell_target
@@ -451,7 +478,7 @@ class Simulation:
     def _configure_impl(self, min_cap: int = 0, grav_margin: float = 1.5) -> None:
         self._lists = None  # any re-size invalidates the lists
         sizing_cache = None
-        if self.gravity_on:
+        if self.gravity_on and self.mesh is None:
             # one keygen + stable argsort, shared by the grid sizing and
             # the tree build; keys against the regrown box (equal to the
             # box until particles leave it)
@@ -489,7 +516,8 @@ class Simulation:
         mesh, S, P = self.mesh, self.state.n, self.mesh.size
         sizes = halo_sizes(mesh, self.state, self.box, self._cfg.nbr, self._halo_mode,
                            margin=self._halo_margin, curve=self.curve)
-        stepper = pmesh.make_sharded_step(mesh, self._cfg, self._step_fn, **sizes)
+        stepper = pmesh.make_sharded_step(mesh, self._cfg, self._step_fn, **sizes,
+                                          grav_cells=self._grav_cells, aux_cfg=self._aux_cfg)
         if "halo_cells" in sizes:
             caps = sizes["halo_cells"]
             self._halo_info = {"mode": "sparse", "caps": caps, "shipped_rows": sum(caps)}
@@ -499,6 +527,20 @@ class Simulation:
         self._halo_info["slab"] = S
         self._halo_info["bytes_per_step"] = 4 * self._halo_info["shipped_rows"] * \
             exchange_fields_per_step(self.prop_name, self.av_clean)
+        self._grav_halo_info = {}
+        if self.gravity_on:
+            # the near field serves x, y, z, m, h once a solve pass (27 in
+            # an Ewald solve)
+            nshell = len(replica_shells(self._cfg.ewald)) if self._cfg.ewald else 1
+            if self._grav_cells:
+                caps = tuple(min(int(c), S) for c in self._grav_cells)
+                self._grav_halo_info = {"mode": "sparse", "caps": caps,
+                                        "shipped_rows": sum(caps)}
+            else:
+                self._grav_halo_info = {"mode": "windowed", "wmax": S,
+                                        "shipped_rows": (P - 1) * S}
+            self._grav_halo_info["bytes_per_step"] = \
+                self._grav_halo_info["shipped_rows"] * 5 * 4 * nshell
         self._cfg = stepper.cfg
 
     @property
@@ -507,6 +549,13 @@ class Simulation:
         the caps or the window, the rows a serve ships, the slab and the
         bytes a step ships ({} on one device)."""
         return dict(self._halo_info)
+
+    @property
+    def grav_halo_info(self) -> Dict:
+        """The gravity near field's exchange shape on a mesh: "sparse" with
+        its per-distance caps, or "windowed" (whole slabs), the rows a serve
+        ships and the bytes a step ships ({} without)."""
+        return dict(self._grav_halo_info)
 
     def _configure_gravity(self, margin: float, keys_cache) -> None:
         """(Re)build the gravity tree from the particles' keys and size
@@ -517,6 +566,10 @@ class Simulation:
         are guarded by the overflow diagnostics); the multipoles of every
         step follow the tree."""
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            self._configure_gravity_sharded(margin)
+            self.grav_configure_seconds = time.perf_counter() - t0
+            return
         s = self.state
         keys, order = keys_cache
         leaf_tree = leaf_array_from_device_keys(keys, bucket_size=GRAV_BUCKET)
@@ -532,6 +585,44 @@ class Simulation:
                                         ewald=EwaldConfig() if self.ewald_on else None)
         self.grav_configure_seconds = time.perf_counter() - t0
 
+    def _configure_gravity_sharded(self, margin: float) -> None:
+        """``_configure_gravity`` on a mesh (the JAX package's, with
+        ``let_shards``): the tree from the key histograms summed over the
+        ranks (every rank builds the same one), the slabs sorted as the
+        step sorts them, the sharded upsweep, the caps sized over the
+        global array's blocks with the essential set's cap, and the sparse
+        gravity serve's caps from the MAC need (``device_gravity_halo``,
+        over the Ewald replica shifts in a periodic box), unless
+        ``grav_window`` is 0 (whole slabs)."""
+        s, mesh = self.state, self.mesh
+        gbox = make_global_box(s.x, s.y, s.z, self.box, mesh=mesh)
+        keys = compute_sfc_keys(s.x, s.y, s.z, gbox, curve=self.curve)
+        leaf_tree = leaf_array_from_device_keys(keys, bucket_size=GRAV_BUCKET, mesh=mesh)
+        gtree, meta = linkage_from_leaves(leaf_tree, curve=self.curve, device=self.device)
+        skeys, mat = distributed_sort(mesh, keys, torch.stack([s.x, s.y, s.z, s.m], dim=1))
+        xs, ys, zs, ms = (a.contiguous() for a in mat.unbind(1))
+        mps = compute_multipoles_sharded(mesh, xs, ys, zs, ms, skeys, gtree, meta)
+        gcfg = estimate_gravity_caps(
+            xs, ys, zs, ms, skeys, self.box, gtree, meta,
+            GravityConfig(theta=self.theta, G=self.const.g,
+                          m2p_cap_margin=self.m2p_cap_margin,
+                          **gravity_tuning(s.n * mesh.size)),
+            margin=margin, multipoles=mps, let_shards=mesh.size, mesh=mesh)
+        ewald = EwaldConfig() if self.ewald_on else None
+        self._grav_cells = ()
+        if self.grav_window > 0:
+            shifts = None
+            if ewald is not None:
+                # a shifted slab reaches wrap-around leaves the base pass
+                # never opens: the need is the union over the shifts
+                shifts = torch.as_tensor(replica_shells(ewald), device=self.device) * \
+                    self.box.lengths[0]
+            self._grav_cells = device_gravity_halo(
+                mesh, xs, ys, zs, ms, skeys, self.box, gtree, meta, self.theta, shifts=shifts,
+                margin=self._grav_halo_margin, quantum=self.grav_window, multipoles=mps)
+        self._gtree = gtree
+        self._cfg = dataclasses.replace(self._cfg, gravity=gcfg, grav_meta=meta, ewald=ewald)
+
     @property
     def gtree(self):
         """The gravity tree of the current configuration (None without
@@ -539,12 +630,25 @@ class Simulation:
         return self._gtree
 
     def _gravity_overflowed(self, d: Dict[str, float]) -> bool:
-        """An interaction list, a leaf or a superblock list outgrew its cap."""
+        """An interaction list, a leaf, a superblock list or a rank's
+        essential set outgrew its cap (on a mesh, ``p2p_max`` at the cap
+        + 1 may be the near field's escape sentinel:
+        ``_grav_window_blown``)."""
         if not self.gravity_on:
             return False
         g = self._cfg.gravity
         return (d["m2p_max"] > g.m2p_cap or d["p2p_max"] > g.p2p_cap
-                or d["leaf_occ"] > g.leaf_cap or d["c_max"] > g.super_cap)
+                or d["leaf_occ"] > g.leaf_cap or d["c_max"] > g.super_cap
+                or (g.let_cap > 0 and d.get("let_max", 0) > g.let_cap))
+
+    def _grav_window_blown(self, d: Dict[str, float]) -> bool:
+        """The sparse gravity serve's escape sentinel: ``p2p_max`` exactly
+        the cap + 1 while its caps are active. A real overflow landing on
+        cap + 1 is handled the same way: the margin's regrowth ends at
+        whole slabs, where every row is served and the sentinel cannot
+        fire, and a persisting overflow is then the caps'."""
+        return (self.gravity_on and bool(self._grav_cells)
+                and int(d["p2p_max"]) == self._cfg.gravity.p2p_cap + 1)
 
     def _config_still_valid(self, d: Dict[str, float]) -> bool:
         """The step's occupancy within the cap and the cell edge still
@@ -668,6 +772,7 @@ class Simulation:
         t0 = time.perf_counter()
         reconfigured = False
         grav_margin = 1.5
+        grav_blown_once = False
         for _attempt in range(4):
             sim, names, packed, used_lists = self._launch()
             (d,) = self._fetch_scalars([(names, packed)])
@@ -678,7 +783,14 @@ class Simulation:
                 # stale lists: rebuild them (no re-size) and replay
                 self._rebuild_lists()
                 continue
-            if self._gravity_overflowed(d):
+            if self._grav_window_blown(d):
+                # escaped near-field runs: grow the MAC need's margin, not
+                # the caps; a second trip in one step serves whole slabs
+                self._grav_halo_margin = 1e9 if grav_blown_once else \
+                    self._grav_halo_margin * 1.5
+                grav_blown_once = True
+                self.telemetry.count("grav_halo_trips")
+            elif self._gravity_overflowed(d):
                 grav_margin *= 1.5
             self._reconfigure_after_overflow(d, grav_margin)
             reconfigured = True
@@ -789,8 +901,14 @@ class Simulation:
         if expiry_only:
             self._rebuild_lists()
         else:
-            self._reconfigure_after_overflow(
-                d_bad, 1.5 * 1.5 if self._gravity_overflowed(d_bad) else 1.5)
+            grav_margin = 1.5
+            if self._grav_window_blown(d_bad):
+                # the replay below escalates to whole slabs on a repeat trip
+                self._grav_halo_margin *= 1.5
+                self.telemetry.count("grav_halo_trips")
+            elif self._gravity_overflowed(d_bad):
+                grav_margin = 1.5 * 1.5
+            self._reconfigure_after_overflow(d_bad, grav_margin)
         for _ in range(len(pending)):
             result = self._step_checked()
         self.telemetry.event("replay", it=self.iteration, steps=len(pending))
@@ -821,6 +939,14 @@ class Simulation:
                       occ=[round(float(o), 4) for o in occ],
                       bytes_per_step=int(info["bytes_per_step"]),
                       trips=int(tel.counters.get("halo_trips", 0)), stage="sph")
+        grows, gocc = per_rank("gshard_rows"), per_rank("gshard_occ")
+        if grows is not None:
+            ginfo = self._grav_halo_info
+            tel.event("exchange", it=self.iteration, steps=steps, mode=ginfo["mode"],
+                      shipped_rows=int(ginfo["shipped_rows"]), rows=[int(r) for r in grows],
+                      occ=[round(float(o), 4) for o in gocc],
+                      bytes_per_step=int(ginfo["bytes_per_step"]),
+                      trips=int(tel.counters.get("grav_halo_trips", 0)), stage="gravity")
         for metric, a in (("work", work), ("halo_rows", rows), ("halo_occ", occ)):
             if not a:
                 continue

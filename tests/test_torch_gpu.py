@@ -30,7 +30,11 @@ with sinc at index 5; K13's one-row form bit for bit; block-time-step
 substeps on the card against the CPU (Sedov std and VE, Evrard). Under
 ``-k sharded``: two gloo ranks on the card, K1's jdata form of every std
 and VE op against its plain version and one std and one VE step against
-the one-device step (kernels/sharded_checks.py)."""
+the one-device step (kernels/sharded_checks.py); with gravity, a VE
+Evrard step and an Ewald solve against the one-device ones. K12's jdata
+form (``-k p2p_jdata``): bit for bit the one-device form on the targets'
+own arrays, and within its tolerance of the plain version on a rank's
+[own slab | halo rows]."""
 
 import dataclasses
 
@@ -892,3 +896,73 @@ def test_sharded_step_two_ranks_on_one_card(tmp_path):
         np.testing.assert_array_equal(np.concatenate([r["h"] for r in res]), s.h.cpu().numpy())
         assert res[0]["nc_sum"] == float(d["nc_sum"])
         np.testing.assert_allclose(res[0]["dt"], float(d["dt"]), rtol=1e-5)
+
+
+def _evrard_flat(side=20):
+    from sphexa_torch.init import init_evrard
+
+    state, box, const = init_evrard(side, device="cpu")
+    n = state.n // 2 * 2
+    state = dataclasses.replace(state, **{f.name: getattr(state, f.name)[:n]
+                                          for f in dataclasses.fields(state)
+                                          if getattr(state, f.name).dim() == 1})
+    return state_to_numpy(state, box, const)
+
+
+def test_p2p_jdata_matches_plain(tmp_path):
+    """K12's jdata form: the targets' own arrays as its j-buffer give the
+    one-device launch's outputs bit for bit; on two ranks of the card, a
+    rank's served [own slab | halo rows] within the near field's tolerance
+    of the plain version, open and with an image shift and the self pair."""
+    _need_card()
+    from sphexa_torch.gravity import traversal as gt
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.parallel.mesh import spawn
+
+    sim = Simulation(*state_from_numpy(*_evrard_flat(), device="cuda"), prop="ve",
+                     device="cuda")
+    ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
+    cfg = dataclasses.replace(sim.cfg.gravity, G=sim.const.g)
+    starts, lens, _ = checks.near_field_ranges(ss.x, ss.y, ss.z, ss.m, keys, box, sim.gtree,
+                                               sim.cfg.grav_meta, cfg)
+    own = (ss.x, ss.y, ss.z, ss.m, ss.h)
+    z3 = torch.zeros(3, device="cuda")
+    ref = gt._pallas_p2p(*own, z3, False, cfg, starts, lens)
+    got = gt._pallas_p2p(*own, z3, False, cfg, starts, lens, jdata=own)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+    out = spawn(sc.rank_p2p_jdata, 2, args=(_evrard_flat(),), workdir=str(tmp_path),
+                backend="gloo", timeout=600)
+    for res in out:
+        for case in ("open", "image"):
+            assert res[case]["halo_rows"] > 0, res[case]
+
+
+def test_sharded_gravity_two_ranks_on_one_card(tmp_path):
+    """One VE Evrard step with self-gravity over two gloo ranks on the card
+    (the sparse gravity serve) against the one-device step on the card from
+    the same state (tests/test_parallel.py's tolerances: vx rtol 1e-2, atol
+    5e-4, egrav rtol 1e-4), every high-water mark within its cap; and the
+    sharded Ewald solve against the one-device one."""
+    _need_card()
+    import numpy as np
+
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.parallel.mesh import spawn
+
+    flat = _evrard_flat()
+    out = spawn(sc.rank_gravity_steps, 2, args=([(flat, {"prop": "ve"}, 1)],),
+                workdir=str(tmp_path / "steps"), backend="gloo", timeout=600)
+    sim = Simulation(*state_from_numpy(*flat, device="cuda"), prop="ve", device="cuda")
+    d = sim.step()
+    res = [o[0] for o in out]
+    vx = np.concatenate([r["vx"] for r in res])
+    np.testing.assert_allclose(vx, sim.state.vx.cpu().numpy(), rtol=1e-2, atol=5e-4)
+    np.testing.assert_allclose(res[0]["diag"]["egrav"], d["egrav"], rtol=1e-4)
+    g = res[0]["gravity"]
+    assert res[0]["diag"]["p2p_max"] <= g["p2p_cap"]
+    assert 0 < res[0]["diag"]["let_max"] <= g["let_cap"]
+    assert res[0]["grav_halo"]["mode"] == "sparse"
+    ew = spawn(sc.ewald_mesh_vs_one_device, 2, workdir=str(tmp_path / "ewald"),
+               backend="gloo", timeout=600)
+    assert all(r["k12_launches"] == 27 for r in ew)
