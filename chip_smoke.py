@@ -196,6 +196,25 @@ Phases, each printed as one JSON line:
    one-card solve; ``sharded_cooling``: std-cooling on evrard-cooling 125,
    one warm-up and one step;
 
+24. ``sharded_props_path``: over two gloo ranks sharing the card, turb-ve
+   on the turbulence case at side 100 (one warm-up, three timed steps),
+   std Sedov 100^3 at dt_bins 4 with bin_resort_drift 0 and 0.01 (one
+   warm-up, one cycle of eight substeps) and N-body Evrard 125 (theta
+   0.5; one warm-up, two timed steps), counts reset just before and read
+   just after on each rank (the six VE ops once per step attempt; the std
+   ops and K13's one-row form once per substep attempt; K12 once and K13
+   twice per N-body step attempt), the step ms per rank, the halo caps and
+   bytes; each path's last step held to the one-card step from the
+   gathered input (``sharded_checks.props_vs_one_device``: turb-ve vx rtol
+   1e-4 atol 1e-6, the key equal, the OU phases rtol 1e-6; the block time
+   steps' bins, substep, dt_min, counts and work equal, x rtol 1e-5, temp
+   rtol 1e-4; N-body vx rtol 5e-4 atol 1e-3 max|vx|, egrav rtol 1e-4; dt
+   rtol 1e-5); K13's one-row form on each rank's due masks against its
+   plain version, exact, timed one rank at a time with its bound and
+   torch.argsort's time; ``sharded_cli``: the CLI's ``--devices 2`` on two
+   gloo ranks sharing the card with turb-ve, N-body and ``--dt-bins 4`` at
+   side 30, ``-w`` with ``--ascii``;
+
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
 SM, and on the side-100 states its times and the body-pass efficiency of
@@ -207,8 +226,10 @@ path beside the Evrard path's; every entry's launches on the turb-ve,
 std-cooling, inits and block-dt paths; the wendland-c6 form of each K1
 and K6 op, ``name:wendland-c6``, with its own count's launches on every
 path; K13's one-row form, ``compact_class_lists:row``; K1's jdata form of
-each std and VE op on the sharded paths, ``name:jdata``; K12's jdata form
-on the sharded gravity path, ``gravity_p2p:jdata``), the nvidia-smi
+each std and VE op on the sharded paths, ``name:jdata``, their launches
+on every sharded path; K12's jdata form on the sharded gravity and N-body
+paths, ``gravity_p2p:jdata``; K13's one-row form on a rank's slab,
+``compact_class_lists:row:slab``), the nvidia-smi
 line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
@@ -2763,8 +2784,8 @@ def sharded_gravity_rank(mesh, side: int, steps: int) -> dict:
     gcfg = dataclasses.replace(g, G=const.g)
     xyzmh = (ss.x, ss.y, ss.z, ss.m, ss.h)
     win = tuple(min(c, ss.n) for c in sim.cfg.grav_cells) or ss.n
-    starts, lens, jd = sc.p2p_jdata_case(mesh, xyzmh, keys, sbox, sim.gtree, sim.cfg.grav_meta,
-                                         gcfg, win)
+    xyzmh, starts, lens, jd = sc.p2p_jdata_case(mesh, xyzmh, keys, sbox, sim.gtree,
+                                                sim.cfg.grav_meta, gcfg, win)
     groups = torch.linspace(0, lens.shape[0] - 1, 256, device=dev).round().long()
     chk = sc.p2p_jdata_vs_plain(f"rank {mesh.rank} K12 jdata", xyzmh, gcfg, starts, lens, jd,
                                 groups=groups)
@@ -2777,7 +2798,8 @@ def sharded_gravity_rank(mesh, side: int, steps: int) -> dict:
             chk["kernel_ms"] = launch_loop_ms(gt.p2p_launcher(*args, jdata=jd)[0], 20)
             chk["plain_ms"] = cuda_time_ms(lambda: gt._pallas_p2p_plain(*args, jdata=jd),
                                            reps=1)
-            chk["bound"] = p2p_jdata_bound(lens, ss.n, jd[0].shape[0], gcfg.target_block)
+            chk["bound"] = p2p_jdata_bound(lens, xyzmh[0].shape[0], jd[0].shape[0],
+                                          gcfg.target_block)
             chk["near_field_load"] = near_field_load(lens, gcfg.target_block)
         barrier()  # the card to one rank at a time
     r["k12_jdata"] = chk
@@ -2861,6 +2883,186 @@ def sharded_gravity_path(smi) -> tuple:
     emit({"phase": "sharded_gravity_done", "seconds": time.perf_counter() - t0})
     return res[0], {"sharded_gravity_ve": r0["launches"],
                     "sharded_std_cooling": res[0]["cooling"]["launches"]}
+
+
+#: the sharded turb-ve and N-body paths' timed steps after their warm-up
+#: (the block-dt paths time one cycle)
+SHARDED_PROPS_STEPS = {"turb-ve": 3, "nbody": 2}
+
+
+def sharded_props_rank(mesh) -> dict:
+    """One rank of the ``sharded_props_path`` phase: turb-ve on the
+    turbulence case at side 100, std Sedov 100^3 at dt_bins 4 with
+    bin_resort_drift 0 and 0.01 (one cycle after the warm-up) and N-body
+    Evrard 125 (theta 0.5), each through Simulation(num_devices=P) on this
+    rank's card (``sharded_checks.props_path``: the launch counts reset
+    just before and read just after, the step ms, the last step held to
+    the one-card step from the gathered input on rank 0); on the block-dt
+    path K13's one-row form on this rank's due masks against its plain
+    version, exact, then timed one rank at a time on the card (one call
+    by CUDA events, alone, its plain version, torch.argsort of the mask)
+    with its bound."""
+    import torch
+
+    from sphexa_torch.gravity import pallas_compact as pcmp
+    from sphexa_torch.init import init_evrard, init_sedov, init_turbulence
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.parallel.mesh import all_gather
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import blockdt as bdt
+
+    dev, P = mesh.device, mesh.size
+    spec = ObservableSpec()
+    out = {"rank": mesh.rank, "size": P, "backend": mesh.backend, "device": str(dev)}
+
+    def path(label, kind, steps, init, side, **kw):
+        t0 = time.perf_counter()
+        state, box, const = init(side, device=dev)
+        sim, rec = sc.props_path(f"{label} rank {mesh.rank}", mesh, lambda: Simulation(
+            state, box, const, device=dev, num_devices=P, obs_spec=spec, **kw), kind, steps)
+        rec["seconds"] = time.perf_counter() - t0
+        return sim, rec
+
+    sim, out["turb_ve"] = path("sharded turb-ve", "turb-ve", SHARDED_PROPS_STEPS["turb-ve"],
+                               init_turbulence, 100, prop="turb-ve")
+    out["turb_ve"]["modes"] = int(sim.turb_cfg.num_modes)
+    del sim
+    torch.cuda.empty_cache()
+    for label, drift in (("blockdt", 0.0), ("blockdt_keep", 0.01)):
+        sim, rec = path(f"sharded {label}", "blockdt", bdt.cycle_length(4), init_sedov, 100,
+                        prop="std", dt_bins=4, bin_resort_drift=drift)
+        rec.update(updates=sim.bdt_updates, updates_full=sim.bdt_updates_full,
+                   resorts=sim.bdt_resorts, keeps=sim.bdt_keeps)
+        if label == "blockdt":
+            rows = sc.compact_row_slab("sharded blockdt", mesh, sim.bdt_state, 4)
+            rec["compact_row"] = [r for r, _ in rows]
+            due = rows[0][1]
+            n = due.shape[0]
+            for turn in range(P):
+                if turn == mesh.rank:
+                    due8 = due.to(torch.uint8)
+                    rec["compact_row_timed"] = {
+                        "due": rows[0][0]["due"], "n": n,
+                        "ms": cuda_time_ms(lambda: bdt.compact_active(due), reps=7),
+                        "kernel_ms": launch_loop_ms(pcmp.compact_row_launcher(due)[0], 200),
+                        "plain_ms": cuda_time_ms(lambda: pcmp.compact_row_plain(due), reps=3),
+                        "library_ms": cuda_time_ms(lambda: torch.argsort(
+                            due8, descending=True, stable=True), reps=7),
+                        **_bound(COMPACT_ROW_OPS * n * PEAK_FP32_FLOPS / PEAK_INT32_OPS,
+                                 5 * n + 4)}
+                all_gather(mesh, torch.zeros(1, device=dev))  # the card to one rank at a time
+        out[label] = rec
+        del sim
+        torch.cuda.empty_cache()
+    sim, out["nbody"] = path("sharded nbody", "nbody", SHARDED_PROPS_STEPS["nbody"],
+                             init_evrard, 125, prop="nbody")
+    out["nbody"]["gravity"] = dataclasses.asdict(sim.cfg.gravity)
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the CLI's --devices runs on the card: two gloo ranks sharing it, ASCII
+#: dumps (the card machine has no h5py)
+SHARDED_CLI = {"turb-ve": ["--init", "turbulence", "-n", "30", "-s", "2", "-w", "1",
+                           "--prop", "turb-ve"],
+               "nbody": ["--init", "evrard", "-n", "30", "-s", "2", "-w", "1",
+                         "--prop", "nbody"],
+               "dt-bins": ["--init", "sedov", "-n", "30", "-s", "4", "-w", "2",
+                           "--dt-bins", "4"]}
+
+
+def sharded_cli(smi) -> dict:
+    """The CLI's ``--devices 2`` with each of turb-ve, N-body and
+    --dt-bins 4 at side 30, ``-w`` with ``--ascii``, on two gloo ranks
+    sharing this card (``spawn`` of the CLI's rank entry, so that it
+    finds its process group; the three runs side by side): each exits 0
+    on every rank, writes one constants.txt row a step and one ASCII file
+    a dump, gathered to rank 0 in global row order with the derived
+    fields, finite."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as wd, ThreadPoolExecutor(len(SHARDED_CLI)) as pool:
+        jobs = {}
+        for name, args in SHARDED_CLI.items():
+            od = os.path.join(wd, name)
+            argv = [*args, "--devices", "2", "--ascii", "--quiet", "-o", od]
+            jobs[name] = (od, pool.submit(spawn, app._rank_main, 2, args=(argv,),
+                                          workdir=os.path.join(wd, f"ranks-{name}"),
+                                          backend="gloo", timeout=300))
+        for name, (od, job) in jobs.items():
+            codes = job.result()
+            if codes != [0, 0]:
+                raise AssertionError(f"CLI --devices 2 {name}: exit codes {codes}")
+            steps = int(SHARDED_CLI[name][5])
+            rows = np.loadtxt(os.path.join(od, "constants.txt"), ndmin=2)
+            dumps = sorted(f for f in os.listdir(od) if f.endswith(".txt") and "_it" in f)
+            with open(os.path.join(od, dumps[-1])) as f:
+                names = f.readline().split()[1:]
+            data = np.loadtxt(os.path.join(od, dumps[-1]))
+            if rows.shape[0] != steps or "rho" not in names or not np.isfinite(data).all():
+                raise AssertionError(f"CLI --devices 2 {name}: {rows.shape[0]} rows, "
+                                     f"columns {names}, finite {np.isfinite(data).all()}")
+            out[name] = {"rows": rows.shape[0], "dumps": dumps, "n": data.shape[0],
+                         "columns": names, "etot_last": float(rows[-1, 3])}
+    emit({"phase": "sharded_cli", "card": smi, "runs": out,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def sharded_props_path(smi) -> tuple:
+    """Phase ``sharded_props_path``: turb-ve, block time steps and N-body
+    over two gloo ranks sharing this card (``sharded_props_rank``), their
+    launches held to the contract (the six VE ops once per step attempt;
+    the std ops and K13's one-row form once per substep attempt; K12 once
+    and K13 twice per N-body step attempt); then the CLI
+    (``sharded_cli``). Returns (rank 0's results, its launches by path)."""
+    import torch
+
+    from sphexa_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as wd:
+        res = spawn(sharded_props_rank, 2, workdir=wd, backend="gloo", timeout=900)
+    contract = {"turb_ve": (SHARDED_OPS["ve"], 0), "blockdt": (STD_OPS + ("compact_row",), 0),
+                "blockdt_keep": (STD_OPS + ("compact_row",), 0),
+                "nbody": (("gravity_p2p",), 2)}
+    for rk in res:
+        for label, (ops, comp) in contract.items():
+            r = rk[label]
+            check_launches(f"sharded {label} rank {rk['rank']}", r["launches"], r["attempts"],
+                           ops, compactions=comp)
+        for c in rk["blockdt"]["compact_row"]:
+            if c["max_abs_err"] != 0.0:
+                raise AssertionError(f"sharded blockdt: K13's one-row form {c}")
+    for label in contract:
+        r0 = res[0][label]
+        emit({"phase": "sharded_props_path", "path": label, "card": smi, "backend": "gloo",
+              "ranks": 2, "n": r0["n"], "slab": r0["slab"],
+              "step_ms": {rk["rank"]: rk[label]["step_ms"] for rk in res},
+              "configure_s": [rk[label]["configure_s"] for rk in res],
+              "halo": r0["halo"], "grav_halo": r0["grav_halo"],
+              **{k: r0[k] for k in ("shard_rows", "shard_occ", "gshard_rows", "gshard_occ")
+                 if k in r0},
+              "vs_one_card": r0["vs_one_device"], "replays": r0["replays"],
+              "diags": r0["diags"], "energy_drift": r0["energy_drift"],
+              "launches_per_step": {op: r0["launches"][op] / r0["attempts"]
+                                    for op, v in r0["launches"].items() if v},
+              **{k: r0[k] for k in ("updates", "updates_full", "resorts", "keeps", "modes",
+                                    "compact_row", "compact_row_timed") if k in r0},
+              "seconds": [rk[label]["seconds"] for rk in res]})
+    cli = sharded_cli(smi)
+    emit({"phase": "sharded_props_done", "seconds": time.perf_counter() - t0})
+    return res[0], {f"sharded_{label}": res[0][label]["launches"] for label in contract}, cli
 
 
 def main() -> int:
@@ -3292,6 +3494,8 @@ def main() -> int:
     # and std-cooling over ranks (sharded_gravity_path)
     shard, shard_launches = sharded_path(smi)
     gshard, gshard_launches = sharded_gravity_path(smi)
+    # 24. turb-ve, block time steps and N-body over ranks, and the CLI
+    pshard, pshard_launches, _ = sharded_props_path(smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -3395,7 +3599,19 @@ def main() -> int:
         bdt_launches["blockdt_std"]["compact_row"], "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "launches_by_path": {p: la["compact_row"] for p, la in bdt_launches.items()}})
+        "launches_by_path": {p: la["compact_row"] for p, la in
+                             {**bdt_launches, **pshard_launches}.items()}})
+    # K13's one-row form on a rank's slab (rank 0 of the two gloo ranks on
+    # this card): the sharded std block-dt path's next due row
+    prow = pshard["blockdt"]["compact_row_timed"]
+    kernels.append({
+        "name": "compact_class_lists:row:slab", "route": "cuda",
+        "source": SOURCE["compact_class_lists"], "replaces": "sphexa_tpu/sph/blockdt.py:172",
+        "launches": pshard["blockdt"]["launches"]["compact_row"],
+        "max_abs_err": max(c["max_abs_err"] for c in pshard["blockdt"]["compact_row"]),
+        "ms": prow["ms"], "plain_ms": prow["plain_ms"], "bound_ms": prow["bound_ms"],
+        "bound_by": prow["bound_by"], "library_ms": prow["library_ms"],
+        "launches_by_path": {p: la.get("compact_row", 0) for p, la in pshard_launches.items()}})
     # the gravity kernels on the Evrard path: K12's times per launch, K13's
     # per solve (its two launches, pre-pass and blocks); their launches on
     # every gravity path beside (each path's counts reset just before it)
@@ -3409,7 +3625,9 @@ def main() -> int:
             "ms": gres[op]["ms"], "plain_ms": gres[op]["plain_ms"],
             "bound_ms": gbnd[op]["bound_ms"], "bound_by": gbnd[op]["bound_by"],
             "library_ms": gres[op]["library_ms"],
-            "launches_by_path": {**by_path, "std_cooling_evolved": cool_launches["evolved"][op]},
+            "launches_by_path": {**by_path, "std_cooling_evolved": cool_launches["evolved"][op],
+                                 **{p: la.get(op, 0) for p, la in
+                                    {**gshard_launches, **pshard_launches}.items()}},
         })
     # K1's jdata form on the sharded paths (rank 0 of the two gloo ranks on
     # this card): each op at the path's state, its launches there
@@ -3423,7 +3641,9 @@ def main() -> int:
                 "max_abs_err": jd[op]["max_abs_err"], "ms": jd[op]["ms"],
                 "plain_ms": jd[op]["plain_ms"], "bound_ms": jd["bounds"][op]["bound_ms"],
                 "bound_by": jd["bounds"][op]["bound_by"], "library_ms": None,
-                "launches_by_path": {p: la.get(op, 0) for p, la in shard_launches.items()}})
+                "launches_by_path": {p: la.get(op, 0) for p, la in
+                                     {**shard_launches, **gshard_launches,
+                                      **pshard_launches}.items()}})
     # K12's jdata form on the sharded gravity path (rank 0 of the two gloo
     # ranks on this card): at the path's state, its launches there
     kj = gshard["ve"]["k12_jdata"]
@@ -3434,7 +3654,8 @@ def main() -> int:
         "max_abs_err": kj["max_abs_err"], "ms": kj["ms"], "plain_ms": kj["plain_ms"],
         "bound_ms": kj["bound"]["bound_ms"], "bound_by": kj["bound"]["bound_by"],
         "library_ms": None,
-        "launches_by_path": {p: la.get("gravity_p2p", 0) for p, la in gshard_launches.items()}})
+        "launches_by_path": {p: la.get("gravity_p2p", 0) for p, la in
+                             {**gshard_launches, **pshard_launches}.items()}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(f"# chip_smoke total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)

@@ -4,7 +4,10 @@
 ``compute_output_fields`` is the saveFields recompute pass
 (ve_hydro.hpp:225-286): rho, p and c derived from the conserved fields
 through the pair engine in streaming mode, K1 on the card (std: the
-density op; VE: xmass, then grad-h), and u, |v| and r. ``l1_error`` is
+density op; VE: xmass, then grad-h), and u, |v| and r; on a mesh
+(``cfg.mesh``) over this rank's slab, K1's jdata form on the sharded
+halo, each row's fields returned to the rank that holds it.
+``l1_error`` is
 the reference's metric, sum |sol - sim| / N at every particle's radius
 (compare_solutions.py, compare_noh.py)."""
 
@@ -35,7 +38,10 @@ def output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
     it is unless the state has outgrown it (a cell past the cap or a
     group past the window), when a config is sized for this state as the
     Simulation sizes one. ``pipeline``: the density estimator of the
-    propagator that evolved the state, "std" or "ve"."""
+    propagator that evolved the state, "std" or "ve". On a mesh the
+    state is this rank's slab (``_output_fields_sharded``)."""
+    if cfg.mesh is not None:
+        return _output_fields_sharded(state, box, cfg, pipeline, ops)
     density, xmass, ve_def_gradh = OPS[ops]
     const = cfg.const
     ss, keys, order = _sort_by_keys(state, box, cfg.curve)
@@ -65,11 +71,70 @@ def output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
             "vel": torch.sqrt(state.vx**2 + state.vy**2 + state.vz**2), "c": unsort(c)}
 
 
+def _output_fields_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig,
+                           pipeline: str, ops: str) -> Dict[str, torch.Tensor]:
+    """``output_fields`` on this rank's slab, with no gather: the slabs
+    sorted across ranks with each row's global index riding the sort
+    (parallel/sort.py), the density (VE: xmass, then grad-h) over the
+    sparse halo sized for this state (K1's jdata form), the EOS, then
+    rho, p and c sent back to the ranks and rows that hold them (a second
+    all_to_all on the transposed cut table). The neighbour config is the
+    run's unless the state has outgrown it (the densest cell past the cap
+    on any rank), when one is sized for this state. Host reads: the sort's
+    cut tables, the halo caps, the occupancy."""
+    from sphexa_torch.parallel import exchange as ex
+    from sphexa_torch.parallel.mesh import reduce_scalars
+    from sphexa_torch.parallel.sizing import device_sparse_halo
+    from sphexa_torch.parallel.sort import sort_slabs, to_owners
+    from sphexa_torch.sfc.keys import compute_sfc_keys
+
+    density, xmass, ve_def_gradh = OPS[ops]
+    mesh, const, S = cfg.mesh, cfg.const, state.n
+    keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=cfg.curve)
+    gidx = mesh.rank * S + torch.arange(S, dtype=torch.int64, device=keys.device)
+    cols = torch.stack([state.x, state.y, state.z, state.h, state.m, state.temp], dim=1)
+    srt = sort_slabs(mesh, keys, cols, extra=[gidx])
+    x, y, z, h, m, temp = (a.contiguous() for a in srt.rows.unbind(1))
+    skeys = srt.keys
+    nbr = cfg.nbr
+    for attempt in range(2):
+        snbr = ex.slab_nbr(nbr, S)
+        hmax = device_sparse_halo(mesh, x, y, z, h, skeys, box, nbr, margin=1.0)
+        ranges, serve, jbuf, escaped, _ = ex.shard_halo_stage_sparse(
+            mesh, x, y, z, h, skeys, box, snbr, hmax)
+        hx, hy, hz, hm = serve((x, y, z, m))
+        jd = jbuf((x, y, z, m), (hx, hy, hz, hm))
+        if pipeline == "ve":
+            xm, _, occ = xmass(x, y, z, h, m, None, box, const, snbr, ranges=ranges, jdata=jd)
+        else:
+            rho, _, occ = density(x, y, z, h, m, None, box, const, snbr, ranges=ranges,
+                                  jdata=jd)
+        _, (occ, esc), _ = reduce_scalars(mesh, maxes=[occ, escaped.to(torch.int32)])
+        if int(esc):
+            raise RuntimeError("output fields: runs escaped a halo sized for this state")
+        if int(occ) <= nbr.cap or attempt:
+            break
+        from sphexa_torch.simulation import make_propagator_config
+
+        nbr = make_propagator_config(state, box, const, curve=cfg.curve, mesh=mesh).nbr
+    if pipeline == "ve":
+        (hxm,) = serve((xm,))
+        (kx, gradh), _ = ve_def_gradh(x, y, z, h, m, xm, None, box, const, snbr, ranges=ranges,
+                                      jdata=jbuf((x, y, z, m, xm), (hx, hy, hz, hm, hxm)))
+        _, c, rho, p = compute_eos_ve(temp, m, kx, xm, gradh, const)
+    else:
+        p, c = compute_eos_std(temp, rho, const)
+    rho, p, c = to_owners(mesh, torch.stack([rho, p, c], dim=1), srt.extra[0], srt).unbind(1)
+    return {"r": torch.sqrt(state.x**2 + state.y**2 + state.z**2), "rho": rho.contiguous(),
+            "p": p.contiguous(), "u": const.cv * state.temp,
+            "vel": torch.sqrt(state.vx**2 + state.vy**2 + state.vz**2), "c": c.contiguous()}
+
+
 def compute_output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
                           pipeline: str = "std") -> Dict[str, np.ndarray]:
     """The dependent output fields (rho, p, u, |v|, c) and the radii of a
     conserved-field state, as numpy arrays in the state's particle order
-    (``output_fields``)."""
+    (``output_fields``; on a mesh this rank's rows)."""
     out = output_fields(state, box, cfg, "ve" if pipeline == "ve" else "std")
     return {k: v.cpu().numpy() for k, v in out.items()}
 

@@ -21,6 +21,10 @@
     python -m sphexa_torch.app.main --init sedov -n 12 -s 3 --devices 2 --device cpu
     python -m sphexa_torch.app.main --init evrard -n 16 -s 3 --prop ve --devices 2 --device cpu
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --devices 4 [--halo-mode windowed]
+    python -m sphexa_torch.app.main --init turbulence -n 16 -s 3 --prop turb-ve --devices 2 \
+        --device cpu
+    python -m sphexa_torch.app.main --init evrard -n 12 -s 3 --prop nbody --devices 2 --device cpu
+    python -m sphexa_torch.app.main --init sedov -n 10 -s 8 --dt-bins 4 --devices 2 --device cpu
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
@@ -73,20 +77,22 @@ driver's events and the memory events), and on an abnormal end
 ``blackbox.json`` (the flight recorder). Runs on the CUDA device unless
 ``--device cpu`` is given, and raises without one.
 
-``--devices N`` (std, ve and std-cooling, with self-gravity too: the
-evrard inits, ``--G`` on a periodic box; turb-ve, nbody and ``--dt-bins``
-raise) runs N ranks, each a process of its own holding one Hilbert-key
-slab (sphexa_torch/parallel):
+``--devices N`` (every propagator and ``--dt-bins``, with self-gravity
+too: the evrard inits, ``--G`` on a periodic box) runs N ranks, each a
+process of its own holding one Hilbert-key slab (sphexa_torch/parallel):
 ``--device cpu`` runs them on gloo, otherwise NCCL puts rank r on card r
 and refuses fewer cards than ranks. A count that does not divide by N
 loses its trailing rows. ``--halo-mode`` picks the halo exchange (sparse
 per-distance caps, or one window per peer), ``--imbalance-ratio`` the
 threshold of the ``imbalance`` events. Rank 0 alone prints, writes
-``constants.txt`` and the telemetry; ``-w`` writes one part file a rank
-(``dump_<case>.part<k>of<N>.h5``, the JAX package's sharded dumps) with
-the conserved fields (the derived output fields, ``--ascii``,
-``--wextra`` and ``--duration`` stay one-device), which a restart reads
-with any N.
+``constants.txt`` and the telemetry; ``-w`` and ``--wextra`` write one
+part file a rank (``dump_<case>.part<k>of<N>.h5``, the JAX package's
+sharded dumps) with its rows' conserved and derived fields (computed
+across the ranks, never gathered; the stirring state in part 0), which a
+restart reads with any N; ``--ascii`` gathers the columns to rank 0,
+which writes one file in global row order; ``--duration`` is decided on
+rank 0's clock at a check boundary and broadcast, so that every rank
+stops at the same iteration with the same final dump.
 """
 
 import argparse
@@ -99,14 +105,16 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from sphexa_torch.analysis import compute_output_fields
+from sphexa_torch.analysis.compare import output_fields
 from sphexa_torch.init import CASES, make_initializer, split_case_spec
 from sphexa_torch.init.file_init import looks_like_file, parse_file_spec
 from sphexa_torch.init.glass import set_glass_template
 from sphexa_torch.io import read_snapshot_full, write_ascii, write_snapshot
 from sphexa_torch.io.snapshot import CONSERVED_FIELDS, _find_parts, write_snapshot_sharded
 from sphexa_torch.observables import ConstantsWriter, make_observable, make_observable_spec
+from sphexa_torch.parallel.mesh import broadcast_flag, gather_rows
 from sphexa_torch.physics.cooling import (
     CoolingConfig, chemistry_from_fields, chemistry_to_fields,
 )
@@ -229,8 +237,6 @@ def _spawn_ranks(args, argv: List[str]) -> int:
     import shutil
     import tempfile
 
-    import torch
-
     from sphexa_torch.parallel.mesh import spawn
 
     if args.device is None and torch.cuda.device_count() < args.devices:
@@ -266,10 +272,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not dist.is_initialized():
             return _spawn_ranks(args, argv)
         rank = dist.get_rank()
-        if args.ascii or args.wextra or args.duration is not None:
-            # --duration would stop the ranks on their own clocks
-            print("--ascii, --wextra and --duration stay one-device", file=sys.stderr)
-            return 2
 
     def log(line: str) -> None:
         if not args.quiet and rank == 0:
@@ -464,36 +466,45 @@ def main(argv: Optional[List[str]] = None) -> int:
     def dump_now(it):
         """One output: a restartable snapshot, or text columns with
         --ascii; the derived fields recomputed by the propagator's own
-        density estimator."""
+        density estimator. On ranks each writes its part (the derived
+        fields of its rows, the stirring state in part 0), and --ascii
+        gathers the columns to rank 0, which writes one file in global
+        row order."""
         last_dump_iteration[0] = it
-        if ranks is not None:
-            # one part file a rank, its slab's conserved fields
-            step = write_snapshot_sharded(
-                dump_path, sim.state, sim.box, sim.const, iteration=it, case=case_name,
-                case_settings=case_overrides, mesh=sim.mesh,
-                extra_fields=None if sim.chem is None else chemistry_to_fields(sim.chem))
-            log(f"# wrote Step#{step} -> {ranks} parts of {dump_path}")
-            return
-        extra = compute_output_fields(sim.state, sim.box, sim.cfg,
-                                      pipeline="ve" if args.prop in ("ve", "turb-ve") else "std")
+        extra = output_fields(sim.state, sim.box, sim.cfg,
+                              pipeline="ve" if args.prop in ("ve", "turb-ve") else "std")
         if want_fields:
             unknown = [f for f in want_fields if f not in extra]
-            if unknown:
+            if unknown and rank == 0:
                 print(f"# -f fields not available, skipped: {unknown}", file=sys.stderr)
             extra = {k: v for k, v in extra.items() if k in want_fields}
         if args.ascii:
             cols = {f: getattr(sim.state, f) for f in CONSERVED_FIELDS}
             cols.update(extra)
             path = dump_path.replace(".txt", f"_it{it}.txt")
+            if ranks is not None:
+                whole = gather_rows(sim.mesh, torch.stack(list(cols.values()), dim=1))
+                if whole is None:
+                    return
+                cols = dict(zip(cols, whole.unbind(1)))
             write_ascii(path, cols)
             log(f"# wrote ASCII dump -> {path} (not restartable)")
             return
+        tables = {}
         if sim.turb_state is not None:
-            extra = {**extra, **turbulence_state_to_fields(sim.turb_state, sim.turb_cfg)}
+            tables = turbulence_state_to_fields(sim.turb_state, sim.turb_cfg)
         if sim.chem is not None:
             extra = {**extra, **chemistry_to_fields(sim.chem)}
+        if ranks is not None:
+            # one part file a rank: its rows, the global tables in part 0
+            step = write_snapshot_sharded(
+                dump_path, sim.state, sim.box, sim.const, iteration=it, case=case_name,
+                case_settings=case_overrides, mesh=sim.mesh, extra_fields=extra,
+                global_fields=tables)
+            log(f"# wrote Step#{step} -> {ranks} parts of {dump_path}")
+            return
         step = write_snapshot(dump_path, sim.state, sim.box, sim.const, iteration=it,
-                              extra_fields=extra, case=case_name,
+                              extra_fields={**extra, **tables}, case=case_name,
                               case_settings=case_overrides)
         log(f"# wrote Step#{step} -> {dump_path}")
 
@@ -519,6 +530,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     t0 = time.time()
     it0 = sim.iteration
+
+    def out_of_time() -> bool:
+        """The --duration decision; on ranks rank 0's clock, broadcast, so
+        that every rank stops at the same iteration."""
+        late = time.time() - t0 >= args.duration
+        return late if ranks is None else broadcast_flag(sim.mesh, late)
+
     while True:
         d = sim.step()
         it = sim.iteration
@@ -529,7 +547,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             log(f"it {it:5d}  (deferred check)")
             if num_steps is not None and it >= num_steps:
                 break
-            if args.duration is not None and time.time() - t0 >= args.duration:
+            # ranks decide on rank 0's clock at check boundaries only
+            if ranks is None and args.duration is not None \
+                    and time.time() - t0 >= args.duration:
                 log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
                 sim.flush()  # verify the window and land its rows
                 write_science_rows()
@@ -550,7 +570,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             break
         if target_time is not None and float(sim.state.ttot) >= target_time:
             break
-        if args.duration is not None and time.time() - t0 >= args.duration:
+        if args.duration is not None and out_of_time():
             # the wall-clock cutoff leaves a final restartable dump
             log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
             if dump_path is not None and last_dump_iteration[0] != it:

@@ -109,26 +109,57 @@ def gravity_tuning(n: int) -> dict:
             "compaction": "bitmask" if big else "sort"}
 
 
-def _block_bboxes(x, y, z, blk: int):
-    """Per-target-block bounding boxes, (nb, 3) min and (nb, 3) max; the
-    tail block is padded with the last row."""
-    idx = _block_rows(x.shape[0], blk)
-    xs, ys, zs = x[idx], y[idx], z[idx]
-    bmin = torch.stack([xs.amin(1), ys.amin(1), zs.amin(1)], dim=1)
-    bmax = torch.stack([xs.amax(1), ys.amax(1), zs.amax(1)], dim=1)
-    return bmin, bmax
+def _slab_blocks(x, y, z, blk: int, mesh=None):
+    """The target blocks of the rows: their (nb, blk) coordinates tx, ty,
+    tz, (nb, 3) min and max, and ``lead``. One device: the rows [b blk,
+    (b + 1) blk), the tail block padded with the last row, ``lead`` 0.
+    ``mesh``: the rows are rank k's slab, the rows [kS, (k + 1) S) of the
+    global sorted array, and its blocks are the global array's blocks
+    that meet it, so that every rank classifies the one-device blocks:
+    the first is led by ``lead`` = kS mod blk copies of row 0 (targets
+    that the solve drops), and a block shared with other ranks takes the
+    bbox of all its rows (each rank's first and last block extrema,
+    all_gathered)."""
+    n = x.shape[0]
+    dev = x.device
+    lead = 0 if mesh is None else (mesh.rank * n) % blk
+    idx = _block_rows(n, blk, lead, device=dev)
+    nb = idx.shape[0]
+    tx, ty, tz = x[idx], y[idx], z[idx]
+    bmin = torch.stack([tx.amin(1), ty.amin(1), tz.amin(1)], dim=1)
+    bmax = torch.stack([tx.amax(1), ty.amax(1), tz.amax(1)], dim=1)
+    if mesh is not None and mesh.size > 1:
+        from sphexa_torch.parallel.mesh import all_gather
+
+        g = all_gather(mesh, torch.cat([bmin[[0, -1]], bmax[[0, -1]]], dim=1))  # (P, 2, 6)
+        r = torch.arange(mesh.size, device=dev)
+        ids = torch.stack([r * n // blk, ((r + 1) * n - 1) // blk], dim=1)[..., None]
+        inf = torch.tensor(float("inf"), dtype=x.dtype, device=dev)
+        bmin, bmax = bmin.clone(), bmax.clone()
+        for row, b in ((0, mesh.rank * n // blk), (nb - 1, ((mesh.rank + 1) * n - 1) // blk)):
+            bmin[row] = torch.where(ids == b, g[..., :3], inf).amin(dim=(0, 1))
+            bmax[row] = torch.where(ids == b, g[..., 3:], -inf).amax(dim=(0, 1))
+    return tx, ty, tz, bmin, bmax, lead
 
 
-def _block_rows(n: int, blk: int, nb: Optional[int] = None, device=None) -> torch.Tensor:
-    """(nb, blk) particle rows of the target blocks; rows past the last
-    particle repeat it (min(idx, n - 1))."""
-    nb = -(-n // blk) if nb is None else nb
-    idx = torch.arange(nb * blk, device=device)
-    return torch.clamp(idx, max=n - 1).reshape(nb, blk)
+def _lead_rows(fields, lead: int) -> tuple:
+    """Each field led by ``lead`` copies of its row 0 (``_slab_blocks``)."""
+    if lead == 0:
+        return tuple(fields)
+    return tuple(torch.cat([f[:1].expand(lead), f]) for f in fields)
+
+
+def _block_rows(n: int, blk: int, lead: int = 0, device=None) -> torch.Tensor:
+    """(nb, blk) particle rows of the target blocks, led by ``lead``
+    copies of row 0; rows past the last particle repeat it (min(idx, n -
+    1))."""
+    nb = -(-(lead + n) // blk)
+    idx = torch.arange(nb * blk, device=device) - lead
+    return torch.clamp(idx, 0, n - 1).reshape(nb, blk)
 
 
 def _global_block_bboxes(mesh, x, y, z, blk: int):
-    """``_block_bboxes`` of the global sorted array from every rank's slab
+    """The block bboxes of the global sorted array from every rank's slab
     (rank k holds rows [k S, (k + 1) S)): each rank's per-block extrema
     of its own rows (+-inf elsewhere), all_gathered and reduced. The same
     (nb, 3) pair on every rank; O(N / blk) travels."""
@@ -174,7 +205,7 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
     blk = cfg.target_block
     if mesh is None:
         n = x.shape[0]
-        bboxes = _block_bboxes(x, y, z, blk)
+        bboxes = _slab_blocks(x, y, z, blk)[3:5]
     else:
         n = x.shape[0] * mesh.size
         bboxes = _global_block_bboxes(mesh, x, y, z, blk)
@@ -396,11 +427,25 @@ def _monotone_mac_geometry(box: Box, tree: GravityTree, meta: GravityTreeMeta,
 
 def _bbox(tx, ty, tz):
     """Centre and half size (..., 3) of each row's targets (..., blk)."""
-    mx = [a.amax(-1) for a in (tx, ty, tz)]
-    mn = [a.amin(-1) for a in (tx, ty, tz)]
-    bc = torch.stack([(a + b) * 0.5 for a, b in zip(mx, mn)], dim=-1)
-    bs = torch.stack([(a - b) * 0.5 for a, b in zip(mx, mn)], dim=-1)
-    return bc, bs
+    return _box_cs(torch.stack([a.amin(-1) for a in (tx, ty, tz)], dim=-1),
+                   torch.stack([a.amax(-1) for a in (tx, ty, tz)], dim=-1))
+
+
+def _box_cs(bmin, bmax):
+    """Centre and half size (..., 3) of boxes given by their (..., 3) min
+    and max."""
+    return (bmax + bmin) * 0.5, (bmax - bmin) * 0.5
+
+
+def _superblock_boxes(bmin, bmax, sf: int):
+    """The superblocks of ``sf`` blocks: each one's centre and half size
+    (num_super, 3), the bbox of its blocks' bboxes, and the blocks' own
+    (num_super, sf, 3), the blocks past the last one copies of it."""
+    num_super = -(-bmin.shape[0] // sf)
+    pad = num_super * sf - bmin.shape[0]
+    bmin = torch.cat([bmin, bmin[-1:].expand(pad, 3)]).reshape(num_super, sf, 3)
+    bmax = torch.cat([bmax, bmax[-1:].expand(pad, 3)]).reshape(num_super, sf, 3)
+    return _box_cs(bmin.amin(1), bmax.amax(1)) + _box_cs(bmin, bmax)
 
 
 def _accept(bc, bs, gc, gs, m2):
@@ -460,21 +505,23 @@ def _chunks(total: int, per_item: int, dev: torch.device):
     return [(a, min(a + step, total)) for a in range(0, total, step)]
 
 
-def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
+def _classify_bitmask(bmin, bmax, tree, meta, cfg, geo: _Geo,
                       packed_out: Optional[list] = None, let_geo: Optional[_Geo] = None):
-    """Both lists of every block through the compaction kernel; with
-    ``super_factor`` > 0 the superblock pre-pass first (one compaction),
-    then each block against its superblock's list (one compaction).
+    """Both lists of every block (given by its (nb, 3) bbox min and max)
+    through the compaction kernel; with ``super_factor`` > 0 the
+    superblock pre-pass first (one compaction), then each block against
+    its superblock's list (one compaction).
     ``let_geo``: the rank's essential set (gathered from ``geo``), which
     the blocks classify against at super_factor 0 and the superblocks
     at super_factor > 0. Returns (m2p list, m2p count, p2p list, p2p
     count, c_max); each compaction's (packed array, cap0, cap1) is
     appended to ``packed_out``."""
     keep = packed_out.append if packed_out is not None else (lambda _item: None)
-    dev = x.device
+    dev = bmin.device
     num_n = meta.num_nodes
-    blk, sf = cfg.target_block, cfg.super_factor
-    nb = bc.shape[0]
+    sf = cfg.super_factor
+    nb = bmin.shape[0]
+    bc, bs = _box_cs(bmin, bmax)
     pre = geo if let_geo is None else let_geo
     width = pre.idx.shape[0]
     if sf == 0:
@@ -486,10 +533,8 @@ def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
         return om, mn, op, pn, None
 
     scap = min(cfg.super_cap, num_n)
-    sblk = sf * blk
-    num_super = -(-n // sblk)
-    sidx = _block_rows(n, sblk, device=dev)
-    sbc, sbs = _bbox(x[sidx], y[sidx], z[sidx])
+    sbc, sbs, bbc, bbs = _superblock_boxes(bmin, bmax, sf)
+    num_super = sbc.shape[0]
     spk = torch.empty(num_super, width, dtype=torch.int32, device=dev)
     for s0, s1 in _chunks(num_super, width, dev):
         spk[s0:s1] = _packed_cand(sbc[s0:s1, None], sbs[s0:s1, None], pre)
@@ -497,11 +542,8 @@ def _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo: _Geo,
     scand, scand_n, _, _ = pcmp.compact_class_lists(spk, scap, 128)
     c_max = scand_n.max()
 
-    # blocks of the last superblock past the particles are points at the
-    # last particle (min(idx, n - 1)); only the real blocks are classified
-    bidx = _block_rows(n, blk, nb=num_super * sf, device=dev)
-    bbc, bbs = _bbox(x[bidx], y[bidx], z[bidx])
-    bbc, bbs = bbc.reshape(num_super, sf, 3), bbs.reshape(num_super, sf, 3)
+    # blocks of the last superblock past the last block copy it; only the
+    # real blocks are classified
     packed = torch.empty(nb, scap, dtype=torch.int32, device=dev)
     lane = torch.arange(scap, device=dev)
     for s0, s1 in _chunks(num_super, sf * scap, dev):
@@ -548,21 +590,22 @@ def _sort_lists(m2p_mask, p2p_mask, cfg, num_n: int, cidx=None):
             cls_sorted.gather(1, p_at) == 1, m2p_n, p2p_mask.sum(dim=1))
 
 
-def _sort_superblocks(x, y, z, n, tree, meta, cfg, ccenter, chalf, mac2, valid, self_parent):
+def _sort_superblocks(bmin, bmax, tree, meta, cfg, ccenter, chalf, mac2, valid,
+                      self_parent):
     """The sort mode's superblock pre-pass: each superblock of
-    ``super_factor`` blocks against all nodes, its candidates the nodes
+    ``super_factor`` blocks (the bbox of their bboxes, given by their
+    (nb, 3) min and max) against all nodes, its candidates the nodes
     whose parent it does not accept (the open set and the accepted cut,
     ancestor-closed), kept in node order by a stable argsort and cut at
     the cap. Returns (candidates (S, cap), with num_nodes on dead slots,
     live mask, each candidate's parent position in its list, unclipped
     counts)."""
-    dev = x.device
+    dev = bmin.device
     num_n = meta.num_nodes
     scap = min(cfg.super_cap, num_n)
-    sidx = _block_rows(n, cfg.super_factor * cfg.target_block, device=dev)
-    sbc, sbs = _bbox(x[sidx], y[sidx], z[sidx])
+    sbc, sbs = _superblock_boxes(bmin, bmax, cfg.super_factor)[:2]
     outs = [[] for _ in range(4)]
-    for s0, s1 in _chunks(sidx.shape[0], num_n, dev):
+    for s0, s1 in _chunks(sbc.shape[0], num_n, dev):
         accept = valid & _accept(sbc[s0:s1, None], sbs[s0:s1, None], ccenter, chalf, mac2)
         cand = ~(accept[:, tree.parent] & ~self_parent)
         for o, v in zip(outs, _compact_candidates(cand, scap, tree, num_n)):
@@ -844,23 +887,25 @@ def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig
 
 def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
              cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False,
-             shift=None, let: bool = False):
+             shift=None, let: bool = False, mesh=None):
     """The MAC classification of every target block from the given
     multipoles; ``shift`` ((3,)) moves the targets (a replica pass).
-    ``let`` (a rank's slab, ``cfg.let_cap`` > 0; the sort compaction at
-    super_factor 0, or the bitmask one): the blocks classify against the
-    slab's essential set, the nodes whose parent the slab's bbox does not
-    accept (the open set and the accepted cut, ancestor-closed under the
-    monotone MAC: any node outside it has an accepted ancestor in it for
-    every block, whose bbox lies inside the slab's), compacted at the cap.
+    ``mesh``: x, y, z are this rank's slab, and its blocks are the global
+    array's (``_slab_blocks``: led by ``lead`` rows, a block shared with
+    another rank classified by the bbox of all its rows). ``let`` (a
+    rank's slab, ``cfg.let_cap`` > 0; the sort compaction at super_factor
+    0, or the bitmask one): the blocks classify against the slab's
+    essential set, the nodes whose parent the bbox of the slab's blocks
+    does not accept (the open set and the accepted cut, ancestor-closed
+    under the monotone MAC: any node outside it has an accepted ancestor
+    in it for every block, whose bbox lies inside), compacted at the cap.
     Returns a dict: ``m2p`` (nb, m2p_cap) node indices with ``m2p_ok``,
     ``p2p`` (nb, p2p_cap) with ``p2p_ok``, the unclipped counts ``m2p_n``
     and ``p2p_n`` (nb,), ``c_max`` (the superblock lists' high water, or
-    None), ``let_n`` (the essential set's size, or None), and the
-    (shifted) target coordinates ``tx``, ``ty``, ``tz`` (nb, blk); with
-    ``keep_packed`` (bitmask compaction) also ``packed``, the (packed
-    array, cap0, cap1) of each compaction."""
-    n = x.shape[0]
+    None), ``let_n`` (the essential set's size, or None), the (shifted)
+    target coordinates ``tx``, ``ty``, ``tz`` (nb, blk) and ``lead``;
+    with ``keep_packed`` (bitmask compaction) also ``packed``, the
+    (packed array, cap0, cap1) of each compaction."""
     dev = x.device
     num_n = meta.num_nodes
     if cfg.compaction not in ("sort", "bitmask"):
@@ -874,16 +919,15 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
     valid = node_mass > 0.0
     ccenter, chalf, mac2 = _monotone_mac_geometry(box, tree, meta, node_com, valid, cfg.theta)
     self_parent = tree.parent == torch.arange(num_n, device=dev)
-    bidx = _block_rows(n, cfg.target_block, device=dev)
-    tx, ty, tz = x[bidx], y[bidx], z[bidx]
-    bc, bs = _bbox(tx, ty, tz)
-    out = {"tx": tx, "ty": ty, "tz": tz, "let_n": None}
+    tx, ty, tz, bmin, bmax, lead = _slab_blocks(x, y, z, cfg.target_block, mesh)
+    bc, bs = _box_cs(bmin, bmax)
+    out = {"tx": tx, "ty": ty, "tz": tz, "let_n": None, "lead": lead}
     bitmask = cfg.compaction == "bitmask"
     use_let = let and cfg.let_cap > 0 and (cfg.super_factor == 0 or bitmask)
     lists = None
     if use_let:
-        # one slab-bbox classification shared by every block of the rank
-        bc_s, bs_s = _bbox(x, y, z)
+        # one classification of the blocks' bbox, shared by every block
+        bc_s, bs_s = _box_cs(bmin.amin(0), bmax.amax(0))
         accept_s = valid & _accept(bc_s, bs_s, ccenter, chalf, mac2)
         cand_s = ~(accept_s[tree.parent] & ~self_parent)
         lists = _compact_candidates(cand_s[None], min(cfg.let_cap, num_n), tree, num_n)
@@ -896,15 +940,15 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
                    idx=torch.arange(num_n, dtype=torch.int32, device=dev))
         let_geo = None if lists is None else geo.gather(lists[0][0], lists[1][0])
         packed = [] if keep_packed else None
-        om, mn, op, pn, c_max = _classify_bitmask(bc, bs, x, y, z, n, tree, meta, cfg, geo,
-                                                  packed, let_geo=let_geo)
+        om, mn, op, pn, c_max = _classify_bitmask(bmin, bmax, tree, meta, cfg, geo, packed,
+                                                  let_geo=let_geo)
         if keep_packed:
             out["packed"] = packed
         out.update(m2p=om, m2p_ok=torch.arange(cfg.m2p_cap, device=dev)[None, :] < mn[:, None],
                    p2p=op, p2p_ok=torch.arange(cfg.p2p_cap, device=dev)[None, :] < pn[:, None],
                    m2p_n=mn, p2p_n=pn, c_max=c_max)
     else:
-        supers = (_sort_superblocks(x, y, z, n, tree, meta, cfg, ccenter, chalf, mac2, valid,
+        supers = (_sort_superblocks(bmin, bmax, tree, meta, cfg, ccenter, chalf, mac2, valid,
                                     self_parent) if cfg.super_factor > 0 else lists)
         om, mok, op, pok, mn, pn = _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf,
                                                   mac2, valid, self_parent, supers)
@@ -913,14 +957,16 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
     return out
 
 
-def _near_field_halo(shard, x, y, z, m, h, edges, start, length):
+def _near_field_halo(shard, x, y, z, m, h, edges, start, length, lead: int = 0):
     """A rank's near field across ranks: the (NB, p2p_cap) global-row leaf
-    ranges localized into its j-buffer [own slab | halo rows] and the
-    halo's (x, y, z, m, h) served. ``shard`` = (mesh, win): ``win`` a
-    tuple is the MAC-sized sparse serve's per-distance caps (the leaf
+    ranges localized into its j-buffer [lead rows | own slab | halo rows]
+    and the halo's (x, y, z, m, h) served. ``shard`` = (mesh, win): ``win``
+    a tuple is the MAC-sized sparse serve's per-distance caps (the leaf
     ``edges`` its cell table), an int the windowed serve's per-peer window
-    (the slab: whole slabs). Returns (starts, lens, j-buffer, escaped,
-    metrics or None)."""
+    (the slab: whole slabs). ``lead``: the targets' lead rows
+    (``_slab_blocks``), mirrored in the j-buffer (no range reads them) so
+    that a target's row is its own candidate's row. Returns (starts, lens,
+    j-buffer, escaped, metrics or None)."""
     from sphexa_torch.parallel import exchange as ex
 
     mesh, win = shard
@@ -942,7 +988,8 @@ def _near_field_halo(shard, x, y, z, m, h, edges, start, length):
     else:
         lr, bounds, escaped = ex.localize_ranges(mesh, ranges, S, win)
         halo = ex.serve_windows(mesh, fields, bounds, S, win)
-    return lr.starts, lr.lens, ex.jbuf(fields, halo), escaped, metrics
+    return (lr.starts + lead, lr.lens, _lead_rows(ex.jbuf(fields, halo), lead), escaped,
+            metrics)
 
 
 def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
@@ -993,7 +1040,8 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     mark("multipoles")
 
     lists = classify(x, y, z, box, tree, meta, cfg, node_mass, node_com, shift=shift,
-                     let=shard is not None)
+                     let=shard is not None, mesh=None if shard is None else shard[0])
+    lead = lists["lead"]
     mark("mac")
     ax, ay, az, phi = _m2p_eval(lists["tx"], lists["ty"], lists["tz"], lists["m2p"],
                                 lists["m2p_ok"], _node_packed(node_mass, node_com, node_q,
@@ -1007,14 +1055,15 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     jd, escaped, hmetrics = None, None, None
     if shard is not None:
         start, length, jd, escaped, hmetrics = _near_field_halo(shard, x, y, z, m, h, edges,
-                                                                start, length)
+                                                                start, length, lead)
         mark("serve")
-    pax, pay, paz, pphi = _pallas_p2p(x, y, z, m, h, shift, allow_self, cfg, start, length,
+    pax, pay, paz, pphi = _pallas_p2p(*_lead_rows((x, y, z, m, h), lead), shift, allow_self,
+                                      cfg, start, length,
                                       **({} if jd is None else {"jdata": jd}))
     mark("p2p")
 
     def total(far, near):
-        return (far.reshape(-1)[:n] + near) * cfg.G
+        return (far.reshape(-1)[lead:lead + n] + near[lead:]) * cfg.G
 
     ax, ay, az, phi = total(ax, pax), total(ay, pay), total(az, paz), total(phi, pphi)
     m2p_n, p2p_n = lists["m2p_n"], lists["p2p_n"]

@@ -12,10 +12,10 @@ written by either package restarts in the other:
         ├── x, y, z, x_m1, ..., alpha   (one dataset per conserved field)
         └── rho, p, ...                 (optional derived output fields)
 
-A dump written on a mesh by the JAX package is a set of part files
-``<base>.partKKKofPPP<ext>``; reading the base path reassembles them.
-Writing part files (``write_snapshot_sharded``) waits for the port's
-multi-GPU slice.
+A dump written on a mesh is a set of part files
+``<base>.partKKKofPPP<ext>`` (``write_snapshot_sharded``, the JAX
+package's layout: each part a rank's rows, the global tables in part 0);
+reading the base path reassembles them, whichever package wrote them.
 """
 
 import glob
@@ -136,24 +136,27 @@ def _part_path(path: str, k: int, P: int) -> str:
 def write_snapshot_sharded(path: str, state: ParticleState, box: Box, const: SimConstants,
                            iteration: int = 0, extra_fields: Optional[Dict] = None,
                            case: str = "", case_settings: Optional[Dict] = None,
-                           mesh=None) -> int:
+                           mesh=None, global_fields: Optional[Dict] = None) -> int:
     """One part file a rank, with no gather: rank k of P writes its slab
     ``state`` to ``<base>.part<k>of<P><ext>`` (the JAX package's sharded
     dumps, file for file: an ordinary snapshot of the slab's rows, the
     global count in its attributes; per-particle ``extra_fields`` are the
-    slab's, other arrays go to part 0 only). ``read_snapshot`` of the base
-    path reassembles the parts. Without a mesh (or one rank) it is
+    slab's, such as the derived output fields, and other arrays among them
+    go to part 0 only; ``global_fields``, tables such as the stirring
+    state, go to part 0 whatever their shape). ``read_snapshot`` of the
+    base path reassembles the parts. Without a mesh (or one rank) it is
     ``write_snapshot``. Returns the step index written."""
     if mesh is None or mesh.size <= 1:
-        return write_snapshot(path, state, box, const, iteration, extra_fields, case,
+        return write_snapshot(path, state, box, const, iteration,
+                              {**(extra_fields or {}), **(global_fields or {})} or None, case,
                               case_settings)
     k, P, rows = mesh.rank, mesh.size, state.n
-    ex = None
-    if extra_fields:
-        ex = {name: v for name, v in extra_fields.items()
-              if k == 0 or (v.ndim >= 1 and v.shape[0] == rows)}
-    return write_snapshot(_part_path(path, k, P), state, box, const, iteration, ex, case,
-                          case_settings, num_particles_global=rows * P)
+    ex = {name: v for name, v in (extra_fields or {}).items()
+          if k == 0 or (v.ndim >= 1 and v.shape[0] == rows)}
+    if k == 0:
+        ex.update(global_fields or {})
+    return write_snapshot(_part_path(path, k, P), state, box, const, iteration, ex or None,
+                          case, case_settings, num_particles_global=rows * P)
 
 
 def _find_parts(path: str) -> List[str]:

@@ -16,7 +16,18 @@ arrays and Python numbers, which the launcher hands back.
 - ``jdata_vs_plain`` (``rank_jdata`` on each rank): K1's jdata form of
   every op of a sharded force stage against its plain version on the same
   j-buffers (nc exact, the tolerances of ``checks.std_ops_vs_plain`` and
-  ``ve_chain_vs_plain``).
+  ``ve_chain_vs_plain``);
+- the gravity stage on a mesh (``rank_gravity_*``, ``p2p_jdata_*``,
+  ``ewald_mesh_vs_one_device``);
+- turb-ve, N-body and block time steps across ranks: ``run_props`` (one
+  Simulation run, on one device or as a rank: each step's scalars and aux
+  slots, the final fields, the counters; ``rank_props_suite`` with
+  ``rank_folded_sort``, the folded distributed sort and the rows' return
+  to their owners), and on the card
+  ``props_path`` (a timed path whose last step ``props_vs_one_device``
+  holds to the one-device step from the gathered input) with
+  ``compact_row_slab`` (K13's one-row form on a rank's due masks against
+  its plain version), ``rank_props_card``.
 """
 
 import dataclasses
@@ -575,20 +586,22 @@ def p2p_jdata_case(mesh: Mesh, xyzmh, keys, box, tree, meta, cfg, win, shift=Non
                    allow_self: bool = False):
     """The near field's inputs of one sharded solve pass on this rank, as
     ``compute_gravity`` builds them: the classification's leaf ranges
-    localized into the j-buffer the halo serve fills. Returns (starts,
-    lens, j-buffer)."""
+    localized into the j-buffer the halo serve fills. Returns (the
+    targets x y z m h led by the blocks' lead rows, starts, lens,
+    j-buffer)."""
     from sphexa_torch.gravity import traversal as gt
 
     x, y, z, m, h = xyzmh
     mps = gt.compute_multipoles_sharded(mesh, x, y, z, m, keys, tree, meta,
                                         order=cfg.multipole_order)
     sh = None if shift is None else torch.as_tensor(shift, dtype=x.dtype, device=x.device)
-    lists = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1], shift=sh, let=True)
+    lists = gt.classify(x, y, z, box, tree, meta, cfg, mps[0], mps[1], shift=sh, let=True,
+                        mesh=mesh)
     start, length = gt._p2p_leaf_ranges(lists["p2p"], lists["p2p_ok"], tree, mps[3],
                                         meta.num_nodes)
     starts, lens, jd, _, _ = gt._near_field_halo((mesh, win), x, y, z, m, h, mps[3], start,
-                                                 length)
-    return starts, lens, jd
+                                                 length, lists["lead"])
+    return gt._lead_rows(xyzmh, lists["lead"]), starts, lens, jd
 
 
 def p2p_jdata_vs_plain(name: str, xyzmh, cfg, starts, lens, jdata, groups=None, shift=None,
@@ -620,14 +633,15 @@ def rank_p2p_jdata(mesh: Mesh, flat, groups: int = 0) -> dict:
     win = tuple(min(c, ss.n) for c in sim.cfg.grav_cells) or ss.n
     out = {"win": win}
     for name, shift, allow_self in (("open", None, False), ("image", IMAGE_SHIFT, True)):
-        starts, lens, jd = p2p_jdata_case(mesh, xyzmh, keys, sbox, sim.gtree, sim.cfg.grav_meta,
-                                          cfg, win, shift=shift, allow_self=allow_self)
+        tg, starts, lens, jd = p2p_jdata_case(mesh, xyzmh, keys, sbox, sim.gtree,
+                                              sim.cfg.grav_meta, cfg, win, shift=shift,
+                                              allow_self=allow_self)
         sel = None
         if groups:
             sel = torch.linspace(0, lens.shape[0] - 1, groups, device=lens.device).round().long()
-        out[name] = p2p_jdata_vs_plain(f"rank {mesh.rank} {name}", xyzmh, cfg, starts, lens, jd,
+        out[name] = p2p_jdata_vs_plain(f"rank {mesh.rank} {name}", tg, cfg, starts, lens, jd,
                                        groups=sel, shift=shift, allow_self=allow_self)
-        out[name]["halo_rows"] = int(jd[0].shape[0] - ss.n)
+        out[name]["halo_rows"] = int(jd[0].shape[0] - tg[0].shape[0])
     return out
 
 
@@ -673,3 +687,294 @@ def ewald_mesh_vs_one_device(mesh: Mesh, n: int = 4096, seed: int = 3) -> dict:
     return {"n": n, "win": win, "max_abs_err_over_scale": err,
             "egrav_rel_err": abs(float(egrav) - e1) / abs(e1), "k12_launches": launches,
             "diag": {k: float(v) for k, v in d.items()}}
+
+
+# ---------------------------------------------------------------------------
+# turb-ve, N-body and block time steps across ranks
+# ---------------------------------------------------------------------------
+
+#: the BlockDtState's fields as a run returns them
+BDT_FIELDS = ("bins", "dt_prev", "substep", "cycle", "dt_min")
+
+
+def _aux_np(sim) -> dict:
+    """The carry's aux slots as numpy: the BlockDtState (this rank's slab
+    of its per-particle fields) and the stirring's key and phases."""
+    out = {}
+    if sim.bdt_state is not None:
+        out["bdt"] = {f: _np(getattr(sim.bdt_state, f)) for f in BDT_FIELDS}
+    if sim.turb_state is not None:
+        out["turb"] = {"key": np.asarray(sim.turb_state.key, np.uint32).copy(),
+                       "phases": _np(sim.turb_state.phases)}
+    return out
+
+
+def run_props(flat, kw: Dict, steps: int, device, num_devices=None) -> dict:
+    """``Simulation(**kw)`` from the whole state ``flat`` ((fields, box,
+    const) numpy dicts) with the science ledger, on one device or as a
+    rank of ``num_devices``, ``steps`` steps (``check_every`` among the
+    keywords defers them; the run is flushed at its end). ``halo_margin``
+    and ``grav_margin`` among the keywords set the SPH or gravity serve's
+    starting margin: below 1 they undersize it, and the first step trips
+    its escape sentinel. Returns each step's scalars and aux slots
+    (``_aux_np``), the final fields (this rank's rows), the science rows,
+    the Simulation's counters, the exchange shapes and the telemetry events'
+    kinds and stages."""
+    from sphexa_torch.observables import ObservableSpec
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.telemetry import MemorySink, Telemetry
+
+    kw = dict(kw)
+    margins = {"_halo_margin": kw.pop("halo_margin", None),
+               "_grav_halo_margin": kw.pop("grav_margin", None)}
+    state, box, const = state_from_numpy(*flat, device=device)
+    sink = MemorySink()
+    sim = Simulation(state, box, const, device=device, num_devices=num_devices,
+                     use_lists=False, obs_spec=ObservableSpec(), science_rows=True,
+                     telemetry=Telemetry(sinks=[sink]), **kw)
+    if any(v is not None for v in margins.values()):
+        for k, v in margins.items():
+            if v is not None:
+                setattr(sim, k, v)
+        sim._configure(reason="margin")
+    per_step = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        d = sim.step()
+        per_step.append({"diag": dict(d), **_aux_np(sim)})
+    sim.flush()
+    return {"steps": per_step, **_aux_np(sim), "rows": sim.drain_science(),
+            "fields": {f.name: _np(getattr(sim.state, f.name))
+                       for f in dataclasses.fields(sim.state)
+                       if getattr(sim.state, f.name).dim() == 1},
+            "replays": sim.replays, "rollbacks": sim.rollbacks,
+            "reconfigures": sim.reconfigures, "halo": sim.halo_info,
+            "grav_halo": sim.grav_halo_info, "halo_cells": sim.cfg.halo_cells,
+            "halo_window": sim.cfg.halo_window,
+            "bdt_counters": (sim.bdt_updates, sim.bdt_updates_full, sim.bdt_resorts,
+                             sim.bdt_keeps),
+            "events": [(e["kind"], e.get("stage")) for e in sink.events],
+            "seconds": time.perf_counter() - t0}
+
+
+def rank_folded_sort(mesh: Mesh, cases: Sequence[tuple]) -> list:
+    """For each case (keys (N,) int64 30-bit, bins (N,) int32, cols (N, F)
+    float32), this rank's slab of: the sort of the folded keys over 32
+    bits with the bins and each row's global index riding as bit columns
+    (``sort_slabs``), the rows sent back to their owners (``to_owners``),
+    and the 30-bit ``distributed_sort`` of the spatial keys."""
+    from sphexa_torch.parallel.sort import distributed_sort, sort_slabs, to_owners
+    from sphexa_torch.sph.blockdt import FOLD_BITS, fold_bin_key
+
+    out = []
+    for keys, bins, cols in cases:
+        S = keys.shape[0] // mesh.size
+        sl = slice(mesh.rank * S, (mesh.rank + 1) * S)
+        k, b, c = (torch.as_tensor(np.ascontiguousarray(a[sl]), device=mesh.device)
+                   for a in (keys, bins, cols))
+        gidx = mesh.rank * S + torch.arange(S, dtype=torch.int64, device=mesh.device)
+        r = sort_slabs(mesh, fold_bin_key(k, b), c, key_bits=30 + FOLD_BITS, extra=[b, gidx])
+        back = to_owners(mesh, r.rows, r.extra[1], r)
+        sk, sc_ = distributed_sort(mesh, k, c)
+        out.append({"folded": _np(r.keys), "rows": _np(r.rows), "bins": _np(r.extra[0]),
+                    "gidx": _np(r.extra[1]), "back": _np(back), "spatial": _np(sk),
+                    "spatial_rows": _np(sc_)})
+    return out
+
+
+def one_device_step(sim, prev, prev_box, prev_aux):
+    """The one-device step of ``sim``'s propagator from a gathered state
+    ``prev`` and aux (the stirring state, or the gathered BlockDtState), on
+    this rank's device, with ``sim``'s tree and static sizes. Returns (the
+    new SimState, diagnostics)."""
+    from sphexa_torch.propagator import STEP_AUX_SLOT, step_sim_state
+    from sphexa_torch.state import SimState
+
+    cfg1 = dataclasses.replace(sim.cfg, mesh=None, halo_cells=(), halo_window=0,
+                               grav_cells=())
+    slot = STEP_AUX_SLOT.get(sim._step_fn)
+    carry = SimState(particles=prev, box=prev_box, **({slot: prev_aux} if slot else {}))
+    return step_sim_state(sim._step_fn, carry, cfg1, sim.gtree, sim._aux_cfg)
+
+
+#: the tolerances of a sharded step against the one-device step of the same
+#: input on the card, by propagator: (field, rtol, atol, atol as a share of
+#: the field's max|.|) (chip_smoke's sharded_path; N-body's the JAX mesh
+#: test's rtol, its atol scaled to the field: the ranks classify the
+#: one-device target blocks)
+CARD_TOL = {"turb-ve": (("vx", 1e-4, 1e-6, 0.0), ("x", 1e-5, 1e-7, 0.0)),
+            "nbody": (("vx", 5e-4, 0.0, 1e-3),),
+            "blockdt": (("x", 1e-5, 1e-7, 0.0), ("temp", 1e-4, 0.0, 0.0))}
+
+
+def props_vs_one_device(name: str, kind: str, new, new_aux, d: Dict, one) -> dict:
+    """A sharded step's gathered slabs ``new`` (and aux, gathered) and its
+    scalars ``d`` against the one-device step ``one`` ((SimState,
+    diagnostics), ``one_device_step``) of the same input: ``CARD_TOL``'s
+    fields; dt within 1e-5; turb-ve the key equal and the OU phases within
+    rtol 1e-6, atol 1e-9; N-body egrav within 1e-4; the block time steps'
+    bins, substep and dt_min (float32) equal, the active count,
+    populations, work, inversions and resort decision equal. Raises past
+    a tolerance; returns the errors."""
+    s1, d1 = one
+    out = {"dt_rel_err": abs(d["dt"] - float(d1["dt"])) / float(d1["dt"])}
+    for f, rtol, atol, atol_rel in CARD_TOL[kind]:
+        a, b = getattr(new, f), getattr(s1.particles, f)
+        atol = atol + atol_rel * float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=f"{name}: {f}")
+        out[f"{f}_max_abs_err"] = float((a - b).abs().max())
+        out[f"{f}_scale"] = float(b.abs().max())
+    if out["dt_rel_err"] > 1e-5:
+        raise AssertionError(f"{name}: dt {d['dt']} vs {float(d1['dt'])}")
+    if kind == "turb-ve":
+        if not np.array_equal(np.asarray(new_aux.key), np.asarray(s1.turb.key)):
+            raise AssertionError(f"{name}: the stirring key left the one-device chain")
+        torch.testing.assert_close(new_aux.phases, s1.turb.phases, rtol=1e-6, atol=1e-9,
+                                   msg=f"{name}: OU phases")
+        out["phases_max_abs_err"] = float((new_aux.phases - s1.turb.phases).abs().max())
+    if kind == "nbody":
+        e1 = float(d1["egrav"])
+        out["egrav_rel_err"] = abs(d["egrav"] - e1) / abs(e1)
+        if out["egrav_rel_err"] > 1e-4:
+            raise AssertionError(f"{name}: egrav {d['egrav']} vs {e1}")
+    if kind == "blockdt":
+        b1 = s1.bdt
+        if not (torch.equal(new_aux.bins, b1.bins) and int(new_aux.substep) == int(b1.substep)
+                and float(new_aux.dt_min) == float(b1.dt_min)):
+            raise AssertionError(f"{name}: bins, substep or dt_min differ from one device's")
+        for k in ("bdt_active", "bdt_work", "bdt_drift", "bdt_resort", "bdt_substep"):
+            if d[k] != float(d1[k]):
+                raise AssertionError(f"{name}: {k} {d[k]} vs {float(d1[k])}")
+        pop = d1["bdt_pop"].tolist()
+        if [d[f"bdt_pop[{k}]"] for k in range(len(pop))] != [float(p) for p in pop]:
+            raise AssertionError(f"{name}: bin populations differ from one device's")
+        out.update(active=d["bdt_active"], drift=d["bdt_drift"], resort=d["bdt_resort"])
+    return out
+
+
+def compact_row_slab(name: str, mesh: Mesh, bst, nbins: int) -> list:
+    """K13's one-row form on this rank's due masks against its plain
+    version, exact (``checks.compact_row_vs_plain``): the next substep's
+    mask (from the BlockDtState slab) and the cycle's last one, where
+    every bin is due. Returns each check's result with its mask."""
+    from sphexa_torch.kernels.checks import compact_row_vs_plain
+    from sphexa_torch.sph.blockdt import cycle_length, due_mask
+
+    out = []
+    for sub in (bst.substep, torch.full_like(bst.substep, cycle_length(nbins) - 1)):
+        due = due_mask(bst.bins, sub)
+        res = compact_row_vs_plain(f"{name} rank {mesh.rank} substep {int(sub)}", due)
+        out.append(({**res, "substep": int(sub)}, due))
+    return out
+
+
+def rank_props_suite(mesh: Mesh, runs: Sequence[tuple], sort_cases: Sequence[tuple]) -> dict:
+    """``run_props`` on this rank of each (flat, keywords, steps) of
+    ``runs`` and ``rank_folded_sort`` of ``sort_cases``, in one spawn of
+    the ranks."""
+    return {"runs": [run_props(flat, kw, steps, mesh.device, mesh.size)
+                     for flat, kw, steps in runs],
+            "sort": rank_folded_sort(mesh, sort_cases)}
+
+
+def gather_aux(mesh: Mesh, sim):
+    """The carry's aux slot of ``sim``'s propagator, whole on every rank:
+    the BlockDtState's slabs gathered (``gather_state``), the replicated
+    stirring state as it is; None without one. For checks only."""
+    if sim.bdt_state is not None:
+        return gather_state(mesh, sim.bdt_state)
+    return sim.turb_state
+
+
+def props_path(name: str, mesh: Mesh, make_sim, kind: str, steps: int, check: bool = True):
+    """One sharded path on this rank: ``make_sim()`` (a
+    ``Simulation(num_devices=P)``), one warm-up step, then ``steps``
+    steps, each timed on the host with the card synchronised, the launch
+    counts reset just before them and read just after; the slabs and the
+    aux gathered (for the check only) before the last step and after it,
+    and with ``check`` rank 0 holds the last step to the one-device step
+    from the gathered input (``props_vs_one_device``, ``kind`` "turb-ve",
+    "nbody" or "blockdt"). Returns (the Simulation, its record)."""
+    from sphexa_torch.sph import pair_engine as pe
+
+    dev = mesh.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    sim = make_sim()
+    rec = {"configure_s": time.perf_counter() - t0}
+    sim.step()  # warm-up
+    pe.reset_launches()
+    replays0 = sim.replays
+    ms, diags = [], []
+    for i in range(steps):
+        if i == steps - 1:
+            prev, prev_box = gather_state(mesh, sim.state), sim.box
+            prev_aux = gather_aux(mesh, sim)
+        sync()
+        t1 = time.perf_counter()
+        diags.append(sim.step())
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t1))
+    launches = dict(pe.LAUNCHES)
+    attempts = steps + sim.replays - replays0
+    new, new_aux = gather_state(mesh, sim.state), gather_aux(mesh, sim)
+    d = diags[-1]
+    P = mesh.size
+    rec.update(step_ms=ms, launches=launches, attempts=attempts, n=new.n, slab=sim.state.n,
+               halo=sim.halo_info, grav_halo=sim.grav_halo_info, dt=d["dt"],
+               replays=sim.replays, energy_drift=sim.energy_drift,
+               diags=[{k: v for k, v in dd.items() if k.startswith(("bdt_", "egrav", "dt"))}
+                      for dd in diags])
+    for key in ("shard_rows", "shard_occ", "gshard_rows", "gshard_occ"):
+        if f"{key}[0]" in d:
+            rec[key] = [d[f"{key}[{k}]"] for k in range(P)]
+    if check and mesh.rank == 0:
+        one = one_device_step(sim, prev, prev_box, prev_aux)
+        rec["vs_one_device"] = props_vs_one_device(name, kind, new, new_aux, d, one)
+        del one
+    del prev, prev_aux, new, new_aux
+    all_gather(mesh, torch.zeros(1, device=dev))  # rank 0's check before the next path
+    return sim, rec
+
+
+#: the small cases of ``rank_props_card``: (name, init, side, the case's
+#: settings, keywords, kind, steps); the block time steps from a
+#: Courant-limited start, where the bins differ
+CARD_PROP_CASES = (("turb-ve", "sedov", 16, None,
+                    {"prop": "turb-ve", "turb_settings": {"stMaxModes": 200}}, "turb-ve", 2),
+                   ("nbody", "evrard", 16, None, {"prop": "nbody"}, "nbody", 2),
+                   ("blockdt", "sedov", 16, {"minDt": 1e-3, "minDt_m1": 1e-3},
+                    {"prop": "std", "dt_bins": 4, "bin_resort_drift": 0.01}, "blockdt", 8))
+
+
+def rank_props_card(mesh: Mesh, cases=CARD_PROP_CASES) -> dict:
+    """``props_path`` of each case on this rank (the Simulation from the
+    case's init, trimmed to a multiple of P rows), and on the block time
+    steps' path K13's one-row form on this rank's due mask against its
+    plain version (``compact_row_slab``). Returns the records by name."""
+    from sphexa_torch.init import CASES
+    from sphexa_torch.simulation import Simulation
+
+    out = {}
+    for name, init, side, settings, kw, kind, steps in cases:
+        state, box, const = CASES[init](side, device=mesh.device,
+                                        **({"overrides": settings} if settings else {}))
+        n = state.n // mesh.size * mesh.size
+        state = dataclasses.replace(state, **{f.name: getattr(state, f.name)[:n]
+                                              for f in dataclasses.fields(state)
+                                              if getattr(state, f.name).dim() == 1})
+
+        def make(state=state, box=box, const=const, kw=kw):
+            return Simulation(state, box, const, device=mesh.device, num_devices=mesh.size,
+                              **kw)
+
+        sim, rec = props_path(f"{name} rank {mesh.rank}", mesh, make, kind, steps)
+        if kind == "blockdt":
+            rec["compact_row"] = [r for r, _ in compact_row_slab(name, mesh, sim.bdt_state,
+                                                                 kw["dt_bins"])]
+        out[name] = rec
+    return out

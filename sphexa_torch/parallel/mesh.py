@@ -168,6 +168,28 @@ def exchange_rounds(mesh: Mesh, sends: Sequence[torch.Tensor]) -> List[torch.Ten
     return [o.to(mesh.device) for o in recvs] if mesh.staged else recvs
 
 
+def gather_rows(mesh: Mesh, t: torch.Tensor, dst: int = 0) -> Optional[torch.Tensor]:
+    """Every rank's rows of ``t`` concatenated in rank order on rank
+    ``dst`` (one gather; None on the other ranks). For output only: the
+    steps never gather."""
+    src = _host(t) if mesh.staged else t.contiguous()
+    out = [torch.empty_like(src) for _ in range(mesh.size)] if mesh.rank == dst else None
+    dist.gather(src, out, dst=dst, group=mesh.group)
+    if out is None:
+        return None
+    g = torch.cat(out)
+    return g.to(mesh.device) if mesh.staged else g
+
+
+def broadcast_flag(mesh: Mesh, flag: bool, src: int = 0) -> bool:
+    """Rank ``src``'s ``flag`` on every rank (a decision taken on one
+    rank's clock, such as a wall-clock limit)."""
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=dev)
+    dist.broadcast(t, src=src, group=mesh.group)
+    return bool(t.item())
+
+
 def reduce_scalars(mesh: Mesh, sums: Sequence[torch.Tensor] = (),
                    maxes: Sequence[torch.Tensor] = (), mins: Sequence[torch.Tensor] = ()):
     """Replicated reductions of small per-rank tensors in one all_gather:
@@ -253,36 +275,36 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), workdir: str = ".", devic
 # the sharded step
 # ---------------------------------------------------------------------------
 
-#: what the step functions other than std, VE and std-cooling wait for on a
-#: mesh
-NEXT_SLICE = "the next slice of the port (turb-ve, block time steps and N-body on a mesh)"
-
-
 def make_sharded_step(mesh: Mesh, cfg, step_fn=None, halo_window: int = 0,
                       halo_cells: Sequence[int] = (), grav_cells: Sequence[int] = (),
                       aux_cfg=None):
     """The step of this rank's slab (the JAX package's make_sharded_step):
     ``stepper(state, box, gtree=None, aux=None)`` runs ``step_fn`` (std,
-    the default, VE, or std-cooling) with ``cfg`` bound to the mesh and
+    the default, VE, turb-ve, std-cooling, N-body, or the std and VE block
+    time steps with ``cfg.dt_bins``) with ``cfg`` bound to the mesh and
     the halo exchange's sizes: ``halo_cells`` (P - 1 per-distance row
     caps) selects the sparse exchange, else ``halo_window`` rows per peer
-    (0: whole slabs). The steps stream (no lists). With self-gravity
-    (``cfg.gravity``) ``gtree`` is the replicated tree, and ``grav_cells``
-    (P - 1 per-distance caps, ``sizing.device_gravity_halo``) selects the
-    MAC-sized sparse near-field serve, else whole slabs. std-cooling takes
-    its chemistry slab as ``aux`` and its CoolingConfig as ``aux_cfg``,
-    and returns the sorted chemistry fourth. ``stepper.step_sim(sim,
-    gtree=None)`` advances a SimState carry. turb-ve, block time steps and
-    N-body raise."""
+    (0: whole slabs); the N-body step has no SPH halo and ignores both.
+    The steps stream (no lists). With self-gravity (``cfg.gravity``)
+    ``gtree`` is the replicated tree, and ``grav_cells`` (P - 1
+    per-distance caps, ``sizing.device_gravity_halo``) selects the
+    MAC-sized sparse near-field serve, else whole slabs. The aux steps
+    take their slot's state as ``aux`` (turb-ve the replicated
+    TurbulenceState, std-cooling its chemistry slab, the block time steps
+    their BlockDtState slab), turb-ve and std-cooling their static config
+    as ``aux_cfg``, and return the advanced aux fourth. ``stepper.step_sim(
+    sim, gtree=None)`` advances a SimState carry."""
     from sphexa_torch import propagator as prop
 
     step_fn = prop._step_hydro_std if step_fn is None else step_fn
-    if step_fn not in (prop._step_hydro_std, prop._step_hydro_ve,
-                       prop._step_hydro_std_cooling):
-        raise ValueError(f"{getattr(step_fn, '__name__', step_fn)} on a mesh comes with "
-                         f"{NEXT_SLICE}; this one shards the std, VE and std-cooling steps")
-    if cfg.dt_bins is not None:
-        raise ValueError(f"block time steps on a mesh come with {NEXT_SLICE}")
+    blockdt = (prop._step_hydro_std_blockdt, prop._step_hydro_ve_blockdt)
+    known = (prop._step_hydro_std, prop._step_hydro_ve, prop._step_turb_ve,
+             prop._step_hydro_std_cooling, prop._step_nbody) + blockdt
+    if step_fn not in known:
+        raise ValueError(f"{getattr(step_fn, '__name__', step_fn)} is no step function of "
+                         "sphexa_torch.propagator")
+    if (step_fn in blockdt) != (cfg.dt_bins is not None):
+        raise ValueError("the block-time-step functions, and only they, take cfg.dt_bins")
     for name, caps in (("halo_cells", halo_cells), ("grav_cells", grav_cells)):
         if caps and len(caps) != mesh.size - 1:
             raise ValueError(f"{name} needs P-1={mesh.size - 1} caps, got {len(caps)}")
@@ -290,10 +312,13 @@ def make_sharded_step(mesh: Mesh, cfg, step_fn=None, halo_window: int = 0,
                               halo_cells=tuple(int(c) for c in halo_cells),
                               grav_cells=tuple(int(c) for c in grav_cells), list_slot_cap=0)
     with_cfg = step_fn in prop.STEP_AUX_CFG
+    with_aux = step_fn in prop.STEP_AUX_SLOT
 
     def stepper(state, box, gtree=None, aux=None):
         if with_cfg:
             return step_fn(state, box, cfg, gtree, aux, aux_cfg)
+        if with_aux:
+            return step_fn(state, box, cfg, gtree, aux)
         return step_fn(state, box, cfg, gtree)
 
     def step_sim(sim, gtree=None):

@@ -265,7 +265,10 @@ def gravity_need_matrix(mesh, xs, ys, zs, ms, skeys, box, tree, meta, theta: flo
     k's P2P essential set. Whatever the slab's bbox accepts arrives by M2P
     on the replicated tree; the accept region only grows as the target
     bbox shrinks, so a leaf that any block, superblock or essential-set
-    classification of the slab opens is opened by the slab too.
+    classification of the slab opens is opened by the slab too, but for
+    the rows of a target block shared with a neighbour rank, which reach
+    past the slab's bbox (the serve's margin and its escape sentinel
+    cover them).
     ``shifts`` ((ns, 3)): the opened set is unioned over the targets
     shifted by each (the Ewald replica passes). ``xs`` .. ``skeys``: this
     rank's slab of the sorted particles; ``multipoles``: the sharded

@@ -31,19 +31,24 @@ one-row form lists; their BlockDtState rides the sort as the aux. PyTorch
 runs the steps eagerly; the pair ops launch the CUDA kernels on the card
 and their plain versions on the CPU.
 
-Under a mesh (``cfg.mesh``, parallel/mesh.py ``make_sharded_step``; the
-std, VE and std-cooling steps) the state is this rank's slab: the box
+Under a mesh (``cfg.mesh``, parallel/mesh.py ``make_sharded_step``;
+every step function) the state is this rank's slab: the box
 regrow reduces the extrema over the ranks, the sort is the distributed
 one (parallel/sort.py: rank k ends with rows [k S, (k + 1) S) of the
-global stable sort; the chemistry rides it as extra columns), and the
+global stable sort; the chemistry and the BlockDtState ride it as extra
+columns, the block time steps' on the folded key), and the
 force stage is ``_std_forces_sharded`` / ``_ve_forces_sharded``: K1 on
 the slab against [own slab | halo rows] j-buffers (parallel/exchange.py),
 one serve of halo rows per field set the next op reads on its j side;
 self-gravity is ``_gravity_sharded_stage`` (the sharded upsweep, the
 rank's essential set, the near field on served halo rows, open or
-Ewald). The step's scalars (dt, the occupancy with the halo escape
-sentinel folded in, egrav, the diagnostics and the ledger) are reduced
-over the ranks, so that every rank returns the same ones.
+Ewald). The N-body step runs the gravity stage alone; the stirring of
+turb-ve is replicated (every rank advances the same key chain with the
+same dt, over the global mode tables); the block time steps list each
+slab's due rows with K13's one-row form. The step's scalars (dt, the
+occupancy with the halo escape sentinel folded in, egrav, the
+diagnostics, the block counts and the ledger) are reduced over the
+ranks, so that every rank returns the same ones.
 """
 
 import dataclasses
@@ -200,28 +205,61 @@ def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None, bins=Non
     return new, keys[order], order, aux
 
 
-def _sort_by_keys_sharded(state: ParticleState, box: Box, curve: str, mesh, aux=None):
+def _sort_by_keys_sharded(state: ParticleState, box: Box, curve: str, mesh, aux=None,
+                          bins=None, resort_drift: float = 0.0):
     """``_sort_by_keys`` across ranks: this rank's slab of the global
-    stable sort (parallel/sort.py). ``aux`` (the chemistry: float32 (S,)
-    fields) rides the sort as extra columns. Returns (state, sorted keys),
-    and the sorted aux third with ``aux``."""
-    from sphexa_torch.parallel.sort import distributed_sort
+    stable sort (parallel/sort.py). ``aux``'s (S,) fields ride the sort:
+    float32 ones (the chemistry, dt_prev) as columns, int32 ones (the
+    bins) as the bits of one. Returns (state, sorted keys), and the sorted
+    aux third with ``aux``.
+
+    ``bins`` (block time steps): the sort runs on the 32-bit folded key,
+    drift-aware as on one device: the inversions are counted over the
+    global array (each slab's own plus the P - 1 slab boundaries, the last
+    key of rank r against the first of rank r + 1, in one all_gather), and
+    at most ``int(resort_drift * N)`` of them keep the order. Every rank
+    takes the decision from the same count and selects on the card (the
+    sort runs either way, no host read decides): keeping, every rank keeps
+    its own rows, and nothing moves between ranks. Returns (state, keys,
+    aux, resorted () int32, inversions () int32)."""
+    from sphexa_torch.parallel.mesh import all_gather
+    from sphexa_torch.parallel.sort import SPATIAL_KEY_BITS, sort_slabs
 
     keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
     n = state.n
     per = [] if aux is None else [f.name for f in dataclasses.fields(aux)
                                   if getattr(aux, f.name).shape == (n,)]
-    if any(getattr(aux, f).dtype != state.x.dtype for f in per):
-        raise ValueError("the distributed sort carries float32 per-particle aux fields only")
-    cols = [getattr(state, f) for f in PARTICLE_FIELDS] + [getattr(aux, f) for f in per]
-    skeys, mat = distributed_sort(mesh, keys, torch.stack(cols, dim=1))
+    joined = [f for f in per if getattr(aux, f).dtype == state.x.dtype]
+    ints = [f for f in per if f not in joined]
+    cols = torch.stack([getattr(state, f) for f in PARTICLE_FIELDS]
+                       + [getattr(aux, f) for f in joined], dim=1)
+    extra = [getattr(aux, f) for f in ints]
+    if bins is None:
+        r = sort_slabs(mesh, keys, cols, extra=extra)
+        skeys, mat, moved_ints = r.keys, r.rows, r.extra
+    else:
+        skey = bdt.fold_bin_key(keys, bins)
+        local = torch.sum(skey[1:] < skey[:-1], dtype=torch.int64)
+        g = all_gather(mesh, torch.stack([skey[0], skey[-1], local]))  # (P, 3)
+        inv = (g[:, 2].sum() + torch.sum(g[1:, 0] < g[:-1, 1])).to(torch.int32)
+        resort = inv > int(resort_drift * n * mesh.size)
+        r = sort_slabs(mesh, skey, cols, key_bits=SPATIAL_KEY_BITS + bdt.FOLD_BITS,
+                       extra=extra)
+        skeys = torch.where(resort, r.keys >> bdt.FOLD_BITS, keys)
+        mat = torch.where(resort, r.rows, cols)
+        moved_ints = [torch.where(resort, a, b) for a, b in zip(r.extra, extra)]
     nf = len(PARTICLE_FIELDS)
     new = dataclasses.replace(state, **{f: mat[:, k].contiguous()
                                         for k, f in enumerate(PARTICLE_FIELDS)})
+    if aux is not None:
+        moved = {f: mat[:, nf + k].contiguous() for k, f in enumerate(joined)}
+        moved.update(zip(ints, moved_ints))
+        aux = dataclasses.replace(aux, **moved)
+    if bins is not None:
+        return new, skeys, aux, resort.to(torch.int32), inv
     if aux is None:
         return new, skeys
-    return new, skeys, dataclasses.replace(aux, **{f: mat[:, nf + k].contiguous()
-                                                   for k, f in enumerate(per)})
+    return new, skeys, aux
 
 
 def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig, aux=None):
@@ -410,16 +448,17 @@ def _halo_stage(cfg: PropagatorConfig, S: int, x, y, z, h, keys, box):
 
 
 def exchange_fields_per_step(prop: str, av_clean: bool = False) -> int:
-    """float32 fields the sharded force stage serves a step: std 4 (x, y,
-    z, m) + 1 (m/rho) + 13 (h, v, rho, p, c, the six IAD terms); VE 5 (x,
-    y, z, h, m) + 1 (xm) + 6 (kx, prho, c, v) + 1 (divv) + 7 (alpha, the
-    six IAD terms), and with av_clean the six gradv terms too (the JAX
-    package's docstring counts three). The rows a serve ships times this
-    times 4 is the exchange's bytes a step."""
-    base = {"std": 18, "ve": 20}
-    if prop not in base:
+    """float32 fields the sharded force stage serves a step: std (and
+    std-cooling) 4 (x, y, z, m) + 1 (m/rho) + 13 (h, v, rho, p, c, the six
+    IAD terms); VE (and turb-ve) 5 (x, y, z, h, m) + 1 (xm) + 6 (kx, prho,
+    c, v) + 1 (divv) + 7 (alpha, the six IAD terms), and with av_clean the
+    six gradv terms too (the JAX package's docstring counts three); N-body
+    none. The rows a serve ships times this times 4 is the exchange's
+    bytes a step."""
+    stage = {"std": "std", "std-cooling": "std", "ve": "ve", "turb-ve": "ve"}.get(prop)
+    if stage is None:
         return 0
-    return base[prop] + (6 if av_clean and prop == "ve" else 0)
+    return {"std": 18, "ve": 20}[stage] + (6 if av_clean and stage == "ve" else 0)
 
 
 def _shard_tail(mesh, mins, occ, escaped, cap: int, ranges, metrics):
@@ -675,6 +714,9 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
          sdiag) = _ve_forces_sharded(state, box, cfg, keys)
         ax, ay, az, extra_dts, sdiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                      sdiag)
+        if raw_dts:
+            return (state, box, ax, ay, az, du, (dt_courant, dt_rho, extra_dts), alpha, nc, occ,
+                    rho, c, sdiag)
         dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
         diag = {**sdiag, "dt_limiter": _dt_limiter(
             state.min_dt, const, courant=dt_courant, rho=dt_rho,
@@ -757,8 +799,11 @@ def _step_nbody(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if lists is not None:
         raise ValueError("the N-body step takes no neighbour lists")
     const = cfg.const
-    box = make_global_box(state.x, state.y, state.z, box)
-    state, keys, _ = _sort_by_keys(state, box, cfg.curve)
+    box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
+    if cfg.mesh is not None:
+        state, keys = _sort_by_keys_sharded(state, box, cfg.curve, cfg.mesh)
+    else:
+        state, keys, _ = _sort_by_keys(state, box, cfg.curve)
     zero = torch.zeros_like(state.x)
     ax, ay, az, egrav, dt_acc, gdiag = _add_gravity(state, box, keys, cfg, gtree,
                                                     zero, zero, zero)
@@ -815,15 +860,25 @@ def _integrate_and_finish_blockdt(state: ParticleState, box: Box, cfg: Propagato
 def _blockdt_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig, bst):
     """Box regrow and the block-time-step sort, the BlockDtState riding it
     as the aux. ``dt_bins`` 1 takes the plain sort (no fold, no keep), so
-    that the step is the global one. Returns (state, box, keys, bst,
-    resorted, inversions)."""
-    box = make_global_box(state.x, state.y, state.z, box)
+    that the step is the global one. On a mesh the box regrow and the
+    sort are the sharded ones (``_sort_by_keys_sharded``: the folded key
+    over 32 bits, the inversions counted over the global array). Returns
+    (state, box, keys, bst, resorted, inversions)."""
+    mesh = cfg.mesh
+    box = make_global_box(state.x, state.y, state.z, box, mesh=mesh)
     if cfg.dt_bins == 1:
-        state, keys, _, bst = _sort_by_keys(state, box, cfg.curve, aux=bst)
+        if mesh is None:
+            state, keys, _, bst = _sort_by_keys(state, box, cfg.curve, aux=bst)
+        else:
+            state, keys, bst = _sort_by_keys_sharded(state, box, cfg.curve, mesh, aux=bst)
         one = torch.ones((), dtype=torch.int32, device=keys.device)
         return state, box, keys, bst, one, torch.zeros_like(one)
-    state, keys, _, bst, resorted, inv = _sort_by_keys(
-        state, box, cfg.curve, aux=bst, bins=bst.bins, resort_drift=cfg.bin_resort_drift)
+    kw = {"aux": bst, "bins": bst.bins, "resort_drift": cfg.bin_resort_drift}
+    if mesh is None:
+        state, keys, _, bst, resorted, inv = _sort_by_keys(state, box, cfg.curve, **kw)
+    else:
+        state, keys, bst, resorted, inv = _sort_by_keys_sharded(state, box, cfg.curve, mesh,
+                                                                **kw)
     return state, box, keys, bst, resorted, inv
 
 
@@ -834,7 +889,10 @@ def _blockdt_tail(state: ParticleState, box: Box, cfg: PropagatorConfig, ax, ay,
     dt_min refreshed and (every ``bin_sync_every``-th cycle) the bins
     reassigned; the due mask, the due rows' list and count (K13's one-row
     form on the card), the bin populations and the due rows' neighbour
-    work, the advanced BlockDtState; then the block-time-step tail.
+    work, the advanced BlockDtState; then the block-time-step tail. On a
+    mesh K13's one-row form lists the due rows of this rank's slab, and
+    the active count, the populations and the work are summed over the
+    ranks in one all_gather (dt_sync and dt_min are replicated already).
     Returns (state, box, diagnostics, bst)."""
     const = cfg.const
     B = cfg.dt_bins
@@ -850,10 +908,17 @@ def _blockdt_tail(state: ParticleState, box: Box, cfg: PropagatorConfig, ax, ay,
     dt_eff = dt_min * torch.bitwise_left_shift(torch.ones_like(bins), bins).to(torch.float32)
     idx_act, n_active = bdt.compact_active(due)
     lane = torch.arange(state.n, dtype=torch.int32, device=due.device)
-    work = torch.sum(torch.where(lane < n_active, nc[idx_act.long()], 0).to(torch.float32))
-    bdiag = {"bdt_active": n_active, "bdt_pop": bdt.bin_populations(bins, B),
+    # the due rows' neighbours, summed exactly and rounded once to float32
+    work = torch.sum(torch.where(lane < n_active, nc[idx_act.long()], 0), dtype=torch.int64)
+    pop = bdt.bin_populations(bins, B)
+    if cfg.mesh is not None:
+        from sphexa_torch.parallel.mesh import reduce_scalars
+
+        # integer sums, exact in any order
+        (n_active, pop, work), _, _ = reduce_scalars(cfg.mesh, sums=[n_active, pop, work])
+    bdiag = {"bdt_active": n_active, "bdt_pop": pop,
              "bdt_substep": bst.substep, "bdt_resort": resorted, "bdt_drift": inv,
-             "bdt_work": work}
+             "bdt_work": work.to(torch.float32)}
     wrap = bst.substep + 1 >= bdt.cycle_length(B)
     new_bst = bdt.BlockDtState(
         bins=bins, dt_prev=torch.where(due, dt_eff, bst.dt_prev),

@@ -1,7 +1,6 @@
 """Host-side driver of the port (sphexa_tpu/simulation.py, the std, VE,
 turb-ve, std-cooling and N-body propagators and the std and VE block time
-steps on one card, std, VE and std-cooling across ranks, with or without
-self-gravity): static
+steps, on one card or across ranks, with or without self-gravity): static
 neighbour-config sizing, the gravity tree and its caps (open-box or
 Ewald periodic gravity), the step loop with the overflow contract,
 deferred check windows with rollback and replay of the whole carry (the
@@ -243,13 +242,16 @@ class Simulation:
     (an Ewald solve's worst replica pass) is discarded, the caps re-sized
     with a 1.5x larger margin, and the step replayed.
 
-    ``num_devices`` P > 1 (std, VE and std-cooling, with or without
-    self-gravity, open or Ewald; turb-ve, N-body and block time steps
-    raise, naming the slice that brings them): this process is one of P
+    ``num_devices`` P > 1 (every propagator and the block time steps,
+    with or without self-gravity, open or Ewald): this process is one of P
     ranks (parallel/mesh.py ``spawn``) and joins their process group;
     ``state`` (and ``chem``) is the whole initial state, of which the rank
-    keeps its slab, and ``device`` is the rank's. The steps stream (no
-    lists) over the sharded force stages with the ``halo_mode`` exchange
+    keeps its slab (the BlockDtState too; the stirring's state is
+    replicated: every rank advances the same key chain), and ``device`` is
+    the rank's. The block-dt counters and the ``dt_bins`` event count the
+    global rows. The steps stream (no lists) over the sharded force
+    stages (the N-body step has none: no SPH halo is sized for it) with
+    the ``halo_mode`` exchange
     ("sparse", per-distance row caps, or "windowed", one window per
     peer), sized at every (re)configuration from the current particles
     with a margin; a step whose runs escape the served halo (the
@@ -317,9 +319,6 @@ class Simulation:
             raise ValueError(f"halo_mode must be 'sparse' or 'windowed', got {halo_mode!r}")
         self.mesh = None
         if num_devices is not None and num_devices > 1:
-            if prop not in ("std", "ve", "std-cooling") or dt_bins is not None:
-                raise ValueError(f"prop={prop!r} or block time steps on a mesh come with "
-                                 f"{pmesh.NEXT_SLICE}; std, VE and std-cooling shard now")
             self.mesh = pmesh.make_mesh(num_devices, device=device)
         self._halo_mode = halo_mode
         self._halo_margin = 1.4  # grown 1.5x by every escape-sentinel trip
@@ -512,21 +511,27 @@ class Simulation:
         regrown and the slabs sorted as the next step will) with the
         current margin, and bind the mesh and the sizes into the config
         (parallel/mesh.py ``make_sharded_step``). Only the P - 1 caps, or
-        the window, reach the host."""
+        the window, reach the host. The N-body step has no SPH halo: no
+        sizing (the JAX package's ``_halo_sizing_needed``), and its
+        ``halo_info`` stays empty."""
         mesh, S, P = self.mesh, self.state.n, self.mesh.size
-        sizes = halo_sizes(mesh, self.state, self.box, self._cfg.nbr, self._halo_mode,
-                           margin=self._halo_margin, curve=self.curve)
+        sizes = {}
+        if self.prop_name != "nbody":
+            sizes = halo_sizes(mesh, self.state, self.box, self._cfg.nbr, self._halo_mode,
+                               margin=self._halo_margin, curve=self.curve)
         stepper = pmesh.make_sharded_step(mesh, self._cfg, self._step_fn, **sizes,
                                           grav_cells=self._grav_cells, aux_cfg=self._aux_cfg)
+        self._halo_info = {}
         if "halo_cells" in sizes:
             caps = sizes["halo_cells"]
             self._halo_info = {"mode": "sparse", "caps": caps, "shipped_rows": sum(caps)}
-        else:
+        elif "halo_window" in sizes:
             wmax = sizes["halo_window"]
             self._halo_info = {"mode": "windowed", "wmax": wmax, "shipped_rows": (P - 1) * wmax}
-        self._halo_info["slab"] = S
-        self._halo_info["bytes_per_step"] = 4 * self._halo_info["shipped_rows"] * \
-            exchange_fields_per_step(self.prop_name, self.av_clean)
+        if self._halo_info:
+            self._halo_info["slab"] = S
+            self._halo_info["bytes_per_step"] = 4 * self._halo_info["shipped_rows"] * \
+                exchange_fields_per_step(self.prop_name, self.av_clean)
         self._grav_halo_info = {}
         if self.gravity_on:
             # the near field serves x, y, z, m, h once a solve pass (27 in
@@ -547,7 +552,7 @@ class Simulation:
     def halo_info(self) -> Dict:
         """The sharded run's exchange shape at the last sizing: its mode,
         the caps or the window, the rows a serve ships, the slab and the
-        bytes a step ships ({} on one device)."""
+        bytes a step ships ({} on one device and for N-body)."""
         return dict(self._halo_info)
 
     @property
@@ -980,7 +985,7 @@ class Simulation:
             return
         ds = [d for _, d in steps]
         updates = sum(int(d["bdt_active"]) for d in ds)
-        full = self.state.n * len(ds)
+        full = self.state.n * (1 if self.mesh is None else self.mesh.size) * len(ds)
         resorts = sum(int(d["bdt_resort"]) for d in ds)
         self.bdt_updates += updates
         self.bdt_updates_full += full

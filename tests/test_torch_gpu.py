@@ -34,7 +34,9 @@ the one-device step (kernels/sharded_checks.py); with gravity, a VE
 Evrard step and an Ewald solve against the one-device ones. K12's jdata
 form (``-k p2p_jdata``): bit for bit the one-device form on the targets'
 own arrays, and within its tolerance of the plain version on a rank's
-[own slab | halo rows]."""
+[own slab | halo rows]. turb-ve, N-body and block time steps on two gloo
+ranks of the card (``-k sharded_props``) against the one-device steps,
+K13's one-row form on each rank's due masks."""
 
 import dataclasses
 
@@ -966,3 +968,32 @@ def test_sharded_gravity_two_ranks_on_one_card(tmp_path):
     ew = spawn(sc.ewald_mesh_vs_one_device, 2, workdir=str(tmp_path / "ewald"),
                backend="gloo", timeout=600)
     assert all(r["k12_launches"] == 27 for r in ew)
+
+
+def test_sharded_props_two_ranks_on_one_card(tmp_path):
+    """turb-ve (Sedov 16, 200 modes), N-body (Evrard 16) and block time
+    steps (Sedov 16 from a Courant-limited start, dt_bins 4, a cycle)
+    over two gloo ranks on the card, each path's last step held to the
+    one-device step on the card from the gathered input
+    (``sharded_checks.props_vs_one_device``: the key and the bins equal,
+    the block counts exact, the fields within the mesh tests'
+    tolerances), K13's one-row form once per substep attempt and on each
+    rank's due masks bit for bit its plain version, K12 once per N-body
+    step attempt (below 500,000 rows the sort compaction runs: no K13)."""
+    _need_card()
+    from sphexa_torch.kernels import sharded_checks as sc
+    from sphexa_torch.parallel.mesh import spawn
+
+    out = spawn(sc.rank_props_card, 2, workdir=str(tmp_path), backend="gloo", timeout=900)
+    for res in out:
+        b = res["blockdt"]
+        assert b["launches"]["compact_row"] == b["attempts"]
+        assert all(c["max_abs_err"] == 0.0 for c in b["compact_row"])
+        assert b["compact_row"][1]["due"] == b["slab"]  # the cycle's end: every row
+        nb = res["nbody"]
+        assert nb["launches"]["gravity_p2p"] == nb["attempts"]
+        assert nb["halo"] == {}
+        assert res["turb-ve"]["launches"]["momentum_energy_ve"] == res["turb-ve"]["attempts"]
+    for name in ("turb-ve", "nbody", "blockdt"):
+        assert "vs_one_device" in out[0][name], name
+    assert any(d["bdt_active"] > 0 for d in out[0]["blockdt"]["diags"])

@@ -322,24 +322,29 @@ def test_launcher_fails_when_a_rank_fails(tmp_path):
 
 
 def test_sharded_step_refuses_the_next_slice():
-    """turb-ve, block time steps and N-body on a mesh raise, naming the
-    next slice (self-gravity and std-cooling shard since the sharded
-    gravity slice: tests/test_torch_sharded_gravity.py)."""
+    """Every step function of the port shards since the slice that brought
+    turb-ve, block time steps and N-body to a mesh
+    (tests/test_torch_sharded_props.py): each binds the mesh, the block
+    time steps with ``cfg.dt_bins`` only; what is still refused is a
+    function the propagator does not know and a block-time-step function
+    without ``dt_bins`` (or a global one with it)."""
     from sphexa_torch.init import init_sedov
     from sphexa_torch.propagator import (
-        _step_hydro_std_blockdt, _step_hydro_ve_blockdt, _step_nbody, _step_turb_ve,
+        _step_hydro_std_blockdt, _step_hydro_std_cooling, _step_hydro_ve,
+        _step_hydro_ve_blockdt, _step_nbody, _step_turb_ve,
     )
-    from sphexa_torch.simulation import Simulation
 
     state, box, const = init_sedov(8, device="cpu")
     cfg = make_propagator_config(state, box, const)
+    bcfg = dataclasses.replace(cfg, dt_bins=2)
     mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
-    for fn in (_step_nbody, _step_turb_ve, _step_hydro_std_blockdt, _step_hydro_ve_blockdt):
-        with pytest.raises(ValueError, match="next slice"):
-            make_sharded_step(mesh, cfg, fn)
-    with pytest.raises(ValueError, match="next slice"):
-        make_sharded_step(mesh, dataclasses.replace(cfg, dt_bins=2), _step_hydro_std)
-    for kw in ({"prop": "turb-ve"}, {"prop": "nbody"}, {"prop": "std", "dt_bins": 2}):
-        with pytest.raises(ValueError, match="next slice"):
-            Simulation(state, box, dataclasses.replace(const, g=1.0), device="cpu",
-                       num_devices=2, **kw)
+    for fn, c in ((_step_hydro_std, cfg), (_step_hydro_ve, cfg), (_step_turb_ve, cfg),
+                  (_step_hydro_std_cooling, cfg), (_step_nbody, cfg),
+                  (_step_hydro_std_blockdt, bcfg), (_step_hydro_ve_blockdt, bcfg)):
+        step = make_sharded_step(mesh, c, fn)
+        assert step.cfg.mesh is mesh and step.cfg.list_slot_cap == 0
+    for fn, c in ((_step_nbody, bcfg), (_step_hydro_std_blockdt, cfg)):
+        with pytest.raises(ValueError, match="dt_bins"):
+            make_sharded_step(mesh, c, fn)
+    with pytest.raises(ValueError, match="no step function"):
+        make_sharded_step(mesh, cfg, lambda *a: a)
