@@ -112,8 +112,8 @@ Phases, each printed as one JSON line:
    twice per step attempt), host syncs, gravity phases, forces against
    direct summation, K12 and K13 against their plain versions at the
    state; the CLI's ``--init evrard -n 125 --prop nbody``;
-14. Ewald periodic gravity: std Sedov 100^3 with G = 0.5, one warm-up and
-   one timed step (the SPH ops once, K12 27 times and K13 54 times per
+14. Ewald periodic gravity: std Sedov 100^3 with G = 0.5, one timed step
+   and no warm-up (the SPH ops once, K12 27 times and K13 54 times per
    step attempt), the solve's split (the 27 replica passes, the real-space
    and k-space corrections) and the corrections' peak memory, K12 with a
    shift and the self pair against its plain version, Sedov 16 with G =
@@ -214,6 +214,24 @@ Phases, each printed as one JSON line:
    torch.argsort's time; ``sharded_cli``: the CLI's ``--devices 2`` on two
    gloo ranks sharing the card with turb-ve, N-body and ``--dt-bins 4`` at
    side 30, ``-w`` with ``--ascii``;
+
+25. ``app_shell``: the CLI's ``--devices 2 --snap m,temp`` at Sedov 30 on
+   two gloo ranks sharing the card (rank 0's frame against the one-card
+   deposit of the same particles, the ranks' ``--ascii`` dump: rtol
+   1e-6); ``--debug-checks`` (Sedov 30: a clean step "", a NaN seeded in
+   temp reported with its phase; the checked step's ms at Sedov 100^3);
+   the substep split of the main and VE paths' states (each stage's ms,
+   K1's streaming op 1 + 3 launches a stage: the kernels line's
+   ``app_shell_substeps_*`` paths); the CLI's ``--insitu projection`` (two
+   PNG frames, a snapshot event each) with ``--memory-profile`` (the
+   allocator's snapshot) and a 5-step ``--trace-dir`` capture (coverage >=
+   0.8, the phases' device time), both at Sedov 100^3; then std Sedov
+   100^3 in list mode at check_every 8 with and without a (rho, temp) G 64
+   deposit (``app_checks.deposit_vs_plain``: sums within 1e-5 of the grid's
+   max, "max" exact, against numpy on the host; its time and bound; the
+   step medians; the launch contract; a window's host syncs equal; a
+   checked step's device events without snapshots the main path
+   Simulation's);
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -1285,13 +1303,14 @@ def profile_steps(sim, steps: int, step_ms_unprofiled: float) -> dict:
             "top_device_ms_per_step": [[k[:60], v[0], v[1] / steps] for k, v in top]}
 
 
-def drive(make_sim, steps: int, label: str, drift_bound=1e-3) -> dict:
+def drive(make_sim, steps: int, label: str, drift_bound=1e-3, warmup: bool = True) -> dict:
     """Drive one path of the port through its entry points: the launch
     counts are set to 0 just before the Simulation is made, then one
-    warm-up step (on the list path: the first list build) and ``steps``
-    timed steps, and the counts are read just after. Checks that the run
-    conserves energy (drift < ``drift_bound``; None: a finite drift) and
-    stays finite."""
+    warm-up step (on the list path: the first list build; none with
+    ``warmup`` False, for a path whose first step builds nothing) and
+    ``steps`` timed steps, and the counts are read just after. Checks that
+    the run conserves energy (drift < ``drift_bound``; None: a finite
+    drift) and stays finite."""
     import torch
 
     from sphexa_torch.sph import pair_engine as pe
@@ -1300,7 +1319,7 @@ def drive(make_sim, steps: int, label: str, drift_bound=1e-3) -> dict:
     pe.reset_launches()
     sim = make_sim()
     t0 = time.perf_counter()
-    d0 = sim.step()  # warm-up
+    d0 = sim.step() if warmup else None
     first_s = time.perf_counter() - t0
     replays0 = sim.replays
     torch.cuda.synchronize()
@@ -1312,7 +1331,8 @@ def drive(make_sim, steps: int, label: str, drift_bound=1e-3) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(pe.LAUNCHES)
-    attempts = 1 + steps + sim.replays
+    attempts = int(warmup) + steps + sim.replays
+    d0 = d0 or diags[0]
     drift = sim.energy_drift
     if drift is None or not drift == drift or (drift_bound is not None
                                                  and abs(drift) >= drift_bound):
@@ -1772,8 +1792,10 @@ def nbody_path(spec, smi) -> dict:
 def ewald_path(spec, smi) -> dict:
     """Periodic self-gravity: std Sedov 100^3 with G = 0.5 (the JAX
     README's ``--init sedov --G 0.5``) through Simulation(prop="std"),
-    Ewald on: one warm-up and one timed step (two until the block-dt and
-    kernel-family phases needed the time) with the counts reset just
+    Ewald on: one timed step and no warm-up (its steps stream and build
+    nothing: the tree is built at configuration; 1 + 2 until the block-dt
+    and kernel-family phases needed the time, 1 + 1 until the app shell
+    did) with the counts reset just
     before and read just after (the three streaming SPH ops once, K12 27
     times and K13 54 times per step attempt); the solve's parts by CUDA
     events (the replica passes' phases summed, the real-space and k-space
@@ -1798,7 +1820,7 @@ def ewald_path(spec, smi) -> dict:
     state, box, const = init_sedov(100, overrides={"gravConstant": 0.5}, device="cuda")
     run = drive(lambda: Simulation(state, box, const, prop="std", device="cuda",
                                    obs_spec=spec), steps=1, label="ewald_path",
-                drift_bound=None)
+                drift_bound=None, warmup=False)
     sim = run["sim"]
     if not sim.ewald_on:
         raise AssertionError("Ewald path: the periodic box did not take the Ewald solve")
@@ -3018,6 +3040,242 @@ def sharded_cli(smi) -> dict:
     return out
 
 
+def _events_per_step(sim, steps: int = 3, tries: int = 6) -> dict:
+    """Device events (kernels, copies, fills) of one checked step of
+    ``sim`` from a torch.profiler trace: ``steps`` steps, each inside a
+    range of its own, and the last one counted (the profiler may miss the
+    start of its first), by the correlation ids of the CUDA calls made
+    inside its range; the first run of ``tries`` that builds no lists (a
+    build adds its own)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(tries):
+        b0 = sim.rebuilds
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                with record_function(f"app_shell_step{i}"):
+                    sim.step()
+            torch.cuda.synchronize()
+        if sim.rebuilds == b0:
+            break
+    else:
+        raise AssertionError(f"{tries} profiled runs of {steps} steps each built lists")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+              if e.get("ph") == "X"]
+    (last,) = [e for e in events if e.get("name") == f"app_shell_step{steps - 1}"
+               and e.get("cat") == "user_annotation"]
+    t0, t1 = last["ts"], last["ts"] + last["dur"]
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in
+            e.get("args", {}) and e.get("tid") == last.get("tid") and t0 <= e["ts"] <= t1}
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    own = [e["ts"] for e in dev if e.get("args", {}).get("correlation") in corr]
+    # one stream runs the step in order: its work lies between its first
+    # and last launch matched by id (a launch the trace lacks still counts)
+    dev = [e for e in dev if own and min(own) <= e["ts"] <= max(own)]
+    return {"events": len(dev), "names": collections.Counter(e["name"][:48] for e in dev)}
+
+
+def app_shell(spec, smi, main_sim, ve_sim) -> dict:
+    """Phase 25, the app shell on the card: (g) the CLI's ``--devices 2
+    --snap m,temp`` on two gloo ranks sharing the card (started first, in
+    a thread, while the rest runs): rank 0's frame against the one-card
+    deposit of the same particles (the ranks' ``--ascii`` dump), rtol 1e-6;
+    (f) the debug checks (Sedov 30: a clean step "", a NaN seeded in temp
+    reported with its phase; the checked step's ms at Sedov 100^3); (c)
+    the substep split of the main path's and the VE path's Sedov 100^3
+    states, each stage's ms and K1's launches (1 + 3 per op); (b, e) the
+    CLI's ``--insitu projection --snap-every 4 --check-every 4`` at Sedov
+    100^3, 8 steps, with ``--memory-profile``: two PNG frames, a snapshot
+    event each, the allocator's snapshot file; (d) a 5-step ``--trace-dir``
+    capture of the CLI at Sedov 100^3 (list mode): coverage >= 0.8 and the
+    top phases; (a) std Sedov 100^3 in list mode at check_every 8 with and
+    without ``SnapshotSpec(("rho", "temp"), grid=64)``: one warm-up window
+    and three timed ones each (the launch contract; the step medians), the
+    host syncs of a whole window equal (``window_syncs``), the deposit
+    against its plain numpy version on the host (sums within 1e-5 of the
+    grid's max, a "max" grid exact) with its time by CUDA events and its
+    bound, and the device events of a checked step without snapshots equal
+    to the main path Simulation's. Returns the substep launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.kernels import app_checks as ac
+    from sphexa_torch.kernels.deferred_checks import window_syncs
+    from sphexa_torch.observables.snapshot import SnapshotSpec, snapshot_diagnostics
+    from sphexa_torch.parallel.mesh import spawn
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.telemetry import MemorySink, Telemetry
+
+    t_phase = time.perf_counter()
+    side = 100
+    with tempfile.TemporaryDirectory() as wd, ThreadPoolExecutor(1) as pool:
+        # (g) two gloo ranks of the CLI, side by side with (f)-(d)
+        od_g, td_g = os.path.join(wd, "ranks"), os.path.join(wd, "ranks-tel")
+        argv = ["--init", "sedov", "-n", "30", "-s", "2", "-w", "2", "--check-every", "2",
+                "--snap", "m,temp", "--snap-grid", "15", "--ascii", "--devices", "2",
+                "--quiet", "-o", od_g, "--telemetry-dir", td_g]
+        ranks = pool.submit(spawn, app._rank_main, 2, args=(argv,),
+                            workdir=os.path.join(wd, "spawn"), backend="gloo", timeout=300)
+
+        # (f) the debug checks
+        t0 = time.perf_counter()
+        dbg = ac.debug_checks_case(30, "cuda")
+        dsim = Simulation(*init_sedov(side, device="cuda"), device="cuda", debug_checks=True)
+        dsim.step()
+        dms = []
+        for _ in range(3):
+            d = dsim.step()
+            dms.append(1e3 * dsim.last_step_seconds)
+            if d["check_error"]:
+                raise AssertionError(f"debug checks, Sedov 100^3: {d['check_error']}")
+        del dsim
+        emit({"phase": "app_shell", "part": "debug_checks", "card": smi, **dbg,
+              "checked_step_ms_sedov100": dms, "seconds": time.perf_counter() - t0})
+
+        # (c) the substep split at the main and VE paths' states
+        t0 = time.perf_counter()
+        subs = {"std": ac.substep_launches(main_sim), "ve": ac.substep_launches(ve_sim)}
+        emit({"phase": "app_shell", "part": "substeps", "card": smi, "side": side, **subs,
+              "seconds": time.perf_counter() - t0})
+
+        # (b, e) the CLI's --insitu frames and --memory-profile
+        t0 = time.perf_counter()
+        od, td, mp = (os.path.join(wd, p) for p in ("insitu", "insitu-tel", "mem.pickle"))
+        rc = app.main(["--init", "sedov", "-n", str(side), "-s", "8", "--check-every", "4",
+                       "--insitu", "projection", "--snap-every", "4", "--memory-profile", mp,
+                       "--quiet", "-o", od, "--telemetry-dir", td])
+        pngs = sorted(f for f in os.listdir(od) if f.endswith(".png"))
+        with open(os.path.join(td, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        snaps = [e["it"] for e in events if e["kind"] == "snapshot"]
+        if rc != 0 or pngs != ["insitu_projection_000004.png", "insitu_projection_000008.png"] \
+                or snaps != [4, 8] or not os.path.getsize(mp):
+            raise AssertionError(f"CLI --insitu: rc {rc}, frames {pngs}, snapshot events "
+                                 f"{snaps}, memory profile {os.path.exists(mp)}")
+        emit({"phase": "app_shell", "part": "cli_insitu", "card": smi, "frames": pngs,
+              "png_bytes": [os.path.getsize(os.path.join(od, p)) for p in pngs],
+              "snapshot_events": snaps, "memory_profile_bytes": os.path.getsize(mp),
+              "seconds": time.perf_counter() - t0})
+
+        # (d) a 5-step trace of the CLI in list mode
+        t0 = time.perf_counter()
+        od, td, trd = (os.path.join(wd, p) for p in ("trace-out", "trace-tel", "trace"))
+        rc = app.main(["--init", "sedov", "-n", str(side), "-s", "5", "--quiet", "-o", od,
+                       "--telemetry-dir", td, "--trace-dir", trd])
+        with open(os.path.join(td, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        attr = [e for e in events if e["kind"] == "phase_attr"]
+        if rc != 0 or len(attr) != 1 or attr[0]["coverage"] < 0.8:
+            raise AssertionError(f"CLI --trace-dir: rc {rc}, phase_attr {attr}")
+        top = sorted(attr[0]["phases"].items(), key=lambda kv: -kv[1])
+        emit({"phase": "app_shell", "part": "trace", "card": smi, "steps": 5,
+              "coverage": attr[0]["coverage"], "total_device_us": attr[0]["total_device_us"],
+              "phases_us": dict(top), "trace_bytes": os.path.getsize(
+                  os.path.join(trd, "rank0.pt.trace.json")),
+              "seconds": time.perf_counter() - t0})
+
+        # (g) the ranks' frames
+        t0 = time.perf_counter()
+        codes = ranks.result()
+        if codes != [0, 0]:
+            raise AssertionError(f"CLI --devices 2 --snap: exit codes {codes}")
+        g = ac.grid_vs_dump("two ranks, Sedov 30", os.path.join(td_g, "snapshots",
+                                                                 "snap_000002.npz"),
+                            os.path.join(od_g, "dump_sedov_it2.txt"),
+                            SnapshotSpec(fields=("m", "temp"), grid=15), "cuda")
+        frames = sorted(os.listdir(os.path.join(td_g, "snapshots")))
+        if frames != ["snap_000001.npz", "snap_000002.npz"]:
+            raise AssertionError(f"CLI --devices 2 --snap: frames {frames}")
+        emit({"phase": "app_shell", "part": "ranks", "card": smi, "side": 30, "frames": frames,
+              **g, "seconds": time.perf_counter() - t0})
+
+        # (a) the deposit in the main path's steps
+        t0 = time.perf_counter()
+        walk = ("density_lists", "iad_lists", "momentum_energy_std_lists")
+        snap = SnapshotSpec(fields=("rho", "temp"), grid=64)
+        runs = {}
+        for label, s in (("without", None), ("with", snap)):
+            state, box, const = init_sedov(side, device="cuda")
+            torch.cuda.synchronize()
+            pe.reset_launches()
+            sink = MemorySink()
+            sim = Simulation(state, box, const, prop="std", device="cuda", check_every=8,
+                             obs_spec=spec, snap_spec=s, snap_every=8,
+                             snap_dir=os.path.join(wd, "ring"), telemetry=Telemetry(sinks=[sink]))
+            per_step = []
+            for _ in range(4):  # a warm-up window (the first list build), three timed
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(8):
+                    sim.step()
+                per_step.append(1e3 * (time.perf_counter() - t1) / 8)
+            launches, attempts = dict(pe.LAUNCHES), sim.iteration + sim.replays
+            check_launches(f"app_shell {label} snapshots", launches, attempts, walk,
+                           sim.rebuilds)
+            if sim.lists is None:
+                raise AssertionError(f"app_shell {label} snapshots: no lists")
+            runs[label] = {"sim": sim, "sink": sink, "attempts": attempts,
+                           "launches": {op: launches[op] for op in (*walk, "mark")},
+                           "window_step_ms": per_step[1:], "syncs": window_syncs(sim)}
+        if runs["with"]["syncs"]["syncs"] != runs["without"]["syncs"]["syncs"]:
+            raise AssertionError(f"app_shell: window syncs {runs['with']['syncs']} with "
+                                 f"snapshots, {runs['without']['syncs']} without")
+        its = [e["it"] for e in runs["with"]["sink"].of_kind("snapshot")]
+        if its != [8, 16, 24, 32, 40]:
+            raise AssertionError(f"app_shell: snapshot events at {its}")
+        ssim = runs["with"]["sim"]
+        st = ssim.state
+        rho = st.m / (st.h * st.h * st.h)  # a density proxy: the deposit is held here
+        dep = {f"sum_axis{ax}": ac.deposit_vs_plain(
+            f"Sedov 100 axis {ax}", st, rho, ssim.box, dataclasses.replace(snap, axis=ax))
+            for ax in (0, 1, 2)}
+        dep["max"] = ac.deposit_vs_plain("Sedov 100 max", st, rho, ssim.box,
+                                         dataclasses.replace(snap, reduce="max"))
+        dep_ms = cuda_time_ms(lambda: snapshot_diagnostics(st, rho, ssim.box, snap), reps=20)
+        n, F, G = st.n, len(snap.fields), snap.grid
+        nbytes = 4 * n * (3 + F) + 4 * F * G * G
+        dep_bound = _bound(n * (9 + F), nbytes)
+        # a checked step's device events: without snapshots the main path's
+        ev = {}
+        for label, sim in (("main_path", main_sim), ("without", runs["without"]["sim"]),
+                           ("with", ssim)):
+            sim.check_every = 1  # its window queue is empty: the next steps are checked
+            ev[label] = _events_per_step(sim)
+        if ev["without"]["events"] != ev["main_path"]["events"]:
+            raise AssertionError(f"app_shell: {ev['without']['events']} device events a step "
+                                 f"without snapshots, {ev['main_path']['events']} on the main "
+                                 f"path")
+        extra = ev["with"]["names"] - ev["without"]["names"]
+        emit({"phase": "app_shell", "part": "deposit", "card": smi, "side": side,
+              "spec": dataclasses.asdict(snap), "vs_plain": dep, "deposit_ms": dep_ms,
+              "deposit_bound_ms": dep_bound["bound_ms"], "deposit_bound_by":
+              dep_bound["bound_by"],
+              "step_ms_median_without": statistics.median(runs["without"]["window_step_ms"]),
+              "step_ms_median_with": statistics.median(runs["with"]["window_step_ms"]),
+              "window_step_ms": {k: r["window_step_ms"] for k, r in runs.items()},
+              "window_syncs": {k: r["syncs"] for k, r in runs.items()},
+              "launches": {k: r["launches"] for k, r in runs.items()},
+              "step_attempts": {k: r["attempts"] for k, r in runs.items()},
+              "device_events_per_step": {k: v["events"] for k, v in ev.items()},
+              "deposit_events": dict(extra), "seconds": time.perf_counter() - t0})
+        del runs, ssim
+    emit({"phase": "app_shell", "card": smi, "seconds": time.perf_counter() - t_phase})
+    return {"app_shell_substeps_std": subs["std"]["launches"],
+            "app_shell_substeps_ve": subs["ve"]["launches"]}
+
+
 def sharded_props_path(smi) -> tuple:
     """Phase ``sharded_props_path``: turb-ve, block time steps and N-body
     over two gloo ranks sharing this card (``sharded_props_rank``), their
@@ -3496,6 +3754,9 @@ def main() -> int:
     gshard, gshard_launches = sharded_gravity_path(smi)
     # 24. turb-ve, block time steps and N-body over ranks, and the CLI
     pshard, pshard_launches, _ = sharded_props_path(smi)
+    # 25. the app shell: snapshots, --insitu, the substep split, --trace-dir,
+    # --memory-profile, --debug-checks, --devices 2 --snap
+    app_launches = app_shell(spec, smi, sim, vsim)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -3559,7 +3820,8 @@ def main() -> int:
     # neither runs an av_clean form (a "name:form" entry)
     new_paths = {"turb_ve": turb_launches, "std_cooling_cie": cool_launches["cie"],
                  "std_cooling_evolved": cool_launches["evolved"],
-                 **{f"inits_{c}": la for c, la in init_launches.items()}, **bdt_launches}
+                 **{f"inits_{c}": la for c, la in init_launches.items()}, **bdt_launches,
+                 **app_launches}
     kernels = []
     for name, (r, b, launches, op) in where.items():
         kernels.append({

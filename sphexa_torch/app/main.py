@@ -25,6 +25,11 @@
         --device cpu
     python -m sphexa_torch.app.main --init evrard -n 12 -s 3 --prop nbody --devices 2 --device cpu
     python -m sphexa_torch.app.main --init sedov -n 10 -s 8 --dt-bins 4 --devices 2 --device cpu
+    python -m sphexa_torch.app.main --init sedov -n 100 -s 8 --check-every 4 --snap rho,temp \
+        --insitu projection --snap-every 4 -o out --telemetry-dir out/tel
+    python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --profile --trace-dir out/trace \
+        --memory-profile out/mem.pickle -o out
+    python -m sphexa_torch.app.main --init sedov -n 30 -s 3 --debug-checks
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
@@ -93,6 +98,28 @@ restart reads with any N; ``--ascii`` gathers the columns to rank 0,
 which writes one file in global row order; ``--duration`` is decided on
 rank 0's clock at a check boundary and broadcast, so that every rank
 stops at the same iteration with the same final dump.
+
+The app shell: ``--snap rho,temp`` deposits a field grid in every step
+(``--snap-grid`` G, a G x G column projection; observables/snapshot.py),
+read with the step's scalars, and writes every ``--snap-every``-th
+iteration's frame into a ring of ``.npz`` files (``--snap-keep``) under
+``<telemetry-dir>/snapshots`` (else ``<outDir>/snapshots``) with a
+``snapshot`` event; ``--insitu slice|projection`` renders those frames
+as PNGs into ``<outDir>`` every ``--insitu-every`` iterations (without
+``--snap`` it deposits rho; the mode names the frames). Every checked
+iteration emits a ``phases`` event of its host laps (step, observables,
+output); ``--profile`` writes them to ``<outDir>/profile.npz`` with the
+split execution of the last state's stages (util/substep_profile.py,
+the pair ops K1's streaming kernels on the card). ``--trace-dir``
+captures the loop with torch.profiler (CPU activity, and the card's with
+a card) into ``<trace-dir>/rank<r>.pt.trace.json`` and attributes its
+device time to the step's phases (a ``phase_attr`` event and the ``#
+phase attribution`` line, from rank 0's trace). ``--memory-profile
+PATH`` records the CUDA caching allocator's history from the start and
+dumps its snapshot to PATH at the end (rank 0's). ``--debug-checks``
+checks every step for NaN/Inf outputs by phase and out-of-range kernel
+index tables (slow, every step checked, lists off; one device only) and
+prints the first failure of a step to stderr.
 """
 
 import argparse
@@ -123,9 +150,15 @@ from sphexa_torch.sph.hydro_turb import (
     turbulence_state_from_fields, turbulence_state_to_fields,
 )
 from sphexa_torch.sph.kernels import KERNEL_CHOICES
+from sphexa_torch.observables.snapshot import SnapshotSpec
 from sphexa_torch.telemetry import (
-    FlightRecorder, JsonlSink, Telemetry, emit_memory_event, write_manifest,
+    FlightRecorder, JsonlSink, Telemetry, emit_memory_event, save_memory_profile,
+    start_memory_history, write_manifest,
 )
+from sphexa_torch.telemetry.traceview import phase_attr_digest, summarize_trace
+from sphexa_torch.util.substep_profile import substep_breakdown
+from sphexa_torch.util.timer import ProfileRecorder, Timer
+from sphexa_torch.viz import InsituViz
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -222,6 +255,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--imbalance-ratio", type=float, default=1.5, dest="imbalance_ratio",
                    help="imbalance-watchdog threshold on max/mean of the per-rank load "
                         "and exchange metrics ('imbalance' events) [1.5]")
+    p.add_argument("--profile", action="store_true",
+                   help="save a per-iteration timing series to profile.npz")
+    p.add_argument("--trace-dir", default=None, dest="trace_dir",
+                   help="capture a torch.profiler trace of the run into this directory "
+                        "(the step's phases are sphexa/<phase> ranges; a phase_attr event "
+                        "attributes the device time); view in Perfetto or chrome://tracing")
+    p.add_argument("--memory-profile", default=None, dest="memory_profile",
+                   help="write the CUDA caching allocator's snapshot (with its history "
+                        "from the start) to this path at the end of the run")
+    p.add_argument("--insitu", default=None,
+                   help="in-situ rendering: slice | projection (the Ascent/Catalyst "
+                        "adaptor role, ascent_adaptor.h). Frames render from the snapshot "
+                        "ring at the check/flush boundary, with no read of the card of "
+                        "their own")
+    p.add_argument("--insitu-every", type=int, default=1, dest="insitu_every",
+                   help="render every N iterations (default 1)")
+    p.add_argument("--snap", default=None,
+                   help="field snapshots deposited in the step and read at the flush "
+                        "boundary: comma-separated field list (e.g. 'rho' or 'rho,temp'; "
+                        "observables/snapshot.py). Emits snapshot events and a snapshots/ "
+                        ".npz ring next to events.jsonl (or --outDir)")
+    p.add_argument("--snap-grid", type=int, default=16, dest="snap_grid",
+                   help="snapshot grid side G (G x G projection) [16]")
+    p.add_argument("--snap-every", type=int, default=None, dest="snap_every",
+                   help="emit a snapshot frame every N iterations [--insitu-every when "
+                        "--insitu is on, else 1]")
+    p.add_argument("--snap-keep", type=int, default=32, dest="snap_keep",
+                   help="snapshot ring capacity in .npz frames (0 = unbounded) [32]")
+    p.add_argument("--debug-checks", action="store_true", dest="debug_checks",
+                   help="check every step for NaN/Inf outputs by phase and out-of-range "
+                        "kernel index tables; the first failed check of a step is "
+                        "reported per iteration (slow; single-device)")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -255,6 +320,27 @@ def _spawn_ranks(args, argv: List[str]) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def _finish_trace(profiler, trace_dir: str, rank: int, telemetry, log) -> None:
+    """Stop the --trace-dir capture, export this rank's chrome trace and,
+    on rank 0, attribute its device time to the step's phases: a
+    ``phase_attr`` event and the ``# phase attribution`` line. A failed
+    parse is reported and never fails the run."""
+    profiler.stop()
+    path = os.path.join(trace_dir, f"rank{rank}.pt.trace.json")
+    profiler.export_chrome_trace(path)
+    log(f"# profiler trace -> {trace_dir}")
+    if rank != 0:
+        return
+    try:
+        s = summarize_trace(path, top=3)
+        telemetry.event("phase_attr", dir=trace_dir, **phase_attr_digest(s))
+        log("# phase attribution: "
+            + " ".join(f"{p['phase']}={p['share']:.0%}" for p in s["phases"][:5])
+            + f" (coverage {s['coverage']:.0%})")
+    except Exception as e:
+        print(f"# trace attribution failed: {e}", file=sys.stderr)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -269,9 +355,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     if ranks is not None:
         import torch.distributed as dist
 
+        if args.debug_checks:
+            print("debug_checks is single-device; drop --devices or the flag",
+                  file=sys.stderr)
+            return 2
         if not dist.is_initialized():
             return _spawn_ranks(args, argv)
         rank = dist.get_rank()
+    if args.memory_profile and rank == 0:
+        # the allocator's history from the start, for the dump at the end
+        start_memory_history()
 
     def log(line: str) -> None:
         if not args.quiet and rank == 0:
@@ -364,6 +457,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         recorder = FlightRecorder(args.telemetry_dir, telemetry=telemetry)
         telemetry.sinks.append(recorder.sink)
         recorder.install()
+    # --snap: field grids deposited in the step, read at the flush
+    # boundary; --insitu without --snap deposits rho, so that the renderer
+    # reads the ring rather than the particles
+    snap_spec = snap_every = snap_dir = None
+    snap_fields = None
+    if args.snap:
+        snap_fields = tuple(f.strip() for f in args.snap.split(",") if f.strip())
+    elif args.insitu:
+        snap_fields = ("rho",)
+    if snap_fields:
+        try:
+            snap_spec = SnapshotSpec(fields=snap_fields, grid=args.snap_grid)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            if recorder is not None:
+                recorder.close()  # a usage error, not a crash: no blackbox
+            return 2
+        snap_every = args.snap_every or (args.insitu_every if args.insitu else 1)
+        snap_dir = os.path.join(args.telemetry_dir or args.out_dir, "snapshots")
     try:
         sim = Simulation(state, box, const, prop=args.prop, device=args.device,
                          av_clean=args.avclean and args.prop in ("ve", "turb-ve"),
@@ -375,7 +487,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                          m2p_cap_margin=args.m2p_cap_margin, dt_bins=args.dt_bins,
                          bin_sync_every=args.bin_sync_every,
                          bin_resort_drift=args.bin_resort_drift, num_devices=ranks,
-                         halo_mode=args.halo_mode, imbalance_ratio=args.imbalance_ratio)
+                         halo_mode=args.halo_mode, imbalance_ratio=args.imbalance_ratio,
+                         snap_spec=snap_spec, snap_every=snap_every,
+                         snap_keep=args.snap_keep, snap_dir=snap_dir,
+                         debug_checks=args.debug_checks)
     except (NotImplementedError, ValueError) as e:
         print(str(e), file=sys.stderr)
         if recorder is not None:
@@ -528,8 +643,46 @@ def main(argv: Optional[List[str]] = None) -> int:
                 next_dump_time[0] += w_time
         dump_now(it)
 
+    timer = Timer(telemetry=telemetry)
+    # the in-situ adaptor: init before the loop, execute per frame,
+    # finalize after (sphexa.cpp:141-142,172,179 hook points)
+    insitu = None
+    if args.insitu:
+        try:
+            insitu = InsituViz(args.out_dir, mode=args.insitu, every=args.insitu_every)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            if recorder is not None:
+                recorder.close()  # a usage error, not a crash: no blackbox
+            return 2
+        insitu.init()
+
+    def consume_snapshots():
+        """The ring's new frames into the renderer: host pixel work on
+        frames read at a check or flush boundary, no read of the card."""
+        for fit, fpath in sim.drain_snapshots():
+            if insitu is None:
+                continue
+            try:
+                with np.load(fpath, allow_pickle=False) as f:
+                    grid = np.asarray(f["grid"])
+            except (OSError, ValueError, KeyError):
+                continue  # pruned from the ring, or a partial write
+            insitu.execute_grid(grid, fit)
+
+    profile = ProfileRecorder()
     t0 = time.time()
     it0 = sim.iteration
+    profiler = None
+    if args.trace_dir:
+        # the whole loop, the step's sphexa/<phase> ranges inside
+        os.makedirs(args.trace_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if sim.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+        telemetry.event("trace", dir=args.trace_dir)
 
     def out_of_time() -> bool:
         """The --duration decision; on ranks rank 0's clock, broadcast, so
@@ -537,50 +690,95 @@ def main(argv: Optional[List[str]] = None) -> int:
         late = time.time() - t0 >= args.duration
         return late if ranks is None else broadcast_flag(sim.mesh, late)
 
-    while True:
-        d = sim.step()
-        it = sim.iteration
-        if d.get("deferred"):
-            # mid-window: nothing may read the card here, so only the
-            # iteration count and the wall clock end the run before the
-            # window's flush
-            log(f"it {it:5d}  (deferred check)")
+    try:
+        while True:
+            timer.start()
+            d = sim.step()
+            timer.step("step")
+            it = sim.iteration
+            if args.debug_checks and d.get("check_error"):
+                print(f"# debug-checks it {it}: {d['check_error']}", file=sys.stderr)
+            if d.get("deferred"):
+                # mid-window: nothing may read the card here, so only the
+                # iteration count and the wall clock end the run before the
+                # window's flush
+                timer.pop()
+                log(f"it {it:5d}  (deferred check)")
+                if num_steps is not None and it >= num_steps:
+                    break
+                # ranks decide on rank 0's clock at check boundaries only
+                if ranks is None and args.duration is not None \
+                        and time.time() - t0 >= args.duration:
+                    log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
+                    sim.flush()  # verify the window and land its rows
+                    write_science_rows()
+                    if dump_path is not None and last_dump_iteration[0] != it:
+                        dump_now(it)
+                    break
+                continue
+            rows = write_science_rows()
+            timer.step("observables")
+            maybe_dump(it)
+            consume_snapshots()  # the ring's frames into PNGs (--insitu)
+            timer.step("output")
+            laps = timer.pop()
+            telemetry.event("phases", it=it, **{k: round(v, 6) for k, v in laps.items()})
+            if args.profile:
+                profile.record(it, laps, dt=float(d.get("dt", nan)),
+                               nc_mean=float(d.get("nc_mean", nan)))
+            r = rows[-1] if rows else {}
+            drift = sim.energy_drift if sim.energy_drift is not None else nan
+            log(f"it {it:5d}  t={r.get('t', nan):.6g}  dt={d.get('dt', nan):.4g}  "
+                f"nc~{d.get('nc_mean', nan):.1f} (max {d.get('nc_max', nan):.0f})  "
+                f"etot={r.get('etot', nan):.8g} ecin={r.get('ecin', nan):.6g} "
+                f"eint={r.get('eint', nan):.8g} egrav={r.get('egrav', nan):.8g}  "
+                f"drift={drift:.3e}")
             if num_steps is not None and it >= num_steps:
                 break
-            # ranks decide on rank 0's clock at check boundaries only
-            if ranks is None and args.duration is not None \
-                    and time.time() - t0 >= args.duration:
+            if target_time is not None and float(sim.state.ttot) >= target_time:
+                break
+            if args.duration is not None and out_of_time():
+                # the wall-clock cutoff leaves a final restartable dump
                 log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
-                sim.flush()  # verify the window and land its rows
-                write_science_rows()
                 if dump_path is not None and last_dump_iteration[0] != it:
                     dump_now(it)
                 break
-            continue
-        rows = write_science_rows()
-        maybe_dump(it)
-        r = rows[-1] if rows else {}
-        drift = sim.energy_drift if sim.energy_drift is not None else nan
-        log(f"it {it:5d}  t={r.get('t', nan):.6g}  dt={d.get('dt', nan):.4g}  "
-            f"nc~{d.get('nc_mean', nan):.1f} (max {d.get('nc_max', nan):.0f})  "
-            f"etot={r.get('etot', nan):.8g} ecin={r.get('ecin', nan):.6g} "
-            f"eint={r.get('eint', nan):.8g} egrav={r.get('egrav', nan):.8g}  "
-            f"drift={drift:.3e}")
-        if num_steps is not None and it >= num_steps:
-            break
-        if target_time is not None and float(sim.state.ttot) >= target_time:
-            break
-        if args.duration is not None and out_of_time():
-            # the wall-clock cutoff leaves a final restartable dump
-            log(f"# wall-clock limit {args.duration}s reached at iteration {it}")
-            if dump_path is not None and last_dump_iteration[0] != it:
-                dump_now(it)
-            break
+    finally:
+        if profiler is not None:
+            _finish_trace(profiler, args.trace_dir, rank, telemetry, log)
     # the last open window is verified, and its rows land, before the report
     sim.flush()
     write_science_rows()
+    consume_snapshots()  # the frames the trailing flush landed
     wall = time.time() - t0
     n_done = sim.iteration - it0
+    if args.profile:
+        # the stages of the last state, split and timed (the reference's
+        # per-phase Timer print); a series only where iterations were
+        # recorded
+        sub = substep_breakdown(sim, telemetry=telemetry) if profile.rows else {}
+        if sub:
+            log("# substeps (s, split-execution upper bound): "
+                + " ".join(f"{k}={v:.4f}" for k, v in sub.items()))
+        if rank == 0:
+            profile_path = os.path.join(args.out_dir, "profile.npz")
+            if profile.save(profile_path, substeps=sub):
+                means = profile.summary()
+                log("# profile (mean s/iter): " + " ".join(
+                    f"{k}={v:.4f}" for k, v in means.items()
+                    if k in ("step", "observables", "output")))
+                log(f"# timing series -> {profile_path}")
+            else:
+                print("# --profile: no iterations recorded, profile.npz not written",
+                      file=sys.stderr)
+    if insitu is not None:
+        log(f"# insitu: {insitu.finalize()} frames -> {args.out_dir}")
+    if args.memory_profile and rank == 0:
+        if save_memory_profile(args.memory_profile):
+            log(f"# device-memory profile -> {args.memory_profile}")
+        else:
+            print("# --memory-profile: profiler unavailable, no dump written",
+                  file=sys.stderr)
     telemetry.event("run_end", iterations=n_done, wall_s=round(wall, 3))
     telemetry.close()
     if recorder is not None:

@@ -55,6 +55,7 @@ from sphexa_torch.gravity import spherical as sp
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta, level_add_
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sph import pair_engine as pe
+from sphexa_torch.util.phases import check_runs, named_phase
 
 #: elements of one (blocks, targets or candidates, nodes) temporary per
 #: chunk of the classification and the M2P evaluation
@@ -294,6 +295,7 @@ def estimate_gravity_caps(x, y, z, m, sorted_keys, box: Box, tree: GravityTree,
         let_cap=min(pad(let_max), meta.num_nodes) if let_shards > 1 else cfg.let_cap)
 
 
+@named_phase("gravity-upsweep")
 def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: GravityTreeMeta,
                        order: int = 0):
     """Masses, centres of mass and multipoles of every node
@@ -310,6 +312,7 @@ def compute_multipoles(x, y, z, m, sorted_keys, tree: GravityTree, meta: Gravity
                                   mp.edge_segment_sum)
 
 
+@named_phase("gravity-upsweep")
 def compute_multipoles_sharded(mesh, x, y, z, m, local_keys, tree: GravityTree,
                                meta: GravityTreeMeta, order: int = 0):
     """``compute_multipoles`` across ranks (the JAX package's
@@ -666,6 +669,7 @@ def _classify_sort(bc, bs, tree, meta, cfg, ccenter, chalf, mac2, valid, self_pa
     return tuple(torch.cat(o) for o in outs)
 
 
+@named_phase("gravity-m2p")
 def _m2p_eval(tx, ty, tz, order_m, m2p_ok, node_packed, order: int = 0):
     """Far field of every block: its M2P list's nodes (one row gather of
     the packed com, multipole and mass) on its targets, in chunks of
@@ -704,6 +708,7 @@ def _node_packed(node_mass, node_com, node_q, order: int):
                      dim=1)
 
 
+@named_phase("gravity-p2p")
 def _p2p_leaf_ranges(order_p, p2p_ok, tree: GravityTree, edges, num_n: int):
     """Sorted-array row ranges (start, length), (NB, p2p_cap) int32 each,
     of each block's near-field leaves; slots past the list are empty."""
@@ -780,6 +785,7 @@ def p2p_block_order(lens: torch.Tensor) -> torch.Tensor:
     return torch.argsort(lens.sum(dim=1), descending=True, stable=True).to(torch.int32)
 
 
+@named_phase("gravity-p2p")
 def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens,
                 jdata=None):
     """Near-field P2P of every target over its block's near-leaf ranges:
@@ -793,6 +799,8 @@ def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, star
     kernel (csrc/gravity_p2p.cu) for CUDA tensors, the plain version for
     CPU tensors. Returns (ax, ay, az, phi), each (n,)."""
     dev = x.device
+    # --debug-checks: the leaf ranges K12 reads stay inside its j-arrays
+    check_runs("gravity_p2p", starts, lens, (x if jdata is None else jdata[0]).shape[0])
     if dev.type == "cuda":
         launch, out = p2p_launcher(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
                                    jdata=jdata)
@@ -885,6 +893,7 @@ def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig
     return tuple(outs)
 
 
+@named_phase("gravity-mac")
 def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
              cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False,
              shift=None, let: bool = False, mesh=None):
@@ -957,6 +966,7 @@ def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
     return out
 
 
+@named_phase("halo-exchange")
 def _near_field_halo(shard, x, y, z, m, h, edges, start, length, lead: int = 0):
     """A rank's near field across ranks: the (NB, p2p_cap) global-row leaf
     ranges localized into its j-buffer [lead rows | own slab | halo rows]

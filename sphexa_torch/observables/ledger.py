@@ -22,6 +22,7 @@ import torch
 from sphexa_torch.observables.conserved import conserved_from_sums, conserved_sums
 from sphexa_torch.observables.extras import kh_growth_rate, mach_rms, wind_bubble_fraction
 from sphexa_torch.observables.factory import make_observable
+from sphexa_torch.util.phases import named_phase
 
 #: conservation scalars of the step tail whenever PropagatorConfig.obs is
 #: set, over the post-integration state; ``obs_extra`` (the case
@@ -81,6 +82,7 @@ def make_observable_spec(case: str, overrides: Optional[Dict] = None) -> Observa
     return ObservableSpec(extra=kind)
 
 
+@named_phase("ledger")
 def ledger_diagnostics(state, rho, nc, const, ngmax: int,
                        spec: Optional[ObservableSpec] = None, egrav=None,
                        box=None, c=None, smoothing: bool = True,

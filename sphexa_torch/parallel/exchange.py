@@ -40,6 +40,7 @@ from sphexa_torch.dtypes import KEY_BITS
 from sphexa_torch.parallel.mesh import Mesh, all_gather, all_reduce_sum, all_to_all_rows, \
     exchange_rounds
 from sphexa_torch.sph.pair_engine import GroupRanges, group_cell_ranges
+from sphexa_torch.util.phases import named_phase
 
 INF32 = 2**30
 
@@ -52,6 +53,7 @@ def slab_nbr(nbr, S: int):
     return dataclasses.replace(nbr, run_cap=S) if nbr.run_cap > S else nbr
 
 
+@named_phase("halo-exchange")
 def global_cell_table(mesh: Mesh, local_keys: torch.Tensor, level: int) -> torch.Tensor:
     """Cell-starts table of the level-``level`` grid over the distributed
     keys: the per-rank cell histogram summed over ranks, then an exclusive
@@ -138,6 +140,7 @@ def _effective_lo(bounds_all, S: int, Wmax: int, P: int):
     return torch.minimum(torch.maximum(bounds_all[:, :, 0], srcs * S), (srcs + 1) * S - Wmax)
 
 
+@named_phase("halo-exchange")
 def serve_windows(mesh: Mesh, fields: Sequence[torch.Tensor], bounds_all, S: int,
                   Wmax: int) -> list:
     """One all_to_all: this rank serves every destination's window out of
@@ -152,6 +155,7 @@ def serve_windows(mesh: Mesh, fields: Sequence[torch.Tensor], bounds_all, S: int
     return list(annex.unbind(1))
 
 
+@named_phase("halo-exchange")
 def localize_ranges(mesh: Mesh, ranges: GroupRanges, S: int, Wmax: int):
     """Global-row runs -> j-buffer rows [own slab (S) | annex (P Wmax)].
     Returns (localized ranges, bounds_all, escaped)."""
@@ -173,6 +177,7 @@ def localize_ranges(mesh: Mesh, ranges: GroupRanges, S: int, Wmax: int):
     return _localized(ranges, local, lens, sh3, nruns), bounds_all, escaped
 
 
+@named_phase("shard-metrics")
 def exchange_metrics_windowed(bounds_all, Wmax: int, k: int) -> dict:
     """This rank's true need (the sum of its window spans; the windowed
     exchange ships (P - 1) Wmax rows regardless) and the fullest window's
@@ -282,6 +287,7 @@ def _pack_rows(clen_j, poff_j, table, S: int, k: int, hmax: int) -> torch.Tensor
     return torch.where((i < total) & (seg >= 0), ridx, 0)
 
 
+@named_phase("halo-exchange")
 def localize_ranges_sparse(mesh: Mesh, ranges: GroupRanges, table, S: int,
                            hmax: Tuple[int, ...]):
     """Global-row runs -> j-buffer rows [own slab (S) | packed annex
@@ -319,6 +325,7 @@ def localize_ranges_sparse(mesh: Mesh, ranges: GroupRanges, table, S: int,
     return _localized(ranges, local, lens, sh3, nruns), covered_all, escaped, covered
 
 
+@named_phase("halo-exchange")
 def serve_sparse(mesh: Mesh, fields: Sequence[torch.Tensor], ridx: Sequence[torch.Tensor]
                  ) -> list:
     """The P - 1 rounds of one serve: round r ships this rank's packed rows
@@ -330,6 +337,7 @@ def serve_sparse(mesh: Mesh, fields: Sequence[torch.Tensor], ridx: Sequence[torc
     return list(annex.unbind(1))
 
 
+@named_phase("halo-exchange")
 def sparse_send_rows(mesh: Mesh, covered_all, table, S: int, hmax: Tuple[int, ...]) -> list:
     """Each round's packed local rows, fixed for the step (the coverage
     and the table are): computed once and used by every serve."""
@@ -341,6 +349,7 @@ def sparse_send_rows(mesh: Mesh, covered_all, table, S: int, hmax: Tuple[int, ..
     return out
 
 
+@named_phase("shard-metrics")
 def exchange_metrics_sparse(covered, table, S: int, hmax: Tuple[int, ...], P: int,
                             k: int) -> dict:
     """This rank's true remote need (its covered cells clipped to the other

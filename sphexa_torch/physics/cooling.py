@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sphexa_torch.util.phases import named_phase
+
 # cgs constants
 KB = 1.380658e-16          # erg/K
 MH = 1.6726231e-24         # g
@@ -212,6 +214,7 @@ def cool_particles(dt, rho_code, u_code, chem: ChemistryData, cfg: CoolingConfig
     return (u - u_code) / dt
 
 
+@named_phase("cooling")
 def cool_step(dt, rho_code, u_code, chem: ChemistryData, cfg: CoolingConfig):
     """One cooling source update: (du_avg, the new ChemistryData), by the
     evolved primordial network with ``cfg.evolve_species``, else the CIE
@@ -223,6 +226,7 @@ def cool_step(dt, rho_code, u_code, chem: ChemistryData, cfg: CoolingConfig):
     return cool_particles(dt, rho_code, u_code, chem, cfg), chem
 
 
+@named_phase("cooling")
 def cool_timestep(rho_code, u_code, chem: ChemistryData, cfg: CoolingConfig):
     """The ct_crit cooling-time limiter, by the same dispatch as cool_step."""
     if cfg.evolve_species:

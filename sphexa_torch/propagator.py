@@ -62,6 +62,8 @@ from sphexa_torch.gravity.traversal import GravityConfig, compute_gravity
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
 from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.observables.ledger import ObservableSpec, ledger_diagnostics
+from sphexa_torch.observables.snapshot import SnapshotSpec
+from sphexa_torch.observables import snapshot as snap
 from sphexa_torch.physics.cooling import CoolingConfig, cool_step, cool_timestep
 from sphexa_torch.sfc.box import Box, make_global_box, put_in_box
 from sphexa_torch.sfc.keys import compute_sfc_keys
@@ -76,6 +78,7 @@ from sphexa_torch.sph.particles import PARTICLE_FIELDS, ParticleState, SimConsta
 from sphexa_torch.sph.positions import compute_positions
 from sphexa_torch.sph.timestep import acceleration_timestep, compute_timestep, rho_timestep
 from sphexa_torch.state import SimState
+from sphexa_torch.util.phases import check_finite, debug_active, named_phase, phase_scope
 
 #: the scalar diagnostics every step emits (``_integrate_and_finish`` is
 #: their one producer); the others (egrav, list_slack, the ledger's
@@ -121,6 +124,9 @@ class PropagatorConfig:
     grav_meta: Optional[GravityTreeMeta] = None
     # the science ledger (observables/ledger.py); None = no ledger
     obs: Optional[ObservableSpec] = None
+    # the field-grid deposit of the step tail (observables/snapshot.py);
+    # None = no deposit
+    snap: Optional[SnapshotSpec] = None
     # periodic self-gravity: the Ewald solve's parameters (None: open box)
     ewald: Optional[EwaldConfig] = None
     # block time steps (sph/blockdt.py): the number of power-of-two dt bins
@@ -172,18 +178,29 @@ def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None, bins=Non
     and no host read decides, so a deferred window keeps its one read.
     Returns (state, keys, order, aux, resorted () int32, inversions ()
     int32), ``keys`` permuted as the state."""
-    keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
+    with phase_scope("sort"):
+        keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
     n = state.n
     extra = ()
     if bins is None:
-        order = torch.argsort(keys, stable=True)
+        with phase_scope("sort"):
+            order = torch.argsort(keys, stable=True)
     else:
-        skey = bdt.fold_bin_key(keys, bins)
-        inv = torch.sum(skey[1:] < skey[:-1], dtype=torch.int32)
-        resort = inv > int(resort_drift * n)
-        order = torch.where(resort, torch.argsort(skey, stable=True),
-                            torch.arange(n, device=keys.device))
+        with phase_scope("dt-bins"):
+            skey = bdt.fold_bin_key(keys, bins)
+            inv = torch.sum(skey[1:] < skey[:-1], dtype=torch.int32)
+            resort = inv > int(resort_drift * n)
+        with phase_scope("sort"):
+            order = torch.where(resort, torch.argsort(skey, stable=True),
+                                torch.arange(n, device=keys.device))
         extra = (resort.to(torch.int32), inv)
+    with phase_scope("sort"):
+        return _permute(state, keys, order, aux, bins, extra)
+
+
+def _permute(state: ParticleState, keys, order, aux, bins, extra):
+    """``_sort_by_keys``'s row gather and its returns."""
+    n = state.n
     dtype = state.x.dtype
     per = [] if aux is None else [f.name for f in dataclasses.fields(aux)
                                   if getattr(aux, f.name).shape == (n,)]
@@ -205,6 +222,7 @@ def _sort_by_keys(state: ParticleState, box: Box, curve: str, aux=None, bins=Non
     return new, keys[order], order, aux
 
 
+@named_phase("sort")
 def _sort_by_keys_sharded(state: ParticleState, box: Box, curve: str, mesh, aux=None,
                           bins=None, resort_drift: float = 0.0):
     """``_sort_by_keys`` across ranks: this rank's slab of the global
@@ -269,12 +287,21 @@ def rebuild_pair_lists(state: ParticleState, box: Box, cfg: PropagatorConfig, au
     in float32 in the JAX package's order: (f32(list_skin_rel) * 2) * max h.
     Returns (state, box, lists), and with ``aux`` (permuted as the state,
     ``_sort_by_keys``) (state, box, lists, aux)."""
-    box = make_global_box(state.x, state.y, state.z, box)
+    with phase_scope("sort"):
+        box = make_global_box(state.x, state.y, state.z, box)
     state, keys, _, *rest = _sort_by_keys(state, box, cfg.curve, aux=aux)
-    skin = torch.max(state.h) * float(np.float32(cfg.list_skin_rel) * np.float32(2.0))
-    lists = build_pair_lists(state.x, state.y, state.z, state.h, keys, box, cfg.nbr,
-                             skin, cfg.list_slot_cap)
+    with phase_scope("neighbors"):
+        skin = torch.max(state.h) * float(np.float32(cfg.list_skin_rel) * np.float32(2.0))
+        lists = build_pair_lists(state.x, state.y, state.z, state.h, keys, box, cfg.nbr,
+                                 skin, cfg.list_slot_cap)
     return (state, box, lists, *rest)
+
+
+def _check_state(phase: str, state: ParticleState) -> None:
+    """``--debug-checks``: the first non-finite per-particle field of a
+    stage's output state (a no-op outside the debug checks)."""
+    if debug_active():
+        check_finite(phase, **{f: getattr(state, f) for f in PARTICLE_FIELDS})
 
 
 def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -292,18 +319,22 @@ def _force_stage_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if cfg.mesh is not None:
         if lists is not None:
             raise ValueError("the sharded steps stream (no lists)")
-        box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
+        with phase_scope("sort"):
+            box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
         state, keys, *tail = _sort_by_keys_sharded(state, box, cfg.curve, cfg.mesh, aux=aux)
         return (state, box, keys, None, *tail)
     if lists is not None:
         if cfg.gravity is not None:
             raise NotImplementedError("persistent lists compose with gravity-off steps; "
                                       "gravity runs sort every step")
-        slack = list_slack(state.x, state.y, state.z, state.h, lists)
-        return (state, box, None, {"list_slack": slack,
-                                   "list_ok": (slack >= 0.0).to(torch.int32)}, *tail)
-    box = make_global_box(state.x, state.y, state.z, box)
+        with phase_scope("neighbors"):
+            slack = list_slack(state.x, state.y, state.z, state.h, lists)
+            ldiag = {"list_slack": slack, "list_ok": (slack >= 0.0).to(torch.int32)}
+        return (state, box, None, ldiag, *tail)
+    with phase_scope("sort"):
+        box = make_global_box(state.x, state.y, state.z, box)
     state, keys, _, *tail = _sort_by_keys(state, box, cfg.curve, aux=aux)
+    _check_state("sort", state)
     return (state, box, keys, None, *tail)
 
 
@@ -338,14 +369,16 @@ def _gravity_sharded_stage(state: ParticleState, box: Box, keys, cfg: Propagator
                                          cfg.grav_meta, order=gcfg.multipole_order)
         gx, gy, gz, egrav, gdiag = compute_gravity(*args, multipoles=mps, shard=(mesh, win))
     ax, ay, az = ax + gx, ay + gy, az + gz
-    dt_acc = acceleration_timestep(ax, ay, az, cfg.const)
+    with phase_scope("timestep"):
+        dt_acc = acceleration_timestep(ax, ay, az, cfg.const)
     grows, gocc = gdiag.pop("halo_rows", None), gdiag.pop("halo_occ", None)
     names = sorted(gdiag)
     f64 = torch.float64
     cols = [egrav, dt_acc] + [gdiag[k] for k in names]
     if grows is not None:
         cols += [grows, gocc]
-    g = all_gather(mesh, torch.stack([c.to(f64) for c in cols]))  # (P, K)
+    with phase_scope("shard-metrics"):
+        g = all_gather(mesh, torch.stack([c.to(f64) for c in cols]))  # (P, K)
     acc = g[0, 0]
     for r in range(1, mesh.size):
         acc = acc + g[r, 0]
@@ -373,8 +406,11 @@ def _add_gravity(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
         gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald)
     else:
         gx, gy, gz, egrav, gdiag = compute_gravity(*args)
+    check_finite("gravity-p2p", gx=gx, gy=gy, gz=gz, egrav=egrav)
     ax, ay, az = ax + gx, ay + gy, az + gz
-    return ax, ay, az, egrav, acceleration_timestep(ax, ay, az, cfg.const), gdiag
+    with phase_scope("timestep"):
+        dt_acc = acceleration_timestep(ax, ay, az, cfg.const)
+    return ax, ay, az, egrav, dt_acc, gdiag
 
 
 def _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az, diag):
@@ -415,14 +451,19 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
         pe.group_cell_ranges(x, y, z, h, keys, box, cfg.nbr)
     rho, nc, _ = pe.pallas_density(x, y, z, h, m, keys, box, const, cfg.nbr,
                                    ranges=ranges, lists=lists, mask="write")
-    p, c = compute_eos_std(state.temp, rho, const)
+    check_finite("density", rho=rho)
+    with phase_scope("eos"):
+        p, c = compute_eos_std(state.temp, rho, const)
+    check_finite("eos", p=p, c=c)
     (c11, c12, c13, c22, c23, c33), _ = pe.pallas_iad(
         x, y, z, h, m / rho, keys, box, const, cfg.nbr, ranges=ranges, lists=lists,
         mask="read")
+    check_finite("iad", c11=c11, c12=c12, c13=c13, c22=c22, c23=c23, c33=c33)
     ax, ay, az, du, dt_courant, _ = pe.pallas_momentum_energy_std(
         x, y, z, state.vx, state.vy, state.vz, h, m, rho, p, c,
         c11, c12, c13, c22, c23, c33, keys, box, const, cfg.nbr, ranges=ranges,
         lists=lists, mask="read")
+    check_finite("momentum-energy", ax=ax, ay=ay, az=az, du=du, dt_courant=dt_courant)
     ax, ay, az, extra_dts, diag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                 diag)
     return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, ranges.occupancy,
@@ -461,6 +502,7 @@ def exchange_fields_per_step(prop: str, av_clean: bool = False) -> int:
     return {"std": 18, "ve": 20}[stage] + (6 if av_clean and stage == "ve" else 0)
 
 
+@named_phase("shard-metrics")
 def _shard_tail(mesh, mins, occ, escaped, cap: int, ranges, metrics):
     """The sharded stages' closing collective, one all_gather: the dt
     candidates ``mins`` reduced by min, the occupancy (the escape sentinel
@@ -503,7 +545,8 @@ def _std_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, k
     hx, hy, hz, hm = serve((x, y, z, m))
     rho, nc, occ = pe.pallas_density(x, y, z, h, m, None, box, const, nbr,
                                      jdata=jbuf((x, y, z, m), (hx, hy, hz, hm)), **kw)
-    p, c = compute_eos_std(state.temp, rho, const)
+    with phase_scope("eos"):
+        p, c = compute_eos_std(state.temp, rho, const)
     vol = m / rho
     (hvol,) = serve((vol,))
     cs, _ = pe.pallas_iad(x, y, z, h, vol, None, box, const, nbr,
@@ -539,7 +582,8 @@ def _ve_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, ke
     (kx, gradh), _ = pe.pallas_ve_def_gradh(
         x, y, z, h, m, xm, None, box, const, nbr,
         jdata=jbuf((x, y, z, m, xm), (hx, hy, hz, hm, hxm)), **kw)
-    prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    with phase_scope("eos"):
+        prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
     hkx, hprho, hc, hvx, hvy, hvz = serve((kx, prho, c, vx, vy, vz))
     cs, _ = pe.pallas_iad(x, y, z, h, xm / kx, None, box, const, nbr,
                           jdata=jbuf((x, y, z, xm / kx), (hx, hy, hz, hxm / hkx)), **kw)
@@ -548,7 +592,8 @@ def _ve_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, ke
         with_gradv=cfg.av_clean,
         jdata=jbuf((x, y, z, xm, vx, vy, vz), (hx, hy, hz, hxm, hvx, hvy, hvz)), **kw)
     divv, _curlv, gradv = _split_dvout(dvout, cfg.av_clean)
-    dt_rho = rho_timestep(divv, const)
+    with phase_scope("timestep"):
+        dt_rho = rho_timestep(divv, const)
     (hdivv,) = serve((divv,))
     alpha, _ = pe.pallas_av_switches(
         x, y, z, vx, vy, vz, h, c, kx, xm, divv, state.alpha, *cs, None, box, state.min_dt,
@@ -578,19 +623,21 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
     ``extra``: further fields of the new state (the VE step's alpha);
     ``update_smoothing`` False (the N-body step) keeps h as it is."""
     const = cfg.const
-    fields = (state.x, state.y, state.z, state.x_m1, state.y_m1, state.z_m1,
-              state.vx, state.vy, state.vz, state.h, state.temp, state.temp_lo,
-              du, state.du_m1)
-    (nx, ny, nz, dxm, dym, dzm, vx, vy, vz, h, temp, temp_lo, du,
-     du_m1) = compute_positions(fields, ax, ay, az, dt, state.min_dt, box, const)
-    new_h = update_h(const.ng0, nc + 1, h) if update_smoothing else h
-    new_state = dataclasses.replace(
-        state, x=nx, y=ny, z=nz, x_m1=dxm, y_m1=dym, z_m1=dzm,
-        vx=vx, vy=vy, vz=vz, h=new_h, temp=temp, temp_lo=temp_lo,
-        du=du, du_m1=du_m1,
-        ttot=state.ttot + dt, min_dt=dt, min_dt_m1=state.min_dt,
-        **(extra or {}),
-    )
+    with phase_scope("integrate"):
+        fields = (state.x, state.y, state.z, state.x_m1, state.y_m1, state.z_m1,
+                  state.vx, state.vy, state.vz, state.h, state.temp, state.temp_lo,
+                  du, state.du_m1)
+        (nx, ny, nz, dxm, dym, dzm, vx, vy, vz, h, temp, temp_lo, du,
+         du_m1) = compute_positions(fields, ax, ay, az, dt, state.min_dt, box, const)
+        new_h = update_h(const.ng0, nc + 1, h) if update_smoothing else h
+        new_state = dataclasses.replace(
+            state, x=nx, y=ny, z=nz, x_m1=dxm, y_m1=dym, z_m1=dzm,
+            vx=vx, vy=vy, vz=vz, h=new_h, temp=temp, temp_lo=temp_lo,
+            du=du, du_m1=du_m1,
+            ttot=state.ttot + dt, min_dt=dt, min_dt_m1=state.min_dt,
+            **(extra or {}),
+        )
+    _check_state("integrate", new_state)
     return new_state, box, _step_diagnostics(cfg, new_state, box, dt, nc, occ, rho, dt_limiter,
                                              extra_diag, c, update_smoothing)
 
@@ -598,29 +645,44 @@ def _integrate_and_finish(state: ParticleState, box: Box, cfg: PropagatorConfig,
 def _step_diagnostics(cfg: PropagatorConfig, new_state: ParticleState, box: Box, dt, nc, occ,
                       rho, dt_limiter, extra_diag, c, smoothing: bool) -> Dict[str, torch.Tensor]:
     """A step's diagnostics: the STEP_DIAG_KEYS scalars, the exact
-    neighbour total, the science ledger with ``cfg.obs``, the limiter and
-    ``extra_diag``."""
+    neighbour total, the science ledger with ``cfg.obs``, the snapshot
+    deposit with ``cfg.snap`` (over all rows: the block time steps' frame
+    shows the frozen rows too), the limiter and ``extra_diag``. On a mesh
+    the snapshot's partial grids are summed (or maxed) over the ranks in
+    the step's one ``reduce_scalars`` gather."""
     const = cfg.const
-    diagnostics = {
-        "dt": dt,
-        "nc_mean": torch.mean(nc.to(torch.float32)) + 1.0,
-        # the exact neighbour total: the float32 mean may round its
-        # division differently on two devices
-        "nc_sum": torch.sum(nc, dtype=torch.int64),
-        "nc_max": torch.max(nc) + 1,
-        "occupancy": occ,
-        "rho_max": torch.max(rho),
-        "h_max": torch.max(new_state.h),
-    }
+    with phase_scope("integrate"):
+        diagnostics = {
+            "dt": dt,
+            "nc_mean": torch.mean(nc.to(torch.float32)) + 1.0,
+            # the exact neighbour total: the float32 mean may round its
+            # division differently on two devices
+            "nc_sum": torch.sum(nc, dtype=torch.int64),
+            "nc_max": torch.max(nc) + 1,
+            "occupancy": occ,
+            "rho_max": torch.max(rho),
+            "h_max": torch.max(new_state.h),
+        }
+    spec = cfg.snap
+    grid = None
+    if spec is not None:
+        with phase_scope("snapshot"):
+            grid = snap.deposit(new_state, rho, box, spec)
     mesh = cfg.mesh
     if mesh is not None:
         from sphexa_torch.parallel.mesh import reduce_scalars
 
         keys = ("nc_max", "rho_max", "h_max")
         mkeys = [k for k in _MESH_MIN_KEYS if k in (extra_diag or {})]
-        (nc_sum,), maxes, mins = reduce_scalars(mesh, sums=[diagnostics["nc_sum"]],
-                                                maxes=[diagnostics[k] for k in keys],
-                                                mins=[extra_diag[k] for k in mkeys])
+        gsum = [grid] if grid is not None and spec.reduce == "sum" else []
+        gmax = [grid] if grid is not None and spec.reduce == "max" else []
+        with phase_scope("shard-metrics"):
+            (nc_sum, *gsum), maxes, mins = reduce_scalars(
+                mesh, sums=[diagnostics["nc_sum"]] + gsum,
+                maxes=[diagnostics[k] for k in keys] + gmax,
+                mins=[extra_diag[k] for k in mkeys])
+        if grid is not None:
+            grid = gsum[0] if gsum else maxes.pop()
         diagnostics.update(zip(keys, maxes))
         extra_diag = {**(extra_diag or {}), **dict(zip(mkeys, mins))}
         diagnostics["nc_sum"] = nc_sum
@@ -631,6 +693,11 @@ def _step_diagnostics(cfg: PropagatorConfig, new_state: ParticleState, box: Box,
             new_state, rho, nc, const, const.ngmax, spec=cfg.obs,
             egrav=(extra_diag or {}).get("egrav"), box=box, c=c,
             smoothing=smoothing, mesh=mesh))
+    if grid is not None:
+        with phase_scope("snapshot"):
+            diagnostics.update(snap.finish(grid, spec))
+            if spec.stride > 0:
+                diagnostics["snap_pts"] = snap.snapshot_points(new_state, rho, spec, mesh)
     if dt_limiter is not None:
         diagnostics["dt_limiter"] = dt_limiter
     if extra_diag:
@@ -646,9 +713,11 @@ def _step_hydro_std(state: ParticleState, box: Box, cfg: PropagatorConfig,
     ``cfg.gravity`` is set. Returns (new_state, new_box, diagnostics)."""
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho,
      c, diag, _) = _std_forces(state, box, cfg, gtree, lists)
-    dt = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=cfg.const)
-    limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant,
-                          accel=extra_dts[0] if extra_dts else None)
+    with phase_scope("timestep"):
+        dt = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=cfg.const)
+        limiter = _dt_limiter(state.min_dt, cfg.const, courant=dt_courant,
+                              accel=extra_dts[0] if extra_dts else None)
+    check_finite("timestep", dt=dt)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, du, dt, nc, occ,
                                  rho, dt_limiter=limiter, extra_diag=diag, c=c)
 
@@ -666,19 +735,25 @@ def _step_hydro_std_cooling(state: ParticleState, box: Box, cfg: PropagatorConfi
     const = cfg.const
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diag,
      chem) = _std_forces(state, box, cfg, gtree, lists, aux=chem)
-    u = const.cv * state.temp
-    dt_cool = cool_timestep(rho, u, chem, cool_cfg)
-    if cfg.mesh is not None:
-        from sphexa_torch.parallel.mesh import reduce_scalars
+    with phase_scope("cooling"):
+        u = const.cv * state.temp
+        dt_cool = cool_timestep(rho, u, chem, cool_cfg)
+        if cfg.mesh is not None:
+            from sphexa_torch.parallel.mesh import reduce_scalars
 
-        # a global minimum, as the JAX package's jnp.min over the slabs
-        _, _, (dt_cool,) = reduce_scalars(cfg.mesh, mins=[dt_cool])
-    dt = compute_timestep(state.min_dt, dt_courant, dt_cool, *extra_dts, const=const)
-    du_cool, chem = cool_step(dt, rho, u, chem, cool_cfg)
-    du = du + du_cool
-    diag = {**(diag or {}), "dt_cool": dt_cool, "du_cool_min": torch.min(du_cool)}
-    limiter = _dt_limiter(state.min_dt, const, courant=dt_courant, cool=dt_cool,
-                          accel=extra_dts[0] if extra_dts else None)
+            # a global minimum, as the JAX package's jnp.min over the slabs
+            _, _, (dt_cool,) = reduce_scalars(cfg.mesh, mins=[dt_cool])
+    with phase_scope("timestep"):
+        dt = compute_timestep(state.min_dt, dt_courant, dt_cool, *extra_dts, const=const)
+    check_finite("timestep", dt=dt)
+    with phase_scope("cooling"):
+        du_cool, chem = cool_step(dt, rho, u, chem, cool_cfg)
+        du = du + du_cool
+        diag = {**(diag or {}), "dt_cool": dt_cool, "du_cool_min": torch.min(du_cool)}
+    check_finite("cooling", dt_cool=dt_cool, du_cool=du_cool)
+    with phase_scope("timestep"):
+        limiter = _dt_limiter(state.min_dt, const, courant=dt_courant, cool=dt_cool,
+                              accel=extra_dts[0] if extra_dts else None)
     new_state, box, diagnostics = _integrate_and_finish(
         state, box, cfg, ax, ay, az, du, dt, nc, occ, rho, dt_limiter=limiter,
         extra_diag=diag, c=c)
@@ -717,10 +792,11 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
         if raw_dts:
             return (state, box, ax, ay, az, du, (dt_courant, dt_rho, extra_dts), alpha, nc, occ,
                     rho, c, sdiag)
-        dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
-        diag = {**sdiag, "dt_limiter": _dt_limiter(
-            state.min_dt, const, courant=dt_courant, rho=dt_rho,
-            accel=extra_dts[0] if extra_dts else None)}
+        with phase_scope("timestep"):
+            dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
+            diag = {**sdiag, "dt_limiter": _dt_limiter(
+                state.min_dt, const, courant=dt_courant, rho=dt_rho,
+                accel=extra_dts[0] if extra_dts else None)}
         return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c, diag
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     vx, vy, vz = state.vx, state.vy, state.vz
@@ -729,28 +805,39 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     rd = {**kw, "mask": "read"}  # the walks after xmass read its mask
 
     xm, nc, occ = pe.pallas_xmass(x, y, z, h, m, keys, box, const, nbr, mask="write", **kw)
+    check_finite("xmass", xm=xm)
     (kx, gradh), _ = pe.pallas_ve_def_gradh(x, y, z, h, m, xm, keys, box, const, nbr, **rd)
-    prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    check_finite("gradh", kx=kx, gradh=gradh)
+    with phase_scope("eos"):
+        prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    check_finite("eos", prho=prho, c=c, rho=rho)
     cs, _ = pe.pallas_iad(x, y, z, h, xm / kx, keys, box, const, nbr, **rd)
+    check_finite("iad", **dict(zip(("c11", "c12", "c13", "c22", "c23", "c33"), cs)))
     dvout, _ = pe.pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, *cs, keys, box,
                                         const, nbr, with_gradv=cfg.av_clean, **rd)
     divv, _curlv, gradv = _split_dvout(dvout, cfg.av_clean)
-    dt_rho = rho_timestep(divv, const)
+    check_finite("divv-curlv", divv=divv, curlv=_curlv)
+    with phase_scope("timestep"):
+        dt_rho = rho_timestep(divv, const)
     alpha, _ = pe.pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, state.alpha,
                                      *cs, keys, box, state.min_dt, const, nbr, **rd)
+    check_finite("av-switches", alpha=alpha)
     ax, ay, az, du, dt_courant, _ = pe.pallas_momentum_energy_ve(
         x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, keys, box, const, nbr,
         nc=nc, gradv=gradv, **rd)
+    check_finite("momentum-energy", ax=ax, ay=ay, az=az, du=du, dt_courant=dt_courant)
 
     ax, ay, az, extra_dts, ldiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                  ldiag)
     if raw_dts:
         return (state, box, ax, ay, az, du, (dt_courant, dt_rho, extra_dts), alpha, nc, occ,
                 rho, c, ldiag)
-    dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
-    diag = {**(ldiag or {}),
-            "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
-                                      accel=extra_dts[0] if extra_dts else None)}
+    with phase_scope("timestep"):
+        dt = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
+        diag = {**(ldiag or {}),
+                "dt_limiter": _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
+                                          accel=extra_dts[0] if extra_dts else None)}
+    check_finite("timestep", dt=dt)
     return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c, diag
 
 
@@ -779,8 +866,10 @@ def _step_turb_ve(state: ParticleState, box: Box, cfg: PropagatorConfig,
     TurbulenceState)."""
     (state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c,
      diag) = _ve_forces(state, box, cfg, gtree, lists)
-    ax, ay, az, turb = drive_turbulence(state.x, state.y, state.z, ax, ay, az, dt, turb,
-                                        turb_cfg)
+    with phase_scope("turbulence"):
+        ax, ay, az, turb = drive_turbulence(state.x, state.y, state.z, ax, ay, az, dt, turb,
+                                            turb_cfg)
+    check_finite("turbulence", ax=ax, ay=ay, az=az)
     new_state, box, diagnostics = _integrate_and_finish(
         state, box, cfg, ax, ay, az, du, dt, nc, occ, rho, extra_diag=diag,
         extra={"alpha": alpha}, c=c)
@@ -799,16 +888,20 @@ def _step_nbody(state: ParticleState, box: Box, cfg: PropagatorConfig,
     if lists is not None:
         raise ValueError("the N-body step takes no neighbour lists")
     const = cfg.const
-    box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
+    with phase_scope("sort"):
+        box = make_global_box(state.x, state.y, state.z, box, mesh=cfg.mesh)
     if cfg.mesh is not None:
         state, keys = _sort_by_keys_sharded(state, box, cfg.curve, cfg.mesh)
     else:
         state, keys, _ = _sort_by_keys(state, box, cfg.curve)
+    _check_state("sort", state)
     zero = torch.zeros_like(state.x)
     ax, ay, az, egrav, dt_acc, gdiag = _add_gravity(state, box, keys, cfg, gtree,
                                                     zero, zero, zero)
-    dt = compute_timestep(state.min_dt, dt_acc, const=const)
-    limiter = _dt_limiter(state.min_dt, const, accel=dt_acc)
+    with phase_scope("timestep"):
+        dt = compute_timestep(state.min_dt, dt_acc, const=const)
+        limiter = _dt_limiter(state.min_dt, const, accel=dt_acc)
+    check_finite("timestep", dt=dt)
     nc = torch.zeros_like(state.x, dtype=torch.int32)
     occ = torch.zeros((), dtype=torch.int32, device=state.x.device)
     return _integrate_and_finish(state, box, cfg, ax, ay, az, zero, dt, nc, occ, zero,
@@ -827,6 +920,17 @@ def _integrate_and_finish_blockdt(state: ParticleState, box: Box, cfg: Propagato
     ``x += v dt_min`` (PBC-folded) with every other field kept. The
     ledger runs over all rows."""
     const = cfg.const
+    with phase_scope("integrate"):
+        new_state = _blockdt_update(state, box, const, ax, ay, az, du, dt_min, dt_prev, due,
+                                    bins, dt_eff, nc, extra)
+    _check_state("integrate", new_state)
+    return new_state, box, _step_diagnostics(cfg, new_state, box, dt_min, nc, occ, rho,
+                                             dt_limiter, extra_diag, c, True)
+
+
+def _blockdt_update(state: ParticleState, box: Box, const: SimConstants, ax, ay, az, du,
+                    dt_min, dt_prev, due, bins, dt_eff, nc, extra) -> ParticleState:
+    """``_integrate_and_finish_blockdt``'s new state."""
     rebase = due & (bins > 0)
     dr = dt_eff - dt_min
     bx = torch.where(rebase, state.x - state.vx * dr, state.x)
@@ -843,7 +947,7 @@ def _integrate_and_finish_blockdt(state: ParticleState, box: Box, cfg: Propagato
     def sel(a, b):
         return torch.where(due, a, b)
 
-    new_state = dataclasses.replace(
+    return dataclasses.replace(
         state, x=sel(nx, drift[:, 0]), y=sel(ny, drift[:, 1]), z=sel(nz, drift[:, 2]),
         x_m1=sel(dxm, state.x_m1), y_m1=sel(dym, state.y_m1), z_m1=sel(dzm, state.z_m1),
         vx=sel(vx, state.vx), vy=sel(vy, state.vy), vz=sel(vz, state.vz),
@@ -853,8 +957,6 @@ def _integrate_and_finish_blockdt(state: ParticleState, box: Box, cfg: Propagato
         ttot=state.ttot + dt_min, min_dt=dt_min, min_dt_m1=state.min_dt,
         **(extra or {}),
     )
-    return new_state, box, _step_diagnostics(cfg, new_state, box, dt_min, nc, occ, rho,
-                                             dt_limiter, extra_diag, c, True)
 
 
 def _blockdt_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig, bst):
@@ -865,7 +967,8 @@ def _blockdt_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig, bst
     over 32 bits, the inversions counted over the global array). Returns
     (state, box, keys, bst, resorted, inversions)."""
     mesh = cfg.mesh
-    box = make_global_box(state.x, state.y, state.z, box, mesh=mesh)
+    with phase_scope("sort"):
+        box = make_global_box(state.x, state.y, state.z, box, mesh=mesh)
     if cfg.dt_bins == 1:
         if mesh is None:
             state, keys, _, bst = _sort_by_keys(state, box, cfg.curve, aux=bst)
@@ -879,6 +982,7 @@ def _blockdt_prologue(state: ParticleState, box: Box, cfg: PropagatorConfig, bst
     else:
         state, keys, bst, resorted, inv = _sort_by_keys_sharded(state, box, cfg.curve, mesh,
                                                                 **kw)
+    _check_state("sort", state)
     return state, box, keys, bst, resorted, inv
 
 
@@ -894,6 +998,26 @@ def _blockdt_tail(state: ParticleState, box: Box, cfg: PropagatorConfig, ax, ay,
     the active count, the populations and the work are summed over the
     ranks in one all_gather (dt_sync and dt_min are replicated already).
     Returns (state, box, diagnostics, bst)."""
+    with phase_scope("dt-bins"):
+        bdiag, due, bins, dt_min, dt_eff, new_bst = _blockdt_bins(state, cfg, bst, c, ax, ay,
+                                                                   az, dt_sync, nc, resorted,
+                                                                   inv)
+    extra = None if alpha is None else {"alpha": torch.where(due, alpha, state.alpha)}
+    # dt_bins 1: the scalars the global step feeds compute_positions
+    if cfg.dt_bins == 1:
+        cp_dt, cp_dtm1 = dt_min, state.min_dt
+    else:
+        cp_dt, cp_dtm1 = dt_eff, bst.dt_prev
+    new_state, box, diag = _integrate_and_finish_blockdt(
+        state, box, cfg, ax, ay, az, du, dt_min, cp_dtm1, due, bins, cp_dt, nc, occ, rho,
+        extra=extra, extra_diag={**(gdiag or {}), **bdiag}, c=c, dt_limiter=dt_limiter)
+    return new_state, box, diag, new_bst
+
+
+def _blockdt_bins(state: ParticleState, cfg: PropagatorConfig, bst, c, ax, ay, az, dt_sync,
+                  nc, resorted, inv):
+    """``_blockdt_tail``'s bookkeeping: (block diagnostics, due mask, bins,
+    dt_min, dt_eff, the advanced BlockDtState)."""
     const = cfg.const
     B = cfg.dt_bins
     is_sync = bst.substep == 0
@@ -924,16 +1048,7 @@ def _blockdt_tail(state: ParticleState, box: Box, cfg: PropagatorConfig, ax, ay,
         bins=bins, dt_prev=torch.where(due, dt_eff, bst.dt_prev),
         substep=torch.where(wrap, torch.zeros_like(bst.substep), bst.substep + 1),
         cycle=bst.cycle + wrap.to(torch.int32), dt_min=dt_min)
-    extra = None if alpha is None else {"alpha": torch.where(due, alpha, state.alpha)}
-    # dt_bins 1: the scalars the global step feeds compute_positions
-    if B == 1:
-        cp_dt, cp_dtm1 = dt_min, state.min_dt
-    else:
-        cp_dt, cp_dtm1 = dt_eff, bst.dt_prev
-    new_state, box, diag = _integrate_and_finish_blockdt(
-        state, box, cfg, ax, ay, az, du, dt_min, cp_dtm1, due, bins, cp_dt, nc, occ, rho,
-        extra=extra, extra_diag={**(gdiag or {}), **bdiag}, c=c, dt_limiter=dt_limiter)
-    return new_state, box, diag, new_bst
+    return bdiag, due, bins, dt_min, dt_eff, new_bst
 
 
 def _step_hydro_std_blockdt(state: ParticleState, box: Box, cfg: PropagatorConfig,
@@ -950,9 +1065,10 @@ def _step_hydro_std_blockdt(state: ParticleState, box: Box, cfg: PropagatorConfi
     state, box, keys, bst, resorted, inv = _blockdt_prologue(state, box, cfg, bst)
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diag,
      _) = _std_forces(state, box, cfg, gtree, keys=keys)
-    dt_sync = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=const)
-    limiter = _dt_limiter(state.min_dt, const, courant=dt_courant,
-                          accel=extra_dts[0] if extra_dts else None)
+    with phase_scope("timestep"):
+        dt_sync = compute_timestep(state.min_dt, dt_courant, *extra_dts, const=const)
+        limiter = _dt_limiter(state.min_dt, const, courant=dt_courant,
+                              accel=extra_dts[0] if extra_dts else None)
     return _blockdt_tail(state, box, cfg, ax, ay, az, du, dt_sync, bst, resorted, inv, nc,
                          occ, rho, c=c, dt_limiter=limiter, gdiag=diag)
 
@@ -970,9 +1086,10 @@ def _step_hydro_ve_blockdt(state: ParticleState, box: Box, cfg: PropagatorConfig
     state, box, keys, bst, resorted, inv = _blockdt_prologue(state, box, cfg, bst)
     (state, box, ax, ay, az, du, (dt_courant, dt_rho, extra_dts), alpha, nc, occ, rho, c,
      gdiag) = _ve_forces(state, box, cfg, gtree, keys=keys, raw_dts=True)
-    dt_sync = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
-    limiter = _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
-                          accel=extra_dts[0] if extra_dts else None)
+    with phase_scope("timestep"):
+        dt_sync = compute_timestep(state.min_dt, dt_courant, dt_rho, *extra_dts, const=const)
+        limiter = _dt_limiter(state.min_dt, const, courant=dt_courant, rho=dt_rho,
+                              accel=extra_dts[0] if extra_dts else None)
     return _blockdt_tail(state, box, cfg, ax, ay, az, du, dt_sync, bst, resorted, inv, nc,
                          occ, rho, c=c, dt_limiter=limiter, gdiag=gdiag, alpha=alpha)
 

@@ -9,7 +9,9 @@ lifecycle, the science ledger's rows and watchdogs, the halo sizing of
 the sharded steps and of the gravity near field with the escape
 sentinels' regrow, and the driver's telemetry events."""
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -48,6 +50,11 @@ from sphexa_torch.sph.pair_lists import estimate_slot_cap
 from sphexa_torch.sph.particles import ParticleState, SimConstants
 from sphexa_torch.state import SimState
 from sphexa_torch.telemetry import Telemetry, emit_memory_event
+from sphexa_torch.util.phases import debug_checks as _debug_checks
+
+#: array diagnostics that ride ``_launch``'s packed read as whole blocks
+#: (observables/snapshot.py SNAP_DIAG_KEYS and the frame's box)
+_ARRAY_KEYS = ("snap_grid", "snap_min", "snap_max", "snap_pts", "snap_lo", "snap_lengths")
 
 #: engine defaults of make_propagator_config (simulation.py:142-143)
 _DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
@@ -268,7 +275,24 @@ class Simulation:
     scalars. At each check or flush boundary a ``shard_load`` and an
     ``exchange`` event go out (with the sparse gravity serve a second
     ``exchange``, stage "gravity"), and an ``imbalance`` event where a
-    per-rank metric's max over its mean reaches ``imbalance_ratio``."""
+    per-rank metric's max over its mean reaches ``imbalance_ratio``.
+
+    ``snap_spec`` (observables/snapshot.py ``SnapshotSpec``): every step
+    deposits its field grid, which rides the step's one packed read; at a
+    check or flush boundary every verified step whose iteration is a
+    multiple of ``snap_every`` writes one ``.npz`` frame into the ring
+    ``snap_dir`` (default: ``snapshots/`` beside the telemetry's
+    events.jsonl; None: events only), at most ``snap_keep`` frames (0:
+    unbounded), and a ``snapshot`` event; ``drain_snapshots()`` hands
+    the frames written since the last drain. A rolled-back window writes
+    no frame of its discarded steps; its replay writes them. On a mesh
+    rank 0 alone writes the frames.
+
+    ``debug_checks``: every step runs under the sanitizer
+    (util/phases.py): the first NaN or Inf of a stage's outputs, or the
+    first out-of-range run of a kernel's index tables, is the step's
+    ``check_error`` ("" when clean). It checks every step (``check_every``
+    1), streams (no lists) and refuses a mesh."""
 
     # rebuild proactively below this remaining-skin fraction: the next
     # step would likely expire and be discarded
@@ -288,7 +312,9 @@ class Simulation:
                  bin_sync_every: int = 1, bin_resort_drift: float = 0.0,
                  num_devices: Optional[int] = None, halo_mode: str = "sparse",
                  imbalance_ratio: float = 1.5, grav_window: int = 256,
-                 grav_window_margin: float = 1.4):
+                 grav_window_margin: float = 1.4, snap_spec=None,
+                 snap_every: Optional[int] = None, snap_keep: Optional[int] = None,
+                 snap_dir: Optional[str] = None, debug_checks: bool = False):
         if prop not in _STEPS:
             raise ValueError(f"unknown propagator {prop!r}; available: {sorted(_STEPS)}")
         if dt_bins is not None:
@@ -315,6 +341,14 @@ class Simulation:
                 "prop='nbody' needs a gravitational constant: set SimConstants(g=...)")
         self.prop_name = prop
         self.gravity_on = const.g != 0.0
+        # the sanitizer localizes a failure to one step: every step checked,
+        # no lists, one device
+        self.debug_checks = bool(debug_checks)
+        if self.debug_checks:
+            if num_devices is not None and num_devices > 1:
+                raise ValueError("debug_checks is single-device; drop num_devices or the flag")
+            check_every = 1
+            use_lists = False
         if halo_mode not in ("sparse", "windowed"):
             raise ValueError(f"halo_mode must be 'sparse' or 'windowed', got {halo_mode!r}")
         self.mesh = None
@@ -410,6 +444,22 @@ class Simulation:
         self.energy_drift: Optional[float] = None
         self._collect_science = bool(science_rows)
         self._science: list = []
+        # the field snapshots: the deposit rides every step's packed read,
+        # the frames are written at check and flush boundaries
+        self._snap_spec = snap_spec
+        self._snap_every = max(1, int(snap_every)) if snap_every else 1
+        self._snap_keep = int(snap_keep) if snap_keep else 0
+        self._snap_dir = snap_dir
+        if snap_spec is not None and snap_dir is None:
+            # default: beside events.jsonl (the JsonlSink's directory)
+            for sink in self.telemetry.sinks:
+                path = getattr(sink, "path", None)
+                if path:
+                    self._snap_dir = os.path.join(os.path.dirname(str(path)) or ".",
+                                                  "snapshots")
+                    break
+        self._snap_frames: list = []  # (iteration, path) since the last drain
+        self._snap_ring: list = []  # the ring's paths, oldest first
         # the gravity tree is built from fresh keys, and the block time
         # steps sort on the folded key: both sort every step
         self._want_lists = (use_lists and not self.gravity_on and dt_bins is None
@@ -498,7 +548,7 @@ class Simulation:
                 list_slot_margin=self._slot_margin, sizing_cache=sizing_cache,
                 mesh=self.mesh)
         self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec,
-                                        dt_bins=self.dt_bins,
+                                        snap=self._snap_spec, dt_bins=self.dt_bins,
                                         bin_sync_every=self.bin_sync_every,
                                         bin_resort_drift=self.bin_resort_drift)
         if self.gravity_on:
@@ -701,8 +751,11 @@ class Simulation:
     def _launch(self):
         """Run one step on the current carry, reading nothing from the
         card (a missing list build reads its own two scalars). Returns
-        (new SimState, scalar names, the scalars packed into one (K,)
-        float64 device tensor, whether the step ran on lists)."""
+        (new SimState, names, the scalars packed into one (K,) float64
+        device tensor, whether the step ran on lists). ``names`` holds a
+        scalar's name, or (name, shape) for an array diagnostic (the
+        snapshot's grids and the frame's box), whose values follow the
+        scalars' in the packed tensor."""
         with self.telemetry.annotate("sphexa:launch"):
             if self._use_lists and self._lists is None:
                 self._rebuild_lists()
@@ -710,6 +763,11 @@ class Simulation:
             sim, diag = step_sim_state(self._step_fn, self.sim_state, self._cfg, self._gtree,
                                        self._aux_cfg, lists=lists)
             named = {**diag, "min_length": sim.box.lengths.min()}
+            arrays = []
+            if self._snap_spec is not None:
+                # the frame's box rides the same read
+                named.update(snap_lo=sim.box.lo, snap_lengths=sim.box.lengths)
+                arrays = [(k, named.pop(k)) for k in _ARRAY_KEYS if k in named]
             # a (B,) diagnostic (the bin populations) rides as B scalars "k[i]"
             for k in [k for k, v in named.items() if v.dim() == 1]:
                 named.update({f"{k}[{i}]": e for i, e in enumerate(named.pop(k).unbind(0))})
@@ -719,19 +777,34 @@ class Simulation:
             for k, v in named.items():
                 by_dtype.setdefault(v.dtype, []).append(k)
             names = tuple(k for ks in by_dtype.values() for k in ks)
-            packed = torch.cat([torch.stack([named[k] for k in ks]).to(torch.float64)
-                                for ks in by_dtype.values()])
+            parts = [torch.stack([named[k] for k in ks]).to(torch.float64)
+                     for ks in by_dtype.values()]
+            if arrays:
+                # whole blocks, flattened: a (G, G) grid as G^2 scalars
+                # would cost G^2 views on the host
+                names += tuple((k, tuple(a.shape)) for k, a in arrays)
+                parts.append(torch.cat([a.reshape(-1) for _, a in arrays]).to(torch.float64))
+            packed = torch.cat(parts)
         return sim, names, packed, lists is not None
 
     def _fetch_scalars(self, entries) -> List[Dict[str, float]]:
-        """One device-to-host read of the scalars of every step in
+        """One device-to-host read of the diagnostics of every step in
         ``entries`` ((names, packed) pairs): the packed tensors
-        concatenated and copied by one ``tolist``."""
-        flat = torch.cat([p for _, p in entries]).tolist()
+        concatenated and copied once (a whole grid as a numpy block: as
+        Python floats it would cost milliseconds a window); scalars come
+        back as floats, array diagnostics as float64 numpy arrays of their
+        shapes."""
+        host = torch.cat([p for _, p in entries]).cpu().numpy()
         out, i = [], 0
         for names, _ in entries:
-            out.append(dict(zip(names, flat[i:i + len(names)])))
-            i += len(names)
+            scalars = [k for k in names if isinstance(k, str)]
+            d = dict(zip(scalars, host[i:i + len(scalars)].tolist()))
+            i += len(scalars)
+            for k, shape in (k for k in names if not isinstance(k, str)):
+                size = int(np.prod(shape))
+                d[k] = host[i:i + size].reshape(shape).copy()
+                i += size
+            out.append(d)
         return out
 
     @staticmethod
@@ -761,7 +834,8 @@ class Simulation:
 
     @staticmethod
     def _result(d: Dict[str, float], used_lists: bool) -> Dict[str, float]:
-        result = {k: v for k, v in d.items() if k != "min_length"}
+        result = {k: v for k, v in d.items()
+                  if k not in ("min_length", "snap_lo", "snap_lengths")}
         result["use_lists"] = float(used_lists)
         return result
 
@@ -779,7 +853,8 @@ class Simulation:
         grav_margin = 1.5
         grav_blown_once = False
         for _attempt in range(4):
-            sim, names, packed, used_lists = self._launch()
+            with _debug_checks() if self.debug_checks else contextlib.nullcontext() as dbg:
+                sim, names, packed, used_lists = self._launch()
             (d,) = self._fetch_scalars([(names, packed)])
             if not self._overflowed(d):
                 break
@@ -820,7 +895,11 @@ class Simulation:
         self._emit_distributed(d, 1)
         self._emit_science([d], [self.iteration])
         self._emit_blockdt([d], [self.iteration])
+        self._emit_snapshot([d], [self.iteration])
         self._emit_memory("post-compile")
+        if self.debug_checks:
+            # the first failed check of this step's last attempt ("" clean)
+            result["check_error"] = dbg.error
         self._last_diag = result
         self.last_step_seconds = time.perf_counter() - t0
         return result
@@ -880,6 +959,7 @@ class Simulation:
             self._emit_distributed(fetched[-1], len(pending))
             self._emit_science(fetched, win_its)
             self._emit_blockdt(fetched, win_its)
+            self._emit_snapshot(fetched, win_its)
             self._emit_memory("post-compile")
             self._emit_memory("flush")
             result = self._result(fetched[-1], pending[-1][2])
@@ -1000,6 +1080,56 @@ class Simulation:
             drift_max=max(int(d["bdt_drift"]) for d in ds),
             work=sum(float(d["bdt_work"]) for d in ds))
 
+    def drain_snapshots(self) -> list:
+        """(iteration, npz path) of every frame written since the last
+        drain, in iteration order (the ``--insitu`` renderer's input: host
+        file IO only). Frames appear at check and flush boundaries only, so
+        under deferral a window's due frames land together."""
+        frames, self._snap_frames = self._snap_frames, []
+        return frames
+
+    def _emit_snapshot(self, fetched, its) -> None:
+        """At a check or flush boundary: for every verified step due
+        (``it % snap_every == 0``) one ``.npz`` frame into the ring (the
+        grid, its extrema, the spec and the step's box, read with its
+        scalars; at most ``snap_keep`` frames) and one ``snapshot`` event
+        (the grid's meta and extrema, the frame's path). Host numpy and
+        file IO on diagnostics already read; on a mesh rank 0 writes."""
+        spec = self._snap_spec
+        if spec is None:
+            return
+        steps = [(it, d) for it, d in zip(its, fetched)
+                 if "snap_grid" in d and it % self._snap_every == 0]
+        writer = self.mesh is None or self.mesh.rank == 0
+        for it, d in steps:
+            vmin = [float(v) for v in d["snap_min"]]
+            vmax = [float(v) for v in d["snap_max"]]
+            path = None
+            if self._snap_dir and writer:
+                os.makedirs(self._snap_dir, exist_ok=True)
+                path = os.path.join(self._snap_dir, f"snap_{int(it):06d}.npz")
+                payload = {
+                    "grid": d["snap_grid"].astype(np.float32), "it": np.int64(it),
+                    "fields": np.asarray(spec.fields), "axis": np.int64(spec.axis),
+                    "reduce": np.asarray(spec.reduce), "volume": np.bool_(spec.volume),
+                    "lo": d["snap_lo"], "lengths": d["snap_lengths"],
+                    "vmin": np.asarray(vmin), "vmax": np.asarray(vmax),
+                }
+                if "snap_pts" in d:
+                    payload["pts"] = d["snap_pts"].astype(np.float32)
+                np.savez(path, **payload)
+                self._snap_frames.append((int(it), path))
+                self._snap_ring.append(path)
+                while self._snap_keep > 0 and len(self._snap_ring) > self._snap_keep:
+                    old = self._snap_ring.pop(0)
+                    try:
+                        os.remove(old)
+                    except OSError:
+                        pass
+            self.telemetry.event("snapshot", it=int(it), fields=list(spec.fields),
+                                 grid=spec.grid, axis=spec.axis, reduce=spec.reduce,
+                                 volume=spec.volume, vmin=vmin, vmax=vmax, path=path)
+
     def drain_science(self) -> list:
         """Per-step science rows (constants.txt material: it, t, dt,
         energies, momenta, the case extra) since the last drain, one per
@@ -1095,7 +1225,7 @@ class Simulation:
             tel.count("field_health")
             tel.event("field_health", it=it_bad, nonfinite=sum(step_bad.values()),
                       fields=step_bad,
-                      hint="re-run with the JAX package's --debug-checks to localize")
+                      hint="re-run with --debug-checks to localize")
 
     def run(self, num_steps: int, log_every: int = 0, printer=print):
         """Advance ``num_steps`` steps, then flush the last window: the

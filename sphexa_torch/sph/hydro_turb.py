@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sphexa_torch.sph import threefry
+from sphexa_torch.util.phases import named_phase
 
 __all__ = ["TurbulenceConfig", "TurbulenceState", "create_stirring_modes", "update_noise",
            "compute_phases", "st_calc_accel", "drive_turbulence",
@@ -209,6 +210,7 @@ def st_calc_accel(x, y, z, turb: TurbulenceState, cfg: TurbulenceConfig,
     return acc[:, 0], acc[:, 1], acc[:, 2]
 
 
+@named_phase("turbulence")
 def drive_turbulence(x, y, z, ax, ay, az, dt, turb: TurbulenceState, cfg: TurbulenceConfig):
     """The OU update, the projection and the stirring added to the
     accelerations, one step (driver.hpp:104-130). Returns (ax, ay, az,

@@ -63,6 +63,7 @@ from sphexa_torch.sfc.morton import morton_encode
 from sphexa_torch.sph.kernels import (
     dterh_poly_eval, kernel_dterh_coeffs, kernel_poly_coeffs, sinc_poly_eval,
 )
+from sphexa_torch.util.phases import check_runs, named_phase
 
 #: the pair ops' entry points of K1 (csrc/pair_engine.cu) and K6
 #: (csrc/pair_lists.cu)
@@ -128,6 +129,7 @@ def _pad_groups(a: torch.Tensor, group: int) -> torch.Tensor:
     return a.reshape(num_groups, group)
 
 
+@named_phase("neighbors")
 def group_cell_ranges(x, y, z, h, sorted_keys, box: Box,
                       cfg: NeighborConfig, radius_pad=0.0, table=None) -> GroupRanges:
     """Candidate runs of every group, culled, merged and compacted
@@ -1162,6 +1164,9 @@ def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None, 
     CPU runs the plain version; anything else raises. ``dt``: the 0-d
     device tensor of the AV switches' time step."""
     dev = i_fields[0].device
+    runs = lists.ranges if lists is not None else ranges
+    # --debug-checks: the runs the kernel reads stay inside its j-arrays
+    check_runs(spec.name, runs.starts, runs.lens, j_fields[0].shape[0])
     if dev.type == "cuda":
         consts = _consts(const, dt)
         if lists is not None:
@@ -1271,6 +1276,7 @@ def _momentum_energy_std(run, x, y, z, vx, vy, vz, h, m, rho, p, c,
 # in its order. The i-side arrays are the targets.
 
 
+@named_phase("density")
 def pallas_density(x, y, z, h, m, sorted_keys, box: Box, const,
                    cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
                    lists=None, mask: str = "own", jdata=None):
@@ -1288,6 +1294,7 @@ def density_plain(x, y, z, h, m, sorted_keys, box: Box, const,
                     lists, mask, jdata)
 
 
+@named_phase("iad")
 def pallas_iad(x, y, z, h, vol, sorted_keys, box: Box, const,
                cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
                lists=None, mask: str = "own", jdata=None):
@@ -1305,6 +1312,7 @@ def iad_plain(x, y, z, h, vol, sorted_keys, box: Box, const,
                 lists, mask, jdata)
 
 
+@named_phase("momentum-energy")
 def pallas_momentum_energy_std(x, y, z, vx, vy, vz, h, m, rho, p, c,
                                c11, c12, c13, c22, c23, c33, sorted_keys,
                                box: Box, const, cfg: NeighborConfig,
@@ -1462,6 +1470,7 @@ def _momentum_energy_ve(run, x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
     return ax, ay, az, du, torch.min(dt_i), ranges.occupancy
 
 
+@named_phase("xmass")
 def pallas_xmass(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig,
                  ranges: Optional[GroupRanges] = None, lists=None, mask: str = "own", jdata=None):
     """VE volume element xm = m / rho0 over the density op (K2), and the
@@ -1477,6 +1486,7 @@ def xmass_plain(x, y, z, h, m, sorted_keys, box: Box, const, cfg: NeighborConfig
                   mask, jdata)
 
 
+@named_phase("gradh")
 def pallas_ve_def_gradh(x, y, z, h, m, xm, sorted_keys, box: Box, const,
                         cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
                         lists=None, mask: str = "own", jdata=None):
@@ -1494,6 +1504,7 @@ def ve_def_gradh_plain(x, y, z, h, m, xm, sorted_keys, box: Box, const,
                          ranges, lists, mask, jdata)
 
 
+@named_phase("divv-curlv")
 def pallas_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23, c33,
                           sorted_keys, box: Box, const, cfg: NeighborConfig,
                           ranges: Optional[GroupRanges] = None, with_gradv: bool = False,
@@ -1517,6 +1528,7 @@ def iad_divv_curlv_plain(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c23
                            with_gradv, lists, mask, jdata)
 
 
+@named_phase("av-switches")
 def pallas_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                        c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, dt, const,
                        cfg: NeighborConfig, ranges: Optional[GroupRanges] = None,
@@ -1539,6 +1551,7 @@ def av_switches_plain(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
                         ranges, lists, mask, jdata)
 
 
+@named_phase("momentum-energy")
 def pallas_momentum_energy_ve(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                               c11, c12, c13, c22, c23, c33, sorted_keys, box: Box, const,
                               cfg: NeighborConfig, nc=None, gradv=None,

@@ -30,6 +30,7 @@ from sphexa_torch.neighbors.cell_list import NeighborConfig, pad_cap
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_engine import LANES, GroupRanges
+from sphexa_torch.util.phases import named_phase
 
 WORDS = LANES // 32  # 32-bit mask words per slot
 
@@ -59,6 +60,7 @@ class PairLists(NamedTuple):
         return self.bits.shape[1]
 
 
+@named_phase("neighbors")
 def list_slack(x, y, z, h, lists: PairLists) -> torch.Tensor:
     """Remaining skin fraction (<= 1): positive while the build-time
     coverage (bbox inflated by 2 h_build + skin) still covers every
@@ -295,6 +297,7 @@ def build_lists(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
     raise ValueError(f"unsupported device {x.device}")
 
 
+@named_phase("neighbors")
 def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
                      skin: torch.Tensor, slot_cap: int) -> PairLists:
     """Build the persistent lists from SFC-sorted arrays: each group's

@@ -25,7 +25,12 @@ from sphexa_torch.telemetry.manifest import (
     read_manifest,
     write_manifest,
 )
-from sphexa_torch.telemetry.memory import device_memory_snapshot, emit_memory_event
+from sphexa_torch.telemetry.memory import (
+    device_memory_snapshot,
+    emit_memory_event,
+    save_memory_profile,
+    start_memory_history,
+)
 from sphexa_torch.telemetry.registry import (
     EVENT_KINDS,
     SCHEMA_VERSION,
@@ -51,4 +56,6 @@ __all__ = [
     "write_manifest",
     "device_memory_snapshot",
     "emit_memory_event",
+    "save_memory_profile",
+    "start_memory_history",
 ]

@@ -12,6 +12,11 @@ On the card the numbers are the caching allocator's host-side counters
 (``torch.cuda.memory_stats``) and the card's total memory: no CUDA call
 that waits on the stream, so a snapshot adds no host sync. On the CPU the
 byte lists are empty, as the JAX package's are there.
+
+``--memory-profile`` (``start_memory_history`` at the CLI's start,
+``save_memory_profile`` at its end) dumps the caching allocator's
+snapshot with its history, the port's form of the JAX package's pprof
+device-memory profile.
 """
 
 from typing import Dict, List, Optional
@@ -54,3 +59,36 @@ def emit_memory_event(telemetry, point: str, devices=None,
     snap = device_memory_snapshot(devices)
     telemetry.event("memory", point=point, **snap, **extra)
     return snap
+
+
+def start_memory_history() -> bool:
+    """Start recording the CUDA caching allocator's history (every
+    allocation with its stack) for ``save_memory_profile``; the CLI calls
+    it at start-up under ``--memory-profile``. Returns False where there
+    is no CUDA device."""
+    if not torch.cuda.is_available():
+        return False
+    try:
+        torch.cuda.memory._record_memory_history(max_entries=100000)
+        return True
+    except Exception:
+        return False
+
+
+def save_memory_profile(path: str) -> bool:
+    """The port's ``--memory-profile`` (the JAX package's pprof device
+    memory profile): the caching allocator's snapshot (segments, blocks
+    and the recorded history), pickled to ``path`` by
+    ``torch.cuda.memory._dump_snapshot``, and stops the recording; it
+    opens in PyTorch's memory viewer (pytorch.org/memory_viz). Returns
+    whether a file was written: False where there is no CUDA device
+    (callers report, never crash)."""
+    if not torch.cuda.is_available():
+        return False
+    try:
+        torch.cuda.memory._dump_snapshot(path)
+        return True
+    except Exception:
+        return False
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)

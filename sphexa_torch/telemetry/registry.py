@@ -14,10 +14,12 @@ under the same rules (``sphexa-telemetry summary --strict``).
 import contextlib
 import time
 from collections import Counter, defaultdict
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from sphexa_torch.util.phases import profiling
 
 #: events.jsonl schema version; bump on any incompatible field change and
 #: document the migration in docs/OBSERVABILITY.md. v2 added the
@@ -228,12 +230,19 @@ class Telemetry:
         for s in self.sinks:
             s.emit(e)
 
+    def phases(self, it: int, laps: Dict[str, float]) -> None:
+        """Per-iteration host phase laps (the Timer's pop) as one event;
+        each lap also feeds the registry's phase accumulators."""
+        for k, v in laps.items():
+            self.timing(k, v)
+        self.event("phases", it=int(it), **{k: round(float(v), 6) for k, v in laps.items()})
+
     # -- profiler hooks ----------------------------------------------------
     def annotate(self, name: str):
         """Named scope for torch.profiler traces (``record_function``)
         around launch/flush/reconfigure/rebuild while a profiler runs; a
         no-op context otherwise (a record_function costs about 10 us)."""
-        if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        if profiling():
             return torch.profiler.record_function(name)
         return contextlib.nullcontext()
 
@@ -250,3 +259,78 @@ class Telemetry:
     def close(self) -> None:
         for s in self.sinks:
             s.close()
+
+
+# ---------------------------------------------------------------------------
+# lap timing and the per-iteration series (util/timer.py's implementations,
+# on the registry so that every consumer shares one accumulation)
+# ---------------------------------------------------------------------------
+
+
+class LapTimer:
+    """Accumulates named wall-clock laps within one iteration
+    (timer.hpp:46 semantics); each lap also feeds ``telemetry.timing``."""
+
+    def __init__(self, telemetry: Optional[Telemetry] = None):
+        self.telemetry = telemetry
+        self.laps: Dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def start(self) -> None:
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> float:
+        """Record the time since the last mark under ``name``."""
+        now = time.perf_counter()
+        elapsed = now - self._t
+        self.laps[name] = self.laps.get(name, 0.0) + elapsed
+        self._t = now
+        if self.telemetry is not None:
+            self.telemetry.timing(name, elapsed)
+        return elapsed
+
+    # the reference's name (util/timer.hpp's Timer::step)
+    step = lap
+
+    def pop(self) -> Dict[str, float]:
+        out = self.laps
+        self.laps = {}
+        return out
+
+
+class StepSeries:
+    """Per-iteration timing and metric rows, saved as an npz series
+    (ipropagator.hpp:83-87 writes the analogous HDF5 series). With a
+    registry attached, every row also goes out as a ``phases`` event."""
+
+    def __init__(self, telemetry: Optional[Telemetry] = None):
+        self.telemetry = telemetry
+        self.rows: List[Dict[str, float]] = []
+
+    def record(self, iteration: int, laps: Dict[str, float], **metrics):
+        self.rows.append({"iteration": float(iteration), **laps, **metrics})
+        if self.telemetry is not None:
+            self.telemetry.phases(iteration, {**laps, **metrics})
+
+    def save(self, path: str, substeps=None) -> bool:
+        """Write the series (and a one-shot substep breakdown as
+        ``substep_<name>`` scalars). Returns whether a file was written:
+        with no rows and no substeps nothing is."""
+        if not self.rows and not substeps:
+            return False
+        keys = sorted({k for row in self.rows for k in row})
+        # a metric recorded on some iterations only is NaN-padded, so that
+        # every column is one dense array
+        arrays = {k: np.array([row.get(k, np.nan) for row in self.rows]) for k in keys}
+        for k, v in (substeps or {}).items():
+            arrays[f"substep_{k}"] = np.float64(v)
+        np.savez(path, **arrays)
+        return True
+
+    def summary(self) -> Dict[str, float]:
+        """Mean seconds per iteration of each recorded phase."""
+        if not self.rows:
+            return {}
+        keys = {k for row in self.rows for k in row} - {"iteration"}
+        return {k: float(np.nanmean([row.get(k, np.nan) for row in self.rows]))
+                for k in sorted(keys)}

@@ -36,7 +36,11 @@ form (``-k p2p_jdata``): bit for bit the one-device form on the targets'
 own arrays, and within its tolerance of the plain version on a rank's
 [own slab | halo rows]. turb-ve, N-body and block time steps on two gloo
 ranks of the card (``-k sharded_props``) against the one-device steps,
-K13's one-row form on each rank's due masks."""
+K13's one-row form on each rank's due masks. The app shell (``-k
+app_shell``, kernels/app_checks.py): the snapshot deposit against its
+plain numpy version, a deferred window's host syncs with snapshots equal
+to the run without, the debug checks, the substep split's K1 launches and
+a ``--trace-dir`` capture's coverage on the card."""
 
 import dataclasses
 
@@ -997,3 +1001,73 @@ def test_sharded_props_two_ranks_on_one_card(tmp_path):
     for name in ("turb-ve", "nbody", "blockdt"):
         assert "vs_one_device" in out[0][name], name
     assert any(d["bdt_active"] > 0 for d in out[0]["blockdt"]["diags"])
+
+
+def test_app_shell_deposit_vs_plain():
+    """The snapshot deposit on the card (Sedov 30 after a step) against the
+    plain numpy deposit of the same state: sums within rtol 1e-5 of the
+    grid's max on each axis and the volume, "max" exact
+    (``app_checks.deposit_vs_plain``)."""
+    _need_card()
+    from sphexa_torch.kernels import app_checks as ac
+    from sphexa_torch.observables.snapshot import SnapshotSpec
+
+    sim = Simulation(*init_sedov(30, device="cuda"), device="cuda")
+    sim.step()
+    s = sim.state
+    rho = s.m / (s.h * s.h * s.h)
+    for kw in (dict(axis=0), dict(axis=1), dict(axis=2), dict(reduce="max"),
+               dict(volume=True, grid=16)):
+        spec = SnapshotSpec(**{"fields": ("rho", "temp"), "grid": 64, **kw})
+        ac.deposit_vs_plain(f"Sedov 30 {kw}", s, rho, sim.box, spec)
+
+
+def test_app_shell_frames_and_debug_checks():
+    """A deferred run on the card with snapshots: frames at the window's
+    flush, one read a window (``deferred_checks.window_syncs``, the
+    launches before the flush with syncs raising), equal to the run
+    without snapshots; the debug checks on the card
+    (``app_checks.debug_checks_case``)."""
+    _need_card()
+    from sphexa_torch.kernels import app_checks as ac
+    from sphexa_torch.kernels.deferred_checks import window_syncs
+    from sphexa_torch.observables.snapshot import SnapshotSpec
+
+    syncs = {}
+    for snap in (None, SnapshotSpec(fields=("rho", "temp"), grid=32)):
+        sim = Simulation(*init_sedov(30, device="cuda"), device="cuda", check_every=4,
+                         snap_spec=snap)
+        for _ in range(4):
+            sim.step()
+        syncs[snap is not None] = window_syncs(sim)
+        if snap is not None:
+            assert sim._last_diag["snap_grid"].shape == (2, 32, 32)
+    assert syncs[True]["syncs"] == syncs[False]["syncs"], syncs
+    ac.debug_checks_case(12, "cuda")
+
+
+def test_app_shell_substeps_launch_k1():
+    """``substep_breakdown`` on the card launches K1's streaming op of each
+    stage 1 + iters times (std and VE, Sedov 20)."""
+    _need_card()
+    from sphexa_torch.kernels import app_checks as ac
+
+    for prop in ("std", "ve"):
+        sim = Simulation(*init_sedov(20, device="cuda"), prop=prop, device="cuda")
+        sim.step()
+        out = ac.substep_launches(sim, iters=2)
+        assert all(v >= 0.0 for v in out["ms"].values())
+
+
+def test_app_shell_trace_attribution(tmp_path):
+    """The CLI's --trace-dir on the card (Sedov 30, 3 steps, list mode):
+    the kernels' device time attributed to the step's phases, coverage at
+    least 0.8 (the JAX package's gate)."""
+    _need_card()
+    from sphexa_torch.app.main import main
+    from sphexa_torch.telemetry.traceview import summarize_trace
+
+    assert main(["--init", "sedov", "-n", "30", "-s", "3", "--quiet", "-o", str(tmp_path),
+                 "--trace-dir", str(tmp_path / "trace")]) == 0
+    s = summarize_trace(str(tmp_path / "trace"))
+    assert s["device"] == "cuda" and s["coverage"] >= 0.8, s

@@ -57,7 +57,10 @@ def test_port_sources_found():
                 ("init", "kelvin_helmholtz.py"), ("init", "wind_shock.py"),
                 ("init", "isobaric_cube.py"), ("sph", "blockdt.py"),
                 ("parallel", "mesh.py"), ("parallel", "sort.py"), ("parallel", "exchange.py"),
-                ("tree", "decomposition.py"), ("kernels", "sharded_checks.py")):
+                ("tree", "decomposition.py"), ("kernels", "sharded_checks.py"),
+                ("util", "__init__.py"), ("util", "phases.py"), ("util", "timer.py"),
+                ("util", "substep_profile.py"), ("observables", "snapshot.py"),
+                ("viz.py",), ("telemetry", "traceview.py"), ("kernels", "app_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
