@@ -14,7 +14,7 @@ Phases, each printed as one JSON line:
    jittered from a seed so that every term of each pair body is non-zero;
    whole steps on the card against the same steps on the CPU, std and VE,
    streaming and in list mode (two steps each), and one step of VE
-   Gresho-Chan side 30 (a fold-mode grid: it streams);
+   Gresho-Chan side 20 (a fold-mode grid: it streams);
 4. lists vs plain: the list build (K5: merge, mark and prune in one
    kernel, bit for bit, also at a slot budget of 2 that overflows) and the
    list walk of every SPH op (density, IAD, grad-h, both forms of
@@ -232,6 +232,16 @@ Phases, each printed as one JSON line:
    step medians; the launch contract; a window's host syncs equal; a
    checked step's device events without snapshots the main path
    Simulation's);
+26. ``gather_path``: the gather backend (``backend="xla"``, no kernel):
+   ``find_neighbors`` of a jittered Sedov 24 at ngmax 40 card vs CPU bit
+   for bit, the gather density rtol 1e-6; one gather force stage against
+   the engine's from Sedov 100^3 (the largest count below ngmax 150: rho,
+   a, du within the slice's tolerances); std Sedov 100^3 at ngmax 150,
+   one warm-up and two timed steps, counts reset just before and read
+   just after (every count 0), updates/s, the drift, the peak allocated
+   memory, the ledger's truncated-row count, every field on the card; the
+   split of a step (sort, search, density, EOS, IAD, momentum/energy) and
+   the row blocks taken from the free memory;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -3323,6 +3333,52 @@ def sharded_props_path(smi) -> tuple:
     return res[0], {f"sharded_{label}": res[0][label]["launches"] for label in contract}, cli
 
 
+def gather_path(spec, smi) -> dict:
+    """Phase 26, the gather backend (``Simulation(backend="xla")``, the JAX
+    package's XLA path: find_neighbors' (N, ngmax) lists and the masked
+    j-reductions, plain PyTorch) on the card: (a) the search of a
+    jittered Sedov 24 at ngmax 40 (every row truncated) card vs CPU, nidx,
+    nmask and nc bit for bit, the density rtol 1e-6; (b) one gather force
+    stage against the engine's (K1) from Sedov 100^3's initial state, whose
+    largest count is below ngmax 150 (printed): rho, a and du within the
+    slice's tolerances; (c) std Sedov 100^3 at ngmax 150, one warm-up and
+    two timed steps: updates/s, the drift, the peak allocated memory, the
+    ledger's truncated-row count a step, and zero launches of K1-K13
+    (every count 0: a failure raises); (d) the split of a step's stages
+    on the path's last state and the row blocks chosen from the free
+    memory. Returns the path's launch counts (all zero)."""
+    import torch
+
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.kernels import gather_checks as gc
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.sph.particles import PARTICLE_FIELDS
+
+    t0 = time.perf_counter()
+    emit({"phase": "gather_card_vs_cpu", **gc.card_vs_cpu(24, 40),
+          "seconds": time.perf_counter() - t0})
+    state, box, const = init_sedov(100, device="cuda")
+    emit({"phase": "gather_vs_engine", **gc.vs_engine(state, box, const)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive(lambda: Simulation(state, box, const, prop="std", device="cuda", backend="xla",
+                                   obs_spec=spec), steps=2, label="gather_path")
+    peak = torch.cuda.max_memory_allocated()
+    sim = run["sim"]
+    check_launches("gather path", run["launches"], run["attempts"], ())
+    if sim.cfg.backend != "xla" or sim.lists is not None:
+        raise AssertionError(f"gather path: backend {sim.cfg.backend}, lists {sim.lists}")
+    for f in PARTICLE_FIELDS:
+        if getattr(sim.state, f).device.type != "cuda":
+            raise AssertionError(f"gather path: {f} left the card")
+    emit({**run["report"], "card": smi, "peak_memory_gb": peak / 1e9,
+          "truncated_rows": [d["n_nc_clip"] for d in run["diags"]],
+          "ngmax": sim.cfg.nbr.ngmax, "split_ms": gc.split_ms(sim, reps=1),
+          "blocks": gc.block_sizes(sim.cfg, sim.device),
+          "seconds": time.perf_counter() - t0})
+    return run["launches"]
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3387,9 +3443,9 @@ def main() -> int:
     for prop in ("std", "ve"):
         for side, ct, use_lists in ((24, 16, True), (24, 16, False), (12, None, False)):
             emit(slice_vs_cpu(side, ct, steps=2, use_lists=use_lists, prop=prop))
-    gc = slice_vs_cpu(30, None, steps=1, use_lists=True, prop="ve", case="gresho-chan")
+    gc = slice_vs_cpu(20, None, steps=1, use_lists=True, prop="ve", case="gresho-chan")
     if not gc["fold"]:
-        raise AssertionError("Gresho-Chan 30: expected a fold-mode grid")
+        raise AssertionError("Gresho-Chan 20: expected a fold-mode grid")
     emit(gc)
 
     # 4. the list kernels vs plain, and list mode vs streaming; K5 also on
@@ -3757,6 +3813,8 @@ def main() -> int:
     # 25. the app shell: snapshots, --insitu, the substep split, --trace-dir,
     # --memory-profile, --debug-checks, --devices 2 --snap
     app_launches = app_shell(spec, smi, sim, vsim)
+    # 26. the gather backend at full width (gather_path)
+    gather_path(spec, smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),

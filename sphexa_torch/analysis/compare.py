@@ -1,10 +1,12 @@
 """Output fields and the L1 comparison against an analytic solution
-(sphexa_tpu/analysis/compare.py, its Pallas branch).
+(sphexa_tpu/analysis/compare.py).
 
 ``compute_output_fields`` is the saveFields recompute pass
 (ve_hydro.hpp:225-286): rho, p and c derived from the conserved fields
 through the pair engine in streaming mode, K1 on the card (std: the
-density op; VE: xmass, then grad-h), and u, |v| and r; on a mesh
+density op; VE: xmass, then grad-h), or on the gather backend
+(``cfg.backend`` "xla") through find_neighbors' lists and the gather
+ops, as the JAX package's XLA branch; and u, |v| and r; on a mesh
 (``cfg.mesh``) over this rank's slab, K1's jdata form on the sharded
 halo, each row's fields returned to the rank that holds it.
 ``l1_error`` is
@@ -16,8 +18,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from sphexa_torch.neighbors.cell_list import find_neighbors
 from sphexa_torch.propagator import PropagatorConfig, _sort_by_keys
 from sphexa_torch.sfc.box import Box
+from sphexa_torch.sph import hydro_std, hydro_ve
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.hydro_std import compute_eos_std
 from sphexa_torch.sph.hydro_ve import compute_eos_ve
@@ -42,11 +46,14 @@ def output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
     state is this rank's slab (``_output_fields_sharded``)."""
     if cfg.mesh is not None:
         return _output_fields_sharded(state, box, cfg, pipeline, ops)
-    density, xmass, ve_def_gradh = OPS[ops]
     const = cfg.const
     ss, keys, order = _sort_by_keys(state, box, cfg.curve)
     x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
     nbr = cfg.nbr
+    if cfg.backend == "xla":
+        rho, p, c = _gather_fields(ss, keys, box, cfg, pipeline, state)
+        return _finish(state, const, order, rho, p, c)
+    density, xmass, ve_def_gradh = OPS[ops]
     ranges = pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
     if int(ranges.occupancy) > nbr.cap:
         from sphexa_torch.simulation import make_propagator_config
@@ -60,7 +67,38 @@ def output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,
     else:
         rho, _, _ = density(x, y, z, h, m, keys, box, const, nbr, ranges=ranges)
         p, c = compute_eos_std(ss.temp, rho, const)
+    return _finish(state, const, order, rho, p, c)
 
+
+def _gather_fields(ss: ParticleState, keys, box: Box, cfg: PropagatorConfig, pipeline: str,
+                   state: ParticleState):
+    """rho, p and c of the sorted state ``ss`` on the gather backend (the
+    JAX package's XLA branch): find_neighbors' lists, then the density (VE:
+    xmass, then grad-h) and the EOS. The run's neighbour config unless
+    the state has outgrown it, when one is sized for ``state``."""
+    const, nbr = cfg.const, cfg.nbr
+    x, y, z, h, m = ss.x, ss.y, ss.z, ss.h, ss.m
+    nidx, nmask, _, occ = find_neighbors(x, y, z, h, keys, box, nbr)
+    if int(occ) > nbr.cap:
+        from sphexa_torch.simulation import make_propagator_config
+
+        nbr = make_propagator_config(state, box, const, ngmax=nbr.ngmax, block=nbr.block,
+                                     curve=cfg.curve, backend="xla").nbr
+        nidx, nmask, _, _ = find_neighbors(x, y, z, h, keys, box, nbr)
+    if pipeline == "ve":
+        xm = hydro_ve.compute_xmass(x, y, z, h, m, nidx, nmask, box, const, nbr.block)
+        kx, gradh = hydro_ve.compute_ve_def_gradh(x, y, z, h, m, xm, nidx, nmask, box, const,
+                                                  nbr.block)
+        _, c, rho, p = compute_eos_ve(ss.temp, m, kx, xm, gradh, const)
+        return rho, p, c
+    rho = hydro_std.compute_density(x, y, z, h, m, nidx, nmask, box, const, nbr.block)
+    p, c = compute_eos_std(ss.temp, rho, const)
+    return rho, p, c
+
+
+def _finish(state: ParticleState, const, order, rho, p, c) -> Dict[str, torch.Tensor]:
+    """The output fields in the state's particle order: the sorted rho, p
+    and c scattered back, u, |v| and r from the state."""
     def unsort(a):
         out = torch.empty_like(a)
         out[order] = a

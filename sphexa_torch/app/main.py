@@ -30,6 +30,7 @@
     python -m sphexa_torch.app.main --init sedov -n 100 -s 5 --profile --trace-dir out/trace \
         --memory-profile out/mem.pickle -o out
     python -m sphexa_torch.app.main --init sedov -n 30 -s 3 --debug-checks
+    python -m sphexa_torch.app.main --init noh -n 14 -s 3 --backend xla --device cpu
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
@@ -120,6 +121,13 @@ dumps its snapshot to PATH at the end (rank 0's). ``--debug-checks``
 checks every step for NaN/Inf outputs by phase and out-of-range kernel
 index tables (slow, every step checked, lists off; one device only) and
 prints the first failure of a step to stderr.
+
+``--backend`` takes the JAX CLI's names: ``pallas`` the pair engine (the
+CUDA kernels on the card, their plain versions on the CPU), ``xla`` the
+gather path (each particle's first ngmax neighbours, the reference's
+truncation, in plain PyTorch on either device; lists off; one device
+only, so ``--devices`` refuses it), ``auto`` (the default) the engine on
+every device, where the JAX CLI's ``auto`` is its gather path off a TPU.
 """
 
 import argparse
@@ -287,6 +295,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="check every step for NaN/Inf outputs by phase and out-of-range "
                         "kernel index tables; the first failed check of a step is "
                         "reported per iteration (slow; single-device)")
+    p.add_argument("--backend", default="auto", choices=("auto", "pallas", "xla"),
+                   help="the force stages' backend: pallas = the pair engine (CUDA kernels), "
+                        "xla = the gather path (each particle's first ngmax neighbours, plain "
+                        "PyTorch; one device only), auto = pallas on every device (unlike "
+                        "the JAX CLI, whose auto is xla off a TPU)")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -352,6 +365,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     nan = float("nan")
     ranks = args.devices if args.devices and args.devices > 1 else None
     rank = 0
+    if ranks is not None and args.backend == "xla":
+        print("--backend xla (the gather path) runs on one device; drop --devices or use "
+              "--backend pallas", file=sys.stderr)
+        return 2
     if ranks is not None:
         import torch.distributed as dist
 
@@ -490,7 +507,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                          halo_mode=args.halo_mode, imbalance_ratio=args.imbalance_ratio,
                          snap_spec=snap_spec, snap_every=snap_every,
                          snap_keep=args.snap_keep, snap_dir=snap_dir,
-                         debug_checks=args.debug_checks)
+                         debug_checks=args.debug_checks, backend=args.backend)
     except (NotImplementedError, ValueError) as e:
         print(str(e), file=sys.stderr)
         if recorder is not None:

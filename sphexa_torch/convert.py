@@ -8,7 +8,8 @@ so that both packages can solve on one tree; ``turbulence_from_numpy``
 and ``chemistry_from_numpy`` build the turb-ve and std-cooling steps' aux
 state (TurbulenceState and TurbulenceConfig, ChemistryData) from the
 JAX package's fields, ``blockdt_from_numpy`` / ``blockdt_to_numpy`` the
-block time steps' BlockDtState. None imports the JAX package: the caller
+block time steps' BlockDtState, ``neighbor_config_from_dict`` the
+neighbour search's config. None imports the JAX package: the caller
 flattens its objects into dicts.
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
+from sphexa_torch.neighbors.cell_list import NeighborConfig
 from sphexa_torch.physics.cooling import CHEM_FIELDS, ChemistryData
 from sphexa_torch.sfc.box import BoundaryType, Box
 from sphexa_torch.sph.blockdt import BlockDtState
@@ -87,6 +89,21 @@ def chemistry_from_numpy(fields: Dict, device) -> ChemistryData:
     """``fields``: every ChemistryData field name -> (n,) numpy array."""
     return ChemistryData(**{k: torch.as_tensor(np.asarray(fields[k], np.float32).copy(),
                                                device=device) for k in CHEM_FIELDS})
+
+
+def neighbor_config_from_dict(cfg: Dict) -> NeighborConfig:
+    """The port's NeighborConfig from the JAX package's (its fields as a
+    dict, ``dataclasses.asdict``): level, cap, ngmax, block, curve, group
+    and window as they are, so that a search runs on the JAX config's
+    exact grid; its engine-only fields (chunk_pair) dropped, and a
+    run_cap of 0 (merging off, which the port's engine never runs) with
+    its gap replaced by the port's defaults."""
+    names = {f.name for f in dataclasses.fields(NeighborConfig)}
+    kw = {k: v for k, v in cfg.items() if k in names}
+    if kw.get("run_cap", 1) <= 0:
+        kw.pop("run_cap")
+        kw.pop("gap", None)
+    return NeighborConfig(**kw)
 
 
 #: BlockDtState field -> its numpy dtype (the JAX package's)

@@ -208,7 +208,7 @@ def _k_space_correction(dr, mass, q, L, cfg: EwaldConfig):
 def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                           meta: GravityTreeMeta, cfg: GravityConfig, ecfg: EwaldConfig,
                           multipoles=None, timer: Optional[Callable[[str], None]] = None,
-                          shard=None,
+                          shard=None, gather_p2p: bool = False,
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                      Dict[str, torch.Tensor]]:
     """Periodic-box gravity: the replica near field plus the Ewald
@@ -228,7 +228,9 @@ def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTre
     the shifted slabs' needs, ``parallel.sizing.device_gravity_halo``),
     and the corrections are row-local (the root expansion is replicated).
     The diagnostics then also fold ``halo_rows`` and ``halo_occ`` (sparse)
-    by max over the passes; egrav and the diagnostics are this rank's."""
+    by max over the passes; egrav and the diagnostics are this rank's.
+    ``gather_p2p``: every pass's near field the gather backend's
+    (``compute_gravity``'s)."""
     if cfg.multipole_order > 0:
         raise NotImplementedError(
             "spherical multipoles are open-boundary only; the Ewald path keeps the "
@@ -256,7 +258,8 @@ def compute_gravity_ewald(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTre
     for shell, shift in zip(shells, shifts):
         dax, day, daz, dphi, d = compute_gravity(
             x, y, z, m, h, sorted_keys, box, tree, meta, cfg1, multipoles=multipoles,
-            timer=timer, shift=shift, allow_self=bool(shell.any()), with_phi=True, shard=shard)
+            timer=timer, shift=shift, allow_self=bool(shell.any()), with_phi=True, shard=shard,
+            gather_p2p=gather_p2p)
         ax, ay, az, phi = ax + dax, ay + day, az + daz, phi + dphi
         diag = {k: torch.maximum(diag[k], d[k].to(diag[k].dtype)) for k in diag}
 

@@ -95,16 +95,17 @@ def m2p(tx, ty, tz, com, q, mass, mask):
 def p2p(tx, ty, tz, th, sx, sy, sz, sm, sh, mask):
     """Near-field particle-particle interaction with SPH-compatible
     softening (kernel.hpp:515): inside h_i + h_j the distance is clamped
-    to it. Targets (B,), sources (S,), ``mask`` (B, S); returns (ax, ay,
-    az, phi), each (B,)."""
-    dx = sx[None, :] - tx[:, None]  # source minus target
-    dy = sy[None, :] - ty[:, None]
-    dz = sz[None, :] - tz[:, None]
+    to it. Targets (..., B), sources (..., S) with the same leading dims
+    (none, or a batch of blocks), ``mask`` (..., B, S); returns (ax, ay,
+    az, phi), each (..., B)."""
+    dx = sx[..., None, :] - tx[..., :, None]  # source minus target
+    dy = sy[..., None, :] - ty[..., :, None]
+    dz = sz[..., None, :] - tz[..., :, None]
     r2 = dx * dx + dy * dy + dz * dz
-    h_ij = th[:, None] + sh[None, :]
+    h_ij = th[..., :, None] + sh[..., None, :]
     r2_eff = torch.maximum(r2, h_ij * h_ij)
     inv_r = torch.where(mask, torch.rsqrt(torch.clamp_min(r2_eff, 1e-30)), 0.0)
-    inv_r3m = sm[None, :] * inv_r * inv_r * inv_r
+    inv_r3m = sm[..., None, :] * inv_r * inv_r * inv_r
     phi = -inv_r3m * r2
-    return ((dx * inv_r3m).sum(dim=1), (dy * inv_r3m).sum(dim=1),
-            (dz * inv_r3m).sum(dim=1), phi.sum(dim=1))
+    return ((dx * inv_r3m).sum(dim=-1), (dy * inv_r3m).sum(dim=-1),
+            (dz * inv_r3m).sum(dim=-1), phi.sum(dim=-1))

@@ -76,8 +76,8 @@ SPHERICAL_CHUNK_DIVISOR = 2
 @dataclasses.dataclass(frozen=True)
 class GravityConfig:
     """Static gravity-solver configuration (the JAX GravityConfig's fields
-    that the port reads; the near field always runs the kernel path, the
-    JAX package's use_pallas=True)."""
+    that the port reads; the near field is ``compute_gravity``'s
+    ``gather_p2p`` argument, the JAX package's use_pallas)."""
 
     theta: float = THETA  # opening angle of the MAC
     target_block: int = 64  # particles per MAC target group
@@ -100,14 +100,15 @@ class GravityConfig:
     let_cap: int = 0
 
 
-def gravity_tuning(n: int) -> dict:
-    """Scale-dependent solver shape, as the JAX package's gravity_tuning
-    with its engine near field: coarser blocks and the two-level bitmask
-    compaction from 500k particles."""
+def gravity_tuning(n: int, use_pallas: bool = True) -> dict:
+    """Scale-dependent solver shape, as the JAX package's gravity_tuning:
+    coarser blocks from 500k particles, and there, with the engine near
+    field (``use_pallas``), the two-level bitmask compaction (K13); the
+    gather backend keeps the one-level sort compaction at every N."""
     big = n >= 500_000
     return {"target_block": 256 if big else 64,
-            "super_factor": 8 if big else 0,
-            "compaction": "bitmask" if big else "sort"}
+            "super_factor": 8 if (big and use_pallas) else 0,
+            "compaction": "bitmask" if (big and use_pallas) else "sort"}
 
 
 def _slab_blocks(x, y, z, blk: int, mesh=None):
@@ -893,6 +894,35 @@ def _pallas_p2p_plain(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig
     return tuple(outs)
 
 
+@named_phase("gravity-p2p")
+def _p2p_xla(tx, ty, tz, th, bi, start, length, x, y, z, m, h, allow_self: bool,
+             cfg: GravityConfig):
+    """The gather backend's near field (the JAX package's ``_p2p_xla``):
+    each block's candidates are the rows of its near-field leaves, up to
+    ``leaf_cap`` a leaf (``start``/``length`` (NB, p2p_cap), empty slots
+    length 0), and every target pairs with every candidate but its own
+    row (in a shifted pass, ``allow_self``, with that too) through
+    ``multipole.p2p``. Targets ``tx``, ``ty``, ``tz`` (shifted), ``th``
+    and their rows ``bi`` are (NB, blk). Plain PyTorch on either device,
+    in chunks of blocks whose (blocks, blk, candidates) temporaries stay a
+    few GB. Returns (ax, ay, az, phi), (NB, blk) each."""
+    n, dev = x.shape[0], x.device
+    nb, blk = tx.shape
+    width = start.shape[1] * cfg.leaf_cap
+    chunk = max(1, CHUNK_ELEMS[dev.type] // (blk * width))
+    slots = torch.arange(cfg.leaf_cap, device=dev)
+    outs = []
+    for b0 in range(0, nb, chunk):
+        sl = slice(b0, min(b0 + chunk, nb))
+        cand = start[sl].to(torch.int64)[..., None] + slots  # (C, P, leaf_cap)
+        ok = (cand < (start[sl] + length[sl])[..., None]).reshape(cand.shape[0], width)
+        cand = cand.clamp(0, n - 1).reshape(ok.shape)
+        pair_ok = ok[:, None, :] & ((cand[:, None, :] != bi[sl][..., None]) | bool(allow_self))
+        outs.append(mp.p2p(tx[sl], ty[sl], tz[sl], th[sl], x[cand], y[cand], z[cand], m[cand],
+                           h[cand], pair_ok))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 @named_phase("gravity-mac")
 def classify(x, y, z, box: Box, tree: GravityTree, meta: GravityTreeMeta,
              cfg: GravityConfig, node_mass, node_com, keep_packed: bool = False,
@@ -1006,6 +1036,7 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                     meta: GravityTreeMeta, cfg: GravityConfig, multipoles=None,
                     timer: Optional[Callable[[str], None]] = None, shift=None,
                     allow_self: bool = False, with_phi: bool = False, shard=None,
+                    gather_p2p: bool = False,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """Gravitational acceleration of every (SFC-sorted) particle and the
@@ -1036,7 +1067,11 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     the diagnostics; an int the windowed serve's window, the slab for
     whole slabs); K12 runs in its jdata form. Ranges that escape the
     served rows set ``p2p_max`` to the cap + 1 sentinel. egrav and the
-    diagnostics are this rank's (the caller reduces them)."""
+    diagnostics are this rank's (the caller reduces them).
+
+    ``gather_p2p``: the gather backend's near field (``_p2p_xla``, plain
+    PyTorch on either device, no kernel; the JAX package's
+    use_pallas=False), one device only; else K12 (``_pallas_p2p``)."""
     mark = timer or (lambda _name: None)
     n = x.shape[0]
     dev = x.device
@@ -1044,6 +1079,8 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     order = cfg.multipole_order
     if shard is not None and multipoles is None:
         raise ValueError("a sharded solve needs the multipoles of compute_multipoles_sharded")
+    if shard is not None and gather_p2p:
+        raise ValueError("a sharded solve needs the engine near field (gather_p2p=False)")
     if multipoles is None:
         multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta, order=order)
     node_mass, node_com, node_q, edges = multipoles
@@ -1067,13 +1104,19 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
         start, length, jd, escaped, hmetrics = _near_field_halo(shard, x, y, z, m, h, edges,
                                                                 start, length, lead)
         mark("serve")
-    pax, pay, paz, pphi = _pallas_p2p(*_lead_rows((x, y, z, m, h), lead), shift, allow_self,
-                                      cfg, start, length,
-                                      **({} if jd is None else {"jdata": jd}))
+    if not gather_p2p:
+        pax, pay, paz, pphi = _pallas_p2p(*_lead_rows((x, y, z, m, h), lead), shift, allow_self,
+                                          cfg, start, length,
+                                          **({} if jd is None else {"jdata": jd}))
+    else:
+        bi = _block_rows(n, cfg.target_block, device=dev)
+        pax, pay, paz, pphi = (a.reshape(-1) for a in _p2p_xla(
+            lists["tx"], lists["ty"], lists["tz"], h[bi], bi, start, length, x, y, z, m, h,
+            allow_self, cfg))
     mark("p2p")
 
     def total(far, near):
-        return (far.reshape(-1)[lead:lead + n] + near[lead:]) * cfg.G
+        return (far.reshape(-1)[lead:lead + n] + near[lead:lead + n]) * cfg.G
 
     ax, ay, az, phi = total(ax, pax), total(ay, pay), total(az, paz), total(phi, pphi)
     m2p_n, p2p_n = lists["m2p_n"], lists["p2p_n"]

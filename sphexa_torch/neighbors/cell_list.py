@@ -1,23 +1,43 @@
-"""Static cell-grid configuration of the neighbour search
-(sphexa_tpu/neighbors/cell_list.py, the parts the pair engine reads; the
-XLA gather path ``find_neighbors`` is not ported)."""
+"""Cell-grid configuration of the neighbour search and the gather
+backend's neighbour lists (sphexa_tpu/neighbors/cell_list.py).
+
+``find_neighbors`` is the JAX package's XLA search: particles arrive
+sorted by SFC key; a uniform grid at octree level ``level`` is implied by
+the keys; targets are processed in groups of ``group`` SFC-consecutive
+particles, each gathering one shared candidate set from its
+``window^3`` block of cells (``_window_offsets`` order, each cell's
+particles in key order up to ``cap``); the hits ``|r_ij| < 2 h_i`` are
+kept in that candidate order up to ``ngmax`` (the reference's
+first-found truncation, findneighbors.hpp:96-172: no distance sort).
+Every output equals the JAX function's bit for bit, on either device.
+"""
 
 import dataclasses
 import functools
+from typing import Tuple
 
 import numpy as np
+import torch
 
 from sphexa_torch.dtypes import KEY_BITS
+from sphexa_torch.sfc.box import Box, apply_pbc_xyz
+from sphexa_torch.sfc.hilbert import hilbert_encode
+from sphexa_torch.sfc.morton import morton_encode
+from sphexa_torch.util.blocking import device_block
+from sphexa_torch.util.phases import named_phase
 
 
 @dataclasses.dataclass(frozen=True)
 class NeighborConfig:
     """Static configuration of the neighbour search: the fields of the JAX
-    package's NeighborConfig that the pair engine reads, with their names
-    and meaning. Runs are always merged (``run_cap > 0``)."""
+    package's NeighborConfig, with their names and meaning. The engine
+    always merges runs (``run_cap > 0``); ``ngmax`` and ``block`` are the
+    gather backend's (the engine sums every pair within 2h)."""
 
     level: int  # octree level of the cell grid
     cap: int  # max particles counted per cell
+    ngmax: int = 150  # gather backend: neighbours kept per particle
+    block: int = 2048  # gather backend: rows per processing chunk
     curve: str = "hilbert"
     group: int = 64  # targets per group
     window: int = 4  # cells per dimension of the group candidate block
@@ -50,8 +70,186 @@ def window_cells(ext: float, radius: float, edge: float, ncell: int,
     return min(int(np.ceil((ext + radius) / edge)) + 1 + margin_cells, ncell)
 
 
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def estimate_cell_cap(keys, level: int, margin: float = 1.3, quantum: int = 8) -> int:
+    """Max level-``level`` cell occupancy of ``keys`` (a tensor or an
+    array), padded with slack."""
+    shift = 3 * (KEY_BITS - level)
+    cells = _host(keys).astype(np.uint64) >> np.uint64(shift)
+    occ = int(np.bincount(cells.astype(np.int64)).max()) if len(cells) else 1
+    return pad_cap(occ, margin, quantum)
+
+
+def estimate_group_window(x, y, z, h, box_lengths, level: int, group: int,
+                          margin_cells: int = 1) -> int:
+    """Cells per dimension needed to cover any group's search extent:
+    per dimension ceil((max group extent + 2 * 2 h_max) / edge) + 1 (+
+    the margin), clamped to the grid; the runtime guard is the
+    occupancy's cap + 1."""
+    ncell = 1 << level
+    edges = _host(box_lengths).astype(np.float64) / ncell
+    n = len(_host(x))
+    ng = -(-n // group)
+    pad = ng * group - n
+    radius = 2.0 * 2.0 * float(np.max(_host(h)))
+    need = 1
+    for a, edge in zip((x, y, z), edges):
+        a = _host(a)
+        if pad:
+            a = np.concatenate([a, np.repeat(a[-1], pad)])
+        g = a.reshape(ng, group)
+        ext = float((g.max(axis=1) - g.min(axis=1)).max())
+        need = max(need, window_cells(ext, radius, edge, ncell, margin_cells))
+    return need
+
+
 @functools.lru_cache(maxsize=None)
 def _window_offsets(window: int) -> np.ndarray:
     """(window^3, 3) int32 offsets of the group candidate cell block."""
     r = np.arange(window, dtype=np.int32)
     return np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_offsets_on(window: int, device: torch.device) -> torch.Tensor:
+    """The window's cell offsets on the device, copied there once (a copy
+    in every step would sync the stream); shared read-only."""
+    return torch.as_tensor(_window_offsets(window), device=device)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as XLA's CPU code contracts it (the
+    product is exact in float64; the sum's float64 rounding is a second
+    rounding only on a float32 tie, about 2^-29 of the time)."""
+    f64 = torch.float64
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
+
+
+def _group_windows(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig):
+    """Every group's window^3 cells: the group's rows (NG, g), each
+    cell's sorted-array range [start, end) and existence (NG, W3), and the
+    group's densest cell over all W^3 (before any cull) and window
+    verdict (NG,)."""
+    n, dev = x.shape[0], x.device
+    g, level = cfg.group, cfg.level
+    shift = 3 * (KEY_BITS - level)
+    ncell = 1 << level
+    encode = hilbert_encode if cfg.curve == "hilbert" else morton_encode
+    edge = box.lengths / ncell
+    periodic = box.periodic_mask
+    ng = -(-n // g)
+    rows = torch.arange(ng * g, device=dev).clamp_max(n - 1).reshape(ng, g)
+    gx, gy, gz, gh = (a[rows] for a in (x, y, z, h))
+    lo = torch.stack([gx.amin(1), gy.amin(1), gz.amin(1)], dim=1)  # (NG, 3)
+    hi = torch.stack([gx.amax(1), gy.amax(1), gz.amax(1)], dim=1)
+    radius = 2.0 * gh.amax(1)
+    base = torch.floor((lo - radius[:, None] - box.lo) / edge).to(torch.int64)
+    need = torch.floor((hi + radius[:, None] - box.lo) / edge).to(torch.int64)
+    # open dims: the window slides inside the grid; one spanning the
+    # whole grid always covers
+    base = torch.where(periodic, base, base.clamp(0, max(0, ncell - cfg.window)))
+    need_eff = torch.where(periodic, need, need.clamp(max=ncell - 1))
+    window_ok = ((need_eff - base + 1 <= cfg.window) | (cfg.window >= ncell)).all(dim=1)
+
+    offsets = _window_offsets_on(cfg.window, dev)  # (W3, 3)
+    cells = base[:, None, :] + offsets  # (NG, W3, 3)
+    in_range = (cells >= 0) & (cells < ncell)
+    # periodic dims wrap but must not alias (offsets past the grid revisit
+    # the same cells: dropped); open dims clip and exclude
+    cell_ok = torch.where(periodic, offsets < ncell, in_range).all(dim=-1)
+    cells = torch.where(periodic, torch.remainder(cells, ncell), cells.clamp(0, ncell - 1))
+    ckey = encode(cells[..., 0], cells[..., 1], cells[..., 2], bits=level)
+    start = torch.searchsorted(sorted_keys, ckey << shift)
+    end = torch.searchsorted(sorted_keys, (ckey + 1) << shift)
+    return rows, start, end, cell_ok, (end - start).amax(1), window_ok
+
+
+#: bytes of temporaries per (target, candidate) element of a chunk at its
+#: peak (the float64 squared distance's operands beside three float32
+#: displacements)
+_PAIR_BYTES = 64
+
+
+@named_phase("neighbors")
+def find_neighbors(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Neighbour lists of every particle (the JAX package's
+    find_neighbors). Arguments are the SFC-sorted particle arrays and
+    their keys. Returns:
+
+    - ``nidx`` (N, ngmax) int32: neighbour indices in candidate order;
+      invalid slots hold the particle's own index (safe to gather, must be
+      masked);
+    - ``nmask`` (N, ngmax) bool: validity of each slot;
+    - ``nc`` (N,) int32: the true neighbour count within 2h (self
+      excluded; may exceed ngmax);
+    - ``occupancy`` () int32: the densest cell seen, or cap + 1 if some
+      group's search extent outgrew the window block; above ``cfg.cap``
+      the config must be re-sized and the search re-run.
+
+    Each group's candidates are its valid slots only (a cell's first
+    ``min(len, cap)`` rows, existing cells), kept in candidate order: the
+    invalid slots of the JAX function never hit, so the k-th hit, the
+    truncation and every output are the same. Groups are processed in
+    chunks of at most ``cfg.block`` targets' worth of W^3 cap candidates
+    (on the card as many as a share of the free memory holds); the
+    chunking changes no result. The distance test rounds as XLA's CPU code
+    does (its FMA contraction of the squared distance), so that the hits,
+    and therefore the truncation, are the JAX function's."""
+    n, dev = x.shape[0], x.device
+    g, cap, ngmax = cfg.group, cfg.cap, cfg.ngmax
+    rows, start, end, cell_ok, occ, window_ok = _group_windows(x, y, z, h, sorted_keys, box,
+                                                               cfg)
+    ng, w3 = start.shape
+    lens = torch.where(cell_ok, (end - start).clamp(max=cap), 0)  # (NG, W3)
+    cum = torch.cumsum(lens, dim=1)  # inclusive
+    totals = cum[:, -1].tolist()  # the one host read: each group's candidates
+    # (target, candidate) elements a chunk may hold: cfg.block targets of
+    # W^3 cap candidates each, as the JAX function's chunks
+    budget = w3 * cap * device_block(cfg.block, w3 * cap * _PAIR_BYTES, dev)
+    ks = torch.arange(1, ngmax + 1, dtype=torch.int32, device=dev)
+    nidx, nmask, nc = [], [], []
+    c0 = 0
+    while c0 < ng:
+        # grow the chunk while its padded (C, g, T) tile fits the budget
+        c1, tmax = c0 + 1, max(totals[c0], 1)
+        while c1 < ng and (c1 + 1 - c0) * g * max(tmax, totals[c1]) <= budget:
+            tmax = max(tmax, totals[c1])
+            c1 += 1
+        sl = slice(c0, c1)
+        c0 = c1
+        idx = rows[sl]  # (C, g)
+        # slot p of a group: cell w with cum[w - 1] <= p < cum[w], row
+        # start[w] + p - cum[w - 1]
+        p = torch.arange(tmax, device=dev).expand(idx.shape[0], tmax)
+        w = torch.searchsorted(cum[sl], p.contiguous(), right=True).clamp_max(w3 - 1)
+        cand = start[sl].gather(1, w) + p - (cum[sl] - lens[sl]).gather(1, w)
+        cand_ok = p < cum[sl][:, -1:]
+        cand = cand.clamp(0, n - 1)
+        dx, dy, dz = apply_pbc_xyz(box, x[idx][:, :, None] - x[cand][:, None, :],
+                                   y[idx][:, :, None] - y[cand][:, None, :],
+                                   z[idx][:, :, None] - z[cand][:, None, :])
+        d2 = _fma(dz, dz, _fma(dx, dx, dy * dy))  # (C, g, T)
+        del dx, dy, dz
+        gh = h[idx]
+        r2 = (2.0 * gh) * (2.0 * gh)
+        hit = cand_ok[:, None, :] & (d2 < r2[..., None]) & (cand[:, None, :] != idx[..., None])
+        del d2
+        # the k-th neighbour is the first slot where the inclusive hit count
+        # reaches k (a batched binary search, no scatter)
+        csum = torch.cumsum(hit, dim=-1, dtype=torch.int32).reshape(-1, tmax)
+        del hit
+        cnt = csum[:, -1].clone()  # a view would keep the chunk's csum alive
+        slot = torch.searchsorted(csum, ks.expand(csum.shape[0], ngmax).contiguous())
+        del csum
+        m = ks <= cnt[:, None]
+        found = cand.gather(1, slot.clamp_max(tmax - 1).reshape(idx.shape[0], -1))
+        nidx.append(torch.where(m, found.reshape(-1, ngmax), idx.reshape(-1, 1))
+                    .to(torch.int32))
+        nmask.append(m)
+        nc.append(cnt)
+    occupancy = torch.where(window_ok.all(), occ.amax(), cap + 1).to(torch.int32)
+    return (torch.cat(nidx)[:n], torch.cat(nmask)[:n], torch.cat(nc)[:n], occupancy)

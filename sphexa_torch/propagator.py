@@ -31,6 +31,16 @@ one-row form lists; their BlockDtState rides the sort as the aux. PyTorch
 runs the steps eagerly; the pair ops launch the CUDA kernels on the card
 and their plain versions on the CPU.
 
+The gather backend (``cfg.backend`` "xla", the JAX package's XLA path)
+replaces the pair stage of the std and VE force stages (and so of
+turb-ve, std-cooling and the block time steps): ``find_neighbors`` keeps
+each row's first ``nbr.ngmax`` neighbours in candidate order, and the
+masked j-reductions of sph/hydro_std.py and sph/hydro_ve.py run over
+those lists in plain PyTorch on either device; the gravity near field is
+``traversal._p2p_xla`` (``compute_gravity``'s ``gather_p2p``) and the block
+time steps list their due rows without K13. No kernel launches. It runs
+on one device only.
+
 Under a mesh (``cfg.mesh``, parallel/mesh.py ``make_sharded_step``;
 every step function) the state is this rank's slab: the box
 regrow reduces the extrema over the ranks, the sort is the distributed
@@ -60,7 +70,7 @@ import torch
 from sphexa_torch.gravity.ewald import EwaldConfig, compute_gravity_ewald
 from sphexa_torch.gravity.traversal import GravityConfig, compute_gravity
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta
-from sphexa_torch.neighbors.cell_list import NeighborConfig
+from sphexa_torch.neighbors.cell_list import NeighborConfig, find_neighbors
 from sphexa_torch.observables.ledger import ObservableSpec, ledger_diagnostics
 from sphexa_torch.observables.snapshot import SnapshotSpec
 from sphexa_torch.observables import snapshot as snap
@@ -70,6 +80,7 @@ from sphexa_torch.sfc.keys import compute_sfc_keys
 from sphexa_torch.sph import blockdt as bdt
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.sph.pair_lists import PairLists, build_pair_lists, list_slack
+from sphexa_torch.sph import hydro_std, hydro_ve
 from sphexa_torch.sph.hydro_std import compute_eos_std
 from sphexa_torch.sph.hydro_turb import TurbulenceConfig, drive_turbulence
 from sphexa_torch.sph.hydro_ve import compute_eos_ve
@@ -103,15 +114,25 @@ GRAV_SHARD_DIAG_KEYS = ("gshard_rows", "gshard_occ")
 _MESH_MIN_KEYS = ("du_cool_min",)
 
 
+#: the force stages' backends: "pallas" the fused search+op kernels (the
+#: pair engine; CUDA kernels on the card, their plain versions on the
+#: CPU), "xla" the gather path (find_neighbors' (N, ngmax) lists and the
+#: masked j-reductions of sph/hydro_std.py and sph/hydro_ve.py, plain
+#: PyTorch on either device; no kernel launches)
+BACKENDS = ("pallas", "xla")
+
+
 @dataclasses.dataclass(frozen=True)
 class PropagatorConfig:
     """Static per-run configuration: physics constants and the neighbour
-    search (the fields of the JAX PropagatorConfig this slice reads; the
-    backend is always the fused search+op kernels)."""
+    search (the fields of the JAX PropagatorConfig this slice reads)."""
 
     const: SimConstants
     nbr: NeighborConfig
     curve: str = "hilbert"
+    # the force stages' backend (BACKENDS); "xla" keeps the first
+    # nbr.ngmax neighbours of each row, "pallas" sums every pair within 2h
+    backend: str = "pallas"
     # persistent-list mode: > 0 enables it with this per-group slot budget
     list_slot_cap: int = 0
     # Verlet skin as a fraction of the 2 h_max search radius
@@ -402,10 +423,11 @@ def _add_gravity(state: ParticleState, box: Box, keys, cfg: PropagatorConfig,
         return _gravity_sharded_stage(state, box, keys, cfg, gtree, ax, ay, az)
     gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
     args = (state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
+    gather = cfg.backend == "xla"
     if cfg.ewald is not None:
-        gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald)
+        gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald, gather_p2p=gather)
     else:
-        gx, gy, gz, egrav, gdiag = compute_gravity(*args)
+        gx, gy, gz, egrav, gdiag = compute_gravity(*args, gather_p2p=gather)
     check_finite("gravity-p2p", gx=gx, gy=gy, gz=gz, egrav=egrav)
     ax, ay, az = ax + gx, ay + gy, az + gz
     with phase_scope("timestep"):
@@ -431,7 +453,9 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     -> momentum/energy [-> gravity]; with ``lists`` every pair op walks
     the lists' marked lanes, and the density walk keeps its mask for the
     later walks (``pair_engine.engine_lists_kernel``'s mask modes: the
-    positions and smoothing lengths are the same). ``aux``: per-particle
+    positions and smoothing lengths are the same); on the gather backend
+    (``cfg.backend`` "xla") the four stages run over find_neighbors' lists
+    (``_std_gather``). ``aux``: per-particle
     fields sorted with the state (the cooling step's chemistry); ``keys``:
     the state is sorted already (``_force_stage_prologue``). Returns
     (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c,
@@ -445,6 +469,12 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
         ax, ay, az, extra_dts, sdiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                      sdiag)
         return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, sdiag,
+                *(rest or [None]))
+    if cfg.backend == "xla":
+        rho, c, nc, occ, ax, ay, az, du, dt_courant = _std_gather(state, box, cfg, keys)
+        ax, ay, az, extra_dts, diag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
+                                                    diag)
+        return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, diag,
                 *(rest or [None]))
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     ranges = lists.ranges if lists is not None else \
@@ -468,6 +498,65 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
                                                 diag)
     return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, ranges.occupancy,
             rho, c, diag, *(rest or [None]))
+
+
+def _std_gather(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
+    """The std pair stage on the gather backend (the JAX package's XLA
+    branch of _std_forces): find_neighbors' lists, then density, EOS, IAD
+    and momentum/energy over them. Returns (rho, c, nc, occ, ax, ay, az,
+    du, dt_courant); occ is the search's (the densest of all window
+    cells, or cap + 1 for a blown window)."""
+    const, nbr = cfg.const, cfg.nbr
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    nidx, nmask, nc, occ = find_neighbors(x, y, z, h, keys, box, nbr)
+    rho = hydro_std.compute_density(x, y, z, h, m, nidx, nmask, box, const, nbr.block)
+    check_finite("density", rho=rho)
+    with phase_scope("eos"):
+        p, c = compute_eos_std(state.temp, rho, const)
+    check_finite("eos", p=p, c=c)
+    cs = hydro_std.compute_iad(x, y, z, h, m / rho, nidx, nmask, box, const, nbr.block)
+    check_finite("iad", **dict(zip(("c11", "c12", "c13", "c22", "c23", "c33"), cs)))
+    ax, ay, az, du, dt_courant = hydro_std.compute_momentum_energy_std(
+        x, y, z, state.vx, state.vy, state.vz, h, m, rho, p, c, *cs, nidx, nmask, box, const,
+        nbr.block)
+    check_finite("momentum-energy", ax=ax, ay=ay, az=az, du=du, dt_courant=dt_courant)
+    return rho, c, nc, occ, ax, ay, az, du, dt_courant
+
+
+def _ve_gather(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
+    """The VE pair stage on the gather backend (the JAX package's XLA
+    branch of _ve_forces): find_neighbors' lists, then xmass, grad-h, EOS,
+    IAD, divv/curlv (with gradv under av_clean), the AV switches and
+    momentum/energy over them. Returns (rho, c, nc, occ, ax, ay, az, du,
+    dt_courant, dt_rho, alpha)."""
+    const, nbr = cfg.const, cfg.nbr
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    vx, vy, vz = state.vx, state.vy, state.vz
+    nidx, nmask, nc, occ = find_neighbors(x, y, z, h, keys, box, nbr)
+    lst = (nidx, nmask)
+    xm = hydro_ve.compute_xmass(x, y, z, h, m, *lst, box, const, nbr.block)
+    check_finite("xmass", xm=xm)
+    kx, gradh = hydro_ve.compute_ve_def_gradh(x, y, z, h, m, xm, *lst, box, const, nbr.block)
+    check_finite("gradh", kx=kx, gradh=gradh)
+    with phase_scope("eos"):
+        prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    check_finite("eos", prho=prho, c=c, rho=rho)
+    cs = hydro_std.compute_iad(x, y, z, h, xm / kx, *lst, box, const, nbr.block)
+    check_finite("iad", **dict(zip(("c11", "c12", "c13", "c22", "c23", "c33"), cs)))
+    dvout = hydro_ve.compute_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, *cs, *lst, box,
+                                            const, nbr.block, with_gradv=cfg.av_clean)
+    divv, curlv, gradv = _split_dvout(dvout, cfg.av_clean)
+    check_finite("divv-curlv", divv=divv, curlv=curlv)
+    with phase_scope("timestep"):
+        dt_rho = rho_timestep(divv, const)
+    alpha = hydro_ve.compute_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, state.alpha,
+                                         *cs, *lst, box, state.min_dt, const, nbr.block)
+    check_finite("av-switches", alpha=alpha)
+    ax, ay, az, du, dt_courant = hydro_ve.compute_momentum_energy_ve(
+        x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, *lst, nc, box, const,
+        nbr.block, gradv=gradv)
+    check_finite("momentum-energy", ax=ax, ay=ay, az=az, du=du, dt_courant=dt_courant)
+    return rho, c, nc, occ, ax, ay, az, du, dt_courant, dt_rho, alpha
 
 
 def _halo_stage(cfg: PropagatorConfig, S: int, x, y, z, h, keys, box):
@@ -690,7 +779,7 @@ def _step_diagnostics(cfg: PropagatorConfig, new_state: ParticleState, box: Box,
         diagnostics["nc_mean"] = (nc_sum.to(torch.float64) / n_all).to(torch.float32) + 1.0
     if cfg.obs is not None:
         diagnostics.update(ledger_diagnostics(
-            new_state, rho, nc, const, const.ngmax, spec=cfg.obs,
+            new_state, rho, nc, const, cfg.nbr.ngmax, spec=cfg.obs,
             egrav=(extra_diag or {}).get("egrav"), box=box, c=c,
             smoothing=smoothing, mesh=mesh))
     if grid is not None:
@@ -778,10 +867,12 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     lists', the xmass walk keeping its mask for the five after it) for all
     six ops, then the time step: min of Courant,
     Krho/|max divv|, 1.1x the previous dt [and the acceleration
-    condition]. Returns (state, box, ax, ay, az, du, dt, alpha, nc, occ,
-    rho, c, diagnostics); ``raw_dts`` (the block time steps, which combine
-    them at their sync substep): (dt_courant, dt_rho, extra_dts) in dt's
-    place and no limiter. ``keys``: the state is sorted already."""
+    condition]. On the gather backend (``cfg.backend`` "xla") the six ops
+    run over find_neighbors' lists (``_ve_gather``). Returns (state, box,
+    ax, ay, az, du, dt, alpha, nc, occ, rho, c, diagnostics); ``raw_dts``
+    (the block time steps, which combine them at their sync substep):
+    (dt_courant, dt_rho, extra_dts) in dt's place and no limiter.
+    ``keys``: the state is sorted already."""
     const, nbr = cfg.const, cfg.nbr
     state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists, keys=keys)
     if cfg.mesh is not None:
@@ -798,6 +889,11 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
                 state.min_dt, const, courant=dt_courant, rho=dt_rho,
                 accel=extra_dts[0] if extra_dts else None)}
         return state, box, ax, ay, az, du, dt, alpha, nc, occ, rho, c, diag
+    if cfg.backend == "xla":
+        (rho, c, nc, occ, ax, ay, az, du, dt_courant, dt_rho,
+         alpha) = _ve_gather(state, box, cfg, keys)
+        return _ve_tail(state, box, cfg, gtree, keys, ax, ay, az, du, dt_courant, dt_rho, alpha,
+                        nc, occ, rho, c, ldiag, raw_dts)
     x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
     vx, vy, vz = state.vx, state.vy, state.vz
     ranges = None if lists is not None else pe.group_cell_ranges(x, y, z, h, keys, box, nbr)
@@ -826,7 +922,16 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
         x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha, *cs, keys, box, const, nbr,
         nc=nc, gradv=gradv, **rd)
     check_finite("momentum-energy", ax=ax, ay=ay, az=az, du=du, dt_courant=dt_courant)
+    return _ve_tail(state, box, cfg, gtree, keys, ax, ay, az, du, dt_courant, dt_rho, alpha, nc,
+                    occ, rho, c, ldiag, raw_dts)
 
+
+def _ve_tail(state, box, cfg, gtree, keys, ax, ay, az, du, dt_courant, dt_rho, alpha, nc, occ,
+             rho, c, ldiag, raw_dts):
+    """The VE force stage's one-device tail (either backend): the gravity
+    tail, then the time step and its limiter, or with ``raw_dts`` the raw
+    candidates; ``_ve_forces``' returns."""
+    const = cfg.const
     ax, ay, az, extra_dts, ldiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                  ldiag)
     if raw_dts:
@@ -1030,7 +1135,9 @@ def _blockdt_bins(state: ParticleState, cfg: PropagatorConfig, bst, c, ax, ay, a
     due = bdt.due_mask(bins, bst.substep)
     # an exact power of two: the integer shift, then float32
     dt_eff = dt_min * torch.bitwise_left_shift(torch.ones_like(bins), bins).to(torch.float32)
-    idx_act, n_active = bdt.compact_active(due)
+    # the gather backend lists them in plain PyTorch (no K13), as the JAX
+    # package's use_kernel=False
+    idx_act, n_active = bdt.compact_active(due, use_kernel=cfg.backend == "pallas")
     lane = torch.arange(state.n, dtype=torch.int32, device=due.device)
     # the due rows' neighbours, summed exactly and rounded once to float32
     work = torch.sum(torch.where(lane < n_active, nc[idx_act.long()], 0), dtype=torch.int64)

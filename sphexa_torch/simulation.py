@@ -32,9 +32,9 @@ from sphexa_torch.neighbors.cell_list import (
 )
 from sphexa_torch.physics.cooling import ChemistryData, CoolingConfig
 from sphexa_torch.propagator import (
-    DT_LIMITERS, STEP_AUX_SLOT, PropagatorConfig, _step_hydro_std, _step_hydro_std_blockdt,
-    _step_hydro_std_cooling, _step_hydro_ve, _step_hydro_ve_blockdt, _step_nbody,
-    _step_turb_ve, exchange_fields_per_step, rebuild_pair_lists, step_sim_state,
+    BACKENDS, DT_LIMITERS, STEP_AUX_SLOT, PropagatorConfig, _step_hydro_std,
+    _step_hydro_std_blockdt, _step_hydro_std_cooling, _step_hydro_ve, _step_hydro_ve_blockdt,
+    _step_nbody, _step_turb_ve, exchange_fields_per_step, rebuild_pair_lists, step_sim_state,
 )
 from sphexa_torch.parallel import mesh as pmesh
 from sphexa_torch.parallel.sizing import (
@@ -56,9 +56,22 @@ from sphexa_torch.util.phases import debug_checks as _debug_checks
 #: (observables/snapshot.py SNAP_DIAG_KEYS and the frame's box)
 _ARRAY_KEYS = ("snap_grid", "snap_min", "snap_max", "snap_pts", "snap_lo", "snap_lengths")
 
-#: engine defaults of make_propagator_config (simulation.py:142-143)
-_DEFAULTS = {"cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
+#: defaults of make_propagator_config (simulation.py:142-143)
+_DEFAULTS = {"block": 2048, "cell_target": 128, "run_cap": 1536, "gap": 384, "group": 64,
              "list_skin_rel": 0.2}
+
+
+def resolve_backend(backend: str) -> str:
+    """The force stages' backend from a name the JAX CLI accepts: "pallas"
+    (the pair engine), "xla" (the gather path) or "auto", which is the
+    engine on every device. (The JAX package's "auto" is its gather path
+    wherever it is not on a TPU; the port keeps its engine.)"""
+    if backend == "auto":
+        return "pallas"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choices: auto, {', '.join(BACKENDS)}")
+    return backend
+
 
 #: the propagators' step functions (the JAX package's _PROPAGATORS)
 _STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve, "turb-ve": _step_turb_ve,
@@ -95,6 +108,7 @@ def _group_extents(x, y, z, order: np.ndarray, group: int):
 
 def make_propagator_config(
     state: ParticleState, box: Box, const: SimConstants,
+    ngmax: Optional[int] = None, block: Optional[int] = None,
     curve: str = "hilbert", min_cap: int = 0,
     cell_target: Optional[int] = None,
     run_cap: Optional[int] = None, gap: Optional[int] = None,
@@ -104,24 +118,30 @@ def make_propagator_config(
     list_slot_margin: float = 1.3,
     sizing_cache=None,
     mesh=None,
+    backend: str = "pallas",
 ) -> PropagatorConfig:
     """Size the static neighbour config from the current particles, as the
-    JAX function does for its pallas backend (the other backends are not
-    ported): grid level from h_max and the mean cell occupancy, cap from
-    the densest cell, window from the widest SFC group. The host sizing
-    pass (native C++ in the JAX package) is numpy here: keys, a stable
-    argsort, the densest cell and the group extents.
+    JAX function does: grid level from h_max and the mean cell occupancy,
+    cap from the densest cell, window from the widest SFC group; the
+    sizing is the same on both backends (``resolve_backend``: "pallas",
+    "xla" or "auto"). ``ngmax`` (default ``const.ngmax``) and ``block``
+    (default 2048) are the gather backend's. The host sizing pass (native
+    C++ in the JAX package) is numpy here: keys, a stable argsort, the
+    densest cell and the group extents.
 
     ``use_lists``: size the persistent lists too. The window then also
     covers the skin, (4 h_max + skin) * 1.1; the slot budget comes from
     the sizing pass's own sorted keys. Where the grid is in fold mode
     (before or after the wider window) lists are unavailable: the
-    un-inflated window stays and ``list_slot_cap`` stays 0.
+    un-inflated window stays and ``list_slot_cap`` stays 0. Lists are
+    the engine's: the gather backend never sizes them.
 
     ``mesh``: the state is this rank's slab; h_max, n, the densest cell
     and the widest group are taken over every rank (``sizing_stats``:
     the slabs sorted as the step sorts them, groups within each slab),
     and the lists stay off."""
+    backend = resolve_backend(backend)
+    block = block or _DEFAULTS["block"]
     cell_target = cell_target or _DEFAULTS["cell_target"]
     run_cap = _DEFAULTS["run_cap"] if run_cap is None else run_cap
     gap = _DEFAULTS["gap"] if gap is None else gap
@@ -162,14 +182,15 @@ def make_propagator_config(
         for e, edge in zip(ext, lengths / ncell):
             window = max(window, window_cells(e, radius, float(edge), ncell,
                                               margin_cells=0))
-        return NeighborConfig(level=level, cap=cap, curve=curve, group=group,
-                              window=window, run_cap=run_cap, gap=gap)
+        return NeighborConfig(level=level, cap=cap, ngmax=ngmax or const.ngmax, block=block,
+                              curve=curve, group=group, window=window, run_cap=run_cap,
+                              gap=gap)
 
     # 10% radius slack absorbs drift between reconfigurations
     nbr = make_nbr(4.0 * h_max * 1.1)
     slot_cap = 0
     skin = list_skin_rel * 2.0 * h_max
-    if use_lists and not engine_fold(box, nbr):
+    if use_lists and backend == "pallas" and not engine_fold(box, nbr):
         # in list mode the window must also cover the skin
         nbr = make_nbr((4.0 * h_max + skin) * 1.1)
         if engine_fold(box, nbr):
@@ -181,7 +202,7 @@ def make_propagator_config(
                                      (xa, ya, za, state.h.cpu().numpy(), keys))
             slot_cap = estimate_slot_cap(sx, sy, sz, sh, skeys, box, nbr, skin,
                                          margin=list_slot_margin)
-    return PropagatorConfig(const=const, nbr=nbr, curve=curve,
+    return PropagatorConfig(const=const, nbr=nbr, curve=curve, backend=backend,
                             list_slot_cap=slot_cap, list_skin_rel=list_skin_rel)
 
 
@@ -288,6 +309,18 @@ class Simulation:
     no frame of its discarded steps; its replay writes them. On a mesh
     rank 0 alone writes the frames.
 
+    ``backend``: "pallas" (the pair engine: the CUDA kernels on the card,
+    their plain versions on the CPU), "xla" (the gather path: each row's
+    first ``ngmax`` neighbours, default ``const.ngmax``, in candidate
+    order, the reference's findneighbors.hpp truncation, over row blocks
+    of ``block``; plain PyTorch on either device, no kernel; the gravity
+    near field gathered and the one-level sort compaction at every N;
+    lists off; one device only) or "auto", which is the engine on every
+    device, not the JAX package's CPU default (its gather path). The
+    sizing, the overflow contract (the search's occupancy, the densest of
+    all window cells or cap + 1) and the deferred windows are the same on
+    both.
+
     ``debug_checks``: every step runs under the sanitizer
     (util/phases.py): the first NaN or Inf of a stage's outputs, or the
     first out-of-range run of a kernel's index tables, is the step's
@@ -314,7 +347,17 @@ class Simulation:
                  imbalance_ratio: float = 1.5, grav_window: int = 256,
                  grav_window_margin: float = 1.4, snap_spec=None,
                  snap_every: Optional[int] = None, snap_keep: Optional[int] = None,
-                 snap_dir: Optional[str] = None, debug_checks: bool = False):
+                 snap_dir: Optional[str] = None, debug_checks: bool = False,
+                 backend: str = "auto", ngmax: Optional[int] = None,
+                 block: Optional[int] = None):
+        self.backend = resolve_backend(backend)
+        if self.backend == "xla" and num_devices is not None and num_devices > 1:
+            raise ValueError(
+                "backend 'xla' (the gather path) runs on one device; the JAX package runs it "
+                "across devices as GSPMD, which the port has no counterpart of yet: use "
+                "backend 'pallas' (or 'auto') with num_devices > 1")
+        self.ngmax = ngmax or const.ngmax
+        self.block = block
         if prop not in _STEPS:
             raise ValueError(f"unknown propagator {prop!r}; available: {sorted(_STEPS)}")
         if dt_bins is not None:
@@ -463,7 +506,7 @@ class Simulation:
         # the gravity tree is built from fresh keys, and the block time
         # steps sort on the folded key: both sort every step
         self._want_lists = (use_lists and not self.gravity_on and dt_bins is None
-                            and self.mesh is None)
+                            and self.mesh is None and self.backend == "pallas")
         self._list_skin_rel = list_skin_rel
         self._slot_margin = 1.3
         self._lists = None
@@ -538,11 +581,13 @@ class Simulation:
         if self.prop_name == "nbody":
             # no SPH: the neighbour config is a placeholder the step never
             # reads (its occupancy is 0)
-            cfg = PropagatorConfig(const=self.const, curve=self.curve,
-                                   nbr=NeighborConfig(level=1, cap=1, curve=self.curve))
+            cfg = PropagatorConfig(const=self.const, curve=self.curve, backend=self.backend,
+                                   nbr=NeighborConfig(level=1, cap=1, ngmax=self.ngmax,
+                                                      curve=self.curve))
         else:
             cfg = make_propagator_config(
-                self.state, self.box, self.const, curve=self.curve,
+                self.state, self.box, self.const, ngmax=self.ngmax, block=self.block,
+                backend=self.backend, curve=self.curve,
                 min_cap=min_cap, cell_target=self.cell_target,
                 use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
                 list_slot_margin=self._slot_margin, sizing_cache=sizing_cache,
@@ -633,7 +678,8 @@ class Simulation:
         gcfg = estimate_gravity_caps(
             xs, ys, zs, ms, keys[order], self.box, gtree, meta,
             GravityConfig(theta=self.theta, G=self.const.g,
-                          m2p_cap_margin=self.m2p_cap_margin, **gravity_tuning(s.n)),
+                          m2p_cap_margin=self.m2p_cap_margin,
+                          **gravity_tuning(s.n, self.backend == "pallas")),
             margin=margin)
         self._gtree = gtree
         self._cfg = dataclasses.replace(self._cfg, gravity=gcfg, grav_meta=meta,

@@ -21,7 +21,8 @@ stably, the same order.
 
 ``compact_active`` is the list of due rows: K13's one-row form
 (gravity/pallas_compact.py ``compact_row``), on the card its kernel, on
-the CPU its plain version.
+the CPU its plain version; the gather backend takes the plain version on
+either device.
 """
 
 import dataclasses
@@ -29,7 +30,7 @@ import dataclasses
 import torch
 
 from sphexa_torch.dtypes import HYDRO_DTYPE, INDEX_DTYPE, KEY_BITS
-from sphexa_torch.gravity.pallas_compact import compact_row
+from sphexa_torch.gravity.pallas_compact import compact_row, compact_row_plain
 
 #: secondary-key bits below the 3 KEY_BITS spatial key in one 32-bit sort
 #: key (the spatial key takes 30 bits, leaving 2)
@@ -116,11 +117,13 @@ def fold_bin_key(keys, bins) -> torch.Tensor:
     return torch.bitwise_or(torch.bitwise_left_shift(keys, FOLD_BITS), b)
 
 
-def compact_active(due) -> tuple:
+def compact_active(due, use_kernel: bool = True) -> tuple:
     """The due rows first, in row order, and their count: K13's one-row
     form (the JAX package runs K13 over one (1, n) row, class 0 the due
-    rows, cap0 = n). Returns (idx (n,) int32, zero past the count;
-    n_active () int32). The JAX package's XLA path and its path past
-    2**24 rows put the inactive rows past the count instead of zeros; no
-    caller reads past it."""
-    return compact_row(due)
+    rows, cap0 = n); without ``use_kernel`` (the gather backend, the JAX
+    package's use_kernel=False) its plain version on either device, no
+    launch. Returns (idx (n,) int32, zero past the count; n_active ()
+    int32). The JAX package's XLA path and its path past 2**24 rows put
+    the inactive rows past the count instead of zeros; no caller reads
+    past it."""
+    return compact_row(due) if use_kernel else compact_row_plain(due)

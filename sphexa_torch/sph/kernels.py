@@ -1,5 +1,7 @@
-"""Smoothing kernel fit and the smoothing-length update
-(sphexa_tpu/sph/kernels.py, the parts the std and VE pipelines read).
+"""Smoothing kernel fit, the gather ops' per-pair closed forms (W,
+dterh, the artificial viscosity, the Courant dt) and the smoothing-length
+update (sphexa_tpu/sph/kernels.py, the parts the std and VE pipelines
+read).
 
 W is a degree-13 polynomial in s = v^2/2 - 1 fitted with the same numpy
 Chebyshev fit as the JAX package, so the 14 coefficients are identical;
@@ -83,6 +85,28 @@ def dterh_poly_eval(u: torch.Tensor, coeffs) -> torch.Tensor:
     for c in coeffs[-2::-1]:
         acc = acc * s + c
     return acc
+
+
+def sinc_kernel_u(u: torch.Tensor, n: float = 6.0, kind: str = "sinc") -> torch.Tensor:
+    """W from the squared normalized distance u = (d/h)^2."""
+    return sinc_poly_eval(u, kernel_poly_coeffs(float(n), kind))
+
+
+def sinc_dterh_u(u: torch.Tensor, n: float = 6.0, kind: str = "sinc") -> torch.Tensor:
+    """dterh = -(3 W + v dW/dv) from the squared normalized distance."""
+    return dterh_poly_eval(u, kernel_dterh_coeffs(float(n), kind))
+
+
+def artificial_viscosity(alpha_i, alpha_j, c_i, c_j, w_ij, beta: float = 2.0):
+    """Monaghan signal-velocity artificial viscosity (kernels.hpp:60-84):
+    only approaching pairs (w_ij < 0) dissipate."""
+    v_signal = 0.25 * (alpha_i + alpha_j) * (c_i + c_j) - beta * w_ij
+    return torch.where(w_ij < 0.0, -v_signal * w_ij, 0.0)
+
+
+def ts_k_courant(maxvsignal, h, c, k_cour):
+    """Courant time step from the max signal velocity (kernels.hpp:9-16)."""
+    return k_cour * h / torch.where(maxvsignal > 0.0, maxvsignal, c)
 
 
 def kernel_norm_3d(n: float = 6.0, kind: str = "sinc",

@@ -56,7 +56,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from sphexa_torch.dtypes import KEY_BITS
-from sphexa_torch.neighbors.cell_list import NeighborConfig, _window_offsets
+from sphexa_torch.neighbors.cell_list import NeighborConfig, _window_offsets_on
 from sphexa_torch.sfc.box import BoundaryType, Box
 from sphexa_torch.sfc.hilbert import hilbert_encode
 from sphexa_torch.sfc.morton import morton_encode
@@ -238,13 +238,6 @@ def window_cells_culled(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
         shifts = img * lengths
 
     return start, lens, keep, shifts, raw_len, window_ok
-
-
-@functools.lru_cache(maxsize=None)
-def _window_offsets_on(window: int, device: torch.device) -> torch.Tensor:
-    """The window's cell offsets on the device, copied there once (a copy
-    in every step would sync the stream); shared read-only."""
-    return torch.as_tensor(_window_offsets(window), device=device)
 
 
 def _merge_runs(start, lens, keep, shifts, run_cap: int, gap: int):
@@ -1372,6 +1365,16 @@ def av_switches_fields(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
 _THIRD_F32 = float(torch.tensor(1.0 / 3.0, dtype=torch.float32))
 
 
+def eta_crit(nc: torch.Tensor) -> torch.Tensor:
+    """av_clean's eta_crit = cbrt(32 pi / 3 / (nc + 1)), as XLA computes
+    jnp.cbrt: the float32 quotient (a true division, not scalar / tensor's
+    reciprocal product) to the power float32(1/3), rounded from float64,
+    so that both devices agree."""
+    q = torch.div(torch.tensor(32.0 * math.pi / 3.0, device=nc.device),
+                  nc.to(torch.float32) + 1.0)
+    return torch.pow(q.to(torch.float64), _THIRD_F32).to(torch.float32)
+
+
 def momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
                        c11, c12, c13, c22, c23, c33, nc=None, gradv=None):
     """The Atwood ramp's powers xm_i^(2-sigma) xm_j^sigma become
@@ -1389,13 +1392,7 @@ def momentum_ve_fields(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha,
     j_f = [x, y, z, inv_h2, inv_h3, vx, vy, vz, c, alpha, m, xm, xm * xm, lx,
            rho, inv_rho, prho, *cs]
     if gradv is not None:
-        # jnp.cbrt as XLA computes it: the float32 quotient (a true
-        # division, not scalar / tensor's reciprocal product) to the power
-        # float32(1/3), rounded from float64, so both devices agree
-        q = torch.div(torch.tensor(32.0 * math.pi / 3.0, device=nc.device),
-                      nc.to(torch.float32) + 1.0)
-        eta_crit = torch.pow(q.to(torch.float64), _THIRD_F32).to(torch.float32)
-        i_f += [eta_crit, *gradv]
+        i_f += [eta_crit(nc), *gradv]
         j_f += list(gradv)
     return i_f, j_f
 

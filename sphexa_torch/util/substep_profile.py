@@ -46,8 +46,8 @@ def substep_breakdown(sim, iters: int = 3,
     state of ``sim``: std (sort, neighbor_prologue, density, eos, iad,
     momentum_energy) and VE (xmass, ve_def_gradh, eos, iad, divv_curlv,
     av_switches, momentum_energy), the JAX function's keys. Other
-    propagators and a mesh return {} (the per-iteration laps of the
-    --profile series still cover them)."""
+    propagators, the gather backend and a mesh return {} (the
+    per-iteration laps of the --profile series still cover them)."""
     out = _substep_breakdown(sim, iters)
     if telemetry is not None and out:
         telemetry.phases(sim.iteration, {f"substep_{k}": v for k, v in out.items()})
@@ -62,8 +62,9 @@ def _substep_breakdown(sim, iters: int = 3) -> Dict[str, float]:
     from sphexa_torch.sph.hydro_ve import compute_eos_ve
 
     cfg = sim.cfg
-    if sim.prop_name not in ("std", "ve") or sim.mesh is not None:
-        # a rank's slab would need the halo exchange between the stages
+    if cfg.backend != "pallas" or sim.prop_name not in ("std", "ve") or sim.mesh is not None:
+        # the split times the engine's stages; a rank's slab would need the
+        # halo exchange between them
         return {}
     const, nbr = cfg.const, cfg.nbr
     box = make_global_box(sim.state.x, sim.state.y, sim.state.z, sim.box)

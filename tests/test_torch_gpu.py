@@ -40,7 +40,10 @@ K13's one-row form on each rank's due masks. The app shell (``-k
 app_shell``, kernels/app_checks.py): the snapshot deposit against its
 plain numpy version, a deferred window's host syncs with snapshots equal
 to the run without, the debug checks, the substep split's K1 launches and
-a ``--trace-dir`` capture's coverage on the card."""
+a ``--trace-dir`` capture's coverage on the card. The gather backend
+(``-k gather``, kernels/gather_checks.py): the search card vs CPU bit for
+bit on a truncating case, a force stage against the engine's, no
+launches."""
 
 import dataclasses
 
@@ -1071,3 +1074,21 @@ def test_app_shell_trace_attribution(tmp_path):
                  "--trace-dir", str(tmp_path / "trace")]) == 0
     s = summarize_trace(str(tmp_path / "trace"))
     assert s["device"] == "cuda" and s["coverage"] >= 0.8, s
+
+
+def test_gather_card_vs_cpu_and_engine():
+    """The gather backend on the card (kernels/gather_checks.py): the
+    search of a truncating jittered Sedov 16 (ngmax 40) bit for bit the
+    CPU's, the density rtol 1e-6; one gather force stage against the
+    engine's (K1) on Sedov 20, where no row is truncated; a gather step
+    launches no kernel."""
+    _need_card()
+    from sphexa_torch.kernels import gather_checks as gc
+
+    r = gc.card_vs_cpu(16, 40)
+    assert r["bits_equal"] and r["truncated_rows"] == r["n"]
+    gc.vs_engine(*init_sedov(20, device="cuda"))
+    pe.reset_launches()
+    sim = Simulation(*init_sedov(20, device="cuda"), device="cuda", backend="xla")
+    sim.step()
+    assert not any(pe.LAUNCHES.values()), pe.LAUNCHES

@@ -60,7 +60,8 @@ def test_port_sources_found():
                 ("tree", "decomposition.py"), ("kernels", "sharded_checks.py"),
                 ("util", "__init__.py"), ("util", "phases.py"), ("util", "timer.py"),
                 ("util", "substep_profile.py"), ("observables", "snapshot.py"),
-                ("viz.py",), ("telemetry", "traceview.py"), ("kernels", "app_checks.py")):
+                ("viz.py",), ("telemetry", "traceview.py"), ("kernels", "app_checks.py"),
+                ("sph", "pairs.py"), ("util", "blocking.py"), ("kernels", "gather_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
