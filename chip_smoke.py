@@ -242,6 +242,19 @@ Phases, each printed as one JSON line:
    memory, the ledger's truncated-row count, every field on the card; the
    split of a step (sort, search, density, EOS, IAD, momentum/energy) and
    the row blocks taken from the free memory;
+27. ``sharded_gather_path``: the gather backend over two ranks (gloo ranks
+   sharing this card; NCCL ranks where the machine has two cards), no
+   kernel: the lists of a jittered Sedov 24 trimmed to slabs that end in
+   partial groups, at ngmax 40 (every row truncated), as global rows bit
+   for bit the one-card ``find_neighbors``'s; std Sedov 100^3 at ngmax
+   150 through ``Simulation(backend="xla", num_devices=2)``, one warm-up
+   and two timed steps, counts reset just before and read just after
+   (every count 0 on every rank), the last step's h bit for bit and its
+   nc sums, occupancy and truncated-row count equal to the one-card
+   gather step's from the gathered input, the fields within the slice's
+   tolerances; step ms a rank, the search and the serve split, the rows a
+   serve ships against the engine's sparse serve at the same state, the
+   peak allocated memory a rank, updates/s and the drift;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -3379,6 +3392,49 @@ def gather_path(spec, smi) -> dict:
     return run["launches"]
 
 
+#: the sharded gather path's timed steps after its warm-up
+SHARDED_GATHER_STEPS = 2
+
+
+def sharded_gather_path(smi) -> dict:
+    """Phase 27, the gather backend across ranks
+    (``sharded_gather_checks.rank_gather_card`` on two ranks: gloo ranks
+    sharing this card, NCCL ranks with a card each where there are two):
+    the truncating search's lists bit for bit, then std Sedov 100^3 at
+    ngmax 150 with zero launches of K1-K13 on every rank, its last step
+    held to the one-card gather step (a failure raises). Returns rank 0's
+    launch counts (all zero)."""
+    import torch
+
+    from sphexa_torch.kernels import sharded_gather_checks as sgc
+    from sphexa_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    with tempfile.TemporaryDirectory() as wd:
+        res = spawn(sgc.rank_gather_card, 2, args=(100, SHARDED_GATHER_STEPS), workdir=wd,
+                    backend=backend, timeout=900)
+    for rk in res:
+        r = rk["path"]
+        check_launches(f"sharded gather rank {rk['rank']}", r["launches"], r["attempts"], ())
+    r0 = res[0]["path"]
+    emit({"phase": "sharded_gather_truncation", "card": smi, **res[0]["truncation"]})
+    step_s = statistics.median([ms for rk in res for ms in rk["path"]["step_ms"]]) / 1e3
+    emit({"phase": "sharded_gather_path", "card": smi, "backend": backend, "ranks": 2,
+          "n": r0["n"], "slab": r0["slab"], "nbr": r0["nbr"], "halo": r0["halo"],
+          "engine_sparse": r0["engine_sparse"],
+          "step_ms": {rk["rank"]: rk["path"]["step_ms"] for rk in res},
+          "configure_s": [rk["path"]["configure_s"] for rk in res],
+          "split_ms": {rk["rank"]: rk["path"]["split_ms"] for rk in res},
+          "peak_allocated_gb": {rk["rank"]: rk["path"]["peak_allocated_gb"] for rk in res},
+          "updates_per_s": r0["n"] / step_s, "energy_drift": r0["energy_drift"],
+          "truncated_rows": r0["truncated_rows"], "shard_rows": r0.get("shard_rows"),
+          "shard_occ": r0.get("shard_occ"), "vs_one_card": r0["vs_one_device"],
+          "replays": r0["replays"], "seconds": time.perf_counter() - t0})
+    return r0["launches"]
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3813,8 +3869,10 @@ def main() -> int:
     # 25. the app shell: snapshots, --insitu, the substep split, --trace-dir,
     # --memory-profile, --debug-checks, --devices 2 --snap
     app_launches = app_shell(spec, smi, sim, vsim)
-    # 26. the gather backend at full width (gather_path)
+    # 26. the gather backend at full width (gather_path) and 27. across
+    # ranks (sharded_gather_path)
     gather_path(spec, smi)
+    sharded_gather_path(smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),

@@ -8,11 +8,13 @@ density op; VE: xmass, then grad-h), or on the gather backend
 (``cfg.backend`` "xla") through find_neighbors' lists and the gather
 ops, as the JAX package's XLA branch; and u, |v| and r; on a mesh
 (``cfg.mesh``) over this rank's slab, K1's jdata form on the sharded
-halo, each row's fields returned to the rank that holds it.
+halo (on the gather backend the gather ops on the gather halo), each
+row's fields returned to the rank that holds it.
 ``l1_error`` is
 the reference's metric, sum |sol - sim| / N at every particle's radius
 (compare_solutions.py, compare_noh.py)."""
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -119,11 +121,12 @@ def _output_fields_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig
     all_to_all on the transposed cut table). The neighbour config is the
     run's unless the state has outgrown it (the densest cell past the cap
     on any rank), when one is sized for this state. Host reads: the sort's
-    cut tables, the halo caps, the occupancy."""
+    cut tables, the halo caps, the occupancy. On the gather backend the
+    density is ``_gather_fields_sharded``'s."""
     from sphexa_torch.parallel import exchange as ex
     from sphexa_torch.parallel.mesh import reduce_scalars
     from sphexa_torch.parallel.sizing import device_sparse_halo
-    from sphexa_torch.parallel.sort import sort_slabs, to_owners
+    from sphexa_torch.parallel.sort import sort_slabs
     from sphexa_torch.sfc.keys import compute_sfc_keys
 
     density, xmass, ve_def_gradh = OPS[ops]
@@ -135,6 +138,10 @@ def _output_fields_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig
     x, y, z, h, m, temp = (a.contiguous() for a in srt.rows.unbind(1))
     skeys = srt.keys
     nbr = cfg.nbr
+    if cfg.backend == "xla":
+        rho, p, c = _gather_fields_sharded(cfg, x, y, z, h, m, temp, skeys, box, pipeline,
+                                           state)
+        return _owners(mesh, state, const, srt, rho, p, c)
     for attempt in range(2):
         snbr = ex.slab_nbr(nbr, S)
         hmax = device_sparse_halo(mesh, x, y, z, h, skeys, box, nbr, margin=1.0)
@@ -162,10 +169,63 @@ def _output_fields_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig
         _, c, rho, p = compute_eos_ve(temp, m, kx, xm, gradh, const)
     else:
         p, c = compute_eos_std(temp, rho, const)
+    return _owners(mesh, state, const, srt, rho, p, c)
+
+
+def _owners(mesh, state: ParticleState, const, srt, rho, p, c) -> Dict[str, torch.Tensor]:
+    """The output fields of this rank's rows: the sorted rows' rho, p and c
+    sent back to the ranks and rows that hold them, u, |v| and r from the
+    state."""
+    from sphexa_torch.parallel.sort import to_owners
+
     rho, p, c = to_owners(mesh, torch.stack([rho, p, c], dim=1), srt.extra[0], srt).unbind(1)
     return {"r": torch.sqrt(state.x**2 + state.y**2 + state.z**2), "rho": rho.contiguous(),
             "p": p.contiguous(), "u": const.cv * state.temp,
             "vel": torch.sqrt(state.vx**2 + state.vy**2 + state.vz**2), "c": c.contiguous()}
+
+
+def _gather_fields_sharded(cfg: PropagatorConfig, x, y, z, h, m, temp, skeys, box: Box,
+                           pipeline: str, state: ParticleState):
+    """``_gather_fields`` on this rank's sorted slab: the gather halo
+    sized for this state, the search of the global groups that meet the
+    slab (``propagator._gather_stage``), the density (VE: xmass, then
+    grad-h, a second serve) on the [own | halo] j-buffers and the EOS. The
+    run's neighbour config unless the state has outgrown it on any rank
+    (the global occupancy past the cap), when one is sized for this
+    state."""
+    from sphexa_torch.parallel.exchange import jbuf
+    from sphexa_torch.parallel.mesh import reduce_scalars
+    from sphexa_torch.parallel.sizing import device_gather_halo
+    from sphexa_torch.propagator import _gather_stage
+
+    mesh, const, nbr = cfg.mesh, cfg.const, cfg.nbr
+    for attempt in range(2):
+        hmax = device_gather_halo(mesh, x, y, z, h, skeys, box, nbr, margin=1.0)
+        scfg = dataclasses.replace(cfg, nbr=nbr, halo_cells=hmax)
+        st, first, nidx, nmask, _, escaped, _ = _gather_stage(scfg, x, y, z, h, skeys, box,
+                                                              (x, y, z, m))
+        _, (occ, esc), (ok,) = reduce_scalars(mesh, maxes=[st.win.occ, escaped.to(torch.int32)],
+                                              mins=[st.win.window_ok.to(torch.int32)])
+        if int(esc):
+            raise RuntimeError("output fields: rows escaped a halo sized for this state")
+        if (int(occ) <= nbr.cap and int(ok)) or attempt:
+            break
+        from sphexa_torch.simulation import make_propagator_config
+
+        nbr = make_propagator_config(state, box, const, ngmax=nbr.ngmax, block=nbr.block,
+                                     curve=cfg.curve, mesh=mesh, backend="xla").nbr
+    jx, jy, jz, jm = jbuf((x, y, z, m), first)
+    lst = (nidx, nmask)
+    if pipeline == "ve":
+        xm = hydro_ve.compute_xmass(jx, jy, jz, h, jm, *lst, box, const, nbr.block)
+        (jxm,) = jbuf((xm,), st.serve((xm,)))
+        kx, gradh = hydro_ve.compute_ve_def_gradh(jx, jy, jz, h, jm, jxm, *lst, box, const,
+                                                  nbr.block)
+        _, c, rho, p = compute_eos_ve(temp, m, kx, xm, gradh, const)
+        return rho, p, c
+    rho = hydro_std.compute_density(jx, jy, jz, h, jm, *lst, box, const, nbr.block)
+    p, c = compute_eos_std(temp, rho, const)
+    return rho, p, c
 
 
 def compute_output_fields(state: ParticleState, box: Box, cfg: PropagatorConfig,

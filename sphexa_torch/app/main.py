@@ -125,9 +125,11 @@ prints the first failure of a step to stderr.
 ``--backend`` takes the JAX CLI's names: ``pallas`` the pair engine (the
 CUDA kernels on the card, their plain versions on the CPU), ``xla`` the
 gather path (each particle's first ngmax neighbours, the reference's
-truncation, in plain PyTorch on either device; lists off; one device
-only, so ``--devices`` refuses it), ``auto`` (the default) the engine on
-every device, where the JAX CLI's ``auto`` is its gather path off a TPU.
+truncation, in plain PyTorch on either device; lists off; with
+``--devices N`` each rank searches its slab's global groups against a
+halo of their whole window cells, every row keeping its one-device
+lists), ``auto`` (the default) the engine on every device, where the JAX
+CLI's ``auto`` is its gather path off a TPU.
 """
 
 import argparse
@@ -298,8 +300,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="auto", choices=("auto", "pallas", "xla"),
                    help="the force stages' backend: pallas = the pair engine (CUDA kernels), "
                         "xla = the gather path (each particle's first ngmax neighbours, plain "
-                        "PyTorch; one device only), auto = pallas on every device (unlike "
-                        "the JAX CLI, whose auto is xla off a TPU)")
+                        "PyTorch; with --devices the same lists on every rank's slab), "
+                        "auto = pallas on every device (unlike the JAX CLI, whose auto is "
+                        "xla off a TPU)")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -365,10 +368,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     nan = float("nan")
     ranks = args.devices if args.devices and args.devices > 1 else None
     rank = 0
-    if ranks is not None and args.backend == "xla":
-        print("--backend xla (the gather path) runs on one device; drop --devices or use "
-              "--backend pallas", file=sys.stderr)
-        return 2
     if ranks is not None:
         import torch.distributed as dist
 

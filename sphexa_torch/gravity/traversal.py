@@ -39,7 +39,8 @@ parent the slab's bbox does not accept, ``GravityConfig.let_cap``), and
 the near field's leaf ranges, global rows, are localized into a j-buffer
 [own slab | halo rows] served by the halo exchanges of
 parallel/exchange.py (``edges`` is the cell table of the MAC-sized
-sparse serve), which K12 reads in its jdata form; runs outside the
+sparse serve), which K12 reads in its jdata form (the gather backend's
+``_p2p_xla`` the same j-buffer); runs outside the
 served rows flip the p2p occupancy to the cap + 1 sentinel.
 """
 
@@ -1071,7 +1072,8 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
 
     ``gather_p2p``: the gather backend's near field (``_p2p_xla``, plain
     PyTorch on either device, no kernel; the JAX package's
-    use_pallas=False), one device only; else K12 (``_pallas_p2p``)."""
+    use_pallas=False), on a mesh over the same j-buffer; else K12
+    (``_pallas_p2p``)."""
     mark = timer or (lambda _name: None)
     n = x.shape[0]
     dev = x.device
@@ -1079,8 +1081,6 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
     order = cfg.multipole_order
     if shard is not None and multipoles is None:
         raise ValueError("a sharded solve needs the multipoles of compute_multipoles_sharded")
-    if shard is not None and gather_p2p:
-        raise ValueError("a sharded solve needs the engine near field (gather_p2p=False)")
     if multipoles is None:
         multipoles = compute_multipoles(x, y, z, m, sorted_keys, tree, meta, order=order)
     node_mass, node_com, node_q, edges = multipoles
@@ -1109,10 +1109,12 @@ def compute_gravity(x, y, z, m, h, sorted_keys, box: Box, tree: GravityTree,
                                           cfg, start, length,
                                           **({} if jd is None else {"jdata": jd}))
     else:
-        bi = _block_rows(n, cfg.target_block, device=dev)
+        # the targets' rows, and on a mesh their rows in the j-buffer [lead
+        # rows | own slab | halo rows]
+        bi = _block_rows(n, cfg.target_block, lead, device=dev)
         pax, pay, paz, pphi = (a.reshape(-1) for a in _p2p_xla(
-            lists["tx"], lists["ty"], lists["tz"], h[bi], bi, start, length, x, y, z, m, h,
-            allow_self, cfg))
+            lists["tx"], lists["ty"], lists["tz"], h[bi], bi + lead, start, length,
+            *(jd if jd is not None else (x, y, z, m, h)), allow_self, cfg))
     mark("p2p")
 
     def total(far, near):

@@ -25,7 +25,8 @@ arrays and Python numbers, which the launcher hands back.
   ``rank_folded_sort``, the folded distributed sort and the rows' return
   to their owners), and on the card
   ``props_path`` (a timed path whose last step ``props_vs_one_device``
-  holds to the one-device step from the gathered input) with
+  holds to the one-device step from the gathered input; the gather
+  backend's std step too, kind "gather") with
   ``compact_row_slab`` (K13's one-row form on a rank's due masks against
   its plain version), ``rank_props_card``.
 """
@@ -804,7 +805,12 @@ def one_device_step(sim, prev, prev_box, prev_aux):
 #: one-device target blocks)
 CARD_TOL = {"turb-ve": (("vx", 1e-4, 1e-6, 0.0), ("x", 1e-5, 1e-7, 0.0)),
             "nbody": (("vx", 5e-4, 0.0, 1e-3),),
-            "blockdt": (("x", 1e-5, 1e-7, 0.0), ("temp", 1e-4, 0.0, 0.0))}
+            "blockdt": (("x", 1e-5, 1e-7, 0.0), ("temp", 1e-4, 0.0, 0.0)),
+            "gather": (("x", 2e-4, 0.0, 5e-6), ("vx", 2e-4, 0.0, 5e-6),
+                       ("temp", 2e-4, 0.0, 5e-6))}
+
+#: the gather step's integer diagnostics, equal to one device's
+GATHER_EXACT = ("nc_sum", "nc_max", "occupancy", "n_nc_clip")
 
 
 def props_vs_one_device(name: str, kind: str, new, new_aux, d: Dict, one) -> dict:
@@ -814,8 +820,10 @@ def props_vs_one_device(name: str, kind: str, new, new_aux, d: Dict, one) -> dic
     fields; dt within 1e-5; turb-ve the key equal and the OU phases within
     rtol 1e-6, atol 1e-9; N-body egrav within 1e-4; the block time steps'
     bins, substep and dt_min (float32) equal, the active count,
-    populations, work, inversions and resort decision equal. Raises past
-    a tolerance; returns the errors."""
+    populations, work, inversions and resort decision equal; the gather
+    step (std on the gather backend: tests/test_torch_gather_slice.py's
+    field tolerances) h bit for bit (its nc are one device's) and
+    GATHER_EXACT equal. Raises past a tolerance; returns the errors."""
     s1, d1 = one
     out = {"dt_rel_err": abs(d["dt"] - float(d1["dt"])) / float(d1["dt"])}
     for f, rtol, atol, atol_rel in CARD_TOL[kind]:
@@ -849,6 +857,13 @@ def props_vs_one_device(name: str, kind: str, new, new_aux, d: Dict, one) -> dic
         if [d[f"bdt_pop[{k}]"] for k in range(len(pop))] != [float(p) for p in pop]:
             raise AssertionError(f"{name}: bin populations differ from one device's")
         out.update(active=d["bdt_active"], drift=d["bdt_drift"], resort=d["bdt_resort"])
+    if kind == "gather":
+        if not torch.equal(new.h, s1.particles.h):
+            raise AssertionError(f"{name}: h differs from the one-device gather step's")
+        for k in GATHER_EXACT:
+            if d[k] != float(d1[k]):
+                raise AssertionError(f"{name}: {k} {d[k]} vs {float(d1[k])}")
+        out.update(h_equal=True, **{k: d[k] for k in GATHER_EXACT})
     return out
 
 
@@ -927,7 +942,8 @@ def props_path(name: str, mesh: Mesh, make_sim, kind: str, steps: int, check: bo
     rec.update(step_ms=ms, launches=launches, attempts=attempts, n=new.n, slab=sim.state.n,
                halo=sim.halo_info, grav_halo=sim.grav_halo_info, dt=d["dt"],
                replays=sim.replays, energy_drift=sim.energy_drift,
-               diags=[{k: v for k, v in dd.items() if k.startswith(("bdt_", "egrav", "dt"))}
+               diags=[{k: v for k, v in dd.items()
+                       if k.startswith(("bdt_", "egrav", "dt", "n_nc_clip"))}
                       for dd in diags])
     for key in ("shard_rows", "shard_occ", "gshard_rows", "gshard_occ"):
         if f"{key}[0]" in d:

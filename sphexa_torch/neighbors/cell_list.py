@@ -10,6 +10,13 @@ particles in key order up to ``cap``); the hits ``|r_ij| < 2 h_i`` are
 kept in that candidate order up to ``ngmax`` (the reference's
 first-found truncation, findneighbors.hpp:96-172: no distance sort).
 Every output equals the JAX function's bit for bit, on either device.
+
+On a rank's slab (the gather backend across ranks) ``slab_windows`` and
+``search_slab`` search the global array's groups that meet the slab:
+their windows from the bbox of all their rows, their cells' ranges from
+the global cell-starts table, their candidates global rows in the same
+order, so that the lists, the truncation and ``nc`` are the one-device
+search's whatever the slabs.
 """
 
 import dataclasses
@@ -128,24 +135,30 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
 
 
-def _group_windows(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig):
-    """Every group's window^3 cells: the group's rows (NG, g), each
-    cell's sorted-array range [start, end) and existence (NG, W3), and the
-    group's densest cell over all W^3 (before any cull) and window
-    verdict (NG,)."""
+def _group_bounds(x, y, z, h, g: int):
+    """The groups of ``g`` consecutive rows: their rows (NG, g), the tail
+    padded with the last row (min(idx, n - 1)), and each group's (NG, 3)
+    bbox ``lo``, ``hi`` and (NG,) search radius 2 max h."""
     n, dev = x.shape[0], x.device
-    g, level = cfg.group, cfg.level
-    shift = 3 * (KEY_BITS - level)
+    ng = -(-n // g)
+    rows = torch.arange(ng * g, device=dev).clamp_max(n - 1).reshape(ng, g)
+    gx, gy, gz, gh = (a[rows] for a in (x, y, z, h))
+    lo = torch.stack([gx.amin(1), gy.amin(1), gz.amin(1)], dim=1)
+    hi = torch.stack([gx.amax(1), gy.amax(1), gz.amax(1)], dim=1)
+    return rows, lo, hi, 2.0 * gh.amax(1)
+
+
+def _window_cells(lo, hi, radius, box: Box, cfg: NeighborConfig, cell_range):
+    """Every group's window^3 cells from its bbox and radius: each cell's
+    sorted-array range [start, end) (``cell_range(ckey)``: the global
+    rows of cell ``ckey``) and existence (NG, W3), the group's densest
+    cell over all W^3 (before any cull) and its window verdict (NG,)."""
+    dev = lo.device
+    level = cfg.level
     ncell = 1 << level
     encode = hilbert_encode if cfg.curve == "hilbert" else morton_encode
     edge = box.lengths / ncell
     periodic = box.periodic_mask
-    ng = -(-n // g)
-    rows = torch.arange(ng * g, device=dev).clamp_max(n - 1).reshape(ng, g)
-    gx, gy, gz, gh = (a[rows] for a in (x, y, z, h))
-    lo = torch.stack([gx.amin(1), gy.amin(1), gz.amin(1)], dim=1)  # (NG, 3)
-    hi = torch.stack([gx.amax(1), gy.amax(1), gz.amax(1)], dim=1)
-    radius = 2.0 * gh.amax(1)
     base = torch.floor((lo - radius[:, None] - box.lo) / edge).to(torch.int64)
     need = torch.floor((hi + radius[:, None] - box.lo) / edge).to(torch.int64)
     # open dims: the window slides inside the grid; one spanning the
@@ -162,9 +175,22 @@ def _group_windows(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig):
     cell_ok = torch.where(periodic, offsets < ncell, in_range).all(dim=-1)
     cells = torch.where(periodic, torch.remainder(cells, ncell), cells.clamp(0, ncell - 1))
     ckey = encode(cells[..., 0], cells[..., 1], cells[..., 2], bits=level)
-    start = torch.searchsorted(sorted_keys, ckey << shift)
-    end = torch.searchsorted(sorted_keys, (ckey + 1) << shift)
-    return rows, start, end, cell_ok, (end - start).amax(1), window_ok
+    start, end = cell_range(ckey)
+    return start, end, cell_ok, (end - start).amax(1), window_ok
+
+
+def _group_windows(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig):
+    """Every group's window^3 cells (``_window_cells``) on one device:
+    the group's rows (NG, g) first, the cells' ranges by a searchsorted
+    over the sorted keys."""
+    shift = 3 * (KEY_BITS - cfg.level)
+    rows, lo, hi, radius = _group_bounds(x, y, z, h, cfg.group)
+
+    def cell_range(ckey):
+        return (torch.searchsorted(sorted_keys, ckey << shift),
+                torch.searchsorted(sorted_keys, (ckey + 1) << shift))
+
+    return (rows, *_window_cells(lo, hi, radius, box, cfg, cell_range))
 
 
 #: bytes of temporaries per (target, candidate) element of a chunk at its
@@ -199,10 +225,28 @@ def find_neighbors(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig
     chunking changes no result. The distance test rounds as XLA's CPU code
     does (its FMA contraction of the squared distance), so that the hits,
     and therefore the truncation, are the JAX function's."""
-    n, dev = x.shape[0], x.device
-    g, cap, ngmax = cfg.group, cfg.cap, cfg.ngmax
+    n = x.shape[0]
     rows, start, end, cell_ok, occ, window_ok = _group_windows(x, y, z, h, sorted_keys, box,
                                                                cfg)
+    nidx, nmask, nc, _, _ = _search_windows(rows, rows, start, end, cell_ok, x, y, z, h,
+                                            (x, y, z), None, n, box, cfg)
+    occupancy = torch.where(window_ok.all(), occ.amax(), cfg.cap + 1).to(torch.int32)
+    return nidx[:n], nmask[:n], nc[:n], occupancy
+
+
+def _search_windows(rows, ti, start, end, cell_ok, x, y, z, h, jxyz, g2l, n: int, box: Box,
+                    cfg: NeighborConfig):
+    """The search of every group over its window cells: ``rows`` (NG, g)
+    the targets' global rows (self-exclusion, and the invalid slots'
+    fill), ``ti`` their rows of x, y, z, h; the candidates are the global
+    rows ``start + slot`` of the cells, their positions ``jxyz`` read at
+    ``g2l[row]`` (None: at the row itself), and a candidate that ``g2l``
+    maps to -1 (a row the halo did not serve) never hits. Returns (nidx
+    (NG g, ngmax) int32 global rows, nmask, nc (NG g,), the candidates
+    streamed (), unserved () bool: a valid candidate was not served)."""
+    dev = x.device
+    g, cap, ngmax = cfg.group, cfg.cap, cfg.ngmax
+    xj, yj, zj = jxyz
     ng, w3 = start.shape
     lens = torch.where(cell_ok, (end - start).clamp(max=cap), 0)  # (NG, W3)
     cum = torch.cumsum(lens, dim=1)  # inclusive
@@ -212,6 +256,7 @@ def find_neighbors(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig
     budget = w3 * cap * device_block(cfg.block, w3 * cap * _PAIR_BYTES, dev)
     ks = torch.arange(1, ngmax + 1, dtype=torch.int32, device=dev)
     nidx, nmask, nc = [], [], []
+    unserved = torch.zeros((), dtype=torch.bool, device=dev)
     c0 = 0
     while c0 < ng:
         # grow the chunk while its padded (C, g, T) tile fits the budget
@@ -221,7 +266,7 @@ def find_neighbors(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig
             c1 += 1
         sl = slice(c0, c1)
         c0 = c1
-        idx = rows[sl]  # (C, g)
+        idx, it = rows[sl], ti[sl]  # (C, g)
         # slot p of a group: cell w with cum[w - 1] <= p < cum[w], row
         # start[w] + p - cum[w - 1]
         p = torch.arange(tmax, device=dev).expand(idx.shape[0], tmax)
@@ -229,12 +274,21 @@ def find_neighbors(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig
         cand = start[sl].gather(1, w) + p - (cum[sl] - lens[sl]).gather(1, w)
         cand_ok = p < cum[sl][:, -1:]
         cand = cand.clamp(0, n - 1)
-        dx, dy, dz = apply_pbc_xyz(box, x[idx][:, :, None] - x[cand][:, None, :],
-                                   y[idx][:, :, None] - y[cand][:, None, :],
-                                   z[idx][:, :, None] - z[cand][:, None, :])
+        if g2l is None:
+            jc = cand
+        else:
+            jc = g2l[cand]
+            served = jc >= 0
+            unserved = unserved | (cand_ok & ~served).any()
+            cand_ok = cand_ok & served
+            jc = jc.clamp_min(0)
+        dx, dy, dz = apply_pbc_xyz(box, x[it][:, :, None] - xj[jc][:, None, :],
+                                   y[it][:, :, None] - yj[jc][:, None, :],
+                                   z[it][:, :, None] - zj[jc][:, None, :])
+        del jc
         d2 = _fma(dz, dz, _fma(dx, dx, dy * dy))  # (C, g, T)
         del dx, dy, dz
-        gh = h[idx]
+        gh = h[it]
         r2 = (2.0 * gh) * (2.0 * gh)
         hit = cand_ok[:, None, :] & (d2 < r2[..., None]) & (cand[:, None, :] != idx[..., None])
         del d2
@@ -251,5 +305,107 @@ def find_neighbors(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig
                     .to(torch.int32))
         nmask.append(m)
         nc.append(cnt)
-    occupancy = torch.where(window_ok.all(), occ.amax(), cap + 1).to(torch.int32)
-    return (torch.cat(nidx)[:n], torch.cat(nmask)[:n], torch.cat(nc)[:n], occupancy)
+    work = torch.as_tensor(float(sum(totals)), dtype=torch.float64, device=dev)
+    return torch.cat(nidx), torch.cat(nmask), torch.cat(nc), work, unserved
+
+
+# ---------------------------------------------------------------------------
+# the search on a rank's slab
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SlabWindows:
+    """The window cells of the global groups that meet a rank's slab
+    (``slab_windows``): ``rows`` (NG, g) the groups' global rows, ``own``
+    (NG, g) the lanes that are this rank's rows (its targets; the padded
+    tail on the last rank is not), ``start``/``end`` (NG, W3) the cells'
+    global row ranges, ``cell_ok`` their existence, ``occ`` () the
+    rank's densest window cell and ``window_ok`` () whether every one of
+    its groups' windows covers."""
+
+    rows: torch.Tensor
+    own: torch.Tensor
+    start: torch.Tensor
+    end: torch.Tensor
+    cell_ok: torch.Tensor
+    occ: torch.Tensor
+    window_ok: torch.Tensor
+
+    def runs(self, cap: int):
+        """The window cells as candidate runs (start, min(len, cap)), dead
+        cells 0 long: the rows a search may read."""
+        return self.start, torch.where(self.cell_ok, (self.end - self.start).clamp(max=cap), 0)
+
+
+def slab_group_bounds(mesh, x, y, z, h, g: int):
+    """``_group_bounds`` of the global array's groups on rank k's slab
+    (rows [kS, (k + 1) S) of the global sorted array, N = P S): the groups
+    [g0, g1] that meet the slab, their global rows (NG, g; the global
+    tail padded with row N - 1), the lanes that are this rank's rows, and
+    each group's bbox and radius over ALL its rows: a group that straddles
+    a slab boundary takes its other ranks' extrema from one all_gather of
+    every rank's first and last group's partial extrema."""
+    from sphexa_torch.parallel.mesh import all_gather
+
+    S, dev = x.shape[0], x.device
+    k, P = mesh.rank, mesh.size
+    N = S * P
+    g0, g1 = k * S // g, ((k + 1) * S - 1) // g
+    raw = g0 * g + torch.arange((g1 - g0 + 1) * g, device=dev)
+    rows = raw.clamp_max(N - 1).reshape(-1, g)
+    own = ((raw >= k * S) & (raw < (k + 1) * S)).reshape(-1, g)
+    member = (rows >= k * S) & (rows < (k + 1) * S)  # the padded tail repeats row N - 1
+    loc = (rows - k * S).clamp(0, S - 1)
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=dev)
+    lo = torch.stack([torch.where(member, a[loc], inf).amin(1) for a in (x, y, z)], dim=1)
+    hi = torch.stack([torch.where(member, a[loc], -inf).amax(1) for a in (x, y, z)], dim=1)
+    hm = torch.where(member, h[loc], -inf).amax(1)
+    if P > 1:
+        ends = [0, lo.shape[0] - 1]
+        mine = torch.cat([torch.tensor([g0, g1], dtype=torch.float64, device=dev)[:, None],
+                          lo[ends].double(), hi[ends].double(), hm[ends].double()[:, None]],
+                         dim=1)
+        every = all_gather(mesh, mine).reshape(-1, 8)  # (2P, gid lo3 hi3 hmax)
+        lo, hi, hm = lo.clone(), hi.clone(), hm.clone()
+        for row, gid in zip(ends, (g0, g1)):
+            hit = (every[:, 0] == gid)[:, None]
+            lo[row] = torch.where(hit, every[:, 1:4], float("inf")).amin(0).to(x.dtype)
+            hi[row] = torch.where(hit, every[:, 4:7], float("-inf")).amax(0).to(x.dtype)
+            hm[row] = torch.where(hit[:, 0], every[:, 7], float("-inf")).amax(0).to(x.dtype)
+    return rows, own, lo, hi, 2.0 * hm
+
+
+def slab_windows(mesh, x, y, z, h, box: Box, cfg: NeighborConfig, table) -> SlabWindows:
+    """The window cells of the global groups that meet this rank's slab,
+    as one device computes them (``slab_group_bounds``), each cell's range
+    read off the global cell-starts table (``parallel.exchange.
+    global_cell_table``: its entries are the searchsorted of the global
+    sorted keys at the cells' boundaries)."""
+    rows, own, lo, hi, radius = slab_group_bounds(mesh, x, y, z, h, cfg.group)
+
+    def cell_range(ckey):
+        return table[ckey], table[ckey + 1]
+
+    start, end, cell_ok, occ, window_ok = _window_cells(lo, hi, radius, box, cfg, cell_range)
+    return SlabWindows(rows=rows, own=own, start=start, end=end, cell_ok=cell_ok,
+                       occ=occ.amax().to(torch.int32), window_ok=window_ok.all())
+
+
+@named_phase("neighbors")
+def search_slab(mesh, win: SlabWindows, x, y, z, h, jxyz, g2l, box: Box, cfg: NeighborConfig):
+    """The neighbour lists of this rank's rows (``find_neighbors`` on a
+    slab): every global group that meets the slab searches its window
+    cells' global rows ``start + slot``, so that the candidates, the k-th
+    hit, the truncation and ``nc`` are the one-device search's whatever
+    the slabs; ``jxyz``: the j-buffers [own slab | halo rows] of x, y, z,
+    ``g2l`` the global row -> j-buffer row map (-1: not served). Returns
+    (nidx (S, ngmax) int32 GLOBAL rows, nmask, nc (S,), the candidates
+    streamed, unserved () bool)."""
+    S = x.shape[0]
+    ti = (win.rows - mesh.rank * S).clamp(0, S - 1)
+    nidx, nmask, nc, work, unserved = _search_windows(
+        win.rows, ti, win.start, win.end, win.cell_ok, x, y, z, h, jxyz, g2l,
+        S * mesh.size, box, cfg)
+    own = win.own.reshape(-1)
+    return nidx[own], nmask[own], nc[own], work, unserved

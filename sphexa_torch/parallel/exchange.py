@@ -22,6 +22,11 @@ Two exchanges, as in the JAX package:
   to its distance-r successor in a buffer of static size hmax[r - 1]
   (issued as one batch of sends and receives).
 
+The gather backend's halo (``gather_halo_stage``) serves the whole
+window cells of the global groups of 64 that meet the slab, through
+either exchange, and maps every global row to its j-buffer row: the
+search reads its candidates, global rows in the one-device order, there.
+
 Runs outside the served rows (drift since the last sizing) are zeroed and
 flip ``escaped``, which the force stage folds into the occupancy sentinel
 (cap + 1): the driver discards the step, re-sizes the halo and replays it.
@@ -380,3 +385,120 @@ def shard_halo_stage_sparse(mesh: Mesh, x, y, z, h, keys, box, nbr,
 
     metrics = exchange_metrics_sparse(covered, table, S, hmax, mesh.size, mesh.rank)
     return ranges, serve, jbuf, escaped, metrics
+
+
+# ---------------------------------------------------------------------------
+# the gather backend's halo: the whole window cells of the global groups
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GatherHalo:
+    """The gather backend's halo stage on a rank (``gather_halo_stage``):
+    the slab's global groups' window cells (``win``, cell_list's
+    SlabWindows), ``serve(fields)`` shipping the halo rows of the fields,
+    ``g2l`` the (N,) global row -> j-buffer row map of [own slab | halo
+    rows] (-1: not served), ``escaped`` (() bool: the caps cut covered
+    rows) and the exchange metrics."""
+
+    win: object
+    serve: object
+    g2l: torch.Tensor
+    escaped: torch.Tensor
+    metrics: dict
+
+
+def gather_coverage(mesh: Mesh, x, y, z, h, keys, box, nbr, table=None):
+    """The cells the gather search of this rank's slab reads: the global
+    table (computed when None), the slab's global groups' windows
+    (``cell_list.slab_windows``) and (ncells,) bool coverage, every
+    existing window cell with rows (``coverage_from_runs`` on (start,
+    min(len, cap)))."""
+    from sphexa_torch.neighbors.cell_list import slab_windows
+
+    if table is None:
+        table = global_cell_table(mesh, keys, nbr.level)
+    win = slab_windows(mesh, x, y, z, h, box, nbr, table)
+    starts, lens = win.runs(nbr.cap)
+    return table, win, coverage_from_runs(starts, lens, table)
+
+
+def covered_bounds(covered, table, S: int, P: int, k: int) -> torch.Tensor:
+    """(P, 2) per source rank the row window [lo, hi) of the covered
+    cells' rows in its slab (this rank's own slab excluded), the windowed
+    exchange's need."""
+    t0, t1 = table[:-1][None, :], table[1:][None, :]
+    slab = torch.arange(P, device=table.device)[:, None] * S
+    lo = torch.minimum(torch.maximum(t0, slab), slab + S)
+    hi = torch.minimum(torch.maximum(t1, slab), slab + S)
+    use = covered[None, :] & (hi > lo)
+    lo = torch.where(use, lo, INF32).amin(1)
+    hi = torch.where(use, hi, 0).amax(1)
+    lo[k] = INF32
+    hi[k] = 0
+    return torch.stack([lo, hi], dim=1)
+
+
+@named_phase("halo-exchange")
+def gather_halo_stage(mesh: Mesh, x, y, z, h, keys, box, nbr, sizes) -> GatherHalo:
+    """The halo of the gather search and ops on this rank's slab: the
+    window cells of the global groups that meet the slab, whole
+    (``gather_coverage``), served from the other slabs. ``sizes``: a
+    tuple of P - 1 per-distance row caps selects the sparse exchange (the
+    covered cells' rows packed per source in cell order, P - 1 rounds), an
+    int the windowed one (per source one row window of that many rows).
+    Covered rows past a cap are not served and flip ``escaped``, which the
+    force stage folds into the occupancy sentinel."""
+    S, P, k = x.shape[0], mesh.size, mesh.rank
+    dev = x.device
+    table, win, covered = gather_coverage(mesh, x, y, z, h, keys, box, nbr)
+    g2l = torch.full((S * P,), -1, dtype=torch.int64, device=dev)
+    g2l[k * S:(k + 1) * S] = torch.arange(S, device=dev)
+    if isinstance(sizes, tuple):
+        hmax = tuple(min(int(c), S) for c in sizes)
+        if len(hmax) != P - 1:
+            raise ValueError(f"the sparse gather halo needs P-1={P - 1} caps, got {len(hmax)}")
+        covered_all = _bool_all_gather(mesh, covered)
+        clen, poff, need = _sparse_layout(covered, table, S, P)
+        off = S
+        escaped = torch.zeros((), dtype=torch.bool, device=dev)
+        for r in range(1, P):
+            j = (k - r) % P
+            cap = hmax[r - 1]
+            pos = torch.arange(cap, device=dev)
+            rows = _pack_rows(clen[j], poff[j], table, S, j, cap) + j * S
+            live = pos < need[j]
+            g2l[rows[live]] = off + pos[live]
+            escaped = escaped | (need[j] > cap)
+            off += cap
+        ridx = sparse_send_rows(mesh, covered_all, table, S, hmax)
+
+        def serve(fields):
+            return serve_sparse(mesh, fields, ridx)
+
+        metrics = exchange_metrics_sparse(covered, table, S, hmax, P, k)
+    else:
+        wmax = min(int(sizes), S) or S
+        bounds_all = all_gather(mesh, covered_bounds(covered, table, S, P, k))
+        lo_eff = _effective_lo(bounds_all, S, wmax, P)[k]
+        pos = torch.arange(wmax, device=dev)
+        for j in range(P):
+            if j != k:
+                g2l[lo_eff[j] + pos] = S + j * wmax + pos
+        mine = bounds_all[k]
+        live = mine[:, 1] > mine[:, 0]
+        escaped = torch.any(live & ((mine[:, 0] < lo_eff) | (mine[:, 1] > lo_eff + wmax)))
+
+        def serve(fields):
+            return serve_windows(mesh, fields, bounds_all, S, wmax)
+
+        metrics = exchange_metrics_windowed(bounds_all, wmax, k)
+    return GatherHalo(win=win, serve=serve, g2l=g2l, escaped=escaped, metrics=metrics)
+
+
+def localize_rows(g2l: torch.Tensor, rows: torch.Tensor):
+    """Global rows (a gather search's ``nidx``) -> j-buffer rows through
+    the halo's map, int32; a row the halo did not serve maps to 0 and
+    flips the returned () bool ``escaped``."""
+    local = g2l[rows.long()]
+    return local.clamp_min(0).to(torch.int32), torch.any(local < 0)

@@ -293,7 +293,15 @@ def make_sharded_step(mesh: Mesh, cfg, step_fn=None, halo_window: int = 0,
     TurbulenceState, std-cooling its chemistry slab, the block time steps
     their BlockDtState slab), turb-ve and std-cooling their static config
     as ``aux_cfg``, and return the advanced aux fourth. ``stepper.step_sim(
-    sim, gtree=None)`` advances a SimState carry."""
+    sim, gtree=None)`` advances a SimState carry.
+
+    The config's backend picks the sharded stages: "pallas" the engine's
+    (K1's and K12's jdata forms), "xla" the gather backend's (the search
+    of the global groups that meet the slab, the gather ops and near
+    field on the same j-buffers, no kernel: what the JAX package's GSPMD
+    program computes, each row's first ngmax neighbours). The halo sizes
+    must be those of the backend (``sizing.halo_sizes(backend=)``): the
+    gather halo serves whole window cells."""
     from sphexa_torch import propagator as prop
 
     step_fn = prop._step_hydro_std if step_fn is None else step_fn

@@ -138,11 +138,15 @@ def _sorted_slab(mesh, keys, *fields):
     return skeys, mat.unbind(1)
 
 
-def sizing_stats(mesh, x, y, z, box, level: int, group: int, curve: str = "hilbert"):
+def sizing_stats(mesh, x, y, z, box, level: int, group: int, curve: str = "hilbert",
+                 global_groups: bool = False):
     """(densest level-``level`` cell, (3,) widest per-dimension extent of a
     group of ``group`` SFC-consecutive particles) over every rank's
     particles, as floats on the host: the inputs of the neighbour config
-    beyond n and h_max. Groups form within each slab, as in the step."""
+    beyond n and h_max. Groups form within each slab, as in the engine's
+    step, or with ``global_groups`` over the global sorted array, as the
+    gather search forms them (``cell_list.slab_group_bounds``)."""
+    from sphexa_torch.neighbors.cell_list import slab_group_bounds
     from sphexa_torch.parallel.exchange import global_cell_table
     from sphexa_torch.parallel.mesh import reduce_scalars
     from sphexa_torch.sfc.keys import compute_sfc_keys
@@ -151,8 +155,12 @@ def sizing_stats(mesh, x, y, z, box, level: int, group: int, curve: str = "hilbe
     keys = compute_sfc_keys(x, y, z, box, curve=curve)
     skeys, (xs, ys, zs) = _sorted_slab(mesh, keys, x, y, z)
     occ = torch.diff(global_cell_table(mesh, skeys, level)).max()
-    ext = torch.stack([(g.amax(1) - g.amin(1)).max()
-                       for g in (_pad_groups(a, group) for a in (xs, ys, zs))])
+    if global_groups:
+        _, _, lo, hi, _ = slab_group_bounds(mesh, xs, ys, zs, torch.zeros_like(xs), group)
+        ext = (hi - lo).amax(0)
+    else:
+        ext = torch.stack([(g.amax(1) - g.amin(1)).max()
+                           for g in (_pad_groups(a, group) for a in (xs, ys, zs))])
     _, (occ, ext), _ = reduce_scalars(mesh, maxes=[occ, ext])
     return int(occ), tuple(float(e) for e in ext.tolist())
 
@@ -221,6 +229,13 @@ def _sparse_halo_needs(mesh, x, y, z, h, keys, box, nbr) -> torch.Tensor:
         need.new_zeros(0)
 
 
+def _caps(per_r, S: int, margin: float, quantum: int) -> Tuple[int, ...]:
+    """Per-distance needs padded by ``margin`` up to multiples of
+    ``quantum``, each at most the slab ``S``."""
+    return tuple(min(int(-(-int(max(int(v), 1) * margin) // quantum) * quantum), S)
+                 for v in per_r)
+
+
 def device_sparse_halo(mesh, x, y, z, h, keys, box, nbr, margin: float = 1.4,
                        quantum: int = 256) -> Tuple[int, ...]:
     """The sparse exchange's per-distance row caps, each need padded by
@@ -232,21 +247,76 @@ def device_sparse_halo(mesh, x, y, z, h, keys, box, nbr, margin: float = 1.4,
     S = x.shape[0]
     nbr = slab_nbr(nbr, S)
     per_r = _sparse_halo_needs(mesh, x, y, z, h, keys, box, nbr).tolist()
-    return tuple(min(int(-(-int(max(int(v), 1) * margin) // quantum) * quantum), S)
-                 for v in per_r)
+    return _caps(per_r, S, margin, quantum)
+
+
+def _gather_covered(mesh, x, y, z, h, keys, box, nbr):
+    """The sorted slab's global table and the gather search's coverage
+    (``exchange.gather_coverage``)."""
+    from sphexa_torch.parallel.exchange import gather_coverage
+
+    skeys, (xs, ys, zs, hs) = _sorted_slab(mesh, keys, x, y, z, h)
+    table, _, covered = gather_coverage(mesh, xs, ys, zs, hs, skeys, box, nbr)
+    return table, covered
+
+
+def gather_need_matrix(mesh, x, y, z, h, keys, box, nbr) -> torch.Tensor:
+    """``sparse_need_matrix`` of the gather halo: (P_dest, P_src) rows of
+    rank k's covered window cells (the whole window^3 blocks of the global
+    groups that meet its slab) clipped to rank j's slab. The same on every
+    rank."""
+    from sphexa_torch.parallel.exchange import _sparse_layout
+    from sphexa_torch.parallel.mesh import all_gather
+
+    table, covered = _gather_covered(mesh, x, y, z, h, keys, box, nbr)
+    return all_gather(mesh, _sparse_layout(covered, table, x.shape[0], mesh.size)[2])
+
+
+def device_gather_halo(mesh, x, y, z, h, keys, box, nbr, margin: float = 1.4,
+                       quantum: int = 256) -> Tuple[int, ...]:
+    """``device_sparse_halo`` of the gather halo (``gather_need_matrix``):
+    P - 1 per-distance row caps, each need padded by ``margin`` up to a
+    multiple of ``quantum``, at most the slab."""
+    need = gather_need_matrix(mesh, x, y, z, h, keys, box, nbr)
+    P = mesh.size
+    j = torch.arange(P, device=need.device)
+    per_r = torch.stack([need[(j + r) % P, j].max() for r in range(1, P)]).tolist() \
+        if P > 1 else []
+    return _caps(per_r, x.shape[0], margin, quantum)
+
+
+def device_gather_window(mesh, x, y, z, h, keys, box, nbr, margin: float = 1.4,
+                         quantum: int = 1024) -> int:
+    """``device_halo_window`` of the gather halo: the widest row span of
+    any rank's covered window cells in another rank's slab, padded by
+    ``margin`` up to a multiple of ``quantum``, at most the slab."""
+    from sphexa_torch.parallel.exchange import covered_bounds
+    from sphexa_torch.parallel.mesh import all_gather
+
+    S = x.shape[0]
+    table, covered = _gather_covered(mesh, x, y, z, h, keys, box, nbr)
+    b = all_gather(mesh, covered_bounds(covered, table, S, mesh.size, mesh.rank))
+    span = torch.clamp(b[..., 1] - torch.minimum(b[..., 0], b[..., 1]), min=0)
+    return _caps([int(span.max())], S, margin, quantum)[0]
 
 
 def halo_sizes(mesh, state, box, nbr, mode: str, margin: float = 1.4,
-               curve: str = "hilbert") -> dict:
+               curve: str = "hilbert", backend: str = "pallas") -> dict:
     """The halo exchange's sizes at this state (the box regrown as the step
     regrows it): {"halo_cells": the sparse caps} for ``mode`` "sparse",
-    else {"halo_window": the window}, ``make_sharded_step``'s keywords."""
+    else {"halo_window": the window}, ``make_sharded_step``'s keywords;
+    ``backend`` "xla" sizes the gather halo (the whole window cells of the
+    global groups), else the engine's runs."""
     from sphexa_torch.sfc.box import make_global_box
     from sphexa_torch.sfc.keys import compute_sfc_keys
 
     gbox = make_global_box(state.x, state.y, state.z, box, mesh=mesh)
     keys = compute_sfc_keys(state.x, state.y, state.z, gbox, curve=curve)
     args = (mesh, state.x, state.y, state.z, state.h, keys, gbox, nbr)
+    if backend == "xla":
+        if mode == "sparse":
+            return {"halo_cells": device_gather_halo(*args, margin=margin)}
+        return {"halo_window": device_gather_window(*args, margin=margin)}
     if mode == "sparse":
         return {"halo_cells": device_sparse_halo(*args, margin=margin)}
     return {"halo_window": device_halo_window(*args, margin=margin)}
@@ -318,5 +388,4 @@ def device_gravity_halo(mesh, xs, ys, zs, ms, skeys, box, tree, meta, theta: flo
     S = xs.shape[0]
     per_r = _gravity_halo_needs(mesh, xs, ys, zs, ms, skeys, box, tree, meta, theta,
                                 shifts=shifts, multipoles=multipoles).tolist()
-    return tuple(min(int(-(-int(max(int(v), 1) * margin) // quantum) * quantum), S)
-                 for v in per_r)
+    return _caps(per_r, S, margin, quantum)

@@ -38,8 +38,8 @@ each row's first ``nbr.ngmax`` neighbours in candidate order, and the
 masked j-reductions of sph/hydro_std.py and sph/hydro_ve.py run over
 those lists in plain PyTorch on either device; the gravity near field is
 ``traversal._p2p_xla`` (``compute_gravity``'s ``gather_p2p``) and the block
-time steps list their due rows without K13. No kernel launches. It runs
-on one device only.
+time steps list their due rows without K13. No kernel launches. On a mesh
+its force stages are ``_std_gather_sharded`` / ``_ve_gather_sharded``.
 
 Under a mesh (``cfg.mesh``, parallel/mesh.py ``make_sharded_step``;
 every step function) the state is this rank's slab: the box
@@ -49,7 +49,10 @@ global stable sort; the chemistry and the BlockDtState ride it as extra
 columns, the block time steps' on the folded key), and the
 force stage is ``_std_forces_sharded`` / ``_ve_forces_sharded``: K1 on
 the slab against [own slab | halo rows] j-buffers (parallel/exchange.py),
-one serve of halo rows per field set the next op reads on its j side;
+one serve of halo rows per field set the next op reads on its j side
+(on the gather backend ``_std_gather_sharded`` / ``_ve_gather_sharded``:
+the search of the global groups that meet the slab against a halo of
+their whole window cells, then the gather ops on the same j-buffers);
 self-gravity is ``_gravity_sharded_stage`` (the sharded upsweep, the
 rank's essential set, the near field on served halo rows, open or
 Ewald). The N-body step runs the gravity stage alone; the stirring of
@@ -369,7 +372,8 @@ def _gravity_sharded_stage(state: ParticleState, box: Box, keys, cfg: Propagator
     ``cfg.grav_cells`` (each cap at most the slab), else whole slabs (the
     SPH halo's sizes are never reused here: the near field reaches the
     MAC radius, far past 2h). The Ewald solve serves once per replica
-    pass. Then one all_gather closes the stage, as the JAX package's
+    pass. On the gather backend the near field is ``_p2p_xla`` on the
+    same j-buffer. Then one all_gather closes the stage, as the JAX package's
     _chain_stage_reductions and its gathers: egrav summed in rank order,
     the acceleration dt candidate (over the hydro and gravity
     accelerations) a min, the solver diagnostics a max, and with the
@@ -383,12 +387,15 @@ def _gravity_sharded_stage(state: ParticleState, box: Box, keys, cfg: Propagator
     win = tuple(min(int(c), S) for c in cfg.grav_cells) if cfg.grav_cells else S
     gcfg = dataclasses.replace(cfg.gravity, G=cfg.const.g)
     args = (state.x, state.y, state.z, state.m, state.h, keys, box, gtree, cfg.grav_meta, gcfg)
+    gather = cfg.backend == "xla"
     if cfg.ewald is not None:
-        gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald, shard=(mesh, win))
+        gx, gy, gz, egrav, gdiag = compute_gravity_ewald(*args, cfg.ewald, shard=(mesh, win),
+                                                         gather_p2p=gather)
     else:
         mps = compute_multipoles_sharded(mesh, state.x, state.y, state.z, state.m, keys, gtree,
                                          cfg.grav_meta, order=gcfg.multipole_order)
-        gx, gy, gz, egrav, gdiag = compute_gravity(*args, multipoles=mps, shard=(mesh, win))
+        gx, gy, gz, egrav, gdiag = compute_gravity(*args, multipoles=mps, shard=(mesh, win),
+                                                   gather_p2p=gather)
     ax, ay, az = ax + gx, ay + gy, az + gz
     with phase_scope("timestep"):
         dt_acc = acceleration_timestep(ax, ay, az, cfg.const)
@@ -464,8 +471,8 @@ def _std_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     state, box, keys, diag, *rest = _force_stage_prologue(state, box, cfg, lists, aux=aux,
                                                           keys=keys)
     if cfg.mesh is not None:
-        rho, c, nc, occ, ax, ay, az, du, dt_courant, sdiag = _std_forces_sharded(
-            state, box, cfg, keys)
+        sharded = _std_gather_sharded if cfg.backend == "xla" else _std_forces_sharded
+        rho, c, nc, occ, ax, ay, az, du, dt_courant, sdiag = sharded(state, box, cfg, keys)
         ax, ay, az, extra_dts, sdiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                      sdiag)
         return (state, box, ax, ay, az, du, dt_courant, extra_dts, nc, occ, rho, c, sdiag,
@@ -592,28 +599,37 @@ def exchange_fields_per_step(prop: str, av_clean: bool = False) -> int:
 
 
 @named_phase("shard-metrics")
-def _shard_tail(mesh, mins, occ, escaped, cap: int, ranges, metrics):
+def _shard_tail(mesh, mins, occ, escaped, cap: int, work, metrics, window_ok=None):
     """The sharded stages' closing collective, one all_gather: the dt
     candidates ``mins`` reduced by min, the occupancy (the escape sentinel
     folded in) by max, and each rank's exchange metrics (SHARD_DIAG_KEYS,
-    ``shard_work`` the candidate rows a pair op streams). Returns (mins,
-    occ, shard diagnostics)."""
+    ``shard_work`` = ``work``, the candidate rows a pair op or the search
+    streams). ``window_ok`` (the gather search): the rank's windows all
+    cover, and the occupancy is then the one-device search's, the max of
+    the ranks' unless a window anywhere blew (cap + 1), with any rank's
+    escape folded in after. Returns (mins, occ, shard diagnostics)."""
     from sphexa_torch.parallel.exchange import fold_escape_sentinel
     from sphexa_torch.parallel.mesh import all_gather
 
     f64 = torch.float64
-    occ = fold_escape_sentinel(occ, escaped, cap)
-    packed = torch.stack([*(t.to(f64) for t in mins), occ.to(f64),
-                          metrics["halo_rows"].to(f64), metrics["halo_occ"].to(f64),
-                          ranges.lens.to(f64).sum(), escaped.to(f64)])
-    g = all_gather(mesh, packed)  # (P, K)
+    if window_ok is None:
+        occ = fold_escape_sentinel(occ, escaped, cap)
+    cols = [*(t.to(f64) for t in mins), occ.to(f64), metrics["halo_rows"].to(f64),
+            metrics["halo_occ"].to(f64), work.to(f64), escaped.to(f64)]
+    if window_ok is not None:
+        cols.append(window_ok.to(f64))
+    g = all_gather(mesh, torch.stack(cols))  # (P, K)
     nm = len(mins)
     out = [g[:, i].min().to(t.dtype) for i, t in enumerate(mins)]
     sdiag = {"shard_rows": g[:, nm + 1].to(torch.int32),
              "shard_occ": g[:, nm + 2].to(torch.float32),
              "shard_work": g[:, nm + 3].to(torch.float32),
              "shard_trips": g[:, nm + 4].to(torch.int32)}
-    return out, g[:, nm].max().to(occ.dtype), sdiag
+    occ_all = g[:, nm].max()
+    if window_ok is not None:
+        blown = (g[:, nm + 4].max() > 0) | (g[:, nm + 5].min() == 0)
+        occ_all = torch.where(blown, float(cap + 1), occ_all)
+    return out, occ_all.to(occ.dtype), sdiag
 
 
 def _std_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
@@ -645,8 +661,8 @@ def _std_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, k
         x, y, z, vx, vy, vz, h, m, rho, p, c, *cs, None, box, const, nbr,
         jdata=jbuf((x, y, z, h, vx, vy, vz, m, rho, p, c, *cs),
                    (hx, hy, hz, hh, hvx, hvy, hvz, hm, hrho, hp, hc, *hcs)), **kw)
-    (dt_c,), occ, sdiag = _shard_tail(cfg.mesh, [dt_c], occ, escaped, cfg.nbr.cap, ranges,
-                                      hmetrics)
+    (dt_c,), occ, sdiag = _shard_tail(cfg.mesh, [dt_c], occ, escaped, cfg.nbr.cap,
+                                      ranges.lens.to(torch.float64).sum(), hmetrics)
     return rho, c, nc, occ, ax, ay, az, du, dt_c, sdiag
 
 
@@ -698,7 +714,113 @@ def _ve_forces_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, ke
                    (hx, hy, hz, hh, hvx, hvy, hvz, hc, halpha, hm, hxm, hkx, hprho, *hcs)
                    + hgv), **kw)
     (dt_c, dt_rho), occ, sdiag = _shard_tail(cfg.mesh, [dt_c, dt_rho], occ, escaped,
-                                             cfg.nbr.cap, ranges, hmetrics)
+                                             cfg.nbr.cap, ranges.lens.to(torch.float64).sum(),
+                                             hmetrics)
+    return rho, c, nc, occ, ax, ay, az, du, dt_c, dt_rho, alpha, sdiag
+
+
+def _gather_stage(cfg: PropagatorConfig, x, y, z, h, keys, box: Box, first):
+    """The sharded gather stages' shared head (parallel/exchange.py
+    ``gather_halo_stage``): the halo of the global groups' window cells,
+    sparse with ``cfg.halo_cells`` else windowed (``cfg.halo_window``; 0:
+    whole slabs); the first serve, of the fields ``first`` (x, y, z
+    first); the search of the slab's rows on its [own | halo] positions
+    (``cell_list.search_slab``), its global rows localized into the
+    j-buffer. Returns (the halo stage, the first serve's halo fields, nidx
+    (j-buffer rows), nmask, nc, escaped, the candidates streamed)."""
+    from sphexa_torch.neighbors.cell_list import search_slab
+    from sphexa_torch.parallel import exchange as ex
+
+    sizes = tuple(cfg.halo_cells) if cfg.halo_cells else int(cfg.halo_window)
+    st = ex.gather_halo_stage(cfg.mesh, x, y, z, h, keys, box, cfg.nbr, sizes)
+    halo = st.serve(first)
+    jxyz = ex.jbuf(first[:3], halo[:3])
+    nidx, nmask, nc, work, unserved = search_slab(cfg.mesh, st.win, x, y, z, h, jxyz, st.g2l,
+                                                  box, cfg.nbr)
+    with phase_scope("halo-exchange"):
+        nidx, lost = ex.localize_rows(st.g2l, nidx)
+    return st, halo, nidx, nmask, nc, st.escaped | unserved | lost, work
+
+
+def _std_gather_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
+    """The std pair stage on this rank's slab on the gather backend (the
+    JAX package's GSPMD program of ``_std_gather``): the search of the
+    global groups that meet the slab against the served window cells,
+    then density, EOS, IAD and momentum/energy over the lists on [own
+    slab | halo rows] j-buffers, a serve before each op of the fields it
+    reads on the j side that the last serve did not ship (x y z m; m/rho;
+    h v rho p c and the IAD terms), as ``_std_forces_sharded``. Each row's
+    lists, and so its sums, are the one-device step's. Returns (rho, c,
+    nc, occ, ax, ay, az, du, dt_courant, shard diagnostics), dt and occ
+    reduced over the ranks."""
+    from sphexa_torch.parallel.exchange import jbuf
+
+    const, nbr = cfg.const, cfg.nbr
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    vx, vy, vz = state.vx, state.vy, state.vz
+    st, first, nidx, nmask, nc, escaped, work = _gather_stage(cfg, x, y, z, h, keys, box,
+                                                              (x, y, z, m))
+    jx, jy, jz, jm = jbuf((x, y, z, m), first)
+    lst = (nidx, nmask)
+    rho = hydro_std.compute_density(jx, jy, jz, h, jm, *lst, box, const, nbr.block)
+    with phase_scope("eos"):
+        p, c = compute_eos_std(state.temp, rho, const)
+    vol = m / rho
+    (jvol,) = jbuf((vol,), st.serve((vol,)))
+    cs = hydro_std.compute_iad(jx, jy, jz, h, jvol, *lst, box, const, nbr.block)
+    own = (h, vx, vy, vz, rho, p, c, *cs)
+    jh, jvx, jvy, jvz, jrho, jp, jc, *jcs = jbuf(own, st.serve(own))
+    ax, ay, az, du, dt_c = hydro_std.compute_momentum_energy_std(
+        jx, jy, jz, jvx, jvy, jvz, jh, jm, jrho, jp, jc, *jcs, *lst, box, const, nbr.block)
+    (dt_c,), occ, sdiag = _shard_tail(cfg.mesh, [dt_c], st.win.occ, escaped, nbr.cap, work,
+                                      st.metrics, window_ok=st.win.window_ok)
+    return rho, c, nc, occ, ax, ay, az, du, dt_c, sdiag
+
+
+def _ve_gather_sharded(state: ParticleState, box: Box, cfg: PropagatorConfig, keys):
+    """The VE pair stage on this rank's slab on the gather backend (the
+    JAX package's GSPMD program of ``_ve_gather``), the serves of
+    ``_ve_forces_sharded``: x y z h m; xm; kx prho c v; divv; alpha and the
+    IAD terms (and gradv with av_clean). Returns (rho, c, nc, occ, ax, ay,
+    az, du, dt_courant, dt_rho, alpha, shard diagnostics), the dt
+    candidates and occ reduced over the ranks."""
+    from sphexa_torch.parallel.exchange import jbuf
+
+    const, nbr = cfg.const, cfg.nbr
+    x, y, z, h, m = state.x, state.y, state.z, state.h, state.m
+    vx, vy, vz = state.vx, state.vy, state.vz
+    st, first, nidx, nmask, nc, escaped, work = _gather_stage(cfg, x, y, z, h, keys, box,
+                                                              (x, y, z, h, m))
+    jx, jy, jz, jh, jm = jbuf((x, y, z, h, m), first)
+    lst = (nidx, nmask)
+    xm = hydro_ve.compute_xmass(jx, jy, jz, h, jm, *lst, box, const, nbr.block)
+    (jxm,) = jbuf((xm,), st.serve((xm,)))
+    kx, gradh = hydro_ve.compute_ve_def_gradh(jx, jy, jz, h, jm, jxm, *lst, box, const,
+                                              nbr.block)
+    with phase_scope("eos"):
+        prho, c, rho, _p = compute_eos_ve(state.temp, m, kx, xm, gradh, const)
+    own = (kx, prho, c, vx, vy, vz)
+    jkx, jprho, jc, jvx, jvy, jvz = jbuf(own, st.serve(own))
+    cs = hydro_std.compute_iad(jx, jy, jz, h, jxm / jkx, *lst, box, const, nbr.block)
+    dvout = hydro_ve.compute_iad_divv_curlv(jx, jy, jz, jvx, jvy, jvz, h, kx, jxm, *cs, *lst,
+                                            box, const, nbr.block, with_gradv=cfg.av_clean)
+    divv, _curlv, gradv = _split_dvout(dvout, cfg.av_clean)
+    with phase_scope("timestep"):
+        dt_rho = rho_timestep(divv, const)
+    (jdivv,) = jbuf((divv,), st.serve((divv,)))
+    alpha = hydro_ve.compute_av_switches(jx, jy, jz, jvx, jvy, jvz, h, jc, jkx, jxm, jdivv,
+                                         state.alpha, *cs, *lst, box, state.min_dt, const,
+                                         nbr.block)
+    gv = tuple(gradv or ())
+    own = (alpha, *cs) + gv
+    jalpha, *rest = jbuf(own, st.serve(own))
+    jcs, jgv = rest[:6], tuple(rest[6:])
+    ax, ay, az, du, dt_c = hydro_ve.compute_momentum_energy_ve(
+        jx, jy, jz, jvx, jvy, jvz, jh, jm, jprho, jc, jkx, jxm, jalpha, *jcs, *lst, nc, box,
+        const, nbr.block, gradv=jgv or None)
+    (dt_c, dt_rho), occ, sdiag = _shard_tail(cfg.mesh, [dt_c, dt_rho], st.win.occ, escaped,
+                                             nbr.cap, work, st.metrics,
+                                             window_ok=st.win.window_ok)
     return rho, c, nc, occ, ax, ay, az, du, dt_c, dt_rho, alpha, sdiag
 
 
@@ -876,8 +998,9 @@ def _ve_forces(state: ParticleState, box: Box, cfg: PropagatorConfig,
     const, nbr = cfg.const, cfg.nbr
     state, box, keys, ldiag = _force_stage_prologue(state, box, cfg, lists, keys=keys)
     if cfg.mesh is not None:
+        sharded = _ve_gather_sharded if cfg.backend == "xla" else _ve_forces_sharded
         (rho, c, nc, occ, ax, ay, az, du, dt_courant, dt_rho, alpha,
-         sdiag) = _ve_forces_sharded(state, box, cfg, keys)
+         sdiag) = sharded(state, box, cfg, keys)
         ax, ay, az, extra_dts, sdiag = _gravity_tail(state, box, keys, cfg, gtree, ax, ay, az,
                                                      sdiag)
         if raw_dts:

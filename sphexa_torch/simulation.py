@@ -138,8 +138,9 @@ def make_propagator_config(
 
     ``mesh``: the state is this rank's slab; h_max, n, the densest cell
     and the widest group are taken over every rank (``sizing_stats``:
-    the slabs sorted as the step sorts them, groups within each slab),
-    and the lists stay off."""
+    the slabs sorted as the step sorts them, groups within each slab for
+    the engine, the global array's groups for the gather backend, whose
+    config is then the one-device one), and the lists stay off."""
     backend = resolve_backend(backend)
     block = block or _DEFAULTS["block"]
     cell_target = cell_target or _DEFAULTS["cell_target"]
@@ -162,7 +163,8 @@ def make_propagator_config(
     level = min(level, level_occ)
 
     if mesh is not None:
-        occ, ext = sizing_stats(mesh, state.x, state.y, state.z, box, level, group, curve)
+        occ, ext = sizing_stats(mesh, state.x, state.y, state.z, box, level, group, curve,
+                                global_groups=backend == "xla")
     else:
         if sizing_cache is None:
             keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve).cpu().numpy()
@@ -315,7 +317,10 @@ class Simulation:
     order, the reference's findneighbors.hpp truncation, over row blocks
     of ``block``; plain PyTorch on either device, no kernel; the gravity
     near field gathered and the one-level sort compaction at every N;
-    lists off; one device only) or "auto", which is the engine on every
+    lists off; with ``num_devices`` each rank searches the global groups
+    that meet its slab against a halo of their whole window cells, so that
+    every row keeps the one-device lists, as the JAX package's GSPMD
+    program does) or "auto", which is the engine on every
     device, not the JAX package's CPU default (its gather path). The
     sizing, the overflow contract (the search's occupancy, the densest of
     all window cells or cap + 1) and the deferred windows are the same on
@@ -351,11 +356,6 @@ class Simulation:
                  backend: str = "auto", ngmax: Optional[int] = None,
                  block: Optional[int] = None):
         self.backend = resolve_backend(backend)
-        if self.backend == "xla" and num_devices is not None and num_devices > 1:
-            raise ValueError(
-                "backend 'xla' (the gather path) runs on one device; the JAX package runs it "
-                "across devices as GSPMD, which the port has no counterpart of yet: use "
-                "backend 'pallas' (or 'auto') with num_devices > 1")
         self.ngmax = ngmax or const.ngmax
         self.block = block
         if prop not in _STEPS:
@@ -613,7 +613,8 @@ class Simulation:
         sizes = {}
         if self.prop_name != "nbody":
             sizes = halo_sizes(mesh, self.state, self.box, self._cfg.nbr, self._halo_mode,
-                               margin=self._halo_margin, curve=self.curve)
+                               margin=self._halo_margin, curve=self.curve,
+                               backend=self.backend)
         stepper = pmesh.make_sharded_step(mesh, self._cfg, self._step_fn, **sizes,
                                           grav_cells=self._grav_cells, aux_cfg=self._aux_cfg)
         self._halo_info = {}
@@ -647,7 +648,10 @@ class Simulation:
     def halo_info(self) -> Dict:
         """The sharded run's exchange shape at the last sizing: its mode,
         the caps or the window, the rows a serve ships, the slab and the
-        bytes a step ships ({} on one device and for N-body)."""
+        bytes a step ships ({} on one device and for N-body). On the
+        gather backend it is the gather halo's ("sparse" or "windowed":
+        the exchange the ranks make), where the JAX package's GSPMD run
+        reports {"mode": "gspmd", "shipped_rows": 0}."""
         return dict(self._halo_info)
 
     @property
@@ -707,7 +711,7 @@ class Simulation:
             xs, ys, zs, ms, skeys, self.box, gtree, meta,
             GravityConfig(theta=self.theta, G=self.const.g,
                           m2p_cap_margin=self.m2p_cap_margin,
-                          **gravity_tuning(s.n * mesh.size)),
+                          **gravity_tuning(s.n * mesh.size, self.backend == "pallas")),
             margin=margin, multipoles=mps, let_shards=mesh.size, mesh=mesh)
         ewald = EwaldConfig() if self.ewald_on else None
         self._grav_cells = ()

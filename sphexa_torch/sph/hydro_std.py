@@ -5,7 +5,8 @@ j-reductions over the (N, ngmax) lists of
 (util/blocking.py) so that the gathered tiles stay bounded. The pair
 engine's ops (sph/pair_engine.py) sum every pair within 2h instead; these
 keep the lists' first ``ngmax`` neighbours, as the reference's
-findneighbors.hpp does."""
+findneighbors.hpp does. The targets are the list's rows; the fields an op
+reads on the j side may be j-buffers [own slab | halo rows] (sph/pairs.py)."""
 
 import torch
 
@@ -47,7 +48,7 @@ def compute_density(x, y, z, h, m, nidx, nmask, box: Box, const: SimConstants,
         h_i = h[idx]
         return const.K * rho0 / (h_i * h_i * h_i)
 
-    return blocked_map(body, x.shape[0], op_block(block, nidx, "density"), x.device)
+    return blocked_map(body, nidx.shape[0], op_block(block, nidx, "density"), x.device)
 
 
 def iad_invert(h_i, t11, t12, t13, t22, t23, t33, K: float):
@@ -84,7 +85,7 @@ def compute_iad(x, y, z, h, vol_j, nidx, nmask, box: Box, const: SimConstants,
                           torch.sum(g.ry * g.ry * vw, -1), torch.sum(g.ry * g.rz * vw, -1),
                           torch.sum(g.rz * g.rz * vw, -1), const.K)
 
-    return blocked_map(body, x.shape[0], op_block(block, nidx, "iad"), x.device)
+    return blocked_map(body, nidx.shape[0], op_block(block, nidx, "iad"), x.device)
 
 
 def sym_mask(g, h_j, const: SimConstants):
@@ -149,6 +150,6 @@ def compute_momentum_energy_std(x, y, z, vx, vy, vz, h, m, rho, p, c,
         return (const.K * mom_x, const.K * mom_y, const.K * mom_z,
                 -const.K * 0.5 * energy, dt_i)
 
-    ax, ay, az, du, dt = blocked_map(body, x.shape[0], op_block(block, nidx, "momentum"),
+    ax, ay, az, du, dt = blocked_map(body, nidx.shape[0], op_block(block, nidx, "momentum"),
                                      x.device)
     return ax, ay, az, du, torch.min(dt)

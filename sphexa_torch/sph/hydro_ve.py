@@ -4,7 +4,9 @@ without the av_clean velocity gradient), the AV switches and
 momentum/energy, masked j-reductions over the (N, ngmax) lists of
 ``neighbors.cell_list.find_neighbors``; the IAD op is the std one
 (hydro_std.compute_iad with vol_j = xm / kx). The pair engine's VE ops
-are the fused search+op kernels of sph/pair_engine.py."""
+are the fused search+op kernels of sph/pair_engine.py. The targets are the
+list's rows; the fields an op reads on the j side may be j-buffers [own
+slab | halo rows] (sph/pairs.py), ``nc`` is the targets' own."""
 
 import torch
 
@@ -40,7 +42,7 @@ def compute_xmass(x, y, z, h, m, nidx, nmask, box: Box, const: SimConstants,
         h_i = h[idx]
         return m[idx] / (rho0 * const.K / (h_i * h_i * h_i))
 
-    return blocked_map(body, x.shape[0], op_block(block, nidx, "density"), x.device)
+    return blocked_map(body, nidx.shape[0], op_block(block, nidx, "density"), x.device)
 
 
 @named_phase("gradh")
@@ -66,7 +68,7 @@ def compute_ve_def_gradh(x, y, z, h, m, xm, nidx, nmask, box: Box, const: SimCon
         dhdrho = -h_i / (rho * 3.0)
         return kx, 1.0 - dhdrho * whomega
 
-    return blocked_map(body, x.shape[0], op_block(block, nidx, "iad"), x.device)
+    return blocked_map(body, nidx.shape[0], op_block(block, nidx, "iad"), x.device)
 
 
 @named_phase("divv-curlv")
@@ -97,7 +99,7 @@ def compute_iad_divv_curlv(x, y, z, vx, vy, vz, h, kx, xm, c11, c12, c13, c22, c
                     norm_kxi * (dvy[2] + dvz[1]), norm_kxi * dvz[2])
         return divv, curlv
 
-    return blocked_map(body, x.shape[0], op_block(block, nidx, "iad"), x.device)
+    return blocked_map(body, nidx.shape[0], op_block(block, nidx, "iad"), x.device)
 
 
 @named_phase("av-switches")
@@ -138,7 +140,7 @@ def compute_av_switches(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
         alpha_decayed = alpha_i + (target - alpha_i) / decay * dt
         return torch.where(alphaloc >= alpha_i, alphaloc, alpha_decayed)
 
-    return blocked_map(body, x.shape[0], op_block(block, nidx, "iad"), x.device)
+    return blocked_map(body, nidx.shape[0], op_block(block, nidx, "iad"), x.device)
 
 
 def av_rv_correction(rx, ry, rz, eta_ab, eta_crit, gv_i, gv_j):
@@ -235,6 +237,6 @@ def compute_momentum_energy_ve(x, y, z, vx, vy, vz, h, m, prho, c, kx, xm, alpha
         dt_i = ts_k_courant(maxvsignal, h[idx], c[idx], const.k_cour)
         return (-const.K * mom_x, -const.K * mom_y, -const.K * mom_z, du, dt_i)
 
-    ax, ay, az, du, dt = blocked_map(body, x.shape[0], op_block(block, nidx, "momentum"),
+    ax, ay, az, du, dt = blocked_map(body, nidx.shape[0], op_block(block, nidx, "momentum"),
                                      x.device)
     return ax, ay, az, du, torch.min(dt)

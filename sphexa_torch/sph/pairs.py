@@ -5,6 +5,12 @@ Every gather op is a masked reduction over a static-shape neighbour list
 (N, ngmax) from ``neighbors.cell_list.find_neighbors``: gather the
 j-side fields, take minimum-image displacements and normalized kernel
 distances, and sum or max over the valid slots.
+
+The targets are the rows of the list, ``nidx.shape[0]`` of them. A field
+an op reads on the j side may be longer: on a rank's slab (the gather
+backend across ranks) it is the j-buffer [own slab | halo rows], whose
+first rows are the targets' own, so the target's row reads its own value
+from the same buffer and ``nidx`` holds j-buffer rows.
 """
 
 from typing import NamedTuple

@@ -38,13 +38,29 @@ def free_bytes(device: torch.device) -> int:
     return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
+def device_sharers(device: torch.device) -> int:
+    """Processes whose blocks share ``device``'s free memory: the ranks of
+    a gloo process group on a CUDA device (parallel/mesh.py puts every
+    gloo rank on the current card), else 1."""
+    import torch.distributed as dist
+
+    if device.type == "cuda" and dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() == "gloo":
+        return dist.get_world_size()
+    return 1
+
+
 def device_block(block: int, row_bytes: int, device: torch.device,
                  share: float = FREE_SHARE) -> int:
     """Rows a block takes on ``device``: ``block`` on the CPU; on a CUDA
     device the largest power of two of rows whose ``row_bytes`` each fit
-    ``share`` of the free memory, never below ``block``. The results of a
-    blocked op do not depend on it."""
+    ``share`` of the free memory over the processes that share the card
+    (``device_sharers``: each takes its part of what is free at the
+    moment it asks, so that ranks asking at different moments cannot
+    together take more than the share), never below ``block``. The
+    results of a blocked op do not depend on it."""
     if device.type != "cuda":
         return block
+    share = share / device_sharers(device)
     rows = max(1, int(share * free_bytes(device)) // max(1, row_bytes))
     return max(block, 1 << (rows.bit_length() - 1))

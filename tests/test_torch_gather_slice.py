@@ -150,8 +150,10 @@ def test_output_fields_match_jax(pipeline):
 
 
 def test_backend_names_and_refusals():
-    """"auto" is the engine on every device; unknown names and a mesh on
-    the gather backend are refused; the substep split is the engine's."""
+    """"auto" is the engine on every device; unknown names are refused; a
+    mesh on the gather backend is not (it asks for the ranks' process
+    group: tests/test_torch_sharded_gather.py runs it); the substep split
+    is the engine's."""
     state, box, const = init_sedov(8, device="cpu")
     auto = Simulation(state, box, const, device="cpu")
     assert auto.cfg.backend == "pallas" and auto.backend == "pallas"
@@ -161,7 +163,7 @@ def test_backend_names_and_refusals():
     assert substep_breakdown(gather) == {}
     with pytest.raises(ValueError, match="unknown backend"):
         Simulation(state, box, const, device="cpu", backend="mosaic")
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(RuntimeError, match="no process group"):
         Simulation(state, box, const, device="cpu", backend="xla", num_devices=2)
 
 
@@ -174,8 +176,9 @@ def _constants(path):
 def test_cli_backend(tmp_path, capsys):
     """``--backend xla`` against the JAX CLI's ``--backend xla`` (time and
     dt rel 1e-6, the energies rel 1e-6); ``--backend pallas`` writes the
-    rows of no flag exactly; ``--backend xla --devices 2`` is a usage
-    error with the reason."""
+    rows of no flag exactly; ``--backend xla --devices 2`` is no usage
+    error (tests/test_torch_sharded_gather.py runs it): with
+    ``--debug-checks`` it reaches the mesh's own refusal of that flag."""
     argv = ["--init", "noh", "-n", "12", "-s", "3", "--quiet"]
     assert app.main(argv + ["--backend", "xla", "-o", str(tmp_path / "t"),
                             "--device", "cpu"]) == 0
@@ -193,5 +196,6 @@ def test_cli_backend(tmp_path, capsys):
         (tmp_path / "d" / "constants.txt").read_text()
     capsys.readouterr()
     assert app.main(argv + ["--backend", "xla", "--devices", "2", "--device", "cpu",
-                            "-o", str(tmp_path / "m")]) == 2
-    assert "--backend xla (the gather path) runs on one device" in capsys.readouterr().err
+                            "--debug-checks", "-o", str(tmp_path / "m")]) == 2
+    err = capsys.readouterr().err
+    assert "debug_checks is single-device" in err and "--backend xla" not in err

@@ -43,7 +43,10 @@ to the run without, the debug checks, the substep split's K1 launches and
 a ``--trace-dir`` capture's coverage on the card. The gather backend
 (``-k gather``, kernels/gather_checks.py): the search card vs CPU bit for
 bit on a truncating case, a force stage against the engine's, no
-launches."""
+launches; across two gloo ranks of the card (``-k sharded_gather``,
+kernels/sharded_gather_checks.py) the truncating search's lists as
+global rows bit for bit the one-card search's, and std Sedov steps held
+to the one-card gather step with no launch."""
 
 import dataclasses
 
@@ -1092,3 +1095,27 @@ def test_gather_card_vs_cpu_and_engine():
     sim = Simulation(*init_sedov(20, device="cuda"), device="cuda", backend="xla")
     sim.step()
     assert not any(pe.LAUNCHES.values()), pe.LAUNCHES
+
+
+def test_sharded_gather_two_ranks_on_one_card(tmp_path):
+    """The gather backend over two gloo ranks on the card
+    (``sharded_gather_checks.rank_gather_card`` at Sedov 30 and 16): the
+    ranks' lists of a jittered, truncating Sedov 16 (ngmax 40, slabs that
+    end in partial groups) as global rows equal the one-card
+    ``find_neighbors`` bit for bit; std Sedov 30 at ngmax 150, the last
+    step's h bit for bit and nc_sum, nc_max, the occupancy and the
+    truncated-row count equal to the one-card gather step's from the
+    gathered input, the fields within tests/test_torch_gather_slice.py's
+    tolerances; no kernel launch on any rank."""
+    _need_card()
+    from sphexa_torch.kernels import sharded_gather_checks as sgc
+    from sphexa_torch.parallel.mesh import spawn
+
+    out = spawn(sgc.rank_gather_card, 2, args=(30, 2, 150, 16, 40), workdir=str(tmp_path),
+                backend="gloo", timeout=900)
+    for res in out:
+        assert not any(res["path"]["launches"].values())
+        assert res["path"]["halo"]["mode"] == "sparse"
+    assert out[0]["truncation"]["bits_equal"]
+    assert out[0]["truncation"]["truncated_rows"] == out[0]["truncation"]["n"]
+    assert out[0]["path"]["vs_one_device"]["h_equal"]

@@ -61,7 +61,8 @@ def test_port_sources_found():
                 ("util", "__init__.py"), ("util", "phases.py"), ("util", "timer.py"),
                 ("util", "substep_profile.py"), ("observables", "snapshot.py"),
                 ("viz.py",), ("telemetry", "traceview.py"), ("kernels", "app_checks.py"),
-                ("sph", "pairs.py"), ("util", "blocking.py"), ("kernels", "gather_checks.py")):
+                ("sph", "pairs.py"), ("util", "blocking.py"), ("kernels", "gather_checks.py"),
+                ("kernels", "sharded_gather_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
