@@ -88,7 +88,7 @@ Phases, each printed as one JSON line:
    sort and the bitmask-with-superblocks compactions; std and VE Evrard
    20 steps with gravity on the card against the CPU;
 11. the Evrard path: VE Evrard side 125 (1,022,790 particles) through
-   Simulation(prop="ve"), self-gravity on: one warm-up and three timed
+   Simulation(prop="ve"), self-gravity on: one warm-up and two timed
    steps, counters reset just before and read just after (K12 once and
    K13 twice per step attempt, the six VE kernels once each), its host
    syncs and profile, the tree build at configure and the gravity phases
@@ -107,7 +107,7 @@ Phases, each printed as one JSON line:
    the cartesian quadrupole and orders 4 and 6, each timed and held
    against direct summation (order 4 closer than the quadrupole);
 13. the N-body path: Simulation(prop="nbody") on the 10^6-particle
-   Plummer sphere and on Evrard 125, one warm-up and three timed steps
+   Plummer sphere and on Evrard 125, one warm-up and two timed steps
    each (counts reset just before, read just after: K12 once and K13
    twice per step attempt), host syncs, gravity phases, forces against
    direct summation, K12 and K13 against their plain versions at the
@@ -158,7 +158,7 @@ Phases, each printed as one JSON line:
    wendland-c6 paths (Sedov 100^3, std and VE, lists and streaming, each
    op's 20-coefficient form counted); the CLI's ``--kernel wendland-c6``
    and a wendland-c6 dump restarted by the CLI;
-21. ``blockdt_path``: std and VE Sedov 100^3 at dt_bins 4, 16 substeps
+21. ``blockdt_path``: std and VE Sedov 100^3 at dt_bins 4, 8 substeps
    (std also at bin_resort_drift 0.01), counts reset just before and read
    just after (the streaming ops and K13's one-row form once per substep
    attempt), the substep time, the updates against the global dt's,
@@ -183,7 +183,7 @@ Phases, each printed as one JSON line:
    same over NCCL ranks, one a card;
 23. ``sharded_gravity_path``: VE Evrard 125 (1,022,790 particles, theta
    0.5) with self-gravity over two gloo ranks sharing the card, the
-   sparse gravity serve, one warm-up and two timed steps, counts reset
+   sparse gravity serve, one warm-up and one timed step, counts reset
    just before and read just after (K1's VE ops, K12 once and K13 twice
    per step attempt), the step ms per rank and its split (sort, SPH halo,
    upsweep, MAC, M2P, near-field prologue, gravity serve, K12), the caps
@@ -197,10 +197,10 @@ Phases, each printed as one JSON line:
    one warm-up and one step;
 
 24. ``sharded_props_path``: over two gloo ranks sharing the card, turb-ve
-   on the turbulence case at side 100 (one warm-up, three timed steps),
+   on the turbulence case at side 100 (one warm-up, two timed steps),
    std Sedov 100^3 at dt_bins 4 with bin_resort_drift 0 and 0.01 (one
    warm-up, one cycle of eight substeps) and N-body Evrard 125 (theta
-   0.5; one warm-up, two timed steps), counts reset just before and read
+   0.5; one warm-up, one timed step), counts reset just before and read
    just after on each rank (the six VE ops once per step attempt; the std
    ops and K13's one-row form once per substep attempt; K12 once and K13
    twice per N-body step attempt), the step ms per rank, the halo caps and
@@ -237,7 +237,7 @@ Phases, each printed as one JSON line:
    for bit, the gather density rtol 1e-6; one gather force stage against
    the engine's from Sedov 100^3 (the largest count below ngmax 150: rho,
    a, du within the slice's tolerances); std Sedov 100^3 at ngmax 150,
-   one warm-up and two timed steps, counts reset just before and read
+   one warm-up and one timed step, counts reset just before and read
    just after (every count 0), updates/s, the drift, the peak allocated
    memory, the ledger's truncated-row count, every field on the card; the
    split of a step (sort, search, density, EOS, IAD, momentum/energy) and
@@ -248,13 +248,27 @@ Phases, each printed as one JSON line:
    partial groups, at ngmax 40 (every row truncated), as global rows bit
    for bit the one-card ``find_neighbors``'s; std Sedov 100^3 at ngmax
    150 through ``Simulation(backend="xla", num_devices=2)``, one warm-up
-   and two timed steps, counts reset just before and read just after
+   and one timed step, counts reset just before and read just after
    (every count 0 on every rank), the last step's h bit for bit and its
    nc sums, occupancy and truncated-row count equal to the one-card
    gather step's from the gathered input, the fields within the slice's
    tolerances; step ms a rank, the search and the serve split, the rows a
    serve ships against the engine's sparse serve at the same state, the
    peak allocated memory a rank, updates/s and the drift;
+28. ``tuning_path``: every kernel shape the tuning registry reaches held
+   to its plain version (``kernels/tuning_checks.py``: K1's std ops at
+   group 32 / 64 / 128 and run_cap 1024 / 2048 x gap 128 / 512, K5 bit for
+   bit and K6 at the three groups and list_skin_rel 0.1 / 0.3 on the
+   jittered Sedov 40; K12 and K13 at target_block 128 / 256 x super_factor
+   0 / 4 / 16 on the tuned VE Evrard 30's solves); a budgeted sweep
+   (``run_sweep(measure_candidate)``, 8 candidates over group, cell_target,
+   gap and list_skin_rel, 6 steps and one warm-up window each) on std
+   Sedov 100^3 in list mode, each candidate's knobs, status and per-step
+   ms, the launches over the sweep; the CLI with ``--tuned`` on the
+   sweep's table (Sedov 100^3, 8 steps, ``--check-every 4``, a run dir and
+   a ``--trace-dir`` capture, in this process, its launches counted), then
+   the port's reader: ``summary --strict`` and ``tuning`` (source "table")
+   exit 0, the trace's coverage >= 0.8;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -270,7 +284,8 @@ path; K13's one-row form, ``compact_class_lists:row``; K1's jdata form of
 each std and VE op on the sharded paths, ``name:jdata``, their launches
 on every sharded path; K12's jdata form on the sharded gravity and N-body
 paths, ``gravity_p2p:jdata``; K13's one-row form on a rank's slab,
-``compact_class_lists:row:slab``), the nvidia-smi
+``compact_class_lists:row:slab``; the tuning sweep's and the tuned CLI's
+launches, ``tuning_sweep`` and ``tuning_cli``), the nvidia-smi
 line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
@@ -1751,7 +1766,7 @@ def nbody_path(spec, smi) -> dict:
     """The N-body propagator at full width: Simulation(prop="nbody") on
     the 10^6-particle Plummer sphere of the JAX package's gravity
     benchmark and on Evrard 125 (1,022,790 particles), each one warm-up
-    and three timed steps with the counts reset just before and read just
+    and two timed steps with the counts reset just before and read just
     after (K12 once and K13 twice per step attempt, nothing else), its
     host syncs, gravity phases, forces against direct summation on 4,096
     targets (rms < 0.01, p99 < 0.05) and K12 / K13 against their plain
@@ -1773,14 +1788,14 @@ def nbody_path(spec, smi) -> dict:
         torch.cuda.reset_peak_memory_stats()
         state, box, const = make()
         run = drive(lambda: Simulation(state, box, const, prop="nbody", device="cuda",
-                                       obs_spec=spec), steps=3, label=f"nbody_{label}")
+                                       obs_spec=spec), steps=2, label=f"nbody_{label}")
         sim = run["sim"]
         check_launches(f"nbody {label}", run["launches"], run["attempts"], ("gravity_p2p",),
                        compactions=2)
         syncs = count_syncs(sim)
         if syncs["per_step"] != 1:
             raise AssertionError(f"nbody {label}: {syncs['per_step']} host syncs per step")
-        gphases, (ss, gbox, keys, gcfg, gout) = gravity_phase_times(sim)
+        gphases, (ss, gbox, keys, gcfg, gout) = gravity_phase_times(sim, reps=2)
         emit({**gravity_report(run, sim), "phase": "nbody_path", "case": label, "card": smi,
               "host_syncs_per_step": syncs["per_step"], "gravity_phases": gphases,
               "gravity_accuracy": gravity_accuracy(ss, gcfg, gout),
@@ -2366,7 +2381,7 @@ def wendland_paths(spec, smi) -> dict:
 
 def blockdt_path(spec, smi) -> dict:
     """Phase ``blockdt_path``: std and VE Sedov 100^3 at dt_bins 4 through
-    Simulation, one warm-up and 15 timed substeps (two cycles), the counts
+    Simulation, one warm-up and 7 timed substeps (one cycle), the counts
     reset just before and read just after (the streaming std or VE ops
     and K13's one-row form once per substep attempt); the substep time,
     the updates against the global dt's, the bin populations, resorts and
@@ -2392,7 +2407,7 @@ def blockdt_path(spec, smi) -> dict:
         state, box, const = init_sedov(100, device="cuda")
         run = drive(lambda: Simulation(state, box, const, prop=prop, device="cuda",
                                        dt_bins=4, bin_resort_drift=drift, obs_spec=spec),
-                    steps=15, label="blockdt_path")
+                    steps=7, label="blockdt_path")
         sim = run["sim"]
         ops = STD_OPS if prop == "std" else ("density", "ve_def_gradh", "iad",
                                              "iad_divv_curlv", "av_switches",
@@ -2656,7 +2671,7 @@ def sharded_path(smi) -> tuple:
 
 
 #: the sharded gravity path's timed steps after its warm-up
-SHARDED_GRAV_STEPS = 2
+SHARDED_GRAV_STEPS = 1
 
 
 def p2p_jdata_bound(lens, n: int, nj: int, group: int) -> dict:
@@ -2673,7 +2688,7 @@ def p2p_jdata_bound(lens, n: int, nj: int, group: int) -> dict:
             "j_rows": nj}
 
 
-def sharded_gravity_split(mesh, sim, sync, reps: int = 2) -> dict:
+def sharded_gravity_split(mesh, sim, sync, reps: int = 1) -> dict:
     """A sharded gravity step's parts on this rank, host wall ms with the
     card synchronised at each boundary (every rank runs them together;
     their collectives wait on each other), medians of ``reps``: the box
@@ -2932,7 +2947,7 @@ def sharded_gravity_path(smi) -> tuple:
 
 #: the sharded turb-ve and N-body paths' timed steps after their warm-up
 #: (the block-dt paths time one cycle)
-SHARDED_PROPS_STEPS = {"turb-ve": 3, "nbody": 2}
+SHARDED_PROPS_STEPS = {"turb-ve": 2, "nbody": 1}
 
 
 def sharded_props_rank(mesh) -> dict:
@@ -3355,7 +3370,7 @@ def gather_path(spec, smi) -> dict:
     stage against the engine's (K1) from Sedov 100^3's initial state, whose
     largest count is below ngmax 150 (printed): rho, a and du within the
     slice's tolerances; (c) std Sedov 100^3 at ngmax 150, one warm-up and
-    two timed steps: updates/s, the drift, the peak allocated memory, the
+    one timed step: updates/s, the drift, the peak allocated memory, the
     ledger's truncated-row count a step, and zero launches of K1-K13
     (every count 0: a failure raises); (d) the split of a step's stages
     on the path's last state and the row blocks chosen from the free
@@ -3375,7 +3390,7 @@ def gather_path(spec, smi) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     run = drive(lambda: Simulation(state, box, const, prop="std", device="cuda", backend="xla",
-                                   obs_spec=spec), steps=2, label="gather_path")
+                                   obs_spec=spec), steps=1, label="gather_path")
     peak = torch.cuda.max_memory_allocated()
     sim = run["sim"]
     check_launches("gather path", run["launches"], run["attempts"], ())
@@ -3393,7 +3408,7 @@ def gather_path(spec, smi) -> dict:
 
 
 #: the sharded gather path's timed steps after its warm-up
-SHARDED_GATHER_STEPS = 2
+SHARDED_GATHER_STEPS = 1
 
 
 def sharded_gather_path(smi) -> dict:
@@ -3433,6 +3448,122 @@ def sharded_gather_path(smi) -> dict:
           "shard_occ": r0.get("shard_occ"), "vs_one_card": r0["vs_one_device"],
           "replays": r0["replays"], "seconds": time.perf_counter() - t0})
     return r0["launches"]
+
+
+#: the tuning path's sweep: the knobs, the candidate budget, the measured
+#: steps and the warm-up windows of each candidate
+TUNING_SWEEP = {"knobs": ("group", "cell_target", "gap", "list_skin_rel"), "budget": 8,
+                "steps": 6, "warmup": 1}
+
+
+def tuning_path(spec, smi) -> dict:
+    """Phase 28, the tuning package and ``--tuned``: (a) every kernel shape
+    the knob registry reaches held to its plain version
+    (``kernels/tuning_checks.py``: K1 at group 32 / 64 / 128 and run_cap
+    1024 / 2048 x gap 128 / 512, K5 and K6 at the three groups and
+    list_skin_rel 0.1 / 0.3 on the jittered Sedov 40; K12 and K13 at
+    target_block 128 / 256 x super_factor 0 / 4 / 16 on VE Evrard 30); (b)
+    a budgeted sweep at full width, ``run_sweep(measure_candidate)`` on std
+    Sedov 100^3 in list mode (``TUNING_SWEEP``), each candidate's knobs,
+    status and per-step ms beside the card's name and power limit, the
+    launches counted over the sweep; (c) the CLI with ``--tuned`` on the
+    sweep's table (its best committed, ``--commit best``'s rule) at the
+    sweep's workload key (std Sedov 100^3: the table is keyed by the
+    particle count's decade), ``--check-every 4``, ``--telemetry-dir`` and
+    ``--trace-dir``, in this process (its launches counted), then the
+    port's own reader: ``summary --strict`` and ``tuning`` (source
+    "table") exit 0, ``trace`` covers >= 0.8. Returns the sweep's and the
+    CLI's launch counts."""
+    import contextlib
+    import io
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.kernels import tuning_checks
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.telemetry import cli as tcli
+    from sphexa_torch.tuning import (
+        ReplaySpec, domains_for, make_entry, measure_candidate, new_table, run_sweep,
+        save_table, upsert_entry, validate_table,
+    )
+    from sphexa_torch.tuning.cli import card_label
+
+    t0 = time.perf_counter()
+    eng = tuning_checks.engine_shapes("cuda")
+    grav = tuning_checks.gravity_shapes("cuda")
+    emit({"phase": "tuning_shapes", "card": smi, "engine": eng, "gravity": grav,
+          "seconds": time.perf_counter() - t0})
+
+    t1 = time.perf_counter()
+    sweep = ReplaySpec(case="sedov", side=100, device="cuda")
+    pe.reset_launches()
+    result = run_sweep(lambda k: measure_candidate(sweep, k, steps=TUNING_SWEEP["steps"],
+                                                   warmup=TUNING_SWEEP["warmup"]),
+                       domains_for(TUNING_SWEEP["knobs"]), TUNING_SWEEP["budget"])
+    sweep_launches = dict(pe.LAUNCHES)
+    for op in ("density_lists", "iad_lists", "momentum_energy_std_lists", "mark"):
+        if not sweep_launches.get(op):
+            raise AssertionError(f"tuning sweep: {op} never launched ({sweep_launches})")
+    rows = [{"candidate": r["candidate"], "knobs": r["knobs"], "status": r["status"],
+             "per_step_ms": 1e3 * r["per_step_s"] if "per_step_s" in r else None,
+             "rollbacks": r.get("rollbacks"), "config": r.get("config"),
+             "error": r.get("error")}
+            for r in result["history"]]
+    ok = [r for r in result["history"] if r["status"] == "ok"]
+    if len(result["history"]) != TUNING_SWEEP["budget"] or not ok:
+        raise AssertionError(f"tuning sweep: {rows}")
+    emit({"phase": "tuning_sweep", "card": smi, "case": "sedov", "side": 100,
+          **TUNING_SWEEP, "candidates": rows, "improved": result["improved"],
+          "best": result["best"], "launches": sweep_launches,
+          "seconds": time.perf_counter() - t1})
+
+    t2 = time.perf_counter()
+    commit = result["best"]["knobs"] or min(
+        (r for r in ok if r["knobs"]), key=lambda r: r["value"])["knobs"]
+    cand = next(r for r in result["history"] if r["knobs"] == commit)
+    table = new_table()
+    upsert_entry(table, make_entry("sedov", sweep.n, 1, "pallas", commit, {
+        "source_run": "chip_smoke.py tuning_path", "created": time.strftime("%Y-%m-%d"),
+        "objective": "per_step_s", "baseline": result["baseline"].get("value"),
+        "best": cand["value"], "device": card_label("cuda")}))
+    if validate_table(table):
+        raise AssertionError(f"tuning table: {validate_table(table)}")
+
+    def reader(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tcli.main(argv)
+        return rc, buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as wd:
+        path = os.path.join(wd, "table.json")
+        save_table(path, table)
+        tel, trace = os.path.join(wd, "tel"), os.path.join(wd, "trace")
+        pe.reset_launches()
+        rc = app.main(["--init", "sedov", "-n", "100", "-s", "8", "--check-every", "4",
+                       "--tuned", path, "--telemetry-dir", tel, "--trace-dir", trace,
+                       "-o", os.path.join(wd, "out"), "--quiet"])
+        cli_launches = dict(pe.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"tuned CLI: exit {rc}")
+        s_rc, _ = reader(["summary", "--strict", tel])
+        t_rc, t_out = reader(["tuning", tel, "--format", "json"])
+        c_rc, c_out = reader(["trace", trace, "--min-coverage", "0.8", "--format", "json"])
+    stamp = json.loads(t_out)["manifest_tuning"] if t_out.strip() else None
+    tr = json.loads(c_out) if c_out.strip() else {}
+    if s_rc or t_rc or c_rc or not stamp or stamp.get("source") != "table" \
+            or stamp.get("knobs") != commit:
+        raise AssertionError(f"tuned CLI reader: summary {s_rc}, tuning {t_rc} {stamp}, "
+                             f"trace {c_rc} {tr.get('coverage')}")
+    for op in ("density_lists", "iad_lists", "momentum_energy_std_lists", "mark"):
+        if not cli_launches.get(op):
+            raise AssertionError(f"tuned CLI: {op} never launched ({cli_launches})")
+    emit({"phase": "tuning_cli", "card": smi, "table_entry": table["entries"][0],
+          "manifest_tuning": stamp, "summary_strict_rc": s_rc, "tuning_rc": t_rc,
+          "trace_rc": c_rc, "trace_coverage": tr.get("coverage"),
+          "trace_phases": {p["phase"]: p["us"] for p in tr.get("phases", [])},
+          "launches": cli_launches, "seconds": time.perf_counter() - t2,
+          "phase_seconds": time.perf_counter() - t0})
+    return {"tuning_sweep": sweep_launches, "tuning_cli": cli_launches}
 
 
 def main() -> int:
@@ -3758,7 +3889,7 @@ def main() -> int:
 
     state, box, const = init_evrard(125, device="cuda")
     evr = drive(lambda: Simulation(state, box, const, prop="ve", device="cuda",
-                                   obs_spec=spec), steps=3,
+                                   obs_spec=spec), steps=2,
                 label="evrard_path")
     esim, ea = evr["sim"], evr["launches"]
     check_launches("Evrard", ea, evr["attempts"], (
@@ -3873,6 +4004,9 @@ def main() -> int:
     # ranks (sharded_gather_path)
     gather_path(spec, smi)
     sharded_gather_path(smi)
+    # 28. the tuning package and --tuned: every knob shape held to the plain
+    # versions, a sweep at full width, the tuned CLI and the port's reader
+    tune_launches = tuning_path(spec, smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -3937,7 +4071,7 @@ def main() -> int:
     new_paths = {"turb_ve": turb_launches, "std_cooling_cie": cool_launches["cie"],
                  "std_cooling_evolved": cool_launches["evolved"],
                  **{f"inits_{c}": la for c, la in init_launches.items()}, **bdt_launches,
-                 **app_launches}
+                 **app_launches, **tune_launches}
     kernels = []
     for name, (r, b, launches, op) in where.items():
         kernels.append({

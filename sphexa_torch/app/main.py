@@ -31,6 +31,8 @@
         --memory-profile out/mem.pickle -o out
     python -m sphexa_torch.app.main --init sedov -n 30 -s 3 --debug-checks
     python -m sphexa_torch.app.main --init noh -n 14 -s 3 --backend xla --device cpu
+    python -m sphexa_torch.app.main --init sedov -n 100 -s 8 --check-every 4 \
+        --tuned TUNING_TABLE_TORCH.json --telemetry-dir out/tel
 
 Flag names follow the JAX package's CLI (sphexa_tpu/app/main.py). ``-s``
 is a number of iterations when it is an integer, else a simulated time;
@@ -77,11 +79,24 @@ to the case's file and ``constants.txt`` loses its rows past the
 restart point. ``--init <dump>,N`` up-samples a dump N-fold, ``--init
 case:settings.json`` overrides a case's settings.
 
-``--telemetry-dir`` writes the run directory the JAX package's
-``sphexa-telemetry`` reads: ``manifest.json``, ``events.jsonl`` (the
+``--telemetry-dir`` writes the run directory that the port's reader
+``python -m sphexa_torch.telemetry`` (and the JAX package's
+``sphexa-telemetry``) reads: ``manifest.json``, ``events.jsonl`` (the
 driver's events and the memory events), and on an abnormal end
 ``blackbox.json`` (the flight recorder). Runs on the CUDA device unless
-``--device cpu`` is given, and raises without one.
+``--device cpu`` is given, and raises without one. ``--cpu-mesh`` is the
+JAX CLI's flag for a CPU mesh: here it means ``--device cpu`` (gloo ranks
+with ``--devices``), so that the JAX package's command lines run
+unchanged.
+
+``--tuned`` resolves the tuned knobs (sphexa_torch/tuning) through a
+tuning table: ``auto`` the port's committed ``TUNING_TABLE_TORCH.json``,
+else a table path; a flag given on the command line beats the table
+entry, which beats the default (``--check-every``, ``--bin-sync-every``
+and ``--bin-resort-drift`` are unset by default for that reason, with the
+same result when unset). The table is keyed by the case's name, the
+particle count's decade, the rank count and the backend; the manifest
+carries the resolution (``tuning``), and a ``tuning`` event goes out.
 
 ``--devices N`` (every propagator and ``--dt-bins``, with self-gravity
 too: the evrard inits, ``--G`` on a periodic box) runs N ranks, each a
@@ -226,10 +241,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hierarchical block time steps: number of power-of-two "
                         "per-particle dt bins (std/ve propagators; unset = the global dt, "
                         "1 = the global step)")
-    p.add_argument("--bin-sync-every", type=int, default=1, dest="bin_sync_every",
+    p.add_argument("--bin-sync-every", type=int, default=None, dest="bin_sync_every",
                    help="cycles between bin reassignments at the sync substep (block-dt "
                         "mode; default 1)")
-    p.add_argument("--bin-resort-drift", type=float, default=0.0, dest="bin_resort_drift",
+    p.add_argument("--bin-resort-drift", type=float, default=None, dest="bin_resort_drift",
                    help="keep the particle order while folded-key inversions stay under "
                         "this fraction of n (block-dt mode; default 0 = resort on any "
                         "inversion)")
@@ -241,11 +256,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--duration", type=float, default=None,
                    help="maximum wall-clock run time in seconds; dumps a final "
                         "snapshot before exiting if dumps are on")
-    p.add_argument("--check-every", type=int, default=1, dest="check_every",
+    p.add_argument("--check-every", type=int, default=None, dest="check_every",
                    help="deferred check window: launch N steps with no read of the "
                         "card, check their diagnostics in one read at the window's "
                         "end, roll back and replay on an overflow (default 1: every "
-                        "step checked)")
+                        "step checked; unset, --tuned may resolve it from the table)")
+    p.add_argument("--tuned", default=None,
+                   help="resolve the tuned knobs through a tuning table: 'auto' = the "
+                        "port's TUNING_TABLE_TORCH.json, or a table path; flags given "
+                        "on the command line beat the table's entry")
     p.add_argument("--drift-budget", type=float, default=None, dest="drift_budget",
                    help="conservation-drift watchdog: relative total-energy budget "
                         "|etot-etot0|/|etot0| (telemetry 'drift' events; default: "
@@ -255,6 +274,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "blackbox.json on an abnormal end) to this directory")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' (plain PyTorch versions)")
+    p.add_argument("--cpu-mesh", action="store_true", dest="cpu_mesh",
+                   help="the JAX CLI's CPU-mesh flag: here --device cpu (gloo ranks "
+                        "with --devices)")
     p.add_argument("--devices", type=int, default=None,
                    help="run N ranks, one SFC slab each (gloo with --device cpu, else NCCL "
                         "on N cards; default: one device)")
@@ -360,6 +382,12 @@ def _finish_trace(profiler, trace_dir: str, rank: int, telemetry, log) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    if args.cpu_mesh:
+        if args.device not in (None, "cpu"):
+            print(f"--cpu-mesh runs on the CPU; drop --device {args.device}",
+                  file=sys.stderr)
+            return 2
+        args.device = "cpu"
     if args.prop not in _STEPS:
         print(f"unknown --prop {args.prop!r}; available: {sorted(_STEPS)}", file=sys.stderr)
         return 2
@@ -506,7 +534,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          halo_mode=args.halo_mode, imbalance_ratio=args.imbalance_ratio,
                          snap_spec=snap_spec, snap_every=snap_every,
                          snap_keep=args.snap_keep, snap_dir=snap_dir,
-                         debug_checks=args.debug_checks, backend=args.backend)
+                         debug_checks=args.debug_checks, backend=args.backend,
+                         tuned=args.tuned, workload=case_name or args.init)
     except (NotImplementedError, ValueError) as e:
         print(str(e), file=sys.stderr)
         if recorder is not None:
@@ -520,7 +549,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             config={k: v for k, v in vars(args).items()
                     if isinstance(v, (str, int, float, bool, type(None)))},
             particles=state.n, device=sim.device,
-            extra={"case": case_name or args.init, "prop": args.prop})
+            # the knobs the run uses and why: the manifest's half of the
+            # tuning event
+            extra={"case": case_name or args.init, "prop": args.prop,
+                   "tuning": sim.tuning_provenance})
         # the baseline the post-compile and flush snapshots are read against
         emit_memory_event(telemetry, "manifest", devices=[sim.device])
         log(f"# telemetry -> {args.telemetry_dir}")

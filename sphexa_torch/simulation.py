@@ -73,6 +73,23 @@ def resolve_backend(backend: str) -> str:
     return backend
 
 
+#: tuned knobs the (re)configurations forward whole: the neighbour engine's
+#: shape into make_propagator_config, the gravity solver's on top of
+#: gravity_tuning (the JAX package's _NBR_FORWARDED / _GRAV_FORWARDED, less
+#: blocks_per_chunk, which the port does not have)
+_NBR_FORWARDED = ("cell_target", "run_cap", "gap", "group")
+_GRAV_FORWARDED = ("target_block", "super_factor")
+
+#: every knob name the Simulation constructor consumes: the ones it
+#: resolves itself and the forwarded groups. tuning.knobs checks the off
+#: sentinels against it at import, so that a renamed resolution site fails
+#: there instead of ``tuned={name: off}`` silently doing nothing
+CONSUMED_KNOBS = (
+    "block", "list_skin_rel", "m2p_cap_margin", "check_every",
+    "grav_window", "grav_window_margin", "dt_bins", "bin_sync_every",
+    "bin_resort_drift",
+) + _NBR_FORWARDED + _GRAV_FORWARDED
+
 #: the propagators' step functions (the JAX package's _PROPAGATORS)
 _STEPS = {"std": _step_hydro_std, "ve": _step_hydro_ve, "turb-ve": _step_turb_ve,
           "std-cooling": _step_hydro_std_cooling, "nbody": _step_nbody}
@@ -119,6 +136,8 @@ def make_propagator_config(
     sizing_cache=None,
     mesh=None,
     backend: str = "pallas",
+    tuned: object = None,
+    workload: Optional[str] = None,
 ) -> PropagatorConfig:
     """Size the static neighbour config from the current particles, as the
     JAX function does: grid level from h_max and the mean cell occupancy,
@@ -140,15 +159,29 @@ def make_propagator_config(
     and the widest group are taken over every rank (``sizing_stats``:
     the slabs sorted as the step sorts them, groups within each slab for
     the engine, the global array's groups for the gather backend, whose
-    config is then the one-device one), and the lists stay off."""
+    config is then the one-device one), and the lists stay off.
+
+    ``tuned`` (sphexa_torch/tuning: None, "auto", a table path or dict, or
+    a knob dict) and ``workload`` resolve the engine knobs (block,
+    cell_target, run_cap, gap, group, list_skin_rel): a keyword given here
+    beats a table entry, which beats the defaults. The lookup is the
+    one-device one (P = 1); ``Simulation`` resolves with its rank count
+    and passes the winners explicitly."""
     backend = resolve_backend(backend)
-    block = block or _DEFAULTS["block"]
-    cell_target = cell_target or _DEFAULTS["cell_target"]
-    run_cap = _DEFAULTS["run_cap"] if run_cap is None else run_cap
-    gap = _DEFAULTS["gap"] if gap is None else gap
-    group = group or _DEFAULTS["group"]
-    if list_skin_rel is None:
-        list_skin_rel = _DEFAULTS["list_skin_rel"]
+    explicit = {k: v for k, v in (("block", block), ("cell_target", cell_target),
+                                  ("run_cap", run_cap), ("gap", gap), ("group", group),
+                                  ("list_skin_rel", list_skin_rel))
+                if v is not None}
+    table = {}
+    if tuned is not None:
+        from sphexa_torch.tuning.table import resolve_knobs
+
+        n_all = state.n * (mesh.size if mesh is not None else 1)
+        table, _ = resolve_knobs(tuned, workload=workload, n=n_all, p=1, backend=backend,
+                                 explicit=explicit)
+    block, cell_target, run_cap, gap, group, list_skin_rel = (
+        explicit.get(k, table.get(k, _DEFAULTS[k]))
+        for k in ("block", "cell_target", "run_cap", "gap", "group", "list_skin_rel"))
 
     lengths = box.lengths.cpu().numpy()
     h_max = state.h.max()
@@ -326,6 +359,19 @@ class Simulation:
     all window cells or cap + 1) and the deferred windows are the same on
     both.
 
+    ``tuned`` (sphexa_torch/tuning): None, "auto" (the port's committed
+    ``TUNING_TABLE_TORCH.json``), a table path or dict, or a plain knob
+    dict (a sweep's candidate), resolved once here for (``workload``, N,
+    ``num_devices``, the resolved backend): a keyword the caller gave (not
+    None) beats a table entry, which beats the default or the
+    ``gravity_tuning`` heuristic. The neighbour knobs (cell_target,
+    run_cap, gap, group) reach every (re)configuration, on one card and
+    on a mesh; the gravity knobs (target_block, super_factor) go on top of
+    ``gravity_tuning``'s shape (super_factor > 0 with the bitmask
+    compaction on the engine backend, else the sort). ``tuning_provenance``
+    names the winner of each knob, and a ``tuning`` event goes out when
+    ``tuned`` is not None. Without ``tuned`` nothing changes.
+
     ``debug_checks``: every step runs under the sanitizer
     (util/phases.py): the first NaN or Inf of a stage's outputs, or the
     first out-of-range run of a kernel's index tables, is the step's
@@ -340,22 +386,54 @@ class Simulation:
                  prop: str = "std", device=None, curve: str = "hilbert",
                  cell_target: Optional[int] = None, use_lists: bool = True,
                  list_skin_rel: Optional[float] = None, av_clean: bool = False,
-                 check_every: int = 1, obs_spec=None,
+                 check_every: Optional[int] = None, obs_spec=None,
                  telemetry: Optional[Telemetry] = None, science_rows: bool = False,
                  drift_budget: Optional[float] = None, theta: float = THETA,
                  m2p_cap_margin: Optional[float] = None, turb_cfg=None, turb_state=None,
                  turb_settings: Optional[Dict] = None,
                  cooling_cfg: Optional[CoolingConfig] = None,
                  chem: Optional[ChemistryData] = None, dt_bins: Optional[int] = None,
-                 bin_sync_every: int = 1, bin_resort_drift: float = 0.0,
+                 bin_sync_every: Optional[int] = None,
+                 bin_resort_drift: Optional[float] = None,
                  num_devices: Optional[int] = None, halo_mode: str = "sparse",
-                 imbalance_ratio: float = 1.5, grav_window: int = 256,
-                 grav_window_margin: float = 1.4, snap_spec=None,
+                 imbalance_ratio: float = 1.5, grav_window: Optional[int] = None,
+                 grav_window_margin: Optional[float] = None, snap_spec=None,
                  snap_every: Optional[int] = None, snap_keep: Optional[int] = None,
                  snap_dir: Optional[str] = None, debug_checks: bool = False,
                  backend: str = "auto", ngmax: Optional[int] = None,
-                 block: Optional[int] = None):
+                 block: Optional[int] = None, tuned: object = None,
+                 workload: Optional[str] = None):
         self.backend = resolve_backend(backend)
+        # the tuned knobs: a keyword given here beats the table entry,
+        # which beats the default (the keywords default to None so that
+        # they stay detectable)
+        explicit = {k: v for k, v in (
+            ("block", block), ("cell_target", cell_target), ("list_skin_rel", list_skin_rel),
+            ("m2p_cap_margin", m2p_cap_margin), ("check_every", check_every),
+            ("grav_window", grav_window), ("grav_window_margin", grav_window_margin),
+            ("dt_bins", dt_bins), ("bin_sync_every", bin_sync_every),
+            ("bin_resort_drift", bin_resort_drift)) if v is not None}
+        from sphexa_torch.tuning.table import resolve_knobs
+
+        knobs, self.tuning_provenance = resolve_knobs(
+            tuned, workload=workload, n=state.n, p=num_devices or 1, backend=self.backend,
+            explicit=explicit)
+
+        def _knob(name, default):
+            return explicit.get(name, knobs.get(name, default))
+
+        block = _knob("block", None)
+        list_skin_rel = _knob("list_skin_rel", None)
+        m2p_cap_margin = _knob("m2p_cap_margin", None)
+        check_every = _knob("check_every", 1)
+        grav_window = _knob("grav_window", 256)
+        grav_window_margin = _knob("grav_window_margin", 1.4)
+        dt_bins = _knob("dt_bins", None)
+        bin_sync_every = _knob("bin_sync_every", 1)
+        bin_resort_drift = _knob("bin_resort_drift", 0.0)
+        # the knobs every (re)configuration forwards
+        self._nbr_knobs = {k: knobs[k] for k in _NBR_FORWARDED if k in knobs}
+        self._grav_knobs = {k: knobs[k] for k in _GRAV_FORWARDED if k in knobs}
         self.ngmax = ngmax or const.ngmax
         self.block = block
         if prop not in _STEPS:
@@ -428,6 +506,9 @@ class Simulation:
         # rebuild) and step timing reports here; the instrumentation is
         # host-only and adds no read of the card to a deferred window
         self.telemetry = telemetry if telemetry is not None else Telemetry()
+        if tuned is not None:
+            # the decision is itself telemetry: which knobs are active and why
+            self.telemetry.event("tuning", workload=workload, **self.tuning_provenance)
         self._gtree = None
         self.grav_configure_seconds = 0.0  # the last tree build and cap sizing
         self.av_clean = av_clean
@@ -585,13 +666,14 @@ class Simulation:
                                    nbr=NeighborConfig(level=1, cap=1, ngmax=self.ngmax,
                                                       curve=self.curve))
         else:
+            # the tuned neighbour knobs ride every (re)configuration
+            nbr_knobs = {"cell_target": self.cell_target, **self._nbr_knobs}
             cfg = make_propagator_config(
                 self.state, self.box, self.const, ngmax=self.ngmax, block=self.block,
-                backend=self.backend, curve=self.curve,
-                min_cap=min_cap, cell_target=self.cell_target,
+                backend=self.backend, curve=self.curve, min_cap=min_cap,
                 use_lists=self._want_lists, list_skin_rel=self._list_skin_rel,
                 list_slot_margin=self._slot_margin, sizing_cache=sizing_cache,
-                mesh=self.mesh)
+                mesh=self.mesh, **nbr_knobs)
         self._cfg = dataclasses.replace(cfg, av_clean=self.av_clean, obs=self._obs_spec,
                                         snap=self._snap_spec, dt_bins=self.dt_bins,
                                         bin_sync_every=self.bin_sync_every,
@@ -661,6 +743,18 @@ class Simulation:
         ships and the bytes a step ships ({} without)."""
         return dict(self._grav_halo_info)
 
+    def _gravity_shape(self, n: int) -> Dict:
+        """The solver's shape at n particles: ``gravity_tuning``'s, the
+        tuned gravity knobs on top; a tuned super_factor keeps the
+        heuristic's invariant (the two-level classification exists only as
+        the engine backend's bitmask compaction; 0 is the sort)."""
+        shape = gravity_tuning(n, self.backend == "pallas")
+        shape.update(self._grav_knobs)
+        if "super_factor" in self._grav_knobs:
+            shape["compaction"] = ("bitmask" if shape["super_factor"] > 0
+                                   and self.backend == "pallas" else "sort")
+        return shape
+
     def _configure_gravity(self, margin: float, keys_cache) -> None:
         """(Re)build the gravity tree from the particles' keys and size
         the interaction-list caps (simulation.py _configure_gravity): the
@@ -682,8 +776,7 @@ class Simulation:
         gcfg = estimate_gravity_caps(
             xs, ys, zs, ms, keys[order], self.box, gtree, meta,
             GravityConfig(theta=self.theta, G=self.const.g,
-                          m2p_cap_margin=self.m2p_cap_margin,
-                          **gravity_tuning(s.n, self.backend == "pallas")),
+                          m2p_cap_margin=self.m2p_cap_margin, **self._gravity_shape(s.n)),
             margin=margin)
         self._gtree = gtree
         self._cfg = dataclasses.replace(self._cfg, gravity=gcfg, grav_meta=meta,
@@ -711,7 +804,7 @@ class Simulation:
             xs, ys, zs, ms, skeys, self.box, gtree, meta,
             GravityConfig(theta=self.theta, G=self.const.g,
                           m2p_cap_margin=self.m2p_cap_margin,
-                          **gravity_tuning(s.n * mesh.size, self.backend == "pallas")),
+                          **self._gravity_shape(s.n * mesh.size)),
             margin=margin, multipoles=mps, let_shards=mesh.size, mesh=mesh)
         ewald = EwaldConfig() if self.ewald_on else None
         self._grav_cells = ()

@@ -3,7 +3,9 @@ run manifest, crash flight recorder and memory events): one registry
 (``Telemetry``) with pluggable sinks.
 
 - ``JsonlSink``  — ``events.jsonl`` per run, in the JAX package's event
-  schema (version 8), readable by its ``sphexa-telemetry`` CLI;
+  schema (version 8), read by the port's own ``python -m
+  sphexa_torch.telemetry`` (cli.py, history.py, serve.py; no device, no
+  JAX) and by the JAX package's ``sphexa-telemetry``;
 - ``MemorySink`` — in-memory event list for tests and chip_smoke.py;
 - ``ConsoleSink``— human-readable notable-event lines;
 - ``RingSink``   — the flight recorder's event tail (``FlightRecorder``

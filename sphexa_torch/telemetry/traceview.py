@@ -198,3 +198,33 @@ def phase_attr_digest(summary: Dict) -> Dict:
         "coverage": round(summary["coverage"], 4),
         "total_device_us": summary["total_device_us"],
     }
+
+
+def render_trace(s: Dict) -> str:
+    """The text view of ``summarize_trace``'s summary (the ``trace``
+    subcommand): the phases' device time and share, the coverage, and the
+    top unattributed ops."""
+    from sphexa_torch.telemetry.tables import render_table
+
+    lines = [f"trace: {s['trace_dir']}"]
+    lines.append(
+        f"  {s['device_op_events']} {s['device']} op events, "
+        f"{s['total_device_us'] / 1e3:.3f} ms op time, "
+        f"{len(s['trace_files'])} chrome trace(s)")
+    if not s["phases"]:
+        lines.append("  no sphexa/ phases found: was the capture taken with "
+                     "--trace-dir (the step's phase ranges open only under a "
+                     "profiler)?")
+        return "\n".join(lines)
+    rows = [(p["phase"], f"{p['us'] / 1e3:.3f} ms", f"{p['share']:.1%}",
+             p["ops"], p["events"]) for p in s["phases"]]
+    lines.append(render_table(
+        rows, headers=("phase", "device time", "share", "ops", "events")))
+    lines.append(f"attributed: {s['attributed_us'] / 1e3:.3f} ms "
+                 f"({s['coverage']:.1%} of op time)")
+    if s["unattributed_top"]:
+        lines.append("top unattributed ops:")
+        rows = [(u["module"], u["op"], f"{u['us'] / 1e3:.3f} ms",
+                 f"{u['share']:.1%}") for u in s["unattributed_top"]]
+        lines.append(render_table(rows))
+    return "\n".join(lines)

@@ -1119,3 +1119,33 @@ def test_sharded_gather_two_ranks_on_one_card(tmp_path):
     assert out[0]["truncation"]["bits_equal"]
     assert out[0]["truncation"]["truncated_rows"] == out[0]["truncation"]["n"]
     assert out[0]["path"]["vs_one_device"]["h_equal"]
+
+
+# -- the tuned knobs' kernel shapes (kernels/tuning_checks.py, shared with
+# chip_smoke.py's tuning_path phase) ------------------------------------------
+
+
+def test_tuning_engine_shapes_match_plain():
+    """K1's std ops at group 32 / 64 / 128 and at run_cap 1024 / 2048 x gap
+    128 / 512; the list build (K5, bit for bit) and the walks (K6) at the
+    three groups and at list_skin_rel 0.1 / 0.3; each against its plain
+    version on the jittered Sedov 40, with chip_smoke's tolerances."""
+    _need_card()
+    from sphexa_torch.kernels import tuning_checks
+
+    res = tuning_checks.engine_shapes("cuda")
+    assert len(res) == 2 * len(tuning_checks.GROUPS) + len(tuning_checks.RUN_CAPS) * len(
+        tuning_checks.GAPS) + len(tuning_checks.SKINS)
+    assert all(r["mark"]["bits_equal"] for k, r in res.items() if k.endswith(":lists"))
+
+
+def test_tuning_gravity_shapes_match_plain():
+    """K12 and K13 at target_block 128 / 256 x super_factor 0 / 4 / 16 on
+    the solves the tuned Simulation configures (VE Evrard 30)."""
+    _need_card()
+    from sphexa_torch.kernels import tuning_checks
+
+    res = tuning_checks.gravity_shapes("cuda")
+    assert len(res) == len(tuning_checks.TARGET_BLOCKS) * len(tuning_checks.SUPER_FACTORS)
+    for key, r in res.items():
+        assert r["compaction"] == ("sort" if key.endswith("=0") else "bitmask")

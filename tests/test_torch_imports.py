@@ -62,7 +62,12 @@ def test_port_sources_found():
                 ("util", "substep_profile.py"), ("observables", "snapshot.py"),
                 ("viz.py",), ("telemetry", "traceview.py"), ("kernels", "app_checks.py"),
                 ("sph", "pairs.py"), ("util", "blocking.py"), ("kernels", "gather_checks.py"),
-                ("kernels", "sharded_gather_checks.py")):
+                ("kernels", "sharded_gather_checks.py"), ("tuning", "__init__.py"),
+                ("tuning", "__main__.py"), ("tuning", "knobs.py"), ("tuning", "table.py"),
+                ("tuning", "search.py"), ("tuning", "replay.py"), ("tuning", "cli.py"),
+                ("telemetry", "cli.py"), ("telemetry", "__main__.py"),
+                ("telemetry", "history.py"), ("telemetry", "serve.py"),
+                ("telemetry", "tables.py"), ("kernels", "tuning_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
