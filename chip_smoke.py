@@ -269,6 +269,21 @@ Phases, each printed as one JSON line:
    a ``--trace-dir`` capture, in this process, its launches counted), then
    the port's reader: ``summary --strict`` and ``tuning`` (source "table")
    exit 0, the trace's coverage >= 0.8;
+29. ``cost_path``, the static roofline cost layer (devtools/audit): (a)
+   ``python -m sphexa_torch.devtools.audit cost --device h100`` over the
+   registry on the card exits 0 against COST_BUDGET_TORCH.json, and each
+   entry's per-phase FLOPs and both byte counts, and those of two
+   list-mode cases (Noh 12, std and VE: K5 and the K6 walks), equal its
+   CPU tally, its kernel charges its launches (``kernels/cost_checks.py``); (b) the phase
+   roofline of the main path: ``COST_STEPS`` steps of std Sedov 100^3 in
+   list mode captured by the CLI's ``--trace-dir``, the same steps from
+   the same state tallied (``cost_main_path``, the calibration target),
+   per phase measured us, predicted us on ``h100``, their ratio and the
+   bound class; ``calibration.json`` written beside the capture, ``trace
+   --predict`` exits 0, and 1 with the momentum body's rule scaled by 10;
+   (c) the main path's device events a step after the tallies as before
+   this layer (``MAIN_PATH_EVENTS``), a step's outputs and launches the
+   same before a tally, under it and after it;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -285,7 +300,8 @@ each std and VE op on the sharded paths, ``name:jdata``, their launches
 on every sharded path; K12's jdata form on the sharded gravity and N-body
 paths, ``gravity_p2p:jdata``; K13's one-row form on a rank's slab,
 ``compact_class_lists:row:slab``; the tuning sweep's and the tuned CLI's
-launches, ``tuning_sweep`` and ``tuning_cli``), the nvidia-smi
+launches, ``tuning_sweep`` and ``tuning_cli``; the cost layer's,
+``cost_registry`` and ``cost_main_path``), the nvidia-smi
 line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero and prints no result; without a CUDA device, or
@@ -302,87 +318,15 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
+# the kernels' bound formulas (the static cost layer charges the same rules)
+from sphexa_torch.devtools.audit.core import EntryCase, entrypoint  # noqa: E402
+from sphexa_torch.kernels.costs import (  # noqa: E402
+    PEAK_FP32_FLOPS, SYM_BODIES, body_of, COMPACT_ROW_OPS, PEAK_INT32_OPS,
+    GRAV_MASK_OPS, GRAV_BODY_OPS, _bound, bounds, list_bounds, gravity_bounds,
+    p2p_jdata_bound,
+)
+from sphexa_torch.sph.pair_engine import momentum_pair_counts  # noqa: E402
 
-# FP32 operations per candidate pair for the mask (3 shift adds, 3
-# subtractions, 3 multiplies, 2 adds, the 2h compare, the self compare;
-# the symmetric cutoff, tested on the pairs the mask kept, a multiply and
-# a compare per neighbour pair) and per neighbour
-# pair for the op's body (an FMA counts 2; the kernel polynomial is 13
-# FMAs + 4 for its argument, clamp and floor = 30). The list walk adds
-# each candidate's shift once, where it stages it (SHIFT_OPS per marked
-# lane), and a walk that reads a kept mask computes the separation and
-# d^2 only of the pairs the mask kept (GEOM_OPS: 3 subtractions, 3
-# multiplies, 2 adds)
-MASK_OPS = 12
-SYM_OPS = 2
-SHIFT_OPS = 3
-GEOM_OPS = 8
-# The VE bodies, counted the same way from csrc/pair_ops.cuh (an rsqrt,
-# sqrt or expf counts 1; the dterh polynomial 29, as W's without its
-# floor; each IAD projection (C r) w is 18), the operations every pair
-# under the mask runs:
-# - ve_def_gradh: u 1 + W 30 + dterh 29 + 3 FMA sums 6 = 66;
-# - iad_divv_curlv: -W 32 + projection 18 + 3 velocity differences +
-#   divergence 7 + three curl components 15 = 75; with gradv the nine
-#   sums xm v_a tA_b 27 instead of 22 = 80;
-# - av_switches: w 33 + 3 differences + r.v 5 + rsqrt 1 + signal
-#   velocity 6 + projection 18 + factor 2 + 3 FMA sums 6 = 74;
-# - momentum_energy_ve: u_i, u_j 2 + w_i, w_j 64 + 3 differences + r.v 5
-#   + rsqrt 1 + w_ij, c_ij 2 + v_sig 5 + visc 2 + max 3 + two projections
-#   36 + Atwood number 4 and its two compares 2 + viscous weights 4 + av
-#   terms 12 + viscous energy 6 + energy 8 + pressure weights 4 + three
-#   momentum sums 15 = 178; av_clean adds 45 (two r.G r 28, eta_ab 3 and
-#   its compare 1, A and phi 10, the r.v update 3) = 223.
-# A wendland-c6 form evaluates a degree-19 polynomial (csrc/pair_ops.cuh
-# NCOEF_WENDLAND): 6 more FMAs, 12 operations, per evaluation (POLY_EVALS
-# a pair: W, and grad-h's dterh).
-POLY_EVALS = {"density": 1, "iad": 1, "momentum_energy_std": 2, "ve_def_gradh": 2,
-              "iad_divv_curlv": 1, "iad_divv_curlv_gradv": 1, "av_switches": 1,
-              "momentum_energy_ve": 2, "momentum_energy_ve_clean": 2}
-BODY_OPS = {"density": 32, "iad": 32 + 18, "momentum_energy_std": 2 * 30 + 96,
-            "ve_def_gradh": 66, "iad_divv_curlv": 75, "iad_divv_curlv_gradv": 80,
-            "av_switches": 74, "momentum_energy_ve": 178, "momentum_energy_ve_clean": 223}
-# operations only the pairs that take a branch run (counted per pair by
-# ``momentum_pair_counts``): the Atwood ramp (sigma 2, dl 1, the exponent
-# and its negation 2, two expf 2, two products 2), the crossed volume
-# element (1 product), the av_clean limiter (eta_diff 2, its square 1,
-# negation 1, expf 1)
-BRANCH_OPS = {"ramp": 9, "crossed": 1, "limiter": 5}
-# ops with the symmetric cutoff d^2 < 4 h_j^2 in their mask
-SYM_BODIES = ("momentum_energy_std", "momentum_energy_ve", "momentum_energy_ve_clean")
-# an entry point's body: its name without the list walk's suffix, and the
-# av_clean forms of divv/curlv and VE momentum where the path runs them
-AV_CLEAN_BODY = {"iad_divv_curlv": "iad_divv_curlv_gradv",
-                 "momentum_energy_ve": "momentum_energy_ve_clean"}
-
-
-def body_of(op: str, av_clean: bool = False) -> str:
-    body = op[:-len("_lists")] if op.endswith("_lists") else op
-    return AV_CLEAN_BODY.get(body, body) if av_clean else body
-
-# FP32 operations per lane of the mark pass (2 run-bound compares, 3 shift
-# adds, 6 bbox compares)
-MARK_OPS = 11
-# integer operations of the list build's merge and prune (K5): per window
-# cell, log2(W3) compares of a comparison sort (the counting rank the
-# kernel runs does W3) and 8 for the merge (the link's shift and gap
-# tests, the run_cap test, the run end); per slot of a group's chunks, 8
-# for the prune (kept, head, the two scans' adds, the pruned bounds)
-MERGE_CELL_OPS = 8
-PRUNE_SLOT_OPS = 8
-# bytes of one window cell in the cull tables K5 reads: int64 start and
-# length, the bool verdict, three float32 shifts
-CULL_CELL_BYTES = 8 + 8 + 1 + 12
-# distinct float32 per-particle arrays each op reads and writes (each read
-# or written once), besides the run tables (5 x NG x W3 + NG words): the
-# precombined i-fields, the j-fields the i-side lacks, and the outputs
-IO_ARRAYS = {"density": (6, 2), "iad": (6, 6), "momentum_energy_std": (21, 5),
-             "ve_def_gradh": (7, 2), "iad_divv_curlv": (16, 2),
-             "iad_divv_curlv_gradv": (16, 8), "av_switches": (19, 1),
-             "momentum_energy_ve": (24, 5), "momentum_energy_ve_clean": (31, 5)}
 # the TPU kernel each entry point replaces: the op's wrapper (whose
 # pallas_call runs K1, sph/pallas_pairs.py:816, or in list mode the list
 # walk K6, :1080, or for density, IAD, grad-h and plain divv/curlv K1's
@@ -418,21 +362,6 @@ TPU_KERNEL.update({"gravity_p2p": "sphexa_tpu/gravity/traversal.py:454",
                    "compact_class_lists": "sphexa_tpu/gravity/pallas_compact.py:155"})
 SOURCE.update({"gravity_p2p": "sphexa_torch/csrc/gravity_p2p.cu",
                "compact_class_lists": "sphexa_torch/csrc/gravity_compact.cu"})
-# K12 (the near-field function, traversal.py pair_body), per candidate
-# pair: the geometry and self test (3 subtractions, d^2 5, the self
-# compare) = 9; the body: h_i + h_j, its square, two max, rsqrt, w 3, four
-# products 4, four float32 accumulations 4 = 16.
-GRAV_MASK_OPS = 9
-GRAV_BODY_OPS = 16
-# K13 per packed slot: the class shift, two class compares, its rank in
-# its class (a running count: about four integer operations a slot), the
-# cap compare, the value mask and the store index = 10 integer
-# operations, at the INT32 rate (half the FP32 rate)
-COMPACT_OPS = 10
-# its one-row form per row: the flag's compare, its bit, its share of the
-# popcount rank and its position = 4 integer operations
-COMPACT_ROW_OPS = 4
-PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
 
 
 def emit(obj) -> None:
@@ -633,90 +562,6 @@ def compare_ve(name, ss, box, const, nbr, av_clean, keys=None, ranges=None, list
         res[mkey]["pairs"] = momentum_pair_counts(mspec, mfields, consts, group, runs=runs,
                                                   fold=fold, lists=lists)
     return res
-
-
-def momentum_pair_counts(spec, fields, consts, group, runs=None, fold=False, lists=None):
-    """The pairs a momentum op's body runs on (its mask: d^2 < 4 h_i^2 and,
-    with the symmetric cutoff, d^2 < 4 h_j^2) and, for the VE op, those of
-    them that take each branch with operations of its own (BRANCH_OPS):
-    the Atwood ramp, the crossed volume element, the av_clean limiter.
-    Counted by the plain engine on the op's own fields, the branch tests
-    copied from the body (csrc/pair_ops.cuh MomentumEnergyVeOp)."""
-    import torch
-
-    from sphexa_torch.sph import pair_engine as pe
-
-    ve = spec.name == "momentum_energy_ve"
-    names = ("pairs",) + (("ramp", "crossed") if ve else ()) + (
-        ("limiter",) if ve and spec.variant else ())
-
-    def count(g, I, J, c):
-        terms = [torch.ones_like(g.d2)]
-        if ve:
-            atwood = torch.abs(I[14] - J[14]) / (I[14] + J[14])
-            terms += [(atwood >= c["at_min"]) & (atwood <= c["at_max"]), atwood > c["at_max"]]
-            if spec.variant:
-                eta_ab = torch.minimum(torch.sqrt(g.d2 * I[4]), torch.sqrt(g.d2 * J[3]))
-                terms.append(eta_ab < I[23])
-        return tuple(t.to(torch.float32) for t in terms)
-
-    cspec = dataclasses.replace(spec, num_out=len(names), pair=count,
-                                reduce=("sum",) * len(names),
-                                finalize=lambda I, accs, nc, c: accs)
-    if lists is not None:
-        outs, _ = pe.engine_lists_plain(cspec, lists, *fields, group, consts)
-    else:
-        outs, _ = pe.engine_plain(cspec, runs, *fields, fold, group, consts)
-    # per-target counts are small integers, exact in float32
-    return {k: int(o.to(torch.int64).sum()) for k, o in zip(names, outs)}
-
-
-def _bound(ops, nbytes) -> dict:
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes}
-
-
-def body_ops(op: str, body: str, nb_pairs: int, pairs=None, ncoef: int = 14) -> int:
-    """Operations of an op's body in this run: BODY_OPS per pair it runs
-    on (``ncoef`` polynomial coefficients: 2 (ncoef - 14) more per
-    evaluation), plus BRANCH_OPS per pair that takes a branch. A body
-    without the symmetric cutoff runs on the ``nb_pairs`` neighbour pairs
-    (d^2 < 4 h_i^2); a momentum op on its own counted pairs (``pairs``,
-    from ``momentum_pair_counts``)."""
-    per_pair = BODY_OPS[body] + 2 * (ncoef - 14) * POLY_EVALS[body]
-    if body not in SYM_BODIES:
-        return nb_pairs * per_pair
-    if pairs is None:
-        raise AssertionError(f"{op}: no pair counts under its symmetric cutoff")
-    return pairs["pairs"] * per_pair + sum(
-        BRANCH_OPS[k] * v for k, v in pairs.items() if k in BRANCH_OPS)
-
-
-def bounds(ranges, n: int, group: int, nb_pairs: int,
-           ops=("density", "iad", "momentum_energy_std"), pairs=None, ncoef: int = 14):
-    """Least device time of each streaming-engine op from this run's
-    candidate and neighbour pair counts (operations: the mask per candidate
-    pair, the symmetric cutoff per neighbour pair where the op has one, the
-    body; ``pairs``: each momentum op's counts, by op) and its input/output
-    bytes. Given the lists' pruned runs, the bound of K1 over them (list
-    mode's form before the walk carried every op)."""
-    import torch
-
-    cand_pairs = int(ranges.lens.to(torch.int64).sum()) * group
-    ng, w3 = ranges.starts.shape
-    table_bytes = 4 * (5 * ng * w3 + ng)
-    out = {}
-    for op in ops:
-        body = body_of(op)
-        sym = SYM_OPS * nb_pairs if body in SYM_BODIES else 0
-        n_in, n_out = IO_ARRAYS[body]
-        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op), ncoef)
-        out[op] = {**_bound(cand_pairs * MASK_OPS + sym + work,
-                            4 * n * (n_in + n_out) + table_bytes),
-                   "cand_pairs": cand_pairs, "body_ops": work}
-    return out
 
 
 def list_case(init, side: int, jitter: bool, state=None, cfg=None, **sizing):
@@ -946,81 +791,6 @@ def time_k1(spec, runs, i_f, j_f, fold, group, consts) -> dict:
     return out
 
 
-def list_bounds(lists, n: int, group: int, nb_pairs: int, mark=None,
-                walk_ops=("density_lists", "iad_lists", "momentum_energy_std_lists"),
-                av_clean=False, pairs=None, ncoef: int = 14):
-    """Least device time of the list-mode kernels from this run's counts,
-    for the work each walk does in its path's mask mode (``walk_mask``):
-    every walk shifts each marked lane once (SHIFT_OPS) and reads its
-    fields, the run tables and the mark bits; density runs the mask on
-    every candidate pair (MASK_OPS less the shift) and writes the kept
-    words; a walk after it reads the words, computes the geometry of the
-    pairs they keep (GEOM_OPS), the symmetric cutoff on those pairs if it
-    has one (SYM_OPS) and its body on the pairs it keeps. Beside it, for a
-    walk that reads, the bound of the same walk running its own mask
-    (``own_mask_bound_ms``) and each op's pruned-run bound (``bounds``
-    over the lists' runs: K1's form of list mode before the walk carried
-    every op) and, given K5's results on the same state (``mark``: its
-    window of W3 cells and the lanes of the chunks it marked), the list
-    build's (``mark_bound``). ``av_clean``: the path runs the av_clean
-    forms; ``pairs``: each momentum op's counts, by op."""
-    import torch
-
-    ng, scap = lists.cnt.shape
-    lanes = int(lists.cnt.to(torch.int64).sum())
-    word_bytes = 4 * int(lists.word_off[-1]) * group
-    walk_tables = 4 * (5 * ng * scap + ng) + 16 * ng * scap  # run tables, mark bits
-    pruned = bounds(lists.ranges, n, group, nb_pairs,
-                    ops=[body_of(op, av_clean) for op in walk_ops],
-                    pairs={body_of(op, av_clean): v for op, v in (pairs or {}).items()},
-                    ncoef=ncoef)
-    cand_pairs = lanes * group
-    mask_ops = cand_pairs * (MASK_OPS - SHIFT_OPS)
-    out = {}
-    for op in walk_ops:
-        body = body_of(op, av_clean)
-        n_in, n_out = IO_ARRAYS[body]
-        work = body_ops(op, body, nb_pairs, (pairs or {}).get(op), ncoef)
-        io = 4 * n * (n_in + n_out) + walk_tables
-        sym = SYM_OPS * nb_pairs if body in SYM_BODIES else 0
-        staged = lanes * SHIFT_OPS + work + sym
-        if body == "density":  # "write": the mask, its words written
-            entry = _bound(staged + mask_ops, io + word_bytes)
-        else:  # "read": the kept words for the mask
-            entry = {**_bound(staged + nb_pairs * GEOM_OPS, io + word_bytes),
-                     "own_mask_bound_ms": _bound(staged + mask_ops, io)["bound_ms"]}
-        out[op] = {**entry, "mask_mode": "write" if body == "density" else "read",
-                   "cand_pairs": cand_pairs, "body_ops": work, "word_bytes": word_bytes,
-                   "pruned_run_bound_ms": pruned[body]["bound_ms"],
-                   "pruned_run_cand_pairs": pruned[body]["cand_pairs"]}
-    if mark is not None:
-        out["mark"] = mark_bound(n, ng, mark["w3"], scap, mark["lanes_visited"])
-    return out
-
-
-def mark_bound(n: int, ng: int, w3: int, scap: int, lanes: int) -> dict:
-    """Least device time of the list build (K5) at these sizes: it reads
-    the cull tables once (CULL_CELL_BYTES a cell), x, y, z and h once
-    (each candidate row's reuse by the neighbouring groups that visit it
-    assumed: from L2 or better) and the skin, and writes the five pruned
-    run tables, the words and counts ((NG, S_cap) each; the words 16 bytes
-    a slot) and the run counts and chunk totals; it runs MARK_OPS FP32
-    operations on each of the ``lanes`` of the chunks it marks, and the
-    merge and prune's integer operations at the INT32 rate. Beside it, the
-    bound without that reuse (every visited lane's x, y, z from memory)."""
-    import math
-
-    from sphexa_torch.sph.pair_engine import LANES
-
-    table_bytes = CULL_CELL_BYTES * ng * w3 + 4 * 4 * n + 4 + (20 + 16 + 4) * ng * scap + 8 * ng
-    int_ops = ng * w3 * (math.log2(w3) + MERGE_CELL_OPS) + lanes // LANES * PRUNE_SLOT_OPS
-    ops = lanes * MARK_OPS + int_ops * PEAK_FP32_FLOPS / PEAK_INT32_OPS
-    no_reuse = table_bytes - 3 * 4 * n + 3 * 4 * lanes
-    return {**_bound(ops, table_bytes), "lanes": lanes, "int_ops": int_ops,
-            "no_reuse_bytes": no_reuse, "no_reuse_bound_ms": 1e3 * max(
-                ops / PEAK_FP32_FLOPS, no_reuse / PEAK_HBM_BYTES)}
-
-
 def slice_vs_cpu(side: int, cell_target, steps: int, use_lists: bool, prop: str = "std",
                  case: str = "sedov", overrides=None) -> dict:
     """Simulation steps on the card against the same steps on the CPU (the
@@ -1121,37 +891,6 @@ def near_field_load(lens, group: int) -> dict:
             "max_over_mean": float(per.max()) / max(mean, 1.0),
             "live_slots_mean": float((lens > 0).sum(dim=1).double().mean()),
             "slots": int(lens.shape[1])}
-
-
-def gravity_bounds(lens, n: int, group: int, packed, runs=None) -> dict:
-    """Least device time of K12 (this solve's candidate pairs, the sum of
-    the leaf lengths x the block's targets, x the geometry and body
-    operations; x, y, z, m, h and the four outputs once, the leaf range
-    tables) and of K13's two launches in one solve, together and each (the
-    packed words read once, the lists and counts written once; integer
-    operations). Given the leaf ranges merged into runs (``runs``, the
-    plain version's form), asserts that they hold the same candidates."""
-    import torch
-
-    cand = int(lens.to(torch.int64).sum()) * group
-    if runs is not None and int(runs.lens.to(torch.int64).sum()) * group != cand:
-        raise AssertionError(f"K12: {cand} candidate pairs over the leaf ranges, "
-                             f"{int(runs.lens.to(torch.int64).sum()) * group} over the runs")
-    k12 = {**_bound(cand * (GRAV_MASK_OPS + GRAV_BODY_OPS),
-                    4 * n * (5 + 4) + 2 * 4 * lens.numel() + 4 * lens.shape[0]),
-           "cand_pairs": cand}
-
-    def k13_bound(parts):
-        slots = sum(int(p.numel()) for p, _, _ in parts)
-        nbytes = 4 * slots + sum(4 * p.shape[0] * (c0 + c1 + 2) for p, c0, c1 in parts)
-        t_ops, t_bytes = slots * COMPACT_OPS / PEAK_INT32_OPS, nbytes / PEAK_HBM_BYTES
-        return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "ops": slots * COMPACT_OPS, "bytes": nbytes, "slots": slots}
-
-    k13 = {**k13_bound(packed), "shapes": [list(p.shape) + [c0, c1] for p, c0, c1 in packed],
-           "per_launch": [k13_bound([pk]) for pk in packed]}
-    return {"gravity_p2p": k12, "compact_class_lists": k13}
 
 
 def gravity_phase_times(sim, reps: int = 3) -> dict:
@@ -2674,20 +2413,6 @@ def sharded_path(smi) -> tuple:
 SHARDED_GRAV_STEPS = 1
 
 
-def p2p_jdata_bound(lens, n: int, nj: int, group: int) -> dict:
-    """Least device time of one K12 jdata launch: this rank's candidate
-    pairs (the sum of the leaf lengths x the block's targets) x the
-    geometry and body operations; the targets' x, y, z, h (n rows), the
-    j-buffer's five fields (nj rows) and the four outputs once each, the
-    range tables."""
-    import torch
-
-    cand = int(lens.to(torch.int64).sum()) * group
-    nbytes = 4 * n * (4 + 4) + 4 * nj * 5 + 2 * 4 * lens.numel() + 4 * lens.shape[0]
-    return {**_bound(cand * (GRAV_MASK_OPS + GRAV_BODY_OPS), nbytes), "cand_pairs": cand,
-            "j_rows": nj}
-
-
 def sharded_gravity_split(mesh, sim, sync, reps: int = 1) -> dict:
     """A sharded gravity step's parts on this rank, host wall ms with the
     card synchronised at each boundary (every rank runs them together;
@@ -3566,6 +3291,199 @@ def tuning_path(spec, smi) -> dict:
     return {"tuning_sweep": sweep_launches, "tuning_cli": cli_launches}
 
 
+#: the steps of the main path the cost layer captures and tallies
+COST_STEPS = 5
+#: the main path's device events a checked step (PRs 8-19, the profile
+#: phase): the scopes and the charges, inactive, add none
+MAIN_PATH_EVENTS = 223
+
+
+@entrypoint("cost_main_path")
+def cost_main_path():
+    """The calibration target of ``cost_path`` (b): the CLI's std Sedov
+    100^3 Simulation (app/main.py's construction for ``--init sedov -n
+    100``: the case's observables, the science rows), fresh from its
+    initial state, and its first ``COST_STEPS`` steps, the lists built
+    and rebuilt as the CLI's run builds them."""
+    from sphexa_torch.init import init_sedov
+    from sphexa_torch.observables import make_observable_spec
+    from sphexa_torch.simulation import Simulation
+
+    state, box, const = init_sedov(100, device="cuda")
+    sim = Simulation(state, box, const, device="cuda", obs_spec=make_observable_spec("sedov"),
+                     science_rows=True)
+
+    def run():
+        for _ in range(COST_STEPS):
+            sim.step()
+
+    return EntryCase(fn=run, warmup=False)
+
+
+def cost_path(smi, main_sim) -> dict:
+    """Phase 29, the static roofline cost layer: (a) the cost CLI over the
+    audit registry on the card against COST_BUDGET_TORCH.json (exit 0), and
+    each entry's tally, and that of the two list-mode cases (K5 and the K6
+    walks), on the card equal to its CPU tally, its kernel charges equal
+    to its launches (``cost_checks.registry_card_vs_cpu``);
+    (b) the main path's phase roofline: the CLI's ``--trace-dir`` capture
+    of ``COST_STEPS`` steps of std Sedov 100^3 in list mode against the
+    tally of the same steps (``cost_main_path``), per phase measured and
+    predicted us, ratio and bound class, a ``calibration.json`` beside the
+    capture and ``trace --predict`` on it (exit 0; exit 1 with the
+    momentum body's rule scaled by 10), the CLI's and the reader's mains
+    run in this process; (c) the main path's device events a step after
+    the tallies equal to ``MAIN_PATH_EVENTS``, and one step's outputs and
+    launches untallied, tallied and untallied again, equal. Returns the
+    registry's and the tallied steps' launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from sphexa_torch.app import main as app
+    from sphexa_torch.devtools.audit import costcli
+    from sphexa_torch.devtools.audit.core import EntryTrace
+    from sphexa_torch.devtools.audit.costmodel import CALIBRATION_FILE, cost_report, predict
+    from sphexa_torch.devtools.audit.tally import tallying
+    from sphexa_torch.kernels import cost_checks
+    from sphexa_torch.kernels import costs as kc
+    from sphexa_torch.propagator import step_sim_state
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.telemetry import cli as tcli
+    from sphexa_torch.telemetry.traceview import summarize_trace
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+
+    def quiet(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        return rc, buf.getvalue()
+
+    # (a) the registry on the card: the CLI's gate, then card vs CPU
+    pe.reset_launches()
+    rc, table = quiet(costcli.main, ["--device", "h100", "--budget",
+                                     os.path.join(here, "COST_BUDGET_TORCH.json")])
+    if rc != 0:
+        raise AssertionError(f"cost_path: the cost CLI exited {rc}:\n{table[-3000:]}")
+    cli_s = time.perf_counter() - t0
+    reg = cost_checks.registry_card_vs_cpu()
+    reg_launches = dict(pe.LAUNCHES)
+    for op in ("density", "iad", "momentum_energy_std", "ve_def_gradh", "iad_divv_curlv",
+               "av_switches", "momentum_energy_ve", "gravity_p2p", "compact_class_lists",
+               "compact_row", *set().union(*cost_checks.LIST_KERNELS.values())):
+        if not reg_launches.get(op):
+            raise AssertionError(f"cost_path: the registry never launched {op}")
+    emit({"phase": "cost_registry", "card": smi, "entries": reg, "launches": reg_launches,
+          "cli_s": cli_s, "seconds": time.perf_counter() - t0})
+
+    # (b) the main path: the CLI's capture, the same steps tallied
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        trace = os.path.join(wd, "trace")
+        rc, _ = quiet(app.main, ["--init", "sedov", "-n", "100", "-s", str(COST_STEPS),
+                                 "--trace-dir", trace, "-o", os.path.join(wd, "out"),
+                                 "--quiet"])
+        if rc != 0:
+            raise AssertionError(f"cost_path: the CLI's capture exited {rc}")
+        summary = summarize_trace(trace)
+        t2 = time.perf_counter()
+        pe.reset_launches()
+        tr = EntryTrace(cost_main_path, cost_main_path.build())
+        report = cost_report(tr)
+        main_launches = dict(pe.LAUNCHES)
+        if dict(report.kernels) != tr.launches:
+            raise AssertionError(f"cost_path: kernel charges {dict(report.kernels)} != "
+                                 f"launches {tr.launches}")
+        pred = predict(report, "h100")
+        tally_s = time.perf_counter() - t2
+        measured = {p["phase"]: p["us"] for p in summary["phases"]}
+        rows, calib = [], {}
+        for r in pred.rows:
+            mus = measured.get(r.phase)
+            ratio = mus / (r.ms * 1e3) if mus and r.ms > 0 else None
+            rows.append({"phase": r.phase, "measured_us": mus, "predicted_us": r.ms * 1e3,
+                         "ratio": ratio, "bound": r.bound, "ai": r.ai, "flops": r.flops,
+                         "hbm_lower": r.hbm_lower, "hbm_upper": r.hbm_upper,
+                         "compute_us": r.compute_ms * 1e3, "hbm_us": r.hbm_ms * 1e3})
+            if ratio is not None:
+                calib[r.phase] = {"ratio": ratio}
+        for r in rows:
+            print(f"# cost_path {r['phase']:16s} measured {r['measured_us'] or 0:11.1f} us  "
+                  f"predicted {r['predicted_us']:10.2f} us  ratio "
+                  f"{r['ratio'] if r['ratio'] is not None else float('nan'):8.2f}  {r['bound']}",
+                  file=sys.stderr)
+        target = f"{os.path.relpath(__file__, here)}::cost_main_path"
+        with open(os.path.join(trace, CALIBRATION_FILE), "w") as f:
+            json.dump({"schema": 1, "target": target, "device": "h100",
+                       "tolerance": 2.0, "phases": calib}, f, indent=2)
+        cwd = os.getcwd()
+        os.chdir(here)  # the target is resolved from the repo's root
+        try:
+            t3 = time.perf_counter()
+            rc_ok, out_ok = quiet(tcli.main, ["trace", trace, "--predict", "--format", "json"])
+            predict_s = time.perf_counter() - t3
+            saved = dict(kc.BODY_OPS)
+            kc.BODY_OPS["momentum_energy_std"] *= 10
+            try:
+                rc_bad, out_bad = quiet(tcli.main, ["trace", trace, "--predict", "--format",
+                                                    "json"])
+            finally:
+                kc.BODY_OPS.clear()
+                kc.BODY_OPS.update(saved)
+        finally:
+            os.chdir(cwd)
+    joined = json.loads(out_ok).get("calibration") if out_ok.strip() else None
+    bad = json.loads(out_bad).get("calibration") if out_bad.strip() else None
+    if rc_ok != 0 or rc_bad != 1:
+        raise AssertionError(f"cost_path: trace --predict exited {rc_ok} (want 0), with the "
+                             f"momentum rule x10 {rc_bad} (want 1): {joined} / {bad}")
+    emit({"phase": "cost_main_path", "card": smi, "case": "sedov", "side": 100,
+          "steps": COST_STEPS, "device_model": "h100", "rows": rows,
+          "total_measured_us": summary["total_device_us"], "coverage": summary["coverage"],
+          "total_predicted_us": pred.total_ms * 1e3, "tally_coverage": pred.coverage,
+          "kernels": dict(report.kernels), "launches": main_launches,
+          "kernel_charges": [list(k[:4]) for k in tr.tally.kernel_log],
+          "predict_rc": rc_ok, "scaled_rule_rc": rc_bad,
+          "scaled_rule_violations": (bad or {}).get("violations"),
+          "capture_s": t2 - t1, "tally_s": tally_s, "predict_s": predict_s,
+          "seconds": time.perf_counter() - t1})
+
+    # (c) inert: the main path's events a step after the tallies, and one
+    # step's outputs and launches untallied, tallied and untallied again
+    t4 = time.perf_counter()
+    events_after = _events_per_step(main_sim)["events"]
+    if events_after != MAIN_PATH_EVENTS:
+        raise AssertionError(f"cost_path: {events_after} device events a main-path step "
+                             f"after the tallies, {MAIN_PATH_EVENTS} before this layer")
+    carry, lists = main_sim.sim_state, main_sim.lists
+
+    def one():
+        pe.reset_launches()
+        out, diag = step_sim_state(main_sim._step_fn, carry, main_sim.cfg, main_sim.gtree,
+                                   main_sim._aux_cfg, lists=lists)
+        torch.cuda.synchronize()
+        return out.particles, dict(pe.LAUNCHES)
+
+    a, la = one()
+    with tallying("cuda"):
+        b, lb = one()
+    c, lc = one()
+    fields = [f.name for f in dataclasses.fields(a) if torch.is_tensor(getattr(a, f.name))]
+    for other, label in ((b, "tallied"), (c, "after the tally")):
+        diff = [f for f in fields if not torch.equal(getattr(a, f), getattr(other, f))]
+        if diff:
+            raise AssertionError(f"cost_path: a main-path step {label} differs in {diff}")
+    if not la == lb == lc:
+        raise AssertionError(f"cost_path: launches {la} / {lb} / {lc}")
+    emit({"phase": "cost_inert", "card": smi, "device_events_per_step": events_after,
+          "step_launches": la, "fields_equal": fields, "seconds": time.perf_counter() - t4,
+          "phase_seconds": time.perf_counter() - t0})
+    return {"cost_registry": reg_launches, "cost_main_path": main_launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4007,6 +3925,9 @@ def main() -> int:
     # 28. the tuning package and --tuned: every knob shape held to the plain
     # versions, a sweep at full width, the tuned CLI and the port's reader
     tune_launches = tuning_path(spec, smi)
+    # 29. the static roofline cost layer: the registry card vs CPU, the main
+    # path's phase roofline against its capture, the tally inert
+    cost_launches = cost_path(smi, sim)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -4071,7 +3992,7 @@ def main() -> int:
     new_paths = {"turb_ve": turb_launches, "std_cooling_cie": cool_launches["cie"],
                  "std_cooling_evolved": cool_launches["evolved"],
                  **{f"inits_{c}": la for c, la in init_launches.items()}, **bdt_launches,
-                 **app_launches, **tune_launches}
+                 **app_launches, **tune_launches, **cost_launches}
     kernels = []
     for name, (r, b, launches, op) in where.items():
         kernels.append({

@@ -19,6 +19,7 @@ tensor."""
 
 import torch
 
+from sphexa_torch.kernels import costs
 from sphexa_torch.sph.pair_engine import LAUNCHES
 
 IDX_BITS = 24
@@ -42,13 +43,17 @@ def compact_class_lists(packed: torch.Tensor, cap0: int, cap1: int):
     unclipped (a list whose count passes its cap keeps its first entries)."""
     _check(packed, cap0, cap1)
     dev = packed.device
-    if dev.type == "cpu":
-        return compact_class_lists_plain(packed, cap0, cap1)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    launch, out = compact_launcher(packed, cap0, cap1)
-    launch()
-    LAUNCHES["compact_class_lists"] += 1
+    # a cost tally charges the kernel's rule (kernels/costs.py), not the ops
+    with costs.charging():
+        if dev.type == "cpu":
+            out = compact_class_lists_plain(packed, cap0, cap1)
+        elif dev.type == "cuda":
+            launch, out = compact_launcher(packed, cap0, cap1)
+            launch()
+            LAUNCHES["compact_class_lists"] += 1
+        else:
+            raise ValueError(f"unsupported device {dev}")
+    costs.charge_compact(packed, cap0, cap1)
     return out
 
 
@@ -115,13 +120,16 @@ def compact_row(due: torch.Tensor):
     int32, n_active () int32)."""
     _check_row(due)
     dev = due.device
-    if dev.type == "cpu":
-        return compact_row_plain(due)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    launch, out = compact_row_launcher(due)
-    launch()
-    LAUNCHES["compact_row"] += 1
+    with costs.charging():
+        if dev.type == "cpu":
+            out = compact_row_plain(due)
+        elif dev.type == "cuda":
+            launch, out = compact_row_launcher(due)
+            launch()
+            LAUNCHES["compact_row"] += 1
+        else:
+            raise ValueError(f"unsupported device {dev}")
+    costs.charge_compact_row(due.shape[0])
     return out
 
 

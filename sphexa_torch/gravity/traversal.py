@@ -54,6 +54,7 @@ from sphexa_torch.gravity import multipole as mp
 from sphexa_torch.gravity import pallas_compact as pcmp
 from sphexa_torch.gravity import spherical as sp
 from sphexa_torch.gravity.tree import GravityTree, GravityTreeMeta, level_add_
+from sphexa_torch.kernels import costs
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sph import pair_engine as pe
 from sphexa_torch.util.phases import check_runs, named_phase
@@ -803,16 +804,21 @@ def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, star
     dev = x.device
     # --debug-checks: the leaf ranges K12 reads stay inside its j-arrays
     check_runs("gravity_p2p", starts, lens, (x if jdata is None else jdata[0]).shape[0])
-    if dev.type == "cuda":
-        launch, out = p2p_launcher(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
-                                   jdata=jdata)
-        launch()
-        pe.LAUNCHES["gravity_p2p"] += 1
-        return out
-    if dev.type == "cpu":
-        return _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
-                                 jdata=jdata)
-    raise ValueError(f"unsupported device {dev}")
+    # a cost tally charges K12's rule (kernels/costs.py), not either branch's ops
+    with costs.charging():
+        if dev.type == "cuda":
+            launch, out = p2p_launcher(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
+                                       jdata=jdata)
+            launch()
+            pe.LAUNCHES["gravity_p2p"] += 1
+        elif dev.type == "cpu":
+            out = _pallas_p2p_plain(x, y, z, m, h, shift, allow_self, cfg, starts, lens,
+                                    jdata=jdata)
+        else:
+            raise ValueError(f"unsupported device {dev}")
+    costs.charge_p2p(lens, x.shape[0], cfg.target_block,
+                            None if jdata is None else jdata[0].shape[0])
+    return out
 
 
 def p2p_launcher(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, starts, lens,

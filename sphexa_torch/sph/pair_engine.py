@@ -56,6 +56,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from sphexa_torch.dtypes import KEY_BITS
+from sphexa_torch.kernels import costs
 from sphexa_torch.neighbors.cell_list import NeighborConfig, _window_offsets_on
 from sphexa_torch.sfc.box import BoundaryType, Box
 from sphexa_torch.sfc.hilbert import hilbert_encode
@@ -63,6 +64,7 @@ from sphexa_torch.sfc.morton import morton_encode
 from sphexa_torch.sph.kernels import (
     dterh_poly_eval, kernel_dterh_coeffs, kernel_poly_coeffs, sinc_poly_eval,
 )
+from sphexa_torch.util import phases
 from sphexa_torch.util.phases import check_runs, named_phase
 
 #: the pair ops' entry points of K1 (csrc/pair_engine.cu) and K6
@@ -1160,17 +1162,24 @@ def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None, 
     runs = lists.ranges if lists is not None else ranges
     # --debug-checks: the runs the kernel reads stay inside its j-arrays
     check_runs(spec.name, runs.starts, runs.lens, j_fields[0].shape[0])
-    if dev.type == "cuda":
-        consts = _consts(const, dt)
-        if lists is not None:
-            return engine_lists_kernel(spec, lists, i_fields, j_fields, cfg.group, consts,
-                                       mask)
-        mask_mode(spec, mask)
-        return engine_kernel(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
-                             cfg.group, consts)
-    if dev.type == "cpu":
-        return _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists, dt, mask)
-    raise ValueError(f"unsupported device {dev}")
+    # a cost tally charges the kernel's rule, not the ops of either branch
+    with costs.charging():
+        if dev.type == "cuda":
+            consts = _consts(const, dt)
+            if lists is not None:
+                out = engine_lists_kernel(spec, lists, i_fields, j_fields, cfg.group, consts,
+                                          mask)
+            else:
+                mask_mode(spec, mask)
+                out = engine_kernel(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
+                                    cfg.group, consts)
+        elif dev.type == "cpu":
+            out = _run_plain(spec, ranges, i_fields, j_fields, box, cfg, const, lists, dt,
+                             mask)
+        else:
+            raise ValueError(f"unsupported device {dev}")
+    charge_pair(spec, ranges, i_fields, j_fields, out[1], box, cfg, const, dt, lists, mask)
+    return out
 
 
 def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None,
@@ -1181,6 +1190,90 @@ def _run_plain(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=
         return engine_lists_plain(spec, lists, i_fields, j_fields, cfg.group, consts)
     return engine_plain(spec, ranges, i_fields, j_fields, engine_fold(box, cfg),
                         cfg.group, consts)
+
+
+# ---------------------------------------------------------------------------
+# The cost tally's charge of one K1 or K6 launch (kernels/costs.py holds the
+# rules): the data-dependent counts, read by the plain engine only while a
+# tally runs.
+# ---------------------------------------------------------------------------
+
+
+def momentum_pair_counts(spec, fields, consts, group, runs=None, fold=False, lists=None):
+    """The pairs a momentum op's body runs on (its mask: d^2 < 4 h_i^2 and,
+    with the symmetric cutoff, d^2 < 4 h_j^2) and, for the VE op, those of
+    them that take each branch with operations of its own
+    (``costs.BRANCH_OPS``): the Atwood ramp, the crossed volume element,
+    the av_clean limiter. Counted by the plain engine on the op's own
+    fields, the branch tests copied from the body (csrc/pair_ops.cuh
+    MomentumEnergyVeOp)."""
+    ve = spec.name == "momentum_energy_ve"
+    names = ("pairs",) + (("ramp", "crossed") if ve else ()) + (
+        ("limiter",) if ve and spec.variant else ())
+
+    def count(g, I, J, c):
+        terms = [torch.ones_like(g.d2)]
+        if ve:
+            atwood = torch.abs(I[14] - J[14]) / (I[14] + J[14])
+            terms += [(atwood >= c["at_min"]) & (atwood <= c["at_max"]), atwood > c["at_max"]]
+            if spec.variant:
+                eta_ab = torch.minimum(torch.sqrt(g.d2 * I[4]), torch.sqrt(g.d2 * J[3]))
+                terms.append(eta_ab < I[23])
+        return tuple(t.to(torch.float32) for t in terms)
+
+    cspec = dataclasses.replace(spec, num_out=len(names), pair=count,
+                                reduce=("sum",) * len(names),
+                                finalize=lambda I, accs, nc, c: accs)
+    if lists is not None:
+        outs, _ = engine_lists_plain(cspec, lists, *fields, group, consts)
+    else:
+        outs, _ = engine_plain(cspec, runs, *fields, fold, group, consts)
+    # per-target counts are small integers, exact in float32
+    return {k: int(o.to(torch.int64).sum()) for k, o in zip(names, outs)}
+
+
+def _pair_counts(t, spec, i_fields, j_fields, nc, consts, group, ranges, fold, lists):
+    """The counts of one op's charge: sets ``t.nb_pairs``, the neighbour
+    pairs (an op that counts them, its own; else those of the step's last
+    counting op, on the same positions and smoothing lengths), and returns
+    a momentum body's own counted pairs (``momentum_pair_counts``; None
+    for the other bodies)."""
+    if nc is not None and spec.want_nc:
+        # the plain version returns its mask count for every op; only an
+        # op that counts neighbours (density) has the neighbour pairs
+        t.nb_pairs = int(nc.to(torch.int64).sum())
+    if t.nb_pairs is None:
+        # no counting op before this one: count the neighbour pairs
+        bare = dataclasses.replace(spec, sym_j=None, variant=0)
+        t.nb_pairs = momentum_pair_counts(bare, (i_fields, j_fields), consts, group,
+                                          runs=ranges, fold=fold, lists=lists)["pairs"]
+    if costs.spec_body(spec) not in costs.SYM_BODIES:
+        return None
+    return momentum_pair_counts(spec, (i_fields, j_fields), consts, group, runs=ranges,
+                                fold=fold, lists=lists)
+
+
+def charge_pair(spec, ranges, i_fields, j_fields, nc, box, cfg, const, dt=None,
+                lists=None, mask="own"):
+    """Charge one K1 or K6 launch (``_run``'s arguments and its ``nc``
+    output) under its ``LAUNCHES`` key (``costs.pair_cost``); a no-op
+    without a tally."""
+    t = phases._TALLY
+    if t is None:
+        return
+    with t.suppressed():
+        consts = _consts(const, dt)
+        fold = lists is None and engine_fold(box, cfg)
+        runs = lists.ranges if lists is not None else ranges
+        pairs = _pair_counts(t, spec, i_fields, j_fields, nc, consts, cfg.group, runs, fold,
+                             lists)
+        ops, nbytes = costs.pair_cost(spec, ranges, i_fields, j_fields, consts, cfg.group,
+                                      lists, mask, t.nb_pairs, pairs)
+        cand = int(runs.lens.to(torch.int64).sum())
+    entry = spec.name + ("_lists" if lists is not None else "")
+    form = NCOEF_FORM[len(consts["coeffs"])]
+    costs.kernel_charge(entry if form is None else f"{entry}:{form}", ops, nbytes,
+                        counts={"runs": cand, "nb_pairs": t.nb_pairs, "pairs": pairs})
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from sphexa_torch.kernels import costs
 from sphexa_torch.neighbors.cell_list import NeighborConfig, pad_cap
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sph import pair_engine as pe
@@ -289,12 +290,17 @@ def build_lists_plain(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig
 
 def build_lists(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
     """Dispatch by device: CUDA launches the list build, CPU runs
-    ``build_lists_plain``; anything else raises."""
-    if x.device.type == "cuda":
-        return build_lists_kernel(cull, x, y, z, h, skin, slot_cap, cfg)
-    if x.device.type == "cpu":
-        return build_lists_plain(cull, x, y, z, h, skin, slot_cap, cfg)
-    raise ValueError(f"unsupported device {x.device}")
+    ``build_lists_plain``; anything else raises. A cost tally charges the
+    kernel's rule (kernels/costs.py), not the ops of either branch."""
+    with costs.charging():
+        if x.device.type == "cuda":
+            out = build_lists_kernel(cull, x, y, z, h, skin, slot_cap, cfg)
+        elif x.device.type == "cpu":
+            out = build_lists_plain(cull, x, y, z, h, skin, slot_cap, cfg)
+        else:
+            raise ValueError(f"unsupported device {x.device}")
+    costs.charge_list_build(cull, x.shape[0], out[3], slot_cap)
+    return out
 
 
 @named_phase("neighbors")

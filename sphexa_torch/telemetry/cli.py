@@ -7,6 +7,7 @@ cli.py), which needs no device and no JAX.
     python -m sphexa_torch.telemetry science <run-dir> [--format text|json] [--budget F]
     python -m sphexa_torch.telemetry diff <baseline> <candidate> [--threshold F] [--drift]
     python -m sphexa_torch.telemetry trace <trace-dir> [--min-coverage F] [--top N]
+                                           [--predict [--device NAME]]
     python -m sphexa_torch.telemetry history <inputs...>
     python -m sphexa_torch.telemetry regress --lock <lock.json> [candidate] [--write]
     python -m sphexa_torch.telemetry tuning <run-dir | table.json> [--require K]
@@ -31,8 +32,12 @@ The subcommands, their JSON and their exit codes are the JAX CLI's:
   energy drift a headline metric;
 - ``trace``: the per-phase device time of a ``--trace-dir`` capture, the
   port's torch.profiler chrome traces (telemetry/traceview.py);
-  ``--min-coverage`` exits 1 below that attributed share. The JAX CLI's
-  ``--predict`` (its static cost model) is not available;
+  ``--min-coverage`` exits 1 below that attributed share; ``--predict``
+  joins the measured phases against the static roofline prediction of
+  the capture's committed ``calibration.json`` target
+  (devtools/audit/costmodel.py ``calibration_join``; the target is
+  re-built and tallied) and exits 1 when a measured/predicted ratio
+  leaves its recorded band, 2 without a calibration file;
 - ``history`` / ``regress``: the trend over the bench JSONs and run dirs
   named, and the lock-file gate (telemetry/history.py). With no inputs
   ``history`` exits 2: the repo's committed rounds are the JAX package's
@@ -989,6 +994,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "phases (the chip-harvest gate)")
     pt.add_argument("--top", type=int, default=8,
                     help="unattributed ops to list [8]")
+    pt.add_argument("--predict", action="store_true",
+                    help="join the measured per-phase times against the "
+                         "static roofline prediction of the capture's "
+                         "committed calibration.json target; exit 1 when "
+                         "any measured/predicted ratio leaves the "
+                         "recorded band (the cost model's calibration gate)")
+    pt.add_argument("--device", default=None,
+                    help="with --predict: override the calibration's "
+                         "device model (devtools/audit/devices.py)")
     ph2 = sub.add_parser(
         "history",
         help="cross-run trend over the bench JSONs and run dirs named")
@@ -1080,8 +1094,49 @@ def main(argv=None) -> int:
             )
 
             s = summarize_trace(args.trace_dir, top=args.top)
-            print(json.dumps(s, indent=2) if args.format == "json"
-                  else render_trace(s))
+            joined = None
+            if args.predict:
+                # measured-vs-static calibration: the cost model's gate
+                from sphexa_torch.devtools.audit.costmodel import (
+                    calibration_join,
+                    load_calibration,
+                )
+
+                try:
+                    calib = load_calibration(args.trace_dir)
+                except ValueError as e:
+                    raise TelemetryError(str(e)) from e
+                if calib is None:
+                    raise TelemetryError(
+                        f"{args.trace_dir}: no calibration.json — "
+                        f"--predict needs the committed calibration "
+                        f"declaration (scripts/make_torch_trace_fixture.py "
+                        f"writes the fixture's)")
+                if args.device:
+                    calib = dict(calib, device=args.device)
+                try:
+                    joined = calibration_join(s, calib)
+                except ValueError as e:
+                    raise TelemetryError(str(e)) from e
+            if args.format == "json":
+                out = dict(s, calibration=joined) if joined else s
+                print(json.dumps(out, indent=2))
+            else:
+                print(render_trace(s))
+                if joined:
+                    print(f"calibration: {joined['target']} @ "
+                          f"{joined['device']} (tolerance "
+                          f"{joined['tolerance']:g}x)")
+                    for row in joined["rows"]:
+                        if "ratio" in row:
+                            lo, hi = row["band"]
+                            print(f"  {row['phase']:18s} measured "
+                                  f"{row['measured_us']:10.1f}us  "
+                                  f"predicted {row['predicted_us']:10.3f}us"
+                                  f"  ratio {row['ratio']:8.3f} in "
+                                  f"[{lo:.3f}, {hi:.3f}]  {row['status']}")
+                        else:
+                            print(f"  {row['phase']:18s} {row['status']}")
             if not s["phases"]:
                 return 1  # an unattributed capture must not pass green
             if args.min_coverage is not None \
@@ -1089,6 +1144,11 @@ def main(argv=None) -> int:
                 print(f"sphexa-torch-telemetry: coverage {s['coverage']:.1%} "
                       f"below --min-coverage {args.min_coverage:.1%}",
                       file=sys.stderr)
+                return 1
+            if joined and not joined["ok"]:
+                for v in joined["violations"]:
+                    print(f"sphexa-torch-telemetry: calibration: {v}",
+                          file=sys.stderr)
                 return 1
             return 0
         if args.cmd == "history":

@@ -35,6 +35,10 @@ from typing import Dict, List, Optional, Tuple
 #: the phase of a range name: the first ``sphexa/<phase>`` segment
 PHASE_RE = re.compile(r"sphexa/([A-Za-z0-9_.:+-]+)")
 
+#: a capture's calibration declaration (``trace --predict``,
+#: devtools/audit/costmodel.py), not a trace
+CALIBRATION_FILE = "calibration.json"
+
 #: chrome-trace categories of work on the card
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -48,11 +52,13 @@ class TraceError(Exception):
 
 def find_traces(trace_dir: str) -> List[str]:
     """The chrome traces of a capture: ``trace_dir`` itself when it is a
-    file, else every ``*.json`` / ``*.json.gz`` under it."""
+    file, else every ``*.json`` / ``*.json.gz`` under it but a
+    ``calibration.json`` (``trace --predict``'s declaration)."""
     if os.path.isfile(trace_dir):
         return [trace_dir]
-    out = sorted(glob.glob(os.path.join(trace_dir, "**", "*.json"), recursive=True)
-                 + glob.glob(os.path.join(trace_dir, "**", "*.json.gz"), recursive=True))
+    out = sorted(p for p in glob.glob(os.path.join(trace_dir, "**", "*.json"), recursive=True)
+                 + glob.glob(os.path.join(trace_dir, "**", "*.json.gz"), recursive=True)
+                 if os.path.basename(p) != CALIBRATION_FILE)
     if not out:
         raise TraceError(f"no *.json trace under {trace_dir}: was the run started with "
                          f"--trace-dir?")

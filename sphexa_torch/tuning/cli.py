@@ -16,9 +16,11 @@ blackbox.json), and ``--write-table`` commits the winner into a tuning
 table entry whose provenance names the card and its power limit (as
 nvidia-smi gives them) or ``cpu``. The flags are the JAX CLI's, plus
 ``--device``: the sweep runs on the CUDA device unless ``--device cpu``
-is given, and refuses to start without one. A ``static-cost:`` objective
-(the JAX package's jaxpr cost model) and ``--devices`` above 1 (a sweep
-over ranks) are not available here and exit 2. Exit codes: 0 = the sweep
+is given, and refuses to start without one. A ``static-cost:<phase>``
+objective ranks the candidates by the static roofline prediction of one
+phase on ``--cost-device`` (default ``h100``; devtools/audit), one
+tallied step each, no time measured. ``--devices`` above 1 (a sweep over
+ranks) is not available here and exits 2. Exit codes: 0 = the sweep
 completed with a usable measurement, 1 = no candidate measured ok, 2 =
 unusable input.
 """
@@ -66,10 +68,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--objective", default="per_step_s",
                    help="per_step_s; or phase:<name> to score one phase of "
                         "the device-time table (runs under a torch.profiler "
-                        "capture). static-cost:<name> (the JAX package's "
-                        "chip-free cost model) exits 2")
-    p.add_argument("--cost-device", default="v5e", dest="cost_device",
-                   help="accepted for the JAX CLI's command lines; unused")
+                        "capture); or static-cost:<name> to score the phase's "
+                        "static roofline prediction (devtools/audit: one "
+                        "tallied step, no time measured)")
+    p.add_argument("--cost-device", default="h100", dest="cost_device",
+                   help="device model a static-cost objective predicts "
+                        "against (devtools/audit/devices.py) [h100]")
     p.add_argument("--out", default="tune-out",
                    help="sweep run dir (events.jsonl / manifest / "
                         "blackbox land here)")
@@ -122,13 +126,13 @@ def main(argv=None) -> int:
         ReplaySpec, domains_for, load_table, make_entry, measure_candidate,
         new_table, run_sweep, save_table, spec_from_manifest, upsert_entry,
     )
-    from sphexa_torch.tuning.replay import STATIC_COST
+    from sphexa_torch.tuning.replay import STATIC_COST, static_cost_candidate
 
     try:
         if args.objective.startswith(STATIC_COST):
-            raise ValueError(f"objective {args.objective!r}: the JAX package's static "
-                             f"cost model has no counterpart in the port; score on the "
-                             f"card with per_step_s or phase:<name>")
+            from sphexa_torch.devtools.audit.devices import get_device
+
+            get_device(args.cost_device)
         if args.from_run:
             spec = spec_from_manifest(args.from_run)
             if args.device is not None:
@@ -187,6 +191,11 @@ def main(argv=None) -> int:
     counter = {"i": 0}
 
     def measure(knobs):
+        if args.objective.startswith(STATIC_COST):
+            # rank by the static roofline prediction of one phase: one
+            # tallied step, no time measured, no trace captured
+            return static_cost_candidate(spec, knobs, args.objective[len(STATIC_COST):],
+                                         device=args.cost_device)
         td = None
         if args.objective.startswith("phase:"):
             td = os.path.join(trace_root, f"cand{counter['i']}")

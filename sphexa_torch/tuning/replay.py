@@ -17,10 +17,14 @@ knob dict on it with the machinery the Simulation already uses:
   torch.profiler capture (the CLI's ``--trace-dir`` capture) and
   ``telemetry/traceview.summarize_trace`` attributes it.
 
-The JAX package's chip-free ``static-cost:`` objective rests on its
-jaxpr cost model, which the port does not have: ``static_cost_candidate``
-raises. Exceptions propagate: ``search.run_sweep`` turns a dead candidate
-into a ``failed`` sweep event.
+* with ``objective="static-cost:<name>"`` (``static_cost_candidate``)
+  the score is the static roofline prediction of one phase
+  (devtools/audit): one step of the candidate's Simulation run under the
+  cost tally, no time measured, on the spec's device (``--device cpu``
+  needs no card).
+
+Exceptions propagate: ``search.run_sweep`` turns a dead candidate into a
+``failed`` sweep event.
 """
 
 import dataclasses
@@ -33,7 +37,7 @@ from sphexa_torch.telemetry import MemorySink, Telemetry, read_manifest
 #: knob whose value doubles as the measurement window length
 _CADENCE = "check_every"
 
-#: the objective prefix the port refuses (the JAX package's jaxcost)
+#: the objective prefix of the static roofline prediction (devtools/audit)
 STATIC_COST = "static-cost:"
 
 
@@ -109,7 +113,7 @@ def measure_candidate(spec: ReplaySpec, knobs: Dict, steps: int = 6,
     cap-busting candidate is legal but scored at its true cost and
     flagged). Lower is better for every objective."""
     if objective.startswith(STATIC_COST):
-        static_cost_candidate(spec, knobs, objective[len(STATIC_COST):])
+        return static_cost_candidate(spec, knobs, objective[len(STATIC_COST):])
     import torch
 
     from sphexa_torch.simulation import Simulation
@@ -192,12 +196,47 @@ def measure_candidate(spec: ReplaySpec, knobs: Dict, steps: int = 6,
 
 
 def static_cost_candidate(spec: ReplaySpec, knobs: Dict, phase: str,
-                          device: str = "v5e") -> Dict:
-    """The JAX package's chip-free objective (a roofline prediction of one
-    phase from the traced jaxpr) has no counterpart in the port: it
-    raises ``ValueError``. Score candidates on the card instead
-    (``per_step_s`` or ``phase:<name>``)."""
-    raise ValueError(
-        f"objective '{STATIC_COST}{phase}' is not available in the port: "
-        f"the JAX package's static cost model reads jaxprs, which a torch step "
-        f"does not have; measure on the card with per_step_s or phase:{phase}")
+                          device: str = "h100") -> Dict:
+    """Score one knob dict by the static roofline prediction of one phase
+    (``objective="static-cost:<phase>"``).
+
+    The candidate's knobs ride the same ``tuned=`` path as
+    ``measure_candidate``, but instead of timing steps one step of the
+    candidate's Simulation runs under the cost tally (the audit
+    registry's step form, devtools/audit/registry.py) and the value is the
+    predicted ms of the target phase on the named device model
+    (devtools/audit/devices.py). No time is measured, so the step runs on
+    the spec's device, the CPU included. The ranking is only as good as
+    the cost model: hold it against a capture with ``python -m
+    sphexa_torch.telemetry trace <capture> --predict`` before trusting it.
+    Returns the JAX package's result dict (``steps`` 0: no measured
+    step)."""
+    from sphexa_torch.devtools.audit.core import EntryPoint, EntryTrace
+    from sphexa_torch.devtools.audit.costmodel import cost_report, predict
+    from sphexa_torch.devtools.audit.registry import _step_case
+    from sphexa_torch.simulation import Simulation
+
+    state, box, const = build_case(spec)
+    sim = Simulation(
+        state, box, const, prop=spec.prop, theta=spec.theta,
+        backend=spec.backend, num_devices=spec.devices, device=spec.device,
+        tuned=dict(knobs) if knobs else None, workload=spec.case,
+    )
+    case = _step_case(sim)
+    entry = EntryPoint(name=f"{STATIC_COST}{phase}", build=lambda: case)
+    pred = predict(cost_report(EntryTrace(entry, case)), device)
+    row = pred.row(phase)
+    if row is None or row.ms <= 0:
+        raise ValueError(
+            f"phase {phase!r} absent from the static prediction (has: "
+            f"{[r.phase for r in pred.rows]})")
+    return {
+        "status": "ok",
+        "objective": f"{STATIC_COST}{phase}",
+        "value": row.ms,
+        "predicted_ms": row.ms,
+        "ai": row.ai,
+        "bound": row.bound,
+        "device": pred.device,
+        "steps": 0, "windows": 0, "rollbacks": 0, "reconfigures": 0,
+    }

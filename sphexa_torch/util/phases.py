@@ -8,9 +8,11 @@ machinery, the halo exchange, the stirring and the cooling. While a
 ``torch.profiler`` capture runs, a scope is a
 ``record_function("sphexa/<phase>")`` range; telemetry/traceview.py
 attributes the device time of a ``--trace-dir`` capture back to these
-names. With no profiler running and no debug checks active a scope is a
-null context: two flag reads on the host and nothing the card sees, so
-the launches of a step are the same with or without its scopes.
+names. While a cost tally runs (devtools/audit/tally.py) a scope pushes
+its phase onto the tally's stack. With no profiler running, no debug
+checks active and no tally a scope is a null context: three flag reads
+on the host and nothing the card sees, so the launches of a step are the
+same with or without its scopes.
 
 ``debug_checks()`` (``Simulation(debug_checks=True)``, the CLI's
 ``--debug-checks``) is the port's form of the JAX package's checkify
@@ -78,10 +80,27 @@ class DebugChecks:
 
 _DEBUG: Optional[DebugChecks] = None
 
+#: the running cost tally (devtools/audit/tally.py ``Tally``, whose
+#: ``stack`` holds the open phases), or None
+_TALLY = None
+
 
 def profiling() -> bool:
     """Whether a torch.profiler capture runs now (a flag read)."""
     return torch.autograd.profiler._is_profiler_enabled
+
+
+def set_tally(tally):
+    """Install ``tally`` as the running cost tally (None: none); returns
+    the previous one."""
+    global _TALLY
+    prev, _TALLY = _TALLY, tally
+    return prev
+
+
+def active_tally():
+    """The running cost tally, or None (a flag read)."""
+    return _TALLY
 
 
 class _Scope:
@@ -89,6 +108,7 @@ class _Scope:
         self.phase = phase
         self.rf = None
         self.debug = None
+        self.tally = None
 
     def __enter__(self):
         if profiling():
@@ -97,9 +117,14 @@ class _Scope:
         self.debug = _DEBUG
         if self.debug is not None:
             self.debug.stack.append(self.phase)
+        self.tally = _TALLY
+        if self.tally is not None:
+            self.tally.stack.append(self.phase)
         return self
 
     def __exit__(self, *exc):
+        if self.tally is not None:
+            self.tally.stack.pop()
         if self.debug is not None:
             self.debug.stack.pop()
         if self.rf is not None:
@@ -109,10 +134,10 @@ class _Scope:
 
 def phase_scope(phase: str):
     """The scope of one taxonomy phase (asserted against PHASES, so a typo
-    cannot open a new bucket): a profiler range and a debug-check frame
-    where either is on, else a null context."""
+    cannot open a new bucket): a profiler range, a debug-check frame and a
+    cost tally's phase where any is on, else a null context."""
     assert phase in _PHASE_SET, f"unknown phase {phase!r} (util/phases.PHASES)"
-    if _DEBUG is None and not profiling():
+    if _DEBUG is None and _TALLY is None and not profiling():
         return _NULL
     return _Scope(phase)
 
@@ -125,7 +150,7 @@ def named_phase(phase: str):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if _DEBUG is None and not profiling():
+            if _DEBUG is None and _TALLY is None and not profiling():
                 return fn(*args, **kwargs)
             with _Scope(phase):
                 return fn(*args, **kwargs)

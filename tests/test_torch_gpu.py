@@ -1149,3 +1149,27 @@ def test_tuning_gravity_shapes_match_plain():
     assert len(res) == len(tuning_checks.TARGET_BLOCKS) * len(tuning_checks.SUPER_FACTORS)
     for key, r in res.items():
         assert r["compaction"] == ("sort" if key.endswith("=0") else "bitmask")
+
+
+# -- the static cost layer (kernels/cost_checks.py, shared with chip_smoke.py's
+# cost_path phase) -------------------------------------------------------------
+
+
+def test_cost_registry_card_matches_cpu():
+    """Every audit registry entry and the two list-mode cases tallied on
+    the card and on the CPU: per phase the FLOPs and both byte counts
+    equal, and every kernel launch charged once (the kernel charges equal
+    the LAUNCHES delta); the list-mode cases launch K5 and their walks."""
+    _need_card()
+    from sphexa_torch.kernels import cost_checks
+
+    res = cost_checks.registry_card_vs_cpu()
+    assert set(res) == {"step_std", "step_ve", "step_nbody", "step_turb_ve",
+                        "step_std_cooling", "gravity_solve", "step_std_blockdt",
+                        "observable_ledger", "observable_snapshot", "step_std_lists",
+                        "step_ve_lists"}
+    for r in res.values():
+        assert r["kernels"] == r["launches"]
+    for name, want in cost_checks.LIST_KERNELS.items():
+        assert res[name]["launches"] == {k: 1 for k in want}
+    assert res["gravity_solve"]["kernels"] == {"gravity_p2p": 1, "compact_class_lists": 1}

@@ -67,7 +67,18 @@ def test_port_sources_found():
                 ("tuning", "search.py"), ("tuning", "replay.py"), ("tuning", "cli.py"),
                 ("telemetry", "cli.py"), ("telemetry", "__main__.py"),
                 ("telemetry", "history.py"), ("telemetry", "serve.py"),
-                ("telemetry", "tables.py"), ("kernels", "tuning_checks.py")):
+                ("telemetry", "tables.py"), ("kernels", "tuning_checks.py"),
+                ("devtools", "__init__.py"), ("devtools", "common.py"),
+                ("devtools", "audit", "__init__.py"), ("devtools", "audit", "__main__.py"),
+                ("devtools", "audit", "cli.py"), ("devtools", "audit", "core.py"),
+                ("devtools", "audit", "costcli.py"), ("devtools", "audit", "costmodel.py"),
+                ("devtools", "audit", "devices.py"), ("kernels", "costs.py"),
+                ("devtools", "audit", "registry.py"), ("devtools", "audit", "tally.py"),
+                ("devtools", "audit", "rules", "__init__.py"),
+                ("devtools", "audit", "rules", "jxa301_phase_coverage.py"),
+                ("devtools", "audit", "rules", "jxa302_cost_budget.py"),
+                ("devtools", "audit", "rules", "jxa303_memory_bound.py"),
+                ("kernels", "cost_checks.py")):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

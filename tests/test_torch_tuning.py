@@ -388,8 +388,10 @@ def test_spec_from_manifest_matches_jax(tmp_path):
         assert stamp == json.load(f)["tuning"]
     with pytest.raises(FileNotFoundError):
         tt.spec_from_manifest(str(tmp_path))
-    with pytest.raises(ValueError, match="not available in the port"):
-        tt.static_cost_candidate(ts, {}, "density")
+    # the replayed spec scores by the static roofline objective too
+    r = tt.static_cost_candidate(ts, {}, "density")
+    assert r["status"] == "ok" and r["objective"] == "static-cost:density"
+    assert r["value"] == r["predicted_ms"] > 0 and r["device"] == "h100"
 
 
 def test_micro_sweep_writes_events_and_a_table(tmp_path, capsys):
@@ -418,8 +420,13 @@ def test_micro_sweep_writes_events_and_a_table(tmp_path, capsys):
                              trace_dir=str(tmp_path / "trace"))
     assert r["status"] == "ok" and 0 < r["value"] == r["phase_us"] / r["steps"]
     assert r["config"]["gap"] == 128
-    # the refusals: the JAX package's static cost model, ranks, no card
-    for extra in (["--objective", "static-cost:density"], ["--devices", "2"]):
+    # the static roofline objective sweeps on the CPU; the refusals: ranks,
+    # an unknown cost device, no card
+    assert tcli.main(["--device", "cpu", "--case", "sedov", "--side", "8", "--out", out,
+                      "--objective", "static-cost:density", "--budget", "2",
+                      "--quiet"]) == 0
+    for extra in (["--devices", "2"], ["--objective", "static-cost:density",
+                                       "--cost-device", "v5e"]):
         assert tcli.main(["--device", "cpu", "--case", "sedov", "--side", "8",
                           "--out", out] + extra) == 2
     if not torch.cuda.is_available():
