@@ -107,7 +107,7 @@ Phases, each printed as one JSON line:
    the cartesian quadrupole and orders 4 and 6, each timed and held
    against direct summation (order 4 closer than the quadrupole);
 13. the N-body path: Simulation(prop="nbody") on the 10^6-particle
-   Plummer sphere and on Evrard 125, one warm-up and two timed steps
+   Plummer sphere and on Evrard 125, one warm-up and one timed step
    each (counts reset just before, read just after: K12 once and K13
    twice per step attempt), host syncs, gravity phases, forces against
    direct summation, K12 and K13 against their plain versions at the
@@ -284,6 +284,15 @@ Phases, each printed as one JSON line:
    (c) the main path's device events a step after the tallies as before
    this layer (``MAIN_PATH_EVENTS``), a step's outputs and launches the
    same before a tally, under it and after it;
+30. ``audit_path``, the audit's trace rules, lowering lock and statecheck
+   (``kernels/audit_checks.py``), on ``cost_path``'s records: every
+   registry entry's findings (zero), run fingerprint, launch map and
+   schema rows equal on the card and on the CPU and to the committed
+   LOWERING_LOCK_TORCH.json and STATE_SCHEMA_TORCH.json, the launch map
+   equal to the wrappers' counters, JXA104's host-sync sites equal to the
+   card's sync debug mode's over one more run, the knob probes equal on
+   both devices; ``python -m sphexa_torch.devtools.audit``, ``lowering``
+   and ``schema`` exit 0 on the card;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -1505,7 +1514,7 @@ def nbody_path(spec, smi) -> dict:
     """The N-body propagator at full width: Simulation(prop="nbody") on
     the 10^6-particle Plummer sphere of the JAX package's gravity
     benchmark and on Evrard 125 (1,022,790 particles), each one warm-up
-    and two timed steps with the counts reset just before and read just
+    and one timed step with the counts reset just before and read just
     after (K12 once and K13 twice per step attempt, nothing else), its
     host syncs, gravity phases, forces against direct summation on 4,096
     targets (rms < 0.01, p99 < 0.05) and K12 / K13 against their plain
@@ -1527,7 +1536,7 @@ def nbody_path(spec, smi) -> dict:
         torch.cuda.reset_peak_memory_stats()
         state, box, const = make()
         run = drive(lambda: Simulation(state, box, const, prop="nbody", device="cuda",
-                                       obs_spec=spec), steps=2, label=f"nbody_{label}")
+                                       obs_spec=spec), steps=1, label=f"nbody_{label}")
         sim = run["sim"]
         check_launches(f"nbody {label}", run["launches"], run["attempts"], ("gravity_p2p",),
                        compactions=2)
@@ -3007,6 +3016,12 @@ def app_shell(spec, smi, main_sim, ve_sim) -> dict:
         dep["max"] = ac.deposit_vs_plain("Sedov 100 max", st, rho, ssim.box,
                                          dataclasses.replace(snap, reduce="max"))
         dep_ms = cuda_time_ms(lambda: snapshot_diagnostics(st, rho, ssim.box, snap), reps=20)
+        # the "sum" deposit sums each cell's segment in a fixed order: the
+        # same bits in two runs (audit rule JXA401)
+        twice = [snapshot_diagnostics(st, rho, ssim.box, snap)["snap_grid"] for _ in range(2)]
+        if not torch.equal(*twice):
+            raise AssertionError("app_shell: two runs of the deposit differ "
+                                 f"by {float((twice[0] - twice[1]).abs().max())}")
         n, F, G = st.n, len(snap.fields), snap.grid
         nbytes = 4 * n * (3 + F) + 4 * F * G * G
         dep_bound = _bound(n * (9 + F), nbytes)
@@ -3023,6 +3038,7 @@ def app_shell(spec, smi, main_sim, ve_sim) -> dict:
         extra = ev["with"]["names"] - ev["without"]["names"]
         emit({"phase": "app_shell", "part": "deposit", "card": smi, "side": side,
               "spec": dataclasses.asdict(snap), "vs_plain": dep, "deposit_ms": dep_ms,
+              "deposit_bits_equal_two_runs": True,
               "deposit_bound_ms": dep_bound["bound_ms"], "deposit_bound_by":
               dep_bound["bound_by"],
               "step_ms_median_without": statistics.median(runs["without"]["window_step_ms"]),
@@ -3484,6 +3500,27 @@ def cost_path(smi, main_sim) -> dict:
     return {"cost_registry": reg_launches, "cost_main_path": main_launches}
 
 
+def audit_path(smi) -> None:
+    """Phase 30, the audit's trace rules, lowering lock and statecheck
+    (``kernels/audit_checks.py``), on the records ``cost_path`` made: every
+    registry entry's findings, run fingerprint (its launch map among it)
+    and schema rows equal on the card and on the CPU and to the committed
+    LOWERING_LOCK_TORCH.json and STATE_SCHEMA_TORCH.json, the launch map
+    equal to the wrappers' counters, JXA104's host-sync sites equal to
+    those the card's sync debug mode reports over one more run, the knob
+    probes equal on both devices; then the CLI's default mode,
+    ``lowering`` and ``schema`` on the card (exit 0 each)."""
+    from sphexa_torch.kernels import audit_checks
+
+    t0 = time.perf_counter()
+    entries = audit_checks.registry_card_vs_cpu_audit()
+    t1 = time.perf_counter()
+    rcs = audit_checks.audit_cli_on_card()
+    emit({"phase": "audit_path", "card": smi, "entries": entries, "cli_rcs": rcs,
+          "registry_s": t1 - t0, "cli_s": time.perf_counter() - t1,
+          "phase_seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3546,8 +3583,11 @@ def main() -> int:
     # inputs: both periodic-image paths streaming, and list mode; std and
     # VE; and VE Gresho-Chan, whose thin slab puts the grid in fold mode
     for prop in ("std", "ve"):
-        for side, ct, use_lists in ((24, 16, True), (24, 16, False), (12, None, False)):
-            emit(slice_vs_cpu(side, ct, steps=2, use_lists=use_lists, prop=prop))
+        # the streaming side 24 one step (was two: the depth cut paying for
+        # audit_path); list mode two, its second on the first's lists
+        for side, ct, use_lists, steps in ((24, 16, True, 2), (24, 16, False, 1),
+                                           (12, None, False, 2)):
+            emit(slice_vs_cpu(side, ct, steps=steps, use_lists=use_lists, prop=prop))
     gc = slice_vs_cpu(20, None, steps=1, use_lists=True, prop="ve", case="gresho-chan")
     if not gc["fold"]:
         raise AssertionError("Gresho-Chan 20: expected a fold-mode grid")
@@ -3928,6 +3968,9 @@ def main() -> int:
     # 29. the static roofline cost layer: the registry card vs CPU, the main
     # path's phase roofline against its capture, the tally inert
     cost_launches = cost_path(smi, sim)
+    # 30. the audit's trace rules, the lowering lock and statecheck: the
+    # registry card vs CPU and the committed files, the syncs the card sees
+    audit_path(smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),

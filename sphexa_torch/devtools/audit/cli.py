@@ -1,16 +1,29 @@
 """``python -m sphexa_torch.devtools.audit`` (``sphexa-torch-audit``): the
 port's audit CLI (the JAX package's ``sphexa-audit``).
 
-    python -m sphexa_torch.devtools.audit cost [--device h100] [--cpu] ...
+    python -m sphexa_torch.devtools.audit [targets] [--cpu] [--select IDS]
+        [--entries NAMES] [--format text|json]
+    python -m sphexa_torch.devtools.audit lowering [--cpu] [--write] ...
+    python -m sphexa_torch.devtools.audit schema [--cpu] [--write] [--vmap] ...
+    python -m sphexa_torch.devtools.audit cost [--cpu] [--device h100] ...
     python -m sphexa_torch.devtools.audit --list-rules
     python -m sphexa_torch.devtools.audit --list-entries [targets...]
 
-The port has the JAX audit's cost layer (``cost``: rules JXA301-JXA303,
-costcli.py). Its other modes, the trace-rule audit (JXA101-JXA106),
-``preflight`` (the SPMD checks JXA201-JXA204), ``lowering`` (JXA401-402)
-and ``schema`` (statecheck JXA501-503), are not ported yet (ROADMAP
-Queue 1) and exit 2 saying so. Exit codes are the JAX CLI's: 0 = clean,
-1 = findings or entry errors, 2 = usage error.
+The default mode runs every registered rule on one recorded run of each
+registry entry (tally.py's record): the trace rules JXA101 (64-bit
+values), JXA104 (host syncs) and JXA105 (constants), the cost rules
+JXA301-JXA303, JXA401 (order-dependent float accumulates), JXA402 (knob
+inertness), JXA501 (schema drift) and JXA503 (carry closure); JXA502
+runs under ``schema --vmap`` only. ``lowering`` checks the committed
+LOWERING_LOCK_TORCH.json (lowerdiff.py), ``schema`` the committed
+STATE_SCHEMA_TORCH.json (statecheck.py), ``cost`` the roofline budget
+(costcli.py). Every mode runs the entries on the card, and exits 2 on a
+machine without one unless ``--cpu`` asks for the CPU (the kernels' plain
+versions: the same record). ``preflight`` (the SPMD checks JXA201-JXA204)
+is not ported yet: ROADMAP Queue 1 item 1 holds it, and it exits 2.
+
+Exit codes are the JAX CLI's: 0 = clean, 1 = findings or entry errors,
+2 = usage error.
 """
 
 import argparse
@@ -23,25 +36,27 @@ from typing import List, Optional
 _DEFAULT_TARGET = "sphexa_torch"
 _PACKAGE_REGISTRY = "sphexa_torch.devtools.audit.registry"
 
-#: the JAX CLI's modes the port lacks, and what they check
-_NOT_PORTED = {
-    "preflight": "the SPMD checks JXA201-JXA204 and the campaign preflight",
-    "lowering": "the lowering lock JXA401-JXA402",
-    "schema": "statecheck JXA501-JXA503",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sphexa-torch-audit",
-        description="the port's audit: 'cost' runs the static roofline cost gate "
-                    "(rules JXA301-JXA303) over the registered entry points; "
-                    "'sphexa-torch-audit cost --help' for its options.",
+        description="the port's audit: every registered rule (JXA101, JXA104, "
+                    "JXA105, JXA301-JXA303, JXA401-JXA402, JXA501, JXA503) over one "
+                    "recorded run of each registered entry point. 'lowering --help' "
+                    "for the run-fingerprint lock, 'schema --help' for the state-schema "
+                    "lock and the vmap report, 'cost --help' for the roofline gate.",
     )
     ap.add_argument("targets", nargs="*", default=[_DEFAULT_TARGET],
                     help="registry modules: 'sphexa_torch' (the package registry), "
                          "a dotted module name, or a .py file defining "
                          "@entrypoint builders (default: sphexa_torch)")
+    ap.add_argument("--format", choices=("text", "json"), default="text")
+    ap.add_argument("--select", metavar="IDS",
+                    help="comma-separated rule ids to run (default: all)")
+    ap.add_argument("--entries", metavar="NAMES",
+                    help="comma-separated entry names to audit (default: all)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the entries on the CPU (the kernels' plain versions)")
     ap.add_argument("--list-rules", action="store_true",
                     help="print the rule catalog and exit")
     ap.add_argument("--list-entries", action="store_true",
@@ -62,38 +77,99 @@ def _load_target(target: str):
     return importlib.import_module(target)
 
 
+def load_entries(targets, names: Optional[str]):
+    """The entries of ``targets`` (registry modules), narrowed to the
+    comma-separated ``names``; raises ValueError on an unknown name."""
+    from sphexa_torch.devtools.audit.core import entries_from_namespace
+
+    entries = []
+    for target in targets:
+        entries += entries_from_namespace(vars(_load_target(target)))
+    if names:
+        want = {s.strip() for s in names.split(",") if s.strip()}
+        unknown = want - {e.name for e in entries}
+        if unknown:
+            raise ValueError(f"unknown entry name(s): {sorted(unknown)}")
+        entries = [e for e in entries if e.name in want]
+    return entries
+
+
+def audit_device(prog: str, cpu: bool) -> Optional[str]:
+    """The device a mode runs its entries on: "cpu" when asked, else the
+    card; None (after saying so) when there is no card."""
+    if cpu:
+        return "cpu"
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"{prog}: no CUDA device (the entries run on the card; --cpu runs them on "
+              f"the CPU)", file=sys.stderr)
+        return None
+    return "cuda"
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "cost":
         from sphexa_torch.devtools.audit.costcli import main as cost_main
 
         return cost_main(argv[1:])
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"sphexa-torch-audit: '{argv[0]}' ({_NOT_PORTED[argv[0]]}) is not ported "
-              f"yet: ROADMAP.md Queue 1 lists it; 'cost' is available", file=sys.stderr)
+    if argv and argv[0] == "lowering":
+        from sphexa_torch.devtools.audit.lowerdiff import main as lowering_main
+
+        return lowering_main(argv[1:])
+    if argv and argv[0] == "schema":
+        from sphexa_torch.devtools.audit.statecheck import main as schema_main
+
+        return schema_main(argv[1:])
+    if argv and argv[0] == "preflight":
+        print("sphexa-torch-audit: 'preflight' (the SPMD checks JXA201-JXA204 and the "
+              "campaign preflight) is not ported yet: ROADMAP.md Queue 1 item 1 holds it",
+              file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
+    prog = "sphexa-torch-audit"
 
-    from sphexa_torch.devtools.audit.core import all_rules, entries_from_namespace
+    import dataclasses
+
+    from sphexa_torch.devtools.audit.core import (
+        Auditor,
+        all_rules,
+        audit_context,
+        set_audit_context,
+    )
+    from sphexa_torch.devtools.common import finish_cli
 
     if args.list_rules:
         for rule in all_rules().values():
             print(f"{rule.id}  {rule.name}: {rule.description}")
         return 0
+    try:
+        entries = load_entries(args.targets, args.entries)
+    except (ImportError, OSError, SyntaxError, ValueError) as e:
+        print(f"{prog}: {e}", file=sys.stderr)
+        return 2
     if args.list_entries:
-        for target in args.targets:
-            try:
-                mod = _load_target(target)
-            except (ImportError, OSError, SyntaxError) as e:
-                print(f"sphexa-torch-audit: cannot load target {target!r}: {e}",
-                      file=sys.stderr)
-                return 2
-            for e in entries_from_namespace(vars(mod)):
-                print(f"{e.name}  ({e.path}:{e.line})")
+        for e in entries:
+            print(f"{e.name}  ({e.path}:{e.line})")
         return 0
-    print("sphexa-torch-audit: the trace-rule audit (JXA101-JXA106) is not ported yet: "
-          "ROADMAP.md Queue 1 lists it; 'cost' is available", file=sys.stderr)
-    return 2
+    select = [s.strip() for s in args.select.split(",") if s.strip()] if args.select else None
+    try:
+        auditor = Auditor(select=select)
+    except ValueError as e:
+        print(f"{prog}: {e}", file=sys.stderr)
+        return 2
+    device = audit_device(prog, args.cpu)
+    if device is None:
+        return 2
+    prev = set_audit_context(dataclasses.replace(audit_context(), device=device))
+    try:
+        active, errors, skipped = auditor.run_entries(entries)
+    finally:
+        set_audit_context(prev)
+    for note in skipped:
+        print(f"{prog}: skipped {note}", file=sys.stderr)
+    return finish_cli("torchaudit", args.format, active, errors)
 
 
 if __name__ == "__main__":

@@ -5,19 +5,25 @@ Where the JAX audit traces each registered entry to a jaxpr, the port has
 none to read: an ``EntryCase`` holds a callable and its example args, and
 the audit RUNS it (``EntryTrace.tally``: once untallied, so that lazy
 set-up stays out, then once under ``tally.tallying``, which charges every
-aten op and every kernel launch to its phase).
+aten op and every kernel launch to its phase and keeps the ordered record
+of the run, ``Tally.rows``, that the trace rules, the lowering lock and
+statecheck read, and the run's output).
 
-- An ``EntryPoint`` is a declaration: a name, the audit metadata the cost
-  rules read (coverage floor, budget file, declared compute-bound phases)
-  and a lazy ``build`` callable returning an ``EntryCase``. Building is
-  lazy so that importing a registry module stays cheap and device-free.
+- An ``EntryPoint`` is a declaration: a name, the audit metadata the rules
+  read (coverage floor, budget file, declared compute-bound phases, the
+  constant budget, float64 as the default dtype, the grow probe and the
+  host syncs it declares) and a lazy ``build`` callable returning an
+  ``EntryCase``. Building is lazy so that importing a registry module
+  stays cheap and device-free.
 - ``EntryTrace`` caches the expensive per-entry artifacts (the run, the
-  tally, the cost report) so that each rule pays only for what it reads
-  and nothing runs twice.
+  tally, the cost report, the fingerprint, the schema) so that each rule
+  pays only for what it reads and nothing runs twice; ``entry_trace``
+  keeps one per (entry, device) for the whole process, so that the CLI's
+  modes and a test module share one recorded run of each entry.
 - Rules are ``check(trace) -> [Finding]`` callables registered under JXA
   ids. Findings anchor at the entry's registration site. (The JAX audit's
-  inline ``disable=`` grammar is not ported: the port has no suppression
-  comment yet.)
+  inline ``disable=`` grammar and baseline are not ported: no finding of
+  the port is grandfathered.)
 
 ``JXA000`` is reserved for entries whose build or run raises: a broken
 registry entry can never silently shrink coverage.
@@ -40,6 +46,7 @@ __all__ = [
     "EntrySkip",
     "entrypoint",
     "entries_from_namespace",
+    "entry_trace",
     "Rule",
     "register",
     "all_rules",
@@ -62,6 +69,12 @@ class AuditContext:
     #: its own via EntryPoint.cost_budget_file. A missing DEFAULT file
     #: skips the gate (out-of-repo use); a missing DECLARED file fails.
     cost_budget_path: str = "COST_BUDGET_TORCH.json"
+    #: JXA501 default schema lock (repo-root committed); a missing DEFAULT
+    #: file skips the gate (out-of-repo use)
+    state_schema_path: str = "STATE_SCHEMA_TORCH.json"
+    #: JXA502 member-axis width of the vmap probe; 0 disables it (the
+    #: default gate: ``schema --vmap`` turns it on)
+    vmap_members: int = 0
 
 
 _CONTEXT = AuditContext()
@@ -95,6 +108,13 @@ class EntryCase:
     fn: Callable
     args: Tuple[Any, ...] = ()
     warmup: bool = True
+    #: JXA503: the next step's args from (these args, this run's output);
+    #: None: not a step
+    carry: Optional[Callable[[Tuple[Any, ...], Any], Tuple[Any, ...]]] = None
+    #: JXA402: a thunk returning the lowerdiff.KnobProbe comparisons this
+    #: entry vouches for (the ``knob_inertness`` entry); None: the rule
+    #: does not apply
+    knob_probes: Optional[Callable[[], Any]] = None
 
 
 @dataclasses.dataclass
@@ -110,6 +130,18 @@ class EntryPoint:
     cost_budget_file: Optional[str] = None
     # JXA303: phases this entry DECLARES compute-bound
     expect_compute_bound: Tuple[str, ...] = ()
+    # JXA105: bytes of host data made into one tensor, or of one device
+    # tensor the run reads without getting or making it
+    const_bytes_limit: int = 1 << 20
+    # run with float64 as torch's default dtype (the JAX x64 switch: a
+    # Python float then makes a float64 tensor; fixture use)
+    x64: bool = False
+    # statecheck's two-point probe: the same entry rebuilt larger (a
+    # thunk returning its EntryCase); None: every axis is const
+    grow: Optional[Callable[[], EntryCase]] = None
+    # JXA104: the host syncs a run of this entry makes (reads of the card
+    # on the host), declared where the code needs them
+    host_syncs: int = 0
     path: str = "?"
     line: int = 0
 
@@ -126,7 +158,10 @@ def _display_path(filename: str) -> str:
 
 def entrypoint(name: str, *, phase_coverage_min: Optional[float] = None,
                cost_budget_file: Optional[str] = None,
-               expect_compute_bound: Tuple[str, ...] = ()) -> Callable:
+               expect_compute_bound: Tuple[str, ...] = (),
+               const_bytes_limit: int = 1 << 20, x64: bool = False,
+               grow: Optional[Callable[[], EntryCase]] = None,
+               host_syncs: int = 0) -> Callable:
     """Decorator: declare a builder function as an audit entry point. The
     decorated function runs lazily (per audit run) and returns an
     ``EntryCase``; findings anchor at its definition line."""
@@ -137,6 +172,8 @@ def entrypoint(name: str, *, phase_coverage_min: Optional[float] = None,
             name=name, build=build, phase_coverage_min=phase_coverage_min,
             cost_budget_file=cost_budget_file,
             expect_compute_bound=tuple(expect_compute_bound),
+            const_bytes_limit=const_bytes_limit, x64=x64, grow=grow,
+            host_syncs=host_syncs,
             path=_display_path(code.co_filename) if code else "?",
             line=code.co_firstlineno if code else 0,
         )
@@ -157,7 +194,8 @@ def entries_from_namespace(ns: Dict[str, Any]) -> List[EntryPoint]:
 
 class EntryTrace:
     """Lazily computed, cached run artifacts of one entry: the tally of
-    one run (``tally``), the kernel launches it made (``launches``: the
+    one run (``tally``, with its record ``tally.rows``), the run's output
+    (``out``), the kernel launches it made (``launches``: the
     ``pair_engine.LAUNCHES`` delta over the tallied run) and the cost
     report the rules share (``costmodel.cost_report``)."""
 
@@ -165,7 +203,9 @@ class EntryTrace:
         self.entry = entry
         self.case = case
         self._tally = None
+        self._out = None
         self.launches: Dict[str, int] = {}
+        self.device = _case_device(case.args, audit_context().device)
 
     @property
     def tally(self):
@@ -175,20 +215,46 @@ class EntryTrace:
 
             if self.case.warmup:
                 self.case.fn(*self.case.args)
-            device = _case_device(self.case.args, audit_context().device)
             before = dict(LAUNCHES)
-            with tallying(device) as t:
-                self.case.fn(*self.case.args)
+            with tallying(self.device, self.case.args, self.entry.x64) as t:
+                out = self.case.fn(*self.case.args)
             self.launches = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
                              if v != before.get(k, 0)}
-            self._tally = t
+            self._tally, self._out = t, out
         return self._tally
+
+    @property
+    def out(self):
+        """The output of the tallied run."""
+        self.tally  # noqa: B018 - runs the entry once
+        return self._out
 
     def finding(self, rule: str, message: str) -> Finding:
         e = self.entry
         return Finding(rule=rule, path=e.path, line=e.line, col=0,
                        message=f"[{e.name}] {message}",
                        snippet=f"entry:{e.name}")
+
+
+_TRACES: Dict[Tuple[str, str, str], EntryTrace] = {}
+
+
+def entry_trace(entry: EntryPoint, device: Optional[str] = None) -> EntryTrace:
+    """The process's one trace of ``entry`` built on ``device`` (default:
+    the audit context's): built and run on first use, then shared by every
+    mode of the CLI, the rules and the tests. A build that raises is not
+    kept."""
+    device = device or audit_context().device
+    key = (entry.path, entry.name, device)
+    trace = _TRACES.get(key)
+    if trace is None:
+        prev = set_audit_context(dataclasses.replace(audit_context(), device=device))
+        try:
+            trace = EntryTrace(entry, entry.build())
+        finally:
+            set_audit_context(prev)
+        _TRACES[key] = trace
+    return trace
 
 
 def _case_device(args, default: str) -> str:
@@ -261,11 +327,12 @@ class Auditor:
 
     def check_entry(self, entry: EntryPoint, active: List[Finding],
                     errors: List[Finding], skipped: List[str]) -> Optional[EntryTrace]:
-        """Build ``entry`` and run every rule on it, appending to the
-        lists; returns its trace, or None when it skipped, failed to build
-        or a rule crashed (each a JXA000 error but the skip)."""
+        """Build ``entry`` (``entry_trace``: once a process) and run every
+        rule on it, appending to the lists; returns its trace, or None
+        when it skipped, failed to build or a rule crashed (each a JXA000
+        error but the skip)."""
         try:
-            case = entry.build()
+            trace = entry_trace(entry)
         except EntrySkip as e:
             skipped.append(f"{entry.name}: {e}")
             return None
@@ -276,7 +343,6 @@ class Auditor:
                         f"{e.__class__.__name__}: {e}",
             ))
             return None
-        trace = EntryTrace(entry, case)
         failed = False
         for rule in self.rules.values():
             try:
@@ -292,3 +358,14 @@ class Auditor:
                 continue
             active.extend(found)
         return None if failed else trace
+
+    def run_entries(self, entries: Sequence[EntryPoint]
+                    ) -> Tuple[List[Finding], List[Finding], List[str]]:
+        """(active, errors, skipped) over the entries, each list sorted."""
+        active: List[Finding] = []
+        errors: List[Finding] = []
+        skipped: List[str] = []
+        for entry in entries:
+            self.check_entry(entry, active, errors, skipped)
+        key = lambda f: (f.path, f.line, f.rule, f.message)  # noqa: E731
+        return sorted(active, key=key), sorted(errors, key=key), skipped

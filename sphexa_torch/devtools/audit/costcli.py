@@ -83,24 +83,6 @@ def entry_payload(name: str, pred) -> Dict[str, Any]:
     }
 
 
-def load_entries(targets, names: Optional[str]):
-    """The entries of ``targets`` (registry modules), narrowed to the
-    comma-separated ``names``; raises ValueError on an unknown name."""
-    from sphexa_torch.devtools.audit.cli import _load_target
-    from sphexa_torch.devtools.audit.core import entries_from_namespace
-
-    entries = []
-    for target in targets:
-        entries += entries_from_namespace(vars(_load_target(target)))
-    if names:
-        want = {s.strip() for s in names.split(",") if s.strip()}
-        unknown = want - {e.name for e in entries}
-        if unknown:
-            raise ValueError(f"unknown entry name(s): {sorted(unknown)}")
-        entries = [e for e in entries if e.name in want]
-    return entries
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     prog = "sphexa-torch-audit cost"
@@ -113,13 +95,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"{prog}: unknown device {args.device!r} "
               f"(known: {', '.join(device_names())})", file=sys.stderr)
         return 2
-    if not args.cpu:
-        import torch
+    from sphexa_torch.devtools.audit.cli import audit_device, load_entries
 
-        if not torch.cuda.is_available():
-            print(f"{prog}: no CUDA device (the entries run on the card; --cpu runs "
-                  f"them on the CPU)", file=sys.stderr)
-            return 2
+    device = audit_device(prog, args.cpu)
+    if device is None:
+        return 2
 
     from sphexa_torch.devtools.audit.core import (
         Auditor,
@@ -135,7 +115,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ctx = dataclasses.replace(
         audit_context(),
         cost_device=dev.name,
-        device="cpu" if args.cpu else "cuda",
+        device=device,
         **({"cost_budget_path": args.budget} if args.budget else {}),
         **({"phase_coverage_min": args.coverage_min}
            if args.coverage_min is not None else {}),

@@ -14,10 +14,14 @@ The step entries run the propagator's step on the Simulation's carry
 launches) without the Simulation's read of the card. At these sides every
 SPH case streams (its grid folds), so the step entries launch K1, the
 self-gravity ones K12, the block time steps K13's one-row form, and
-``gravity_solve`` K12 and K13.
+``gravity_solve`` K12 and K13. The two list-mode cases (Noh at
+``LIST_SIDE``, whose grid does not fold) build the lists (K5) and walk
+them (K6). ``knob_inertness`` carries the JXA402 probes. ``step_std``
+and ``gravity_solve`` declare statecheck's grow probe (side 8), the
+steps their carry (JXA503).
 
-The sharded entries and ``tree_build_sizing`` / ``knob_inertness`` are
-not ported yet (ROADMAP Queue 1).
+The sharded entries and ``tree_build_sizing`` are not ported yet
+(ROADMAP Queue 1).
 """
 
 import dataclasses
@@ -30,6 +34,11 @@ from sphexa_torch.devtools.audit.core import EntryCase, audit_context, entrypoin
 # second on a CPU host
 _SIDE = 6          # 216 particles (cube cases)
 _SIDE_GRAV = 6     # sphere cuts (evrard) keep about half of side^3
+#: statecheck's second point (the JAX registry's grow side)
+_SIDE_GROW = 8
+#: the side of the list-mode cases: Noh's grid does not fold there, so its
+#: steps take the lists (the side-6 entries all stream)
+LIST_SIDE = 12
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +67,7 @@ def _step_case(sim) -> EntryCase:
         fn=lambda carry: step_sim_state(sim._step_fn, carry, sim.cfg, sim.gtree,
                                         sim._aux_cfg, lists=lists),
         args=(sim.sim_state,),
+        carry=lambda args, out: (out[0],),
     )
 
 
@@ -66,7 +76,8 @@ def _step_case(sim) -> EntryCase:
 # ---------------------------------------------------------------------------
 
 
-@entrypoint("step_std")
+@entrypoint("step_std", grow=lambda: _step_case(_sim("sedov", _SIDE_GROW, "std",
+                                                     audit_context().device)))
 def step_std():
     return _step_case(_sim("sedov", _SIDE, "std", audit_context().device))
 
@@ -97,17 +108,11 @@ def step_std_cooling():
 # ---------------------------------------------------------------------------
 
 
-@entrypoint("gravity_solve")
-def gravity_solve():
-    """The Evrard solve on the step's sorted arrays (the sort untallied),
-    in the engine backend's bitmask compaction (its form from 500k
-    particles, one-level here): the list compaction K13 runs, beside the
-    near field K12. The steps' solves at this size take the sort
-    compaction, as the JAX registry's do."""
+def _gravity_case(side: int) -> EntryCase:
     from sphexa_torch.gravity.traversal import compute_gravity
     from sphexa_torch.propagator import _force_stage_prologue
 
-    sim = _sim("evrard", _SIDE_GRAV, "nbody", audit_context().device)
+    sim = _sim("evrard", side, "nbody", audit_context().device)
     ss, box, keys, _ = _force_stage_prologue(sim.state, sim.box, sim.cfg)
     meta = sim.cfg.grav_meta
     gcfg = dataclasses.replace(sim.cfg.gravity, G=sim.const.g, compaction="bitmask")
@@ -116,6 +121,16 @@ def gravity_solve():
                                                      meta, gcfg),
         args=(ss.x, ss.y, ss.z, ss.m, ss.h, keys),
     )
+
+
+@entrypoint("gravity_solve", grow=lambda: _gravity_case(_SIDE_GROW))
+def gravity_solve():
+    """The Evrard solve on the step's sorted arrays (the sort untallied),
+    in the engine backend's bitmask compaction (its form from 500k
+    particles, one-level here): the list compaction K13 runs, beside the
+    near field K12. The steps' solves at this size take the sort
+    compaction, as the JAX registry's do."""
+    return _gravity_case(_SIDE_GRAV)
 
 
 # ---------------------------------------------------------------------------
@@ -173,3 +188,61 @@ def observable_snapshot():
         return snapshot_diagnostics(state, rho, box, spec)
 
     return EntryCase(fn=fn, args=(s, rho))
+
+
+# ---------------------------------------------------------------------------
+# list mode (kernels/cost_checks.py holds them on the card)
+# ---------------------------------------------------------------------------
+
+
+def _list_case(prop: str) -> EntryCase:
+    """One list build (which sorts the Simulation's state) and one step on
+    the lists from the sorted state, of Noh at ``LIST_SIDE`` with ``prop``:
+    K5 and the prop's K6 walks in their mask modes. The untallied warm-up
+    sorts the initial state, so that every recorded run starts from the
+    same sorted state. Its two host syncs are the build's: the list's
+    overflow read (``Simulation._rebuild_lists``) and the size of the
+    walk's mask-word buffer (``pair_lists.build_pair_lists``)."""
+    from sphexa_torch.propagator import step_sim_state
+
+    sim = _sim("noh", LIST_SIDE, prop, audit_context().device)
+    if not sim._use_lists:
+        raise AssertionError(f"noh {LIST_SIDE} {prop}: the step streams, no list mode")
+
+    def run():
+        sim._rebuild_lists()
+        return step_sim_state(sim._step_fn, sim.sim_state, sim.cfg, sim.gtree,
+                              sim._aux_cfg, lists=sim.lists)
+
+    return EntryCase(fn=run)
+
+
+@entrypoint("step_std_lists", host_syncs=2)
+def step_std_lists():
+    return _list_case("std")
+
+
+@entrypoint("step_ve_lists", host_syncs=2)
+def step_ve_lists():
+    return _list_case("ve")
+
+
+# ---------------------------------------------------------------------------
+# JXA402's carrier
+# ---------------------------------------------------------------------------
+
+
+@entrypoint("knob_inertness", phase_coverage_min=0.0)
+def knob_inertness():
+    """JXA402 carrier: its run is a stub; the rule's work is the off-vs-unset
+    probes of ``lowerdiff.production_knob_probes`` (a probe Simulation's
+    step for every off-sentinel knob of tuning/knobs.py against the step
+    that never names it). An entry of its own keeps the probes out of the
+    step entries' rule loops while every package audit runs them."""
+    import torch
+
+    from sphexa_torch.devtools.audit.lowerdiff import production_knob_probes
+
+    return EntryCase(fn=lambda x: x * 1.0,
+                     args=(torch.ones(8, device=audit_context().device),),
+                     knob_probes=production_knob_probes)

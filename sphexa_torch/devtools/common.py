@@ -1,17 +1,19 @@
 """Machinery the port's devtools share (the JAX package's
-devtools/common.py, as far as the cost CLI needs it; the port imports
-nothing of it): the ``Finding`` shape, the table renderer and the CLI's
-findings report (exit codes 0 clean, 1 findings or errors, 2 usage).
+devtools/common.py; the port imports nothing of it): the ``Finding``
+shape, the table renderer and the CLIs' findings report, text or JSON
+(exit codes 0 clean, 1 findings or errors, 2 usage).
 
 The JAX module's inline suppression grammar and snippet-hash baseline
-are not here: the port commits no baseline and no suppression comment
-yet (ROADMAP Queue 1, the trace rules, brings them with the first).
+are not here: no finding of the port is grandfathered, so its gates run
+at zero findings with nothing to suppress. The JSON report keeps the JAX
+keys (``baselined`` and ``suppressed`` stay empty lists).
 """
 
 import dataclasses
+import json
 from typing import List, Optional, Tuple
 
-__all__ = ["Finding", "render_table", "render_text"]
+__all__ = ["Finding", "render_table", "render_text", "render_json", "finish_cli"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +64,20 @@ def render_text(new: List[Finding], errors: List[Finding], tool: str) -> str:
             lines.append(f"    {f.snippet}")
     lines.append(f"{tool}: {len(new) + len(errors)} finding(s)")
     return "\n".join(lines)
+
+
+def render_json(new: List[Finding], errors: List[Finding]) -> str:
+    """The JSON findings report, under the JAX CLI's keys."""
+    return json.dumps({
+        "findings": [f.to_json() for f in new],
+        "errors": [f.to_json() for f in errors],
+        "baselined": [],
+        "suppressed": [],
+    }, indent=2)
+
+
+def finish_cli(tool: str, fmt: str, active: List[Finding], errors: List[Finding]) -> int:
+    """The CLIs' tail: the report in ``fmt`` ("text" or "json") and the
+    exit code, 0 clean or 1 findings or errors."""
+    print(render_json(active, errors) if fmt == "json" else render_text(active, errors, tool))
+    return 1 if (active or errors) else 0

@@ -2,8 +2,8 @@
 chip_smoke.py's ``cost_path`` phase and tests/test_torch_gpu.py
 (``-k cost``).
 
-- ``registry_card_vs_cpu``: every audit registry entry, and the two
-  list-mode cases (``LIST_ENTRIES``), tallied on the card and on the CPU
+- ``registry_card_vs_cpu``: every audit registry entry, the two list-mode
+  cases (``LIST_ENTRIES``) among them, tallied on the card and on the CPU
   (the kernels' plain versions there): per phase the FLOPs and both byte
   counts equal, and on the card every kernel launch charged once (the
   tally's kernel charges equal the ``LAUNCHES`` delta of the same run). A
@@ -11,60 +11,22 @@ chip_smoke.py's ``cost_path`` phase and tests/test_torch_gpu.py
   that differ.
 """
 
-import dataclasses
 from typing import Dict, List
 
 from sphexa_torch.devtools.audit import registry
 from sphexa_torch.devtools.audit.core import (
-    EntryCase,
     EntryTrace,
-    audit_context,
     entries_from_namespace,
-    entrypoint,
-    set_audit_context,
+    entry_trace,
 )
 from sphexa_torch.devtools.audit.costmodel import cost_report, predict
 
 #: the per-phase numbers the card and the CPU must agree on
 COMPARED = ("flops", "hbm_lower", "hbm_upper")
 
-#: the side of the list-mode cases: Noh's grid does not fold there, so its
-#: steps take the lists (the registry's side-6 entries all stream)
-LIST_SIDE = 12
-
-
-def _list_case(prop: str) -> EntryCase:
-    """One list build (which sorts the Simulation's state) and one step on
-    the lists from the sorted state, of Noh at ``LIST_SIDE`` with ``prop``:
-    K5 and the prop's K6 walks in their mask modes. The untallied warm-up
-    sorts the initial state, so that every tallied run starts from the
-    same sorted state."""
-    from sphexa_torch.propagator import step_sim_state
-
-    sim = registry._sim("noh", LIST_SIDE, prop, audit_context().device)
-    if not sim._use_lists:
-        raise AssertionError(f"noh {LIST_SIDE} {prop}: the step streams, no list mode")
-
-    def run():
-        sim._rebuild_lists()
-        return step_sim_state(sim._step_fn, sim.sim_state, sim.cfg, sim.gtree,
-                              sim._aux_cfg, lists=sim.lists)
-
-    return EntryCase(fn=run)
-
-
-@entrypoint("step_std_lists")
-def step_std_lists():
-    return _list_case("std")
-
-
-@entrypoint("step_ve_lists")
-def step_ve_lists():
-    return _list_case("ve")
-
-
-#: the list-mode cases
-LIST_ENTRIES = (step_std_lists, step_ve_lists)
+#: the list-mode cases (audit registry entries)
+LIST_SIDE = registry.LIST_SIDE
+LIST_ENTRIES = (registry.step_std_lists, registry.step_ve_lists)
 #: the kernels each list-mode case must charge, by name
 LIST_KERNELS = {
     "step_std_lists": {"mark", "density_lists", "iad_lists", "momentum_energy_std_lists"},
@@ -74,14 +36,10 @@ LIST_KERNELS = {
 
 
 def tally_entry(entry, device: str) -> EntryTrace:
-    """Build and tally one registry entry on ``device``; returns its trace
-    (``tally``, ``launches``)."""
-    prev = set_audit_context(dataclasses.replace(audit_context(), device=device))
-    try:
-        trace = EntryTrace(entry, entry.build())
-        cost_report(trace)
-    finally:
-        set_audit_context(prev)
+    """The process's one recorded run of a registry entry on ``device``
+    (``core.entry_trace``); returns its trace (``tally``, ``launches``)."""
+    trace = entry_trace(entry, device)
+    cost_report(trace)
     return trace
 
 
@@ -102,7 +60,7 @@ def registry_card_vs_cpu(names=None, device_model: str = "h100") -> Dict:
     ``device_model``}}; raises on the first disagreement, or on a list-mode
     case that charged other kernels than its walks and build."""
     out = {}
-    for entry in entries_from_namespace(vars(registry)) + list(LIST_ENTRIES):
+    for entry in entries_from_namespace(vars(registry)):
         if names is not None and entry.name not in names:
             continue
         card = tally_entry(entry, "cuda")

@@ -111,7 +111,7 @@ def ledger_diagnostics(state, rho, nc, const, ngmax: int,
     if not smoothing:
         counts = torch.zeros_like(counts)
     irows = torch.cat([counts, ~torch.isfinite(fields)])
-    isum = torch.sum(irows, dim=1)
+    isum = torch.sum(irows, dim=1, dtype=torch.int32)
     # the field extrema: a (2, N) min and max |du|
     mins = torch.amin(fields[:2], dim=1)
     du_max = torch.amax(torch.abs(fields[2]))

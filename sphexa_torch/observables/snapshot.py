@@ -9,8 +9,13 @@ Catalyst around the main loop (``main/src/ascent_adaptor.h``,
 deposit per step: an ``(F, G, G)`` column projection (or an
 ``(F, G, G, G)`` volume) and, optionally, a strided particle subsample.
 The JAX package computes it outside any Pallas kernel, with a
-scatter-add; the port's form is ``index_add_`` ("sum") and
-``scatter_reduce_(..., "amax")`` ("max"), on the card too.
+scatter-add; the port's "sum" sorts the particles by cell (a stable
+argsort) and sums each cell's segment in a fixed order (the exact float64
+prefix sums of ``gravity.multipole.edge_segment_sum``, rounded to the
+weights' dtype), so that the card gives the same bits every run (an
+``index_add_`` there adds colliding cells with atomics in no fixed order:
+audit rule JXA401); the "max" is ``scatter_reduce_(..., "amax")``, which
+depends on no order.
 
 Under a mesh each rank deposits its slab; the partial grids are summed
 (or maxed) over the ranks inside the step's one ``reduce_scalars``
@@ -22,6 +27,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from sphexa_torch.gravity.multipole import edge_segment_sum
 from sphexa_torch.util.phases import named_phase
 
 #: the snapshot diagnostics the step tail emits when PropagatorConfig.snap
@@ -111,7 +117,9 @@ def deposit(state, rho, box, spec: SnapshotSpec) -> torch.Tensor:
         cells = G ** 2
     F = len(spec.fields)
     if spec.reduce == "sum":
-        return torch.zeros((F, cells), dtype=w.dtype, device=w.device).index_add_(1, flat, w)
+        order = torch.argsort(flat, stable=True)
+        edges = torch.searchsorted(flat[order], torch.arange(cells + 1, device=flat.device))
+        return edge_segment_sum(w[:, order].t(), edges).t()
     neg = torch.finfo(w.dtype).min
     g = torch.full((F, cells), neg, dtype=w.dtype, device=w.device)
     return g.scatter_reduce_(1, flat.expand(F, -1), w, "amax", include_self=True)

@@ -103,8 +103,12 @@ def due_mask(bins, substep) -> torch.Tensor:
 
 def bin_populations(bins, nbins: int) -> torch.Tensor:
     """(nbins,) int32 histogram of the bins: updates per cycle are
-    sum_k pop[k] C / 2**k."""
-    return torch.bincount(bins, minlength=nbins)[:nbins].to(INDEX_DTYPE)
+    sum_k pop[k] C / 2**k. An integer ``index_add_`` into nbins + 1 slots
+    (bins past the last land in the dropped one): ``bincount`` sizes its
+    output from the data, a read of the card."""
+    pop = torch.zeros(nbins + 1, dtype=INDEX_DTYPE, device=bins.device)
+    return pop.index_add_(0, torch.clamp(bins, max=nbins),
+                          torch.ones_like(bins, dtype=INDEX_DTYPE))[:nbins]
 
 
 def fold_bin_key(keys, bins) -> torch.Tensor:

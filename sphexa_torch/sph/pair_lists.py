@@ -310,7 +310,7 @@ def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
     window cells culled against its bbox widened by ``skin`` (a float32
     0-d tensor), then the list build (runs, mark, prune; one kernel on the
     card), the overflow sentinel, and on the card the walk's mask-word
-    buffer. No host sync on the CPU; on the card one (the buffer's size)."""
+    buffer. One host sync on either device (the buffer's size)."""
     if pe.engine_fold(box, cfg):
         raise ValueError(
             "persistent lists need per-cell image shifts; a grid in fold mode "
@@ -321,9 +321,13 @@ def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
                                            slot_cap, cfg)
     ranges = GroupRanges(*tables, *pe.occupancy_and_boxl(keep, raw_len, window_ok, box, cfg))
     word_off = pe.mask_word_offsets(cnt)
+    # the size of the walk's mask words, read on either device (the one
+    # host sync of a build on both, as the audit's record expects); the
+    # buffer is the kernel's, the plain walks keep none
+    nwords = int(word_off[-1]) * cfg.group
     words = None
     if x.device.type == "cuda":
-        words = torch.empty(int(word_off[-1]) * cfg.group, dtype=torch.int32, device=x.device)
+        words = torch.empty(nwords, dtype=torch.int32, device=x.device)
     return PairLists(
         ranges=ranges, bits=bits, cnt=cnt,
         overflow=(total.max() > slot_cap).to(torch.int32),

@@ -16,6 +16,9 @@ against the JAX package's (sphexa_tpu/devtools/audit), on the CPU.
 - The cost CLI's exit codes and JSON keys, ``trace --predict`` on the
   committed fixture (tests/torch_trace_fixture), the ``static-cost:``
   tuning objective, the kernels' bound formulas, and the tally inert.
+
+Each registry entry is built and tallied once in the module
+(``core.entry_trace``); the determinism checks add one fresh tally each.
 """
 
 import json
@@ -75,6 +78,16 @@ def cpu_audit():
     prev = set_audit_context(_cpu_context())
     yield
     set_audit_context(prev)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the entries' tensors are a few
+    hundred rows, where threads only contend with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _port_report(case, name="case"):
@@ -274,9 +287,9 @@ def test_cost_cli_exit_codes(tmp_path, capsys, monkeypatch):
     rc, out = _run(tcli.main, ["cost", "--cpu", "--entries", "step_std", "--budget",
                                str(low)], capsys)
     assert rc == 1 and "JXA302" in out
-    # an unknown device or entry, a mode not ported: usage errors
+    # an unknown device or entry, the mode not ported: usage errors
     for argv in (["cost", "--cpu", "--device", "v5e"], ["cost", "--cpu", "--entries", "nope"],
-                 ["preflight"], ["lowering"], ["schema"], []):
+                 ["preflight"]):
         assert tcli.main(argv) == 2, argv
     rc, out = _run(tcli.main, ["--list-rules"], capsys)
     assert rc == 0 and {"JXA301", "JXA302", "JXA303"} <= {ln.split()[0] for ln in
@@ -285,9 +298,11 @@ def test_cost_cli_exit_codes(tmp_path, capsys, monkeypatch):
     names = {ln.split()[0] for ln in out.splitlines()}
     assert rc == 0 and names == {"step_std", "step_ve", "step_nbody", "step_turb_ve",
                                  "step_std_cooling", "gravity_solve", "step_std_blockdt",
-                                 "observable_ledger", "observable_snapshot"}
+                                 "observable_ledger", "observable_snapshot", "step_std_lists",
+                                 "step_ve_lists", "knob_inertness"}
     if not torch.cuda.is_available():
-        assert tcli.main(["cost"]) == 2  # the card unless --cpu
+        for argv in (["cost"], [], ["lowering"], ["schema"]):
+            assert tcli.main(argv) == 2, argv  # the card unless --cpu
 
 
 def test_cost_cli_json_keys_match_jax(capsys, monkeypatch):
@@ -322,21 +337,34 @@ def test_committed_budget_holds(capsys, monkeypatch):
     assert rc == 0, out
 
 
+def _second_tally(entry):
+    """A fresh build and run of ``entry`` (the process's first is cached)."""
+    trace = EntryTrace(entry, entry.build())
+    tc.cost_report(trace)
+    return trace
+
+
 def test_registry_coverage_and_determinism(cpu_audit):
-    """Every registry entry builds and runs on the CPU, at or above JXA301's
-    floor, and two tallies of an entry are equal."""
+    """Every registry entry builds and runs on the CPU, at or above its
+    JXA301 floor, and two tallies of an entry are equal: the same costs and
+    the same record (the lowering lock's fingerprint, its alpha-stability
+    contract)."""
+    from sphexa_torch.devtools.audit.lowerdiff import lowering_fingerprint
     from sphexa_torch.kernels.cost_checks import COMPARED, tally_entry
 
-    floor = audit_context().phase_coverage_min
     for entry in entries_from_namespace(vars(treg)):
-        a, b = tally_entry(entry, "cpu"), tally_entry(entry, "cpu")
+        a, b = tally_entry(entry, "cpu"), _second_tally(entry)
         ra, rb = tc.cost_report(a), tc.cost_report(b)
+        floor = entry.phase_coverage_min
+        floor = audit_context().phase_coverage_min if floor is None else floor
         assert ra.coverage >= floor, (entry.name, ra.coverage)
         assert not ra.unknown_scopes
         assert set(ra.phases) == set(rb.phases) and ra.kernels == rb.kernels
         for p in ra.phases:
             for k in COMPARED:
                 assert getattr(ra.phases[p], k) == getattr(rb.phases[p], k), (entry.name, p, k)
+        fa, fb = lowering_fingerprint(a), lowering_fingerprint(b)
+        assert fa.lock_payload() == fb.lock_payload(), entry.name
 
 
 # -- trace --predict on the committed fixture ------------------------------------
@@ -509,7 +537,7 @@ def test_list_mode_case_tally(name, prop, cpu_audit):
     from sphexa_torch.kernels import cost_checks as cc
 
     entry = {e.name: e for e in cc.LIST_ENTRIES}[name]
-    a, b = cc.tally_entry(entry, "cpu"), cc.tally_entry(entry, "cpu")
+    a, b = cc.tally_entry(entry, "cpu"), _second_tally(entry)
     ra, rb = tc.cost_report(a), tc.cost_report(b)
     assert dict(ra.kernels) == {k: 1 for k in cc.LIST_KERNELS[name]}
     assert ra.coverage >= audit_context().phase_coverage_min and not ra.unknown_scopes

@@ -1167,9 +1167,23 @@ def test_cost_registry_card_matches_cpu():
     assert set(res) == {"step_std", "step_ve", "step_nbody", "step_turb_ve",
                         "step_std_cooling", "gravity_solve", "step_std_blockdt",
                         "observable_ledger", "observable_snapshot", "step_std_lists",
-                        "step_ve_lists"}
+                        "step_ve_lists", "knob_inertness"}
     for r in res.values():
         assert r["kernels"] == r["launches"]
     for name, want in cost_checks.LIST_KERNELS.items():
         assert res[name]["launches"] == {k: 1 for k in want}
     assert res["gravity_solve"]["kernels"] == {"gravity_p2p": 1, "compact_class_lists": 1}
+
+
+def test_audit_registry_card_matches_cpu():
+    """The audit's records on the card (chip_smoke's audit_path): every
+    registry entry's findings (none), fingerprint and schema rows equal on
+    the card, on the CPU and in the committed locks, its launch map equal to
+    the wrappers' counters and JXA104's sync sites to the card's sync debug
+    mode's; the CLI's three modes exit 0 on the card."""
+    _need_card()
+    from sphexa_torch.kernels import audit_checks
+
+    res = audit_checks.registry_card_vs_cpu_audit()
+    assert res["step_std_lists"]["syncs"] and not res["step_std"]["syncs"]
+    assert audit_checks.audit_cli_on_card() == {"audit": 0, "lowering": 0, "schema": 0}

@@ -78,7 +78,12 @@ def test_port_sources_found():
                 ("devtools", "audit", "rules", "jxa301_phase_coverage.py"),
                 ("devtools", "audit", "rules", "jxa302_cost_budget.py"),
                 ("devtools", "audit", "rules", "jxa303_memory_bound.py"),
-                ("kernels", "cost_checks.py")):
+                ("kernels", "cost_checks.py"), ("devtools", "audit", "lowerdiff.py"),
+                ("devtools", "audit", "statecheck.py"), ("kernels", "audit_checks.py"),
+                *(("devtools", "audit", "rules", f"{r}.py") for r in (
+                    "jxa101_dtype_promotion", "jxa104_host_boundary", "jxa105_const_bloat",
+                    "jxa401_nondeterminism", "jxa402_knob_inertness", "jxa501_schema_drift",
+                    "jxa502_vmap", "jxa503_carry_closure"))):
         assert os.path.join("sphexa_torch", *mod) in names
 
 
