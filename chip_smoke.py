@@ -292,7 +292,14 @@ Phases, each printed as one JSON line:
    equal to the wrappers' counters, JXA104's host-sync sites equal to the
    card's sync debug mode's over one more run, the knob probes equal on
    both devices; ``python -m sphexa_torch.devtools.audit``, ``lowering``
-   and ``schema`` exit 0 on the card;
+   and ``schema`` exit 0 on the card; the nine sharded entries on two
+   ranks sharing the card (gloo) and two gloo ranks on the CPU: each
+   rank's findings (zero), fingerprint (its collectives counted), launch
+   map, schema row and collective sequence equal on the two devices and
+   to the committed files, each rank's static toy peak (JXA202) beside
+   the card's ``max_memory_allocated`` over the same run (reset before it);
+   ``preflight`` exits 0 on the card at ``--mesh 2`` and ``--mesh 4``
+   (``audit_checks.sharded_card_vs_cpu_audit``, ``preflight_on_card``);
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -3378,7 +3385,11 @@ def cost_path(smi, main_sim) -> dict:
             rc = fn(argv)
         return rc, buf.getvalue()
 
-    # (a) the registry on the card: the CLI's gate, then card vs CPU
+    # (a) the registry on the card: the CLI's gate, then card vs CPU; the
+    # sharded entries' ranks first, on the card and the CPU at once
+    from sphexa_torch.kernels import audit_checks
+
+    sharded_s = audit_checks.record_sharded()
     pe.reset_launches()
     rc, table = quiet(costcli.main, ["--device", "h100", "--budget",
                                      os.path.join(here, "COST_BUDGET_TORCH.json")])
@@ -3393,7 +3404,7 @@ def cost_path(smi, main_sim) -> dict:
         if not reg_launches.get(op):
             raise AssertionError(f"cost_path: the registry never launched {op}")
     emit({"phase": "cost_registry", "card": smi, "entries": reg, "launches": reg_launches,
-          "cli_s": cli_s, "seconds": time.perf_counter() - t0})
+          "cli_s": cli_s, "sharded_spawns_s": sharded_s, "seconds": time.perf_counter() - t0})
 
     # (b) the main path: the CLI's capture, the same steps tallied
     t1 = time.perf_counter()
@@ -3519,6 +3530,21 @@ def audit_path(smi) -> None:
     emit({"phase": "audit_path", "card": smi, "entries": entries, "cli_rcs": rcs,
           "registry_s": t1 - t0, "cli_s": time.perf_counter() - t1,
           "phase_seconds": time.perf_counter() - t0})
+    # the sharded entries on two ranks, card vs CPU vs the locks; preflight
+    t2 = time.perf_counter()
+    sharded = audit_checks.sharded_card_vs_cpu_audit()
+    t3 = time.perf_counter()
+    pre = audit_checks.preflight_on_card()
+    for name, r in sharded.items():
+        for rank, rr in enumerate(r["ranks"]):
+            print(f"# audit {name:28s} rank {rank}: static peak {rr['static_peak']:>10d} B, "
+                  f"max_memory_allocated {rr['max_memory_allocated']:>10d} B (resident "
+                  f"before {rr['allocated_before']} B)")
+    print(f"# audit h100 model memory {pre['model_memory']} B, the card's total_memory "
+          f"{pre['total_memory']} B")
+    emit({"phase": "audit_sharded", "card": smi, "entries": sharded, "preflight": pre,
+          "sharded_s": t3 - t2, "preflight_s": time.perf_counter() - t3,
+          "seconds": time.perf_counter() - t2})
 
 
 def main() -> int:
@@ -3838,7 +3864,9 @@ def main() -> int:
     # 10. gravity: K13 and K12 vs plain, solves and steps card vs CPU
     emit(gravity_checks())
     for prop in ("std", "ve"):
-        emit(slice_vs_cpu(20, None, steps=2, use_lists=False, prop=prop, case="evrard"))
+        # one step (was two: the depth cut paying for audit_path's sharded
+        # entries and preflight)
+        emit(slice_vs_cpu(20, None, steps=1, use_lists=False, prop=prop, case="evrard"))
 
     # 11. the Evrard path: VE Evrard side 125 with self-gravity
     from sphexa_torch.gravity import pallas_compact as pcmp

@@ -6,21 +6,25 @@ port's audit CLI (the JAX package's ``sphexa-audit``).
     python -m sphexa_torch.devtools.audit lowering [--cpu] [--write] ...
     python -m sphexa_torch.devtools.audit schema [--cpu] [--write] [--vmap] ...
     python -m sphexa_torch.devtools.audit cost [--cpu] [--device h100] ...
+    python -m sphexa_torch.devtools.audit preflight [--cpu] [--mesh P] ...
     python -m sphexa_torch.devtools.audit --list-rules
     python -m sphexa_torch.devtools.audit --list-entries [targets...]
 
 The default mode runs every registered rule on one recorded run of each
-registry entry (tally.py's record): the trace rules JXA101 (64-bit
-values), JXA104 (host syncs) and JXA105 (constants), the cost rules
-JXA301-JXA303, JXA401 (order-dependent float accumulates), JXA402 (knob
-inertness), JXA501 (schema drift) and JXA503 (carry closure); JXA502
-runs under ``schema --vmap`` only. ``lowering`` checks the committed
-LOWERING_LOCK_TORCH.json (lowerdiff.py), ``schema`` the committed
-STATE_SCHEMA_TORCH.json (statecheck.py), ``cost`` the roofline budget
-(costcli.py). Every mode runs the entries on the card, and exits 2 on a
-machine without one unless ``--cpu`` asks for the CPU (the kernels' plain
-versions: the same record). ``preflight`` (the SPMD checks JXA201-JXA204)
-is not ported yet: ROADMAP Queue 1 item 1 holds it, and it exits 2.
+registry entry (tally.py's record), the sharded entries on two ranks (one
+spawn for all of them, core.run_sharded): the trace rules JXA101 (64-bit
+values), JXA104 (host syncs), JXA105 (constants) and JXA106 (collective
+groups), the SPMD rules JXA201-JXA204 (collective order, peak memory,
+replication and exchange volume, tree growth), the cost rules
+JXA301-JXA303, JXA401 (order-dependent float accumulates and reducing
+collectives), JXA402 (knob inertness), JXA501 (schema drift) and JXA503
+(carry closure); JXA502 runs under ``schema --vmap`` only. ``lowering``
+checks the committed LOWERING_LOCK_TORCH.json (lowerdiff.py), ``schema``
+the committed STATE_SCHEMA_TORCH.json (statecheck.py), ``cost`` the
+roofline budget (costcli.py), ``preflight`` the SPMD rules at a campaign
+(preflight.py, ``--mesh`` ranks). Every mode runs the entries on the card,
+and exits 2 on a machine without one unless ``--cpu`` asks for the CPU
+(the kernels' plain versions on gloo ranks: the same record).
 
 Exit codes are the JAX CLI's: 0 = clean, 1 = findings or entry errors,
 2 = usage error.
@@ -40,11 +44,13 @@ _PACKAGE_REGISTRY = "sphexa_torch.devtools.audit.registry"
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sphexa-torch-audit",
-        description="the port's audit: every registered rule (JXA101, JXA104, "
-                    "JXA105, JXA301-JXA303, JXA401-JXA402, JXA501, JXA503) over one "
-                    "recorded run of each registered entry point. 'lowering --help' "
-                    "for the run-fingerprint lock, 'schema --help' for the state-schema "
-                    "lock and the vmap report, 'cost --help' for the roofline gate.",
+        description="the port's audit: every registered rule (JXA101, JXA104-JXA106, "
+                    "JXA201-JXA204, JXA301-JXA303, JXA401-JXA402, JXA501, JXA503) over "
+                    "one recorded run of each registered entry point, the sharded ones "
+                    "on two ranks. 'lowering --help' for the run-fingerprint lock, "
+                    "'schema --help' for the state-schema lock and the vmap report, "
+                    "'cost --help' for the roofline gate, 'preflight --help' for the "
+                    "SPMD campaign gate.",
     )
     ap.add_argument("targets", nargs="*", default=[_DEFAULT_TARGET],
                     help="registry modules: 'sphexa_torch' (the package registry), "
@@ -123,10 +129,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         return schema_main(argv[1:])
     if argv and argv[0] == "preflight":
-        print("sphexa-torch-audit: 'preflight' (the SPMD checks JXA201-JXA204 and the "
-              "campaign preflight) is not ported yet: ROADMAP.md Queue 1 item 1 holds it",
-              file=sys.stderr)
-        return 2
+        from sphexa_torch.devtools.audit.preflight import main as preflight_main
+
+        return preflight_main(argv[1:])
     args = build_parser().parse_args(argv)
     prog = "sphexa-torch-audit"
 
@@ -151,7 +156,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if args.list_entries:
         for e in entries:
-            print(f"{e.name}  ({e.path}:{e.line})")
+            mesh = f"  mesh_axes={e.mesh_axes}" if e.mesh_axes else ""
+            print(f"{e.name}  ({e.path}:{e.line}){mesh}")
         return 0
     select = [s.strip() for s in args.select.split(",") if s.strip()] if args.select else None
     try:

@@ -104,6 +104,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from sphexa_torch.devtools.audit.core import (
         Auditor,
         audit_context,
+        run_sharded,
         set_audit_context,
     )
     from sphexa_torch.devtools.audit.costmodel import (
@@ -135,7 +136,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         rows: List[tuple] = []
         payload: List[Dict[str, Any]] = []
         mem_bound: List[str] = []
-        # one tallied run per entry, shared by the table and the rules
+        # one tallied run per entry, shared by the table and the rules (the
+        # sharded entries' in one spawn of the ranks, rank 0's record)
+        run_sharded(entries)
         for entry in entries:
             trace = auditor.check_entry(entry, active, errors, skipped)
             if trace is None:

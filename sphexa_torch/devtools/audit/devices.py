@@ -18,6 +18,9 @@ These are MODELS, not measurements. Assumptions, in one place:
   under that name so that the JSON keys stay the JAX package's) is
   NVLink 4 modelled at 450 GB/s a direction (the data sheet's 900 GB/s
   a card, both directions); no collective of the one-card entries uses it.
+  Its memory, JXA202's default budget a rank, is the data sheet's 80 GB
+  (``memory_bytes``; ``torch.cuda.get_device_properties(0).total_memory``
+  reads what the card reports, which chip_smoke.py prints beside it).
 - ``cpu-smoke``: a deliberately round model of a CI host's CPU (a few
   GFLOP/s, tens of GB/s of DRAM), copied from the JAX package. It exists
   so that the calibration fixture (``python -m sphexa_torch.telemetry
@@ -47,6 +50,8 @@ class DeviceModel:
     hbm_bytes_per_s: float
     #: aggregate link bandwidth between devices, bytes/s
     ici_bytes_per_s: float
+    #: device memory, bytes (JXA202's default per-rank budget)
+    memory_bytes: int = 0
 
     def peak_for(self, dtype_name: str) -> float:
         return self.peak_flops.get(dtype_name, self.default_peak)
@@ -69,6 +74,7 @@ DEVICES: Dict[str, DeviceModel] = {
         default_peak=33.5e12,
         hbm_bytes_per_s=3.35e12,
         ici_bytes_per_s=450e9,
+        memory_bytes=80 * 10**9,
     ),
     "cpu-smoke": DeviceModel(
         name="cpu-smoke",
@@ -81,6 +87,7 @@ DEVICES: Dict[str, DeviceModel] = {
         default_peak=8e9,
         hbm_bytes_per_s=20e9,
         ici_bytes_per_s=1e9,
+        memory_bytes=16 << 30,
     ),
 }
 

@@ -22,6 +22,9 @@ the registry live in the committed lock; a mismatch exits 1 with a
 structural diff (first differing row, rows added or removed per phase,
 launch deltas) and an intended change is re-locked with ``--write``.
 
+A sharded entry locks one fingerprint a rank (``{"mesh": P, "ranks":
+[...]}``, at P = 2), each with its collectives counted in ``collectives``.
+
 The card's record equals the CPU's (chip_smoke.py's ``audit_path`` holds
 it), so the lock is written on the CPU and gates both.
 
@@ -48,6 +51,10 @@ __all__ = [
     "LoweringFingerprint",
     "fingerprint_tally",
     "lowering_fingerprint",
+    "rank_fingerprints",
+    "lock_row",
+    "rank_rows",
+    "row_matches",
     "load_lock",
     "write_lock",
     "structural_diff",
@@ -149,11 +156,36 @@ def fingerprint_tally(tally) -> LoweringFingerprint:
 
 def lowering_fingerprint(trace) -> LoweringFingerprint:
     """Cached per-entry fingerprint: one recorded run per EntryTrace,
-    shared by the lock CLI and the rules."""
+    shared by the lock CLI and the rules (a sharded entry's: rank 0's)."""
     cached = getattr(trace, "_lowering_fp", None)
     if cached is None:
         cached = trace._lowering_fp = fingerprint_tally(trace.tally)
     return cached
+
+
+def rank_fingerprints(trace) -> List[LoweringFingerprint]:
+    """One fingerprint a rank (one on one device)."""
+    return [lowering_fingerprint(v) for v in trace.ranks]
+
+
+def lock_row(trace) -> Dict[str, Any]:
+    """The entry's row of the lock: its fingerprint's payload, or a sharded
+    entry's {"mesh": P, "ranks": [each rank's payload]}."""
+    fps = rank_fingerprints(trace)
+    if not trace.sharded:
+        return fps[0].lock_payload()
+    return {"mesh": len(fps), "ranks": [fp.lock_payload() for fp in fps]}
+
+
+def rank_rows(row: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """A lock row's per-rank payloads (a one-device row is its own)."""
+    return row["ranks"] if "ranks" in row else [row]
+
+
+def row_matches(row: Dict[str, Any], fps: List["LoweringFingerprint"]) -> bool:
+    """Every rank's locked payload holds (``matches``), at the same mesh."""
+    rows = rank_rows(row)
+    return len(rows) == len(fps) and all(matches(r, fp) for r, fp in zip(rows, fps))
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +455,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         EntrySkip,
         audit_context,
         entry_trace,
+        run_sharded,
         set_audit_context,
     )
 
@@ -444,12 +477,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"{prog}: {e}", file=sys.stderr)
                 return 2
 
-        current: Dict[str, LoweringFingerprint] = {}
+        current: Dict[str, List[LoweringFingerprint]] = {}
+        traces: Dict[str, Any] = {}
         errors: List[str] = []
         skipped: List[str] = []
+        run_sharded(entries)
         for entry in entries:
             try:
-                current[entry.name] = lowering_fingerprint(entry_trace(entry))
+                traces[entry.name] = trace = entry_trace(entry)
+                current[entry.name] = rank_fingerprints(trace)
             except EntrySkip as e:
                 skipped.append(f"{entry.name}: {e}")
             except Exception as e:  # noqa: BLE001 - reported, exit 1
@@ -457,7 +493,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         if args.write:
             merged = dict(locked)
-            merged.update({name: fp.lock_payload() for name, fp in current.items()})
+            merged.update({name: lock_row(traces[name]) for name in current})
             write_lock(args.lock, merged)
             print(f"{prog}: wrote {len(current)} fingerprint(s) to {args.lock} "
                   f"({len(merged)} total)")
@@ -466,23 +502,35 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1 if errors else 0
 
         mismatched, missing, report, payload = [], [], [], []
-        for name, fp in current.items():
+        for name, fps in current.items():
+            fp = fps[0]
             row = locked.get(name)
+            ranks = {"ranks": [{"digest": f.digest, "eqns": f.eqns,
+                                "collectives": f.collectives} for f in fps]} \
+                if len(fps) > 1 else {}
             if row is None:
                 missing.append(name)
                 payload.append({"entry": name, "digest": fp.digest, "locked_digest": None,
                                 "match": False, "eqns": fp.eqns, "launches": fp.launches,
-                                "deltas": None})
+                                "deltas": None, **ranks})
                 continue
-            match = matches(row, fp)
+            lrows = rank_rows(row)
+            match = row_matches(row, fps)
             payload.append({"entry": name, "digest": fp.digest,
-                            "locked_digest": row.get("digest"), "match": match,
+                            "locked_digest": lrows[0].get("digest"), "match": match,
                             "eqns": fp.eqns, "collectives": fp.collectives,
                             "const_bytes": fp.const_bytes, "launches": fp.launches,
-                            "deltas": None if match else deltas(row, fp)})
+                            "deltas": None if match else [deltas(lr, f) for lr, f in
+                                                          zip(lrows, fps)], **ranks})
             if not match:
                 mismatched.append(name)
-                report += structural_diff(name, row, fp, verbose=args.diff)
+                if len(lrows) != len(fps):
+                    report.append(f"entry {name}: locked at {len(lrows)} rank(s), recorded "
+                                  f"at {len(fps)}")
+                for r, (lr, f) in enumerate(zip(lrows, fps)):
+                    if not matches(lr, f):
+                        label = name if len(fps) == 1 else f"{name}[rank {r}]"
+                        report += structural_diff(label, lr, f, verbose=args.diff)
         stale = []
         if not args.entries:
             audited = set(current) | {s.split(":", 1)[0] for s in skipped}

@@ -14,12 +14,23 @@ accumulates onto distinct elements do not depend on order and stay
 silent. The fix: sort by target and sum each segment in a fixed order
 (``gravity.multipole.edge_segment_sum``), or add the children one at a
 time (``gravity.tree.level_add_``).
+
+A float collective that reduces (an ``all_reduce`` sum, a reduce or a
+reduce-scatter of floats) is the same hazard across ranks: the backend
+picks the order of the ranks' terms. The proven order is the mesh's
+``reduce_scalars``: one all_gather, then the sum in rank order on every
+rank. (The mesh's ``all_reduce_sum`` refuses floats.)
 """
 
 from typing import Dict, List
 
 from sphexa_torch.devtools.audit.core import EntryTrace, register
 from sphexa_torch.devtools.common import Finding
+
+
+#: the collective reductions whose float result depends on the order of
+#: the ranks' terms
+_ORDERED = frozenset({"sum", "avg", "product", "premul_sum"})
 
 
 @register(
@@ -32,7 +43,19 @@ def check(trace: EntryTrace) -> List[Finding]:
     for row in trace.tally.rows:
         if row.flag == "accumulate" and row.repeats:
             sites.setdefault(row.site, []).append(row.detail)
-    return [
+    reducing = [c for c in trace.tally.collectives if c.reduce in _ORDERED
+                and c.dtype.startswith(("float", "bfloat", "complex"))]
+    out = [
+        trace.finding(
+            "JXA401",
+            f"float `{c.op}` ({c.reduce}) of {c.dtype}{list(c.shape)} at {c.site} — "
+            f"the backend adds the ranks' terms in an order of its own, so runs differ in "
+            f"the last bits. All-gather the terms and sum them in rank order "
+            f"(parallel.mesh.reduce_scalars).",
+        )
+        for c in reducing
+    ]
+    return out + [
         trace.finding(
             "JXA401",
             f"{len(ops)} float {ops[0]} on repeated indices at {site} — the card adds "

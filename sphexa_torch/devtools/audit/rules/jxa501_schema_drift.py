@@ -8,7 +8,8 @@ key, a float32 leaf widening, a padded axis becoming extensive) lands as
 a reviewed lock diff.
 
 It skips quietly when the default lock file is absent (fixtures, a
-checkout elsewhere); a corrupt lock is a finding. Entries missing from
+checkout elsewhere); a corrupt lock is a finding. A sharded entry's ranks
+are each held to their own locked row, at the lock's mesh size. Entries missing from
 the lock are the CLI's business (``schema --write``).
 """
 
@@ -38,10 +39,16 @@ def check(trace: EntryTrace) -> List[Finding]:
     row = locked.get(trace.entry.name)
     if row is None:
         return []
+    name = trace.entry.name
+    if "ranks" in row:
+        # a sharded entry's locked row: this rank's, at the lock's mesh size
+        if row.get("mesh") != audit_context().mesh_size or trace.rank >= len(row["ranks"]):
+            return []
+        row, name = row["ranks"][trace.rank], f"{name}[rank {trace.rank}]"
     current = statecheck.entry_schema(trace)
     if row == current:
         return []
-    diff = statecheck.schema_diff(trace.entry.name, row, current)
+    diff = statecheck.schema_diff(name, row, current)
     return [trace.finding(
         "JXA501",
         "; ".join(line.strip() for line in diff[1:])

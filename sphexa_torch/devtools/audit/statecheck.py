@@ -11,7 +11,9 @@ count N), fitted exactly in rational arithmetic from the entry's two-point
 ``grow`` probe (the entry rebuilt larger, side 8 against the registry's 6:
 ``grow`` 64/27 for the cube, as the JAX lock records). ``const`` axes do
 not scale, ``extensive`` axes are a N, ``affine`` a N + b, anything else
-is ``data`` with both sizes seen. A path is the JAX package's
+is ``data`` with both sizes seen. A sharded entry's row holds one such
+row a rank (``{"mesh": P, "ranks": [...]}``, locked at P = 2). A path is
+the JAX package's
 ``keystr``: ``[i]`` a tuple or list item, ``['k']`` a dict key, ``.f`` a
 dataclass field; a ``None`` is no leaf, as in a pytree. The rows of the
 registry live in the committed ``STATE_SCHEMA_TORCH.json``; drift exits
@@ -42,6 +44,7 @@ __all__ = [
     "load_lock",
     "write_lock",
     "schema_diff",
+    "row_diff",
     "format_axes",
     "main",
 ]
@@ -183,31 +186,24 @@ def _fmt_leaf(leaf: Dict[str, Any]) -> str:
 def entry_schema(trace) -> Dict[str, Any]:
     """The cached schema row of one entry: the output of its recorded run,
     each axis fitted against the entry's ``grow`` probe where it has one
-    (the probe's one extra build and run)."""
+    (``trace.grown()``: the probe's one extra build and run); a sharded
+    entry's is {"mesh": P, "ranks": [each rank's row]}."""
     cached = getattr(trace, "_schema", None)
     if cached is not None:
         return cached
-    from sphexa_torch.devtools.audit.core import (
-        EntryPoint,
-        EntryTrace,
-        audit_context,
-        set_audit_context,
-    )
-
+    if trace.sharded:
+        row = {"mesh": len(trace.ranks), "ranks": [entry_schema(v) for v in trace.ranks]}
+        trace._schema = row
+        return row
     base = _schema_leaves(trace.out)
     n1 = _n_rows(trace.case.args)
     row: Dict[str, Any] = {"n_base": n1 or None, "grow": None, "leaves": {}}
     grown = None
     n2 = 0
-    if trace.entry.grow is not None and n1:
-        prev = set_audit_context(dataclasses.replace(audit_context(), device=trace.device))
-        try:
-            case = trace.entry.grow()
-        finally:
-            set_audit_context(prev)
-        gtrace = EntryTrace(EntryPoint(name=trace.entry.name, build=lambda: case), case)
+    gtrace = trace.grown() if n1 else None
+    if gtrace is not None:
         grown = _schema_leaves(gtrace.out)
-        n2 = _n_rows(case.args)
+        n2 = _n_rows(gtrace.case.args)
         if len(grown) != len(base) or n2 == n1:
             raise ValueError(f"entry {trace.entry.name}: the grow probe changed the output "
                              f"structure ({len(base)} -> {len(grown)} leaves at N {n1} -> "
@@ -334,7 +330,26 @@ def schema_diff(name: str, locked: Dict[str, Any], current: Dict[str, Any],
     return lines
 
 
+def row_diff(name: str, locked: Dict[str, Any], current: Dict[str, Any],
+             verbose: bool = False) -> List[str]:
+    """``schema_diff`` of a row, a sharded row's rank by rank."""
+    if "ranks" not in locked and "ranks" not in current:
+        return schema_diff(name, locked, current, verbose)
+    if locked.get("mesh") != current.get("mesh"):
+        return [f"entry {name}: JXA501 locked at mesh {locked.get('mesh')}, recorded at "
+                f"mesh {current.get('mesh')}"]
+    out: List[str] = []
+    for r, (lo, cu) in enumerate(zip(locked["ranks"], current["ranks"])):
+        if lo != cu:
+            out += schema_diff(f"{name}[rank {r}]", lo, cu, verbose)
+    return out
+
+
 def _delta_summary(locked: Dict[str, Any], current: Dict[str, Any]) -> Dict[str, Any]:
+    if "ranks" in locked or "ranks" in current:
+        return {"ranks": [_delta_summary(lo, cu) for lo, cu in
+                          zip(locked.get("ranks", []), current.get("ranks", []))],
+                "mesh": [locked.get("mesh"), current.get("mesh")]}
     lo, cu = locked.get("leaves", {}), current.get("leaves", {})
     return {"added": sorted(set(cu) - set(lo)), "removed": sorted(set(lo) - set(cu)),
             "changed": sorted(p for p in set(lo) & set(cu) if lo[p] != cu[p])}
@@ -388,6 +403,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         EntrySkip,
         audit_context,
         entry_trace,
+        run_sharded,
         set_audit_context,
     )
 
@@ -419,6 +435,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         vmap_reports: Dict[str, Any] = {}
         errors: List[str] = []
         skipped: List[str] = []
+        run_sharded(entries)
         for entry in entries:
             try:
                 trace = entry_trace(entry)
@@ -431,11 +448,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 continue
             for rule in auditor.rules.values():
                 try:
-                    findings += rule.check(trace)
+                    for view in (trace.ranks if trace.sharded else [trace]):
+                        findings += [f for f in rule.check(view) if f not in findings]
                 except Exception as e:  # noqa: BLE001 - reported, exit 1
                     errors.append(f"{entry.name}: {rule.id} crashed: "
                                   f"{e.__class__.__name__}: {e}")
-            if args.vmap:
+            if args.vmap and not entry.mesh_axes:
                 vmap_reports[entry.name] = vmap_probe(trace, members)
 
         if args.write:
@@ -458,11 +476,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 continue
             match = lrow == row
             payload.append({"entry": name, "match": match, "locked": True,
-                            "leaves": len(row.get("leaves", {})),
+                            "leaves": (len(row.get("leaves", {})) if "ranks" not in row else
+                                       [len(r.get("leaves", {})) for r in row["ranks"]]),
                             "deltas": None if match else _delta_summary(lrow, row)})
             if not match:
                 mismatched.append(name)
-                report += schema_diff(name, lrow, row, verbose=args.diff)
+                report += row_diff(name, lrow, row, verbose=args.diff)
         stale = []
         if not args.entries:
             audited = set(current) | {s.split(":", 1)[0] for s in skipped}

@@ -69,6 +69,27 @@ which are sizes, enter as values. Rows that a rule reads carry a ``site``
 It also keeps the bytes that JXA105 budgets: host data made into tensors,
 and device tensors the run read that neither its arguments hold nor one
 of its ops made (keyed by storage).
+
+Collectives. Every collective of parallel/mesh.py is one ``c10d::<op>``
+row (``Tally.collective``, entered through ``kernels/costs.collective``):
+its logical operand and result (the staging copies through pinned host
+buffers of gloo ranks that share a card, the c10d dispatch itself and
+the gather's stack are suppressed inside it, so the card's row equals
+the CPU's), the mesh group (``p``, the port's one axis) and its size, and
+a site outside parallel/mesh.py; the P - 1 rounds of ``exchange_rounds``
+are one ``send`` and one ``recv`` row each, with their peers. A c10d op
+dispatched outside those wrappers (a ``torch.distributed`` call made
+directly) is a row of its own, its group read off the process group it
+names. Each row has its ``Collective`` in ``Tally.collectives``, the
+record JXA106 and JXA201-203 read; they are charged as link bytes.
+
+Liveness. Each named tensor belongs to a buffer (itself, or the base a
+view shares), whose element count and item size the tally keeps
+(``buf_numel``, ``buf_itemsize``, ``tensor_buf``), with the buffers of
+the run's arguments (``arg_bufs``) and outputs (``out_bufs``, after
+``finish``); a kernel's outputs are born at its ``kernel:<name>`` token
+(``births``). spmd.py sweeps the rows over these. A Tally pickles without
+its weak maps (a rank's record crosses the process boundary).
 """
 
 import contextlib
@@ -88,8 +109,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 from sphexa_torch.devtools.audit.costmodel import _Acc, op_flops, op_name
 from sphexa_torch.util import phases
 
-__all__ = ["Tally", "Row", "tallying", "FREE_OPS", "COPY_OPS", "UNATTRIBUTED",
-           "SYNC_OPS", "ACCUMULATE_OPS"]
+__all__ = ["Tally", "Row", "Collective", "tallying", "FREE_OPS", "COPY_OPS",
+           "UNATTRIBUTED", "SYNC_OPS", "ACCUMULATE_OPS", "C10D_OPS"]
 
 #: metadata ops, allocations and host reads: charged nothing
 FREE_OPS = frozenset({
@@ -142,6 +163,25 @@ _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 _MODE_FRAMES = tuple(os.path.join(_TORCH_DIR, p) for p in (
     "_dynamo", "_compile.py", "overrides.py", os.path.join("utils", "_python_dispatch.py")))
 
+#: the frames of the mesh's collective wrappers: a collective's site is
+#: the caller's line
+_MESH_FILE = os.path.join(_REPO, "sphexa_torch", "parallel", "mesh.py")
+
+#: c10d ops by the collective they are (a direct ``torch.distributed`` call)
+C10D_OPS = {
+    "allreduce_": "all_reduce", "allreduce_coalesced_": "all_reduce",
+    "allgather_": "all_gather", "_allgather_base_": "all_gather",
+    "allgather_into_tensor_coalesced_": "all_gather", "alltoall_base_": "all_to_all",
+    "alltoall_": "all_to_all", "broadcast_": "broadcast", "reduce_": "reduce",
+    "reduce_scatter_": "reduce_scatter", "_reduce_scatter_base_": "reduce_scatter",
+    "gather_": "gather", "scatter_": "scatter", "send": "send", "recv_": "recv",
+    "recv_any_source_": "recv", "barrier": "barrier", "monitored_barrier_": "barrier",
+}
+
+#: c10d's ReduceOp kinds by their number (``RedOpType``)
+_REDUCE_OPS = {0: "sum", 1: "avg", 2: "product", 3: "min", 4: "max", 5: "band", 6: "bor",
+               7: "bxor", 8: "premul_sum"}
+
 _FREE_CACHE: Dict[object, bool] = {}
 
 
@@ -163,22 +203,24 @@ def _version(t: torch.Tensor) -> int:
         return 0
 
 
-def _site() -> Tuple[str, str]:
+def _site(skip: Tuple[str, ...] = (), skip_dirs: Tuple[str, ...] = ()) -> Tuple[str, str]:
     """(site, origin) of the call being recorded: ``site`` the
     repository-relative ``file:line`` of the innermost frame outside the
-    tally and torch's mode machinery (the frame a warning raised by the op
-    names), ``origin`` the ``file:function`` of the innermost frame of the
-    repository (where dtypes.py declares a site)."""
+    tally, torch's mode machinery, the files ``skip`` and the directories
+    ``skip_dirs`` (the frame a warning raised by the op names), ``origin`` the ``file:function`` of
+    the innermost function of the repository (where dtypes.py declares a
+    site; a generator expression counts as the function it is in)."""
     here = os.path.abspath(__file__)
     f = sys._getframe(1)
     site = origin = None
     while f is not None and origin is None:
         fn = f.f_code.co_filename
-        if fn != here and not fn.startswith(_MODE_FRAMES):
+        if fn != here and fn not in skip and not fn.startswith(_MODE_FRAMES + skip_dirs):
             rel = os.path.relpath(fn, _REPO)
             if site is None:
                 site = f"{rel}:{f.f_lineno}"
-            if not rel.startswith(".."):
+            # a generator expression's frame is its function's
+            if not rel.startswith("..") and f.f_code.co_name != "<genexpr>":
                 origin = f"{rel}:{f.f_code.co_name}"
         f = f.f_back
     return site or "?", origin or "?"
@@ -216,6 +258,28 @@ class Row:
     @property
     def text(self) -> str:
         return f"{self.phase}|{self.line}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective of a rank's run: its row in ``Tally.rows``, the
+    collective (``all_gather``, ``all_reduce``, ``all_to_all``, ``send``,
+    ``recv``, ...), the group (``p``: the mesh's; else the process group's
+    name) and its size, the operand's dtype and shape, the bytes it moves
+    on this rank (what arrives; for a send what leaves), the peer of a
+    send or receive, the reduction of a reduce (``sum``, ``max``, ...),
+    and the call's site."""
+
+    row: int
+    op: str
+    group: str
+    size: int
+    dtype: str
+    shape: Tuple[int, ...]
+    nbytes: int
+    peer: Optional[int] = None
+    reduce: str = ""
+    site: str = ""
 
 
 class Tally:
@@ -258,6 +322,38 @@ class Tally:
                 self._known.add(key)
         self._arg_keys = frozenset(self._known)
         self.host_call = 0
+        #: the collectives of the run, in order (their rows are ``c10d::`` rows)
+        self.collectives: List[Collective] = []
+        #: the buffers of the liveness sweep: element count and item size of
+        #: each, each named tensor's buffer (by its number), the kernel
+        #: outputs' births (tensor number -> row of the launch's token)
+        self.buf_numel: List[int] = []
+        self.buf_itemsize: List[int] = []
+        self.tensor_buf: List[int] = []
+        self.births: Dict[int, int] = {}
+        self._bufs = WeakIdKeyDictionary()
+        self._born = WeakIdKeyDictionary()
+        self.arg_bufs = frozenset(self._buf(a) for a in _tensor_leaves(args))
+        self.out_bufs: frozenset = frozenset()
+
+    _TRANSIENT = ("_ids", "_names", "_host", "_bufs", "_born", "_known", "_arg_keys")
+
+    def __getstate__(self):
+        return {k: v for k, v in self.__dict__.items() if k not in self._TRANSIENT}
+
+    def finish(self, out) -> None:
+        """Note the run's outputs (live to its end)."""
+        self.out_bufs = frozenset(self._buf(a) for a in _tensor_leaves(out))
+
+    def _buf(self, t: torch.Tensor) -> int:
+        """The buffer of ``t``: its base's if it is a view, else its own."""
+        base = t._base if t._is_view() and t._base is not None else t
+        b = self._bufs.get(base)
+        if b is None:
+            b = self._bufs[base] = len(self.buf_numel)
+            self.buf_numel.append(base.numel())
+            self.buf_itemsize.append(base.element_size())
+        return b
 
     @property
     def phase(self) -> str:
@@ -295,8 +391,13 @@ class Tally:
         devices free at different moments)."""
         n = self._names.get(t)
         if n is None:
-            n = self._names[t] = f"t{self._next_name}"
+            idx = self._next_name
+            n = self._names[t] = f"t{idx}"
             self._next_name += 1
+            self.tensor_buf.append(self._buf(t))
+            born = self._born.get(t)
+            if born is not None:
+                self.births[idx] = born
         return n
 
     def _operand(self, a) -> str:
@@ -396,6 +497,73 @@ class Tally:
                   flag="sync" if sync else "", detail=detail)
         self.rows.append(row)
 
+    # -- the collectives ------------------------------------------------------
+
+    def collective(self, mesh, op: str, ins, reduce: str = "") -> "_CollectiveScope":
+        """The scope of one collective wrapper of parallel/mesh.py (``op``
+        on ``mesh``'s group, the logical operands ``ins``): nothing inside
+        is charged; its ``done`` records the row(s)."""
+        return _CollectiveScope(self, mesh, op, ins, reduce)
+
+    def record_collective(self, op: str, group: str, size: int, ins, outs, nbytes: int,
+                          peer: Optional[int] = None, reduce: str = "") -> None:
+        """One collective row and its ``Collective`` (``ins``/``outs``: its
+        logical operands and results, ``nbytes`` the bytes that arrive, or
+        leave for a send; what arrives is charged as link bytes)."""
+        phase = self.phase or UNATTRIBUTED
+        operands = ",".join(self._operand(a) for a in ins)
+        results = ",".join(self._operand(a) for a in outs)
+        tail = "" if peer is None else f" peer={peer}"
+        # the caller's line: neither the mesh's wrapper nor torch.distributed
+        site = _site(skip=(_MESH_FILE,), skip_dirs=(_TORCH_DIR,))
+        row = Row(phase, f"c10d::{op}[{group}/{size}]({operands})->({results}){tail}",
+                  site=site[0], origin=site[1], flag="collective", detail=op)
+        first = ins[0] if ins else (outs[0] if outs else None)
+        self.collectives.append(Collective(
+            row=len(self.rows), op=op, group=group, size=int(size),
+            dtype=_dtype_name(first.dtype) if first is not None else "",
+            shape=tuple(first.shape) if first is not None else (), nbytes=int(nbytes),
+            peer=peer, reduce=reduce, site=site[0]))
+        self.rows.append(row)
+        arrives = 0.0 if op == "send" else float(nbytes)
+        self.acc.add(self.phase, 0.0, "float32", [], ici=arrives)
+        self._note(self.phase, f"c10d::{op}", 0.0, arrives)
+
+    def record_c10d(self, func, args, out) -> None:
+        """A c10d op dispatched outside the mesh's wrappers, as a row of its
+        own: its group read off the process group among its arguments."""
+        import torch.distributed as dist
+
+        raw = func.overloadpacket.__name__
+        op = C10D_OPS.get(raw, raw)
+        group, size, peer, reduce = "?", 0, None, ""
+        for i, a in enumerate(args):
+            if isinstance(a, torch.ScriptObject):
+                try:
+                    pg = dist.ProcessGroup.unbox(a)
+                except RuntimeError:
+                    if a._has_method("op"):  # a ReduceOp
+                        reduce = _REDUCE_OPS.get(int(a.op()), "?")
+                    continue
+                size = pg.size()
+                group = "p" if pg is dist.group.WORLD else f"group:{pg.group_name}"
+                if op in ("send", "recv") and i + 1 < len(args) and \
+                        isinstance(args[i + 1], int):
+                    peer = int(args[i + 1])
+        ts = [a for a in tree_leaves(args[0]) if isinstance(a, torch.Tensor)] if args else []
+        if op == "all_gather" and len(args) > 1:
+            ins = [a for a in tree_leaves(args[1]) if isinstance(a, torch.Tensor)]
+            outs = ts
+        elif op in ("all_to_all", "reduce_scatter") and len(args) > 1:
+            ins = [a for a in tree_leaves(args[1]) if isinstance(a, torch.Tensor)]
+            outs = ts
+        elif op == "send":
+            ins, outs = ts, []
+        else:
+            ins, outs = ts, ts
+        nbytes = sum(a.numel() * a.element_size() for a in (ins if op == "send" else outs))
+        self.record_collective(op, group, size, ins, outs, nbytes, peer, reduce)
+
     # -- the charges ---------------------------------------------------------
 
     def charge_op(self, func, args, kwargs, ins, in_keys, out) -> None:
@@ -417,11 +585,14 @@ class Tally:
         self._note(phase, name, flops, sum(nb for _, nb in io))
 
     def charge_kernel(self, name: str, ops: float, nbytes: float,
-                      dtype: str = "float32", counts=None) -> None:
+                      dtype: str = "float32", counts=None, outs=None) -> None:
         """Charge one kernel launch to the phase open now: ``ops``
         operations of ``dtype``, ``nbytes`` of traffic in both bounds
         (``counts``: the data-dependent counts they came from, logged).
-        The record gets its one ``kernel:<name>`` token."""
+        The record gets its one ``kernel:<name>`` token, where the
+        launch's outputs ``outs`` are born."""
+        for a in _tensor_leaves(outs):
+            self._born[a] = len(self.rows)
         phase = self.phase
         self.acc.add_fused(phase, float(ops), dtype, float(nbytes))
         self.kernels[name] += 1
@@ -499,6 +670,42 @@ def _repeats(base: str, args) -> bool:
     return torch.unique(idx).numel() < idx.numel()
 
 
+class _CollectiveScope:
+    """``Tally.collective``'s scope: the ops inside are not charged (the
+    staging copies, the c10d dispatch, a gather's stack); ``done`` records
+    the collective with its logical result, ``done_p2p`` a batch of sends
+    and receives."""
+
+    def __init__(self, tally: Tally, mesh, op: str, ins, reduce: str):
+        self.tally, self.mesh, self.op, self.ins, self.reduce = tally, mesh, op, ins, reduce
+
+    def __enter__(self):
+        self.tally.suppress += 1
+        return self
+
+    def __exit__(self, *exc):
+        self.tally.suppress -= 1
+        return False
+
+    def done(self, out, peer: Optional[int] = None):
+        outs = [a for a in _tensor_leaves(out)]
+        nbytes = sum(a.numel() * a.element_size() for a in outs)
+        self.tally.record_collective(self.op, self.mesh.axis, self.mesh.size, self.ins, outs,
+                                     nbytes, peer, self.reduce)
+        return out
+
+    def done_p2p(self, sends, recvs):
+        """``sends`` and ``recvs``: (peer, tensor) pairs, in the order the
+        batch issues them (send then receive, a round at a time)."""
+        m = self.mesh
+        for (dst, s), (src, r) in zip(sends, recvs):
+            self.tally.record_collective("send", m.axis, m.size, [s], [],
+                                         s.numel() * s.element_size(), dst)
+            self.tally.record_collective("recv", m.axis, m.size, [], [r],
+                                         r.numel() * r.element_size(), src)
+        return [r for _, r in recvs]
+
+
 class _TallyMode(TorchDispatchMode):
     def __init__(self, tally: Tally):
         super().__init__()
@@ -510,6 +717,10 @@ class _TallyMode(TorchDispatchMode):
         if t.suppress or t.host_call:
             out = func(*args, **kwargs)
             t.made(out)
+            return out
+        if func.namespace == "c10d":
+            out = func(*args, **kwargs)
+            t.record_c10d(func, args, out)
             return out
         if _is_free(func):
             out = func(*args, **kwargs)

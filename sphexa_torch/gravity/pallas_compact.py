@@ -53,7 +53,7 @@ def compact_class_lists(packed: torch.Tensor, cap0: int, cap1: int):
             LAUNCHES["compact_class_lists"] += 1
         else:
             raise ValueError(f"unsupported device {dev}")
-    costs.charge_compact(packed, cap0, cap1)
+    costs.charge_compact(packed, cap0, cap1, outs=out)
     return out
 
 
@@ -129,7 +129,7 @@ def compact_row(due: torch.Tensor):
             LAUNCHES["compact_row"] += 1
         else:
             raise ValueError(f"unsupported device {dev}")
-    costs.charge_compact_row(due.shape[0])
+    costs.charge_compact_row(due.shape[0], outs=out)
     return out
 
 

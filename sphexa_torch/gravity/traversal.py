@@ -817,7 +817,7 @@ def _pallas_p2p(x, y, z, m, h, shift, allow_self: bool, cfg: GravityConfig, star
         else:
             raise ValueError(f"unsupported device {dev}")
     costs.charge_p2p(lens, x.shape[0], cfg.target_block,
-                            None if jdata is None else jdata[0].shape[0])
+                     None if jdata is None else jdata[0].shape[0], outs=out)
     return out
 
 

@@ -58,7 +58,12 @@ def registry_card_vs_cpu(names=None, device_model: str = "h100") -> Dict:
     tallied on the card and on the CPU. Returns {entry: {"phases": n,
     "kernels": charges, "launches": LAUNCHES delta, "predicted_ms": on
     ``device_model``}}; raises on the first disagreement, or on a list-mode
-    case that charged other kernels than its walks and build."""
+    case that charged other kernels than its walks and build. A sharded
+    entry is compared on rank 0's tallies (``audit_checks`` holds every
+    rank's record)."""
+    from sphexa_torch.kernels.audit_checks import record_sharded
+
+    record_sharded()  # the sharded entries' spawns, together
     out = {}
     for entry in entries_from_namespace(vars(registry)):
         if names is not None and entry.name not in names:

@@ -315,17 +315,18 @@ def charging():
 
 
 def kernel_charge(name: str, ops: float, nbytes: float, dtype: str = "float32",
-                  counts=None) -> None:
+                  counts=None, outs=None) -> None:
     """Charge one launch of kernel ``name`` (its ``pair_engine.LAUNCHES``
     key) to the phase open now: ``ops`` operations of ``dtype`` and
     ``nbytes`` of memory traffic, both bounds (``counts``: the counts
-    they came from, logged). A no-op without a tally."""
+    they came from, logged; ``outs``: the launch's outputs, born at its
+    token). A no-op without a tally."""
     t = phases._TALLY
     if t is not None:
-        t.charge_kernel(name, ops, nbytes, dtype, counts)
+        t.charge_kernel(name, ops, nbytes, dtype, counts, outs)
 
 
-def _charge(name, cost, dtype="float32"):
+def _charge(name, cost, dtype="float32", outs=None):
     """Charge ``name`` by ``cost()`` -> (ops, bytes), computed under the
     tally's suppression; a flag read without a tally."""
     t = phases._TALLY
@@ -333,7 +334,35 @@ def _charge(name, cost, dtype="float32"):
         return
     with t.suppressed():
         ops, nbytes = cost()
-    kernel_charge(name, ops, nbytes, dtype)
+    kernel_charge(name, ops, nbytes, dtype, outs=outs)
+
+
+class _NullCollective:
+    """``collective``'s scope without a tally: ``done`` passes its value on."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def done(self, out, peer=None):
+        return out
+
+    def done_p2p(self, sends, recvs):
+        return [r for _, r in recvs]
+
+
+_NULL_COLLECTIVE = _NullCollective()
+
+
+def collective(mesh, op: str, *ins, reduce: str = ""):
+    """The scope of one collective of parallel/mesh.py (``op`` over
+    ``mesh``'s group, ``ins`` its logical operands): while a tally runs,
+    nothing inside is charged and the scope's ``done(result)`` (or
+    ``done_p2p``) records the collective; else a null scope."""
+    t = phases._TALLY
+    return _NULL_COLLECTIVE if t is None else t.collective(mesh, op, ins, reduce)
 
 
 #: an engine op's body by its spec's name and template form
@@ -385,9 +414,9 @@ def list_build_cost(cull, n: int, total, slot_cap: int):
     return b["ops"], b["bytes"]
 
 
-def charge_list_build(cull, n: int, total, slot_cap: int) -> None:
+def charge_list_build(cull, n: int, total, slot_cap: int, outs=None) -> None:
     """Charge one K5 launch (``pair_lists.build_lists``)."""
-    _charge("mark", lambda: list_build_cost(cull, n, total, slot_cap))
+    _charge("mark", lambda: list_build_cost(cull, n, total, slot_cap), outs=outs)
 
 
 def p2p_cost(lens, n: int, group: int, nj=None):
@@ -400,9 +429,9 @@ def p2p_cost(lens, n: int, group: int, nj=None):
     return b["ops"], b["bytes"]
 
 
-def charge_p2p(lens, n: int, group: int, nj=None) -> None:
+def charge_p2p(lens, n: int, group: int, nj=None, outs=None) -> None:
     """Charge one K12 launch (``traversal._pallas_p2p``)."""
-    _charge("gravity_p2p", lambda: p2p_cost(lens, n, group, nj))
+    _charge("gravity_p2p", lambda: p2p_cost(lens, n, group, nj), outs=outs)
 
 
 def compact_cost(packed, cap0: int, cap1: int):
@@ -412,10 +441,11 @@ def compact_cost(packed, cap0: int, cap1: int):
     return b["ops"], b["bytes"]
 
 
-def charge_compact(packed, cap0: int, cap1: int) -> None:
+def charge_compact(packed, cap0: int, cap1: int, outs=None) -> None:
     """Charge one K13 launch (``pallas_compact.compact_class_lists``), its
     operations at the INT32 rate."""
-    _charge("compact_class_lists", lambda: compact_cost(packed, cap0, cap1), "int32")
+    _charge("compact_class_lists", lambda: compact_cost(packed, cap0, cap1), "int32",
+            outs=outs)
 
 
 def compact_row_cost(n: int):
@@ -425,6 +455,6 @@ def compact_row_cost(n: int):
     return COMPACT_ROW_OPS * n, 5 * n + 4
 
 
-def charge_compact_row(n: int) -> None:
+def charge_compact_row(n: int, outs=None) -> None:
     """Charge one call of K13's one-row form (``pallas_compact.compact_row``)."""
-    _charge("compact_row", lambda: compact_row_cost(n), "int32")
+    _charge("compact_row", lambda: compact_row_cost(n), "int32", outs=outs)

@@ -131,8 +131,11 @@ def window_bounds(mesh: Mesh, starts, lens, S: int):
     hi = torch.zeros(P, dtype=torch.int64, device=starts.device)
     lo = lo.scatter_reduce(0, src[active], starts[active], "amin")
     hi = hi.scatter_reduce(0, src[active], (starts + lens)[active], "amax")
-    lo[k] = INF32
-    hi[k] = 0
+    # the own slab is served locally (no Python scalar written into a
+    # device tensor: that would be a copy from the host)
+    own = torch.arange(P, device=starts.device) == k
+    lo = torch.where(own, INF32, lo)
+    hi = torch.where(own, 0, hi)
     mine = torch.stack([lo, hi], dim=1)
     return mine, all_gather(mesh, mine)
 

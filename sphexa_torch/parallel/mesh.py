@@ -19,6 +19,11 @@ through pinned host buffers (``Mesh.staged``).
 ``spawn`` starts P ranks with torch.multiprocessing (spawn) and a
 ``file://`` rendezvous in a directory the caller gives; a rank that
 raises or dies fails the launcher, which then stops the others.
+
+Each collective below is one scope of ``kernels/costs.collective``: a
+running audit tally (devtools/audit/tally.py) records it as one row on
+the mesh's axis ``p`` with its logical operand and result, whatever the
+staging; outside a tally the scope is a flag read.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from sphexa_torch.device import resolve_device
+from sphexa_torch.kernels import costs
 
 
 @dataclasses.dataclass(eq=False)
@@ -44,6 +50,12 @@ class Mesh:
     size: int
     device: torch.device
     backend: str
+
+    @property
+    def axis(self) -> str:
+        """The mesh axis its collectives run over (the JAX package's "p"):
+        the 1-D mesh's one group."""
+        return "p"
 
     @property
     def staged(self) -> bool:
@@ -121,11 +133,12 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """(P, *t.shape): every rank's ``t``, in rank order."""
-    src = _host(t) if mesh.staged else t.contiguous()
-    out = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(out, src, group=mesh.group)
-    g = torch.stack(out)
-    return g.to(mesh.device) if mesh.staged else g
+    with costs.collective(mesh, "all_gather", t) as c:
+        src = _host(t) if mesh.staged else t.contiguous()
+        out = [torch.empty_like(src) for _ in range(mesh.size)]
+        dist.all_gather(out, src, group=mesh.group)
+        g = torch.stack(out)
+        return c.done(g.to(mesh.device) if mesh.staged else g)
 
 
 def all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -133,22 +146,24 @@ def all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     if t.is_floating_point():
         raise ValueError("all_reduce_sum is for integer tensors: float sums go through "
                          "reduce_scalars, in rank order")
-    buf = _host(t) if mesh.staged else t.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    return buf.to(mesh.device) if mesh.staged else buf
+    with costs.collective(mesh, "all_reduce", t, reduce="sum") as c:
+        buf = _host(t) if mesh.staged else t.clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        return c.done(buf.to(mesh.device) if mesh.staged else buf)
 
 
 def all_to_all_rows(mesh: Mesh, send: torch.Tensor, send_counts: Sequence[int],
                     recv_counts: Sequence[int]) -> torch.Tensor:
     """Rows of ``send`` in rank-order pieces of ``send_counts`` to each
     rank; returns the received rows, src-rank order (one all_to_all)."""
-    send = send.contiguous()
-    src = _host(send) if mesh.staged else send
-    out = torch.empty((sum(recv_counts),) + tuple(send.shape[1:]), dtype=send.dtype,
-                      pin_memory=mesh.staged, device="cpu" if mesh.staged else send.device)
-    dist.all_to_all_single(out, src, output_split_sizes=list(recv_counts),
-                           input_split_sizes=list(send_counts), group=mesh.group)
-    return out.to(mesh.device) if mesh.staged else out
+    with costs.collective(mesh, "all_to_all", send) as c:
+        send = send.contiguous()
+        src = _host(send) if mesh.staged else send
+        out = torch.empty((sum(recv_counts),) + tuple(send.shape[1:]), dtype=send.dtype,
+                          pin_memory=mesh.staged, device="cpu" if mesh.staged else send.device)
+        dist.all_to_all_single(out, src, output_split_sizes=list(recv_counts),
+                               input_split_sizes=list(send_counts), group=mesh.group)
+        return c.done(out.to(mesh.device) if mesh.staged else out)
 
 
 def exchange_rounds(mesh: Mesh, sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -156,29 +171,33 @@ def exchange_rounds(mesh: Mesh, sends: Sequence[torch.Tensor]) -> List[torch.Ten
     (``sends[r - 1]``) goes to rank (k + r) % P and comes from (k - r) % P
     in a buffer of the same shape (the JAX package's ppermute by distance)."""
     k, P = mesh.rank, mesh.size
-    srcs = [_host(s) if mesh.staged else s.contiguous() for s in sends]
-    recvs = [torch.empty_like(s) for s in srcs]
-    ops = []
-    for r, (s, o) in enumerate(zip(srcs, recvs), start=1):
-        ops.append(dist.P2POp(dist.isend, s, (k + r) % P, group=mesh.group))
-        ops.append(dist.P2POp(dist.irecv, o, (k - r) % P, group=mesh.group))
-    if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-    return [o.to(mesh.device) for o in recvs] if mesh.staged else recvs
+    with costs.collective(mesh, "p2p", *sends) as c:
+        srcs = [_host(s) if mesh.staged else s.contiguous() for s in sends]
+        recvs = [torch.empty_like(s) for s in srcs]
+        ops = []
+        for r, (s, o) in enumerate(zip(srcs, recvs), start=1):
+            ops.append(dist.P2POp(dist.isend, s, (k + r) % P, group=mesh.group))
+            ops.append(dist.P2POp(dist.irecv, o, (k - r) % P, group=mesh.group))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        got = [o.to(mesh.device) for o in recvs] if mesh.staged else recvs
+        return c.done_p2p([((k + r) % P, s) for r, s in enumerate(sends, start=1)],
+                          [((k - r) % P, o) for r, o in enumerate(got, start=1)])
 
 
 def gather_rows(mesh: Mesh, t: torch.Tensor, dst: int = 0) -> Optional[torch.Tensor]:
     """Every rank's rows of ``t`` concatenated in rank order on rank
     ``dst`` (one gather; None on the other ranks). For output only: the
     steps never gather."""
-    src = _host(t) if mesh.staged else t.contiguous()
-    out = [torch.empty_like(src) for _ in range(mesh.size)] if mesh.rank == dst else None
-    dist.gather(src, out, dst=dst, group=mesh.group)
-    if out is None:
-        return None
-    g = torch.cat(out)
-    return g.to(mesh.device) if mesh.staged else g
+    with costs.collective(mesh, "gather", t) as c:
+        src = _host(t) if mesh.staged else t.contiguous()
+        out = [torch.empty_like(src) for _ in range(mesh.size)] if mesh.rank == dst else None
+        dist.gather(src, out, dst=dst, group=mesh.group)
+        if out is None:
+            return c.done(None, peer=dst)
+        g = torch.cat(out)
+        return c.done(g.to(mesh.device) if mesh.staged else g, peer=dst)
 
 
 def broadcast_flag(mesh: Mesh, flag: bool, src: int = 0) -> bool:

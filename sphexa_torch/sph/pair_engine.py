@@ -1178,7 +1178,8 @@ def _run(spec: OpSpec, ranges, i_fields, j_fields, box, cfg, const, lists=None, 
                              mask)
         else:
             raise ValueError(f"unsupported device {dev}")
-    charge_pair(spec, ranges, i_fields, j_fields, out[1], box, cfg, const, dt, lists, mask)
+    charge_pair(spec, ranges, i_fields, j_fields, out[1], box, cfg, const, dt, lists, mask,
+                outs=out)
     return out
 
 
@@ -1254,10 +1255,10 @@ def _pair_counts(t, spec, i_fields, j_fields, nc, consts, group, ranges, fold, l
 
 
 def charge_pair(spec, ranges, i_fields, j_fields, nc, box, cfg, const, dt=None,
-                lists=None, mask="own"):
+                lists=None, mask="own", outs=None):
     """Charge one K1 or K6 launch (``_run``'s arguments and its ``nc``
-    output) under its ``LAUNCHES`` key (``costs.pair_cost``); a no-op
-    without a tally."""
+    output; ``outs`` its outputs) under its ``LAUNCHES`` key
+    (``costs.pair_cost``); a no-op without a tally."""
     t = phases._TALLY
     if t is None:
         return
@@ -1273,7 +1274,8 @@ def charge_pair(spec, ranges, i_fields, j_fields, nc, box, cfg, const, dt=None,
     entry = spec.name + ("_lists" if lists is not None else "")
     form = NCOEF_FORM[len(consts["coeffs"])]
     costs.kernel_charge(entry if form is None else f"{entry}:{form}", ops, nbytes,
-                        counts={"runs": cand, "nb_pairs": t.nb_pairs, "pairs": pairs})
+                        counts={"runs": cand, "nb_pairs": t.nb_pairs, "pairs": pairs},
+                        outs=outs)
 
 
 # ---------------------------------------------------------------------------

@@ -299,7 +299,7 @@ def build_lists(cull, x, y, z, h, skin, slot_cap: int, cfg: NeighborConfig):
             out = build_lists_plain(cull, x, y, z, h, skin, slot_cap, cfg)
         else:
             raise ValueError(f"unsupported device {x.device}")
-    costs.charge_list_build(cull, x.shape[0], out[3], slot_cap)
+    costs.charge_list_build(cull, x.shape[0], out[3], slot_cap, outs=out)
     return out
 
 

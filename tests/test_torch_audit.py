@@ -121,8 +121,9 @@ def test_rule_catalog_matches_jax():
     from sphexa_tpu.devtools.audit.core import all_rules as jax_rules
 
     port, jax = all_rules(), jax_rules()
-    assert {"JXA101", "JXA104", "JXA105", "JXA301", "JXA302", "JXA303", "JXA401",
-            "JXA402", "JXA501", "JXA502", "JXA503"} == set(port)
+    assert {"JXA101", "JXA104", "JXA105", "JXA106", "JXA201", "JXA202", "JXA203", "JXA204",
+            "JXA301", "JXA302", "JXA303", "JXA401", "JXA402", "JXA501", "JXA502",
+            "JXA503"} == set(port)
     for rid, rule in port.items():
         assert rule.name == jax[rid].name, rid
 
@@ -146,7 +147,9 @@ def test_launch_contract_in_lock():
     """The lock's launch map: K12 and K13 once a gravity solve, K1's ops once
     a streaming step and K12 once where it has self-gravity, K13's one-row
     form once a block-dt step, K5 and each walk once in list mode, K1 never
-    there."""
+    there; on each of the two ranks of a sharded entry, K1's jdata ops once
+    a step, K12's jdata form and K13 once a sharded gravity stage, none in
+    an exchange, the ledger, the snapshot or the sizing."""
     lock = lowerdiff.load_lock(os.path.join(ROOT, lowerdiff.DEFAULT_LOCK_PATH))
     std = {"density": 1, "iad": 1, "momentum_energy_std": 1}
     ve = {"density": 1, "ve_def_gradh": 1, "iad": 1, "iad_divv_curlv": 1, "av_switches": 1,
@@ -162,10 +165,21 @@ def test_launch_contract_in_lock():
         "step_ve_lists": {"mark": 1, **{f"{k}_lists": 1 for k in ve}},
         "observable_ledger": {}, "observable_snapshot": {}, "knob_inertness": {},
     }
-    assert {k: v["launches"] for k, v in lock.items()} == want
+    grav = {"gravity_p2p": 1, "compact_class_lists": 1}
+    sharded = {"gravity_sharded": grav, "gravity_sharded_windowed": grav,
+               "step_std_sharded": std, "step_std_blockdt_sharded": {**std, "compact_row": 1},
+               **{k: {} for k in ("halo_exchange_sparse", "halo_exchange_windowed",
+                                  "observable_ledger_sharded", "observable_snapshot_sharded",
+                                  "tree_build_sizing")}}
+    want.update({k: [v, v] for k, v in sharded.items()})
+    assert {k: [r["launches"] for r in v["ranks"]] if "ranks" in v else v["launches"]
+            for k, v in lock.items()} == want
+    assert all(v["mesh"] == 2 for v in lock.values() if "ranks" in v)
     for name in ("step_std_lists", "step_ve_lists"):
         fp = lowerdiff.lowering_fingerprint(entry_trace(_entries()[name]))
         assert fp.launches == want[name]
+    trace = entry_trace(_entries()["step_std_sharded"])
+    assert [fp.launches for fp in lowerdiff.rank_fingerprints(trace)] == want["step_std_sharded"]
 
 
 def test_phase_order_matches_jax_lock():
@@ -357,7 +371,7 @@ def test_statecheck_fixtures(in_root, capsys):
 
 
 def test_cli_usage_errors(in_root, capsys):
-    assert tcli.main(["preflight"]) == 2
+    assert tcli.main(["preflight", "--mesh", "1"]) == 2
     assert tcli.main(["--cpu", "--select", "JXA999"]) == 2
     assert tcli.main(["--cpu", "--entries", "nope"]) == 2
     assert tcli.main(["schema", "--cpu", "--entries", "nope"]) == 2

@@ -287,9 +287,9 @@ def test_cost_cli_exit_codes(tmp_path, capsys, monkeypatch):
     rc, out = _run(tcli.main, ["cost", "--cpu", "--entries", "step_std", "--budget",
                                str(low)], capsys)
     assert rc == 1 and "JXA302" in out
-    # an unknown device or entry, the mode not ported: usage errors
+    # an unknown device or entry, a mesh of one rank: usage errors
     for argv in (["cost", "--cpu", "--device", "v5e"], ["cost", "--cpu", "--entries", "nope"],
-                 ["preflight"]):
+                 ["preflight", "--mesh", "1"]):
         assert tcli.main(argv) == 2, argv
     rc, out = _run(tcli.main, ["--list-rules"], capsys)
     assert rc == 0 and {"JXA301", "JXA302", "JXA303"} <= {ln.split()[0] for ln in
@@ -299,7 +299,11 @@ def test_cost_cli_exit_codes(tmp_path, capsys, monkeypatch):
     assert rc == 0 and names == {"step_std", "step_ve", "step_nbody", "step_turb_ve",
                                  "step_std_cooling", "gravity_solve", "step_std_blockdt",
                                  "observable_ledger", "observable_snapshot", "step_std_lists",
-                                 "step_ve_lists", "knob_inertness"}
+                                 "step_ve_lists", "knob_inertness", "halo_exchange_sparse",
+                                 "halo_exchange_windowed", "gravity_sharded",
+                                 "gravity_sharded_windowed", "step_std_sharded",
+                                 "step_std_blockdt_sharded", "observable_ledger_sharded",
+                                 "observable_snapshot_sharded", "tree_build_sizing"}
     if not torch.cuda.is_available():
         for argv in (["cost"], [], ["lowering"], ["schema"]):
             assert tcli.main(argv) == 2, argv  # the card unless --cpu
@@ -346,13 +350,25 @@ def _second_tally(entry):
 
 def test_registry_coverage_and_determinism(cpu_audit):
     """Every registry entry builds and runs on the CPU, at or above its
-    JXA301 floor, and two tallies of an entry are equal: the same costs and
-    the same record (the lowering lock's fingerprint, its alpha-stability
-    contract)."""
+    JXA301 floor (a sharded entry on each of its two ranks), and two
+    tallies of a one-device entry are equal: the same costs and the same
+    record (the lowering lock's fingerprint, its alpha-stability contract;
+    a sharded entry's records are held to the lock, written by another
+    process, in tests/test_torch_audit.py)."""
+    from sphexa_torch.devtools.audit.core import run_sharded
     from sphexa_torch.devtools.audit.lowerdiff import lowering_fingerprint
     from sphexa_torch.kernels.cost_checks import COMPARED, tally_entry
 
+    run_sharded(entries_from_namespace(vars(treg)), "cpu")  # one spawn for the nine
     for entry in entries_from_namespace(vars(treg)):
+        if entry.mesh_axes:
+            for view in tally_entry(entry, "cpu").ranks:
+                rep = tc.cost_report(view)
+                floor = entry.phase_coverage_min
+                floor = audit_context().phase_coverage_min if floor is None else floor
+                assert rep.coverage >= floor and not rep.unknown_scopes, (entry.name,
+                                                                          rep.coverage)
+            continue
         a, b = tally_entry(entry, "cpu"), _second_tally(entry)
         ra, rb = tc.cost_report(a), tc.cost_report(b)
         floor = entry.phase_coverage_min

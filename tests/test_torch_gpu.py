@@ -1167,7 +1167,11 @@ def test_cost_registry_card_matches_cpu():
     assert set(res) == {"step_std", "step_ve", "step_nbody", "step_turb_ve",
                         "step_std_cooling", "gravity_solve", "step_std_blockdt",
                         "observable_ledger", "observable_snapshot", "step_std_lists",
-                        "step_ve_lists", "knob_inertness"}
+                        "step_ve_lists", "knob_inertness", "halo_exchange_sparse",
+                        "halo_exchange_windowed", "gravity_sharded",
+                        "gravity_sharded_windowed", "step_std_sharded",
+                        "step_std_blockdt_sharded", "observable_ledger_sharded",
+                        "observable_snapshot_sharded", "tree_build_sizing"}
     for r in res.values():
         assert r["kernels"] == r["launches"]
     for name, want in cost_checks.LIST_KERNELS.items():
@@ -1187,3 +1191,23 @@ def test_audit_registry_card_matches_cpu():
     res = audit_checks.registry_card_vs_cpu_audit()
     assert res["step_std_lists"]["syncs"] and not res["step_std"]["syncs"]
     assert audit_checks.audit_cli_on_card() == {"audit": 0, "lowering": 0, "schema": 0}
+
+
+def test_audit_sharded_card_matches_cpu():
+    """The sharded entries on two ranks sharing the card (chip_smoke's
+    audit_path): each rank's findings (none), fingerprint, launch map,
+    schema row and collective sequence equal on the card, on the CPU and in
+    the committed locks, its static peak and the card's measured peak
+    reported; ``preflight`` exits 0 on the card at --mesh 2 and 4."""
+    _need_card()
+    from sphexa_torch.kernels import audit_checks
+
+    res = audit_checks.sharded_card_vs_cpu_audit()
+    assert len(res) == 9 and all(len(r["ranks"]) == 2 for r in res.values())
+    assert res["step_std_sharded"]["ranks"][0]["launches"] == {
+        "density": 1, "iad": 1, "momentum_energy_std": 1}
+    for r in res.values():
+        for rank in r["ranks"]:
+            assert rank["max_memory_allocated"] > 0 and rank["static_peak"] > 0
+    pre = audit_checks.preflight_on_card()
+    assert set(pre["mesh4"]) == set(res) and all(len(v) == 4 for v in pre["mesh4"].values())
