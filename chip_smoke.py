@@ -261,14 +261,18 @@ Phases, each printed as one JSON line:
    bit and K6 at the three groups and list_skin_rel 0.1 / 0.3 on the
    jittered Sedov 40; K12 and K13 at target_block 128 / 256 x super_factor
    0 / 4 / 16 on the tuned VE Evrard 30's solves); a budgeted sweep
-   (``run_sweep(measure_candidate)``, 8 candidates over group, cell_target,
+   (``run_sweep(measure_candidate)``, 5 candidates over group, cell_target,
    gap and list_skin_rel, 6 steps and one warm-up window each) on std
    Sedov 100^3 in list mode, each candidate's knobs, status and per-step
    ms, the launches over the sweep; the CLI with ``--tuned`` on the
    sweep's table (Sedov 100^3, 8 steps, ``--check-every 4``, a run dir and
    a ``--trace-dir`` capture, in this process, its launches counted), then
    the port's reader: ``summary --strict`` and ``tuning`` (source "table")
-   exit 0, the trace's coverage >= 0.8;
+   exit 0, the trace's coverage >= 0.8; the sweep over ranks
+   (``tuning_ranks``: ``sweep_on_ranks`` on std Sedov 100^3, two gloo
+   ranks sharing the card, NCCL with two cards; 3 candidates of
+   cell_target): every rank's history equal, each agreed value the slowest
+   rank's, each rank's K1 jdata launches 3 a step attempt, a p = 2 entry;
 29. ``cost_path``, the static roofline cost layer (devtools/audit): (a)
    ``python -m sphexa_torch.devtools.audit cost --device h100`` over the
    registry on the card exits 0 against COST_BUDGET_TORCH.json, and each
@@ -300,6 +304,14 @@ Phases, each printed as one JSON line:
    the card's ``max_memory_allocated`` over the same run (reset before it);
    ``preflight`` exits 0 on the card at ``--mesh 2`` and ``--mesh 4``
    (``audit_checks.sharded_card_vs_cpu_audit``, ``preflight_on_card``);
+31. ``tree_path``, the cornerstone tree: on the keys of std Sedov 100^3
+   and VE Evrard 125 the device pyramid equal to ``compute_octree`` bit
+   for bit (buckets 64 and 16), ``build_gravity_tree`` equal to the Evrard
+   Simulation's tree, the Evrard profile's continuum tree with the decode
+   on the card equal to the CPU's, each time beside the card;
+32. ``lint_path``: ``python -m sphexa_torch.devtools.lint sphexa_torch`` in
+   a subprocess (no JAX on this machine) exits 0, no finding, the
+   suppressions those committed in tests/test_torch_lint.py;
 
 then the engines line (every instantiation of the streaming engine K1 and
 the list walk K6: registers, spills, shared memory, resident warps per
@@ -324,6 +336,7 @@ script exits non-zero and prints no result; without a CUDA device, or
 without the rest of the repository beside it, it fails the same way.
 """
 
+import ast
 import collections
 import dataclasses
 import json
@@ -3202,6 +3215,67 @@ def sharded_gather_path(smi) -> dict:
 #: steps and the warm-up windows of each candidate
 TUNING_SWEEP = {"knobs": ("group", "cell_target", "gap", "list_skin_rel"), "budget": 8,
                 "steps": 6, "warmup": 1}
+#: the sweep over ranks (``tuning.replay.sweep_on_ranks``): std Sedov 100^3
+#: on two ranks (gloo sharing this card; NCCL with two cards), lists off
+TUNING_RANKS = {"knobs": ("cell_target",), "budget": 3, "steps": 6, "warmup": 1, "ranks": 2}
+
+
+def tuning_ranks(smi) -> dict:
+    """The sweep over ranks of ``tuning_path`` (d): ``sweep_on_ranks`` on
+    std Sedov 100^3 (``TUNING_RANKS``), one spawn: every rank's history
+    equal (knobs, statuses, agreed values, each rank's value), each agreed
+    value the maximum of the ranks' own, each rank's K1 jdata launches 3 a
+    step attempt (density, IAD, std momentum; nothing else), the table
+    entry keyed by p = 2. Returns rank 0's launches."""
+    import torch
+
+    from sphexa_torch.tuning import ReplaySpec, domains_for, make_entry, validate_table
+    from sphexa_torch.tuning.replay import sweep_on_ranks
+    from sphexa_torch.tuning.table import new_table, upsert_entry
+
+    t0 = time.perf_counter()
+    P = TUNING_RANKS["ranks"]
+    nccl = torch.cuda.device_count() >= P
+    spec = ReplaySpec(case="sedov", side=100, devices=P)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    ranks = sweep_on_ranks(spec, domains_for(TUNING_RANKS["knobs"]), TUNING_RANKS["budget"],
+                           steps=TUNING_RANKS["steps"], warmup=TUNING_RANKS["warmup"],
+                           launch={"device": None, "backend": "nccl" if nccl else "gloo",
+                                   "threads": None}, timeout=900)
+
+    def agreed(r):
+        return [(h["candidate"], h["knobs"], h["status"], h["value"], h["rank_values"])
+                for h in r["history"]]
+
+    if any(agreed(r) != agreed(ranks[0]) for r in ranks) or \
+            len(ranks[0]["history"]) != TUNING_RANKS["budget"]:
+        raise AssertionError(f"tuning ranks: histories differ: {[agreed(r) for r in ranks]}")
+    for i, h in enumerate(ranks[0]["history"]):
+        own = [r["history"][i]["own"].get("value") for r in ranks]
+        if h["status"] != "ok" or h["rank_values"] != own or h["value"] != max(own):
+            raise AssertionError(f"tuning ranks: candidate {i} {h} against own {own}")
+    for r in ranks:
+        attempts = sum(h.get("attempts", 0) for h in r["history"])
+        check_launches(f"tuning ranks rank {r['rank']}", r["launches"], attempts, STD_OPS)
+    best = ranks[0]["best"]["knobs"] or ranks[0]["history"][1]["knobs"]
+    table = new_table()
+    upsert_entry(table, make_entry("sedov", spec.n, P, "pallas", best, {
+        "source_run": "chip_smoke.py tuning_ranks", "created": time.strftime("%Y-%m-%d"),
+        "objective": "per_step_s", "device": smi}))
+    if validate_table(table) or table["entries"][0]["p"] != P:
+        raise AssertionError(f"tuning ranks table: {table}")
+    emit({"phase": "tuning_ranks", "card": smi, "backend": ranks[0]["backend"],
+          "ranks": P, "case": "sedov", "side": 100, **TUNING_RANKS,
+          "candidates": [{"knobs": h["knobs"], "status": h["status"],
+                          "agreed_ms": 1e3 * h["value"],
+                          "rank_ms": [1e3 * v for v in h["rank_values"]],
+                          "attempts": [r["history"][i].get("attempts") for r in ranks]}
+                         for i, h in enumerate(ranks[0]["history"])],
+          "best": ranks[0]["best"], "table_entry": table["entries"][0],
+          "launches": {r["rank"]: {k: v for k, v in r["launches"].items() if v}
+                       for r in ranks},
+          "seconds": time.perf_counter() - t0})
+    return ranks[0]["launches"]
 
 
 def tuning_path(spec, smi) -> dict:
@@ -3220,8 +3294,9 @@ def tuning_path(spec, smi) -> dict:
     particle count's decade), ``--check-every 4``, ``--telemetry-dir`` and
     ``--trace-dir``, in this process (its launches counted), then the
     port's own reader: ``summary --strict`` and ``tuning`` (source
-    "table") exit 0, ``trace`` covers >= 0.8. Returns the sweep's and the
-    CLI's launch counts."""
+    "table") exit 0, ``trace`` covers >= 0.8; (d) the sweep over two ranks
+    (``tuning_ranks``). Returns the sweep's, the CLI's and rank 0's launch
+    counts of the sweep over ranks."""
     import contextlib
     import io
 
@@ -3311,7 +3386,8 @@ def tuning_path(spec, smi) -> dict:
           "trace_phases": {p["phase"]: p["us"] for p in tr.get("phases", [])},
           "launches": cli_launches, "seconds": time.perf_counter() - t2,
           "phase_seconds": time.perf_counter() - t0})
-    return {"tuning_sweep": sweep_launches, "tuning_cli": cli_launches}
+    return {"tuning_sweep": sweep_launches, "tuning_cli": cli_launches,
+            "tuning_ranks": tuning_ranks(smi)}
 
 
 #: the steps of the main path the cost layer captures and tallies
@@ -3545,6 +3621,135 @@ def audit_path(smi) -> None:
     emit({"phase": "audit_sharded", "card": smi, "entries": sharded, "preflight": pre,
           "sharded_s": t3 - t2, "preflight_s": time.perf_counter() - t3,
           "seconds": time.perf_counter() - t2})
+
+
+def _evrard_rho(r: float):
+    """The Evrard sphere's density profile (rho ~ 1/r inside radius ``r``),
+    on float64 numpy coordinates."""
+    import numpy as np
+
+    def rho(x, y, z):
+        d = np.sqrt(x * x + y * y + z * z)
+        return np.where(d < r, 1.0 / np.maximum(d, 1e-6 * r), 0.0)
+
+    return rho
+
+
+def tree_path(smi) -> dict:
+    """Phase 31, the cornerstone tree (``sphexa_torch/tree``,
+    ``gravity/tree.build_gravity_tree``) at full width: the keys of std
+    Sedov 100^3 and of VE Evrard 125 (the Simulation's own, at its box),
+    sorted on the card; the device pyramid (``leaf_array_from_device_keys``
+    on the card, unsorted keys) equal to ``compute_octree`` of the host
+    keys bit for bit at GRAV_BUCKET (64) and 16; ``build_gravity_tree``'s
+    leaves, linkage and geometry equal to the Evrard Simulation's; the
+    continuum tree of the Evrard profile with the decode on the card equal
+    to the same call on the CPU. Each time beside the card."""
+    import numpy as np
+    import torch
+
+    from sphexa_torch.gravity.traversal import GRAV_BUCKET
+    from sphexa_torch.gravity.tree import build_gravity_tree
+    from sphexa_torch.init import init_evrard, init_sedov
+    from sphexa_torch.init.evrard import evrard_constants
+    from sphexa_torch.parallel.sizing import leaf_array_from_device_keys
+    from sphexa_torch.sfc.keys import compute_sfc_keys
+    from sphexa_torch.simulation import Simulation
+    from sphexa_torch.tree import compute_continuum_octree, compute_octree
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("sedov", "evrard"):
+        if name == "sedov":
+            state, box, _ = init_sedov(100, device="cuda")
+            sim, curve = None, "hilbert"
+        else:
+            state, box, const = init_evrard(125, device="cuda")
+            sim = Simulation(state, box, const, prop="ve", device="cuda")
+            state, box, curve = sim.state, sim.box, sim.curve
+        keys = compute_sfc_keys(state.x, state.y, state.z, box, curve=curve)
+        skeys, sort_ms = timed(lambda: torch.sort(keys).values)
+        host = skeys.cpu().numpy().astype(np.uint64)
+        r = {"n": int(keys.numel()), "sort_ms": sort_ms}
+        for bucket in (GRAV_BUCKET, 16):
+            leaf, card_ms = timed(lambda: leaf_array_from_device_keys(keys, bucket))
+            (ref, counts), host_ms = timed(lambda: compute_octree(host, bucket))
+            if not np.array_equal(leaf, ref) or leaf.dtype != ref.dtype:
+                raise AssertionError(f"tree {name} bucket {bucket}: the pyramid's "
+                                     f"{len(leaf) - 1} leaves differ from compute_octree's "
+                                     f"{len(ref) - 1}")
+            r[f"bucket_{bucket}"] = {"leaves": len(ref) - 1, "max_count": int(counts.max()),
+                                     "pyramid_ms": card_ms, "compute_octree_ms": host_ms}
+        if sim is not None:
+            (gtree, meta), build_ms = timed(lambda: build_gravity_tree(skeys, GRAV_BUCKET,
+                                                                       curve=curve,
+                                                                       device="cuda"))
+            same = meta == sim.cfg.grav_meta and all(
+                torch.equal(getattr(gtree, f), getattr(sim.gtree, f)) for f in (
+                    "leaf_keys", "parent", "is_leaf", "leaf_of_node", "node_of_leaf",
+                    "center_frac", "halfsize_frac"))
+            if not same:
+                raise AssertionError(f"tree {name}: build_gravity_tree differs from the "
+                                     f"Simulation's tree ({meta} vs {sim.cfg.grav_meta})")
+            r["build_gravity_tree"] = {"ms": build_ms, "nodes": meta.num_nodes,
+                                       "levels": len(meta.level_ranges)}
+            del sim
+        out[name] = r
+    rad = float(evrard_constants()["r"])
+    args = (_evrard_rho(rad), (-rad,) * 3, (2 * rad,) * 3, out["evrard"]["n"], GRAV_BUCKET)
+    (tc, cc), card_ms = timed(lambda: compute_continuum_octree(*args, device="cuda"))
+    (tp, cp), cpu_ms = timed(lambda: compute_continuum_octree(*args, device="cpu"))
+    if not (np.array_equal(tc, tp) and np.array_equal(cc, cp)):
+        raise AssertionError("continuum tree: the card's decode and the CPU's differ")
+    out["continuum_evrard"] = {"leaves": len(tc) - 1, "card_ms": card_ms, "cpu_ms": cpu_ms}
+    emit({"phase": "tree_path", "card": smi, **out, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def committed_suppressions(here: str) -> list:
+    """tests/test_torch_lint.py's ``PACKAGE_SUPPRESSED`` (the package's
+    inline suppressions, each a needed host read with its reason), read
+    from the file's syntax tree: the test imports JAX, this script does
+    not."""
+    path = os.path.join(here, "tests", "test_torch_lint.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "PACKAGE_SUPPRESSED" for t in node.targets):
+            return sorted(tuple(x) for x in ast.literal_eval(node.value))
+    raise AssertionError(f"{path}: no PACKAGE_SUPPRESSED")
+
+
+def lint_path(smi) -> dict:
+    """Phase 32, torchlint on this machine (no JAX): ``python -m
+    sphexa_torch.devtools.lint sphexa_torch --format json --show-suppressed``
+    in a subprocess exits 0 with no finding and no error (a suppression
+    without its reason is an error), and its suppressed findings are the
+    committed ones of tests/test_torch_lint.py (``committed_suppressions``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sphexa_torch.devtools.lint", "sphexa_torch",
+                           "--format", "json", "--show-suppressed"], cwd=here,
+                          capture_output=True, text=True, timeout=300)
+    rep = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    sup = [f"{f['path']}:{f['line']} {f['rule']}" for f in rep.get("suppressed", [])]
+    out = {"rc": proc.returncode, "findings": len(rep.get("findings", [None])),
+           "errors": len(rep.get("errors", [None])), "suppressed": sup,
+           "seconds": time.perf_counter() - t0}
+    got = sorted((f["path"], f["rule"]) for f in rep.get("suppressed", []))
+    if proc.returncode != 0 or out["findings"] or out["errors"] or \
+            got != committed_suppressions(here):
+        raise AssertionError(f"lint_path: {out} {proc.stderr[-2000:]}")
+    emit({"phase": "lint_path", "card": smi, **out})
+    return out
 
 
 def main() -> int:
@@ -3993,12 +4198,18 @@ def main() -> int:
     # 28. the tuning package and --tuned: every knob shape held to the plain
     # versions, a sweep at full width, the tuned CLI and the port's reader
     tune_launches = tuning_path(spec, smi)
+    rank_sweep = {"tuning_ranks": tune_launches.pop("tuning_ranks")}
     # 29. the static roofline cost layer: the registry card vs CPU, the main
     # path's phase roofline against its capture, the tally inert
     cost_launches = cost_path(smi, sim)
     # 30. the audit's trace rules, the lowering lock and statecheck: the
     # registry card vs CPU and the committed files, the syncs the card sees
     audit_path(smi)
+    # 31. the cornerstone tree: the pyramid against compute_octree at full
+    # width, build_gravity_tree against the Simulation's, the continuum
+    # tree card vs CPU; 32. torchlint clean on this machine
+    tree_path(smi)
+    lint_path(smi)
 
     # the engines' evidence: every instantiation of K1 and K6, and K12
     specs = {"density": pe.DENSITY, "iad": pe.IAD, "momentum_energy_std": pe.momentum_spec(const),
@@ -4147,7 +4358,7 @@ def main() -> int:
                 "bound_by": jd["bounds"][op]["bound_by"], "library_ms": None,
                 "launches_by_path": {p: la.get(op, 0) for p, la in
                                      {**shard_launches, **gshard_launches,
-                                      **pshard_launches}.items()}})
+                                      **pshard_launches, **rank_sweep}.items()}})
     # K12's jdata form on the sharded gravity path (rank 0 of the two gloo
     # ranks on this card): at the path's state, its launches there
     kj = gshard["ve"]["k12_jdata"]

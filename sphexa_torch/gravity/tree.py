@@ -10,10 +10,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sphexa_torch.device import resolve_device
 from sphexa_torch.dtypes import KEY_BITS
 from sphexa_torch.sfc.hilbert import hilbert_decode
 from sphexa_torch.sfc.morton import morton_decode
-from sphexa_torch.tree.csarray import KEY_RANGE, node_levels
+from sphexa_torch.tree.csarray import KEY_RANGE, compute_octree, node_levels
 
 
 @dataclasses.dataclass
@@ -42,6 +43,21 @@ class GravityTreeMeta:
     num_nodes: int
     # (start, end) node-index range per level, root level first
     level_ranges: Tuple[Tuple[int, int], ...]
+
+
+def build_gravity_tree(sorted_keys, bucket_size: int, curve: str = "hilbert", device=None
+                       ) -> Tuple[GravityTree, GravityTreeMeta]:
+    """The cornerstone leaf array of the sorted keys and its linkage
+    (sphexa_tpu/gravity/tree.py ``build_gravity_tree``: computeOctree,
+    csarray.hpp:456, then updateInternalTree). The host build:
+    ``sorted_keys`` (numpy, or an int64 key tensor read to the host once)
+    goes through ``tree.csarray.compute_octree``; the tree lands on
+    ``device`` (``device.resolve_device``: the card unless the caller asks
+    for the CPU). The Simulation builds its leaves on the device
+    (``parallel/sizing.leaf_array_from_device_keys``), equal to these bit
+    for bit."""
+    leaf_tree, _counts = compute_octree(sorted_keys, bucket_size)
+    return linkage_from_leaves(leaf_tree, curve, device=resolve_device(device))
 
 
 def linkage_from_leaves(leaf_tree, curve: str = "hilbert", device="cpu"

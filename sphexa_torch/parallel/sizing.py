@@ -162,6 +162,7 @@ def sizing_stats(mesh, x, y, z, box, level: int, group: int, curve: str = "hilbe
         ext = torch.stack([(g.amax(1) - g.amin(1)).max()
                            for g in (_pad_groups(a, group) for a in (xs, ys, zs))])
     _, (occ, ext), _ = reduce_scalars(mesh, maxes=[occ, ext])
+    # torchlint: disable=JXL002 -- the sizing's results, read once at configuration
     return int(occ), tuple(float(e) for e in ext.tolist())
 
 

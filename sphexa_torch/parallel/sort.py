@@ -124,7 +124,8 @@ def sort_slabs(mesh: Mesh, keys: torch.Tensor, cols: torch.Tensor,
     too, for ``to_owners``."""
     order = torch.argsort(keys, stable=True)
     skeys = keys[order]
-    cuts = cut_table(mesh, skeys, key_bits).tolist()  # the all_to_all's sizes: one host read
+    # torchlint: disable=JXL002 -- the all_to_all's sizes: one host read
+    cuts = cut_table(mesh, skeys, key_bits).tolist()
     k = mesh.rank
     send_counts = [cuts[k][d + 1] - cuts[k][d] for d in range(mesh.size)]
     recv_counts = [cuts[j][k + 1] - cuts[j][k] for j in range(mesh.size)]

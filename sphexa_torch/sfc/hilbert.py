@@ -7,13 +7,13 @@ bitwise. Values stay below 2**30, so int64 holds the uint32 keys exactly.
 
 import torch
 
-from sphexa_torch.dtypes import KEY_BITS
+from sphexa_torch.dtypes import KEY_BITS, KEY_DTYPE
 from sphexa_torch.sfc.morton import _compact_bits_3d, _spread_bits_3d
 
 
 def _axes_to_transpose(x0, x1, x2, bits):
     """Grid coords -> Hilbert transpose form (Skilling AxestoTranspose)."""
-    X = [x0.to(torch.int64), x1.to(torch.int64), x2.to(torch.int64)]
+    X = [x0.to(KEY_DTYPE), x1.to(KEY_DTYPE), x2.to(KEY_DTYPE)]
     q = 1 << (bits - 1)
     while q > 1:
         p = q - 1
@@ -38,7 +38,7 @@ def _axes_to_transpose(x0, x1, x2, bits):
 
 def _transpose_to_axes(x0, x1, x2, bits):
     """Inverse of :func:`_axes_to_transpose` (Skilling TransposetoAxes)."""
-    X = [x0.to(torch.int64), x1.to(torch.int64), x2.to(torch.int64)]
+    X = [x0.to(KEY_DTYPE), x1.to(KEY_DTYPE), x2.to(KEY_DTYPE)]
     t = X[2] >> 1
     X[2] = X[2] ^ X[1]
     X[1] = X[1] ^ X[0]
@@ -66,7 +66,7 @@ def hilbert_encode(ix, iy, iz, bits: int = KEY_BITS) -> torch.Tensor:
 
 def hilbert_decode(key: torch.Tensor, bits: int = KEY_BITS):
     """Decode Hilbert keys back into (ix, iy, iz) grid coordinates."""
-    key = key.to(torch.int64)
+    key = key.to(KEY_DTYPE)
     X = _transpose_to_axes(_compact_bits_3d(key >> 2), _compact_bits_3d(key >> 1),
                            _compact_bits_3d(key), bits)
     return X[0], X[1], X[2]

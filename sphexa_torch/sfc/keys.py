@@ -2,7 +2,7 @@
 
 import torch
 
-from sphexa_torch.dtypes import KEY_BITS
+from sphexa_torch.dtypes import INDEX_DTYPE, KEY_BITS, KEY_DTYPE
 from sphexa_torch.sfc.box import Box
 from sphexa_torch.sfc.hilbert import hilbert_encode
 from sphexa_torch.sfc.morton import morton_encode
@@ -16,7 +16,7 @@ def coords_to_igrid(v, vmin, vmax, bits: int = KEY_BITS) -> torch.Tensor:
     agree bitwise on cell edges and box faces."""
     n = 1 << bits
     scaled = (v - vmin) / (vmax - vmin) * n
-    return torch.clamp(scaled.to(torch.int32), 0, n - 1).to(torch.int64)
+    return torch.clamp(scaled.to(INDEX_DTYPE), 0, n - 1).to(KEY_DTYPE)
 
 
 def compute_sfc_keys(x, y, z, box: Box, bits: int = KEY_BITS,

@@ -880,6 +880,7 @@ class Simulation:
                 state, box, lists, *chem = rebuild_pair_lists(self.state, self.box,
                                                                self._cfg, aux=self.chem)
                 self.rebuilds += 1
+                # torchlint: disable=JXL002 -- the build's slot overflow decides a re-size
                 overflow = int(lists.overflow)
             if not overflow:
                 self.state, self.box, self._lists = state, box, lists

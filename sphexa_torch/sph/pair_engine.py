@@ -51,6 +51,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import struct
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -1457,7 +1458,7 @@ def av_switches_fields(x, y, z, vx, vy, vz, h, c, kx, xm, divv, alpha,
 
 
 #: 1/3 rounded to float32, the exponent of XLA's cbrt
-_THIRD_F32 = float(torch.tensor(1.0 / 3.0, dtype=torch.float32))
+_THIRD_F32 = struct.unpack("f", struct.pack("f", 1.0 / 3.0))[0]
 
 
 def eta_crit(nc: torch.Tensor) -> torch.Tensor:

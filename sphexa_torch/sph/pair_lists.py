@@ -324,6 +324,7 @@ def build_pair_lists(x, y, z, h, sorted_keys, box: Box, cfg: NeighborConfig,
     # the size of the walk's mask words, read on either device (the one
     # host sync of a build on both, as the audit's record expects); the
     # buffer is the kernel's, the plain walks keep none
+    # torchlint: disable=JXL002 -- the mask-word buffer's size
     nwords = int(word_off[-1]) * cfg.group
     words = None
     if x.device.type == "cuda":

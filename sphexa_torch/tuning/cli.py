@@ -19,10 +19,20 @@ nvidia-smi gives them) or ``cpu``. The flags are the JAX CLI's, plus
 is given, and refuses to start without one. A ``static-cost:<phase>``
 objective ranks the candidates by the static roofline prediction of one
 phase on ``--cost-device`` (default ``h100``; devtools/audit), one
-tallied step each, no time measured. ``--devices`` above 1 (a sweep over
-ranks) is not available here and exits 2. Exit codes: 0 = the sweep
-completed with a usable measurement, 1 = no candidate measured ok, 2 =
-unusable input.
+tallied step each, no time measured. ``--devices N`` (N > 1) sweeps
+over N ranks started once, by the app's rule: gloo ranks with ``--device
+cpu``, else NCCL with one card a rank (fewer cards exit 2): the ranks
+run the sweep (tuning/replay.py ``sweep_on_ranks``: the same search on
+every rank, each candidate's result agreed over the ranks, the slowest
+rank's value), and this process writes rank 0's history as the run
+dir's events and the table entry, keyed by ``p = N``. A ``static-cost:`` objective with
+``--devices N`` tallies the global step in this one process, as the JAX
+package's does. Exit codes: 0 = the sweep completed with a usable
+measurement, 1 = no candidate measured ok (or a rank died), 2 = unusable
+input.
+
+    python -m sphexa_torch.tuning --devices 2 --device cpu --case sedov \
+        --side 8 --budget 3
 """
 
 import argparse
@@ -52,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("auto", "pallas", "xla"))
     p.add_argument("--theta", type=float, default=0.5)
     p.add_argument("--devices", type=int, default=None,
-                   help="ranks (only 1: a sweep over ranks is not available)")
+                   help="ranks: N > 1 sweeps over N ranks (gloo with --device cpu, "
+                        "else NCCL with one card a rank)")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' (the kernels' plain versions)")
     p.add_argument("--knobs", default="target_block,cell_target,gap",
@@ -119,6 +130,7 @@ def card_label(device) -> str:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
 
     # resolving the spec before touching the device keeps bad input cheap
@@ -126,7 +138,10 @@ def main(argv=None) -> int:
         ReplaySpec, domains_for, load_table, make_entry, measure_candidate,
         new_table, run_sweep, save_table, spec_from_manifest, upsert_entry,
     )
-    from sphexa_torch.tuning.replay import STATIC_COST, static_cost_candidate
+    from sphexa_torch.tuning.replay import (
+        STATIC_COST, agreed_history, rank_launch, replayed, static_cost_candidate,
+        sweep_on_ranks,
+    )
 
     try:
         if args.objective.startswith(STATIC_COST):
@@ -148,15 +163,22 @@ def main(argv=None) -> int:
             spec = ReplaySpec(case=case, side=args.side, prop=args.prop,
                               backend=args.backend, theta=args.theta,
                               devices=args.devices, device=args.device)
-        if spec.devices is not None and spec.devices > 1:
-            raise ValueError(f"--devices {spec.devices}: a sweep over ranks is not "
-                             f"available in the port (one device only)")
         domains = domains_for(
             [k for k in args.knobs.split(",") if k])
     except (FileNotFoundError, ValueError, KeyError, OSError,
             json.JSONDecodeError) as e:
         print(f"sphexa-torch-tune: {e}", file=sys.stderr)
         return 2
+
+    ranks = spec.devices if spec.devices and spec.devices > 1 \
+        and not args.objective.startswith(STATIC_COST) else None
+    launch = None
+    if ranks is not None:
+        try:
+            launch = rank_launch(spec.device, ranks)
+        except ValueError as e:
+            print(f"sphexa-torch-tune: {e}", file=sys.stderr)
+            return 2
 
     from sphexa_torch.device import resolve_device
     from sphexa_torch.simulation import resolve_backend
@@ -190,7 +212,7 @@ def main(argv=None) -> int:
     trace_root = os.path.join(args.out, "trace")
     counter = {"i": 0}
 
-    def measure(knobs):
+    def measure_here(knobs):
         if args.objective.startswith(STATIC_COST):
             # rank by the static roofline prediction of one phase: one
             # tallied step, no time measured, no trace captured
@@ -204,9 +226,28 @@ def main(argv=None) -> int:
                                  warmup=args.warmup,
                                  objective=args.objective, trace_dir=td)
 
-    result = run_sweep(measure, domains, args.budget,
-                       telemetry=telemetry, objective=args.objective,
-                       log=say)
+    if ranks is None:
+        result = run_sweep(measure_here, domains, args.budget,
+                           telemetry=telemetry, objective=args.objective,
+                           log=say)
+    else:
+        # the ranks run the sweep (one spawn); this process writes what
+        # rank 0 agreed: run_sweep re-walks its history, emitting the
+        # events and log lines of the candidates the ranks measured
+        try:
+            per_rank = sweep_on_ranks(spec, domains, args.budget, args.steps, args.warmup,
+                                      args.objective, trace_root, launch=launch)
+            result = run_sweep(replayed(per_rank[0]["history"]), domains, args.budget,
+                               telemetry=telemetry, objective=args.objective, log=say)
+            if any(agreed_history(r["history"]) != agreed_history(result["history"])
+                   for r in per_rank):
+                raise RuntimeError("the ranks' agreed histories differ")
+        except Exception as e:  # noqa: BLE001 - a rank died: its error, exit 1
+            print(f"sphexa-torch-tune: the {ranks} ranks failed: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            recorder.close()
+            telemetry.close()
+            return 1
 
     base = result["baseline"]
     best = result["best"]

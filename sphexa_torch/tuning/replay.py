@@ -25,12 +25,23 @@ knob dict on it with the machinery the Simulation already uses:
 
 Exceptions propagate: ``search.run_sweep`` turns a dead candidate into a
 ``failed`` sweep event.
+
+A sweep over ranks (``sweep_on_ranks``, ``spec.devices`` = P > 1) starts
+the P ranks once (``parallel.mesh.spawn``) and runs the unchanged
+``search.run_sweep`` on every rank, each candidate a ``Simulation(
+num_devices=P)`` inside the rank's process group. The search is
+adaptive, so every rank must see the same result: ``rank_measure``
+catches a rank's error and agrees each candidate over the ranks in one
+all_gather (``agree``: the value is the maximum over the ranks, a step
+being as slow as its slowest rank; the status ``failed`` if any rank
+failed, else ``overflow`` if any overflowed, else ``ok``).
 """
 
 import dataclasses
 import math
 import os
-from typing import Dict, Optional
+import tempfile
+from typing import Callable, Dict, List, Optional
 
 from sphexa_torch.telemetry import MemorySink, Telemetry, read_manifest
 
@@ -111,7 +122,11 @@ def measure_candidate(spec: ReplaySpec, knobs: Dict, steps: int = 6,
     candidate ran with). ``status`` is ``ok``, or ``overflow`` when the run
     needed a rollback and replay (the time then includes the recovery: a
     cap-busting candidate is legal but scored at its true cost and
-    flagged). Lower is better for every objective."""
+    flagged). Lower is better for every objective. ``attempts`` (not in
+    the JAX package's result) counts the step attempts the candidate's
+    Simulation made, the warm-up's and the replays included. Inside the
+    ranks of a sweep (``spec.devices`` > 1) the Simulation takes the
+    rank's process group, and a phase capture is this rank's own."""
     if objective.startswith(STATIC_COST):
         return static_cost_candidate(spec, knobs, objective[len(STATIC_COST):])
     import torch
@@ -156,7 +171,8 @@ def measure_candidate(spec: ReplaySpec, knobs: Dict, steps: int = 6,
     finally:
         if profiler is not None:
             profiler.stop()
-            profiler.export_chrome_trace(os.path.join(trace_dir, "rank0.pt.trace.json"))
+            rank = sim.mesh.rank if sim.mesh is not None else 0
+            profiler.export_chrome_trace(os.path.join(trace_dir, f"rank{rank}.pt.trace.json"))
     windows = mem.of_kind("window")
     wall = sum(w["wall_s"] for w in windows)
     done = sum(w["steps"] for w in windows)
@@ -171,6 +187,7 @@ def measure_candidate(spec: ReplaySpec, knobs: Dict, steps: int = 6,
         "windows": len(windows),
         "rollbacks": rollbacks,
         "reconfigures": int(inner.counters["reconfigures"] - base_reconfigs),
+        "attempts": int(sim.iteration + sim.replays),
         # the neighbour config the candidate ran with (the JAX package's
         # result has no such key; the sweep events do not carry it)
         "config": {**{k: getattr(sim.cfg.nbr, k) for k in (
@@ -210,7 +227,11 @@ def static_cost_candidate(spec: ReplaySpec, knobs: Dict, phase: str,
     the cost model: hold it against a capture with ``python -m
     sphexa_torch.telemetry trace <capture> --predict`` before trusting it.
     Returns the JAX package's result dict (``steps`` 0: no measured
-    step)."""
+    step). A spec over ranks (``devices`` > 1) is tallied as the JAX
+    package's static cost tallies it: the unsharded global step on the
+    global state, in one process (its ``static_cost_candidate`` traces
+    ``step_hydro_std`` and its siblings, which never take the mesh, on
+    ``sim.state``)."""
     from sphexa_torch.devtools.audit.core import EntryPoint, EntryTrace
     from sphexa_torch.devtools.audit.costmodel import cost_report, predict
     from sphexa_torch.devtools.audit.registry import _step_case
@@ -219,7 +240,7 @@ def static_cost_candidate(spec: ReplaySpec, knobs: Dict, phase: str,
     state, box, const = build_case(spec)
     sim = Simulation(
         state, box, const, prop=spec.prop, theta=spec.theta,
-        backend=spec.backend, num_devices=spec.devices, device=spec.device,
+        backend=spec.backend, device=spec.device,
         tuned=dict(knobs) if knobs else None, workload=spec.case,
     )
     case = _step_case(sim)
@@ -240,3 +261,169 @@ def static_cost_candidate(spec: ReplaySpec, knobs: Dict, phase: str,
         "device": pred.device,
         "steps": 0, "windows": 0, "rollbacks": 0, "reconfigures": 0,
     }
+
+
+# ---------------------------------------------------------------------------
+# the sweep over ranks
+# ---------------------------------------------------------------------------
+
+#: a candidate's statuses, in the order the agreement takes the worst
+_STATUSES = ("ok", "overflow", "failed")
+
+#: seconds a sweep's ranks may run: a rank left waiting in a collective by
+#: a peer that failed is stopped there
+RANK_TIMEOUT = 3600.0
+
+
+def agree(mesh, own: Dict) -> Dict:
+    """One candidate's result agreed over the ranks of ``mesh`` in one
+    all_gather of (status, value, per_step_s): ``status`` the worst of
+    the ranks' (``failed`` over ``overflow`` over ``ok``), ``value`` and
+    ``per_step_s`` the maximum over the ranks (None when failed),
+    ``rank_values`` each rank's value in rank order. The rank's own
+    result is kept under ``own``; the other keys are this rank's
+    (``steps``, ``rollbacks``, ...: replicated decisions)."""
+    import torch
+
+    from sphexa_torch.parallel.mesh import all_gather
+
+    status = own.get("status")
+    code = _STATUSES.index(status) if status in _STATUSES else len(_STATUSES) - 1
+
+    def num(v):
+        return float(v) if code < 2 and isinstance(v, (int, float)) else math.nan
+
+    row = torch.tensor([code, num(own.get("value")), num(own.get("per_step_s"))],
+                       dtype=torch.float64, device=mesh.device)
+    rows = all_gather(mesh, row).cpu().tolist()
+    codes = [int(r[0]) for r in rows]
+    worst = _STATUSES[max(codes)]
+
+    def top(col):
+        vals = [r[col] for r in rows]
+        return math.nan if any(math.isnan(v) for v in vals) else max(vals)
+
+    rec = {k: v for k, v in own.items() if k not in ("status", "value", "per_step_s", "error")}
+    rec.update(status=worst, value=None, per_step_s=None,
+               rank_values=[None if c == 2 else r[1] for c, r in zip(codes, rows)],
+               own={k: own.get(k) for k in ("status", "value", "per_step_s", "error")
+                    if k in own})
+    if worst == "failed":
+        rec["error"] = f"failed on rank(s) {[r for r, c in enumerate(codes) if c == 2]}"
+    else:
+        rec.update(value=top(1), per_step_s=top(2))
+    return rec
+
+
+def rank_measure(mesh, spec: ReplaySpec, steps: int = 6, warmup: int = 1,
+                 objective: str = "per_step_s",
+                 trace_dir: Optional[str] = None) -> Callable[[Dict], Dict]:
+    """The ``measure`` of ``search.run_sweep`` on one rank of a sweep:
+    ``measure_candidate`` on this rank (an error caught and taken as
+    ``failed``, so that no rank is left waiting in the agreement), then
+    ``agree``. An error raised while the peers still wait in a collective
+    of the candidate's own Simulation cannot be agreed: gloo aborts on the
+    mismatched collective, or the ranks wait until ``spawn``'s timeout,
+    and ``sweep_on_ranks`` raises (the CLI exits 1). With ``objective="phase:<name>"`` candidate i's capture is
+    ``<trace_dir>/cand<i>/rank-<r>``."""
+    counter = {"i": 0}
+
+    def measure(knobs: Dict) -> Dict:
+        td = None
+        if objective.startswith("phase:") and trace_dir:
+            td = os.path.join(trace_dir, f"cand{counter['i']}", f"rank-{mesh.rank}")
+        counter["i"] += 1
+        try:
+            own = measure_candidate(spec, knobs, steps=steps, warmup=warmup,
+                                    objective=objective, trace_dir=td)
+        except Exception as e:  # noqa: BLE001 - a dead candidate on this rank
+            own = {"status": "failed", "value": None, "error": f"{type(e).__name__}: {e}"}
+        return agree(mesh, own)
+
+    return measure
+
+
+def agreed_history(history: List[Dict]) -> List[tuple]:
+    """What every rank of a sweep holds alike: each candidate's number,
+    knobs, agreed status and value, and the ranks' values (the rest of a
+    record is the rank's own)."""
+    return [(h["candidate"], h["knobs"], h["status"], h["value"], h.get("rank_values"))
+            for h in history]
+
+
+def replayed(history: List[Dict]) -> Callable[[Dict], Dict]:
+    """A ``measure`` that answers ``run_sweep`` with a finished sweep's
+    results in their order, so that ``run_sweep`` walks the same
+    candidates again and emits their ``sweep`` events and log lines where
+    the sweep was not measured (the CLI's process, from rank 0's history).
+    A candidate out of order gives a ``failed`` record, which the caller
+    sees as a history that differs."""
+    records = iter(history)
+
+    def measure(knobs: Dict) -> Dict:
+        rec = next(records)
+        if rec["knobs"] != knobs:
+            raise ValueError(f"replay out of order: {knobs} where the sweep ran "
+                             f"{rec['knobs']}")
+        return {k: v for k, v in rec.items() if k not in ("candidate", "knobs")}
+
+    return measure
+
+
+def _sweep_rank(mesh, spec: ReplaySpec, domains: Dict, budget: int, steps: int, warmup: int,
+                objective: str, trace_dir: Optional[str]) -> Dict:
+    """One rank of ``sweep_on_ranks``: ``run_sweep`` over ``rank_measure``,
+    with this rank's kernel launches over the sweep (the wrappers' counts,
+    zero on the CPU)."""
+    from sphexa_torch.sph import pair_engine as pe
+    from sphexa_torch.tuning.search import run_sweep
+
+    pe.reset_launches()
+    result = run_sweep(rank_measure(mesh, spec, steps, warmup, objective, trace_dir),
+                       domains, budget, objective=objective)
+    return {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+            "device": str(mesh.device), "launches": dict(pe.LAUNCHES), **result}
+
+
+def rank_launch(device, nprocs: int) -> Dict:
+    """``spawn``'s launch arguments for ``nprocs`` ranks (the app's rule):
+    gloo ranks on the CPU with ``device="cpu"``, else NCCL with one card a
+    rank; raises ``ValueError`` with fewer cards than ranks."""
+    import torch
+
+    if device is not None and str(device) == "cpu":
+        return {"device": "cpu", "backend": "gloo",
+                "threads": max(1, (os.cpu_count() or 1) // nprocs)}
+    if torch.cuda.device_count() < nprocs:
+        raise ValueError(f"--devices {nprocs}: NCCL needs one card per rank, "
+                         f"{torch.cuda.device_count()} present (--device cpu runs gloo ranks)")
+    return {"device": device, "backend": "nccl", "threads": None}
+
+
+def sweep_on_ranks(spec: ReplaySpec, domains: Dict, budget: int, steps: int = 6,
+                   warmup: int = 1, objective: str = "per_step_s",
+                   trace_dir: Optional[str] = None, launch: Optional[Dict] = None,
+                   timeout: float = RANK_TIMEOUT) -> List[Dict]:
+    """The sweep of ``spec`` over its ``devices`` ranks, started once
+    (``parallel.mesh.spawn``): every rank runs ``search.run_sweep`` with
+    ``rank_measure``, so that every rank takes the same candidates and
+    ends with the same history. Returns each rank's ``run_sweep`` result
+    (``baseline``, ``best``, ``improved``, ``history``, ``candidates``)
+    with its ``rank``, ``backend``, ``device`` and ``launches``, in rank
+    order. ``launch``: ``spawn``'s device, backend and threads (default
+    ``rank_launch``; gloo ranks sharing one card are asked for with
+    ``{"device": None, "backend": "gloo"}``). A rank that dies, or ranks
+    past ``timeout`` seconds, raise here. A ``static-cost:`` objective
+    measures nothing on the ranks: it tallies the global step in one
+    process (``static_cost_candidate``)."""
+    from sphexa_torch.parallel.mesh import spawn
+
+    P = spec.devices or 1
+    if P < 2 or objective.startswith(STATIC_COST):
+        raise ValueError(f"a sweep over ranks needs devices > 1 and a measured objective, "
+                         f"got devices {spec.devices}, {objective!r}")
+    launch = rank_launch(spec.device, P) if launch is None else launch
+    with tempfile.TemporaryDirectory(prefix="sphexa-tune-ranks-") as wd:
+        return spawn(_sweep_rank, P, args=(spec, domains, budget, steps, warmup, objective,
+                                           trace_dir),
+                     workdir=wd, timeout=timeout, **launch)

@@ -83,7 +83,13 @@ def test_port_sources_found():
                 *(("devtools", "audit", "rules", f"{r}.py") for r in (
                     "jxa101_dtype_promotion", "jxa104_host_boundary", "jxa105_const_bloat",
                     "jxa401_nondeterminism", "jxa402_knob_inertness", "jxa501_schema_drift",
-                    "jxa502_vmap", "jxa503_carry_closure"))):
+                    "jxa502_vmap", "jxa503_carry_closure")),
+                ("tree", "__init__.py"), ("tree", "inject.py"), ("tree", "continuum.py"),
+                *(("devtools", "lint", f) for f in (
+                    "__init__.py", "__main__.py", "core.py", "cli.py", "scope.py")),
+                *(("devtools", "lint", "rules", f"{r}.py") for r in (
+                    "__init__", "jxl001_import_tensors", "jxl002_host_sync",
+                    "jxl003_dtype_policy", "jxl006_collectives"))):
         assert os.path.join("sphexa_torch", *mod) in names
 
 

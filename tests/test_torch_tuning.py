@@ -420,15 +420,98 @@ def test_micro_sweep_writes_events_and_a_table(tmp_path, capsys):
                              trace_dir=str(tmp_path / "trace"))
     assert r["status"] == "ok" and 0 < r["value"] == r["phase_us"] / r["steps"]
     assert r["config"]["gap"] == 128
-    # the static roofline objective sweeps on the CPU; the refusals: ranks,
-    # an unknown cost device, no card
+    # the static roofline objective sweeps on the CPU; a sweep over two
+    # gloo ranks runs (rank 0 writes the p = 2 entry); the refusals: an
+    # unknown cost device, no card
     assert tcli.main(["--device", "cpu", "--case", "sedov", "--side", "8", "--out", out,
                       "--objective", "static-cost:density", "--budget", "2",
                       "--quiet"]) == 0
-    for extra in (["--devices", "2"], ["--objective", "static-cost:density",
-                                       "--cost-device", "v5e"]):
+    ranked = str(tmp_path / "ranked.json")
+    assert tcli.main(["--device", "cpu", "--case", "sedov", "--side", "8", "--out", out,
+                      "--devices", "2", "--knobs", "cell_target", "--budget", "2",
+                      "--steps", "2", "--commit", "best", "--write-table", ranked,
+                      "--quiet"]) == 0
+    assert [e["p"] for e in ttable.load_table(ranked)["entries"]] == [2]
+    for extra in (["--objective", "static-cost:density", "--cost-device", "v5e"],):
         assert tcli.main(["--device", "cpu", "--case", "sedov", "--side", "8",
                           "--out", out] + extra) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(["--case", "sedov", "--side", "8", "--out", out])
+
+
+def test_sweep_over_two_gloo_ranks_agrees(tmp_path):
+    """One spawn of two gloo ranks, each running its sweep as
+    ``sweep_on_ranks`` runs it: every rank takes the same candidates and
+    ends with the same history; each agreed value is the maximum of the
+    ranks' own; the entry of the result keys as the JAX package's entry of
+    the same spec at p = 2. Then a candidate that raises on rank 1 alone:
+    both ranks record it ``failed`` with rank 0's value beside None, and
+    both go on to the same next candidate."""
+    from sphexa_torch.parallel.mesh import spawn
+
+    from torch_rank_sweeps import sweep_and_fault
+
+    spec = tt.ReplaySpec(case="sedov", side=8, devices=2, device="cpu")
+    fault = {"cell_target": 64}
+    ranks = spawn(sweep_and_fault, 2, args=(spec, tt.domains_for(["cell_target"]), 3, 2, fault),
+                  workdir=str(tmp_path), device="cpu", backend="gloo", threads=1, timeout=600)
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert all(r["candidates"] == 3 for r in ranks)
+
+    def agreed(r):
+        return [(h["candidate"], h["knobs"], h["status"], h["value"], h["rank_values"])
+                for h in r["history"]]
+
+    assert agreed(ranks[0]) == agreed(ranks[1])
+    assert [h["knobs"] for h in ranks[0]["history"]] == [{}, {"cell_target": 64},
+                                                        {"cell_target": 256}]
+    for i, h in enumerate(ranks[0]["history"]):
+        own = [r["history"][i]["own"]["value"] for r in ranks]
+        assert h["status"] == "ok" and h["rank_values"] == own
+        assert h["value"] == max(own) and h["per_step_s"] == h["value"]
+    assert ranks[0]["best"] == ranks[1]["best"]
+    backend = tsim.resolve_backend(spec.backend)
+    entry = ttable.make_entry(spec.case, spec.n, spec.devices, backend,
+                              ranks[0]["best"]["knobs"] or {"cell_target": 64}, {})
+    jentry = jtable.make_entry(spec.case, spec.n, 2, backend, dict(entry["knobs"]), {})
+    assert jtable.entry_key(entry) == jtable.entry_key(jentry)
+    assert entry["p"] == 2
+
+    # trouble 3: the candidate raised on rank 1 only; no rank waited alone
+    faulted = [r["faulted"] for r in ranks]
+    assert agreed(faulted[0]) == agreed(faulted[1])
+    assert [h["knobs"] for h in faulted[0]["history"]] == [{}, fault, {"cell_target": 256}]
+    for r, f in enumerate(faulted):
+        bad = f["history"][1]
+        assert (bad["status"], bad["value"]) == ("failed", None)
+        assert bad["rank_values"][1] is None and bad["rank_values"][0] > 0
+        assert "rank(s) [1]" in bad["error"]
+        assert bad["own"]["status"] == ("ok" if r == 0 else "failed")
+        assert [h["status"] for h in f["history"]] == ["ok", "failed", "ok"]
+
+
+def test_agree_takes_the_worst_status_and_the_slowest_rank(tmp_path):
+    """``agree`` on one rank (the all_gather of a one-rank mesh): a failed
+    result is failed with no value; on two ranks the tests above hold the
+    maximum."""
+    import torch.distributed as dist
+
+    from sphexa_torch.parallel.mesh import Mesh
+    from sphexa_torch.tuning.replay import agree
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already running")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdzv'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = Mesh(group=dist.group.WORLD, rank=0, size=1, device=torch.device("cpu"),
+                    backend="gloo")
+        ok = agree(mesh, {"status": "overflow", "value": 2.0, "per_step_s": 2.0, "steps": 4})
+        assert (ok["status"], ok["value"], ok["rank_values"], ok["steps"]) == \
+            ("overflow", 2.0, [2.0], 4)
+        bad = agree(mesh, {"status": "failed", "value": None, "error": "RuntimeError: x"})
+        assert (bad["status"], bad["value"], bad["rank_values"]) == ("failed", None, [None])
+        assert bad["own"]["error"] == "RuntimeError: x" and "rank(s) [0]" in bad["error"]
+    finally:
+        dist.destroy_process_group()
